@@ -1,0 +1,209 @@
+// Walk-banded SGNS macro step (O1) for Hopper, f32 tables.
+//
+// Replaces the Pallas kernel come_tpu/ops/pallas_walk_sgns.py::_walk_kernel
+// as called by fused_walk_sgns_step (f32 tables, paired=False, no in-kernel
+// walk generation).  Semantics are the TPU kernel's, group by group in
+// order: for each group of 8 walks (1024 slots, walk j at slots
+// j*128 .. j*128+L-1) the rows are read from the tables as the previous
+// group left them, and
+//   * at an R-block start the pool rows are staged and dneg is zeroed;
+//   * centre t trains contexts u of its own walk with 0 < |u-t| <= wrow[t]
+//     (u, t < L): g = sigmoid(phi_t . ctx_u) - 1, dphi_t += g ctx_u,
+//     dctx_u += g phi_t, n_t = number of such u;
+//   * every slot scores the staged pool with weight negw * n_t
+//     (sgns_common.cuh: negative_kernel);
+//   * each slot adds -lr*dphi to node_emb[v] and -lr*dctx to ctx_emb[v]
+//     with atomicAdd, so duplicate rows sum exactly as the TPU's
+//     sequential read-modify-writes do (in another order);
+//   * at an R-block end the pool gradient is applied (atomic: pools are
+//     drawn with replacement).
+// The window draws come in as `wrow` (the TPU drew them in-kernel), so the
+// kernel, its plain PyTorch version and the numpy oracle see the same ones.
+//
+// What bounds it on the H100: the negative pass (3 x 128 x KP x d
+// multiply-adds per walk) is compute; the positive band is at most 2W
+// dot products per centre and is small; the gathers and the scatter are
+// row traffic.  This first design computes only the band entries the mask
+// keeps (warp per centre, lanes across d), runs the negative pass as a
+// tiled f32 SIMT product over 8 x ceil(KP/64) CTAs per group, and keeps the
+// group-sequential order with stream-ordered launches; the host makes one
+// call per macro step and the loop over groups runs here.
+
+#include "sgns_common.cuh"
+
+namespace come {
+
+static inline size_t walk_pos_smem_bytes(int d, int W) {
+  return sizeof(float) * ((size_t)2 * BLK * (d + 1) + (size_t)BLK * (2 * W + 1));
+}
+
+// Positive band of one walk.  grid NBLK (one CTA per walk), block THREADS.
+// Writes (overwrites) dphi, dctx and nt for the walk's 128 slots and adds
+// the positive loss and the pair count to stats.
+static __global__ void __launch_bounds__(THREADS)
+walk_pos_kernel(const float* __restrict__ emb_in,
+                const float* __restrict__ emb_out,
+                const int* __restrict__ walks, const int* __restrict__ wrow,
+                int d, int L, int W, float* __restrict__ dphi,
+                float* __restrict__ dctx, float* __restrict__ nt,
+                double* __restrict__ stats) {
+  extern __shared__ float smem[];
+  const int ds = d + 1, bw = 2 * W + 1;
+  float* phi = smem;             // [BLK][ds]
+  float* ctx = phi + BLK * ds;   // [BLK][ds]
+  float* gb = ctx + BLK * ds;    // [BLK][2W+1]: g[t, u] at gb[t*bw + u-t+W]
+  const int base = blockIdx.x * BLK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int idx = threadIdx.x; idx < BLK * d; idx += THREADS) {
+    const int t = idx / d, k = idx - t * d;
+    const size_t row = (size_t)walks[base + t] * d + k;
+    phi[t * ds + k] = emb_in[row];
+    ctx[t * ds + k] = emb_out[row];
+  }
+  for (int idx = threadIdx.x; idx < BLK * bw; idx += THREADS) gb[idx] = 0.0f;
+  __syncthreads();
+
+  float loss = 0.0f, pairs = 0.0f;
+  for (int t = warp; t < BLK; t += NWARPS) {
+    float acc[KMAX];
+#pragma unroll
+    for (int m = 0; m < KMAX; ++m) acc[m] = 0.0f;
+    int n = 0;
+    if (t < L) {
+      const int w = min(wrow[base + t], W);
+      const int lo = max(0, t - w), hi = min(L - 1, t + w);
+      for (int u = lo; u <= hi; ++u) {
+        if (u == t) continue;
+        float p = 0.0f;
+#pragma unroll
+        for (int m = 0; m < KMAX; ++m) {
+          const int k = lane + 32 * m;
+          if (k < d) p = fmaf(phi[t * ds + k], ctx[u * ds + k], p);
+        }
+        const float s = warp_sum(p);
+        const float g = sigmoid_f(s) - 1.0f;
+        if (lane == 0) {
+          gb[t * bw + (u - t + W)] = g;
+          loss -= log_sigmoid_f(s);
+        }
+#pragma unroll
+        for (int m = 0; m < KMAX; ++m) {
+          const int k = lane + 32 * m;
+          if (k < d) acc[m] = fmaf(g, ctx[u * ds + k], acc[m]);
+        }
+        ++n;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < KMAX; ++m) {
+      const int k = lane + 32 * m;
+      if (k < d) dphi[(size_t)(base + t) * d + k] = acc[m];
+    }
+    if (lane == 0) {
+      nt[base + t] = (float)n;
+      pairs += (float)n;
+    }
+  }
+  __syncthreads();  // the whole band of g is in gb
+
+  // dctx[u] = sum_t g[t, u] phi[t]  (gb is zero outside each t's window)
+  for (int u = warp; u < BLK; u += NWARPS) {
+    float acc[KMAX];
+#pragma unroll
+    for (int m = 0; m < KMAX; ++m) acc[m] = 0.0f;
+    if (u < L) {
+      const int lo = max(0, u - W), hi = min(L - 1, u + W);
+      for (int t = lo; t <= hi; ++t) {
+        if (t == u) continue;
+        const float g = gb[t * bw + (u - t + W)];
+#pragma unroll
+        for (int m = 0; m < KMAX; ++m) {
+          const int k = lane + 32 * m;
+          if (k < d) acc[m] = fmaf(g, phi[t * ds + k], acc[m]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < KMAX; ++m) {
+      const int k = lane + 32 * m;
+      if (k < d) dctx[(size_t)(base + u) * d + k] = acc[m];
+    }
+  }
+  block_add(loss, &stats[0]);
+  block_add(pairs, &stats[1]);
+}
+
+// emb_in[v] -= lr*dphi[t], emb_out[v] -= lr*dctx[t] for the group's real
+// slots (position < L; padded positions carry exactly zero updates).
+// grid GROUP, block 128.
+static __global__ void walk_scatter_kernel(float* __restrict__ emb_in,
+                                           float* __restrict__ emb_out,
+                                           const int* __restrict__ walks,
+                                           const float* __restrict__ dphi,
+                                           const float* __restrict__ dctx,
+                                           int d, int L, float lr) {
+  const int t = blockIdx.x;
+  if (t % BLK >= L) return;
+  const size_t dst = (size_t)walks[t] * d, src = (size_t)t * d;
+  for (int k = threadIdx.x; k < d; k += blockDim.x) {
+    atomicAdd(&emb_in[dst + k], -lr * dphi[src + k]);
+    atomicAdd(&emb_out[dst + k], -lr * dctx[src + k]);
+  }
+}
+
+}  // namespace come
+
+using namespace come;
+
+// One O1 macro step over G groups.  All buffers are device pointers:
+//   emb_in, emb_out [V, d] f32 (updated in place)
+//   walks, wrow     [G * 1024] i32 (walk j of group g at g*1024 + j*128)
+//   pools           [ceil(G / R), KP] i32
+//   stats           [2] f64, accumulates (loss, pairs)
+//   cneg, dneg      [KP, d] f32 scratch
+//   dphi, dctx      [1024, d] f32 scratch;  nt [1024] f32 scratch
+// Returns 0 or the first CUDA error code.  Launches on `stream`, does not
+// synchronise and allocates nothing.
+extern "C" int come_walk_sgns_step(float* emb_in, float* emb_out,
+                                   const int* walks, const int* wrow,
+                                   const int* pools, double* stats,
+                                   float* cneg, float* dneg, float* dphi,
+                                   float* dctx, float* nt, int d, int G, int L,
+                                   int W, int KP, int R, float lr, float negw,
+                                   void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (d > MAX_DIM || L > BLK || W < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  const size_t pos_smem = walk_pos_smem_bytes(d, W);
+  const size_t neg_smem = negative_smem_bytes(d);
+  cudaError_t e = cudaFuncSetAttribute(
+      walk_pos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pos_smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(
+      negative_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)neg_smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 neg_grid(NBLK, (KP + KC - 1) / KC);
+  for (int g = 0; g < G; ++g) {
+    const int* pool = pools + (size_t)(g / R) * KP;
+    const int* wg = walks + (size_t)g * GROUP;
+    if (g % R == 0) {
+      stage_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
+      COME_CHECK_LAUNCH();
+    }
+    walk_pos_kernel<<<NBLK, THREADS, pos_smem, stream>>>(
+        emb_in, emb_out, wg, wrow + (size_t)g * GROUP, d, L, W, dphi, dctx, nt,
+        stats);
+    COME_CHECK_LAUNCH();
+    negative_kernel<<<neg_grid, THREADS, neg_smem, stream>>>(
+        emb_in, wg, nt, cneg, d, KP, negw, dphi, dneg, stats);
+    COME_CHECK_LAUNCH();
+    walk_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb_in, emb_out, wg, dphi,
+                                                   dctx, d, L, lr);
+    COME_CHECK_LAUNCH();
+    if (g % R == R - 1 || g == G - 1) {
+      apply_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, dneg, d, lr);
+      COME_CHECK_LAUNCH();
+    }
+  }
+  return 0;
+}

@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels.
+
+``come_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+sources include no PyTorch headers, so a build takes seconds.  The library
+lands in ``come_tpu_torch/_build/`` under a name keyed on a hash of the
+sources and flags, so an edit rebuilds and an unchanged tree reuses it.
+Nothing is built when the package is imported: the first wrapper call on a
+CUDA tensor builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures (csrc/walk_sgns.cu, csrc/star_sgns.cu): every pointer and
+# the stream as c_void_p, ints as c_int, scalars as c_float.
+SIGNATURES = {
+    "come_walk_sgns_step": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    "come_star_sgns_step": [_P] * 9 + [_I] * 4 + [_F, _F, _P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libcome_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> tuple[Path, float]:
+    """Compile the kernels unless this source hash is built already.
+
+    Returns (library path, build seconds; 0.0 when reused).  ``verbose``
+    adds ``-Xptxas -v`` and prints the compiler's report (registers, shared
+    memory, spills per kernel)."""
+    out = library_path()
+    if out.exists() and not verbose:
+        return out, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        )
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return out, secs
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library, with argtypes and restype declared."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise for a non-zero CUDA error code returned by a C entry point."""
+    if code != 0:
+        raise RuntimeError(f"{name} failed with CUDA error {code}")

@@ -1,0 +1,123 @@
+"""Star fan-out tied SGNS macro step (O2): the CUDA kernel, its plain
+version and the wrapper that picks between them by device.
+
+Port of ``come_tpu/ops/pallas_star_sgns.py::fused_star_sgns_step`` (kernel
+source: ``csrc/star_sgns.cu``).  The slot stream comes from
+``sampling.stars.build_star_layout``; groups of 1024 slots (eight 128-slot
+rows) run in order, and one shared negative pool serves each block of R
+groups.  The table is updated IN PLACE and returned.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from come_tpu_torch.ops import build
+from come_tpu_torch.ops.walk_sgns import check_cuda_inputs, expand_pools
+from come_tpu_torch.sampling.stars import PAD_META
+
+BLK = 128  # slots per star row: pairs never cross a row
+NWL = 1024  # slots per group
+
+
+def _pad_stream(slots: torch.Tensor, meta: torch.Tensor):
+    T = slots.shape[0]
+    G = -(-T // NWL)
+    pad = G * NWL - T
+    slots = F.pad(slots, (0, pad)).to(torch.int32).contiguous()
+    meta = F.pad(meta, (0, pad), value=PAD_META).to(torch.int32).contiguous()
+    return slots, meta, G
+
+
+def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
+                             pool_refresh: int = 1):
+    """Plain PyTorch version of :func:`star_sgns_step` (same signature and
+    semantics): a loop over groups with dense [128, 128] block scores.
+    Returns (emb, loss, n_pairs)."""
+    slots, meta, G = _pad_stream(slots, meta)
+    R = int(pool_refresh)
+    pools = expand_pools(pools, G, R).long()
+    nb = NWL // BLK
+    d = emb.shape[1]
+    dev = emb.device
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    npairs = torch.zeros((), dtype=torch.float32, device=dev)
+    for g in range(G):
+        if g % R == 0:
+            pool = pools[g // R]
+            cneg = emb[pool].clone()
+            dneg = torch.zeros_like(cneg)
+        ids = slots[g * NWL:(g + 1) * NWL].long()
+        mt = meta[g * NWL:(g + 1) * NWL].view(nb, BLK)
+        seg, hub = mt >> 1, mt & 1
+        m = (
+            (seg[:, :, None] == seg[:, None, :])
+            & ((hub[:, :, None] ^ hub[:, None, :]) == 1)
+        ).float()  # [nb, a, b]
+        phi = emb[ids].view(nb, BLK, d)
+        s = phi @ phi.transpose(1, 2)
+        gpos = (torch.sigmoid(s) - 1.0) * m
+        loss = loss - (m * F.logsigmoid(s)).sum()
+        n_t = m.sum(2, keepdim=True)
+        npairs = npairs + n_t.sum()
+        dphi = gpos @ phi + gpos.transpose(1, 2) @ phi  # source + context
+        sn = phi @ cneg.T
+        gneg = torch.sigmoid(sn) * (negw * n_t)
+        loss = loss - negw * (n_t * F.logsigmoid(-sn)).sum()
+        dphi = dphi + gneg @ cneg
+        dneg = dneg + torch.einsum("bsk,bsd->kd", gneg, phi)
+        emb.index_add_(0, ids, dphi.reshape(NWL, d), alpha=-lr)
+        if g % R == R - 1 or g == G - 1:
+            emb.index_add_(0, pool, dneg, alpha=-lr)
+    return emb, loss, npairs
+
+
+def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
+                   pool_refresh: int = 1):
+    """One O2 macro step over a star slot stream.
+
+    Args:
+      emb: [V, d] float32 tied node table, updated in place.
+      slots, meta: int [T] star layout stream (meta = seg*2 + hub, -2 at
+        pads); T pads up to a multiple of 1024 with pad slots.
+      pools: int [ceil(G / pool_refresh), KP] negative pools (or [KP]).
+      lr, negw: step size and negative weight (k / KP), Python floats.
+
+    Returns (emb, loss, n_pairs), n_pairs == 2 * arcs in the stream; loss
+    and n_pairs are 0-dim float32 tensors on the table's device.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel (counted
+    in ``star_sgns_step.launches``) or raise.
+    """
+    if emb.device.type == "cpu":
+        return star_sgns_step_reference(
+            emb, slots, meta, pools, lr, negw, pool_refresh=pool_refresh
+        )
+    if emb.device.type != "cuda":
+        raise ValueError(f"no star_sgns kernel for device {emb.device}")
+    check_cuda_inputs(emb, emb, slots, meta, pools)
+    slots, meta, G = _pad_stream(slots, meta)
+    R = int(pool_refresh)
+    pools = expand_pools(pools, G, R)
+    V, d = emb.shape
+    KP = pools.shape[1]
+    dev = emb.device
+    f32 = torch.float32
+    stats = torch.zeros(2, dtype=torch.float64, device=dev)
+    cneg = torch.empty((KP, d), dtype=f32, device=dev)
+    dneg = torch.empty((KP, d), dtype=f32, device=dev)
+    dphi = torch.empty((NWL, d), dtype=f32, device=dev)
+    nt = torch.empty((NWL,), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = build.library().come_star_sgns_step(
+        emb.data_ptr(), slots.data_ptr(), meta.data_ptr(), pools.data_ptr(),
+        stats.data_ptr(), cneg.data_ptr(), dneg.data_ptr(), dphi.data_ptr(),
+        nt.data_ptr(), d, G, KP, R, float(lr), float(negw), stream,
+    )
+    star_sgns_step.launches += 1
+    build.check(code, "come_star_sgns_step")
+    st = stats.to(f32)
+    return emb, st[0], st[1]
+
+
+star_sgns_step.launches = 0

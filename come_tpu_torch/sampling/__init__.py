@@ -1,0 +1,16 @@
+from come_tpu_torch.sampling.alias import (
+    build_alias_table,
+    sample_alias,
+    unigram_weights,
+)
+from come_tpu_torch.sampling.stars import build_star_layout, star_layout_stats
+from come_tpu_torch.sampling.walks import random_walks
+
+__all__ = [
+    "build_alias_table",
+    "build_star_layout",
+    "random_walks",
+    "sample_alias",
+    "star_layout_stats",
+    "unigram_weights",
+]

@@ -1,0 +1,388 @@
+"""Alternating ComE trainer: pretrain -> [GMM fit -> O1 -> O2 -> O3 -> eval].
+
+Port of ``come_tpu/trainer/come.py`` for one device, on the path the
+``blogcatalog`` preset takes there: O1 through the walk-banded kernel
+(``ops/walk_sgns.py``), O2 through the star kernel (``ops/star_sgns.py``),
+then the GMM fit and the O3 step as torch ops.  The linear LR decay
+``max(min_lr, lr * (1 - words / total))`` is kept exactly; ``words_seen`` is
+a host float because every step advances it by a fixed count.  Losses and
+pair counts stay on the device until one sync per epoch.
+
+Randomness comes from two ``torch.Generator``s seeded from ``seed``: one on
+the device (init, walks, window draws, pools, the star-row shuffle) and
+one on the host (the epoch's walk-start permutation, the GMM init).  JAX's
+threefry streams are not reproduced; the tests feed both packages the same
+draws through the ``*_step`` methods.
+
+Configurations outside this slice raise ``NotImplementedError`` naming
+their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from come_tpu_torch.config import ComEConfig
+from come_tpu_torch.evaluation.metrics import nmi_score
+from come_tpu_torch.graphs.csr import CSRGraph
+from come_tpu_torch.losses.community import community_loss, community_sgd_step
+from come_tpu_torch.losses.gmm import fit_communities
+from come_tpu_torch.models.state import init_params
+from come_tpu_torch.ops.star_sgns import star_sgns_step
+from come_tpu_torch.ops.walk_sgns import NW, NWL, walk_sgns_step
+from come_tpu_torch.sampling.alias import (
+    build_alias_table,
+    sample_alias,
+    unigram_weights,
+)
+from come_tpu_torch.sampling.stars import (
+    PAD_META,
+    build_star_layout,
+    star_layout_stats,
+)
+from come_tpu_torch.sampling.walks import random_walks
+
+
+def _decayed_lr(words_seen, total_words, lr0, min_lr):
+    frac = 1.0 - words_seen / max(total_words, 1.0)
+    return max(min_lr, lr0 * frac)
+
+
+def _unsupported(cfg: ComEConfig, num_nodes: int) -> str | None:
+    """The first setting outside the ported slice, with its ROADMAP item."""
+    checks = [
+        (cfg.negative_mode != "shared",
+         f"negative_mode={cfg.negative_mode!r} (ROADMAP Queue 1, "
+         "'Karate and the per-pair path')"),
+        (cfg.down_sample > 0,
+         "down_sample > 0 (ROADMAP Queue 1, 'Karate and the per-pair path')"),
+        (cfg.walk_length > 128,
+         "walk_length > 128 (ROADMAP Queue 1, 'Long walks')"),
+        (cfg.corpus == "host",
+         "corpus='host' (ROADMAP Queue 1, 'Host corpus')"),
+        (cfg.walk_gen == "kernel",
+         "walk_gen='kernel' (ROADMAP Queue 2, K4)"),
+        (cfg.o2_mode not in ("auto", "star"),
+         f"o2_mode={cfg.o2_mode!r} (ROADMAP Queue 2, K5-K7)"),
+        (cfg.walk_kernel_bf16,
+         "walk_kernel_bf16 (ROADMAP Queue 2, K1b/K2b)"),
+        (cfg.pallas == "never",
+         "pallas='never' (ROADMAP Queue 2, K6/K7)"),
+    ]
+    # the kernels' collision envelopes (come_tpu/trainer/come.py:166-181,
+    # :862-881): one group's synchronous update must not hit a row more
+    # than ~16 times on average
+    pairs_per_group = NW * cfg.walk_length * (cfg.window + 1) / 2
+    checks += [
+        (2.0 * pairs_per_group / max(num_nodes, 1) > 16.0,
+         "a graph outside the O1 collision envelope (ROADMAP Queue 1, "
+         "'Karate and the per-pair path')"),
+        (2.0 * NWL / max(num_nodes, 1) > 16.0,
+         "a graph outside the O2 collision envelope (ROADMAP Queue 1, "
+         "'Karate and the per-pair path')"),
+    ]
+    for bad, what in checks:
+        if bad:
+            return what
+    return None
+
+
+class ComETrainer:
+    """Single-device trainer.  ``device`` is where the tables and every
+    kernel live ("cuda" or "cpu"; on the CPU the kernels' plain versions
+    run)."""
+
+    def __init__(self, graph: CSRGraph, config: ComEConfig, device,
+                 seed: int | None = None):
+        why = _unsupported(config, graph.num_nodes)
+        if why is not None:
+            raise NotImplementedError(f"not ported yet: {why}")
+        self.graph = graph
+        self.cfg = config
+        self.device = torch.device(device)
+        seed = config.seed if seed is None else seed
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.host_gen = torch.Generator().manual_seed(seed)
+        self.csr = graph.to_device(self.device)
+        degrees = graph.degrees
+        accept, alias = build_alias_table(unigram_weights(degrees))
+        self.accept = torch.as_tensor(accept, device=self.device)
+        self.alias = torch.as_tensor(alias, device=self.device)
+        # walk starts skip isolated nodes (come_tpu/trainer/come.py:105-119:
+        # a stationary walk sums ~L*W copies of one self-pair per group)
+        ws = np.flatnonzero(degrees > 0).astype(np.int32)
+        self.walk_starts = (
+            ws if ws.size else np.arange(graph.num_nodes, dtype=np.int32)
+        )
+        self.params = init_params(
+            graph.num_nodes, config.dim, config.num_communities, self.gen,
+            self.device,
+        )
+        self.words_seen = 0.0
+        self.total_words = float(self._word_budget())
+        self.negw = config.negative / config.shared_negatives
+        self._history: list[dict] = []
+        self._walk_cache: torch.Tensor | None = None
+        self._o1_epochs_done = 0
+        self._star_rows: tuple[torch.Tensor, torch.Tensor] | None = None
+        self.last_o1_pairs = 0.0
+        self.last_o2_pairs = 0.0
+
+    def _word_budget(self) -> float:
+        """Total center-word count for the global linear LR decay."""
+        cfg = self.cfg
+        v, e = len(self.walk_starts), self.graph.num_arcs
+        o1_epochs = cfg.pretrain_epochs + cfg.outer_iters * cfg.o1_epochs_per_iter
+        o2_epochs = cfg.outer_iters * cfg.o2_epochs_per_iter
+        return (
+            o1_epochs * v * cfg.walks_per_node * cfg.walk_length
+            + o2_epochs * e
+        )
+
+    def lr(self) -> float:
+        cfg = self.cfg
+        return _decayed_lr(self.words_seen, self.total_words, cfg.lr, cfg.min_lr)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------- O1 (walks)
+
+    def _o1_draws(self, B: int):
+        """Window draws and negative pools for one macro step of B walks."""
+        cfg = self.cfg
+        G = -(-B // NW)
+        n_pools = -(-G // cfg.walk_pool_refresh)
+        wrow = torch.randint(
+            1, cfg.window + 1, (G * NWL,), generator=self.gen,
+            device=self.device, dtype=torch.int32,
+        )
+        pools = sample_alias(
+            self.accept, self.alias, self.gen, (n_pools, cfg.shared_negatives)
+        )
+        return wrow, pools
+
+    def o1_step(self, walks: torch.Tensor, wrow: torch.Tensor,
+                pools: torch.Tensor):
+        """One O1 macro step from explicit walks [B, L], window draws and
+        pools (``trainer/come.py:549-590``, walk-kernel branch).  Returns
+        (loss, n_pairs) as device tensors."""
+        cfg = self.cfg
+        p = self.params
+        _, _, loss, npairs = walk_sgns_step(
+            p.node_emb, p.ctx_emb, walks, wrow, pools, self.lr(), self.negw,
+            window=cfg.window, pool_refresh=cfg.walk_pool_refresh,
+        )
+        self.words_seen += float(walks.shape[0] * cfg.walk_length)
+        return loss, npairs
+
+    def _epoch_starts(self) -> torch.Tensor:
+        """This epoch's walk origins [S, B]: every start walks_per_node
+        times, shuffled, the tail batch wrapped."""
+        cfg = self.cfg
+        n_starts = len(self.walk_starts) * cfg.walks_per_node
+        B = min(cfg.batch_walks, n_starts)
+        S = math.ceil(n_starts / B)
+        starts = torch.as_tensor(np.tile(self.walk_starts, cfg.walks_per_node))
+        perm = starts[torch.randperm(n_starts, generator=self.host_gen)]
+        perm = perm[torch.arange(S * B) % n_starts]
+        return perm.reshape(S, B).to(self.device)
+
+    def _gen_epoch_walks(self, starts: torch.Tensor) -> torch.Tensor:
+        S, B = starts.shape
+        L = self.cfg.walk_length
+        walks = random_walks(
+            self.csr, starts.reshape(S * B), L, self.gen,
+            restart_prob=self.cfg.restart_prob,
+        )
+        return walks.reshape(S, B, L)
+
+    def o1_epoch(self) -> float:
+        """One pass of ``walks_per_node`` walks from every start node; the
+        epoch's corpus is generated in one call, or reused when
+        ``walk_regen_epochs != 1`` (``trainer/come.py:680-729``)."""
+        cfg = self.cfg
+        starts = self._epoch_starts()
+        if cfg.walk_regen_epochs != 1:
+            regen = self._walk_cache is None or (
+                cfg.walk_regen_epochs > 0
+                and self._o1_epochs_done % cfg.walk_regen_epochs == 0
+            )
+            if regen:
+                self._walk_cache = self._gen_epoch_walks(starts)
+            walks_all = self._walk_cache
+        else:
+            walks_all = self._gen_epoch_walks(starts)
+        self._o1_epochs_done += 1
+        tot_loss = torch.zeros((), device=self.device)
+        tot_pairs = torch.zeros((), device=self.device)
+        for walks in walks_all:
+            wrow, pools = self._o1_draws(walks.shape[0])
+            loss, npairs = self.o1_step(walks, wrow, pools)
+            tot_loss += loss
+            tot_pairs += npairs
+        loss, pairs = torch.stack([tot_loss, tot_pairs]).tolist()
+        self.last_o1_pairs = pairs
+        return loss / max(pairs, 1.0)
+
+    # ------------------------------------------------------------- O2 (edges)
+
+    def _star_layout(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The static star slot/meta rows [NR, 128], built once
+        (``trainer/come.py:883-905``)."""
+        if self._star_rows is None:
+            u, v = self.graph.edges_undirected()
+            slots, meta = build_star_layout(u, v, self.graph.num_nodes)
+            self._star_pairs = star_layout_stats(slots, meta)["pairs"]
+            self._star_rows = (
+                torch.as_tensor(slots.reshape(-1, 128), device=self.device),
+                torch.as_tensor(meta.reshape(-1, 128), device=self.device),
+            )
+        return self._star_rows
+
+    def o2_plan(self) -> tuple[int, int]:
+        """(rows per macro step, steps per epoch): slots per step ~
+        batch_edges, in whole 8-row groups (``trainer/come.py:1103-1110``)."""
+        NR = self._star_layout()[0].shape[0]
+        rps = max(8, min(-(-self.cfg.batch_edges // 128), NR))
+        rps = -(-rps // 8) * 8
+        return rps, -(-NR // rps)
+
+    def o2_step(self, slots: torch.Tensor, meta: torch.Tensor,
+                pools: torch.Tensor, words: float):
+        """One O2 macro step over an explicit slot stream and pools; advances
+        ``words_seen`` by ``words``.  Returns (loss, n_pairs) tensors."""
+        cfg = self.cfg
+        _, loss, npairs = star_sgns_step(
+            self.params.node_emb, slots, meta, pools, self.lr() * cfg.alpha,
+            self.negw, pool_refresh=cfg.walk_pool_refresh,
+        )
+        self.words_seen += words
+        return loss, npairs
+
+    def o2_stream(self, row_perm: torch.Tensor):
+        """The epoch's slot and meta rows [steps * rps, 128]: layout rows in
+        ``row_perm`` order, padded with self-masking rows (meta -2) to
+        whole steps."""
+        rs, rm = self._star_layout()
+        rps, steps = self.o2_plan()
+        pad = steps * rps - rs.shape[0]
+        F = torch.nn.functional
+        return (F.pad(rs[row_perm], (0, 0, 0, pad)),
+                F.pad(rm[row_perm], (0, 0, 0, pad), value=PAD_META))
+
+    def o2_epoch(self) -> float:
+        """One pass over every edge in both directions through the star
+        kernel (``_o2_epoch_starlike``, ``trainer/come.py:907-982``): the
+        layout rows are shuffled each epoch and trained step by step."""
+        cfg = self.cfg
+        NR = self._star_layout()[0].shape[0]
+        rps, steps = self.o2_plan()
+        row_perm = torch.randperm(NR, generator=self.gen, device=self.device)
+        ps, pm = self.o2_stream(row_perm)
+        words = float(self._star_pairs) / steps
+        n_pools = -(-(rps * 128 // NWL) // cfg.walk_pool_refresh)
+        tot_loss = torch.zeros((), device=self.device)
+        tot_pairs = torch.zeros((), device=self.device)
+        for s in range(steps):
+            pools = sample_alias(
+                self.accept, self.alias, self.gen,
+                (n_pools, cfg.shared_negatives),
+            )
+            loss, npairs = self.o2_step(
+                ps[s * rps:(s + 1) * rps].reshape(-1),
+                pm[s * rps:(s + 1) * rps].reshape(-1), pools, words,
+            )
+            tot_loss += loss
+            tot_pairs += npairs
+        loss, pairs = torch.stack([tot_loss, tot_pairs]).tolist()
+        self.last_o2_pairs = pairs
+        return loss / max(pairs, 1.0)
+
+    # ----------------------------------------------------- GMM, O3 (community)
+
+    def fit_gmm(self, resp0: torch.Tensor | None = None) -> float:
+        """EM on the node table (``resp0`` [V, K]: start from these
+        responsibilities instead of the k-means restarts)."""
+        cfg = self.cfg
+        ll = fit_communities(
+            self.params, self.host_gen, n_init=cfg.gmm_n_init,
+            max_iter=cfg.gmm_max_iter, reg_covar=cfg.reg_covar,
+            tol=cfg.gmm_tol, resp0=resp0,
+        )
+        return float(ll)
+
+    def o3_step(self) -> torch.Tensor:
+        cfg = self.cfg
+        p = self.params
+        new_emb = community_sgd_step(
+            p.node_emb, p.pi, p.centroid, p.inv_cov, cfg.beta, self.lr(),
+            grad_clip=cfg.o3_grad_clip,
+        )
+        p.node_emb.copy_(new_emb)
+        return community_loss(
+            p.node_emb, p.pi, p.centroid, p.chol_cov, p.inv_cov, cfg.beta
+        )
+
+    def o3_pass(self) -> float:
+        loss = torch.zeros(())
+        for _ in range(self.cfg.o3_steps_per_iter):
+            loss = self.o3_step()
+        return float(loss)
+
+    # ----------------------------------------------------------------- driver
+
+    def train(
+        self,
+        labels: np.ndarray | None = None,
+        log: Callable[[str], None] | None = None,
+    ) -> list[dict]:
+        """Full alternating optimization (reference main.py loop).  Each
+        record holds the phase losses, per-phase wall ms (taken after a
+        device synchronise), the pair counts and, with ``labels``, NMI."""
+        cfg = self.cfg
+        say = log or (lambda s: None)
+        for e in range(cfg.pretrain_epochs):
+            loss = self.o1_epoch()
+            say(f"pretrain O1 epoch {e}: loss/pair {loss:.4f}")
+
+        def timed(rec, name, fn):
+            self._sync()
+            t0 = time.perf_counter()
+            out = fn()
+            self._sync()
+            rec[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        for it in range(cfg.outer_iters):
+            rec: dict = {"iter": it}
+            rec["gmm_ll"] = timed(rec, "gmm", self.fit_gmm)
+            for _ in range(cfg.o1_epochs_per_iter):
+                rec["o1_loss"] = timed(rec, "o1", self.o1_epoch)
+            for _ in range(cfg.o2_epochs_per_iter):
+                rec["o2_loss"] = timed(rec, "o2", self.o2_epoch)
+            rec["o3_loss"] = timed(rec, "o3", self.o3_pass)
+            rec["o1_pairs"] = self.last_o1_pairs
+            rec["o2_pairs"] = self.last_o2_pairs
+            if labels is not None:
+                rec["nmi"] = nmi_score(labels, self.communities())
+            say(f"iter {it}: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in rec.items() if k != "iter"
+            ))
+            self._history.append(rec)
+        return self._history
+
+    # ------------------------------------------------------------------ views
+
+    def embeddings(self) -> np.ndarray:
+        return self.params.node_emb.cpu().numpy()
+
+    def communities(self) -> np.ndarray:
+        """argmax responsibilities — the reference's NMI input."""
+        return self.params.pi.argmax(1).cpu().numpy()

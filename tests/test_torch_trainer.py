@@ -1,0 +1,209 @@
+"""The port's trainer: the O1 -> O2 -> GMM -> O3 chain against the JAX
+package from identical carried-across state, a port-only end-to-end run,
+and the configurations outside the slice.
+
+Chain tolerance: tables rtol 1e-3 / atol 3e-5 (the kernel tests' bound:
+f32 sums in another order, here compounded over four phases), losses rtol
+1e-4 (O3 1e-3, after the EM), pair counts exact, GMM hard assignments
+equal.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from come_tpu.config import PRESETS as JPRESETS
+from come_tpu.graphs.generators import sbm_graph as j_sbm
+from come_tpu.losses import community as jcom
+from come_tpu.losses import gmm as jgmm
+from come_tpu.models import init_params as j_init
+from come_tpu.ops.pallas_star_sgns import fused_star_sgns_step
+from come_tpu.ops.pallas_walk_sgns import fused_walk_sgns_step
+from come_tpu.trainer import ComETrainer as JTrainer
+from come_tpu.trainer.come import _decayed_lr
+from come_tpu_torch.config import PRESETS
+from come_tpu_torch.graphs import sbm_graph
+from come_tpu_torch.main import build_argparser, run
+from come_tpu_torch.models.state import FIELDS, from_numpy
+from come_tpu_torch.ops.walk_sgns import NWL
+from come_tpu_torch.trainer import ComETrainer
+
+torch.set_num_threads(2)
+
+RTOL, ATOL = 1e-3, 3e-5
+
+SMALL = dict(num_communities=4, dim=128, walk_length=20, window=3,
+             shared_negatives=16, batch_walks=16, reg_covar=0.1,
+             gmm_n_init=1, gmm_max_iter=20, pretrain_epochs=1, outer_iters=1)
+
+
+def test_chain_matches_jax():
+    V, K = 256, 4
+    g, labels = sbm_graph(V, K, p_in=0.1, p_out=0.005, seed=0, avg_degree=10)
+    jg, _ = j_sbm(V, K, p_in=0.1, p_out=0.005, seed=0, avg_degree=10)
+    cfg = PRESETS["blogcatalog"].replace(**SMALL)
+    jcfg = JPRESETS["blogcatalog"].replace(**SMALL)
+    t = ComETrainer(g, cfg, "cpu")
+    jt = JTrainer(jg, jcfg)
+    assert t.total_words == jt.total_words
+    jp = j_init(V, cfg.dim, K, jax.random.key(3))
+    t.params = from_numpy({k: np.asarray(getattr(jp, k)) for k in FIELDS},
+                          "cpu")
+    rng = np.random.default_rng(0)
+    negw = cfg.negative / cfg.shared_negatives
+    KP, W, L = cfg.shared_negatives, cfg.window, cfg.walk_length
+
+    def lr(words):
+        return float(_decayed_lr(jnp.float32(words), jt.total_words, cfg.lr,
+                                 cfg.min_lr))
+
+    # ---- one O1 macro step: 16 real walks (2 groups), full window
+    starts = torch.as_tensor(rng.choice(t.walk_starts, 16).astype(np.int32))
+    walks = t._gen_epoch_walks(starts.reshape(1, 16))[0]
+    pools = rng.integers(0, V, (2, KP)).astype(np.int32)
+    wrow = torch.full((2 * NWL,), W, dtype=torch.int32)
+    l1, n1 = t.o1_step(walks, wrow, torch.as_tensor(pools))
+    ne, ce, jl1, jn1 = fused_walk_sgns_step(
+        jp.node_emb, jp.ctx_emb, jnp.asarray(walks.numpy()),
+        jnp.asarray(pools), lr(0.0), negw, 0, window=W, interpret=True,
+        reduced_window=False, pool_refresh=cfg.walk_pool_refresh,
+    )
+    words = 16.0 * L
+    assert t.words_seen == words
+    assert float(n1) == float(jn1)
+    np.testing.assert_allclose(float(l1), float(jl1), rtol=1e-4)
+
+    # ---- one O2 macro step: the whole shuffled star layout
+    rps, steps = t.o2_plan()
+    assert steps == 1
+    js, jm = (np.asarray(a) for a in jt._star_layout())
+    NR = js.shape[0]
+    perm = rng.permutation(NR)
+    ps, pm = t.o2_stream(torch.as_tensor(perm))
+    jps = np.pad(js[perm], ((0, rps - NR), (0, 0)))
+    jpm = np.pad(jm[perm], ((0, rps - NR), (0, 0)), constant_values=-2)
+    np.testing.assert_array_equal(ps.numpy(), jps)
+    np.testing.assert_array_equal(pm.numpy(), jpm)
+    pools2 = rng.integers(0, V, (rps * 128 // NWL, KP)).astype(np.int32)
+    l2, n2 = t.o2_step(ps.reshape(-1), pm.reshape(-1),
+                       torch.as_tensor(pools2), float(jt._star_pairs))
+    ne, jl2, jn2 = fused_star_sgns_step(
+        ne, jnp.asarray(jps.reshape(-1)), jnp.asarray(jpm.reshape(-1)),
+        jnp.asarray(pools2), lr(words) * cfg.alpha, negw, 0, interpret=True,
+        pool_refresh=cfg.walk_pool_refresh,
+    )
+    words += float(jt._star_pairs)
+    assert float(n2) == float(jn2) == 2.0 * jg.num_edges
+    np.testing.assert_allclose(float(l2), float(jl2), rtol=1e-4)
+    np.testing.assert_allclose(t.params.ctx_emb.numpy(), np.asarray(ce),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(t.params.node_emb.numpy(), np.asarray(ne),
+                               rtol=RTOL, atol=ATOL)
+
+    # ---- GMM fit from the same initial responsibilities
+    noisy = np.where(rng.random(V) < 0.3, rng.integers(0, K, V), labels)
+    resp0 = np.eye(K, dtype=np.float32)[noisy]
+    ll = t.fit_gmm(resp0=torch.as_tensor(resp0))
+    X = ne
+    m, c, w = jgmm._m_step(X, jnp.asarray(resp0), cfg.reg_covar)
+    m, c, w = jgmm._em_while_loop(
+        m, c, w, lambda a, b, e: jgmm._e_step(X, a, b, e),
+        lambda r: jgmm._m_step(X, r, cfg.reg_covar), cfg.gmm_max_iter,
+        cfg.gmm_tol,
+    )
+    resp, jll = jgmm._e_step(X, m, c, w)
+    eye = jnp.eye(cfg.dim)
+    inv = jax.vmap(lambda Lc: jax.scipy.linalg.cho_solve((Lc, True), eye))(c)
+    assert abs(ll - float(jll)) < 1e-3
+    np.testing.assert_array_equal(t.communities(), np.asarray(resp).argmax(1))
+
+    # ---- one O3 step
+    l3 = t.o3_step()
+    ne = jcom.community_sgd_step(ne, resp, m, inv, cfg.beta, lr(words),
+                                 grad_clip=cfg.o3_grad_clip)
+    jl3 = jcom.community_loss(ne, resp, m, c, inv, cfg.beta)
+    np.testing.assert_allclose(float(l3), float(jl3), rtol=1e-3)
+    np.testing.assert_allclose(t.params.node_emb.numpy(), np.asarray(ne),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_train_end_to_end_on_cpu():
+    """The port alone on a clear 4-community SBM: finite losses, every
+    phase timed, NMI at least 0.9 after three outer iterations."""
+    g, labels = sbm_graph(512, 4, p_in=0.1, p_out=0.002, seed=0,
+                          avg_degree=20)
+    cfg = PRESETS["blogcatalog"].replace(
+        num_communities=4, walk_length=20, window=3, walks_per_node=4,
+        shared_negatives=64, pretrain_epochs=2, outer_iters=3, dim=32,
+    )
+    t = ComETrainer(g, cfg, "cpu")
+    hist = t.train(labels)
+    assert len(hist) == 3
+    for rec in hist:
+        for k in ("gmm_ll", "o1_loss", "o2_loss", "o3_loss"):
+            assert np.isfinite(rec[k])
+        for k in ("gmm_ms", "o1_ms", "o2_ms", "o3_ms"):
+            assert rec[k] > 0
+        assert rec["o2_pairs"] == 2 * g.num_edges
+    assert hist[-1]["nmi"] >= 0.9
+    assert t.embeddings().shape == (512, 32)
+    assert np.isfinite(t.embeddings()).all()
+
+
+@pytest.mark.parametrize("regen,fresh", [(0, [True, False, False]),
+                                          (2, [True, False, True]),
+                                          (1, [True, True, True])])
+def test_walk_corpus_cache_cadence(regen, fresh):
+    """walk_regen_epochs: 0 generates the corpus once, N every N epochs,
+    1 every epoch (``trainer/come.py:712-729``)."""
+    g, _ = sbm_graph(256, 4, seed=1, avg_degree=10)
+    cfg = PRESETS["blogcatalog"].replace(
+        num_communities=4, dim=16, walk_length=8, window=2, walks_per_node=1,
+        shared_negatives=8, walk_regen_epochs=regen,
+    )
+    t = ComETrainer(g, cfg, "cpu")
+    calls = []
+    gen_walks = t._gen_epoch_walks
+    t._gen_epoch_walks = lambda s: calls.append(1) or gen_walks(s)
+    seen = []
+    for _ in range(3):
+        n = len(calls)
+        assert np.isfinite(t.o1_epoch())
+        seen.append(len(calls) > n)
+    assert seen == fresh
+
+
+@pytest.mark.parametrize("override", [
+    dict(negative_mode="per_pair"),
+    dict(down_sample=1e-3),
+    dict(walk_length=160),
+    dict(corpus="host"),
+    dict(walk_gen="kernel"),
+    dict(o2_mode="paired"),
+    dict(o2_mode="xla"),
+    dict(walk_kernel_bf16=True),
+])
+def test_outside_slice_raises(override):
+    g, _ = sbm_graph(256, 4, seed=0, avg_degree=10)
+    cfg = PRESETS["blogcatalog"].replace(num_communities=4, **override)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ComETrainer(g, cfg, "cpu")
+
+
+def test_small_graph_outside_envelope_raises():
+    g, _ = sbm_graph(60, 2, seed=0, avg_degree=6)
+    cfg = PRESETS["blogcatalog"].replace(num_communities=2)
+    with pytest.raises(NotImplementedError, match="collision envelope"):
+        ComETrainer(g, cfg, "cpu")
+
+
+def test_main_refuses_missing_cuda_and_unported_flags():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: --device cuda is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run(build_argparser().parse_args(["--dataset", "wikipedia"]))
+    for flags in (["--save", "x.txt"], ["--eval-f1"], ["--resume", "a.npz"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run(build_argparser().parse_args(["--device", "cpu", *flags]))
