@@ -12,7 +12,18 @@ non-zero and prints no result line):
   5. main    — come_tpu_torch.main on --dataset blogcatalog (pretrain 1,
                outer 1) on cuda, with the kernels' launch counters reset
                just before and read just after
-Then a JSON line of the kernels, and last
+  6. K6      — one BlogCatalog-width O1 micro-step (32768 window pairs of
+               256 real walks, down_sample 1e-3 masks, KP 512, 32 tiles)
+               through the fused SGNS kernel and its plain version
+  7. K7      — the same on one tied table with 32768 arcs
+  8. karate  — the CLI's default karate preset (per-pair negatives): no
+               kernel may launch
+  9. shared  — karate with shared negatives: O1 through K6, O2 through K7
+ 10. micro   — the micro-batched main path through the CLI: blogcatalog
+               with --down-sample 1e-3 --o2-mode xla (walks per node 2,
+               pretrain 0, outer 1): O1 through K6, O2 per arc through K7
+Phases 5 and 8-10 each reset every launch counter just before they run
+and read them just after.  Then a JSON line of the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Tolerance of the kernel checks, on each table element's update (table after
@@ -20,9 +31,11 @@ the step minus before): |upd_kernel - upd_plain| <= 1e-6 + 1e-4 |upd_plain|
 (f32; the kernel adds duplicate rows with atomicAdd, whose order varies from
 run to run, which moves an update by ~1e-7; a TF32 or bf16 negative pass
 moves it by 1e-5 to 1e-4 and fails), loss within rtol 1e-4, pair counts
-exact.  The main path must give finite losses and embeddings,
-train every edge twice in O2, and reach NMI >= 0.8.  Imports nothing of
-JAX.
+exact.  Phase 5 must give finite losses and embeddings, train every edge
+twice in O2, and reach NMI >= 0.8; phase 8 NMI >= 0.5 and phase 9 NMI >= 0.3
+(the JAX package's own karate floors); phase 10 finite losses and
+embeddings and exactly S * B O2 pairs (S = ceil(2E / batch_edges) batches
+of B arcs).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +56,9 @@ SEED = 0
 # NMI after pretrain 1 + outer 1 on the blogcatalog stand-in: 0.9422 on an
 # H100 at SEED; the full preset reaches 0.96 (the JAX reference 0.954)
 NMI_FLOOR = 0.8
+# karate floors of the JAX package's tests (tests/test_trainer_e2e.py:37,
+# tests/test_pallas_trainer.py:27)
+KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 
 
 def phase(name: str, msg: str) -> None:
@@ -104,8 +120,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from come_tpu_torch.config import get_config
     from come_tpu_torch.graphs import get_dataset
     from come_tpu_torch.ops import build
+    from come_tpu_torch.ops.sgns import (
+        fused_sgns_step,
+        fused_sgns_step_reference,
+        fused_sgns_step_tied,
+        fused_sgns_step_tied_reference,
+    )
     from come_tpu_torch.ops.star_sgns import (
         star_sgns_step,
         star_sgns_step_reference,
@@ -116,9 +139,37 @@ def main() -> int:
         walk_sgns_step_reference,
     )
     from come_tpu_torch.sampling import (
+        build_alias_table,
         build_star_layout,
         random_walks,
+        sample_alias,
+        unigram_weights,
     )
+    from come_tpu_torch.sampling.windows import (
+        skipgram_pairs,
+        subsample_keep_probs,
+    )
+    from come_tpu_torch.trainer import ComETrainer
+
+    kernels = {"walk_sgns": walk_sgns_step, "star_sgns": star_sgns_step,
+               "fused_sgns": fused_sgns_step,
+               "fused_sgns_tied": fused_sgns_step_tied}
+
+    def reset_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def check_launches(where, launched, ran, idle):
+        for name in ran:
+            if launched[name] == 0:
+                raise AssertionError(f"{where} launched no {name} kernel")
+        for name in idle:
+            if launched[name] != 0:
+                raise AssertionError(f"{where} launched {name} "
+                                     f"{launched[name]} times, expected 0")
 
     # 2. build
     path, secs = build.build(verbose=True)
@@ -188,8 +239,7 @@ def main() -> int:
     # 5. the main path, through the CLI's own entry
     from come_tpu_torch.main import build_argparser, run
 
-    walk_sgns_step.launches = 0
-    star_sgns_step.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     trainer, hist = run(build_argparser().parse_args([
         "--dataset", "blogcatalog", "--device", "cuda",
@@ -197,12 +247,10 @@ def main() -> int:
     ]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"walk_sgns": walk_sgns_step.launches,
-                "star_sgns": star_sgns_step.launches}
+    launches = counts()
     rec = hist[-1]
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"main path launched no {name} kernel")
+    check_launches("main path", launches, ("walk_sgns", "star_sgns"),
+                   ("fused_sgns", "fused_sgns_tied"))
     for k in ("gmm_ll", "o1_loss", "o2_loss", "o3_loss", "nmi"):
         if not math.isfinite(rec[k]):
             raise AssertionError(f"main path: {k} = {rec[k]}")
@@ -219,6 +267,130 @@ def main() -> int:
                   f"o1_pairs {rec['o1_pairs']:.0f} o2_pairs "
                   f"{rec['o2_pairs']:.0f} | NMI {rec['nmi']:.4f} | "
                   f"launches {launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 6. K6 at the BlogCatalog width: the first micro-step of one macro step
+    V, d, TP = ds.graph.num_nodes, 128, 1024
+    accept, alias = (torch.as_tensor(a, device=dev) for a in
+                     build_alias_table(unigram_weights(ds.graph.degrees)))
+    keep = torch.as_tensor(subsample_keep_probs(ds.graph.degrees, 1e-3),
+                           device=dev)
+    emb_in = torch.randn((V, d), generator=gen, device=dev) * 0.1
+    emb_out = torch.randn((V, d), generator=gen, device=dev) * 0.1
+    c, x, m = (a.reshape(-1)[:32768] for a in
+               skipgram_pairs(walks, W, gen, keep))
+    pool = sample_alias(accept, alias, gen, (KP,))
+
+    def k6(fn):
+        return fn(emb_in.clone(), emb_out.clone(), c, x, pool, m, lr, negw,
+                  tile_pairs=TP)
+
+    kern6 = k6(fused_sgns_step)
+    plain6 = k6(fused_sgns_step_reference)
+    torch.cuda.synchronize()
+    k6_err = compare("K6", (emb_in, emb_out), kern6, plain6)
+    k6_ms = cuda_ms(lambda: k6(fused_sgns_step))
+    k6_plain_ms = cuda_ms(lambda: k6(fused_sgns_step_reference))
+    phase("K6", f"fused_sgns V={V} d={d} P={c.numel()} TP={TP} KP={KP} "
+                f"(32 tiles): max_abs {k6_err[0]:.3e} max_rel "
+                f"{k6_err[1]:.3e} loss_rel {k6_err[2]:.3e} pairs "
+                f"{float(kern6[3]):.0f} | kernel {k6_ms:.3f} ms, plain "
+                f"{k6_plain_ms:.3f} ms (tol {ATOL} + {RTOL}*|plain update|)")
+
+    # 7. K7 on the tied table: 32768 shuffled arcs
+    src, dst = (torch.as_tensor(a, device=dev) for a in ds.graph.arcs())
+    arcs = torch.randperm(src.numel(), generator=gen, device=dev)[:32768]
+    ones = torch.ones(arcs.numel(), device=dev)
+
+    def k7(fn):
+        return fn(emb_in.clone(), src[arcs], dst[arcs], pool, ones, lr, negw,
+                  tile_pairs=TP)
+
+    kern7 = k7(fused_sgns_step_tied)
+    plain7 = k7(fused_sgns_step_tied_reference)
+    torch.cuda.synchronize()
+    k7_err = compare("K7", (emb_in,), kern7, plain7)
+    k7_ms = cuda_ms(lambda: k7(fused_sgns_step_tied))
+    k7_plain_ms = cuda_ms(lambda: k7(fused_sgns_step_tied_reference))
+    phase("K7", f"fused_sgns_tied V={V} d={d} P={arcs.numel()} TP={TP} "
+                f"KP={KP} (32 tiles): max_abs {k7_err[0]:.3e} max_rel "
+                f"{k7_err[1]:.3e} loss_rel {k7_err[2]:.3e} pairs "
+                f"{float(kern7[2]):.0f} | kernel {k7_ms:.3f} ms, plain "
+                f"{k7_plain_ms:.3f} ms (tol {ATOL} + {RTOL}*|plain update|)")
+    del emb_in, emb_out, kern6, plain6, kern7, plain7
+    torch.cuda.empty_cache()
+
+    def check_run(where, hist, nmi_floor):
+        for rec in hist:
+            for k in ("gmm_ll", "o1_loss", "o2_loss", "o3_loss", "nmi"):
+                if not math.isfinite(rec[k]):
+                    raise AssertionError(f"{where}: {k} = {rec[k]}")
+        if hist[-1]["nmi"] < nmi_floor:
+            raise AssertionError(f"{where}: NMI {hist[-1]['nmi']:.4f} < "
+                                 f"{nmi_floor}")
+
+    # 8. karate, the CLI's default preset: per-pair negatives, no kernel
+    karate = get_dataset("karate")
+    reset_counts()
+    trainer, hist = run(build_argparser().parse_args([
+        "--dataset", "karate", "--device", "cuda", "--seed", str(SEED),
+    ]))
+    torch.cuda.synchronize()
+    launches8 = counts()
+    check_launches("karate per-pair", launches8, (), tuple(kernels))
+    check_run("karate per-pair", hist, KARATE_NMI_FLOOR)
+    phase("karate", f"per-pair preset: NMI {hist[-1]['nmi']:.4f}, o1 "
+                    f"{hist[-1]['o1_ms']:.1f} ms, o2 {hist[-1]['o2_ms']:.1f} "
+                    f"ms | launches {launches8}")
+
+    # 9. karate with shared negatives (tests/test_pallas_trainer.py:14-22)
+    cfg = get_config("karate").replace(
+        negative_mode="shared", shared_negatives=32, pallas_tile_pairs=64,
+        outer_iters=1, pretrain_epochs=2, walks_per_node=4, seed=SEED,
+    )
+    reset_counts()
+    hist = ComETrainer(karate.graph, cfg, dev).train(karate.labels)
+    torch.cuda.synchronize()
+    launches9 = counts()
+    check_launches("karate shared", launches9,
+                   ("fused_sgns", "fused_sgns_tied"),
+                   ("walk_sgns", "star_sgns"))
+    check_run("karate shared", hist, KARATE_SHARED_NMI_FLOOR)
+    phase("shared", f"karate shared negatives: NMI {hist[-1]['nmi']:.4f} | "
+                    f"launches {launches9}")
+
+    # 10. the micro-batched main path through the CLI
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, hist = run(build_argparser().parse_args([
+        "--dataset", "blogcatalog", "--device", "cuda", "--down-sample",
+        "1e-3", "--o2-mode", "xla", "--pretrain-epochs", "0",
+        "--outer-iters", "1", "--walks-per-node", "2", "--seed", str(SEED),
+    ]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    micro_launches = counts()
+    check_launches("micro-batched path", micro_launches,
+                   ("fused_sgns", "fused_sgns_tied"),
+                   ("walk_sgns", "star_sgns"))
+    check_run("micro-batched path", hist, 0.0)
+    rec = hist[-1]
+    emb = trainer.embeddings()
+    if emb.shape != (V, d) or not np.isfinite(emb).all():
+        raise AssertionError("micro-batched path: embeddings not finite")
+    B, S = trainer.o2_arc_plan()
+    if S != math.ceil(ds.graph.num_arcs / trainer.cfg.batch_edges) or (
+            rec["o2_pairs"] != S * B):
+        raise AssertionError(f"micro-batched path: o2_pairs "
+                             f"{rec['o2_pairs']} != S*B = {S}*{B}")
+    phase("micro", f"blogcatalog --down-sample 1e-3 --o2-mode xla, walks "
+                   f"per node 2, outer 1 in {wall:.1f} s: gmm "
+                   f"{rec['gmm_ms']:.1f} ms, o1 {rec['o1_ms']:.1f} ms, o2 "
+                   f"{rec['o2_ms']:.1f} ms, o3 {rec['o3_ms']:.1f} ms | "
+                   f"o1_pairs {rec['o1_pairs']:.0f} o2_pairs "
+                   f"{rec['o2_pairs']:.0f} (S={S}, B={B}) | NMI "
+                   f"{rec['nmi']:.4f} | launches {micro_launches}")
 
     print(json.dumps({"kernels": [
         {"name": "walk_sgns", "route": "cuda",
@@ -231,6 +403,16 @@ def main() -> int:
          "replaces": "come_tpu/ops/pallas_star_sgns.py:56",
          "launches": launches["star_sgns"], "max_abs_err": k2_err[0],
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "fused_sgns", "route": "cuda",
+         "source": "come_tpu_torch/csrc/sgns_fused.cu",
+         "replaces": "come_tpu/ops/pallas_sgns.py:100",
+         "launches": micro_launches["fused_sgns"], "max_abs_err": k6_err[0],
+         "ms": k6_ms, "plain_ms": k6_plain_ms},
+        {"name": "fused_sgns_tied", "route": "cuda",
+         "source": "come_tpu_torch/csrc/sgns_fused.cu",
+         "replaces": "come_tpu/ops/pallas_sgns.py:185",
+         "launches": micro_launches["fused_sgns_tied"],
+         "max_abs_err": k7_err[0], "ms": k7_ms, "plain_ms": k7_plain_ms},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -5,12 +5,15 @@ imports torch and numpy, never jax or come_tpu.  Modules keep the paths and
 public names of their ``come_tpu`` counterparts:
 
 * ``config/``     — ``ComEConfig`` and ``PRESETS`` (identical values)
-* ``graphs/``     — numpy CSR container, SBM generator, stand-in registry
-* ``sampling/``   — alias negatives, device random walks, star layout
+* ``graphs/``     — numpy CSR container, SBM generator, file loaders,
+  the dataset registry (karate, ``.mat`` files or their SBM stand-ins)
+* ``sampling/``   — alias negatives, device random walks, star layout,
+  skip-gram window pairs and subsampling
 * ``models/``     — ``ComEParams`` as an ``nn.Module`` of buffers
 * ``ops/``        — the hand-written CUDA kernels (``csrc/``), their plain
-  PyTorch versions, and the nvcc/ctypes build
-* ``losses/``     — GMM EM and the O3 community step (torch ops)
+  PyTorch versions, the nvcc/ctypes build, and the sparse row primitives
+* ``losses/``     — per-pair and shared-pool SGNS math, GMM EM and the O3
+  community step (torch ops)
 * ``evaluation/`` — NMI in numpy
 * ``trainer/``    — the alternating ComE loop on one device
 * ``main.py``     — the CLI

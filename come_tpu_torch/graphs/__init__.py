@@ -1,6 +1,11 @@
 from come_tpu_torch.graphs.csr import CSRGraph, DeviceCSR
 from come_tpu_torch.graphs.datasets import DATASETS, Dataset, get_dataset
 from come_tpu_torch.graphs.generators import sbm_graph
+from come_tpu_torch.graphs.loaders import (
+    load_adjacencylist,
+    load_edgelist,
+    load_matfile,
+)
 
 __all__ = [
     "CSRGraph",
@@ -8,5 +13,8 @@ __all__ = [
     "DATASETS",
     "Dataset",
     "get_dataset",
+    "load_adjacencylist",
+    "load_edgelist",
+    "load_matfile",
     "sbm_graph",
 ]

@@ -1,27 +1,46 @@
-"""Dataset registry: the offline SBM stand-ins at published scale.
+"""Dataset registry.
 
-Port of ``come_tpu/graphs/datasets.py`` for the synthetic stand-ins
-(blogcatalog, wikipedia, dblp, flickr), with the same sizes and seeds, so
-both packages train on the identical graph.  Karate's adjacency list and the
-``.mat`` files wait for the loaders item of ROADMAP Queue 1.
+Port of ``come_tpu/graphs/datasets.py``: Karate from its adjacency list in
+``data/Karate/``; BlogCatalog, Wikipedia, Flickr and DBLP from their
+``.mat`` files when those are present under ``data/``, else from the
+offline SBM stand-in at the published node/community counts (the same
+sizes and seeds as the JAX package, so both train on the identical graph).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 
 from come_tpu_torch.graphs.csr import CSRGraph
 from come_tpu_torch.graphs.generators import sbm_graph
+from come_tpu_torch.graphs.loaders import (
+    load_adjacencylist,
+    load_ground_truth,
+    load_mat_labels,
+    load_matfile,
+)
+
+DATA_ROOT = Path(__file__).resolve().parents[2] / "data"
 
 
 @dataclasses.dataclass(frozen=True)
 class Dataset:
     name: str
     graph: CSRGraph
-    labels: np.ndarray  # [V] int, one community per node
+    labels: np.ndarray | None  # [V] int single-label, or [V, C] 0/1 multi-label
     num_communities: int
+
+    @property
+    def single_labels(self) -> np.ndarray | None:
+        """Single community id per node (argmax for multi-label)."""
+        if self.labels is None:
+            return None
+        if self.labels.ndim == 2:
+            return np.argmax(self.labels, axis=1).astype(np.int32)
+        return self.labels
 
 
 # Published node/community counts (SURVEY.md C13) and the stand-ins' SBM
@@ -37,14 +56,24 @@ _MAT_SPECS = {
                  p_out=0.005),
 }
 
-_NOT_YET = {
-    "karate": "karate adjacency-list loading",
-    "synthetic-10m": "the synthetic-10m stand-in",
-}
+
+def _load_karate() -> Dataset:
+    g = load_adjacencylist(DATA_ROOT / "Karate" / "karate.adjlist")
+    labels = load_ground_truth(DATA_ROOT / "Karate" / "karate_labels.txt")
+    return Dataset("karate", g, labels, num_communities=2)
 
 
-def _synthetic(name: str, seed: int = 0) -> Dataset:
+def _load_mat_or_synthetic(name: str, seed: int = 0) -> Dataset:
     spec = _MAT_SPECS[name]
+    for cand in (
+        DATA_ROOT / name.capitalize() / f"{name}.mat",
+        DATA_ROOT / name.capitalize() / f"{name.capitalize()}.mat",
+        DATA_ROOT / name / f"{name}.mat",
+    ):
+        if cand.exists():
+            labels = load_mat_labels(cand)
+            return Dataset(name, load_matfile(cand), labels,
+                           num_communities=labels.shape[1])
     g, labels = sbm_graph(
         spec["nodes"],
         spec["communities"],
@@ -56,18 +85,18 @@ def _synthetic(name: str, seed: int = 0) -> Dataset:
     return Dataset(f"{name}-synthetic", g, labels, spec["communities"])
 
 
-DATASETS = sorted(_MAT_SPECS)
+DATASETS = ["karate", *sorted(_MAT_SPECS)]
 
 
 def get_dataset(name: str) -> Dataset:
-    """The SBM stand-in of a registered dataset.  Real ``.mat`` files are
-    not read yet: the port always trains on the stand-in."""
     key = name.lower().replace("-synthetic", "")
-    if key in _NOT_YET:
+    if key == "synthetic-10m":
         raise NotImplementedError(
-            f"{_NOT_YET[key]} is not ported yet (ROADMAP Queue 1, "
-            "'Loaders and .mat datasets')"
+            "the synthetic-10m stand-in is not ported yet (ROADMAP Queue 1, "
+            "'Generators and synthetic-10m')"
         )
+    if key == "karate":
+        return _load_karate()
     if key not in _MAT_SPECS:
         raise KeyError(f"unknown dataset {name!r}; have {DATASETS}")
-    return _synthetic(key)
+    return _load_mat_or_synthetic(key)

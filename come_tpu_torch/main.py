@@ -1,9 +1,9 @@
 """CLI driver — port of ``come_tpu/main.py``.
 
 Usage:
-    python -m come_tpu_torch.main --dataset blogcatalog [--outer-iters 5] ...
+    python -m come_tpu_torch.main --dataset karate [--outer-iters 3] ...
 
-Loads a registered dataset's stand-in, runs the full alternating ComE
+Loads a registered dataset (karate by default, as the JAX CLI), runs the full alternating ComE
 optimization on ``--device`` (default ``cuda``; there is no silent CPU
 fallback) and prints per-iteration losses, per-phase ms and NMI.
 """
@@ -28,7 +28,7 @@ _NOT_YET = {
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="ComE training on PyTorch/CUDA")
-    p.add_argument("--dataset", default="blogcatalog")
+    p.add_argument("--dataset", default="karate")
     p.add_argument("--device", default="cuda",
                    help="torch device for tables and kernels (cuda or cpu)")
     p.add_argument("--dim", type=int)
@@ -47,9 +47,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch-walks", type=int)
     p.add_argument("--batch-edges", type=int)
     p.add_argument("--o2-mode", choices=["auto", "star", "paired", "xla"],
-                   help="O2 tier (the port has the star tier only)")
+                   help="O2 tier (default auto: star kernel inside its "
+                        "envelope, else per arc; xla forces per arc; "
+                        "paired is not ported yet, ROADMAP Queue 2 K5)")
     p.add_argument("--down-sample", type=float,
-                   help="word2vec frequent-node subsampling threshold")
+                   help="word2vec frequent-node subsampling threshold "
+                        "(reference `sample`; 0 = off, the default)")
     p.add_argument("--seed", type=int)
     p.add_argument("--save", help="write embeddings (word2vec text) here")
     p.add_argument("--checkpoint-dir", help="save a checkpoint per iteration")
@@ -96,8 +99,15 @@ def run(args: argparse.Namespace):
           f"K={cfg.num_communities} d={cfg.dim} device={dev_name}")
     t0 = time.perf_counter()
     trainer = ComETrainer(ds.graph, cfg, device)
+    shared = cfg.negative_mode == "shared"
+    print("o1 tier: " + ("walk kernel (K1)" if trainer.o1_walk_kernel else
+                         "micro-batched (" + ("K6" if shared else "per-pair")
+                         + ")")
+          + ", o2 tier: " + ("star kernel (K2)" if trainer.o2_star else
+                             "per arc (" + ("K7" if shared else "per-pair")
+                             + ")"))
     emit = (lambda s: print(json.dumps({"log": s}))) if args.json else print
-    history = trainer.train(labels=ds.labels, log=emit)
+    history = trainer.train(labels=ds.single_labels, log=emit)
     print(f"trained in {time.perf_counter() - t0:.1f}s")
     if history and "nmi" in history[-1]:
         print(f"final NMI: {history[-1]['nmi']:.4f}")

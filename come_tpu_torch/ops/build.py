@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``come_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one
+``come_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and link into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 sources include no PyTorch headers, so a build takes seconds.  The library
 lands in ``come_tpu_torch/_build/`` under a name keyed on a hash of the
@@ -24,17 +25,19 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures (csrc/walk_sgns.cu, csrc/star_sgns.cu): every pointer and
-# the stream as c_void_p, ints as c_int, scalars as c_float.
+# C signatures (csrc/walk_sgns.cu, star_sgns.cu, sgns_fused.cu): every
+# pointer and the stream as c_void_p, ints as c_int, scalars as c_float.
 SIGNATURES = {
     "come_walk_sgns_step": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
     "come_star_sgns_step": [_P] * 9 + [_I] * 4 + [_F, _F, _P],
+    "come_fused_sgns_step": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
+    "come_fused_sgns_step_tied": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
 }
 
 
@@ -71,18 +74,36 @@ def build(verbose: bool = False) -> tuple[Path, float]:
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(srcs, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    codes = [p.returncode for p in procs]
+    if not any(codes):
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *(str(o) for o in objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs.append(link.stdout)
+        codes.append(link.returncode)
+    secs = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if any(codes):
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({codes}):\n" + "\n".join(logs))
     if verbose:
-        print(res.stdout + res.stderr)
+        print("\n".join(logs))
     os.replace(tmp, out)
     return out, secs
 

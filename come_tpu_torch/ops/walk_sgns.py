@@ -33,8 +33,9 @@ def pad_walks(walks: torch.Tensor) -> torch.Tensor:
     node 0 (masked)."""
     B, L = walks.shape
     if L > LP:
-        raise NotImplementedError(
-            f"walk_length {L} > {LP} (ROADMAP Queue 1, 'Long walks')"
+        raise ValueError(
+            f"walk_length {L} > {LP}: the walk kernel takes walks of at most "
+            f"{LP} (the trainer sends longer walks to the micro-batched tier)"
         )
     G = -(-B // NW)
     w = walks[torch.arange(G * NW, device=walks.device) % B]

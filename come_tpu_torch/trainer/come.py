@@ -1,21 +1,36 @@
 """Alternating ComE trainer: pretrain -> [GMM fit -> O1 -> O2 -> O3 -> eval].
 
-Port of ``come_tpu/trainer/come.py`` for one device, on the path the
-``blogcatalog`` preset takes there: O1 through the walk-banded kernel
-(``ops/walk_sgns.py``), O2 through the star kernel (``ops/star_sgns.py``),
-then the GMM fit and the O3 step as torch ops.  The linear LR decay
-``max(min_lr, lr * (1 - words / total))`` is kept exactly; ``words_seen`` is
-a host float because every step advances it by a fixed count.  Losses and
-pair counts stay on the device until one sync per epoch.
+Port of ``come_tpu/trainer/come.py`` for one device, with its single-device
+O1/O2 dispatch:
+
+* O1 through the walk-banded kernel K1 (``ops/walk_sgns.py``) when the JAX
+  trainer's gates allow it: shared negatives, ``walk_length <= 128``, no
+  subsampling, and a graph inside the collision envelope.  Otherwise the
+  micro-batched tier: window pairs from ``skipgram_pairs``, applied in
+  micro-steps of ``batch_pairs`` through K6 (``ops/sgns.py``, shared
+  negatives) or the per-pair step (``losses/sgns.py``).
+* O2 through the star kernel K2 (``ops/star_sgns.py``) for
+  ``o2_mode`` auto/star with shared negatives inside the envelope;
+  otherwise per arc in batches of ``batch_edges`` through the same
+  micro-batched tier on the tied table: K7 or the tied per-pair step.
+
+Where the JAX trainer on a TPU would take a banded or XLA-block tier
+(tables past its VMEM budgets, or ``walk_length > 128`` inside the banded
+envelope), the port takes K6/K7: its tables live in HBM at every V and those
+tiers are not ported (ROADMAP decision 1).  The GMM fit and the O3 step run
+as torch ops.  The linear LR decay ``max(min_lr, lr * (1 - words /
+total))`` is kept exactly; ``words_seen`` is a host float because every
+step advances it by a fixed count.  Losses and pair counts stay on the
+device until one sync per epoch.
 
 Randomness comes from two ``torch.Generator``s seeded from ``seed``: one on
-the device (init, walks, window draws, pools, the star-row shuffle) and
-one on the host (the epoch's walk-start permutation, the GMM init).  JAX's
-threefry streams are not reproduced; the tests feed both packages the same
-draws through the ``*_step`` methods.
+the device (init, walks, window and keep draws, negatives and pools, the
+star-row and arc shuffles) and one on the host (the epoch's walk-start
+permutation, the GMM init).  JAX's threefry streams are not reproduced; the
+tests feed both packages the same draws through the ``*_step`` methods.
 
-Configurations outside this slice raise ``NotImplementedError`` naming
-their ROADMAP item.
+Configurations the port does not have raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,13 +41,16 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from come_tpu_torch.config import ComEConfig
 from come_tpu_torch.evaluation.metrics import nmi_score
 from come_tpu_torch.graphs.csr import CSRGraph
 from come_tpu_torch.losses.community import community_loss, community_sgd_step
 from come_tpu_torch.losses.gmm import fit_communities
+from come_tpu_torch.losses.sgns import sgns_sgd_step
 from come_tpu_torch.models.state import init_params
+from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
 from come_tpu_torch.ops.star_sgns import star_sgns_step
 from come_tpu_torch.ops.walk_sgns import NW, NWL, walk_sgns_step
 from come_tpu_torch.sampling.alias import (
@@ -46,6 +64,10 @@ from come_tpu_torch.sampling.stars import (
     star_layout_stats,
 )
 from come_tpu_torch.sampling.walks import random_walks
+from come_tpu_torch.sampling.windows import (
+    skipgram_pairs,
+    subsample_keep_probs,
+)
 
 
 def _decayed_lr(words_seen, total_words, lr0, min_lr):
@@ -53,43 +75,32 @@ def _decayed_lr(words_seen, total_words, lr0, min_lr):
     return max(min_lr, lr0 * frac)
 
 
-def _unsupported(cfg: ComEConfig, num_nodes: int) -> str | None:
-    """The first setting outside the ported slice, with its ROADMAP item."""
+def _unsupported(cfg: ComEConfig) -> str | None:
+    """The first setting the port does not have, with its ROADMAP item."""
     checks = [
-        (cfg.negative_mode != "shared",
-         f"negative_mode={cfg.negative_mode!r} (ROADMAP Queue 1, "
-         "'Karate and the per-pair path')"),
-        (cfg.down_sample > 0,
-         "down_sample > 0 (ROADMAP Queue 1, 'Karate and the per-pair path')"),
-        (cfg.walk_length > 128,
-         "walk_length > 128 (ROADMAP Queue 1, 'Long walks')"),
         (cfg.corpus == "host",
          "corpus='host' (ROADMAP Queue 1, 'Host corpus')"),
         (cfg.walk_gen == "kernel",
          "walk_gen='kernel' (ROADMAP Queue 2, K4)"),
-        (cfg.o2_mode not in ("auto", "star"),
-         f"o2_mode={cfg.o2_mode!r} (ROADMAP Queue 2, K5-K7)"),
+        (cfg.o2_mode == "paired",
+         "o2_mode='paired' (ROADMAP Queue 2, K5)"),
         (cfg.walk_kernel_bf16,
          "walk_kernel_bf16 (ROADMAP Queue 2, K1b/K2b)"),
         (cfg.pallas == "never",
-         "pallas='never' (ROADMAP Queue 2, K6/K7)"),
-    ]
-    # the kernels' collision envelopes (come_tpu/trainer/come.py:166-181,
-    # :862-881): one group's synchronous update must not hit a row more
-    # than ~16 times on average
-    pairs_per_group = NW * cfg.walk_length * (cfg.window + 1) / 2
-    checks += [
-        (2.0 * pairs_per_group / max(num_nodes, 1) > 16.0,
-         "a graph outside the O1 collision envelope (ROADMAP Queue 1, "
-         "'Karate and the per-pair path')"),
-        (2.0 * NWL / max(num_nodes, 1) > 16.0,
-         "a graph outside the O2 collision envelope (ROADMAP Queue 1, "
-         "'Karate and the per-pair path')"),
+         "pallas='never', the JAX package's XLA banded/block tiers, which "
+         "ROADMAP decision 1 does not port"),
     ]
     for bad, what in checks:
         if bad:
             return what
     return None
+
+
+def _in_envelope(slots_per_unit: float, num_nodes: int) -> bool:
+    """The kernels' collision envelope (come_tpu/trainer/come.py:166-180,
+    :859-881): one synchronous update must not hit a row more than ~16
+    times on average."""
+    return 2.0 * slots_per_unit / max(num_nodes, 1) <= 16.0
 
 
 class ComETrainer:
@@ -99,9 +110,24 @@ class ComETrainer:
 
     def __init__(self, graph: CSRGraph, config: ComEConfig, device,
                  seed: int | None = None):
-        why = _unsupported(config, graph.num_nodes)
+        why = _unsupported(config)
         if why is not None:
             raise NotImplementedError(f"not ported yet: {why}")
+        if config.down_sample > 0 and config.negative_mode == "shared":
+            # as the JAX trainer warns (trainer/come.py:77-101): never a
+            # silent change of O1 tier
+            import warnings
+
+            warnings.warn(
+                f"down_sample={config.down_sample} takes O1 off the walk "
+                "kernel K1 (its in-kernel pair masks do not model "
+                "occurrence dropping) to the micro-batched tier, K6 per "
+                "micro-step, whose pair masks apply the keep probabilities "
+                "exactly.  O2 is unaffected (the edge pass does not "
+                "subsample).  Use down_sample=0 (the reference default) "
+                "for K1.",
+                stacklevel=2,
+            )
         self.graph = graph
         self.cfg = config
         self.device = torch.device(device)
@@ -113,6 +139,14 @@ class ComETrainer:
         accept, alias = build_alias_table(unigram_weights(degrees))
         self.accept = torch.as_tensor(accept, device=self.device)
         self.alias = torch.as_tensor(alias, device=self.device)
+        self.keep = (
+            torch.as_tensor(subsample_keep_probs(degrees, config.down_sample),
+                            device=self.device)
+            if config.down_sample > 0 else None
+        )
+        self.arc_src, self.arc_dst = (
+            torch.as_tensor(a, device=self.device) for a in graph.arcs()
+        )
         # walk starts skip isolated nodes (come_tpu/trainer/come.py:105-119:
         # a stationary walk sums ~L*W copies of one self-pair per group)
         ws = np.flatnonzero(degrees > 0).astype(np.int32)
@@ -132,6 +166,26 @@ class ComETrainer:
         self._star_rows: tuple[torch.Tensor, torch.Tensor] | None = None
         self.last_o1_pairs = 0.0
         self.last_o2_pairs = 0.0
+        # the tiers the JAX trainer picks on a TPU, minus the ones ROADMAP
+        # decision 1 leaves unported: K1 (_use_walk_kernel, :149-180) or
+        # the micro-batched tier (:619-630); K2 (_use_star_o2, :862-881) or
+        # per arc (_o2_epoch, :1136-1144).  JAX's VMEM gates are not
+        # ported: the tables live in HBM at every V.  So K1/K2 take every V
+        # (no 48 MB tier, :204-226), and K6/K7 take the shared micro-steps
+        # at every V (no 28 MB-per-table gate, :242-248), including what
+        # JAX sends past that gate to its XLA block path, and long walks
+        # that fit JAX's banded envelope (:182-202).
+        V = graph.num_nodes
+        shared = config.negative_mode == "shared"
+        self.o1_walk_kernel = (
+            shared and config.walk_length <= 128 and config.down_sample <= 0
+            and _in_envelope(NW * config.walk_length * (config.window + 1)
+                             / 2, V)
+        )
+        self.o2_star = (
+            shared and config.o2_mode in ("auto", "star")
+            and _in_envelope(NWL, V)
+        )
 
     def _word_budget(self) -> float:
         """Total center-word count for the global linear LR decay."""
@@ -182,6 +236,83 @@ class ComETrainer:
         self.words_seen += float(walks.shape[0] * cfg.walk_length)
         return loss, npairs
 
+    def _sgns_microbatched(self, emb_in, emb_out, c, x, negs, m, lr,
+                           tie_tables: bool, compact: bool = False,
+                           pools: torch.Tensor | None = None):
+        """Apply one macro batch of pairs as sequential micro-steps of
+        ``batch_pairs`` (``trainer/come.py:265-378``): K6 (K7 with
+        ``tie_tables``) against one fresh pool of ``shared_negatives`` per
+        micro-step, or the per-pair step with ``negs`` [..., negative].
+
+        ``c``, ``x``, ``m`` are any shape of P pairs; ``pools`` int
+        [n_micro, KP] replaces the pool draws.  The tables are updated in
+        place.  Returns (loss, n_pairs) as device tensors."""
+        cfg = self.cfg
+        P = c.numel()
+        c, x, m = c.reshape(P), x.reshape(P), m.reshape(P)
+        if negs is not None:
+            negs = negs.reshape(P, cfg.negative)
+        if compact and cfg.compact_budget and cfg.compact_budget < 1.0:
+            # stable partition: valid pairs first, then cut to the budget
+            keep = torch.argsort((m == 0).to(torch.uint8), stable=True)
+            keep = keep[:int(P * cfg.compact_budget)]
+            c, x, m = c[keep], x[keep], m[keep]
+            if negs is not None:
+                negs = negs[keep]
+            P = keep.numel()
+        mb = min(cfg.batch_pairs, P)
+        n_micro = math.ceil(P / mb)
+        pad = n_micro * mb - P
+        c, x = F.pad(c, (0, pad)), F.pad(x, (0, pad))
+        m = F.pad(m.to(torch.float32), (0, pad))
+        tot_loss = torch.zeros((), device=self.device)
+        tot_pairs = torch.zeros((), device=self.device)
+        shared = cfg.negative_mode == "shared"
+        if shared and pools is None:
+            pools = sample_alias(self.accept, self.alias, self.gen,
+                                 (n_micro, cfg.shared_negatives))
+        if not shared:
+            negs = F.pad(negs, (0, 0, 0, pad))
+        for i in range(n_micro):
+            s = slice(i * mb, (i + 1) * mb)
+            if shared and tie_tables:
+                _, loss, npairs = fused_sgns_step_tied(
+                    emb_in, c[s], x[s], pools[i], m[s], lr, self.negw,
+                    tile_pairs=cfg.pallas_tile_pairs,
+                )
+            elif shared:
+                _, _, loss, npairs = fused_sgns_step(
+                    emb_in, emb_out, c[s], x[s], pools[i], m[s], lr,
+                    self.negw, tile_pairs=cfg.pallas_tile_pairs,
+                )
+            else:
+                _, _, loss, npairs = sgns_sgd_step(
+                    emb_in, emb_out, c[s], x[s], negs[s], m[s], lr,
+                    tie_tables=tie_tables, max_exp=cfg.max_exp,
+                )
+            tot_loss += loss
+            tot_pairs += npairs
+        return tot_loss, tot_pairs
+
+    def o1_pairs_step(self, walks: torch.Tensor):
+        """One O1 macro step through the micro-batched tier
+        (``trainer/come.py:619-630``): the window pairs of ``walks``
+        [B, L], per-pair negatives in per-pair mode, then
+        :meth:`_sgns_microbatched`.  Returns (loss, n_pairs) tensors."""
+        cfg = self.cfg
+        c, x, m = skipgram_pairs(walks, cfg.window, self.gen, self.keep)
+        negs = None
+        if cfg.negative_mode != "shared":
+            negs = sample_alias(self.accept, self.alias, self.gen,
+                                tuple(c.shape) + (cfg.negative,))
+        p = self.params
+        loss, npairs = self._sgns_microbatched(
+            p.node_emb, p.ctx_emb, c, x, negs, m, self.lr(),
+            tie_tables=False, compact=True,
+        )
+        self.words_seen += float(walks.shape[0] * cfg.walk_length)
+        return loss, npairs
+
     def _epoch_starts(self) -> torch.Tensor:
         """This epoch's walk origins [S, B]: every start walks_per_node
         times, shuffled, the tail batch wrapped."""
@@ -223,8 +354,11 @@ class ComETrainer:
         tot_loss = torch.zeros((), device=self.device)
         tot_pairs = torch.zeros((), device=self.device)
         for walks in walks_all:
-            wrow, pools = self._o1_draws(walks.shape[0])
-            loss, npairs = self.o1_step(walks, wrow, pools)
+            if self.o1_walk_kernel:
+                wrow, pools = self._o1_draws(walks.shape[0])
+                loss, npairs = self.o1_step(walks, wrow, pools)
+            else:
+                loss, npairs = self.o1_pairs_step(walks)
             tot_loss += loss
             tot_pairs += npairs
         loss, pairs = torch.stack([tot_loss, tot_pairs]).tolist()
@@ -277,10 +411,58 @@ class ComETrainer:
         return (F.pad(rs[row_perm], (0, 0, 0, pad)),
                 F.pad(rm[row_perm], (0, 0, 0, pad), value=PAD_META))
 
+    def o2_arc_plan(self) -> tuple[int, int]:
+        """(arcs per macro step B, steps S) of the per-arc O2 epoch
+        (``trainer/come.py:1136-1138``)."""
+        e = self.graph.num_arcs
+        B = min(self.cfg.batch_edges, e)
+        return B, math.ceil(e / B)
+
+    def o2_arc_step(self, src: torch.Tensor, dst: torch.Tensor):
+        """One per-arc O2 macro step (``_o2_epoch``, ``trainer/come.py:
+        1053-1088``): the B arcs ``src -> dst`` through the micro-batched
+        tier on the tied table at ``lr * alpha``; advances ``words_seen`` by
+        B.  Returns (loss, n_pairs) tensors."""
+        cfg = self.cfg
+        negs = None
+        if cfg.negative_mode != "shared":
+            negs = sample_alias(self.accept, self.alias, self.gen,
+                                (src.shape[0], cfg.negative))
+        ne = self.params.node_emb
+        loss, npairs = self._sgns_microbatched(
+            ne, ne, src, dst, negs, torch.ones_like(src, dtype=torch.float32),
+            self.lr() * cfg.alpha, tie_tables=True,
+        )
+        self.words_seen += float(src.shape[0])
+        return loss, npairs
+
+    def o2_arc_epoch(self) -> float:
+        """One pass over every directed arc, shuffled, in S batches of B;
+        the tail batch wraps to the epoch's first arcs as ``jnp.resize``
+        does (``trainer/come.py:1136-1144``)."""
+        B, S = self.o2_arc_plan()
+        e = self.graph.num_arcs
+        perm = torch.randperm(e, generator=self.gen, device=self.device)
+        idx = perm[torch.arange(S * B, device=self.device) % e]
+        src, dst = self.arc_src[idx].view(S, B), self.arc_dst[idx].view(S, B)
+        tot_loss = torch.zeros((), device=self.device)
+        tot_pairs = torch.zeros((), device=self.device)
+        for s in range(S):
+            loss, npairs = self.o2_arc_step(src[s], dst[s])
+            tot_loss += loss
+            tot_pairs += npairs
+        loss, pairs = torch.stack([tot_loss, tot_pairs]).tolist()
+        self.last_o2_pairs = pairs
+        return loss / max(pairs, 1.0)
+
     def o2_epoch(self) -> float:
-        """One pass over every edge in both directions through the star
-        kernel (``_o2_epoch_starlike``, ``trainer/come.py:907-982``): the
-        layout rows are shuffled each epoch and trained step by step."""
+        """One O2 epoch: through the star kernel when ``o2_star``, else per
+        arc (:meth:`o2_arc_epoch`).  The star epoch
+        (``_o2_epoch_starlike``, ``trainer/come.py:907-982``) passes over
+        every edge in both directions: the layout rows are shuffled each
+        epoch and trained step by step."""
+        if not self.o2_star:
+            return self.o2_arc_epoch()
         cfg = self.cfg
         NR = self._star_layout()[0].shape[0]
         rps, steps = self.o2_plan()

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small and ragged shapes (partial pool chunks, d below 128, wrapped walk
-batches, R=2), plus a short trainer run through both kernels.
+batches, R=2, tiles of 64 and ragged tails, pools that repeat rows), plus
+short trainer runs through the kernels.
 
 Needs a CUDA card: every test is marked ``cuda`` and skips without one.
 Imports nothing of JAX, so it runs where JAX is absent:
@@ -16,8 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from come_tpu_torch.config import PRESETS
-from come_tpu_torch.graphs import sbm_graph
+from come_tpu_torch.config import PRESETS, get_config
+from come_tpu_torch.graphs import get_dataset, sbm_graph
+from come_tpu_torch.ops.sgns import (
+    fused_sgns_step,
+    fused_sgns_step_reference,
+    fused_sgns_step_tied,
+    fused_sgns_step_tied_reference,
+)
 from come_tpu_torch.ops.star_sgns import star_sgns_step, star_sgns_step_reference
 from come_tpu_torch.ops.walk_sgns import NWL, walk_sgns_step, walk_sgns_step_reference
 from come_tpu_torch.sampling import build_star_layout
@@ -93,6 +100,69 @@ def test_star_kernel_matches_plain(dev, V, d, E, KP, R):
                   pool_refresh=R)
 
     _close((emb,), run(star_sgns_step), run(star_sgns_step_reference))
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("V,d,P,TP,KP", [
+    (34, 16, 1000, 64, 100),  # karate-sized: pool and pairs repeat rows
+    (500, 64, 3000, 1024, 512),
+    (10312, 128, 32768, 1024, 512),
+    (2000, 128, 777, 64, 100),
+])
+def test_fused_kernels_match_plain(dev, V, d, P, TP, KP, tied):
+    g = torch.Generator(device=dev).manual_seed(V + P)
+    emb_in = torch.randn((V, d), generator=g, device=dev) * 0.1
+    emb_out = torch.randn((V, d), generator=g, device=dev) * 0.1
+    c, x, pool = (torch.randint(0, V, (n,), generator=g, device=dev,
+                                dtype=torch.int32) for n in (P, P, KP))
+    m = (torch.rand(P, generator=g, device=dev) < 0.6).float()
+    lr, negw = 0.05, 5.0 / KP
+    if tied:
+        def run(fn):
+            return fn(emb_in.clone(), c, x, pool, m, lr, negw, tile_pairs=TP)
+
+        before = fused_sgns_step_tied.launches
+        _close((emb_in,), run(fused_sgns_step_tied),
+               run(fused_sgns_step_tied_reference))
+        assert fused_sgns_step_tied.launches == before + 1
+    else:
+        def run(fn):
+            return fn(emb_in.clone(), emb_out.clone(), c, x, pool, m, lr,
+                      negw, tile_pairs=TP)
+
+        before = fused_sgns_step.launches
+        _close((emb_in, emb_out), run(fused_sgns_step),
+               run(fused_sgns_step_reference))
+        assert fused_sgns_step.launches == before + 1
+
+
+def test_fused_kernels_all_masked_leave_tables(dev):
+    emb = torch.randn((50, 32), device=dev)
+    c = torch.arange(300, device=dev, dtype=torch.int32) % 50
+    m = torch.zeros(300, device=dev)
+    pool = c[:64]
+    e, loss, n = fused_sgns_step_tied(emb.clone(), c, c, pool, m, 0.1, 0.1,
+                                      tile_pairs=128)
+    torch.cuda.synchronize()
+    assert torch.equal(e, emb) and float(loss) == 0.0 and float(n) == 0.0
+
+
+def test_karate_shared_runs_through_k6_k7(dev):
+    ds = get_dataset("karate")
+    cfg = get_config("karate").replace(
+        negative_mode="shared", shared_negatives=32, pallas_tile_pairs=64,
+        outer_iters=1, pretrain_epochs=2, walks_per_node=4,
+    )
+    counts = (walk_sgns_step.launches, star_sgns_step.launches,
+              fused_sgns_step.launches, fused_sgns_step_tied.launches)
+    t = ComETrainer(ds.graph, cfg, dev)
+    hist = t.train(ds.labels)
+    after = (walk_sgns_step.launches, star_sgns_step.launches,
+             fused_sgns_step.launches, fused_sgns_step_tied.launches)
+    assert after[:2] == counts[:2]
+    assert after[2] > counts[2] and after[3] > counts[3]
+    assert np.isfinite(hist[-1]["o1_loss"]) and np.isfinite(hist[-1]["o2_loss"])
+    assert hist[-1]["nmi"] > 0.3
 
 
 def test_trainer_runs_through_both_kernels(dev):

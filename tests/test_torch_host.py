@@ -71,8 +71,10 @@ def test_to_device_packs_ptr_deg():
 
 
 def test_stand_in_registry():
+    assert get_dataset("karate").graph.num_nodes == 34
+    assert get_dataset("wikipedia").name == "wikipedia-synthetic"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset("karate")
+        get_dataset("synthetic-10m")
     with pytest.raises(KeyError):
         get_dataset("nope")
 

@@ -176,14 +176,11 @@ def test_walk_corpus_cache_cadence(regen, fresh):
 
 
 @pytest.mark.parametrize("override", [
-    dict(negative_mode="per_pair"),
-    dict(down_sample=1e-3),
-    dict(walk_length=160),
     dict(corpus="host"),
     dict(walk_gen="kernel"),
     dict(o2_mode="paired"),
-    dict(o2_mode="xla"),
     dict(walk_kernel_bf16=True),
+    dict(pallas="never"),
 ])
 def test_outside_slice_raises(override):
     g, _ = sbm_graph(256, 4, seed=0, avg_degree=10)
@@ -192,11 +189,60 @@ def test_outside_slice_raises(override):
         ComETrainer(g, cfg, "cpu")
 
 
-def test_small_graph_outside_envelope_raises():
-    g, _ = sbm_graph(60, 2, seed=0, avg_degree=6)
-    cfg = PRESETS["blogcatalog"].replace(num_communities=2)
-    with pytest.raises(NotImplementedError, match="collision envelope"):
-        ComETrainer(g, cfg, "cpu")
+_STEPS = ("walk_sgns_step", "star_sgns_step", "fused_sgns_step",
+          "fused_sgns_step_tied", "sgns_sgd_step")
+
+
+@pytest.mark.parametrize("graph,override,o1,o2", [
+    ("sbm256", {}, "walk_sgns_step", "star_sgns_step"),
+    ("sbm256", dict(negative_mode="per_pair"), "sgns_sgd_step",
+     "sgns_sgd_step"),
+    ("sbm256", dict(down_sample=1e-3), "fused_sgns_step", "star_sgns_step"),
+    ("sbm256", dict(walk_length=160), "fused_sgns_step", "star_sgns_step"),
+    ("sbm256", dict(o2_mode="xla"), "walk_sgns_step", "fused_sgns_step_tied"),
+    ("sbm60", dict(walk_length=80, window=10), "fused_sgns_step",
+     "fused_sgns_step_tied"),
+    ("sbm60", dict(walk_length=80, window=10, o2_mode="star"),
+     "fused_sgns_step", "fused_sgns_step_tied"),
+    ("karate", dict(negative_mode="shared"), "fused_sgns_step",
+     "fused_sgns_step_tied"),
+    ("karate", dict(negative_mode="per_pair"), "sgns_sgd_step",
+     "sgns_sgd_step"),
+])
+def test_dispatch_follows_the_jax_trainer(monkeypatch, graph, override, o1,
+                                          o2):
+    """Each configuration trains one O1 and one O2 epoch through the step
+    the JAX trainer picks on a TPU (``trainer/come.py:149-180``, ``:265-378``,
+    ``:862-881``, ``:1090-1144``): the walk kernel K1 or the micro-batched
+    tier (K6, or the per-pair step), the star kernel K2 or per arc (K7, or
+    the tied per-pair step)."""
+    import come_tpu_torch.trainer.come as tc
+    from come_tpu_torch.graphs import get_dataset
+
+    if graph == "karate":
+        g = get_dataset("karate").graph
+    else:
+        g, _ = sbm_graph(int(graph[3:]), 4, seed=0, avg_degree=10)
+    small = dict(num_communities=4, dim=16, walk_length=20, window=3,
+                 walks_per_node=1, shared_negatives=16, batch_edges=512)
+    cfg = PRESETS["blogcatalog"].replace(**{**small, **override})
+    calls = []
+    for name in _STEPS:
+        fn = getattr(tc, name)
+        monkeypatch.setattr(
+            tc, name, lambda *a, _n=name, _f=fn, **k: calls.append(_n)
+            or _f(*a, **k))
+    if override.get("down_sample"):
+        with pytest.warns(UserWarning, match="micro-batched tier"):
+            t = ComETrainer(g, cfg, "cpu")
+    else:
+        t = ComETrainer(g, cfg, "cpu")
+    assert np.isfinite(t.o1_epoch()) and t.last_o1_pairs > 0
+    assert set(calls) == {o1}
+    calls.clear()
+    assert np.isfinite(t.o2_epoch()) and t.last_o2_pairs > 0
+    assert set(calls) == {o2}
+    assert np.isfinite(t.embeddings()).all()
 
 
 def test_main_refuses_missing_cuda_and_unported_flags():
