@@ -8,7 +8,19 @@ non-zero and prints no result line):
   2. build   — compiles come_tpu_torch/csrc/*.cu for sm_90a (nvcc)
   3. K1      — one BlogCatalog-shaped O1 macro step through the walk kernel
                and through its plain PyTorch version on clones
+ 3b. K1b     — the same inputs with mxu_bf16 (bf16 product operands)
   4. K2      — the same for one star O2 macro step (65536 slots)
+ 4b. K2b     — the same inputs with mxu_bf16
+ 4c. K4      — one BlogCatalog macro step of 256 walks generated in the
+               kernel from starts, 32-bit draws and the CSR (L 80, W 10,
+               KP 512); the walks must be the plain version's bit for bit
+               and every hop an edge
+ 4d. K5      — one paired O2 macro step at blogcatalog shapes (512 rows of
+               64 edges, 64 groups), f32
+ 4e. bench shapes — K1b, K4 (bf16) and K2b at the shapes phases 12-13 give
+               them: one 2048-walk O1 step (256 groups, R 8, unigram pools
+               [32, 512]) and the one star O2 step of batch_edges 524288
+               (the whole layout, 344 groups, R 8)
   5. main    — come_tpu_torch.main on --dataset blogcatalog (pretrain 1,
                outer 1) on cuda, with the kernels' launch counters reset
                just before and read just after
@@ -22,8 +34,18 @@ non-zero and prints no result line):
  10. micro   — the micro-batched main path through the CLI: blogcatalog
                with --down-sample 1e-3 --o2-mode xla (walks per node 2,
                pretrain 0, outer 1): O1 through K6, O2 per arc through K7
-Phases 5 and 8-10 each reset every launch counter just before they run
-and read them just after.  Then a JSON line of the kernels, and last
+ 11. paired  — the CLI on --dataset blogcatalog --o2-mode paired (pretrain
+               1, outer 1): O1 through K1, O2 through K5, no K2
+ 12. bench   — ComETrainer with the reference bench's kernel configuration
+               (bench.py:174-191: walk_kernel_bf16, walk_pool_refresh 8,
+               batch_walks 2048, batch_edges 524288; pretrain 1, outer 1)
+               and the walker: K1b and K2b, nothing else
+ 13. bench gen — the same with walk_gen "kernel" (bench.py:207-216): K4 in
+               its bf16 mode and K2b, nothing else
+Phases 5 and 8-13 each reset every launch counter just before they run
+and read them just after; each wrapper counts only its own launches, by
+mode.  Then a JSON line of the kernels (the bf16 modes with their bench-
+shape checks and their launches in phases 12-13), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Tolerance of the kernel checks, on each table element's update (table after
@@ -31,11 +53,22 @@ the step minus before): |upd_kernel - upd_plain| <= 1e-6 + 1e-4 |upd_plain|
 (f32; the kernel adds duplicate rows with atomicAdd, whose order varies from
 run to run, which moves an update by ~1e-7; a TF32 or bf16 negative pass
 moves it by 1e-5 to 1e-4 and fails), loss within rtol 1e-4, pair counts
-exact.  Phase 5 must give finite losses and embeddings, train every edge
-twice in O2, and reach NMI >= 0.8; phase 8 NMI >= 0.5 and phase 9 NMI >= 0.3
-(the JAX package's own karate floors); phase 10 finite losses and
-embeddings and exactly S * B O2 pairs (S = ceil(2E / batch_edges) batches
-of B arcs).  Imports nothing of JAX.
+exact.  K4 and K5 in f32 take this tolerance.  The bf16 modes take their
+own (come_tpu_torch/ops/tolerance.py, where its readings are): a product of
+two bf16 values is exact in f32, so the kernel and its plain version differ
+only in the order of their f32 sums; where two orders straddle a rounding
+boundary a rounded g flips by one bf16 ulp, and flips compound over a
+step's groups.  So the relative L2 error of the updates must be <= 4e-4,
+every element within 2^-8 of the largest plain update, and the f32 plain
+step must lie at least 5x farther from the bf16 plain step than the kernel
+does and 2x past the bound, so the check tells a bf16 pass from an f32 one.
+Each bf16 line prints the error, the bound and that distance.  Phase 5 must
+give finite losses and embeddings, train every edge twice in O2, and reach
+NMI >= 0.8; phase 8 NMI >= 0.5 and phase 9 NMI >= 0.3 (the JAX package's
+own karate floors); phase 10 finite losses and embeddings and exactly S * B
+O2 pairs (S = ceil(2E / batch_edges) batches of B arcs); phase 11 finite
+losses, exactly 2 * S * B_r * 64 O2 pairs and NMI >= 0.8; phases 12-13
+finite losses and NMI >= 0.8.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -106,6 +139,37 @@ def compare(name, init, kern, plain):
     return max_abs, max_rel, loss_rel
 
 
+def compare_bf16(name, init, kern, plain, f32):
+    """The bf16 check (module docstring) of the kernel's step against the
+    plain version's, with the plain f32 step's tables ``f32``: returns
+    (max abs update error, relative L2 error, f32-vs-bf16 distance, worst
+    element error over 2^-8 max|plain update|)."""
+    from come_tpu_torch.ops.tolerance import check_bf16
+
+    *k_tabs, k_loss, k_pairs = kern
+    *p_tabs, p_loss, p_pairs = plain
+    err = check_bf16(name, init, k_tabs, p_tabs, f32)
+    loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    if loss_rel > 1e-4 or float(k_pairs) != float(p_pairs):
+        raise AssertionError(
+            f"{name}: loss {float(k_loss)} vs {float(p_loss)}, pairs "
+            f"{float(k_pairs)} vs {float(p_pairs)}")
+    if not all(torch.isfinite(t).all() for t in k_tabs):
+        raise AssertionError(f"{name}: non-finite table")
+    return err
+
+
+def bf16_line(err, ms, plain_ms):
+    from come_tpu_torch.ops.tolerance import BF16_L2
+
+    return (f"max_abs {err[0]:.3e} rel_l2 {err[1]:.3e} (bound {BF16_L2}; "
+            f"f32-vs-bf16 distance {err[2]:.3e}, "
+            f"{err[2] / max(err[1], 1e-30):.3g}x the error, "
+            f"{err[2] / BF16_L2:.2f}x the bound; worst element "
+            f"{err[3]:.3f} of 2^-8 max|plain update|) | kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -134,7 +198,10 @@ def main() -> int:
         star_sgns_step_reference,
     )
     from come_tpu_torch.ops.walk_sgns import (
+        NW,
         NWL,
+        walk_sgns_gen_step,
+        walk_sgns_gen_step_reference,
         walk_sgns_step,
         walk_sgns_step_reference,
     )
@@ -145,22 +212,33 @@ def main() -> int:
         sample_alias,
         unigram_weights,
     )
+    from come_tpu_torch.sampling.stars import PAD_META
     from come_tpu_torch.sampling.windows import (
         skipgram_pairs,
         subsample_keep_probs,
     )
     from come_tpu_torch.trainer import ComETrainer
 
-    kernels = {"walk_sgns": walk_sgns_step, "star_sgns": star_sgns_step,
-               "fused_sgns": fused_sgns_step,
-               "fused_sgns_tied": fused_sgns_step_tied}
+    # each kernel (mode) and the wrapper attribute that counts its launches
+    kernels = {
+        "walk_sgns": (walk_sgns_step, "launches"),
+        "star_sgns": (star_sgns_step, "launches"),
+        "fused_sgns": (fused_sgns_step, "launches"),
+        "fused_sgns_tied": (fused_sgns_step_tied, "launches"),
+        "walk_sgns_bf16": (walk_sgns_step, "launches_bf16"),
+        "star_sgns_bf16": (star_sgns_step, "launches_bf16"),
+        "walk_sgns_gen": (walk_sgns_gen_step, "launches"),
+        "walk_sgns_gen_bf16": (walk_sgns_gen_step, "launches_bf16"),
+        "walk_sgns_paired": (walk_sgns_step, "launches_paired"),
+    }
 
     def reset_counts():
-        for fn in kernels.values():
-            fn.launches = 0
+        for fn, attr in kernels.values():
+            setattr(fn, attr, 0)
 
     def counts():
-        return {name: fn.launches for name, fn in kernels.items()}
+        return {name: getattr(fn, attr)
+                for name, (fn, attr) in kernels.items()}
 
     def check_launches(where, launched, ran, idle):
         for name in ran:
@@ -208,6 +286,21 @@ def main() -> int:
                 f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms "
                 f"(tol {ATOL} + {RTOL}*|plain update|)")
 
+    # 3b. K1b: the same inputs in the bf16 mode
+    def k1b(fn):
+        return fn(emb_in.clone(), emb_out.clone(), walks, wrow, pools, lr,
+                  negw, window=W, pool_refresh=1, mxu_bf16=True)
+
+    kern1b = k1b(walk_sgns_step)
+    plain1b = k1b(walk_sgns_step_reference)
+    torch.cuda.synchronize()
+    k1b_err = compare_bf16("K1b", (emb_in, emb_out), kern1b, plain1b,
+                           plain[:2])
+    phase("K1b", "walk_sgns bf16, K1's inputs: " + bf16_line(
+        k1b_err, cuda_ms(lambda: k1b(walk_sgns_step)),
+        cuda_ms(lambda: k1b(walk_sgns_step_reference))))
+    del kern1b, plain1b
+
     # 4. K2 on the stand-in's star layout: one 65536-slot macro step
     u, v = ds.graph.edges_undirected()
     slots, meta = build_star_layout(u, v, V)
@@ -233,7 +326,169 @@ def main() -> int:
                 f"loss_rel {k2_err[2]:.3e} pairs {float(kern2[2]):.0f} | "
                 f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
                 f"(tol {ATOL} + {RTOL}*|plain update|)")
-    del emb_in, emb_out, kern, plain, kern2, plain2
+
+    # 4b. K2b: the same inputs in the bf16 mode
+    def k2b(fn):
+        return fn(emb_in.clone(), sl, mt, pools2, lr, negw, pool_refresh=1,
+                  mxu_bf16=True)
+
+    kern2b = k2b(star_sgns_step)
+    plain2b = k2b(star_sgns_step_reference)
+    torch.cuda.synchronize()
+    k2b_err = compare_bf16("K2b", (emb_in,), kern2b, plain2b, plain2[:1])
+    phase("K2b", "star_sgns bf16, K2's inputs: " + bf16_line(
+        k2b_err, cuda_ms(lambda: k2b(star_sgns_step)),
+        cuda_ms(lambda: k2b(star_sgns_step_reference))))
+    del kern, plain, kern2, plain2, kern2b, plain2b
+
+    # 4c. K4: a macro step of B walks generated in the kernel
+    bits = torch.randint(-2**31, 2**31, (G * NWL,), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+    def k4(fn):
+        return fn(emb_in.clone(), emb_out.clone(), starts, bits, csr.indptr,
+                  csr.indices, wrow, pools, lr, negw, walk_length=L,
+                  window=W, pool_refresh=1, return_walks=True)
+
+    src = torch.repeat_interleave(torch.arange(V, device=dev),
+                                  csr.degrees.long())
+    arc_keys = torch.sort(src * V + csr.indices.long()).values
+
+    def check_walks(name, kw, pw):
+        """K4's walks: the plain version's bit for bit, every hop an edge
+        (or a stay at a node of degree 0)."""
+        if not torch.equal(kw, pw):
+            raise AssertionError(f"{name}: {int((kw != pw).sum())} generated "
+                                 f"walk slots differ from the plain version's")
+        here, nxt = kw[:, :-1].long(), kw[:, 1:].long()
+        hop = here * V + nxt
+        found = arc_keys[torch.searchsorted(arc_keys, hop).clamp_max(
+            arc_keys.numel() - 1)]
+        stay = (here == nxt) & (csr.degrees.long()[here] == 0)
+        if not bool(((found == hop) | stay).all()):
+            raise AssertionError(f"{name}: a generated hop is not an edge")
+
+    *kern4, kw4 = k4(walk_sgns_gen_step)
+    *plain4, pw4 = k4(walk_sgns_gen_step_reference)
+    torch.cuda.synchronize()
+    check_walks("K4", kw4, pw4)
+    k4_err = compare("K4", (emb_in, emb_out), kern4, plain4)
+    k4_ms = cuda_ms(lambda: k4(walk_sgns_gen_step))
+    k4_plain_ms = cuda_ms(lambda: k4(walk_sgns_gen_step_reference))
+    phase("K4", f"walk_sgns_gen V={V} d={d} B={B} L={L} W={W} KP={KP} "
+                f"G={G}: walks bit-identical ({kw4.numel()} slots, every hop "
+                f"an edge), max_abs {k4_err[0]:.3e} max_rel {k4_err[1]:.3e} "
+                f"loss_rel {k4_err[2]:.3e} pairs {float(kern4[3]):.0f} | "
+                f"kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms "
+                f"(tol {ATOL} + {RTOL}*|plain update|)")
+    del kern4, plain4
+
+    # 4d. K5: one paired macro step, 512 rows of 64 shuffled edges
+    eperm = torch.as_tensor(np.random.default_rng(SEED).permutation(
+        u.shape[0])[:512 * 64], device=dev)
+    uu, vv = (torch.as_tensor(a, device=dev)[eperm] for a in (u, v))
+    rows = torch.stack([uu, vv], 1).reshape(512, 128)
+    pools5 = torch.randint(0, V, (64, KP), generator=gen, device=dev,
+                           dtype=torch.int32)
+
+    def k5(fn):
+        return fn(emb_in.clone(), emb_out.clone(), rows, None, pools5, lr,
+                  negw, window=1, pool_refresh=1, paired=True)
+
+    kern5 = k5(walk_sgns_step)
+    plain5 = k5(walk_sgns_step_reference)
+    torch.cuda.synchronize()
+    k5_err = compare("K5", (emb_in, emb_out), kern5, plain5)
+    k5_ms = cuda_ms(lambda: k5(walk_sgns_step))
+    k5_plain_ms = cuda_ms(lambda: k5(walk_sgns_step_reference))
+    phase("K5", f"walk_sgns paired V={V} d={d} rows=512 KP={KP} R=1 G=64: "
+                f"max_abs {k5_err[0]:.3e} max_rel {k5_err[1]:.3e} loss_rel "
+                f"{k5_err[2]:.3e} pairs {float(kern5[3]):.0f} | kernel "
+                f"{k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms (tol {ATOL} + "
+                f"{RTOL}*|plain update|)")
+    del kern5, plain5
+
+    # 4e. K1b, K4 (bf16) and K2b at the shapes the bench path (phases 12
+    # and 13) gives them: one 2048-walk O1 step (256 groups, R 8, unigram
+    # pools [32, 512]) and the one star O2 step of batch_edges 524288 (the
+    # whole layout in rps = ceil(NR / 8) * 8 rows, R 8)
+    BB, RB = 2048, 8
+    GB = BB // NW
+    accept, alias = (torch.as_tensor(a, device=dev) for a in
+                     build_alias_table(unigram_weights(ds.graph.degrees)))
+    starts_b = torch.randint(0, V, (BB,), generator=gen, device=dev)
+    walks_b = random_walks(csr, starts_b, L, gen)
+    bits_b = torch.randint(-2**31, 2**31, (GB * NWL,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    wrow_b = torch.randint(1, W + 1, (GB * NWL,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    pools_b = sample_alias(accept, alias, gen, (-(-GB // RB), KP))
+
+    def k1b_bench(fn, bf16=True):
+        return fn(emb_in.clone(), emb_out.clone(), walks_b, wrow_b, pools_b,
+                  lr, negw, window=W, pool_refresh=RB, mxu_bf16=bf16)
+
+    kern, plain, f32 = (k1b_bench(walk_sgns_step),
+                        k1b_bench(walk_sgns_step_reference),
+                        k1b_bench(walk_sgns_step_reference, False))
+    torch.cuda.synchronize()
+    k1bb_err = compare_bf16("K1b (bench)", (emb_in, emb_out), kern, plain,
+                            f32[:2])
+    k1bb_ms = cuda_ms(lambda: k1b_bench(walk_sgns_step))
+    k1bb_plain_ms = cuda_ms(lambda: k1b_bench(walk_sgns_step_reference))
+    phase("K1b bench", f"walk_sgns bf16 B={BB} R={RB} G={GB} pools "
+                       f"{tuple(pools_b.shape)}: "
+                       + bf16_line(k1bb_err, k1bb_ms, k1bb_plain_ms))
+
+    def k4_bench(fn, bf16=True):
+        return fn(emb_in.clone(), emb_out.clone(), starts_b, bits_b,
+                  csr.indptr, csr.indices, wrow_b, pools_b, lr, negw,
+                  walk_length=L, window=W, pool_refresh=RB, mxu_bf16=bf16,
+                  return_walks=True)
+
+    *kern, kw = k4_bench(walk_sgns_gen_step)
+    *plain, pw = k4_bench(walk_sgns_gen_step_reference)
+    *f32, _ = k4_bench(walk_sgns_gen_step_reference, False)
+    torch.cuda.synchronize()
+    check_walks("K4 (bench)", kw, pw)
+    k4b_err = compare_bf16("K4 (bench)", (emb_in, emb_out), kern, plain,
+                           f32[:2])
+    k4b_ms = cuda_ms(lambda: k4_bench(walk_sgns_gen_step))
+    k4b_plain_ms = cuda_ms(lambda: k4_bench(walk_sgns_gen_step_reference))
+    phase("K4 bench", f"walk_sgns_gen bf16 B={BB} R={RB} G={GB}: walks "
+                      f"bit-identical ({kw.numel()} slots, every hop an "
+                      f"edge), " + bf16_line(k4b_err, k4b_ms, k4b_plain_ms))
+
+    lay_s, lay_m = slots.reshape(-1, 128), meta.reshape(-1, 128)
+    NR = lay_s.shape[0]
+    rps = -(-max(8, min(-(-524288 // 128), NR)) // 8) * 8
+    if rps < NR:
+        raise AssertionError(f"bench O2: {NR} layout rows need more than "
+                             f"one step of {rps}")
+    rperm = np.random.default_rng(SEED).permutation(NR)
+    sl_b = torch.as_tensor(np.pad(lay_s[rperm], ((0, rps - NR), (0, 0))),
+                           device=dev).reshape(-1)
+    mt_b = torch.as_tensor(np.pad(lay_m[rperm], ((0, rps - NR), (0, 0)),
+                                  constant_values=PAD_META),
+                           device=dev).reshape(-1)
+    G2B = rps * 128 // NWL
+    pools2_b = sample_alias(accept, alias, gen, (-(-G2B // RB), KP))
+
+    def k2b_bench(fn, bf16=True):
+        return fn(emb_in.clone(), sl_b, mt_b, pools2_b, lr, negw,
+                  pool_refresh=RB, mxu_bf16=bf16)
+
+    kern, plain, f32 = (k2b_bench(star_sgns_step),
+                        k2b_bench(star_sgns_step_reference),
+                        k2b_bench(star_sgns_step_reference, False))
+    torch.cuda.synchronize()
+    k2bb_err = compare_bf16("K2b (bench)", (emb_in,), kern, plain, f32[:1])
+    k2bb_ms = cuda_ms(lambda: k2b_bench(star_sgns_step))
+    k2bb_plain_ms = cuda_ms(lambda: k2b_bench(star_sgns_step_reference))
+    phase("K2b bench", f"star_sgns bf16 T={sl_b.numel()} R={RB} G={G2B} "
+                       f"pools {tuple(pools2_b.shape)} (one step): "
+                       + bf16_line(k2bb_err, k2bb_ms, k2bb_plain_ms))
+    del emb_in, emb_out, kern, plain, f32
     torch.cuda.empty_cache()
 
     # 5. the main path, through the CLI's own entry
@@ -250,7 +505,9 @@ def main() -> int:
     launches = counts()
     rec = hist[-1]
     check_launches("main path", launches, ("walk_sgns", "star_sgns"),
-                   ("fused_sgns", "fused_sgns_tied"))
+                   ("fused_sgns", "fused_sgns_tied", "walk_sgns_bf16",
+                    "star_sgns_bf16", "walk_sgns_gen", "walk_sgns_gen_bf16",
+                    "walk_sgns_paired"))
     for k in ("gmm_ll", "o1_loss", "o2_loss", "o3_loss", "nmi"):
         if not math.isfinite(rec[k]):
             raise AssertionError(f"main path: {k} = {rec[k]}")
@@ -272,8 +529,6 @@ def main() -> int:
 
     # 6. K6 at the BlogCatalog width: the first micro-step of one macro step
     V, d, TP = ds.graph.num_nodes, 128, 1024
-    accept, alias = (torch.as_tensor(a, device=dev) for a in
-                     build_alias_table(unigram_weights(ds.graph.degrees)))
     keep = torch.as_tensor(subsample_keep_probs(ds.graph.degrees, 1e-3),
                            device=dev)
     emb_in = torch.randn((V, d), generator=gen, device=dev) * 0.1
@@ -355,7 +610,7 @@ def main() -> int:
     launches9 = counts()
     check_launches("karate shared", launches9,
                    ("fused_sgns", "fused_sgns_tied"),
-                   ("walk_sgns", "star_sgns"))
+                   tuple(k for k in kernels if not k.startswith("fused")))
     check_run("karate shared", hist, KARATE_SHARED_NMI_FLOOR)
     phase("shared", f"karate shared negatives: NMI {hist[-1]['nmi']:.4f} | "
                     f"launches {launches9}")
@@ -373,7 +628,7 @@ def main() -> int:
     micro_launches = counts()
     check_launches("micro-batched path", micro_launches,
                    ("fused_sgns", "fused_sgns_tied"),
-                   ("walk_sgns", "star_sgns"))
+                   tuple(k for k in kernels if not k.startswith("fused")))
     check_run("micro-batched path", hist, 0.0)
     rec = hist[-1]
     emb = trainer.embeddings()
@@ -391,6 +646,70 @@ def main() -> int:
                    f"o1_pairs {rec['o1_pairs']:.0f} o2_pairs "
                    f"{rec['o2_pairs']:.0f} (S={S}, B={B}) | NMI "
                    f"{rec['nmi']:.4f} | launches {micro_launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 11. the paired O2 entry point through the CLI
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, hist = run(build_argparser().parse_args([
+        "--dataset", "blogcatalog", "--device", "cuda", "--o2-mode",
+        "paired", "--pretrain-epochs", "1", "--outer-iters", "1", "--seed",
+        str(SEED),
+    ]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paired_launches = counts()
+    check_launches("paired path", paired_launches,
+                   ("walk_sgns", "walk_sgns_paired"),
+                   tuple(k for k in kernels
+                         if k not in ("walk_sgns", "walk_sgns_paired")))
+    check_run("paired path", hist, NMI_FLOOR)
+    rec = hist[-1]
+    B_r, S = trainer.o2_paired_plan()
+    if rec["o2_pairs"] != 2 * S * B_r * 64:
+        raise AssertionError(f"paired path: o2_pairs {rec['o2_pairs']} != "
+                             f"2*S*B_r*64 = 2*{S}*{B_r}*64")
+    phase("paired", f"blogcatalog --o2-mode paired, pretrain 1 + outer 1 in "
+                    f"{wall:.1f} s: gmm {rec['gmm_ms']:.1f} ms, o1 "
+                    f"{rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms, o3 "
+                    f"{rec['o3_ms']:.1f} ms | o1_pairs {rec['o1_pairs']:.0f} "
+                    f"o2_pairs {rec['o2_pairs']:.0f} (S={S}, B_r={B_r}) | "
+                    f"NMI {rec['nmi']:.4f} | launches {paired_launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 12-13. the reference bench's kernel configuration through
+    # ComETrainer, with the walker and with walk_gen="kernel"
+    def bench_run(where, walk_gen, ran):
+        cfg = get_config("blogcatalog").replace(
+            num_communities=ds.num_communities, walk_kernel_bf16=True,
+            walk_pool_refresh=8, batch_walks=2048, batch_edges=524288,
+            walk_gen=walk_gen, pretrain_epochs=1, outer_iters=1, seed=SEED,
+        )
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = ComETrainer(ds.graph, cfg, dev).train(ds.single_labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        check_launches(where, launched, ran,
+                       tuple(k for k in kernels if k not in ran))
+        check_run(where, hist, NMI_FLOOR)
+        rec = hist[-1]
+        phase(where, f"blogcatalog + bf16, R 8, batch_walks 2048, "
+                     f"batch_edges 524288, walk_gen {walk_gen}, pretrain 1 + "
+                     f"outer 1 in {wall:.1f} s: gmm {rec['gmm_ms']:.1f} ms, "
+                     f"o1 {rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms, o3 "
+                     f"{rec['o3_ms']:.1f} ms | o1_pairs {rec['o1_pairs']:.0f} "
+                     f"o2_pairs {rec['o2_pairs']:.0f} | NMI "
+                     f"{rec['nmi']:.4f} | launches {launched}")
+        return launched
+
+    bench_launches = bench_run("bench", "scan",
+                               ("walk_sgns_bf16", "star_sgns_bf16"))
+    gen_launches = bench_run("bench gen", "kernel",
+                             ("walk_sgns_gen_bf16", "star_sgns_bf16"))
 
     print(json.dumps({"kernels": [
         {"name": "walk_sgns", "route": "cuda",
@@ -413,6 +732,28 @@ def main() -> int:
          "replaces": "come_tpu/ops/pallas_sgns.py:185",
          "launches": micro_launches["fused_sgns_tied"],
          "max_abs_err": k7_err[0], "ms": k7_ms, "plain_ms": k7_plain_ms},
+        {"name": "walk_sgns_bf16", "route": "cuda",
+         "source": "come_tpu_torch/csrc/walk_sgns.cu",
+         "replaces": "come_tpu/ops/pallas_walk_sgns.py:129",
+         "launches": bench_launches["walk_sgns_bf16"],
+         "max_abs_err": k1bb_err[0], "ms": k1bb_ms,
+         "plain_ms": k1bb_plain_ms},
+        {"name": "star_sgns_bf16", "route": "cuda",
+         "source": "come_tpu_torch/csrc/star_sgns.cu",
+         "replaces": "come_tpu/ops/pallas_star_sgns.py:78",
+         "launches": bench_launches["star_sgns_bf16"],
+         "max_abs_err": k2bb_err[0], "ms": k2bb_ms,
+         "plain_ms": k2bb_plain_ms},
+        {"name": "walk_sgns_gen_bf16", "route": "cuda",
+         "source": "come_tpu_torch/csrc/walk_sgns.cu",
+         "replaces": "come_tpu/ops/pallas_walk_sgns.py:695",
+         "launches": gen_launches["walk_sgns_gen_bf16"],
+         "max_abs_err": k4b_err[0], "ms": k4b_ms, "plain_ms": k4b_plain_ms},
+        {"name": "walk_sgns_paired", "route": "cuda",
+         "source": "come_tpu_torch/csrc/walk_sgns.cu",
+         "replaces": "come_tpu/ops/pallas_walk_sgns.py:290",
+         "launches": paired_launches["walk_sgns_paired"],
+         "max_abs_err": k5_err[0], "ms": k5_ms, "plain_ms": k5_plain_ms},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

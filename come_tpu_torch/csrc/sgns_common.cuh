@@ -13,9 +13,18 @@
 // first design runs the negative pass as a shared-memory tiled f32 SIMT
 // product, one CTA per (128-slot block, 64-row pool chunk), and merges the
 // partial sums with float atomics.
+//
+// The BF16 instance of negative_kernel is the TPU kernels' mxu_bf16=True
+// mode (pallas_walk_sgns.py:344-360, pallas_star_sgns.py:117, :167-180):
+// every product operand is rounded to bf16 (round to nearest even) where
+// the TPU casts it to mxu_t, and every sum stays f32.  A product of two
+// bf16 values is exact in f32, so only the order of the f32 sums differs
+// from the TPU.  The rounding costs a few conversions per staged element;
+// the pass stays SIMT (a bf16 tensor-core pass is a later speed step).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace come {
@@ -37,6 +46,13 @@ static __device__ __forceinline__ float warp_sum(float v) {
 
 static __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// x rounded to the nearest bf16 (ties to even) and widened back: the TPU's
+// cast of a product operand to mxu_t when BF16, x itself otherwise.
+template <bool BF16>
+static __device__ __forceinline__ float mxu(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
 // log(sigmoid(x)) without overflow: min(x, 0) - log1p(exp(-|x|))
@@ -97,10 +113,13 @@ static inline size_t negative_smem_bytes(int d) {
 //   g[i,j]  = sigmoid(s) * negw * nt[i]
 //   dphi[i] += g[i,:] @ cneg          (atomic: KP / KC chunks add)
 //   dneg[j] += g[:,j]^T @ phi         (atomic: every block of the R-block)
-// and adds -negw * nt[i] * log(sigmoid(-s)) to stats[0].
+// and adds -negw * nt[i] * log(sigmoid(-s)) to stats[0].  BF16 rounds phi
+// and cneg as they are staged and g after the multiply by negw * nt, as
+// the TPU rounds phi_m, cneg_m and gneg_m; the loss takes the f32 s.
 // Thread tiles: scores 8 rows x 4 columns; dphi 8 rows x 8 columns and
 // dneg 4 rows x 8 columns per 128-column chunk of d.  Rows are stored with
 // stride d+1 so column walks by neighbouring threads hit distinct banks.
+template <bool BF16>
 static __global__ void __launch_bounds__(THREADS)
 negative_kernel(const float* __restrict__ table, const int* __restrict__ ids,
                 const float* __restrict__ nt, const float* __restrict__ cneg,
@@ -118,11 +137,12 @@ negative_kernel(const float* __restrict__ table, const int* __restrict__ ids,
 
   for (int idx = threadIdx.x; idx < BLK * d; idx += THREADS) {
     const int i = idx / d, k = idx - i * d;
-    ph[i * ds + k] = table[(size_t)ids[base + i] * d + k];
+    ph[i * ds + k] = mxu<BF16>(table[(size_t)ids[base + i] * d + k]);
   }
   for (int idx = threadIdx.x; idx < KC * d; idx += THREADS) {
     const int j = idx / d, k = idx - j * d;
-    cn[j * ds + k] = (j0 + j < KP) ? cneg[(size_t)(j0 + j) * d + k] : 0.0f;
+    cn[j * ds + k] =
+        (j0 + j < KP) ? mxu<BF16>(cneg[(size_t)(j0 + j) * d + k]) : 0.0f;
   }
   if (threadIdx.x < BLK) nts[threadIdx.x] = nt[base + threadIdx.x];
   __syncthreads();
@@ -154,7 +174,7 @@ negative_kernel(const float* __restrict__ table, const int* __restrict__ ids,
       const int j = tx + 16 * c;
       float g = 0.0f;
       if (j0 + j < KP && w != 0.0f) {
-        g = sigmoid_f(s[r][c]) * w;
+        g = mxu<BF16>(sigmoid_f(s[r][c]) * w);
         loss -= w * log_sigmoid_f(-s[r][c]);
       }
       gs[i * (KC + 1) + j] = g;

@@ -1,7 +1,9 @@
 // Star (fan-out) tied SGNS macro step (O2) for Hopper, f32 table.
 //
 // Replaces the Pallas kernel come_tpu/ops/pallas_star_sgns.py::_star_kernel
-// as called by fused_star_sgns_step.  Slots come in groups of 1024 (eight
+// as called by fused_star_sgns_step (K2), and its mxu_bf16=True mode (K2b:
+// phi_bm and g_m rounded to bf16 at :135, :156, and the negative pass's
+// operands, sgns_common.cuh; every sum f32).  Slots come in groups of 1024 (eight
 // 128-slot rows of the star layout, sampling/stars.py); groups run in
 // order, each reading the table as the previous group left it:
 //   * at an R-block start the pool rows are staged and dneg is zeroed;
@@ -20,7 +22,8 @@
 // scatter are row traffic; a slot has at most 32 partners (the layout's
 // max_fanout), so this design scores only the pairs the mask keeps (warp
 // per slot) instead of the TPU's dense [128, 128] block, and shares the
-// tiled SIMT negative pass with the walk kernel.
+// tiled SIMT negative pass with the walk kernel.  K2b rounds the staged
+// rows and each pair's g as they are made, a few conversions per element.
 
 #include "sgns_common.cuh"
 
@@ -32,7 +35,8 @@ static inline size_t star_pos_smem_bytes(int d) {
 
 // Positive pairs of one 128-slot row.  grid NBLK, block THREADS.
 // Writes (overwrites) dphi and nt for the row's slots and adds the positive
-// loss and the pair count to stats.
+// loss and the pair count to stats.  BF16 rounds the staged rows and g.
+template <bool BF16>
 static __global__ void __launch_bounds__(THREADS)
 star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
                 const int* __restrict__ meta, int d,
@@ -47,7 +51,7 @@ star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
 
   for (int idx = threadIdx.x; idx < BLK * d; idx += THREADS) {
     const int t = idx / d, k = idx - t * d;
-    phi[t * ds + k] = emb[(size_t)slots[base + t] * d + k];
+    phi[t * ds + k] = mxu<BF16>(emb[(size_t)slots[base + t] * d + k]);
   }
   if (threadIdx.x < BLK) ms[threadIdx.x] = meta[base + threadIdx.x];
   __syncthreads();
@@ -69,7 +73,8 @@ star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
         if (k < d) p = fmaf(phi[a * ds + k], phi[b * ds + k], p);
       }
       const float s = warp_sum(p);
-      const float g2 = 2.0f * (sigmoid_f(s) - 1.0f);  // source + context side
+      // source + context side: g[a, b] = g[b, a], so twice the rounded g
+      const float g2 = 2.0f * mxu<BF16>(sigmoid_f(s) - 1.0f);
       if (lane == 0) loss -= log_sigmoid_f(s);
 #pragma unroll
       for (int m = 0; m < KMAX; ++m) {
@@ -106,33 +111,22 @@ static __global__ void star_scatter_kernel(float* __restrict__ emb,
     atomicAdd(&emb[dst + k], -lr * dphi[src + k]);
 }
 
-}  // namespace come
-
-using namespace come;
-
-// One O2 macro step over G groups.  All buffers are device pointers:
-//   emb          [V, d] f32 (updated in place)
-//   slots, meta  [G * 1024] i32 (meta -2 at pads)
-//   pools        [ceil(G / R), KP] i32
-//   stats        [2] f64, accumulates (loss, pairs)
-//   cneg, dneg   [KP, d] f32 scratch;  dphi [1024, d], nt [1024] f32 scratch
-// Returns 0 or the first CUDA error code.  Launches on `stream`, does not
-// synchronise and allocates nothing.
-extern "C" int come_star_sgns_step(float* emb, const int* slots,
-                                   const int* meta, const int* pools,
-                                   double* stats, float* cneg, float* dneg,
-                                   float* dphi, float* nt, int d, int G, int KP,
-                                   int R, float lr, float negw,
-                                   void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+template <bool BF16>
+static int star_groups(float* emb, const int* slots, const int* meta,
+                       const int* pools, double* stats, float* cneg,
+                       float* dneg, float* dphi, float* nt, int d, int G,
+                       int KP, int R, float lr, float negw,
+                       cudaStream_t stream) {
   if (d > MAX_DIM || R < 1) return (int)cudaErrorInvalidValue;
   const size_t pos_smem = star_pos_smem_bytes(d);
   const size_t neg_smem = negative_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(
-      star_pos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pos_smem);
+      star_pos_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pos_smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(
-      negative_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)neg_smem);
+  e = cudaFuncSetAttribute(negative_kernel<BF16>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)neg_smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 neg_grid(NBLK, (KP + KC - 1) / KC);
   for (int g = 0; g < G; ++g) {
@@ -142,10 +136,10 @@ extern "C" int come_star_sgns_step(float* emb, const int* slots,
       stage_pool_kernel<<<KP, 128, 0, stream>>>(emb, pool, cneg, dneg, d);
       COME_CHECK_LAUNCH();
     }
-    star_pos_kernel<<<NBLK, THREADS, pos_smem, stream>>>(
+    star_pos_kernel<BF16><<<NBLK, THREADS, pos_smem, stream>>>(
         emb, sg, meta + (size_t)g * GROUP, d, dphi, nt, stats);
     COME_CHECK_LAUNCH();
-    negative_kernel<<<neg_grid, THREADS, neg_smem, stream>>>(
+    negative_kernel<BF16><<<neg_grid, THREADS, neg_smem, stream>>>(
         emb, sg, nt, cneg, d, KP, negw, dphi, dneg, stats);
     COME_CHECK_LAUNCH();
     star_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb, sg, dphi, nt, d, lr);
@@ -156,4 +150,30 @@ extern "C" int come_star_sgns_step(float* emb, const int* slots,
     }
   }
   return 0;
+}
+
+}  // namespace come
+
+using namespace come;
+
+// One O2 macro step over G groups.  All buffers are device pointers:
+//   emb          [V, d] f32 (updated in place)
+//   slots, meta  [G * 1024] i32 (meta -2 at pads)
+//   pools        [ceil(G / R), KP] i32
+//   stats        [2] f64, accumulates (loss, pairs)
+//   cneg, dneg   [KP, d] f32 scratch;  dphi [1024, d], nt [1024] f32 scratch
+// bf16 != 0 selects K2b's rounding.
+// Returns 0 or the first CUDA error code.  Launches on `stream`, does not
+// synchronise and allocates nothing.
+extern "C" int come_star_sgns_step(float* emb, const int* slots,
+                                   const int* meta, const int* pools,
+                                   double* stats, float* cneg, float* dneg,
+                                   float* dphi, float* nt, int d, int G, int KP,
+                                   int R, int bf16, float lr, float negw,
+                                   void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  return bf16 ? star_groups<true>(emb, slots, meta, pools, stats, cneg, dneg,
+                                  dphi, nt, d, G, KP, R, lr, negw, stream)
+              : star_groups<false>(emb, slots, meta, pools, stats, cneg, dneg,
+                                   dphi, nt, d, G, KP, R, lr, negw, stream);
 }

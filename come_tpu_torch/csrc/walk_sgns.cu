@@ -1,11 +1,22 @@
-// Walk-banded SGNS macro step (O1) for Hopper, f32 tables.
+// Walk-banded SGNS macro step (O1, and O2 in paired mode) for Hopper, f32
+// tables.
 //
 // Replaces the Pallas kernel come_tpu/ops/pallas_walk_sgns.py::_walk_kernel
-// as called by fused_walk_sgns_step (f32 tables, paired=False, no in-kernel
-// walk generation).  Semantics are the TPU kernel's, group by group in
-// order: for each group of 8 walks (1024 slots, walk j at slots
-// j*128 .. j*128+L-1) the rows are read from the tables as the previous
-// group left them, and
+// as called by fused_walk_sgns_step and fused_walk_sgns_gen_step with f32
+// tables, in the modes the TPU kernel has for them:
+//   * K1   the banded skip-gram step (walks given);
+//   * K1b  K1 with mxu_bf16=True: every product operand rounded to bf16
+//          (phi_m, ctx_blk_m, g_blk_m at :266, :311, :333, and the
+//          negative pass's, sgns_common.cuh), f32 sums;
+//   * K5   paired=True (:290-303): slots 2i, 2i+1 are one edge and each
+//          slot's only context is its partner t^1, n_t = 1.  The TPU's
+//          paired positive pass is elementwise f32 even with mxu_bf16, so
+//          PAIRED rounds only in the negative pass;
+//   * K4   GEN_WALKS (:157-208): the walks are generated from the CSR and
+//          an input bit matrix, then the group loop runs on them.
+// Semantics are the TPU kernel's, group by group in order: for each group
+// of 8 walks (1024 slots, walk j at slots j*128 .. j*128+L-1) the rows are
+// read from the tables as the previous group left them, and
 //   * at an R-block start the pool rows are staged and dneg is zeroed;
 //   * centre t trains contexts u of its own walk with 0 < |u-t| <= wrow[t]
 //     (u, t < L): g = sigmoid(phi_t . ctx_u) - 1, dphi_t += g ctx_u,
@@ -23,11 +34,15 @@
 // What bounds it on the H100: the negative pass (3 x 128 x KP x d
 // multiply-adds per walk) is compute; the positive band is at most 2W
 // dot products per centre and is small; the gathers and the scatter are
-// row traffic.  This first design computes only the band entries the mask
-// keeps (warp per centre, lanes across d), runs the negative pass as a
-// tiled f32 SIMT product over 8 x ceil(KP/64) CTAs per group, and keeps the
-// group-sequential order with stream-ordered launches; the host makes one
-// call per macro step and the loop over groups runs here.
+// row traffic; walk generation is 79 dependent CSR loads per walk.  This
+// first design computes only the band entries the mask keeps (warp per
+// centre, lanes across d), runs the negative pass as a tiled SIMT product
+// over 8 x ceil(KP/64) CTAs per group (bf16 by rounding its operands, not
+// on tensor cores), and keeps the group-sequential order with
+// stream-ordered launches; the host makes one call per macro step and the
+// loop over groups runs here.  The walks do not depend on the tables, so
+// one launch generates every group's walks (one thread per walk) before the
+// group loop, which is what the TPU's per-group generation computes.
 
 #include "sgns_common.cuh"
 
@@ -39,7 +54,10 @@ static inline size_t walk_pos_smem_bytes(int d, int W) {
 
 // Positive band of one walk.  grid NBLK (one CTA per walk), block THREADS.
 // Writes (overwrites) dphi, dctx and nt for the walk's 128 slots and adds
-// the positive loss and the pair count to stats.
+// the positive loss and the pair count to stats.  BF16 rounds the staged
+// rows and each g (not with PAIRED: the TPU's paired pass is f32); PAIRED
+// trains only u = t^1 (W must be 1, wrow is not read).
+template <bool BF16, bool PAIRED>
 static __global__ void __launch_bounds__(THREADS)
 walk_pos_kernel(const float* __restrict__ emb_in,
                 const float* __restrict__ emb_out,
@@ -47,6 +65,7 @@ walk_pos_kernel(const float* __restrict__ emb_in,
                 int d, int L, int W, float* __restrict__ dphi,
                 float* __restrict__ dctx, float* __restrict__ nt,
                 double* __restrict__ stats) {
+  constexpr bool RND = BF16 && !PAIRED;
   extern __shared__ float smem[];
   const int ds = d + 1, bw = 2 * W + 1;
   float* phi = smem;             // [BLK][ds]
@@ -58,8 +77,8 @@ walk_pos_kernel(const float* __restrict__ emb_in,
   for (int idx = threadIdx.x; idx < BLK * d; idx += THREADS) {
     const int t = idx / d, k = idx - t * d;
     const size_t row = (size_t)walks[base + t] * d + k;
-    phi[t * ds + k] = emb_in[row];
-    ctx[t * ds + k] = emb_out[row];
+    phi[t * ds + k] = mxu<RND>(emb_in[row]);
+    ctx[t * ds + k] = mxu<RND>(emb_out[row]);
   }
   for (int idx = threadIdx.x; idx < BLK * bw; idx += THREADS) gb[idx] = 0.0f;
   __syncthreads();
@@ -71,10 +90,10 @@ walk_pos_kernel(const float* __restrict__ emb_in,
     for (int m = 0; m < KMAX; ++m) acc[m] = 0.0f;
     int n = 0;
     if (t < L) {
-      const int w = min(wrow[base + t], W);
+      const int w = PAIRED ? 1 : min(wrow[base + t], W);
       const int lo = max(0, t - w), hi = min(L - 1, t + w);
       for (int u = lo; u <= hi; ++u) {
-        if (u == t) continue;
+        if (u == t || (PAIRED && u != (t ^ 1))) continue;
         float p = 0.0f;
 #pragma unroll
         for (int m = 0; m < KMAX; ++m) {
@@ -82,7 +101,7 @@ walk_pos_kernel(const float* __restrict__ emb_in,
           if (k < d) p = fmaf(phi[t * ds + k], ctx[u * ds + k], p);
         }
         const float s = warp_sum(p);
-        const float g = sigmoid_f(s) - 1.0f;
+        const float g = mxu<RND>(sigmoid_f(s) - 1.0f);
         if (lane == 0) {
           gb[t * bw + (u - t + W)] = g;
           loss -= log_sigmoid_f(s);
@@ -107,7 +126,8 @@ walk_pos_kernel(const float* __restrict__ emb_in,
   }
   __syncthreads();  // the whole band of g is in gb
 
-  // dctx[u] = sum_t g[t, u] phi[t]  (gb is zero outside each t's window)
+  // dctx[u] = sum_t g[t, u] phi[t]  (gb is zero outside each t's window;
+  // PAIRED: only t = u^1 has u in its band)
   for (int u = warp; u < BLK; u += NWARPS) {
     float acc[KMAX];
 #pragma unroll
@@ -115,7 +135,7 @@ walk_pos_kernel(const float* __restrict__ emb_in,
     if (u < L) {
       const int lo = max(0, u - W), hi = min(L - 1, u + W);
       for (int t = lo; t <= hi; ++t) {
-        if (t == u) continue;
+        if (t == u || (PAIRED && t != (u ^ 1))) continue;
         const float g = gb[t * bw + (u - t + W)];
 #pragma unroll
         for (int m = 0; m < KMAX; ++m) {
@@ -152,35 +172,57 @@ static __global__ void walk_scatter_kernel(float* __restrict__ emb_in,
   }
 }
 
-}  // namespace come
+// Walk generation (TPU GEN_WALKS, pallas_walk_sgns.py:182-201).  One thread
+// per walk w of nwalks: slot w*128 holds starts[w]; hop t (1 <= t < L)
+// reads b = bits[w*128 + t] as 32 bits and moves from v to
+//   indices[indptr[v] + min(int(u * float(deg)), max(deg - 1, 0))],
+//   u = float((b >> 8) & 0xFFFFFF) * 2^-24   (both products in f32),
+// and a node of degree 0 stays where it is.  Slots at positions >= L are 0.
+// grid ceil(nwalks / 128), block 128.
+static __global__ void walk_gen_kernel(const int* __restrict__ starts,
+                                       const unsigned* __restrict__ bits,
+                                       const int* __restrict__ indptr,
+                                       const int* __restrict__ indices,
+                                       int nwalks, int L,
+                                       int* __restrict__ slots) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= nwalks) return;
+  const size_t base = (size_t)w * BLK;
+  int v = starts[w];
+  slots[base] = v;
+  for (int t = 1; t < BLK; ++t) {
+    if (t < L) {
+      const unsigned b = bits[base + t];
+      const int lo = indptr[v];
+      const int deg = indptr[v + 1] - lo;
+      const float u = __fmul_rn((float)((b >> 8) & 0xFFFFFFu), 1.0f / 16777216.0f);
+      const int r = min((int)__fmul_rn(u, (float)deg), max(deg - 1, 0));
+      if (deg > 0) v = indices[lo + r];
+      slots[base + t] = v;
+    } else {
+      slots[base + t] = 0;
+    }
+  }
+}
 
-using namespace come;
-
-// One O1 macro step over G groups.  All buffers are device pointers:
-//   emb_in, emb_out [V, d] f32 (updated in place)
-//   walks, wrow     [G * 1024] i32 (walk j of group g at g*1024 + j*128)
-//   pools           [ceil(G / R), KP] i32
-//   stats           [2] f64, accumulates (loss, pairs)
-//   cneg, dneg      [KP, d] f32 scratch
-//   dphi, dctx      [1024, d] f32 scratch;  nt [1024] f32 scratch
-// Returns 0 or the first CUDA error code.  Launches on `stream`, does not
-// synchronise and allocates nothing.
-extern "C" int come_walk_sgns_step(float* emb_in, float* emb_out,
-                                   const int* walks, const int* wrow,
-                                   const int* pools, double* stats,
-                                   float* cneg, float* dneg, float* dphi,
-                                   float* dctx, float* nt, int d, int G, int L,
-                                   int W, int KP, int R, float lr, float negw,
-                                   void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (d > MAX_DIM || L > BLK || W < 1 || R < 1) return (int)cudaErrorInvalidValue;
+// The group loop shared by both C entries.
+template <bool BF16, bool PAIRED>
+static int walk_groups(float* emb_in, float* emb_out, const int* walks,
+                       const int* wrow, const int* pools, double* stats,
+                       float* cneg, float* dneg, float* dphi, float* dctx,
+                       float* nt, int d, int G, int L, int W, int KP, int R,
+                       float lr, float negw, cudaStream_t stream) {
+  if (d > MAX_DIM || L > BLK || W < 1 || R < 1 || (PAIRED && (W != 1 || L % 2)))
+    return (int)cudaErrorInvalidValue;
   const size_t pos_smem = walk_pos_smem_bytes(d, W);
   const size_t neg_smem = negative_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(
-      walk_pos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pos_smem);
+      walk_pos_kernel<BF16, PAIRED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pos_smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(
-      negative_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)neg_smem);
+  e = cudaFuncSetAttribute(negative_kernel<BF16>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)neg_smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 neg_grid(NBLK, (KP + KC - 1) / KC);
   for (int g = 0; g < G; ++g) {
@@ -190,11 +232,11 @@ extern "C" int come_walk_sgns_step(float* emb_in, float* emb_out,
       stage_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
       COME_CHECK_LAUNCH();
     }
-    walk_pos_kernel<<<NBLK, THREADS, pos_smem, stream>>>(
-        emb_in, emb_out, wg, wrow + (size_t)g * GROUP, d, L, W, dphi, dctx, nt,
-        stats);
+    walk_pos_kernel<BF16, PAIRED><<<NBLK, THREADS, pos_smem, stream>>>(
+        emb_in, emb_out, wg, PAIRED ? nullptr : wrow + (size_t)g * GROUP, d,
+        L, W, dphi, dctx, nt, stats);
     COME_CHECK_LAUNCH();
-    negative_kernel<<<neg_grid, THREADS, neg_smem, stream>>>(
+    negative_kernel<BF16><<<neg_grid, THREADS, neg_smem, stream>>>(
         emb_in, wg, nt, cneg, d, KP, negw, dphi, dneg, stats);
     COME_CHECK_LAUNCH();
     walk_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb_in, emb_out, wg, dphi,
@@ -206,4 +248,70 @@ extern "C" int come_walk_sgns_step(float* emb_in, float* emb_out,
     }
   }
   return 0;
+}
+
+static int walk_groups_mode(int bf16, int paired, float* emb_in,
+                            float* emb_out, const int* walks, const int* wrow,
+                            const int* pools, double* stats, float* cneg,
+                            float* dneg, float* dphi, float* dctx, float* nt,
+                            int d, int G, int L, int W, int KP, int R,
+                            float lr, float negw, cudaStream_t stream) {
+#define COME_WALK_GROUPS(B, P)                                              \
+  walk_groups<B, P>(emb_in, emb_out, walks, wrow, pools, stats, cneg, dneg, \
+                    dphi, dctx, nt, d, G, L, W, KP, R, lr, negw, stream)
+  if (paired) return bf16 ? COME_WALK_GROUPS(true, true) : COME_WALK_GROUPS(false, true);
+  return bf16 ? COME_WALK_GROUPS(true, false) : COME_WALK_GROUPS(false, false);
+#undef COME_WALK_GROUPS
+}
+
+}  // namespace come
+
+using namespace come;
+
+// One walk-kernel macro step over G groups.  All buffers are device
+// pointers:
+//   emb_in, emb_out [V, d] f32 (updated in place)
+//   walks           [G * 1024] i32 (walk j of group g at g*1024 + j*128)
+//   wrow            [G * 1024] i32 window draws (not read when paired)
+//   pools           [ceil(G / R), KP] i32
+//   stats           [2] f64, accumulates (loss, pairs)
+//   cneg, dneg      [KP, d] f32 scratch
+//   dphi, dctx      [1024, d] f32 scratch;  nt [1024] f32 scratch
+// bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even).
+// Returns 0 or the first CUDA error code.  Launches on `stream`, does not
+// synchronise and allocates nothing.
+extern "C" int come_walk_sgns_step(float* emb_in, float* emb_out,
+                                   const int* walks, const int* wrow,
+                                   const int* pools, double* stats,
+                                   float* cneg, float* dneg, float* dphi,
+                                   float* dctx, float* nt, int d, int G, int L,
+                                   int W, int KP, int R, int bf16, int paired,
+                                   float lr, float negw, void* stream_ptr) {
+  return walk_groups_mode(bf16, paired, emb_in, emb_out, walks, wrow, pools,
+                          stats, cneg, dneg, dphi, dctx, nt, d, G, L, W, KP,
+                          R, lr, negw, (cudaStream_t)stream_ptr);
+}
+
+// K4: generate the walks of G groups into `slots` [G * 1024] i32 from
+// starts [G * 8] i32, bits [G * 1024] u32 and the CSR (indptr [V + 1],
+// indices [E] i32), then run the group loop on them (bf16 as above).
+// Other buffers as come_walk_sgns_step.
+extern "C" int come_walk_sgns_gen_step(float* emb_in, float* emb_out,
+                                       const int* starts, const unsigned* bits,
+                                       const int* indptr, const int* indices,
+                                       int* slots, const int* wrow,
+                                       const int* pools, double* stats,
+                                       float* cneg, float* dneg, float* dphi,
+                                       float* dctx, float* nt, int d, int G,
+                                       int L, int W, int KP, int R, int bf16,
+                                       float lr, float negw, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (L < 1 || L > BLK) return (int)cudaErrorInvalidValue;
+  const int nwalks = G * NBLK;
+  walk_gen_kernel<<<(nwalks + 127) / 128, 128, 0, stream>>>(
+      starts, bits, indptr, indices, nwalks, L, slots);
+  COME_CHECK_LAUNCH();
+  return walk_groups_mode(bf16, 0, emb_in, emb_out, slots, wrow, pools, stats,
+                          cneg, dneg, dphi, dctx, nt, d, G, L, W, KP, R, lr,
+                          negw, stream);
 }

@@ -48,8 +48,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch-edges", type=int)
     p.add_argument("--o2-mode", choices=["auto", "star", "paired", "xla"],
                    help="O2 tier (default auto: star kernel inside its "
-                        "envelope, else per arc; xla forces per arc; "
-                        "paired is not ported yet, ROADMAP Queue 2 K5)")
+                        "envelope, else per arc; paired: the walk kernel's "
+                        "edge mode inside the same envelope; xla forces per "
+                        "arc)")
     p.add_argument("--down-sample", type=float,
                    help="word2vec frequent-node subsampling threshold "
                         "(reference `sample`; 0 = off, the default)")
@@ -62,6 +63,26 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="also run node-classification F1 at the end")
     p.add_argument("--json", action="store_true", help="JSONL record output")
     return p
+
+
+def _o1_tier(t) -> str:
+    b, bf16 = ("b", ", bf16") if t.cfg.walk_kernel_bf16 else ("", "")
+    if t.o1_gen:
+        return f"walk kernel with in-kernel walks (K4 + K1{b}{bf16})"
+    if t.o1_walk_kernel:
+        return f"walk kernel (K1{b}{bf16})"
+    return "micro-batched (" + (
+        "K6" if t.cfg.negative_mode == "shared" else "per-pair") + ")"
+
+
+def _o2_tier(t) -> str:
+    b, bf16 = ("b", ", bf16") if t.cfg.walk_kernel_bf16 else ("", "")
+    if t.o2_star:
+        return f"star kernel (K2{b}{bf16})"
+    if t.o2_paired:
+        return f"paired walk kernel (K5{bf16})"
+    return "per arc (" + (
+        "K7" if t.cfg.negative_mode == "shared" else "per-pair") + ")"
 
 
 def run(args: argparse.Namespace):
@@ -99,13 +120,7 @@ def run(args: argparse.Namespace):
           f"K={cfg.num_communities} d={cfg.dim} device={dev_name}")
     t0 = time.perf_counter()
     trainer = ComETrainer(ds.graph, cfg, device)
-    shared = cfg.negative_mode == "shared"
-    print("o1 tier: " + ("walk kernel (K1)" if trainer.o1_walk_kernel else
-                         "micro-batched (" + ("K6" if shared else "per-pair")
-                         + ")")
-          + ", o2 tier: " + ("star kernel (K2)" if trainer.o2_star else
-                             "per arc (" + ("K7" if shared else "per-pair")
-                             + ")"))
+    print(f"o1 tier: {_o1_tier(trainer)}, o2 tier: {_o2_tier(trainer)}")
     emit = (lambda s: print(json.dumps({"log": s}))) if args.json else print
     history = trainer.train(labels=ds.single_labels, log=emit)
     print(f"trained in {time.perf_counter() - t0:.1f}s")

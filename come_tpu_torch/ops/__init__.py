@@ -1,10 +1,11 @@
 from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
 from come_tpu_torch.ops.star_sgns import star_sgns_step
-from come_tpu_torch.ops.walk_sgns import walk_sgns_step
+from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
 
 __all__ = [
     "fused_sgns_step",
     "fused_sgns_step_tied",
     "star_sgns_step",
+    "walk_sgns_gen_step",
     "walk_sgns_step",
 ]

@@ -34,8 +34,9 @@ _F = ctypes.c_float
 # C signatures (csrc/walk_sgns.cu, star_sgns.cu, sgns_fused.cu): every
 # pointer and the stream as c_void_p, ints as c_int, scalars as c_float.
 SIGNATURES = {
-    "come_walk_sgns_step": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
-    "come_star_sgns_step": [_P] * 9 + [_I] * 4 + [_F, _F, _P],
+    "come_walk_sgns_step": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
+    "come_walk_sgns_gen_step": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
+    "come_star_sgns_step": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "come_fused_sgns_step": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
     "come_fused_sgns_step_tied": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
 }

@@ -2,7 +2,8 @@
 version and the wrapper that picks between them by device.
 
 Port of ``come_tpu/ops/pallas_star_sgns.py::fused_star_sgns_step`` (kernel
-source: ``csrc/star_sgns.cu``).  The slot stream comes from
+source: ``csrc/star_sgns.cu``): K2, and K2b with ``mxu_bf16`` (product
+operands rounded to bf16, f32 sums).  The slot stream comes from
 ``sampling.stars.build_star_layout``; groups of 1024 slots (eight 128-slot
 rows) run in order, and one shared negative pool serves each block of R
 groups.  The table is updated IN PLACE and returned.
@@ -14,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from come_tpu_torch.ops import build
-from come_tpu_torch.ops.walk_sgns import check_cuda_inputs, expand_pools
+from come_tpu_torch.ops.walk_sgns import check_cuda_inputs, expand_pools, mxu
 from come_tpu_torch.sampling.stars import PAD_META
 
 BLK = 128  # slots per star row: pairs never cross a row
@@ -31,10 +32,11 @@ def _pad_stream(slots: torch.Tensor, meta: torch.Tensor):
 
 
 def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
-                             pool_refresh: int = 1):
+                             pool_refresh: int = 1, mxu_bf16: bool = False):
     """Plain PyTorch version of :func:`star_sgns_step` (same signature and
     semantics): a loop over groups with dense [128, 128] block scores.
-    Returns (emb, loss, n_pairs)."""
+    ``mxu_bf16`` rounds phi, each pair g, the pool rows and each negative g
+    where ``_star_kernel`` casts to bf16.  Returns (emb, loss, n_pairs)."""
     slots, meta, G = _pad_stream(slots, meta)
     R = int(pool_refresh)
     pools = expand_pools(pools, G, R).long()
@@ -46,7 +48,7 @@ def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
     for g in range(G):
         if g % R == 0:
             pool = pools[g // R]
-            cneg = emb[pool].clone()
+            cneg = mxu(emb[pool], mxu_bf16)
             dneg = torch.zeros_like(cneg)
         ids = slots[g * NWL:(g + 1) * NWL].long()
         mt = meta[g * NWL:(g + 1) * NWL].view(nb, BLK)
@@ -55,15 +57,15 @@ def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
             (seg[:, :, None] == seg[:, None, :])
             & ((hub[:, :, None] ^ hub[:, None, :]) == 1)
         ).float()  # [nb, a, b]
-        phi = emb[ids].view(nb, BLK, d)
+        phi = mxu(emb[ids].view(nb, BLK, d), mxu_bf16)
         s = phi @ phi.transpose(1, 2)
-        gpos = (torch.sigmoid(s) - 1.0) * m
+        gpos = mxu((torch.sigmoid(s) - 1.0) * m, mxu_bf16)
         loss = loss - (m * F.logsigmoid(s)).sum()
         n_t = m.sum(2, keepdim=True)
         npairs = npairs + n_t.sum()
         dphi = gpos @ phi + gpos.transpose(1, 2) @ phi  # source + context
         sn = phi @ cneg.T
-        gneg = torch.sigmoid(sn) * (negw * n_t)
+        gneg = mxu(torch.sigmoid(sn) * (negw * n_t), mxu_bf16)
         loss = loss - negw * (n_t * F.logsigmoid(-sn)).sum()
         dphi = dphi + gneg @ cneg
         dneg = dneg + torch.einsum("bsk,bsd->kd", gneg, phi)
@@ -74,7 +76,7 @@ def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
 
 
 def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
-                   pool_refresh: int = 1):
+                   pool_refresh: int = 1, mxu_bf16: bool = False):
     """One O2 macro step over a star slot stream.
 
     Args:
@@ -83,15 +85,18 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
         pads); T pads up to a multiple of 1024 with pad slots.
       pools: int [ceil(G / pool_refresh), KP] negative pools (or [KP]).
       lr, negw: step size and negative weight (k / KP), Python floats.
+      mxu_bf16: round every product operand to bf16 (K2b), f32 sums.
 
     Returns (emb, loss, n_pairs), n_pairs == 2 * arcs in the stream; loss
     and n_pairs are 0-dim float32 tensors on the table's device.  CPU
     tensors run the plain version; CUDA tensors launch the kernel (counted
-    in ``star_sgns_step.launches``) or raise.
+    in ``star_sgns_step.launches``, K2, or ``.launches_bf16``, K2b) or
+    raise.
     """
     if emb.device.type == "cpu":
         return star_sgns_step_reference(
-            emb, slots, meta, pools, lr, negw, pool_refresh=pool_refresh
+            emb, slots, meta, pools, lr, negw, pool_refresh=pool_refresh,
+            mxu_bf16=mxu_bf16,
         )
     if emb.device.type != "cuda":
         raise ValueError(f"no star_sgns kernel for device {emb.device}")
@@ -112,12 +117,17 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
     code = build.library().come_star_sgns_step(
         emb.data_ptr(), slots.data_ptr(), meta.data_ptr(), pools.data_ptr(),
         stats.data_ptr(), cneg.data_ptr(), dneg.data_ptr(), dphi.data_ptr(),
-        nt.data_ptr(), d, G, KP, R, float(lr), float(negw), stream,
+        nt.data_ptr(), d, G, KP, R, int(mxu_bf16), float(lr), float(negw),
+        stream,
     )
-    star_sgns_step.launches += 1
+    if mxu_bf16:
+        star_sgns_step.launches_bf16 += 1
+    else:
+        star_sgns_step.launches += 1
     build.check(code, "come_star_sgns_step")
     st = stats.to(f32)
     return emb, st[0], st[1]
 
 
 star_sgns_step.launches = 0
+star_sgns_step.launches_bf16 = 0

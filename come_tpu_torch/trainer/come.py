@@ -3,16 +3,20 @@
 Port of ``come_tpu/trainer/come.py`` for one device, with its single-device
 O1/O2 dispatch:
 
-* O1 through the walk-banded kernel K1 (``ops/walk_sgns.py``) when the JAX
-  trainer's gates allow it: shared negatives, ``walk_length <= 128``, no
-  subsampling, and a graph inside the collision envelope.  Otherwise the
-  micro-batched tier: window pairs from ``skipgram_pairs``, applied in
-  micro-steps of ``batch_pairs`` through K6 (``ops/sgns.py``, shared
-  negatives) or the per-pair step (``losses/sgns.py``).
-* O2 through the star kernel K2 (``ops/star_sgns.py``) for
-  ``o2_mode`` auto/star with shared negatives inside the envelope;
-  otherwise per arc in batches of ``batch_edges`` through the same
-  micro-batched tier on the tied table: K7 or the tied per-pair step.
+* O1 through the walk-banded kernel K1 (``ops/walk_sgns.py``; K1b with
+  ``walk_kernel_bf16``) when the JAX trainer's gates allow it: shared
+  negatives, ``walk_length <= 128``, no subsampling, and a graph inside the
+  collision envelope.  With ``walk_gen="kernel"``, no restarts and fresh
+  walks every epoch, the walks are generated inside the kernel (K4).
+  Otherwise the micro-batched tier: window pairs from ``skipgram_pairs``,
+  applied in micro-steps of ``batch_pairs`` through K6 (``ops/sgns.py``,
+  shared negatives) or the per-pair step (``losses/sgns.py``).
+* O2 through the star kernel K2 (``ops/star_sgns.py``; K2b with
+  ``walk_kernel_bf16``) for ``o2_mode`` auto/star with shared negatives
+  inside the envelope, or the walk kernel's paired edge mode K5 for
+  ``o2_mode="paired"``; otherwise per arc in batches of ``batch_edges``
+  through the same micro-batched tier on the tied table: K7 or the tied
+  per-pair step.
 
 Where the JAX trainer on a TPU would take a banded or XLA-block tier
 (tables past its VMEM budgets, or ``walk_length > 128`` inside the banded
@@ -52,7 +56,12 @@ from come_tpu_torch.losses.sgns import sgns_sgd_step
 from come_tpu_torch.models.state import init_params
 from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
 from come_tpu_torch.ops.star_sgns import star_sgns_step
-from come_tpu_torch.ops.walk_sgns import NW, NWL, walk_sgns_step
+from come_tpu_torch.ops.walk_sgns import (
+    NW,
+    NWL,
+    walk_sgns_gen_step,
+    walk_sgns_step,
+)
 from come_tpu_torch.sampling.alias import (
     build_alias_table,
     sample_alias,
@@ -80,12 +89,6 @@ def _unsupported(cfg: ComEConfig) -> str | None:
     checks = [
         (cfg.corpus == "host",
          "corpus='host' (ROADMAP Queue 1, 'Host corpus')"),
-        (cfg.walk_gen == "kernel",
-         "walk_gen='kernel' (ROADMAP Queue 2, K4)"),
-        (cfg.o2_mode == "paired",
-         "o2_mode='paired' (ROADMAP Queue 2, K5)"),
-        (cfg.walk_kernel_bf16,
-         "walk_kernel_bf16 (ROADMAP Queue 2, K1b/K2b)"),
         (cfg.pallas == "never",
          "pallas='never', the JAX package's XLA banded/block tiers, which "
          "ROADMAP decision 1 does not port"),
@@ -164,6 +167,7 @@ class ComETrainer:
         self._walk_cache: torch.Tensor | None = None
         self._o1_epochs_done = 0
         self._star_rows: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._und_edges: tuple[torch.Tensor, torch.Tensor] | None = None
         self.last_o1_pairs = 0.0
         self.last_o2_pairs = 0.0
         # the tiers the JAX trainer picks on a TPU, minus the ones ROADMAP
@@ -185,6 +189,18 @@ class ComETrainer:
         self.o2_star = (
             shared and config.o2_mode in ("auto", "star")
             and _in_envelope(NWL, V)
+        )
+        # in-kernel walks (_use_walk_kernel_gen, :380-394, taken at :696
+        # with fresh walks every epoch); its CSR side budgets are VMEM's
+        self.o1_gen = (
+            self.o1_walk_kernel and config.walk_gen == "kernel"
+            and config.restart_prob == 0.0 and config.walk_regen_epochs == 1
+        )
+        # the walk kernel's paired edge mode (_use_walk_kernel_o2,
+        # :841-860), checked after the star tier as at :1095-1116
+        self.o2_paired = (
+            not self.o2_star and shared
+            and config.o2_mode in ("auto", "paired") and _in_envelope(NWL, V)
         )
 
     def _word_budget(self) -> float:
@@ -232,8 +248,33 @@ class ComETrainer:
         _, _, loss, npairs = walk_sgns_step(
             p.node_emb, p.ctx_emb, walks, wrow, pools, self.lr(), self.negw,
             window=cfg.window, pool_refresh=cfg.walk_pool_refresh,
+            mxu_bf16=cfg.walk_kernel_bf16,
         )
         self.words_seen += float(walks.shape[0] * cfg.walk_length)
+        return loss, npairs
+
+    def _gen_bits(self, n: int) -> torch.Tensor:
+        """n random 32-bit values as int32 (every bit drawn, bit 31 too: a
+        non-negative draw would send every hop to the first half of its
+        neighbour list)."""
+        return torch.randint(-2**31, 2**31, (n,), generator=self.gen,
+                             device=self.device, dtype=torch.int32)
+
+    def o1_gen_step(self, starts: torch.Tensor, bits: torch.Tensor,
+                    wrow: torch.Tensor, pools: torch.Tensor):
+        """One O1 macro step with in-kernel walks (``_o1_epoch_gen``,
+        ``trainer/come.py:421-443``): ``starts`` [B], ``bits`` [G*1024]
+        int32.  Returns (loss, n_pairs) as device tensors."""
+        cfg = self.cfg
+        p = self.params
+        _, _, loss, npairs = walk_sgns_gen_step(
+            p.node_emb, p.ctx_emb, starts, bits, self.csr.indptr,
+            self.csr.indices, wrow, pools, self.lr(), self.negw,
+            walk_length=cfg.walk_length, window=cfg.window,
+            pool_refresh=cfg.walk_pool_refresh,
+            mxu_bf16=cfg.walk_kernel_bf16,
+        )
+        self.words_seen += float(starts.shape[0] * cfg.walk_length)
         return loss, npairs
 
     def _sgns_microbatched(self, emb_in, emb_out, c, x, negs, m, lr,
@@ -337,9 +378,12 @@ class ComETrainer:
     def o1_epoch(self) -> float:
         """One pass of ``walks_per_node`` walks from every start node; the
         epoch's corpus is generated in one call, or reused when
-        ``walk_regen_epochs != 1`` (``trainer/come.py:680-729``)."""
+        ``walk_regen_epochs != 1``, or generated step by step inside the
+        kernel when ``o1_gen`` (``trainer/come.py:680-729``)."""
         cfg = self.cfg
         starts = self._epoch_starts()
+        if self.o1_gen:
+            return self._o1_epoch_gen(starts)
         if cfg.walk_regen_epochs != 1:
             regen = self._walk_cache is None or (
                 cfg.walk_regen_epochs > 0
@@ -361,6 +405,25 @@ class ComETrainer:
                 loss, npairs = self.o1_pairs_step(walks)
             tot_loss += loss
             tot_pairs += npairs
+        return self._finish_o1(tot_loss, tot_pairs)
+
+    def _o1_epoch_gen(self, starts: torch.Tensor) -> float:
+        """O1 epoch through K4 (``_o1_epoch_gen``, ``trainer/come.py:
+        396-456``): each macro step draws G*1024 bits, the window draws and
+        the pools; the kernel walks from ``starts`` [S, B]."""
+        self._o1_epochs_done += 1
+        G = -(-starts.shape[1] // NW)
+        tot_loss = torch.zeros((), device=self.device)
+        tot_pairs = torch.zeros((), device=self.device)
+        for st in starts:
+            bits = self._gen_bits(G * NWL)
+            wrow, pools = self._o1_draws(st.shape[0])
+            loss, npairs = self.o1_gen_step(st, bits, wrow, pools)
+            tot_loss += loss
+            tot_pairs += npairs
+        return self._finish_o1(tot_loss, tot_pairs)
+
+    def _finish_o1(self, tot_loss, tot_pairs) -> float:
         loss, pairs = torch.stack([tot_loss, tot_pairs]).tolist()
         self.last_o1_pairs = pairs
         return loss / max(pairs, 1.0)
@@ -396,6 +459,7 @@ class ComETrainer:
         _, loss, npairs = star_sgns_step(
             self.params.node_emb, slots, meta, pools, self.lr() * cfg.alpha,
             self.negw, pool_refresh=cfg.walk_pool_refresh,
+            mxu_bf16=cfg.walk_kernel_bf16,
         )
         self.words_seen += words
         return loss, npairs
@@ -451,16 +515,80 @@ class ComETrainer:
             loss, npairs = self.o2_arc_step(src[s], dst[s])
             tot_loss += loss
             tot_pairs += npairs
+        return self._finish_o2(tot_loss, tot_pairs)
+
+    def _undirected_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each undirected edge once (u < v), on the device, built once."""
+        if self._und_edges is None:
+            self._und_edges = tuple(torch.as_tensor(a, device=self.device)
+                                    for a in self.graph.edges_undirected())
+        return self._und_edges
+
+    def o2_paired_plan(self) -> tuple[int, int]:
+        """(rows per macro step B_r, steps S) of the paired O2 epoch
+        (``trainer/come.py:1124-1128``): 64 undirected edges per 128-slot
+        row, ``edges_step = max(64, min(batch_edges // 2, E))``."""
+        e2 = self._undirected_edges()[0].shape[0]
+        edges_step = max(64, min(self.cfg.batch_edges // 2, e2))
+        B_r = -(-edges_step // 64)
+        return B_r, max(1, math.ceil(e2 / (B_r * 64)))
+
+    def o2_paired_step(self, rows: torch.Tensor, pools: torch.Tensor):
+        """One paired O2 macro step (``_o2_epoch_kernel``,
+        ``trainer/come.py:1016-1043``): the walk kernel's edge mode K5 on
+        ``rows`` [B_r, 128] ([u0, v0, u1, v1, ...]) at ``lr * alpha``, run
+        on two copies of the tied table, which becomes
+        ``new_in + new_out - old``; advances ``words_seen`` by B_r * 128.
+        Returns (loss, n_pairs) tensors."""
+        cfg = self.cfg
+        ne = self.params.node_emb
+        new_in, new_out = ne.clone(), ne.clone()
+        _, _, loss, npairs = walk_sgns_step(
+            new_in, new_out, rows, None, pools, self.lr() * cfg.alpha,
+            self.negw, window=1, pool_refresh=cfg.walk_pool_refresh,
+            mxu_bf16=cfg.walk_kernel_bf16, paired=True,
+        )
+        ne.copy_(new_in.add_(new_out).sub_(ne))
+        self.words_seen += float(rows.numel())
+        return loss, npairs
+
+    def o2_paired_epoch(self) -> float:
+        """One paired O2 epoch: the undirected edges shuffled and wrapped to
+        S * B_r * 64 (``jnp.resize``), S macro steps of B_r rows, each with
+        its own pools (``trainer/come.py:1116-1135``)."""
+        cfg = self.cfg
+        B_r, S = self.o2_paired_plan()
+        uu, vv = self._undirected_edges()
+        e2 = uu.shape[0]
+        perm = torch.randperm(e2, generator=self.gen, device=self.device)
+        idx = perm[torch.arange(S * B_r * 64, device=self.device) % e2]
+        rows = torch.stack([uu[idx], vv[idx]], 1).reshape(S, B_r, 128)
+        G = -(-B_r // NW)
+        n_pools = -(-G // cfg.walk_pool_refresh)
+        tot_loss = torch.zeros((), device=self.device)
+        tot_pairs = torch.zeros((), device=self.device)
+        for s in range(S):
+            pools = sample_alias(self.accept, self.alias, self.gen,
+                                 (n_pools, cfg.shared_negatives))
+            loss, npairs = self.o2_paired_step(rows[s], pools)
+            tot_loss += loss
+            tot_pairs += npairs
+        return self._finish_o2(tot_loss, tot_pairs)
+
+    def _finish_o2(self, tot_loss, tot_pairs) -> float:
         loss, pairs = torch.stack([tot_loss, tot_pairs]).tolist()
         self.last_o2_pairs = pairs
         return loss / max(pairs, 1.0)
 
     def o2_epoch(self) -> float:
-        """One O2 epoch: through the star kernel when ``o2_star``, else per
-        arc (:meth:`o2_arc_epoch`).  The star epoch
-        (``_o2_epoch_starlike``, ``trainer/come.py:907-982``) passes over
-        every edge in both directions: the layout rows are shuffled each
-        epoch and trained step by step."""
+        """One O2 epoch: through the star kernel when ``o2_star``, the
+        paired edge mode when ``o2_paired``, else per arc
+        (:meth:`o2_arc_epoch`).  The star epoch (``_o2_epoch_starlike``,
+        ``trainer/come.py:907-982``) passes over every edge in both
+        directions: the layout rows are shuffled each epoch and trained
+        step by step."""
+        if self.o2_paired:
+            return self.o2_paired_epoch()
         if not self.o2_star:
             return self.o2_arc_epoch()
         cfg = self.cfg
@@ -483,9 +611,7 @@ class ComETrainer:
             )
             tot_loss += loss
             tot_pairs += npairs
-        loss, pairs = torch.stack([tot_loss, tot_pairs]).tolist()
-        self.last_o2_pairs = pairs
-        return loss / max(pairs, 1.0)
+        return self._finish_o2(tot_loss, tot_pairs)
 
     # ----------------------------------------------------- GMM, O3 (community)
 

@@ -10,7 +10,12 @@ Imports nothing of JAX, so it runs where JAX is absent:
 
 Tolerance, on each table element's update (after the step minus before):
 |upd_kernel - upd_plain| <= 1e-6 + 1e-4 |upd_plain| (f32; atomicAdd order
-varies), loss rtol 1e-4, pair counts exact.
+varies), loss rtol 1e-4, pair counts exact.  The bf16 modes (K1b, K2b, K4
+and K5 with mxu_bf16) are held to ``ops/tolerance.py``'s check (relative
+L2 error of the updates <= 4e-4, every element within 2^-8 of the largest
+update, and the f32 plain step at least 5x farther away than the kernel
+and 2x past the bound).  K4's walks must equal the plain version's bit for
+bit.
 """
 
 import numpy as np
@@ -18,7 +23,7 @@ import pytest
 import torch
 
 from come_tpu_torch.config import PRESETS, get_config
-from come_tpu_torch.graphs import get_dataset, sbm_graph
+from come_tpu_torch.graphs import CSRGraph, get_dataset, sbm_graph
 from come_tpu_torch.ops.sgns import (
     fused_sgns_step,
     fused_sgns_step_reference,
@@ -26,7 +31,14 @@ from come_tpu_torch.ops.sgns import (
     fused_sgns_step_tied_reference,
 )
 from come_tpu_torch.ops.star_sgns import star_sgns_step, star_sgns_step_reference
-from come_tpu_torch.ops.walk_sgns import NWL, walk_sgns_step, walk_sgns_step_reference
+from come_tpu_torch.ops.tolerance import check_bf16
+from come_tpu_torch.ops.walk_sgns import (
+    NWL,
+    walk_sgns_gen_step,
+    walk_sgns_gen_step_reference,
+    walk_sgns_step,
+    walk_sgns_step_reference,
+)
 from come_tpu_torch.sampling import build_star_layout
 from come_tpu_torch.trainer import ComETrainer
 
@@ -48,6 +60,15 @@ def _close(init, kern, plain):
     assert abs(float(kl) - float(pl)) <= 1e-4 * abs(float(pl))
     for t0, a, b in zip(init, kt, pt):
         torch.testing.assert_close(a - t0, b - t0, rtol=1e-4, atol=1e-6)
+
+
+def _close_bf16(init, kern, plain, f32):
+    *kt, kl, kn = kern
+    *pt, pl, pn = plain
+    torch.cuda.synchronize()
+    assert float(kn) == float(pn)
+    assert abs(float(kl) - float(pl)) <= 1e-4 * abs(float(pl))
+    check_bf16("bf16 mode", init, kt, pt, f32[:len(init)])
 
 
 @pytest.mark.parametrize("V,d,B,L,W,KP,R", [
@@ -177,4 +198,186 @@ def test_trainer_runs_through_both_kernels(dev):
     assert walk_sgns_step.launches > w0 and star_sgns_step.launches > s0
     assert all(np.isfinite(r["o1_loss"]) and np.isfinite(r["o2_loss"])
                for r in hist)
+    assert hist[-1]["nmi"] > 0.8
+
+
+# ---------------------------------------------- K1b, K2b, K4 and K5
+
+
+@pytest.mark.parametrize("V,d,B,L,W,KP,R", [
+    (34, 16, 16, 20, 5, 100, 2),
+    (500, 64, 21, 37, 5, 100, 1),
+    (2000, 128, 40, 80, 10, 512, 2),
+])
+def test_walk_bf16_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
+    g = torch.Generator(device=dev).manual_seed(V + 1)
+    emb_in = torch.randn((V, d), generator=g, device=dev) * 0.1
+    emb_out = torch.randn((V, d), generator=g, device=dev) * 0.1
+    walks = torch.randint(0, V, (B, L), generator=g, device=dev,
+                          dtype=torch.int32)
+    G = -(-B // 8)
+    wrow = torch.randint(1, W + 1, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    pools = torch.randint(0, V, (-(-G // R), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def run(fn, bf16):
+        return fn(emb_in.clone(), emb_out.clone(), walks, wrow, pools, 0.05,
+                  5.0 / KP, window=W, pool_refresh=R, mxu_bf16=bf16)
+
+    before = (walk_sgns_step.launches, walk_sgns_step.launches_bf16)
+    _close_bf16((emb_in, emb_out), run(walk_sgns_step, True),
+                run(walk_sgns_step_reference, True),
+                run(walk_sgns_step_reference, False))
+    assert (walk_sgns_step.launches,
+            walk_sgns_step.launches_bf16) == (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("V,d,E,KP,R", [
+    (34, 16, 78, 100, 1),
+    (600, 64, 9000, 100, 2),
+    (3000, 128, 40000, 512, 1),
+])
+def test_star_bf16_kernel_matches_plain(dev, V, d, E, KP, R):
+    rng = np.random.default_rng(V + 2)
+    u = rng.integers(0, V, E)
+    v = (u + 1 + rng.integers(0, V - 1, E)) % V
+    slots, meta = build_star_layout(u, v, V)
+    slots, meta = (torch.as_tensor(a, device=dev) for a in (slots, meta))
+    G = -(-slots.shape[0] // NWL)
+    g = torch.Generator(device=dev).manual_seed(V)
+    emb = torch.randn((V, d), generator=g, device=dev) * 0.1
+    pools = torch.randint(0, V, (-(-G // R), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def run(fn, bf16):
+        return fn(emb.clone(), slots, meta, pools, 0.05, 5.0 / KP,
+                  pool_refresh=R, mxu_bf16=bf16)
+
+    before = star_sgns_step.launches_bf16
+    _close_bf16((emb,), run(star_sgns_step, True),
+                run(star_sgns_step_reference, True),
+                run(star_sgns_step_reference, False))
+    assert star_sgns_step.launches_bf16 == before + 1
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("V,d,n_rows,KP,R", [
+    (34, 16, 24, 100, 2),
+    (600, 64, 40, 100, 1),
+    (10312, 128, 512, 512, 2),
+])
+def test_paired_kernel_matches_plain(dev, V, d, n_rows, KP, R, bf16):
+    rng = np.random.default_rng(V + n_rows)
+    u = rng.integers(0, V, n_rows * 64)
+    v = (u + 1 + rng.integers(0, V - 1, u.shape[0])) % V
+    rows = torch.as_tensor(np.stack([u, v], 1).reshape(n_rows, 128),
+                           device=dev)
+    G = -(-n_rows // 8)
+    g = torch.Generator(device=dev).manual_seed(V)
+    emb = torch.randn((V, d), generator=g, device=dev) * 0.1
+    pools = torch.randint(0, V, (-(-G // R), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def run(fn, b16, negw=5.0 / KP):
+        return fn(emb.clone(), emb.clone(), rows, None, pools, 0.05, negw,
+                  window=1, pool_refresh=R, mxu_bf16=b16, paired=True)
+
+    before = walk_sgns_step.launches_paired
+    kern, plain = run(walk_sgns_step, bf16), run(walk_sgns_step_reference,
+                                                 bf16)
+    if bf16:
+        # the paired positive pass is f32 and only the negative pass
+        # rounds: hold the updates past the step without it (negw = 0)
+        base = run(walk_sgns_step_reference, False, 0.0)[:2]
+        _close_bf16(base, kern, plain, run(walk_sgns_step_reference, False))
+    else:
+        _close((emb, emb), kern, plain)
+    assert float(kern[3]) == rows.numel() + (8 * G - n_rows) * 128
+    assert walk_sgns_step.launches_paired == before + 1
+
+
+def _graph_with_isolated(V, seed):
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, V - 1, 4 * V)
+    v = rng.integers(0, V - 1, 4 * V)
+    return CSRGraph.from_arcs(u, v, num_nodes=V)  # node V-1 isolated
+
+
+# A bf16 flip early in a step moves later groups' reads, so the bound holds
+# where a step is stable: 256 walks over V=2000 at lr 0.05 grow the table
+# from 0.1 to 3.6 in one step, and a float64 emulation of the plain version
+# then lies 6.4e-4 (L2) from it; at V=5000 5.3e-5.
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("V,d,B,L,W,KP,R", [
+    (34, 16, 13, 20, 5, 100, 2),
+    (500, 64, 24, 80, 10, 100, 1),
+    (5000, 128, 256, 80, 10, 512, 2),
+])
+def test_gen_kernel_matches_plain(dev, V, d, B, L, W, KP, R, bf16):
+    graph = _graph_with_isolated(V, V)
+    csr = graph.to_device(dev)
+    g = torch.Generator(device=dev).manual_seed(V + 3)
+    emb_in = torch.randn((V, d), generator=g, device=dev) * 0.1
+    emb_out = torch.randn((V, d), generator=g, device=dev) * 0.1
+    starts = torch.randint(0, V, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+    starts[0] = V - 1  # an isolated start
+    G = -(-B // 8)
+    bits = torch.randint(-2**31, 2**31, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    wrow = torch.randint(1, W + 1, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    pools = torch.randint(0, V, (-(-G // R), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def run(fn, b16):
+        return fn(emb_in.clone(), emb_out.clone(), starts, bits, csr.indptr,
+                  csr.indices, wrow, pools, 0.05, 5.0 / KP, walk_length=L,
+                  window=W, pool_refresh=R, mxu_bf16=b16, return_walks=True)
+
+    def counts():
+        return (walk_sgns_gen_step.launches, walk_sgns_gen_step.launches_bf16,
+                walk_sgns_step.launches, walk_sgns_step.launches_bf16)
+
+    before = counts()
+    *kern, kw = run(walk_sgns_gen_step, bf16)
+    *plain, pw = run(walk_sgns_gen_step_reference, bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(kw, pw)
+    assert (kw[0] == V - 1).all()
+    if bf16:
+        _close_bf16((emb_in, emb_out), kern, plain,
+                    run(walk_sgns_gen_step_reference, False))
+    else:
+        _close((emb_in, emb_out), kern, plain)
+    # the gen wrapper counts its own launches, in its mode's counter only
+    assert counts() == (before[0] + (not bf16), before[1] + bf16) + before[2:]
+
+
+def _bench_counts():
+    return {"K1": walk_sgns_step.launches, "K2": star_sgns_step.launches,
+            "K4": walk_sgns_gen_step.launches,
+            "K4+K1b": walk_sgns_gen_step.launches_bf16,
+            "K1b": walk_sgns_step.launches_bf16,
+            "K2b": star_sgns_step.launches_bf16}
+
+
+@pytest.mark.parametrize("walk_gen,ran", [("kernel", ("K4+K1b", "K2b")),
+                                          ("scan", ("K1b", "K2b"))])
+def test_bench_config_runs_through_its_kernels(dev, walk_gen, ran):
+    """The reference bench's knobs (bench.py:174-216) on the graph they
+    were chosen for: R = 8 pools over 2048-walk steps need V >> 8 * 1024.
+    Only the configuration's own kernels (by mode) launch."""
+    ds = get_dataset("blogcatalog")
+    cfg = PRESETS["blogcatalog"].replace(
+        num_communities=ds.num_communities, pretrain_epochs=1,
+        outer_iters=1, walk_kernel_bf16=True, walk_pool_refresh=8,
+        batch_walks=2048, batch_edges=524288, walk_gen=walk_gen,
+    )
+    t = ComETrainer(ds.graph, cfg, dev)
+    before = _bench_counts()
+    hist = t.train(ds.single_labels)
+    launched = {k: v - before[k] for k, v in _bench_counts().items()}
+    assert all((launched[k] > 0) == (k in ran) for k in launched), launched
     assert hist[-1]["nmi"] > 0.8

@@ -177,9 +177,6 @@ def test_walk_corpus_cache_cadence(regen, fresh):
 
 @pytest.mark.parametrize("override", [
     dict(corpus="host"),
-    dict(walk_gen="kernel"),
-    dict(o2_mode="paired"),
-    dict(walk_kernel_bf16=True),
     dict(pallas="never"),
 ])
 def test_outside_slice_raises(override):
@@ -189,8 +186,14 @@ def test_outside_slice_raises(override):
         ComETrainer(g, cfg, "cpu")
 
 
-_STEPS = ("walk_sgns_step", "star_sgns_step", "fused_sgns_step",
-          "fused_sgns_step_tied", "sgns_sgd_step")
+_STEPS = ("walk_sgns_step", "walk_sgns_gen_step", "star_sgns_step",
+          "fused_sgns_step", "fused_sgns_step_tied", "sgns_sgd_step")
+
+
+def _step_name(name, kw):
+    """A step's name with the kernel mode it was called in (+bf16, +paired)."""
+    return (name + ("+paired" if kw.get("paired") else "")
+            + ("+bf16" if kw.get("mxu_bf16") else ""))
 
 
 @pytest.mark.parametrize("graph,override,o1,o2", [
@@ -208,14 +211,34 @@ _STEPS = ("walk_sgns_step", "star_sgns_step", "fused_sgns_step",
      "fused_sgns_step_tied"),
     ("karate", dict(negative_mode="per_pair"), "sgns_sgd_step",
      "sgns_sgd_step"),
+    ("sbm256", dict(o2_mode="paired"), "walk_sgns_step",
+     "walk_sgns_step+paired"),
+    ("sbm60", dict(o2_mode="paired", walk_length=80, window=10),
+     "fused_sgns_step", "fused_sgns_step_tied"),
+    ("sbm256", dict(walk_gen="kernel"), "walk_sgns_gen_step",
+     "star_sgns_step"),
+    ("sbm256", dict(walk_gen="kernel", restart_prob=0.1), "walk_sgns_step",
+     "star_sgns_step"),
+    ("sbm256", dict(walk_gen="kernel", walk_regen_epochs=0),
+     "walk_sgns_step", "star_sgns_step"),
+    ("sbm256", dict(walk_gen="kernel", down_sample=1e-3), "fused_sgns_step",
+     "star_sgns_step"),
+    ("sbm256", dict(walk_kernel_bf16=True), "walk_sgns_step+bf16",
+     "star_sgns_step+bf16"),
+    ("sbm256", dict(walk_kernel_bf16=True, walk_gen="kernel",
+                    o2_mode="paired"), "walk_sgns_gen_step+bf16",
+     "walk_sgns_step+paired+bf16"),
+    ("sbm256", dict(walk_kernel_bf16=True, o2_mode="xla"),
+     "walk_sgns_step+bf16", "fused_sgns_step_tied"),
 ])
 def test_dispatch_follows_the_jax_trainer(monkeypatch, graph, override, o1,
                                           o2):
     """Each configuration trains one O1 and one O2 epoch through the step
     the JAX trainer picks on a TPU (``trainer/come.py:149-180``, ``:265-378``,
-    ``:862-881``, ``:1090-1144``): the walk kernel K1 or the micro-batched
-    tier (K6, or the per-pair step), the star kernel K2 or per arc (K7, or
-    the tied per-pair step)."""
+    ``:380-394``, ``:696-711``, ``:841-881``, ``:1090-1144``): the walk
+    kernel K1 (K1b with bf16, K4 for in-kernel walks) or the micro-batched
+    tier (K6, or the per-pair step), the star kernel K2 (K2b), the paired
+    walk kernel K5, or per arc (K7, or the tied per-pair step)."""
     import come_tpu_torch.trainer.come as tc
     from come_tpu_torch.graphs import get_dataset
 
@@ -230,8 +253,8 @@ def test_dispatch_follows_the_jax_trainer(monkeypatch, graph, override, o1,
     for name in _STEPS:
         fn = getattr(tc, name)
         monkeypatch.setattr(
-            tc, name, lambda *a, _n=name, _f=fn, **k: calls.append(_n)
-            or _f(*a, **k))
+            tc, name, lambda *a, _n=name, _f=fn, **k: calls.append(
+                _step_name(_n, k)) or _f(*a, **k))
     if override.get("down_sample"):
         with pytest.warns(UserWarning, match="micro-batched tier"):
             t = ComETrainer(g, cfg, "cpu")
@@ -243,6 +266,77 @@ def test_dispatch_follows_the_jax_trainer(monkeypatch, graph, override, o1,
     assert np.isfinite(t.o2_epoch()) and t.last_o2_pairs > 0
     assert set(calls) == {o2}
     assert np.isfinite(t.embeddings()).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_paired_o2_step_matches_jax(bf16):
+    """One paired O2 macro step (``_o2_epoch_kernel``'s body) from the same
+    table, rows and pools: the port's ``o2_paired_step`` against
+    ``fused_walk_sgns_step(paired=True)`` (interpret) composed as
+    new_in + new_out - old."""
+    V, K = 256, 4
+    g, _ = sbm_graph(V, K, p_in=0.1, p_out=0.005, seed=0, avg_degree=10)
+    cfg = PRESETS["blogcatalog"].replace(
+        **SMALL, o2_mode="paired", batch_edges=1024, walk_pool_refresh=2,
+        walk_kernel_bf16=bf16, alpha=0.5)
+    t = ComETrainer(g, cfg, "cpu")
+    assert t.o2_paired and not t.o2_star
+    B_r, S = t.o2_paired_plan()
+    e2 = g.num_edges
+    assert (B_r, S) == (8, -(-e2 // 512))
+    rng = np.random.default_rng(1)
+    ne0 = (rng.normal(size=(V, cfg.dim)) * 0.1).astype(np.float32)
+    t.params.node_emb.copy_(torch.as_tensor(ne0))
+    u, v = g.edges_undirected()
+    idx = rng.permutation(e2)[:B_r * 64]
+    rows = np.stack([u[idx], v[idx]], 1).reshape(B_r, 128).astype(np.int32)
+    pools = rng.integers(0, V, (1, cfg.shared_negatives)).astype(np.int32)
+    lr = t.lr()
+    loss, npairs = t.o2_paired_step(torch.as_tensor(rows),
+                                    torch.as_tensor(pools))
+    assert t.words_seen == B_r * 128
+    new_in, new_out, jl, jn = fused_walk_sgns_step(
+        jnp.asarray(ne0), jnp.asarray(ne0), jnp.asarray(rows),
+        jnp.asarray(pools), lr * cfg.alpha, t.negw, 0, window=1,
+        interpret=True, reduced_window=False, mxu_bf16=bf16,
+        pool_refresh=cfg.walk_pool_refresh, paired=True,
+    )
+    assert float(npairs) == float(jn) == B_r * 128
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-4)
+    np.testing.assert_allclose(t.params.node_emb.numpy(),
+                               np.asarray(new_in + new_out - ne0),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_paired_epoch_trains_every_edge_in_both_directions():
+    """S * B_r * 128 pairs per paired epoch: every undirected edge at
+    least once each way, the tail wrapped to the epoch's first edges."""
+    g, _ = sbm_graph(256, 4, seed=0, avg_degree=10)
+    cfg = PRESETS["blogcatalog"].replace(
+        **SMALL, o2_mode="paired", batch_edges=600)
+    t = ComETrainer(g, cfg, "cpu")
+    B_r, S = t.o2_paired_plan()
+    assert B_r == 5 and S == -(-g.num_edges // 320) > 1
+    w0 = t.words_seen
+    assert np.isfinite(t.o2_epoch())
+    # B_r = 5 rows wrap to one 8-row group per step, as jnp.resize does
+    assert t.last_o2_pairs == S * 8 * 128
+    assert t.words_seen - w0 == S * B_r * 128
+    assert np.isfinite(t.embeddings()).all()
+
+
+def test_gen_bits_draw_all_32_bits():
+    """The in-kernel walks' bits cover the full 32-bit range: with only
+    non-negative draws every hop would pick from the first half of its
+    neighbour list."""
+    g, _ = sbm_graph(256, 4, seed=0, avg_degree=10)
+    t = ComETrainer(g, PRESETS["blogcatalog"].replace(
+        **SMALL, walk_gen="kernel"), "cpu")
+    assert t.o1_gen
+    bits = t._gen_bits(1 << 16).numpy().view(np.uint32)
+    for b in range(32):
+        frac = ((bits >> b) & 1).mean()
+        assert 0.47 < frac < 0.53, (b, frac)
 
 
 def test_main_refuses_missing_cuda_and_unported_flags():
