@@ -21,6 +21,14 @@ non-zero and prints no result line):
                them: one 2048-walk O1 step (256 groups, R 8, unigram pools
                [32, 512]) and the one star O2 step of batch_edges 524288
                (the whole layout, 344 groups, R 8)
+  4f. K3     — the walk kernel on bf16 tables at the large-V path's shapes
+               (synthetic-10m: V 500000, d 128, 1024 walks of 80, W 10, KP
+               2048, R 1, 128 groups), with stochastic rounding and in
+               truncation mode, through walk_sgns_step and walk_sgns_gen_step;
+               K3 and K1 (f32 tables, same inputs) timed
+ 4g. P1      — the row-gather floor probe: gather and scatter-add of N =
+               2048 and 262144 rows of a [500000, 128] f32 and bf16 table,
+               beside index_select / index_add_
   5. main    — come_tpu_torch.main on --dataset blogcatalog (pretrain 1,
                outer 1) on cuda, with the kernels' launch counters reset
                just before and read just after
@@ -42,10 +50,23 @@ non-zero and prints no result line):
                and the walker: K1b and K2b, nothing else
  13. bench gen — the same with walk_gen "kernel" (bench.py:207-216): K4 in
                its bf16 mode and K2b, nothing else
-Phases 5 and 8-13 each reset every launch counter just before they run
+ 14. large-v — the CLI on --dataset synthetic-10m at full width, depth cut
+               to walks per node 5, pretrain 1, outer 1 (bench.py:124-129's
+               cut, walks per node 1, ended at NMI 0.001 on an H100 80GB
+               HBM3 at 700 W both with bf16 and f32 tables: the communities
+               emerge between 4 and 6 walk passes per node): O1 through
+               K3, O2 through K2, nothing
+               else; prints the peak device memory and K3's CAS retries
+Phases 5 and 8-14 each reset every launch counter just before they run
 and read them just after; each wrapper counts only its own launches, by
-mode.  Then a JSON line of the kernels (the bf16 modes with their bench-
-shape checks and their launches in phases 12-13), and last
+mode.  Every phase line ends with its seconds.  Then a JSON line of the
+kernels (the bf16 modes with their bench-shape checks and their launches in
+phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
+is a probe and on no path), each with its bound: the larger of the bytes
+it must move (each touched row and each input read once, each output
+written once) over 3.35 TB/s and the operations its inputs need over 67
+TFLOP/s (f32 products) or 989 TFLOP/s (bf16 products; the H100 SXM's
+published peaks); and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Tolerance of the kernel checks, on each table element's update (table after
@@ -68,7 +89,13 @@ NMI >= 0.8; phase 8 NMI >= 0.5 and phase 9 NMI >= 0.3 (the JAX package's
 own karate floors); phase 10 finite losses and embeddings and exactly S * B
 O2 pairs (S = ceil(2E / batch_edges) batches of B arcs); phase 11 finite
 losses, exactly 2 * S * B_r * 64 O2 pairs and NMI >= 0.8; phases 12-13
-finite losses and NMI >= 0.8.  Imports nothing of JAX.
+finite losses and NMI >= 0.8.  K3 takes ops/tolerance.py's K3 check (99%
+of touched elements bit-identical, relative L2 error of the updates within
+its bound, the f32-table step 5x farther away), loss within rtol 1e-4 and
+pair counts exact; P1 the plain version's rows and tables bit for bit and
+its checksum to 1e-12.  Phase 14 must give finite losses, one K3 launch
+per O1 macro step with a pair count inside what those steps can train,
+and NMI >= 0.8.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -86,6 +113,9 @@ import torch
 
 RTOL, ATOL = 1e-4, 1e-6  # on the update of each table element
 SEED = 0
+# the H100 SXM's published peaks (at its 700 W limit): device memory,
+# f32 outside the tensor cores, dense bf16
+HBM_BPS, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 # NMI after pretrain 1 + outer 1 on the blogcatalog stand-in: 0.9422 on an
 # H100 at SEED; the full preset reaches 0.96 (the JAX reference 0.954)
 NMI_FLOOR = 0.8
@@ -94,8 +124,92 @@ NMI_FLOOR = 0.8
 KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 
 
+_LAST = [time.perf_counter()]
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    now = time.perf_counter()
+    print(f"[{name}] {msg} ({now - _LAST[0]:.1f} s)", flush=True)
+    _LAST[0] = now
+
+
+def device_us(fn, ids, kernel: str | None = None) -> float:
+    """Device microseconds per call of ``fn(i)`` over ``ids``, summed over
+    the CUDA kernels whose name holds ``kernel`` (every kernel with None;
+    torch.profiler): at small sizes a call's host overhead outlasts its
+    kernel, and CUDA events then time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(ids[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in ids:
+            fn(i)
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if kernel is None or kernel in e.key)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no {kernel or 'CUDA'} "
+                             f"kernel")
+    return total / len(ids)
+
+
+def bound(flops: float, nbytes: float, bf16: bool):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take for ``flops`` operations on bf16 (or f32) products and ``nbytes``
+    bytes moved."""
+    t_b = nbytes / HBM_BPS
+    t_f = flops / (PEAK_BF16 if bf16 else PEAK_F32)
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def n_unique(*ids) -> int:
+    return int(torch.unique(torch.cat([i.reshape(-1).long() for i in ids]))
+               .numel())
+
+
+def walk_bound(walks, pools, n_pairs, d, es, bf16, extra_bytes=0):
+    """Bound of one walk-kernel step (K1, K1b, K3, K4, K5): every real slot
+    scores the pool (3 * KP * d multiply-adds) and each trained pair costs
+    3 * d; the node rows and the ctx and pool rows are read and written
+    once at ``es`` bytes an element; walks, window draws and pools read
+    once as int32."""
+    B, L = walks.shape
+    G = -(-B // 8)
+    real = walks[torch.arange(G * 8, device=walks.device) % B]
+    KP = pools.shape[-1]
+    flops = 2.0 * (3 * d * float(n_pairs) + 3 * KP * d * real.numel())
+    rows = n_unique(real) + n_unique(real, pools)
+    nbytes = 2.0 * rows * d * es + 4.0 * (2 * G * 1024 + pools.numel())
+    return bound(flops, nbytes + extra_bytes, bf16)
+
+
+def star_bound(slots, meta, pools, n_pairs, d, bf16, pad_meta):
+    """Bound of one star step (K2, K2b): every non-pad slot scores the
+    pool, each trained pair costs 3 * d; the tied table's slot and pool
+    rows are read and written once; slots, meta and pools read once."""
+    real = slots[meta != pad_meta]
+    KP = pools.shape[-1]
+    flops = 2.0 * (3 * d * float(n_pairs) + 3 * KP * d * real.numel())
+    nbytes = (2.0 * n_unique(real, pools) * d * 4
+              + 4.0 * (slots.numel() + meta.numel() + pools.numel()))
+    return bound(flops, nbytes, bf16)
+
+
+def pairs_bound(c, x, m, pool, d, tied):
+    """Bound of one micro-batched step (K6, K7): every unmasked pair scores
+    the pool and its context (3 * (KP + 1) * d multiply-adds); the centre,
+    context and pool rows are read and written once; c, x, m and the pool
+    read once."""
+    keep = m > 0
+    n = int(keep.sum())
+    flops = 2.0 * 3 * (pool.numel() + 1) * d * n
+    if tied:
+        rows = n_unique(c[keep], x[keep], pool)
+    else:
+        rows = n_unique(c[keep]) + n_unique(x[keep], pool)
+    nbytes = 2.0 * rows * d * 4 + 4.0 * (3 * c.numel() + pool.numel())
+    return bound(flops, nbytes, False)
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -197,13 +311,21 @@ def main() -> int:
         star_sgns_step,
         star_sgns_step_reference,
     )
+    from come_tpu_torch.ops.row_probe import (
+        row_gather_probe,
+        row_gather_probe_reference,
+        row_scatter_probe,
+        row_scatter_probe_reference,
+    )
     from come_tpu_torch.ops.walk_sgns import (
         NW,
         NWL,
+        cas_retries,
         walk_sgns_gen_step,
         walk_sgns_gen_step_reference,
         walk_sgns_step,
         walk_sgns_step_reference,
+        walks_from_bits,
     )
     from come_tpu_torch.sampling import (
         build_alias_table,
@@ -230,6 +352,11 @@ def main() -> int:
         "walk_sgns_gen": (walk_sgns_gen_step, "launches"),
         "walk_sgns_gen_bf16": (walk_sgns_gen_step, "launches_bf16"),
         "walk_sgns_paired": (walk_sgns_step, "launches_paired"),
+        "walk_sgns_bf16_tables": (walk_sgns_step, "launches_bf16_tables"),
+        "walk_sgns_gen_bf16_tables": (walk_sgns_gen_step,
+                                      "launches_bf16_tables"),
+        "row_gather_probe": (row_gather_probe, "launches"),
+        "row_scatter_probe": (row_scatter_probe, "launches"),
     }
 
     def reset_counts():
@@ -280,6 +407,7 @@ def main() -> int:
     k1_err = compare("K1", (emb_in, emb_out), kern, plain)
     k1_ms = cuda_ms(lambda: k1(walk_sgns_step))
     k1_plain_ms = cuda_ms(lambda: k1(walk_sgns_step_reference))
+    k1_bound = walk_bound(walks, pools, float(kern[3]), d, 4, False)
     phase("K1", f"walk_sgns V={V} d={d} B={B} L={L} W={W} KP={KP} R=1 "
                 f"G={G}: max_abs {k1_err[0]:.3e} max_rel {k1_err[1]:.3e} "
                 f"loss_rel {k1_err[2]:.3e} pairs {float(kern[3]):.0f} | "
@@ -321,6 +449,7 @@ def main() -> int:
     k2_err = compare("K2", (emb_in,), kern2, plain2)
     k2_ms = cuda_ms(lambda: k2(star_sgns_step))
     k2_plain_ms = cuda_ms(lambda: k2(star_sgns_step_reference))
+    k2_bound = star_bound(sl, mt, pools2, float(kern2[2]), d, False, PAD_META)
     phase("K2", f"star_sgns V={V} d={d} T={sl.shape[0]} KP={KP} R=1 "
                 f"G={G2}: max_abs {k2_err[0]:.3e} max_rel {k2_err[1]:.3e} "
                 f"loss_rel {k2_err[2]:.3e} pairs {float(kern2[2]):.0f} | "
@@ -401,6 +530,7 @@ def main() -> int:
     k5_err = compare("K5", (emb_in, emb_out), kern5, plain5)
     k5_ms = cuda_ms(lambda: k5(walk_sgns_step))
     k5_plain_ms = cuda_ms(lambda: k5(walk_sgns_step_reference))
+    k5_bound = walk_bound(rows, pools5, float(kern5[3]), d, 4, False)
     phase("K5", f"walk_sgns paired V={V} d={d} rows=512 KP={KP} R=1 G=64: "
                 f"max_abs {k5_err[0]:.3e} max_rel {k5_err[1]:.3e} loss_rel "
                 f"{k5_err[2]:.3e} pairs {float(kern5[3]):.0f} | kernel "
@@ -434,6 +564,7 @@ def main() -> int:
     torch.cuda.synchronize()
     k1bb_err = compare_bf16("K1b (bench)", (emb_in, emb_out), kern, plain,
                             f32[:2])
+    k1bb_bound = walk_bound(walks_b, pools_b, float(kern[3]), d, 4, True)
     k1bb_ms = cuda_ms(lambda: k1b_bench(walk_sgns_step))
     k1bb_plain_ms = cuda_ms(lambda: k1b_bench(walk_sgns_step_reference))
     phase("K1b bench", f"walk_sgns bf16 B={BB} R={RB} G={GB} pools "
@@ -453,6 +584,9 @@ def main() -> int:
     check_walks("K4 (bench)", kw, pw)
     k4b_err = compare_bf16("K4 (bench)", (emb_in, emb_out), kern, plain,
                            f32[:2])
+    # K4 also reads starts, and per hop two offsets and one neighbour
+    k4b_bound = walk_bound(kw, pools_b, float(kern[3]), d, 4, True,
+                           4.0 * BB + 12.0 * BB * (L - 1))
     k4b_ms = cuda_ms(lambda: k4_bench(walk_sgns_gen_step))
     k4b_plain_ms = cuda_ms(lambda: k4_bench(walk_sgns_gen_step_reference))
     phase("K4 bench", f"walk_sgns_gen bf16 B={BB} R={RB} G={GB}: walks "
@@ -483,12 +617,177 @@ def main() -> int:
                         k2b_bench(star_sgns_step_reference, False))
     torch.cuda.synchronize()
     k2bb_err = compare_bf16("K2b (bench)", (emb_in,), kern, plain, f32[:1])
+    k2bb_bound = star_bound(sl_b, mt_b, pools2_b, float(kern[2]), d, True,
+                            PAD_META)
     k2bb_ms = cuda_ms(lambda: k2b_bench(star_sgns_step))
     k2bb_plain_ms = cuda_ms(lambda: k2b_bench(star_sgns_step_reference))
     phase("K2b bench", f"star_sgns bf16 T={sl_b.numel()} R={RB} G={G2B} "
                        f"pools {tuple(pools2_b.shape)} (one step): "
                        + bf16_line(k2bb_err, k2bb_ms, k2bb_plain_ms))
     del emb_in, emb_out, kern, plain, f32
+    torch.cuda.empty_cache()
+
+    def large_v_kernels():
+        """Phases 4f-4g in their own scope (the BlogCatalog phases' names
+        stay as they were); returns what the kernels line reads."""
+        t_ds = time.perf_counter()
+        # 4f. K3 at the large-V path's shapes: one synthetic-10m macro step
+        from come_tpu_torch.ops.tolerance import K3_L2, check_k3
+
+        big = get_dataset("synthetic-10m")
+        t_ds = time.perf_counter() - t_ds
+        csr10 = big.graph.to_device(dev)
+        V, d, B, L, W, KP, R = big.graph.num_nodes, 128, 1024, 80, 10, 2048, 1
+        G = B // NW
+        acc10, ali10 = (torch.as_tensor(a, device=dev) for a in
+                        build_alias_table(unigram_weights(big.graph.degrees)))
+        init = [(torch.randn((V, d), generator=gen, device=dev) * 0.1).to(
+            torch.bfloat16) for _ in range(2)]
+        starts10 = torch.randint(0, V, (B,), generator=gen, device=dev)
+        bits10 = torch.randint(-2**31, 2**31, (G * NWL,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        walks10 = walks_from_bits(starts10, bits10, csr10.indptr, csr10.indices,
+                                  L)
+        wrow10 = torch.randint(1, W + 1, (G * NWL,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        pools10 = sample_alias(acc10, ali10, gen, (G, KP))
+        negw10 = 5.0 / KP
+
+        def k3(fn, tables, **kw):
+            return fn(*[t.clone() for t in tables], walks10, wrow10, pools10, lr,
+                      negw10, window=W, pool_refresh=R, **kw)
+
+        def k3_gen(fn, tables, **kw):
+            return fn(*[t.clone() for t in tables], starts10, bits10,
+                      csr10.indptr, csr10.indices, wrow10, pools10, lr, negw10,
+                      walk_length=L, window=W, pool_refresh=R, **kw)
+
+        def k3_check(name, kern, plain, f32):
+            if float(kern[3]) != float(plain[3]) or abs(
+                    float(kern[2]) - float(plain[2])) > 1e-4 * abs(float(plain[2])):
+                raise AssertionError(
+                    f"{name}: loss {float(kern[2])} vs {float(plain[2])}, pairs "
+                    f"{float(kern[3])} vs {float(plain[3])}")
+            if kern[0].dtype != torch.bfloat16 or not all(
+                    torch.isfinite(t).all() for t in kern[:2]):
+                raise AssertionError(f"{name}: tables not finite bf16")
+            return check_k3(name, init, kern[:2], plain[:2], f32[:2])
+
+        f32_10 = k3(walk_sgns_step_reference, [t.float() for t in init],
+                    mxu_bf16=True)
+        k3_lines = []
+        retries = cas_retries(dev)
+        for entry, fn, plain_fn, step_fn in (
+                ("step", walk_sgns_step, walk_sgns_step_reference, k3),
+                ("gen", walk_sgns_gen_step, walk_sgns_gen_step_reference, k3_gen)):
+            for mode, seed in (("SR", 12345), ("truncation", None)):
+                retries.zero_()
+                kern = step_fn(fn, init, sr_seed=seed)
+                plain = step_fn(plain_fn, init, sr_seed=seed)
+                torch.cuda.synchronize()
+                err = k3_check(f"K3 {entry} {mode}", kern, plain, f32_10)
+                if entry == "step" and mode == "SR":
+                    k3_err, k3_retries = err, float(retries)
+                    k3_bound = walk_bound(walks10, pools10, float(kern[3]), d, 2,
+                                          True)
+                k3_lines.append(
+                    f"{entry} {mode}: identical {err[3]:.5f} rel_l2 {err[1]:.3e} "
+                    f"(bound {K3_L2}) f32-table distance {err[2]:.3e} "
+                    f"({err[2] / max(err[1], 1e-30):.1f}x) max_abs {err[0]:.3e} "
+                    f"CAS retries {float(retries):.0f}")
+                del kern, plain
+        k3_ms = cuda_ms(lambda: k3(walk_sgns_step, init, sr_seed=7))
+        k3_plain_ms = cuda_ms(lambda: k3(walk_sgns_step_reference, init,
+                                         sr_seed=7))
+        init32 = [t.float() for t in init]
+        k1_10_ms = cuda_ms(lambda: k3(walk_sgns_step, init32))
+        k1_10_bound = walk_bound(walks10, pools10, float(f32_10[3]), d, 4, False)
+        phase("K3", f"walk_sgns bf16 tables V={V} d={d} B={B} L={L} W={W} "
+                    f"KP={KP} R={R} G={G} (graph built in {t_ds:.1f} s): "
+                    + "; ".join(k3_lines)
+                    + f" | K3 {k3_ms:.3f} ms (plain {k3_plain_ms:.3f}, bound "
+                    f"{k3_bound[0]:.4f} by {k3_bound[1]}), K1 on f32 tables "
+                    f"{k1_10_ms:.3f} ms (bound {k1_10_bound[0]:.4f} by "
+                    f"{k1_10_bound[1]})")
+        del init32, f32_10
+        torch.cuda.empty_cache()
+
+        # 4g. P1: gather and scatter-add of N rows of a [500000, 128] table
+        reset_counts()
+        p1 = {}
+        for dtype, es in ((torch.float32, 4), (torch.bfloat16, 2)):
+            table = torch.randn((V, d), generator=gen, device=dev).to(dtype)
+            for N, reps in ((2048, 16), (262144, 4)):
+                # each timed call takes a fresh set of rows, so a set cached in
+                # L2 by the call before does not stand in for device memory
+                sets = [torch.randperm(V, generator=gen, device=dev)[:N].to(
+                    torch.int32) for _ in range(reps)]
+                idx = sets[0]
+                upd = torch.randn((N, d), generator=gen, device=dev).to(dtype)
+                rows_k, cs_k = row_gather_probe(table, idx)
+                rows_p, cs_p = row_gather_probe_reference(table, idx)
+                tk = row_scatter_probe(table.clone(), idx, upd)
+                tp = row_scatter_probe_reference(table.clone(), idx, upd)
+                torch.cuda.synchronize()
+                if not (torch.equal(rows_k, rows_p) and torch.equal(tk, tp)) or \
+                        abs(float(cs_k) - float(cs_p)) > 1e-12 * abs(float(cs_p)):
+                    raise AssertionError(f"P1 {dtype} N={N}: rows, checksum "
+                                         f"{float(cs_k)} vs {float(cs_p)} or "
+                                         f"scatter-add differ")
+                del tk, tp
+                sets64 = [i.long() for i in sets]
+
+                def per_call(fn, ids):
+                    return cuda_ms(lambda: [fn(i) for i in ids]) / len(ids)
+
+                g_ms = per_call(lambda i: row_gather_probe(table, i), sets)
+                g_plain = per_call(
+                    lambda i: row_gather_probe_reference(table, i), sets)
+                g_lib = per_call(lambda i: torch.index_select(table, 0, i),
+                                 sets64)
+                s_ms = per_call(lambda i: row_scatter_probe(table, i, upd), sets)
+                s_lib = per_call(lambda i: table.index_add_(0, i, upd), sets64)
+                dev_us = [
+                    device_us(lambda i: row_gather_probe(table, i), sets,
+                              "row_gather"),
+                    device_us(lambda i: torch.index_select(table, 0, i),
+                              sets64),
+                    device_us(lambda i: row_scatter_probe(table, i, upd),
+                              sets, "row_scatter"),
+                    device_us(lambda i: table.index_add_(0, i, upd),
+                              sets64),
+                ]
+                gb = 2.0 * N * d * es + 4.0 * N
+                sb = 3.0 * N * d * es + 4.0 * N
+                p1[(es, N)] = dict(
+                    g_ms=g_ms, g_plain=g_plain, g_lib=g_lib, s_ms=s_ms,
+                    s_lib=s_lib, dev_us=dev_us, g_bound=bound(0.0, gb, False),
+                    s_bound=bound(float(N * d), sb, False),
+                    cs_err=abs(float(cs_k) - float(cs_p)))
+                du = dev_us
+                phase("P1", f"{str(dtype)[6:]} rows of {d * es} B, N={N}: "
+                            f"checksum {float(cs_k):.6f} (plain "
+                            f"{float(cs_p):.6f}) | per call (CUDA events): "
+                            f"gather {g_ms * 1e3:.2f} us, index_select "
+                            f"{g_lib * 1e3:.2f} us, plain {g_plain * 1e3:.2f}"
+                            f" us, scatter-add {s_ms * 1e3:.2f} us, "
+                            f"index_add_ {s_lib * 1e3:.2f} us | device "
+                            f"(profiler): gather {du[0]:.2f} us = "
+                            f"{du[0] * 1e3 / N:.3f} ns/row, "
+                            f"{gb / du[0] / 1e3:.1f} GB/s "
+                            f"({gb / (du[0] * 1e-6) / HBM_BPS:.1%} of 3.35 "
+                            f"TB/s), index_select {du[1]:.2f} us, scatter-add "
+                            f"{du[2]:.2f} us ({sb / du[2] / 1e3:.1f} GB/s), "
+                            f"index_add_ {du[3]:.2f} us")
+            del table
+        p1_launches = counts()
+        torch.cuda.empty_cache()
+
+        return dict(k3_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
+                    k3_bound=k3_bound, p1=p1, p1_launches=p1_launches,
+                    retries=retries)
+
+    lv = large_v_kernels()
     torch.cuda.empty_cache()
 
     # 5. the main path, through the CLI's own entry
@@ -545,6 +844,7 @@ def main() -> int:
     plain6 = k6(fused_sgns_step_reference)
     torch.cuda.synchronize()
     k6_err = compare("K6", (emb_in, emb_out), kern6, plain6)
+    k6_bound = pairs_bound(c, x, m, pool, d, False)
     k6_ms = cuda_ms(lambda: k6(fused_sgns_step))
     k6_plain_ms = cuda_ms(lambda: k6(fused_sgns_step_reference))
     phase("K6", f"fused_sgns V={V} d={d} P={c.numel()} TP={TP} KP={KP} "
@@ -566,6 +866,7 @@ def main() -> int:
     plain7 = k7(fused_sgns_step_tied_reference)
     torch.cuda.synchronize()
     k7_err = compare("K7", (emb_in,), kern7, plain7)
+    k7_bound = pairs_bound(src[arcs], dst[arcs], ones, pool, d, True)
     k7_ms = cuda_ms(lambda: k7(fused_sgns_step_tied))
     k7_plain_ms = cuda_ms(lambda: k7(fused_sgns_step_tied_reference))
     phase("K7", f"fused_sgns_tied V={V} d={d} P={arcs.numel()} TP={TP} "
@@ -711,49 +1012,112 @@ def main() -> int:
     gen_launches = bench_run("bench gen", "kernel",
                              ("walk_sgns_gen_bf16", "star_sgns_bf16"))
 
+    # 14. the large-V path through the CLI: synthetic-10m at full width,
+    # walks per node 5, pretrain 1, outer 1 (see the module docstring)
+    reset_counts()
+    retries = lv["retries"].zero_()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer, hist = run(build_argparser().parse_args([
+        "--dataset", "synthetic-10m", "--device", "cuda", "--walks-per-node",
+        "5", "--pretrain-epochs", "1", "--outer-iters", "1", "--seed",
+        str(SEED),
+    ]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    large_launches = counts()
+    ran = ("walk_sgns_bf16_tables", "star_sgns")
+    check_launches("large-v path", large_launches, ran,
+                   tuple(k for k in kernels if k not in ran))
+    check_run("large-v path", hist, NMI_FLOOR)
+    rec = hist[-1]
+    cfg10 = trainer.cfg
+    n_starts = len(trainer.walk_starts) * cfg10.walks_per_node
+    S10 = math.ceil(n_starts / min(cfg10.batch_walks, n_starts))
+    epochs = cfg10.pretrain_epochs + cfg10.outer_iters
+    # a walk trains at most sum_t min(W, t) + min(W, L-1-t) pairs (the full
+    # window); each step wraps its B walks up to 8 * ceil(B / 8)
+    L10 = cfg10.walk_length
+    per_walk = sum(min(cfg10.window, t) + min(cfg10.window, L10 - 1 - t)
+                   for t in range(L10))
+    most = S10 * 8 * -(-cfg10.batch_walks // 8) * per_walk
+    if large_launches["walk_sgns_bf16_tables"] != epochs * S10 or not (
+            0 < rec["o1_pairs"] <= most):
+        raise AssertionError(
+            f"large-v path: {large_launches['walk_sgns_bf16_tables']} K3 "
+            f"launches for {epochs} epochs of {S10} steps, o1_pairs "
+            f"{rec['o1_pairs']} outside (0, {most}]")
+    if trainer.params.node_emb.dtype != torch.float32:
+        raise AssertionError("large-v path: params not f32 after O1")
+    emb = trainer.embeddings()
+    g10 = trainer.graph
+    if emb.shape != (g10.num_nodes, cfg10.dim) or not np.isfinite(emb).all():
+        raise AssertionError("large-v path: embeddings not finite [V, d]")
+    phase("large-v", f"synthetic-10m V={g10.num_nodes} E={g10.num_edges} K="
+                     f"{cfg10.num_communities} KP={cfg10.shared_negatives}, "
+                     f"walks per node 5, pretrain 1 + outer 1 in {wall:.1f} "
+                     f"s: gmm {rec['gmm_ms']:.1f} ms, o1 {rec['o1_ms']:.1f} "
+                     f"ms ({S10} steps), o2 {rec['o2_ms']:.1f} ms, o3 "
+                     f"{rec['o3_ms']:.1f} ms | o1_pairs {rec['o1_pairs']:.0f} "
+                     f"({rec['o1_pairs'] / rec['o1_ms'] / 1e3:.2f} M/s) "
+                     f"o2_pairs {rec['o2_pairs']:.0f} | NMI {rec['nmi']:.4f} "
+                     f"| peak device memory {peak_gb:.2f} GiB | K3 CAS "
+                     f"retries {float(retries):.0f} | launches "
+                     f"{large_launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
+              library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"come_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
+    p1, p1_launches = lv["p1"], lv["p1_launches"]
+    pg = p1[(2, 262144)]  # the path's bf16 rows, one macro step's worth
     print(json.dumps({"kernels": [
-        {"name": "walk_sgns", "route": "cuda",
-         "source": "come_tpu_torch/csrc/walk_sgns.cu",
-         "replaces": "come_tpu/ops/pallas_walk_sgns.py:91",
-         "launches": launches["walk_sgns"], "max_abs_err": k1_err[0],
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "star_sgns", "route": "cuda",
-         "source": "come_tpu_torch/csrc/star_sgns.cu",
-         "replaces": "come_tpu/ops/pallas_star_sgns.py:56",
-         "launches": launches["star_sgns"], "max_abs_err": k2_err[0],
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "fused_sgns", "route": "cuda",
-         "source": "come_tpu_torch/csrc/sgns_fused.cu",
-         "replaces": "come_tpu/ops/pallas_sgns.py:100",
-         "launches": micro_launches["fused_sgns"], "max_abs_err": k6_err[0],
-         "ms": k6_ms, "plain_ms": k6_plain_ms},
-        {"name": "fused_sgns_tied", "route": "cuda",
-         "source": "come_tpu_torch/csrc/sgns_fused.cu",
-         "replaces": "come_tpu/ops/pallas_sgns.py:185",
-         "launches": micro_launches["fused_sgns_tied"],
-         "max_abs_err": k7_err[0], "ms": k7_ms, "plain_ms": k7_plain_ms},
-        {"name": "walk_sgns_bf16", "route": "cuda",
-         "source": "come_tpu_torch/csrc/walk_sgns.cu",
-         "replaces": "come_tpu/ops/pallas_walk_sgns.py:129",
-         "launches": bench_launches["walk_sgns_bf16"],
-         "max_abs_err": k1bb_err[0], "ms": k1bb_ms,
-         "plain_ms": k1bb_plain_ms},
-        {"name": "star_sgns_bf16", "route": "cuda",
-         "source": "come_tpu_torch/csrc/star_sgns.cu",
-         "replaces": "come_tpu/ops/pallas_star_sgns.py:78",
-         "launches": bench_launches["star_sgns_bf16"],
-         "max_abs_err": k2bb_err[0], "ms": k2bb_ms,
-         "plain_ms": k2bb_plain_ms},
-        {"name": "walk_sgns_gen_bf16", "route": "cuda",
-         "source": "come_tpu_torch/csrc/walk_sgns.cu",
-         "replaces": "come_tpu/ops/pallas_walk_sgns.py:695",
-         "launches": gen_launches["walk_sgns_gen_bf16"],
-         "max_abs_err": k4b_err[0], "ms": k4b_ms, "plain_ms": k4b_plain_ms},
-        {"name": "walk_sgns_paired", "route": "cuda",
-         "source": "come_tpu_torch/csrc/walk_sgns.cu",
-         "replaces": "come_tpu/ops/pallas_walk_sgns.py:290",
-         "launches": paired_launches["walk_sgns_paired"],
-         "max_abs_err": k5_err[0], "ms": k5_ms, "plain_ms": k5_plain_ms},
+        entry("walk_sgns", "walk_sgns.cu",
+              "come_tpu/ops/pallas_walk_sgns.py:91", launches["walk_sgns"],
+              k1_err[0], k1_ms, k1_plain_ms, k1_bound),
+        entry("star_sgns", "star_sgns.cu",
+              "come_tpu/ops/pallas_star_sgns.py:56", launches["star_sgns"],
+              k2_err[0], k2_ms, k2_plain_ms, k2_bound),
+        entry("fused_sgns", "sgns_fused.cu", "come_tpu/ops/pallas_sgns.py:100",
+              micro_launches["fused_sgns"], k6_err[0], k6_ms, k6_plain_ms,
+              k6_bound),
+        entry("fused_sgns_tied", "sgns_fused.cu",
+              "come_tpu/ops/pallas_sgns.py:185",
+              micro_launches["fused_sgns_tied"], k7_err[0], k7_ms,
+              k7_plain_ms, k7_bound),
+        entry("walk_sgns_bf16", "walk_sgns.cu",
+              "come_tpu/ops/pallas_walk_sgns.py:129",
+              bench_launches["walk_sgns_bf16"], k1bb_err[0], k1bb_ms,
+              k1bb_plain_ms, k1bb_bound),
+        entry("star_sgns_bf16", "star_sgns.cu",
+              "come_tpu/ops/pallas_star_sgns.py:78",
+              bench_launches["star_sgns_bf16"], k2bb_err[0], k2bb_ms,
+              k2bb_plain_ms, k2bb_bound),
+        entry("walk_sgns_gen_bf16", "walk_sgns.cu",
+              "come_tpu/ops/pallas_walk_sgns.py:695",
+              gen_launches["walk_sgns_gen_bf16"], k4b_err[0], k4b_ms,
+              k4b_plain_ms, k4b_bound),
+        entry("walk_sgns_paired", "walk_sgns.cu",
+              "come_tpu/ops/pallas_walk_sgns.py:290",
+              paired_launches["walk_sgns_paired"], k5_err[0], k5_ms,
+              k5_plain_ms, k5_bound),
+        entry("walk_sgns_bf16_tables", "walk_sgns.cu",
+              "come_tpu/ops/pallas_walk_sgns.py:377",
+              large_launches["walk_sgns_bf16_tables"], lv["k3_err"][0],
+              lv["k3_ms"], lv["k3_plain_ms"], lv["k3_bound"]),
+        entry("row_gather_probe", "row_probe.cu", "scripts/probe_dma.py:47",
+              p1_launches["row_gather_probe"], pg["cs_err"], pg["g_ms"],
+              pg["g_plain"], pg["g_bound"], pg["g_lib"]),
+        entry("row_scatter_probe", "row_probe.cu", "scripts/probe_dma.py:47",
+              p1_launches["row_scatter_probe"], 0.0, pg["s_ms"],
+              pg["s_lib"], pg["s_bound"], pg["s_lib"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -21,6 +21,13 @@
 // bf16 values is exact in f32, so only the order of the f32 sums differs
 // from the TPU.  The rounding costs a few conversions per staged element;
 // the pass stays SIMT (a bf16 tensor-core pass is a later speed step).
+//
+// K3 (bf16 tables) reads rows through to_f32 (the stage and negative
+// kernels are templated on the table's element type; their f32 instances
+// are K1's, K2's, K6's and K7's, unchanged) and writes them with
+// rmw_bf16_pair: one read-modify-write per slot and element pair, each
+// half rounded by its own 16 random bits as the TPU's _pack_row does
+// (pallas_walk_sgns.py:76-88), or truncated without them.
 
 #pragma once
 
@@ -55,6 +62,50 @@ static __device__ __forceinline__ float mxu(float x) {
   return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
+static __device__ __forceinline__ float to_f32(float x) { return x; }
+static __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// A bijective 32-bit hash; ops/walk_sgns.py::mix32 bit for bit.
+static __device__ __forceinline__ unsigned mix32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  return x ^ (x >> 16);
+}
+
+// The stochastic-rounding key of one group of one step
+// (ops/walk_sgns.py::sr_key); sr_bits(key, counter) = mix32(counter ^ key).
+static __device__ __forceinline__ unsigned sr_key(unsigned seed, unsigned g) {
+  return mix32(seed ^ mix32(g));
+}
+
+// p[0] += u0, p[1] += u1 on a bf16 pair (4-byte aligned) as one atomic
+// read-modify-write: each half is widened exactly to f32, the update added
+// in f32 (__fadd_rn: no contraction with the caller's product), and the
+// sum written back as (bits + r) >> 16 with r < 2^16 (stochastic rounding;
+// r = 0 truncates).  Returns the number of CAS retries (other threads
+// writing the same pair in between).
+static __device__ __forceinline__ unsigned rmw_bf16_pair(__nv_bfloat16* p,
+                                                         float u0, float u1,
+                                                         unsigned r0,
+                                                         unsigned r1) {
+  unsigned* a = reinterpret_cast<unsigned*>(p);
+  unsigned old = *reinterpret_cast<volatile unsigned*>(a), retries = 0;
+  while (true) {
+    const float lo = __uint_as_float(old << 16);
+    const float hi = __uint_as_float(old & 0xffff0000u);
+    const unsigned nlo = (__float_as_uint(__fadd_rn(lo, u0)) + r0) >> 16;
+    const unsigned nhi = (__float_as_uint(__fadd_rn(hi, u1)) + r1) >> 16;
+    const unsigned prev = atomicCAS(a, old, nlo | (nhi << 16));
+    if (prev == old) return retries;
+    old = prev;
+    ++retries;
+  }
+}
+
 // log(sigmoid(x)) without overflow: min(x, 0) - log1p(exp(-|x|))
 static __device__ __forceinline__ float log_sigmoid_f(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
@@ -76,15 +127,17 @@ static __device__ void block_add(float v, double* dst) {
   __syncthreads();
 }
 
-// cneg[k] = table[pool[k]]; dneg[k] = 0.   grid KP, block 128.
-static __global__ void stage_pool_kernel(const float* __restrict__ table,
+// cneg[k] = table[pool[k]] (widened to f32); dneg[k] = 0.
+// grid KP, block 128.
+template <typename T>
+static __global__ void stage_pool_kernel(const T* __restrict__ table,
                                          const int* __restrict__ pool,
                                          float* __restrict__ cneg,
                                          float* __restrict__ dneg, int d) {
   const int k = blockIdx.x;
   const size_t src = (size_t)pool[k] * d, dst = (size_t)k * d;
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    cneg[dst + j] = table[src + j];
+    cneg[dst + j] = to_f32(table[src + j]);
     dneg[dst + j] = 0.0f;
   }
 }
@@ -99,6 +152,36 @@ static __global__ void apply_pool_kernel(float* __restrict__ table,
   const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
   for (int j = threadIdx.x; j < d; j += blockDim.x)
     atomicAdd(&table[dst + j], -lr * dneg[src + j]);
+}
+
+// K3's pool write at a block end: table[pool[k]] += -lr * dneg[k] as one
+// rounded RMW per element pair (rmw_bf16_pair), pool rows in any order
+// (a row drawn twice is rounded once per draw).  SR takes the low 16 bits
+// of sr_bits(sr_key(seed, g), (GROUP + k) * d + j): the pool has its own
+// counter range past the group's 1024 slots (the TPU reads its 1024-row
+// draw buffer at row k, pallas_walk_sgns.py:418 against :603, past its end
+// for KP > 1024).  Adds the CAS retries to *retries.  grid KP, block 64.
+template <bool SR>
+static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* __restrict__ table,
+                                              const int* __restrict__ pool,
+                                              const float* __restrict__ dneg,
+                                              int d, float lr, unsigned seed,
+                                              int g, double* retries) {
+  const int k = blockIdx.x;
+  const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
+  const unsigned key = SR ? sr_key(seed, (unsigned)g) : 0u;
+  unsigned n = 0;
+  for (int j = 2 * threadIdx.x; j < d; j += 2 * blockDim.x) {
+    unsigned r0 = 0, r1 = 0;
+    if (SR) {
+      const unsigned c = (unsigned)((GROUP + k) * d + j);
+      r0 = mix32(c ^ key) & 0xffffu;
+      r1 = mix32((c + 1) ^ key) & 0xffffu;
+    }
+    n += rmw_bf16_pair(table + dst + j, __fmul_rn(dneg[src + j], -lr),
+                       __fmul_rn(dneg[src + j + 1], -lr), r0, r1);
+  }
+  if (n) atomicAdd(retries, (double)n);
 }
 
 // Shared-memory floats of negative_kernel for width d.
@@ -119,9 +202,9 @@ static inline size_t negative_smem_bytes(int d) {
 // Thread tiles: scores 8 rows x 4 columns; dphi 8 rows x 8 columns and
 // dneg 4 rows x 8 columns per 128-column chunk of d.  Rows are stored with
 // stride d+1 so column walks by neighbouring threads hit distinct banks.
-template <bool BF16>
+template <bool BF16, typename T>
 static __global__ void __launch_bounds__(THREADS)
-negative_kernel(const float* __restrict__ table, const int* __restrict__ ids,
+negative_kernel(const T* __restrict__ table, const int* __restrict__ ids,
                 const float* __restrict__ nt, const float* __restrict__ cneg,
                 int d, int KP, float negw, float* __restrict__ dphi,
                 float* __restrict__ dneg, double* __restrict__ stats) {
@@ -137,7 +220,7 @@ negative_kernel(const float* __restrict__ table, const int* __restrict__ ids,
 
   for (int idx = threadIdx.x; idx < BLK * d; idx += THREADS) {
     const int i = idx / d, k = idx - i * d;
-    ph[i * ds + k] = mxu<BF16>(table[(size_t)ids[base + i] * d + k]);
+    ph[i * ds + k] = mxu<BF16>(to_f32(table[(size_t)ids[base + i] * d + k]));
   }
   for (int idx = threadIdx.x; idx < KC * d; idx += THREADS) {
     const int j = idx / d, k = idx - j * d;

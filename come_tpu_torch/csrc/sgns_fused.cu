@@ -115,7 +115,7 @@ static int fused_sgns(float* emb_in, float* emb_out, const int* c,
   if (d > MAX_DIM || d < 1 || TP < 1 || KP < 1) return (int)cudaErrorInvalidValue;
   const size_t neg_smem = negative_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(
-      negative_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)neg_smem);
+      negative_kernel<false, float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)neg_smem);
   if (e != cudaSuccess) return (int)e;
   const int chunks = (TP + BLK - 1) / BLK;
   const dim3 neg_grid(chunks, (KP + KC - 1) / KC);
@@ -127,7 +127,7 @@ static int fused_sgns(float* emb_in, float* emb_out, const int* c,
         emb_in, emb_out, c + off, x + off, m + off, d, TP, dphi, dcpos, nt,
         stats);
     COME_CHECK_LAUNCH();
-    negative_kernel<false><<<neg_grid, THREADS, neg_smem, stream>>>(
+    negative_kernel<false, float><<<neg_grid, THREADS, neg_smem, stream>>>(
         emb_in, c + off, nt, cneg, d, KP, negw, dphi, dneg, stats);
     COME_CHECK_LAUNCH();
     fused_scatter_kernel<<<TP, 128, 0, stream>>>(

@@ -124,7 +124,7 @@ static int star_groups(float* emb, const int* slots, const int* meta,
       star_pos_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pos_smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(negative_kernel<BF16>,
+  e = cudaFuncSetAttribute(negative_kernel<BF16, float>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)neg_smem);
   if (e != cudaSuccess) return (int)e;
@@ -139,7 +139,7 @@ static int star_groups(float* emb, const int* slots, const int* meta,
     star_pos_kernel<BF16><<<NBLK, THREADS, pos_smem, stream>>>(
         emb, sg, meta + (size_t)g * GROUP, d, dphi, nt, stats);
     COME_CHECK_LAUNCH();
-    negative_kernel<BF16><<<neg_grid, THREADS, neg_smem, stream>>>(
+    negative_kernel<BF16, float><<<neg_grid, THREADS, neg_smem, stream>>>(
         emb, sg, nt, cneg, d, KP, negw, dphi, dneg, stats);
     COME_CHECK_LAUNCH();
     star_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb, sg, dphi, nt, d, lr);

@@ -1,9 +1,8 @@
-// Walk-banded SGNS macro step (O1, and O2 in paired mode) for Hopper, f32
-// tables.
+// Walk-banded SGNS macro step (O1, and O2 in paired mode) for Hopper.
 //
 // Replaces the Pallas kernel come_tpu/ops/pallas_walk_sgns.py::_walk_kernel
-// as called by fused_walk_sgns_step and fused_walk_sgns_gen_step with f32
-// tables, in the modes the TPU kernel has for them:
+// as called by fused_walk_sgns_step and fused_walk_sgns_gen_step, in the
+// modes the TPU kernel has:
 //   * K1   the banded skip-gram step (walks given);
 //   * K1b  K1 with mxu_bf16=True: every product operand rounded to bf16
 //          (phi_m, ctx_blk_m, g_blk_m at :266, :311, :333, and the
@@ -13,7 +12,22 @@
 //          paired positive pass is elementwise f32 even with mxu_bf16, so
 //          PAIRED rounds only in the negative pass;
 //   * K4   GEN_WALKS (:157-208): the walks are generated from the CSR and
-//          an input bit matrix, then the group loop runs on them.
+//          an input bit matrix, then the group loop runs on them;
+//   * K3   TABLES_BF16/SR (:60-88, :129, :219-253, :377-419, :531-553):
+//          bf16 [V, d] tables.  Rows are widened exactly to f32 where they
+//          are read; the arithmetic is K1b's (mxu_t is bf16 whenever the
+//          tables are, :129), so the phi/ctx/pool roundings are no-ops and
+//          g is rounded as in K1b.  Each real slot writes its row once:
+//          new = f32(old) + (-lr * d), written as (bits(new) + r) >> 16,
+//          r the low 16 bits of the slot's draw for the node table and the
+//          high 16 for the ctx table (SR), or r = 0 (truncation, the TPU's
+//          interpret path).  The pool's write at the block end is rounded
+//          the same way.  Duplicate rows in a group take one rounded RMW
+//          per occurrence, as the TPU's sequential slot loop does, here by
+//          a 32-bit atomicCAS per bf16 pair in any order.  The draws are a
+//          counter hash (sgns_common.cuh: mix32), not the TPU's PRNG, so
+//          the plain version rounds alike.  The TPU's u32 row-pair packing
+//          exists only for VMEM indexing and is not ported.
 // Semantics are the TPU kernel's, group by group in order: for each group
 // of 8 walks (1024 slots, walk j at slots j*128 .. j*128+L-1) the rows are
 // read from the tables as the previous group left them, and
@@ -34,15 +48,17 @@
 // What bounds it on the H100: the negative pass (3 x 128 x KP x d
 // multiply-adds per walk) is compute; the positive band is at most 2W
 // dot products per centre and is small; the gathers and the scatter are
-// row traffic; walk generation is 79 dependent CSR loads per walk.  This
-// first design computes only the band entries the mask keeps (warp per
-// centre, lanes across d), runs the negative pass as a tiled SIMT product
+// row traffic (halved by K3's bf16 rows); walk generation is 79 dependent
+// CSR loads per walk.  This first design computes only the band entries
+// the mask keeps (warp per centre, lanes across d), runs the negative pass as a tiled SIMT product
 // over 8 x ceil(KP/64) CTAs per group (bf16 by rounding its operands, not
 // on tensor cores), and keeps the group-sequential order with
 // stream-ordered launches; the host makes one call per macro step and the
 // loop over groups runs here.  The walks do not depend on the tables, so
 // one launch generates every group's walks (one thread per walk) before the
 // group loop, which is what the TPU's per-group generation computes.
+
+#include <type_traits>
 
 #include "sgns_common.cuh"
 
@@ -56,11 +72,12 @@ static inline size_t walk_pos_smem_bytes(int d, int W) {
 // Writes (overwrites) dphi, dctx and nt for the walk's 128 slots and adds
 // the positive loss and the pair count to stats.  BF16 rounds the staged
 // rows and each g (not with PAIRED: the TPU's paired pass is f32); PAIRED
-// trains only u = t^1 (W must be 1, wrow is not read).
-template <bool BF16, bool PAIRED>
+// trains only u = t^1 (W must be 1, wrow is not read).  T is the tables'
+// element type.
+template <bool BF16, bool PAIRED, typename T>
 static __global__ void __launch_bounds__(THREADS)
-walk_pos_kernel(const float* __restrict__ emb_in,
-                const float* __restrict__ emb_out,
+walk_pos_kernel(const T* __restrict__ emb_in,
+                const T* __restrict__ emb_out,
                 const int* __restrict__ walks, const int* __restrict__ wrow,
                 int d, int L, int W, float* __restrict__ dphi,
                 float* __restrict__ dctx, float* __restrict__ nt,
@@ -77,8 +94,8 @@ walk_pos_kernel(const float* __restrict__ emb_in,
   for (int idx = threadIdx.x; idx < BLK * d; idx += THREADS) {
     const int t = idx / d, k = idx - t * d;
     const size_t row = (size_t)walks[base + t] * d + k;
-    phi[t * ds + k] = mxu<RND>(emb_in[row]);
-    ctx[t * ds + k] = mxu<RND>(emb_out[row]);
+    phi[t * ds + k] = mxu<RND>(to_f32(emb_in[row]));
+    ctx[t * ds + k] = mxu<RND>(to_f32(emb_out[row]));
   }
   for (int idx = threadIdx.x; idx < BLK * bw; idx += THREADS) gb[idx] = 0.0f;
   __syncthreads();
@@ -172,6 +189,40 @@ static __global__ void walk_scatter_kernel(float* __restrict__ emb_in,
   }
 }
 
+// K3's slot writes: for each real slot t of group g (position < L), one
+// rounded RMW of emb_in[v] by -lr*dphi[t] and of emb_out[v] by -lr*dctx[t]
+// per element pair (rmw_bf16_pair; the products by __fmul_rn, as the TPU's
+// dphi * (-lr) at :365).  SR draws 32 bits per (t, k) from
+// sr_bits(sr_key(seed, g), t*d + k): the low 16 round the node write, the
+// high 16 the ctx write (:377-394).  Adds the CAS retries to *retries.
+// grid GROUP, block 64.
+template <bool SR>
+static __global__ void walk_scatter_bf16_kernel(
+    __nv_bfloat16* __restrict__ emb_in, __nv_bfloat16* __restrict__ emb_out,
+    const int* __restrict__ walks, const float* __restrict__ dphi,
+    const float* __restrict__ dctx, int d, int L, float lr, unsigned seed,
+    int g, double* retries) {
+  const int t = blockIdx.x;
+  if (t % BLK >= L) return;
+  const size_t dst = (size_t)walks[t] * d, src = (size_t)t * d;
+  const unsigned key = SR ? sr_key(seed, (unsigned)g) : 0u;
+  unsigned n = 0;
+  for (int k = 2 * threadIdx.x; k < d; k += 2 * blockDim.x) {
+    unsigned b0 = 0, b1 = 0;
+    if (SR) {
+      const unsigned c = (unsigned)(t * d + k);
+      b0 = mix32(c ^ key);
+      b1 = mix32((c + 1) ^ key);
+    }
+    n += rmw_bf16_pair(emb_in + dst + k, __fmul_rn(dphi[src + k], -lr),
+                       __fmul_rn(dphi[src + k + 1], -lr), b0 & 0xffffu,
+                       b1 & 0xffffu);
+    n += rmw_bf16_pair(emb_out + dst + k, __fmul_rn(dctx[src + k], -lr),
+                       __fmul_rn(dctx[src + k + 1], -lr), b0 >> 16, b1 >> 16);
+  }
+  if (n) atomicAdd(retries, (double)n);
+}
+
 // Walk generation (TPU GEN_WALKS, pallas_walk_sgns.py:182-201).  One thread
 // per walk w of nwalks: slot w*128 holds starts[w]; hop t (1 <= t < L)
 // reads b = bits[w*128 + t] as 32 bits and moves from v to
@@ -205,22 +256,27 @@ static __global__ void walk_gen_kernel(const int* __restrict__ starts,
   }
 }
 
-// The group loop shared by both C entries.
-template <bool BF16, bool PAIRED>
-static int walk_groups(float* emb_in, float* emb_out, const int* walks,
+// The group loop shared by both C entries.  T = float: K1/K1b/K5 (atomic
+// f32 scatter); T = __nv_bfloat16: K3 (rounded RMW scatter, SR with a
+// per-step seed).  `retries` collects K3's CAS retries.
+template <bool BF16, bool PAIRED, typename T, bool SR>
+static int walk_groups(T* emb_in, T* emb_out, const int* walks,
                        const int* wrow, const int* pools, double* stats,
                        float* cneg, float* dneg, float* dphi, float* dctx,
                        float* nt, int d, int G, int L, int W, int KP, int R,
-                       float lr, float negw, cudaStream_t stream) {
-  if (d > MAX_DIM || L > BLK || W < 1 || R < 1 || (PAIRED && (W != 1 || L % 2)))
+                       float lr, float negw, unsigned seed, double* retries,
+                       cudaStream_t stream) {
+  constexpr bool TB16 = !std::is_same<T, float>::value;
+  if (d > MAX_DIM || L > BLK || W < 1 || R < 1 || (PAIRED && (W != 1 || L % 2)) ||
+      (TB16 && d % 2))
     return (int)cudaErrorInvalidValue;
   const size_t pos_smem = walk_pos_smem_bytes(d, W);
   const size_t neg_smem = negative_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(
-      walk_pos_kernel<BF16, PAIRED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)pos_smem);
+      walk_pos_kernel<BF16, PAIRED, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pos_smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(negative_kernel<BF16>,
+  e = cudaFuncSetAttribute(negative_kernel<BF16, T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)neg_smem);
   if (e != cudaSuccess) return (int)e;
@@ -229,38 +285,62 @@ static int walk_groups(float* emb_in, float* emb_out, const int* walks,
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* wg = walks + (size_t)g * GROUP;
     if (g % R == 0) {
-      stage_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
+      stage_pool_kernel<T><<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
       COME_CHECK_LAUNCH();
     }
-    walk_pos_kernel<BF16, PAIRED><<<NBLK, THREADS, pos_smem, stream>>>(
+    walk_pos_kernel<BF16, PAIRED, T><<<NBLK, THREADS, pos_smem, stream>>>(
         emb_in, emb_out, wg, PAIRED ? nullptr : wrow + (size_t)g * GROUP, d,
         L, W, dphi, dctx, nt, stats);
     COME_CHECK_LAUNCH();
-    negative_kernel<BF16><<<neg_grid, THREADS, neg_smem, stream>>>(
+    negative_kernel<BF16, T><<<neg_grid, THREADS, neg_smem, stream>>>(
         emb_in, wg, nt, cneg, d, KP, negw, dphi, dneg, stats);
     COME_CHECK_LAUNCH();
-    walk_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb_in, emb_out, wg, dphi,
-                                                   dctx, d, L, lr);
-    COME_CHECK_LAUNCH();
-    if (g % R == R - 1 || g == G - 1) {
-      apply_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, dneg, d, lr);
+    const bool end = g % R == R - 1 || g == G - 1;
+    if constexpr (TB16) {
+      walk_scatter_bf16_kernel<SR><<<GROUP, 64, 0, stream>>>(
+          emb_in, emb_out, wg, dphi, dctx, d, L, lr, seed, g, retries);
       COME_CHECK_LAUNCH();
+      if (end) {
+        apply_pool_bf16_kernel<SR><<<KP, 64, 0, stream>>>(
+            emb_out, pool, dneg, d, lr, seed, g, retries);
+        COME_CHECK_LAUNCH();
+      }
+    } else {
+      walk_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb_in, emb_out, wg,
+                                                     dphi, dctx, d, L, lr);
+      COME_CHECK_LAUNCH();
+      if (end) {
+        apply_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, dneg, d, lr);
+        COME_CHECK_LAUNCH();
+      }
     }
   }
   return 0;
 }
 
-static int walk_groups_mode(int bf16, int paired, float* emb_in,
-                            float* emb_out, const int* walks, const int* wrow,
-                            const int* pools, double* stats, float* cneg,
-                            float* dneg, float* dphi, float* dctx, float* nt,
-                            int d, int G, int L, int W, int KP, int R,
-                            float lr, float negw, cudaStream_t stream) {
-#define COME_WALK_GROUPS(B, P)                                              \
-  walk_groups<B, P>(emb_in, emb_out, walks, wrow, pools, stats, cneg, dneg, \
-                    dphi, dctx, nt, d, G, L, W, KP, R, lr, negw, stream)
-  if (paired) return bf16 ? COME_WALK_GROUPS(true, true) : COME_WALK_GROUPS(false, true);
-  return bf16 ? COME_WALK_GROUPS(true, false) : COME_WALK_GROUPS(false, false);
+// Dispatch on the runtime modes: tables_bf16 (K3, with sr) excludes
+// paired and implies K1b's rounding.
+static int walk_groups_mode(int bf16, int paired, int tables_bf16, int sr,
+                            void* emb_in, void* emb_out, const int* walks,
+                            const int* wrow, const int* pools, double* stats,
+                            double* retries, float* cneg, float* dneg,
+                            float* dphi, float* dctx, float* nt, int d, int G,
+                            int L, int W, int KP, int R, float lr, float negw,
+                            unsigned seed, cudaStream_t stream) {
+#define COME_WALK_GROUPS(B, P, T, S)                                          \
+  walk_groups<B, P, T, S>((T*)emb_in, (T*)emb_out, walks, wrow, pools, stats, \
+                          cneg, dneg, dphi, dctx, nt, d, G, L, W, KP, R, lr,  \
+                          negw, seed, retries, stream)
+  if (tables_bf16) {
+    if (paired) return (int)cudaErrorInvalidValue;
+    return sr ? COME_WALK_GROUPS(true, false, __nv_bfloat16, true)
+              : COME_WALK_GROUPS(true, false, __nv_bfloat16, false);
+  }
+  if (paired)
+    return bf16 ? COME_WALK_GROUPS(true, true, float, false)
+                : COME_WALK_GROUPS(false, true, float, false);
+  return bf16 ? COME_WALK_GROUPS(true, false, float, false)
+              : COME_WALK_GROUPS(false, false, float, false);
 #undef COME_WALK_GROUPS
 }
 
@@ -270,48 +350,57 @@ using namespace come;
 
 // One walk-kernel macro step over G groups.  All buffers are device
 // pointers:
-//   emb_in, emb_out [V, d] f32 (updated in place)
+//   emb_in, emb_out [V, d] f32, or bf16 with tables_bf16 (updated in place)
 //   walks           [G * 1024] i32 (walk j of group g at g*1024 + j*128)
 //   wrow            [G * 1024] i32 window draws (not read when paired)
 //   pools           [ceil(G / R), KP] i32
 //   stats           [2] f64, accumulates (loss, pairs)
+//   retries         [1] f64, accumulates K3's CAS retries (not read by K1,
+//                   K1b, K5)
 //   cneg, dneg      [KP, d] f32 scratch
 //   dphi, dctx      [1024, d] f32 scratch;  nt [1024] f32 scratch
-// bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even).
-// Returns 0 or the first CUDA error code.  Launches on `stream`, does not
-// synchronise and allocates nothing.
-extern "C" int come_walk_sgns_step(float* emb_in, float* emb_out,
+// bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even),
+// tables_bf16 != 0 K3 (d even; stochastic rounding from sr_seed when
+// sr != 0, else truncation).  Returns 0 or the first CUDA error code.
+// Launches on `stream`, does not synchronise and allocates nothing.
+extern "C" int come_walk_sgns_step(void* emb_in, void* emb_out,
                                    const int* walks, const int* wrow,
                                    const int* pools, double* stats,
-                                   float* cneg, float* dneg, float* dphi,
-                                   float* dctx, float* nt, int d, int G, int L,
-                                   int W, int KP, int R, int bf16, int paired,
-                                   float lr, float negw, void* stream_ptr) {
-  return walk_groups_mode(bf16, paired, emb_in, emb_out, walks, wrow, pools,
-                          stats, cneg, dneg, dphi, dctx, nt, d, G, L, W, KP,
-                          R, lr, negw, (cudaStream_t)stream_ptr);
+                                   double* retries, float* cneg, float* dneg,
+                                   float* dphi, float* dctx, float* nt, int d,
+                                   int G, int L, int W, int KP, int R,
+                                   int bf16, int paired, int tables_bf16,
+                                   int sr, unsigned sr_seed, float lr,
+                                   float negw, void* stream_ptr) {
+  return walk_groups_mode(bf16, paired, tables_bf16, sr, emb_in, emb_out,
+                          walks, wrow, pools, stats, retries, cneg, dneg,
+                          dphi, dctx, nt, d, G, L, W, KP, R, lr, negw,
+                          sr_seed, (cudaStream_t)stream_ptr);
 }
 
 // K4: generate the walks of G groups into `slots` [G * 1024] i32 from
 // starts [G * 8] i32, bits [G * 1024] u32 and the CSR (indptr [V + 1],
-// indices [E] i32), then run the group loop on them (bf16 as above).
-// Other buffers as come_walk_sgns_step.
-extern "C" int come_walk_sgns_gen_step(float* emb_in, float* emb_out,
+// indices [E] i32), then run the group loop on them (bf16, tables_bf16,
+// sr as above).  Other buffers as come_walk_sgns_step.
+extern "C" int come_walk_sgns_gen_step(void* emb_in, void* emb_out,
                                        const int* starts, const unsigned* bits,
                                        const int* indptr, const int* indices,
                                        int* slots, const int* wrow,
                                        const int* pools, double* stats,
-                                       float* cneg, float* dneg, float* dphi,
-                                       float* dctx, float* nt, int d, int G,
-                                       int L, int W, int KP, int R, int bf16,
-                                       float lr, float negw, void* stream_ptr) {
+                                       double* retries, float* cneg,
+                                       float* dneg, float* dphi, float* dctx,
+                                       float* nt, int d, int G, int L, int W,
+                                       int KP, int R, int bf16,
+                                       int tables_bf16, int sr,
+                                       unsigned sr_seed, float lr, float negw,
+                                       void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (L < 1 || L > BLK) return (int)cudaErrorInvalidValue;
   const int nwalks = G * NBLK;
   walk_gen_kernel<<<(nwalks + 127) / 128, 128, 0, stream>>>(
       starts, bits, indptr, indices, nwalks, L, slots);
   COME_CHECK_LAUNCH();
-  return walk_groups_mode(bf16, 0, emb_in, emb_out, slots, wrow, pools, stats,
-                          cneg, dneg, dphi, dctx, nt, d, G, L, W, KP, R, lr,
-                          negw, stream);
+  return walk_groups_mode(bf16, 0, tables_bf16, sr, emb_in, emb_out, slots,
+                          wrow, pools, stats, retries, cneg, dneg, dphi, dctx,
+                          nt, d, G, L, W, KP, R, lr, negw, sr_seed, stream);
 }

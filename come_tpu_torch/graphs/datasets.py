@@ -3,13 +3,15 @@
 Port of ``come_tpu/graphs/datasets.py``: Karate from its adjacency list in
 ``data/Karate/``; BlogCatalog, Wikipedia, Flickr and DBLP from their
 ``.mat`` files when those are present under ``data/``, else from the
-offline SBM stand-in at the published node/community counts (the same
-sizes and seeds as the JAX package, so both train on the identical graph).
+offline SBM stand-in at the published node/community counts; and the
+synthetic-10m stand-in (BASELINE config 5).  The same sizes and seeds as the
+JAX package, so both train on the identical graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -85,16 +87,25 @@ def _load_mat_or_synthetic(name: str, seed: int = 0) -> Dataset:
     return Dataset(f"{name}-synthetic", g, labels, spec["communities"])
 
 
-DATASETS = ["karate", *sorted(_MAT_SPECS)]
+@functools.cache
+def _load_synthetic_10m(seed: int = 0) -> Dataset:
+    """BASELINE config 5: V = 500 000, 64 communities, ~10M edges
+    (``come_tpu/graphs/datasets.py:96-101``).  Built once per process: the
+    SBM takes seconds to a minute of host time, and nothing writes to a
+    Dataset's arrays."""
+    g, labels = sbm_graph(
+        500_000, 64, seed=seed, avg_degree=40.0, p_in=0.1, p_out=0.002
+    )
+    return Dataset("synthetic-10m", g, labels, 64)
+
+
+DATASETS = ["karate", *sorted(_MAT_SPECS), "synthetic-10m"]
 
 
 def get_dataset(name: str) -> Dataset:
     key = name.lower().replace("-synthetic", "")
     if key == "synthetic-10m":
-        raise NotImplementedError(
-            "the synthetic-10m stand-in is not ported yet (ROADMAP Queue 1, "
-            "'Generators and synthetic-10m')"
-        )
+        return _load_synthetic_10m()
     if key == "karate":
         return _load_karate()
     if key not in _MAT_SPECS:

@@ -67,6 +67,9 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _o1_tier(t) -> str:
     b, bf16 = ("b", ", bf16") if t.cfg.walk_kernel_bf16 else ("", "")
+    if t.o1_table_dtype == torch.bfloat16:
+        gen = "K4 + " if t.o1_gen else ""
+        return f"walk kernel on bf16 tables ({gen}K3, SR writes)"
     if t.o1_gen:
         return f"walk kernel with in-kernel walks (K4 + K1{b}{bf16})"
     if t.o1_walk_kernel:
@@ -124,6 +127,9 @@ def run(args: argparse.Namespace):
     emit = (lambda s: print(json.dumps({"log": s}))) if args.json else print
     history = trainer.train(labels=ds.single_labels, log=emit)
     print(f"trained in {time.perf_counter() - t0:.1f}s")
+    if device.type == "cuda":
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
     if history and "nmi" in history[-1]:
         print(f"final NMI: {history[-1]['nmi']:.4f}")
     return trainer, history

@@ -30,15 +30,19 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
-# C signatures (csrc/walk_sgns.cu, star_sgns.cu, sgns_fused.cu): every
-# pointer and the stream as c_void_p, ints as c_int, scalars as c_float.
+# C signatures (csrc/walk_sgns.cu, star_sgns.cu, sgns_fused.cu,
+# row_probe.cu): every pointer and the stream as c_void_p, ints as c_int,
+# seeds as c_uint32, scalars as c_float.
 SIGNATURES = {
-    "come_walk_sgns_step": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
-    "come_walk_sgns_gen_step": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
+    "come_walk_sgns_step": [_P] * 12 + [_I] * 10 + [_U, _F, _F, _P],
+    "come_walk_sgns_gen_step": [_P] * 16 + [_I] * 9 + [_U, _F, _F, _P],
     "come_star_sgns_step": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     "come_fused_sgns_step": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
     "come_fused_sgns_step_tied": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
+    "come_row_gather": [_P] * 4 + [_I] * 3 + [_P],
+    "come_row_scatter_add": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -7,7 +7,10 @@ O1/O2 dispatch:
   ``walk_kernel_bf16``) when the JAX trainer's gates allow it: shared
   negatives, ``walk_length <= 128``, no subsampling, and a graph inside the
   collision envelope.  With ``walk_gen="kernel"``, no restarts and fresh
-  walks every epoch, the walks are generated inside the kernel (K4).
+  walks every epoch, the walks are generated inside the kernel (K4).  Past
+  the JAX package's 48 MiB f32-table line, with
+  ``walk_kernel_bf16_tables``, the kernel runs on bf16 working tables (K3,
+  :func:`o1_table_dtype`).
   Otherwise the micro-batched tier: window pairs from ``skipgram_pairs``,
   applied in micro-steps of ``batch_pairs`` through K6 (``ops/sgns.py``,
   shared negatives) or the per-pair step (``losses/sgns.py``).
@@ -39,6 +42,7 @@ naming their ROADMAP item.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Callable
@@ -106,6 +110,40 @@ def _in_envelope(slots_per_unit: float, num_nodes: int) -> bool:
     return 2.0 * slots_per_unit / max(num_nodes, 1) <= 16.0
 
 
+def o1_on_walk_kernel(num_nodes: int, cfg: ComEConfig) -> bool:
+    """Whether O1 takes the walk kernel (``_use_walk_kernel``,
+    come_tpu/trainer/come.py:149-180, minus its VMEM gate): shared
+    negatives, walks of at most 128, no subsampling, and the collision
+    envelope."""
+    return (
+        cfg.negative_mode == "shared" and cfg.walk_length <= 128
+        and cfg.down_sample <= 0
+        and _in_envelope(NW * cfg.walk_length * (cfg.window + 1) / 2,
+                         num_nodes)
+    )
+
+
+# f32 walk tables past this many bytes go bf16 (the JAX package's VMEM tier)
+WALK_F32_TABLE_BYTES = 48 * 1024 * 1024
+
+
+def o1_table_dtype(num_nodes: int, dim: int, cfg: ComEConfig) -> torch.dtype:
+    """The O1 walk tables' dtype: bfloat16 (K3) iff O1 takes the walk
+    kernel, ``walk_kernel_bf16_tables`` is set and f32 tables would pass
+    ``WALK_F32_TABLE_BYTES``; float32 otherwise.
+
+    Mirrors ``ComETrainer._walk_table_dtype`` (come_tpu/trainer/
+    come.py:204-226), which picks bf16 by the same 48 MiB line where bf16
+    tables still fit the TPU's VMEM, V in (98 304, 196 608] at d = 128,
+    and leaves the kernel past that.  The card runs one kernel at every V
+    (ROADMAP decision 1), so bf16 tables carry on above 196 608."""
+    big = num_nodes * dim * 4 > WALK_F32_TABLE_BYTES
+    if o1_on_walk_kernel(num_nodes, cfg) and cfg.walk_kernel_bf16_tables \
+            and big:
+        return torch.bfloat16
+    return torch.float32
+
+
 class ComETrainer:
     """Single-device trainer.  ``device`` is where the tables and every
     kernel live ("cuda" or "cpu"; on the CPU the kernels' plain versions
@@ -166,6 +204,7 @@ class ComETrainer:
         self._history: list[dict] = []
         self._walk_cache: torch.Tensor | None = None
         self._o1_epochs_done = 0
+        self._o1_work: tuple[torch.Tensor, torch.Tensor] | None = None
         self._star_rows: tuple[torch.Tensor, torch.Tensor] | None = None
         self._und_edges: tuple[torch.Tensor, torch.Tensor] | None = None
         self.last_o1_pairs = 0.0
@@ -181,11 +220,8 @@ class ComETrainer:
         # that fit JAX's banded envelope (:182-202).
         V = graph.num_nodes
         shared = config.negative_mode == "shared"
-        self.o1_walk_kernel = (
-            shared and config.walk_length <= 128 and config.down_sample <= 0
-            and _in_envelope(NW * config.walk_length * (config.window + 1)
-                             / 2, V)
-        )
+        self.o1_walk_kernel = o1_on_walk_kernel(V, config)
+        self.o1_table_dtype = o1_table_dtype(V, config.dim, config)
         self.o2_star = (
             shared and config.o2_mode in ("auto", "star")
             and _in_envelope(NWL, V)
@@ -238,18 +274,50 @@ class ComETrainer:
         )
         return wrow, pools
 
+    @contextlib.contextmanager
+    def _o1_tables(self):
+        """The walk kernel's O1 tables: the f32 params, or with bf16 tables
+        (K3) working copies made by round to nearest even, as the JAX
+        package's ``.astype`` at the start of an O1 epoch
+        (``trainer/come.py:528-536``, gen mode ``:413-419``), and copied
+        back into the f32 params on exit (``:638-642``, ``:448-452``).
+        GMM, O2 and O3 read only the f32 params.  Re-entrant: a step inside
+        an epoch uses the epoch's copies."""
+        p = self.params
+        if self._o1_work is not None:
+            yield self._o1_work
+            return
+        if self.o1_table_dtype != torch.bfloat16:
+            yield p.node_emb, p.ctx_emb
+            return
+        self._o1_work = (p.node_emb.to(torch.bfloat16),
+                         p.ctx_emb.to(torch.bfloat16))
+        try:
+            yield self._o1_work
+        finally:
+            p.node_emb.copy_(self._o1_work[0])
+            p.ctx_emb.copy_(self._o1_work[1])
+            self._o1_work = None
+
+    def _sr_seed(self) -> int | None:
+        """A step's stochastic-rounding seed for bf16 tables, drawn on the
+        host so no step waits for the card; None for f32 tables."""
+        if self.o1_table_dtype != torch.bfloat16:
+            return None
+        return int(torch.randint(2**32, (), generator=self.host_gen))
+
     def o1_step(self, walks: torch.Tensor, wrow: torch.Tensor,
                 pools: torch.Tensor):
         """One O1 macro step from explicit walks [B, L], window draws and
         pools (``trainer/come.py:549-590``, walk-kernel branch).  Returns
         (loss, n_pairs) as device tensors."""
         cfg = self.cfg
-        p = self.params
-        _, _, loss, npairs = walk_sgns_step(
-            p.node_emb, p.ctx_emb, walks, wrow, pools, self.lr(), self.negw,
-            window=cfg.window, pool_refresh=cfg.walk_pool_refresh,
-            mxu_bf16=cfg.walk_kernel_bf16,
-        )
+        with self._o1_tables() as (ne, ce):
+            _, _, loss, npairs = walk_sgns_step(
+                ne, ce, walks, wrow, pools, self.lr(), self.negw,
+                window=cfg.window, pool_refresh=cfg.walk_pool_refresh,
+                mxu_bf16=cfg.walk_kernel_bf16, sr_seed=self._sr_seed(),
+            )
         self.words_seen += float(walks.shape[0] * cfg.walk_length)
         return loss, npairs
 
@@ -266,14 +334,14 @@ class ComETrainer:
         ``trainer/come.py:421-443``): ``starts`` [B], ``bits`` [G*1024]
         int32.  Returns (loss, n_pairs) as device tensors."""
         cfg = self.cfg
-        p = self.params
-        _, _, loss, npairs = walk_sgns_gen_step(
-            p.node_emb, p.ctx_emb, starts, bits, self.csr.indptr,
-            self.csr.indices, wrow, pools, self.lr(), self.negw,
-            walk_length=cfg.walk_length, window=cfg.window,
-            pool_refresh=cfg.walk_pool_refresh,
-            mxu_bf16=cfg.walk_kernel_bf16,
-        )
+        with self._o1_tables() as (ne, ce):
+            _, _, loss, npairs = walk_sgns_gen_step(
+                ne, ce, starts, bits, self.csr.indptr, self.csr.indices,
+                wrow, pools, self.lr(), self.negw,
+                walk_length=cfg.walk_length, window=cfg.window,
+                pool_refresh=cfg.walk_pool_refresh,
+                mxu_bf16=cfg.walk_kernel_bf16, sr_seed=self._sr_seed(),
+            )
         self.words_seen += float(starts.shape[0] * cfg.walk_length)
         return loss, npairs
 
@@ -397,14 +465,15 @@ class ComETrainer:
         self._o1_epochs_done += 1
         tot_loss = torch.zeros((), device=self.device)
         tot_pairs = torch.zeros((), device=self.device)
-        for walks in walks_all:
-            if self.o1_walk_kernel:
-                wrow, pools = self._o1_draws(walks.shape[0])
-                loss, npairs = self.o1_step(walks, wrow, pools)
-            else:
-                loss, npairs = self.o1_pairs_step(walks)
-            tot_loss += loss
-            tot_pairs += npairs
+        with self._o1_tables():
+            for walks in walks_all:
+                if self.o1_walk_kernel:
+                    wrow, pools = self._o1_draws(walks.shape[0])
+                    loss, npairs = self.o1_step(walks, wrow, pools)
+                else:
+                    loss, npairs = self.o1_pairs_step(walks)
+                tot_loss += loss
+                tot_pairs += npairs
         return self._finish_o1(tot_loss, tot_pairs)
 
     def _o1_epoch_gen(self, starts: torch.Tensor) -> float:
@@ -415,12 +484,13 @@ class ComETrainer:
         G = -(-starts.shape[1] // NW)
         tot_loss = torch.zeros((), device=self.device)
         tot_pairs = torch.zeros((), device=self.device)
-        for st in starts:
-            bits = self._gen_bits(G * NWL)
-            wrow, pools = self._o1_draws(st.shape[0])
-            loss, npairs = self.o1_gen_step(st, bits, wrow, pools)
-            tot_loss += loss
-            tot_pairs += npairs
+        with self._o1_tables():
+            for st in starts:
+                bits = self._gen_bits(G * NWL)
+                wrow, pools = self._o1_draws(st.shape[0])
+                loss, npairs = self.o1_gen_step(st, bits, wrow, pools)
+                tot_loss += loss
+                tot_pairs += npairs
         return self._finish_o1(tot_loss, tot_pairs)
 
     def _finish_o1(self, tot_loss, tot_pairs) -> float:

@@ -15,7 +15,11 @@ and K5 with mxu_bf16) are held to ``ops/tolerance.py``'s check (relative
 L2 error of the updates <= 4e-4, every element within 2^-8 of the largest
 update, and the f32 plain step at least 5x farther away than the kernel
 and 2x past the bound).  K4's walks must equal the plain version's bit for
-bit.
+bit.  K3 (bf16 tables) is held to ``ops/tolerance.py``'s K3 check (99% of
+touched elements bit-identical, relative L2 error of the updates within
+``K3_L2``, the f32-table step 5x farther away); P1's gather must give the
+plain version's rows bit for bit and its checksum to 1e-12, its
+scatter-add the plain version's table bit for bit.
 """
 
 import numpy as np
@@ -31,9 +35,16 @@ from come_tpu_torch.ops.sgns import (
     fused_sgns_step_tied_reference,
 )
 from come_tpu_torch.ops.star_sgns import star_sgns_step, star_sgns_step_reference
-from come_tpu_torch.ops.tolerance import check_bf16
+from come_tpu_torch.ops.row_probe import (
+    row_gather_probe,
+    row_gather_probe_reference,
+    row_scatter_probe,
+    row_scatter_probe_reference,
+)
+from come_tpu_torch.ops.tolerance import check_bf16, check_k3
 from come_tpu_torch.ops.walk_sgns import (
     NWL,
+    cas_retries,
     walk_sgns_gen_step,
     walk_sgns_gen_step_reference,
     walk_sgns_step,
@@ -381,3 +392,96 @@ def test_bench_config_runs_through_its_kernels(dev, walk_gen, ran):
     launched = {k: v - before[k] for k, v in _bench_counts().items()}
     assert all((launched[k] > 0) == (k in ran) for k in launched), launched
     assert hist[-1]["nmi"] > 0.8
+
+
+# ------------------------------------------------------------- K3 and P1
+
+
+@pytest.mark.parametrize("gen", [False, True])
+@pytest.mark.parametrize("sr_seed", [None, 1234])
+@pytest.mark.parametrize("V,d,B,L,W,KP,R", [
+    (20000, 128, 40, 80, 10, 512, 2),
+    (50000, 64, 64, 37, 5, 256, 1),
+])
+def test_k3_kernel_matches_plain(dev, V, d, B, L, W, KP, R, sr_seed, gen):
+    # the degree of the large-V path's graph: walks revisit few rows, whose
+    # repeated writes the kernel takes in another order than the plain one
+    graph, _ = sbm_graph(V, 16, p_in=0.1, p_out=0.002, seed=V, avg_degree=40)
+    csr = graph.to_device(dev)
+    g = torch.Generator(device=dev).manual_seed(V + 4)
+    init = [(torch.randn((V, d), generator=g, device=dev) * 0.1).to(
+        torch.bfloat16) for _ in range(2)]
+    starts = torch.randint(0, V, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+    G = -(-B // 8)
+    bits = torch.randint(-2**31, 2**31, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    wrow = torch.randint(1, W + 1, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    pools = torch.randint(0, V, (-(-G // R), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+    walks = walk_sgns_gen_step_reference(
+        *[t.float() for t in init], starts, bits, csr.indptr, csr.indices,
+        wrow, pools, 0.0, 0.0, walk_length=L, window=W, pool_refresh=R,
+        return_walks=True)[-1]
+
+    def run(fn, tables, **kw):
+        tables = [t.clone() for t in tables]
+        if gen:
+            return fn(*tables, starts, bits, csr.indptr, csr.indices, wrow,
+                      pools, 0.025, 5.0 / KP, walk_length=L, window=W,
+                      pool_refresh=R, **kw)
+        return fn(*tables, walks, wrow, pools, 0.025, 5.0 / KP, window=W,
+                  pool_refresh=R, **kw)
+
+    kern_fn = walk_sgns_gen_step if gen else walk_sgns_step
+    plain_fn = walk_sgns_gen_step_reference if gen else walk_sgns_step_reference
+    before = kern_fn.launches_bf16_tables
+    retries = cas_retries(dev).zero_()
+    kern = run(kern_fn, init, sr_seed=sr_seed)
+    plain = run(plain_fn, init, sr_seed=sr_seed)
+    f32 = run(plain_fn, [t.float() for t in init], mxu_bf16=True)
+    torch.cuda.synchronize()
+    assert kern[0].dtype == torch.bfloat16
+    assert float(kern[3]) == float(plain[3])
+    assert abs(float(kern[2]) - float(plain[2])) <= 1e-4 * abs(float(plain[2]))
+    check_k3("K3", init, kern[:2], plain[:2], f32[:2])
+    assert kern_fn.launches_bf16_tables == before + 1
+    assert float(retries) >= 0.0
+
+
+def test_k3_kernel_without_updates_leaves_tables(dev):
+    """lr = 0: every write adds an exact zero and rounds back to the row,
+    in both rounding modes."""
+    V, d = 3000, 128
+    g = torch.Generator(device=dev).manual_seed(5)
+    emb = (torch.randn((V, d), generator=g, device=dev)).to(torch.bfloat16)
+    walks = torch.randint(0, V, (16, 80), generator=g, device=dev,
+                          dtype=torch.int32)
+    wrow = torch.full((2 * NWL,), 5, device=dev, dtype=torch.int32)
+    pools = torch.randint(0, V, (2, 64), generator=g, device=dev,
+                          dtype=torch.int32)
+    for sr in (None, 9):
+        a, b, _, n = walk_sgns_step(emb.clone(), emb.clone(), walks, wrow,
+                                    pools, 0.0, 0.1, window=5, sr_seed=sr)
+        torch.cuda.synchronize()
+        assert torch.equal(a, emb) and torch.equal(b, emb) and float(n) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,d,N", [(500_000, 128, 2048), (5000, 64, 777)])
+def test_row_probe_matches_plain(dev, V, d, N, dtype):
+    g = torch.Generator(device=dev).manual_seed(N)
+    table = torch.randn((V, d), generator=g, device=dev).to(dtype)
+    idx = torch.randperm(V, generator=g, device=dev)[:N].to(torch.int32)
+    before = (row_gather_probe.launches, row_scatter_probe.launches)
+    rows, cs = row_gather_probe(table, idx)
+    prow, pcs = row_gather_probe_reference(table, idx)
+    upd = torch.randn((N, d), generator=g, device=dev).to(dtype)
+    kt = row_scatter_probe(table.clone(), idx, upd)
+    pt = row_scatter_probe_reference(table.clone(), idx, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, prow) and torch.equal(kt, pt)
+    assert abs(float(cs) - float(pcs)) <= 1e-12 * max(1.0, abs(float(pcs)))
+    assert (row_gather_probe.launches, row_scatter_probe.launches) == (
+        before[0] + 1, before[1] + 1)

@@ -73,8 +73,9 @@ def test_to_device_packs_ptr_deg():
 def test_stand_in_registry():
     assert get_dataset("karate").graph.num_nodes == 34
     assert get_dataset("wikipedia").name == "wikipedia-synthetic"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset("synthetic-10m")
+    big = get_dataset("synthetic-10m")
+    assert big.name == "synthetic-10m" and big.num_communities == 64
+    assert big.graph.num_nodes == 500_000 and big.labels.shape == (500_000,)
     with pytest.raises(KeyError):
         get_dataset("nope")
 
