@@ -57,8 +57,24 @@ non-zero and prints no result line):
                emerge between 4 and 6 walk passes per node): O1 through
                K3, O2 through K2, nothing
                else; prints the peak device memory and K3's CAS retries
-Phases 5 and 8-14 each reset every launch counter just before they run
-and read them just after; each wrapper counts only its own launches, by
+Since PR 5, after phase 14:
+ 15. probes  — P2 (tools/probe_smem.py: the shared-memory capacity search,
+               which must stop at cudaDevAttrMaxSharedMemoryPerBlockOptin
+               and be refused above it with cudaErrorInvalidValue), P3
+               (tools/probe_star.py: the star kernel's sections at the
+               BlogCatalog layout, µs per group by variant and unroll
+               beside K2b's, the full variant held against K2b's plain
+               version under the bf16 check and every variant against its
+               plain version) and P4 (tools/probe_star_floor.py: the seven
+               per-group floors, each value exactly its plain version's)
+ 16. parity  — the parity CLI (evaluation/parity.py) on karate, 3
+               iterations, on cuda: K1, K5, K2 and K7 rows against the
+               numpy oracle; it must return 0
+ 17. profile — the karate CLI with shared negatives (K6/K7) under
+               --profile-dir into a temporary directory: the trace must
+               exist and name a K6 kernel
+Phases 5, 8-14 and 15-17 each reset every launch counter just before they
+run and read them just after; each wrapper counts only its own launches, by
 mode.  Every phase line ends with its seconds.  Then a JSON line of the
 kernels (the bf16 modes with their bench-shape checks and their launches in
 phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
@@ -317,6 +333,13 @@ def main() -> int:
         row_scatter_probe,
         row_scatter_probe_reference,
     )
+    from come_tpu_torch.ops.floor_probe import floor_probe
+    from come_tpu_torch.ops.smem_probe import (
+        smem_optin_bytes,
+        smem_probe,
+        smem_probe_reference,
+    )
+    from come_tpu_torch.ops.star_probe import star_probe_step
     from come_tpu_torch.ops.walk_sgns import (
         NW,
         NWL,
@@ -357,6 +380,9 @@ def main() -> int:
                                       "launches_bf16_tables"),
         "row_gather_probe": (row_gather_probe, "launches"),
         "row_scatter_probe": (row_scatter_probe, "launches"),
+        "smem_probe": (smem_probe, "launches"),
+        "star_probe": (star_probe_step, "launches"),
+        "floor_probe": (floor_probe, "launches"),
     }
 
     def reset_counts():
@@ -1068,6 +1094,91 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
+    # 15. the probes P2-P4, each through its tools/ entry point
+    from come_tpu_torch.tools import probe_smem, probe_star, probe_star_floor
+
+    reset_counts()
+    p2 = probe_smem.capacity_search(dev, log=lambda m: phase("P2", m))
+    x8 = torch.ones((8, 128), device=dev)
+    optin = smem_optin_bytes()
+    p2_sum = smem_probe(x8, optin)
+    p2_err = abs(float(p2_sum) - float(smem_probe_reference(x8, optin)))
+    p2_ms = cuda_ms(lambda: smem_probe(x8, optin))
+    p2_plain_ms = cuda_ms(lambda: smem_probe_reference(x8, optin))
+    p2_lib_ms = cuda_ms(lambda: torch.sum(x8[0]))
+    p3 = probe_star.run(dev, log=lambda m: phase("P3", m))
+    p4 = probe_star_floor.run(dev, log=lambda m: phase("P4", m))
+    probe_launches = counts()
+    check_launches("probes", probe_launches,
+                   ("smem_probe", "star_probe", "floor_probe"),
+                   tuple(k for k in kernels if k not in (
+                       "smem_probe", "star_probe", "floor_probe",
+                       "star_sgns_bf16")))
+    s3, m3, sneg3 = p3.pop("inputs")
+    p3_bound = star_bound(s3, m3, sneg3, p3["pairs"], 128, True, PAD_META)
+    G4, V4, d4 = p4["G"], p4["V"], p4["d"]
+    # slots read once, the table read once and copied once, the gathered
+    # [1024, d] buffer and the value written once
+    p4_bound = bound(0.0, 4.0 * (G4 * 1024 + 2 * V4 * d4 + 1024 * d4 + 1),
+                     False)
+    phase("probes", f"P2 {p2['largest']} B of shared memory per block "
+                    f"({p2['refused'][0]} B refused: {p2['refused'][1]}), "
+                    f"{p2_ms:.4f} ms a launch | P3 full {p3['ms']:.3f} ms a "
+                    f"step ({p3['rows']['full']:.2f} us/group; K2b "
+                    f"{p3['k2b_us']:.2f}), max_abs {p3['max_abs_err']:.3e} "
+                    f"vs K2b's plain version, bound {p3_bound[0]:.4f} ms | "
+                    f"P4 floors (us/group) " + ", ".join(
+                        f"{k} {v[0]:.2f}" for k, v in p4["variants"].items())
+          + f" | launches {probe_launches}")
+
+    # 16. the parity harness's CLI on the card
+    from come_tpu_torch.evaluation import parity
+
+    reset_counts()
+    if parity.main(["--dataset", "karate", "--iters", "3", "--device",
+                    "cuda"]) != 0:
+        raise AssertionError("parity: the CLI returned non-zero")
+    parity_launches = counts()
+    ran = ("walk_sgns", "walk_sgns_paired", "star_sgns", "fused_sgns_tied")
+    check_launches("parity", parity_launches, ran,
+                   tuple(k for k in kernels if k not in ran))
+    phase("parity", f"karate, 3 iterations on cuda: PASS | launches "
+                    f"{parity_launches}")
+
+    # 17. --profile-dir: the karate CLI with shared negatives under the
+    # profiler (the CLI has no flag for the negative mode, as the JAX CLI
+    # has none; run() takes config fields from the parsed namespace)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = build_argparser().parse_args([
+            "--dataset", "karate", "--device", "cuda", "--seed", str(SEED),
+            "--outer-iters", "1", "--pretrain-epochs", "1",
+            "--profile-dir", tmp,
+        ])
+        args.negative_mode, args.shared_negatives = "shared", 32
+        args.pallas_tile_pairs = 64
+        reset_counts()
+        trainer, hist = run(args)
+        torch.cuda.synchronize()
+        prof_launches = counts()
+        traces = list(Path(tmp).glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profile: {len(traces)} trace files")
+        text = traces[0].read_text()
+        if "fused_pos_kernel" not in text:
+            raise AssertionError("profile: the trace names no K6 kernel")
+        size = traces[0].stat().st_size
+    ran = ("fused_sgns", "fused_sgns_tied")
+    check_launches("profile", prof_launches, ran,
+                   tuple(k for k in kernels if k not in ran))
+    check_run("profile", hist, KARATE_SHARED_NMI_FLOOR)
+    phase("profile", f"karate shared negatives under --profile-dir: "
+                     f"{traces[0].name} {size} bytes, names fused_pos_kernel "
+                     f"(K6) | NMI {hist[-1]['nmi']:.4f} | launches "
+                     f"{prof_launches}")
+    del trainer
+
     def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
               library_ms=None):
         return {"name": name, "route": "cuda",
@@ -1118,6 +1229,16 @@ def main() -> int:
         entry("row_scatter_probe", "row_probe.cu", "scripts/probe_dma.py:47",
               p1_launches["row_scatter_probe"], 0.0, pg["s_ms"],
               pg["s_lib"], pg["s_bound"], pg["s_lib"]),
+        entry("smem_probe", "smem_probe.cu", "scripts/probe_vmem.py:12",
+              probe_launches["smem_probe"], p2_err, p2_ms, p2_plain_ms,
+              bound(0.0, 4.0 * 128 + 4.0, False), p2_lib_ms),
+        entry("star_probe", "star_probe.cu", "scripts/probe_star.py:33",
+              probe_launches["star_probe"], p3["max_abs_err"], p3["ms"],
+              p3["plain_ms"], p3_bound),
+        entry("floor_probe", "floor_probe.cu",
+              "scripts/probe_star_floor.py:207",
+              probe_launches["floor_probe"], 0.0, p4["ms"], p4["plain_ms"],
+              p4_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -14,8 +14,12 @@ public names of their ``come_tpu`` counterparts:
   PyTorch versions, the nvcc/ctypes build, and the sparse row primitives
 * ``losses/``     — per-pair and shared-pool SGNS math, GMM EM and the O3
   community step (torch ops)
-* ``evaluation/`` — NMI in numpy
+* ``evaluation/`` — NMI in numpy, the numpy gradient oracle and the
+  gradient parity harness (a CLI)
+* ``metrics/``    — throughput meter, JSONL scalar log, profiler traces
 * ``trainer/``    — the alternating ComE loop on one device
+* ``tools/``      — measurement scripts run on the card (the probes P2-P4,
+  the O1 table-dtype A/B)
 * ``main.py``     — the CLI
 
 The GMM and O3 products must stay in full float32, so TF32 is switched off

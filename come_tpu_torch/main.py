@@ -58,6 +58,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save", help="write embeddings (word2vec text) here")
     p.add_argument("--checkpoint-dir", help="save a checkpoint per iteration")
     p.add_argument("--resume", help="checkpoint .npz to resume from")
+    p.add_argument("--profile-dir",
+                   help="write a torch.profiler trace (TensorBoard) here")
     p.add_argument("--plot", help="write embedding-space + graph PNGs here")
     p.add_argument("--eval-f1", action="store_true",
                    help="also run node-classification F1 at the end")
@@ -125,7 +127,10 @@ def run(args: argparse.Namespace):
     trainer = ComETrainer(ds.graph, cfg, device)
     print(f"o1 tier: {_o1_tier(trainer)}, o2 tier: {_o2_tier(trainer)}")
     emit = (lambda s: print(json.dumps({"log": s}))) if args.json else print
-    history = trainer.train(labels=ds.single_labels, log=emit)
+    from come_tpu_torch.metrics.profiling import trace
+
+    with trace(args.profile_dir):
+        history = trainer.train(labels=ds.single_labels, log=emit)
     print(f"trained in {time.perf_counter() - t0:.1f}s")
     if device.type == "cuda":
         print(f"peak device memory: "

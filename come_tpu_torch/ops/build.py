@@ -33,8 +33,10 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 # C signatures (csrc/walk_sgns.cu, star_sgns.cu, sgns_fused.cu,
-# row_probe.cu): every pointer and the stream as c_void_p, ints as c_int,
-# seeds as c_uint32, scalars as c_float.
+# row_probe.cu, smem_probe.cu, star_probe.cu, floor_probe.cu): every pointer
+# and the stream as c_void_p, ints as c_int, seeds as c_uint32, scalars as
+# c_float.  Each returns an int (0 or a CUDA error code) unless RESTYPES
+# says otherwise.
 SIGNATURES = {
     "come_walk_sgns_step": [_P] * 12 + [_I] * 10 + [_U, _F, _F, _P],
     "come_walk_sgns_gen_step": [_P] * 16 + [_I] * 9 + [_U, _F, _F, _P],
@@ -43,7 +45,13 @@ SIGNATURES = {
     "come_fused_sgns_step_tied": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
     "come_row_gather": [_P] * 4 + [_I] * 3 + [_P],
     "come_row_scatter_add": [_P] * 3 + [_I] * 3 + [_P],
+    "come_smem_probe": [_P, _P, _I, _P],
+    "come_smem_optin": [],
+    "come_cuda_error_name": [_I],
+    "come_star_probe_step": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    "come_floor_probe": [_I] + [_P] * 9 + [_I] * 3 + [_P],
 }
+RESTYPES = {"come_cuda_error_name": ctypes.c_char_p}
 
 
 def _sources() -> list[Path]:
@@ -121,11 +129,22 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 
+class CudaError(RuntimeError):
+    """A C entry point returned a CUDA error: ``code`` and its ``name``."""
+
+    def __init__(self, entry: str, code: int):
+        self.code = code
+        self.name = library().come_cuda_error_name(code).decode()
+        super().__init__(f"{entry} failed with CUDA error {code} "
+                         f"({self.name})")
+
+
 def check(code: int, name: str) -> None:
-    """Raise for a non-zero CUDA error code returned by a C entry point."""
+    """Raise :class:`CudaError` for a non-zero CUDA error code returned by
+    the C entry point ``name``."""
     if code != 0:
-        raise RuntimeError(f"{name} failed with CUDA error {code}")
+        raise CudaError(name, code)

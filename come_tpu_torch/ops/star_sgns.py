@@ -31,17 +31,48 @@ def _pad_stream(slots: torch.Tensor, meta: torch.Tensor):
     return slots, meta, G
 
 
+def star_group_grads(phi, mt, cneg, negw, mxu_bf16: bool, neg: bool = True):
+    """One group's gradients as ``_star_kernel`` computes them, with dense
+    [128, 128] block scores: ``phi`` [1024, d] the group's rows as read,
+    ``mt`` [1024] their meta, ``cneg`` [KP, d] the staged pool rows (already
+    rounded in the bf16 mode).  ``mxu_bf16`` rounds phi, each pair g and
+    each negative g where the TPU casts to bf16; ``neg`` False skips the
+    negative pass.  Returns (dphi [1024, d], the pool gradient's increment
+    [KP, d] or None, the positive and the negative log-sigmoid sums, whose
+    negatives are the loss, and the pair count)."""
+    nb = NWL // BLK
+    d = phi.shape[1]
+    mt = mt.view(nb, BLK)
+    seg, hub = mt >> 1, mt & 1
+    m = (
+        (seg[:, :, None] == seg[:, None, :])
+        & ((hub[:, :, None] ^ hub[:, None, :]) == 1)
+    ).float()  # [nb, a, b]
+    phi = mxu(phi.view(nb, BLK, d), mxu_bf16)
+    s = phi @ phi.transpose(1, 2)
+    gpos = mxu((torch.sigmoid(s) - 1.0) * m, mxu_bf16)
+    lpos = (m * F.logsigmoid(s)).sum()
+    n_t = m.sum(2, keepdim=True)
+    dphi = gpos @ phi + gpos.transpose(1, 2) @ phi  # source + context
+    lneg = ddneg = None
+    if neg:
+        sn = phi @ cneg.T
+        gneg = mxu(torch.sigmoid(sn) * (negw * n_t), mxu_bf16)
+        lneg = negw * (n_t * F.logsigmoid(-sn)).sum()
+        dphi = dphi + gneg @ cneg
+        ddneg = torch.einsum("bsk,bsd->kd", gneg, phi)
+    return dphi.reshape(NWL, d), ddneg, lpos, lneg, n_t.sum()
+
+
 def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
                              pool_refresh: int = 1, mxu_bf16: bool = False):
     """Plain PyTorch version of :func:`star_sgns_step` (same signature and
-    semantics): a loop over groups with dense [128, 128] block scores.
+    semantics): a loop over groups of :func:`star_group_grads`.
     ``mxu_bf16`` rounds phi, each pair g, the pool rows and each negative g
     where ``_star_kernel`` casts to bf16.  Returns (emb, loss, n_pairs)."""
     slots, meta, G = _pad_stream(slots, meta)
     R = int(pool_refresh)
     pools = expand_pools(pools, G, R).long()
-    nb = NWL // BLK
-    d = emb.shape[1]
     dev = emb.device
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     npairs = torch.zeros((), dtype=torch.float32, device=dev)
@@ -51,25 +82,13 @@ def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
             cneg = mxu(emb[pool], mxu_bf16)
             dneg = torch.zeros_like(cneg)
         ids = slots[g * NWL:(g + 1) * NWL].long()
-        mt = meta[g * NWL:(g + 1) * NWL].view(nb, BLK)
-        seg, hub = mt >> 1, mt & 1
-        m = (
-            (seg[:, :, None] == seg[:, None, :])
-            & ((hub[:, :, None] ^ hub[:, None, :]) == 1)
-        ).float()  # [nb, a, b]
-        phi = mxu(emb[ids].view(nb, BLK, d), mxu_bf16)
-        s = phi @ phi.transpose(1, 2)
-        gpos = mxu((torch.sigmoid(s) - 1.0) * m, mxu_bf16)
-        loss = loss - (m * F.logsigmoid(s)).sum()
-        n_t = m.sum(2, keepdim=True)
-        npairs = npairs + n_t.sum()
-        dphi = gpos @ phi + gpos.transpose(1, 2) @ phi  # source + context
-        sn = phi @ cneg.T
-        gneg = mxu(torch.sigmoid(sn) * (negw * n_t), mxu_bf16)
-        loss = loss - negw * (n_t * F.logsigmoid(-sn)).sum()
-        dphi = dphi + gneg @ cneg
-        dneg = dneg + torch.einsum("bsk,bsd->kd", gneg, phi)
-        emb.index_add_(0, ids, dphi.reshape(NWL, d), alpha=-lr)
+        dphi, ddneg, lpos, lneg, n = star_group_grads(
+            emb[ids], meta[g * NWL:(g + 1) * NWL], cneg, negw, mxu_bf16)
+        loss = loss - lpos
+        npairs = npairs + n
+        loss = loss - lneg
+        dneg = dneg + ddneg
+        emb.index_add_(0, ids, dphi, alpha=-lr)
         if g % R == R - 1 or g == G - 1:
             emb.index_add_(0, pool, dneg, alpha=-lr)
     return emb, loss, npairs

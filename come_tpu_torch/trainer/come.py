@@ -720,10 +720,13 @@ class ComETrainer:
         self,
         labels: np.ndarray | None = None,
         log: Callable[[str], None] | None = None,
+        scalar_log=None,
     ) -> list[dict]:
         """Full alternating optimization (reference main.py loop).  Each
         record holds the phase losses, per-phase wall ms (taken after a
-        device synchronise), the pair counts and, with ``labels``, NMI."""
+        device synchronise), the pair counts and, with ``labels``, NMI.
+        ``scalar_log``: optional ``metrics.ScalarLog`` sink, one record per
+        outer iteration."""
         cfg = self.cfg
         say = log or (lambda s: None)
         for e in range(cfg.pretrain_epochs):
@@ -753,6 +756,8 @@ class ComETrainer:
             say(f"iter {it}: " + ", ".join(
                 f"{k}={v:.4f}" for k, v in rec.items() if k != "iter"
             ))
+            if scalar_log is not None:
+                scalar_log.log(it, **rec)
             self._history.append(rec)
         return self._history
 

@@ -19,7 +19,12 @@ bit.  K3 (bf16 tables) is held to ``ops/tolerance.py``'s K3 check (99% of
 touched elements bit-identical, relative L2 error of the updates within
 ``K3_L2``, the f32-table step 5x farther away); P1's gather must give the
 plain version's rows bit for bit and its checksum to 1e-12, its
-scatter-add the plain version's table bit for bit.
+scatter-add the plain version's table bit for bit.  P3's variants take
+the bf16 check's error rules against their plain versions (the table bit
+for bit where the plain step leaves it alone), and with every section on
+the full bf16 check against K2b and the f32 tolerance against K2; P4's
+values and P2's sum must equal their plain versions exactly, and the
+parity harness must pass on the card.
 """
 
 import numpy as np
@@ -51,6 +56,7 @@ from come_tpu_torch.ops.walk_sgns import (
     walk_sgns_step_reference,
 )
 from come_tpu_torch.sampling import build_star_layout
+from come_tpu_torch.tools.probe_star import VARIANTS as PROBE_VARIANTS
 from come_tpu_torch.trainer import ComETrainer
 
 pytestmark = pytest.mark.cuda
@@ -485,3 +491,119 @@ def test_row_probe_matches_plain(dev, V, d, N, dtype):
     assert abs(float(cs) - float(pcs)) <= 1e-12 * max(1.0, abs(float(pcs)))
     assert (row_gather_probe.launches, row_scatter_probe.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+# ------------------------------------- P2, P3, P4 and the parity harness
+
+
+def test_smem_probe_kernel_and_capacity(dev):
+    from come_tpu_torch.ops.build import CudaError
+    from come_tpu_torch.ops.smem_probe import smem_optin_bytes, smem_probe
+    from come_tpu_torch.tools.probe_smem import capacity_search
+
+    x = torch.ones((8, 128), device=dev)
+    optin = smem_optin_bytes()
+    before = smem_probe.launches
+    assert float(smem_probe(x, optin)) == 128.0
+    with pytest.raises(CudaError) as refused:
+        smem_probe(x, optin + 1024)
+    assert refused.value.name == "cudaErrorInvalidValue"
+    assert smem_probe.launches == before + 1  # the refused size never ran
+    res = capacity_search(dev, log=lambda s: None)
+    assert res["largest"] == optin == 232448  # the H100's opt-in limit
+
+
+def _probe_stream(dev, V, E, seed):
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, V, E)
+    v = (u + 1 + rng.integers(0, V - 1, E)) % V
+    slots, meta = build_star_layout(u, v, V)
+    return tuple(torch.as_tensor(a, device=dev) for a in (slots, meta))
+
+
+@pytest.mark.parametrize("label,off", PROBE_VARIANTS)
+@pytest.mark.parametrize("V,d,E,KP,R,unroll", [
+    (3000, 128, 40000, 512, 8, 32),
+    (600, 64, 9000, 100, 2, 8),
+    (200, 16, 3000, 16, 1, 128),
+])
+def test_star_probe_matches_plain(dev, label, off, V, d, E, KP, R, unroll):
+    from come_tpu_torch.ops.star_probe import (
+        star_probe_step,
+        star_probe_step_reference,
+    )
+    from come_tpu_torch.tools.probe_star import check_step
+
+    slots, meta = _probe_stream(dev, V, E, V + d)
+    G = -(-slots.shape[0] // NWL)
+    g = torch.Generator(device=dev).manual_seed(V)
+    emb = torch.randn((V, d), generator=g, device=dev) * 0.1
+    pools = torch.randint(0, V, (-(-G // R), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def run(fn, **kw):
+        return fn(emb.clone(), slots, meta, pools, 0.05, 5.0 / KP,
+                  pool_refresh=R, unroll=unroll, **off, **kw)
+
+    before = star_probe_step.launches
+    kern = run(star_probe_step)
+    torch.cuda.synchronize()
+    check_step(label, emb, kern, run(star_probe_step_reference))
+    assert star_probe_step.launches == before + 1
+    if not off:  # every section on: K2b's step, and K2's without bf16
+        k2b = star_sgns_step(emb.clone(), slots, meta, pools, 0.05,
+                             5.0 / KP, pool_refresh=R, mxu_bf16=True)
+        f32 = run(star_probe_step_reference, mxu_bf16=False)
+        _close_bf16((emb,), kern, k2b, f32)
+        _close((emb,), run(star_probe_step, mxu_bf16=False),
+               star_sgns_step(emb.clone(), slots, meta, pools, 0.05,
+                              5.0 / KP, pool_refresh=R))
+
+
+@pytest.mark.parametrize("G,V,d", [(338, 10312, 128), (9, 500, 16)])
+def test_floor_probe_matches_plain(dev, G, V, d):
+    from come_tpu_torch.ops.floor_probe import (
+        VARIANTS,
+        floor_probe,
+        floor_probe_reference,
+    )
+
+    rng = np.random.default_rng(G)
+    sneg = rng.integers(0, V, 1024).astype(np.int32)
+    args = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in (
+        rng.integers(0, V, G * 1024).astype(np.int32),
+        np.broadcast_to(sneg, (-(-G // 8), 1024)).reshape(-1),
+        np.ones(2, np.float32),
+        rng.integers(0, 128, (G * 8, 128)).astype(np.int32),
+        rng.normal(size=(V, d)).astype(np.float32)))
+    for name in VARIANTS:
+        before = floor_probe.launches
+        value, table = floor_probe(name, *args)
+        want, want_table = floor_probe_reference(name, *args)
+        torch.cuda.synchronize()
+        assert float(value) == float(want), name
+        assert floor_probe.launches == before + 1
+        if want_table is not None:
+            assert torch.equal(table, args[-1])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_parity_passes_on_the_card(dev, seed):
+    import math
+
+    from come_tpu_torch.evaluation.parity import check_gradient_parity
+
+    rep = check_gradient_parity(get_dataset("karate").graph, dim=16,
+                                pairs=256, seed=seed, device=dev)
+    assert rep.passed, str(rep)
+    assert max(rep.o1_max_err, rep.o2_max_err, rep.o3_max_err) < 1e-4
+    assert max(rep.o1_fast_max_err, rep.o2_fast_max_err,
+               rep.o1_fast_multi_max_err, rep.o2_fanout_max_err,
+               rep.o2_star_max_err) < 1e-3
+    assert math.isnan(rep.o1_fast_rowsharded_max_err)
+
+
+def test_parity_cli_on_the_card(dev):
+    from come_tpu_torch.evaluation.parity import main
+
+    assert main(["--dataset", "karate", "--iters", "3"]) == 0

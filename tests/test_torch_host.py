@@ -221,10 +221,17 @@ def test_port_imports_without_jax():
         "    importlib.import_module(n)\n"
         "assert not any(k == 'come_tpu' or k.startswith('come_tpu.')\n"
         "               for k in sys.modules), 'come_tpu imported'\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    names = set(res.stdout.split())
+    assert len(names) >= 20
+    # the measurement and verification path
+    assert {f"come_tpu_torch.{m}" for m in (
+        "metrics", "metrics.meters", "metrics.profiling",
+        "evaluation.oracle", "evaluation.parity", "ops.smem_probe",
+        "ops.star_probe", "ops.floor_probe", "tools.probe_smem",
+        "tools.probe_star", "tools.probe_star_floor")} <= names
