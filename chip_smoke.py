@@ -21,14 +21,25 @@ non-zero and prints no result line):
                them: one 2048-walk O1 step (256 groups, R 8, unigram pools
                [32, 512]) and the one star O2 step of batch_edges 524288
                (the whole layout, 344 groups, R 8)
+ 4h. edges   — the walk kernel against its plain version at EDGE_SHAPES
+               (W >= L - 1, L = 1, odd L with W past a strip, d 192 and 2,
+               a heavily repeated row, KP 100 and 2048 with R 3), in f32,
+               bf16 products and on bf16 tables, each under its mode's check
   4f. K3     — the walk kernel on bf16 tables at the large-V path's shapes
                (synthetic-10m: V 500000, d 128, 1024 walks of 80, W 10, KP
                2048, R 1, 128 groups), with stochastic rounding and in
                truncation mode, through walk_sgns_step and walk_sgns_gen_step;
-               K3 and K1 (f32 tables, same inputs) timed
+               K3 and K1 (f32 tables, same inputs) timed, and the device
+               busy share of one K3 step (its kernels' device time over its
+               CUDA-event time)
  4g. P1      — the row-gather floor probe: gather and scatter-add of N =
                2048 and 262144 rows of a [500000, 128] f32 and bf16 table,
                beside index_select / index_add_
+               (the K1, K1b bench and K3 lines also give the device
+               microseconds per group of each pass of the walk group loop,
+               by torch.profiler: band (walk_pos_kernel), negative
+               (negative_f32_kernel or negative_bf16_kernel), scatter, stage
+               (pool staging) and pool apply)
   5. main    — come_tpu_torch.main on --dataset blogcatalog (pretrain 1,
                outer 1) on cuda, with the kernels' launch counters reset
                just before and read just after
@@ -140,6 +151,24 @@ NMI_FLOOR = 0.8
 KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 
 
+# Phase 4h's shapes (V, d, B, L, W, KP, R, hot): the whole walk in the band
+# (W >= L - 1), one slot per walk, an odd L with W wider than a strip, d at
+# its bound 192 and at 2, walks that repeat one row heavily, ragged and
+# large pools (KP 100 and 2048, R 3).  On bf16 tables V is at least 20000:
+# K3's check holds steps whose walks repeat few rows, since its CAS loops
+# write a row's repeats within a group in any order (ops/tolerance.py); its
+# float64 emulation of that order fails the check with the hot row (0.52 of
+# touched elements identical), so that shape runs in f32 and bf16 only.
+EDGE_SHAPES = [
+    (3000, 128, 16, 128, 127, 64, 1, False),
+    (500, 64, 16, 1, 3, 16, 1, False),
+    (2000, 128, 24, 37, 13, 100, 3, False),
+    (2000, 192, 16, 80, 10, 128, 1, False),
+    (2000, 2, 16, 20, 3, 64, 1, False),
+    (2000, 128, 16, 80, 10, 512, 1, True),
+    (20000, 128, 24, 80, 10, 2048, 3, False),
+]
+
 _LAST = [time.perf_counter()]
 
 
@@ -149,25 +178,53 @@ def phase(name: str, msg: str) -> None:
     _LAST[0] = now
 
 
-def device_us(fn, ids, kernel: str | None = None) -> float:
+def device_us(fn, ids, kernel=None, required=True):
     """Device microseconds per call of ``fn(i)`` over ``ids``, summed over
     the CUDA kernels whose name holds ``kernel`` (every kernel with None;
     torch.profiler): at small sizes a call's host overhead outlasts its
-    kernel, and CUDA events then time the host."""
+    kernel, and CUDA events then time the host.  A tuple of names gives a
+    tuple of sums from the one profiled run.  A kernel that no session
+    records raises, or reads None where ``required`` is False."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = kernel if isinstance(kernel, tuple) else (kernel,)
     fn(ids[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in ids:
-            fn(i)
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if kernel is None or kernel in e.key)
-    if total <= 0:
-        raise AssertionError(f"the profiler saw no {kernel or 'CUDA'} "
-                             f"kernel")
-    return total / len(ids)
+    # up to four sessions: late in this script a short profiler session on
+    # the H100 may record no kernel (P1's 262144-row f32 sessions, often)
+    for attempt in range(4):
+        if attempt:
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in ids:
+                fn(i)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        sums = [sum(e.device_time_total for e in events
+                    if k is None or k in e.key) / len(ids) for k in names]
+        if min(sums) > 0:
+            return tuple(sums) if isinstance(kernel, tuple) else sums[0]
+    missing = [k or "CUDA" for k, t in zip(names, sums) if t <= 0]
+    if required:
+        raise AssertionError(f"the profiler saw no {missing} kernel")
+    sums = [t if t > 0 else None for t in sums]
+    return tuple(sums) if isinstance(kernel, tuple) else sums[0]
+
+
+# the walk kernel's group loop by pass: (name, substring of its CUDA kernel)
+PASSES = (("band", "walk_pos_kernel"), ("negative", "negative_"),
+          ("scatter", "walk_scatter"), ("stage", "stage_pool"),
+          ("pool apply", "apply_pool"))
+
+
+def pass_split(fn, groups: int):
+    """Device microseconds per group of each pass of the walk group loop
+    over two calls of ``fn`` (a walk-kernel step of ``groups`` groups), as
+    text, and the device microseconds per call of every kernel it runs."""
+    *us, total = device_us(lambda i: fn(), [0, 1],
+                           tuple(k for _, k in PASSES) + (None,))
+    return ", ".join(f"{name} {t / groups:.2f}"
+                     for (name, _), t in zip(PASSES, us)), total
 
 
 def bound(flops: float, nbytes: float, bf16: bool):
@@ -438,7 +495,8 @@ def main() -> int:
                 f"G={G}: max_abs {k1_err[0]:.3e} max_rel {k1_err[1]:.3e} "
                 f"loss_rel {k1_err[2]:.3e} pairs {float(kern[3]):.0f} | "
                 f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms "
-                f"(tol {ATOL} + {RTOL}*|plain update|)")
+                f"(tol {ATOL} + {RTOL}*|plain update|) | device us per "
+                f"group: {pass_split(lambda: k1(walk_sgns_step), G)[0]}")
 
     # 3b. K1b: the same inputs in the bf16 mode
     def k1b(fn):
@@ -595,7 +653,9 @@ def main() -> int:
     k1bb_plain_ms = cuda_ms(lambda: k1b_bench(walk_sgns_step_reference))
     phase("K1b bench", f"walk_sgns bf16 B={BB} R={RB} G={GB} pools "
                        f"{tuple(pools_b.shape)}: "
-                       + bf16_line(k1bb_err, k1bb_ms, k1bb_plain_ms))
+                       + bf16_line(k1bb_err, k1bb_ms, k1bb_plain_ms)
+                       + " | device us per group: "
+                       + pass_split(lambda: k1b_bench(walk_sgns_step), GB)[0])
 
     def k4_bench(fn, bf16=True):
         return fn(emb_in.clone(), emb_out.clone(), starts_b, bits_b,
@@ -651,6 +711,70 @@ def main() -> int:
                        f"pools {tuple(pools2_b.shape)} (one step): "
                        + bf16_line(k2bb_err, k2bb_ms, k2bb_plain_ms))
     del emb_in, emb_out, kern, plain, f32
+    torch.cuda.empty_cache()
+
+    # 4h. the walk kernel at the shapes that stress its band strips (8
+    # centres) and its bf16 negative tiles (64 slots x 32 pool rows), in
+    # f32, in bf16 products and on bf16 tables (K3, SR), each held to its
+    # mode's check
+    from come_tpu_torch.ops.tolerance import check_k3
+
+    edge_lines = []
+    for (Ve, de, Be, Le, We, KPe, Re, hot) in EDGE_SHAPES:
+        for mode in ("f32", "bf16", "bf16_tables"):
+            if hot and mode == "bf16_tables":
+                continue  # outside K3's check (EDGE_SHAPES' note)
+            Vm = max(Ve, 20000) if mode == "bf16_tables" else Ve
+            ge = torch.Generator(device=dev).manual_seed(Vm + de + Le)
+            init = [torch.randn((Vm, de), generator=ge, device=dev) * 0.1
+                    for _ in range(2)]
+            if mode == "bf16_tables":
+                init = [t.to(torch.bfloat16) for t in init]
+            we = torch.randint(0, Vm, (Be, Le), generator=ge, device=dev,
+                               dtype=torch.int32)
+            if hot:
+                we[:, ::2] = 7
+            Ge = -(-Be // NW)
+            wre = torch.randint(1, We + 1, (Ge * NWL,), generator=ge,
+                                device=dev, dtype=torch.int32)
+            pe = torch.randint(0, Vm, (-(-Ge // Re), KPe), generator=ge,
+                               device=dev, dtype=torch.int32)
+
+            def edge(fn, tables, **kw):
+                return fn(*[t.clone() for t in tables], we, wre, pe, lr,
+                          5.0 / KPe, window=We, pool_refresh=Re, **kw)
+
+            bf = mode == "bf16"
+            seed = 77 if mode == "bf16_tables" else None
+            kern = edge(walk_sgns_step, init, mxu_bf16=bf, sr_seed=seed)
+            plain = edge(walk_sgns_step_reference, init, mxu_bf16=bf,
+                         sr_seed=seed)
+            torch.cuda.synchronize()
+            name = f"edge {mode} V={Vm} d={de} L={Le} W={We} KP={KPe} R={Re}"
+            if Le == 1:  # no pairs: nothing may move
+                if float(kern[3]) != 0.0 or not all(
+                        torch.equal(a, b) for a, b in zip(kern[:2], init)):
+                    raise AssertionError(f"{name}: tables moved without pairs")
+                err = 0.0
+            elif mode == "f32":
+                err = compare(name, init, kern, plain)[0]
+            elif mode == "bf16":
+                err = compare_bf16(name, init, kern, plain, edge(
+                    walk_sgns_step_reference, init)[:2])[1]
+            else:
+                if float(kern[3]) != float(plain[3]) or abs(
+                        float(kern[2]) - float(plain[2])) > 1e-4 * abs(
+                        float(plain[2])):
+                    raise AssertionError(f"{name}: loss or pairs differ")
+                err = check_k3(name, init, kern[:2], plain[:2], edge(
+                    walk_sgns_step_reference, [t.float() for t in init],
+                    mxu_bf16=True)[:2])[3]
+            tag = " hot" if hot else ""
+            edge_lines.append(f"L{Le} W{We} d{de} KP{KPe}{tag} {mode} "
+                              f"{err:.3g}")
+            del kern, plain, init
+    phase("edges", "walk kernel vs plain (f32 max_abs, bf16 rel_l2, "
+                   "bf16_tables identical share): " + "; ".join(edge_lines))
     torch.cuda.empty_cache()
 
     def large_v_kernels():
@@ -728,13 +852,28 @@ def main() -> int:
         init32 = [t.float() for t in init]
         k1_10_ms = cuda_ms(lambda: k3(walk_sgns_step, init32))
         k1_10_bound = walk_bound(walks10, pools10, float(f32_10[3]), d, 4, False)
+        # the passes of a K3 step, and the card's busy share of one: the
+        # device time of every kernel the step launches over the step's
+        # CUDA-event time (on tables it updates in place, no clones)
+        tabs = [t.clone() for t in init]
+
+        def k3_step():
+            walk_sgns_step(*tabs, walks10, wrow10, pools10, lr, negw10,
+                           window=W, pool_refresh=R, sr_seed=7)
+
+        step_ms = cuda_ms(k3_step)
+        k3_split, k3_dev_us = pass_split(k3_step, G)
+        busy = k3_dev_us / (step_ms * 1e3)
+        del tabs
         phase("K3", f"walk_sgns bf16 tables V={V} d={d} B={B} L={L} W={W} "
                     f"KP={KP} R={R} G={G} (graph built in {t_ds:.1f} s): "
                     + "; ".join(k3_lines)
                     + f" | K3 {k3_ms:.3f} ms (plain {k3_plain_ms:.3f}, bound "
                     f"{k3_bound[0]:.4f} by {k3_bound[1]}), K1 on f32 tables "
                     f"{k1_10_ms:.3f} ms (bound {k1_10_bound[0]:.4f} by "
-                    f"{k1_10_bound[1]})")
+                    f"{k1_10_bound[1]}) | K3 device us per group: {k3_split} "
+                    f"| one K3 step {step_ms:.3f} ms, device busy "
+                    f"{busy:.1%}")
         del init32, f32_10
         torch.cuda.empty_cache()
 
@@ -773,15 +912,17 @@ def main() -> int:
                                  sets64)
                 s_ms = per_call(lambda i: row_scatter_probe(table, i, upd), sets)
                 s_lib = per_call(lambda i: table.index_add_(0, i, upd), sets64)
+                # the device readings only inform: the check is above and
+                # the kernels line takes the CUDA-event times
                 dev_us = [
                     device_us(lambda i: row_gather_probe(table, i), sets,
-                              "row_gather"),
+                              "row_gather", required=False),
                     device_us(lambda i: torch.index_select(table, 0, i),
-                              sets64),
+                              sets64, required=False),
                     device_us(lambda i: row_scatter_probe(table, i, upd),
-                              sets, "row_scatter"),
+                              sets, "row_scatter", required=False),
                     device_us(lambda i: table.index_add_(0, i, upd),
-                              sets64),
+                              sets64, required=False),
                 ]
                 gb = 2.0 * N * d * es + 4.0 * N
                 sb = 3.0 * N * d * es + 4.0 * N
@@ -790,6 +931,19 @@ def main() -> int:
                     s_lib=s_lib, dev_us=dev_us, g_bound=bound(0.0, gb, False),
                     s_bound=bound(float(N * d), sb, False),
                     cs_err=abs(float(cs_k) - float(cs_p)))
+                def us(t, nbytes=None):
+                    """A device reading; a rate past the card's peak means
+                    the profiler lost some of the session's records."""
+                    if t is None:
+                        return "not measured"
+                    if nbytes is None:
+                        return f"{t:.2f} us"
+                    if nbytes / (t * 1e-6) > HBM_BPS:
+                        return f"not measured ({t:.2f} us is past the peak)"
+                    return (f"{t:.2f} us ({nbytes / t / 1e3:.1f} GB/s, "
+                            f"{nbytes / (t * 1e-6) / HBM_BPS:.1%} of 3.35 "
+                            f"TB/s)")
+
                 du = dev_us
                 phase("P1", f"{str(dtype)[6:]} rows of {d * es} B, N={N}: "
                             f"checksum {float(cs_k):.6f} (plain "
@@ -798,13 +952,9 @@ def main() -> int:
                             f"{g_lib * 1e3:.2f} us, plain {g_plain * 1e3:.2f}"
                             f" us, scatter-add {s_ms * 1e3:.2f} us, "
                             f"index_add_ {s_lib * 1e3:.2f} us | device "
-                            f"(profiler): gather {du[0]:.2f} us = "
-                            f"{du[0] * 1e3 / N:.3f} ns/row, "
-                            f"{gb / du[0] / 1e3:.1f} GB/s "
-                            f"({gb / (du[0] * 1e-6) / HBM_BPS:.1%} of 3.35 "
-                            f"TB/s), index_select {du[1]:.2f} us, scatter-add "
-                            f"{du[2]:.2f} us ({sb / du[2] / 1e3:.1f} GB/s), "
-                            f"index_add_ {du[3]:.2f} us")
+                            f"(profiler): gather {us(du[0], gb)}, "
+                            f"index_select {us(du[1])}, scatter-add "
+                            f"{us(du[2], sb)}, index_add_ {us(du[3])}")
             del table
         p1_launches = counts()
         torch.cuda.empty_cache()

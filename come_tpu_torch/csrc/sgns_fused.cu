@@ -10,7 +10,7 @@
 //     phi = emb_in[c], cpos = emb_out[x] as the previous tile left them:
 //     g = sigmoid(phi . cpos) - 1, dphi = g cpos, dcpos = g phi;
 //   * every valid pair scores the staged pool with weight negw
-//     (sgns_common.cuh: negative_kernel with nt = mask), adding to dphi and
+//     (sgns_common.cuh: NegativePass, f32, with nt = mask), adding to dphi and
 //     to the pool gradient dneg;
 //   * each valid pair adds -lr*dphi to emb_in[c] and -lr*dcpos to
 //     emb_out[x] with atomicAdd, so duplicate rows sum as the TPU's
@@ -113,12 +113,10 @@ static int fused_sgns(float* emb_in, float* emb_out, const int* c,
                       float* dcpos, float* nt, int d, int n_tiles, int TP,
                       int KP, float lr, float negw, cudaStream_t stream) {
   if (d > MAX_DIM || d < 1 || TP < 1 || KP < 1) return (int)cudaErrorInvalidValue;
-  const size_t neg_smem = negative_smem_bytes(d);
-  cudaError_t e = cudaFuncSetAttribute(
-      negative_kernel<false, float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)neg_smem);
-  if (e != cudaSuccess) return (int)e;
   const int chunks = (TP + BLK - 1) / BLK;
-  const dim3 neg_grid(chunks, (KP + KC - 1) / KC);
+  NegativePass<false, float> neg;
+  cudaError_t e = neg.init(d, KP, chunks * BLK);
+  if (e != cudaSuccess) return (int)e;
   stage_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
   COME_CHECK_LAUNCH();
   for (int t = 0; t < n_tiles; ++t) {
@@ -127,8 +125,8 @@ static int fused_sgns(float* emb_in, float* emb_out, const int* c,
         emb_in, emb_out, c + off, x + off, m + off, d, TP, dphi, dcpos, nt,
         stats);
     COME_CHECK_LAUNCH();
-    negative_kernel<false, float><<<neg_grid, THREADS, neg_smem, stream>>>(
-        emb_in, c + off, nt, cneg, d, KP, negw, dphi, dneg, stats);
+    neg.launch(emb_in, c + off, nt, cneg, d, KP, negw, dphi, dneg, stats,
+               stream);
     COME_CHECK_LAUNCH();
     fused_scatter_kernel<<<TP, 128, 0, stream>>>(
         emb_in, emb_out, c + off, x + off, dphi, dcpos, nt, d, lr);

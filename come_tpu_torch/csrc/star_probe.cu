@@ -8,7 +8,7 @@
 //   GATHER  phi[t] = emb[slots[t]] for the group's 1024 slots
 //           (probe_rows.cuh, U rows in flight per warp);
 //   MATH    the positive pass on phi (star_pos_kernel) and, with NEG, the
-//           shared negative pass on phi (negative_kernel): dphi, nt, loss;
+//           shared negative pass on phi (NegativePass): dphi, nt, loss;
 //   NEG     the negative pass inside MATH;
 //   SCATTER emb[slots[t]] -= lr * dphi[t] for EVERY slot, as the TPU probe
 //           writes all 1024 (K2's scatter skips slots without pairs, whose
@@ -42,19 +42,16 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
                              float negw, cudaStream_t stream) {
   if (d > MAX_DIM || d % 4 || R < 1) return (int)cudaErrorInvalidValue;
   const size_t pos_smem = star_pos_smem_bytes(d);
-  const size_t neg_smem = negative_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(
       star_pos_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pos_smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(negative_kernel<BF16, float>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)neg_smem);
+  NegativePass<BF16, float> neg;
+  e = neg.init(d, KP, GROUP);
   if (e != cudaSuccess) return (int)e;
   e = rows_allow_smem<U>(d);
   if (e != cudaSuccess) return (int)e;
   const bool pool_on = sections & POOL, math_on = sections & MATH;
-  const dim3 neg_grid(NBLK, (KP + KC - 1) / KC);
   for (int g = 0; g < G; ++g) {
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* sg = slots + (size_t)g * GROUP;
@@ -71,8 +68,8 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
           phi, iota, meta + (size_t)g * GROUP, d, dphi, nt, stats);
       COME_CHECK_LAUNCH();
       if (sections & NEG) {
-        negative_kernel<BF16, float><<<neg_grid, THREADS, neg_smem, stream>>>(
-            phi, iota, nt, cneg, d, KP, negw, dphi, dneg, stats);
+        neg.launch(phi, iota, nt, cneg, d, KP, negw, dphi, dneg, stats,
+                   stream);
         COME_CHECK_LAUNCH();
       }
     }

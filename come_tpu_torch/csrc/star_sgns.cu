@@ -13,7 +13,7 @@
 //     update is dphi_a += g phi_b from both the source and the context
 //     side (g is symmetric), n_a = number of partners;
 //   * every slot scores the staged pool with weight negw * n_a
-//     (sgns_common.cuh: negative_kernel);
+//     (sgns_common.cuh: NegativePass);
 //   * one atomic read-modify-write per slot: emb[v] -= lr * dphi;
 //   * at an R-block end the pool gradient is applied (atomic).
 //
@@ -22,8 +22,9 @@
 // scatter are row traffic; a slot has at most 32 partners (the layout's
 // max_fanout), so this design scores only the pairs the mask keeps (warp
 // per slot) instead of the TPU's dense [128, 128] block, and shares the
-// tiled SIMT negative pass with the walk kernel.  K2b rounds the staged
-// rows and each pair's g as they are made, a few conversions per element.
+// negative pass with the walk kernel (sgns_common.cuh: f32 SIMT for K2,
+// the tensor cores for K2b).  K2b's star pass rounds the staged rows and
+// each pair's g as they are made, a few conversions per element.
 
 #include "sgns_common.cuh"
 #include "star_pos.cuh"
@@ -52,16 +53,13 @@ static int star_groups(float* emb, const int* slots, const int* meta,
                        cudaStream_t stream) {
   if (d > MAX_DIM || R < 1) return (int)cudaErrorInvalidValue;
   const size_t pos_smem = star_pos_smem_bytes(d);
-  const size_t neg_smem = negative_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(
       star_pos_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pos_smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(negative_kernel<BF16, float>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)neg_smem);
+  NegativePass<BF16, float> neg;
+  e = neg.init(d, KP, GROUP);
   if (e != cudaSuccess) return (int)e;
-  const dim3 neg_grid(NBLK, (KP + KC - 1) / KC);
   for (int g = 0; g < G; ++g) {
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* sg = slots + (size_t)g * GROUP;
@@ -72,8 +70,7 @@ static int star_groups(float* emb, const int* slots, const int* meta,
     star_pos_kernel<BF16><<<NBLK, THREADS, pos_smem, stream>>>(
         emb, sg, meta + (size_t)g * GROUP, d, dphi, nt, stats);
     COME_CHECK_LAUNCH();
-    negative_kernel<BF16, float><<<neg_grid, THREADS, neg_smem, stream>>>(
-        emb, sg, nt, cneg, d, KP, negw, dphi, dneg, stats);
+    neg.launch(emb, sg, nt, cneg, d, KP, negw, dphi, dneg, stats, stream);
     COME_CHECK_LAUNCH();
     star_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb, sg, dphi, nt, d, lr);
     COME_CHECK_LAUNCH();

@@ -36,7 +36,7 @@
 //     (u, t < L): g = sigmoid(phi_t . ctx_u) - 1, dphi_t += g ctx_u,
 //     dctx_u += g phi_t, n_t = number of such u;
 //   * every slot scores the staged pool with weight negw * n_t
-//     (sgns_common.cuh: negative_kernel);
+//     (sgns_common.cuh: NegativePass);
 //   * each slot adds -lr*dphi to node_emb[v] and -lr*dctx to ctx_emb[v]
 //     with atomicAdd, so duplicate rows sum exactly as the TPU's
 //     sequential read-modify-writes do (in another order);
@@ -46,17 +46,26 @@
 // kernel, its plain PyTorch version and the numpy oracle see the same ones.
 //
 // What bounds it on the H100: the negative pass (3 x 128 x KP x d
-// multiply-adds per walk) is compute; the positive band is at most 2W
-// dot products per centre and is small; the gathers and the scatter are
-// row traffic (halved by K3's bf16 rows); walk generation is 79 dependent
-// CSR loads per walk.  This first design computes only the band entries
-// the mask keeps (warp per centre, lanes across d), runs the negative pass as a tiled SIMT product
-// over 8 x ceil(KP/64) CTAs per group (bf16 by rounding its operands, not
-// on tensor cores), and keeps the group-sequential order with
-// stream-ordered launches; the host makes one call per macro step and the
-// loop over groups runs here.  The walks do not depend on the tables, so
-// one launch generates every group's walks (one thread per walk) before the
-// group loop, which is what the TPU's per-group generation computes.
+// multiply-adds per walk, sgns_common.cuh) is compute; the gathers and the
+// scatter are row traffic (halved by K3's bf16 rows); walk generation is 79
+// dependent CSR loads per walk.  The positive band, which the TPU computes
+// as dense masked [S, CB] tiles on its MXU (pallas_walk_sgns.py:305-341),
+// is small work (about 1024 x 2W x 3 x d multiply-adds a group, 8 M at d
+// 128, W 10), so what bounds it is latency: a group's band is spread over
+// the card and no chain of dependent dot products is long.  Each walk is
+// cut into strips of STRIP = 8 centres, one CTA each (128 CTAs a group),
+// which stages only its rows and a halo of W rows each side (about 30 KB at
+// d 128, W 10, so several CTAs share an SM), scores the pairs of its band
+// in parallel (8 lanes per pair), recomputes the g of the halo centres
+// whose window reaches its slots instead of exchanging them, and writes its
+// slots' dphi and dctx itself, without atomics.  The staged range never
+// passes the walk (at most 128 rows: 217 KB at d 192), so no window is cut.
+// The negative pass runs on the tensor cores in the bf16 modes
+// (sgns_common.cuh).  Groups keep their order with stream-ordered launches;
+// the host makes one call per macro step and the loop over groups runs
+// here.  The walks do not depend on the tables, so one launch generates
+// every group's walks (one thread per walk) before the group loop, which is
+// what the TPU's per-group generation computes.
 
 #include <type_traits>
 
@@ -64,16 +73,40 @@
 
 namespace come {
 
-static inline size_t walk_pos_smem_bytes(int d, int W) {
-  return sizeof(float) * ((size_t)2 * BLK * (d + 1) + (size_t)BLK * (2 * W + 1));
+constexpr int STRIP = 8;              // centres per band CTA
+constexpr int NSTRIP = BLK / STRIP;   // band CTAs per walk
+
+// Rows a strip stages: its centres and W more on each side, inside the walk.
+static __host__ __device__ inline int walk_pos_rows(int L, int W) {
+  return min(L, STRIP + 2 * W);
 }
 
-// Positive band of one walk.  grid NBLK (one CTA per walk), block THREADS.
-// Writes (overwrites) dphi, dctx and nt for the walk's 128 slots and adds
-// the positive loss and the pair count to stats.  BF16 rounds the staged
-// rows and each g (not with PAIRED: the TPU's paired pass is f32); PAIRED
-// trains only u = t^1 (W must be 1, wrow is not read).  T is the tables'
-// element type.
+// Staged rows hold d rounded up to a float4, + 4 floats of stride.
+static __host__ __device__ inline int walk_pos_stride(int d) {
+  return ((d + 3) & ~3) + 4;
+}
+
+static inline size_t walk_pos_smem_bytes(int d, int L, int W) {
+  const size_t R = walk_pos_rows(L, W);
+  return sizeof(float) * (2 * R * walk_pos_stride(d) + 2 * STRIP * R) +
+         sizeof(int) * (2 * R + 2 * STRIP * R);
+}
+
+// Positive band of one strip of STRIP centres [t0, t0 + STRIP) of one walk.
+// grid (NSTRIP, walks), block THREADS.  Writes (overwrites) dphi, dctx and
+// nt for the strip's slots (strips past L write zeros) and adds the
+// positive loss and the pair count of its centres to stats.  The strip
+// stages the rows [lo, hi) = [t0 - W, t0 + STRIP + W) inside the walk and
+// scores every pair (t, u) of them with t or u in the strip: those with t
+// in the strip give its dphi and loss, those with u in it its dctx (g of
+// the halo centres is recomputed here, by the same arithmetic as in their
+// own strip); n_t is the size of t's window inside the walk.  The rows are
+// gathered with many loads in flight per thread and the pairs listed by
+// warp ballots; a group of 8 lanes scores one pair.  Each thread then owns
+// 4 elements of one slot's dphi and dctx, the strip's rows of
+// [STRIP x R] . [R x d] products.  BF16 rounds the staged rows and each g
+// (not with PAIRED: the TPU's paired pass is f32); PAIRED trains only
+// u = t^1 (W must be 1, wrow is not read).  T is the tables' element type.
 template <bool BF16, bool PAIRED, typename T>
 static __global__ void __launch_bounds__(THREADS)
 walk_pos_kernel(const T* __restrict__ emb_in,
@@ -83,89 +116,149 @@ walk_pos_kernel(const T* __restrict__ emb_in,
                 float* __restrict__ dctx, float* __restrict__ nt,
                 double* __restrict__ stats) {
   constexpr bool RND = BF16 && !PAIRED;
-  extern __shared__ float smem[];
-  const int ds = d + 1, bw = 2 * W + 1;
-  float* phi = smem;             // [BLK][ds]
-  float* ctx = phi + BLK * ds;   // [BLK][ds]
-  float* gb = ctx + BLK * ds;    // [BLK][2W+1]: g[t, u] at gb[t*bw + u-t+W]
-  const int base = blockIdx.x * BLK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int idx = threadIdx.x; idx < BLK * d; idx += THREADS) {
-    const int t = idx / d, k = idx - t * d;
-    const size_t row = (size_t)walks[base + t] * d + k;
-    phi[t * ds + k] = mxu<RND>(to_f32(emb_in[row]));
-    ctx[t * ds + k] = mxu<RND>(to_f32(emb_out[row]));
+  const int t0 = blockIdx.x * STRIP, base = blockIdx.y * BLK;
+  if (t0 >= L) {  // padding slots: exact zeros, no pairs
+    for (int idx = threadIdx.x; idx < STRIP * d; idx += THREADS) {
+      const size_t o = (size_t)(base + t0) * d + idx;
+      dphi[o] = 0.0f;
+      dctx[o] = 0.0f;
+    }
+    if (threadIdx.x < STRIP) nt[base + t0 + threadIdx.x] = 0.0f;
+    return;
   }
-  for (int idx = threadIdx.x; idx < BLK * bw; idx += THREADS) gb[idx] = 0.0f;
+  const int t1 = min(t0 + STRIP, L), no = t1 - t0;  // the strip's centres
+  const int lo = max(0, t0 - W), hi = min(L, t1 + W), R = hi - lo;
+  const int RM = walk_pos_rows(L, W), ds = walk_pos_stride(d), dp = ds - 4;
+  extern __shared__ float4 pos_smem[];
+  float* phi = reinterpret_cast<float*>(pos_smem);  // [RM][ds]: row lo + r
+  float* ctx = phi + RM * ds;                       // [RM][ds]
+  float* ga = ctx + RM * ds;        // [STRIP][RM]: g[t0 + a, lo + r]
+  float* gb = ga + STRIP * RM;      // [RM][STRIP]: g[lo + r, t0 + a]
+  int* wr = reinterpret_cast<int*>(gb + RM * STRIP);  // [RM] window draws
+  int* rows = wr + RM;              // [RM] table rows
+  int* plist = rows + RM;           // [2 * STRIP * RM] pairs r_t << 16 | r_u
+  __shared__ int npairs;
+
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    rows[r] = walks[base + lo + r];
+    wr[r] = PAIRED ? 1 : min(wrow[base + lo + r], W);
+  }
+  for (int idx = threadIdx.x; idx < 2 * STRIP * RM; idx += THREADS)
+    ga[idx] = 0.0f;  // ga and gb
+  if (threadIdx.x == 0) npairs = 0;
+  __syncthreads();
+  // rows 0..R-1 of emb_in into phi, then the same rows of emb_out into ctx
+  // (ctx follows phi in shared memory)
+  stage_rows<THREADS, 8, T>(
+      2 * R, d, dp,
+      [&](int i) {
+        return i < R ? emb_in + (size_t)rows[i] * d
+                     : emb_out + (size_t)rows[i - R] * d;
+      },
+      [&](int i, int c, float4 v) {
+        *reinterpret_cast<float4*>(phi + (i < R ? i : RM + i - R) * ds + c) =
+            make_float4(mxu<RND>(v.x), mxu<RND>(v.y), mxu<RND>(v.z),
+                        mxu<RND>(v.w));
+      });
+
+  // the pairs: (centre in the strip, any staged u), then (staged centre
+  // outside the strip, u in the strip); a warp appends its pairs with one
+  // shared atomic
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < 2 * no * R; c0 += THREADS) {
+    const int c = c0 + threadIdx.x;
+    int rt = 0, ru = 0;
+    bool ok = false;
+    if (c < no * R) {
+      rt = t0 - lo + c / R;
+      ru = c % R;
+      ok = true;
+    } else if (c < 2 * no * R) {
+      rt = (c - no * R) / no;
+      ru = t0 - lo + (c - no * R) % no;
+      ok = lo + rt < t0 || lo + rt >= t1;  // own centres are counted above
+    }
+    const int t = lo + rt, u = lo + ru;
+    ok = ok && (PAIRED ? u == (t ^ 1) : (u != t && abs(u - t) <= wr[rt]));
+    const unsigned m = __ballot_sync(0xffffffffu, ok);
+    int at = 0;
+    if (lane == 0 && m) at = atomicAdd(&npairs, __popc(m));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (ok) plist[at + __popc(m & ((1u << lane) - 1))] = rt << 16 | ru;
+  }
   __syncthreads();
 
-  float loss = 0.0f, pairs = 0.0f;
-  for (int t = warp; t < BLK; t += NWARPS) {
-    float acc[KMAX];
-#pragma unroll
-    for (int m = 0; m < KMAX; ++m) acc[m] = 0.0f;
-    int n = 0;
-    if (t < L) {
-      const int w = PAIRED ? 1 : min(wrow[base + t], W);
-      const int lo = max(0, t - w), hi = min(L - 1, t + w);
-      for (int u = lo; u <= hi; ++u) {
-        if (u == t || (PAIRED && u != (t ^ 1))) continue;
-        float p = 0.0f;
-#pragma unroll
-        for (int m = 0; m < KMAX; ++m) {
-          const int k = lane + 32 * m;
-          if (k < d) p = fmaf(phi[t * ds + k], ctx[u * ds + k], p);
-        }
-        const float s = warp_sum(p);
-        const float g = mxu<RND>(sigmoid_f(s) - 1.0f);
-        if (lane == 0) {
-          gb[t * bw + (u - t + W)] = g;
-          loss -= log_sigmoid_f(s);
-        }
-#pragma unroll
-        for (int m = 0; m < KMAX; ++m) {
-          const int k = lane + 32 * m;
-          if (k < d) acc[m] = fmaf(g, ctx[u * ds + k], acc[m]);
-        }
-        ++n;
+  const int np = npairs, lane8 = threadIdx.x & 7;
+  float loss = 0.0f;
+  for (int p0 = 0; p0 < np; p0 += THREADS / 8) {
+    const int p = p0 + (threadIdx.x >> 3);
+    const int pr = p < np ? plist[p] : 0;
+    const int rt = pr >> 16, ru = pr & 0xffff;
+    const float4* a = reinterpret_cast<const float4*>(phi + rt * ds);
+    const float4* b = reinterpret_cast<const float4*>(ctx + ru * ds);
+    float s = 0.0f;
+    for (int q = lane8; q < dp / 4; q += 8) {
+      const float4 x = a[q], y = b[q];
+      s = fmaf(x.x, y.x, s);
+      s = fmaf(x.y, y.y, s);
+      s = fmaf(x.z, y.z, s);
+      s = fmaf(x.w, y.w, s);
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (p < np && lane8 == 0) {
+      const float g = mxu<RND>(sigmoid_f(s) - 1.0f);
+      const int t = lo + rt, u = lo + ru;
+      if (t >= t0 && t < t1) {
+        ga[(t - t0) * RM + ru] = g;
+        loss -= log_sigmoid_f(s);
       }
-    }
-#pragma unroll
-    for (int m = 0; m < KMAX; ++m) {
-      const int k = lane + 32 * m;
-      if (k < d) dphi[(size_t)(base + t) * d + k] = acc[m];
-    }
-    if (lane == 0) {
-      nt[base + t] = (float)n;
-      pairs += (float)n;
+      if (u >= t0 && u < t1) gb[rt * STRIP + (u - t0)] = g;
     }
   }
-  __syncthreads();  // the whole band of g is in gb
+  __syncthreads();
 
-  // dctx[u] = sum_t g[t, u] phi[t]  (gb is zero outside each t's window;
-  // PAIRED: only t = u^1 has u in its band)
-  for (int u = warp; u < BLK; u += NWARPS) {
-    float acc[KMAX];
-#pragma unroll
-    for (int m = 0; m < KMAX; ++m) acc[m] = 0.0f;
-    if (u < L) {
-      const int lo = max(0, u - W), hi = min(L - 1, u + W);
-      for (int t = lo; t <= hi; ++t) {
-        if (t == u || (PAIRED && t != (u ^ 1))) continue;
-        const float g = gb[t * bw + (u - t + W)];
-#pragma unroll
-        for (int m = 0; m < KMAX; ++m) {
-          const int k = lane + 32 * m;
-          if (k < d) acc[m] = fmaf(g, phi[t * ds + k], acc[m]);
-        }
+  // dphi[t] = sum_u g[t, u] ctx[u], dctx[u] = sum_t g[t, u] phi[t] over
+  // the band (g is zero outside each centre's window), 4 elements a thread
+  auto fma4 = [](float g, float4 x, float4& y) {
+    y.x = fmaf(g, x.x, y.x);
+    y.y = fmaf(g, x.y, y.y);
+    y.z = fmaf(g, x.z, y.z);
+    y.w = fmaf(g, x.w, y.w);
+  };
+  auto store4 = [&](float* row, int c, float4 v) {
+    if (d % 4 == 0) {
+      *reinterpret_cast<float4*>(row + c) = v;
+      return;
+    }
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    for (int i = 0; i < 4 && c + i < d; ++i) row[c + i] = e[i];
+  };
+  for (int idx = threadIdx.x; idx < STRIP * (dp / 4); idx += THREADS) {
+    const int a = idx / (dp / 4), c = 4 * (idx - a * (dp / 4)), t = t0 + a;
+    float4 gp = make_float4(0.0f, 0.0f, 0.0f, 0.0f), gc = gp;
+    if (t < t1) {
+      const int r1 = min(hi, t + W + 1) - lo;
+      for (int r = max(lo, t - W) - lo; r < r1; ++r) {
+        const float4* cr = reinterpret_cast<const float4*>(ctx + r * ds + c);
+        const float4* pr = reinterpret_cast<const float4*>(phi + r * ds + c);
+        fma4(ga[a * RM + r], *cr, gp);
+        fma4(gb[r * STRIP + a], *pr, gc);
       }
     }
-#pragma unroll
-    for (int m = 0; m < KMAX; ++m) {
-      const int k = lane + 32 * m;
-      if (k < d) dctx[(size_t)(base + u) * d + k] = acc[m];
+    store4(dphi + (size_t)(base + t) * d, c, gp);
+    store4(dctx + (size_t)(base + t) * d, c, gc);
+  }
+  // n_t: the contexts in t's window inside the walk (PAIRED: its partner)
+  float pairs = 0.0f;
+  if (threadIdx.x < STRIP) {
+    const int t = t0 + threadIdx.x;
+    if (t < t1) {
+      const int w = wr[t - lo];
+      pairs = PAIRED ? 1.0f : (float)(min(L - 1, t + w) - max(0, t - w));
     }
+    nt[base + t] = pairs;
   }
   block_add(loss, &stats[0]);
   block_add(pairs, &stats[1]);
@@ -267,20 +360,18 @@ static int walk_groups(T* emb_in, T* emb_out, const int* walks,
                        float lr, float negw, unsigned seed, double* retries,
                        cudaStream_t stream) {
   constexpr bool TB16 = !std::is_same<T, float>::value;
-  if (d > MAX_DIM || L > BLK || W < 1 || R < 1 || (PAIRED && (W != 1 || L % 2)) ||
+  if (d > MAX_DIM || L < 1 || L > BLK || W < 1 || R < 1 ||
+      (PAIRED && (W != 1 || L % 2)) ||
       (TB16 && d % 2))
     return (int)cudaErrorInvalidValue;
-  const size_t pos_smem = walk_pos_smem_bytes(d, W);
-  const size_t neg_smem = negative_smem_bytes(d);
+  const size_t pos_smem = walk_pos_smem_bytes(d, L, W);
   cudaError_t e = cudaFuncSetAttribute(
       walk_pos_kernel<BF16, PAIRED, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pos_smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(negative_kernel<BF16, T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)neg_smem);
+  NegativePass<BF16, T> neg;
+  e = neg.init(d, KP, GROUP);
   if (e != cudaSuccess) return (int)e;
-  const dim3 neg_grid(NBLK, (KP + KC - 1) / KC);
   for (int g = 0; g < G; ++g) {
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* wg = walks + (size_t)g * GROUP;
@@ -288,12 +379,12 @@ static int walk_groups(T* emb_in, T* emb_out, const int* walks,
       stage_pool_kernel<T><<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
       COME_CHECK_LAUNCH();
     }
-    walk_pos_kernel<BF16, PAIRED, T><<<NBLK, THREADS, pos_smem, stream>>>(
-        emb_in, emb_out, wg, PAIRED ? nullptr : wrow + (size_t)g * GROUP, d,
-        L, W, dphi, dctx, nt, stats);
+    walk_pos_kernel<BF16, PAIRED, T>
+        <<<dim3(NSTRIP, NBLK), THREADS, pos_smem, stream>>>(
+            emb_in, emb_out, wg, PAIRED ? nullptr : wrow + (size_t)g * GROUP,
+            d, L, W, dphi, dctx, nt, stats);
     COME_CHECK_LAUNCH();
-    negative_kernel<BF16, T><<<neg_grid, THREADS, neg_smem, stream>>>(
-        emb_in, wg, nt, cneg, d, KP, negw, dphi, dneg, stats);
+    neg.launch(emb_in, wg, nt, cneg, d, KP, negw, dphi, dneg, stats, stream);
     COME_CHECK_LAUNCH();
     const bool end = g % R == R - 1 || g == G - 1;
     if constexpr (TB16) {

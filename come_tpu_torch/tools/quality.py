@@ -1,0 +1,113 @@
+"""Full-depth quality runs on one card: NMI and seconds per outer iteration.
+
+    python -m come_tpu_torch.tools.quality [--runs blogcatalog bench-gen
+        synthetic-10m] [--seed 0]
+
+Trains each named configuration at its preset's full schedule (pretrain 2
++ outer 5) through ``ComETrainer`` on the card and prints one JSON line per
+run: the card's name and power limit, the kernels that launched (by mode),
+seconds per outer iteration (GMM + O1 + O2 + O3, each timed between device
+synchronises by the trainer), O1 and O2 epoch ms and pairs per second, NMI
+after every outer iteration, the wall seconds of the whole run (graph and
+trainer set-up excluded) and the peak of ``torch.cuda.max_memory_allocated()``.
+
+  * ``blogcatalog``: the preset (K1 for O1, K2 for O2);
+  * ``bench-gen``: the reference bench's kernel configuration with walks made
+    in the kernel (``bench.py:207-216``: bf16 products, R 8, 2048-walk steps,
+    ``batch_edges`` 524288; K4 in its bf16 mode and K2b);
+  * ``synthetic-10m``: the large-V preset (K3 on bf16 tables, K2).
+
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+RUNS = ("blogcatalog", "bench-gen", "synthetic-10m")
+
+
+def _config(name: str, ds, seed: int):
+    from come_tpu_torch.config import get_config
+
+    if name == "bench-gen":
+        return get_config("blogcatalog").replace(
+            num_communities=ds.num_communities, walk_kernel_bf16=True,
+            walk_pool_refresh=8, batch_walks=2048, batch_edges=524288,
+            walk_gen="kernel", seed=seed)
+    return get_config(name).replace(num_communities=ds.num_communities,
+                                    seed=seed)
+
+
+def _launch_counts():
+    from come_tpu_torch.ops.star_sgns import star_sgns_step
+    from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
+
+    return {
+        "K1": walk_sgns_step.launches, "K1b": walk_sgns_step.launches_bf16,
+        "K3": walk_sgns_step.launches_bf16_tables
+        + walk_sgns_gen_step.launches_bf16_tables,
+        "K4": walk_sgns_gen_step.launches,
+        "K4+K1b": walk_sgns_gen_step.launches_bf16,
+        "K5": walk_sgns_step.launches_paired,
+        "K2": star_sgns_step.launches, "K2b": star_sgns_step.launches_bf16,
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--runs", nargs="+", default=list(RUNS), choices=RUNS)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("quality: needs a CUDA card")
+
+    from come_tpu_torch.graphs import get_dataset
+    from come_tpu_torch.trainer import ComETrainer
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
+    for name in args.runs:
+        ds = get_dataset("synthetic-10m" if name == "synthetic-10m"
+                         else "blogcatalog")
+        cfg = _config(name, ds, args.seed)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = ComETrainer(ds.graph, cfg, dev)
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        hist = trainer.train(ds.single_labels)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in _launch_counts().items()
+                    if v != before[k]}
+        s_iter = [sum(r[f"{k}_ms"] for k in ("gmm", "o1", "o2", "o3")) / 1e3
+                  for r in hist]
+        rec = hist[-1]
+        print(json.dumps({
+            "card": card, "run": name, "pretrain": cfg.pretrain_epochs,
+            "outer": cfg.outer_iters, "walks_per_node": cfg.walks_per_node,
+            "launches": launched, "s_per_iter": s_iter,
+            "o1_ms": [r["o1_ms"] for r in hist],
+            "o2_ms": [r["o2_ms"] for r in hist],
+            "o1_pairs_per_s": rec["o1_pairs"] / rec["o1_ms"] * 1e3,
+            "o2_pairs_per_s": rec["o2_pairs"] / rec["o2_ms"] * 1e3,
+            "nmi_per_iter": [r["nmi"] for r in hist], "nmi": rec["nmi"],
+            "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        }), flush=True)
+        del trainer
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -93,6 +93,7 @@ def _close_bf16(init, kern, plain, f32):
     (500, 64, 21, 37, 5, 100, 2),
     (400, 96, 24, 128, 10, 64, 1),
     (2000, 128, 40, 80, 10, 512, 3),
+    (1000, 128, 16, 20, 19, 100, 3),
 ])
 def test_walk_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
     g = torch.Generator(device=dev).manual_seed(V)
@@ -114,6 +115,96 @@ def test_walk_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
     _close((emb_in, emb_out), run(walk_sgns_step),
            run(walk_sgns_step_reference))
     assert walk_sgns_step.launches == before + 1
+
+
+# Shapes that stress the band pass's strips of 8 centres and the bf16
+# negative pass's 64-slot x 32-row tiles: the whole walk in the band (W >=
+# L - 1), one slot per walk, an odd L with W wider than a strip, d at its
+# bound 192 and at 2, walks that repeat one row heavily, ragged and large
+# pools (KP 100 and 2048, R 3).
+EDGE_SHAPES = [  # V, d, B, L, W, KP, R, hot
+    (3000, 128, 16, 128, 127, 64, 1, False),
+    (500, 64, 16, 1, 3, 16, 1, False),
+    (2000, 128, 24, 37, 13, 100, 3, False),
+    (2000, 192, 16, 80, 10, 128, 1, False),
+    (2000, 2, 16, 20, 3, 64, 1, False),
+    (2000, 128, 16, 80, 10, 512, 1, True),
+    (20000, 128, 24, 80, 10, 2048, 3, False),
+]
+
+
+def _edge_inputs(dev, V, d, B, L, W, KP, R, hot, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb_in = torch.randn((V, d), generator=g, device=dev) * 0.1
+    emb_out = torch.randn((V, d), generator=g, device=dev) * 0.1
+    walks = torch.randint(0, V, (B, L), generator=g, device=dev,
+                          dtype=torch.int32)
+    if hot:  # every other position of every walk is node 7
+        walks[:, ::2] = 7
+    G = -(-B // 8)
+    wrow = torch.randint(1, W + 1, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    pools = torch.randint(0, V, (-(-G // R), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+    return emb_in, emb_out, walks, wrow, pools
+
+
+# K3 takes the edge shapes on V >= 20000 rows: its check holds a step whose
+# walks repeat few rows (ops/tolerance.py: its CAS loops write a row's
+# repeats within a group in any order, the plain version in slot order).
+# Its float64 emulation of that order already fails the check where rows
+# repeat often: 0.9567 of touched elements identical at V 3000 with W 127,
+# 0.9887 at V 2000 with d 192, and 0.5231 (loss 1.2e-3 apart) with the hot
+# row, so the hot row is held in f32 and bf16 products only.
+EDGE_CASES = [(*shape, mode) for shape in EDGE_SHAPES
+              for mode in ("f32", "bf16", "bf16_tables")
+              if not (shape[-1] and mode == "bf16_tables")]
+
+
+@pytest.mark.parametrize("V,d,B,L,W,KP,R,hot,mode", EDGE_CASES)
+def test_walk_kernel_edge_shapes(dev, V, d, B, L, W, KP, R, hot, mode):
+    """The band pass and the negative pass at their edge shapes, in f32, in
+    bf16 products and on bf16 tables (K3, stochastic rounding), each held
+    to its mode's check; with L = 1 no slot has a pair, and the tables must
+    come back unchanged."""
+    if mode == "bf16_tables":
+        V = max(V, 20000)
+    emb_in, emb_out, walks, wrow, pools = _edge_inputs(
+        dev, V, d, B, L, W, KP, R, hot, V + d + L)
+    init = (emb_in, emb_out)
+    if mode == "bf16_tables":
+        init = tuple(t.to(torch.bfloat16) for t in init)
+
+    def run(fn, tables, **kw):
+        return fn(*[t.clone() for t in tables], walks, wrow, pools, 0.025,
+                  5.0 / KP, window=W, pool_refresh=R, **kw)
+
+    if mode == "f32" or L == 1:
+        kern = run(walk_sgns_step, init, mxu_bf16=mode == "bf16",
+                   sr_seed=77 if mode == "bf16_tables" else None)
+        plain = run(walk_sgns_step_reference, init, mxu_bf16=mode == "bf16",
+                    sr_seed=77 if mode == "bf16_tables" else None)
+        if L == 1:
+            torch.cuda.synchronize()
+            assert float(kern[3]) == float(plain[3]) == 0.0
+            assert float(kern[2]) == 0.0
+            assert all(torch.equal(a, b) for a, b in zip(kern[:2], init))
+            return
+        _close(init, kern, plain)
+    elif mode == "bf16":
+        _close_bf16(init, run(walk_sgns_step, init, mxu_bf16=True),
+                    run(walk_sgns_step_reference, init, mxu_bf16=True),
+                    run(walk_sgns_step_reference, init))
+    else:
+        kern = run(walk_sgns_step, init, sr_seed=77)
+        plain = run(walk_sgns_step_reference, init, sr_seed=77)
+        f32 = run(walk_sgns_step_reference, [t.float() for t in init],
+                  mxu_bf16=True)
+        torch.cuda.synchronize()
+        assert float(kern[3]) == float(plain[3])
+        assert abs(float(kern[2]) - float(plain[2])) <= 1e-4 * abs(
+            float(plain[2]))
+        check_k3("K3", init, kern[:2], plain[:2], f32[:2])
 
 
 @pytest.mark.parametrize("V,d,E,KP,R", [
@@ -225,6 +316,8 @@ def test_trainer_runs_through_both_kernels(dev):
     (34, 16, 16, 20, 5, 100, 2),
     (500, 64, 21, 37, 5, 100, 1),
     (2000, 128, 40, 80, 10, 512, 2),
+    (1000, 128, 16, 20, 19, 100, 3),
+    (20000, 128, 16, 80, 10, 2048, 3),
 ])
 def test_walk_bf16_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
     g = torch.Generator(device=dev).manual_seed(V + 1)
@@ -254,6 +347,7 @@ def test_walk_bf16_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
     (34, 16, 78, 100, 1),
     (600, 64, 9000, 100, 2),
     (3000, 128, 40000, 512, 1),
+    (3000, 128, 40000, 2048, 3),
 ])
 def test_star_bf16_kernel_matches_plain(dev, V, d, E, KP, R):
     rng = np.random.default_rng(V + 2)
@@ -283,6 +377,7 @@ def test_star_bf16_kernel_matches_plain(dev, V, d, E, KP, R):
     (34, 16, 24, 100, 2),
     (600, 64, 40, 100, 1),
     (10312, 128, 512, 512, 2),
+    (3000, 192, 24, 2048, 3),
 ])
 def test_paired_kernel_matches_plain(dev, V, d, n_rows, KP, R, bf16):
     rng = np.random.default_rng(V + n_rows)
@@ -330,6 +425,8 @@ def _graph_with_isolated(V, seed):
     (34, 16, 13, 20, 5, 100, 2),
     (500, 64, 24, 80, 10, 100, 1),
     (5000, 128, 256, 80, 10, 512, 2),
+    (20000, 128, 16, 128, 127, 64, 1),
+    (20000, 128, 24, 37, 13, 2048, 3),
 ])
 def test_gen_kernel_matches_plain(dev, V, d, B, L, W, KP, R, bf16):
     graph = _graph_with_isolated(V, V)
@@ -408,6 +505,8 @@ def test_bench_config_runs_through_its_kernels(dev, walk_gen, ran):
 @pytest.mark.parametrize("V,d,B,L,W,KP,R", [
     (20000, 128, 40, 80, 10, 512, 2),
     (50000, 64, 64, 37, 5, 256, 1),
+    (20000, 128, 16, 128, 127, 2048, 3),
+    (20000, 2, 16, 20, 3, 64, 1),
 ])
 def test_k3_kernel_matches_plain(dev, V, d, B, L, W, KP, R, sr_seed, gen):
     # the degree of the large-V path's graph: walks revisit few rows, whose
@@ -526,6 +625,7 @@ def _probe_stream(dev, V, E, seed):
     (3000, 128, 40000, 512, 8, 32),
     (600, 64, 9000, 100, 2, 8),
     (200, 16, 3000, 16, 1, 128),
+    (3000, 128, 40000, 2048, 3, 32),
 ])
 def test_star_probe_matches_plain(dev, label, off, V, d, E, KP, R, unroll):
     from come_tpu_torch.ops.star_probe import (

@@ -234,4 +234,4 @@ def test_port_imports_without_jax():
         "metrics", "metrics.meters", "metrics.profiling",
         "evaluation.oracle", "evaluation.parity", "ops.smem_probe",
         "ops.star_probe", "ops.floor_probe", "tools.probe_smem",
-        "tools.probe_star", "tools.probe_star_floor")} <= names
+        "tools.probe_star", "tools.probe_star_floor", "tools.quality")} <= names

@@ -72,7 +72,10 @@ def _tables(rng, V, d=128):
 @pytest.mark.parametrize(
     "V,L,W,KP,R",
     [(60, 20, 2, 16, 1), (120, 24, 3, 8, 1), (200, 20, 3, 16, 2),
-     (90, 24, 2, 8, 2)],
+     (90, 24, 2, 8, 2),
+     # the card's band strips are 8 centres: the whole walk in the band
+     # (W >= L - 1), an odd L, and a W wider than a strip
+     (100, 20, 19, 16, 1), (80, 17, 3, 8, 2), (120, 27, 11, 16, 1)],
 )
 def test_walk_plain_matches_pallas_kernel(V, L, W, KP, R):
     rng = np.random.default_rng(V + L)
@@ -97,12 +100,18 @@ def test_walk_plain_matches_pallas_kernel(V, L, W, KP, R):
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("R", [1, 2])
-def test_walk_plain_reduced_window_matches_oracle(R):
+@pytest.mark.parametrize("R,L,W", [
+    pytest.param(1, 20, 3, id="1"), pytest.param(2, 20, 3, id="2"),
+    # the card's band-strip edges: W >= L - 1, odd L, W wider than a strip
+    pytest.param(1, 20, 19, id="1-L20-W19"),
+    pytest.param(2, 17, 3, id="2-L17-W3"),
+    pytest.param(1, 27, 11, id="1-L27-W11"),
+])
+def test_walk_plain_reduced_window_matches_oracle(R, L, W):
     """Reduced windows (the TPU draws them in-kernel; the interpreter can
     only train the full window) against the numpy oracle, same draws."""
-    rng = np.random.default_rng(7 + R)
-    V, L, W, KP = 150, 20, 3, 16
+    rng = np.random.default_rng(7 + R if (L, W) == (20, 3) else 100 + L + W)
+    V, KP = 150, 16
     emb_in, emb_out = _tables(rng, V)
     walks = rng.integers(0, V, (24, L)).astype(np.int32)  # 3 groups
     G = 3
@@ -207,7 +216,10 @@ def test_wrappers_reject_other_devices():
 
 @pytest.mark.parametrize("V,L,W,KP,R", [(60, 20, 2, 16, 1),
                                         (200, 20, 3, 16, 2),
-                                        (120, 24, 3, 8, 1)])
+                                        (120, 24, 3, 8, 1),
+                                        (100, 20, 19, 16, 1),
+                                        (80, 17, 3, 8, 2),
+                                        (120, 27, 11, 16, 1)])
 def test_walk_bf16_plain_matches_pallas_kernel(V, L, W, KP, R):
     rng = np.random.default_rng(V + L + 1)
     emb_in, emb_out = _tables(rng, V)

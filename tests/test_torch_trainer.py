@@ -347,3 +347,28 @@ def test_main_refuses_missing_cuda_and_unported_flags():
     for flags in (["--save", "x.txt"], ["--eval-f1"], ["--resume", "a.npz"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run(build_argparser().parse_args(["--device", "cpu", *flags]))
+
+
+def test_quality_runs_take_the_reference_configurations():
+    """tools/quality.py's runs: the presets at full depth, and the
+    reference bench's kernel configuration (bench.py:207-216) on the
+    blogcatalog preset, which the trainer sends to K4 in its bf16 mode."""
+    from come_tpu_torch.tools import quality
+
+    class _DS:
+        num_communities = 4
+
+    bench = quality._config("bench-gen", _DS, 3)
+    assert (bench.walk_kernel_bf16, bench.walk_pool_refresh,
+            bench.batch_walks, bench.batch_edges, bench.walk_gen,
+            bench.seed) == (True, 8, 2048, 524288, "kernel", 3)
+    for name in ("blogcatalog", "synthetic-10m"):
+        cfg = quality._config(name, _DS, 0)
+        assert (cfg.pretrain_epochs, cfg.outer_iters) == (2, 5)
+        assert cfg.num_communities == 4
+    g, _ = sbm_graph(256, 4, seed=0, avg_degree=10)
+    t = ComETrainer(g, bench.replace(**SMALL, walk_gen="kernel"), "cpu")
+    assert t.o1_gen
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            quality.main(["--runs", "blogcatalog"])
