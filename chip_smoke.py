@@ -25,6 +25,12 @@ non-zero and prints no result line):
                (W >= L - 1, L = 1, odd L with W past a strip, d 192 and 2,
                a heavily repeated row, KP 100 and 2048 with R 3), in f32,
                bf16 products and on bf16 tables, each under its mode's check
+ 4i. star/f32 edges — the star kernel against its plain version, in f32 and
+               bf16, at STAR_EDGES (a hub of degree 300 split at fan-out 32,
+               a single fat hub filling a row, segments dropped to pads
+               mid-row, d 192 and 2, KP 100 with R 3, a ragged last group),
+               and K6 and K7 at FUSED_EDGES (KP 100 and 2048, d 192 and 2,
+               tiles of 64 and 777 pairs, each with one all-masked tile)
   4f. K3     — the walk kernel on bf16 tables at the large-V path's shapes
                (synthetic-10m: V 500000, d 128, 1024 walks of 80, W 10, KP
                2048, R 1, 128 groups), with stochastic rounding and in
@@ -39,7 +45,11 @@ non-zero and prints no result line):
                microseconds per group of each pass of the walk group loop,
                by torch.profiler: band (walk_pos_kernel), negative
                (negative_f32_kernel or negative_bf16_kernel), scatter, stage
-               (pool staging) and pool apply)
+               (pool staging) and pool apply, and the K1 and K3 lines the
+               device busy share of one step; the K2 and K2b bench lines
+               those of the star group loop, star (star_pos_kernel) in the
+               band's place, and the K6 line those of a tile: positive,
+               negative and scatter; come_tpu_torch/tools/pass_times.py)
   5. main    — come_tpu_torch.main on --dataset blogcatalog (pretrain 1,
                outer 1) on cuda, with the kernels' launch counters reset
                just before and read just after
@@ -98,10 +108,10 @@ published peaks); and last
 
 Tolerance of the kernel checks, on each table element's update (table after
 the step minus before): |upd_kernel - upd_plain| <= 1e-6 + 1e-4 |upd_plain|
-(f32; the kernel adds duplicate rows with atomicAdd, whose order varies from
-run to run, which moves an update by ~1e-7; a TF32 or bf16 negative pass
-moves it by 1e-5 to 1e-4 and fails), loss within rtol 1e-4, pair counts
-exact.  K4 and K5 in f32 take this tolerance.  The bf16 modes take their
+(f32; atomic merges, whose order varies from run to run, move an update by
+~1e-7; a TF32 or bf16 negative pass moves it by 1e-5 to 1e-4 and fails),
+loss within rtol 1e-4, pair counts exact; phase 4h's hot-row shape takes
+the same check against its plain step in float64 (EDGE_SHAPES' note).  K4 and K5 in f32 take this tolerance.  The bf16 modes take their
 own (come_tpu_torch/ops/tolerance.py, where its readings are): a product of
 two bf16 values is exact in f32, so the kernel and its plain version differ
 only in the order of their f32 sums; where two orders straddle a rounding
@@ -129,7 +139,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -159,6 +168,11 @@ KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 # write a row's repeats within a group in any order (ops/tolerance.py); its
 # float64 emulation of that order fails the check with the hot row (0.52 of
 # touched elements identical), so that shape runs in f32 and bf16 only.
+# In f32 the hot row's step is held against the plain version run in
+# float64 (acc): the plain f32 step's own rounding there reaches 0.91 of
+# the f32 bound (worst of 5 runs on an H100), so two f32 steps that round
+# in different orders fail it in a share of runs; the kernel, whose scatter
+# sums a row's slots in f64, reads 0.18 of it against the float64 step.
 EDGE_SHAPES = [
     (3000, 128, 16, 128, 127, 64, 1, False),
     (500, 64, 16, 1, 3, 16, 1, False),
@@ -169,6 +183,60 @@ EDGE_SHAPES = [
     (20000, 128, 24, 80, 10, 2048, 3, False),
 ]
 
+# Phase 4i's star layouts (V, d, E, KP, R, layout): see star_edge_layout;
+# d at its bound 192 and at 2, a ragged and a small pool (KP 100, R 3).
+STAR_EDGES = [
+    (3000, 128, 20000, 512, 1, "hub"),
+    (400, 128, 150, 64, 1, "fat"),
+    (3000, 128, 20000, 512, 1, "pads"),
+    (2000, 192, 12000, 128, 1, "random"),
+    (2000, 2, 12000, 64, 1, "random"),
+    (2000, 128, 12000, 100, 3, "random"),
+    (2000, 128, 9000, 512, 2, "ragged"),
+]
+# Phase 4i's K6/K7 shapes (V, d, P, TP, KP): pools of 100 and 2048 rows, d
+# 192 and 2, tiles of 64 and 777 pairs; the second tile is all masked.
+FUSED_EDGES = [
+    (2000, 128, 3000, 64, 100),
+    (2000, 128, 3000, 777, 2048),
+    (2000, 192, 3000, 777, 512),
+    (2000, 2, 3000, 64, 100),
+]
+
+
+def star_edge_layout(V, E, layout, seed, max_fanout=32):
+    """(slots, meta) of a star layout on E random edges of V nodes, its
+    segments split at ``max_fanout``: "random" as they come; "hub" with
+    node 0 joined to 300 more nodes; "fat" only node 0 and 150 neighbours
+    at max_fanout 127 (one segment fills a row); "pads" with every third
+    segment dropped to pads (pads mid-row); "ragged" cut to 8k + 5 rows (a
+    ragged last group).  The tests build their star layouts here too."""
+    from come_tpu_torch.sampling import build_star_layout
+    from come_tpu_torch.sampling.stars import PAD_META
+
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, V, E)
+    v = (u + 1 + rng.integers(0, V - 1, E)) % V
+    fanout = max_fanout
+    if layout == "hub":
+        u = np.concatenate([u, np.zeros(300, np.int64)])
+        v = np.concatenate([v, 1 + rng.choice(V - 1, 300, replace=False)])
+    elif layout == "fat":
+        u, v, fanout = np.zeros(150, np.int64), np.arange(1, 151), 127
+    slots, meta = build_star_layout(u, v, V, max_fanout=fanout)
+    if layout == "pads":
+        seg = np.where(meta >= 0, np.arange(meta.size) // 128 * 128
+                       + (meta >> 1), -1)
+        drop = np.isin(seg, seg[(meta >= 0) & (meta & 1 == 1)][1::3])
+        slots = np.where(drop, 0, slots).astype(np.int32)
+        meta = np.where(drop, PAD_META, meta).astype(np.int32)
+    elif layout == "ragged":
+        rows = meta.size // 128
+        keep = 128 * (rows - (rows - 5) % 8)
+        slots, meta = slots[:keep], meta[:keep]
+    return slots, meta
+
+
 _LAST = [time.perf_counter()]
 
 
@@ -176,55 +244,6 @@ def phase(name: str, msg: str) -> None:
     now = time.perf_counter()
     print(f"[{name}] {msg} ({now - _LAST[0]:.1f} s)", flush=True)
     _LAST[0] = now
-
-
-def device_us(fn, ids, kernel=None, required=True):
-    """Device microseconds per call of ``fn(i)`` over ``ids``, summed over
-    the CUDA kernels whose name holds ``kernel`` (every kernel with None;
-    torch.profiler): at small sizes a call's host overhead outlasts its
-    kernel, and CUDA events then time the host.  A tuple of names gives a
-    tuple of sums from the one profiled run.  A kernel that no session
-    records raises, or reads None where ``required`` is False."""
-    from torch.profiler import ProfilerActivity, profile
-
-    names = kernel if isinstance(kernel, tuple) else (kernel,)
-    fn(ids[0])
-    torch.cuda.synchronize()
-    # up to four sessions: late in this script a short profiler session on
-    # the H100 may record no kernel (P1's 262144-row f32 sessions, often)
-    for attempt in range(4):
-        if attempt:
-            time.sleep(0.5)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in ids:
-                fn(i)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        sums = [sum(e.device_time_total for e in events
-                    if k is None or k in e.key) / len(ids) for k in names]
-        if min(sums) > 0:
-            return tuple(sums) if isinstance(kernel, tuple) else sums[0]
-    missing = [k or "CUDA" for k, t in zip(names, sums) if t <= 0]
-    if required:
-        raise AssertionError(f"the profiler saw no {missing} kernel")
-    sums = [t if t > 0 else None for t in sums]
-    return tuple(sums) if isinstance(kernel, tuple) else sums[0]
-
-
-# the walk kernel's group loop by pass: (name, substring of its CUDA kernel)
-PASSES = (("band", "walk_pos_kernel"), ("negative", "negative_"),
-          ("scatter", "walk_scatter"), ("stage", "stage_pool"),
-          ("pool apply", "apply_pool"))
-
-
-def pass_split(fn, groups: int):
-    """Device microseconds per group of each pass of the walk group loop
-    over two calls of ``fn`` (a walk-kernel step of ``groups`` groups), as
-    text, and the device microseconds per call of every kernel it runs."""
-    *us, total = device_us(lambda i: fn(), [0, 1],
-                           tuple(k for _, k in PASSES) + (None,))
-    return ", ".join(f"{name} {t / groups:.2f}"
-                     for (name, _), t in zip(PASSES, us)), total
 
 
 def bound(flops: float, nbytes: float, bf16: bool):
@@ -285,29 +304,16 @@ def pairs_bound(c, x, m, pool, d, tied):
     return bound(flops, nbytes, False)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event milliseconds of ``fn()`` after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def compare(name, init, kern, plain):
     """Max abs / rel errors of the kernel's table updates (tables after the
     step minus ``init``) against the plain version's; raises past the
-    stated tolerance."""
+    stated tolerance.  A plain step in float64 (``acc``) is compared in
+    float64."""
     *k_tabs, k_loss, k_pairs = kern
     *p_tabs, p_loss, p_pairs = plain
     max_abs = max_rel = 0.0
     for t0, a, b in zip(init, k_tabs, p_tabs):
+        t0, a = t0.to(b.dtype), a.to(b.dtype)
         du = b - t0
         err = ((a - t0) - du).abs()
         max_abs = max(max_abs, float(err.max()))
@@ -419,6 +425,14 @@ def main() -> int:
         skipgram_pairs,
         subsample_keep_probs,
     )
+    from come_tpu_torch.tools.pass_times import (
+        FUSED_PASSES,
+        STAR_PASSES,
+        cuda_ms,
+        device_us,
+        pass_split,
+        split_text,
+    )
     from come_tpu_torch.trainer import ComETrainer
 
     # each kernel (mode) and the wrapper attribute that counts its launches
@@ -491,12 +505,25 @@ def main() -> int:
     k1_ms = cuda_ms(lambda: k1(walk_sgns_step))
     k1_plain_ms = cuda_ms(lambda: k1(walk_sgns_step_reference))
     k1_bound = walk_bound(walks, pools, float(kern[3]), d, 4, False)
+    # the passes of a K1 step and the card's busy share of one: the device
+    # time of every kernel the step launches over its CUDA-event time (on
+    # tables it updates in place, no clones), as K3's below
+    tabs = [emb_in.clone(), emb_out.clone()]
+
+    def k1_step():
+        walk_sgns_step(*tabs, walks, wrow, pools, lr, negw, window=W,
+                       pool_refresh=1)
+
+    step_ms = cuda_ms(k1_step)
+    k1_split, k1_dev_us = pass_split(k1_step, G)
+    del tabs
     phase("K1", f"walk_sgns V={V} d={d} B={B} L={L} W={W} KP={KP} R=1 "
                 f"G={G}: max_abs {k1_err[0]:.3e} max_rel {k1_err[1]:.3e} "
                 f"loss_rel {k1_err[2]:.3e} pairs {float(kern[3]):.0f} | "
                 f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms "
                 f"(tol {ATOL} + {RTOL}*|plain update|) | device us per "
-                f"group: {pass_split(lambda: k1(walk_sgns_step), G)[0]}")
+                f"group: {split_text(k1_split)} | one K1 step {step_ms:.3f} "
+                f"ms, device busy {k1_dev_us / (step_ms * 1e3):.1%}")
 
     # 3b. K1b: the same inputs in the bf16 mode
     def k1b(fn):
@@ -538,7 +565,9 @@ def main() -> int:
                 f"G={G2}: max_abs {k2_err[0]:.3e} max_rel {k2_err[1]:.3e} "
                 f"loss_rel {k2_err[2]:.3e} pairs {float(kern2[2]):.0f} | "
                 f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
-                f"(tol {ATOL} + {RTOL}*|plain update|)")
+                f"(tol {ATOL} + {RTOL}*|plain update|) | device us per "
+                f"group: " + split_text(pass_split(
+                    lambda: k2(star_sgns_step), G2, STAR_PASSES)[0]))
 
     # 4b. K2b: the same inputs in the bf16 mode
     def k2b(fn):
@@ -655,7 +684,8 @@ def main() -> int:
                        f"{tuple(pools_b.shape)}: "
                        + bf16_line(k1bb_err, k1bb_ms, k1bb_plain_ms)
                        + " | device us per group: "
-                       + pass_split(lambda: k1b_bench(walk_sgns_step), GB)[0])
+                       + split_text(pass_split(
+                           lambda: k1b_bench(walk_sgns_step), GB)[0]))
 
     def k4_bench(fn, bf16=True):
         return fn(emb_in.clone(), emb_out.clone(), starts_b, bits_b,
@@ -709,7 +739,11 @@ def main() -> int:
     k2bb_plain_ms = cuda_ms(lambda: k2b_bench(star_sgns_step_reference))
     phase("K2b bench", f"star_sgns bf16 T={sl_b.numel()} R={RB} G={G2B} "
                        f"pools {tuple(pools2_b.shape)} (one step): "
-                       + bf16_line(k2bb_err, k2bb_ms, k2bb_plain_ms))
+                       + bf16_line(k2bb_err, k2bb_ms, k2bb_plain_ms)
+                       + " | device us per group: "
+                       + split_text(pass_split(
+                           lambda: k2b_bench(star_sgns_step), G2B,
+                           STAR_PASSES)[0]))
     del emb_in, emb_out, kern, plain, f32
     torch.cuda.empty_cache()
 
@@ -747,8 +781,12 @@ def main() -> int:
             bf = mode == "bf16"
             seed = 77 if mode == "bf16_tables" else None
             kern = edge(walk_sgns_step, init, mxu_bf16=bf, sr_seed=seed)
-            plain = edge(walk_sgns_step_reference, init, mxu_bf16=bf,
-                         sr_seed=seed)
+            if hot and mode == "f32":  # float64 (EDGE_SHAPES' note)
+                plain = edge(walk_sgns_step_reference,
+                             [t.double() for t in init], acc=torch.float64)
+            else:
+                plain = edge(walk_sgns_step_reference, init, mxu_bf16=bf,
+                             sr_seed=seed)
             torch.cuda.synchronize()
             name = f"edge {mode} V={Vm} d={de} L={Le} W={We} KP={KPe} R={Re}"
             if Le == 1:  # no pairs: nothing may move
@@ -775,6 +813,58 @@ def main() -> int:
             del kern, plain, init
     phase("edges", "walk kernel vs plain (f32 max_abs, bf16 rel_l2, "
                    "bf16_tables identical share): " + "; ".join(edge_lines))
+    torch.cuda.empty_cache()
+
+    # 4i. the star kernel at layouts that stress its strips (fat and split
+    # hubs, pads mid-row, a ragged last group) and the f32 negative pass's
+    # tiles (d 192 and 2, KP 100 and 2048, ragged and all-masked tiles), in
+    # f32 and bf16 products, each held to its mode's check
+    edge_lines = []
+    for (Ve, de, Ee, KPe, Re, layout) in STAR_EDGES:
+        se, me = (torch.as_tensor(a, device=dev) for a in
+                  star_edge_layout(Ve, Ee, layout, Ve + de))
+        ge = torch.Generator(device=dev).manual_seed(Ve + de)
+        init = torch.randn((Ve, de), generator=ge, device=dev) * 0.1
+        Ge = -(-se.numel() // NWL)
+        pe = torch.randint(0, Ve, (-(-Ge // Re), KPe), generator=ge,
+                           device=dev, dtype=torch.int32)
+
+        def star_edge(fn, bf):
+            return fn(init.clone(), se, me, pe, lr, 5.0 / KPe,
+                      pool_refresh=Re, mxu_bf16=bf)
+
+        name = f"star edge {layout} V={Ve} d={de} KP={KPe} R={Re} G={Ge}"
+        plain = star_edge(star_sgns_step_reference, False)
+        err = compare(name, (init,), star_edge(star_sgns_step, False), plain)
+        err_b = compare_bf16(name + " bf16", (init,),
+                             star_edge(star_sgns_step, True),
+                             star_edge(star_sgns_step_reference, True),
+                             plain[:1])
+        edge_lines.append(f"{layout} d{de} KP{KPe} R{Re} G{Ge} pairs "
+                          f"{float(plain[2]):.0f}: f32 {err[0]:.3g}, bf16 "
+                          f"{err_b[1]:.3g}")
+    for (Ve, de, Pe, TPe, KPe) in FUSED_EDGES:
+        ge = torch.Generator(device=dev).manual_seed(Ve + Pe + de)
+        init = [torch.randn((Ve, de), generator=ge, device=dev) * 0.1
+                for _ in range(2)]
+        ce, xe, pe = (torch.randint(0, Ve, (n,), generator=ge, device=dev,
+                                    dtype=torch.int32) for n in (Pe, Pe, KPe))
+        me = (torch.rand(Pe, generator=ge, device=dev) < 0.6).float()
+        me[TPe:2 * TPe] = 0.0
+        kw = dict(tile_pairs=TPe)
+        name = f"fused edge d={de} P={Pe} TP={TPe} KP={KPe}"
+        err6 = compare("K6 " + name, init, fused_sgns_step(
+            *[t.clone() for t in init], ce, xe, pe, me, lr, 5.0 / KPe, **kw),
+            fused_sgns_step_reference(*[t.clone() for t in init], ce, xe, pe,
+                                      me, lr, 5.0 / KPe, **kw))
+        err7 = compare("K7 " + name, init[:1], fused_sgns_step_tied(
+            init[0].clone(), ce, xe, pe, me, lr, 5.0 / KPe, **kw),
+            fused_sgns_step_tied_reference(init[0].clone(), ce, xe, pe, me,
+                                           lr, 5.0 / KPe, **kw))
+        edge_lines.append(f"K6/K7 d{de} TP{TPe} KP{KPe}: {err6[0]:.3g}, "
+                          f"{err7[0]:.3g}")
+    phase("star/f32 edges", "vs plain (f32 max_abs, bf16 rel_l2): "
+                            + "; ".join(edge_lines))
     torch.cuda.empty_cache()
 
     def large_v_kernels():
@@ -863,6 +953,7 @@ def main() -> int:
 
         step_ms = cuda_ms(k3_step)
         k3_split, k3_dev_us = pass_split(k3_step, G)
+        k3_split = split_text(k3_split)
         busy = k3_dev_us / (step_ms * 1e3)
         del tabs
         phase("K3", f"walk_sgns bf16 tables V={V} d={d} B={B} L={L} W={W} "
@@ -1027,7 +1118,9 @@ def main() -> int:
                 f"(32 tiles): max_abs {k6_err[0]:.3e} max_rel "
                 f"{k6_err[1]:.3e} loss_rel {k6_err[2]:.3e} pairs "
                 f"{float(kern6[3]):.0f} | kernel {k6_ms:.3f} ms, plain "
-                f"{k6_plain_ms:.3f} ms (tol {ATOL} + {RTOL}*|plain update|)")
+                f"{k6_plain_ms:.3f} ms (tol {ATOL} + {RTOL}*|plain update|) "
+                f"| device us per tile: " + split_text(pass_split(
+                    lambda: k6(fused_sgns_step), 32, FUSED_PASSES)[0]))
 
     # 7. K7 on the tied table: 32768 shuffled arcs
     src, dst = (torch.as_tensor(a, device=dev) for a in ds.graph.arcs())

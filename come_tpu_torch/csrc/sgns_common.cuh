@@ -16,29 +16,38 @@
 // other cost is merging the partial sums of dphi and dneg across CTAs.
 // NegativePass<BF16, T> owns each instance's grid and shared memory, so the
 // callers (walk_sgns.cu, star_sgns.cu, star_probe.cu, sgns_fused.cu) only
-// launch it.
+// launch it.  Both instances share one structure: a CTA stages 64 slots'
+// rows (16-byte loads, many in flight per thread) and walks several 32-row
+// pool chunks, loading the next chunk's rows into registers while it
+// computes the current one and keeping its dphi in registers across them,
+// so the grid is (slots / 64) x (pool splits), sized to the CTAs that fit
+// on the card at once (by the kernel's occupancy: 2-3 an SM); dphi is
+// merged once per CTA and dneg once per chunk, by 16-byte f32 atomics.
 //
-//   * f32 (negative_f32_kernel: K1, K2, K5, K6, K7): a shared-memory tiled
-//     SIMT product in full f32, one CTA per (128-slot block, 64-row pool
-//     chunk), partial sums merged by float atomics.  Its checks allow no
-//     TF32, so it stays off the tensor cores.
+//   * f32 (negative_f32_kernel: K1, K2, K5, K6, K7): every product and sum
+//     in f32 on the SIMT units (FFMA; its checks allow no TF32).  Each of
+//     the 128 threads computes a register tile of each product (scores 4 x
+//     4, dphi 8 slots x 8 or 12 columns, dneg 4 pool rows x the same
+//     columns) from float4 shared-memory reads, so a thread issues 10-11
+//     FFMA per 16-byte read; g is kept both by slot and by pool row, so
+//     every read of it is a float4 too.  A tile whose slots all have nt = 0
+//     (star pads, K6's masked tail) returns at once.
 //   * bf16 (negative_bf16_kernel: K1b, K4 with bf16, K2b, P3; K3 on bf16
 //     tables): the TPU's mxu_bf16=True mode, where every product operand is
 //     bf16 and every sum f32, which is exactly what mma.sync.m16n8k16 bf16
-//     with f32 accumulation computes.  A CTA stages 64 slots' rows and each
-//     32-row pool chunk as bf16 (half the bytes; 16-byte loads, many in
-//     flight per thread) and runs the three products on the tensor cores (4
+//     with f32 accumulation computes.  Rows and chunks are staged as bf16
+//     (half the bytes) and the three products run on the tensor cores (4
 //     warps of 16 rows), reading the transposed operands of dphi and dneg
 //     through ldmatrix .trans instead of keeping transposed copies.  g is
 //     made in f32 from the f32 score, rounded to bf16 as the TPU rounds
-//     gneg, and kept in shared memory.  A CTA walks several pool chunks,
-//     loading the next chunk's rows while it computes the current one, and
-//     keeps its dphi in registers across them, so the grid is (slots / 64)
-//     x (pool splits), sized to the CTAs that fit on the card at once (3 per
-//     SM for d <= 128); dphi and dneg are merged by 16-byte f32 atomics
-//     (two lanes pool their mma fragments).  What bounds it on the card is
-//     not the mma work but the latency of each chunk's steps and the
-//     merging of partial sums (PERF.md).
+//     gneg, and kept in shared memory; two lanes pool their mma fragments
+//     into one 16-byte atomic.
+// What bounds either on the card is not its arithmetic alone but the
+// latency of each chunk's steps and the merging of partial sums (PERF.md).
+// The group loops give the pass a dphi buffer of its own, zeroed by the
+// positive pass, and their scatter adds the two parts once, as the plain
+// versions add them: partial sums added onto the positive part would each
+// round at its magnitude, which on a heavily repeated row is far larger.
 //
 // K3 (bf16 tables) reads rows through to_f32 (the stage kernel and the bf16
 // negative kernel are templated on the table's element type) and writes
@@ -48,6 +57,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -58,7 +68,6 @@ namespace come {
 constexpr int BLK = 128;       // slots per block (one walk / one star row)
 constexpr int GROUP = 1024;    // slots per group (8 blocks), TPU order unit
 constexpr int NBLK = GROUP / BLK;
-constexpr int KC = 64;         // pool rows per negative-pass CTA
 constexpr int THREADS = 256;   // 8 warps
 constexpr int NWARPS = THREADS / 32;
 constexpr int KMAX = 8;        // d <= 32 * KMAX for per-lane accumulators
@@ -211,6 +220,42 @@ static __device__ __forceinline__ void stage_rows(int nrows, int d, int dp,
   }
 }
 
+// y += g * x, element by element.
+static __device__ __forceinline__ void fma4(float g, float4 x, float4& y) {
+  y.x = fmaf(g, x.x, y.x);
+  y.y = fmaf(g, x.y, y.y);
+  y.z = fmaf(g, x.z, y.z);
+  y.w = fmaf(g, x.w, y.w);
+}
+
+// row[c..c+3] = v, or its elements below d (c < d, a multiple of 4): one
+// 16-byte store when d % 4 == 0.
+static __device__ __forceinline__ void store4(float* row, int d, int c,
+                                              float4 v) {
+  if (d % 4 == 0) {
+    *reinterpret_cast<float4*>(row + c) = v;
+    return;
+  }
+  row[c] = v.x;
+  if (c + 1 < d) row[c + 1] = v.y;
+  if (c + 2 < d) row[c + 2] = v.z;
+  if (c + 3 < d) row[c + 3] = v.w;
+}
+
+// row[c..c+3] += v atomically, as store4 writes: one 16-byte atomic when
+// d % 4 == 0.
+static __device__ __forceinline__ void atomic_add4(float* row, int d, int c,
+                                                   float4 v) {
+  if (d % 4 == 0) {
+    atomicAdd(reinterpret_cast<float4*>(row + c), v);
+    return;
+  }
+  atomicAdd(row + c, v.x);
+  if (c + 1 < d) atomicAdd(row + c + 1, v.y);
+  if (c + 2 < d) atomicAdd(row + c + 2, v.z);
+  if (c + 3 < d) atomicAdd(row + c + 3, v.w);
+}
+
 // cneg[k] = table[pool[k]] (widened to f32); dneg[k] = 0.
 // grid KP, block 128.
 template <typename T>
@@ -268,154 +313,262 @@ static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* __restrict__ table,
   if (n) atomicAdd(retries, (double)n);
 }
 
-// Shared-memory bytes of negative_f32_kernel for width d.
-static inline size_t negative_smem_bytes(int d) {
-  return sizeof(float) * ((size_t)(BLK + KC) * (d + 1) + (size_t)BLK * (KC + 1));
+// ------------------------------------------------ the negative pass's tiles
+
+constexpr int NEG_MS = 64;        // slots per CTA
+constexpr int NEG_KC = 32;        // pool rows per chunk
+constexpr int NEG_THREADS = 128;
+
+// The pool splits ny of a pass over `tiles` slot tiles and `nch` pool
+// chunks when `fit` CTAs fit on the card at once: CTA (x, y) walks chunks
+// y, y + ny, ... of tile x, each CTA as few (`per`) as fill the card.
+// tests/test_torch_star_pass.py repeats it.
+static inline int neg_pool_splits(int tiles, int nch, int fit) {
+  const int per = (nch * tiles + fit - 1) / fit;
+  return (nch + per - 1) / per;
 }
 
-// f32 negative pass of one 128-slot block against one KC-row pool chunk.
-// grid (blocks, ceil(KP / KC)), block THREADS.
+// ------------------------------------------------ f32 pass (SIMT FFMA)
+
+// Staged f32 rows: d rounded up to a float4, + 4 floats of stride, so rows
+// stay 16-byte aligned and float4 reads of 8 consecutive rows at one column
+// fall in distinct banks (d a multiple of 32).
+static __host__ __device__ inline int negf_stride(int d) {
+  return ((d + 3) & ~3) + 4;
+}
+constexpr int NEGF_GS = NEG_KC + 4;  // g by slot:      [MS][KC + 4]
+constexpr int NEGF_GT = NEG_MS + 4;  // g by pool row:  [KC][MS + 4]
+constexpr int NEGF_CMAX = 8;         // the largest cluster (portable size)
+
+static inline size_t negative_f32_smem_bytes(int d) {
+  return sizeof(float) * ((size_t)(NEG_MS + NEG_KC) * negf_stride(d) +
+                          NEG_MS * NEGF_GS + NEG_KC * NEGF_GT + NEG_MS);
+}
+
+// f32 negative pass of one 64-slot tile against the pool chunks
+// blockIdx.y, blockIdx.y + ny, ... (32 rows each).  grid (slots / 64, ny),
+// block NEG_THREADS, launched in clusters of C = 1, 2, 4 or 8 CTAs along y
+// (C divides ny); NP = 2 takes d <= 128, NP = 3 d <= 192.
 //   phi[i]  = table[ids[i]]           (the slot's staged row)
 //   s[i,j]  = phi[i] . cneg[j]
-//   g[i,j]  = sigmoid(s) * negw * nt[i]
-//   dphi[i] += g[i,:] @ cneg          (atomic: KP / KC chunks add)
-//   dneg[j] += g[:,j]^T @ phi         (atomic: every block of the R-block)
-// and adds -negw * nt[i] * log(sigmoid(-s)) to stats[0].
-// Thread tiles: scores 8 rows x 4 columns; dphi 8 rows x 8 columns and
-// dneg 4 rows x 8 columns per 128-column chunk of d.  Rows are stored with
-// stride d+1 so column walks by neighbouring threads hit distinct banks.
-static __global__ void __launch_bounds__(THREADS)
+//   g[i,j]  = sigmoid(s) * negw * nt[i]   (0 for pool rows j >= KP)
+//   dphi[i] += g[i,:] @ cneg          (once per cluster, atomic; slots with
+//                                      nt = 0 get exactly no write)
+//   dneg[j] += g[:,j]^T @ phi         (atomic, once per chunk; rows >= KP
+//                                      are staged as zeros, never written)
+// and adds -negw * nt[i] * log(sigmoid(-s)) (j < KP) to stats[0].  Thread
+// t's register tiles: scores of slots 4 (t / 8) + r and pool rows t % 8 +
+// 8 c (r, c < 4), read as float4 along d; dphi of slots 8 (t / 16) + r (r
+// < 8) and dneg of pool rows 4 (t / 16) + r (r < 4), both at the columns
+// 4 (t % 16) + 64 p (p < NP, a float4 each), so the 8 lanes of a
+// quarter-warp read 8 neighbouring float4 of one row or one float4 of 8
+// rows 4 banks apart.  A cluster's CTAs share the tile: each writes its dphi
+// partial to its shared memory, and CTA q of the cluster sums slots
+// 64 q / C.. of every CTA's partial (distributed shared memory) in f64, in
+// rank order, and adds the sum once: few rounded adds, in a fixed order,
+// where one atomic add per CTA would round each partial at the running
+// sum's magnitude.  A tile whose slots all have nt = 0 returns at once
+// (every CTA of its cluster).
+template <int NP>
+static __global__ void __launch_bounds__(NEG_THREADS, NP == 2 ? 3 : 2)
 negative_f32_kernel(const float* __restrict__ table,
                     const int* __restrict__ ids, const float* __restrict__ nt,
-                    const float* __restrict__ cneg, int d, int KP, float negw,
-                    float* __restrict__ dphi, float* __restrict__ dneg,
-                    double* __restrict__ stats) {
-  extern __shared__ float smem[];
-  const int ds = d + 1;
-  float* ph = smem;                 // [BLK][ds]
-  float* cn = ph + BLK * ds;        // [KC][ds]
-  float* gs = cn + KC * ds;         // [BLK][KC + 1]
-  __shared__ float nts[BLK];
-  const int base = blockIdx.x * BLK;
-  const int j0 = blockIdx.y * KC;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  for (int idx = threadIdx.x; idx < BLK * d; idx += THREADS) {
-    const int i = idx / d, k = idx - i * d;
-    ph[i * ds + k] = table[(size_t)ids[base + i] * d + k];
+                    const float* __restrict__ cneg, int d, int KP, int ny,
+                    float negw, float* __restrict__ dphi,
+                    float* __restrict__ dneg, double* __restrict__ stats) {
+  extern __shared__ float4 negf_smem[];
+  const int sa = negf_stride(d), dp = sa - 4;
+  float* ph = reinterpret_cast<float*>(negf_smem);  // [MS][sa]
+  float* cn = ph + NEG_MS * sa;                     // [KC][sa]
+  float* gs = cn + NEG_KC * sa;                     // [MS][GS]
+  float* gt = gs + NEG_MS * NEGF_GS;                // [KC][GT]
+  float* nts = gt + NEG_KC * NEGF_GT;               // [MS]
+  __shared__ int rows[NEG_MS];
+  const int base = blockIdx.x * NEG_MS, t = threadIdx.x;
+  const int nch = (KP + NEG_KC - 1) / NEG_KC;
+  auto pool_row = [&](int ch) {
+    return [=](int j) {
+      const int k = ch * NEG_KC + j;
+      return k < KP ? cneg + (size_t)k * d : nullptr;
+    };
+  };
+  constexpr int CU = 4 * NP;  // a chunk's float4 pieces per thread
+  float4 next[CU];
+  load_batch<NEG_THREADS, CU, float>(next, t, NEG_KC, d, dp,
+                                     pool_row(blockIdx.y));
+  float own = 0.0f;
+  if (t < NEG_MS) {
+    own = nt[base + t];
+    nts[t] = own;
+    rows[t] = ids[base + t];
   }
-  for (int idx = threadIdx.x; idx < KC * d; idx += THREADS) {
-    const int j = idx / d, k = idx - j * d;
-    cn[j * ds + k] = (j0 + j < KP) ? cneg[(size_t)(j0 + j) * d + k] : 0.0f;
-  }
-  if (threadIdx.x < BLK) nts[threadIdx.x] = nt[base + threadIdx.x];
-  __syncthreads();
+  if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
+  stage_rows<NEG_THREADS, 8, float>(
+      NEG_MS, d, dp, [&](int i) { return table + (size_t)rows[i] * d; },
+      [&](int i, int c, float4 v) {
+        *reinterpret_cast<float4*>(ph + i * sa + c) = v;
+      });
 
-  // scores and their gradient weights
-  float s[8][4];
+  const int sr = t >> 3, sc = t & 7, rg = t >> 4, cg = t & 15;
+  float4 acc[8][NP];  // dphi of slots 8 rg + r
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
-  for (int k = 0; k < d; ++k) {
-    float a[8], b[4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) a[r] = ph[(ty * 8 + r) * ds + k];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = cn[(tx + 16 * c) * ds + k];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
-  }
+    for (int p = 0; p < NP; ++p) acc[r][p] = make_float4(0.f, 0.f, 0.f, 0.f);
   float loss = 0.0f;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = ty * 8 + r;
-    const float w = negw * nts[i];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = tx + 16 * c;
-      float g = 0.0f;
-      if (j0 + j < KP && w != 0.0f) {
-        g = sigmoid_f(s[r][c]) * w;
-        loss -= w * log_sigmoid_f(-s[r][c]);
-      }
-      gs[i * (KC + 1) + j] = g;
-    }
-  }
-  __syncthreads();
+  for (int ch = blockIdx.y; ch < nch; ch += ny) {
+    const int j0 = ch * NEG_KC;
+    __syncthreads();  // the staging above, or the last chunk's reads
+    store_batch<NEG_THREADS, CU>(
+        next, t, NEG_KC, dp, [&](int j, int c, float4 v) {
+          *reinterpret_cast<float4*>(cn + j * sa + c) = v;
+        });
+    if (ch + ny < nch)
+      load_batch<NEG_THREADS, CU, float>(next, t, NEG_KC, d, dp,
+                                         pool_row(ch + ny));
+    __syncthreads();
 
-  for (int kc = 0; kc < d; kc += 128) {
-    // dphi[i, k] += sum_j g[i, j] * cneg[j, k]
-    float o[8][8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) o[r][c] = 0.0f;
-    for (int j = 0; j < KC; ++j) {
-      float g[8], cv[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) g[r] = gs[(ty * 8 + r) * (KC + 1) + j];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int k = kc + tx + 16 * c;
-        cv[c] = (k < d) ? cn[j * ds + k] : 0.0f;
-      }
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) o[r][c] = fmaf(g[r], cv[c], o[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int i = ty * 8 + r;
-      if (nts[i] == 0.0f) continue;  // no pairs: exactly zero update
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int k = kc + tx + 16 * c;
-        if (k < d) atomicAdd(&dphi[(size_t)(base + i) * d + k], o[r][c]);
-      }
-    }
-    // dneg[j, k] += sum_i g[i, j] * phi[i, k]
-    float q[4][8];
+    // scores of slots 4 sr + r against pool rows sc + 8 c
+    float s[4][4];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) q[r][c] = 0.0f;
-    for (int i = 0; i < BLK; ++i) {
-      float g[4], pv[8];
+      for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
+#pragma unroll 2
+    for (int k = 0; k < dp; k += 4) {
+      float4 a[4], b[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) g[r] = gs[i * (KC + 1) + ty * 4 + r];
+      for (int r = 0; r < 4; ++r)
+        a[r] = *reinterpret_cast<const float4*>(ph + (4 * sr + r) * sa + k);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int k = kc + tx + 16 * c;
-        pv[c] = (k < d) ? ph[i * ds + k] : 0.0f;
-      }
+      for (int c = 0; c < 4; ++c)
+        b[c] = *reinterpret_cast<const float4*>(cn + (sc + 8 * c) * sa + k);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) q[r][c] = fmaf(g[r], pv[c], q[r][c]);
+        for (int c = 0; c < 4; ++c) {
+          s[r][c] = fmaf(a[r].x, b[c].x, s[r][c]);
+          s[r][c] = fmaf(a[r].y, b[c].y, s[r][c]);
+          s[r][c] = fmaf(a[r].z, b[c].z, s[r][c]);
+          s[r][c] = fmaf(a[r].w, b[c].w, s[r][c]);
+        }
+    }
+    // g = sigmoid(s) * w and the loss -w * log(sigmoid(-s)) from one exp,
+    // kept by slot (gs) and by pool row (gt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float w = negw * nts[4 * sr + r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {  // no branch: the chains overlap
+        const float x = s[r][c];
+        const float wj = j0 + sc + 8 * c < KP ? w : 0.0f;
+        const float ex = expf(-fabsf(x));
+        s[r][c] = (x >= 0.0f ? 1.0f : ex) / (1.0f + ex) * wj;
+        loss -= wj * (fminf(-x, 0.0f) - log1pf(ex));
+        gs[(4 * sr + r) * NEGF_GS + sc + 8 * c] = s[r][c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(gt + (sc + 8 * c) * NEGF_GT + 4 * sr) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+    __syncthreads();
+
+    // dphi[8 rg + r, cols] += G[8 rg + r, chunk] . C[chunk, cols]
+#pragma unroll 4
+    for (int j = 0; j < NEG_KC; ++j) {
+      const float4 g0 = *reinterpret_cast<const float4*>(gt + j * NEGF_GT + 8 * rg);
+      const float4 g1 =
+          *reinterpret_cast<const float4*>(gt + j * NEGF_GT + 8 * rg + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int c = 4 * cg + 64 * p;
+        if (c >= dp) break;
+        const float4 cv = *reinterpret_cast<const float4*>(cn + j * sa + c);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) fma4(g[r], cv, acc[r][p]);
+      }
+    }
+
+    // dneg[j0 + 4 rg + r, cols] += G^T[., tile] . Phi[tile, cols]
+    float4 q[4][NP];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) q[r][p] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int i = 0; i < NEG_MS; ++i) {
+      const float4 g = *reinterpret_cast<const float4*>(gs + i * NEGF_GS + 4 * rg);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int c = 4 * cg + 64 * p;
+        if (c >= dp) break;
+        const float4 pv = *reinterpret_cast<const float4*>(ph + i * sa + c);
+        fma4(g.x, pv, q[0][p]);
+        fma4(g.y, pv, q[1][p]);
+        fma4(g.z, pv, q[2][p]);
+        fma4(g.w, pv, q[3][p]);
+      }
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int j = j0 + ty * 4 + r;
+      const int j = j0 + 4 * rg + r;
       if (j >= KP) continue;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int k = kc + tx + 16 * c;
-        if (k < d) atomicAdd(&dneg[(size_t)j * d + k], q[r][c]);
+      for (int p = 0; p < NP; ++p) {
+        const int c = 4 * cg + 64 * p;
+        if (c < dp) atomic_add4(dneg + (size_t)j * d, d, c, q[r][p]);
       }
     }
   }
-  block_add(loss, &stats[0]);
+
+  // the cluster's partials of dphi, summed on chip
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int C = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  __syncthreads();  // the last chunk's reads of ph
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int c = 4 * cg + 64 * p;
+      if (c < dp)
+        *reinterpret_cast<float4*>(ph + (8 * rg + r) * sa + c) = acc[r][p];
+    }
+  cluster.sync();
+  const int rows_q = NEG_MS / C, n4 = dp / 4;
+  for (int idx = t; idx < rows_q * n4; idx += NEG_THREADS) {
+    const int i = q * rows_q + idx / n4, c = 4 * (idx % n4);
+    if (nts[i] == 0.0f) continue;  // no pairs: exactly zero update
+    float4 v[NEGF_CMAX];  // every rank's partial in flight at once
+#pragma unroll
+    for (int k = 0; k < NEGF_CMAX; ++k)
+      if (k < C)
+        v[k] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(ph, k) + i * sa + c);
+    double x = 0.0, y = 0.0, z = 0.0, w = 0.0;
+#pragma unroll
+    for (int k = 0; k < NEGF_CMAX; ++k)
+      if (k < C) {
+        x += v[k].x;
+        y += v[k].y;
+        z += v[k].z;
+        w += v[k].w;
+      }
+    atomic_add4(dphi + (size_t)(base + i) * d, d, c,
+                make_float4((float)x, (float)y, (float)z, (float)w));
+  }
+  cluster.sync();  // no CTA leaves while another reads its partial
+  block_add<NEG_THREADS>(loss, &stats[0]);
+}
+
+// The cluster size of an f32 pass with ny pool splits: the largest of 8, 4,
+// 2, 1 not above ny; ny is then rounded up to a multiple of it.
+static inline int negf_cluster(int ny) {
+  return ny >= NEGF_CMAX ? NEGF_CMAX : ny >= 4 ? 4 : ny >= 2 ? 2 : 1;
 }
 
 // ------------------------------------------- bf16 pass on the tensor cores
-
-constexpr int NEG_MS = 64;        // slots per CTA (4 warps x 16 rows)
-constexpr int NEG_KC = 32;        // pool rows per chunk
-constexpr int NEG_THREADS = 128;
 
 // d padded to the mma depth; each staged matrix's row stride is its width
 // + 8 bf16 (an odd multiple of 16 bytes), so the 8 rows an ldmatrix phase
@@ -691,38 +844,70 @@ struct NegativePass {
   dim3 grid;
   size_t smem = 0;
   int ny = 1;
+  int cluster = 1;  // CTAs along y that merge dphi on chip (f32)
 
   cudaError_t init(int d, int KP, int nslots) {
-    if (d < 1 || d > MAX_DIM || KP < 1) return cudaErrorInvalidValue;
-    if constexpr (BF16) {
-      if (nslots % NEG_MS) return cudaErrorInvalidValue;
-      smem = negative_bf16_smem_bytes(d);
-      int dev = 0, sms = 0;
-      cudaError_t e = cudaGetDevice(&dev);
-      if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (e != cudaSuccess) return e;
-      // as many CTAs as fit at once (3 per SM for d <= 128, 2 above), each
-      // walking `per` chunks of the pool
-      const int fit = (d <= 128 ? 3 : 2) * sms;
-      const int tiles = nslots / NEG_MS, nch = (KP + NEG_KC - 1) / NEG_KC;
-      const int per = (nch * tiles + fit - 1) / fit;
-      ny = (nch + per - 1) / per;
-      grid = dim3(tiles, ny);
-      return d <= 128 ? set_smem(negative_bf16_kernel<16, T>)
-                      : set_smem(negative_bf16_kernel<24, T>);
-    } else {
-      if (nslots % BLK) return cudaErrorInvalidValue;
-      smem = negative_smem_bytes(d);
-      grid = dim3(nslots / BLK, (KP + KC - 1) / KC);
-      return set_smem(negative_f32_kernel);
-    }
+    if (d < 1 || d > MAX_DIM || KP < 1 || nslots % NEG_MS)
+      return cudaErrorInvalidValue;
+    smem = BF16 ? negative_bf16_smem_bytes(d) : negative_f32_smem_bytes(d);
+    if constexpr (BF16)
+      return d <= 128 ? size(negative_bf16_kernel<16, T>, d, KP, nslots)
+                      : size(negative_bf16_kernel<24, T>, d, KP, nslots);
+    else
+      return d <= 128 ? size(negative_f32_kernel<2>, d, KP, nslots)
+                      : size(negative_f32_kernel<3>, d, KP, nslots);
   }
 
+  // Sets the kernel's shared memory and sizes the grid to the CTAs of it
+  // that fit on the card at once (its occupancy times the SMs; for the f32
+  // pass, whole clusters: a cluster's CTAs share one GPC, so fewer may fit).
   template <typename K>
-  cudaError_t set_smem(K kernel) const {
-    return cudaFuncSetAttribute(
+  cudaError_t size(K kernel, int d, int KP, int nslots) {
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        NEG_THREADS, smem);
+    if (e != cudaSuccess) return e;
+    const int tiles = nslots / NEG_MS, nch = (KP + NEG_KC - 1) / NEG_KC;
+    ny = neg_pool_splits(tiles, nch, (per_sm > 0 ? per_sm : 1) * sms);
+    if constexpr (!BF16) {
+      cluster = negf_cluster(ny);
+      ny = (ny + cluster - 1) / cluster * cluster;
+      int fit = 0;  // clusters of this size that fit on the card at once
+      if (cluster > 1) {
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg = config(dim3(1, cluster), 0, attr);
+        e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+        if (e != cudaSuccess) return e;
+      }
+      // no more clusters a tile than fit at once (their CTAs walk more chunks)
+      if (fit >= tiles && tiles * (ny / cluster) > fit)
+        ny = fit / tiles * cluster;
+    }
+    grid = dim3(tiles, ny);
+    return cudaSuccess;
+  }
+
+  // The f32 pass's launch: `g` in clusters of `cluster` CTAs along y.
+  cudaLaunchConfig_t config(dim3 g, cudaStream_t stream,
+                            cudaLaunchAttribute& attr) const {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = g;
+    cfg.blockDim = dim3(NEG_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1;
+    attr.val.clusterDim.y = cluster;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return cfg;
   }
 
   void launch(const T* table, const int* ids, const float* nt,
@@ -736,8 +921,15 @@ struct NegativePass {
         negative_bf16_kernel<24, T><<<grid, NEG_THREADS, smem, stream>>>(
             table, ids, nt, cneg, d, KP, ny, negw, dphi, dneg, stats);
     } else {
-      negative_f32_kernel<<<grid, THREADS, smem, stream>>>(
-          table, ids, nt, cneg, d, KP, negw, dphi, dneg, stats);
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = config(grid, stream, attr);
+      // a refused launch sets the error the caller's COME_CHECK_LAUNCH reads
+      if (d <= 128)
+        cudaLaunchKernelEx(&cfg, negative_f32_kernel<2>, table, ids, nt, cneg,
+                           d, KP, ny, negw, dphi, dneg, stats);
+      else
+        cudaLaunchKernelEx(&cfg, negative_f32_kernel<3>, table, ids, nt, cneg,
+                           d, KP, ny, negw, dphi, dneg, stats);
     }
   }
 };

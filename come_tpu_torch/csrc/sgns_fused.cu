@@ -24,9 +24,11 @@
 // What bounds it on the H100: the negative pass, 3 x TP x KP x d
 // multiply-adds per tile, is compute; the positive scores are one dot
 // product per pair and the gathers and the scatter are row traffic
-// (4 x d x 4 bytes per pair).  This first design reuses the walk and star
-// kernels' tiled f32 SIMT negative pass (ceil(TP/128) x ceil(KP/64) CTAs per
-// tile), computes the positive scores one warp per pair with lanes across
+// (4 x d x 4 bytes per pair).  This design reuses the walk and star
+// kernels' f32 negative pass (sgns_common.cuh: ceil(TP/128) x 2 tiles of 64
+// slots per tile of pairs, their pool chunks spread to fill the card; the
+// masked tail's all-empty tiles return at once), computes the positive
+// scores one warp per pair with lanes across
 // d (TP/8 CTAs, so the row loads of many pairs are in flight at once), and
 // keeps the tile order with stream-ordered launches; the host makes one
 // call per micro-step and the loop over tiles runs here.  The table
@@ -38,14 +40,16 @@ namespace come {
 
 // Positive term of one tile, one warp per pair.  grid ceil(TP/128) * 128 /
 // NWARPS, block THREADS; rows i >= TP of the last 128-row chunk are
-// written as empty (nt = 0).  Overwrites dphi, dcpos and nt, and adds the
-// positive loss and the pair count to stats.
+// written as empty (nt = 0).  Overwrites dphi, dcpos and nt, zeroes dphin
+// (which the negative pass then adds to), and adds the positive loss and the
+// pair count to stats.
 static __global__ void __launch_bounds__(THREADS)
 fused_pos_kernel(const float* emb_in, const float* emb_out,
                  const int* __restrict__ c, const int* __restrict__ x,
                  const int* __restrict__ m, int d, int TP,
                  float* __restrict__ dphi, float* __restrict__ dcpos,
-                 float* __restrict__ nt, double* __restrict__ stats) {
+                 float* __restrict__ dphin, float* __restrict__ nt,
+                 double* __restrict__ stats) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * NWARPS + (threadIdx.x >> 5);
   const bool valid = i < TP && m[i] != 0;  // warp-uniform
@@ -75,6 +79,7 @@ fused_pos_kernel(const float* emb_in, const float* emb_out,
     if (k < d) {
       dphi[(size_t)i * d + k] = g * cp[q];
       dcpos[(size_t)i * d + k] = g * ph[q];
+      dphin[(size_t)i * d + k] = 0.0f;
     }
   }
   if (lane == 0) nt[i] = valid ? 1.0f : 0.0f;
@@ -82,12 +87,14 @@ fused_pos_kernel(const float* emb_in, const float* emb_out,
   block_add(pairs, &stats[1]);
 }
 
-// emb_in[c[i]] -= lr*dphi[i], emb_out[x[i]] -= lr*dcpos[i] for the tile's
-// valid pairs.  grid TP, block 128.
+// emb_in[c[i]] -= lr*(dphi[i] + dphin[i]), emb_out[x[i]] -= lr*dcpos[i] for
+// the tile's valid pairs (the positive and the negative part of dphi add
+// once here, as the plain version adds them).  grid TP, block 128.
 static __global__ void fused_scatter_kernel(float* emb_in, float* emb_out,
                                             const int* __restrict__ c,
                                             const int* __restrict__ x,
                                             const float* __restrict__ dphi,
+                                            const float* __restrict__ dphin,
                                             const float* __restrict__ dcpos,
                                             const float* __restrict__ nt,
                                             int d, float lr) {
@@ -96,7 +103,7 @@ static __global__ void fused_scatter_kernel(float* emb_in, float* emb_out,
   const size_t ci = (size_t)c[i] * d, xi = (size_t)x[i] * d,
                src = (size_t)i * d;
   for (int k = threadIdx.x; k < d; k += blockDim.x) {
-    atomicAdd(&emb_in[ci + k], -lr * dphi[src + k]);
+    atomicAdd(&emb_in[ci + k], -lr * (dphi[src + k] + dphin[src + k]));
     atomicAdd(&emb_out[xi + k], -lr * dcpos[src + k]);
   }
 }
@@ -106,7 +113,9 @@ static __global__ void fused_scatter_kernel(float* emb_in, float* emb_out,
 //            ids keep the negative pass's last 128-row chunk in range)
 //   pool     [KP] i32;  stats [2] f64, accumulates (loss, pairs)
 //   cneg, dneg [KP, d] f32 scratch
-//   dphi, dcpos [ceil(TP/128)*128, d], nt [ceil(TP/128)*128] f32 scratch
+//   dphi       [2, ceil(TP/128)*128, d] f32 scratch: the positive part of
+//              each pair's centre update, then the negative pass's
+//   dcpos [ceil(TP/128)*128, d], nt [ceil(TP/128)*128] f32 scratch
 static int fused_sgns(float* emb_in, float* emb_out, const int* c,
                       const int* x, const int* m, const int* pool,
                       double* stats, float* cneg, float* dneg, float* dphi,
@@ -117,19 +126,20 @@ static int fused_sgns(float* emb_in, float* emb_out, const int* c,
   NegativePass<false, float> neg;
   cudaError_t e = neg.init(d, KP, chunks * BLK);
   if (e != cudaSuccess) return (int)e;
+  float* dphin = dphi + (size_t)chunks * BLK * d;  // the negative pass's part
   stage_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
   COME_CHECK_LAUNCH();
   for (int t = 0; t < n_tiles; ++t) {
     const size_t off = (size_t)t * TP;
     fused_pos_kernel<<<chunks * BLK / NWARPS, THREADS, 0, stream>>>(
-        emb_in, emb_out, c + off, x + off, m + off, d, TP, dphi, dcpos, nt,
-        stats);
+        emb_in, emb_out, c + off, x + off, m + off, d, TP, dphi, dcpos, dphin,
+        nt, stats);
     COME_CHECK_LAUNCH();
-    neg.launch(emb_in, c + off, nt, cneg, d, KP, negw, dphi, dneg, stats,
+    neg.launch(emb_in, c + off, nt, cneg, d, KP, negw, dphin, dneg, stats,
                stream);
     COME_CHECK_LAUNCH();
     fused_scatter_kernel<<<TP, 128, 0, stream>>>(
-        emb_in, emb_out, c + off, x + off, dphi, dcpos, nt, d, lr);
+        emb_in, emb_out, c + off, x + off, dphi, dphin, dcpos, nt, d, lr);
     COME_CHECK_LAUNCH();
   }
   apply_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, dneg, d, lr);

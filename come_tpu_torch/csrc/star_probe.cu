@@ -7,7 +7,7 @@
 // five sections, each its own stream-ordered launch per group:
 //   GATHER  phi[t] = emb[slots[t]] for the group's 1024 slots
 //           (probe_rows.cuh, U rows in flight per warp);
-//   MATH    the positive pass on phi (star_pos_kernel) and, with NEG, the
+//   MATH    the positive pass on phi (star_pos.cuh) and, with NEG, the
 //           shared negative pass on phi (NegativePass): dphi, nt, loss;
 //   NEG     the negative pass inside MATH;
 //   SCATTER emb[slots[t]] -= lr * dphi[t] for EVERY slot, as the TPU probe
@@ -41,10 +41,8 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
                              int G, int KP, int R, int sections, float lr,
                              float negw, cudaStream_t stream) {
   if (d > MAX_DIM || d % 4 || R < 1) return (int)cudaErrorInvalidValue;
-  const size_t pos_smem = star_pos_smem_bytes(d);
-  cudaError_t e = cudaFuncSetAttribute(
-      star_pos_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)pos_smem);
+  StarPosPass<BF16> pos;
+  cudaError_t e = pos.init(d);
   if (e != cudaSuccess) return (int)e;
   NegativePass<BF16, float> neg;
   e = neg.init(d, KP, GROUP);
@@ -64,8 +62,8 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
       if (e != cudaSuccess) return (int)e;
     }
     if (math_on) {
-      star_pos_kernel<BF16><<<NBLK, THREADS, pos_smem, stream>>>(
-          phi, iota, meta + (size_t)g * GROUP, d, dphi, nt, stats);
+      pos.launch(phi, iota, meta + (size_t)g * GROUP, d, dphi, nullptr, nt,
+                 stats, stream);
       COME_CHECK_LAUNCH();
       if (sections & NEG) {
         neg.launch(phi, iota, nt, cneg, d, KP, negw, dphi, dneg, stats,

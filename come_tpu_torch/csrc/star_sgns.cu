@@ -19,30 +19,34 @@
 //
 // What bounds it on the H100: as in walk_sgns.cu the negative pass
 // (3 x 128 x KP x d multiply-adds per row) is compute and the gather and
-// scatter are row traffic; a slot has at most 32 partners (the layout's
-// max_fanout), so this design scores only the pairs the mask keeps (warp
-// per slot) instead of the TPU's dense [128, 128] block, and shares the
-// negative pass with the walk kernel (sgns_common.cuh: f32 SIMT for K2,
-// the tensor cores for K2b).  K2b's star pass rounds the staged rows and
-// each pair's g as they are made, a few conversions per element.
+// scatter are row traffic.  The star pass is small work (about 1000 pairs
+// x 3 x d multiply-adds a group), so what bounds it is latency: it scores
+// only the pairs the mask keeps, each once, spread over 128 CTAs a group
+// that each own the segments whose hub lies in their 8-slot strip
+// (star_pos.cuh: StarPosPass), instead of the TPU's dense [128, 128]
+// block.  The negative pass is the walk kernel's (sgns_common.cuh: FFMA
+// for K2, the tensor cores for K2b).  K2b's star pass rounds the staged
+// rows and each pair's g as they are made, a few conversions per element.
 
 #include "sgns_common.cuh"
 #include "star_pos.cuh"
 
 namespace come {
 
-// emb[slots[t]] -= lr * dphi[t] for slots with pairs (the others carry
-// exactly zero updates).  grid GROUP, block 128.
+// emb[slots[t]] -= lr * (dphi[t] + dphin[t]) for slots with pairs (the
+// others carry exactly zero updates): the positive and the negative part
+// add once here, as the plain version adds them.  grid GROUP, block 128.
 static __global__ void star_scatter_kernel(float* __restrict__ emb,
                                            const int* __restrict__ slots,
                                            const float* __restrict__ dphi,
+                                           const float* __restrict__ dphin,
                                            const float* __restrict__ nt, int d,
                                            float lr) {
   const int t = blockIdx.x;
   if (nt[t] == 0.0f) return;
   const size_t dst = (size_t)slots[t] * d, src = (size_t)t * d;
   for (int k = threadIdx.x; k < d; k += blockDim.x)
-    atomicAdd(&emb[dst + k], -lr * dphi[src + k]);
+    atomicAdd(&emb[dst + k], -lr * (dphi[src + k] + dphin[src + k]));
 }
 
 template <bool BF16>
@@ -52,14 +56,13 @@ static int star_groups(float* emb, const int* slots, const int* meta,
                        int KP, int R, float lr, float negw,
                        cudaStream_t stream) {
   if (d > MAX_DIM || R < 1) return (int)cudaErrorInvalidValue;
-  const size_t pos_smem = star_pos_smem_bytes(d);
-  cudaError_t e = cudaFuncSetAttribute(
-      star_pos_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)pos_smem);
+  StarPosPass<BF16> pos;
+  cudaError_t e = pos.init(d);
   if (e != cudaSuccess) return (int)e;
   NegativePass<BF16, float> neg;
   e = neg.init(d, KP, GROUP);
   if (e != cudaSuccess) return (int)e;
+  float* dphin = dphi + (size_t)GROUP * d;  // the negative pass's part
   for (int g = 0; g < G; ++g) {
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* sg = slots + (size_t)g * GROUP;
@@ -67,12 +70,13 @@ static int star_groups(float* emb, const int* slots, const int* meta,
       stage_pool_kernel<<<KP, 128, 0, stream>>>(emb, pool, cneg, dneg, d);
       COME_CHECK_LAUNCH();
     }
-    star_pos_kernel<BF16><<<NBLK, THREADS, pos_smem, stream>>>(
-        emb, sg, meta + (size_t)g * GROUP, d, dphi, nt, stats);
+    pos.launch(emb, sg, meta + (size_t)g * GROUP, d, dphi, dphin, nt, stats,
+               stream);
     COME_CHECK_LAUNCH();
-    neg.launch(emb, sg, nt, cneg, d, KP, negw, dphi, dneg, stats, stream);
+    neg.launch(emb, sg, nt, cneg, d, KP, negw, dphin, dneg, stats, stream);
     COME_CHECK_LAUNCH();
-    star_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb, sg, dphi, nt, d, lr);
+    star_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb, sg, dphi, dphin, nt,
+                                                   d, lr);
     COME_CHECK_LAUNCH();
     if (g % R == R - 1 || g == G - 1) {
       apply_pool_kernel<<<KP, 128, 0, stream>>>(emb, pool, dneg, d, lr);
@@ -91,7 +95,9 @@ using namespace come;
 //   slots, meta  [G * 1024] i32 (meta -2 at pads)
 //   pools        [ceil(G / R), KP] i32
 //   stats        [2] f64, accumulates (loss, pairs)
-//   cneg, dneg   [KP, d] f32 scratch;  dphi [1024, d], nt [1024] f32 scratch
+//   cneg, dneg   [KP, d] f32 scratch;  nt [1024] f32 scratch
+//   dphi         [2, 1024, d] f32 scratch: the star pass's part of each
+//                slot's update, then the negative pass's
 // bf16 != 0 selects K2b's rounding.
 // Returns 0 or the first CUDA error code.  Launches on `stream`, does not
 // synchronise and allocates nothing.

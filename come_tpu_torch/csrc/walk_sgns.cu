@@ -37,9 +37,9 @@
 //     dctx_u += g phi_t, n_t = number of such u;
 //   * every slot scores the staged pool with weight negw * n_t
 //     (sgns_common.cuh: NegativePass);
-//   * each slot adds -lr*dphi to node_emb[v] and -lr*dctx to ctx_emb[v]
-//     with atomicAdd, so duplicate rows sum exactly as the TPU's
-//     sequential read-modify-writes do (in another order);
+//   * each slot adds -lr*dphi to node_emb[v] and -lr*dctx to ctx_emb[v];
+//     a row's slots are summed in f64 and added once (walk_scatter_kernel),
+//     which rounds no worse than the TPU's sequential read-modify-writes;
 //   * at an R-block end the pool gradient is applied (atomic: pools are
 //     drawn with replacement).
 // The window draws come in as `wrow` (the TPU drew them in-kernel), so the
@@ -94,7 +94,8 @@ static inline size_t walk_pos_smem_bytes(int d, int L, int W) {
 
 // Positive band of one strip of STRIP centres [t0, t0 + STRIP) of one walk.
 // grid (NSTRIP, walks), block THREADS.  Writes (overwrites) dphi, dctx and
-// nt for the strip's slots (strips past L write zeros) and adds the
+// nt for the strip's slots (strips past L write zeros), zeroes their rows of
+// dphin (which the negative pass then adds to), and adds the
 // positive loss and the pair count of its centres to stats.  The strip
 // stages the rows [lo, hi) = [t0 - W, t0 + STRIP + W) inside the walk and
 // scores every pair (t, u) of them with t or u in the strip: those with t
@@ -113,8 +114,8 @@ walk_pos_kernel(const T* __restrict__ emb_in,
                 const T* __restrict__ emb_out,
                 const int* __restrict__ walks, const int* __restrict__ wrow,
                 int d, int L, int W, float* __restrict__ dphi,
-                float* __restrict__ dctx, float* __restrict__ nt,
-                double* __restrict__ stats) {
+                float* __restrict__ dctx, float* __restrict__ dphin,
+                float* __restrict__ nt, double* __restrict__ stats) {
   constexpr bool RND = BF16 && !PAIRED;
   const int t0 = blockIdx.x * STRIP, base = blockIdx.y * BLK;
   if (t0 >= L) {  // padding slots: exact zeros, no pairs
@@ -122,6 +123,7 @@ walk_pos_kernel(const T* __restrict__ emb_in,
       const size_t o = (size_t)(base + t0) * d + idx;
       dphi[o] = 0.0f;
       dctx[o] = 0.0f;
+      dphin[o] = 0.0f;
     }
     if (threadIdx.x < STRIP) nt[base + t0 + threadIdx.x] = 0.0f;
     return;
@@ -221,20 +223,6 @@ walk_pos_kernel(const T* __restrict__ emb_in,
 
   // dphi[t] = sum_u g[t, u] ctx[u], dctx[u] = sum_t g[t, u] phi[t] over
   // the band (g is zero outside each centre's window), 4 elements a thread
-  auto fma4 = [](float g, float4 x, float4& y) {
-    y.x = fmaf(g, x.x, y.x);
-    y.y = fmaf(g, x.y, y.y);
-    y.z = fmaf(g, x.z, y.z);
-    y.w = fmaf(g, x.w, y.w);
-  };
-  auto store4 = [&](float* row, int c, float4 v) {
-    if (d % 4 == 0) {
-      *reinterpret_cast<float4*>(row + c) = v;
-      return;
-    }
-    const float e[4] = {v.x, v.y, v.z, v.w};
-    for (int i = 0; i < 4 && c + i < d; ++i) row[c + i] = e[i];
-  };
   for (int idx = threadIdx.x; idx < STRIP * (dp / 4); idx += THREADS) {
     const int a = idx / (dp / 4), c = 4 * (idx - a * (dp / 4)), t = t0 + a;
     float4 gp = make_float4(0.0f, 0.0f, 0.0f, 0.0f), gc = gp;
@@ -247,8 +235,10 @@ walk_pos_kernel(const T* __restrict__ emb_in,
         fma4(gb[r * STRIP + a], *pr, gc);
       }
     }
-    store4(dphi + (size_t)(base + t) * d, c, gp);
-    store4(dctx + (size_t)(base + t) * d, c, gc);
+    store4(dphi + (size_t)(base + t) * d, d, c, gp);
+    store4(dctx + (size_t)(base + t) * d, d, c, gc);
+    store4(dphin + (size_t)(base + t) * d, d, c,
+           make_float4(0.0f, 0.0f, 0.0f, 0.0f));
   }
   // n_t: the contexts in t's window inside the walk (PAIRED: its partner)
   float pairs = 0.0f;
@@ -264,26 +254,73 @@ walk_pos_kernel(const T* __restrict__ emb_in,
   block_add(pairs, &stats[1]);
 }
 
-// emb_in[v] -= lr*dphi[t], emb_out[v] -= lr*dctx[t] for the group's real
-// slots (position < L; padded positions carry exactly zero updates).
-// grid GROUP, block 128.
-static __global__ void walk_scatter_kernel(float* __restrict__ emb_in,
-                                           float* __restrict__ emb_out,
-                                           const int* __restrict__ walks,
-                                           const float* __restrict__ dphi,
-                                           const float* __restrict__ dctx,
-                                           int d, int L, float lr) {
-  const int t = blockIdx.x;
+// emb_in[v] -= lr*(dphi[t] + dphin[t]), emb_out[v] -= lr*dctx[t] for the
+// group's real slots (position < L; padded positions carry exactly zero
+// updates).  The positive and the negative part add once here, as the plain
+// version adds them.  Each term is the f32 product the plain version's
+// index_add_ forms; the terms of one row (a walk may repeat a node, and a
+// hub fills many slots) are summed in f64, in slot order, by the block of
+// the row's first slot, which adds the sum to the row with one rounding.
+// Per-term f32 atomics would round each add at the running sum's magnitude,
+// in an order that varies from run to run.  Blocks of later slots of a row
+// return.  grid GROUP, block SCATTER_THREADS.
+constexpr int SCATTER_THREADS = 128;
+static __global__ void __launch_bounds__(SCATTER_THREADS)
+walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
+                    const int* __restrict__ walks,
+                    const float* __restrict__ dphi,
+                    const float* __restrict__ dphin,
+                    const float* __restrict__ dctx, int d, int L, float lr) {
+  constexpr int NWORD = GROUP / 32;
+  __shared__ unsigned same[NWORD];  // bit s: slot s is real and holds v
+  __shared__ int first[NWORD];      // slots of the row in words before w
+  __shared__ int slots[GROUP];      // the row's slots, in order
+  const int t = blockIdx.x, lane = threadIdx.x & 31;
   if (t % BLK >= L) return;
-  const size_t dst = (size_t)walks[t] * d, src = (size_t)t * d;
-  for (int k = threadIdx.x; k < d; k += blockDim.x) {
-    atomicAdd(&emb_in[dst + k], -lr * dphi[src + k]);
-    atomicAdd(&emb_out[dst + k], -lr * dctx[src + k]);
+  const int v = walks[t];
+  bool earlier = false;
+  for (int s = threadIdx.x; s < GROUP; s += SCATTER_THREADS) {
+    const bool m = s % BLK < L && walks[s] == v;
+    const unsigned b = __ballot_sync(0xffffffffu, m);
+    if (lane == 0) same[s / 32] = b;
+    earlier |= m && s < t;
+  }
+  if (__syncthreads_or(earlier)) return;  // not the row's first slot
+  if (threadIdx.x < 32) {  // exclusive prefix of the words' counts
+    const int c = __popc(same[lane]);
+    int x = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    first[lane] = x - c;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < GROUP; s += SCATTER_THREADS) {
+    const unsigned b = same[s / 32];
+    if (b >> lane & 1u)
+      slots[first[s / 32] + __popc(b & ((1u << lane) - 1u))] = s;
+  }
+  __syncthreads();
+  const int n = first[NWORD - 1] + __popc(same[NWORD - 1]);
+  const size_t dst = (size_t)v * d;
+  for (int k = threadIdx.x; k < d; k += SCATTER_THREADS) {
+    double a = 0.0, c = 0.0;
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) {
+      const size_t src = (size_t)slots[i] * d + k;
+      a += (double)__fmul_rn(__fadd_rn(dphi[src], dphin[src]), -lr);
+      c += (double)__fmul_rn(dctx[src], -lr);
+    }
+    emb_in[dst + k] = (float)((double)emb_in[dst + k] + a);
+    emb_out[dst + k] = (float)((double)emb_out[dst + k] + c);
   }
 }
 
 // K3's slot writes: for each real slot t of group g (position < L), one
-// rounded RMW of emb_in[v] by -lr*dphi[t] and of emb_out[v] by -lr*dctx[t]
+// rounded RMW of emb_in[v] by -lr*(dphi[t] + dphin[t]) and of emb_out[v] by
+// -lr*dctx[t]
 // per element pair (rmw_bf16_pair; the products by __fmul_rn, as the TPU's
 // dphi * (-lr) at :365).  SR draws 32 bits per (t, k) from
 // sr_bits(sr_key(seed, g), t*d + k): the low 16 round the node write, the
@@ -293,7 +330,8 @@ template <bool SR>
 static __global__ void walk_scatter_bf16_kernel(
     __nv_bfloat16* __restrict__ emb_in, __nv_bfloat16* __restrict__ emb_out,
     const int* __restrict__ walks, const float* __restrict__ dphi,
-    const float* __restrict__ dctx, int d, int L, float lr, unsigned seed,
+    const float* __restrict__ dphin, const float* __restrict__ dctx, int d,
+    int L, float lr, unsigned seed,
     int g, double* retries) {
   const int t = blockIdx.x;
   if (t % BLK >= L) return;
@@ -307,8 +345,11 @@ static __global__ void walk_scatter_bf16_kernel(
       b0 = mix32(c ^ key);
       b1 = mix32((c + 1) ^ key);
     }
-    n += rmw_bf16_pair(emb_in + dst + k, __fmul_rn(dphi[src + k], -lr),
-                       __fmul_rn(dphi[src + k + 1], -lr), b0 & 0xffffu,
+    n += rmw_bf16_pair(emb_in + dst + k,
+                       __fmul_rn(__fadd_rn(dphi[src + k], dphin[src + k]), -lr),
+                       __fmul_rn(__fadd_rn(dphi[src + k + 1], dphin[src + k + 1]),
+                                 -lr),
+                       b0 & 0xffffu,
                        b1 & 0xffffu);
     n += rmw_bf16_pair(emb_out + dst + k, __fmul_rn(dctx[src + k], -lr),
                        __fmul_rn(dctx[src + k + 1], -lr), b0 >> 16, b1 >> 16);
@@ -372,6 +413,7 @@ static int walk_groups(T* emb_in, T* emb_out, const int* walks,
   NegativePass<BF16, T> neg;
   e = neg.init(d, KP, GROUP);
   if (e != cudaSuccess) return (int)e;
+  float* dphin = dphi + (size_t)GROUP * d;  // the negative pass's part
   for (int g = 0; g < G; ++g) {
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* wg = walks + (size_t)g * GROUP;
@@ -382,14 +424,14 @@ static int walk_groups(T* emb_in, T* emb_out, const int* walks,
     walk_pos_kernel<BF16, PAIRED, T>
         <<<dim3(NSTRIP, NBLK), THREADS, pos_smem, stream>>>(
             emb_in, emb_out, wg, PAIRED ? nullptr : wrow + (size_t)g * GROUP,
-            d, L, W, dphi, dctx, nt, stats);
+            d, L, W, dphi, dctx, dphin, nt, stats);
     COME_CHECK_LAUNCH();
-    neg.launch(emb_in, wg, nt, cneg, d, KP, negw, dphi, dneg, stats, stream);
+    neg.launch(emb_in, wg, nt, cneg, d, KP, negw, dphin, dneg, stats, stream);
     COME_CHECK_LAUNCH();
     const bool end = g % R == R - 1 || g == G - 1;
     if constexpr (TB16) {
       walk_scatter_bf16_kernel<SR><<<GROUP, 64, 0, stream>>>(
-          emb_in, emb_out, wg, dphi, dctx, d, L, lr, seed, g, retries);
+          emb_in, emb_out, wg, dphi, dphin, dctx, d, L, lr, seed, g, retries);
       COME_CHECK_LAUNCH();
       if (end) {
         apply_pool_bf16_kernel<SR><<<KP, 64, 0, stream>>>(
@@ -397,8 +439,8 @@ static int walk_groups(T* emb_in, T* emb_out, const int* walks,
         COME_CHECK_LAUNCH();
       }
     } else {
-      walk_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb_in, emb_out, wg,
-                                                     dphi, dctx, d, L, lr);
+      walk_scatter_kernel<<<GROUP, SCATTER_THREADS, 0, stream>>>(
+          emb_in, emb_out, wg, dphi, dphin, dctx, d, L, lr);
       COME_CHECK_LAUNCH();
       if (end) {
         apply_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, dneg, d, lr);
@@ -449,7 +491,9 @@ using namespace come;
 //   retries         [1] f64, accumulates K3's CAS retries (not read by K1,
 //                   K1b, K5)
 //   cneg, dneg      [KP, d] f32 scratch
-//   dphi, dctx      [1024, d] f32 scratch;  nt [1024] f32 scratch
+//   dphi            [2, 1024, d] f32 scratch: the positive pass's part of
+//                   each slot's update, then the negative pass's
+//   dctx            [1024, d] f32 scratch;  nt [1024] f32 scratch
 // bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even),
 // tables_bf16 != 0 K3 (d even; stochastic rounding from sr_seed when
 // sr != 0, else truncation).  Returns 0 or the first CUDA error code.

@@ -108,7 +108,7 @@ def _launch(name, tables, centers, contexts, pool, mask, lr, negw, TP):
     stats = torch.zeros(2, dtype=torch.float64, device=dev)
     cneg = torch.empty((KP, d), dtype=f32, device=dev)
     dneg = torch.empty((KP, d), dtype=f32, device=dev)
-    dphi = torch.empty((TPr, d), dtype=f32, device=dev)
+    dphi = torch.empty((2, TPr, d), dtype=f32, device=dev)  # pos., negative
     dcpos = torch.empty((TPr, d), dtype=f32, device=dev)
     nt = torch.empty((TPr,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -130,7 +130,7 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
     stats = torch.zeros(2, dtype=torch.float64, device=dev)
     cneg = torch.empty((KP, d), dtype=f32, device=dev)
     dneg = torch.empty((KP, d), dtype=f32, device=dev)
-    dphi = torch.empty((NWL, d), dtype=f32, device=dev)
+    dphi = torch.empty((2, NWL, d), dtype=f32, device=dev)  # star, negative
     nt = torch.empty((NWL,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = build.library().come_star_sgns_step(

@@ -287,7 +287,9 @@ class _Scratch:
         self.retries = cas_retries(dev)
         self.cneg = torch.empty((KP, d), dtype=f32, device=dev)
         self.dneg = torch.empty((KP, d), dtype=f32, device=dev)
-        self.dphi = torch.empty((NWL, d), dtype=f32, device=dev)
+        # the positive pass's part of each slot's update, then the negative
+        # pass's: the scatter adds the two once, as the plain version does
+        self.dphi = torch.empty((2, NWL, d), dtype=f32, device=dev)
         self.dctx = torch.empty((NWL, d), dtype=f32, device=dev)
         self.nt = torch.empty((NWL,), dtype=f32, device=dev)
 

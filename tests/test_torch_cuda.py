@@ -59,6 +59,8 @@ from come_tpu_torch.sampling import build_star_layout
 from come_tpu_torch.tools.probe_star import VARIANTS as PROBE_VARIANTS
 from come_tpu_torch.trainer import ComETrainer
 
+from chip_smoke import FUSED_EDGES, STAR_EDGES, star_edge_layout
+
 pytestmark = pytest.mark.cuda
 
 
@@ -75,7 +77,8 @@ def _close(init, kern, plain):
     torch.cuda.synchronize()
     assert float(kn) == float(pn)
     assert abs(float(kl) - float(pl)) <= 1e-4 * abs(float(pl))
-    for t0, a, b in zip(init, kt, pt):
+    for t0, a, b in zip(init, kt, pt):  # a float64 plain step in float64
+        t0, a = t0.to(b.dtype), a.to(b.dtype)
         torch.testing.assert_close(a - t0, b - t0, rtol=1e-4, atol=1e-6)
 
 
@@ -182,8 +185,13 @@ def test_walk_kernel_edge_shapes(dev, V, d, B, L, W, KP, R, hot, mode):
     if mode == "f32" or L == 1:
         kern = run(walk_sgns_step, init, mxu_bf16=mode == "bf16",
                    sr_seed=77 if mode == "bf16_tables" else None)
-        plain = run(walk_sgns_step_reference, init, mxu_bf16=mode == "bf16",
-                    sr_seed=77 if mode == "bf16_tables" else None)
+        if hot and mode == "f32":  # float64, as chip_smoke.EDGE_SHAPES says
+            plain = run(walk_sgns_step_reference,
+                        [t.double() for t in init], acc=torch.float64)
+        else:
+            plain = run(walk_sgns_step_reference, init,
+                        mxu_bf16=mode == "bf16",
+                        sr_seed=77 if mode == "bf16_tables" else None)
         if L == 1:
             torch.cuda.synchronize()
             assert float(kern[3]) == float(plain[3]) == 0.0
@@ -207,16 +215,13 @@ def test_walk_kernel_edge_shapes(dev, V, d, B, L, W, KP, R, hot, mode):
         check_k3("K3", init, kern[:2], plain[:2], f32[:2])
 
 
-@pytest.mark.parametrize("V,d,E,KP,R", [
-    (200, 128, 3000, 16, 1),
-    (600, 64, 9000, 100, 2),
-    (3000, 128, 40000, 512, 1),
-])
-def test_star_kernel_matches_plain(dev, V, d, E, KP, R):
-    rng = np.random.default_rng(V)
-    u = rng.integers(0, V, E)
-    v = (u + 1 + rng.integers(0, V - 1, E)) % V
-    slots, meta = build_star_layout(u, v, V)
+@pytest.mark.parametrize("V,d,E,KP,R,layout", [
+    (200, 128, 3000, 16, 1, "random"),
+    (600, 64, 9000, 100, 2, "random"),
+    (3000, 128, 40000, 512, 1, "random"),
+] + STAR_EDGES)
+def test_star_kernel_matches_plain(dev, V, d, E, KP, R, layout):
+    slots, meta = star_edge_layout(V, E, layout, V)
     slots, meta = (torch.as_tensor(a, device=dev) for a in (slots, meta))
     G = -(-slots.shape[0] // NWL)
     g = torch.Generator(device=dev).manual_seed(V)
@@ -232,19 +237,21 @@ def test_star_kernel_matches_plain(dev, V, d, E, KP, R):
 
 
 @pytest.mark.parametrize("tied", [False, True])
-@pytest.mark.parametrize("V,d,P,TP,KP", [
-    (34, 16, 1000, 64, 100),  # karate-sized: pool and pairs repeat rows
-    (500, 64, 3000, 1024, 512),
-    (10312, 128, 32768, 1024, 512),
-    (2000, 128, 777, 64, 100),
-])
-def test_fused_kernels_match_plain(dev, V, d, P, TP, KP, tied):
+@pytest.mark.parametrize("V,d,P,TP,KP,masked_tile", [
+    (34, 16, 1000, 64, 100, False),  # karate-sized: pool and pairs repeat
+    (500, 64, 3000, 1024, 512, False),
+    (10312, 128, 32768, 1024, 512, False),
+    (2000, 128, 777, 64, 100, False),
+] + [e + (True,) for e in FUSED_EDGES])  # phase 4i's: a tile all masked
+def test_fused_kernels_match_plain(dev, V, d, P, TP, KP, masked_tile, tied):
     g = torch.Generator(device=dev).manual_seed(V + P)
     emb_in = torch.randn((V, d), generator=g, device=dev) * 0.1
     emb_out = torch.randn((V, d), generator=g, device=dev) * 0.1
     c, x, pool = (torch.randint(0, V, (n,), generator=g, device=dev,
                                 dtype=torch.int32) for n in (P, P, KP))
     m = (torch.rand(P, generator=g, device=dev) < 0.6).float()
+    if masked_tile:
+        m[TP:2 * TP] = 0.0
     lr, negw = 0.05, 5.0 / KP
     if tied:
         def run(fn):
@@ -343,17 +350,14 @@ def test_walk_bf16_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
             walk_sgns_step.launches_bf16) == (before[0], before[1] + 1)
 
 
-@pytest.mark.parametrize("V,d,E,KP,R", [
-    (34, 16, 78, 100, 1),
-    (600, 64, 9000, 100, 2),
-    (3000, 128, 40000, 512, 1),
-    (3000, 128, 40000, 2048, 3),
-])
-def test_star_bf16_kernel_matches_plain(dev, V, d, E, KP, R):
-    rng = np.random.default_rng(V + 2)
-    u = rng.integers(0, V, E)
-    v = (u + 1 + rng.integers(0, V - 1, E)) % V
-    slots, meta = build_star_layout(u, v, V)
+@pytest.mark.parametrize("V,d,E,KP,R,layout", [
+    (34, 16, 78, 100, 1, "random"),
+    (600, 64, 9000, 100, 2, "random"),
+    (3000, 128, 40000, 512, 1, "random"),
+    (3000, 128, 40000, 2048, 3, "random"),
+] + STAR_EDGES)
+def test_star_bf16_kernel_matches_plain(dev, V, d, E, KP, R, layout):
+    slots, meta = star_edge_layout(V, E, layout, V + 2)
     slots, meta = (torch.as_tensor(a, device=dev) for a in (slots, meta))
     G = -(-slots.shape[0] // NWL)
     g = torch.Generator(device=dev).manual_seed(V)
