@@ -65,6 +65,21 @@ non-zero and prints no result line):
                pretrain 0, outer 1): O1 through K6, O2 per arc through K7
  11. paired  — the CLI on --dataset blogcatalog --o2-mode paired (pretrain
                1, outer 1): O1 through K1, O2 through K5, no K2
+ 11b. host   — ComETrainer on the blogcatalog preset with corpus="host"
+               (pretrain 1, outer 1): walks from the C++ host walker on
+               host threads, pinned and copied to the card batch by batch,
+               O1 through K1, O2 through K2; the first host-fed K1 step and
+               the first of the outer iteration held against the plain
+               version, every batch the card trained held against the
+               walker's sequence bit for bit; prints the O1 epoch beside
+               phase 5's (the device walker), the feeder's queue wait and
+               the batches trained
+ 11c. persist — the blogcatalog preset (pretrain 1, outer 2) with
+               train(checkpoint_dir=...): a fresh trainer loads
+               state_iter0.npz and runs iteration 1 beside the uninterrupted
+               run's (prints each table's max |difference| and whether all
+               are 0); the trained table through the word2vec writer and
+               loader; node-classification F1 fitted on the card
  12. bench   — ComETrainer with the reference bench's kernel configuration
                (bench.py:174-191: walk_kernel_bf16, walk_pool_refresh 8,
                batch_walks 2048, batch_edges 524288; pretrain 1, outer 1)
@@ -94,11 +109,11 @@ Since PR 5, after phase 14:
  17. profile — the karate CLI with shared negatives (K6/K7) under
                --profile-dir into a temporary directory: the trace must
                exist and name a K6 kernel
-Phases 5, 8-14 and 15-17 each reset every launch counter just before they
-run and read them just after; each wrapper counts only its own launches, by
+Phases 5, 8-14 (11b and 11c too) and 15-17 each reset every launch
+counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode.  Every phase line ends with its seconds.  Then a JSON line of the
-kernels (the bf16 modes with their bench-shape checks and their launches in
-phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
+kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
+bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
 is a probe and on no path), each with its bound: the larger of the bytes
 it must move (each touched row and each input read once, each output
 written once) over 3.35 TB/s and the operations its inputs need over 67
@@ -125,8 +140,16 @@ give finite losses and embeddings, train every edge twice in O2, and reach
 NMI >= 0.8; phase 8 NMI >= 0.5 and phase 9 NMI >= 0.3 (the JAX package's
 own karate floors); phase 10 finite losses and embeddings and exactly S * B
 O2 pairs (S = ceil(2E / batch_edges) batches of B arcs); phase 11 finite
-losses, exactly 2 * S * B_r * 64 O2 pairs and NMI >= 0.8; phases 12-13
-finite losses and NMI >= 0.8.  K3 takes ops/tolerance.py's K3 check (99%
+losses, exactly 2 * S * B_r * 64 O2 pairs and NMI >= 0.8; phase 11b one K1
+launch per host batch, 2 * ceil(V * 10 / 256) of them, every batch the
+walker's, its two held K1 steps under the f32 check and NMI >= 0.8; phase
+11c one checkpoint per outer iteration, words_seen and both generators
+equal to the saving trainer's right after the load, words_seen equal after
+the resumed iteration, NMI >= 0.8, every value of the word2vec text within
+5e-7 of the table (six decimals, correctly rounded; the f32 values read
+back add up to half an f32 ulp, which is printed) and read back exactly,
+and macro-F1 >= 0.99 at train ratio 0.5 (the JAX reference 0.9998,
+EVAL_r05.json); phases 12-13 finite losses and NMI >= 0.8.  K3 takes ops/tolerance.py's K3 check (99%
 of touched elements bit-identical, relative L2 error of the updates within
 its bound, the f32-table step 5x farther away), loss within rtol 1e-4 and
 pair counts exact; P1 the plain version's rows and tables bit for bit and
@@ -155,6 +178,12 @@ HBM_BPS, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 # NMI after pretrain 1 + outer 1 on the blogcatalog stand-in: 0.9422 on an
 # H100 at SEED; the full preset reaches 0.96 (the JAX reference 0.954)
 NMI_FLOOR = 0.8
+# node-classification macro-F1 at train ratio 0.5 on the blogcatalog
+# stand-in: the JAX reference read 0.9998 (EVAL_r05.json)
+F1_FLOOR = 0.99
+# a decimal with six places parsed to float64 is off by up to half an ulp
+# of |x| < 2^4: 1e-15; the check allows 1e-12 over 5e-7
+TEXT_SLACK = 1e-12
 # karate floors of the JAX package's tests (tests/test_trainer_e2e.py:37,
 # tests/test_pallas_trainer.py:27)
 KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
@@ -1084,6 +1113,7 @@ def main() -> int:
         raise AssertionError("main path: O2 did not train every edge twice")
     if rec["nmi"] < NMI_FLOOR:
         raise AssertionError(f"main path: NMI {rec['nmi']:.4f} < {NMI_FLOOR}")
+    main_o1_ms = rec["o1_ms"]
     phase("main", f"blogcatalog pretrain 1 + outer 1 in {wall:.1f} s: "
                   f"gmm {rec['gmm_ms']:.1f} ms, o1 {rec['o1_ms']:.1f} ms, "
                   f"o2 {rec['o2_ms']:.1f} ms, o3 {rec['o3_ms']:.1f} ms | "
@@ -1247,6 +1277,208 @@ def main() -> int:
                     f"o2_pairs {rec['o2_pairs']:.0f} (S={S}, B_r={B_r}) | "
                     f"NMI {rec['nmi']:.4f} | launches {paired_launches}")
     del trainer
+    torch.cuda.empty_cache()
+
+    # 11b. the host corpus: the blogcatalog preset with corpus="host", its
+    # walks made by the C++ walker on host threads into pinned memory and
+    # copied to the card batch by batch, trained through K1
+    from come_tpu_torch.native import HostWalkFeeder
+
+    cfg = get_config("blogcatalog").replace(
+        num_communities=ds.num_communities, corpus="host",
+        pretrain_epochs=1, outer_iters=1, seed=SEED,
+    )
+    trainer = ComETrainer(ds.graph, cfg, dev)
+    if not trainer.o1_walk_kernel or trainer.o1_gen or (
+            trainer.o1_table_dtype != torch.float32):
+        raise AssertionError("host corpus: O1 does not take K1")
+    B = min(cfg.batch_walks, len(trainer.walk_starts))
+    n_per_epoch = math.ceil(len(trainer.walk_starts) * cfg.walks_per_node / B)
+    # every batch as the card got it, copied into one buffer allocated
+    # before the run (keeping each batch's own tensor would make the
+    # allocator take new device memory every few steps, inside the timed
+    # epoch); and two K1 steps' inputs and tables
+    trained = torch.empty((2 * n_per_epoch, B, cfg.walk_length),
+                          dtype=torch.int32, device=dev)
+    held = {}
+    n_trained = [0]
+    o1_step = trainer.o1_step
+
+    def spy(walks, wrow, pools):
+        i = n_trained[0]
+        n_trained[0] += 1
+        trained[i].copy_(walks)
+        if i not in (0, n_per_epoch):
+            return o1_step(walks, wrow, pools)
+        p = trainer.params
+        init = (p.node_emb.clone(), p.ctx_emb.clone())
+        lr = trainer.lr()
+        out = o1_step(walks, wrow, pools)
+        held[i] = (init, (p.node_emb.clone(), p.ctx_emb.clone(), *out),
+                   (walks, wrow, pools, lr))
+        return out
+
+    trainer.o1_step = spy
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        hist = trainer.train(ds.single_labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        host_launches = counts()
+        feeder = trainer.host_feeder()
+        fed, wait_ms = feeder.batches, feeder.wait_s * 1e3
+        produce_ms = feeder.produce_s * 1e3
+    finally:
+        trainer.close()
+    ran = ("walk_sgns", "star_sgns")
+    check_launches("host corpus", host_launches, ran,
+                   tuple(k for k in kernels if k not in ran))
+    check_run("host corpus", hist, NMI_FLOOR)
+    if n_trained[0] != 2 * n_per_epoch or host_launches["walk_sgns"] != (
+            2 * n_per_epoch):
+        raise AssertionError(f"host corpus: {n_trained[0]} batches, "
+                             f"{host_launches['walk_sgns']} K1 launches, "
+                             f"expected {2 * n_per_epoch}")
+    # the batches the card trained are the walker's sequence bit for bit
+    # (no pinned buffer was overwritten while its copy was in flight)
+    got = trained.cpu().numpy()
+    with HostWalkFeeder(ds.graph, batch=B, length=cfg.walk_length,
+                        seed=SEED, restart_prob=cfg.restart_prob,
+                        nodes=trainer.walk_starts) as ref:
+        want = np.stack([next(ref).numpy() for _ in range(len(trained))])
+    if not np.array_equal(got, want):
+        bad = np.flatnonzero((got != want).any((1, 2)))
+        raise AssertionError(f"host corpus: batches {bad[:8].tolist()} on "
+                             f"the card differ from the walker's")
+    host_errs = []
+    for i, (init, kern, (w, wr, pl, lr)) in sorted(held.items()):
+        plain = walk_sgns_step_reference(
+            init[0].clone(), init[1].clone(), w, wr, pl, lr, trainer.negw,
+            window=cfg.window, pool_refresh=cfg.walk_pool_refresh,
+        )
+        torch.cuda.synchronize()
+        host_errs.append(compare(f"K1 host step {i}", init, kern, plain))
+    rec = hist[-1]
+    del trained, held, got, want
+    phase("host", f"blogcatalog corpus=host, pretrain 1 + outer 1 in "
+                  f"{wall:.1f} s: o1 {rec['o1_ms']:.1f} ms (device walker, "
+                  f"main: {main_o1_ms:.1f} ms), gmm {rec['gmm_ms']:.1f} ms, "
+                  f"o2 {rec['o2_ms']:.1f} ms, o3 {rec['o3_ms']:.1f} ms | "
+                  f"{fed} batches of {B} walks trained, queue wait "
+                  f"{wait_ms:.1f} ms in all, walker {produce_ms:.1f} ms on "
+                  f"its thread; every batch the walker's bit for bit | K1 "
+                  f"steps 0 and {n_per_epoch} vs plain: max_abs "
+                  f"{max(e[0] for e in host_errs):.3e} max_rel "
+                  f"{max(e[1] for e in host_errs):.3e} (tol {ATOL} + "
+                  f"{RTOL}*|plain update|) | NMI {rec['nmi']:.4f} | launches "
+                  f"{host_launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 11c. persistence: a checkpoint per outer iteration, a fresh trainer
+    # resumed from the first and run one iteration beside the uninterrupted
+    # run's second, the word2vec text of the trained table, and
+    # node-classification F1 fitted on the card
+    import tempfile
+
+    from come_tpu_torch.evaluation import node_classification_f1
+    from come_tpu_torch.iohelpers import (
+        load_embedding_word2vec,
+        save_embedding_word2vec,
+    )
+
+    cfg = get_config("blogcatalog").replace(
+        num_communities=ds.num_communities, pretrain_epochs=1, outer_iters=2,
+        seed=SEED,
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "ck"
+        reset_counts()
+        t1 = ComETrainer(ds.graph, cfg, dev)
+        saved = []  # words_seen and both generators at each save
+        save = t1.save_checkpoint
+
+        def spy_save(path):
+            saved.append((t1.words_seen, t1.gen.get_state(),
+                          t1.host_gen.get_state()))
+            save(path)
+
+        t1.save_checkpoint = spy_save
+        hist1 = t1.train(ds.single_labels, checkpoint_dir=ck)
+        names = sorted(f.name for f in ck.iterdir())
+        if names != ["state_iter0.npz", "state_iter1.npz"]:
+            raise AssertionError(f"persist: checkpoint files {names}")
+        t2 = ComETrainer(ds.graph, cfg, dev)
+        restored = t2.load_checkpoint(ck / "state_iter0.npz")
+        words0, gen0, host0 = saved[0]
+        if restored != {"gen": True, "host_gen": True} or not (
+                torch.equal(t2.gen.get_state(), gen0)
+                and torch.equal(t2.host_gen.get_state(), host0)):
+            raise AssertionError(f"persist: generators not restored "
+                                 f"({restored})")
+        if t2.words_seen != words0:
+            raise AssertionError(f"persist: words_seen {t2.words_seen} "
+                                 f"after the load, {words0} saved")
+        rec2 = t2.outer_iteration(1, ds.single_labels)
+        torch.cuda.synchronize()
+        persist_launches = counts()
+        if t2.words_seen != t1.words_seen:
+            raise AssertionError(f"persist: words_seen {t2.words_seen} "
+                                 f"resumed, {t1.words_seen} uninterrupted")
+        check_run("persist", hist1 + [rec2], NMI_FLOOR)
+        resume_err = {
+            k: float((getattr(t1.params, k) - getattr(t2.params, k))
+                     .abs().max())
+            for k in ("node_emb", "ctx_emb", "centroid", "chol_cov",
+                      "inv_cov", "pi")
+        }
+        # word2vec text of the trained table: every written value within
+        # 5e-7 of the table (six decimals, correctly rounded; TEXT_SLACK
+        # covers the float64 parse of the decimals, not the text), the
+        # loader exact to the text
+        emb = t1.embeddings()
+        txt = Path(tmp) / "emb.txt"
+        t0 = time.perf_counter()
+        save_embedding_word2vec(txt, emb, ds.graph.node_names)
+        save_s = time.perf_counter() - t0
+        back, w2v_names = load_embedding_word2vec(txt)
+        text = np.loadtxt(txt, skiprows=1,
+                          usecols=range(1, emb.shape[1] + 1),
+                          dtype=np.float64)
+        text_err = float(np.abs(text - emb.astype(np.float64)).max())
+        f32_err = float(np.abs(back.astype(np.float64)
+                               - emb.astype(np.float64)).max())
+        if (back.shape != emb.shape or len(w2v_names) != emb.shape[0]
+                or text_err > 5e-7 + TEXT_SLACK
+                or not np.array_equal(back, text.astype(np.float32))):
+            raise AssertionError(f"persist: word2vec round trip, text "
+                                 f"{text_err:.3e}, f32 {f32_err:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f1 = node_classification_f1(t1.params.node_emb, ds.labels, 0.5)
+        f1_s = time.perf_counter() - t0
+        if f1["macro_f1"] < F1_FLOOR:
+            raise AssertionError(f"persist: macro-F1 {f1['macro_f1']:.4f} "
+                                 f"< {F1_FLOOR}")
+    check_launches("persist", persist_launches, ran,
+                   tuple(k for k in kernels if k not in ran))
+    exact = all(v == 0.0 for v in resume_err.values())
+    phase("persist", f"blogcatalog pretrain 1 + outer 2 with "
+                     f"checkpoint_dir: {names}; resumed from state_iter0 "
+                     f"(words_seen {words0:.0f} exact, both generators "
+                     f"restored), iteration 1 beside the uninterrupted run's:"
+                     f" max|d| " + ", ".join(
+                         f"{k} {v:.3e}" for k, v in resume_err.items())
+                     + f" (bit-exact: {exact}), NMI {rec2['nmi']:.4f} vs "
+                     f"{hist1[-1]['nmi']:.4f} | word2vec {emb.shape[0]}x"
+                     f"{emb.shape[1]} written in "
+                     f"{save_s:.2f} s: text max|d| {text_err:.3e} (<= 5e-7),"
+                     f" f32 round trip {f32_err:.3e} | F1 at ratio 0.5 on "
+                     f"cuda: macro {f1['macro_f1']:.4f} micro "
+                     f"{f1['micro_f1']:.4f} in {f1_s:.2f} s | launches "
+                     f"{persist_launches}")
+    del t1, t2
     torch.cuda.empty_cache()
 
     # 12-13. the reference bench's kernel configuration through
@@ -1434,7 +1666,8 @@ def main() -> int:
     pg = p1[(2, 262144)]  # the path's bf16 rows, one macro step's worth
     print(json.dumps({"kernels": [
         entry("walk_sgns", "walk_sgns.cu",
-              "come_tpu/ops/pallas_walk_sgns.py:91", launches["walk_sgns"],
+              "come_tpu/ops/pallas_walk_sgns.py:91",
+              launches["walk_sgns"] + host_launches["walk_sgns"],
               k1_err[0], k1_ms, k1_plain_ms, k1_bound),
         entry("star_sgns", "star_sgns.cu",
               "come_tpu/ops/pallas_star_sgns.py:56", launches["star_sgns"],

@@ -14,8 +14,14 @@ public names of their ``come_tpu`` counterparts:
   PyTorch versions, the nvcc/ctypes build, and the sparse row primitives
 * ``losses/``     — per-pair and shared-pool SGNS math, GMM EM and the O3
   community step (torch ops)
-* ``evaluation/`` — NMI in numpy, the numpy gradient oracle and the
-  gradient parity harness (a CLI)
+* ``evaluation/`` — NMI in numpy, node-classification F1 (logistic
+  regression by L-BFGS in torch, no sklearn), plots (matplotlib imported
+  only when one is drawn), the numpy gradient oracle and the gradient
+  parity harness (a CLI)
+* ``iohelpers/``  — word2vec-text embeddings and ``.npz`` checkpoints that
+  the JAX package can load, and that load JAX checkpoints
+* ``native/``     — the C++ host walker (g++ at first use, ctypes) and
+  its feeder thread, for ``corpus="host"``
 * ``metrics/``    — throughput meter, JSONL scalar log, profiler traces
 * ``trainer/``    — the alternating ComE loop on one device
 * ``tools/``      — measurement scripts run on the card (the probes P2-P4,

@@ -5,7 +5,12 @@ Usage:
 
 Loads a registered dataset (karate by default, as the JAX CLI), runs the full alternating ComE
 optimization on ``--device`` (default ``cuda``; there is no silent CPU
-fallback) and prints per-iteration losses, per-phase ms and NMI.
+fallback) and prints per-iteration losses, per-phase ms and NMI.  As the
+JAX CLI: ``--resume`` loads a checkpoint of either package before training,
+``--checkpoint-dir`` writes one per outer iteration, ``--eval-f1`` prints
+node-classification F1 (fitted on ``--device``), ``--save`` writes the
+embeddings as word2vec text and ``--plot`` the PNGs.  ``--plot`` needs
+matplotlib and checks for it before anything is trained.
 """
 
 from __future__ import annotations
@@ -13,17 +18,9 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 
 import torch
-
-# flags of come_tpu/main.py whose features are not ported yet
-_NOT_YET = {
-    "save": "Persistence",
-    "checkpoint_dir": "Persistence",
-    "resume": "Persistence",
-    "plot": "Plots",
-    "eval_f1": "Node-classification F1",
-}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -51,6 +48,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "envelope, else per arc; paired: the walk kernel's "
                         "edge mode inside the same envelope; xla forces per "
                         "arc)")
+    p.add_argument("--corpus", choices=["device", "host"],
+                   help="walk source (default device: the torch walker on "
+                        "the card; host: the C++ walker on host threads, "
+                        "fed to the card batch by batch)")
     p.add_argument("--down-sample", type=float,
                    help="word2vec frequent-node subsampling threshold "
                         "(reference `sample`; 0 = off, the default)")
@@ -91,14 +92,12 @@ def _o2_tier(t) -> str:
 
 
 def run(args: argparse.Namespace):
-    """Build the dataset, config and trainer from parsed flags and train.
-    Returns (trainer, history)."""
-    for flag, item in _NOT_YET.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet "
-                f"(ROADMAP Queue 1, '{item}')"
-            )
+    """Build the dataset, config and trainer from parsed flags, train, and
+    evaluate, save and plot as the flags ask.  Returns (trainer, history)."""
+    if args.plot:
+        from come_tpu_torch.evaluation.plots import require_matplotlib
+
+        require_matplotlib()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -125,19 +124,64 @@ def run(args: argparse.Namespace):
           f"K={cfg.num_communities} d={cfg.dim} device={dev_name}")
     t0 = time.perf_counter()
     trainer = ComETrainer(ds.graph, cfg, device)
-    print(f"o1 tier: {_o1_tier(trainer)}, o2 tier: {_o2_tier(trainer)}")
+    walks = " on host walks" if cfg.corpus == "host" else ""
+    print(f"o1 tier: {_o1_tier(trainer)}{walks}, o2 tier: "
+          f"{_o2_tier(trainer)}")
+    if args.resume:
+        trainer.load_checkpoint(args.resume)
+        print(f"resumed from {args.resume} "
+              f"(words_seen={trainer.words_seen:.0f})")
     emit = (lambda s: print(json.dumps({"log": s}))) if args.json else print
     from come_tpu_torch.metrics.profiling import trace
 
-    with trace(args.profile_dir):
-        history = trainer.train(labels=ds.single_labels, log=emit)
+    try:
+        with trace(args.profile_dir):
+            history = trainer.train(labels=ds.single_labels, log=emit,
+                                    checkpoint_dir=args.checkpoint_dir)
+    finally:
+        trainer.close()
     print(f"trained in {time.perf_counter() - t0:.1f}s")
     if device.type == "cuda":
         print(f"peak device memory: "
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
     if history and "nmi" in history[-1]:
         print(f"final NMI: {history[-1]['nmi']:.4f}")
+    if args.eval_f1 and ds.labels is not None:
+        from come_tpu_torch.evaluation import node_classification_f1
+
+        f1 = node_classification_f1(trainer.params.node_emb, ds.labels)
+        print(f"classification: macro-F1={f1['macro_f1']:.4f} "
+              f"micro-F1={f1['micro_f1']:.4f}")
+    if args.save:
+        from come_tpu_torch.iohelpers import save_embedding_word2vec
+
+        save_embedding_word2vec(args.save, trainer.embeddings(),
+                                ds.graph.node_names)
+        print(f"embeddings -> {args.save}")
+    if args.plot:
+        _plot(trainer, ds, Path(args.plot))
     return trainer, history
+
+
+def _plot(trainer, ds, out: Path) -> None:
+    import numpy as np
+
+    from come_tpu_torch.evaluation.plots import graph_plot, node_space_plot_2d
+
+    out.mkdir(parents=True, exist_ok=True)
+    p = trainer.params
+    chol = p.chol_cov.cpu().numpy()
+    covs = np.einsum("kde,kfe->kdf", chol, chol)
+    node_space_plot_2d(
+        trainer.embeddings(), trainer.communities(),
+        p.centroid.cpu().numpy(), covs,
+        path=out / "embedding_space.png",
+        title=f"{ds.name}: embedding space + GMM",
+    )
+    graph_plot(ds.graph, trainer.communities(),
+               path=out / "graph_communities.png",
+               title=f"{ds.name}: detected communities")
+    print(f"plots -> {out}")
 
 
 def main(argv=None) -> int:

@@ -30,14 +30,23 @@ total))`` is kept exactly; ``words_seen`` is a host float because every
 step advances it by a fixed count.  Losses and pair counts stay on the
 device until one sync per epoch.
 
+With ``corpus="host"`` the walks come from the C++ host walker
+(``native/``): a feeder thread keeps batches ready in pinned host memory,
+each copied to the card without blocking and trained through the same O1
+step (K1, K1b or K3; otherwise the micro-batched tier) while the walker
+makes the next (``_o1_epoch_host``, ``trainer/come.py:751-783``).
+
 Randomness comes from two ``torch.Generator``s seeded from ``seed``: one on
 the device (init, walks, window and keep draws, negatives and pools, the
 star-row and arc shuffles) and one on the host (the epoch's walk-start
-permutation, the GMM init).  JAX's threefry streams are not reproduced; the
-tests feed both packages the same draws through the ``*_step`` methods.
+permutation, the GMM init).  The host corpus's walks come from the
+feeder's own numpy and splitmix64 streams, the JAX package's.  JAX's
+threefry streams are not reproduced; the tests feed both packages the same
+draws through the ``*_step`` methods.  Checkpoints (``iohelpers/``) hold
+the parameters, ``words_seen`` and both generators' states.
 
-Configurations the port does not have raise ``NotImplementedError``
-naming their ROADMAP item.
+``pallas="never"`` (the JAX package's XLA banded and block tiers) raises
+``NotImplementedError``: ROADMAP decision 1 does not port those tiers.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import math
 import time
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -54,10 +64,12 @@ import torch.nn.functional as F
 from come_tpu_torch.config import ComEConfig
 from come_tpu_torch.evaluation.metrics import nmi_score
 from come_tpu_torch.graphs.csr import CSRGraph
+from come_tpu_torch.iohelpers import persist
 from come_tpu_torch.losses.community import community_loss, community_sgd_step
 from come_tpu_torch.losses.gmm import fit_communities
 from come_tpu_torch.losses.sgns import sgns_sgd_step
 from come_tpu_torch.models.state import init_params
+from come_tpu_torch.native import HostWalkFeeder
 from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
 from come_tpu_torch.ops.star_sgns import star_sgns_step
 from come_tpu_torch.ops.walk_sgns import (
@@ -91,8 +103,6 @@ def _decayed_lr(words_seen, total_words, lr0, min_lr):
 def _unsupported(cfg: ComEConfig) -> str | None:
     """The first setting the port does not have, with its ROADMAP item."""
     checks = [
-        (cfg.corpus == "host",
-         "corpus='host' (ROADMAP Queue 1, 'Host corpus')"),
         (cfg.pallas == "never",
          "pallas='never', the JAX package's XLA banded/block tiers, which "
          "ROADMAP decision 1 does not port"),
@@ -173,6 +183,7 @@ class ComETrainer:
         self.cfg = config
         self.device = torch.device(device)
         seed = config.seed if seed is None else seed
+        self.seed = seed
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.host_gen = torch.Generator().manual_seed(seed)
         self.csr = graph.to_device(self.device)
@@ -203,6 +214,7 @@ class ComETrainer:
         self.negw = config.negative / config.shared_negatives
         self._history: list[dict] = []
         self._walk_cache: torch.Tensor | None = None
+        self._host_feeder: HostWalkFeeder | None = None
         self._o1_epochs_done = 0
         self._o1_work: tuple[torch.Tensor, torch.Tensor] | None = None
         self._star_rows: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -227,9 +239,11 @@ class ComETrainer:
             and _in_envelope(NWL, V)
         )
         # in-kernel walks (_use_walk_kernel_gen, :380-394, taken at :696
-        # with fresh walks every epoch); its CSR side budgets are VMEM's
+        # with fresh walks every epoch, never with the host corpus, :683);
+        # its CSR side budgets are VMEM's
         self.o1_gen = (
             self.o1_walk_kernel and config.walk_gen == "kernel"
+            and config.corpus != "host"
             and config.restart_prob == 0.0 and config.walk_regen_epochs == 1
         )
         # the walk kernel's paired edge mode (_use_walk_kernel_o2,
@@ -447,8 +461,11 @@ class ComETrainer:
         """One pass of ``walks_per_node`` walks from every start node; the
         epoch's corpus is generated in one call, or reused when
         ``walk_regen_epochs != 1``, or generated step by step inside the
-        kernel when ``o1_gen`` (``trainer/come.py:680-729``)."""
+        kernel when ``o1_gen`` (``trainer/come.py:680-729``), or fed from
+        the host walker with ``corpus="host"``."""
         cfg = self.cfg
+        if cfg.corpus == "host":
+            return self._o1_epoch_host()
         starts = self._epoch_starts()
         if self.o1_gen:
             return self._o1_epoch_gen(starts)
@@ -467,14 +484,19 @@ class ComETrainer:
         tot_pairs = torch.zeros((), device=self.device)
         with self._o1_tables():
             for walks in walks_all:
-                if self.o1_walk_kernel:
-                    wrow, pools = self._o1_draws(walks.shape[0])
-                    loss, npairs = self.o1_step(walks, wrow, pools)
-                else:
-                    loss, npairs = self.o1_pairs_step(walks)
+                loss, npairs = self._o1_walks_step(walks)
                 tot_loss += loss
                 tot_pairs += npairs
         return self._finish_o1(tot_loss, tot_pairs)
+
+    def _o1_walks_step(self, walks: torch.Tensor):
+        """One O1 macro step from walks [B, L] (``_o1_walks_step``,
+        ``trainer/come.py:785-836``): the walk kernel with fresh window
+        draws and pools, or the micro-batched tier."""
+        if self.o1_walk_kernel:
+            wrow, pools = self._o1_draws(walks.shape[0])
+            return self.o1_step(walks, wrow, pools)
+        return self.o1_pairs_step(walks)
 
     def _o1_epoch_gen(self, starts: torch.Tensor) -> float:
         """O1 epoch through K4 (``_o1_epoch_gen``, ``trainer/come.py:
@@ -492,6 +514,47 @@ class ComETrainer:
                 tot_loss += loss
                 tot_pairs += npairs
         return self._finish_o1(tot_loss, tot_pairs)
+
+    def host_feeder(self) -> HostWalkFeeder:
+        """The host corpus's feeder, made at first use: batches of
+        ``min(batch_walks, len(walk_starts))`` walks from the walk starts,
+        seeded with the trainer's seed, pinned when the trainer is on a
+        CUDA card."""
+        if self._host_feeder is None:
+            cfg = self.cfg
+            self._host_feeder = HostWalkFeeder(
+                self.graph, batch=min(cfg.batch_walks, len(self.walk_starts)),
+                length=cfg.walk_length, seed=self.seed,
+                restart_prob=cfg.restart_prob, nodes=self.walk_starts,
+                pin_memory=self.device.type == "cuda",
+            )
+        return self._host_feeder
+
+    def _o1_epoch_host(self) -> float:
+        """Host-corpus O1 epoch (``_o1_epoch_host``, ``trainer/come.py:
+        751-783``): ``ceil(V * walks_per_node / B)`` feeder batches, each
+        copied to the device without blocking and trained by the O1 step
+        the trainer's tier takes, while the feeder's threads make the next
+        batches.  Losses stay on the device until the epoch ends."""
+        feeder = self.host_feeder()
+        n_batches = math.ceil(
+            len(self.walk_starts) * self.cfg.walks_per_node / feeder.batch)
+        self._o1_epochs_done += 1
+        tot_loss = torch.zeros((), device=self.device)
+        tot_pairs = torch.zeros((), device=self.device)
+        with self._o1_tables():
+            for _ in range(n_batches):
+                walks = next(feeder).to(self.device, non_blocking=True)
+                loss, npairs = self._o1_walks_step(walks)
+                tot_loss += loss
+                tot_pairs += npairs
+        return self._finish_o1(tot_loss, tot_pairs)
+
+    def close(self) -> None:
+        """Stop the host corpus's feeder thread, if one was started."""
+        if self._host_feeder is not None:
+            self._host_feeder.close()
+            self._host_feeder = None
 
     def _finish_o1(self, tot_loss, tot_pairs) -> float:
         loss, pairs = torch.stack([tot_loss, tot_pairs]).tolist()
@@ -720,18 +783,40 @@ class ComETrainer:
         self,
         labels: np.ndarray | None = None,
         log: Callable[[str], None] | None = None,
+        checkpoint_dir: str | Path | None = None,
         scalar_log=None,
     ) -> list[dict]:
-        """Full alternating optimization (reference main.py loop).  Each
-        record holds the phase losses, per-phase wall ms (taken after a
-        device synchronise), the pair counts and, with ``labels``, NMI.
-        ``scalar_log``: optional ``metrics.ScalarLog`` sink, one record per
-        outer iteration."""
+        """Full alternating optimization (reference main.py loop):
+        ``pretrain_epochs`` O1 epochs, then ``outer_iters`` calls of
+        :meth:`outer_iteration`.  ``checkpoint_dir``: write
+        ``state_iter{N}.npz`` there after every outer iteration
+        (``trainer/come.py:1245-1249``).  ``scalar_log``: optional
+        ``metrics.ScalarLog`` sink, one record per outer iteration."""
         cfg = self.cfg
         say = log or (lambda s: None)
         for e in range(cfg.pretrain_epochs):
             loss = self.o1_epoch()
             say(f"pretrain O1 epoch {e}: loss/pair {loss:.4f}")
+        for it in range(cfg.outer_iters):
+            rec = self.outer_iteration(it, labels)
+            say(f"iter {it}: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in rec.items() if k != "iter"
+            ))
+            if scalar_log is not None:
+                scalar_log.log(it, **rec)
+            if checkpoint_dir:
+                cd = Path(checkpoint_dir)
+                cd.mkdir(parents=True, exist_ok=True)
+                self.save_checkpoint(cd / f"state_iter{it}.npz")
+            self._history.append(rec)
+        return self._history
+
+    def outer_iteration(self, it: int, labels: np.ndarray | None = None
+                        ) -> dict:
+        """One outer iteration: GMM fit, O1 and O2 epochs, the O3 pass.
+        The record holds the phase losses, per-phase wall ms (taken after a
+        device synchronise), the pair counts and, with ``labels``, NMI."""
+        cfg = self.cfg
 
         def timed(rec, name, fn):
             self._sync()
@@ -741,25 +826,41 @@ class ComETrainer:
             rec[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
             return out
 
-        for it in range(cfg.outer_iters):
-            rec: dict = {"iter": it}
-            rec["gmm_ll"] = timed(rec, "gmm", self.fit_gmm)
-            for _ in range(cfg.o1_epochs_per_iter):
-                rec["o1_loss"] = timed(rec, "o1", self.o1_epoch)
-            for _ in range(cfg.o2_epochs_per_iter):
-                rec["o2_loss"] = timed(rec, "o2", self.o2_epoch)
-            rec["o3_loss"] = timed(rec, "o3", self.o3_pass)
-            rec["o1_pairs"] = self.last_o1_pairs
-            rec["o2_pairs"] = self.last_o2_pairs
-            if labels is not None:
-                rec["nmi"] = nmi_score(labels, self.communities())
-            say(f"iter {it}: " + ", ".join(
-                f"{k}={v:.4f}" for k, v in rec.items() if k != "iter"
-            ))
-            if scalar_log is not None:
-                scalar_log.log(it, **rec)
-            self._history.append(rec)
-        return self._history
+        rec: dict = {"iter": it}
+        rec["gmm_ll"] = timed(rec, "gmm", self.fit_gmm)
+        for _ in range(cfg.o1_epochs_per_iter):
+            rec["o1_loss"] = timed(rec, "o1", self.o1_epoch)
+        for _ in range(cfg.o2_epochs_per_iter):
+            rec["o2_loss"] = timed(rec, "o2", self.o2_epoch)
+        rec["o3_loss"] = timed(rec, "o3", self.o3_pass)
+        rec["o1_pairs"] = self.last_o1_pairs
+        rec["o2_pairs"] = self.last_o2_pairs
+        if labels is not None:
+            rec["nmi"] = nmi_score(labels, self.communities())
+        return rec
+
+    # ----------------------------------------------------------- persistence
+
+    def save_checkpoint(self, path) -> None:
+        """Write the parameters, ``words_seen`` and both generators' states
+        (``iohelpers.persist``; the JAX package can load the file)."""
+        persist.save_checkpoint(path, self.params, self.words_seen,
+                                self.seed, gen=self.gen,
+                                host_gen=self.host_gen)
+
+    def load_checkpoint(self, path) -> dict:
+        """Restore a checkpoint of either package: the parameters and
+        ``words_seen``, and the generators where the file holds the port's
+        states for this device type (a JAX checkpoint holds none, so the
+        streams stay as they are).  Returns which generators were restored.
+        The host corpus's feeder starts its sequence anew, as the JAX
+        package's does."""
+        cfg = self.cfg
+        params, self.words_seen, restored = persist.load_checkpoint(
+            path, self.device, gen=self.gen, host_gen=self.host_gen,
+            shape=(self.graph.num_nodes, cfg.dim, cfg.num_communities))
+        self.params = params
+        return restored
 
     # ------------------------------------------------------------------ views
 

@@ -210,10 +210,13 @@ def test_nmi_matches_sklearn():
 
 
 def test_port_imports_without_jax():
-    """Every submodule imports with ``jax`` blocked in sys.modules."""
+    """Every submodule imports with ``jax``, ``sklearn`` and
+    ``matplotlib`` blocked in sys.modules (only the plot functions' own
+    calls need matplotlib)."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
+        "for m in ('jax', 'sklearn', 'matplotlib', 'networkx'):\n"
+        "    sys.modules[m] = None\n"
         "import come_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    come_tpu_torch.__path__, 'come_tpu_torch.')]\n"
@@ -235,3 +238,7 @@ def test_port_imports_without_jax():
         "evaluation.oracle", "evaluation.parity", "ops.smem_probe",
         "ops.star_probe", "ops.floor_probe", "tools.probe_smem",
         "tools.probe_star", "tools.probe_star_floor", "tools.quality")} <= names
+    # host corpus, persistence, F1 and plots
+    assert {f"come_tpu_torch.{m}" for m in (
+        "native", "native.build", "native.walker", "iohelpers",
+        "iohelpers.persist", "evaluation.metrics", "evaluation.plots")} <= names
