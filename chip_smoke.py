@@ -109,8 +109,33 @@ Since PR 5, after phase 14:
  17. profile — the karate CLI with shared negatives (K6/K7) under
                --profile-dir into a temporary directory: the trace must
                exist and name a K6 kernel
-Phases 5, 8-14 (11b and 11c too) and 15-17 each reset every launch
-counter just before they run and read them just after; each wrapper counts only its own launches, by
+After phase 17:
+ 18. dp      — the data-parallel path (come_tpu_torch/parallel/): each run
+               launches come_tpu_torch.tools.dp_check on N ranks through
+               python -m torch.distributed.run (--standalone), and every
+               rank trains the blogcatalog preset through --mesh N,1
+               (pretrain 1 + outer 1) with its launch counters reset just
+               before and read just after, times one more O1 epoch with
+               CUDA events around each all-reduce, and prints one JSON line.
+               Runs: (a) NCCL, world 1; (b) gloo, world 2, both ranks on
+               cuda:0 (NCCL refuses two ranks on one card; gloo stages the
+               card's tensors through the host, so (b)'s times measure
+               correctness, not speed); (c) NCCL, world 2 on two cards, only
+               where torch.cuda.device_count() >= 2.  Each run also holds
+               one dp step of K1 (BlogCatalog shapes), K2 and K5 against
+               before + sum_r (plain_r(before) - before) under the f32 check
+               (tools/hot_row.py's float64 rule where it fails) and one K3
+               step at the synthetic-10m shapes under ops/tolerance.py's K3
+               check.  Every rank must reach NMI >= 0.8, launch K1 and K2
+               and no other kernel, and hash its six parameter tensors to
+               the same sha256 as every other rank, after the run and after
+               the extra epoch.  The line gives the dp O1 epoch beside
+               phase 5's, the all-reduce ms and bytes per step, the world
+               size and the backend, the warm distributed and one-device
+               GMM fits, and in (a) four O1 epochs each of the one-device
+               and the dp trainer in turns on one table.
+Phases 5, 8-14 (11b and 11c too), 15-17 and every rank of 18 each reset
+every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode.  Every phase line ends with its seconds.  Then a JSON line of the
 kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
 bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
@@ -162,6 +187,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -390,6 +416,98 @@ def bf16_line(err, ms, plain_ms):
             f"{err[2] / BF16_L2:.2f}x the bound; worst element "
             f"{err[3]:.3f} of 2^-8 max|plain update|) | kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms")
+
+
+def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
+    """Phase 18 (module docstring): runs (a), (b) and, on two or more
+    cards, (c) of tools/dp_check.py; raises if a rank fails or a check
+    does not hold."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    runs = [("a", 1, "nccl", None), ("b", 2, "gloo", "cuda:0")]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("c", 2, "nccl", None))
+    allowed = {"walk_sgns", "star_sgns"}
+    for tag, n, backend, device in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc-per-node", str(n), "-m",
+                   "come_tpu_torch.tools.dp_check", "--backend", backend,
+                   "--out", tmp]
+            if device:
+                cmd += ["--device", device]
+            env = dict(os.environ, PYTHONPATH=str(root))
+            # a session of its own, so a run past its time is stopped with
+            # every rank the launcher started
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True,
+                                    cwd=root, env=env, start_new_session=True)
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)
+                proc.communicate()
+                raise
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"dp run ({tag}) exited {proc.returncode}:\n"
+                    f"{out[-3000:]}\n{err[-6000:]}")
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(n)]
+        for r in ranks:
+            if r["nmi"] < NMI_FLOOR:
+                raise AssertionError(f"dp ({tag}) rank {r['rank']}: NMI "
+                                     f"{r['nmi']:.4f} < {NMI_FLOOR}")
+            for k, v in r["launches"].items():
+                if (v == 0) == (k in allowed):
+                    raise AssertionError(f"dp ({tag}) rank {r['rank']} "
+                                         f"launched {k} {v} times")
+            if (r["o1_tier"], r["o2_tier"]) != ("walk-kernel-dp",
+                                                "star-o2-dp"):
+                raise AssertionError(f"dp ({tag}): tiers {r['o1_tier']}, "
+                                     f"{r['o2_tier']}")
+        hashes = {(r["hash"], r["hash_after"]) for r in ranks}
+        if len(hashes) != 1:
+            raise AssertionError(f"dp ({tag}): replicas differ: {hashes}")
+        r0 = ranks[0]
+        steps = r0["o1_steps"]
+        h = [x["held"] for x in ranks]
+        held = (" | held dp steps (worst over ranks): K1 f32 ratio "
+                f"{max(x['K1']['f32_ratio'] for x in h):.3f}, K2 "
+                f"{max(x['K2']['f32_ratio'] for x in h):.3f}, K5 "
+                f"{max(x['K5']['f32_ratio'] for x in h):.3f} (<= 1); K3 "
+                f"identical {min(x['K3']['identical'] for x in h):.5f}, "
+                f"rel_l2 {max(x['K3']['rel_l2'] for x in h):.3e}, its "
+                f"snapshot and reduction of the two 500000 x 128 tables "
+                f"{h[0]['K3']['rule_ms']:.3f} ms (rank 0)")
+        if any("f64_ratio" in x["K1"] for x in h):
+            held += " (K1 by the float64 rule)"
+        if "o1_ab_ms" in r0:
+            ab = r0["o1_ab_ms"]
+            held += (" | O1 epochs in turns, same process and table: "
+                     "one-device " + ", ".join(f"{x:.1f}" for x in
+                                               ab["single"])
+                     + " ms; dp " + ", ".join(f"{x:.1f}" for x in ab["dp"])
+                     + " ms")
+        note = (" [gloo stages the card's tensors through the host: "
+                "correctness, not speed]" if backend == "gloo" else "")
+        phase(f"dp {tag}", (
+            f"world {n} {backend} on {sorted({r['device'] for r in ranks})}: "
+            f"NMI {min(r['nmi'] for r in ranks):.4f} | o1 epoch in the run "
+            f"{max(r['o1_ms'] for r in ranks):.1f} ms (phase 5, one card "
+            f"without dp: {main_o1_ms:.1f} ms), extra epoch "
+            f"{max(r['epoch_ms'] for r in ranks):.1f} ms, all-reduce "
+            f"{r0['allreduce_ms'] / steps:.4f} ms per step (CUDA events, "
+            f"rank 0, {steps} steps) and {r0['allreduce_bytes'] / steps:.0f}"
+            f" B per step (2 x V x d x 4 = {2 * V * d * 4}) | gmm "
+            f"{r0['gmm_ms']:.1f} ms (warm, rank 0: distributed EM "
+            f"{r0['gmm_ab_ms']['sharded']:.1f} ms, one-device EM "
+            f"{r0['gmm_ab_ms']['single']:.1f}), o2 {r0['o2_ms']:.1f} ms | "
+            f"replicas "
+            f"bit-identical (sha256 {r0['hash']}, {r0['hash_after']}) | "
+            f"launches per rank {[r['launches'] for r in ranks]}" + held
+            + note))
 
 
 def main() -> int:
@@ -1653,6 +1771,10 @@ def main() -> int:
                      f"(K6) | NMI {hist[-1]['nmi']:.4f} | launches "
                      f"{prof_launches}")
     del trainer
+    torch.cuda.empty_cache()
+
+    # 18. the data-parallel path: torchrun runs of tools/dp_check.py
+    dp_phase(main_o1_ms, V=ds.graph.num_nodes, d=128)
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
               library_ms=None):

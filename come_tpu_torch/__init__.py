@@ -24,8 +24,10 @@ public names of their ``come_tpu`` counterparts:
   its feeder thread, for ``corpus="host"``
 * ``metrics/``    — throughput meter, JSONL scalar log, profiler traces
 * ``trainer/``    — the alternating ComE loop on one device
+* ``parallel/``   — data-parallel training over ``torch.distributed``: the
+  mesh of processes, the delta all-reduce rule, ``ShardedComETrainer``
 * ``tools/``      — measurement scripts run on the card (the probes P2-P4,
-  the O1 table-dtype A/B)
+  the O1 table-dtype A/B, the data-parallel check)
 * ``main.py``     — the CLI
 
 The GMM and O3 products must stay in full float32, so TF32 is switched off

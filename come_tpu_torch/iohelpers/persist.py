@@ -20,6 +20,19 @@ The port's own streams go under keys of their own: ``torch_gen_state`` and
 cannot map onto each other, so a cross-load restores the parameters and
 ``words_seen`` and leaves the loader's stream as it was, as the JAX package
 does with a checkpoint that has no ``host_key``.
+
+Data-parallel training writes the JAX package's sharded form
+(``save_checkpoint_sharded``, ``come_tpu/iohelpers/persist.py:110-326``):
+one file per process, ``<path>.proc<i>.npz``, holding
+``_process_count``, the topology as ``_meta.data``, ``_meta.model``,
+``_meta.v_real`` and ``_meta.interleave``, and every leaf whole with its
+``<name>.shape`` (at model 1 every process holds the whole replica, as the
+JAX writer stores a fully addressable leaf), plus that rank's generator
+states under the port's keys.  :func:`load_checkpoint_global` merges the
+files of either package (whole leaves, or ``<name>@<row>`` blocks), which
+is how a checkpoint moves to another number of processes or into the
+single-device trainer; the streams then start as they were, since a
+rank's stream has no counterpart in another topology.
 """
 
 from __future__ import annotations
@@ -32,6 +45,10 @@ import numpy as np
 import torch
 
 from come_tpu_torch.models.state import FIELDS, ComEParams, from_numpy
+
+# the state leaves of a checkpoint, as the JAX package names them
+LEAVES = FIELDS + ("key", "words_seen")
+ROW_LEAVES = ("node_emb", "ctx_emb", "pi")
 
 
 def save_embedding_word2vec(
@@ -81,6 +98,11 @@ def save_checkpoint(
     """Atomic ``.npz`` checkpoint: the parameters, ``words_seen``, the
     threefry ``key`` made from ``seed`` and, when given, the generators'
     states (module docstring)."""
+    _atomic_savez(Path(path), _payload(params, words_seen, seed, gen,
+                                       host_gen))
+
+
+def _payload(params, words_seen, seed, gen, host_gen) -> dict:
     payload = dict(params.to_numpy())
     payload["key"] = threefry_key_data(seed)
     payload["words_seen"] = np.float64(words_seen)
@@ -89,7 +111,7 @@ def save_checkpoint(
         payload["torch_gen_device"] = np.str_(gen.device.type)
     if host_gen is not None:
         payload["torch_host_gen_state"] = host_gen.get_state().numpy()
-    _atomic_savez(Path(path), payload)
+    return payload
 
 
 def _atomic_savez(path: Path, payload: dict) -> None:
@@ -111,26 +133,190 @@ def load_checkpoint(
     host_gen: torch.Generator | None = None,
     shape: tuple[int, int, int] | None = None,
 ) -> tuple[ComEParams, float, dict]:
-    """Read a checkpoint of either package.  Returns (params on ``device``,
-    ``words_seen``, what was restored): each generator given takes the
-    saved state when the file has one for its device type; ``restored``
-    maps "gen" and "host_gen" to whether they did.  ``shape`` (V, d, K):
-    raise ValueError, before any generator is touched, unless the saved
-    parameters have it."""
+    """Read a checkpoint of either package: one ``.npz``, or the
+    per-process files of a sharded one (``<path>.proc<i>.npz``, merged by
+    :func:`load_checkpoint_global`; no generator is restored from those).
+    Returns (params on ``device``, ``words_seen``, what was restored): each
+    generator given takes the saved state when the file has one for its
+    device type; ``restored`` maps "gen" and "host_gen" to whether they
+    did.  ``shape`` (V, d, K): raise ValueError, before any generator is
+    touched, unless the saved parameters have it."""
+    if not Path(path).exists() and _proc_path(path, 0).exists():
+        leaves, meta = load_checkpoint_global(path)
+        return _restore(_logical(leaves, meta), path, device, None, None,
+                        shape)
     with np.load(path) as z:
-        saved = (*z["node_emb"].shape, z["centroid"].shape[0])
-        if shape is not None and saved != tuple(shape):
-            raise ValueError(f"checkpoint {path} holds (V, d, K) = {saved}, "
-                             f"expected {tuple(shape)}")
-        params = from_numpy({k: z[k] for k in FIELDS}, device)
-        words_seen = float(z["words_seen"])
-        restored = {"gen": False, "host_gen": False}
-        if (gen is not None and "torch_gen_state" in z.files
-                and str(z["torch_gen_device"]) == gen.device.type):
-            gen.set_state(torch.from_numpy(z["torch_gen_state"].copy()))
-            restored["gen"] = True
-        if host_gen is not None and "torch_host_gen_state" in z.files:
-            host_gen.set_state(
-                torch.from_numpy(z["torch_host_gen_state"].copy()))
-            restored["host_gen"] = True
+        return _restore(z, path, device, gen, host_gen, shape)
+
+
+def _restore(z, path, device, gen, host_gen, shape):
+    """(params, words_seen, restored) from the leaves ``z`` (an open
+    ``.npz`` or a dict of arrays) and the generator states it holds."""
+    saved = (*z["node_emb"].shape, z["centroid"].shape[0])
+    if shape is not None and saved != tuple(shape):
+        raise ValueError(f"checkpoint {path} holds (V, d, K) = {saved}, "
+                         f"expected {tuple(shape)}")
+    params = from_numpy({k: z[k] for k in FIELDS}, device)
+    words_seen = float(z["words_seen"])
+    restored = {"gen": False, "host_gen": False}
+    keys = set(z.files if hasattr(z, "files") else z)
+    if (gen is not None and "torch_gen_state" in keys
+            and str(z["torch_gen_device"]) == gen.device.type):
+        gen.set_state(torch.from_numpy(np.array(z["torch_gen_state"])))
+        restored["gen"] = True
+    if host_gen is not None and "torch_host_gen_state" in keys:
+        host_gen.set_state(
+            torch.from_numpy(np.array(z["torch_host_gen_state"])))
+        restored["host_gen"] = True
     return params, words_seen, restored
+
+
+# ------------------------------------------------- per-process checkpoints
+
+
+def _proc_path(path: str | Path, process_index: int) -> Path:
+    path = Path(path)
+    return path.with_name(f"{path.name}.proc{process_index}.npz")
+
+
+def save_checkpoint_sharded(
+    path: str | Path,
+    params: ComEParams,
+    words_seen: float,
+    seed: int,
+    process_index: int,
+    process_count: int,
+    meta: dict | None = None,
+    gen: torch.Generator | None = None,
+    host_gen: torch.Generator | None = None,
+) -> None:
+    """This process's file of a sharded checkpoint,
+    ``<path>.proc<process_index>.npz``, written atomically: the leaves of
+    :func:`save_checkpoint` (whole: at model 1 each process holds the whole
+    replica) each with its ``<name>.shape``, ``_process_count``, the int
+    topology ``meta`` as ``_meta.<key>`` and this process's generator
+    states."""
+    payload = _payload(params, words_seen, seed, gen, host_gen)
+    for name in LEAVES:
+        payload[f"{name}.shape"] = np.asarray(np.shape(payload[name]),
+                                              np.int64)
+    payload["_process_count"] = np.int64(process_count)
+    for k, v in (meta or {}).items():
+        payload[f"_meta.{k}"] = np.int64(v)
+    _atomic_savez(_proc_path(path, process_index), payload)
+
+
+def load_checkpoint_sharded(
+    path: str | Path,
+    process_index: int,
+    process_count: int,
+    device,
+    gen: torch.Generator | None = None,
+    host_gen: torch.Generator | None = None,
+    shape: tuple[int, int, int] | None = None,
+) -> tuple[ComEParams, float, dict]:
+    """Restore this process's own file of a sharded checkpoint saved by
+    ``process_count`` processes (else ValueError: the elastic path,
+    :func:`load_checkpoint_global`, takes other counts), with the
+    generator states it holds.  Returns what :func:`load_checkpoint`
+    does."""
+    with np.load(_proc_path(path, process_index)) as z:
+        saved = int(z["_process_count"])
+        if saved != process_count:
+            raise ValueError(
+                f"checkpoint saved with {saved} processes, running with "
+                f"{process_count}: use the elastic restore "
+                "(load_checkpoint_global)")
+        leaves = _logical(_whole_leaves([z]), load_checkpoint_meta(
+            path, process_index))
+        keys = [k for k in z.files if k.startswith("torch_")]
+        leaves.update({k: z[k] for k in keys})
+    return _restore(leaves, path, device, gen, host_gen, shape)
+
+
+def load_checkpoint_meta(path: str | Path, process_index: int = 0) -> dict:
+    """Topology metadata of a sharded checkpoint: the ``_meta.*`` ints plus
+    ``process_count``; an empty dict when that process's file is absent
+    or has none."""
+    p = _proc_path(path, process_index)
+    if not p.exists():
+        return {}
+    meta = {}
+    with np.load(p) as z:
+        for k in z.files:
+            if k.startswith("_meta."):
+                meta[k[len("_meta."):]] = int(z[k])
+        if "_process_count" in z.files:
+            meta["process_count"] = int(z["_process_count"])
+    return meta
+
+
+def _whole_leaves(files) -> dict:
+    """The state leaves of open per-process ``.npz`` files, each row-sharded
+    leaf reassembled from its ``<name>@<row_start>`` blocks (the JAX
+    writer's form for leaves a process holds only in part), with a check
+    that the blocks cover every row."""
+    leaves, shapes, blocks = {}, {}, {}
+    for z in files:
+        for k in z.files:
+            if k.endswith(".shape"):
+                shapes[k[:-len(".shape")]] = tuple(int(v) for v in z[k])
+            elif "@" in k:
+                name, start = k.rsplit("@", 1)
+                blocks.setdefault(name, {})[int(start)] = z[k]
+            elif k in LEAVES:
+                leaves[k] = z[k]
+    for name, bl in blocks.items():
+        shape = shapes[name]
+        if 0 in bl and tuple(bl[0].shape) == shape:
+            leaves[name] = bl[0]  # a replicated leaf stored as one block
+            continue
+        out = np.zeros(shape, next(iter(bl.values())).dtype)
+        covered = 0
+        for start, b in bl.items():
+            out[start:start + b.shape[0]] = b
+            covered += b.shape[0]
+        if covered != shape[0]:
+            raise ValueError(
+                f"{name}: merged blocks cover {covered} of {shape[0]} rows")
+        leaves[name] = out
+    return leaves
+
+
+def load_checkpoint_global(path: str | Path) -> tuple[dict, dict]:
+    """Merge every ``<path>.proc<i>.npz`` of a sharded checkpoint (either
+    package's) into whole numpy leaves: the first half of the elastic
+    restore.  Returns ``(leaves, meta)`` (:func:`load_checkpoint_meta`)."""
+    path = Path(path)
+    files = sorted(
+        path.parent.glob(path.name + ".proc*.npz"),
+        key=lambda p: int(p.name.rsplit(".proc", 1)[1][:-4]),
+    )
+    if not files:
+        raise FileNotFoundError(f"no {path.name}.proc*.npz files")
+    opened = [np.load(f) for f in files]
+    try:
+        saved = int(opened[0]["_process_count"])
+        if len(files) != saved:
+            raise ValueError(
+                f"checkpoint saved by {saved} processes but {len(files)} "
+                ".proc files present: the elastic restore needs all of them")
+        leaves = _whole_leaves(opened)
+    finally:
+        for z in opened:
+            z.close()
+    return leaves, load_checkpoint_meta(path)
+
+
+def _logical(leaves: dict, meta: dict) -> dict:
+    """The leaves in node order with the saved layout's pad rows dropped.
+    A table whose rows were interleaved across a model axis
+    (``_meta.interleave``) is refused: undoing that layout comes with the
+    row-sharded tier (ROADMAP item 8b)."""
+    if meta.get("interleave", 0):
+        raise NotImplementedError(
+            "checkpoint rows are interleaved over a model axis of "
+            f"{meta.get('model')}: restoring it needs the row-sharded tier "
+            "(ROADMAP item 8b)")
+    v = int(meta.get("v_real", leaves["node_emb"].shape[0]))
+    return {k: (a[:v] if k in ROW_LEAVES else a) for k, a in leaves.items()}

@@ -8,6 +8,11 @@ mean log-likelihood.  EM stops per restart by sklearn's tol rule, as
 ``_em_while_loop`` does.  Every function takes optional leading batch
 dimensions on the mixture parameters; ``X`` is shared.
 
+:func:`gmm_em_fit_sharded` is the data-axis half of the JAX package's
+distributed EM (``come_tpu/losses/gmm.py:174-346``) for data-parallel
+training: each rank works a chunk of the rows and every moment is summed
+over the ranks.
+
 The [..., K, N, d] temporaries of the E and M steps are built over
 ``ROW_CHUNK`` rows of X at a time (XLA fuses them in the JAX package; at
 N = 500 000 and K = 64 one whole temporary would be 16.4 GB), so only the
@@ -44,20 +49,35 @@ def _e_step(X, means, chol, log_w):
     return torch.exp(lp - norm), norm.mean((-2, -1))
 
 
-def _m_step(X, resp, reg_covar):
-    """Responsibility-weighted moments -> (means, chol, log_weights)."""
-    N, d = X.shape
-    nk = resp.sum(-2) + 10.0 * torch.finfo(X.dtype).eps  # [...,K]
-    means = (resp.transpose(-1, -2) @ X) / nk[..., None]
+def _scatter(X, resp, means):
+    """Sum over the rows of resp-weighted outer products of ``X - means``
+    [...,K,d,d] (not yet divided by nk), ``ROW_CHUNK`` rows at a time."""
     cov = 0.0
     for Xc, rc in zip(X.split(ROW_CHUNK), resp.split(ROW_CHUNK, dim=-2)):
         diff = Xc - means[..., :, None, :]  # [...,K,n,d]
         weighted = diff * rc.transpose(-1, -2)[..., None]
         cov = cov + weighted.transpose(-1, -2) @ diff
+    return cov
+
+
+def _chol(cov, nk, reg_covar):
+    d = cov.shape[-1]
     cov = cov / nk[..., None, None]
-    cov = cov + reg_covar * torch.eye(d, dtype=X.dtype, device=X.device)
-    chol = torch.linalg.cholesky(cov)
+    cov = cov + reg_covar * torch.eye(d, dtype=cov.dtype, device=cov.device)
+    return torch.linalg.cholesky(cov)
+
+
+def _m_step(X, resp, reg_covar):
+    """Responsibility-weighted moments -> (means, chol, log_weights)."""
+    N = X.shape[0]
+    nk = resp.sum(-2) + 10.0 * torch.finfo(X.dtype).eps  # [...,K]
+    means = (resp.transpose(-1, -2) @ X) / nk[..., None]
+    chol = _chol(_scatter(X, resp, means), nk, reg_covar)
     return means, chol, torch.log(nk / N)
+
+
+def _sqdist(X, c):
+    return (X * X).sum(1, keepdim=True) - 2.0 * X @ c.T + (c * c).sum(1)[None]
 
 
 def _kmeans_init(X, K, generator: torch.Generator, iters: int = 8):
@@ -67,20 +87,15 @@ def _kmeans_init(X, K, generator: torch.Generator, iters: int = 8):
     N = X.shape[0]
     idx = torch.randperm(N, generator=generator)[:K].to(X.device)
     centers = X[idx]
-
-    def sqdist(c):
-        return (
-            (X * X).sum(1, keepdim=True) - 2.0 * X @ c.T + (c * c).sum(1)[None]
-        )
-
     for _ in range(iters):
         onehot = torch.nn.functional.one_hot(
-            sqdist(centers).argmin(1), K
+            _sqdist(X, centers).argmin(1), K
         ).to(X.dtype)
         counts = onehot.sum(0)
         new = (onehot.T @ X) / counts.clamp_min(1.0)[:, None]
         centers = torch.where(counts[:, None] > 0, new, centers)
-    return torch.nn.functional.one_hot(sqdist(centers).argmin(1), K).to(X.dtype)
+    return torch.nn.functional.one_hot(_sqdist(X, centers).argmin(1),
+                                       K).to(X.dtype)
 
 
 def _em_while_loop(means, chol, log_w, e_step, m_step, max_iter, tol):
@@ -138,6 +153,106 @@ def gmm_em_fit(X, num_components, generator, n_init=1, max_iter=60,
     out = gmm_em_from_resp(X, resp0, reg_covar, max_iter, tol)
     best = int(out["log_likelihood"].argmax())
     return {k: v[best] for k, v in out.items()}
+
+
+def gmm_em_fit_sharded(X, mask, num_components, generator, group=None,
+                       n_init=1, max_iter=60, reg_covar=1e-5, tol=1e-3,
+                       resp0=None):
+    """Distributed EM over the ranks of ``group`` (the data axis, model 1).
+
+    ``X`` [V, d] is the whole table, the same on every rank, and ``mask``
+    [V] (None: all ones) weights its rows, 0 for pad rows.  Each of the D
+    ranks works the chunk of ``ceil(V / D)`` rows from ``rank * chunk``
+    (zero-weight pad rows past V); ``nk``, the means, the covariances and
+    the log-likelihood are summed over the ranks, so every rank takes the
+    same EM path and stops at the same iteration.  The k-means init draws
+    K global row ids, one per stride of ``V // K`` rows, from the host
+    ``generator``, which must be in the same state on every rank; each
+    rank contributes the centers it holds.  The ``n_init`` restarts run at
+    once as a leading batch dimension, as in :func:`gmm_em_fit` (the JAX
+    package runs them in turn), and the best by log-likelihood wins.
+    ``resp0`` [V, K] starts EM from these responsibilities instead.  The
+    responsibilities returned cover every row of ``X`` (row-wise
+    normalisation is local), so at model 1 they are the same on every
+    rank.
+
+    Returns the dict of :func:`gmm_em_from_resp` for the best restart."""
+    from come_tpu_torch.parallel.collectives import all_reduce_, world_rank
+
+    K = num_components
+    X = X.to(torch.float32)
+    V, d = X.shape
+    dev = X.device
+    w = (torch.ones(V, device=dev) if mask is None
+         else mask.to(device=dev, dtype=torch.float32))
+    D, r = world_rank(group)
+    chunk = -(-V // D)
+    pad = chunk * D - V
+
+    def mine(a):
+        return torch.nn.functional.pad(a, (0, 0) * (a.dim() - 1) + (0, pad))[
+            r * chunk:(r + 1) * chunk]
+
+    Xc, wc = mine(X), mine(w)
+    n_total = all_reduce_(wc.sum(), group)
+    eps = 10.0 * torch.finfo(torch.float32).eps
+
+    def moments(resp):
+        """All-reduced (sums of resp [n, K], of resp^T X [n, K, d])."""
+        sums = all_reduce_(torch.cat([resp.sum(-2)[..., None],
+                                      resp.transpose(-1, -2) @ Xc], -1),
+                           group)
+        return sums[..., 0], sums[..., 1:]
+
+    def m_step(resp):
+        resp = resp * wc[:, None]
+        nk, sx = moments(resp)
+        nk = nk + eps
+        means = sx / nk[..., None]
+        cov = all_reduce_(_scatter(Xc, resp, means), group)
+        return means, _chol(cov, nk, reg_covar), torch.log(nk / n_total)
+
+    def e_step(means, chol, log_w):
+        lp = _log_prob(Xc, means, chol) + log_w[..., None, :]
+        norm = torch.logsumexp(lp, dim=-1, keepdim=True)
+        ll = all_reduce_((norm[..., 0] * wc).sum(-1), group) / n_total
+        return torch.exp(lp - norm), ll
+
+    def init_resp():
+        # one center per stride of rows, so the K global ids are distinct
+        stride = max(V // K, 1)
+        offs = torch.stack([torch.randint(0, stride, (K,),
+                                          generator=generator)
+                            for _ in range(n_init)])
+        idx = torch.clamp(torch.arange(K) * stride + offs, max=V - 1).to(dev)
+        local = idx - r * chunk
+        ok = (local >= 0) & (local < chunk)
+        centers = torch.where(ok[..., None],
+                              Xc[local.clamp(0, chunk - 1)], 0.0)
+        centers = all_reduce_(centers, group)  # [n, K, d]
+
+        def assign(c):
+            d2 = ((Xc * Xc).sum(1, keepdim=True) - 2.0 * Xc @ c.transpose(
+                -1, -2) + (c * c).sum(-1)[..., None, :])
+            return torch.nn.functional.one_hot(d2.argmin(-1), K).to(X.dtype)
+
+        for _ in range(8):
+            counts, sx = moments(assign(centers) * wc[:, None])
+            new = sx / counts.clamp_min(1.0)[..., None]
+            centers = torch.where(counts[..., None] > 0, new, centers)
+        return assign(centers)
+
+    rc = init_resp() if resp0 is None else mine(resp0.to(X))[None]
+    means, chol, log_w = _em_while_loop(*m_step(rc), e_step, m_step,
+                                        max_iter, tol)
+    _, ll = e_step(means, chol, log_w)
+    best = int(ll.argmax())
+    means, chol, log_w = means[best], chol[best], log_w[best]
+    resp, _ = _e_step(X, means, chol, log_w)
+    return dict(
+        means=means, chol=chol, inv_cov=torch.cholesky_inverse(chol),
+        log_weights=log_w, resp=resp, log_likelihood=ll[best],
+    )
 
 
 def fit_communities(params, generator, n_init=1, max_iter=60,

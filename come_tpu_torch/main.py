@@ -11,6 +11,19 @@ JAX CLI: ``--resume`` loads a checkpoint of either package before training,
 node-classification F1 (fitted on ``--device``), ``--save`` writes the
 embeddings as word2vec text and ``--plot`` the PNGs.  ``--plot`` needs
 matplotlib and checks for it before anything is trained.
+
+``--mesh D,1`` trains data-parallel over D processes, one a rank
+(``parallel/sharded.py``): D must be the world size of the process group,
+which comes from torchrun's environment, from ``--distributed
+ADDR:PORT,N,RANK``, or is one process for ``--mesh 1,1`` alone.  Each
+rank's card is ``cuda:LOCAL_RANK`` unless ``--device`` names one; the
+backend is NCCL on cards and gloo on the CPU unless ``--backend`` names
+one.  A model axis > 1 is refused (ROADMAP item 8b).  Only rank 0 prints
+and writes ``--save`` and ``--plot``; ``--checkpoint-dir`` gets one file
+per rank.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m come_tpu_torch.main --mesh 2,1 --dataset blogcatalog
 """
 
 from __future__ import annotations
@@ -65,6 +78,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval-f1", action="store_true",
                    help="also run node-classification F1 at the end")
     p.add_argument("--json", action="store_true", help="JSONL record output")
+    p.add_argument("--mesh", help="train data-parallel on a ('data','model') "
+                   "mesh of processes, e.g. --mesh 2,1 (model must be 1)")
+    p.add_argument("--distributed", nargs="?", const="env",
+                   help="process group: ADDR:PORT,NUM_PROCESSES,RANK, or no "
+                        "value for torchrun's environment")
+    p.add_argument("--backend", choices=["nccl", "gloo"],
+                   help="process-group backend (default nccl on cards, gloo "
+                        "on the CPU)")
     return p
 
 
@@ -91,19 +112,63 @@ def _o2_tier(t) -> str:
         "K7" if t.cfg.negative_mode == "shared" else "per-pair") + ")"
 
 
+def _mesh(args: argparse.Namespace):
+    """(mesh, this rank's device) for ``--mesh``/``--distributed``: the
+    process group initialised as the flags say (unless one already is),
+    its world size held against the mesh."""
+    import os
+
+    import torch.distributed as dist
+
+    from come_tpu_torch.parallel import initialize_distributed, make_mesh
+    from come_tpu_torch.parallel.distributed import rank_device
+    from come_tpu_torch.parallel.mesh import MODEL_AXIS_TODO
+
+    d, m = (int(x) for x in (args.mesh or "0,1").split(","))
+    if m != 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: {MODEL_AXIS_TODO}")
+    dist_arg = args.distributed
+    if dist_arg is None and "WORLD_SIZE" in os.environ:
+        dist_arg = "env"
+    if dist.is_initialized():
+        dev = rank_device(args.device)
+    elif dist_arg == "env":
+        dev = initialize_distributed(args.backend, device=args.device)
+    elif dist_arg is not None:
+        addr, n, rank = dist_arg.rsplit(",", 2)
+        dev = initialize_distributed(args.backend, f"tcp://{addr}", int(n),
+                                     int(rank), args.device)
+    elif d in (0, 1):
+        dev = rank_device(args.device)  # the one-process mesh (1, 1)
+    else:
+        raise SystemExit(f"--mesh {args.mesh} needs {d} processes: launch "
+                         "with torch.distributed.run or --distributed")
+    return make_mesh(d or None, m), dev
+
+
 def run(args: argparse.Namespace):
     """Build the dataset, config and trainer from parsed flags, train, and
-    evaluate, save and plot as the flags ask.  Returns (trainer, history)."""
+    evaluate, save and plot as the flags ask.  Returns (trainer, history).
+    With ``--mesh`` or ``--distributed``, a data-parallel trainer of this
+    rank; its process group stays up for the caller (:func:`main` ends
+    it)."""
     if args.plot:
         from come_tpu_torch.evaluation.plots import require_matplotlib
 
         require_matplotlib()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if (args.device or "").startswith("cuda") \
+            and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda but torch.cuda.is_available() is False "
             "(pass --device cpu to run the kernels' plain versions)"
         )
+    mesh = None
+    if args.mesh is not None or args.distributed is not None:
+        mesh, device = _mesh(args)
+    else:
+        device = torch.device(args.device)
+    rank0 = mesh is None or mesh.rank == 0
+    out = print if rank0 else (lambda *a, **k: None)
 
     from come_tpu_torch.config import PRESETS, ComEConfig
     from come_tpu_torch.graphs import get_dataset
@@ -120,32 +185,46 @@ def run(args: argparse.Namespace):
     cfg = cfg.replace(**overrides)
     dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")
-    print(f"dataset={ds.name}: V={ds.graph.num_nodes} E={ds.graph.num_edges} "
-          f"K={cfg.num_communities} d={cfg.dim} device={dev_name}")
+    out(f"dataset={ds.name}: V={ds.graph.num_nodes} E={ds.graph.num_edges} "
+        f"K={cfg.num_communities} d={cfg.dim} device={dev_name}")
     t0 = time.perf_counter()
-    trainer = ComETrainer(ds.graph, cfg, device)
     walks = " on host walks" if cfg.corpus == "host" else ""
-    print(f"o1 tier: {_o1_tier(trainer)}{walks}, o2 tier: "
-          f"{_o2_tier(trainer)}")
+    if mesh is None:
+        trainer = ComETrainer(ds.graph, cfg, device)
+        out(f"o1 tier: {_o1_tier(trainer)}{walks}, o2 tier: "
+            f"{_o2_tier(trainer)}")
+    else:
+        import torch.distributed as dist
+
+        from come_tpu_torch.parallel import ShardedComETrainer
+
+        trainer = ShardedComETrainer(ds.graph, cfg, mesh, device)
+        backend = dist.get_backend() if dist.is_initialized() else "none"
+        out(f"mesh=({mesh.data},{mesh.model}) backend={backend} "
+            f"o1_tier={trainer.o1_tier()} ({_o1_tier(trainer)}{walks}) "
+            f"o2_tier={trainer.o2_tier()} ({_o2_tier(trainer)})")
     if args.resume:
         trainer.load_checkpoint(args.resume)
-        print(f"resumed from {args.resume} "
-              f"(words_seen={trainer.words_seen:.0f})")
+        out(f"resumed from {args.resume} "
+            f"(words_seen={trainer.words_seen:.0f})")
     emit = (lambda s: print(json.dumps({"log": s}))) if args.json else print
     from come_tpu_torch.metrics.profiling import trace
 
     try:
-        with trace(args.profile_dir):
-            history = trainer.train(labels=ds.single_labels, log=emit,
+        with trace(args.profile_dir if rank0 else None):
+            history = trainer.train(labels=ds.single_labels,
+                                    log=emit if rank0 else None,
                                     checkpoint_dir=args.checkpoint_dir)
     finally:
         trainer.close()
-    print(f"trained in {time.perf_counter() - t0:.1f}s")
+    out(f"trained in {time.perf_counter() - t0:.1f}s")
     if device.type == "cuda":
-        print(f"peak device memory: "
-              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+        out(f"peak device memory: "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
     if history and "nmi" in history[-1]:
-        print(f"final NMI: {history[-1]['nmi']:.4f}")
+        out(f"final NMI: {history[-1]['nmi']:.4f}")
+    if not rank0:
+        return trainer, history
     if args.eval_f1 and ds.labels is not None:
         from come_tpu_torch.evaluation import node_classification_f1
 
@@ -185,7 +264,13 @@ def _plot(trainer, ds, out: Path) -> None:
 
 
 def main(argv=None) -> int:
-    run(build_argparser().parse_args(argv))
+    import torch.distributed as dist
+
+    try:
+        run(build_argparser().parse_args(argv))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

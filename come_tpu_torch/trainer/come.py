@@ -113,23 +113,27 @@ def _unsupported(cfg: ComEConfig) -> str | None:
     return None
 
 
-def _in_envelope(slots_per_unit: float, num_nodes: int) -> bool:
+def _in_envelope(slots_per_unit: float, num_nodes: int,
+                 workers: int = 1) -> bool:
     """The kernels' collision envelope (come_tpu/trainer/come.py:166-180,
     :859-881): one synchronous update must not hit a row more than ~16
-    times on average."""
-    return 2.0 * slots_per_unit / max(num_nodes, 1) <= 16.0
+    times on average.  Under data parallelism every worker's unit lands on
+    the table in one synchronous step, so the envelope narrows by the
+    worker count (come_tpu/parallel/sharded.py:455-460, :950-952)."""
+    return 2.0 * slots_per_unit * workers / max(num_nodes, 1) <= 16.0
 
 
-def o1_on_walk_kernel(num_nodes: int, cfg: ComEConfig) -> bool:
+def o1_on_walk_kernel(num_nodes: int, cfg: ComEConfig,
+                      workers: int = 1) -> bool:
     """Whether O1 takes the walk kernel (``_use_walk_kernel``,
     come_tpu/trainer/come.py:149-180, minus its VMEM gate): shared
     negatives, walks of at most 128, no subsampling, and the collision
-    envelope."""
+    envelope of ``workers`` data-parallel ranks."""
     return (
         cfg.negative_mode == "shared" and cfg.walk_length <= 128
         and cfg.down_sample <= 0
         and _in_envelope(NW * cfg.walk_length * (cfg.window + 1) / 2,
-                         num_nodes)
+                         num_nodes, workers)
     )
 
 
@@ -137,7 +141,8 @@ def o1_on_walk_kernel(num_nodes: int, cfg: ComEConfig) -> bool:
 WALK_F32_TABLE_BYTES = 48 * 1024 * 1024
 
 
-def o1_table_dtype(num_nodes: int, dim: int, cfg: ComEConfig) -> torch.dtype:
+def o1_table_dtype(num_nodes: int, dim: int, cfg: ComEConfig,
+                   workers: int = 1) -> torch.dtype:
     """The O1 walk tables' dtype: bfloat16 (K3) iff O1 takes the walk
     kernel, ``walk_kernel_bf16_tables`` is set and f32 tables would pass
     ``WALK_F32_TABLE_BYTES``; float32 otherwise.
@@ -148,7 +153,8 @@ def o1_table_dtype(num_nodes: int, dim: int, cfg: ComEConfig) -> torch.dtype:
     and leaves the kernel past that.  The card runs one kernel at every V
     (ROADMAP decision 1), so bf16 tables carry on above 196 608."""
     big = num_nodes * dim * 4 > WALK_F32_TABLE_BYTES
-    if o1_on_walk_kernel(num_nodes, cfg) and cfg.walk_kernel_bf16_tables \
+    if o1_on_walk_kernel(num_nodes, cfg, workers) \
+            and cfg.walk_kernel_bf16_tables \
             and big:
         return torch.bfloat16
     return torch.float32
@@ -158,6 +164,12 @@ class ComETrainer:
     """Single-device trainer.  ``device`` is where the tables and every
     kernel live ("cuda" or "cpu"; on the CPU the kernels' plain versions
     run)."""
+
+    # data-parallel ranks whose steps make one global step (the
+    # ShardedComETrainer of parallel/sharded.py sets it): batch sizes round
+    # to it, the collision envelope narrows by it and words_seen advances
+    # by the global step's words
+    workers = 1
 
     def __init__(self, graph: CSRGraph, config: ComEConfig, device,
                  seed: int | None = None):
@@ -230,13 +242,13 @@ class ComETrainer:
         # at every V (no 28 MB-per-table gate, :242-248), including what
         # JAX sends past that gate to its XLA block path, and long walks
         # that fit JAX's banded envelope (:182-202).
-        V = graph.num_nodes
+        V, wk = graph.num_nodes, self.workers
         shared = config.negative_mode == "shared"
-        self.o1_walk_kernel = o1_on_walk_kernel(V, config)
-        self.o1_table_dtype = o1_table_dtype(V, config.dim, config)
+        self.o1_walk_kernel = o1_on_walk_kernel(V, config, wk)
+        self.o1_table_dtype = o1_table_dtype(V, config.dim, config, wk)
         self.o2_star = (
             shared and config.o2_mode in ("auto", "star")
-            and _in_envelope(NWL, V)
+            and _in_envelope(NWL, V, wk)
         )
         # in-kernel walks (_use_walk_kernel_gen, :380-394, taken at :696
         # with fresh walks every epoch, never with the host corpus, :683);
@@ -250,7 +262,8 @@ class ComETrainer:
         # :841-860), checked after the star tier as at :1095-1116
         self.o2_paired = (
             not self.o2_star and shared
-            and config.o2_mode in ("auto", "paired") and _in_envelope(NWL, V)
+            and config.o2_mode in ("auto", "paired")
+            and _in_envelope(NWL, V, wk)
         )
 
     def _word_budget(self) -> float:
@@ -271,6 +284,21 @@ class ComETrainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def _update(self, *tables):
+        """Around one step that updates ``tables`` in place: nothing on one
+        device; the data-parallel trainer sums every rank's update here."""
+        yield
+
+    def _shuffle(self, n: int) -> torch.Tensor:
+        """A permutation of ``n`` on the device (star rows, arcs, edges)."""
+        return torch.randperm(n, generator=self.gen, device=self.device)
+
+    def _mine(self, batch: torch.Tensor) -> torch.Tensor:
+        """This trainer's columns of a [S, B, ...] epoch batch: all of them
+        on one device."""
+        return batch
 
     # ------------------------------------------------------------- O1 (walks)
 
@@ -326,13 +354,14 @@ class ComETrainer:
         pools (``trainer/come.py:549-590``, walk-kernel branch).  Returns
         (loss, n_pairs) as device tensors."""
         cfg = self.cfg
-        with self._o1_tables() as (ne, ce):
+        with self._o1_tables() as (ne, ce), self._update(ne, ce):
             _, _, loss, npairs = walk_sgns_step(
                 ne, ce, walks, wrow, pools, self.lr(), self.negw,
                 window=cfg.window, pool_refresh=cfg.walk_pool_refresh,
                 mxu_bf16=cfg.walk_kernel_bf16, sr_seed=self._sr_seed(),
             )
-        self.words_seen += float(walks.shape[0] * cfg.walk_length)
+        self.words_seen += float(walks.shape[0] * self.workers
+                                 * cfg.walk_length)
         return loss, npairs
 
     def _gen_bits(self, n: int) -> torch.Tensor:
@@ -383,7 +412,7 @@ class ComETrainer:
             if negs is not None:
                 negs = negs[keep]
             P = keep.numel()
-        mb = min(cfg.batch_pairs, P)
+        mb = max(1, min(cfg.batch_pairs // self.workers, P))
         n_micro = math.ceil(P / mb)
         pad = n_micro * mb - P
         c, x = F.pad(c, (0, pad)), F.pad(x, (0, pad))
@@ -396,23 +425,25 @@ class ComETrainer:
                                  (n_micro, cfg.shared_negatives))
         if not shared:
             negs = F.pad(negs, (0, 0, 0, pad))
+        tables = (emb_in,) if tie_tables else (emb_in, emb_out)
         for i in range(n_micro):
             s = slice(i * mb, (i + 1) * mb)
-            if shared and tie_tables:
-                _, loss, npairs = fused_sgns_step_tied(
-                    emb_in, c[s], x[s], pools[i], m[s], lr, self.negw,
-                    tile_pairs=cfg.pallas_tile_pairs,
-                )
-            elif shared:
-                _, _, loss, npairs = fused_sgns_step(
-                    emb_in, emb_out, c[s], x[s], pools[i], m[s], lr,
-                    self.negw, tile_pairs=cfg.pallas_tile_pairs,
-                )
-            else:
-                _, _, loss, npairs = sgns_sgd_step(
-                    emb_in, emb_out, c[s], x[s], negs[s], m[s], lr,
-                    tie_tables=tie_tables, max_exp=cfg.max_exp,
-                )
+            with self._update(*tables):
+                if shared and tie_tables:
+                    _, loss, npairs = fused_sgns_step_tied(
+                        emb_in, c[s], x[s], pools[i], m[s], lr, self.negw,
+                        tile_pairs=cfg.pallas_tile_pairs,
+                    )
+                elif shared:
+                    _, _, loss, npairs = fused_sgns_step(
+                        emb_in, emb_out, c[s], x[s], pools[i], m[s], lr,
+                        self.negw, tile_pairs=cfg.pallas_tile_pairs,
+                    )
+                else:
+                    _, _, loss, npairs = sgns_sgd_step(
+                        emb_in, emb_out, c[s], x[s], negs[s], m[s], lr,
+                        tie_tables=tie_tables, max_exp=cfg.max_exp,
+                    )
             tot_loss += loss
             tot_pairs += npairs
         return tot_loss, tot_pairs
@@ -433,20 +464,25 @@ class ComETrainer:
             p.node_emb, p.ctx_emb, c, x, negs, m, self.lr(),
             tie_tables=False, compact=True,
         )
-        self.words_seen += float(walks.shape[0] * cfg.walk_length)
+        self.words_seen += float(walks.shape[0] * self.workers
+                                 * cfg.walk_length)
         return loss, npairs
 
     def _epoch_starts(self) -> torch.Tensor:
         """This epoch's walk origins [S, B]: every start walks_per_node
-        times, shuffled, the tail batch wrapped."""
+        times, shuffled, the tail batch wrapped; B rounds down to whole
+        columns of the data-parallel ranks, of which this trainer keeps its
+        own (come_tpu/parallel/sharded.py:1432-1457)."""
         cfg = self.cfg
         n_starts = len(self.walk_starts) * cfg.walks_per_node
+        W = self.workers
         B = min(cfg.batch_walks, n_starts)
+        B = max(W, B // W * W)
         S = math.ceil(n_starts / B)
         starts = torch.as_tensor(np.tile(self.walk_starts, cfg.walks_per_node))
         perm = starts[torch.randperm(n_starts, generator=self.host_gen)]
         perm = perm[torch.arange(S * B) % n_starts]
-        return perm.reshape(S, B).to(self.device)
+        return self._mine(perm.reshape(S, B)).to(self.device)
 
     def _gen_epoch_walks(self, starts: torch.Tensor) -> torch.Tensor:
         S, B = starts.shape
@@ -537,8 +573,8 @@ class ComETrainer:
         the trainer's tier takes, while the feeder's threads make the next
         batches.  Losses stay on the device until the epoch ends."""
         feeder = self.host_feeder()
-        n_batches = math.ceil(
-            len(self.walk_starts) * self.cfg.walks_per_node / feeder.batch)
+        n_batches = math.ceil(len(self.walk_starts) * self.cfg.walks_per_node
+                              / (feeder.batch * self.workers))
         self._o1_epochs_done += 1
         tot_loss = torch.zeros((), device=self.device)
         tot_pairs = torch.zeros((), device=self.device)
@@ -578,10 +614,12 @@ class ComETrainer:
 
     def o2_plan(self) -> tuple[int, int]:
         """(rows per macro step, steps per epoch): slots per step ~
-        batch_edges, in whole 8-row groups (``trainer/come.py:1103-1110``)."""
+        batch_edges, in whole 8-row groups for every data-parallel rank
+        (``trainer/come.py:1103-1110``, ``parallel/sharded.py:1561-1564``)."""
         NR = self._star_layout()[0].shape[0]
-        rps = max(8, min(-(-self.cfg.batch_edges // 128), NR))
-        rps = -(-rps // 8) * 8
+        unit = 8 * self.workers
+        rps = max(unit, min(-(-self.cfg.batch_edges // 128), NR))
+        rps = -(-rps // unit) * unit
         return rps, -(-NR // rps)
 
     def o2_step(self, slots: torch.Tensor, meta: torch.Tensor,
@@ -589,11 +627,13 @@ class ComETrainer:
         """One O2 macro step over an explicit slot stream and pools; advances
         ``words_seen`` by ``words``.  Returns (loss, n_pairs) tensors."""
         cfg = self.cfg
-        _, loss, npairs = star_sgns_step(
-            self.params.node_emb, slots, meta, pools, self.lr() * cfg.alpha,
-            self.negw, pool_refresh=cfg.walk_pool_refresh,
-            mxu_bf16=cfg.walk_kernel_bf16,
-        )
+        ne = self.params.node_emb
+        with self._update(ne):
+            _, loss, npairs = star_sgns_step(
+                ne, slots, meta, pools, self.lr() * cfg.alpha, self.negw,
+                pool_refresh=cfg.walk_pool_refresh,
+                mxu_bf16=cfg.walk_kernel_bf16,
+            )
         self.words_seen += words
         return loss, npairs
 
@@ -610,9 +650,11 @@ class ComETrainer:
 
     def o2_arc_plan(self) -> tuple[int, int]:
         """(arcs per macro step B, steps S) of the per-arc O2 epoch
-        (``trainer/come.py:1136-1138``)."""
-        e = self.graph.num_arcs
+        (``trainer/come.py:1136-1138``); B rounds down to whole columns of
+        the data-parallel ranks (``parallel/sharded.py:1600-1603``)."""
+        e, W = self.graph.num_arcs, self.workers
         B = min(self.cfg.batch_edges, e)
+        B = max(W, B // W * W)
         return B, math.ceil(e / B)
 
     def o2_arc_step(self, src: torch.Tensor, dst: torch.Tensor):
@@ -630,7 +672,7 @@ class ComETrainer:
             ne, ne, src, dst, negs, torch.ones_like(src, dtype=torch.float32),
             self.lr() * cfg.alpha, tie_tables=True,
         )
-        self.words_seen += float(src.shape[0])
+        self.words_seen += float(src.shape[0] * self.workers)
         return loss, npairs
 
     def o2_arc_epoch(self) -> float:
@@ -639,9 +681,10 @@ class ComETrainer:
         does (``trainer/come.py:1136-1144``)."""
         B, S = self.o2_arc_plan()
         e = self.graph.num_arcs
-        perm = torch.randperm(e, generator=self.gen, device=self.device)
+        perm = self._shuffle(e)
         idx = perm[torch.arange(S * B, device=self.device) % e]
-        src, dst = self.arc_src[idx].view(S, B), self.arc_dst[idx].view(S, B)
+        src = self._mine(self.arc_src[idx].view(S, B))
+        dst = self._mine(self.arc_dst[idx].view(S, B))
         tot_loss = torch.zeros((), device=self.device)
         tot_pairs = torch.zeros((), device=self.device)
         for s in range(S):
@@ -693,10 +736,11 @@ class ComETrainer:
         B_r, S = self.o2_paired_plan()
         uu, vv = self._undirected_edges()
         e2 = uu.shape[0]
-        perm = torch.randperm(e2, generator=self.gen, device=self.device)
+        perm = self._shuffle(e2)
         idx = perm[torch.arange(S * B_r * 64, device=self.device) % e2]
-        rows = torch.stack([uu[idx], vv[idx]], 1).reshape(S, B_r, 128)
-        G = -(-B_r // NW)
+        rows = self._mine(torch.stack([uu[idx], vv[idx]], 1).reshape(
+            S, B_r, 128))
+        G = -(-rows.shape[1] // NW)
         n_pools = -(-G // cfg.walk_pool_refresh)
         tot_loss = torch.zeros((), device=self.device)
         tot_pairs = torch.zeros((), device=self.device)
@@ -727,10 +771,10 @@ class ComETrainer:
         cfg = self.cfg
         NR = self._star_layout()[0].shape[0]
         rps, steps = self.o2_plan()
-        row_perm = torch.randperm(NR, generator=self.gen, device=self.device)
-        ps, pm = self.o2_stream(row_perm)
+        ps, pm = (self._mine(x.view(steps, rps, 128))
+                  for x in self.o2_stream(self._shuffle(NR)))
         words = float(self._star_pairs) / steps
-        n_pools = -(-(rps * 128 // NWL) // cfg.walk_pool_refresh)
+        n_pools = -(-(ps.shape[1] * 128 // NWL) // cfg.walk_pool_refresh)
         tot_loss = torch.zeros((), device=self.device)
         tot_pairs = torch.zeros((), device=self.device)
         for s in range(steps):
@@ -738,10 +782,8 @@ class ComETrainer:
                 self.accept, self.alias, self.gen,
                 (n_pools, cfg.shared_negatives),
             )
-            loss, npairs = self.o2_step(
-                ps[s * rps:(s + 1) * rps].reshape(-1),
-                pm[s * rps:(s + 1) * rps].reshape(-1), pools, words,
-            )
+            loss, npairs = self.o2_step(ps[s].reshape(-1), pm[s].reshape(-1),
+                                        pools, words)
             tot_loss += loss
             tot_pairs += npairs
         return self._finish_o2(tot_loss, tot_pairs)

@@ -711,3 +711,41 @@ def test_parity_cli_on_the_card(dev):
     from come_tpu_torch.evaluation.parity import main
 
     assert main(["--dataset", "karate", "--iters", "3"]) == 0
+
+
+def test_dp_world_1_nccl_step_matches_single_device(dev, tmp_path):
+    """One data-parallel O1 step at world 1 over NCCL (``before +
+    all_reduce(after - before)``) against the single-device trainer's step
+    on the same tables and inputs, under the f32 check (the two sum in
+    another order: not bit for bit)."""
+    import torch.distributed as dist
+
+    from come_tpu_torch.parallel import ShardedComETrainer, make_mesh
+
+    g, _ = sbm_graph(2000, 4, seed=0, avg_degree=20)
+    cfg = PRESETS["blogcatalog"].replace(num_communities=4)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            world_size=1, rank=0)
+    try:
+        dp = ShardedComETrainer(g, cfg, make_mesh(), dev)
+        one = ComETrainer(g, cfg, dev)
+        torch.testing.assert_close(dp.params.node_emb, one.params.node_emb,
+                                   rtol=0, atol=0)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        walks = torch.randint(0, 2000, (64, cfg.walk_length), generator=gen,
+                              device=dev, dtype=torch.int32)
+        wrow = torch.randint(1, cfg.window + 1, (8 * NWL,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        pools = torch.randint(0, 2000, (8, cfg.shared_negatives),
+                              generator=gen, device=dev, dtype=torch.int32)
+        init = (one.params.node_emb.clone(), one.params.ctx_emb.clone())
+        launched = walk_sgns_step.launches
+        kern = (*(t for t in (dp.params.node_emb, dp.params.ctx_emb)),
+                *dp.o1_step(walks, wrow, pools))
+        plain = (*(t for t in (one.params.node_emb, one.params.ctx_emb)),
+                 *one.o1_step(walks, wrow, pools))
+        assert walk_sgns_step.launches == launched + 2
+        _close(init, kern, plain)
+        assert dp.words_seen == one.words_seen == 64 * cfg.walk_length
+    finally:
+        dist.destroy_process_group()

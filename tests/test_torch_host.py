@@ -242,3 +242,7 @@ def test_port_imports_without_jax():
     assert {f"come_tpu_torch.{m}" for m in (
         "native", "native.build", "native.walker", "iohelpers",
         "iohelpers.persist", "evaluation.metrics", "evaluation.plots")} <= names
+    # data-parallel training
+    assert {f"come_tpu_torch.{m}" for m in (
+        "parallel", "parallel.mesh", "parallel.distributed",
+        "parallel.collectives", "parallel.sharded", "tools.dp_check")} <= names
