@@ -134,7 +134,39 @@ After phase 17:
                size and the backend, the warm distributed and one-device
                GMM fits, and in (a) four O1 epochs each of the one-device
                and the dp trainer in turns on one table.
-Phases 5, 8-14 (11b and 11c too), 15-17 and every rank of 18 each reset
+ 19. rs      — the row-sharded path (model axis > 1: parallel/exchange.py,
+               parallel/walk_exchange.py): each run launches
+               come_tpu_torch.tools.rs_check on D x M ranks through python
+               -m torch.distributed.run (--standalone), and every rank
+               trains the blogcatalog preset at full width through --mesh
+               D,M (pretrain 1 + outer 1) with its launch counters reset
+               just before and read just after, then times one more O1 and
+               O2 epoch with CUDA events around each all-to-all and
+               all-reduce.  Runs: (a) gloo, world 2, mesh (1, 2) and (b)
+               gloo, world 4, mesh (2, 2), every rank on cuda:0 (NCCL
+               refuses two ranks on one card; gloo has no CUDA all-to-all,
+               so the exchange stages the card's buffers through pinned
+               host memory, named "gloo-host": (a)'s and (b)'s times
+               measure correctness, not speed); (c) NCCL at (1, 2) where
+               torch.cuda.device_count() >= 2 and at (2, 2) where >= 4.
+               Every rank must name the O1 and O2 tiers
+               walk-kernel-rowsharded and walk-kernel-paired-rowsharded,
+               launch K1 and K5 and no other kernel, serve >= 0.999 of its
+               rows in O1 and O2, reach NMI >= 0.8, use the transport its
+               backend names, and hash its model shard (and the replicated
+               tensors) to the same sha256 as every rank of its model
+               index.  Each rank holds one row-sharded K1 step and one K5
+               step (the rows planned and gathered through the exchange,
+               the kernel on the compact tables, its plain version on
+               clones of the same compact rows) under the f32 check below,
+               tools/hot_row.py's float64 rule where it fails; (a) also one
+               K1 step at the synthetic-10m shapes (V 500000 over M 2, 1024
+               walks, KP 2048: 172032 compact rows a worker) with its
+               compact-table and exchange bytes.  The line gives per step
+               the all-to-all bytes and ms and the all-reduce bytes and
+               ms, the O1 epoch beside phase 5's, the served fractions, the
+               NMI and the transport.
+Phases 5, 8-14 (11b and 11c too), 15-17 and every rank of 18 and 19 each reset
 every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode.  Every phase line ends with its seconds.  Then a JSON line of the
 kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
@@ -418,43 +450,49 @@ def bf16_line(err, ms, plain_ms):
             f"plain {plain_ms:.3f} ms")
 
 
+def _torchrun(tag, n, module, args, timeout):
+    """``python -m torch.distributed.run --standalone`` of ``module`` on
+    ``n`` ranks, each writing ``rank<r>.json`` to a temporary directory, in
+    a session of its own, so a run past its time is stopped with every
+    rank the launcher started.  Returns the ranks' records; raises if the
+    run fails."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--standalone", "--nproc-per-node", str(n), "-m", module,
+               "--out", tmp] + args
+        env = dict(os.environ, PYTHONPATH=str(root))
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=root,
+                                env=env, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag} exited {proc.returncode}:\n"
+                                 f"{out[-3000:]}\n{err[-6000:]}")
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(n)]
+
+
 def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
     """Phase 18 (module docstring): runs (a), (b) and, on two or more
     cards, (c) of tools/dp_check.py; raises if a rank fails or a check
     does not hold."""
-    import tempfile
-
-    root = Path(__file__).resolve().parent
     runs = [("a", 1, "nccl", None), ("b", 2, "gloo", "cuda:0")]
     if torch.cuda.device_count() >= 2:
         runs.append(("c", 2, "nccl", None))
     allowed = {"walk_sgns", "star_sgns"}
     for tag, n, backend, device in runs:
-        with tempfile.TemporaryDirectory() as tmp:
-            cmd = [sys.executable, "-m", "torch.distributed.run",
-                   "--standalone", "--nproc-per-node", str(n), "-m",
-                   "come_tpu_torch.tools.dp_check", "--backend", backend,
-                   "--out", tmp]
-            if device:
-                cmd += ["--device", device]
-            env = dict(os.environ, PYTHONPATH=str(root))
-            # a session of its own, so a run past its time is stopped with
-            # every rank the launcher started
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True,
-                                    cwd=root, env=env, start_new_session=True)
-            try:
-                out, err = proc.communicate(timeout=600)
-            except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, 9)
-                proc.communicate()
-                raise
-            if proc.returncode != 0:
-                raise AssertionError(
-                    f"dp run ({tag}) exited {proc.returncode}:\n"
-                    f"{out[-3000:]}\n{err[-6000:]}")
-            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-                     for r in range(n)]
+        args = ["--backend", backend] + (["--device", device] if device
+                                         else [])
+        ranks = _torchrun(f"dp run ({tag})", n,
+                          "come_tpu_torch.tools.dp_check", args, 600)
         for r in ranks:
             if r["nmi"] < NMI_FLOOR:
                 raise AssertionError(f"dp ({tag}) rank {r['rank']}: NMI "
@@ -508,6 +546,102 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
             f"bit-identical (sha256 {r0['hash']}, {r0['hash_after']}) | "
             f"launches per rank {[r['launches'] for r in ranks]}" + held
             + note))
+
+
+def rs_phase(main_o1_ms: float) -> None:
+    """Phase 19 (module docstring): runs (a), (b) and, on two or four
+    cards, (c) of tools/rs_check.py; raises if a rank fails or a check
+    does not hold."""
+    runs = [("a", (1, 2), "gloo", "cuda:0", ["--synthetic"]),
+            ("b", (2, 2), "gloo", "cuda:0", [])]
+    cards = torch.cuda.device_count()
+    for mesh in ((1, 2), (2, 2)):
+        if cards >= mesh[0] * mesh[1]:
+            runs.append((f"c {mesh}", mesh, "nccl", None, []))
+    allowed = {"walk_sgns", "walk_sgns_paired"}
+    for tag, (D, M), backend, device, extra in runs:
+        t0 = time.perf_counter()
+        args = ["--mesh", f"{D},{M}", "--backend", backend] + extra
+        if device:
+            args += ["--device", device]
+        ranks = _torchrun(f"rs run ({tag})", D * M,
+                          "come_tpu_torch.tools.rs_check", args, 600)
+        secs = time.perf_counter() - t0
+        way = "gloo-host" if backend == "gloo" else "nccl"
+        for r in ranks:
+            who = f"rs ({tag}) rank {r['rank']}"
+            if r["nmi"] < NMI_FLOOR:
+                raise AssertionError(f"{who}: NMI {r['nmi']:.4f}")
+            for k, v in r["launches"].items():
+                if (v == 0) == (k in allowed):
+                    raise AssertionError(f"{who} launched {k} {v} times")
+            if (r["o1_tier"], r["o2_tier"]) != (
+                    "walk-kernel-rowsharded",
+                    "walk-kernel-paired-rowsharded"):
+                raise AssertionError(f"{who}: tiers {r['o1_tier']}, "
+                                     f"{r['o2_tier']}")
+            if min(r["o1_served"], r["o2_served"]) < 0.999:
+                raise AssertionError(f"{who}: served {r['o1_served']}, "
+                                     f"{r['o2_served']}")
+            for ep in ("o1", "o2"):
+                if r[ep]["transport"] != way:
+                    raise AssertionError(f"{who}: {ep} exchange over "
+                                         f"{r[ep]['transport']}, not {way}")
+        for m in range(M):
+            hs = {(r["hash"], r["hash_after"]) for r in ranks
+                  if r["model_index"] == m}
+            if len(hs) != 1:
+                raise AssertionError(f"rs ({tag}): model shard {m} differs "
+                                     f"across 'data': {hs}")
+        r0 = ranks[0]
+
+        def per_step(ep):
+            e, n = r0[ep], r0[ep]["steps"]
+            return (f"{ep} {n} steps: all-to-all {e['a2a_bytes'] / n:.0f} B "
+                    f"and {e['a2a_ms'] / n:.3f} ms a step "
+                    f"({e['a2a_calls']} calls), all-reduce "
+                    f"{e['allreduce_bytes'] / n:.0f} B and "
+                    f"{e['allreduce_ms'] / n:.3f} ms a step, epoch "
+                    f"{max(r[ep]['ms'] for r in ranks):.1f} ms")
+
+        h = [r["held"] for r in ranks]
+        held = (" | held row-sharded steps (worst over ranks): K1 f32 ratio "
+                f"{max(x['K1']['f32_ratio'] for x in h):.3f} on "
+                f"{h[0]['K1']['U']} compact rows, K5 "
+                f"{max(x['K5']['f32_ratio'] for x in h):.3f} on "
+                f"{h[0]['K5']['U']} (<= 1); kernel {h[0]['K1']['ms']:.3f} "
+                f"ms / plain {h[0]['K1']['plain_ms']:.3f} (K1), "
+                f"{h[0]['K5']['ms']:.3f} / {h[0]['K5']['plain_ms']:.3f} (K5)")
+        if any("f64_ratio" in x[k] for x in h for k in ("K1", "K5")):
+            held += " (by the float64 rule)"
+        if "synthetic" in r0:
+            sy = [r["synthetic"] for r in ranks]
+            held += (f" | synthetic-10m K1 step: {sy[0]['U']} compact rows "
+                     f"a worker ({sy[0]['compact_bytes']} B of compact "
+                     f"tables, {sy[0]['exchange_bytes']} B exchanged by "
+                     f"rank 0 for its plan and gathers), f32 ratio "
+                     f"{max(x['f32_ratio'] for x in sy):.3f}"
+                     + (" (float64 rule)" if any("f64_ratio" in x for x in sy)
+                        else "")
+                     + f", kernel {sy[0]['ms']:.3f} ms, plain "
+                     f"{sy[0]['plain_ms']:.3f} ms")
+        note = (" [gloo-host: the exchange stages the card's buffers "
+                "through the host; correctness, not speed]"
+                if backend == "gloo" else "")
+        phase(f"rs {tag}", (
+            f"mesh ({D},{M}) {backend} on "
+            f"{sorted({r['device'] for r in ranks})}, transport {way}: NMI "
+            f"{min(r['nmi'] for r in ranks):.4f}, served o1 "
+            f"{min(r['o1_served'] for r in ranks):.4f} o2 "
+            f"{min(r['o2_served'] for r in ranks):.4f} | o1 epoch in the "
+            f"run {max(r['o1_ms'] for r in ranks):.1f} ms (phase 5, one "
+            f"card: {main_o1_ms:.1f} ms), o2 "
+            f"{max(r['o2_ms'] for r in ranks):.1f} ms, gmm "
+            f"{r0['gmm_ms']:.1f} ms | rank 0, extra epochs: "
+            f"{per_step('o1')}; {per_step('o2')} | model shards "
+            "bit-identical across 'data' | launches per rank "
+            f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
+            + held + f" | {secs:.1f} s of run" + note))
 
 
 def main() -> int:
@@ -1775,6 +1909,9 @@ def main() -> int:
 
     # 18. the data-parallel path: torchrun runs of tools/dp_check.py
     dp_phase(main_o1_ms, V=ds.graph.num_nodes, d=128)
+
+    # 19. the row-sharded path: torchrun runs of tools/rs_check.py
+    rs_phase(main_o1_ms)
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
               library_ms=None):

@@ -93,6 +93,23 @@ class CSRGraph:
         indptr = np.cumsum(indptr)
         return CSRGraph(indptr.astype(np.int32), dst.astype(np.int32), node_names)
 
+    def permute(self, perm: np.ndarray) -> "CSRGraph":
+        """Relabel nodes: old node ``i`` becomes ``perm[i]`` (``perm`` a
+        permutation of 0..V-1).  The row-sharded trainer stripes
+        community-sorted ids across its row shards with it
+        (``parallel/exchange.py::interleave_permutation``); embeddings map
+        back by ``emb[perm]``."""
+        perm = np.asarray(perm, np.int64)
+        src, dst = self.arcs()
+        names = None
+        if self.node_names is not None:
+            names = np.empty_like(self.node_names)
+            names[perm] = self.node_names
+        return CSRGraph.from_arcs(
+            perm[src], perm[dst], num_nodes=self.num_nodes,
+            symmetrize=False, remove_self_loops=False, node_names=names,
+        )
+
     def to_device(self, device) -> "DeviceCSR":
         """CSR arrays as int32 tensors on ``device``."""
         ptr_deg = np.stack([self.indptr[:-1], self.degrees], axis=1)

@@ -21,16 +21,20 @@ cannot map onto each other, so a cross-load restores the parameters and
 ``words_seen`` and leaves the loader's stream as it was, as the JAX package
 does with a checkpoint that has no ``host_key``.
 
-Data-parallel training writes the JAX package's sharded form
-(``save_checkpoint_sharded``, ``come_tpu/iohelpers/persist.py:110-326``):
+Sharded training writes the JAX package's sharded form
+(``save_checkpoint_sharded``, ``come_tpu/iohelpers/persist.py:123-240``):
 one file per process, ``<path>.proc<i>.npz``, holding
 ``_process_count``, the topology as ``_meta.data``, ``_meta.model``,
-``_meta.v_real`` and ``_meta.interleave``, and every leaf whole with its
-``<name>.shape`` (at model 1 every process holds the whole replica, as the
-JAX writer stores a fully addressable leaf), plus that rank's generator
-states under the port's keys.  :func:`load_checkpoint_global` merges the
-files of either package (whole leaves, or ``<name>@<row>`` blocks), which
-is how a checkpoint moves to another number of processes or into the
+``_meta.v_real`` and ``_meta.interleave``, every leaf with its
+``<name>.shape``, plus that rank's generator states under the port's
+keys.  At model 1 every leaf is whole (each process holds the whole
+replica, as the JAX writer stores a fully addressable leaf); at model > 1
+the row leaves (``node_emb``, ``ctx_emb``, ``pi``) are this process's
+block ``<name>@<row_start>`` of the padded, interleaved [V_pad, ...]
+table.  :func:`load_checkpoint_global` merges the files of either package
+(whole leaves, or ``<name>@<row>`` blocks) and :func:`load_logical` puts
+the rows back in node order (the interleave undone, the pad rows
+dropped), which is how a checkpoint moves to another mesh or into the
 single-device trainer; the streams then start as they were, since a
 rank's stream has no counterpart in another topology.
 """
@@ -189,17 +193,28 @@ def save_checkpoint_sharded(
     meta: dict | None = None,
     gen: torch.Generator | None = None,
     host_gen: torch.Generator | None = None,
+    rows: tuple[int, int] | None = None,
+    data_gen: torch.Generator | None = None,
 ) -> None:
     """This process's file of a sharded checkpoint,
     ``<path>.proc<process_index>.npz``, written atomically: the leaves of
-    :func:`save_checkpoint` (whole: at model 1 each process holds the whole
-    replica) each with its ``<name>.shape``, ``_process_count``, the int
-    topology ``meta`` as ``_meta.<key>`` and this process's generator
-    states."""
+    :func:`save_checkpoint` each with its ``<name>.shape``,
+    ``_process_count``, the int topology ``meta`` as ``_meta.<key>`` and
+    this process's generator states (``data_gen``, the row-sharded
+    trainer's data-row stream, as ``torch_data_gen_state``).  ``rows``
+    None: every leaf whole (at model 1 each process holds the whole
+    replica); ``(row_start, v_pad)``: ``params``' row leaves are the block
+    of a [v_pad, ...] table from ``row_start``, stored as
+    ``<name>@<row_start>``."""
     payload = _payload(params, words_seen, seed, gen, host_gen)
+    if data_gen is not None:
+        payload["torch_data_gen_state"] = data_gen.get_state().numpy()
     for name in LEAVES:
-        payload[f"{name}.shape"] = np.asarray(np.shape(payload[name]),
-                                              np.int64)
+        shape = np.shape(payload[name])
+        if rows is not None and name in ROW_LEAVES:
+            shape = (rows[1],) + shape[1:]
+            payload[f"{name}@{rows[0]}"] = payload.pop(name)
+        payload[f"{name}.shape"] = np.asarray(shape, np.int64)
     payload["_process_count"] = np.int64(process_count)
     for k, v in (meta or {}).items():
         payload[f"_meta.{k}"] = np.int64(v)
@@ -214,12 +229,17 @@ def load_checkpoint_sharded(
     gen: torch.Generator | None = None,
     host_gen: torch.Generator | None = None,
     shape: tuple[int, int, int] | None = None,
+    row_start: int | None = None,
+    data_gen: torch.Generator | None = None,
 ) -> tuple[ComEParams, float, dict]:
     """Restore this process's own file of a sharded checkpoint saved by
     ``process_count`` processes (else ValueError: the elastic path,
     :func:`load_checkpoint_global`, takes other counts), with the
-    generator states it holds.  Returns what :func:`load_checkpoint`
-    does."""
+    generator states it holds.  ``row_start`` None: the file's leaves are
+    whole (model 1) and come back in node order; else the row leaves are
+    the file's ``<name>@<row_start>`` blocks, as saved on the same mesh.
+    Returns what :func:`load_checkpoint` does; with ``data_gen`` its
+    ``restored`` also says whether that stream was restored."""
     with np.load(_proc_path(path, process_index)) as z:
         saved = int(z["_process_count"])
         if saved != process_count:
@@ -227,11 +247,21 @@ def load_checkpoint_sharded(
                 f"checkpoint saved with {saved} processes, running with "
                 f"{process_count}: use the elastic restore "
                 "(load_checkpoint_global)")
-        leaves = _logical(_whole_leaves([z]), load_checkpoint_meta(
-            path, process_index))
+        if row_start is None:
+            leaves = _logical(_whole_leaves([z]), load_checkpoint_meta(
+                path, process_index))
+        else:
+            leaves = {k: z[f"{k}@{row_start}"] if k in ROW_LEAVES else z[k]
+                      for k in LEAVES}
         keys = [k for k in z.files if k.startswith("torch_")]
         leaves.update({k: z[k] for k in keys})
-    return _restore(leaves, path, device, gen, host_gen, shape)
+    out = _restore(leaves, path, device, gen, host_gen, shape)
+    if data_gen is not None:
+        state = leaves.get("torch_data_gen_state")
+        if state is not None:
+            data_gen.set_state(torch.from_numpy(np.array(state)))
+        out[2]["data_gen"] = state is not None
+    return out
 
 
 def load_checkpoint_meta(path: str | Path, process_index: int = 0) -> dict:
@@ -309,14 +339,41 @@ def load_checkpoint_global(path: str | Path) -> tuple[dict, dict]:
 
 
 def _logical(leaves: dict, meta: dict) -> dict:
-    """The leaves in node order with the saved layout's pad rows dropped.
-    A table whose rows were interleaved across a model axis
-    (``_meta.interleave``) is refused: undoing that layout comes with the
-    row-sharded tier (ROADMAP item 8b)."""
-    if meta.get("interleave", 0):
-        raise NotImplementedError(
-            "checkpoint rows are interleaved over a model axis of "
-            f"{meta.get('model')}: restoring it needs the row-sharded tier "
-            "(ROADMAP item 8b)")
+    """The leaves in node order: the saved layout's pad rows dropped and,
+    where the saving trainer interleaved its rows across a model axis
+    (``_meta.interleave``), the interleave undone: ``a[perm]`` with
+    ``perm = interleave_permutation(v_real, model)``, since trained row
+    ``perm[j]`` holds node j (``come_tpu/parallel/sharded.py:1711-1726``).
+    """
+    from come_tpu_torch.parallel.exchange import interleave_permutation
+
     v = int(meta.get("v_real", leaves["node_emb"].shape[0]))
-    return {k: (a[:v] if k in ROW_LEAVES else a) for k, a in leaves.items()}
+    perm = None
+    if meta.get("interleave", 0):
+        perm = interleave_permutation(v, int(meta["model"]))
+
+    def rows(a):
+        a = a[:v]
+        return a if perm is None else a[perm]
+
+    return {k: (rows(a) if k in ROW_LEAVES else a) for k, a in leaves.items()}
+
+
+def load_logical(path: str | Path,
+                 shape: tuple[int, int, int] | None = None
+                 ) -> tuple[dict, float]:
+    """(leaves in node order, ``words_seen``) of a checkpoint of either
+    package: one ``.npz`` or every per-process file of a sharded one,
+    merged.  ``shape`` (V, d, K): raise ValueError unless the logical
+    parameters have it."""
+    if not Path(path).exists() and _proc_path(path, 0).exists():
+        leaves, meta = load_checkpoint_global(path)
+        leaves = _logical(leaves, meta)
+    else:
+        with np.load(path) as z:
+            leaves = {k: z[k] for k in LEAVES}
+    saved = (*leaves["node_emb"].shape, leaves["centroid"].shape[0])
+    if shape is not None and saved != tuple(shape):
+        raise ValueError(f"checkpoint {path} holds (V, d, K) = {saved}, "
+                         f"expected {tuple(shape)}")
+    return leaves, float(leaves["words_seen"])

@@ -157,24 +157,28 @@ def gmm_em_fit(X, num_components, generator, n_init=1, max_iter=60,
 
 def gmm_em_fit_sharded(X, mask, num_components, generator, group=None,
                        n_init=1, max_iter=60, reg_covar=1e-5, tol=1e-3,
-                       resp0=None):
-    """Distributed EM over the ranks of ``group`` (the data axis, model 1).
+                       resp0=None, model=1):
+    """Distributed EM over the ranks of ``group``, a (D, ``model``) mesh
+    whose rank r is (r // model, r % model) (``gmm_em_fit_sharded(axis=
+    "model", data_axis="data")``, ``come_tpu/losses/gmm.py:174-346``).
 
-    ``X`` [V, d] is the whole table, the same on every rank, and ``mask``
-    [V] (None: all ones) weights its rows, 0 for pad rows.  Each of the D
-    ranks works the chunk of ``ceil(V / D)`` rows from ``rank * chunk``
+    ``X`` [V, d] is this rank's model shard of the table (the whole table
+    at model 1, the same on every rank), and ``mask`` [V] (None: all ones)
+    weights its rows, 0 for pad rows.  Each of the D data ranks of a shard
+    works the chunk of ``ceil(V / D)`` rows from ``data_index * chunk``
     (zero-weight pad rows past V); ``nk``, the means, the covariances and
-    the log-likelihood are summed over the ranks, so every rank takes the
-    same EM path and stops at the same iteration.  The k-means init draws
-    K global row ids, one per stride of ``V // K`` rows, from the host
-    ``generator``, which must be in the same state on every rank; each
-    rank contributes the centers it holds.  The ``n_init`` restarts run at
-    once as a leading batch dimension, as in :func:`gmm_em_fit` (the JAX
-    package runs them in turn), and the best by log-likelihood wins.
-    ``resp0`` [V, K] starts EM from these responsibilities instead.  The
-    responsibilities returned cover every row of ``X`` (row-wise
-    normalisation is local), so at model 1 they are the same on every
-    rank.
+    the log-likelihood are summed over the whole mesh, so every rank takes
+    the same EM path and stops at the same iteration.  The k-means init
+    draws K global row ids, one per stride of ``V * model // K`` rows of
+    the model-shard-major id space, from the host ``generator``, which
+    must be in the same state on every rank; each rank contributes the
+    centers it holds.  The ``n_init`` restarts run at once as a leading
+    batch dimension, as in :func:`gmm_em_fit` (the JAX package runs them
+    in turn), and the best by log-likelihood wins.  ``resp0`` [V, K]
+    (this shard's rows) starts EM from these responsibilities instead.
+    The responsibilities returned cover every row of ``X`` (row-wise
+    normalisation is local), so they are the same on every data rank of a
+    shard.
 
     Returns the dict of :func:`gmm_em_from_resp` for the best restart."""
     from come_tpu_torch.parallel.collectives import all_reduce_, world_rank
@@ -185,7 +189,8 @@ def gmm_em_fit_sharded(X, mask, num_components, generator, group=None,
     dev = X.device
     w = (torch.ones(V, device=dev) if mask is None
          else mask.to(device=dev, dtype=torch.float32))
-    D, r = world_rank(group)
+    world, rank = world_rank(group)
+    D, (r, mi) = world // model, divmod(rank, model)
     chunk = -(-V // D)
     pad = chunk * D - V
 
@@ -220,13 +225,16 @@ def gmm_em_fit_sharded(X, mask, num_components, generator, group=None,
 
     def init_resp():
         # one center per stride of rows, so the K global ids are distinct
-        stride = max(V // K, 1)
+        stride = max(V * model // K, 1)
         offs = torch.stack([torch.randint(0, stride, (K,),
                                           generator=generator)
                             for _ in range(n_init)])
-        idx = torch.clamp(torch.arange(K) * stride + offs, max=V - 1).to(dev)
-        local = idx - r * chunk
-        ok = (local >= 0) & (local < chunk)
+        idx = torch.clamp(torch.arange(K) * stride + offs,
+                          max=V * model - 1).to(dev)
+        local = idx - mi * V
+        ok = (local >= 0) & (local < V)
+        local = local - r * chunk
+        ok = ok & (local >= 0) & (local < chunk)
         centers = torch.where(ok[..., None],
                               Xc[local.clamp(0, chunk - 1)], 0.0)
         centers = all_reduce_(centers, group)  # [n, K, d]

@@ -12,18 +12,20 @@ node-classification F1 (fitted on ``--device``), ``--save`` writes the
 embeddings as word2vec text and ``--plot`` the PNGs.  ``--plot`` needs
 matplotlib and checks for it before anything is trained.
 
-``--mesh D,1`` trains data-parallel over D processes, one a rank
-(``parallel/sharded.py``): D must be the world size of the process group,
-which comes from torchrun's environment, from ``--distributed
-ADDR:PORT,N,RANK``, or is one process for ``--mesh 1,1`` alone.  Each
-rank's card is ``cuda:LOCAL_RANK`` unless ``--device`` names one; the
-backend is NCCL on cards and gloo on the CPU unless ``--backend`` names
-one.  A model axis > 1 is refused (ROADMAP item 8b).  Only rank 0 prints
-and writes ``--save`` and ``--plot``; ``--checkpoint-dir`` gets one file
-per rank.
+``--mesh D,M`` trains over a (data, model) mesh of D x M processes, one a
+rank (``parallel/sharded.py``): D data-parallel rows and, at M > 1, the
+tables row-sharded over M ranks whose rows move by all-to-all.  D x M must
+be the world size of the process group, which comes from torchrun's
+environment, from ``--distributed ADDR:PORT,N,RANK``, or is one process
+for ``--mesh 1,1`` alone.  Each rank's card is ``cuda:LOCAL_RANK`` unless
+``--device`` names one; the backend is NCCL on cards and gloo on the CPU
+unless ``--backend`` names one.  Only rank 0 prints (the mesh, the JAX
+trainer's tier names and, per iteration, the served fractions of the row
+exchange) and writes ``--save`` and ``--plot``; ``--checkpoint-dir`` gets
+one file per rank.
 
-    python -m torch.distributed.run --standalone --nproc-per-node 2 \
-        -m come_tpu_torch.main --mesh 2,1 --dataset blogcatalog
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m come_tpu_torch.main --mesh 2,2 --dataset blogcatalog
 """
 
 from __future__ import annotations
@@ -78,8 +80,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval-f1", action="store_true",
                    help="also run node-classification F1 at the end")
     p.add_argument("--json", action="store_true", help="JSONL record output")
-    p.add_argument("--mesh", help="train data-parallel on a ('data','model') "
-                   "mesh of processes, e.g. --mesh 2,1 (model must be 1)")
+    p.add_argument("--mesh", help="train on a ('data','model') mesh of "
+                   "processes, e.g. --mesh 2,2 (tables row-sharded over "
+                   "model)")
     p.add_argument("--distributed", nargs="?", const="env",
                    help="process group: ADDR:PORT,NUM_PROCESSES,RANK, or no "
                         "value for torchrun's environment")
@@ -122,11 +125,8 @@ def _mesh(args: argparse.Namespace):
 
     from come_tpu_torch.parallel import initialize_distributed, make_mesh
     from come_tpu_torch.parallel.distributed import rank_device
-    from come_tpu_torch.parallel.mesh import MODEL_AXIS_TODO
 
     d, m = (int(x) for x in (args.mesh or "0,1").split(","))
-    if m != 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: {MODEL_AXIS_TODO}")
     dist_arg = args.distributed
     if dist_arg is None and "WORLD_SIZE" in os.environ:
         dist_arg = "env"
@@ -138,11 +138,12 @@ def _mesh(args: argparse.Namespace):
         addr, n, rank = dist_arg.rsplit(",", 2)
         dev = initialize_distributed(args.backend, f"tcp://{addr}", int(n),
                                      int(rank), args.device)
-    elif d in (0, 1):
+    elif d in (0, 1) and m == 1:
         dev = rank_device(args.device)  # the one-process mesh (1, 1)
     else:
-        raise SystemExit(f"--mesh {args.mesh} needs {d} processes: launch "
-                         "with torch.distributed.run or --distributed")
+        raise SystemExit(f"--mesh {args.mesh} needs {d * m} processes: "
+                         "launch with torch.distributed.run or "
+                         "--distributed")
     return make_mesh(d or None, m), dev
 
 
@@ -208,12 +209,18 @@ def run(args: argparse.Namespace):
         out(f"resumed from {args.resume} "
             f"(words_seen={trainer.words_seen:.0f})")
     emit = (lambda s: print(json.dumps({"log": s}))) if args.json else print
+    say = emit if rank0 else None
+    if say is not None and mesh is not None and mesh.model > 1:
+        def say(s):  # the row exchange's served fractions, per iteration
+            if s.startswith("iter "):
+                s += (f", o1_served={trainer.last_o1_served:.4f}, "
+                      f"o2_served={trainer.last_o2_served:.4f}")
+            emit(s)
     from come_tpu_torch.metrics.profiling import trace
 
     try:
         with trace(args.profile_dir if rank0 else None):
-            history = trainer.train(labels=ds.single_labels,
-                                    log=emit if rank0 else None,
+            history = trainer.train(labels=ds.single_labels, log=say,
                                     checkpoint_dir=args.checkpoint_dir)
     finally:
         trainer.close()
@@ -223,26 +230,30 @@ def run(args: argparse.Namespace):
             f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
     if history and "nmi" in history[-1]:
         out(f"final NMI: {history[-1]['nmi']:.4f}")
+    if args.save or args.plot or args.eval_f1:
+        # at model > 1 a collective over the model group: every rank
+        emb = trainer.embeddings()
+        com = trainer.communities()
     if not rank0:
         return trainer, history
     if args.eval_f1 and ds.labels is not None:
         from come_tpu_torch.evaluation import node_classification_f1
 
-        f1 = node_classification_f1(trainer.params.node_emb, ds.labels)
+        f1 = node_classification_f1(torch.as_tensor(emb, device=device),
+                                    ds.labels)
         print(f"classification: macro-F1={f1['macro_f1']:.4f} "
               f"micro-F1={f1['micro_f1']:.4f}")
     if args.save:
         from come_tpu_torch.iohelpers import save_embedding_word2vec
 
-        save_embedding_word2vec(args.save, trainer.embeddings(),
-                                ds.graph.node_names)
+        save_embedding_word2vec(args.save, emb, ds.graph.node_names)
         print(f"embeddings -> {args.save}")
     if args.plot:
-        _plot(trainer, ds, Path(args.plot))
+        _plot(trainer, ds, Path(args.plot), emb, com)
     return trainer, history
 
 
-def _plot(trainer, ds, out: Path) -> None:
+def _plot(trainer, ds, out: Path, emb, com) -> None:
     import numpy as np
 
     from come_tpu_torch.evaluation.plots import graph_plot, node_space_plot_2d
@@ -252,12 +263,11 @@ def _plot(trainer, ds, out: Path) -> None:
     chol = p.chol_cov.cpu().numpy()
     covs = np.einsum("kde,kfe->kdf", chol, chol)
     node_space_plot_2d(
-        trainer.embeddings(), trainer.communities(),
-        p.centroid.cpu().numpy(), covs,
+        emb, com, p.centroid.cpu().numpy(), covs,
         path=out / "embedding_space.png",
         title=f"{ds.name}: embedding space + GMM",
     )
-    graph_plot(ds.graph, trainer.communities(),
+    graph_plot(ds.graph, com,
                path=out / "graph_communities.png",
                title=f"{ds.name}: detected communities")
     print(f"plots -> {out}")

@@ -1,5 +1,6 @@
-"""Data-parallel training over ``torch.distributed`` (``mesh.py``,
-``distributed.py``, ``collectives.py``, ``sharded.py``)."""
+"""Sharded training over ``torch.distributed``: data-parallel rows and
+row-sharded tables (``mesh.py``, ``distributed.py``, ``collectives.py``,
+``exchange.py``, ``walk_exchange.py``, ``sharded.py``)."""
 
 from come_tpu_torch.parallel.distributed import initialize_distributed
 from come_tpu_torch.parallel.mesh import Mesh, MeshLayout, make_mesh

@@ -77,7 +77,7 @@ def initialize_distributed(
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="data-parallel ComE training")
+    p = argparse.ArgumentParser(description="sharded ComE training")
     p.add_argument("--coordinator", help="host:port of rank 0 (default: "
                    "torchrun's MASTER_ADDR:MASTER_PORT)")
     p.add_argument("--num-processes", type=int)
@@ -91,10 +91,6 @@ def main(argv=None) -> int:
     p.add_argument("--outer-iters", type=int)
     args = p.parse_args(argv)
 
-    from come_tpu_torch.parallel.mesh import MODEL_AXIS_TODO
-
-    if args.model_axis != 1:
-        raise SystemExit(MODEL_AXIS_TODO)
     dev = initialize_distributed(
         args.backend,
         f"tcp://{args.coordinator}" if args.coordinator else None,
@@ -113,8 +109,8 @@ def main(argv=None) -> int:
             cfg = cfg.replace(outer_iters=args.outer_iters)
         mesh = make_mesh(model=args.model_axis)
         if mesh.rank == 0:
-            print(f"{mesh.data} processes ({dist.get_backend()}); mesh "
-                  f"({mesh.data},{mesh.model})")
+            print(f"{mesh.data * mesh.model} processes "
+                  f"({dist.get_backend()}); mesh ({mesh.data},{mesh.model})")
         trainer = ShardedComETrainer(ds.graph, cfg, mesh, dev)
         log = print if mesh.rank == 0 else None
         trainer.train(labels=ds.single_labels, log=log)

@@ -47,10 +47,30 @@ from pathlib import Path
 
 import torch
 
+from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
+from come_tpu_torch.ops.star_sgns import star_sgns_step
+from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
+
 SEED = 0
 # the held K1 step's walks; the held K3 step's shapes (synthetic-10m's)
 K1_WALKS = 256
 K3_SHAPE = dict(V=500000, B=1024, KP=2048)
+
+
+# each kernel (mode) of the trainer's paths and the wrapper attribute that
+# counts its launches
+COUNTERS = {
+    "walk_sgns": (walk_sgns_step, "launches"),
+    "walk_sgns_bf16": (walk_sgns_step, "launches_bf16"),
+    "walk_sgns_paired": (walk_sgns_step, "launches_paired"),
+    "walk_sgns_bf16_tables": (walk_sgns_step, "launches_bf16_tables"),
+    "walk_sgns_gen": (walk_sgns_gen_step, "launches"),
+    "walk_sgns_gen_bf16": (walk_sgns_gen_step, "launches_bf16"),
+    "star_sgns": (star_sgns_step, "launches"),
+    "star_sgns_bf16": (star_sgns_step, "launches_bf16"),
+    "fused_sgns": (fused_sgns_step, "launches"),
+    "fused_sgns_tied": (fused_sgns_step_tied, "launches"),
+}
 
 
 def param_hash(params) -> str:
@@ -296,30 +316,15 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from come_tpu_torch.main import build_argparser, run
-    from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
-    from come_tpu_torch.ops.star_sgns import star_sgns_step
-    from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
     from come_tpu_torch.parallel.collectives import METER
 
-    counters = {
-        "walk_sgns": (walk_sgns_step, "launches"),
-        "walk_sgns_bf16": (walk_sgns_step, "launches_bf16"),
-        "walk_sgns_paired": (walk_sgns_step, "launches_paired"),
-        "walk_sgns_bf16_tables": (walk_sgns_step, "launches_bf16_tables"),
-        "walk_sgns_gen": (walk_sgns_gen_step, "launches"),
-        "walk_sgns_gen_bf16": (walk_sgns_gen_step, "launches_bf16"),
-        "star_sgns": (star_sgns_step, "launches"),
-        "star_sgns_bf16": (star_sgns_step, "launches_bf16"),
-        "fused_sgns": (fused_sgns_step, "launches"),
-        "fused_sgns_tied": (fused_sgns_step_tied, "launches"),
-    }
     world = int(os.environ.get("WORLD_SIZE", "1"))
     cli = ["--dataset", "blogcatalog", "--mesh", f"{world},1",
            "--pretrain-epochs", "1", "--outer-iters", "1", "--seed",
            str(SEED), "--device", args.device]
     if args.backend:
         cli += ["--backend", args.backend]
-    for fn, attr in counters.values():
+    for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     try:
         t0 = time.perf_counter()
@@ -327,7 +332,7 @@ def main(argv=None) -> int:
         trainer._sync()
         wall = time.perf_counter() - t0
         launches = {k: getattr(fn, attr)
-                    for k, (fn, attr) in counters.items()}
+                    for k, (fn, attr) in COUNTERS.items()}
         rec = hist[-1]
         res = {"rank": trainer.rank, "world": world,
                "backend": dist.get_backend(), "device": str(trainer.device),

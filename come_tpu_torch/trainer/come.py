@@ -166,10 +166,12 @@ class ComETrainer:
     run)."""
 
     # data-parallel ranks whose steps make one global step (the
-    # ShardedComETrainer of parallel/sharded.py sets it): batch sizes round
-    # to it, the collision envelope narrows by it and words_seen advances
-    # by the global step's words
+    # ShardedComETrainer of parallel/sharded.py sets it): words_seen
+    # advances by the global step's words and micro-steps split by it
     workers = 1
+    # every worker of the mesh (data x model): walk batches round to it and
+    # the collision envelope narrows by it
+    mesh_workers = 1
 
     def __init__(self, graph: CSRGraph, config: ComEConfig, device,
                  seed: int | None = None):
@@ -197,6 +199,9 @@ class ComETrainer:
         seed = config.seed if seed is None else seed
         self.seed = seed
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the walks, window pairs and per-pair negatives: on one device the
+        # same stream (the row-sharded trainer gives each data row its own)
+        self.data_gen = self.gen
         self.host_gen = torch.Generator().manual_seed(seed)
         self.csr = graph.to_device(self.device)
         degrees = graph.degrees
@@ -242,7 +247,7 @@ class ComETrainer:
         # at every V (no 28 MB-per-table gate, :242-248), including what
         # JAX sends past that gate to its XLA block path, and long walks
         # that fit JAX's banded envelope (:182-202).
-        V, wk = graph.num_nodes, self.workers
+        V, wk = graph.num_nodes, self.mesh_workers
         shared = config.negative_mode == "shared"
         self.o1_walk_kernel = o1_on_walk_kernel(V, config, wk)
         self.o1_table_dtype = o1_table_dtype(V, config.dim, config, wk)
@@ -454,10 +459,10 @@ class ComETrainer:
         [B, L], per-pair negatives in per-pair mode, then
         :meth:`_sgns_microbatched`.  Returns (loss, n_pairs) tensors."""
         cfg = self.cfg
-        c, x, m = skipgram_pairs(walks, cfg.window, self.gen, self.keep)
+        c, x, m = skipgram_pairs(walks, cfg.window, self.data_gen, self.keep)
         negs = None
         if cfg.negative_mode != "shared":
-            negs = sample_alias(self.accept, self.alias, self.gen,
+            negs = sample_alias(self.accept, self.alias, self.data_gen,
                                 tuple(c.shape) + (cfg.negative,))
         p = self.params
         loss, npairs = self._sgns_microbatched(
@@ -475,7 +480,7 @@ class ComETrainer:
         own (come_tpu/parallel/sharded.py:1432-1457)."""
         cfg = self.cfg
         n_starts = len(self.walk_starts) * cfg.walks_per_node
-        W = self.workers
+        W = self.mesh_workers
         B = min(cfg.batch_walks, n_starts)
         B = max(W, B // W * W)
         S = math.ceil(n_starts / B)
@@ -488,7 +493,7 @@ class ComETrainer:
         S, B = starts.shape
         L = self.cfg.walk_length
         walks = random_walks(
-            self.csr, starts.reshape(S * B), L, self.gen,
+            self.csr, starts.reshape(S * B), L, self.data_gen,
             restart_prob=self.cfg.restart_prob,
         )
         return walks.reshape(S, B, L)
@@ -516,6 +521,10 @@ class ComETrainer:
         else:
             walks_all = self._gen_epoch_walks(starts)
         self._o1_epochs_done += 1
+        return self._o1_walks_epoch(walks_all)
+
+    def _o1_walks_epoch(self, walks_all: torch.Tensor) -> float:
+        """Train the epoch's walks [S, B, L] step by step."""
         tot_loss = torch.zeros((), device=self.device)
         tot_pairs = torch.zeros((), device=self.device)
         with self._o1_tables():
@@ -665,7 +674,7 @@ class ComETrainer:
         cfg = self.cfg
         negs = None
         if cfg.negative_mode != "shared":
-            negs = sample_alias(self.accept, self.alias, self.gen,
+            negs = sample_alias(self.accept, self.alias, self.data_gen,
                                 (src.shape[0], cfg.negative))
         ne = self.params.node_emb
         loss, npairs = self._sgns_microbatched(

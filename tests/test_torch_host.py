@@ -246,3 +246,7 @@ def test_port_imports_without_jax():
     assert {f"come_tpu_torch.{m}" for m in (
         "parallel", "parallel.mesh", "parallel.distributed",
         "parallel.collectives", "parallel.sharded", "tools.dp_check")} <= names
+    # the row-sharded (model axis) tier
+    assert {f"come_tpu_torch.{m}" for m in (
+        "parallel.exchange", "parallel.walk_exchange",
+        "tools.rs_check")} <= names

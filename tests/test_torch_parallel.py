@@ -23,6 +23,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from _torch_dp import collectives, kernel_steps, spawn
+from _torch_rs import mesh_groups
 from come_tpu.ops.pallas_sgns import fused_sgns_step as j_fused_sgns_step
 from come_tpu.ops.pallas_star_sgns import fused_star_sgns_step
 from come_tpu.ops.pallas_walk_sgns import fused_walk_sgns_step
@@ -35,18 +36,39 @@ RTOL, ATOL = 1e-3, 3e-5
 WORLD = 2
 
 
-def test_make_mesh_shapes():
+def test_make_mesh_shapes(tmp_path):
+    """The one-process mesh; and at world 4, ``make_mesh(2, 2)``: rank r is
+    (r // 2, r % 2), as ``np.asarray(devices).reshape(data, model)``
+    orders the JAX mesh, with data groups {0, 2}, {1, 3} and model groups
+    {0, 1}, {2, 3}; each rank's batch block by its data index and its row
+    block by its model index."""
     m = make_mesh()
     assert m.shape == {"data": 1, "model": 1} and m.rank == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
-        make_mesh(model=2)
     with pytest.raises(ValueError):
         make_mesh(data=2)  # one process, no group
+    with pytest.raises(ValueError):
+        make_mesh(data=2, model=2)
     lay = MeshLayout(Mesh(data=4, rank=1))
     assert (lay.data_size, lay.model_size, lay.rank) == (4, 1, 1)
     assert lay.rows_per_shard(10) == 10
     with pytest.raises(ValueError):
         lay.local(torch.zeros(2, 6), 1)
+    with pytest.raises(ValueError):
+        MeshLayout(Mesh(data=1, model=4)).rows_per_shard(10)
+    jm = j_make_mesh(data=2, model=2, devices=jax.devices()[:4])
+    for r, got in enumerate(spawn(mesh_groups, 4, tmp_path, 2, 2)):
+        di, mi = divmod(r, 2)
+        assert jm.devices[di, mi] == jax.devices()[r]
+        assert got["shape"] == {"data": 2, "model": 2}
+        assert got["index"] == (di, mi) and got["rank"] == r
+        assert (got["data_size"], got["model_size"]) == (2, 2)
+        assert (got["data_rank"], got["model_rank"]) == (di, mi)
+        assert got["data_sum"] == 2.0
+        assert got["model_sum"] == float(2 * di * 2 + 1)  # r0 + r1
+        assert got["row_block"] == (mi * 12, (mi + 1) * 12)
+        np.testing.assert_array_equal(got["local"],
+                                      [[4 * di, 4 * di + 1, 4 * di + 2,
+                                        4 * di + 3]])
 
 
 @pytest.mark.parametrize("D", [2, 4, 8])

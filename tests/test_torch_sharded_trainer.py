@@ -18,8 +18,9 @@
   single-device ``ComETrainer``, and cross-loads both ways with a JAX
   (2, 1) checkpoint (the parameters exactly);
 * the CLI under ``torch.distributed.run --nproc-per-node 2`` with
-  ``--device cpu --backend gloo --mesh 2,1``, and ``--mesh 2,2`` refused
-  naming ROADMAP item 8b.
+  ``--device cpu --backend gloo --mesh 2,1``, and with four ranks and
+  ``--mesh 2,2`` (the model axis; a mesh the world does not fill is
+  refused).
 """
 
 import os
@@ -236,8 +237,25 @@ def test_cli_under_torch_distributed_run():
 
 
 def test_cli_refuses_a_model_axis():
+    """The CLI on a model axis: ``--mesh 2,2`` over four gloo ranks trains
+    karate (rc 0, the JAX trainer's tier names, NMI > 0.3, rank 0 alone
+    printing); a mesh that the world size does not fill is still
+    refused."""
     from come_tpu_torch.main import build_argparser, run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
+    with pytest.raises(SystemExit, match="needs 4 processes"):
         run(build_argparser().parse_args(
             ["--device", "cpu", "--mesh", "2,2"]))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "come_tpu_torch.main", "--device",
+         "cpu", "--backend", "gloo", "--mesh", "2,2", "--dataset", "karate"],
+        capture_output=True, text=True, env=env, timeout=240, cwd=REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = res.stdout
+    assert "mesh=(2,2) backend=gloo o1_tier=xla-per-pair" in out
+    assert "o2_tier=xla-per-pair" in out
+    assert "o1_served=1.0000, o2_served=1.0000" in out
+    assert out.count("final NMI:") == 1
+    assert float(out.split("final NMI:")[1].split()[0]) > 0.3
