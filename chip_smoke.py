@@ -166,7 +166,26 @@ After phase 17:
                the all-to-all bytes and ms and the all-reduce bytes and
                ms, the O1 epoch beside phase 5's, the served fractions, the
                NMI and the transport.
-Phases 5, 8-14 (11b and 11c too), 15-17 and every rank of 18 and 19 each reset
+After phase 19:
+ 20. eval    — the quality sweep (come_tpu_torch/tools/eval_sweep.py):
+               run_one for karate and heavy-tail-dcsbm at their full presets
+               with the F1 train-ratio sweep, each with the launch counters
+               reset just before and read just after: karate (per-pair) may
+               launch no kernel, heavy-tail K1 and K2 and nothing else, and
+               the row's own kernels field must agree.  Floors: the JAX
+               artifact's (tests/test_eval_regression.py:24-33: karate NMI
+               0.60 and macro-F1 0.85, heavy-tail 0.90 and 0.95), karate's
+               NMI by the port's bar of 0.5 (PERF.md §2) where it misses
+               0.60 inside the seed band; the line says which bar held.
+               Then exact t-SNE (evaluation/tsne.py) of the heavy-tail
+               embeddings on the card: every KL reading finite, the KL at
+               1000 iterations below the first reading after exaggeration
+               ends (300) at the last (1000 unless a stage stopped early on
+               sklearn's rules), and the 10-neighbour trustworthiness of the map
+               at least that of the PCA map of the same embeddings.  The
+               line gives each row's seconds, the t-SNE seconds and the
+               card's name and power limit.
+Phases 5, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
 every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode.  Every phase line ends with its seconds.  Then a JSON line of the
 kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
@@ -642,6 +661,76 @@ def rs_phase(main_o1_ms: float) -> None:
             "bit-identical across 'data' | launches per rank "
             f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
             + held + f" | {secs:.1f} s of run" + note))
+
+
+# the JAX artifact's floors (tests/test_eval_regression.py:24-33) of the
+# rows phase 20 runs
+EVAL_FLOORS = {"karate": {"nmi": 0.60, "macro_f1": 0.85},
+               "heavy-tail-dcsbm": {"nmi": 0.90, "macro_f1": 0.95}}
+
+
+def eval_phase(smi, reset_counts, counts, check_launches, names) -> None:
+    """Phase 20 (module docstring); raises if a row or the t-SNE check
+    fails."""
+    from come_tpu_torch.evaluation.plots import project_2d
+    from come_tpu_torch.evaluation.tsne import trustworthiness, tsne
+    from come_tpu_torch.tools.eval_sweep import run_one
+
+    rows, held = {}, []
+    for name, ran, short in (("karate", (), set()),
+                             ("heavy-tail-dcsbm", ("walk_sgns", "star_sgns"),
+                              {"K1", "K2"})):
+        reset_counts()
+        row, emb = run_one(name, False, None, ratios=True, device="cuda",
+                           return_embeddings=True)
+        torch.cuda.synchronize()
+        check_launches(f"eval {name}", counts(), ran,
+                       tuple(k for k in names if k not in ran))
+        if set(row["kernels"]) != short:
+            raise AssertionError(f"eval {name}: row kernels "
+                                 f"{row['kernels']}, expected {short}")
+        if not all(math.isfinite(row[k]) for k in ("nmi", "macro_f1")):
+            raise AssertionError(f"eval {name}: {row}")
+        floors = EVAL_FLOORS[name]
+        if row["macro_f1"] < floors["macro_f1"]:
+            raise AssertionError(f"eval {name}: macro-F1 {row['macro_f1']}")
+        if row["nmi"] >= floors["nmi"]:
+            held.append(f"{name} the JAX floor {floors['nmi']}")
+        elif name == "karate" and row["nmi"] >= KARATE_NMI_FLOOR:
+            held.append(f"karate the port's bar {KARATE_NMI_FLOOR} (JAX "
+                        f"floor {floors['nmi']} missed)")
+        else:
+            raise AssertionError(f"eval {name}: NMI {row['nmi']:.4f}")
+        rows[name] = row
+    # emb: the heavy-tail embeddings, the loop's last row
+    t0 = time.perf_counter()
+    y, kls = tsne(emb, device="cuda", return_kl=True)
+    torch.cuda.synchronize()
+    tsne_s = time.perf_counter() - t0
+    kl = dict(kls)
+    last, kl_end = kls[-1]
+    if not all(math.isfinite(v) for v in kl.values()):
+        raise AssertionError(f"eval t-SNE: KL readings {kls}")
+    if not kl_end < kl[300]:
+        raise AssertionError(f"eval t-SNE: KL {kl[300]} at 300 -> "
+                             f"{kl_end} at {last}")
+    pca, _ = project_2d(emb)
+    tw = trustworthiness(emb, y, 10, device="cuda")
+    tw_pca = trustworthiness(emb, pca, 10, device="cuda")
+    if tw < tw_pca:
+        raise AssertionError(f"eval t-SNE: trustworthiness {tw:.4f} < PCA's "
+                             f"{tw_pca:.4f}")
+    k, h = rows["karate"], rows["heavy-tail-dcsbm"]
+    phase("eval", (
+        f"{smi} | karate NMI {k['nmi']:.4f} macro-F1 {k['macro_f1']:.4f} "
+        f"in {k['seconds']} s ({k['o1_tier']}, no kernel) | heavy-tail-dcsbm "
+        f"NMI {h['nmi']:.4f} macro-F1 {h['macro_f1']:.4f} in {h['seconds']} "
+        f"s, peak {h['peak_mib']} MiB ({h['held_mib']} of it held before the "
+        f"row), kernels {h['kernels']} | floors held: "
+        + "; ".join(held) + f" | t-SNE of the {len(y)} heavy-tail "
+        f"embeddings in {tsne_s:.2f} s: KL {kl[250]:.4f} at 250 "
+        f"(exaggerated), {kl[300]:.4f} at 300, {kl_end:.4f} at {last}; "
+        f"10-neighbour trustworthiness {tw:.4f} (PCA {tw_pca:.4f})"))
 
 
 def main() -> int:
@@ -1912,6 +2001,9 @@ def main() -> int:
 
     # 19. the row-sharded path: torchrun runs of tools/rs_check.py
     rs_phase(main_o1_ms)
+
+    # 20. the quality sweep's rows and t-SNE
+    eval_phase(smi, reset_counts, counts, check_launches, tuple(kernels))
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
               library_ms=None):

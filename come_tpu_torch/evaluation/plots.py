@@ -1,10 +1,12 @@
 """Visualization: 2-D embedding scatter with GMM ellipses, graph plots.
 
 Port of ``come_tpu/evaluation/plots.py``: matplotlib PNGs coloured by
-community, the embedding space projected by PCA (the JAX package's default
-and its only projection that needs no sklearn) with the fitted GMM drawn
-as 1- and 2-sigma covariance ellipses, and the graph drawn in a spring
-layout.  The layout is this module's own Fruchterman-Reingold loop in
+community, the embedding space projected by PCA (the default) with the
+fitted GMM drawn as 1- and 2-sigma covariance ellipses, or by exact t-SNE
+(``method="tsne"``, ``evaluation/tsne.py``, where the JAX package calls
+sklearn's Barnes-Hut ``TSNE(2, random_state=seed, init="pca")``; no
+ellipses, as there), and
+the graph drawn in a spring layout.  The layout is this module's own Fruchterman-Reingold loop in
 numpy (networkx's algorithm, not its draws), so only matplotlib is needed.
 matplotlib is imported inside the functions, never when the module is;
 :func:`require_matplotlib` lets a caller fail before a run, not after it.
@@ -30,11 +32,22 @@ def require_matplotlib():
     return matplotlib
 
 
-def project_2d(emb: np.ndarray):
-    """PCA projection: (points [V, 2], basis [d, 2]) of the centred
-    embeddings; 2-D input is returned as it is."""
+def project_2d(emb: np.ndarray, method: str = "pca", seed: int = 0,
+               device=None):
+    """(points [V, 2], basis [d, 2]) of the embeddings
+    (``come_tpu/evaluation/plots.py:17-29``): PCA of the centred points, or
+    with ``method="tsne"`` exact t-SNE on ``device`` (default the card) and
+    basis None; 2-D input is returned as it is.  ``seed`` is kept only for
+    the JAX signature: the t-SNE starts from the PCA init and draws
+    nothing at random, so it has no effect."""
     if emb.shape[1] == 2:
         return emb, np.eye(emb.shape[1])[:, :2]
+    if method == "tsne":
+        from come_tpu_torch.evaluation.tsne import tsne
+
+        return tsne(emb, device=device), None
+    if method != "pca":
+        raise ValueError(f"method must be 'pca' or 'tsne', not {method!r}")
     emb0 = emb - emb.mean(0)
     _, _, vt = np.linalg.svd(emb0, full_matrices=False)
     basis = vt[:2].T
@@ -47,9 +60,11 @@ def node_space_plot_2d(
     centroids: np.ndarray | None = None,
     covariances: np.ndarray | None = None,
     path: str | Path | None = None,
+    method: str = "pca",
     title: str = "",
 ):
-    """Scatter the embedding space; optionally draw GMM component ellipses.
+    """Scatter the embedding space, projected by :func:`project_2d`; under
+    PCA optionally draw GMM component ellipses.
 
     Returns the matplotlib Figure (also saved to ``path`` when given)."""
     require_matplotlib()
@@ -57,14 +72,14 @@ def node_space_plot_2d(
     from matplotlib.patches import Ellipse
 
     emb = np.asarray(embeddings)
-    xy, basis = project_2d(emb)
+    xy, basis = project_2d(emb, method)
     fig, ax = plt.subplots(figsize=(7, 6))
     c = np.asarray(labels) if labels is not None else None
     sc = ax.scatter(xy[:, 0], xy[:, 1], c=c, cmap="tab20", s=18, alpha=0.85)
     if labels is not None:
         fig.colorbar(sc, ax=ax, shrink=0.8)
 
-    if centroids is not None:
+    if centroids is not None and basis is not None:
         mu2 = (np.asarray(centroids) - emb.mean(0)) @ basis
         ax.scatter(mu2[:, 0], mu2[:, 1], marker="x", c="k", s=80)
         if covariances is not None:

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
@@ -44,21 +43,6 @@ def _config(name: str, ds, seed: int):
                                     seed=seed)
 
 
-def _launch_counts():
-    from come_tpu_torch.ops.star_sgns import star_sgns_step
-    from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
-
-    return {
-        "K1": walk_sgns_step.launches, "K1b": walk_sgns_step.launches_bf16,
-        "K3": walk_sgns_step.launches_bf16_tables
-        + walk_sgns_gen_step.launches_bf16_tables,
-        "K4": walk_sgns_gen_step.launches,
-        "K4+K1b": walk_sgns_gen_step.launches_bf16,
-        "K5": walk_sgns_step.launches_paired,
-        "K2": star_sgns_step.launches, "K2b": star_sgns_step.launches_bf16,
-    }
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--runs", nargs="+", default=list(RUNS), choices=RUNS)
@@ -68,12 +52,10 @@ def main(argv=None) -> int:
         raise SystemExit("quality: needs a CUDA card")
 
     from come_tpu_torch.graphs import get_dataset
+    from come_tpu_torch.tools.eval_sweep import card_name, launch_counts
     from come_tpu_torch.trainer import ComETrainer
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     dev = torch.device("cuda", 0)
     torch.zeros(1, device=dev)
     for name in args.runs:
@@ -83,12 +65,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         trainer = ComETrainer(ds.graph, cfg, dev)
-        before = _launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         hist = trainer.train(ds.single_labels)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-        launched = {k: v - before[k] for k, v in _launch_counts().items()
+        launched = {k: v - before[k] for k, v in launch_counts().items()
                     if v != before[k]}
         s_iter = [sum(r[f"{k}_ms"] for k in ("gmm", "o1", "o2", "o3")) / 1e3
                   for r in hist]

@@ -290,3 +290,68 @@ def gmm(rank, world, D, M, X, K, resp0):
     b = gmm_em_fit_sharded(Xs, None, K, torch.Generator().manual_seed(0),
                            None, n_init=2, **kw)
     return [{k: _np(v) for k, v in o.items()} for o in (a, b)]
+
+
+def prefetch_curve(rank, world, D, M, data):
+    """One O1 pass of the port's ``ShardedComETrainer`` at the blogcatalog
+    preset (cut by ``data["cfg"]``) from the JAX trainer's initial tables,
+    on its walks and pools, every window full (the JAX interpret path's
+    window), with the row prefetch as ``data["cfg"]`` says.  Returns this
+    worker's (loss, pairs) per step."""
+    from come_tpu_torch.config import get_config
+    from come_tpu_torch.graphs import get_dataset
+    from come_tpu_torch.parallel import ShardedComETrainer
+    from come_tpu_torch.parallel import sharded
+
+    class FullWindow(ShardedComETrainer):
+        def _rowsharded_epoch(self, rows_all, n_pools, kernel_step, tables,
+                              n_wrow=0):
+            full = torch.full((n_wrow,), self.cfg.window, dtype=torch.int32)
+
+            def step(k, rows, plan, rw, wrow, rn):
+                kernel_step(k, rows, plan, rw, full, rn)
+
+            super()._rowsharded_epoch(rows_all, n_pools, step, tables, 0)
+
+    ds = get_dataset("blogcatalog")
+    cfg = get_config("blogcatalog").replace(**data["cfg"])
+    t = FullWindow(ds.graph, cfg, _mesh(D, M), "cpu")
+    di, mi = t.layout.data_index, t.layout.model_index
+    a, b = t.layout.row_block(t.v_pad)
+    t.params.node_emb.copy_(torch.as_tensor(data["ne"][a:b]))
+    t.params.ctx_emb.copy_(torch.as_tensor(data["ce"][a:b]))
+    pools = torch.as_tensor(data["pools"][di][mi])
+    sharded.sample_alias = lambda accept, alias, gen, shape: pools[:shape[0]]
+    losses = []
+    kernel = sharded.fused_walk_step_prepped
+
+    def spy(*args, **kw):
+        out = kernel(*args, **kw)
+        losses.append((float(out[2]), float(out[3])))
+        return out
+
+    sharded.fused_walk_step_prepped = spy
+    walks = torch.as_tensor(np.concatenate(data["walks"][di], axis=1))
+    t._o1_rowsharded_scan(walks)
+    return {"losses": losses, "overlap": t._overlap_on()}
+
+
+def heavy_tail(rank, world, D, M, cfg_kw, graph_kw):
+    """``tests/test_heavy_tail.py::test_rowsharded_a2a_heavy_tail_capacity``
+    on this rank: the dc-SBM of ``graph_kw`` through the row-sharded walk
+    tier, six O1 epochs, the GMM fit and NMI."""
+    from come_tpu_torch.config import ComEConfig
+    from come_tpu_torch.evaluation import nmi_score
+    from come_tpu_torch.graphs import dc_sbm_graph
+    from come_tpu_torch.parallel import ShardedComETrainer
+
+    g, labels = dc_sbm_graph(**graph_kw)
+    t = ShardedComETrainer(g, ComEConfig(**cfg_kw), _mesh(D, M), "cpu")
+    out = {"tier": t.o1_tier(), "slack": t.cfg.a2a_capacity_slack}
+    out["first"] = t.o1_epoch()
+    out["served_first"] = t.last_o1_served
+    out["losses"] = [t.o1_epoch() for _ in range(5)]
+    out["served"] = t.last_o1_served
+    t.fit_gmm()
+    out["nmi"] = nmi_score(labels, t.communities())
+    return out

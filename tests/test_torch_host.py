@@ -250,3 +250,7 @@ def test_port_imports_without_jax():
     assert {f"come_tpu_torch.{m}" for m in (
         "parallel.exchange", "parallel.walk_exchange",
         "tools.rs_check")} <= names
+    # the quality sweep, its artifact and t-SNE
+    assert {f"come_tpu_torch.{m}" for m in (
+        "tools.eval_sweep", "tools.build_eval_artifact",
+        "evaluation.tsne")} <= names
