@@ -5,7 +5,9 @@
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and prints no result line):
   1. device  — requires CUDA; prints nvidia-smi's name and power limit
-  2. build   — compiles come_tpu_torch/csrc/*.cu for sm_90a (nvcc)
+  2. build   — compiles come_tpu_torch/csrc/*.cu for sm_90a (nvcc); prints
+               nvcc's release and whether the group loops launch under
+               programmatic dependent launch (PDL: CUDA 12.3 or later)
   3. K1      — one BlogCatalog-shaped O1 macro step through the walk kernel
                and through its plain PyTorch version on clones
  3b. K1b     — the same inputs with mxu_bf16 (bf16 product operands)
@@ -52,7 +54,10 @@ non-zero and prints no result line):
                negative and scatter; come_tpu_torch/tools/pass_times.py)
   5. main    — come_tpu_torch.main on --dataset blogcatalog (pretrain 1,
                outer 1) on cuda, with the kernels' launch counters reset
-               just before and read just after
+               just before and read just after; the walk and star kernels'
+               graph counters too (ops/launch_plan.py: every macro step is
+               one recorded graph replayed, at most one instantiation per
+               shape: instantiations <= the shapes that stepped)
   6. K6      — one BlogCatalog-width O1 micro-step (32768 window pairs of
                256 real walks, down_sample 1e-3 masks, KP 512, 32 tiles)
                through the fused SGNS kernel and its plain version
@@ -93,7 +98,7 @@ non-zero and prints no result line):
                emerge between 4 and 6 walk passes per node): O1 through
                K3, O2 through K2, nothing
                else; prints the peak device memory and K3's CAS retries
-Since PR 5, after phase 14:
+After phase 14:
  15. probes  — P2 (tools/probe_smem.py: the shared-memory capacity search,
                which must stop at cudaDevAttrMaxSharedMemoryPerBlockOptin
                and be refused above it with cudaErrorInvalidValue), P3
@@ -103,6 +108,22 @@ Since PR 5, after phase 14:
                version under the bf16 check and every variant against its
                plain version) and P4 (tools/probe_star_floor.py: the seven
                per-group floors, each value exactly its plain version's)
+ 15b. graph  — the macro step as one replayed graph: six consecutive K1, K3
+               and K2 steps through one plan each (graph_steps: lr, the SR
+               seed, walks or star rows, window draws and pools new at
+               every step, the tables moved to new addresses at every other
+               step), each held against its plain version from the same
+               tables under its mode's check, with at most one
+               instantiation and every step recorded and replayed; prints
+               the graph counters of each kernel, the K1, K2 and K3 steps
+               of tools/pass_times.py (ms from an idle card, ms a step over
+               10 in a row, the kernels' device time over the ms, the share
+               of the step's span some kernel covers, the median gap
+               between kernels, the host's ms to enqueue a step in a row,
+               which for K3 must stay under 0.7 of the card's: no step
+               waits for the card) and P4's bare and gather floors with their
+               G launches recorded as one graph and replayed, beside the
+               stream launches (tools/probe_star_floor.py::graph_floor)
  16. parity  — the parity CLI (evaluation/parity.py) on karate, 3
                iterations, on cuda: K1, K5, K2 and K7 rows against the
                numpy oracle; it must return 0
@@ -155,7 +176,8 @@ After phase 17:
                rows in O1 and O2, reach NMI >= 0.8, use the transport its
                backend names, and hash its model shard (and the replicated
                tensors) to the same sha256 as every rank of its model
-               index.  Each rank holds one row-sharded K1 step and one K5
+               index, and (as every rank of 18) instantiate the walk
+               kernel's graph at most once per shape it stepped.  Each rank holds one row-sharded K1 step and one K5
                step (the rows planned and gathered through the exchange,
                the kernel on the compact tables, its plain version on
                clones of the same compact rows) under the f32 check below,
@@ -469,6 +491,184 @@ def bf16_line(err, ms, plain_ms):
             f"plain {plain_ms:.3f} ms")
 
 
+def _graph_step_inputs(mode, dev, g, step, V, W, KP, csr=None):
+    """One step's inputs of graph_steps: walks (or star rows), window draws
+    and pools drawn anew from ``g``."""
+    from come_tpu_torch.ops.walk_sgns import NWL, walks_from_bits
+
+    if mode == "K2":
+        slots, meta = star_edge_layout(V, 12000, "random", V)
+        rows = np.random.default_rng(step).permutation(slots.size // 128)[:24]
+        sl, mt = (torch.as_tensor(a.reshape(-1, 128)[rows], device=dev)
+                  .reshape(-1) for a in (slots, meta))
+        pools = torch.randint(0, V, (3, KP), generator=g, device=dev,
+                              dtype=torch.int32)
+        return sl, mt, pools
+    B, L = 40, 80
+    G = B // 8
+    wrow = torch.randint(1, W + 1, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    pools = torch.randint(0, V, (-(-G // 2), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+    if mode == "K1":
+        walks = torch.randint(0, V, (B, L), generator=g, device=dev,
+                              dtype=torch.int32)
+        return walks, wrow, pools
+    # K3: walks on the large-V path's kind of graph, which revisit few rows
+    starts = torch.randint(0, V, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+    bits = torch.randint(-2**31, 2**31, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return walks_from_bits(starts, bits, csr.indptr, csr.indices, L), wrow, \
+        pools
+
+
+def graph_steps(mode: str, dev, n: int = 6) -> list:
+    """Phase 15b's sequence (and tests/test_torch_cuda.py's): ``n``
+    consecutive steps of K1, K3 or K2 through one launch plan, with lr, the
+    SR seed, the walks (star rows), window draws and pools new at every
+    step and the tables moved to new addresses at every other step; each
+    step is held against its plain version from the same tables under its
+    mode's check (no value of an earlier step may be replayed).  Returns
+    each step's (max_abs, f32 relative error or K3 identical share);
+    raises at the first step past its check."""
+    from come_tpu_torch.graphs import sbm_graph
+    from come_tpu_torch.ops.star_sgns import (
+        star_sgns_step,
+        star_sgns_step_reference,
+    )
+    from come_tpu_torch.ops.tolerance import check_k3
+    from come_tpu_torch.ops.walk_sgns import (
+        walk_sgns_step,
+        walk_sgns_step_reference,
+    )
+
+    V, d, W, KP = (20000 if mode == "K3" else 2000), 128, 10, 512
+    csr = None
+    if mode == "K3":
+        graph, _ = sbm_graph(V, 16, p_in=0.1, p_out=0.002, seed=V,
+                             avg_degree=40)
+        csr = graph.to_device(dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+            for _ in range(1 if mode == "K2" else 2)]
+    if mode == "K3":
+        tabs = [t.to(torch.bfloat16) for t in tabs]
+    errs = []
+    for step in range(n):
+        lr, seed, name = 0.025 * (1.0 + 0.2 * step), 1000 + step, \
+            f"graph {mode} step {step}"
+        if step % 2:
+            moved = [t.clone() for t in tabs]
+            if any(a.data_ptr() == b.data_ptr() for a, b in zip(moved, tabs)):
+                raise AssertionError(f"{name}: the tables did not move")
+            tabs = moved
+        before = [t.clone() for t in tabs]
+        x, y, pools = _graph_step_inputs(mode, dev, g, step, V, W, KP, csr)
+        if mode == "K2":
+            kern = star_sgns_step(tabs[0], x, y, pools, lr, 5.0 / KP,
+                                  pool_refresh=1)
+            plain = star_sgns_step_reference(before[0].clone(), x, y, pools,
+                                             lr, 5.0 / KP, pool_refresh=1)
+            torch.cuda.synchronize()
+            errs.append(compare(name, before, kern, plain)[:2])
+            continue
+        kw = dict(window=W, pool_refresh=2)
+        if mode == "K3":
+            kw["sr_seed"] = seed
+        kern = walk_sgns_step(*tabs, x, y, pools, lr, 5.0 / KP, **kw)
+        plain = walk_sgns_step_reference(
+            *[t.clone() for t in before], x, y, pools, lr, 5.0 / KP, **kw)
+        torch.cuda.synchronize()
+        if mode == "K1":
+            errs.append(compare(name, before, kern, plain)[:2])
+            continue
+        kw.pop("sr_seed")
+        f32 = walk_sgns_step_reference(
+            *[t.float() for t in before], x, y, pools, lr, 5.0 / KP,
+            mxu_bf16=True, **kw)
+        if float(kern[3]) != float(plain[3]) or abs(
+                float(kern[2]) - float(plain[2])) > 1e-4 * abs(float(plain[2])):
+            raise AssertionError(f"{name}: loss {float(kern[2])} vs "
+                                 f"{float(plain[2])}, pairs {float(kern[3])} "
+                                 f"vs {float(plain[3])}")
+        err = check_k3(name, before, kern[:2], plain[:2], f32[:2])
+        errs.append((err[0], err[3]))
+    return errs
+
+
+def graph_line(where: str, counts: dict) -> str:
+    """The walk and star kernels' graph counters (ops/launch_plan.py) of a
+    run, checked: every step recorded and replayed, and at most one
+    instantiation per shape (plan) that stepped."""
+    from come_tpu_torch.ops import launch_plan
+
+    launch_plan.check_counts(where, counts)
+    return "; ".join(
+        f"{e} {c['replays']} replays, {c['instantiations']} instantiations "
+        f"over {c['shapes']} shapes, {c['updates']} updates"
+        for e, c in counts.items() if c["replays"]) or "no graph"
+
+
+def graph_phase(dev, smi: str) -> dict:
+    """Phase 15b (module docstring); raises if a step or a check fails.
+    Returns what the PERF tables read."""
+    from come_tpu_torch.ops import launch_plan
+    from come_tpu_torch.tools import pass_times, probe_star_floor
+
+    seq = {}
+    for mode in ("K1", "K3", "K2"):
+        launch_plan.reset_counts()
+        errs = graph_steps(mode, dev)
+        counts = launch_plan.graph_counts()
+        entry = "star_sgns" if mode == "K2" else "walk_sgns"
+        c = counts[entry]
+        if (c["recordings"], c["replays"], c["shapes"]) != (6, 6, 1):
+            raise AssertionError(f"graph {mode}: counters {c}")
+        seq[mode] = (errs, graph_line(f"graph {mode}", counts))
+    steps = {}
+    for name, step, groups, passes, _, _ in pass_times.steps(dev):
+        if name not in ("K1", "K2", "K3"):
+            continue
+        ms = pass_times.cuda_ms(step)
+        chained = pass_times.chained_ms(step)
+        host = pass_times.enqueue_ms(step)
+        _, total = pass_times.pass_split(step, groups, passes)
+        tl = pass_times.timeline(step, passes)
+        steps[name] = dict(ms=ms, chained_ms=chained, busy=total / (ms * 1e3),
+                           covered=min(tl["covered"]),
+                           gap_us=tl["gap_us"]["median"],
+                           span_us=min(tl["span_us"]), host_ms=host)
+    # no step waits for the card: the host enqueues ten K3 steps (record,
+    # update, launch) in well under the card's time for them (a wait for
+    # the previous replay would make the two equal)
+    k3 = steps["K3"]
+    if k3["host_ms"] > 0.7 * k3["chained_ms"]:
+        raise AssertionError(f"graph: the host took {k3['host_ms']:.3f} ms "
+                             f"to enqueue a K3 step the card ran in "
+                             f"{k3['chained_ms']:.3f} ms")
+    floors = probe_star_floor.graph_floor(dev, log=lambda m: None)
+    phase("graph", (
+        f"{smi} | 6 steps each through one plan, held step by step: " +
+        "; ".join(f"{m} worst " + (
+            f"max_abs {max(e[0] for e in errs):.3e}, identical "
+            f"{min(e[1] for e in errs):.5f}" if m == "K3" else
+            f"max_abs {max(e[0] for e in errs):.3e}, max_rel "
+            f"{max(e[1] for e in errs):.3e}") + f" ({line})"
+            for m, (errs, line) in seq.items()) + " | steps (pass_times): " +
+        "; ".join(f"{k} {v['ms']:.3f} ms from idle, {v['chained_ms']:.3f} ms "
+                  f"a step in a row, busy {v['busy']:.1%}, covered "
+                  f"{v['covered']:.1%} of a {v['span_us']:.1f} us span, "
+                  f"median gap {v['gap_us']:.3f} us, host {v['host_ms']:.3f} "
+                  "ms a step enqueued in a row"
+                  for k, v in steps.items()) + " | P4 us/group, stream vs "
+        "graph replay: " + "; ".join(
+            f"{k} stream " + ", ".join(f"{t:.2f}" for t in v["stream"]) +
+            " graph " + ", ".join(f"{t:.2f}" for t in v["graph"])
+            for k, v in floors.items())))
+    return {"steps": steps, "floors": floors}
+
+
 def _torchrun(tag, n, module, args, timeout):
     """``python -m torch.distributed.run --standalone`` of ``module`` on
     ``n`` ranks, each writing ``rank<r>.json`` to a temporary directory, in
@@ -524,6 +724,7 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
                                                 "star-o2-dp"):
                 raise AssertionError(f"dp ({tag}): tiers {r['o1_tier']}, "
                                      f"{r['o2_tier']}")
+            graph_line(f"dp ({tag}) rank {r['rank']}", r["graphs"])
         hashes = {(r["hash"], r["hash_after"]) for r in ranks}
         if len(hashes) != 1:
             raise AssertionError(f"dp ({tag}): replicas differ: {hashes}")
@@ -563,8 +764,8 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
             f"{r0['gmm_ab_ms']['single']:.1f}), o2 {r0['o2_ms']:.1f} ms | "
             f"replicas "
             f"bit-identical (sha256 {r0['hash']}, {r0['hash_after']}) | "
-            f"launches per rank {[r['launches'] for r in ranks]}" + held
-            + note))
+            f"launches per rank {[r['launches'] for r in ranks]} | graphs, "
+            f"rank 0: {graph_line('dp', r0['graphs'])}" + held + note))
 
 
 def rs_phase(main_o1_ms: float) -> None:
@@ -602,6 +803,7 @@ def rs_phase(main_o1_ms: float) -> None:
             if min(r["o1_served"], r["o2_served"]) < 0.999:
                 raise AssertionError(f"{who}: served {r['o1_served']}, "
                                      f"{r['o2_served']}")
+            graph_line(who, r["graphs"])
             for ep in ("o1", "o2"):
                 if r[ep]["transport"] != way:
                     raise AssertionError(f"{who}: {ep} exchange over "
@@ -660,6 +862,7 @@ def rs_phase(main_o1_ms: float) -> None:
             f"{per_step('o1')}; {per_step('o2')} | model shards "
             "bit-identical across 'data' | launches per rank "
             f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
+            f" | graphs, rank 0: {graph_line('rs', r0['graphs'])}"
             + held + f" | {secs:.1f} s of run" + note))
 
 
@@ -826,9 +1029,12 @@ def main() -> int:
         "floor_probe": (floor_probe, "launches"),
     }
 
+    from come_tpu_torch.ops import launch_plan
+
     def reset_counts():
         for fn, attr in kernels.values():
             setattr(fn, attr, 0)
+        launch_plan.reset_counts()
 
     def counts():
         return {name: getattr(fn, attr)
@@ -845,8 +1051,13 @@ def main() -> int:
 
     # 2. build
     path, secs = build.build(verbose=True)
-    build.library()
-    phase("build", f"{path.name} built in {secs:.2f} s (nvcc, sm_90a)")
+    lib = build.library()
+    phase("build", f"{path.name} built in {secs:.2f} s (nvcc release "
+                   f"{build.nvcc_release()}, runtime "
+                   f"{lib.come_cudart_version()}, sm_90a) | group loops "
+                   "recorded as graphs, PDL between passes " + (
+                       "on" if lib.come_pdl_enabled() else
+                       "off (the toolkit is older than 12.3)"))
 
     # 3. K1 at the BlogCatalog preset's shapes
     ds = get_dataset("blogcatalog")
@@ -1439,6 +1650,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
+    main_graphs = graph_line("main path", launch_plan.graph_counts())
     rec = hist[-1]
     check_launches("main path", launches, ("walk_sgns", "star_sgns"),
                    ("fused_sgns", "fused_sgns_tied", "walk_sgns_bf16",
@@ -1460,7 +1672,7 @@ def main() -> int:
                   f"o2 {rec['o2_ms']:.1f} ms, o3 {rec['o3_ms']:.1f} ms | "
                   f"o1_pairs {rec['o1_pairs']:.0f} o2_pairs "
                   f"{rec['o2_pairs']:.0f} | NMI {rec['nmi']:.4f} | "
-                  f"launches {launches}")
+                  f"launches {launches} | graphs: {main_graphs}")
     del trainer
     torch.cuda.empty_cache()
 
@@ -1946,6 +2158,9 @@ def main() -> int:
                     f"P4 floors (us/group) " + ", ".join(
                         f"{k} {v[0]:.2f}" for k, v in p4["variants"].items())
           + f" | launches {probe_launches}")
+
+    # 15b. the macro step as one replayed graph
+    graph_phase(dev, smi)
 
     # 16. the parity harness's CLI on the card
     from come_tpu_torch.evaluation import parity

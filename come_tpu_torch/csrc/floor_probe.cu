@@ -26,8 +26,14 @@
 //
 // What bounds it: launches.  The streams are a few KB a group; the copy
 // and the gather are bytes (2 V d 4 bytes once, 1024 d 4 a group).
+//
+// come_floor_probe_record records a variant's whole loop (its G launches)
+// as one CUDA graph (step_graph.cuh), which come_step_graph_launch then
+// replays: the floor a group pays when the group loops replay a step, as
+// walk_sgns.cu and star_sgns.cu do, beside the stream launches'.
 
 #include "probe_rows.cuh"
+#include "step_graph.cuh"
 
 #define FLOOR_CHECK_LAUNCH()                      \
   do {                                            \
@@ -85,12 +91,13 @@ __global__ void copy_kernel(const float4* __restrict__ src,
     dst[i] = src[i];
 }
 
+// `setup`: set the gather's shared-memory cap first (not while recording).
 template <int VAR>
 int floor_groups(const int* slots, const int* pool, const float* scal,
                  const int* meta, const float* emb, float* table, float* phi,
                  float* stats, unsigned* sinks, int G, int V, int d,
-                 cudaStream_t stream) {
-  if (VAR == 6) {
+                 cudaStream_t stream, bool setup = true) {
+  if (VAR == 6 && setup) {
     const cudaError_t e = come::rows_allow_smem<32>(d);
     if (e != cudaSuccess) return (int)e;
   }
@@ -114,6 +121,24 @@ int floor_groups(const int* slots, const int* pool, const float* scal,
   return 0;
 }
 
+// The loop of variant `variant` (1-7) on `stream`.
+int floor_run(int variant, const int* slots, const int* pool,
+              const float* scal, const int* meta, const float* emb,
+              float* table, float* phi, float* stats, unsigned* sinks, int G,
+              int V, int d, cudaStream_t s, bool setup) {
+  if (G < 1 || d % 4) return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case 1: return floor_groups<1>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s, setup);
+    case 2: return floor_groups<2>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s, setup);
+    case 3: return floor_groups<3>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s, setup);
+    case 4: return floor_groups<4>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s, setup);
+    case 5: return floor_groups<5>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s, setup);
+    case 6: return floor_groups<6>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s, setup);
+    case 7: return floor_groups<7>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s, setup);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // One run of variant `variant` (1-7, above) over G groups.  Device
@@ -127,16 +152,31 @@ extern "C" int come_floor_probe(int variant, const int* slots, const int* pool,
                                 const float* emb, float* table, float* phi,
                                 float* stats, unsigned* sinks, int G, int V,
                                 int d, void* stream_ptr) {
-  cudaStream_t s = (cudaStream_t)stream_ptr;
-  if (G < 1 || d % 4) return (int)cudaErrorInvalidValue;
-  switch (variant) {
-    case 1: return floor_groups<1>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s);
-    case 2: return floor_groups<2>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s);
-    case 3: return floor_groups<3>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s);
-    case 4: return floor_groups<4>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s);
-    case 5: return floor_groups<5>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s);
-    case 6: return floor_groups<6>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s);
-    case 7: return floor_groups<7>(slots, pool, scal, meta, emb, table, phi, stats, sinks, G, V, d, s);
-    default: return (int)cudaErrorInvalidValue;
+  return floor_run(variant, slots, pool, scal, meta, emb, table, phi, stats,
+                   sinks, G, V, d, (cudaStream_t)stream_ptr, true);
+}
+
+// The same run recorded into the graph slot `graph` (come_step_graph_new):
+// instantiated at the slot's first recording, updated at a later one, and
+// launched once on `stream`; come_step_graph_launch replays it.  Returns 0
+// or the first CUDA error code.
+extern "C" int come_floor_probe_record(void* graph, int variant,
+                                       const int* slots, const int* pool,
+                                       const float* scal, const int* meta,
+                                       const float* emb, float* table,
+                                       float* phi, float* stats,
+                                       unsigned* sinks, int G, int V, int d,
+                                       void* stream_ptr) {
+  come::StepGraph* p = static_cast<come::StepGraph*>(graph);
+  if (p == nullptr || G < 1 || d % 4) return (int)cudaErrorInvalidValue;
+  if (variant == 6) {
+    const cudaError_t e = come::rows_allow_smem<32>(d);
+    if (e != cudaSuccess) return (int)e;
   }
+  return come::replay_step(p, p->exec == nullptr, (cudaStream_t)stream_ptr,
+                           [&](cudaStream_t cap) {
+                             return floor_run(variant, slots, pool, scal, meta,
+                                              emb, table, phi, stats, sinks, G,
+                                              V, d, cap, false);
+                           });
 }

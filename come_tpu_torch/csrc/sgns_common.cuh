@@ -54,6 +54,24 @@
 // them with rmw_bf16_pair: one read-modify-write per slot and element pair,
 // each half rounded by its own 16 random bits as the TPU's _pack_row does
 // (pallas_walk_sgns.py:76-88), or truncated without them.
+//
+// Programmatic dependent launch (PDL).  The group loops (walk_sgns.cu,
+// star_sgns.cu) record a macro step as one CUDA graph (step_graph.cuh) and
+// launch every kernel after the first with launch_kernel(pdl = true): the
+// card may then start a kernel while the one before it drains.  Every
+// kernel a loop launches keeps one rule: each CTA calls pdl_wait() on every
+// path before it touches global memory that an earlier kernel of the step
+// writes or reads (tables, cneg, dneg, dphi, dctx, nt, stats) and before it
+// exits, and calls pdl_trigger() once its last such write is issued.  Since
+// no CTA can trigger (or exit) before its wait returns, a kernel starts only
+// once every kernel two or more places before it has completed, and its
+// wait returns only once the one just before it has.  What a kernel does
+// before its wait reads only inputs no kernel of the step writes (walks,
+// window draws, pools, star slots and meta, parameters; K4's generated walks
+// are written by the step's first kernel, complete before the third
+// starts), into registers and shared memory.  Each kernel's note says where
+// its wait stands.  A kernel launched without the attribute (K6/K7's and
+// P3's stream launches) returns from pdl_wait() at once.
 
 #pragma once
 
@@ -72,6 +90,21 @@ constexpr int THREADS = 256;   // 8 warps
 constexpr int NWARPS = THREADS / 32;
 constexpr int KMAX = 8;        // d <= 32 * KMAX for per-lane accumulators
 constexpr int MAX_DIM = 192;   // shared-memory bound of the kernels below
+
+// PDL's two sides (the note above): wait until the kernels this one depends
+// on have completed and their writes are visible; let the next kernel in
+// the stream launch once every CTA of this one has triggered or exited.
+static __device__ __forceinline__ void pdl_wait() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+static __device__ __forceinline__ void pdl_trigger() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+#endif
+}
 
 static __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -257,7 +290,8 @@ static __device__ __forceinline__ void atomic_add4(float* row, int d, int c,
 }
 
 // cneg[k] = table[pool[k]] (widened to f32); dneg[k] = 0.
-// grid KP, block 128.
+// grid KP, block 128.  PDL: the pool id is read before the wait; the table
+// row (the last scatter's) and cneg/dneg (the last block's passes) after.
 template <typename T>
 static __global__ void stage_pool_kernel(const T* __restrict__ table,
                                          const int* __restrict__ pool,
@@ -265,22 +299,27 @@ static __global__ void stage_pool_kernel(const T* __restrict__ table,
                                          float* __restrict__ dneg, int d) {
   const int k = blockIdx.x;
   const size_t src = (size_t)pool[k] * d, dst = (size_t)k * d;
+  pdl_wait();
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
     cneg[dst + j] = to_f32(table[src + j]);
     dneg[dst + j] = 0.0f;
   }
+  pdl_trigger();
 }
 
 // table[pool[k]] -= lr * dneg[k], atomic: a pool may repeat a row.
-// grid KP, block 128.
+// grid KP, block 128.  PDL: the pool id before the wait; dneg (the negative
+// pass's) and the table row (the scatter's) after.
 static __global__ void apply_pool_kernel(float* __restrict__ table,
                                          const int* __restrict__ pool,
                                          const float* __restrict__ dneg,
                                          int d, float lr) {
   const int k = blockIdx.x;
   const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
+  pdl_wait();
   for (int j = threadIdx.x; j < d; j += blockDim.x)
     atomicAdd(&table[dst + j], -lr * dneg[src + j]);
+  pdl_trigger();
 }
 
 // K3's pool write at a block end: table[pool[k]] += -lr * dneg[k] as one
@@ -290,6 +329,7 @@ static __global__ void apply_pool_kernel(float* __restrict__ table,
 // counter range past the group's 1024 slots (the TPU reads its 1024-row
 // draw buffer at row k, pallas_walk_sgns.py:418 against :603, past its end
 // for KP > 1024).  Adds the CAS retries to *retries.  grid KP, block 64.
+// PDL: as apply_pool_kernel.
 template <bool SR>
 static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* __restrict__ table,
                                               const int* __restrict__ pool,
@@ -299,6 +339,7 @@ static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* __restrict__ table,
   const int k = blockIdx.x;
   const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
   const unsigned key = SR ? sr_key(seed, (unsigned)g) : 0u;
+  pdl_wait();
   unsigned n = 0;
   for (int j = 2 * threadIdx.x; j < d; j += 2 * blockDim.x) {
     unsigned r0 = 0, r1 = 0;
@@ -310,6 +351,7 @@ static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* __restrict__ table,
     n += rmw_bf16_pair(table + dst + j, __fmul_rn(dneg[src + j], -lr),
                        __fmul_rn(dneg[src + j + 1], -lr), r0, r1);
   }
+  pdl_trigger();
   if (n) atomicAdd(retries, (double)n);
 }
 
@@ -368,7 +410,9 @@ static inline size_t negative_f32_smem_bytes(int d) {
 // rank order, and adds the sum once: few rounded adds, in a fixed order,
 // where one atomic add per CTA would round each partial at the running
 // sum's magnitude.  A tile whose slots all have nt = 0 returns at once
-// (every CTA of its cluster).
+// (every CTA of its cluster).  PDL: the tile's slot ids are read before the
+// wait; cneg (pool staging), nt (the positive pass), the table rows (the
+// last scatter) and dphi/dneg after; it triggers once dphi is merged.
 template <int NP>
 static __global__ void __launch_bounds__(NEG_THREADS, NP == 2 ? 3 : 2)
 negative_f32_kernel(const float* __restrict__ table,
@@ -393,6 +437,8 @@ negative_f32_kernel(const float* __restrict__ table,
     };
   };
   constexpr int CU = 4 * NP;  // a chunk's float4 pieces per thread
+  if (t < NEG_MS) rows[t] = ids[base + t];
+  pdl_wait();
   float4 next[CU];
   load_batch<NEG_THREADS, CU, float>(next, t, NEG_KC, d, dp,
                                      pool_row(blockIdx.y));
@@ -400,7 +446,6 @@ negative_f32_kernel(const float* __restrict__ table,
   if (t < NEG_MS) {
     own = nt[base + t];
     nts[t] = own;
-    rows[t] = ids[base + t];
   }
   if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
   stage_rows<NEG_THREADS, 8, float>(
@@ -558,6 +603,7 @@ negative_f32_kernel(const float* __restrict__ table,
     atomic_add4(dphi + (size_t)(base + i) * d, d, c,
                 make_float4((float)x, (float)y, (float)z, (float)w));
   }
+  pdl_trigger();
   cluster.sync();  // no CTA leaves while another reads its partial
   block_add<NEG_THREADS>(loss, &stats[0]);
 }
@@ -676,7 +722,7 @@ static __device__ __forceinline__ void red_tile(float* out, int d, int r,
 // chunks, merged once at the end; rows with nt = 0 get exactly no update),
 // and of each chunk's dneg the 16 pool rows 16 (w & 1) and half of d's
 // columns (w >> 1).  The next chunk's rows are loaded into registers while
-// the current one is computed.
+// the current one is computed.  PDL: as negative_f32_kernel.
 template <int NTILE, typename T>
 static __global__ void __launch_bounds__(NEG_THREADS, NTILE == 16 ? 3 : 2)
 negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
@@ -712,14 +758,13 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
     *reinterpret_cast<uint2*>(m) = u;
   };
   constexpr int CU = NTILE / 2;  // a chunk's pieces per thread
+  if (threadIdx.x < NEG_MS) rows[threadIdx.x] = ids[base + threadIdx.x];
+  pdl_wait();
   float4 next[CU];
   load_batch<NEG_THREADS, CU, float>(next, threadIdx.x, NEG_KC, d, dp,
                                      pool_row(blockIdx.y));
 
-  if (threadIdx.x < NEG_MS) {
-    rows[threadIdx.x] = ids[base + threadIdx.x];
-    nts[threadIdx.x] = nt[base + threadIdx.x];
-  }
+  if (threadIdx.x < NEG_MS) nts[threadIdx.x] = nt[base + threadIdx.x];
   __syncthreads();
   stage_rows<NEG_THREADS, 8, T>(
       NEG_MS, d, dp, [&](int i) { return table + (size_t)rows[i] * d; },
@@ -831,40 +876,94 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
     if (n >= ntiles) break;
     red_tile(dphi + (size_t)base * d, d, ir, ok, ok8, 8 * n + fc, acc[n]);
   }
+  pdl_trigger();
   block_add<NEG_THREADS>(loss, &stats[0]);
 }
 
-// The negative pass of one instance: init() once per call (checks the
-// shapes, sets the kernel's shared memory, sizes the grid), then launch()
-// once per group or tile of `nslots` slots.
-template <bool BF16, typename T>
-struct NegativePass {
-  static_assert(BF16 || std::is_same<T, float>::value,
-                "bf16 tables take the bf16 pass");
+// PDL edges need CUDA 12.3 or later where the step is recorded as a graph;
+// below it the loops launch without the attribute (come_pdl_enabled()).
+#if CUDART_VERSION >= 12030
+#define COME_PDL 1
+#else
+#define COME_PDL 0
+#endif
+
+// Launches `kernel` on `stream`, as <<<grid, block, smem, stream>>> would,
+// with programmatic dependent launch when `pdl` (and COME_PDL) is set: the
+// kernel may then start while the one before it in the stream drains, and
+// must keep the rule of this file's note.  `cluster` > 0 launches it in
+// clusters of that many CTAs along y.  Returns the launch's error.
+template <typename... P, typename... A>
+static cudaError_t launch_kernel(void (*kernel)(P...), dim3 grid, dim3 block,
+                                 size_t smem, cudaStream_t stream, bool pdl,
+                                 int cluster, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  unsigned n = 0;
+  if (cluster > 0) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = 1;
+    attr[n].val.clusterDim.y = cluster;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl && COME_PDL) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// What sizing a negative pass finds: its grid, shared memory and pool
+// splits, and (f32) its cluster size.  A recorded step keeps one
+// (step_graph.cuh), so the sizing runs once per plan, not per step.
+struct NegSetup {
   dim3 grid;
   size_t smem = 0;
   int ny = 1;
   int cluster = 1;  // CTAs along y that merge dphi on chip (f32)
+};
+
+// The negative pass of one instance: init() (checks the shapes, sets the
+// kernel's shared memory, sizes the grid), then launch() once per group or
+// tile of `nslots` slots.
+template <bool BF16, typename T>
+struct NegativePass : NegSetup {
+  static_assert(BF16 || std::is_same<T, float>::value,
+                "bf16 tables take the bf16 pass");
 
   cudaError_t init(int d, int KP, int nslots) {
     if (d < 1 || d > MAX_DIM || KP < 1 || nslots % NEG_MS)
       return cudaErrorInvalidValue;
     smem = BF16 ? negative_bf16_smem_bytes(d) : negative_f32_smem_bytes(d);
+    // the cap is the template's largest d (128 or MAX_DIM), so plans of
+    // other widths on one instance never lower it below what they launch
+    const int top = d <= 128 ? 128 : MAX_DIM;
+    const size_t cap =
+        BF16 ? negative_bf16_smem_bytes(top) : negative_f32_smem_bytes(top);
     if constexpr (BF16)
-      return d <= 128 ? size(negative_bf16_kernel<16, T>, d, KP, nslots)
-                      : size(negative_bf16_kernel<24, T>, d, KP, nslots);
+      return d <= 128 ? size(negative_bf16_kernel<16, T>, cap, KP, nslots)
+                      : size(negative_bf16_kernel<24, T>, cap, KP, nslots);
     else
-      return d <= 128 ? size(negative_f32_kernel<2>, d, KP, nslots)
-                      : size(negative_f32_kernel<3>, d, KP, nslots);
+      return d <= 128 ? size(negative_f32_kernel<2>, cap, KP, nslots)
+                      : size(negative_f32_kernel<3>, cap, KP, nslots);
   }
 
-  // Sets the kernel's shared memory and sizes the grid to the CTAs of it
-  // that fit on the card at once (its occupancy times the SMs; for the f32
-  // pass, whole clusters: a cluster's CTAs share one GPC, so fewer may fit).
+  // Sets the kernel's shared-memory cap and sizes the grid to the CTAs of
+  // it that fit on the card at once (its occupancy times the SMs; for the
+  // f32 pass, whole clusters: a cluster's CTAs share one GPC, so fewer may
+  // fit).
   template <typename K>
-  cudaError_t size(K kernel, int d, int KP, int nslots) {
+  cudaError_t size(K kernel, size_t cap, int KP, int nslots) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cap);
     int dev = 0, sms = 0, per_sm = 0;
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -910,27 +1009,29 @@ struct NegativePass {
     return cfg;
   }
 
-  void launch(const T* table, const int* ids, const float* nt,
-              const float* cneg, int d, int KP, float negw, float* dphi,
-              float* dneg, double* stats, cudaStream_t stream) const {
-    if constexpr (BF16) {
-      if (d <= 128)
-        negative_bf16_kernel<16, T><<<grid, NEG_THREADS, smem, stream>>>(
-            table, ids, nt, cneg, d, KP, ny, negw, dphi, dneg, stats);
-      else
-        negative_bf16_kernel<24, T><<<grid, NEG_THREADS, smem, stream>>>(
-            table, ids, nt, cneg, d, KP, ny, negw, dphi, dneg, stats);
-    } else {
-      cudaLaunchAttribute attr;
-      const cudaLaunchConfig_t cfg = config(grid, stream, attr);
-      // a refused launch sets the error the caller's COME_CHECK_LAUNCH reads
-      if (d <= 128)
-        cudaLaunchKernelEx(&cfg, negative_f32_kernel<2>, table, ids, nt, cneg,
-                           d, KP, ny, negw, dphi, dneg, stats);
-      else
-        cudaLaunchKernelEx(&cfg, negative_f32_kernel<3>, table, ids, nt, cneg,
-                           d, KP, ny, negw, dphi, dneg, stats);
-    }
+  // Launches the pass on `stream` (with PDL when `pdl`); returns the
+  // launch's error.
+  cudaError_t launch(const T* table, const int* ids, const float* nt,
+                     const float* cneg, int d, int KP, float negw, float* dphi,
+                     float* dneg, double* stats, cudaStream_t stream,
+                     bool pdl = false) const {
+    const dim3 b(NEG_THREADS);
+    if constexpr (BF16)
+      return d <= 128
+                 ? launch_kernel(negative_bf16_kernel<16, T>, grid, b, smem,
+                                 stream, pdl, 0, table, ids, nt, cneg, d, KP,
+                                 ny, negw, dphi, dneg, stats)
+                 : launch_kernel(negative_bf16_kernel<24, T>, grid, b, smem,
+                                 stream, pdl, 0, table, ids, nt, cneg, d, KP,
+                                 ny, negw, dphi, dneg, stats);
+    else
+      return d <= 128
+                 ? launch_kernel(negative_f32_kernel<2>, grid, b, smem, stream,
+                                 pdl, cluster, table, ids, nt, cneg, d, KP, ny,
+                                 negw, dphi, dneg, stats)
+                 : launch_kernel(negative_f32_kernel<3>, grid, b, smem, stream,
+                                 pdl, cluster, table, ids, nt, cneg, d, KP, ny,
+                                 negw, dphi, dneg, stats);
   }
 };
 

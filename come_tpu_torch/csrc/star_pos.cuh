@@ -52,7 +52,10 @@ static inline size_t star_pos_smem_bytes(int d) {
 // and nt for the slots of those segments and for the strip's pads, zeroes
 // their rows of dphin unless it is null (the negative pass then adds to
 // it), and adds their positive loss (-log sigmoid(s) once per ordered pair)
-// and pair count to stats.  BF16 rounds the staged rows and g.
+// and pair count to stats.  BF16 rounds the staged rows and g.  PDL
+// (sgns_common.cuh): the row's meta and slots, its segment bounds and hubs
+// are found before the wait; the pads' zeros (rows the last scatter reads),
+// the table (the last scatter's) and every write after it.
 template <bool BF16>
 static __global__ void __launch_bounds__(STAR_THREADS)
 star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
@@ -92,6 +95,7 @@ star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
     }
   }
   hub[t] = h;
+  pdl_wait();
 
   // the strip's pads: zeros
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -185,12 +189,14 @@ star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
     nt[base + u] = n;
     pairs += n;
   }
+  pdl_trigger();
   block_add<STAR_THREADS>(loss, &stats[0]);
   block_add<STAR_THREADS>(pairs, &stats[1]);
 }
 
-// The star pass of one instance: init() once per call (checks d, sets the
-// kernel's shared memory), then launch() once per group of 8 rows.
+// The star pass of one instance: init() (checks d, sets the kernel's
+// shared-memory cap to what MAX_DIM needs, so a plan of another width never
+// lowers it), then launch() once per group of 8 rows.
 template <bool BF16>
 struct StarPosPass {
   size_t smem = 0;
@@ -200,15 +206,18 @@ struct StarPosPass {
     smem = star_pos_smem_bytes(d);
     return cudaFuncSetAttribute(star_pos_kernel<BF16>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
+                                (int)star_pos_smem_bytes(MAX_DIM));
   }
 
-  void launch(const float* emb, const int* slots, const int* meta, int d,
-              float* dphi, float* dphin, float* nt, double* stats,
-              cudaStream_t stream) const {
-    star_pos_kernel<BF16><<<dim3(STAR_NSTRIP, NBLK), STAR_THREADS, smem,
-                            stream>>>(emb, slots, meta, d, dphi, dphin, nt,
-                                      stats);
+  // Launches the pass on `stream` (with PDL when `pdl`); returns the
+  // launch's error.
+  cudaError_t launch(const float* emb, const int* slots, const int* meta,
+                     int d, float* dphi, float* dphin, float* nt,
+                     double* stats, cudaStream_t stream,
+                     bool pdl = false) const {
+    return launch_kernel(star_pos_kernel<BF16>, dim3(STAR_NSTRIP, NBLK),
+                         dim3(STAR_THREADS), smem, stream, pdl, 0, emb, slots,
+                         meta, d, dphi, dphin, nt, stats);
   }
 };
 

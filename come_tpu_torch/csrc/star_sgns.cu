@@ -27,15 +27,21 @@
 // block.  The negative pass is the walk kernel's (sgns_common.cuh: FFMA
 // for K2, the tensor cores for K2b).  K2b's star pass rounds the staged
 // rows and each pair's g as they are made, a few conversions per element.
+// The group loop is recorded as one CUDA graph that the card replays
+// (step_graph.cuh), each kernel after the first under programmatic
+// dependent launch (sgns_common.cuh).
 
 #include "sgns_common.cuh"
 #include "star_pos.cuh"
+#include "step_graph.cuh"
 
 namespace come {
 
 // emb[slots[t]] -= lr * (dphi[t] + dphin[t]) for slots with pairs (the
 // others carry exactly zero updates): the positive and the negative part
 // add once here, as the plain version adds them.  grid GROUP, block 128.
+// PDL (sgns_common.cuh): it waits first, since whether the slot has pairs
+// (nt) is the star pass's; dphi, dphin and the table after.
 static __global__ void star_scatter_kernel(float* __restrict__ emb,
                                            const int* __restrict__ slots,
                                            const float* __restrict__ dphi,
@@ -43,54 +49,91 @@ static __global__ void star_scatter_kernel(float* __restrict__ emb,
                                            const float* __restrict__ nt, int d,
                                            float lr) {
   const int t = blockIdx.x;
+  pdl_wait();
   if (nt[t] == 0.0f) return;
   const size_t dst = (size_t)slots[t] * d, src = (size_t)t * d;
   for (int k = threadIdx.x; k < d; k += blockDim.x)
     atomicAdd(&emb[dst + k], -lr * (dphi[src + k] + dphin[src + k]));
+  pdl_trigger();
 }
 
+// The group loop of one step, launched on `stream` (the recording stream),
+// every kernel after the first under PDL.
 template <bool BF16>
-static int star_groups(float* emb, const int* slots, const int* meta,
-                       const int* pools, double* stats, float* cneg,
-                       float* dneg, float* dphi, float* nt, int d, int G,
-                       int KP, int R, float lr, float negw,
+static int star_groups(const NegSetup& ns, float* emb, const int* slots,
+                       const int* meta, const int* pools, double* stats,
+                       float* cneg, float* dneg, float* dphi, float* nt, int d,
+                       int G, int KP, int R, float lr, float negw,
                        cudaStream_t stream) {
-  if (d > MAX_DIM || R < 1) return (int)cudaErrorInvalidValue;
   StarPosPass<BF16> pos;
-  cudaError_t e = pos.init(d);
-  if (e != cudaSuccess) return (int)e;
+  pos.smem = star_pos_smem_bytes(d);
   NegativePass<BF16, float> neg;
-  e = neg.init(d, KP, GROUP);
-  if (e != cudaSuccess) return (int)e;
+  static_cast<NegSetup&>(neg) = ns;
   float* dphin = dphi + (size_t)GROUP * d;  // the negative pass's part
+  cudaError_t e;
   for (int g = 0; g < G; ++g) {
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* sg = slots + (size_t)g * GROUP;
     if (g % R == 0) {
-      stage_pool_kernel<<<KP, 128, 0, stream>>>(emb, pool, cneg, dneg, d);
-      COME_CHECK_LAUNCH();
+      e = launch_kernel(stage_pool_kernel<float>, dim3(KP), dim3(128), 0,
+                        stream, g > 0, 0, emb, pool, cneg, dneg, d);
+      if (e != cudaSuccess) return (int)e;
     }
-    pos.launch(emb, sg, meta + (size_t)g * GROUP, d, dphi, dphin, nt, stats,
-               stream);
-    COME_CHECK_LAUNCH();
-    neg.launch(emb, sg, nt, cneg, d, KP, negw, dphin, dneg, stats, stream);
-    COME_CHECK_LAUNCH();
-    star_scatter_kernel<<<GROUP, 128, 0, stream>>>(emb, sg, dphi, dphin, nt,
-                                                   d, lr);
-    COME_CHECK_LAUNCH();
+    e = pos.launch(emb, sg, meta + (size_t)g * GROUP, d, dphi, dphin, nt,
+                   stats, stream, true);
+    if (e != cudaSuccess) return (int)e;
+    e = neg.launch(emb, sg, nt, cneg, d, KP, negw, dphin, dneg, stats, stream,
+                   true);
+    if (e != cudaSuccess) return (int)e;
+    e = launch_kernel(star_scatter_kernel, dim3(GROUP), dim3(128), 0, stream,
+                      true, 0, emb, sg, dphi, dphin, nt, d, lr);
+    if (e != cudaSuccess) return (int)e;
     if (g % R == R - 1 || g == G - 1) {
-      apply_pool_kernel<<<KP, 128, 0, stream>>>(emb, pool, dneg, d, lr);
-      COME_CHECK_LAUNCH();
+      e = launch_kernel(apply_pool_kernel, dim3(KP), dim3(128), 0, stream,
+                        true, 0, emb, pool, dneg, d, lr);
+      if (e != cudaSuccess) return (int)e;
     }
   }
   return 0;
+}
+
+// One step in one mode: checks the shapes, sets the kernels up at the
+// plan's first step (the star pass's shared-memory cap, the negative pass's
+// sizing), then records the step and replays it (step_graph.cuh).
+template <bool BF16>
+static int star_step(StepGraph* p, int instantiate, float* emb,
+                     const int* slots, const int* meta, const int* pools,
+                     double* stats, float* cneg, float* dneg, float* dphi,
+                     float* nt, int d, int G, int KP, int R, float lr,
+                     float negw, cudaStream_t stream) {
+  if (p == nullptr || d < 1 || d > MAX_DIM || G < 1 || R < 1)
+    return (int)cudaErrorInvalidValue;
+  if (p->mode < 0) {
+    StarPosPass<BF16> pos;
+    cudaError_t e = pos.init(d);
+    if (e != cudaSuccess) return (int)e;
+    NegativePass<BF16, float> neg;
+    e = neg.init(d, KP, GROUP);
+    if (e != cudaSuccess) return (int)e;
+    p->neg = neg;
+    p->mode = BF16;
+  } else if (p->mode != (int)BF16) {
+    return (int)cudaErrorInvalidValue;  // a plan serves one mode
+  }
+  return replay_step(p, instantiate, stream, [&](cudaStream_t cap) {
+    return star_groups<BF16>(p->neg, emb, slots, meta, pools, stats, cneg,
+                             dneg, dphi, nt, d, G, KP, R, lr, negw, cap);
+  });
 }
 
 }  // namespace come
 
 using namespace come;
 
-// One O2 macro step over G groups.  All buffers are device pointers:
+// One O2 macro step over G groups, recorded into the plan's graph slot
+// `graph` (come_step_graph_new) and replayed on `stream`: instantiate != 0
+// at the plan's first step, 0 at every later one.  All buffers are device
+// pointers:
 //   emb          [V, d] f32 (updated in place)
 //   slots, meta  [G * 1024] i32 (meta -2 at pads)
 //   pools        [ceil(G / R), KP] i32
@@ -98,18 +141,22 @@ using namespace come;
 //   cneg, dneg   [KP, d] f32 scratch;  nt [1024] f32 scratch
 //   dphi         [2, 1024, d] f32 scratch: the star pass's part of each
 //                slot's update, then the negative pass's
-// bf16 != 0 selects K2b's rounding.
-// Returns 0 or the first CUDA error code.  Launches on `stream`, does not
-// synchronise and allocates nothing.
-extern "C" int come_star_sgns_step(float* emb, const int* slots,
-                                   const int* meta, const int* pools,
-                                   double* stats, float* cneg, float* dneg,
-                                   float* dphi, float* nt, int d, int G, int KP,
-                                   int R, int bf16, float lr, float negw,
+// bf16 != 0 selects K2b's rounding; a plan serves one mode and one
+// (d, KP).  Returns 0 or the first CUDA error code.  Enqueues only: it does
+// not synchronise and allocates no device memory.
+extern "C" int come_star_sgns_step(void* graph, int instantiate, float* emb,
+                                   const int* slots, const int* meta,
+                                   const int* pools, double* stats,
+                                   float* cneg, float* dneg, float* dphi,
+                                   float* nt, int d, int G, int KP, int R,
+                                   int bf16, float lr, float negw,
                                    void* stream_ptr) {
+  StepGraph* p = static_cast<StepGraph*>(graph);
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  return bf16 ? star_groups<true>(emb, slots, meta, pools, stats, cneg, dneg,
-                                  dphi, nt, d, G, KP, R, lr, negw, stream)
-              : star_groups<false>(emb, slots, meta, pools, stats, cneg, dneg,
-                                   dphi, nt, d, G, KP, R, lr, negw, stream);
+  return bf16 ? star_step<true>(p, instantiate, emb, slots, meta, pools,
+                                stats, cneg, dneg, dphi, nt, d, G, KP, R, lr,
+                                negw, stream)
+              : star_step<false>(p, instantiate, emb, slots, meta, pools,
+                                 stats, cneg, dneg, dphi, nt, d, G, KP, R, lr,
+                                 negw, stream);
 }

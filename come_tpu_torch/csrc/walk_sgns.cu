@@ -63,13 +63,16 @@
 // The negative pass runs on the tensor cores in the bf16 modes
 // (sgns_common.cuh).  Groups keep their order with stream-ordered launches;
 // the host makes one call per macro step and the loop over groups runs
-// here.  The walks do not depend on the tables, so one launch generates
-// every group's walks (one thread per walk) before the group loop, which is
-// what the TPU's per-group generation computes.
+// here, recorded as one CUDA graph that the card replays (step_graph.cuh),
+// each kernel after the first under programmatic dependent launch.  The
+// walks do not depend on the tables, so one launch generates every group's
+// walks (one thread per walk) before the group loop, which is what the
+// TPU's per-group generation computes.
 
 #include <type_traits>
 
 #include "sgns_common.cuh"
+#include "step_graph.cuh"
 
 namespace come {
 
@@ -108,6 +111,10 @@ static inline size_t walk_pos_smem_bytes(int d, int L, int W) {
 // [STRIP x R] . [R x d] products.  BF16 rounds the staged rows and each g
 // (not with PAIRED: the TPU's paired pass is f32); PAIRED trains only
 // u = t^1 (W must be 1, wrow is not read).  T is the tables' element type.
+// PDL (sgns_common.cuh): the strip's walk rows and window draws are read
+// before the wait; the table rows (the last scatter's and pool apply's) and
+// the writes of dphi, dctx, dphin and nt (rows the last scatter reads)
+// after.  A strip of padding slots waits before its zeros.
 template <bool BF16, bool PAIRED, typename T>
 static __global__ void __launch_bounds__(THREADS)
 walk_pos_kernel(const T* __restrict__ emb_in,
@@ -119,6 +126,7 @@ walk_pos_kernel(const T* __restrict__ emb_in,
   constexpr bool RND = BF16 && !PAIRED;
   const int t0 = blockIdx.x * STRIP, base = blockIdx.y * BLK;
   if (t0 >= L) {  // padding slots: exact zeros, no pairs
+    pdl_wait();
     for (int idx = threadIdx.x; idx < STRIP * d; idx += THREADS) {
       const size_t o = (size_t)(base + t0) * d + idx;
       dphi[o] = 0.0f;
@@ -126,6 +134,7 @@ walk_pos_kernel(const T* __restrict__ emb_in,
       dphin[o] = 0.0f;
     }
     if (threadIdx.x < STRIP) nt[base + t0 + threadIdx.x] = 0.0f;
+    pdl_trigger();
     return;
   }
   const int t1 = min(t0 + STRIP, L), no = t1 - t0;  // the strip's centres
@@ -149,6 +158,7 @@ walk_pos_kernel(const T* __restrict__ emb_in,
     ga[idx] = 0.0f;  // ga and gb
   if (threadIdx.x == 0) npairs = 0;
   __syncthreads();
+  pdl_wait();
   // rows 0..R-1 of emb_in into phi, then the same rows of emb_out into ctx
   // (ctx follows phi in shared memory)
   stage_rows<THREADS, 8, T>(
@@ -250,6 +260,7 @@ walk_pos_kernel(const T* __restrict__ emb_in,
     }
     nt[base + t] = pairs;
   }
+  pdl_trigger();
   block_add(loss, &stats[0]);
   block_add(pairs, &stats[1]);
 }
@@ -263,7 +274,9 @@ walk_pos_kernel(const T* __restrict__ emb_in,
 // the row's first slot, which adds the sum to the row with one rounding.
 // Per-term f32 atomics would round each add at the running sum's magnitude,
 // in an order that varies from run to run.  Blocks of later slots of a row
-// return.  grid GROUP, block SCATTER_THREADS.
+// return.  grid GROUP, block SCATTER_THREADS.  PDL: which slots hold the
+// row is found from the walks before the wait; dphi, dphin, dctx (this
+// group's passes) and the tables after it, and every early return waits.
 constexpr int SCATTER_THREADS = 128;
 static __global__ void __launch_bounds__(SCATTER_THREADS)
 walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
@@ -276,7 +289,10 @@ walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
   __shared__ int first[NWORD];      // slots of the row in words before w
   __shared__ int slots[GROUP];      // the row's slots, in order
   const int t = blockIdx.x, lane = threadIdx.x & 31;
-  if (t % BLK >= L) return;
+  if (t % BLK >= L) {
+    pdl_wait();
+    return;
+  }
   const int v = walks[t];
   bool earlier = false;
   for (int s = threadIdx.x; s < GROUP; s += SCATTER_THREADS) {
@@ -285,7 +301,10 @@ walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
     if (lane == 0) same[s / 32] = b;
     earlier |= m && s < t;
   }
-  if (__syncthreads_or(earlier)) return;  // not the row's first slot
+  if (__syncthreads_or(earlier)) {  // not the row's first slot
+    pdl_wait();
+    return;
+  }
   if (threadIdx.x < 32) {  // exclusive prefix of the words' counts
     const int c = __popc(same[lane]);
     int x = c;
@@ -305,6 +324,7 @@ walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
   __syncthreads();
   const int n = first[NWORD - 1] + __popc(same[NWORD - 1]);
   const size_t dst = (size_t)v * d;
+  pdl_wait();
   for (int k = threadIdx.x; k < d; k += SCATTER_THREADS) {
     double a = 0.0, c = 0.0;
 #pragma unroll 8
@@ -316,6 +336,7 @@ walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
     emb_in[dst + k] = (float)((double)emb_in[dst + k] + a);
     emb_out[dst + k] = (float)((double)emb_out[dst + k] + c);
   }
+  pdl_trigger();
 }
 
 // K3's slot writes: for each real slot t of group g (position < L), one
@@ -325,7 +346,8 @@ walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
 // dphi * (-lr) at :365).  SR draws 32 bits per (t, k) from
 // sr_bits(sr_key(seed, g), t*d + k): the low 16 round the node write, the
 // high 16 the ctx write (:377-394).  Adds the CAS retries to *retries.
-// grid GROUP, block 64.
+// grid GROUP, block 64.  PDL: the slot's row and key before the wait; dphi,
+// dphin, dctx and the tables after, and a padding slot waits to return.
 template <bool SR>
 static __global__ void walk_scatter_bf16_kernel(
     __nv_bfloat16* __restrict__ emb_in, __nv_bfloat16* __restrict__ emb_out,
@@ -334,9 +356,13 @@ static __global__ void walk_scatter_bf16_kernel(
     int L, float lr, unsigned seed,
     int g, double* retries) {
   const int t = blockIdx.x;
-  if (t % BLK >= L) return;
+  if (t % BLK >= L) {
+    pdl_wait();
+    return;
+  }
   const size_t dst = (size_t)walks[t] * d, src = (size_t)t * d;
   const unsigned key = SR ? sr_key(seed, (unsigned)g) : 0u;
+  pdl_wait();
   unsigned n = 0;
   for (int k = 2 * threadIdx.x; k < d; k += 2 * blockDim.x) {
     unsigned b0 = 0, b1 = 0;
@@ -354,6 +380,7 @@ static __global__ void walk_scatter_bf16_kernel(
     n += rmw_bf16_pair(emb_out + dst + k, __fmul_rn(dctx[src + k], -lr),
                        __fmul_rn(dctx[src + k + 1], -lr), b0 >> 16, b1 >> 16);
   }
+  pdl_trigger();
   if (n) atomicAdd(retries, (double)n);
 }
 
@@ -363,7 +390,8 @@ static __global__ void walk_scatter_bf16_kernel(
 //   indices[indptr[v] + min(int(u * float(deg)), max(deg - 1, 0))],
 //   u = float((b >> 8) & 0xFFFFFF) * 2^-24   (both products in f32),
 // and a node of degree 0 stays where it is.  Slots at positions >= L are 0.
-// grid ceil(nwalks / 128), block 128.
+// grid ceil(nwalks / 128), block 128.  The step's first kernel: launched
+// without PDL, so it needs no wait.
 static __global__ void walk_gen_kernel(const int* __restrict__ starts,
                                        const unsigned* __restrict__ bits,
                                        const int* __restrict__ indptr,
@@ -390,98 +418,168 @@ static __global__ void walk_gen_kernel(const int* __restrict__ starts,
   }
 }
 
-// The group loop shared by both C entries.  T = float: K1/K1b/K5 (atomic
-// f32 scatter); T = __nv_bfloat16: K3 (rounded RMW scatter, SR with a
-// per-step seed).  `retries` collects K3's CAS retries.
+// The arguments of one walk-kernel macro step (the C entries' buffers,
+// below).  starts, bits, indptr and indices are set for K4 only: the step
+// then generates its walks into `walks` first.
+struct WalkStep {
+  void* emb_in;
+  void* emb_out;
+  const int* walks;
+  const int* wrow;
+  const int* pools;
+  double* stats;
+  double* retries;
+  float* cneg;
+  float* dneg;
+  float* dphi;
+  float* dctx;
+  float* nt;
+  int d, G, L, W, KP, R;
+  float lr, negw;
+  unsigned seed;
+  const int* starts;
+  const unsigned* bits;
+  const int* indptr;
+  const int* indices;
+};
+
+// The group loop of one step, launched on `stream` (the recording stream).
+// T = float: K1/K1b/K5 (atomic f32 scatter); T = __nv_bfloat16: K3
+// (rounded RMW scatter, SR with a per-step seed; `retries` collects its CAS
+// retries).  `pdl` says whether the first launch may start under PDL (a
+// kernel precedes it in the step); every later one does.
 template <bool BF16, bool PAIRED, typename T, bool SR>
-static int walk_groups(T* emb_in, T* emb_out, const int* walks,
-                       const int* wrow, const int* pools, double* stats,
-                       float* cneg, float* dneg, float* dphi, float* dctx,
-                       float* nt, int d, int G, int L, int W, int KP, int R,
-                       float lr, float negw, unsigned seed, double* retries,
+static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
                        cudaStream_t stream) {
   constexpr bool TB16 = !std::is_same<T, float>::value;
-  if (d > MAX_DIM || L < 1 || L > BLK || W < 1 || R < 1 ||
-      (PAIRED && (W != 1 || L % 2)) ||
-      (TB16 && d % 2))
-    return (int)cudaErrorInvalidValue;
+  T* emb_in = static_cast<T*>(s.emb_in);
+  T* emb_out = static_cast<T*>(s.emb_out);
+  const int d = s.d, L = s.L, W = s.W, KP = s.KP, R = s.R;
   const size_t pos_smem = walk_pos_smem_bytes(d, L, W);
-  cudaError_t e = cudaFuncSetAttribute(
-      walk_pos_kernel<BF16, PAIRED, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pos_smem);
-  if (e != cudaSuccess) return (int)e;
   NegativePass<BF16, T> neg;
-  e = neg.init(d, KP, GROUP);
-  if (e != cudaSuccess) return (int)e;
-  float* dphin = dphi + (size_t)GROUP * d;  // the negative pass's part
-  for (int g = 0; g < G; ++g) {
-    const int* pool = pools + (size_t)(g / R) * KP;
-    const int* wg = walks + (size_t)g * GROUP;
+  static_cast<NegSetup&>(neg) = ns;
+  float* dphin = s.dphi + (size_t)GROUP * d;  // the negative pass's part
+  cudaError_t e;
+  for (int g = 0; g < s.G; ++g) {
+    const int* pool = s.pools + (size_t)(g / R) * KP;
+    const int* wg = s.walks + (size_t)g * GROUP;
     if (g % R == 0) {
-      stage_pool_kernel<T><<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
-      COME_CHECK_LAUNCH();
+      e = launch_kernel(stage_pool_kernel<T>, dim3(KP), dim3(128), 0, stream,
+                        pdl, 0, emb_out, pool, s.cneg, s.dneg, d);
+      if (e != cudaSuccess) return (int)e;
+      pdl = true;
     }
-    walk_pos_kernel<BF16, PAIRED, T>
-        <<<dim3(NSTRIP, NBLK), THREADS, pos_smem, stream>>>(
-            emb_in, emb_out, wg, PAIRED ? nullptr : wrow + (size_t)g * GROUP,
-            d, L, W, dphi, dctx, dphin, nt, stats);
-    COME_CHECK_LAUNCH();
-    neg.launch(emb_in, wg, nt, cneg, d, KP, negw, dphin, dneg, stats, stream);
-    COME_CHECK_LAUNCH();
-    const bool end = g % R == R - 1 || g == G - 1;
+    e = launch_kernel(walk_pos_kernel<BF16, PAIRED, T>, dim3(NSTRIP, NBLK),
+                      dim3(THREADS), pos_smem, stream, pdl, 0, emb_in,
+                      emb_out, wg,
+                      PAIRED ? nullptr : s.wrow + (size_t)g * GROUP, d, L, W,
+                      s.dphi, s.dctx, dphin, s.nt, s.stats);
+    if (e != cudaSuccess) return (int)e;
+    pdl = true;
+    e = neg.launch(emb_in, wg, s.nt, s.cneg, d, KP, s.negw, dphin, s.dneg,
+                   s.stats, stream, true);
+    if (e != cudaSuccess) return (int)e;
+    const bool end = g % R == R - 1 || g == s.G - 1;
     if constexpr (TB16) {
-      walk_scatter_bf16_kernel<SR><<<GROUP, 64, 0, stream>>>(
-          emb_in, emb_out, wg, dphi, dphin, dctx, d, L, lr, seed, g, retries);
-      COME_CHECK_LAUNCH();
+      e = launch_kernel(walk_scatter_bf16_kernel<SR>, dim3(GROUP), dim3(64),
+                        0, stream, true, 0, emb_in, emb_out, wg, s.dphi,
+                        dphin, s.dctx, d, L, s.lr, s.seed, g, s.retries);
+      if (e != cudaSuccess) return (int)e;
       if (end) {
-        apply_pool_bf16_kernel<SR><<<KP, 64, 0, stream>>>(
-            emb_out, pool, dneg, d, lr, seed, g, retries);
-        COME_CHECK_LAUNCH();
+        e = launch_kernel(apply_pool_bf16_kernel<SR>, dim3(KP), dim3(64), 0,
+                          stream, true, 0, emb_out, pool, s.dneg, d, s.lr,
+                          s.seed, g, s.retries);
+        if (e != cudaSuccess) return (int)e;
       }
     } else {
-      walk_scatter_kernel<<<GROUP, SCATTER_THREADS, 0, stream>>>(
-          emb_in, emb_out, wg, dphi, dphin, dctx, d, L, lr);
-      COME_CHECK_LAUNCH();
+      e = launch_kernel(walk_scatter_kernel, dim3(GROUP),
+                        dim3(SCATTER_THREADS), 0, stream, true, 0, emb_in,
+                        emb_out, wg, s.dphi, dphin, s.dctx, d, L, s.lr);
+      if (e != cudaSuccess) return (int)e;
       if (end) {
-        apply_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, dneg, d, lr);
-        COME_CHECK_LAUNCH();
+        e = launch_kernel(apply_pool_kernel, dim3(KP), dim3(128), 0, stream,
+                          true, 0, emb_out, pool, s.dneg, d, s.lr);
+        if (e != cudaSuccess) return (int)e;
       }
     }
   }
   return 0;
 }
 
+// One step in one mode: checks the shapes, sets the kernels up at the
+// plan's first step (the band pass's shared-memory cap, the negative
+// pass's sizing), then records the step (K4's walk generation first) and
+// replays it (step_graph.cuh).
+template <bool BF16, bool PAIRED, typename T, bool SR>
+static int walk_step(StepGraph* p, int instantiate, int mode,
+                     const WalkStep& s, cudaStream_t stream) {
+  constexpr bool TB16 = !std::is_same<T, float>::value;
+  if (p == nullptr || s.d > MAX_DIM || s.G < 1 || s.L < 1 || s.L > BLK ||
+      s.W < 1 || s.R < 1 || (PAIRED && (s.W != 1 || s.L % 2)) ||
+      (TB16 && s.d % 2))
+    return (int)cudaErrorInvalidValue;
+  if (p->mode < 0) {
+    // the cap is what the largest strip needs (d MAX_DIM, a whole walk)
+    cudaError_t e = cudaFuncSetAttribute(
+        walk_pos_kernel<BF16, PAIRED, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)walk_pos_smem_bytes(MAX_DIM, BLK, BLK));
+    if (e != cudaSuccess) return (int)e;
+    NegativePass<BF16, T> neg;
+    e = neg.init(s.d, s.KP, GROUP);
+    if (e != cudaSuccess) return (int)e;
+    p->neg = neg;
+    p->mode = mode;
+  } else if (p->mode != mode) {
+    return (int)cudaErrorInvalidValue;  // a plan serves one mode
+  }
+  return replay_step(p, instantiate, stream, [&](cudaStream_t cap) -> int {
+    bool lead = false;
+    if (s.starts != nullptr) {  // K4
+      const int nwalks = s.G * NBLK;
+      const cudaError_t e = launch_kernel(
+          walk_gen_kernel, dim3((nwalks + 127) / 128), dim3(128), 0, cap,
+          false, 0, s.starts, s.bits, s.indptr, s.indices, nwalks, s.L,
+          const_cast<int*>(s.walks));
+      if (e != cudaSuccess) return (int)e;
+      lead = true;
+    }
+    return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, lead, cap);
+  });
+}
+
 // Dispatch on the runtime modes: tables_bf16 (K3, with sr) excludes
-// paired and implies K1b's rounding.
-static int walk_groups_mode(int bf16, int paired, int tables_bf16, int sr,
-                            void* emb_in, void* emb_out, const int* walks,
-                            const int* wrow, const int* pools, double* stats,
-                            double* retries, float* cneg, float* dneg,
-                            float* dphi, float* dctx, float* nt, int d, int G,
-                            int L, int W, int KP, int R, float lr, float negw,
-                            unsigned seed, cudaStream_t stream) {
-#define COME_WALK_GROUPS(B, P, T, S)                                          \
-  walk_groups<B, P, T, S>((T*)emb_in, (T*)emb_out, walks, wrow, pools, stats, \
-                          cneg, dneg, dphi, dctx, nt, d, G, L, W, KP, R, lr,  \
-                          negw, seed, retries, stream)
+// paired and implies K1b's rounding.  The mode number, which a plan keeps,
+// is bf16 | paired << 1 | tables_bf16 << 2 | sr << 3 | K4 << 4.
+static int walk_step_mode(void* graph, int instantiate, int bf16, int paired,
+                          int tables_bf16, int sr, const WalkStep& s,
+                          cudaStream_t stream) {
+  StepGraph* p = static_cast<StepGraph*>(graph);
+  const int mode = (bf16 != 0) | (paired != 0) << 1 | (tables_bf16 != 0) << 2 |
+                   (sr != 0) << 3 | (s.starts != nullptr) << 4;
+#define COME_WALK_STEP(B, P, T, S) \
+  walk_step<B, P, T, S>(p, instantiate, mode, s, stream)
   if (tables_bf16) {
     if (paired) return (int)cudaErrorInvalidValue;
-    return sr ? COME_WALK_GROUPS(true, false, __nv_bfloat16, true)
-              : COME_WALK_GROUPS(true, false, __nv_bfloat16, false);
+    return sr ? COME_WALK_STEP(true, false, __nv_bfloat16, true)
+              : COME_WALK_STEP(true, false, __nv_bfloat16, false);
   }
   if (paired)
-    return bf16 ? COME_WALK_GROUPS(true, true, float, false)
-                : COME_WALK_GROUPS(false, true, float, false);
-  return bf16 ? COME_WALK_GROUPS(true, false, float, false)
-              : COME_WALK_GROUPS(false, false, float, false);
-#undef COME_WALK_GROUPS
+    return bf16 ? COME_WALK_STEP(true, true, float, false)
+                : COME_WALK_STEP(false, true, float, false);
+  return bf16 ? COME_WALK_STEP(true, false, float, false)
+              : COME_WALK_STEP(false, false, float, false);
+#undef COME_WALK_STEP
 }
 
 }  // namespace come
 
 using namespace come;
 
-// One walk-kernel macro step over G groups.  All buffers are device
+// One walk-kernel macro step over G groups, recorded into the plan's graph
+// slot `graph` (come_step_graph_new) and replayed on `stream`:
+// instantiate != 0 at the plan's first step, 0 at every later one (the
+// step's recording then updates the instance).  All buffers are device
 // pointers:
 //   emb_in, emb_out [V, d] f32, or bf16 with tables_bf16 (updated in place)
 //   walks           [G * 1024] i32 (walk j of group g at g*1024 + j*128)
@@ -496,9 +594,11 @@ using namespace come;
 //   dctx            [1024, d] f32 scratch;  nt [1024] f32 scratch
 // bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even),
 // tables_bf16 != 0 K3 (d even; stochastic rounding from sr_seed when
-// sr != 0, else truncation).  Returns 0 or the first CUDA error code.
-// Launches on `stream`, does not synchronise and allocates nothing.
-extern "C" int come_walk_sgns_step(void* emb_in, void* emb_out,
+// sr != 0, else truncation).  A plan serves one mode and one (d, KP).
+// Returns 0 or the first CUDA error code.  Enqueues only: it does not
+// synchronise and allocates no device memory.
+extern "C" int come_walk_sgns_step(void* graph, int instantiate,
+                                   void* emb_in, void* emb_out,
                                    const int* walks, const int* wrow,
                                    const int* pools, double* stats,
                                    double* retries, float* cneg, float* dneg,
@@ -507,17 +607,21 @@ extern "C" int come_walk_sgns_step(void* emb_in, void* emb_out,
                                    int bf16, int paired, int tables_bf16,
                                    int sr, unsigned sr_seed, float lr,
                                    float negw, void* stream_ptr) {
-  return walk_groups_mode(bf16, paired, tables_bf16, sr, emb_in, emb_out,
-                          walks, wrow, pools, stats, retries, cneg, dneg,
-                          dphi, dctx, nt, d, G, L, W, KP, R, lr, negw,
-                          sr_seed, (cudaStream_t)stream_ptr);
+  const WalkStep s{emb_in, emb_out, walks,   wrow, pools, stats, retries,
+                   cneg,   dneg,    dphi,    dctx, nt,    d,     G,
+                   L,      W,       KP,      R,    lr,    negw,  sr_seed,
+                   nullptr, nullptr, nullptr, nullptr};
+  return walk_step_mode(graph, instantiate, bf16, paired, tables_bf16, sr, s,
+                        (cudaStream_t)stream_ptr);
 }
 
 // K4: generate the walks of G groups into `slots` [G * 1024] i32 from
 // starts [G * 8] i32, bits [G * 1024] u32 and the CSR (indptr [V + 1],
 // indices [E] i32), then run the group loop on them (bf16, tables_bf16,
-// sr as above).  Other buffers as come_walk_sgns_step.
-extern "C" int come_walk_sgns_gen_step(void* emb_in, void* emb_out,
+// sr as above), as one recorded step.  Other arguments as
+// come_walk_sgns_step.
+extern "C" int come_walk_sgns_gen_step(void* graph, int instantiate,
+                                       void* emb_in, void* emb_out,
                                        const int* starts, const unsigned* bits,
                                        const int* indptr, const int* indices,
                                        int* slots, const int* wrow,
@@ -529,13 +633,10 @@ extern "C" int come_walk_sgns_gen_step(void* emb_in, void* emb_out,
                                        int tables_bf16, int sr,
                                        unsigned sr_seed, float lr, float negw,
                                        void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (L < 1 || L > BLK) return (int)cudaErrorInvalidValue;
-  const int nwalks = G * NBLK;
-  walk_gen_kernel<<<(nwalks + 127) / 128, 128, 0, stream>>>(
-      starts, bits, indptr, indices, nwalks, L, slots);
-  COME_CHECK_LAUNCH();
-  return walk_groups_mode(bf16, 0, tables_bf16, sr, emb_in, emb_out, slots,
-                          wrow, pools, stats, retries, cneg, dneg, dphi, dctx,
-                          nt, d, G, L, W, KP, R, lr, negw, sr_seed, stream);
+  const WalkStep s{emb_in, emb_out, slots,  wrow,   pools, stats, retries,
+                   cneg,   dneg,    dphi,   dctx,   nt,    d,     G,
+                   L,      W,       KP,     R,      lr,    negw,  sr_seed,
+                   starts, bits,    indptr, indices};
+  return walk_step_mode(graph, instantiate, bf16, 0, tables_bf16, sr, s,
+                        (cudaStream_t)stream_ptr);
 }

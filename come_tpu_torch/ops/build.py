@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,15 +33,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
-# C signatures (csrc/walk_sgns.cu, star_sgns.cu, sgns_fused.cu,
-# row_probe.cu, smem_probe.cu, star_probe.cu, floor_probe.cu): every pointer
+# C signatures (csrc/walk_sgns.cu, star_sgns.cu, step_graph.cu,
+# sgns_fused.cu, row_probe.cu, smem_probe.cu, star_probe.cu,
+# floor_probe.cu): every pointer
 # and the stream as c_void_p, ints as c_int, seeds as c_uint32, scalars as
 # c_float.  Each returns an int (0 or a CUDA error code) unless RESTYPES
 # says otherwise.
 SIGNATURES = {
-    "come_walk_sgns_step": [_P] * 12 + [_I] * 10 + [_U, _F, _F, _P],
-    "come_walk_sgns_gen_step": [_P] * 16 + [_I] * 9 + [_U, _F, _F, _P],
-    "come_star_sgns_step": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
+    "come_walk_sgns_step": [_P, _I] + [_P] * 12 + [_I] * 10
+    + [_U, _F, _F, _P],
+    "come_walk_sgns_gen_step": [_P, _I] + [_P] * 16 + [_I] * 9
+    + [_U, _F, _F, _P],
+    "come_star_sgns_step": [_P, _I] + [_P] * 9 + [_I] * 5 + [_F, _F, _P],
+    "come_step_graph_new": [],
+    "come_step_graph_free": [_P],
+    "come_step_graph_launch": [_P, _P],
+    "come_pdl_enabled": [],
+    "come_cudart_version": [],
     "come_fused_sgns_step": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
     "come_fused_sgns_step_tied": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
     "come_row_gather": [_P] * 4 + [_I] * 3 + [_P],
@@ -50,8 +59,10 @@ SIGNATURES = {
     "come_cuda_error_name": [_I],
     "come_star_probe_step": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "come_floor_probe": [_I] + [_P] * 9 + [_I] * 3 + [_P],
+    "come_floor_probe_record": [_P, _I] + [_P] * 9 + [_I] * 3 + [_P],
 }
-RESTYPES = {"come_cuda_error_name": ctypes.c_char_p}
+RESTYPES = {"come_cuda_error_name": ctypes.c_char_p,
+            "come_step_graph_new": ctypes.c_void_p}
 
 
 def _sources() -> list[Path]:
@@ -66,6 +77,17 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def nvcc_release() -> str:
+    """The CUDA toolkit's release as ``nvcc --version`` prints it (e.g.
+    "12.9"): the graphs' PDL edges need 12.3 or later."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    m = re.search(r"release (\d+\.\d+)", out)
+    if m is None:
+        raise RuntimeError(f"nvcc --version printed no release:\n{out}")
+    return m.group(1)
 
 
 def library_path() -> Path:

@@ -67,27 +67,11 @@ def floor_probe_reference(variant: str, slots, pool, scal, meta, emb):
     return v.to(emb.device), (emb.clone() if variant in _TABLE else None)
 
 
-def floor_probe(variant: str, slots, pool, scal, meta, emb):
-    """Run one floor-probe variant over G = len(slots) / 1024 groups.
-
-    Args:
-      slots: int32 [G * 1024]; pool: int32 [ceil(G / 8) * 1024] (one
-        1024-entry pool block per 8 groups); scal: f32 [2]; meta: int32
-        [G * 8, 128]; emb: f32 [V, d], d a multiple of 4 on the card.
-
-    Returns (value, table): the last group's value as a 0-dim f32 tensor
-    and, for ``table`` and ``gather``, the copy of ``emb`` (else None).  CPU
-    tensors run the plain version; CUDA tensors launch the kernels (one call
-    counted in ``floor_probe.launches``) or raise.
-    """
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown floor probe variant {variant!r}")
-    if slots.numel() % NWL:
-        raise ValueError(f"slots must be whole groups of {NWL}")
-    if emb.device.type == "cpu":
-        return floor_probe_reference(variant, slots, pool, scal, meta, emb)
-    if emb.device.type != "cuda":
-        raise ValueError(f"no floor probe kernel for device {emb.device}")
+def _prepare(variant: str, slots, pool, scal, meta, emb):
+    """The C entries' inputs on the card: ((G, V, d), the pointers in the
+    entries' order, and the tensors they point into, which the caller keeps
+    alive while the kernels run: [5] the table copy or None, [7] stats);
+    raises on what the kernels do not take."""
     dev = emb.device
     ints = [a.to(dev, torch.int32).contiguous() for a in (slots, pool, meta)]
     slots, pool, meta = ints
@@ -110,14 +94,84 @@ def floor_probe(variant: str, slots, pool, scal, meta, emb):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    keep = (slots, pool, scal, meta, emb, table, phi, stats, sinks)
+    ptrs = tuple(ptr(t) for t in keep)
+    return (G, V, d), ptrs, keep
+
+
+def floor_probe(variant: str, slots, pool, scal, meta, emb):
+    """Run one floor-probe variant over G = len(slots) / 1024 groups.
+
+    Args:
+      slots: int32 [G * 1024]; pool: int32 [ceil(G / 8) * 1024] (one
+        1024-entry pool block per 8 groups); scal: f32 [2]; meta: int32
+        [G * 8, 128]; emb: f32 [V, d], d a multiple of 4 on the card.
+
+    Returns (value, table): the last group's value as a 0-dim f32 tensor
+    and, for ``table`` and ``gather``, the copy of ``emb`` (else None).  CPU
+    tensors run the plain version; CUDA tensors launch the kernels (one call
+    counted in ``floor_probe.launches``) or raise.
+    """
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown floor probe variant {variant!r}")
+    if slots.numel() % NWL:
+        raise ValueError(f"slots must be whole groups of {NWL}")
+    if emb.device.type == "cpu":
+        return floor_probe_reference(variant, slots, pool, scal, meta, emb)
+    if emb.device.type != "cuda":
+        raise ValueError(f"no floor probe kernel for device {emb.device}")
+    shape, ptrs, keep = _prepare(variant, slots, pool, scal, meta, emb)
     code = build.library().come_floor_probe(
-        VARIANTS[variant], ptr(slots), ptr(pool), ptr(scal), ptr(meta),
-        ptr(emb), ptr(table), ptr(phi), ptr(stats), ptr(sinks), G, V, d,
-        torch.cuda.current_stream(dev).cuda_stream,
+        VARIANTS[variant], *ptrs, *shape,
+        torch.cuda.current_stream(emb.device).cuda_stream,
     )
     floor_probe.launches += 1
     build.check(code, "come_floor_probe")
-    return stats[0], table
+    return keep[7][0], keep[5]
 
 
 floor_probe.launches = 0
+
+
+class FloorProbeGraph:
+    """One variant's G launches recorded as one CUDA graph
+    (``come_floor_probe_record``) and launched once; :meth:`replay`
+    launches it again (each launch counted in ``floor_probe.launches``).
+    The floor a group pays when a group loop replays its step as a graph,
+    beside :func:`floor_probe`'s stream launches.  CUDA tensors only."""
+
+    def __init__(self, variant: str, slots, pool, scal, meta, emb):
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown floor probe variant {variant!r}")
+        if emb.device.type != "cuda":
+            raise ValueError("the graph floor probe runs on a CUDA card")
+        self.lib = build.library()
+        self.device = emb.device
+        self.shape, ptrs, self.keep = _prepare(variant, slots, pool, scal,
+                                               meta, emb)
+        with torch.cuda.device(self.device):
+            self.slot = self.lib.come_step_graph_new()
+        if not self.slot:
+            raise RuntimeError("come_step_graph_new: no recording stream")
+        code = self.lib.come_floor_probe_record(
+            self.slot, VARIANTS[variant], *ptrs, *self.shape, self._stream())
+        floor_probe.launches += 1
+        build.check(code, "come_floor_probe_record")
+
+    def _stream(self) -> int:
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+    def replay(self) -> None:
+        code = self.lib.come_step_graph_launch(self.slot, self._stream())
+        floor_probe.launches += 1
+        build.check(code, "come_step_graph_launch")
+
+    def value(self):
+        """(value, table) of the last launch, as :func:`floor_probe`."""
+        return self.keep[7][0], self.keep[5]
+
+    def close(self) -> None:
+        if self.slot:
+            build.check(self.lib.come_step_graph_free(self.slot),
+                        "come_step_graph_free")
+            self.slot = None

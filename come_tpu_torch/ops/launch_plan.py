@@ -1,0 +1,199 @@
+"""Launch plans: one macro step of the walk or the star kernel as one unit
+that the card replays.
+
+The TPU runs a macro step as one ``pallas_call`` with a grid over the groups
+(``come_tpu/ops/pallas_walk_sgns.py:564``, ``pallas_star_sgns.py:282``).
+Here the C entries (``csrc/walk_sgns.cu``, ``csrc/star_sgns.cu``) record a
+step's group loop as a CUDA graph and replay it on the caller's stream
+(``csrc/step_graph.cuh``).  A plan is what the host keeps between steps for
+one (entry, device, stream, mode, shape):
+
+  * the graph slot: a private recording stream and the one instance every
+    step of the plan replays.  The plan's first step instantiates it
+    (:meth:`LaunchPlan.begin` returns 1); every later step records its own
+    loop, with its own ``lr``, seed and addresses, and applies it to the
+    instance with ``cudaGraphExecUpdate`` (``begin`` returns 0).  So the
+    addresses, ``lr`` and seeds are not in the key: the row-sharded path,
+    whose compact tables move every step, keeps one instance per shape;
+  * the step's scratch (the result ``stats``, ``cneg``, ``dneg``, ``dphi``,
+    ``dctx``, ``nt`` and K4's generated walks), allocated once.  ``begin``
+    zeroes ``stats``; :meth:`LaunchPlan.result` returns a copy, so a step's
+    (loss, n_pairs) never alias the buffer the next step zeroes.  A plan's
+    steps run in the order of its stream, which is in the key, so one
+    step's scratch is never written while an earlier step reads it;
+  * the kernels' setup (shared-memory caps, the negative pass's grid),
+    which the C entry does at the plan's first step.
+
+Each wrapper counts, beside its ``launches``, the steps it recorded
+(``recordings``), the instances it made (``instantiations``) and updated
+(``updates``) and the graphs it launched (``replays``), as plain integers;
+:func:`used_plans` gives how many plans (shapes) stepped since
+:func:`reset_used`, so a run can show at most one instantiation per shape.
+CPU tensors never reach a plan (the wrappers run their plain versions), but
+a plan on the CPU holds CPU scratch and no graph slot, which is how the
+tests exercise this logic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NWL = 1024  # slots per group
+
+_PLANS: dict[tuple, "LaunchPlan"] = {}
+_USED: set[tuple] = set()
+
+
+class LaunchPlan:
+    """One (entry, device, stream, mode, shape)'s graph slot and scratch."""
+
+    def __init__(self, key: tuple, device, KP: int, d: int, *,
+                 ctx: bool = True, walk_slots: int = 0):
+        f32 = torch.float32
+        dev = torch.device(device)
+        self.key = key
+        self.device = dev
+        self.stats = torch.zeros(2, dtype=torch.float64, device=dev)
+        self.cneg = torch.empty((KP, d), dtype=f32, device=dev)
+        self.dneg = torch.empty((KP, d), dtype=f32, device=dev)
+        # the positive pass's part of each slot's update, then the negative
+        # pass's: the scatter adds the two once, as the plain version does
+        self.dphi = torch.empty((2, NWL, d), dtype=f32, device=dev)
+        self.dctx = (torch.empty((NWL, d), dtype=f32, device=dev) if ctx
+                     else None)
+        self.nt = torch.empty((NWL,), dtype=f32, device=dev)
+        self.walks = (torch.empty((walk_slots,), dtype=torch.int32,
+                                  device=dev) if walk_slots else None)
+        self.slot = None  # the C graph slot, made at the first CUDA step
+        self.recordings = self.instantiations = self.updates = 0
+        self.replays = 0
+
+    def graph_slot(self, lib) -> int:
+        """The plan's C graph slot (``come_step_graph_new``), made on the
+        plan's device at its first use."""
+        if self.slot is None:
+            with torch.cuda.device(self.device):
+                slot = lib.come_step_graph_new()
+            if not slot:
+                raise RuntimeError("come_step_graph_new: no recording stream")
+            self.slot = slot
+        return self.slot
+
+    def begin(self) -> int:
+        """Prepare one step: zero ``stats``; return 1 if the step must
+        instantiate the plan's graph (its first step), else 0 (update)."""
+        self.stats.zero_()
+        _USED.add(self.key)
+        return 0 if self.instantiations else 1
+
+    def done(self, instantiate: int, fn) -> None:
+        """Count one recorded and replayed step on the plan and on the
+        wrapper ``fn``."""
+        for c in (self, fn):
+            c.recordings += 1
+            c.replays += 1
+            if instantiate:
+                c.instantiations += 1
+            else:
+                c.updates += 1
+
+    def scratch(self) -> tuple:
+        """Device pointers of the C entries' scratch arguments:
+        (stats, cneg, dneg, dphi, dctx or None, nt)."""
+        return (self.stats.data_ptr(), self.cneg.data_ptr(),
+                self.dneg.data_ptr(), self.dphi.data_ptr(),
+                None if self.dctx is None else self.dctx.data_ptr(),
+                self.nt.data_ptr())
+
+    def result(self):
+        """(loss, n_pairs) of the last step as 0-dim float32 tensors of
+        their own (a copy of ``stats``)."""
+        st = self.stats.to(torch.float32)
+        return st[0], st[1]
+
+
+def plan_key(entry: str, device, stream: int, mode: tuple,
+             shape: tuple) -> tuple:
+    """A plan's key: the entry, device, stream, mode and shape, and nothing
+    a step changes (addresses, ``lr``, seeds)."""
+    return (entry, str(torch.device(device)), int(stream),
+            tuple(int(m) for m in mode), tuple(int(s) for s in shape))
+
+
+def plan_for(entry: str, device, stream: int, mode: tuple, shape: tuple, *,
+             KP: int, d: int, ctx: bool = True,
+             walk_slots: int = 0) -> LaunchPlan:
+    """The plan of ``plan_key(...)``, made at its first use."""
+    key = plan_key(entry, device, stream, mode, shape)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = LaunchPlan(key, device, KP, d, ctx=ctx,
+                                        walk_slots=walk_slots)
+    return plan
+
+
+def plans(entry: str | None = None) -> list[LaunchPlan]:
+    """Every plan made so far (of ``entry``)."""
+    return [p for k, p in _PLANS.items() if entry is None or k[0] == entry]
+
+
+def used_plans(entry: str | None = None) -> int:
+    """How many plans (of ``entry``) stepped since :func:`reset_used`."""
+    return sum(1 for k in _USED if entry is None or k[0] == entry)
+
+
+def reset_used() -> None:
+    _USED.clear()
+
+
+def release_plans(lib=None) -> None:
+    """Free every plan's graph slot, its instance and stream (with the
+    kernel library ``lib``), and forget the plans."""
+    for p in _PLANS.values():
+        if p.slot is not None:
+            code, p.slot = lib.come_step_graph_free(p.slot), None
+            if code:
+                raise RuntimeError(f"come_step_graph_free: CUDA error {code}")
+    _PLANS.clear()
+    _USED.clear()
+
+
+COUNTERS = ("recordings", "instantiations", "updates", "replays")
+
+
+def wrappers() -> dict:
+    """The wrappers whose steps run through plans, by entry."""
+    from come_tpu_torch.ops.star_sgns import star_sgns_step
+    from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
+
+    return {"walk_sgns": walk_sgns_step, "walk_sgns_gen": walk_sgns_gen_step,
+            "star_sgns": star_sgns_step}
+
+
+def reset_counts() -> None:
+    """Zero every wrapper's graph counters and :func:`reset_used`."""
+    for fn in wrappers().values():
+        for c in COUNTERS:
+            setattr(fn, c, 0)
+    reset_used()
+
+
+def graph_counts() -> dict:
+    """{entry: {counter: n, ..., "shapes": plans stepped}} since
+    :func:`reset_counts`."""
+    return {e: {**{c: getattr(fn, c) for c in COUNTERS},
+                "shapes": used_plans(e)} for e, fn in wrappers().items()}
+
+
+def check_counts(where: str, counts: dict) -> None:
+    """Raise unless, for each entry of ``counts`` (:func:`graph_counts`),
+    every step was recorded once and replayed once, as an instantiation or
+    an update, and no shape instantiated more than once."""
+    for e, c in counts.items():
+        if not (c["recordings"] == c["replays"]
+                == c["instantiations"] + c["updates"]):
+            raise AssertionError(f"{where}: {e}'s graph counters {c}")
+        if c["instantiations"] > c["shapes"]:
+            raise AssertionError(f"{where}: {e} instantiated "
+                                 f"{c['instantiations']} times for "
+                                 f"{c['shapes']} shapes")

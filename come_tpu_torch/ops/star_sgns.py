@@ -6,7 +6,10 @@ source: ``csrc/star_sgns.cu``): K2, and K2b with ``mxu_bf16`` (product
 operands rounded to bf16, f32 sums).  The slot stream comes from
 ``sampling.stars.build_star_layout``; groups of 1024 slots (eight 128-slot
 rows) run in order, and one shared negative pool serves each block of R
-groups.  The table is updated IN PLACE and returned.
+groups.  The table is updated IN PLACE and returned.  On the card a macro
+step is one unit the card replays: the C entry records the group loop as a
+CUDA graph and updates the instance that the step's launch plan keeps
+(``ops/launch_plan.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from come_tpu_torch.ops import build
+from come_tpu_torch.ops import build, launch_plan
 from come_tpu_torch.ops.walk_sgns import check_cuda_inputs, expand_pools, mxu
 from come_tpu_torch.sampling.stars import PAD_META
 
@@ -94,6 +97,25 @@ def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
     return emb, loss, npairs
 
 
+def star_plan(device, stream: int, bf16: int, d: int, G: int, KP: int,
+              R: int) -> launch_plan.LaunchPlan:
+    """The launch plan of a star step, keyed on the mode (bf16) and the
+    shape (d, G, KP, R)."""
+    return launch_plan.plan_for("star_sgns", device, stream, (bf16,),
+                                (d, G, KP, R), KP=KP, d=d, ctx=False)
+
+
+def star_entry_args(plan, inst: int, emb, slots, meta, pools, d: int, G: int,
+                    KP: int, R: int, bf16: int, lr: float, negw: float,
+                    stream: int) -> tuple:
+    """The arguments of ``come_star_sgns_step`` for one step: the plan's
+    graph slot and scratch, and this step's own tensors and ``lr``."""
+    st, cneg, dneg, dphi, _, nt = plan.scratch()
+    return (plan.slot, inst, emb.data_ptr(), slots.data_ptr(),
+            meta.data_ptr(), pools.data_ptr(), st, cneg, dneg, dphi, nt, d,
+            G, KP, R, bf16, float(lr), float(negw), stream)
+
+
 def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
                    pool_refresh: int = 1, mxu_bf16: bool = False):
     """One O2 macro step over a star slot stream.
@@ -108,9 +130,11 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
 
     Returns (emb, loss, n_pairs), n_pairs == 2 * arcs in the stream; loss
     and n_pairs are 0-dim float32 tensors on the table's device.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel (counted
-    in ``star_sgns_step.launches``, K2, or ``.launches_bf16``, K2b) or
-    raise.
+    tensors run the plain version; CUDA tensors launch the kernel, as one
+    replayed graph (``ops/launch_plan.py``; counted in
+    ``star_sgns_step.launches``, K2, or ``.launches_bf16``, K2b, and the
+    graph's events in ``.recordings``, ``.instantiations``, ``.updates`` and
+    ``.replays``) or raise.
     """
     if emb.device.type == "cpu":
         return star_sgns_step_reference(
@@ -123,30 +147,28 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
     slots, meta, G = _pad_stream(slots, meta)
     R = int(pool_refresh)
     pools = expand_pools(pools, G, R)
-    V, d = emb.shape
+    d = emb.shape[1]
     KP = pools.shape[1]
-    dev = emb.device
-    f32 = torch.float32
-    stats = torch.zeros(2, dtype=torch.float64, device=dev)
-    cneg = torch.empty((KP, d), dtype=f32, device=dev)
-    dneg = torch.empty((KP, d), dtype=f32, device=dev)
-    dphi = torch.empty((2, NWL, d), dtype=f32, device=dev)  # star, negative
-    nt = torch.empty((NWL,), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = build.library().come_star_sgns_step(
-        emb.data_ptr(), slots.data_ptr(), meta.data_ptr(), pools.data_ptr(),
-        stats.data_ptr(), cneg.data_ptr(), dneg.data_ptr(), dphi.data_ptr(),
-        nt.data_ptr(), d, G, KP, R, int(mxu_bf16), float(lr), float(negw),
-        stream,
-    )
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    plan = star_plan(emb.device, stream, int(mxu_bf16), d, G, KP, R)
+    lib = build.library()
+    plan.graph_slot(lib)
+    inst = plan.begin()
+    code = lib.come_star_sgns_step(*star_entry_args(
+        plan, inst, emb, slots, meta, pools, d, G, KP, R, int(mxu_bf16), lr,
+        negw, stream))
     if mxu_bf16:
         star_sgns_step.launches_bf16 += 1
     else:
         star_sgns_step.launches += 1
     build.check(code, "come_star_sgns_step")
-    st = stats.to(f32)
-    return emb, st[0], st[1]
+    plan.done(inst, star_sgns_step)
+    return (emb,) + plan.result()
 
 
 star_sgns_step.launches = 0
 star_sgns_step.launches_bf16 = 0
+star_sgns_step.recordings = 0
+star_sgns_step.instantiations = 0
+star_sgns_step.updates = 0
+star_sgns_step.replays = 0

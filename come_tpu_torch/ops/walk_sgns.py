@@ -25,7 +25,11 @@ Differences from the JAX functions, all deliberate:
     ``:603``), past its end when KP > 1024;
   * bf16 tables stay plain [V, d] bf16 (no u32 row-pair packing);
   * the tables are updated IN PLACE (no second [V, d] copy per step) and
-    returned.
+    returned;
+  * on the card a macro step is one unit the card replays: the C entry
+    records the group loop as a CUDA graph and updates the instance that
+    the step's launch plan keeps (``ops/launch_plan.py``), where the TPU
+    runs one ``pallas_call`` with a grid over the groups.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from come_tpu_torch.ops import build
+from come_tpu_torch.ops import build, launch_plan
 
 LP = 128  # slots per walk (walks are padded to this many positions)
 NW = 8  # walks per group
@@ -278,30 +282,39 @@ def cas_retries(device) -> torch.Tensor:
     return _RETRIES[dev]
 
 
-class _Scratch:
-    """Per-call device buffers of the walk kernel's C entries."""
+def walk_plan(entry: str, device, stream: int, mode: tuple, d: int, G: int,
+              L: int, W: int, KP: int, R: int) -> launch_plan.LaunchPlan:
+    """The launch plan of a walk-kernel step: ``entry`` "walk_sgns" (mode
+    (bf16, paired, tables_bf16, sr)) or "walk_sgns_gen" (mode (bf16,
+    tables_bf16, sr); the plan also holds the generated walks), keyed on
+    the shape (d, G, L, W, KP, R)."""
+    return launch_plan.plan_for(
+        entry, device, stream, mode, (d, G, L, W, KP, R), KP=KP, d=d,
+        walk_slots=G * NWL if entry == "walk_sgns_gen" else 0)
 
-    def __init__(self, dev, KP: int, d: int):
-        f32 = torch.float32
-        self.stats = torch.zeros(2, dtype=torch.float64, device=dev)
-        self.retries = cas_retries(dev)
-        self.cneg = torch.empty((KP, d), dtype=f32, device=dev)
-        self.dneg = torch.empty((KP, d), dtype=f32, device=dev)
-        # the positive pass's part of each slot's update, then the negative
-        # pass's: the scatter adds the two once, as the plain version does
-        self.dphi = torch.empty((2, NWL, d), dtype=f32, device=dev)
-        self.dctx = torch.empty((NWL, d), dtype=f32, device=dev)
-        self.nt = torch.empty((NWL,), dtype=f32, device=dev)
 
-    def ptrs(self):
-        return (self.stats.data_ptr(), self.retries.data_ptr(),
-                self.cneg.data_ptr(), self.dneg.data_ptr(),
-                self.dphi.data_ptr(), self.dctx.data_ptr(),
-                self.nt.data_ptr())
-
-    def result(self):
-        st = self.stats.to(torch.float32)
-        return st[0], st[1]
+def walk_entry_args(plan, inst: int, emb_in, emb_out, slots, wrow, pools,
+                    retries, d: int, G: int, L: int, W: int, KP: int, R: int,
+                    bf16: int, paired: int, tables_bf16: int, sr: int,
+                    seed: int, lr: float, negw: float, stream: int,
+                    gen: tuple | None = None) -> tuple:
+    """The arguments of ``come_walk_sgns_step`` (``gen`` None) or
+    ``come_walk_sgns_gen_step`` (``gen`` = (starts, bits, indptr,
+    indices); the walks go to ``plan.walks``) for one step: the plan's
+    graph slot and scratch, and this step's own tensors, ``lr`` and seed.
+    """
+    st, cneg, dneg, dphi, dctx, nt = plan.scratch()
+    head = (plan.slot, inst, emb_in.data_ptr(), emb_out.data_ptr())
+    if gen is not None:
+        head += tuple(t.data_ptr() for t in gen) + (plan.walks.data_ptr(),)
+    else:
+        head += (slots.data_ptr(),)
+    head += (None if wrow is None else wrow.data_ptr(), pools.data_ptr(), st,
+             retries.data_ptr(), cneg, dneg, dphi, dctx, nt, d, G, L, W, KP,
+             R, bf16)
+    if gen is None:
+        head += (paired,)
+    return head + (tables_bf16, sr, seed, float(lr), float(negw), stream)
 
 
 def _check_wrow(wrow, G):
@@ -356,9 +369,12 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
 
     Returns (emb_in, emb_out, loss, n_pairs); loss and n_pairs are 0-dim
     float32 tensors on the tables' device.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise.  Launches are counted
-    by mode: ``walk_sgns_step.launches`` (K1), ``.launches_bf16`` (K1b),
-    ``.launches_paired`` (K5) and ``.launches_bf16_tables`` (K3).
+    version; CUDA tensors launch the kernel, as one replayed graph
+    (``ops/launch_plan.py``), or raise.  Launches are counted by mode:
+    ``walk_sgns_step.launches`` (K1), ``.launches_bf16`` (K1b),
+    ``.launches_paired`` (K5) and ``.launches_bf16_tables`` (K3); the
+    graph's events over all modes in ``.recordings``, ``.instantiations``,
+    ``.updates`` and ``.replays``.
     """
     if paired and walks.shape[1] % 2:
         raise ValueError("paired mode needs an even number of slots per row")
@@ -380,24 +396,33 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
     wrow = None if paired else _check_wrow(wrow, G)
     d = emb_in.shape[1]
     KP = pools.shape[1]
-    sc = _Scratch(emb_in.device, KP, d)
+    W = 1 if paired else int(window)
+    bf16 = int(mxu_bf16 or tables_bf16)
     stream = torch.cuda.current_stream(emb_in.device).cuda_stream
-    code = build.library().come_walk_sgns_step(
-        emb_in.data_ptr(), emb_out.data_ptr(), slots.data_ptr(),
-        None if paired else wrow.data_ptr(), pools.data_ptr(), *sc.ptrs(),
-        d, G, L, 1 if paired else int(window), KP, R,
-        int(mxu_bf16 or tables_bf16), int(paired), tables_bf16, sr, seed,
-        float(lr), float(negw), stream,
-    )
+    plan = walk_plan("walk_sgns", emb_in.device, stream,
+                     (bf16, int(paired), tables_bf16, sr), d, G, L, W, KP, R)
+    lib = build.library()
+    plan.graph_slot(lib)
+    inst = plan.begin()
+    code = lib.come_walk_sgns_step(*walk_entry_args(
+        plan, inst, emb_in, emb_out, slots, wrow, pools,
+        cas_retries(emb_in.device), d, G, L, W, KP, R, bf16, int(paired),
+        tables_bf16, sr, seed, lr, negw, stream))
     _count_walk_launch(mxu_bf16, paired, tables_bf16)
     build.check(code, "come_walk_sgns_step")
-    return (emb_in, emb_out) + sc.result()
+    plan.done(inst, walk_sgns_step)
+    return (emb_in, emb_out) + plan.result()
 
 
 walk_sgns_step.launches = 0
 walk_sgns_step.launches_bf16 = 0
 walk_sgns_step.launches_paired = 0
 walk_sgns_step.launches_bf16_tables = 0
+# the graph's events, over every mode (ops/launch_plan.py)
+walk_sgns_step.recordings = 0
+walk_sgns_step.instantiations = 0
+walk_sgns_step.updates = 0
+walk_sgns_step.replays = 0
 
 
 # ----------------------------------------------------------- K4: gen mode
@@ -466,12 +491,15 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
         :func:`walk_sgns_step` (bf16 tables run K3's group loop).
       return_walks: also return the generated walks, int32 [G*8, L].
 
-    Returns (emb_in, emb_out, loss, n_pairs[, walks]).  CPU tensors run the
-    plain version; CUDA tensors launch the generator and the walk kernel or
-    raise.  Launches are counted by mode, apart from
-    :func:`walk_sgns_step`'s: ``walk_sgns_gen_step.launches`` (K4 with f32
-    products), ``.launches_bf16`` (K4 with K1b's bf16 products) and
-    ``.launches_bf16_tables`` (K4 over K3's bf16 tables).
+    Returns (emb_in, emb_out, loss, n_pairs[, walks]); the walks are a
+    copy (the plan's buffer is the next step's).  CPU tensors run the
+    plain version; CUDA tensors launch the generator and the walk kernel,
+    as one replayed graph, or raise.  Launches are counted by mode, apart
+    from :func:`walk_sgns_step`'s: ``walk_sgns_gen_step.launches`` (K4
+    with f32 products), ``.launches_bf16`` (K4 with K1b's bf16 products)
+    and ``.launches_bf16_tables`` (K4 over K3's bf16 tables); the graph's
+    events in ``.recordings``, ``.instantiations``, ``.updates`` and
+    ``.replays``.
     """
     if emb_in.device.type == "cpu":
         return walk_sgns_gen_step_reference(
@@ -502,16 +530,18 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
     wrow = _check_wrow(wrow, G)
     d = emb_in.shape[1]
     KP = pools.shape[1]
-    sc = _Scratch(emb_in.device, KP, d)
-    slots = torch.empty((G * NWL,), dtype=torch.int32, device=emb_in.device)
+    W = int(window)
+    bf16 = int(mxu_bf16 or tables_bf16)
     stream = torch.cuda.current_stream(emb_in.device).cuda_stream
-    code = build.library().come_walk_sgns_gen_step(
-        emb_in.data_ptr(), emb_out.data_ptr(), starts.data_ptr(),
-        bits.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
-        slots.data_ptr(), wrow.data_ptr(), pools.data_ptr(), *sc.ptrs(), d,
-        G, L, int(window), KP, R, int(mxu_bf16 or tables_bf16), tables_bf16,
-        sr, seed, float(lr), float(negw), stream,
-    )
+    plan = walk_plan("walk_sgns_gen", emb_in.device, stream,
+                     (bf16, tables_bf16, sr), d, G, L, W, KP, R)
+    lib = build.library()
+    plan.graph_slot(lib)
+    inst = plan.begin()
+    code = lib.come_walk_sgns_gen_step(*walk_entry_args(
+        plan, inst, emb_in, emb_out, None, wrow, pools,
+        cas_retries(emb_in.device), d, G, L, W, KP, R, bf16, 0, tables_bf16,
+        sr, seed, lr, negw, stream, gen=(starts, bits, indptr, indices)))
     if tables_bf16:
         walk_sgns_gen_step.launches_bf16_tables += 1
     elif mxu_bf16:
@@ -519,12 +549,17 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
     else:
         walk_sgns_gen_step.launches += 1
     build.check(code, "come_walk_sgns_gen_step")
-    out = (emb_in, emb_out) + sc.result()
+    plan.done(inst, walk_sgns_gen_step)
+    out = (emb_in, emb_out) + plan.result()
     if return_walks:
-        out = out + (slots.view(G * NW, LP)[:, :L],)
+        out = out + (plan.walks.view(G * NW, LP)[:, :L].clone(),)
     return out
 
 
 walk_sgns_gen_step.launches = 0
 walk_sgns_gen_step.launches_bf16 = 0
 walk_sgns_gen_step.launches_bf16_tables = 0
+walk_sgns_gen_step.recordings = 0
+walk_sgns_gen_step.instantiations = 0
+walk_sgns_gen_step.updates = 0
+walk_sgns_gen_step.replays = 0

@@ -47,6 +47,7 @@ from pathlib import Path
 
 import torch
 
+from come_tpu_torch.ops import launch_plan
 from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
 from come_tpu_torch.ops.star_sgns import star_sgns_step
 from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
@@ -326,6 +327,7 @@ def main(argv=None) -> int:
         cli += ["--backend", args.backend]
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    launch_plan.reset_counts()
     try:
         t0 = time.perf_counter()
         trainer, hist = run(build_argparser().parse_args(cli))
@@ -337,6 +339,7 @@ def main(argv=None) -> int:
         res = {"rank": trainer.rank, "world": world,
                "backend": dist.get_backend(), "device": str(trainer.device),
                "wall_s": wall, "nmi": rec["nmi"], "launches": launches,
+               "graphs": launch_plan.graph_counts(),
                "o1_tier": trainer.o1_tier(), "o2_tier": trainer.o2_tier(),
                "hash": param_hash(trainer.params)}
         for k in ("gmm_ms", "o1_ms", "o2_ms", "o3_ms", "o1_pairs",

@@ -1,6 +1,7 @@
 """Per-pass device time of the SGNS kernels' steps on one card.
 
     python come_tpu_torch/tools/pass_times.py [--root DIR] [--label NAME]
+        [--steps K1 K2 ...] [--trace]
 
 At ``chip_smoke.py``'s shapes, on the BlogCatalog stand-in (d 128, KP 512,
 lr 0.025, negw 5 / KP, tables and draws from seed 0), it times the steps
@@ -11,13 +12,30 @@ that carry the f32 negative pass and the star pass:
   * K2b  the bench path's star step in bf16 (the whole layout, R 8);
   * K5   one paired O2 step of 512 rows of 64 edges (64 groups);
   * K6   one micro-step of 32768 window pairs (32 tiles of 1024, KP 512);
-  * K7   the same on one tied table with 32768 arcs.
+  * K7   the same on one tied table with 32768 arcs;
+  * K3   one O1 step on bf16 tables at the synthetic-10m shapes (V 500000,
+         1024 walks of 80 drawn uniformly over V, KP 2048, 128 groups, SR).
 
 Each step runs on tables it updates in place.  For each it prints one JSON
 line: the card's name and power limit, the step's CUDA-event ms (median of
-5 after one warm-up), the device µs per group (per tile for K6/K7) of each
+5 after one warm-up, each from an idle card) and its ms per step over 10
+steps in a row (``chained_ms``), the device µs per group (per tile for K6/K7) of each
 pass of its loop and of all its kernels (``torch.profiler``), and the busy
 share (all kernels' device time over the CUDA-event time).
+
+``--trace`` adds to each line what one profiled run of two steps shows on
+the device's timeline (:func:`timeline`): the gaps between consecutive
+kernels of a step (median and spread, by which pass follows which; a
+negative gap is an overlap, as programmatic dependent launch allows), the
+share of the step's span that some kernel covers, and the host's enqueue
+time per step (:func:`host_times`: the whole wrapper call, the C entry's
+share of it, the allocation of a step's six scratch buffers, and for K1
+and K2 a fit of the C entry's time over 1 to 32 or 64 groups, whose
+intercept is its fixed cost per call: setup and, with graphs, recording,
+update and replay).  With programmatic dependent launch a kernel's device
+time includes the time it waits for its predecessor, so its pass µs
+overlap and the kernels' sum may pass the step's time: the covered share
+is then the busy share to read.
 
 ``--root`` times the ``come_tpu_torch`` package of another checkout, with
 kernels built from that checkout's ``csrc/``, so two trees compare on one
@@ -29,9 +47,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -110,9 +130,203 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _pass_of(name: str, passes) -> str | None:
+    for p, k in passes:
+        if k in name:
+            return p
+    return "gen" if "walk_gen" in name else None
+
+
+def _spread(xs) -> dict:
+    xs = sorted(xs)
+    q = lambda f: xs[min(len(xs) - 1, int(f * len(xs)))]  # noqa: E731
+    return {"n": len(xs), "median": statistics.median(xs), "p10": q(0.1),
+            "p90": q(0.9), "min": xs[0], "max": xs[-1]}
+
+
+def timeline(fn, passes, n_steps: int = 2) -> dict:
+    """One ``torch.profiler`` trace of ``n_steps`` calls of ``fn`` (after a
+    warm-up), read from its exported timeline: a step is a run of
+    consecutive kernels of ``passes`` (the wrapper's own kernels fall
+    between steps).  Returns the gaps between consecutive kernels of a
+    step in µs (start of the next minus end of the previous: negative
+    where they overlap), over all pairs and by "previous>next" pass, the
+    steps' spans (first start to last end, µs) and the share of each span
+    that some kernel covers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(4):  # as device_us: a profiler run may record nothing
+        if attempt:
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        ks = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     _pass_of(e["name"], passes)) for e in events
+                    if e.get("cat") == "kernel")
+        if any(k[2] for k in ks):
+            break
+    else:
+        raise AssertionError("the profiler saw no kernel of the step")
+    runs, cur = [], []
+    for k in ks:
+        if k[2] is None:
+            if cur:
+                runs.append(cur)
+            cur = []
+        else:
+            cur.append(k)
+    if cur:
+        runs.append(cur)
+    gaps, by_pair, spans, covered = [], {}, [], []
+    for run in runs:
+        for a, b in zip(run, run[1:]):
+            g = b[0] - a[1]
+            gaps.append(g)
+            by_pair.setdefault(f"{a[2]}>{b[2]}", []).append(g)
+        span = max(k[1] for k in run) - run[0][0]
+        union, end = 0.0, run[0][0]
+        for s, e, _ in run:
+            if e > end:
+                union += e - max(s, end)
+                end = e
+        spans.append(span)
+        covered.append(union / span if span > 0 else 1.0)
+    return {"kernels_per_step": [len(r) for r in runs],
+            "gap_us": _spread(gaps) if gaps else None,
+            "gap_us_by_pair": {k: _spread(v) for k, v in sorted(by_pair.items())},
+            "span_us": spans, "covered": covered}
+
+
+def host_times(fn, reps: int = 20) -> dict:
+    """Host milliseconds per call of ``fn`` (after a warm-up, the card idle
+    before each call, no synchronise inside the timed call): the whole
+    call, and the share spent inside the kernel library's C entries
+    (timed by wrapping each entry of ``build.SIGNATURES``)."""
+    import torch
+
+    from come_tpu_torch.ops import build
+
+    lib = build.library()
+    rec, saved = [], {}
+    for name in build.SIGNATURES:
+        f = getattr(lib, name)
+        saved[name] = f
+
+        def timed(*a, _f=f):
+            t0 = time.perf_counter()
+            r = _f(*a)
+            rec.append(time.perf_counter() - t0)
+            return r
+
+        setattr(lib, name, timed)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        total, c = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            rec.clear()
+            t0 = time.perf_counter()
+            fn()
+            total.append(time.perf_counter() - t0)
+            c.append(sum(rec))
+        torch.cuda.synchronize()
+    finally:
+        for name, f in saved.items():
+            setattr(lib, name, f)
+    return {"call_ms": statistics.median(total) * 1e3,
+            "c_entry_ms": statistics.median(c) * 1e3}
+
+
+def c_entry_fit(sub, groups) -> dict:
+    """The C entry's host ms per call of ``sub(g)`` (a step of g groups)
+    for each g in ``groups``, and the least-squares line through them:
+    ``intercept`` is the fixed cost of a call, ``slope`` its cost a
+    group."""
+    pts = [(g, host_times(sub(g), reps=10)["c_entry_ms"]) for g in groups]
+    n = len(pts)
+    mx = sum(g for g, _ in pts) / n
+    my = sum(t for _, t in pts) / n
+    slope = (sum((g - mx) * (t - my) for g, t in pts)
+             / sum((g - mx) ** 2 for g, _ in pts))
+    return {"points": pts, "intercept_ms": my - slope * mx,
+            "slope_ms": slope}
+
+
+def alloc_us(dev, KP: int, d: int, reps: int = 50) -> float:
+    """Host µs to allocate one step's six scratch buffers as a wrapper
+    allocating them per call does (stats zeroed, the rest empty)."""
+    import torch
+
+    f32 = torch.float32
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        bufs = [torch.zeros(2, dtype=torch.float64, device=dev),
+                torch.empty((KP, d), dtype=f32, device=dev),
+                torch.empty((KP, d), dtype=f32, device=dev),
+                torch.empty((2, 1024, d), dtype=f32, device=dev),
+                torch.empty((1024, d), dtype=f32, device=dev),
+                torch.empty((1024,), dtype=f32, device=dev)]
+        ts.append(time.perf_counter() - t0)
+        del bufs
+    return statistics.median(ts) * 1e6
+
+
+def chained_ms(fn, n: int = 10, reps: int = 3) -> float:
+    """CUDA-event milliseconds per call of ``fn()`` over ``n`` calls in a
+    row (median of ``reps`` chains, after one warm-up): the steady state of
+    a training loop, whose host enqueues the next step while the card runs
+    this one.  :func:`cuda_ms` times one call from an idle card, so it
+    includes the host's time to enqueue it (with graphs, to record the
+    whole step) before the first kernel starts."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def enqueue_ms(fn, n: int = 10) -> float:
+    """Host milliseconds per call of ``fn()`` over ``n`` calls in a row,
+    without a synchronise between them (after a warm-up, from an idle
+    card).  Below :func:`chained_ms` the host enqueued ahead of the card:
+    no call waited for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / n
+
+
 def steps(dev):
-    """(name, step(), groups or tiles, passes) at chip_smoke.py's shapes;
-    each step updates its own tables in place."""
+    """(name, step(), groups or tiles, passes, sub, KP) at chip_smoke.py's
+    shapes; each step updates its own tables in place.  ``sub(g)`` is the
+    step cut to its first g groups (K1 and K2; None for the others)."""
     import numpy as np
     import torch
 
@@ -147,9 +361,12 @@ def steps(dev):
                          dtype=torch.int32)
     pools = torch.randint(0, V, (G, KP), generator=gen, device=dev,
                           dtype=torch.int32)
-    out = [("K1", lambda: walk_sgns_step(emb_in, emb_out, walks, wrow, pools,
-                                         lr, negw, window=W, pool_refresh=1),
-            G, WALK_PASSES)]
+    def k1_sub(g):
+        return lambda: walk_sgns_step(emb_in, emb_out, walks[:8 * g],
+                                      wrow[:g * 1024], pools[:g], lr, negw,
+                                      window=W, pool_refresh=1)
+
+    out = [("K1", k1_sub(G), G, WALK_PASSES, k1_sub, KP)]
 
     u, v = ds.graph.edges_undirected()
     slots, meta = build_star_layout(u, v, V)
@@ -160,8 +377,11 @@ def steps(dev):
     G2 = sl.numel() // 1024
     pools2 = torch.randint(0, V, (G2, KP), generator=gen, device=dev,
                            dtype=torch.int32)
-    out.append(("K2", lambda: star_sgns_step(emb_in, sl, mt, pools2, lr, negw,
-                                             pool_refresh=1), G2, STAR_PASSES))
+    def k2_sub(g):
+        return lambda: star_sgns_step(emb_in, sl[:g * 1024], mt[:g * 1024],
+                                      pools2[:g], lr, negw, pool_refresh=1)
+
+    out.append(("K2", k2_sub(G2), G2, STAR_PASSES, k2_sub, KP))
 
     # the bench path's star step: the whole layout in ceil(NR / 8) * 8
     # rows, alias pools, R 8, bf16
@@ -179,7 +399,7 @@ def steps(dev):
     pools_b = sample_alias(accept, alias, gen, (-(-G2B // RB), KP))
     out.append(("K2b bench", lambda: star_sgns_step(
         emb_in, sl_b, mt_b, pools_b, lr, negw, pool_refresh=RB,
-        mxu_bf16=True), G2B, STAR_PASSES))
+        mxu_bf16=True), G2B, STAR_PASSES, None, KP))
 
     eperm = torch.as_tensor(np.random.default_rng(0).permutation(
         u.shape[0])[:512 * 64], device=dev)
@@ -189,7 +409,7 @@ def steps(dev):
                            dtype=torch.int32)
     out.append(("K5", lambda: walk_sgns_step(
         emb_in, emb_out, rows, None, pools5, lr, negw, window=1,
-        pool_refresh=1, paired=True), 64, WALK_PASSES))
+        pool_refresh=1, paired=True), 64, WALK_PASSES, None, KP))
 
     keep = torch.as_tensor(subsample_keep_probs(ds.graph.degrees, 1e-3),
                            device=dev)
@@ -198,13 +418,28 @@ def steps(dev):
     pool = sample_alias(accept, alias, gen, (KP,))
     out.append(("K6", lambda: fused_sgns_step(emb_in, emb_out, c, x, pool, m,
                                               lr, negw, tile_pairs=1024),
-                32, FUSED_PASSES))
+                32, FUSED_PASSES, None, KP))
     src, dst = (torch.as_tensor(a, device=dev) for a in ds.graph.arcs())
     arcs = torch.randperm(src.numel(), generator=gen, device=dev)[:32768]
     ones = torch.ones(arcs.numel(), device=dev)
     out.append(("K7", lambda: fused_sgns_step_tied(
         emb_in, src[arcs], dst[arcs], pool, ones, lr, negw, tile_pairs=1024),
-        32, FUSED_PASSES))
+        32, FUSED_PASSES, None, KP))
+
+    # K3 at the synthetic-10m shapes on bf16 tables; its walks are drawn
+    # uniformly over V (a step's cost needs the shapes, not the graph)
+    V3, B3, KP3 = 500_000, 1024, 2048
+    G3 = B3 // 8
+    tabs3 = [(torch.randn((V3, d), generator=gen, device=dev) * 0.1).to(
+        torch.bfloat16) for _ in range(2)]
+    walks3 = torch.randint(0, V3, (B3, L), generator=gen, device=dev)
+    wrow3 = torch.randint(1, W + 1, (G3 * 1024,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    pools3 = torch.randint(0, V3, (G3, KP3), generator=gen, device=dev,
+                           dtype=torch.int32)
+    out.append(("K3", lambda: walk_sgns_step(
+        *tabs3, walks3, wrow3, pools3, lr, 5.0 / KP3, window=W,
+        pool_refresh=1, sr_seed=7), G3, WALK_PASSES, None, KP3))
     return out
 
 
@@ -213,6 +448,10 @@ def main(argv=None) -> int:
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                    help="the checkout whose come_tpu_torch to time")
     p.add_argument("--label", default="", help="a name for the JSON lines")
+    p.add_argument("--steps", nargs="*", default=None,
+                   help="the steps to time (default: all)")
+    p.add_argument("--trace", action="store_true",
+                   help="add the timeline's gaps and the host's enqueue time")
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -228,16 +467,27 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     build.library()
-    for name, step, groups, passes in steps(dev):
+    for name, step, groups, passes, sub, KP in steps(dev):
+        if args.steps is not None and name not in args.steps:
+            continue
         ms = cuda_ms(step)
         split, total = pass_split(step, groups, passes)
-        print(json.dumps({
+        line = {
             "card": card, "label": args.label,
             "package": str(Path(come_tpu_torch.__file__).parent),
             "step": name, "groups": groups, "ms": ms,
+            "chained_ms": chained_ms(step),
             "us_per_group": split, "device_us_per_group": total / groups,
             "busy": total / (ms * 1e3),
-        }), flush=True)
+        }
+        if args.trace:
+            line["timeline"] = timeline(step, passes)
+            line["host"] = host_times(step)
+            line["host"]["alloc_us"] = alloc_us(dev, KP, 128)
+            if sub is not None:
+                line["host"]["c_entry_fit"] = c_entry_fit(
+                    sub, [g for g in (1, 2, 4, 8, 16, 32, 64) if g <= groups])
+        print(json.dumps(line), flush=True)
     return 0
 
 

@@ -9,8 +9,10 @@ seven variants of ``ops/floor_probe.py`` (one launch per group, each adding
 one input stream), holds each variant's value exactly against its plain
 version (and variants ``table`` and ``gather``'s copy of the table bit for
 bit against the input), and prints µs per group for each: CUDA events,
-after one warm-up, the median of 3 samples of 4 chained runs.  Needs a CUDA
-card; about a second.
+after one warm-up, the median of 3 samples of 4 chained runs.  Then
+:func:`graph_floor` re-reads ``bare`` and ``gather`` with each run's G
+launches recorded as one CUDA graph and replayed, beside the stream
+launches.  Needs a CUDA card; about two seconds.
 """
 
 from __future__ import annotations
@@ -76,8 +78,51 @@ def run(device="cuda", log=print) -> dict:
             "G": G, "V": V, "d": D}
 
 
+def graph_floor(device="cuda", log=print, names=("bare", "gather")) -> dict:
+    """The floor of ``names`` with their G launches recorded as one CUDA
+    graph and replayed (``ops/floor_probe.py::FloorProbeGraph``), beside
+    the stream launches, timed in turns (stream, graph, graph, stream) as
+    :func:`run` times them; each replay's value held exactly against the
+    plain version.  Returns {variant: {"stream": [µs, µs], "graph": [µs,
+    µs]}} per group."""
+    from come_tpu_torch.ops.floor_probe import (
+        LABELS,
+        FloorProbeGraph,
+        floor_probe,
+        floor_probe_reference,
+    )
+
+    args = inputs(torch.device(device))
+    out = {}
+    for name in names:
+        g = FloorProbeGraph(name, *args)
+        try:
+            times = {"stream": [], "graph": []}
+            for way in ("stream", "graph", "graph", "stream"):
+                fn = g.replay if way == "graph" else (
+                    lambda: floor_probe(name, *args))
+                times[way].append(chained_us(fn, G))
+            value, table = g.value()
+            want, want_table = floor_probe_reference(name, *args)
+            torch.cuda.synchronize()
+            if float(value) != float(want):
+                raise AssertionError(f"P4 graph {name}: {float(value)} != "
+                                     f"plain {float(want)}")
+            if want_table is not None and not torch.equal(table, args[-1]):
+                raise AssertionError(f"P4 graph {name}: the table copy "
+                                     f"differs")
+        finally:
+            g.close()
+        out[name] = times
+        log(f"P4 {LABELS[name]:30s} stream " + ", ".join(
+            f"{t:.2f}" for t in times["stream"]) + " us/group, graph "
+            + ", ".join(f"{t:.2f}" for t in times["graph"]))
+    return out
+
+
 def main(argv=None) -> int:
     run()
+    graph_floor()
     return 0
 
 

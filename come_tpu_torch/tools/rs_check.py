@@ -47,6 +47,7 @@ from pathlib import Path
 
 import torch
 
+from come_tpu_torch.ops import launch_plan
 from come_tpu_torch.tools.dp_check import SEED, f32_ratio, param_hash
 
 SYNTH = dict(V=500000, B=1024, KP=2048)
@@ -241,6 +242,7 @@ def main(argv=None) -> int:
         cli += ["--walks-per-node", str(args.walks_per_node)]
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    launch_plan.reset_counts()
     try:
         t0 = time.perf_counter()
         trainer, hist = run(build_argparser().parse_args(cli))
@@ -255,6 +257,7 @@ def main(argv=None) -> int:
                "data_index": lay.data_index, "model_index": lay.model_index,
                "backend": dist.get_backend(), "device": str(trainer.device),
                "wall_s": wall, "nmi": rec["nmi"], "launches": launches,
+               "graphs": launch_plan.graph_counts(),
                "o1_tier": trainer.o1_tier(), "o2_tier": trainer.o2_tier(),
                "o1_served": trainer.last_o1_served,
                "o2_served": trainer.last_o2_served,

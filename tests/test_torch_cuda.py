@@ -24,7 +24,9 @@ the bf16 check's error rules against their plain versions (the table bit
 for bit where the plain step leaves it alone), and with every section on
 the full bf16 check against K2b and the f32 tolerance against K2; P4's
 values and P2's sum must equal their plain versions exactly, and the
-parity harness must pass on the card.
+parity harness must pass on the card.  Six consecutive K1, K3 and K2
+steps through one launch plan's graph each (``chip_smoke.graph_steps``)
+must each pass their mode's check, with at most one instantiation.
 """
 
 import numpy as np
@@ -59,7 +61,7 @@ from come_tpu_torch.sampling import build_star_layout
 from come_tpu_torch.tools.probe_star import VARIANTS as PROBE_VARIANTS
 from come_tpu_torch.trainer import ComETrainer
 
-from chip_smoke import FUSED_EDGES, STAR_EDGES, star_edge_layout
+from chip_smoke import FUSED_EDGES, STAR_EDGES, graph_steps, star_edge_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -662,6 +664,26 @@ def test_star_probe_matches_plain(dev, label, off, V, d, E, KP, R, unroll):
         _close((emb,), run(star_probe_step, mxu_bf16=False),
                star_sgns_step(emb.clone(), slots, meta, pools, 0.05,
                               5.0 / KP, pool_refresh=R))
+
+
+@pytest.mark.parametrize("mode", ["K1", "K3", "K2"])
+def test_graph_steps_follow_every_step(dev, mode):
+    """Six consecutive steps through one plan's graph, with lr, the SR seed,
+    the walks (star rows), window draws and pools new at every step and
+    the tables moved to new addresses at every other step
+    (``chip_smoke.graph_steps``, which holds each step against its plain
+    version from the same tables under its mode's check): every step
+    recorded and replayed, one plan, at most one instantiation."""
+    from come_tpu_torch.ops import launch_plan
+
+    launch_plan.reset_counts()
+    errs = graph_steps(mode, dev)
+    counts = launch_plan.graph_counts()
+    launch_plan.check_counts(f"graph {mode}", counts)
+    c = counts["star_sgns" if mode == "K2" else "walk_sgns"]
+    assert len(errs) == 6
+    assert (c["recordings"], c["replays"], c["shapes"]) == (6, 6, 1)
+    assert c["instantiations"] <= 1
 
 
 @pytest.mark.parametrize("G,V,d", [(338, 10312, 128), (9, 500, 16)])
