@@ -63,7 +63,7 @@ non-zero and prints no result line):
                through the fused SGNS kernel and its plain version
   7. K7      — the same on one tied table with 32768 arcs
   8. karate  — the CLI's default karate preset (per-pair negatives): no
-               kernel may launch
+               SGNS kernel may launch (G1 does, in the GMM fits)
   9. shared  — karate with shared negatives: O1 through K6, O2 through K7
  10. micro   — the micro-batched main path through the CLI: blogcatalog
                with --down-sample 1e-3 --o2-mode xla (walks per node 2,
@@ -207,9 +207,33 @@ After phase 19:
                at least that of the PCA map of the same embeddings.  The
                line gives each row's seconds, the t-SNE seconds and the
                card's name and power limit.
+ 21. first iter — tools/first_iter.py on blogcatalog (pretrain 2 + outer 2)
+               in a fresh process: each outer iteration's GMM fit by part
+               (k-means, the EM loop and its iterations, the loop's
+               recording, the eager factor calls, the final E-step, the
+               inverse), O1, O2 (the star layout's build, the first K2
+               step, the others), O3 and NMI; NMI >= 0.8.  Then G1
+               (csrc/gmm_factor.cu) against its plain version
+               (torch.linalg.cholesky_ex, torch.cholesky_inverse) at
+               blogcatalog's moments (phase 5's table, n_init 2, K 39, d
+               128) and on a near-singular batch (78 covariances of 64
+               points in 128 dimensions): the largest relative Frobenius
+               error of L and of inv_cov within 1e-4, or no farther from
+               the float64 plain version than the f32 plain version is,
+               and equal info flags; the EM as one WHILE-graph launch
+               against the eager EM, both with G1, from the same k-means
+               responsibilities: the same iterations per restart and the
+               same bits, through a fresh plan and again on a moved table
+               (one instantiation); the EM with G1 against the EM with
+               torch.linalg's factor and inverse: log-likelihood within
+               1e-4 relative, NMI of the two partitions >= 0.99.
 Phases 5, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
 every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
-mode.  Every phase line ends with its seconds.  Then a JSON line of the
+mode; every phase that fits a GMM on the card must launch G1's two
+kernels (gmm_factor, gmm_inverse), the probes and parity neither (inside
+the EM's WHILE graph a launch is counted by its plan: the factor calls
+its body recorded, times the iterations the device ran).  Every
+phase line ends with its seconds.  Then a JSON line of the
 kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
 bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
 is a probe and on no path), each with its bound: the larger of the bytes
@@ -936,6 +960,216 @@ def eval_phase(smi, reset_counts, counts, check_launches, names) -> None:
         f"10-neighbour trustworthiness {tw:.4f} (PCA {tw_pca:.4f})"))
 
 
+# G1's kernels (csrc/gmm_factor.cu), launched in every GMM fit on the card
+GMM_KERNELS = ("gmm_factor", "gmm_inverse")
+# G1 against its plain version: the largest relative Frobenius error of L
+# and of inv_cov over the matrices of a batch.  Two f32 factorisations of a
+# matrix of condition number c differ by up to ~c * 6e-8 in its inverse, so
+# where the f32 plain version is farther than the bound the kernel must sit
+# at least as close to the plain version run in float64 as the f32 plain
+# version does (tools/hot_row.py's float64 rule).
+G1_RTOL = 1e-4
+
+
+def _moments(X, K, n_init, seed):
+    """The first M-step's moments of a GMM fit on ``X``: (cov [n_init, K,
+    d, d] not yet divided by nk, nk [n_init, K]) from the k-means inits."""
+    from come_tpu_torch.losses import gmm
+
+    g = torch.Generator().manual_seed(seed)
+    resp = torch.stack([gmm._kmeans_init(X, K, g) for _ in range(n_init)])
+    nk = resp.sum(-2) + 10.0 * torch.finfo(torch.float32).eps
+    means = (resp.transpose(-1, -2) @ X) / nk[..., None]
+    return gmm._scatter(X, resp, means), nk, resp
+
+
+def g1_check(where, cov, nk, reg) -> dict:
+    """G1 against its plain version on one batch (G1_RTOL's rule); the
+    info flags must agree.  Returns the errors."""
+    from come_tpu_torch.ops.gmm_factor import (
+        gmm_factor,
+        gmm_factor_reference,
+        gmm_inverse,
+        gmm_inverse_reference,
+    )
+
+    L, info = gmm_factor(cov, nk, reg)
+    Lp, infop = gmm_factor_reference(cov, nk, reg)
+    L64, _ = gmm_factor_reference(cov.double(), nk.double(), reg)
+    inv, invp = gmm_inverse(L), gmm_inverse_reference(Lp)
+    inv64 = gmm_inverse_reference(L64)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float(((a - b).norm(dim=(-2, -1))
+                      / b.norm(dim=(-2, -1))).max())
+
+    if not torch.equal(info, infop.to(info.dtype)):
+        raise AssertionError(f"G1 {where}: info flags differ from the plain "
+                             f"version's")
+    err = {}
+    for k, a, p, r in (("L", L, Lp, L64), ("inv", inv, invp, inv64)):
+        err[k], err[f"{k}_f64"], err[f"{k}_plain_f64"] = (
+            rel(a, p), rel(a, r), rel(p, r))
+        err[f"{k}_abs"] = float((a - p).abs().max())
+        if not (err[k] <= G1_RTOL or err[f"{k}_f64"] <= err[f"{k}_plain_f64"]):
+            raise AssertionError(f"G1 {where}: {k} {err}")
+    err["by_f64"] = max(err["L"], err["inv"]) > G1_RTOL
+    return err
+
+
+def em_graph_check(X, resp0, reg, max_iter, tol) -> list:
+    """The graph-replayed EM against the eager EM, both with G1, from the
+    same responsibilities: the same iterations per restart and the same
+    bits, through a fresh plan and again through it on a moved table.
+    Returns the iterations per restart of each fit."""
+    from come_tpu_torch.losses.gmm import gmm_em_from_resp
+    from come_tpu_torch.ops import launch_plan
+
+    iters = []
+    for x in (X, X * 1.01 + 0.003):
+        eager = gmm_em_from_resp(x, resp0, reg, max_iter, tol, graph=False)
+        graph = gmm_em_from_resp(x, resp0, reg, max_iter, tol, graph=True)
+        torch.cuda.synchronize()
+        for k, v in eager.items():
+            if not torch.equal(v, graph[k]):
+                raise AssertionError(f"graph EM: {k} differs from the eager "
+                                     f"EM's")
+        iters.append(eager["n_iter"].tolist())
+    shape = (*resp0.shape, X.shape[1])
+    plans = [p for p in launch_plan.plans("gmm_em") if p.key[4][:4] == shape]
+    if len(plans) != 1 or plans[0].instantiations != 1:
+        raise AssertionError(f"graph EM: {len(plans)} plans, "
+                             f"{[p.instantiations for p in plans]} "
+                             f"instantiations")
+    return iters
+
+
+def em_linalg_check(X, resp0, reg, max_iter, tol) -> dict:
+    """The eager EM with G1 against the same EM with torch.linalg's
+    factor and inverse (the plain versions): log-likelihood within 1e-4
+    relative, NMI of the two partitions >= 0.99."""
+    from come_tpu_torch.evaluation import nmi_score
+    from come_tpu_torch.losses import gmm
+    from come_tpu_torch.ops.gmm_factor import (
+        gmm_factor_reference,
+        gmm_inverse_reference,
+    )
+
+    g1 = gmm.gmm_em_from_resp(X, resp0, reg, max_iter, tol, graph=False)
+    chol, inverse = gmm._chol, gmm._inverse
+    gmm._chol, gmm._inverse = gmm_factor_reference, gmm_inverse_reference
+    try:
+        ref = gmm.gmm_em_from_resp(X, resp0, reg, max_iter, tol, graph=False)
+    finally:
+        gmm._chol, gmm._inverse = chol, inverse
+    ll, ll_ref = (o["log_likelihood"].double() for o in (g1, ref))
+    rel = float(((ll - ll_ref).abs() / ll_ref.abs()).max())
+    nmi = min(nmi_score(a.argmax(-1).cpu().numpy(), b.argmax(-1).cpu().numpy())
+              for a, b in zip(g1["resp"], ref["resp"]))
+    if rel > 1e-4 or nmi < 0.99:
+        raise AssertionError(f"G1 EM vs torch.linalg EM: ll rel {rel:.3e}, "
+                             f"NMI {nmi:.4f}")
+    return {"ll_rel": rel, "nmi": nmi, "iters": g1["n_iter"].tolist(),
+            "iters_linalg": ref["n_iter"].tolist()}
+
+
+def first_iter_phase(dev, smi: str, X, K: int) -> dict:
+    """Phase 21 (module docstring).  ``X``: phase 5's trained table.
+    Returns G1's kernel-line numbers."""
+    from come_tpu_torch.ops.gmm_factor import (
+        gmm_factor,
+        gmm_factor_reference,
+        gmm_inverse,
+        gmm_inverse_reference,
+    )
+    from come_tpu_torch.tools.pass_times import cuda_ms
+
+    root = Path(__file__).resolve().parent
+    res = subprocess.run(
+        [sys.executable, str(root / "come_tpu_torch/tools/first_iter.py"),
+         "--runs", "blogcatalog", "--label", "smoke"],
+        capture_output=True, text=True, timeout=600, cwd=root)
+    if res.returncode != 0:
+        raise AssertionError(f"first_iter failed ({res.returncode}):\n"
+                             f"{res.stderr[-3000:]}")
+    run = json.loads(res.stdout.strip().splitlines()[-1])
+    for it in run["iters"]:
+        if it["nmi"] < NMI_FLOOR:
+            raise AssertionError(f"first_iter: NMI {it['nmi']:.4f}")
+        g = it["gmm_parts"]
+        phase("first iter", (
+            f"blogcatalog in a fresh process, outer iteration {it['iter']}: "
+            f"{it['s']:.3f} s = gmm {it['gmm_ms']:.1f} ms (k-means "
+            f"{g.get('kmeans', 0):.1f}, EM {g.get('em', 0):.1f} of which "
+            f"capture {g.get('em_capture', 0):.1f}, eager factor calls "
+            f"{g.get('factor', 0):.1f}, final E-step "
+            f"{g.get('final_estep', 0):.1f}, inverse {g.get('inverse', 0):.1f}"
+            f"; {g.get('em_iters', 0)} EM iterations, G1 factor launches "
+            f"{g.get('g1_launches', 0)}) + o1 "
+            f"{it['o1_ms']:.1f} + o2 {it['o2_ms']:.1f} (star layout "
+            f"{it['star_layout_ms'] or 0:.1f}, first step "
+            f"{it['o2_first_step_ms']:.3f}, others "
+            f"{it['o2_other_steps_ms']:.3f}) + o3 {it['o3_ms']:.1f}; NMI "
+            f"{it['nmi']:.4f} in {it['nmi_ms']:.1f} ms"))
+    # G1 at blogcatalog's moments (phase 5's table, n_init 2) and on a
+    # near-singular batch: 78 components of 64 points in 128 dimensions
+    cov, nk, resp0 = _moments(X, K, 2, SEED)
+    err = g1_check("blogcatalog", cov, nk, 1e-5)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pts = torch.randn((2, K, 64, X.shape[1]), generator=gen, device=dev) * 0.1
+    cov_s = pts.transpose(-1, -2) @ pts
+    nk_s = torch.full((2, K), 64.0, device=dev)
+    err_s = g1_check("near-singular", cov_s, nk_s, 1e-5)
+    cond = torch.linalg.cond(cov_s.double() / 64 + 1e-5 * torch.eye(
+        X.shape[1], device=dev, dtype=torch.float64)).max()
+    iters = em_graph_check(X, resp0, 1e-5, 60, 1e-3)
+    lin = em_linalg_check(X, resp0, 1e-5, 60, 1e-3)
+    L, _ = gmm_factor(cov, nk, 1e-5)
+    A = cov / nk[..., None, None] + 1e-5 * torch.eye(X.shape[1], device=dev)
+    nmat, d = nk.numel(), X.shape[1]
+    g1 = {
+        "factor_err": max(err["L_abs"], err_s["L_abs"]),
+        "factor_ms": cuda_ms(lambda: gmm_factor(cov, nk, 1e-5)),
+        "factor_plain_ms": cuda_ms(
+            lambda: gmm_factor_reference(cov, nk, 1e-5)),
+        "factor_lib_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(A)),
+        # cov read, L written (f32), nk read, info written; d^3 / 3
+        # multiply-adds a matrix
+        "factor_bound": bound(nmat * 2.0 * d ** 3 / 3,
+                              nmat * (8.0 * d * d + 8.0), False),
+        "inverse_err": max(err["inv_abs"], err_s["inv_abs"]),
+        "inverse_ms": cuda_ms(lambda: gmm_inverse(L)),
+        "inverse_plain_ms": cuda_ms(lambda: gmm_inverse_reference(L)),
+        "inverse_lib_ms": cuda_ms(lambda: torch.cholesky_inverse(L)),
+        # L read, inv written; L^-1 and the symmetric W^T W, d^3 / 6
+        # multiply-adds each
+        "inverse_bound": bound(nmat * 2.0 * d ** 3 / 3,
+                               nmat * 8.0 * d * d, False),
+    }
+    phase("G1", (
+        f"gmm_factor vs plain at blogcatalog's moments [{nmat} x {d} x {d}]: "
+        f"rel Frobenius L {err['L']:.3e}, inv {err['inv']:.3e} (bound "
+        f"{G1_RTOL:g}; vs float64: kernel {err['L_f64']:.3e} / "
+        f"{err['inv_f64']:.3e}, plain {err['L_plain_f64']:.3e} / "
+        f"{err['inv_plain_f64']:.3e}) | near-singular batch (cond <= "
+        f"{float(cond):.3g}): L {err_s['L']:.3e}, inv {err_s['inv']:.3e} "
+        f"(vs float64: kernel {err_s['L_f64']:.3e} / {err_s['inv_f64']:.3e},"
+        f" plain {err_s['L_plain_f64']:.3e} / {err_s['inv_plain_f64']:.3e}"
+        f"{'; by the float64 rule' if err_s['by_f64'] or err['by_f64'] else ''}"
+        f") | factor {g1['factor_ms']:.4f} ms (plain "
+        f"{g1['factor_plain_ms']:.4f}, torch.linalg.cholesky_ex "
+        f"{g1['factor_lib_ms']:.4f}, bound {g1['factor_bound'][0]:.4f} by "
+        f"{g1['factor_bound'][1]}), inverse {g1['inverse_ms']:.4f} ms "
+        f"(torch.cholesky_inverse {g1['inverse_lib_ms']:.4f}, bound "
+        f"{g1['inverse_bound'][0]:.4f}) | graph EM = eager EM bit for bit, "
+        f"iterations per restart {iters} | G1 EM vs torch.linalg EM: ll rel "
+        f"{lin['ll_rel']:.3e}, NMI {lin['nmi']:.4f}, iterations "
+        f"{lin['iters']} vs {lin['iters_linalg']} | {smi}"))
+    return g1
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -970,6 +1204,7 @@ def main() -> int:
         row_scatter_probe_reference,
     )
     from come_tpu_torch.ops.floor_probe import floor_probe
+    from come_tpu_torch.ops.gmm_factor import gmm_factor, gmm_inverse
     from come_tpu_torch.ops.smem_probe import (
         smem_optin_bytes,
         smem_probe,
@@ -1027,6 +1262,8 @@ def main() -> int:
         "smem_probe": (smem_probe, "launches"),
         "star_probe": (star_probe_step, "launches"),
         "floor_probe": (floor_probe, "launches"),
+        "gmm_factor": (gmm_factor, "launches"),
+        "gmm_inverse": (gmm_inverse, "launches"),
     }
 
     from come_tpu_torch.ops import launch_plan
@@ -1040,7 +1277,12 @@ def main() -> int:
         return {name: getattr(fn, attr)
                 for name, (fn, attr) in kernels.items()}
 
-    def check_launches(where, launched, ran, idle):
+    def check_launches(where, launched, ran, idle, gmm=True):
+        # G1's two kernels launch in every GMM fit on the card: a phase
+        # that fits (gmm) must launch both, any other neither
+        ran = tuple(ran) + (GMM_KERNELS if gmm else ())
+        idle = tuple(k for k in idle if k not in GMM_KERNELS) + (
+            () if gmm else GMM_KERNELS)
         for name in ran:
             if launched[name] == 0:
                 raise AssertionError(f"{where} launched no {name} kernel")
@@ -1667,6 +1909,7 @@ def main() -> int:
     if rec["nmi"] < NMI_FLOOR:
         raise AssertionError(f"main path: NMI {rec['nmi']:.4f} < {NMI_FLOOR}")
     main_o1_ms = rec["o1_ms"]
+    main_emb = torch.as_tensor(emb, device=dev)  # phase 21's table
     phase("main", f"blogcatalog pretrain 1 + outer 1 in {wall:.1f} s: "
                   f"gmm {rec['gmm_ms']:.1f} ms, o1 {rec['o1_ms']:.1f} ms, "
                   f"o2 {rec['o2_ms']:.1f} ms, o3 {rec['o3_ms']:.1f} ms | "
@@ -2141,7 +2384,7 @@ def main() -> int:
                    ("smem_probe", "star_probe", "floor_probe"),
                    tuple(k for k in kernels if k not in (
                        "smem_probe", "star_probe", "floor_probe",
-                       "star_sgns_bf16")))
+                       "star_sgns_bf16")), gmm=False)
     s3, m3, sneg3 = p3.pop("inputs")
     p3_bound = star_bound(s3, m3, sneg3, p3["pairs"], 128, True, PAD_META)
     G4, V4, d4 = p4["G"], p4["V"], p4["d"]
@@ -2172,7 +2415,7 @@ def main() -> int:
     parity_launches = counts()
     ran = ("walk_sgns", "walk_sgns_paired", "star_sgns", "fused_sgns_tied")
     check_launches("parity", parity_launches, ran,
-                   tuple(k for k in kernels if k not in ran))
+                   tuple(k for k in kernels if k not in ran), gmm=False)
     phase("parity", f"karate, 3 iterations on cuda: PASS | launches "
                     f"{parity_launches}")
 
@@ -2219,6 +2462,9 @@ def main() -> int:
 
     # 20. the quality sweep's rows and t-SNE
     eval_phase(smi, reset_counts, counts, check_launches, tuple(kernels))
+
+    # 21. the first outer iteration, G1 and the EM as a device program
+    g1 = first_iter_phase(dev, smi, main_emb, ds.num_communities)
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
               library_ms=None):
@@ -2281,6 +2527,16 @@ def main() -> int:
               "scripts/probe_star_floor.py:207",
               probe_launches["floor_probe"], 0.0, p4["ms"], p4["plain_ms"],
               p4_bound),
+        entry("gmm_factor", "gmm_factor.cu",
+              "come_tpu/losses/gmm.py:52 (XLA cholesky)",
+              launches["gmm_factor"], g1["factor_err"], g1["factor_ms"],
+              g1["factor_plain_ms"], g1["factor_bound"],
+              g1["factor_lib_ms"]),
+        entry("gmm_inverse", "gmm_factor.cu",
+              "come_tpu/losses/gmm.py:151 (XLA cho_solve)",
+              launches["gmm_inverse"], g1["inverse_err"], g1["inverse_ms"],
+              g1["inverse_plain_ms"], g1["inverse_bound"],
+              g1["inverse_lib_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

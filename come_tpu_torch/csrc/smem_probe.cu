@@ -12,25 +12,36 @@
 // cudaDevAttrMaxSharedMemoryPerBlockOptin (232 448 bytes on an H100) with
 // cudaErrorInvalidValue: that refusal is the measurement.
 //
-// What bounds it: nothing but the launch (512 bytes read, 4 written).
+// What bounds it: nothing but the launch (512 bytes read, 4 written).  So
+// the call does nothing else: the attribute is set once per device for the
+// largest size asked so far (a smaller launch needs no new cap), the kernel
+// writes out[0] itself (no zero fill before it) and sums the row with warp
+// shuffles, not one thread's serial loop.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int ROW = 128;
+constexpr int MAX_DEVICES = 64;
 
 __global__ void __launch_bounds__(ROW)
 smem_probe_kernel(const float* __restrict__ x, float* __restrict__ out) {
+  // no static shared memory: the dynamic buffer may take the whole opt-in
   extern __shared__ float buf[];  // [bytes / 512][128]
-  buf[threadIdx.x] = x[threadIdx.x];
+  const int t = threadIdx.x;
+  buf[t] = x[t];
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int k = 0; k < ROW; ++k) s += buf[k];
-    out[0] = s;
-  }
+  float s = buf[t];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  __syncthreads();  // every row value read: buf[0:4] takes the warps' sums
+  if ((t & 31) == 0) buf[t >> 5] = s;
+  __syncthreads();
+  if (t == 0) out[0] = (buf[0] + buf[1]) + (buf[2] + buf[3]);
 }
+
+// per device: the largest dynamic shared memory the kernel's cap allows
+int g_cap[MAX_DEVICES] = {};
 
 }  // namespace
 
@@ -41,11 +52,19 @@ smem_probe_kernel(const float* __restrict__ x, float* __restrict__ out) {
 extern "C" int come_smem_probe(const float* x, float* out, int bytes,
                                void* stream) {
   if (bytes < ROW * (int)sizeof(float)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      smem_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // the refusal is an answer: clear it for the next call
-    return (int)e;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (bytes > g_cap[dev]) {
+    e = cudaFuncSetAttribute(smem_probe_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // the refusal is an answer: clear it for the next
+      return (int)e;       // call
+    }
+    g_cap[dev] = bytes;
   }
   smem_probe_kernel<<<1, ROW, bytes, (cudaStream_t)stream>>>(x, out);
   return (int)cudaGetLastError();

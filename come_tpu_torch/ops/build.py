@@ -35,7 +35,7 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 # C signatures (csrc/walk_sgns.cu, star_sgns.cu, step_graph.cu,
 # sgns_fused.cu, row_probe.cu, smem_probe.cu, star_probe.cu,
-# floor_probe.cu): every pointer
+# floor_probe.cu, gmm_factor.cu): every pointer
 # and the stream as c_void_p, ints as c_int, seeds as c_uint32, scalars as
 # c_float.  Each returns an int (0 or a CUDA error code) unless RESTYPES
 # says otherwise.
@@ -60,9 +60,18 @@ SIGNATURES = {
     "come_star_probe_step": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "come_floor_probe": [_I] + [_P] * 9 + [_I] * 3 + [_P],
     "come_floor_probe_record": [_P, _I] + [_P] * 9 + [_I] * 3 + [_P],
+    "come_while_graph_new": [ctypes.POINTER(ctypes.c_ulonglong)],
+    "come_while_flag": [_P, _I, _P, _P, ctypes.c_ulonglong, _P],
+    "come_while_graph_build": [_P, _P, _P],
+    "come_while_graph_launch": [_P, _P],
+    "come_while_graph_free": [_P],
+    "come_gmm_factor_setup": [],
+    "come_gmm_factor": [_P, _P, _F, _P, _P, _I, _I, _P],
+    "come_gmm_inverse": [_P, _P, _I, _I, _P],
 }
 RESTYPES = {"come_cuda_error_name": ctypes.c_char_p,
-            "come_step_graph_new": ctypes.c_void_p}
+            "come_step_graph_new": ctypes.c_void_p,
+            "come_while_graph_new": ctypes.c_void_p}
 
 
 def _sources() -> list[Path]:

@@ -32,6 +32,14 @@ Each wrapper counts, beside its ``launches``, the steps it recorded
 CPU tensors never reach a plan (the wrappers run their plain versions), but
 a plan on the CPU holds CPU scratch and no graph slot, which is how the
 tests exercise this logic.
+
+A :class:`GraphPlan` is the same cache's other kind of plan: a loop of torch
+ops on the device (the GMM's EM, ``losses/gmm.py``), the counterpart of
+``jax.lax.while_loop``.  Its body (one iteration) and its entry are
+recorded once into ``torch.cuda.CUDAGraph``s on the plan's private stream,
+and a C graph slot (``csrc/step_graph.cu``'s WHILE graph) runs the entry,
+then the body under a conditional WHILE node for as long as the device
+state says: the whole loop is one launch on the caller's stream.
 """
 
 from __future__ import annotations
@@ -42,6 +50,9 @@ NWL = 1024  # slots per group
 
 _PLANS: dict[tuple, "LaunchPlan"] = {}
 _USED: set[tuple] = set()
+# the graph plans' recording stream, one per device for the process: cuBLAS
+# keeps a workspace (32 MiB on Hopper) for every stream it ran on, for good
+_STREAMS: dict = {}
 
 
 class LaunchPlan:
@@ -112,12 +123,126 @@ class LaunchPlan:
         return st[0], st[1]
 
 
+class GraphPlan:
+    """One (entry, device, stream, mode, shape)'s device loop: the static
+    buffers its ops read and write (``bufs``), the private stream they are
+    recorded on (one per device, shared by the graph plans), the recorded
+    graphs and the C WHILE graph that runs them.
+    :meth:`capture_while` records the loop once (one recording, one
+    instantiation); :meth:`launch` runs it."""
+
+    def __init__(self, key: tuple, device):
+        self.key = key
+        self.device = torch.device(device)
+        self.bufs: dict = {}
+        self.slot = None  # the C WHILE graph
+        self.graphs: tuple = ()
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = _STREAMS.get(self.device)
+            if self.stream is None:
+                self.stream = _STREAMS[self.device] = torch.cuda.Stream(
+                    self.device)
+        self.recordings = self.instantiations = self.replays = 0
+        self.per_run: dict = {}  # counted wrapper -> its kernels in one body
+
+    def capture_while(self, body, go, it, max_iter, counted=()) -> None:
+        """Record the loop ``while go().any() and it < max_iter: body()``:
+        ``body`` records one iteration's ops; ``go`` returns the bool flags
+        [n] the next iteration reads; ``it`` and ``max_iter`` are int32
+        device scalars, ``it`` advanced by ``body``.  ``counted``: kernel
+        wrappers whose calls inside a capture add one to their ``captured``
+        (not to ``launches``); the plan keeps how many ``body`` recorded,
+        for :meth:`ran`.  Thread-local capture, so the host feeder's thread
+        may go on copying."""
+        import ctypes
+
+        from come_tpu_torch.ops import build
+
+        lib = build.library()
+        handle = ctypes.c_ulonglong(0)
+        with torch.cuda.device(self.device):
+            slot = lib.come_while_graph_new(ctypes.byref(handle))
+        if not slot:
+            raise RuntimeError("come_while_graph_new: no WHILE graph (the "
+                               "CUDA runtime must be 12.4 or later)")
+        self.slot = slot
+        with torch.cuda.stream(self.stream):
+            # cuBLAS's workspace for this stream, made outside the capture
+            # and with no kernel run on the stream
+            torch.cuda.current_blas_handle()
+
+        def flag():
+            g = go()
+            build.check(lib.come_while_flag(
+                g.data_ptr(), g.numel(), it.data_ptr(), max_iter.data_ptr(),
+                handle.value, torch.cuda.current_stream(self.device)
+                .cuda_stream), "come_while_flag")
+
+        def record(fn):
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(g, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                fn()
+            return g
+
+        entry = record(flag)
+        before = [fn.captured for fn in counted]
+        loop = record(lambda: (body(), flag()))
+        self.per_run = {fn: fn.captured - n
+                        for fn, n in zip(counted, before)}
+        self.graphs = (entry, loop)  # their pools hold the loop's buffers
+        build.check(lib.come_while_graph_build(
+            slot, entry.raw_cuda_graph(), loop.raw_cuda_graph()),
+            "come_while_graph_build")
+        self.recordings += 1
+        self.instantiations += 1
+
+    def launch(self) -> None:
+        """Run the whole loop once on the current stream."""
+        from come_tpu_torch.ops import build
+
+        build.check(build.library().come_while_graph_launch(
+            self.slot, torch.cuda.current_stream(self.device).cuda_stream),
+            "come_while_graph_launch")
+        self.replays += 1
+        _USED.add(self.key)
+
+    def ran(self, n: int) -> None:
+        """Count the kernels of ``n`` runs of the body (the iterations the
+        device ran, read after :meth:`launch`) on their wrappers'
+        ``launches``: what each recorded, ``n`` times."""
+        for fn, k in self.per_run.items():
+            fn.launches += k * n
+
+    def release(self, lib) -> None:
+        if self.slot is not None:
+            code, self.slot = lib.come_while_graph_free(self.slot), None
+            if code:
+                raise RuntimeError(f"come_while_graph_free: CUDA error "
+                                   f"{code}")
+        self.graphs = ()
+
+
 def plan_key(entry: str, device, stream: int, mode: tuple,
              shape: tuple) -> tuple:
     """A plan's key: the entry, device, stream, mode and shape, and nothing
-    a step changes (addresses, ``lr``, seeds)."""
+    a step changes (addresses, ``lr``, seeds).  A mode's floats stay floats
+    (the EM's ``reg_covar`` and ``tol`` are constants of its graph)."""
     return (entry, str(torch.device(device)), int(stream),
-            tuple(int(m) for m in mode), tuple(int(s) for s in shape))
+            tuple(m if isinstance(m, float) else int(m) for m in mode),
+            tuple(int(s) for s in shape))
+
+
+def graph_plan_for(entry: str, device, stream: int, mode: tuple,
+                   shape: tuple) -> GraphPlan:
+    """The :class:`GraphPlan` of ``plan_key(...)``, made at its first use
+    (not yet recorded: ``plan.slot`` is None)."""
+    key = plan_key(entry, device, stream, mode, shape)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = GraphPlan(key, device)
+    return plan
 
 
 def plan_for(entry: str, device, stream: int, mode: tuple, shape: tuple, *,
@@ -132,7 +257,7 @@ def plan_for(entry: str, device, stream: int, mode: tuple, shape: tuple, *,
     return plan
 
 
-def plans(entry: str | None = None) -> list[LaunchPlan]:
+def plans(entry: str | None = None) -> list:
     """Every plan made so far (of ``entry``)."""
     return [p for k, p in _PLANS.items() if entry is None or k[0] == entry]
 
@@ -146,16 +271,21 @@ def reset_used() -> None:
     _USED.clear()
 
 
-def release_plans(lib=None) -> None:
-    """Free every plan's graph slot, its instance and stream (with the
-    kernel library ``lib``), and forget the plans."""
-    for p in _PLANS.values():
-        if p.slot is not None:
+def release_plans(lib=None, entry: str | None = None) -> None:
+    """Free every plan's (of ``entry``) graph slot, its instance and stream
+    (with the kernel library ``lib``), and forget the plans (a
+    :class:`GraphPlan`'s graphs, their memory pool and its buffers go with
+    it)."""
+    keys = [k for k in _PLANS if entry is None or k[0] == entry]
+    for k in keys:
+        p = _PLANS.pop(k)
+        _USED.discard(k)
+        if isinstance(p, GraphPlan):
+            p.release(lib)
+        elif p.slot is not None:
             code, p.slot = lib.come_step_graph_free(p.slot), None
             if code:
                 raise RuntimeError(f"come_step_graph_free: CUDA error {code}")
-    _PLANS.clear()
-    _USED.clear()
 
 
 COUNTERS = ("recordings", "instantiations", "updates", "replays")

@@ -40,7 +40,7 @@ def smem_probe(x: torch.Tensor, nbytes: int) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no smem probe kernel for device {x.device}")
     x = x.contiguous()
-    out = torch.zeros(1, dtype=torch.float32, device=x.device)
+    out = torch.empty(1, dtype=torch.float32, device=x.device)
     code = build.library().come_smem_probe(
         x.data_ptr(), out.data_ptr(), int(nbytes),
         torch.cuda.current_stream(x.device).cuda_stream,

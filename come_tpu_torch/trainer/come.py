@@ -67,6 +67,7 @@ from come_tpu_torch.graphs.csr import CSRGraph
 from come_tpu_torch.iohelpers import persist
 from come_tpu_torch.losses.community import community_loss, community_sgd_step
 from come_tpu_torch.losses.gmm import fit_communities
+from come_tpu_torch.losses.gmm import release_plans as gmm_release_plans
 from come_tpu_torch.losses.sgns import sgns_sgd_step
 from come_tpu_torch.models.state import init_params
 from come_tpu_torch.native import HostWalkFeeder
@@ -842,24 +843,29 @@ class ComETrainer:
         :meth:`outer_iteration`.  ``checkpoint_dir``: write
         ``state_iter{N}.npz`` there after every outer iteration
         (``trainer/come.py:1245-1249``).  ``scalar_log``: optional
-        ``metrics.ScalarLog`` sink, one record per outer iteration."""
+        ``metrics.ScalarLog`` sink, one record per outer iteration.  The
+        EM's recorded loops (``losses.gmm.release_plans``) are freed when
+        it returns."""
         cfg = self.cfg
         say = log or (lambda s: None)
-        for e in range(cfg.pretrain_epochs):
-            loss = self.o1_epoch()
-            say(f"pretrain O1 epoch {e}: loss/pair {loss:.4f}")
-        for it in range(cfg.outer_iters):
-            rec = self.outer_iteration(it, labels)
-            say(f"iter {it}: " + ", ".join(
-                f"{k}={v:.4f}" for k, v in rec.items() if k != "iter"
-            ))
-            if scalar_log is not None:
-                scalar_log.log(it, **rec)
-            if checkpoint_dir:
-                cd = Path(checkpoint_dir)
-                cd.mkdir(parents=True, exist_ok=True)
-                self.save_checkpoint(cd / f"state_iter{it}.npz")
-            self._history.append(rec)
+        try:
+            for e in range(cfg.pretrain_epochs):
+                loss = self.o1_epoch()
+                say(f"pretrain O1 epoch {e}: loss/pair {loss:.4f}")
+            for it in range(cfg.outer_iters):
+                rec = self.outer_iteration(it, labels)
+                say(f"iter {it}: " + ", ".join(
+                    f"{k}={v:.4f}" for k, v in rec.items() if k != "iter"
+                ))
+                if scalar_log is not None:
+                    scalar_log.log(it, **rec)
+                if checkpoint_dir:
+                    cd = Path(checkpoint_dir)
+                    cd.mkdir(parents=True, exist_ok=True)
+                    self.save_checkpoint(cd / f"state_iter{it}.npz")
+                self._history.append(rec)
+        finally:
+            gmm_release_plans()
         return self._history
 
     def outer_iteration(self, it: int, labels: np.ndarray | None = None

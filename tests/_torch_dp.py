@@ -141,6 +141,65 @@ def gmm(rank, world, cases):
     return res
 
 
+def _per_iteration_loop(st, e_step, m_step, max_iter, tol, plan=None):
+    """The EM loop the port ran before its device program, on the state of
+    ``losses.gmm._em_state``: a host check at the top of every
+    iteration."""
+    means, chol, log_w = st["means"], st["chol"], st["log_w"]
+    batch = means.shape[:-2]
+    prev_ll = torch.full(batch, -float("inf"))
+    ll = torch.full(batch, -float("inf"))
+    active = torch.ones(batch, dtype=torch.bool)
+    n_iter = torch.zeros(batch, dtype=torch.int32)
+    for it in range(max_iter):
+        if tol > 0 and it >= 2:
+            active = active & (ll - prev_ll > tol)
+            if not bool(active.any()):
+                break
+        resp, new_ll = e_step(means, chol, log_w)
+        n_means, n_chol, n_log_w, info = m_step(resp)
+        assert not bool((info[active] != 0).any())
+        means = torch.where(active[..., None, None], n_means, means)
+        chol = torch.where(active[..., None, None, None], n_chol, chol)
+        log_w = torch.where(active[..., None], n_log_w, log_w)
+        prev_ll = torch.where(active, ll, prev_ll)
+        ll = torch.where(active, new_ll, ll)
+        n_iter += active.to(torch.int32)
+    return {"means": means, "chol": chol, "log_w": log_w, "n_iter": n_iter}
+
+
+def gmm_loops(rank, world, X, K, seed, cases):
+    """For each keyword set in ``cases``: ``gmm_em_fit_sharded`` (with
+    ``ran``, the EM iterations its loop ran), then the same fit through
+    the per-iteration loop, each from a host generator seeded ``seed``."""
+    from come_tpu_torch.losses import gmm
+
+    res = []
+    for kw in cases:
+        ran = [0]
+        one, loop = gmm._em_iteration, gmm._em_while_loop
+
+        def counted(*a):
+            ran[0] += 1
+            return one(*a)
+
+        def fit():
+            out = gmm.gmm_em_fit_sharded(
+                torch.as_tensor(X), None, K,
+                torch.Generator().manual_seed(seed), **kw)
+            return {k: _np(v) for k, v in out.items()}
+
+        try:
+            gmm._em_iteration = counted
+            out = fit() | {"ran": ran[0]}
+            gmm._em_while_loop = _per_iteration_loop
+            ref = fit()
+        finally:
+            gmm._em_iteration, gmm._em_while_loop = one, loop
+        res.append((out, ref))
+    return res
+
+
 # ------------------------------------------------------------- trainers
 
 

@@ -26,7 +26,13 @@ the full bf16 check against K2b and the f32 tolerance against K2; P4's
 values and P2's sum must equal their plain versions exactly, and the
 parity harness must pass on the card.  Six consecutive K1, K3 and K2
 steps through one launch plan's graph each (``chip_smoke.graph_steps``)
-must each pass their mode's check, with at most one instantiation.
+must each pass their mode's check, with at most one instantiation.  G1
+(``ops/gmm_factor.py``) is held to its plain version under
+``chip_smoke.G1_RTOL``'s rule (relative Frobenius error of L and of the
+inverse within 1e-4, or no farther from the float64 plain version than the
+f32 plain version is) with equal info flags; the EM replayed as a graph
+must give the eager EM's bits and iterations, and the EM with G1 the
+torch.linalg EM's log-likelihood within 1e-4 relative.
 """
 
 import numpy as np
@@ -61,7 +67,15 @@ from come_tpu_torch.sampling import build_star_layout
 from come_tpu_torch.tools.probe_star import VARIANTS as PROBE_VARIANTS
 from come_tpu_torch.trainer import ComETrainer
 
-from chip_smoke import FUSED_EDGES, STAR_EDGES, graph_steps, star_edge_layout
+from chip_smoke import (
+    FUSED_EDGES,
+    STAR_EDGES,
+    em_graph_check,
+    em_linalg_check,
+    g1_check,
+    graph_steps,
+    star_edge_layout,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -771,3 +785,47 @@ def test_dp_world_1_nccl_step_matches_single_device(dev, tmp_path):
         assert dp.words_seen == one.words_seen == 64 * cfg.walk_length
     finally:
         dist.destroy_process_group()
+
+
+def _spd_moments(dev, n, K, d, pts, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, K, pts, d), generator=g, device=dev) * 0.1
+    x = x + torch.randn((n, K, 1, d), generator=g, device=dev)
+    return x.transpose(-1, -2) @ x, torch.full((n, K), float(pts), device=dev)
+
+
+@pytest.mark.parametrize("n,K,d,pts", [(2, 39, 128, 260), (2, 39, 128, 64),
+                                       (4, 2, 16, 30), (1, 3, 1, 5),
+                                       (1, 5, 100, 333)])
+def test_g1_matches_plain(dev, n, K, d, pts):
+    cov, nk = _spd_moments(dev, n, K, d, pts, seed=d + pts)
+    g1_check(f"{n}x{K}x{d}", cov, nk, 1e-5)
+
+
+def test_g1_flags_a_non_positive_pivot(dev):
+    from come_tpu_torch.ops.gmm_factor import gmm_factor, gmm_factor_reference
+
+    cov, nk = _spd_moments(dev, 1, 4, 32, 100, seed=1)
+    cov[0, 2, 5, 5] = -1.0  # the leading minor of order 6 of matrix 2
+    _, info = gmm_factor(cov, nk, 1e-5)
+    _, ref = gmm_factor_reference(cov, nk, 1e-5)
+    assert info.tolist() == ref.tolist() == [[0, 0, 6, 0]]
+    with pytest.raises(ValueError):
+        gmm_factor(torch.zeros((1, 129, 129), device=dev),
+                   torch.ones((1,), device=dev), 1e-5)
+
+
+@pytest.mark.parametrize("N,d,K,n_init,tol", [(600, 16, 4, 2, 1e-3),
+                                              (2000, 128, 8, 2, 1e-3),
+                                              (500, 8, 3, 3, 0.0)])
+def test_graph_em_equals_eager_em(dev, N, d, K, n_init, tol):
+    from come_tpu_torch.losses.gmm import _kmeans_init
+
+    g = torch.Generator(device=dev).manual_seed(N)
+    centers = torch.randn((K, d), generator=g, device=dev) * 2.0
+    lab = torch.randint(0, K, (N,), generator=g, device=dev)
+    X = centers[lab] + torch.randn((N, d), generator=g, device=dev)
+    hg = torch.Generator().manual_seed(0)
+    resp0 = torch.stack([_kmeans_init(X, K, hg) for _ in range(n_init)])
+    em_graph_check(X, resp0, 1e-5, 25, tol)
+    em_linalg_check(X, resp0, 1e-5, 25, tol)

@@ -250,6 +250,10 @@ def test_port_imports_without_jax():
     assert {f"come_tpu_torch.{m}" for m in (
         "parallel.exchange", "parallel.walk_exchange",
         "tools.rs_check")} <= names
+    # the EM as a device program with G1, the first-iteration tool
+    assert {f"come_tpu_torch.{m}" for m in (
+        "ops.gmm_factor", "ops.launch_plan", "losses.gmm",
+        "tools.first_iter")} <= names
     # the quality sweep, its artifact and t-SNE
     assert {f"come_tpu_torch.{m}" for m in (
         "tools.eval_sweep", "tools.build_eval_artifact",
