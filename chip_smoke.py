@@ -220,7 +220,16 @@ After phase 19:
                points in 128 dimensions): the largest relative Frobenius
                error of L and of inv_cov within 1e-4, or no farther from
                the float64 plain version than the f32 plain version is,
-               and equal info flags; the EM as one WHILE-graph launch
+               and equal info flags; the same at synthetic-10m's [1, 64,
+               128, 128] and flickr's [1, 195, 128, 128] shapes and at d in
+               G1_WIDTHS (panels of 16 whole and ragged) on g1_moments; a
+               non-positive pivot placed at the first, middle and last
+               column of every panel (g1_pivot_batch) flagged exactly as
+               torch.linalg.cholesky_ex flags it; the device time per call
+               of G1 and of its plain versions and library calls (20 calls
+               back to back behind a sleep, tools/g1_times.py) at the three
+               shapes, beside one call's time from an idle card (which
+               includes the host's enqueue); the EM as one WHILE-graph launch
                against the eager EM, both with G1, from the same k-means
                responsibilities: the same iterations per restart and the
                same bits, through a fresh plan and again on a moved table
@@ -236,7 +245,9 @@ its body recorded, times the iterations the device ran).  Every
 phase line ends with its seconds.  Then a JSON line of the
 kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
 bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
-is a probe and on no path), each with its bound: the larger of the bytes
+is a probe and on no path; G1's ms, plain_ms and library_ms the device
+time per call of phase 21, the others one call from an idle card), each
+with its bound: the larger of the bytes
 it must move (each touched row and each input read once, each output
 written once) over 3.35 TB/s and the operations its inputs need over 67
 TFLOP/s (f32 products) or 989 TFLOP/s (bf16 products; the H100 SXM's
@@ -969,6 +980,46 @@ GMM_KERNELS = ("gmm_factor", "gmm_inverse")
 # at least as close to the plain version run in float64 as the f32 plain
 # version does (tools/hot_row.py's float64 rule).
 G1_RTOL = 1e-4
+# G1 at the presets' shapes [n_init, K, d] (config/presets.py: blogcatalog,
+# synthetic-10m, flickr) and at ragged widths: a panel is 16 columns, and d
+# is padded to a multiple of 16
+G1_SHAPES = ((2, 39, 128), (1, 64, 128), (1, 195, 128))
+G1_WIDTHS = (1, 15, 16, 17, 31, 33, 100, 127, 128)
+
+
+def g1_moments(n, K, d, seed, pts=None):
+    """M-step-like moments from numpy: (cov f32 [n, K, d, d], the scatter of
+    ``pts`` (2 d + 5) points about their mean, not yet divided by nk; nk f32
+    [n, K]).  The card tests and tests/test_torch_g1.py share them."""
+    pts = pts or 2 * d + 5
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, K, pts, d), dtype=np.float32)
+    x = x * rng.uniform(0.2, 2.0, (n, K, 1, d)).astype(np.float32)
+    x = x - x.mean(-2, keepdims=True)
+    return (np.swapaxes(x, -1, -2) @ x).astype(np.float32), np.full(
+        (n, K), float(pts), np.float32)
+
+
+def g1_pivot_cols(d):
+    """Columns that get a non-positive pivot: the first, the middle and the
+    last column of every panel of 16, the ragged last one included."""
+    cols = set()
+    for start in range(0, d, 16):
+        end = min(start + 16, d)
+        cols |= {start, start + (end - start - 1) // 2, end - 1}
+    return sorted(cols)
+
+
+def g1_pivot_batch(d, seed):
+    """(cov [1, B, d, d], nk [1, B], info [1, B]): matrix b < B - 1 has
+    A[k][k] = -1 + reg for the b-th of :func:`g1_pivot_cols` k, so its
+    first non-positive pivot is column k (info k + 1); the last is left
+    positive definite (info 0)."""
+    cols = g1_pivot_cols(d)
+    cov, nk = g1_moments(1, len(cols) + 1, d, seed)
+    for b, k in enumerate(cols):
+        cov[0, b, k, k] = -nk[0, b]
+    return cov, nk, np.array([[k + 1 for k in cols] + [0]], np.int32)
 
 
 def _moments(X, K, n_init, seed):
@@ -1017,6 +1068,41 @@ def g1_check(where, cov, nk, reg) -> dict:
             raise AssertionError(f"G1 {where}: {k} {err}")
     err["by_f64"] = max(err["L"], err["inv"]) > G1_RTOL
     return err
+
+
+def g1_wider_checks(dev) -> str:
+    """G1 against its plain version (G1_RTOL's rule) at the other presets'
+    shapes and at the ragged widths, on g1_moments; the info flags of
+    g1_pivot_batch equal to cholesky_ex's and to the placed pivots' at every
+    width.  Returns the phase line's part."""
+    from come_tpu_torch.ops.gmm_factor import gmm_factor, gmm_factor_reference
+
+    def on_card(*arrays):
+        return (torch.from_numpy(a).to(dev) for a in arrays)
+
+    worst = {"L": 0.0, "inv": 0.0}
+    cases = [(n, K, d, SEED) for n, K, d in G1_SHAPES[1:]]
+    cases += [(2, 3, d, d) for d in G1_WIDTHS]
+    for n, K, d, seed in cases:
+        err = g1_check(f"[{n}, {K}, {d}, {d}]", *on_card(
+            *g1_moments(n, K, d, seed)), 1e-5)
+        worst = {k: max(v, err[k]) for k, v in worst.items()}
+    pivots = 0
+    for d in G1_WIDTHS:
+        cov, nk, want = g1_pivot_batch(d, 100 + d)
+        cov, nk = on_card(cov, nk)
+        _, info = gmm_factor(cov, nk, 1e-5)
+        _, ref = gmm_factor_reference(cov, nk, 1e-5)
+        if not info.tolist() == ref.tolist() == want.tolist():
+            raise AssertionError(f"G1 pivots at d {d}: {info.tolist()}, "
+                                 f"cholesky_ex {ref.tolist()}, placed "
+                                 f"{want.tolist()}")
+        pivots += want.size - 1
+    return (f"synthetic-10m's and flickr's shapes and d in {list(G1_WIDTHS)}:"
+            f" worst rel Frobenius L {worst['L']:.3e}, inv {worst['inv']:.3e}"
+            f" (each within {G1_RTOL:g} or by the float64 rule); {pivots} "
+            f"placed pivots (first, middle, last column of each panel) flagged"
+            f" as cholesky_ex flags them")
 
 
 def em_graph_check(X, resp0, reg, max_iter, tol) -> list:
@@ -1078,13 +1164,7 @@ def em_linalg_check(X, resp0, reg, max_iter, tol) -> dict:
 def first_iter_phase(dev, smi: str, X, K: int) -> dict:
     """Phase 21 (module docstring).  ``X``: phase 5's trained table.
     Returns G1's kernel-line numbers."""
-    from come_tpu_torch.ops.gmm_factor import (
-        gmm_factor,
-        gmm_factor_reference,
-        gmm_inverse,
-        gmm_inverse_reference,
-    )
-    from come_tpu_torch.tools.pass_times import cuda_ms
+    from come_tpu_torch.tools import g1_times
 
     root = Path(__file__).resolve().parent
     res = subprocess.run(
@@ -1126,28 +1206,39 @@ def first_iter_phase(dev, smi: str, X, K: int) -> dict:
         X.shape[1], device=dev, dtype=torch.float64)).max()
     iters = em_graph_check(X, resp0, 1e-5, 60, 1e-3)
     lin = em_linalg_check(X, resp0, 1e-5, 60, 1e-3)
-    L, _ = gmm_factor(cov, nk, 1e-5)
-    A = cov / nk[..., None, None] + 1e-5 * torch.eye(X.shape[1], device=dev)
+    wide = g1_wider_checks(dev)
     nmat, d = nk.numel(), X.shape[1]
+    # device ms a call (g1_times: 20 calls back to back behind a sleep) at
+    # the presets' shapes, blogcatalog's first: the kernel line's
+    sleep = g1_times.Sleeper()
+    shapes = {(n, k, w): g1_times.time_shape(dev, n, k, w, 20, sleep, runs=3)
+              for n, k, w in G1_SHAPES}
+    t = {k: v["ms"] for k, v in shapes[G1_SHAPES[0]].items()}
+    idle = {k: v["idle_ms"] for k, v in shapes[G1_SHAPES[0]].items()}
     g1 = {
         "factor_err": max(err["L_abs"], err_s["L_abs"]),
-        "factor_ms": cuda_ms(lambda: gmm_factor(cov, nk, 1e-5)),
-        "factor_plain_ms": cuda_ms(
-            lambda: gmm_factor_reference(cov, nk, 1e-5)),
-        "factor_lib_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(A)),
+        "factor_ms": t["factor"], "factor_plain_ms": t["factor_plain"],
+        "factor_lib_ms": t["factor_lib"],
         # cov read, L written (f32), nk read, info written; d^3 / 3
         # multiply-adds a matrix
         "factor_bound": bound(nmat * 2.0 * d ** 3 / 3,
                               nmat * (8.0 * d * d + 8.0), False),
         "inverse_err": max(err["inv_abs"], err_s["inv_abs"]),
-        "inverse_ms": cuda_ms(lambda: gmm_inverse(L)),
-        "inverse_plain_ms": cuda_ms(lambda: gmm_inverse_reference(L)),
-        "inverse_lib_ms": cuda_ms(lambda: torch.cholesky_inverse(L)),
+        "inverse_ms": t["inverse"], "inverse_plain_ms": t["inverse_plain"],
+        "inverse_lib_ms": t["inverse_lib"],
         # L read, inv written; L^-1 and the symmetric W^T W, d^3 / 6
         # multiply-adds each
         "inverse_bound": bound(nmat * 2.0 * d ** 3 / 3,
                                nmat * 8.0 * d * d, False),
     }
+    by_shape = "; ".join(
+        f"[{n}, {k}, {w}, {w}] factor {r['factor']['ms']:.4f} (idle "
+        f"{r['factor']['idle_ms']:.4f}, cholesky_ex {r['factor_lib']['ms']:.4f}"
+        f"), inverse {r['inverse']['ms']:.4f} (idle "
+        f"{r['inverse']['idle_ms']:.4f}, cholesky_inverse "
+        f"{r['inverse_lib']['ms']:.4f}, profiler "
+        f"{r['inverse_lib']['prof_ms'] or float('nan'):.4f})"
+        for (n, k, w), r in shapes.items())
     phase("G1", (
         f"gmm_factor vs plain at blogcatalog's moments [{nmat} x {d} x {d}]: "
         f"rel Frobenius L {err['L']:.3e}, inv {err['inv']:.3e} (bound "
@@ -1158,12 +1249,14 @@ def first_iter_phase(dev, smi: str, X, K: int) -> dict:
         f"(vs float64: kernel {err_s['L_f64']:.3e} / {err_s['inv_f64']:.3e},"
         f" plain {err_s['L_plain_f64']:.3e} / {err_s['inv_plain_f64']:.3e}"
         f"{'; by the float64 rule' if err_s['by_f64'] or err['by_f64'] else ''}"
-        f") | factor {g1['factor_ms']:.4f} ms (plain "
-        f"{g1['factor_plain_ms']:.4f}, torch.linalg.cholesky_ex "
-        f"{g1['factor_lib_ms']:.4f}, bound {g1['factor_bound'][0]:.4f} by "
-        f"{g1['factor_bound'][1]}), inverse {g1['inverse_ms']:.4f} ms "
-        f"(torch.cholesky_inverse {g1['inverse_lib_ms']:.4f}, bound "
-        f"{g1['inverse_bound'][0]:.4f}) | graph EM = eager EM bit for bit, "
+        f") | {wide} | device ms a call: factor {g1['factor_ms']:.4f} (idle "
+        f"card {idle['factor']:.4f}; plain {g1['factor_plain_ms']:.4f}, "
+        f"torch.linalg.cholesky_ex {g1['factor_lib_ms']:.4f}, bound "
+        f"{g1['factor_bound'][0]:.4f} by {g1['factor_bound'][1]}), inverse "
+        f"{g1['inverse_ms']:.4f} (idle card {idle['inverse']:.4f}; "
+        f"torch.cholesky_inverse {g1['inverse_lib_ms']:.4f}, bound "
+        f"{g1['inverse_bound'][0]:.4f}) | by preset shape: {by_shape} | "
+        f"graph EM = eager EM bit for bit, "
         f"iterations per restart {iters} | G1 EM vs torch.linalg EM: ll rel "
         f"{lin['ll_rel']:.3e}, NMI {lin['nmi']:.4f}, iterations "
         f"{lin['iters']} vs {lin['iters_linalg']} | {smi}"))
@@ -2533,7 +2626,7 @@ def main() -> int:
               g1["factor_plain_ms"], g1["factor_bound"],
               g1["factor_lib_ms"]),
         entry("gmm_inverse", "gmm_factor.cu",
-              "come_tpu/losses/gmm.py:151 (XLA cho_solve)",
+              "come_tpu/losses/gmm.py:163 (XLA cho_solve)",
               launches["gmm_inverse"], g1["inverse_err"], g1["inverse_ms"],
               g1["inverse_plain_ms"], g1["inverse_bound"],
               g1["inverse_lib_ms"]),

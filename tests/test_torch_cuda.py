@@ -30,7 +30,11 @@ must each pass their mode's check, with at most one instantiation.  G1
 (``ops/gmm_factor.py``) is held to its plain version under
 ``chip_smoke.G1_RTOL``'s rule (relative Frobenius error of L and of the
 inverse within 1e-4, or no farther from the float64 plain version than the
-f32 plain version is) with equal info flags; the EM replayed as a graph
+f32 plain version is) with equal info flags, at the presets' shapes and at
+widths whose panels of 16 are whole or ragged (``chip_smoke.G1_WIDTHS``, on
+``tests/test_torch_g1.py``'s matrices); a non-positive pivot at the first,
+middle or last column of a panel, or in a ragged last one, must get
+``cholesky_ex``'s info flag; the EM replayed as a graph
 must give the eager EM's bits and iterations, and the EM with G1 the
 torch.linalg EM's log-likelihood within 1e-4 relative.
 """
@@ -69,10 +73,13 @@ from come_tpu_torch.trainer import ComETrainer
 
 from chip_smoke import (
     FUSED_EDGES,
+    G1_WIDTHS,
     STAR_EDGES,
     em_graph_check,
     em_linalg_check,
     g1_check,
+    g1_moments,
+    g1_pivot_batch,
     graph_steps,
     star_edge_layout,
 )
@@ -796,10 +803,28 @@ def _spd_moments(dev, n, K, d, pts, seed):
 
 @pytest.mark.parametrize("n,K,d,pts", [(2, 39, 128, 260), (2, 39, 128, 64),
                                        (4, 2, 16, 30), (1, 3, 1, 5),
-                                       (1, 5, 100, 333)])
+                                       (1, 5, 100, 333), (1, 64, 128, 260),
+                                       (1, 195, 128, 260)])
 def test_g1_matches_plain(dev, n, K, d, pts):
     cov, nk = _spd_moments(dev, n, K, d, pts, seed=d + pts)
     g1_check(f"{n}x{K}x{d}", cov, nk, 1e-5)
+
+
+@pytest.mark.parametrize("d", G1_WIDTHS)
+def test_g1_ragged_widths_match_plain(dev, d):
+    cov, nk = (torch.from_numpy(v).to(dev) for v in g1_moments(2, 3, d, d))
+    g1_check(f"d {d}", cov, nk, 1e-5)
+
+
+@pytest.mark.parametrize("d", G1_WIDTHS)
+def test_g1_pivot_positions_match_cholesky_ex(dev, d):
+    from come_tpu_torch.ops.gmm_factor import gmm_factor, gmm_factor_reference
+
+    cov, nk, want = g1_pivot_batch(d, 100 + d)
+    cov, nk = torch.from_numpy(cov).to(dev), torch.from_numpy(nk).to(dev)
+    _, info = gmm_factor(cov, nk, 1e-5)
+    _, ref = gmm_factor_reference(cov, nk, 1e-5)
+    assert info.tolist() == ref.tolist() == want.tolist()
 
 
 def test_g1_flags_a_non_positive_pivot(dev):
