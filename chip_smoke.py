@@ -50,8 +50,9 @@ non-zero and prints no result line):
                (pool staging) and pool apply, and the K1 and K3 lines the
                device busy share of one step; the K2 and K2b bench lines
                those of the star group loop, star (star_pos_kernel) in the
-               band's place, and the K6 line those of a tile: positive,
-               negative and scatter; come_tpu_torch/tools/pass_times.py)
+               band's place, and the K6 and K7 lines those of a tile:
+               positive, negative, scatter, stage and pool apply;
+               come_tpu_torch/tools/pass_times.py)
   5. main    — come_tpu_torch.main on --dataset blogcatalog (pretrain 1,
                outer 1) on cuda, with the kernels' launch counters reset
                just before and read just after; the walk and star kernels'
@@ -60,7 +61,18 @@ non-zero and prints no result line):
                shape: instantiations <= the shapes that stepped)
   6. K6      — one BlogCatalog-width O1 micro-step (32768 window pairs of
                256 real walks, down_sample 1e-3 masks, KP 512, 32 tiles)
-               through the fused SGNS kernel and its plain version
+               through the fused SGNS kernel and its plain version; first
+               six micro-steps at that shape through one fresh launch plan
+               (fused_steps: lr, the pairs, the mask and the pool new at
+               every step, the second tile all masked, the tables moved
+               once), each held against its plain version, with one
+               instantiation and five updates; then, on tables it updates
+               in place, ms from an idle card and ms a step in a run of 6,
+               the host's ms to enqueue a step in a run of 6, the device µs
+               a tile of each pass (positive, negative, scatter; stage and
+               pool apply per tile too) and tools/pass_times.py's timeline:
+               the gaps between the step's kernels and the covered share of
+               its span (the micro-step is one replayed graph)
   7. K7      — the same on one tied table with 32768 arcs
   8. karate  — the CLI's default karate preset (per-pair negatives): no
                SGNS kernel may launch (G1 does, in the GMM fits)
@@ -68,6 +80,9 @@ non-zero and prints no result line):
  10. micro   — the micro-batched main path through the CLI: blogcatalog
                with --down-sample 1e-3 --o2-mode xla (walks per node 2,
                pretrain 0, outer 1): O1 through K6, O2 per arc through K7
+               (phases 9 and 10 print the graph counters: every micro-step
+               recorded and replayed, instantiations <= the shapes that
+               stepped)
  11. paired  — the CLI on --dataset blogcatalog --o2-mode paired (pretrain
                1, outer 1): O1 through K1, O2 through K5, no K2
  11b. host   — ComETrainer on the blogcatalog preset with corpus="host"
@@ -630,6 +645,91 @@ def graph_steps(mode: str, dev, n: int = 6) -> list:
         err = check_k3(name, before, kern[:2], plain[:2], f32[:2])
         errs.append((err[0], err[3]))
     return errs
+
+
+def fused_steps(tied: bool, dev, V: int, d: int, P: int, TP: int, KP: int,
+                n: int = 6) -> list:
+    """Phases 6-7's sequence (and tests/test_torch_cuda.py's): ``n``
+    consecutive K6 (K7 if ``tied``) micro-steps of P pairs in tiles of TP
+    through one launch plan, with lr, the pairs, the mask (0.6 valid; the
+    second tile all masked) and the pool of KP rows new at every step and
+    the tables moved to new addresses once, before step n // 2; each step
+    is held against its plain version from the same tables under the f32
+    check.  Returns each step's (max_abs, max_rel); raises at the first step
+    past the check."""
+    from come_tpu_torch.ops.sgns import (
+        fused_sgns_step,
+        fused_sgns_step_reference,
+        fused_sgns_step_tied,
+        fused_sgns_step_tied_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(V + P + TP)
+    tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+            for _ in range(1 if tied else 2)]
+    kern_fn, plain_fn = ((fused_sgns_step_tied, fused_sgns_step_tied_reference)
+                         if tied else
+                         (fused_sgns_step, fused_sgns_step_reference))
+    errs = []
+    for step in range(n):
+        lr, name = 0.025 * (1.0 + 0.2 * step), \
+            f"{'K7' if tied else 'K6'} plan step {step}"
+        if step == n // 2:
+            moved = [t.clone() for t in tabs]
+            if any(a.data_ptr() == b.data_ptr() for a, b in zip(moved, tabs)):
+                raise AssertionError(f"{name}: the tables did not move")
+            tabs = moved
+        before = [t.clone() for t in tabs]
+        c, x, pool = (torch.randint(0, V, (k,), generator=g, device=dev,
+                                    dtype=torch.int32) for k in (P, P, KP))
+        m = (torch.rand(P, generator=g, device=dev) < 0.6).float()
+        m[TP:2 * TP] = 0.0
+        args = (c, x, pool, m, lr, 5.0 / KP)
+        kern = kern_fn(*tabs, *args, tile_pairs=TP)
+        plain = plain_fn(*[t.clone() for t in before], *args, tile_pairs=TP)
+        torch.cuda.synchronize()
+        errs.append(compare(name, before, kern, plain)[:2])
+    return errs
+
+
+def fused_counts(where: str, entry: str) -> str:
+    """The graph counters of :func:`fused_steps`' six steps on a fresh plan,
+    checked: six recorded and replayed, one instantiation, five updates,
+    one shape."""
+    from come_tpu_torch.ops import launch_plan
+
+    c = launch_plan.graph_counts()[entry]
+    if (c["recordings"], c["replays"], c["instantiations"], c["updates"],
+            c["shapes"]) != (6, 6, 1, 5, 1):
+        raise AssertionError(f"{where}: graph counters {c}")
+    return graph_line(where, {entry: c})
+
+
+def fused_times(step, tiles: int = 32) -> dict:
+    """A K6/K7 micro-step's times on tables it updates in place
+    (tools/pass_times.py): ms from an idle card, ms a step in a run of 6,
+    host ms a step enqueued in a run of 6, device µs a tile by pass, the
+    gaps between the step's kernels and the covered share of its span."""
+    from come_tpu_torch.tools import pass_times as pt
+
+    t = dict(ms=pt.cuda_ms(step), run_ms=pt.chained_ms(step, n=6),
+             host_ms=pt.enqueue_ms(step, n=6))
+    t["split"], _ = pt.pass_split(step, tiles, pt.FUSED_PASSES)
+    tl = pt.timeline(step, pt.FUSED_PASSES)
+    return dict(t, gap=tl["gap_us"], covered=min(tl["covered"]),
+                span=min(tl["span_us"]), kernels=tl["kernels_per_step"])
+
+
+def fused_text(t: dict) -> str:
+    from come_tpu_torch.tools.pass_times import split_text
+
+    g = t["gap"]
+    return (f"kernel {t['ms']:.3f} ms from idle, {t['run_ms']:.3f} ms a step "
+            f"in a run of 6, host {t['host_ms']:.3f} ms a step enqueued | "
+            f"device us per tile: {split_text(t['split'])} | gaps median "
+            f"{g['median']:.3f} us (p10 {g['p10']:.3f}, p90 {g['p90']:.3f}),"
+            f" covered {t['covered']:.1%} of a {t['span']:.1f} us span "
+            f"({t['kernels'][0]} kernels a step)")
 
 
 def graph_line(where: str, counts: dict) -> str:
@@ -1327,7 +1427,6 @@ def main() -> int:
         subsample_keep_probs,
     )
     from come_tpu_torch.tools.pass_times import (
-        FUSED_PASSES,
         STAR_PASSES,
         cuda_ms,
         device_us,
@@ -2026,20 +2125,32 @@ def main() -> int:
         return fn(emb_in.clone(), emb_out.clone(), c, x, pool, m, lr, negw,
                   tile_pairs=TP)
 
+    # six micro-steps through one fresh plan, each held against its plain
+    # version (fused_steps), then the phase's own pairs
+    launch_plan.release_plans(lib, "fused_sgns")
+    launch_plan.reset_counts()
+    seq6 = fused_steps(False, dev, V, d, 32768, TP, KP)
+    seq6_line = fused_counts("K6 plan", "fused_sgns")
     kern6 = k6(fused_sgns_step)
     plain6 = k6(fused_sgns_step_reference)
     torch.cuda.synchronize()
     k6_err = compare("K6", (emb_in, emb_out), kern6, plain6)
+    k6_err = max(k6_err[0], max(e[0] for e in seq6)), *k6_err[1:]
     k6_bound = pairs_bound(c, x, m, pool, d, False)
-    k6_ms = cuda_ms(lambda: k6(fused_sgns_step))
     k6_plain_ms = cuda_ms(lambda: k6(fused_sgns_step_reference))
+    work = [emb_in.clone(), emb_out.clone()]  # updated in place, no clones
+    k6_t = fused_times(lambda: fused_sgns_step(
+        *work, c, x, pool, m, lr, negw, tile_pairs=TP))
+    k6_ms = k6_t["ms"]
     phase("K6", f"fused_sgns V={V} d={d} P={c.numel()} TP={TP} KP={KP} "
                 f"(32 tiles): max_abs {k6_err[0]:.3e} max_rel "
                 f"{k6_err[1]:.3e} loss_rel {k6_err[2]:.3e} pairs "
-                f"{float(kern6[3]):.0f} | kernel {k6_ms:.3f} ms, plain "
-                f"{k6_plain_ms:.3f} ms (tol {ATOL} + {RTOL}*|plain update|) "
-                f"| device us per tile: " + split_text(pass_split(
-                    lambda: k6(fused_sgns_step), 32, FUSED_PASSES)[0]))
+                f"{float(kern6[3]):.0f}; 6 steps through one plan (new lr, "
+                f"pairs, pool; tables moved once; tile 2 all masked) worst "
+                f"max_abs {max(e[0] for e in seq6):.3e} max_rel "
+                f"{max(e[1] for e in seq6):.3e} ({seq6_line}) | "
+                f"{fused_text(k6_t)}, plain {k6_plain_ms:.3f} ms (tol "
+                f"{ATOL} + {RTOL}*|plain update|)")
 
     # 7. K7 on the tied table: 32768 shuffled arcs
     src, dst = (torch.as_tensor(a, device=dev) for a in ds.graph.arcs())
@@ -2050,18 +2161,31 @@ def main() -> int:
         return fn(emb_in.clone(), src[arcs], dst[arcs], pool, ones, lr, negw,
                   tile_pairs=TP)
 
+    launch_plan.release_plans(lib, "fused_sgns_tied")
+    launch_plan.reset_counts()
+    seq7 = fused_steps(True, dev, V, d, 32768, TP, KP)
+    seq7_line = fused_counts("K7 plan", "fused_sgns_tied")
     kern7 = k7(fused_sgns_step_tied)
     plain7 = k7(fused_sgns_step_tied_reference)
     torch.cuda.synchronize()
     k7_err = compare("K7", (emb_in,), kern7, plain7)
+    k7_err = max(k7_err[0], max(e[0] for e in seq7)), *k7_err[1:]
     k7_bound = pairs_bound(src[arcs], dst[arcs], ones, pool, d, True)
-    k7_ms = cuda_ms(lambda: k7(fused_sgns_step_tied))
     k7_plain_ms = cuda_ms(lambda: k7(fused_sgns_step_tied_reference))
+    work7 = emb_in.clone()
+    c7, x7 = src[arcs], dst[arcs]
+    k7_t = fused_times(lambda: fused_sgns_step_tied(
+        work7, c7, x7, pool, ones, lr, negw, tile_pairs=TP))
+    k7_ms = k7_t["ms"]
     phase("K7", f"fused_sgns_tied V={V} d={d} P={arcs.numel()} TP={TP} "
                 f"KP={KP} (32 tiles): max_abs {k7_err[0]:.3e} max_rel "
                 f"{k7_err[1]:.3e} loss_rel {k7_err[2]:.3e} pairs "
-                f"{float(kern7[2]):.0f} | kernel {k7_ms:.3f} ms, plain "
-                f"{k7_plain_ms:.3f} ms (tol {ATOL} + {RTOL}*|plain update|)")
+                f"{float(kern7[2]):.0f}; 6 steps through one plan worst "
+                f"max_abs {max(e[0] for e in seq7):.3e} max_rel "
+                f"{max(e[1] for e in seq7):.3e} ({seq7_line}) | "
+                f"{fused_text(k7_t)}, plain {k7_plain_ms:.3f} ms (tol "
+                f"{ATOL} + {RTOL}*|plain update|)")
+    del work, work7
     del emb_in, emb_out, kern6, plain6, kern7, plain7
     torch.cuda.empty_cache()
 
@@ -2101,8 +2225,9 @@ def main() -> int:
                    ("fused_sgns", "fused_sgns_tied"),
                    tuple(k for k in kernels if not k.startswith("fused")))
     check_run("karate shared", hist, KARATE_SHARED_NMI_FLOOR)
+    graphs9 = graph_line("karate shared", launch_plan.graph_counts())
     phase("shared", f"karate shared negatives: NMI {hist[-1]['nmi']:.4f} | "
-                    f"launches {launches9}")
+                    f"launches {launches9} | graphs: {graphs9}")
 
     # 10. the micro-batched main path through the CLI
     reset_counts()
@@ -2115,6 +2240,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     micro_launches = counts()
+    micro_graphs = graph_line("micro-batched path",
+                              launch_plan.graph_counts())
     check_launches("micro-batched path", micro_launches,
                    ("fused_sgns", "fused_sgns_tied"),
                    tuple(k for k in kernels if not k.startswith("fused")))
@@ -2134,7 +2261,8 @@ def main() -> int:
                    f"{rec['o2_ms']:.1f} ms, o3 {rec['o3_ms']:.1f} ms | "
                    f"o1_pairs {rec['o1_pairs']:.0f} o2_pairs "
                    f"{rec['o2_pairs']:.0f} (S={S}, B={B}) | NMI "
-                   f"{rec['nmi']:.4f} | launches {micro_launches}")
+                   f"{rec['nmi']:.4f} | launches {micro_launches} | "
+                   f"graphs: {micro_graphs}")
     del trainer
     torch.cuda.empty_cache()
 

@@ -44,10 +44,11 @@
 //     into one 16-byte atomic.
 // What bounds either on the card is not its arithmetic alone but the
 // latency of each chunk's steps and the merging of partial sums (PERF.md).
-// The group loops give the pass a dphi buffer of its own, zeroed by the
-// positive pass, and their scatter adds the two parts once, as the plain
-// versions add them: partial sums added onto the positive part would each
-// round at its magnitude, which on a heavily repeated row is far larger.
+// The loops give the pass a dphi buffer of its own, zeroed by the positive
+// pass (K6/K7: once a step, then by each scatter), and their scatter adds
+// the two parts once, as the plain versions add them: partial sums added
+// onto the positive part would each round at its magnitude, which on a
+// heavily repeated row is far larger.
 //
 // K3 (bf16 tables) reads rows through to_f32 (the stage kernel and the bf16
 // negative kernel are templated on the table's element type) and writes
@@ -56,22 +57,29 @@
 // (pallas_walk_sgns.py:76-88), or truncated without them.
 //
 // Programmatic dependent launch (PDL).  The group loops (walk_sgns.cu,
-// star_sgns.cu) record a macro step as one CUDA graph (step_graph.cuh) and
-// launch every kernel after the first with launch_kernel(pdl = true): the
-// card may then start a kernel while the one before it drains.  Every
+// star_sgns.cu) and K6/K7's tile loop (sgns_fused.cu) record a step as one
+// CUDA graph (step_graph.cuh) and launch every kernel after the first with
+// launch_kernel(pdl = true): the card may then start a kernel while the one
+// before it runs.  A kernel's pdl_wait() returns once the kernel just
+// before it has completed and its writes are visible; the kernel after it
+// launches once each of its CTAs has called pdl_trigger() or exited.  Every
 // kernel a loop launches keeps one rule: each CTA calls pdl_wait() on every
-// path before it touches global memory that an earlier kernel of the step
-// writes or reads (tables, cneg, dneg, dphi, dctx, nt, stats) and before it
-// exits, and calls pdl_trigger() once its last such write is issued.  Since
-// no CTA can trigger (or exit) before its wait returns, a kernel starts only
-// once every kernel two or more places before it has completed, and its
-// wait returns only once the one just before it has.  What a kernel does
-// before its wait reads only inputs no kernel of the step writes (walks,
-// window draws, pools, star slots and meta, parameters; K4's generated walks
-// are written by the step's first kernel, complete before the third
-// starts), into registers and shared memory.  Each kernel's note says where
-// its wait stands.  A kernel launched without the attribute (K6/K7's and
-// P3's stream launches) returns from pdl_wait() at once.
+// path before it exits, and triggers only after its wait has returned.
+// Since no CTA can trigger (or exit) before its wait returns, a kernel
+// starts only once every kernel two or more places before it has
+// completed, and its wait returns only once the one just before it has.
+// So what a kernel does before its wait may touch only what the kernel just
+// before it neither writes nor reads (atomic adds to stats excepted: they
+// commute): in the walk and star loops, inputs no kernel of the step writes
+// (walks, window draws, pools, star slots and meta, parameters; K4's
+// generated walks are written by the step's first kernel, complete before
+// the third starts), read into registers and shared memory; in K6/K7's
+// loop, where a tile runs negative -> positive -> scatter, the positive
+// pass does all its work there (sgns_fused.cu).  The negative passes
+// trigger right after their wait, so the kernel after them starts while
+// they run; the other kernels trigger once their last write is issued.
+// Each kernel's note says where its wait stands.  A kernel launched without
+// the attribute (P3's stream launches) returns from pdl_wait() at once.
 
 #pragma once
 
@@ -411,8 +419,9 @@ static inline size_t negative_f32_smem_bytes(int d) {
 // where one atomic add per CTA would round each partial at the running
 // sum's magnitude.  A tile whose slots all have nt = 0 returns at once
 // (every CTA of its cluster).  PDL: the tile's slot ids are read before the
-// wait; cneg (pool staging), nt (the positive pass), the table rows (the
-// last scatter) and dphi/dneg after; it triggers once dphi is merged.
+// wait; cneg (pool staging), nt (the positive pass, or K6/K7's plan), the
+// table rows (the last scatter) and dphi/dneg after; it triggers right
+// after its wait.
 template <int NP>
 static __global__ void __launch_bounds__(NEG_THREADS, NP == 2 ? 3 : 2)
 negative_f32_kernel(const float* __restrict__ table,
@@ -439,6 +448,7 @@ negative_f32_kernel(const float* __restrict__ table,
   constexpr int CU = 4 * NP;  // a chunk's float4 pieces per thread
   if (t < NEG_MS) rows[t] = ids[base + t];
   pdl_wait();
+  pdl_trigger();
   float4 next[CU];
   load_batch<NEG_THREADS, CU, float>(next, t, NEG_KC, d, dp,
                                      pool_row(blockIdx.y));
@@ -603,7 +613,6 @@ negative_f32_kernel(const float* __restrict__ table,
     atomic_add4(dphi + (size_t)(base + i) * d, d, c,
                 make_float4((float)x, (float)y, (float)z, (float)w));
   }
-  pdl_trigger();
   cluster.sync();  // no CTA leaves while another reads its partial
   block_add<NEG_THREADS>(loss, &stats[0]);
 }
@@ -760,6 +769,7 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
   constexpr int CU = NTILE / 2;  // a chunk's pieces per thread
   if (threadIdx.x < NEG_MS) rows[threadIdx.x] = ids[base + threadIdx.x];
   pdl_wait();
+  pdl_trigger();
   float4 next[CU];
   load_batch<NEG_THREADS, CU, float>(next, threadIdx.x, NEG_KC, d, dp,
                                      pool_row(blockIdx.y));
@@ -876,7 +886,6 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
     if (n >= ntiles) break;
     red_tile(dphi + (size_t)base * d, d, ir, ok, ok8, 8 * n + fc, acc[n]);
   }
-  pdl_trigger();
   block_add<NEG_THREADS>(loss, &stats[0]);
 }
 

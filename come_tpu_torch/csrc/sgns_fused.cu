@@ -24,158 +24,328 @@
 // What bounds it on the H100: the negative pass, 3 x TP x KP x d
 // multiply-adds per tile, is compute; the positive scores are one dot
 // product per pair and the gathers and the scatter are row traffic
-// (4 x d x 4 bytes per pair).  This design reuses the walk and star
-// kernels' f32 negative pass (sgns_common.cuh: ceil(TP/128) x 2 tiles of 64
-// slots per tile of pairs, their pool chunks spread to fill the card; the
-// masked tail's all-empty tiles return at once), computes the positive
-// scores one warp per pair with lanes across
-// d (TP/8 CTAs, so the row loads of many pairs are in flight at once), and
-// keeps the tile order with stream-ordered launches; the host makes one
-// call per micro-step and the loop over tiles runs here.  The table
-// pointers are not __restrict__: K7 passes one table as both.
+// (4 x d x 4 bytes per pair).  The design:
+//   * a micro-step is one unit the card replays, as the TPU runs it as one
+//     pallas_call with a grid over the tiles: the C entry records the tile
+//     loop as a CUDA graph on the plan's private stream and replays it on
+//     the caller's (step_graph.cuh), every kernel after the first under
+//     programmatic dependent launch (PDL, sgns_common.cuh);
+//   * the plan (ops/sgns.py, ops/launch_plan.py) owns every buffer the loop
+//     reads besides the tables: the packed ids, the per-tile masks nt
+//     (written once a call, rows TP.. of each tile's last 128-row chunk 0),
+//     the pool, the scratch; the negative pass is sized once a plan;
+//   * a tile runs negative -> positive -> scatter.  The negative and the
+//     positive pass both read only what the previous tile's scatter left,
+//     and the negative pass no longer needs the positive one (nt is the
+//     plan's, its dphi part is zeroed once a call and then by each scatter
+//     after it reads a row), so the positive pass does all its work before
+//     its PDL wait, while the negative pass runs, and waits only to exit:
+//     a tile's critical path is its negative pass and its scatter;
+//   * the positive pass is one warp per pair with lanes across d, the
+//     scatter one warp per pair with 16-byte loads and atomics.
+// The table pointers are not __restrict__: K7 passes one table as both.
 
 #include "sgns_common.cuh"
+#include "step_graph.cuh"
 
 namespace come {
 
-// Positive term of one tile, one warp per pair.  grid ceil(TP/128) * 128 /
-// NWARPS, block THREADS; rows i >= TP of the last 128-row chunk are
-// written as empty (nt = 0).  Overwrites dphi, dcpos and nt, zeroes dphin
-// (which the negative pass then adds to), and adds the positive loss and the
-// pair count to stats.
+// An id of the caller's (int32, or int64 when `wide`) as int32.
+static __device__ __forceinline__ int id_at(const void* p, bool wide,
+                                            size_t i) {
+  return wide ? (int)static_cast<const long long*>(p)[i]
+              : static_cast<const int*>(p)[i];
+}
+
+// The step's first kernel (launched without PDL), in three block ranges:
+//   * k < KP: pool[k] = the caller's pool id k, cneg[k] = emb_out[pool[k]],
+//     dneg[k] = 0 (the pool staged once);
+//   * the next TPr / 8: zero the negative pass's part of dphi, 8 rows each;
+//   * the rest, a pair each thread: the call's P pairs packed into the
+//     plan's buffers as ops/launch_plan.py::FusedPlan.pack packs them: ids
+//     [3, n_tiles * TP + 128] i32 (centres, contexts, mask != 0; zero past
+//     P) and nt [n_tiles, TPr] f32 (pair j of tile t at t * TPr + j; rows
+//     TP.. stay 0, and so do the 128 extra ids).
+// grid KP + TPr / 8 + ceil(n_tiles * TP / 128), block 128.
+static __global__ void fused_stage_kernel(
+    const float* table, const void* __restrict__ pool_in, bool pool_wide,
+    const void* __restrict__ c_in, const void* __restrict__ x_in,
+    bool ids_wide, const float* __restrict__ m_in, int P,
+    int* __restrict__ ids, float* __restrict__ nt, int* __restrict__ pool,
+    float* __restrict__ cneg, float* __restrict__ dneg,
+    float* __restrict__ dphin, int d, int KP, int n_tiles, int TP) {
+  const int TPr = (TP + BLK - 1) / BLK * BLK;
+  const int k = blockIdx.x, zb = KP + TPr / 8;
+  if (k < KP) {
+    const int v = id_at(pool_in, pool_wide, k);
+    if (threadIdx.x == 0) pool[k] = v;
+    const size_t src = (size_t)v * d, dst = (size_t)k * d;
+    for (int j = threadIdx.x; j < d; j += blockDim.x) {
+      cneg[dst + j] = table[src + j];
+      dneg[dst + j] = 0.0f;
+    }
+  } else if (k < zb) {
+    float* rows = dphin + (size_t)(k - KP) * 8 * d;
+    for (int j = threadIdx.x; j < 8 * d; j += blockDim.x) rows[j] = 0.0f;
+  } else {
+    const size_t n = (size_t)n_tiles * TP, row = n + BLK;
+    const size_t j = (size_t)(k - zb) * blockDim.x + threadIdx.x;
+    if (j < n) {
+      const bool in = j < (size_t)P;
+      const bool valid = in && m_in[j] != 0.0f;
+      ids[j] = in ? id_at(c_in, ids_wide, j) : 0;
+      ids[row + j] = in ? id_at(x_in, ids_wide, j) : 0;
+      ids[2 * row + j] = valid;
+      nt[(j / TP) * TPr + j % TP] = valid ? 1.0f : 0.0f;
+    }
+  }
+  pdl_trigger();
+}
+
+// Positive term of one tile, one warp per pair i < TP (grid ceil(TP / 8),
+// block THREADS): dphi[i] = g cpos, dcpos[i] = g phi for the valid pairs
+// (nt[i] != 0), and the positive loss and the pair count added to stats.
+// PDL: it runs after the tile's negative pass, and all its work comes
+// before its wait: what it reads (ids, nt, the table rows the last scatter
+// wrote, read through L2) no kernel still running writes, and what it
+// writes (dphi, dcpos, stats by atomics) the running negative pass does not
+// touch, the scatter that read them last being complete (sgns_common.cuh's
+// note).  It waits only to exit, so the scatter after it starts once the
+// negative pass is complete.
 static __global__ void __launch_bounds__(THREADS)
 fused_pos_kernel(const float* emb_in, const float* emb_out,
                  const int* __restrict__ c, const int* __restrict__ x,
-                 const int* __restrict__ m, int d, int TP,
+                 const float* __restrict__ nt, int d, int TP,
                  float* __restrict__ dphi, float* __restrict__ dcpos,
-                 float* __restrict__ dphin, float* __restrict__ nt,
                  double* __restrict__ stats) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * NWARPS + (threadIdx.x >> 5);
-  const bool valid = i < TP && m[i] != 0;  // warp-uniform
-  float ph[KMAX], cp[KMAX];
-  float p = 0.0f, loss = 0.0f, pairs = 0.0f, g = 0.0f;
-#pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
-    const int k = lane + 32 * q;
-    ph[q] = cp[q] = 0.0f;
-    if (valid && k < d) {
-      ph[q] = emb_in[(size_t)c[i] * d + k];
-      cp[q] = emb_out[(size_t)x[i] * d + k];
-      p = fmaf(ph[q], cp[q], p);
-    }
-  }
+  const bool valid = i < TP && nt[i] != 0.0f;  // warp-uniform
+  float loss = 0.0f, pairs = 0.0f;
   if (valid) {
+    const float* pr = emb_in + (size_t)c[i] * d;
+    const float* cr = emb_out + (size_t)x[i] * d;
+    float ph[KMAX], cp[KMAX], p = 0.0f;
+#pragma unroll
+    for (int q = 0; q < KMAX; ++q) {
+      const int k = lane + 32 * q;
+      ph[q] = cp[q] = 0.0f;
+      if (k < d) {
+        ph[q] = __ldcg(pr + k);
+        cp[q] = __ldcg(cr + k);
+        p = fmaf(ph[q], cp[q], p);
+      }
+    }
     const float s = warp_sum(p);
-    g = sigmoid_f(s) - 1.0f;
+    const float g = sigmoid_f(s) - 1.0f;
     if (lane == 0) {
       loss = -log_sigmoid_f(s);
       pairs = 1.0f;
     }
-  }
 #pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
-    const int k = lane + 32 * q;
-    if (k < d) {
-      dphi[(size_t)i * d + k] = g * cp[q];
-      dcpos[(size_t)i * d + k] = g * ph[q];
-      dphin[(size_t)i * d + k] = 0.0f;
+    for (int q = 0; q < KMAX; ++q) {
+      const int k = lane + 32 * q;
+      if (k < d) {
+        dphi[(size_t)i * d + k] = g * cp[q];
+        dcpos[(size_t)i * d + k] = g * ph[q];
+      }
     }
   }
-  if (lane == 0) nt[i] = valid ? 1.0f : 0.0f;
   block_add(loss, &stats[0]);
   block_add(pairs, &stats[1]);
+  pdl_wait();
 }
 
 // emb_in[c[i]] -= lr*(dphi[i] + dphin[i]), emb_out[x[i]] -= lr*dcpos[i] for
 // the tile's valid pairs (the positive and the negative part of dphi add
-// once here, as the plain version adds them).  grid TP, block 128.
-static __global__ void fused_scatter_kernel(float* emb_in, float* emb_out,
-                                            const int* __restrict__ c,
-                                            const int* __restrict__ x,
-                                            const float* __restrict__ dphi,
-                                            const float* __restrict__ dphin,
-                                            const float* __restrict__ dcpos,
-                                            const float* __restrict__ nt,
-                                            int d, float lr) {
-  const int i = blockIdx.x;
-  if (nt[i] == 0.0f) return;
-  const size_t ci = (size_t)c[i] * d, xi = (size_t)x[i] * d,
-               src = (size_t)i * d;
-  for (int k = threadIdx.x; k < d; k += blockDim.x) {
-    atomicAdd(&emb_in[ci + k], -lr * (dphi[src + k] + dphin[src + k]));
-    atomicAdd(&emb_out[xi + k], -lr * dcpos[src + k]);
+// once here, as the plain version adds them), then dphin[i] = 0 for the
+// next tile's negative pass.  One warp per pair, grid ceil(TP / 8), block
+// THREADS.  PDL: ids and nt before the wait; dphi, dphin, dcpos and the
+// tables after.
+static __global__ void __launch_bounds__(THREADS)
+fused_scatter_kernel(float* emb_in, float* emb_out, const int* __restrict__ c,
+                     const int* __restrict__ x,
+                     const float* __restrict__ dphi,
+                     float* __restrict__ dphin,
+                     const float* __restrict__ dcpos,
+                     const float* __restrict__ nt, int d, int TP, float lr) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  const bool valid = i < TP && nt[i] != 0.0f;
+  size_t ci = 0, xi = 0;
+  if (valid) {
+    ci = (size_t)c[i] * d;
+    xi = (size_t)x[i] * d;
   }
+  const size_t src = (size_t)i * d;
+  pdl_wait();
+  if (valid) {
+    if (d % 4 == 0) {
+      for (int k = 4 * lane; k < d; k += 128) {
+        const float4 a = load4(dphi + src + k), b = load4(dphin + src + k),
+                     e = load4(dcpos + src + k);
+        atomicAdd(reinterpret_cast<float4*>(emb_in + ci + k),
+                  make_float4(-lr * (a.x + b.x), -lr * (a.y + b.y),
+                              -lr * (a.z + b.z), -lr * (a.w + b.w)));
+        atomicAdd(reinterpret_cast<float4*>(emb_out + xi + k),
+                  make_float4(-lr * e.x, -lr * e.y, -lr * e.z, -lr * e.w));
+        *reinterpret_cast<float4*>(dphin + src + k) =
+            make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    } else {
+      for (int k = lane; k < d; k += 32) {
+        atomicAdd(&emb_in[ci + k], -lr * (dphi[src + k] + dphin[src + k]));
+        atomicAdd(&emb_out[xi + k], -lr * dcpos[src + k]);
+        dphin[src + k] = 0.0f;
+      }
+    }
+  }
+  pdl_trigger();
 }
 
-// The micro-step over n_tiles tiles; emb_in == emb_out for K7.
-//   c, x, m  [n_tiles * TP + 128] i32 (pairs zero-padded; the extra 128
-//            ids keep the negative pass's last 128-row chunk in range)
-//   pool     [KP] i32;  stats [2] f64, accumulates (loss, pairs)
-//   cneg, dneg [KP, d] f32 scratch
-//   dphi       [2, ceil(TP/128)*128, d] f32 scratch: the positive part of
-//              each pair's centre update, then the negative pass's
-//   dcpos [ceil(TP/128)*128, d], nt [ceil(TP/128)*128] f32 scratch
-static int fused_sgns(float* emb_in, float* emb_out, const int* c,
-                      const int* x, const int* m, const int* pool,
-                      double* stats, float* cneg, float* dneg, float* dphi,
-                      float* dcpos, float* nt, int d, int n_tiles, int TP,
-                      int KP, float lr, float negw, cudaStream_t stream) {
-  if (d > MAX_DIM || d < 1 || TP < 1 || KP < 1) return (int)cudaErrorInvalidValue;
-  const int chunks = (TP + BLK - 1) / BLK;
+// The step's last kernel: table[pool[k]] -= lr * dneg[k] (atomic: a pool
+// may repeat a row), and block 0 writes the step's (loss, pairs) as f32 to
+// out.  grid KP, block 128.  PDL: the pool id before the wait.
+static __global__ void fused_apply_kernel(float* table,
+                                          const int* __restrict__ pool,
+                                          const float* __restrict__ dneg,
+                                          const double* __restrict__ stats,
+                                          float* __restrict__ out, int d,
+                                          float lr) {
+  const int k = blockIdx.x;
+  const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
+  pdl_wait();
+  for (int j = threadIdx.x; j < d; j += blockDim.x)
+    atomicAdd(&table[dst + j], -lr * dneg[src + j]);
+  if (k == 0 && threadIdx.x < 2) out[threadIdx.x] = (float)stats[threadIdx.x];
+}
+
+// The caller's inputs of one micro-step: P pairs (c, x int32, or int64
+// when ids_wide; m f32) and the pool (int32, or int64 when pool_wide).
+struct FusedInputs {
+  const void* c;
+  const void* x;
+  const float* m;
+  const void* pool;
+  int P, ids_wide, pool_wide;
+};
+
+// The tile loop of one micro-step, launched on `stream` (the recording
+// stream).  ids, nt and pool are the plan's buffers (fused_stage_kernel).
+static int fused_tiles(const NegSetup& ns, float* emb_in, float* emb_out,
+                       const FusedInputs& in, int* ids, float* nt, int* pool,
+                       double* stats, float* out, float* cneg, float* dneg,
+                       float* dphi, float* dcpos, int d, int n_tiles, int TP,
+                       int KP, float lr, float negw, cudaStream_t stream) {
+  const int TPr = (TP + BLK - 1) / BLK * BLK;
   NegativePass<false, float> neg;
-  cudaError_t e = neg.init(d, KP, chunks * BLK);
+  static_cast<NegSetup&>(neg) = ns;
+  float* dphin = dphi + (size_t)TPr * d;  // the negative pass's part
+  const size_t n = (size_t)n_tiles * TP, row = n + BLK;
+  const int *c = ids, *x = ids + row;
+  const dim3 pairs((TP + NWARPS - 1) / NWARPS);
+  cudaError_t e = launch_kernel(
+      fused_stage_kernel, dim3(KP + TPr / 8 + (unsigned)((n + 127) / 128)),
+      dim3(128), 0, stream, false, 0, (const float*)emb_out, in.pool,
+      (bool)in.pool_wide, in.c, in.x, (bool)in.ids_wide, in.m, in.P, ids, nt,
+      pool, cneg, dneg, dphin, d, KP, n_tiles, TP);
   if (e != cudaSuccess) return (int)e;
-  float* dphin = dphi + (size_t)chunks * BLK * d;  // the negative pass's part
-  stage_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, cneg, dneg, d);
-  COME_CHECK_LAUNCH();
   for (int t = 0; t < n_tiles; ++t) {
-    const size_t off = (size_t)t * TP;
-    fused_pos_kernel<<<chunks * BLK / NWARPS, THREADS, 0, stream>>>(
-        emb_in, emb_out, c + off, x + off, m + off, d, TP, dphi, dcpos, dphin,
-        nt, stats);
-    COME_CHECK_LAUNCH();
-    neg.launch(emb_in, c + off, nt, cneg, d, KP, negw, dphin, dneg, stats,
-               stream);
-    COME_CHECK_LAUNCH();
-    fused_scatter_kernel<<<TP, 128, 0, stream>>>(
-        emb_in, emb_out, c + off, x + off, dphi, dphin, dcpos, nt, d, lr);
-    COME_CHECK_LAUNCH();
+    const int *ct = c + (size_t)t * TP, *xt = x + (size_t)t * TP;
+    const float* ntt = nt + (size_t)t * TPr;
+    e = neg.launch(emb_in, ct, ntt, cneg, d, KP, negw, dphin, dneg, stats,
+                   stream, true);
+    if (e != cudaSuccess) return (int)e;
+    e = launch_kernel(fused_pos_kernel, pairs, dim3(THREADS), 0, stream, true,
+                      0, (const float*)emb_in, (const float*)emb_out, ct, xt,
+                      ntt, d, TP, dphi, dcpos, stats);
+    if (e != cudaSuccess) return (int)e;
+    e = launch_kernel(fused_scatter_kernel, pairs, dim3(THREADS), 0, stream,
+                      true, 0, emb_in, emb_out, ct, xt, (const float*)dphi,
+                      dphin, (const float*)dcpos, ntt, d, TP, lr);
+    if (e != cudaSuccess) return (int)e;
   }
-  apply_pool_kernel<<<KP, 128, 0, stream>>>(emb_out, pool, dneg, d, lr);
-  COME_CHECK_LAUNCH();
-  return 0;
+  e = launch_kernel(fused_apply_kernel, dim3(KP), dim3(128), 0, stream, true,
+                    0, emb_out, (const int*)pool, (const float*)dneg,
+                    (const double*)stats, out, d, lr);
+  return (int)e;
+}
+
+// One micro-step: checks the shapes, sizes the negative pass at the plan's
+// first step, then records the step and replays it (step_graph.cuh).
+static int fused_step(StepGraph* p, int instantiate, float* emb_in,
+                      float* emb_out, const FusedInputs& in, int* ids,
+                      float* nt, int* pool, double* stats, float* out,
+                      float* cneg, float* dneg, float* dphi, float* dcpos,
+                      int d, int n_tiles, int TP, int KP, float lr,
+                      float negw, cudaStream_t stream) {
+  if (p == nullptr || d > MAX_DIM || d < 1 || n_tiles < 0 || TP < 1 ||
+      KP < 1 || in.P < 0 || in.P > (long long)n_tiles * TP ||
+      in.P <= (long long)(n_tiles - 1) * TP)
+    return (int)cudaErrorInvalidValue;
+  if (p->mode < 0) {
+    NegativePass<false, float> neg;
+    const cudaError_t e = neg.init(d, KP, (TP + BLK - 1) / BLK * BLK);
+    if (e != cudaSuccess) return (int)e;
+    p->neg = neg;
+    p->mode = 0;
+  }
+  return replay_step(p, instantiate, stream, [&](cudaStream_t cap) {
+    return fused_tiles(p->neg, emb_in, emb_out, in, ids, nt, pool, stats,
+                       out, cneg, dneg, dphi, dcpos, d, n_tiles, TP, KP, lr,
+                       negw, cap);
+  });
 }
 
 }  // namespace come
 
 using namespace come;
 
-// K6: one O1 micro-step; emb_in, emb_out [V, d] f32 updated in place.  The
-// other buffers are as fused_sgns above.  Returns 0 or the first CUDA
-// error code; launches on `stream`, does not synchronise, allocates nothing.
-extern "C" int come_fused_sgns_step(float* emb_in, float* emb_out,
-                                    const int* c, const int* x, const int* m,
-                                    const int* pool, double* stats,
-                                    float* cneg, float* dneg, float* dphi,
-                                    float* dcpos, float* nt, int d,
-                                    int n_tiles, int TP, int KP, float lr,
-                                    float negw, void* stream_ptr) {
-  return fused_sgns(emb_in, emb_out, c, x, m, pool, stats, cneg, dneg, dphi,
-                    dcpos, nt, d, n_tiles, TP, KP, lr, negw,
+// K6: one O1 micro-step of P pairs in n_tiles tiles of TP, recorded into
+// the plan's graph slot `graph` (come_step_graph_new) and replayed on
+// `stream`: instantiate != 0 at the plan's first step, 0 at every later
+// one.  All buffers are device pointers:
+//   emb_in, emb_out  [V, d] f32 (updated in place)
+//   c, x       [P] the call's pair ends, int32 or (ids_wide) int64
+//   m          [P] f32 mask (valid = m != 0);  pool_in [KP] int32 or
+//              (pool_wide) int64
+//   ids        [3, n_tiles * TP + 128] i32, nt [n_tiles, TPr] f32 (TPr =
+//              ceil(TP / 128) * 128; rows TP.. and the extra 128 ids 0),
+//              pool [KP] i32: the plan's buffers, which the step's first
+//              kernel fills from the call's
+//   stats      [2] f64, accumulates (loss, pairs), zeroed by the caller
+//   out        [2] f32, the step's (loss, pairs)
+//   cneg, dneg [KP, d] f32 scratch
+//   dphi       [2, TPr, d] f32 scratch: the positive part of each pair's
+//              centre update, then the negative pass's
+//   dcpos      [TPr, d] f32 scratch
+// P must lie in ((n_tiles - 1) * TP, n_tiles * TP] (or be 0 with n_tiles
+// 0).  A plan serves one (d, TP, KP, n_tiles).  Returns 0 or the first CUDA
+// error code.  Enqueues only: it does not synchronise and allocates no
+// device memory.
+extern "C" int come_fused_sgns_step(
+    void* graph, int instantiate, float* emb_in, float* emb_out,
+    const void* c, const void* x, const float* m, const void* pool_in, int P,
+    int ids_wide, int pool_wide, int* ids, float* nt, int* pool,
+    double* stats, float* out, float* cneg, float* dneg, float* dphi,
+    float* dcpos, int d, int n_tiles, int TP, int KP, float lr, float negw,
+    void* stream_ptr) {
+  const FusedInputs in{c, x, m, pool_in, P, ids_wide, pool_wide};
+  return fused_step(static_cast<StepGraph*>(graph), instantiate, emb_in,
+                    emb_out, in, ids, nt, pool, stats, out, cneg, dneg, dphi,
+                    dcpos, d, n_tiles, TP, KP, lr, negw,
                     (cudaStream_t)stream_ptr);
 }
 
 // K7: K6 on one tied table emb [V, d] (both pair ends and the pool).
-extern "C" int come_fused_sgns_step_tied(float* emb, const int* c,
-                                         const int* x, const int* m,
-                                         const int* pool, double* stats,
-                                         float* cneg, float* dneg,
-                                         float* dphi, float* dcpos, float* nt,
-                                         int d, int n_tiles, int TP, int KP,
-                                         float lr, float negw,
-                                         void* stream_ptr) {
-  return fused_sgns(emb, emb, c, x, m, pool, stats, cneg, dneg, dphi, dcpos,
-                    nt, d, n_tiles, TP, KP, lr, negw,
-                    (cudaStream_t)stream_ptr);
+extern "C" int come_fused_sgns_step_tied(
+    void* graph, int instantiate, float* emb, const void* c, const void* x,
+    const float* m, const void* pool_in, int P, int ids_wide, int pool_wide,
+    int* ids, float* nt, int* pool, double* stats, float* out, float* cneg,
+    float* dneg, float* dphi, float* dcpos, int d, int n_tiles, int TP,
+    int KP, float lr, float negw, void* stream_ptr) {
+  const FusedInputs in{c, x, m, pool_in, P, ids_wide, pool_wide};
+  return fused_step(static_cast<StepGraph*>(graph), instantiate, emb, emb,
+                    in, ids, nt, pool, stats, out, cneg, dneg, dphi, dcpos,
+                    d, n_tiles, TP, KP, lr, negw, (cudaStream_t)stream_ptr);
 }

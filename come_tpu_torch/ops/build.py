@@ -50,8 +50,10 @@ SIGNATURES = {
     "come_step_graph_launch": [_P, _P],
     "come_pdl_enabled": [],
     "come_cudart_version": [],
-    "come_fused_sgns_step": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
-    "come_fused_sgns_step_tied": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
+    "come_fused_sgns_step": [_P, _I] + [_P] * 6 + [_I] * 3 + [_P] * 9
+    + [_I] * 4 + [_F, _F, _P],
+    "come_fused_sgns_step_tied": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P] * 9
+    + [_I] * 4 + [_F, _F, _P],
     "come_row_gather": [_P] * 4 + [_I] * 3 + [_P],
     "come_row_scatter_add": [_P] * 3 + [_I] * 3 + [_P],
     "come_smem_probe": [_P, _P, _I, _P],

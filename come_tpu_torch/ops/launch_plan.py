@@ -1,10 +1,12 @@
-"""Launch plans: one macro step of the walk or the star kernel as one unit
-that the card replays.
+"""Launch plans: one macro step of the walk or the star kernel, or one
+micro-step of K6/K7, as one unit that the card replays.
 
 The TPU runs a macro step as one ``pallas_call`` with a grid over the groups
-(``come_tpu/ops/pallas_walk_sgns.py:564``, ``pallas_star_sgns.py:282``).
-Here the C entries (``csrc/walk_sgns.cu``, ``csrc/star_sgns.cu``) record a
-step's group loop as a CUDA graph and replay it on the caller's stream
+(``come_tpu/ops/pallas_walk_sgns.py:564``, ``pallas_star_sgns.py:282``) and
+a micro-step as one with a grid over the tiles (``pallas_sgns.py:347``).
+Here the C entries (``csrc/walk_sgns.cu``, ``csrc/star_sgns.cu``,
+``csrc/sgns_fused.cu``) record a step's group or tile loop as a CUDA graph
+and replay it on the caller's stream
 (``csrc/step_graph.cuh``).  A plan is what the host keeps between steps for
 one (entry, device, stream, mode, shape):
 
@@ -23,6 +25,11 @@ one (entry, device, stream, mode, shape):
     step's scratch is never written while an earlier step reads it;
   * the kernels' setup (shared-memory caps, the negative pass's grid),
     which the C entry does at the plan's first step.
+
+K6/K7's :class:`FusedPlan` also owns the packed pairs, the tiles' masks
+and the pool, which the step's first kernel fills from the call's inputs,
+so a call allocates no scratch and runs no op on the host but its
+recording.
 
 Each wrapper counts, beside its ``launches``, the steps it recorded
 (``recordings``), the instances it made (``instantiations``) and updated
@@ -47,6 +54,7 @@ from __future__ import annotations
 import torch
 
 NWL = 1024  # slots per group
+BLK = 128  # rows per CTA of the negative pass
 
 _PLANS: dict[tuple, "LaunchPlan"] = {}
 _USED: set[tuple] = set()
@@ -59,7 +67,7 @@ class LaunchPlan:
     """One (entry, device, stream, mode, shape)'s graph slot and scratch."""
 
     def __init__(self, key: tuple, device, KP: int, d: int, *,
-                 ctx: bool = True, walk_slots: int = 0):
+                 ctx: bool = True, walk_slots: int = 0, rows: int = NWL):
         f32 = torch.float32
         dev = torch.device(device)
         self.key = key
@@ -69,10 +77,10 @@ class LaunchPlan:
         self.dneg = torch.empty((KP, d), dtype=f32, device=dev)
         # the positive pass's part of each slot's update, then the negative
         # pass's: the scatter adds the two once, as the plain version does
-        self.dphi = torch.empty((2, NWL, d), dtype=f32, device=dev)
-        self.dctx = (torch.empty((NWL, d), dtype=f32, device=dev) if ctx
+        self.dphi = torch.empty((2, rows, d), dtype=f32, device=dev)
+        self.dctx = (torch.empty((rows, d), dtype=f32, device=dev) if ctx
                      else None)
-        self.nt = torch.empty((NWL,), dtype=f32, device=dev)
+        self.nt = torch.empty((rows,), dtype=f32, device=dev)
         self.walks = (torch.empty((walk_slots,), dtype=torch.int32,
                                   device=dev) if walk_slots else None)
         self.slot = None  # the C graph slot, made at the first CUDA step
@@ -121,6 +129,60 @@ class LaunchPlan:
         their own (a copy of ``stats``)."""
         st = self.stats.to(torch.float32)
         return st[0], st[1]
+
+
+class FusedPlan(LaunchPlan):
+    """K6/K7's plan (``ops/sgns.py``): besides the scratch (``dphi`` and
+    ``dctx``, here the contexts' update, of ``TPr`` = ceil(TP / 128) * 128
+    rows), it owns every buffer the tile loop reads but the tables and the
+    caller's inputs, which the step's first kernel packs into them (as
+    :meth:`pack`, their plain version, does):
+
+      * ``ids`` int32 [3, n_tiles * TP + 128]: centres, contexts and
+        mask != 0 as ``ops/sgns.py::_tiles`` packs them, zero-padded (the
+        extra 128 keep the negative pass's last 128-row chunk in range);
+      * ``nt`` f32 [n_tiles, TPr]: each tile's mask as the kernels read it,
+        rows TP.. 0;
+      * ``pool`` int32 [KP].
+
+    The step writes its (loss, n_pairs) into ``out``, a 2-float tensor of
+    the call's own that :meth:`begin` makes (the one allocation of a call:
+    the result the caller keeps), so :meth:`result` converts nothing."""
+
+    def __init__(self, key: tuple, device, KP: int, d: int, TP: int,
+                 n_tiles: int):
+        TPr = -(-TP // BLK) * BLK
+        super().__init__(key, device, KP, d, rows=TPr)
+        self.TP, self.n_tiles = TP, n_tiles
+        self.ids = torch.zeros((3, n_tiles * TP + BLK), dtype=torch.int32,
+                               device=self.device)
+        self.nt = torch.zeros((n_tiles, TPr), dtype=torch.float32,
+                              device=self.device)
+        self.pool = torch.empty((KP,), dtype=torch.int32, device=self.device)
+        self.out = None
+
+    def pack(self, centers, contexts, mask, pool) -> None:
+        """Pack one call's P pairs (P in ((n_tiles - 1) * TP, n_tiles *
+        TP]) and its pool into the plan's buffers with torch ops: the plain
+        version of what ``csrc/sgns_fused.cu::fused_stage_kernel`` does at
+        the start of every step on the card."""
+        P, n, TP = centers.shape[0], self.n_tiles, self.TP
+        ids = self.ids
+        ids[0, :P].copy_(centers)
+        ids[1, :P].copy_(contexts)
+        torch.ne(mask, 0, out=ids[2, :P])
+        if P < n * TP:
+            ids[:, P:n * TP].zero_()
+        self.nt[:, :TP].copy_(ids[2, :n * TP].view(n, TP))
+        self.pool.copy_(pool)
+
+    def begin(self) -> int:
+        self.out = torch.empty(2, dtype=torch.float32, device=self.device)
+        return super().begin()
+
+    def result(self):
+        """(loss, n_pairs) of the last step: views of its own ``out``."""
+        return self.out[0], self.out[1]
 
 
 class GraphPlan:
@@ -234,27 +296,38 @@ def plan_key(entry: str, device, stream: int, mode: tuple,
             tuple(int(s) for s in shape))
 
 
+def _plan(key: tuple, make):
+    """The plan of ``key``, made by ``make(key)`` at its first use."""
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = make(key)
+    return plan
+
+
 def graph_plan_for(entry: str, device, stream: int, mode: tuple,
                    shape: tuple) -> GraphPlan:
     """The :class:`GraphPlan` of ``plan_key(...)``, made at its first use
     (not yet recorded: ``plan.slot`` is None)."""
-    key = plan_key(entry, device, stream, mode, shape)
-    plan = _PLANS.get(key)
-    if plan is None:
-        plan = _PLANS[key] = GraphPlan(key, device)
-    return plan
+    return _plan(plan_key(entry, device, stream, mode, shape),
+                 lambda k: GraphPlan(k, device))
 
 
 def plan_for(entry: str, device, stream: int, mode: tuple, shape: tuple, *,
              KP: int, d: int, ctx: bool = True,
              walk_slots: int = 0) -> LaunchPlan:
     """The plan of ``plan_key(...)``, made at its first use."""
-    key = plan_key(entry, device, stream, mode, shape)
-    plan = _PLANS.get(key)
-    if plan is None:
-        plan = _PLANS[key] = LaunchPlan(key, device, KP, d, ctx=ctx,
-                                        walk_slots=walk_slots)
-    return plan
+    return _plan(plan_key(entry, device, stream, mode, shape),
+                 lambda k: LaunchPlan(k, device, KP, d, ctx=ctx,
+                                      walk_slots=walk_slots))
+
+
+def fused_plan_for(entry: str, device, stream: int, tied: int, d: int,
+                   TP: int, KP: int, n_tiles: int) -> FusedPlan:
+    """K6/K7's :class:`FusedPlan`, keyed on (entry, device, stream, tied, d,
+    TP, KP, n_tiles), made at its first use."""
+    return _plan(plan_key(entry, device, stream, (tied,), (d, TP, KP,
+                                                          n_tiles)),
+                 lambda k: FusedPlan(k, device, KP, d, TP, n_tiles))
 
 
 def plans(entry: str | None = None) -> list:
@@ -293,11 +366,13 @@ COUNTERS = ("recordings", "instantiations", "updates", "replays")
 
 def wrappers() -> dict:
     """The wrappers whose steps run through plans, by entry."""
+    from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
     from come_tpu_torch.ops.star_sgns import star_sgns_step
     from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
 
     return {"walk_sgns": walk_sgns_step, "walk_sgns_gen": walk_sgns_gen_step,
-            "star_sgns": star_sgns_step}
+            "star_sgns": star_sgns_step, "fused_sgns": fused_sgns_step,
+            "fused_sgns_tied": fused_sgns_step_tied}
 
 
 def reset_counts() -> None:

@@ -17,7 +17,13 @@ source ``csrc/sgns_fused.cu``.  Semantics are the TPU kernels':
     their constant loss; the port skips them), so the loss is the sum over
     valid pairs and ``n_pairs`` the valid-pair count.
 
-The tables are updated IN PLACE and returned.
+The tables are updated IN PLACE and returned.  On the card a micro-step is
+one unit the card replays: the C entry records the tile loop as a CUDA
+graph and updates the instance that the call's launch plan keeps
+(``ops/launch_plan.py::FusedPlan``, which also holds the packed pairs, the
+tiles' masks, the pool and the scratch, so a call allocates no scratch):
+the graph's first kernel packs the call's pairs and pool into the plan's
+buffers, so the host only records and replays.
 """
 
 from __future__ import annotations
@@ -25,12 +31,11 @@ from __future__ import annotations
 import torch
 
 from come_tpu_torch.losses.sgns_block import sgns_block_grads_from_rows
-from come_tpu_torch.ops import build
+from come_tpu_torch.ops import build, launch_plan
 from come_tpu_torch.ops.sparse import scatter_add_rows_
 from come_tpu_torch.ops.walk_sgns import check_cuda_inputs
 
 TILE_PAIRS = 1024
-BLK = 128  # rows per CTA of the kernels' negative pass
 
 
 def _tiles(centers, contexts, mask, TP: int, extra: int = 0):
@@ -46,9 +51,9 @@ def _tiles(centers, contexts, mask, TP: int, extra: int = 0):
     return out, n_tiles
 
 
-def _plain(emb_in, emb_out, centers, contexts, pool, mask, lr, negw, TP,
-           tied):
-    cxm, n_tiles = _tiles(centers, contexts, mask, TP)
+def _plain(emb_in, emb_out, cxm, n_tiles, pool, lr, negw, TP, tied):
+    """The plain micro-step on packed pairs ``cxm`` (``_tiles``' layout,
+    at least n_tiles * TP columns).  Returns (loss, n_pairs)."""
     cxm = cxm.long()
     pool = pool.long()
     cneg = emb_out[pool].clone()
@@ -78,8 +83,10 @@ def fused_sgns_step_reference(emb_in, emb_out, centers, contexts, pool, mask,
     """Plain PyTorch version of :func:`fused_sgns_step` (same signature and
     semantics): a loop over tiles on :func:`sgns_block_grads_from_rows`.
     Returns (emb_in, emb_out, loss, n_pairs)."""
-    loss, npairs = _plain(emb_in, emb_out, centers, contexts, pool, mask, lr,
-                          negw, int(tile_pairs), tied=False)
+    TP = int(tile_pairs)
+    cxm, n_tiles = _tiles(centers, contexts, mask, TP)
+    loss, npairs = _plain(emb_in, emb_out, cxm, n_tiles, pool, lr, negw, TP,
+                          tied=False)
     return emb_in, emb_out, loss, npairs
 
 
@@ -87,41 +94,81 @@ def fused_sgns_step_tied_reference(emb, centers, contexts, pool, mask, lr,
                                    negw, *, tile_pairs: int = TILE_PAIRS):
     """Plain PyTorch version of :func:`fused_sgns_step_tied`.  Returns
     (emb, loss, n_pairs)."""
-    loss, npairs = _plain(emb, emb, centers, contexts, pool, mask, lr, negw,
-                          int(tile_pairs), tied=True)
+    TP = int(tile_pairs)
+    cxm, n_tiles = _tiles(centers, contexts, mask, TP)
+    loss, npairs = _plain(emb, emb, cxm, n_tiles, pool, lr, negw, TP,
+                          tied=True)
     return emb, loss, npairs
 
 
-def _launch(name, tables, centers, contexts, pool, mask, lr, negw, TP):
-    """Run the C entry ``name`` on CUDA tensors; returns (loss, n_pairs)."""
+def fused_plan(device, stream: int, tied: int, d: int, TP: int, KP: int,
+               n_tiles: int) -> launch_plan.FusedPlan:
+    """The launch plan of a K6 (``tied`` 0) or K7 (1) micro-step, keyed on
+    (tied, d, TP, KP, n_tiles)."""
+    return launch_plan.fused_plan_for(
+        "fused_sgns_tied" if tied else "fused_sgns", device, stream, tied, d,
+        TP, KP, n_tiles)
+
+
+def _ids(t):
+    """``t`` as the C entries take ids: contiguous int32 or int64."""
+    if t.dtype not in (torch.int32, torch.int64):
+        t = t.long()
+    return t.contiguous()
+
+
+def fused_entry_args(plan, inst: int, tables, centers, contexts, mask, pool,
+                     lr: float, negw: float, stream: int) -> tuple:
+    """The arguments of ``come_fused_sgns_step`` (two tables) or
+    ``come_fused_sgns_step_tied`` (one) for one call: the plan's graph
+    slot, buffers and scratch, and this call's tables, pairs (``centers``
+    and ``contexts`` of one dtype, int32 or int64; ``mask`` f32), pool
+    (int32 or int64), ``lr`` and result, all contiguous."""
+    st, cneg, dneg, dphi, dcpos, _ = plan.scratch()
+    return ((plan.slot, inst) + tuple(t.data_ptr() for t in tables)
+            + (centers.data_ptr(), contexts.data_ptr(), mask.data_ptr(),
+               pool.data_ptr(), centers.shape[0],
+               int(centers.dtype == torch.int64),
+               int(pool.dtype == torch.int64), plan.ids.data_ptr(),
+               plan.nt.data_ptr(), plan.pool.data_ptr(), st,
+               plan.out.data_ptr(), cneg, dneg, dphi, dcpos,
+               plan.cneg.shape[1], plan.n_tiles, plan.TP, plan.cneg.shape[0],
+               float(lr), float(negw), stream))
+
+
+def _launch(fn, tables, centers, contexts, pool, mask, lr, negw, TP):
+    """One micro-step on CUDA tensors through its launch plan: record the
+    tile loop, whose first kernel packs this call's pairs and pool into the
+    plan's buffers, and replay it (counted on ``fn``).  Returns (loss,
+    n_pairs)."""
     check_cuda_inputs(tables[0], tables[-1], centers, contexts, pool, mask)
     if TP < 1:
         raise ValueError(f"tile_pairs {TP} < 1")
-    # BLK extra ids: the negative pass reads whole 128-row chunks of a tile
-    cxm, n_tiles = _tiles(centers, contexts, mask, TP, extra=BLK)
-    pool = pool.to(torch.int32).contiguous()
-    V, d = tables[0].shape
-    KP = pool.shape[0]
-    TPr = -(-TP // BLK) * BLK
+    P = centers.shape[0]
+    if contexts.shape[0] != P or mask.shape[0] != P:
+        raise ValueError(f"{P} centres, {contexts.shape[0]} contexts and "
+                         f"{mask.shape[0]} mask values")
+    c, x = _ids(centers), _ids(contexts)
+    if c.dtype != x.dtype:
+        c, x = c.long(), x.long()
+    if mask.dtype != torch.float32:
+        mask = mask.float()
+    mask, pool = mask.contiguous(), _ids(pool)
     dev = tables[0].device
-    f32 = torch.float32
-    stats = torch.zeros(2, dtype=torch.float64, device=dev)
-    cneg = torch.empty((KP, d), dtype=f32, device=dev)
-    dneg = torch.empty((KP, d), dtype=f32, device=dev)
-    dphi = torch.empty((2, TPr, d), dtype=f32, device=dev)  # pos., negative
-    dcpos = torch.empty((TPr, d), dtype=f32, device=dev)
-    nt = torch.empty((TPr,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = getattr(build.library(), name)(
-        *(t.data_ptr() for t in tables), cxm[0].data_ptr(),
-        cxm[1].data_ptr(), cxm[2].data_ptr(), pool.data_ptr(),
-        stats.data_ptr(), cneg.data_ptr(), dneg.data_ptr(), dphi.data_ptr(),
-        dcpos.data_ptr(), nt.data_ptr(), d, n_tiles, TP, KP, float(lr),
-        float(negw), stream,
-    )
+    tied = int(len(tables) == 1)
+    plan = fused_plan(dev, stream, tied, tables[0].shape[1], TP,
+                      pool.shape[0], -(-P // TP))
+    lib = build.library()
+    plan.graph_slot(lib)
+    inst = plan.begin()
+    name = "come_fused_sgns_step_tied" if tied else "come_fused_sgns_step"
+    code = getattr(lib, name)(*fused_entry_args(
+        plan, inst, tables, c, x, mask, pool, lr, negw, stream))
+    fn.launches += 1
     build.check(code, name)
-    st = stats.to(f32)
-    return st[0], st[1]
+    plan.done(inst, fn)
+    return plan.result()
 
 
 def fused_sgns_step(emb_in, emb_out, centers, contexts, pool, mask, lr, negw,
@@ -138,8 +185,10 @@ def fused_sgns_step(emb_in, emb_out, centers, contexts, pool, mask, lr, negw,
 
     Returns (emb_in, emb_out, loss, n_pairs); loss and n_pairs are 0-dim
     float32 tensors on the tables' device.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (counted in
-    ``fused_sgns_step.launches``) or raise.
+    version; CUDA tensors launch the kernel, as one replayed graph
+    (``ops/launch_plan.py``; counted in ``fused_sgns_step.launches``, and
+    the graph's events in ``.recordings``, ``.instantiations``,
+    ``.updates`` and ``.replays``) or raise.
     """
     if emb_in.device.type == "cpu":
         return fused_sgns_step_reference(
@@ -148,10 +197,8 @@ def fused_sgns_step(emb_in, emb_out, centers, contexts, pool, mask, lr, negw,
         )
     if emb_in.device.type != "cuda":
         raise ValueError(f"no fused_sgns kernel for device {emb_in.device}")
-    loss, npairs = _launch("come_fused_sgns_step", (emb_in, emb_out),
-                           centers, contexts, pool, mask, lr, negw,
-                           int(tile_pairs))
-    fused_sgns_step.launches += 1
+    loss, npairs = _launch(fused_sgns_step, (emb_in, emb_out), centers,
+                           contexts, pool, mask, lr, negw, int(tile_pairs))
     return emb_in, emb_out, loss, npairs
 
 
@@ -168,11 +215,13 @@ def fused_sgns_step_tied(emb, centers, contexts, pool, mask, lr, negw, *,
         )
     if emb.device.type != "cuda":
         raise ValueError(f"no fused_sgns_tied kernel for device {emb.device}")
-    loss, npairs = _launch("come_fused_sgns_step_tied", (emb,), centers,
-                           contexts, pool, mask, lr, negw, int(tile_pairs))
-    fused_sgns_step_tied.launches += 1
+    loss, npairs = _launch(fused_sgns_step_tied, (emb,), centers, contexts,
+                           pool, mask, lr, negw, int(tile_pairs))
     return emb, loss, npairs
 
 
-fused_sgns_step.launches = 0
-fused_sgns_step_tied.launches = 0
+for _fn in (fused_sgns_step, fused_sgns_step_tied):
+    _fn.launches = 0
+    # the graph's events (ops/launch_plan.py)
+    _fn.recordings = _fn.instantiations = _fn.updates = _fn.replays = 0
+del _fn

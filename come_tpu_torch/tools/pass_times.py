@@ -1,7 +1,7 @@
 """Per-pass device time of the SGNS kernels' steps on one card.
 
     python come_tpu_torch/tools/pass_times.py [--root DIR] [--label NAME]
-        [--steps K1 K2 ...] [--trace]
+        [--steps K1 K2 ...] [--trace] [--run N]
 
 At ``chip_smoke.py``'s shapes, on the BlogCatalog stand-in (d 128, KP 512,
 lr 0.025, negw 5 / KP, tables and draws from seed 0), it times the steps
@@ -13,24 +13,32 @@ that carry the f32 negative pass and the star pass:
   * K5   one paired O2 step of 512 rows of 64 edges (64 groups);
   * K6   one micro-step of 32768 window pairs (32 tiles of 1024, KP 512);
   * K7   the same on one tied table with 32768 arcs;
+  * K6 karate, K7 karate  the same at karate's shared-negative shapes
+         (``chip_smoke.py`` phase 9: d 16, 128 pairs in tiles of 64, KP 32);
   * K3   one O1 step on bf16 tables at the synthetic-10m shapes (V 500000,
          1024 walks of 80 drawn uniformly over V, KP 2048, 128 groups, SR).
 
 Each step runs on tables it updates in place.  For each it prints one JSON
 line: the card's name and power limit, the step's CUDA-event ms (median of
-5 after one warm-up, each from an idle card) and its ms per step over 10
-steps in a row (``chained_ms``), the device µs per group (per tile for K6/K7) of each
-pass of its loop and of all its kernels (``torch.profiler``), and the busy
-share (all kernels' device time over the CUDA-event time).
+5 after one warm-up, each from an idle card), its ms per step over
+``--run`` steps in a row (``chained_ms``; 10 by default) and, for a step
+that runs through a launch plan, per launch of ``--run`` launches of the
+graph its last call recorded (``replay_ms``: no host work), all taken
+before the first profiled run, the device µs
+per group (per tile for K6/K7) of each pass of its loop and of all its
+kernels (``torch.profiler``), and the busy share (all kernels' device time
+over the CUDA-event time).
 
 ``--trace`` adds to each line what one profiled run of two steps shows on
 the device's timeline (:func:`timeline`): the gaps between consecutive
 kernels of a step (median and spread, by which pass follows which; a
 negative gap is an overlap, as programmatic dependent launch allows), the
 share of the step's span that some kernel covers, and the host's enqueue
-time per step (:func:`host_times`: the whole wrapper call, the C entry's
-share of it, the allocation of a step's six scratch buffers, and for K1
-and K2 a fit of the C entry's time over 1 to 32 or 64 groups, whose
+time per step, measured for every step before the first profiled run
+(:func:`host_times`: the whole wrapper call, the C entry's share of it,
+the allocation of six scratch buffers, as a wrapper that made its scratch
+per call would, :func:`enqueue_ms` over ``--run`` steps in a row, and for
+K1 and K2 a fit of the C entry's time over 1 to 32 or 64 groups, whose
 intercept is its fixed cost per call: setup and, with graphs, recording,
 update and replay).  With programmatic dependent launch a kernel's device
 time includes the time it waits for its predecessor, so its pass µs
@@ -63,7 +71,8 @@ STAR_PASSES = (("star", "star_pos_kernel"), ("negative", "negative_"),
                ("scatter", "star_scatter"), ("stage", "stage_pool"),
                ("pool apply", "apply_pool"))
 FUSED_PASSES = (("positive", "fused_pos_kernel"), ("negative", "negative_"),
-                ("scatter", "fused_scatter"))
+                ("scatter", "fused_scatter"), ("stage", "stage_"),
+                ("pool apply", "apply_"))
 
 
 def device_us(fn, ids, kernel=None, required=True):
@@ -306,6 +315,38 @@ def chained_ms(fn, n: int = 10, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def replay_ms(fn, n: int = 10) -> float | None:
+    """CUDA-event milliseconds per launch of ``n`` launches in a row of the
+    graph that one call of ``fn()`` recorded into its launch plan
+    (``ops/launch_plan.py``), without recording or updating it again: a
+    step's time on the card with no host work.  None where ``fn`` runs
+    through no plan."""
+    import torch
+
+    from come_tpu_torch.ops import build, launch_plan
+
+    before = {id(p): p.replays for p in launch_plan.plans()}
+    fn()
+    ran = [p for p in launch_plan.plans()
+           if getattr(p, "slot", None) and p.replays != before.get(id(p))]
+    if len(ran) != 1:
+        return None
+    lib, slot = build.library(), ran[0].slot
+    stream = torch.cuda.current_stream().cuda_stream
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        a.record()
+        for _ in range(n):
+            build.check(lib.come_step_graph_launch(slot, stream),
+                        "come_step_graph_launch")
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
 def enqueue_ms(fn, n: int = 10) -> float:
     """Host milliseconds per call of ``fn()`` over ``n`` calls in a row,
     without a synchronise between them (after a warm-up, from an idle
@@ -426,6 +467,23 @@ def steps(dev):
         emb_in, src[arcs], dst[arcs], pool, ones, lr, negw, tile_pairs=1024),
         32, FUSED_PASSES, None, KP))
 
+    # K6/K7 at karate's shared-negative shapes (chip_smoke.py phase 9: d 16,
+    # micro-steps of batch_pairs 128 in tiles of 64, pools of 32)
+    Vk, dk, Pk, TPk, KPk = get_dataset("karate").graph.num_nodes, 16, 128, \
+        64, 32
+    tk = [torch.randn((Vk, dk), generator=gen, device=dev) * 0.1
+          for _ in range(2)]
+    ck, xk = (torch.randint(0, Vk, (Pk,), generator=gen, device=dev)
+              for _ in range(2))
+    mk = (torch.rand(Pk, generator=gen, device=dev) < 0.8).float()
+    pk = torch.randint(0, Vk, (KPk,), generator=gen, device=dev)
+    out.append(("K6 karate", lambda: fused_sgns_step(
+        *tk, ck, xk, pk, mk, lr, 5.0 / KPk, tile_pairs=TPk), 2, FUSED_PASSES,
+        None, KPk))
+    out.append(("K7 karate", lambda: fused_sgns_step_tied(
+        tk[0], ck, xk, pk, mk, lr, 5.0 / KPk, tile_pairs=TPk), 2,
+        FUSED_PASSES, None, KPk))
+
     # K3 at the synthetic-10m shapes on bf16 tables; its walks are drawn
     # uniformly over V (a step's cost needs the shapes, not the graph)
     V3, B3, KP3 = 500_000, 1024, 2048
@@ -452,6 +510,8 @@ def main(argv=None) -> int:
                    help="the steps to time (default: all)")
     p.add_argument("--trace", action="store_true",
                    help="add the timeline's gaps and the host's enqueue time")
+    p.add_argument("--run", type=int, default=10,
+                   help="steps in a row for chained_ms (default 10)")
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -467,26 +527,37 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     build.library()
-    for name, step, groups, passes, sub, KP in steps(dev):
-        if args.steps is not None and name not in args.steps:
-            continue
-        ms = cuda_ms(step)
+    todo = [s for s in steps(dev) if args.steps is None or s[0] in args.steps]
+    # every step's times first: once a profiler session has run, the host's
+    # CUDA calls are slower, which shows in a step whose host work outlasts
+    # its device work
+    pre = {}
+    for name, step, groups, passes, sub, KP in todo:
+        t = pre[name] = {"ms": cuda_ms(step),
+                         "chained_ms": chained_ms(step, n=args.run),
+                         "replay_ms": replay_ms(step, n=args.run)}
+        if args.trace:
+            h = t["host"] = host_times(step)
+            h["enqueue_ms"] = enqueue_ms(step, n=args.run)
+            h["alloc_us"] = alloc_us(dev, KP, 128)
+            if sub is not None:
+                h["c_entry_fit"] = c_entry_fit(
+                    sub, [g for g in (1, 2, 4, 8, 16, 32, 64) if g <= groups])
+    for name, step, groups, passes, sub, KP in todo:
+        t = pre[name]
         split, total = pass_split(step, groups, passes)
         line = {
             "card": card, "label": args.label,
             "package": str(Path(come_tpu_torch.__file__).parent),
-            "step": name, "groups": groups, "ms": ms,
-            "chained_ms": chained_ms(step),
-            "us_per_group": split, "device_us_per_group": total / groups,
-            "busy": total / (ms * 1e3),
+            "step": name, "groups": groups, "ms": t["ms"],
+            "run": args.run, "chained_ms": t["chained_ms"],
+            "replay_ms": t["replay_ms"], "us_per_group": split,
+            "device_us_per_group": total / groups,
+            "busy": total / (t["ms"] * 1e3),
         }
         if args.trace:
             line["timeline"] = timeline(step, passes)
-            line["host"] = host_times(step)
-            line["host"]["alloc_us"] = alloc_us(dev, KP, 128)
-            if sub is not None:
-                line["host"]["c_entry_fit"] = c_entry_fit(
-                    sub, [g for g in (1, 2, 4, 8, 16, 32, 64) if g <= groups])
+            line["host"] = t["host"]
         print(json.dumps(line), flush=True)
     return 0
 

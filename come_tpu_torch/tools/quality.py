@@ -1,7 +1,8 @@
 """Full-depth quality runs on one card: NMI and seconds per outer iteration.
 
     python -m come_tpu_torch.tools.quality [--runs blogcatalog bench-gen
-        synthetic-10m] [--seed 0]
+        synthetic-10m micro] [--seed 0] [--pretrain N] [--outer N]
+        [--walks-per-node N] [--root DIR]
 
 Trains each named configuration at its preset's full schedule (pretrain 2
 + outer 5) through ``ComETrainer`` on the card and prints one JSON line per
@@ -15,20 +16,28 @@ trainer set-up excluded) and the peak of ``torch.cuda.max_memory_allocated()``.
   * ``bench-gen``: the reference bench's kernel configuration with walks made
     in the kernel (``bench.py:207-216``: bf16 products, R 8, 2048-walk steps,
     ``batch_edges`` 524288; K4 in its bf16 mode and K2b);
-  * ``synthetic-10m``: the large-V preset (K3 on bf16 tables, K2).
+  * ``synthetic-10m``: the large-V preset (K3 on bf16 tables, K2);
+  * ``micro``: the blogcatalog preset on the micro-batched tier
+    (``--down-sample 1e-3 --o2-mode xla``: K6 for O1, K7 for O2).
 
-Needs a CUDA card.
+``--pretrain``, ``--outer`` and ``--walks-per-node`` cut the schedule
+(``chip_smoke.py`` phase 10 runs ``micro`` at 0, 1 and 2).  ``--root``
+trains with the ``come_tpu_torch`` package of another checkout (run the
+file by its path, not with ``-m``), so two trees compare on one card in
+one call.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
+from pathlib import Path
 
 import torch
 
-RUNS = ("blogcatalog", "bench-gen", "synthetic-10m")
+RUNS = ("blogcatalog", "bench-gen", "synthetic-10m", "micro")
 
 
 def _config(name: str, ds, seed: int):
@@ -39,6 +48,10 @@ def _config(name: str, ds, seed: int):
             num_communities=ds.num_communities, walk_kernel_bf16=True,
             walk_pool_refresh=8, batch_walks=2048, batch_edges=524288,
             walk_gen="kernel", seed=seed)
+    if name == "micro":
+        return get_config("blogcatalog").replace(
+            num_communities=ds.num_communities, down_sample=1e-3,
+            o2_mode="xla", seed=seed)
     return get_config(name).replace(num_communities=ds.num_communities,
                                     seed=seed)
 
@@ -47,10 +60,17 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--runs", nargs="+", default=list(RUNS), choices=RUNS)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pretrain", type=int, help="pretrain epochs")
+    p.add_argument("--outer", type=int, help="outer iterations")
+    p.add_argument("--walks-per-node", type=int)
+    p.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                   help="the checkout whose come_tpu_torch to train with")
     args = p.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
     if not torch.cuda.is_available():
         raise SystemExit("quality: needs a CUDA card")
 
+    import come_tpu_torch
     from come_tpu_torch.graphs import get_dataset
     from come_tpu_torch.tools.eval_sweep import card_name, launch_counts
     from come_tpu_torch.trainer import ComETrainer
@@ -62,6 +82,11 @@ def main(argv=None) -> int:
         ds = get_dataset("synthetic-10m" if name == "synthetic-10m"
                          else "blogcatalog")
         cfg = _config(name, ds, args.seed)
+        cut = {k: v for k, v in (("pretrain_epochs", args.pretrain),
+                                 ("outer_iters", args.outer),
+                                 ("walks_per_node", args.walks_per_node))
+               if v is not None}
+        cfg = cfg.replace(**cut)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         trainer = ComETrainer(ds.graph, cfg, dev)
@@ -76,7 +101,8 @@ def main(argv=None) -> int:
                   for r in hist]
         rec = hist[-1]
         print(json.dumps({
-            "card": card, "run": name, "pretrain": cfg.pretrain_epochs,
+            "card": card, "package": str(Path(come_tpu_torch.__file__).parent),
+            "run": name, "pretrain": cfg.pretrain_epochs,
             "outer": cfg.outer_iters, "walks_per_node": cfg.walks_per_node,
             "launches": launched, "s_per_iter": s_iter,
             "o1_ms": [r["o1_ms"] for r in hist],

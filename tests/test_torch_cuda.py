@@ -26,7 +26,11 @@ the full bf16 check against K2b and the f32 tolerance against K2; P4's
 values and P2's sum must equal their plain versions exactly, and the
 parity harness must pass on the card.  Six consecutive K1, K3 and K2
 steps through one launch plan's graph each (``chip_smoke.graph_steps``)
-must each pass their mode's check, with at most one instantiation.  G1
+must each pass their mode's check, with at most one instantiation; six K6
+and six K7 micro-steps through one plan (``chip_smoke.fused_steps``) the
+f32 check, with one instantiation and five updates, and the plan's
+packed pairs, masks and pool must equal ``FusedPlan.pack``'s bit for bit.
+G1
 (``ops/gmm_factor.py``) is held to its plain version under
 ``chip_smoke.G1_RTOL``'s rule (relative Frobenius error of L and of the
 inverse within 1e-4, or no farther from the float64 plain version than the
@@ -77,6 +81,7 @@ from chip_smoke import (
     STAR_EDGES,
     em_graph_check,
     em_linalg_check,
+    fused_steps,
     g1_check,
     g1_moments,
     g1_pivot_batch,
@@ -705,6 +710,59 @@ def test_graph_steps_follow_every_step(dev, mode):
     assert len(errs) == 6
     assert (c["recordings"], c["replays"], c["shapes"]) == (6, 6, 1)
     assert c["instantiations"] <= 1
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_fused_plan_steps_follow_every_step(dev, tied):
+    """Six K6 (K7) micro-steps through one fresh plan, with lr, the pairs,
+    the mask and the pool new at every step, the tables moved once and a
+    tile all masked in each (``chip_smoke.fused_steps``, which holds each
+    step against its plain version under phase 6's check): one plan, one
+    instantiation, five updates."""
+    from come_tpu_torch.ops import build, launch_plan
+
+    entry = "fused_sgns_tied" if tied else "fused_sgns"
+    launch_plan.release_plans(build.library(), entry)
+    launch_plan.reset_counts()
+    errs = fused_steps(tied, dev, 2000, 128, 3000, 777, 512)
+    c = launch_plan.graph_counts()[entry]
+    assert len(errs) == 6
+    assert (c["recordings"], c["replays"], c["instantiations"], c["updates"],
+            c["shapes"]) == (6, 6, 1, 5, 1)
+
+
+@pytest.mark.parametrize("tied,P,TP,wide", [
+    (False, 2500, 777, True), (True, 128, 64, False), (False, 201, 100, False),
+])
+def test_fused_plan_packs_on_the_card_as_its_plain_version(dev, tied, P, TP,
+                                                          wide):
+    """The step's first kernel fills the plan's ids, nt and pool from the
+    call's int32 or int64 inputs bit for bit as ``FusedPlan.pack`` does
+    with torch ops, also after a call with more pairs left a longer
+    tail."""
+    from come_tpu_torch.ops import launch_plan
+    from come_tpu_torch.ops.sgns import fused_plan
+
+    V, d, KP = 500, 32, 48
+    n = -(-P // TP)
+    g = torch.Generator(device=dev).manual_seed(P)
+    dt = torch.int64 if wide else torch.int32
+    tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+            for _ in range(1 if tied else 2)]
+    fn = fused_sgns_step_tied if tied else fused_sgns_step
+    for k in (n * TP, P):
+        c, x, pool = (torch.randint(0, V, (m,), generator=g, device=dev,
+                                    dtype=dt) for m in (k, k, KP))
+        mask = (torch.rand(k, generator=g, device=dev) < 0.6).float() * 2
+        fn(*tabs, c, x, pool, mask, 0.05, 0.1, tile_pairs=TP)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = fused_plan(dev, stream, int(tied), d, TP, KP, n)
+    want = launch_plan.FusedPlan(("check",), dev, KP, d, TP, n)
+    want.pack(c, x, mask, pool)
+    assert torch.equal(plan.ids, want.ids)
+    assert torch.equal(plan.nt, want.nt)
+    assert torch.equal(plan.pool, want.pool)
 
 
 @pytest.mark.parametrize("G,V,d", [(338, 10312, 128), (9, 500, 16)])
