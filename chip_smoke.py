@@ -66,7 +66,10 @@ non-zero and prints no result line):
                (fused_steps: lr, the pairs, the mask and the pool new at
                every step, the second tile all masked, the tables moved
                once), each held against its plain version, with one
-               instantiation and five updates; then, on tables it updates
+               instantiation and five updates, and 40 micro-steps at that
+               shape and 40 at karate's (fused_stress: new pairs, mask and
+               pool each call) enqueued back to back with no host wait,
+               each held against its plain version; then, on tables it updates
                in place, ms from an idle card and ms a step in a run of 6,
                the host's ms to enqueue a step in a run of 6, the device µs
                a tile of each pass (positive, negative, scatter; stage and
@@ -689,6 +692,51 @@ def fused_steps(tied: bool, dev, V: int, d: int, P: int, TP: int, KP: int,
         plain = plain_fn(*[t.clone() for t in before], *args, tile_pairs=TP)
         torch.cuda.synchronize()
         errs.append(compare(name, before, kern, plain)[:2])
+    return errs
+
+
+def fused_stress(tied: bool, dev, V: int, d: int, P: int, TP: int, KP: int,
+                 n: int = 40) -> list:
+    """``n`` K6 (K7 if ``tied``) micro-steps of P pairs in tiles of TP
+    enqueued back to back through one launch plan, with no host wait
+    between them: the pairs, the mask (every fifth step's first tile all
+    masked) and the pool new at every step, so a kernel that read a
+    packed id or pool row of the call before would update other rows.  The
+    tables after each step are snapshot on the card; the plain versions
+    then run from each snapshot, and each step is held against its own
+    under the f32 check.  Returns each step's (max_abs, max_rel); raises
+    at the first step past the check."""
+    from come_tpu_torch.ops.sgns import (
+        fused_sgns_step,
+        fused_sgns_step_reference,
+        fused_sgns_step_tied,
+        fused_sgns_step_tied_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(V + P + TP + 1)
+    tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+            for _ in range(1 if tied else 2)]
+    kern_fn, plain_fn = ((fused_sgns_step_tied, fused_sgns_step_tied_reference)
+                         if tied else
+                         (fused_sgns_step, fused_sgns_step_reference))
+    states, calls, results = [[t.clone() for t in tabs]], [], []
+    for step in range(n):
+        c, x, pool = (torch.randint(0, V, (k,), generator=g, device=dev,
+                                    dtype=torch.int32) for k in (P, P, KP))
+        m = (torch.rand(P, generator=g, device=dev) < 0.6).float()
+        if step % 5 == 0:
+            m[:TP] = 0.0
+        calls.append((c, x, pool, m, 0.025 * (1.0 + 0.02 * step), 5.0 / KP))
+        *_, loss, pairs = kern_fn(*tabs, *calls[-1], tile_pairs=TP)
+        results.append((loss, pairs))
+        states.append([t.clone() for t in tabs])
+    name = f"{'K7' if tied else 'K6'} back-to-back step"
+    errs = []
+    for step, args in enumerate(calls):
+        plain = plain_fn(*[t.clone() for t in states[step]], *args,
+                         tile_pairs=TP)
+        errs.append(compare(f"{name} {step}", states[step],
+                            (*states[step + 1], *results[step]), plain)[:2])
     return errs
 
 
@@ -2131,6 +2179,9 @@ def main() -> int:
     launch_plan.reset_counts()
     seq6 = fused_steps(False, dev, V, d, 32768, TP, KP)
     seq6_line = fused_counts("K6 plan", "fused_sgns")
+    # 40 micro-steps enqueued back to back, at this shape and karate's
+    seq6 += fused_stress(False, dev, V, d, 32768, TP, KP)
+    seq6 += fused_stress(False, dev, 34, 16, 128, 64, 32)
     kern6 = k6(fused_sgns_step)
     plain6 = k6(fused_sgns_step_reference)
     torch.cuda.synchronize()
@@ -2146,7 +2197,8 @@ def main() -> int:
                 f"(32 tiles): max_abs {k6_err[0]:.3e} max_rel "
                 f"{k6_err[1]:.3e} loss_rel {k6_err[2]:.3e} pairs "
                 f"{float(kern6[3]):.0f}; 6 steps through one plan (new lr, "
-                f"pairs, pool; tables moved once; tile 2 all masked) worst "
+                f"pairs, pool; tables moved once; tile 2 all masked) and "
+                f"2 x 40 enqueued back to back (this shape, karate's) worst "
                 f"max_abs {max(e[0] for e in seq6):.3e} max_rel "
                 f"{max(e[1] for e in seq6):.3e} ({seq6_line}) | "
                 f"{fused_text(k6_t)}, plain {k6_plain_ms:.3f} ms (tol "
@@ -2165,6 +2217,8 @@ def main() -> int:
     launch_plan.reset_counts()
     seq7 = fused_steps(True, dev, V, d, 32768, TP, KP)
     seq7_line = fused_counts("K7 plan", "fused_sgns_tied")
+    seq7 += fused_stress(True, dev, V, d, 32768, TP, KP)
+    seq7 += fused_stress(True, dev, 34, 16, 128, 64, 32)
     kern7 = k7(fused_sgns_step_tied)
     plain7 = k7(fused_sgns_step_tied_reference)
     torch.cuda.synchronize()
@@ -2180,8 +2234,8 @@ def main() -> int:
     phase("K7", f"fused_sgns_tied V={V} d={d} P={arcs.numel()} TP={TP} "
                 f"KP={KP} (32 tiles): max_abs {k7_err[0]:.3e} max_rel "
                 f"{k7_err[1]:.3e} loss_rel {k7_err[2]:.3e} pairs "
-                f"{float(kern7[2]):.0f}; 6 steps through one plan worst "
-                f"max_abs {max(e[0] for e in seq7):.3e} max_rel "
+                f"{float(kern7[2]):.0f}; 6 steps through one plan and 2 x "
+                f"40 back to back worst max_abs {max(e[0] for e in seq7):.3e} max_rel "
                 f"{max(e[1] for e in seq7):.3e} ({seq7_line}) | "
                 f"{fused_text(k7_t)}, plain {k7_plain_ms:.3f} ms (tol "
                 f"{ATOL} + {RTOL}*|plain update|)")

@@ -70,16 +70,21 @@
 // completed, and its wait returns only once the one just before it has.
 // So what a kernel does before its wait may touch only what the kernel just
 // before it neither writes nor reads (atomic adds to stats excepted: they
-// commute): in the walk and star loops, inputs no kernel of the step writes
+// commute), and a trigger makes no write visible: only the wait does.  In
+// the walk and star loops that is inputs no kernel of the step writes
 // (walks, window draws, pools, star slots and meta, parameters; K4's
 // generated walks are written by the step's first kernel, complete before
-// the third starts), read into registers and shared memory; in K6/K7's
+// the third starts), read into registers and shared memory.  In K6/K7's
 // loop, where a tile runs negative -> positive -> scatter, the positive
-// pass does all its work there (sgns_fused.cu).  The negative passes
-// trigger right after their wait, so the kernel after them starts while
-// they run; the other kernels trigger once their last write is issued.
-// Each kernel's note says where its wait stands.  A kernel launched without
-// the attribute (P3's stream launches) returns from pdl_wait() at once.
+// pass does all its work there (sgns_fused.cu); the negative passes read
+// their slot ids before the wait, and K6/K7's first kernel packs those ids,
+// so the negative pass after it launches without the attribute.  The f32
+// negative pass triggers right after its wait, so K6/K7's positive pass
+// runs beside it; the bf16 pass triggers once its dphi is merged, and the
+// other kernels once their last write is issued.  Each kernel's note says
+// where its wait stands.  A kernel launched without the attribute (tile
+// 0's negative pass in K6/K7, P3's stream launches) starts once the kernel
+// before it has completed, and its pdl_wait() returns at once.
 
 #pragma once
 
@@ -731,7 +736,8 @@ static __device__ __forceinline__ void red_tile(float* out, int d, int r,
 // chunks, merged once at the end; rows with nt = 0 get exactly no update),
 // and of each chunk's dneg the 16 pool rows 16 (w & 1) and half of d's
 // columns (w >> 1).  The next chunk's rows are loaded into registers while
-// the current one is computed.  PDL: as negative_f32_kernel.
+// the current one is computed.  PDL: as negative_f32_kernel, but it
+// triggers once dphi is merged.
 template <int NTILE, typename T>
 static __global__ void __launch_bounds__(NEG_THREADS, NTILE == 16 ? 3 : 2)
 negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
@@ -769,7 +775,6 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
   constexpr int CU = NTILE / 2;  // a chunk's pieces per thread
   if (threadIdx.x < NEG_MS) rows[threadIdx.x] = ids[base + threadIdx.x];
   pdl_wait();
-  pdl_trigger();
   float4 next[CU];
   load_batch<NEG_THREADS, CU, float>(next, threadIdx.x, NEG_KC, d, dp,
                                      pool_row(blockIdx.y));
@@ -886,6 +891,7 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
     if (n >= ntiles) break;
     red_tile(dphi + (size_t)base * d, d, ir, ok, ok8, 8 * n + fc, acc[n]);
   }
+  pdl_trigger();
   block_add<NEG_THREADS>(loss, &stats[0]);
 }
 

@@ -28,8 +28,10 @@
 //   * a micro-step is one unit the card replays, as the TPU runs it as one
 //     pallas_call with a grid over the tiles: the C entry records the tile
 //     loop as a CUDA graph on the plan's private stream and replays it on
-//     the caller's (step_graph.cuh), every kernel after the first under
-//     programmatic dependent launch (PDL, sgns_common.cuh);
+//     the caller's (step_graph.cuh), every kernel after tile 0's negative
+//     pass under programmatic dependent launch (PDL, sgns_common.cuh: that
+//     pass reads its slot ids before its wait, and the first kernel packs
+//     them);
 //   * the plan (ops/sgns.py, ops/launch_plan.py) owns every buffer the loop
 //     reads besides the tables: the packed ids, the per-tile masks nt
 //     (written once a call, rows TP.. of each tile's last 128-row chunk 0),
@@ -205,7 +207,8 @@ fused_scatter_kernel(float* emb_in, float* emb_out, const int* __restrict__ c,
 
 // The step's last kernel: table[pool[k]] -= lr * dneg[k] (atomic: a pool
 // may repeat a row), and block 0 writes the step's (loss, pairs) as f32 to
-// out.  grid KP, block 128.  PDL: the pool id before the wait.
+// out.  grid KP, block 128.  PDL: everything after the wait (with no tile
+// the stage kernel that writes pool is the one just before it).
 static __global__ void fused_apply_kernel(float* table,
                                           const int* __restrict__ pool,
                                           const float* __restrict__ dneg,
@@ -213,8 +216,8 @@ static __global__ void fused_apply_kernel(float* table,
                                           float* __restrict__ out, int d,
                                           float lr) {
   const int k = blockIdx.x;
-  const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
   pdl_wait();
+  const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
   for (int j = threadIdx.x; j < d; j += blockDim.x)
     atomicAdd(&table[dst + j], -lr * dneg[src + j]);
   if (k == 0 && threadIdx.x < 2) out[threadIdx.x] = (float)stats[threadIdx.x];
@@ -253,8 +256,10 @@ static int fused_tiles(const NegSetup& ns, float* emb_in, float* emb_out,
   for (int t = 0; t < n_tiles; ++t) {
     const int *ct = c + (size_t)t * TP, *xt = x + (size_t)t * TP;
     const float* ntt = nt + (size_t)t * TPr;
+    // tile 0's negative pass reads its slot ids, which the stage kernel
+    // just before it writes, before its wait: it launches without PDL
     e = neg.launch(emb_in, ct, ntt, cneg, d, KP, negw, dphin, dneg, stats,
-                   stream, true);
+                   stream, t > 0);
     if (e != cudaSuccess) return (int)e;
     e = launch_kernel(fused_pos_kernel, pairs, dim3(THREADS), 0, stream, true,
                       0, (const float*)emb_in, (const float*)emb_out, ct, xt,

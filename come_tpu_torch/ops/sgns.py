@@ -51,9 +51,9 @@ def _tiles(centers, contexts, mask, TP: int, extra: int = 0):
     return out, n_tiles
 
 
-def _plain(emb_in, emb_out, cxm, n_tiles, pool, lr, negw, TP, tied):
-    """The plain micro-step on packed pairs ``cxm`` (``_tiles``' layout,
-    at least n_tiles * TP columns).  Returns (loss, n_pairs)."""
+def _plain(emb_in, emb_out, centers, contexts, pool, mask, lr, negw, TP,
+           tied):
+    cxm, n_tiles = _tiles(centers, contexts, mask, TP)
     cxm = cxm.long()
     pool = pool.long()
     cneg = emb_out[pool].clone()
@@ -83,10 +83,8 @@ def fused_sgns_step_reference(emb_in, emb_out, centers, contexts, pool, mask,
     """Plain PyTorch version of :func:`fused_sgns_step` (same signature and
     semantics): a loop over tiles on :func:`sgns_block_grads_from_rows`.
     Returns (emb_in, emb_out, loss, n_pairs)."""
-    TP = int(tile_pairs)
-    cxm, n_tiles = _tiles(centers, contexts, mask, TP)
-    loss, npairs = _plain(emb_in, emb_out, cxm, n_tiles, pool, lr, negw, TP,
-                          tied=False)
+    loss, npairs = _plain(emb_in, emb_out, centers, contexts, pool, mask, lr,
+                          negw, int(tile_pairs), tied=False)
     return emb_in, emb_out, loss, npairs
 
 
@@ -94,10 +92,8 @@ def fused_sgns_step_tied_reference(emb, centers, contexts, pool, mask, lr,
                                    negw, *, tile_pairs: int = TILE_PAIRS):
     """Plain PyTorch version of :func:`fused_sgns_step_tied`.  Returns
     (emb, loss, n_pairs)."""
-    TP = int(tile_pairs)
-    cxm, n_tiles = _tiles(centers, contexts, mask, TP)
-    loss, npairs = _plain(emb, emb, cxm, n_tiles, pool, lr, negw, TP,
-                          tied=True)
+    loss, npairs = _plain(emb, emb, centers, contexts, pool, mask, lr, negw,
+                          int(tile_pairs), tied=True)
     return emb, loss, npairs
 
 

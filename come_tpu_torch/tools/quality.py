@@ -1,8 +1,7 @@
 """Full-depth quality runs on one card: NMI and seconds per outer iteration.
 
     python -m come_tpu_torch.tools.quality [--runs blogcatalog bench-gen
-        synthetic-10m micro] [--seed 0] [--pretrain N] [--outer N]
-        [--walks-per-node N] [--root DIR]
+        synthetic-10m micro] [--seed 0] [--root DIR]
 
 Trains each named configuration at its preset's full schedule (pretrain 2
 + outer 5) through ``ComETrainer`` on the card and prints one JSON line per
@@ -20,11 +19,9 @@ trainer set-up excluded) and the peak of ``torch.cuda.max_memory_allocated()``.
   * ``micro``: the blogcatalog preset on the micro-batched tier
     (``--down-sample 1e-3 --o2-mode xla``: K6 for O1, K7 for O2).
 
-``--pretrain``, ``--outer`` and ``--walks-per-node`` cut the schedule
-(``chip_smoke.py`` phase 10 runs ``micro`` at 0, 1 and 2).  ``--root``
-trains with the ``come_tpu_torch`` package of another checkout (run the
-file by its path, not with ``-m``), so two trees compare on one card in
-one call.  Needs a CUDA card.
+``--root`` trains with the ``come_tpu_torch`` package of another
+checkout (run the file by its path, not with ``-m``), so two trees compare
+on one card in one call.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -60,9 +57,6 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--runs", nargs="+", default=list(RUNS), choices=RUNS)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--pretrain", type=int, help="pretrain epochs")
-    p.add_argument("--outer", type=int, help="outer iterations")
-    p.add_argument("--walks-per-node", type=int)
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                    help="the checkout whose come_tpu_torch to train with")
     args = p.parse_args(argv)
@@ -82,11 +76,6 @@ def main(argv=None) -> int:
         ds = get_dataset("synthetic-10m" if name == "synthetic-10m"
                          else "blogcatalog")
         cfg = _config(name, ds, args.seed)
-        cut = {k: v for k, v in (("pretrain_epochs", args.pretrain),
-                                 ("outer_iters", args.outer),
-                                 ("walks_per_node", args.walks_per_node))
-               if v is not None}
-        cfg = cfg.replace(**cut)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         trainer = ComETrainer(ds.graph, cfg, dev)

@@ -28,7 +28,9 @@ parity harness must pass on the card.  Six consecutive K1, K3 and K2
 steps through one launch plan's graph each (``chip_smoke.graph_steps``)
 must each pass their mode's check, with at most one instantiation; six K6
 and six K7 micro-steps through one plan (``chip_smoke.fused_steps``) the
-f32 check, with one instantiation and five updates, and the plan's
+f32 check, with one instantiation and five updates; forty of each
+enqueued back to back with new pairs and pools (``chip_smoke.fused_stress``)
+the same check, step by step; and the plan's
 packed pairs, masks and pool must equal ``FusedPlan.pack``'s bit for bit.
 G1
 (``ops/gmm_factor.py``) is held to its plain version under
@@ -82,6 +84,7 @@ from chip_smoke import (
     em_graph_check,
     em_linalg_check,
     fused_steps,
+    fused_stress,
     g1_check,
     g1_moments,
     g1_pivot_batch,
@@ -729,6 +732,28 @@ def test_fused_plan_steps_follow_every_step(dev, tied):
     assert len(errs) == 6
     assert (c["recordings"], c["replays"], c["instantiations"], c["updates"],
             c["shapes"]) == (6, 6, 1, 5, 1)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("V,d,P,TP,KP", [
+    (2000, 128, 3000, 777, 512), (34, 16, 128, 64, 32),
+])
+def test_fused_plan_steps_back_to_back_follow_every_step(dev, tied, V, d, P,
+                                                         TP, KP):
+    """Forty K6 (K7) micro-steps enqueued back to back through one plan,
+    with the pairs, the mask and the pool new at every call
+    (``chip_smoke.fused_stress``): each step equals its plain version from
+    the tables the step before it left, under phase 6's check, so no step
+    read a packed id or pool row of the call before it."""
+    from come_tpu_torch.ops import build, launch_plan
+
+    entry = "fused_sgns_tied" if tied else "fused_sgns"
+    launch_plan.release_plans(build.library(), entry)
+    launch_plan.reset_counts()
+    errs = fused_stress(tied, dev, V, d, P, TP, KP)
+    c = launch_plan.graph_counts()[entry]
+    assert len(errs) == 40
+    assert (c["replays"], c["instantiations"], c["shapes"]) == (40, 1, 1)
 
 
 @pytest.mark.parametrize("tied,P,TP,wide", [
