@@ -19,20 +19,36 @@ non-zero and prints no result line):
                and every hop an edge
  4d. K5      — one paired O2 macro step at blogcatalog shapes (512 rows of
                64 edges, 64 groups), f32
+ 4k. wide 256 — phases 3, 4 and 4d's K1, K2 and K5 steps (the main
+               path's shapes at --dim 256: 256 walks in 32 groups, 65536
+               star slots in 64 groups, 512 edge rows in 64 groups, KP 512)
+               on tables 256 wide (past 192 the f32 passes stage column
+               slabs of 128), and K1 with the whole walk in its window (W
+               79), each against its plain version under the f32 check,
+               with ms from an idle card, ms a step in a run of 10, the
+               plain version's ms and the bound (step_check)
  4e. bench shapes — K1b, K4 (bf16) and K2b at the shapes phases 12-13 give
                them: one 2048-walk O1 step (256 groups, R 8, unigram pools
                [32, 512]) and the one star O2 step of batch_edges 524288
                (the whole layout, 344 groups, R 8)
  4h. edges   — the walk kernel against its plain version at EDGE_SHAPES
                (W >= L - 1, L = 1, odd L with W past a strip, d 192 and 2,
-               a heavily repeated row, KP 100 and 2048 with R 3), in f32,
-               bf16 products and on bf16 tables, each under its mode's check
+               a heavily repeated row, KP 100 and 2048 with R 3; L = 1,
+               odd L, the repeated row and KP 2048 again at d 256 and 300,
+               the slab passes), in f32, bf16 products and on bf16 tables
+               (f32 only past 192), each under its mode's check
  4i. star/f32 edges — the star kernel against its plain version, in f32 and
                bf16, at STAR_EDGES (a hub of degree 300 split at fan-out 32,
                a single fat hub filling a row, segments dropped to pads
-               mid-row, d 192 and 2, KP 100 with R 3, a ragged last group),
+               mid-row, d 192 and 2, KP 100 with R 3, a ragged last group;
+               the hubs, pads, ragged group and KP 2048 with R 3 again at
+               d 256 and 300 in f32, the slab passes),
                and K6 and K7 at FUSED_EDGES (KP 100 and 2048, d 192 and 2,
                tiles of 64 and 777 pairs, each with one all-masked tile)
+ 4j. wide    — K1 (W 10 and a whole-walk window W 127), K5 and K2 on V
+               2000 at the ragged and odd widths of WIDE_WIDTHS (129, 193,
+               300, 512; at 256 the whole-walk window only), each under the
+               f32 check, and timed as in 4k but for the whole walk
   4f. K3     — the walk kernel on bf16 tables at the large-V path's shapes
                (synthetic-10m: V 500000, d 128, 1024 walks of 80, W 10, KP
                2048, R 1, 128 groups), with stochastic rounding and in
@@ -59,6 +75,13 @@ non-zero and prints no result line):
                graph counters too (ops/launch_plan.py: every macro step is
                one recorded graph replayed, at most one instantiation per
                shape: instantiations <= the shapes that stepped)
+ 5b. main 256, paired 256 — the same CLI at --dim 256 (K1 and K2 with
+               their f32 passes in column slabs, G1 with its matrices in
+               device memory), then with --o2-mode paired (K1 and K5),
+               each with its counters reset just before and read just
+               after: finite losses and embeddings [V, 256], every edge
+               trained twice in O2 (K2), NMI >= 0.8; prints G1's launches
+               and the peak device memory
   6. K6      — one BlogCatalog-width O1 micro-step (32768 window pairs of
                256 real walks, down_sample 1e-3 masks, KP 512, 32 tiles)
                through the fused SGNS kernel and its plain version; first
@@ -141,7 +164,13 @@ After phase 14:
                which for K3 must stay under 0.7 of the card's: no step
                waits for the card) and P4's bare and gather floors with their
                G launches recorded as one graph and replayed, beside the
-               stream launches (tools/probe_star_floor.py::graph_floor)
+               stream launches (tools/probe_star_floor.py::graph_floor);
+               and eight steps of every walk and star mode (B2B_MODES: K1,
+               K1b, K2, K2b, K3, K4 with its walk generation, K5) at d 128,
+               and of K1, K5 and K2 at d 256, enqueued back to back through
+               one plan with no host wait, inputs new at every step, each
+               held against its plain version from the tables the step
+               before it left, under its mode's check (graph_stress)
  16. parity  — the parity CLI (evaluation/parity.py) on karate, 3
                iterations, on cuda: K1, K5, K2 and K7 rows against the
                numpy oracle; it must return 0
@@ -199,7 +228,8 @@ After phase 17:
                step (the rows planned and gathered through the exchange,
                the kernel on the compact tables, its plain version on
                clones of the same compact rows) under the f32 check below,
-               tools/hot_row.py's float64 rule where it fails; (a) also one
+               tools/hot_row.py's float64 rule where it fails, and both
+               again on rows 256 wide (the slab passes); (a) also one
                K1 step at the synthetic-10m shapes (V 500000 over M 2, 1024
                walks, KP 2048: 172032 compact rows a worker) with its
                compact-table and exchange bytes.  The line gives per step
@@ -239,13 +269,16 @@ After phase 19:
                error of L and of inv_cov within 1e-4, or no farther from
                the float64 plain version than the f32 plain version is,
                and equal info flags; the same at synthetic-10m's [1, 64,
-               128, 128] and flickr's [1, 195, 128, 128] shapes and at d in
-               G1_WIDTHS (panels of 16 whole and ragged) on g1_moments; a
+               128, 128] and flickr's [1, 195, 128, 128] shapes, at
+               blogcatalog's dim 256 ([2, 39, 256, 256] on g1_moments and
+               on phase 5b's table) and at d in G1_WIDTHS (panels of 16
+               whole and ragged; past 128 the matrices in device memory)
+               on g1_moments; a
                non-positive pivot placed at the first, middle and last
                column of every panel (g1_pivot_batch) flagged exactly as
                torch.linalg.cholesky_ex flags it; the device time per call
                of G1 and of its plain versions and library calls (20 calls
-               back to back behind a sleep, tools/g1_times.py) at the three
+               back to back behind a sleep, tools/g1_times.py) at the four
                shapes, beside one call's time from an idle card (which
                includes the host's enqueue); the EM as one WHILE-graph launch
                against the eager EM, both with G1, from the same k-means
@@ -254,7 +287,7 @@ After phase 19:
                (one instantiation); the EM with G1 against the EM with
                torch.linalg's factor and inverse: log-likelihood within
                1e-4 relative, NMI of the two partitions >= 0.99.
-Phases 5, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
+Phases 5, 5b, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
 every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode; every phase that fits a GMM on the card must launch G1's two
 kernels (gmm_factor, gmm_inverse), the probes and parity neither (inside
@@ -264,7 +297,10 @@ phase line ends with its seconds.  Then a JSON line of the
 kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
 bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
 is a probe and on no path; G1's ms, plain_ms and library_ms the device
-time per call of phase 21, the others one call from an idle card), each
+time per call of phase 21, the others one call from an idle card; the
+entries ending "_d256" the kernels at dim 256: launches from phase 5b,
+errors and times from phase 4k (ms in place, from an idle card) and
+phase 21), each
 with its bound: the larger of the bytes
 it must move (each touched row and each input read once, each output
 written once) over 3.35 TB/s and the operations its inputs need over 67
@@ -344,7 +380,10 @@ KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 # Phase 4h's shapes (V, d, B, L, W, KP, R, hot): the whole walk in the band
 # (W >= L - 1), one slot per walk, an odd L with W wider than a strip, d at
 # its bound 192 and at 2, walks that repeat one row heavily, ragged and
-# large pools (KP 100 and 2048, R 3).  On bf16 tables V is at least 20000:
+# large pools (KP 100 and 2048, R 3); the last four again past MAX_DIM
+# (192), where the f32 passes stage column slabs (slab_modes: the bf16
+# modes stop at 192), at 256 and at 300 (a ragged slab of 44).  On bf16
+# tables V is at least 20000:
 # K3's check holds steps whose walks repeat few rows, since its CAS loops
 # write a row's repeats within a group in any order (ops/tolerance.py); its
 # float64 emulation of that order fails the check with the hot row (0.52 of
@@ -362,10 +401,16 @@ EDGE_SHAPES = [
     (2000, 2, 16, 20, 3, 64, 1, False),
     (2000, 128, 16, 80, 10, 512, 1, True),
     (20000, 128, 24, 80, 10, 2048, 3, False),
+    (500, 256, 16, 1, 3, 16, 1, False),
+    (2000, 300, 24, 37, 13, 100, 3, False),
+    (2000, 300, 16, 80, 10, 512, 1, True),
+    (20000, 256, 24, 80, 10, 2048, 3, False),
 ]
 
 # Phase 4i's star layouts (V, d, E, KP, R, layout): see star_edge_layout;
-# d at its bound 192 and at 2, a ragged and a small pool (KP 100, R 3).
+# d at its bound 192 and at 2, a ragged and a small pool (KP 100, R 3);
+# past MAX_DIM (column slabs, f32 only) the hub, the fat hub, pads mid-row,
+# a ragged last group and KP 2048 with R 3.
 STAR_EDGES = [
     (3000, 128, 20000, 512, 1, "hub"),
     (400, 128, 150, 64, 1, "fat"),
@@ -374,7 +419,20 @@ STAR_EDGES = [
     (2000, 2, 12000, 64, 1, "random"),
     (2000, 128, 12000, 100, 3, "random"),
     (2000, 128, 9000, 512, 2, "ragged"),
+    (3000, 256, 20000, 512, 1, "hub"),
+    (400, 300, 150, 64, 1, "fat"),
+    (3000, 300, 20000, 512, 1, "pads"),
+    (2000, 300, 9000, 512, 2, "ragged"),
+    (2000, 256, 12000, 2048, 3, "random"),
 ]
+
+
+def slab_modes(d, modes):
+    """``modes`` of a phase 4h/4i shape at width d: past MAX_DIM only
+    "f32" (the bf16 modes raise there)."""
+    from come_tpu_torch.ops.walk_sgns import MAX_DIM
+
+    return tuple(m for m in modes if d <= MAX_DIM or m == "f32")
 # Phase 4i's K6/K7 shapes (V, d, P, TP, KP): pools of 100 and 2048 rows, d
 # 192 and 2, tiles of 64 and 777 pairs; the second tile is all masked.
 FUSED_EDGES = [
@@ -809,6 +867,10 @@ def graph_phase(dev, smi: str) -> dict:
         if (c["recordings"], c["replays"], c["shapes"]) != (6, 6, 1):
             raise AssertionError(f"graph {mode}: counters {c}")
         seq[mode] = (errs, graph_line(f"graph {mode}", counts))
+    # every walk and star mode enqueued back to back, and the modes that
+    # run past MAX_DIM at d 256 too
+    stress = {(m, 128): graph_stress(m, dev) for m in B2B_MODES}
+    stress.update({(m, 256): graph_stress(m, dev, 256) for m in B2B_WIDE})
     steps = {}
     for name, step, groups, passes, _, _ in pass_times.steps(dev):
         if name not in ("K1", "K2", "K3"):
@@ -838,7 +900,9 @@ def graph_phase(dev, smi: str) -> dict:
             f"{min(e[1] for e in errs):.5f}" if m == "K3" else
             f"max_abs {max(e[0] for e in errs):.3e}, max_rel "
             f"{max(e[1] for e in errs):.3e}") + f" ({line})"
-            for m, (errs, line) in seq.items()) + " | steps (pass_times): " +
+            for m, (errs, line) in seq.items()) + " | 8 steps each enqueued "
+        "back to back, held step by step: " + stress_text(stress) +
+        " | steps (pass_times): " +
         "; ".join(f"{k} {v['ms']:.3f} ms from idle, {v['chained_ms']:.3f} ms "
                   f"a step in a row, busy {v['busy']:.1%}, covered "
                   f"{v['covered']:.1%} of a {v['span_us']:.1f} us span, "
@@ -850,6 +914,320 @@ def graph_phase(dev, smi: str) -> dict:
             " graph " + ", ".join(f"{t:.2f}" for t in v["graph"])
             for k, v in floors.items())))
     return {"steps": steps, "floors": floors}
+
+
+# Phase 15b's back-to-back runs (graph_stress): every walk and star mode at
+# d 128, and the modes that run past MAX_DIM (192) also at d 256.
+B2B_MODES = ("K1", "K1b", "K2", "K2b", "K3", "K4", "K5")
+B2B_WIDE = ("K1", "K5", "K2")
+
+
+def _b2b_inputs(mode, dev, g, step, V, W, KP, R, B, csr):
+    """One back-to-back step's inputs, drawn anew from ``g``: K1, K1b and
+    K3 walks, window draws and pools (_graph_step_inputs), K2 and K2b star
+    rows; K5 rows of random edges; K4 starts, 32-bit draws, window draws
+    and pools (its walks are made in the step).  B walks (rows) of 80, a
+    pool every R groups; K1b's walks are walked on ``csr``."""
+    from come_tpu_torch.ops.walk_sgns import NWL
+    from come_tpu_torch.sampling import random_walks
+
+    base = {"K1b": "K1", "K2b": "K2"}.get(mode, mode)
+    if base in ("K2", "K3"):
+        return _graph_step_inputs(base, dev, g, step, V, W, KP, csr)
+    L = 80
+    G = B // 8
+    pools = torch.randint(0, V, (-(-G // R), KP), generator=g, device=dev,
+                          dtype=torch.int32)
+    if base == "K1":
+        walks = (random_walks(csr, torch.randint(0, V, (B,), generator=g,
+                                                 device=dev), L, g)
+                 if mode == "K1b" else
+                 torch.randint(0, V, (B, L), generator=g, device=dev,
+                               dtype=torch.int32))
+        wrow = torch.randint(1, W + 1, (G * NWL,), generator=g, device=dev,
+                             dtype=torch.int32)
+        return walks, wrow, pools
+    if mode == "K5":
+        return edge_rows(g, V, B, dev), pools
+    starts = torch.randint(0, V, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+    bits = torch.randint(-2**31, 2**31, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    wrow = torch.randint(1, W + 1, (G * NWL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return starts, bits, wrow, pools
+
+
+def graph_stress(mode: str, dev, d: int = 128, n: int = 8) -> list:
+    """``n`` steps of ``mode`` (B2B_MODES) through one launch plan enqueued
+    back to back, with no host wait between them: lr, the SR seed, the
+    walks (edge rows, star rows; K4's starts and draws), window draws and
+    pools new at every step, all drawn on the card before the first step,
+    so a pass that read an input of the step before would update other
+    rows.  The tables after each step are snapshot on the card; the plain
+    versions then run from each snapshot, and each step is held against
+    its own under its mode's check (f32, bf16 or K3's; K4's walks bit for
+    bit).  Returns each step's (max_abs, f32 relative error, bf16 relative
+    L2 error or K3 identical share, bf16 f32-vs-bf16 distance; nan where
+    the mode has none); raises at the first step past its check."""
+    from come_tpu_torch.graphs import get_dataset, sbm_graph
+    from come_tpu_torch.ops.star_sgns import (
+        star_sgns_step,
+        star_sgns_step_reference,
+    )
+    from come_tpu_torch.ops.tolerance import check_k3
+    from come_tpu_torch.ops.walk_sgns import (
+        walk_sgns_gen_step,
+        walk_sgns_gen_step_reference,
+        walk_sgns_step,
+        walk_sgns_step_reference,
+    )
+
+    # K1b and K4 walk the blogcatalog graph at phase 3's shape (KP 512, R
+    # 1; 64 walks): on random walks of a V 2000 graph their f32 step lay
+    # 6.4e-4 to 7.6e-4 from the bf16 step (H100), under the 2 x BF16_L2
+    # the bf16 check needs to tell the two apart (phase 3b reads 1.3e-3)
+    V, W, L = (20000 if mode == "K3" else 2000), 10, 80
+    B, KP, R = (64, 512, 1) if mode in ("K1b", "K4") else (40, 100, 2)
+    csr = None
+    if mode == "K3":
+        graph, _ = sbm_graph(V, 16, p_in=0.1, p_out=0.002, seed=V,
+                             avg_degree=40)
+        csr = graph.to_device(dev)
+    elif mode in ("K1b", "K4"):
+        graph = get_dataset("blogcatalog").graph
+        V, csr = graph.num_nodes, graph.to_device(dev)
+    g = torch.Generator(device=dev).manual_seed(11 + d)
+    tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+            for _ in range(1 if mode in ("K2", "K2b") else 2)]
+    if mode == "K3":
+        tabs = [t.to(torch.bfloat16) for t in tabs]
+    bf16 = mode in ("K1b", "K2b", "K4")
+    inputs = [_b2b_inputs(mode, dev, g, step, V, W, KP, R, B, csr)
+              for step in range(n)]
+
+    def run(fn, tables, x, step, plain=False, mxu=bf16, seed=True):
+        lr, negw = 0.025 * (1.0 + 0.05 * step), 5.0 / KP
+        if mode in ("K2", "K2b"):
+            return fn(*tables, *x, lr, negw, mxu_bf16=mxu, pool_refresh=1)
+        kw = dict(pool_refresh=R)
+        kw.update(window=1 if mode == "K5" else W, mxu_bf16=mxu)
+        if mode == "K3" and seed:
+            kw["sr_seed"] = 1000 + step
+        if mode == "K5":
+            return fn(*tables, x[0], None, x[1], lr, negw, paired=True, **kw)
+        if mode == "K4":
+            return fn(*tables, x[0], x[1], csr.indptr, csr.indices, x[2],
+                      x[3], lr, negw, walk_length=L, return_walks=True,
+                      **kw)
+        return fn(*tables, *x, lr, negw, **kw)
+
+    kern_fn, plain_fn = {
+        "K2": (star_sgns_step, star_sgns_step_reference),
+        "K2b": (star_sgns_step, star_sgns_step_reference),
+        "K4": (walk_sgns_gen_step, walk_sgns_gen_step_reference),
+    }.get(mode, (walk_sgns_step, walk_sgns_step_reference))
+    torch.cuda.synchronize()  # every input on the card before the first step
+    states, results = [[t.clone() for t in tabs]], []
+    for step, x in enumerate(inputs):
+        results.append(run(kern_fn, tabs, x, step))
+        states.append([t.clone() for t in tabs])
+    torch.cuda.synchronize()
+    errs = []
+    for step, x in enumerate(inputs):
+        name = f"back-to-back {mode} d {d} step {step}"
+        before, after = states[step], states[step + 1]
+        res = results[step]
+        if mode == "K4":
+            *res, walks = res
+            plain = run(plain_fn, [t.clone() for t in before], x, step)
+            if not torch.equal(walks.cpu(), plain[-1].cpu()):
+                raise AssertionError(f"{name}: generated walks differ")
+            plain = plain[:-1]
+        else:
+            plain = run(plain_fn, [t.clone() for t in before], x, step)
+        kern = (*after, *res[-2:])
+        if mode == "K3":
+            f32 = run(plain_fn, [t.float() for t in before], x, step,
+                      mxu=True, seed=False)
+            if float(kern[3]) != float(plain[3]) or abs(
+                    float(kern[2]) - float(plain[2])) > 1e-4 * abs(
+                        float(plain[2])):
+                raise AssertionError(f"{name}: loss {float(kern[2])} vs "
+                                     f"{float(plain[2])}, pairs "
+                                     f"{float(kern[3])} vs {float(plain[3])}")
+            err = check_k3(name, before, kern[:2], plain[:2], f32[:2])
+            errs.append((err[0], float("nan"), err[3], float("nan")))
+        elif bf16:
+            f32 = run(plain_fn, [t.clone() for t in before], x, step,
+                      mxu=False)
+            if mode == "K4":
+                f32 = f32[:-1]
+            err = compare_bf16(name, before, kern, plain, f32[:-2])
+            errs.append((err[0], float("nan"), err[1], err[2]))
+        else:
+            err = compare(name, before, kern, plain)
+            errs.append((err[0], err[1], float("nan"), float("nan")))
+    return errs
+
+
+def stress_text(runs: dict) -> str:
+    """The back-to-back runs' worst errors by mode and width."""
+    out = []
+    for (mode, d), errs in runs.items():
+        worst = max(e[0] for e in errs)
+        if mode == "K3":
+            tail = f"identical >= {min(e[2] for e in errs):.5f}"
+        elif mode in ("K1b", "K2b", "K4"):
+            tail = (f"rel_l2 {max(e[2] for e in errs):.3e}, f32-vs-bf16 "
+                    f"distance >= {min(e[3] for e in errs):.3e}")
+        else:
+            tail = f"max_rel {max(e[1] for e in errs):.3e}"
+        out.append(f"{mode} d {d}: {len(errs)} steps, max_abs {worst:.3e}, "
+                   f"{tail}")
+    return "; ".join(out)
+
+
+# Phase 4j's widths past 128 (phase 4k holds K1, K5 and K2 at 256 at
+# phases 3, 4 and 4d's shapes): past MAX_DIM (192) the f32 passes of K1, K5
+# and K2 stage column slabs of 128 (csrc/sgns_common.cuh: SLAB), so 193
+# leaves a ragged slab of 65, 300 one of 44 and 512 four whole ones; 129
+# runs the whole-row passes at a ragged width.  The whole-walk window also
+# runs at 256.
+WIDE_WIDTHS = (129, 193, 256, 300, 512)
+WIDE_CASES = (("K1", False), ("K1", True), ("K5", False), ("K2", False))
+
+
+def edge_rows(g, V, n, dev):
+    """[n, 128] int32 K5 rows: 64 random edges (u, v != u) of V nodes a
+    row, drawn from ``g``."""
+    u = torch.randint(0, V, (n * 64,), generator=g, device=dev)
+    v = (u + 1 + torch.randint(0, V - 1, u.shape, generator=g,
+                               device=dev)) % V
+    return torch.stack([u, v], 1).reshape(n, 128).to(torch.int32)
+
+
+def wide_inputs(mode, dev, d, seed, whole=False):
+    """(tables, inputs, kwargs) of one step at width d on V 2000, KP 512,
+    drawn from ``seed``: K1 over 64 walks of 80 at W 10 (8 groups), or with
+    ``whole`` 16 walks of 128 with the whole walk in the window (W 127); K5
+    over 16 edge rows (2 groups, R 2); K2 over the star layout of 12000
+    random edges."""
+    V, KP = 2000, 512
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+            for _ in range(1 if mode == "K2" else 2)]
+
+    def ids(*shape):
+        return torch.randint(0, V, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    if mode == "K2":
+        slots, meta = star_edge_layout(V, 12000, "random", seed)
+        sl, mt = (torch.as_tensor(a, device=dev) for a in (slots, meta))
+        return tabs, (sl, mt, ids(-(-sl.numel() // 1024), KP)), dict(
+            pool_refresh=1)
+    if mode == "K5":
+        return tabs, (edge_rows(g, V, 16, dev), None, ids(1, KP)), dict(
+            window=1, pool_refresh=2, paired=True)
+    B, L, W = (16, 128, 127) if whole else (64, 80, 10)
+    wrow = torch.randint(1, W + 1, (B // 8 * 1024,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return tabs, (ids(B, L), wrow, ids(B // 8, KP)), dict(window=W,
+                                                          pool_refresh=1)
+
+
+def step_check(mode, name, tabs, x, kw, timed=True) -> dict:
+    """One K1, K5 or K2 step on tables ``tabs`` and inputs ``x`` (walks,
+    edge rows or star slots; window draws or meta; pools) through the
+    kernel and its plain version from the same tables, under the f32
+    check; with ``timed`` also ms from an idle card, ms a step in a run of
+    10 and the plain version's ms (each on tables it updates in place) and
+    the step's bound.  Returns the numbers."""
+    from come_tpu_torch.ops.star_sgns import (
+        star_sgns_step,
+        star_sgns_step_reference,
+    )
+    from come_tpu_torch.ops.walk_sgns import (
+        walk_sgns_step,
+        walk_sgns_step_reference,
+    )
+    from come_tpu_torch.sampling.stars import PAD_META
+    from come_tpu_torch.tools.pass_times import chained_ms, cuda_ms
+
+    kern_fn, plain_fn = ((star_sgns_step, star_sgns_step_reference)
+                         if mode == "K2" else
+                         (walk_sgns_step, walk_sgns_step_reference))
+    lr, negw = 0.025, 5.0 / x[2].shape[-1]
+    kern = kern_fn(*[t.clone() for t in tabs], *x, lr, negw, **kw)
+    plain = plain_fn(*[t.clone() for t in tabs], *x, lr, negw, **kw)
+    torch.cuda.synchronize()
+    out = {"err": compare(name, tabs, kern, plain), "pairs": float(kern[-1])}
+    del kern, plain
+    if timed:
+        d = tabs[0].shape[1]
+        work, pwork = [t.clone() for t in tabs], [t.clone() for t in tabs]
+
+        def step():
+            kern_fn(*work, *x, lr, negw, **kw)
+
+        out["ms"], out["run_ms"] = cuda_ms(step), chained_ms(step)
+        out["plain_ms"] = cuda_ms(lambda: plain_fn(*pwork, *x, lr, negw,
+                                                   **kw))
+        out["bound"] = (star_bound(x[0], x[1], x[2], out["pairs"], d, False,
+                                   PAD_META) if mode == "K2" else
+                        walk_bound(x[0], x[2], out["pairs"], d, 4, False))
+    return out
+
+
+def step_times(res: dict) -> str:
+    """The times of step_check results ``res`` by label."""
+    return "; ".join(
+        f"{k}: {r['ms']:.3f} ms from idle, {r['run_ms']:.3f} ms a step in a "
+        f"run, plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms by "
+        f"{r['bound'][1]}" for k, r in res.items() if "ms" in r)
+
+
+def wide_phase(smi: str, dev) -> dict:
+    """Phase 4j (module docstring); raises if a step fails its check.
+    Returns the checks by (mode, whole, d)."""
+    res = {}
+    for d in WIDE_WIDTHS:
+        for mode, whole in WIDE_CASES:
+            if d == 256 and not whole:
+                continue  # phase 4k's, at the main path's shapes
+            name = f"{mode} d {d}" + (" whole walk" if whole else "")
+            res[(mode, whole, d)] = step_check(
+                mode, name, *wide_inputs(mode, dev, d, 3 * d + 2 * whole
+                                         + (mode == "K5"), whole),
+                timed=not whole)
+    worst = "; ".join(
+        f"{m}{' whole walk' if w else ''} max_abs "
+        f"{max(r['err'][0] for k, r in res.items() if k[:2] == (m, w)):.3e}"
+        f" max_rel "
+        f"{max(r['err'][1] for k, r in res.items() if k[:2] == (m, w)):.3e}"
+        for m, w in WIDE_CASES)
+    phase("wide", f"K1 (W 10 and a whole-walk window), K5 and K2 on V 2000 "
+                  f"at d in {list(WIDE_WIDTHS)} (256: the whole walk only) "
+                  f"vs plain (tol {ATOL} + {RTOL}*|plain update|): {worst} | "
+                  + step_times({f"{m} d {d}": r for (m, w, d), r in
+                                res.items()}) + f" | {smi}")
+    return res
+
+
+def blog_wide_checks(dev, steps: dict, V: int, d: int = 256) -> dict:
+    """Phase 4k: each step of ``steps`` ({label: (mode, inputs, kwargs)},
+    phases 3, 4 and 4d's inputs) on [V, d] tables drawn from SEED, through
+    step_check (the f32 check, times and bound).  Returns the checks by
+    label."""
+    g = torch.Generator(device=dev).manual_seed(SEED + d)
+    res = {}
+    for label, (mode, x, kw) in steps.items():
+        tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+                for _ in range(1 if mode == "K2" else 2)]
+        res[label] = step_check(mode, f"{label} d {d}", tabs, x, kw)
+        del tabs
+    return res
 
 
 def _torchrun(tag, n, module, args, timeout):
@@ -1015,8 +1393,16 @@ def rs_phase(main_o1_ms: float) -> None:
                 f"{max(x['K5']['f32_ratio'] for x in h):.3f} on "
                 f"{h[0]['K5']['U']} (<= 1); kernel {h[0]['K1']['ms']:.3f} "
                 f"ms / plain {h[0]['K1']['plain_ms']:.3f} (K1), "
-                f"{h[0]['K5']['ms']:.3f} / {h[0]['K5']['plain_ms']:.3f} (K5)")
-        if any("f64_ratio" in x[k] for x in h for k in ("K1", "K5")):
+                f"{h[0]['K5']['ms']:.3f} / {h[0]['K5']['plain_ms']:.3f} (K5)"
+                f"; at d 256 on the same rows (slab passes): K1 f32 ratio "
+                f"{max(x['K1_d256']['f32_ratio'] for x in h):.3f}, K5 "
+                f"{max(x['K5_d256']['f32_ratio'] for x in h):.3f}, kernel "
+                f"{h[0]['K1_d256']['ms']:.3f} ms / plain "
+                f"{h[0]['K1_d256']['plain_ms']:.3f} (K1), "
+                f"{h[0]['K5_d256']['ms']:.3f} / "
+                f"{h[0]['K5_d256']['plain_ms']:.3f} (K5)")
+        if any("f64_ratio" in x[k] for x in h
+               for k in ("K1", "K5", "K1_d256", "K5_d256")):
             held += " (by the float64 rule)"
         if "synthetic" in r0:
             sy = [r["synthetic"] for r in ranks]
@@ -1129,10 +1515,11 @@ GMM_KERNELS = ("gmm_factor", "gmm_inverse")
 # version does (tools/hot_row.py's float64 rule).
 G1_RTOL = 1e-4
 # G1 at the presets' shapes [n_init, K, d] (config/presets.py: blogcatalog,
-# synthetic-10m, flickr) and at ragged widths: a panel is 16 columns, and d
-# is padded to a multiple of 16
-G1_SHAPES = ((2, 39, 128), (1, 64, 128), (1, 195, 128))
-G1_WIDTHS = (1, 15, 16, 17, 31, 33, 100, 127, 128)
+# synthetic-10m, flickr; blogcatalog at --dim 256) and at ragged widths: a
+# panel is 16 columns, and d is padded to a multiple of 16.  Up to 128 a
+# CTA holds its matrix in shared memory, past it in device memory.
+G1_SHAPES = ((2, 39, 128), (1, 64, 128), (1, 195, 128), (2, 39, 256))
+G1_WIDTHS = (1, 15, 16, 17, 31, 33, 100, 127, 128, 129, 160, 193, 256, 300)
 
 
 def g1_moments(n, K, d, seed, pts=None):
@@ -1246,7 +1633,8 @@ def g1_wider_checks(dev) -> str:
                                  f"cholesky_ex {ref.tolist()}, placed "
                                  f"{want.tolist()}")
         pivots += want.size - 1
-    return (f"synthetic-10m's and flickr's shapes and d in {list(G1_WIDTHS)}:"
+    return (f"synthetic-10m's, flickr's and blogcatalog's (dim 256) shapes "
+            f"and d in {list(G1_WIDTHS)}:"
             f" worst rel Frobenius L {worst['L']:.3e}, inv {worst['inv']:.3e}"
             f" (each within {G1_RTOL:g} or by the float64 rule); {pivots} "
             f"placed pivots (first, middle, last column of each panel) flagged"
@@ -1309,9 +1697,10 @@ def em_linalg_check(X, resp0, reg, max_iter, tol) -> dict:
             "iters_linalg": ref["n_iter"].tolist()}
 
 
-def first_iter_phase(dev, smi: str, X, K: int) -> dict:
-    """Phase 21 (module docstring).  ``X``: phase 5's trained table.
-    Returns G1's kernel-line numbers."""
+def first_iter_phase(dev, smi: str, X, K: int, X256) -> dict:
+    """Phase 21 (module docstring).  ``X``: phase 5's trained table,
+    ``X256`` phase 5b's (dim 256).  Returns G1's kernel-line numbers, at
+    d 128 and (keys ending "_256") at d 256."""
     from come_tpu_torch.tools import g1_times
 
     root = Path(__file__).resolve().parent
@@ -1345,6 +1734,8 @@ def first_iter_phase(dev, smi: str, X, K: int) -> dict:
     # near-singular batch: 78 components of 64 points in 128 dimensions
     cov, nk, resp0 = _moments(X, K, 2, SEED)
     err = g1_check("blogcatalog", cov, nk, 1e-5)
+    err256 = g1_check("blogcatalog dim 256", *_moments(X256, K, 2, SEED)[:2],
+                      1e-5)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     pts = torch.randn((2, K, 64, X.shape[1]), generator=gen, device=dev) * 0.1
     cov_s = pts.transpose(-1, -2) @ pts
@@ -1363,6 +1754,10 @@ def first_iter_phase(dev, smi: str, X, K: int) -> dict:
               for n, k, w in G1_SHAPES}
     t = {k: v["ms"] for k, v in shapes[G1_SHAPES[0]].items()}
     idle = {k: v["idle_ms"] for k, v in shapes[G1_SHAPES[0]].items()}
+    t256 = {k: v["ms"] for k, v in shapes[(2, K, 256)].items()}
+    # factor: cov read, L written (f32), nk read, info written, d^3 / 3
+    # multiply-adds a matrix; inverse: L read, inv written, L^-1 and the
+    # symmetric W^T W, d^3 / 6 multiply-adds each
     g1 = {
         "factor_err": max(err["L_abs"], err_s["L_abs"]),
         "factor_ms": t["factor"], "factor_plain_ms": t["factor_plain"],
@@ -1378,7 +1773,15 @@ def first_iter_phase(dev, smi: str, X, K: int) -> dict:
         # multiply-adds each
         "inverse_bound": bound(nmat * 2.0 * d ** 3 / 3,
                                nmat * 8.0 * d * d, False),
+        "factor_err_256": err256["L_abs"], "inverse_err_256": err256["inv_abs"],
+        "factor_bound_256": bound(nmat * 2.0 * 256 ** 3 / 3,
+                                  nmat * (8.0 * 256 ** 2 + 8.0), False),
+        "inverse_bound_256": bound(nmat * 2.0 * 256 ** 3 / 3,
+                                   nmat * 8.0 * 256 ** 2, False),
     }
+    for k in ("factor", "inverse"):
+        for part in ("", "_plain", "_lib"):
+            g1[f"{k}{part}_ms_256"] = t256[k + part]
     by_shape = "; ".join(
         f"[{n}, {k}, {w}, {w}] factor {r['factor']['ms']:.4f} (idle "
         f"{r['factor']['idle_ms']:.4f}, cholesky_ex {r['factor_lib']['ms']:.4f}"
@@ -1397,7 +1800,11 @@ def first_iter_phase(dev, smi: str, X, K: int) -> dict:
         f"(vs float64: kernel {err_s['L_f64']:.3e} / {err_s['inv_f64']:.3e},"
         f" plain {err_s['L_plain_f64']:.3e} / {err_s['inv_plain_f64']:.3e}"
         f"{'; by the float64 rule' if err_s['by_f64'] or err['by_f64'] else ''}"
-        f") | {wide} | device ms a call: factor {g1['factor_ms']:.4f} (idle "
+        f") | at blogcatalog's dim-256 moments (phase 5b's table, [{nmat} x "
+        f"256 x 256], the matrices in device memory): L {err256['L']:.3e}, "
+        f"inv {err256['inv']:.3e} (vs float64: kernel {err256['L_f64']:.3e} "
+        f"/ {err256['inv_f64']:.3e}, plain {err256['L_plain_f64']:.3e} / "
+        f"{err256['inv_plain_f64']:.3e}) | {wide} | device ms a call: factor {g1['factor_ms']:.4f} (idle "
         f"card {idle['factor']:.4f}; plain {g1['factor_plain_ms']:.4f}, "
         f"torch.linalg.cholesky_ex {g1['factor_lib_ms']:.4f}, bound "
         f"{g1['factor_bound'][0]:.4f} by {g1['factor_bound'][1]}), inverse "
@@ -1714,6 +2121,30 @@ def main() -> int:
                 f"{RTOL}*|plain update|)")
     del kern5, plain5
 
+    # 4k. K1, K2 and K5 at d 256 on the inputs of phases 3, 4 and 4d (the
+    # main path's shapes at --dim 256), and K1 with the whole walk in its
+    # window (W 79, its own window draws)
+    wrow79 = torch.randint(1, L, (G * NWL,), device=dev, dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + L - 1))
+    blog256 = blog_wide_checks(dev, {
+        "K1": ("K1", (walks, wrow, pools), dict(window=W, pool_refresh=1)),
+        "K1 whole walk": ("K1", (walks, wrow79, pools),
+                          dict(window=L - 1, pool_refresh=1)),
+        "K2": ("K2", (sl, mt, pools2), dict(pool_refresh=1)),
+        "K5": ("K5", (rows, None, pools5), dict(window=1, pool_refresh=1,
+                                                  paired=True)),
+    }, V)
+    phase("wide 256", f"phases 3, 4 and 4d's steps at d 256 (V {V}, K1 "
+                      f"{B} walks and {G} groups, K2 {sl.numel()} slots, K5 "
+                      f"{rows.shape[0]} rows) vs plain (tol {ATOL} + "
+                      f"{RTOL}*|plain update|): " + "; ".join(
+                          f"{k} max_abs {r['err'][0]:.3e} max_rel "
+                          f"{r['err'][1]:.3e} pairs {r['pairs']:.0f}"
+                          for k, r in blog256.items())
+                      + " | " + step_times(blog256) + f" | {smi}")
+    torch.cuda.empty_cache()
+
     # 4e. K1b, K4 (bf16) and K2b at the shapes the bench path (phases 12
     # and 13) gives them: one 2048-walk O1 step (256 groups, R 8, unigram
     # pools [32, 512]) and the one star O2 step of batch_edges 524288 (the
@@ -1818,7 +2249,7 @@ def main() -> int:
 
     edge_lines = []
     for (Ve, de, Be, Le, We, KPe, Re, hot) in EDGE_SHAPES:
-        for mode in ("f32", "bf16", "bf16_tables"):
+        for mode in slab_modes(de, ("f32", "bf16", "bf16_tables")):
             if hot and mode == "bf16_tables":
                 continue  # outside K3's check (EDGE_SHAPES' note)
             Vm = max(Ve, 20000) if mode == "bf16_tables" else Ve
@@ -1899,13 +2330,15 @@ def main() -> int:
         name = f"star edge {layout} V={Ve} d={de} KP={KPe} R={Re} G={Ge}"
         plain = star_edge(star_sgns_step_reference, False)
         err = compare(name, (init,), star_edge(star_sgns_step, False), plain)
-        err_b = compare_bf16(name + " bf16", (init,),
-                             star_edge(star_sgns_step, True),
-                             star_edge(star_sgns_step_reference, True),
-                             plain[:1])
+        text = f"f32 {err[0]:.3g}"
+        if slab_modes(de, ("bf16",)):
+            err_b = compare_bf16(name + " bf16", (init,),
+                                 star_edge(star_sgns_step, True),
+                                 star_edge(star_sgns_step_reference, True),
+                                 plain[:1])
+            text += f", bf16 {err_b[1]:.3g}"
         edge_lines.append(f"{layout} d{de} KP{KPe} R{Re} G{Ge} pairs "
-                          f"{float(plain[2]):.0f}: f32 {err[0]:.3g}, bf16 "
-                          f"{err_b[1]:.3g}")
+                          f"{float(plain[2]):.0f}: {text}")
     for (Ve, de, Pe, TPe, KPe) in FUSED_EDGES:
         ge = torch.Generator(device=dev).manual_seed(Ve + Pe + de)
         init = [torch.randn((Ve, de), generator=ge, device=dev) * 0.1
@@ -1928,6 +2361,11 @@ def main() -> int:
                           f"{err7[0]:.3g}")
     phase("star/f32 edges", "vs plain (f32 max_abs, bf16 rel_l2): "
                             + "; ".join(edge_lines))
+    torch.cuda.empty_cache()
+
+    # 4j. K1, K5 and K2 past 128: past 192 their f32 passes stage column
+    # slabs
+    wide_phase(smi, dev)
     torch.cuda.empty_cache()
 
     def large_v_kernels():
@@ -2123,6 +2561,16 @@ def main() -> int:
     # 5. the main path, through the CLI's own entry
     from come_tpu_torch.main import build_argparser, run
 
+    def check_run(where, hist, nmi_floor):
+        for rec in hist:
+            for k in ("gmm_ll", "o1_loss", "o2_loss", "o3_loss", "nmi"):
+                if not math.isfinite(rec[k]):
+                    raise AssertionError(f"{where}: {k} = {rec[k]}")
+        if hist[-1]["nmi"] < nmi_floor:
+            raise AssertionError(f"{where}: NMI {hist[-1]['nmi']:.4f} < "
+                                 f"{nmi_floor}")
+
+
     reset_counts()
     t0 = time.perf_counter()
     trainer, hist = run(build_argparser().parse_args([
@@ -2158,6 +2606,49 @@ def main() -> int:
                   f"launches {launches} | graphs: {main_graphs}")
     del trainer
     torch.cuda.empty_cache()
+
+    # 5b. the main path at dim 256, through the CLI: K1 and K2 with their
+    # f32 passes in column slabs, G1 with its matrices in device memory;
+    # then the paired CLI at dim 256 (K1 and K5)
+    wide_runs = {}
+    for tag, extra, ran in (
+            ("main 256", [], ("walk_sgns", "star_sgns")),
+            ("paired 256", ["--o2-mode", "paired"],
+             ("walk_sgns", "walk_sgns_paired"))):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, hist = run(build_argparser().parse_args([
+            "--dataset", "blogcatalog", "--device", "cuda", "--dim", "256",
+            "--pretrain-epochs", "1", "--outer-iters", "1", "--seed",
+            str(SEED), *extra]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        got = counts()
+        check_launches(tag, got, ran,
+                       tuple(k for k in kernels if k not in ran))
+        check_run(tag, hist, NMI_FLOOR)
+        rec = hist[-1]
+        emb = trainer.embeddings()
+        if emb.shape != (ds.graph.num_nodes, 256) or not np.isfinite(
+                emb).all():
+            raise AssertionError(f"{tag}: embeddings not finite [V, 256]")
+        if not extra and rec["o2_pairs"] != 2 * ds.graph.num_edges:
+            raise AssertionError(f"{tag}: O2 did not train every edge twice")
+        wide_runs[tag] = dict(launches=got, emb=emb)
+        phase(tag, f"blogcatalog --dim 256{''.join(' ' + e for e in extra)},"
+                   f" pretrain 1 + outer 1 in {wall:.1f} s: gmm {rec['gmm_ms']:.1f} ms, o1 "
+                   f"{rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms, o3 "
+                   f"{rec['o3_ms']:.1f} ms | NMI {rec['nmi']:.4f} | G1 "
+                   f"launches: factor {got['gmm_factor']}, inverse "
+                   f"{got['gmm_inverse']} | peak device memory {peak:.2f} GiB"
+                   f" | launches {got} | {smi}")
+        del trainer
+        torch.cuda.empty_cache()
+    main256_emb = torch.as_tensor(wide_runs["main 256"]["emb"], device=dev)
+    wide_launches = wide_runs["main 256"]["launches"]
+    paired256_launches = wide_runs["paired 256"]["launches"]
 
     # 6. K6 at the BlogCatalog width: the first micro-step of one macro step
     V, d, TP = ds.graph.num_nodes, 128, 1024
@@ -2242,15 +2733,6 @@ def main() -> int:
     del work, work7
     del emb_in, emb_out, kern6, plain6, kern7, plain7
     torch.cuda.empty_cache()
-
-    def check_run(where, hist, nmi_floor):
-        for rec in hist:
-            for k in ("gmm_ll", "o1_loss", "o2_loss", "o3_loss", "nmi"):
-                if not math.isfinite(rec[k]):
-                    raise AssertionError(f"{where}: {k} = {rec[k]}")
-        if hist[-1]["nmi"] < nmi_floor:
-            raise AssertionError(f"{where}: NMI {hist[-1]['nmi']:.4f} < "
-                                 f"{nmi_floor}")
 
     # 8. karate, the CLI's default preset: per-pair negatives, no kernel
     karate = get_dataset("karate")
@@ -2739,7 +3221,8 @@ def main() -> int:
     eval_phase(smi, reset_counts, counts, check_launches, tuple(kernels))
 
     # 21. the first outer iteration, G1 and the EM as a device program
-    g1 = first_iter_phase(dev, smi, main_emb, ds.num_communities)
+    g1 = first_iter_phase(dev, smi, main_emb, ds.num_communities,
+                          main256_emb)
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
               library_ms=None):
@@ -2812,6 +3295,30 @@ def main() -> int:
               launches["gmm_inverse"], g1["inverse_err"], g1["inverse_ms"],
               g1["inverse_plain_ms"], g1["inverse_bound"],
               g1["inverse_lib_ms"]),
+        # dim 256: the f32 passes in column slabs, G1's matrices in device
+        # memory; launches from phase 5b, the rest from phases 4k and 21
+        entry("walk_sgns_d256", "walk_sgns.cu",
+              "come_tpu/ops/pallas_walk_sgns.py:91",
+              wide_launches["walk_sgns"], blog256["K1"]["err"][0],
+              blog256["K1"]["ms"], blog256["K1"]["plain_ms"], blog256["K1"]["bound"]),
+        entry("walk_sgns_paired_d256", "walk_sgns.cu",
+              "come_tpu/ops/pallas_walk_sgns.py:290",
+              paired256_launches["walk_sgns_paired"], blog256["K5"]["err"][0],
+              blog256["K5"]["ms"], blog256["K5"]["plain_ms"], blog256["K5"]["bound"]),
+        entry("star_sgns_d256", "star_sgns.cu",
+              "come_tpu/ops/pallas_star_sgns.py:56",
+              wide_launches["star_sgns"], blog256["K2"]["err"][0],
+              blog256["K2"]["ms"], blog256["K2"]["plain_ms"], blog256["K2"]["bound"]),
+        entry("gmm_factor_d256", "gmm_factor.cu",
+              "come_tpu/losses/gmm.py:52 (XLA cholesky)",
+              wide_launches["gmm_factor"], g1["factor_err_256"],
+              g1["factor_ms_256"], g1["factor_plain_ms_256"],
+              g1["factor_bound_256"], g1["factor_lib_ms_256"]),
+        entry("gmm_inverse_d256", "gmm_factor.cu",
+              "come_tpu/losses/gmm.py:163 (XLA cho_solve)",
+              wide_launches["gmm_inverse"], g1["inverse_err_256"],
+              g1["inverse_ms_256"], g1["inverse_plain_ms_256"],
+              g1["inverse_bound_256"], g1["inverse_lib_ms_256"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

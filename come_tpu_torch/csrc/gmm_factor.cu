@@ -61,13 +61,21 @@
 //   (3) inv = W^T W over its lower 16 x 16 blocks, a warp a block in an
 //       order that evens out their lengths, both (i, j) and (j, i) written
 //       from one f64 sum, so inv is exactly symmetric.
+//
+// Past d = 128 a [dp][dp] f64 tile outgrows shared memory (512 KiB at d =
+// 256), so gmm_factor_global_kernel and gmm_inverse_global_kernel run the
+// same steps, the same device functions, on a matrix in global memory: an
+// f64 scratch of nmat [dp][dp] matrices that the caller passes (41 MB for
+// BlogCatalog's 78 at d = 256), read and written through L1 and L2 by the
+// one CTA that owns it; W11 stays in shared memory.  L is read from its
+// input (the identity past d) and inv written straight out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAXD = 128;  // the largest d, and the shared row stride
+constexpr int MAXD = 128;  // the widest d in shared memory; its row stride
 constexpr int NB = 16;     // panel and block width
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -92,6 +100,20 @@ __device__ __forceinline__ int at64(int r, int c) {
 __device__ __forceinline__ int at32(int r, int c) {
   return r * MAXD + (c ^ (((r & 7) << 2) | ((r >> 3) & 3)));
 }
+
+// Where element (r, c) of a matrix lies: the shared tile's (at64), or row
+// r * ld + c of a [dp][dp] matrix in global memory (d > MAXD).
+struct SharedAt {
+  __device__ __forceinline__ int operator()(int r, int c) const {
+    return at64(r, c);
+  }
+};
+struct GlobalAt {
+  int ld;
+  __device__ __forceinline__ size_t operator()(int r, int c) const {
+    return (size_t)r * ld + c;
+  }
+};
 
 // D = A B + D on the FP64 tensor cores, a 16 x 8 tile over a depth of 8
 // (m16n8k8, the shape that runs at the full f64 rate on sm_90): with
@@ -184,16 +206,17 @@ __device__ __forceinline__ int at16(int r, int c) {
 // same steps invert the block by forward substitution, column i of W11 in
 // lane i's v, from the shuffled column of L each step broadcasts anyway.
 // Writes L11 to a, W11 to w11 (at16) and the first bad pivot's column + 1.
-__device__ void diag_factor(double* a, double* w11, int* first_bad, int k0,
-                            int d, int lane) {
+template <typename At>
+__device__ void diag_factor(double* a, At at, double* w11, int* first_bad,
+                            int k0, int d, int lane) {
   const int i = lane & 15;
   double x[NB], v[NB];
 #pragma unroll
   for (int c = 0; c < NB; ++c) {
-    x[c] = (c < i) ? a[at64(k0 + i, k0 + c)] : 0.0;
+    x[c] = (c < i) ? a[at(k0 + i, k0 + c)] : 0.0;
     v[c] = (c == i) ? 1.0 : 0.0;
   }
-  double dg = a[at64(k0 + i, k0 + i)];
+  double dg = a[at(k0 + i, k0 + i)];
   bool bad = false;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
@@ -216,10 +239,10 @@ __device__ void diag_factor(double* a, double* w11, int* first_bad, int k0,
   if (lane < 16) {
 #pragma unroll
     for (int c = 0; c < NB; ++c) {
-      if (c < i) a[at64(k0 + i, k0 + c)] = x[c];
+      if (c < i) a[at(k0 + i, k0 + c)] = x[c];
       w11[at16(c, i)] = v[c];
     }
-    a[at64(k0 + i, k0 + i)] = dg;
+    a[at(k0 + i, k0 + i)] = dg;
   }
   const unsigned m = __ballot_sync(FULL, bad && lane < 16 && k0 + i < d);
   if (lane == 0 && m != 0 && *first_bad == 0) *first_bad = k0 + __ffs(m);
@@ -227,43 +250,82 @@ __device__ void diag_factor(double* a, double* w11, int* first_bad, int k0,
 
 // (2): the 16 rows at r0 below the block at k0: L21 = A21 W11^T, on the
 // tensor cores, in place.
-__device__ void solve_block(double* a, const double* w11, int k0, int r0,
-                            int lane) {
+template <typename At>
+__device__ void solve_block(double* a, At at, const double* w11, int k0,
+                            int r0, int lane) {
   double acc[2][4] = {};
   mma_block(
-      acc, [&](int r, int k) { return a[at64(r0 + r, k0 + k)]; },
+      acc, [&](int r, int k) { return a[at(r0 + r, k0 + k)]; },
       [&](int k, int c) { return w11[at16(c, k)]; }, lane);
   __syncwarp();
   for_acc(acc, lane, [&](int r, int c, double& v) {
-    a[at64(r0 + r, k0 + c)] = v;
+    a[at(r0 + r, k0 + c)] = v;
   });
 }
 
 // (3) for one 16 x 16 block at (r0, c0): A -= L21[r0] L21[c0]^T over the
 // panel at k0, on the tensor cores.  A diagonal block's upper half lands
 // above the diagonal, which nothing reads.
-__device__ void update_block(double* a, int k0, int r0, int c0, int lane) {
+template <typename At>
+__device__ void update_block(double* a, At at, int k0, int r0, int c0,
+                             int lane) {
   double acc[2][4];
   for_acc(acc, lane, [&](int r, int c, double& v) {
-    v = a[at64(r0 + r, c0 + c)];
+    v = a[at(r0 + r, c0 + c)];
   });
   mma_block(
-      acc, [&](int r, int k) { return -a[at64(r0 + r, k0 + k)]; },
-      [&](int k, int c) { return a[at64(c0 + c, k0 + k)]; }, lane);
+      acc, [&](int r, int k) { return -a[at(r0 + r, k0 + k)]; },
+      [&](int k, int c) { return a[at(c0 + c, k0 + k)]; }, lane);
   for_acc(acc, lane, [&](int r, int c, double& v) {
-    a[at64(r0 + r, c0 + c)] = v;
+    a[at(r0 + r, c0 + c)] = v;
   });
 }
 
 // Columns k0 .. k0 + 15 (fewer past d) of L, every row, from a, by the
 // threads t0, t0 + n, ... of the CTA (n a multiple of 16): a half warp a
 // row, a lane a column.
-__device__ void store_strip(const double* a, float* out, int d, int k0,
+template <typename At>
+__device__ void store_strip(const double* a, At at, float* out, int d, int k0,
                             int t0, int n) {
   const int j = k0 + (t0 & 15);
   if (j >= d) return;
   for (int i = t0 >> 4; i < d; i += n >> 4)
-    out[(size_t)i * d + j] = (j <= i) ? (float)a[at64(i, j)] : 0.0f;
+    out[(size_t)i * d + j] = (j <= i) ? (float)a[at(i, j)] : 0.0f;
+}
+
+// The panels of the factor of the padded [dp][dp] A held at `a` (lower
+// triangle), written to out ([d][d] f32, zeros above the diagonal), the
+// first bad pivot's column + 1 to *first_bad.  All THREADS threads call.
+template <typename At>
+__device__ void factor_panels(double* a, At at, double* w11, int* first_bad,
+                              float* out, int d, int dp) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if (warp == 0) diag_factor(a, at, w11, first_bad, 0, d, lane);
+  __syncthreads();
+  // panel p (columns k0..k0+15): the rows below solved; then warp 0 takes
+  // the next diagonal block's update and factors it while the other warps
+  // update the rest of the trailing matrix and write panel p's columns out
+  for (int k0 = 0; k0 + NB < dp; k0 += NB) {
+    const int k1 = k0 + NB;
+    for (int r0 = k1 + warp * NB; r0 < dp; r0 += WARPS * NB)
+      solve_block(a, at, w11, k0, r0, lane);
+    __syncthreads();
+    if (warp == 0) {
+      update_block(a, at, k0, k1, k1, lane);
+      __syncwarp();
+      diag_factor(a, at, w11, first_bad, k1, d, lane);
+    } else {
+      store_strip(a, at, out, d, k0, t - 32, THREADS - 32);
+      const int nbk = (dp - k1) / NB;
+      for (int idx = warp; idx < nbk * (nbk + 1) / 2; idx += WARPS - 1) {
+        int u, v;
+        tri_index(idx, u, v);
+        update_block(a, at, k0, k1 + u * NB, k1 + v * NB, lane);
+      }
+    }
+    __syncthreads();
+  }
+  store_strip(a, at, out, d, dp - NB, t, THREADS);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -298,32 +360,42 @@ gmm_factor_kernel(const float* __restrict__ cov, const float* __restrict__ nk,
   pad_identity<double, at64>(a, d, dp, warp, lane);
   if (t == 0) first_bad = 0;
   __syncthreads();
-  if (warp == 0) diag_factor(a, w11, &first_bad, 0, d, lane);
-  __syncthreads();
-  // panel p (columns k0..k0+15): the rows below solved; then warp 0 takes
-  // the next diagonal block's update and factors it while the other warps
-  // update the rest of the trailing matrix and write panel p's columns out
-  for (int k0 = 0; k0 + NB < dp; k0 += NB) {
-    const int k1 = k0 + NB;
-    for (int r0 = k1 + warp * NB; r0 < dp; r0 += WARPS * NB)
-      solve_block(a, w11, k0, r0, lane);
-    __syncthreads();
-    if (warp == 0) {
-      update_block(a, k0, k1, k1, lane);
-      __syncwarp();
-      diag_factor(a, w11, &first_bad, k1, d, lane);
-    } else {
-      store_strip(a, out, d, k0, t - 32, THREADS - 32);
-      const int nbk = (dp - k1) / NB;
-      for (int idx = warp; idx < nbk * (nbk + 1) / 2; idx += WARPS - 1) {
-        int u, v;
-        tri_index(idx, u, v);
-        update_block(a, k0, k1 + u * NB, k1 + v * NB, lane);
+  factor_panels(a, SharedAt{}, w11, &first_bad, out, d, dp);
+  if (t == 0) info[b] = first_bad;
+}
+
+// The factor for d > MAXD: what gmm_factor_kernel computes, the same
+// panels, with A held in global memory (`work`, [nmat][dp][dp] f64, row
+// major) instead of shared memory, which a [dp][dp] f64 tile outgrows
+// (512 KiB at d = 256).  A CTA's matrix stays in L2 and its L1 (512 KiB at
+// d = 256; BlogCatalog's 78 are 41 MB); only W11 is in shared memory.
+__global__ void __launch_bounds__(THREADS, 1)
+gmm_factor_global_kernel(const float* __restrict__ cov,
+                         const float* __restrict__ nk, float reg,
+                         float* __restrict__ L, int* __restrict__ info, int d,
+                         double* work) {
+  __shared__ double w11[NB * NB];
+  __shared__ int first_bad;
+  const int b = blockIdx.x, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int dp = padded(d);
+  const GlobalAt at{dp};
+  double* a = work + (size_t)b * dp * dp;
+  const float n = nk[b];
+  const float* src = cov + (size_t)b * d * d;
+  // A = cov / n + reg I, the lower triangle, in torch's f32 ops; the rows
+  // d..dp-1 of the identity padding
+  for (int i = warp; i < dp; i += WARPS)
+    for (int j = lane; j <= i; j += 32) {
+      double v = (i == j) ? 1.0 : 0.0;
+      if (i < d) {
+        const float y = src[(size_t)i * d + j] / n;
+        v = (double)(i == j ? y + reg : y);
       }
+      a[at(i, j)] = v;
     }
-    __syncthreads();
-  }
-  store_strip(a, out, d, dp - NB, t, THREADS);
+  if (t == 0) first_bad = 0;
+  __syncthreads();
+  factor_panels(a, at, w11, &first_bad, L + (size_t)b * d * d, d, dp);
   if (t == 0) info[b] = first_bad;
 }
 
@@ -331,9 +403,10 @@ gmm_factor_kernel(const float* __restrict__ cov, const float* __restrict__ nk,
 
 // (1): warp w inverts the diagonal block at k0 = 16 w; lane c (and c + 16)
 // holds column c of W_ww, zeros above the diagonal included.
-__device__ void diag_inverse(const float* l, double* x, int k0, int lane) {
+template <typename LAt, typename XAt>
+__device__ void diag_inverse(LAt l, double* x, XAt xat, int k0, int lane) {
   const int c = lane & 15;
-  const double rd = 1.0 / (double)l[at32(k0 + c, k0 + c)];
+  const double rd = 1.0 / (double)l(k0 + c, k0 + c);
   double v[NB];
 #pragma unroll
   for (int i = 0; i < NB; ++i) v[i] = (i == c) ? 1.0 : 0.0;
@@ -343,58 +416,84 @@ __device__ void diag_inverse(const float* l, double* x, int k0, int lane) {
     v[p] = w;
 #pragma unroll
     for (int i = p + 1; i < NB; ++i)
-      v[i] = fma(-(double)l[at32(k0 + i, k0 + p)], w, v[i]);
+      v[i] = fma(-(double)l(k0 + i, k0 + p), w, v[i]);
   }
   if (lane < 16) {
 #pragma unroll
-    for (int i = 0; i < NB; ++i) x[at64(k0 + i, k0 + c)] = v[i];
+    for (int i = 0; i < NB; ++i) x[xat(k0 + i, k0 + c)] = v[i];
   }
 }
 
 // (2): block (q, j) of step p: B_qj -= L_qp W_pj; for q = p + 1 then
 // W_qj = W_qq B_qj, in place.
-__device__ void subst_block(const float* l, double* x, int p, int q, int j,
+template <typename LAt, typename XAt>
+__device__ void subst_block(LAt l, double* x, XAt xat, int p, int q, int j,
                             int lane) {
   const int r0 = q * NB, c0 = j * NB, k0 = p * NB;
   double acc[2][4];
   for_acc(acc, lane, [&](int r, int c, double& v) {
-    v = x[at64(r0 + r, c0 + c)];
+    v = x[xat(r0 + r, c0 + c)];
   });
   mma_block(
-      acc, [&](int r, int k) { return -(double)l[at32(r0 + r, k0 + k)]; },
-      [&](int k, int c) { return x[at64(k0 + k, c0 + c)]; }, lane);
+      acc, [&](int r, int k) { return -(double)l(r0 + r, k0 + k); },
+      [&](int k, int c) { return x[xat(k0 + k, c0 + c)]; }, lane);
   if (q == p + 1) {
     for_acc(acc, lane, [&](int r, int c, double& v) {
-      x[at64(r0 + r, c0 + c)] = v;
+      x[xat(r0 + r, c0 + c)] = v;
       v = 0.0;
     });
     __syncwarp();
     mma_block(
-        acc, [&](int r, int k) { return x[at64(r0 + r, r0 + k)]; },
-        [&](int k, int c) { return x[at64(r0 + k, c0 + c)]; }, lane);
+        acc, [&](int r, int k) { return x[xat(r0 + r, r0 + k)]; },
+        [&](int k, int c) { return x[xat(r0 + k, c0 + c)]; }, lane);
     __syncwarp();
   }
   for_acc(acc, lane, [&](int r, int c, double& v) {
-    x[at64(r0 + r, c0 + c)] = v;
+    x[xat(r0 + r, c0 + c)] = v;
   });
 }
 
 // (3): block (I, C), C <= I, of inv = W^T W: sum over R >= I of
-// W_RI^T W_RC, written to o (f32, at32) at (i, c) and (c, i) for c <= i.
-__device__ void product_block(const double* x, float* o, int I, int C,
+// W_RI^T W_RC, handed to out(i, c, v) for c <= i (which writes (i, c) and
+// (c, i)).
+template <typename XAt, typename Out>
+__device__ void product_block(const double* x, XAt xat, Out out, int I, int C,
                               int np, int lane) {
   const int i0 = I * NB, c0 = C * NB;
   double acc[2][4] = {};
   for (int R = I; R < np; ++R) {
     const int k0 = R * NB;
     mma_block(
-        acc, [&](int r, int k) { return x[at64(k0 + k, i0 + r)]; },
-        [&](int k, int c) { return x[at64(k0 + k, c0 + c)]; }, lane);
+        acc, [&](int r, int k) { return x[xat(k0 + k, i0 + r)]; },
+        [&](int k, int c) { return x[xat(k0 + k, c0 + c)]; }, lane);
   }
   for_acc(acc, lane, [&](int r, int c, double& v) {
     const int i = i0 + r, j = c0 + c;
-    if (j <= i) o[at32(i, j)] = o[at32(j, i)] = (float)v;
+    if (j <= i) out(i, j, (float)v);
   });
+}
+
+// (2) and (3) of the inverse, W = L^-1 at x (its diagonal blocks already
+// inverted, the blocks below them zero), inv = W^T W handed to out.  All
+// THREADS threads call.
+template <typename LAt, typename XAt, typename Out>
+__device__ void inverse_steps(LAt l, double* x, XAt xat, Out out, int np) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int p = 0; p + 1 < np; ++p) {
+    const int nj = p + 1;
+    for (int idx = warp; idx < (np - 1 - p) * nj; idx += WARPS)
+      subst_block(l, x, xat, p, p + 1 + idx / nj, idx % nj, lane);
+    __syncthreads();
+  }
+  // blocks (I, C) by rows, I ascending (a row's blocks take np - I
+  // products), dealt to the warps back and forth
+  for (int u = 0, I = 0, C = 0; I < np; ++u) {
+    const int round = u / WARPS, w = u % WARPS;
+    if ((round & 1 ? WARPS - 1 - w : w) == warp)
+      product_block(x, xat, out, I, C, np, lane);
+    if (++C > I) C = 0, ++I;
+  }
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -425,23 +524,12 @@ gmm_inverse_kernel(const float* __restrict__ L, float* __restrict__ inv,
       if (lane + 32 * q < i / NB * NB) x[at64(i, lane + 32 * q)] = 0.0;
   }
   __syncthreads();
-  if (warp < np) diag_inverse(l, x, warp * NB, lane);
+  const auto lat = [&](int r, int c) { return l[at32(r, c)]; };
+  if (warp < np) diag_inverse(lat, x, SharedAt{}, warp * NB, lane);
   __syncthreads();
-  for (int p = 0; p + 1 < np; ++p) {
-    const int nj = p + 1;
-    for (int idx = warp; idx < (np - 1 - p) * nj; idx += WARPS)
-      subst_block(l, x, p, p + 1 + idx / nj, idx % nj, lane);
-    __syncthreads();
-  }
-  // blocks (I, C) by rows, I ascending (a row's blocks take np - I
-  // products), dealt to the warps back and forth
-  for (int u = 0, I = 0, C = 0; I < np; ++u) {
-    const int round = u / WARPS, w = u % WARPS;
-    if ((round & 1 ? WARPS - 1 - w : w) == warp)
-      product_block(x, l, I, C, np, lane);
-    if (++C > I) C = 0, ++I;
-  }
-  __syncthreads();
+  inverse_steps(lat, x, SharedAt{}, [&](int i, int j, float v) {
+    l[at32(i, j)] = l[at32(j, i)] = v;
+  }, np);
   float* out = inv + (size_t)b * dd;
   for (int i = warp; i < d; i += WARPS) {
     float v[MAXD / 32];
@@ -452,6 +540,32 @@ gmm_inverse_kernel(const float* __restrict__ L, float* __restrict__ inv,
     for (int q = 0; q < MAXD / 32; ++q)
       if (lane + 32 * q < d) out[i * d + lane + 32 * q] = v[q];
   }
+}
+
+// The inverse for d > MAXD: what gmm_inverse_kernel computes, with W held
+// in global memory (`work`, [nmat][dp][dp] f64) and L read from its input
+// (the identity past d), inv written straight to the output.
+__global__ void __launch_bounds__(THREADS, 1)
+gmm_inverse_global_kernel(const float* __restrict__ L,
+                          float* __restrict__ inv, int d, double* work) {
+  const int b = blockIdx.x, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int dp = padded(d), np = dp / NB;
+  const GlobalAt xat{dp};
+  double* x = work + (size_t)b * dp * dp;
+  const float* lb = L + (size_t)b * d * d;
+  float* out = inv + (size_t)b * d * d;
+  const auto lat = [&](int r, int c) {
+    return (r < d && c < d) ? lb[(size_t)r * d + c] : (r == c ? 1.0f : 0.0f);
+  };
+  // W's blocks below the block diagonal start as the identity's: zero
+  for (int i = NB + warp; i < dp; i += WARPS)
+    for (int j = lane; j < i / NB * NB; j += 32) x[xat(i, j)] = 0.0;
+  for (int w = warp; w < np; w += WARPS)
+    diag_inverse(lat, x, xat, w * NB, lane);
+  __syncthreads();
+  inverse_steps(lat, x, xat, [&](int i, int j, float v) {
+    if (i < d && j < d) out[(size_t)i * d + j] = out[(size_t)j * d + i] = v;
+  }, np);
 }
 
 size_t factor_smem(int d) {
@@ -479,23 +593,36 @@ extern "C" int come_gmm_factor_setup(void) {
 }
 
 // L[b], info[b] for b < nmat (see the note above).  cov, L: [nmat, d, d]
-// f32; nk: [nmat] f32; info: [nmat] int32; device pointers, 1 <= d <= 128.
-// Launches on `stream`, does not synchronise; capture-safe.  Returns 0 or
-// the launch's CUDA error code.
+// f32; nk: [nmat] f32; info: [nmat] int32; work: f64 scratch of nmat
+// [dp][dp] matrices for d > 128, dp = d rounded up to 16 (else unused,
+// may be null); device pointers, d >= 1.  Launches on
+// `stream`, does not synchronise; capture-safe.  Returns 0 or the launch's
+// CUDA error code.
 extern "C" int come_gmm_factor(const float* cov, const float* nk, float reg,
                                float* L, int* info, int nmat, int d,
-                               void* stream) {
-  if (d < 1 || d > MAXD || nmat < 1) return (int)cudaErrorInvalidValue;
-  gmm_factor_kernel<<<nmat, THREADS, factor_smem(d),
-                      (cudaStream_t)stream>>>(cov, nk, reg, L, info, d);
+                               double* work, void* stream) {
+  if (d < 1 || nmat < 1 || (d > MAXD && work == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (d > MAXD)
+    gmm_factor_global_kernel<<<nmat, THREADS, 0, (cudaStream_t)stream>>>(
+        cov, nk, reg, L, info, d, work);
+  else
+    gmm_factor_kernel<<<nmat, THREADS, factor_smem(d),
+                        (cudaStream_t)stream>>>(cov, nk, reg, L, info, d);
   return (int)cudaGetLastError();
 }
 
-// inv[b] = (L[b] L[b]^T)^-1 for b < nmat.  L, inv: [nmat, d, d] f32.
+// inv[b] = (L[b] L[b]^T)^-1 for b < nmat.  L, inv: [nmat, d, d] f32; work
+// as come_gmm_factor's.
 extern "C" int come_gmm_inverse(const float* L, float* inv, int nmat, int d,
-                                void* stream) {
-  if (d < 1 || d > MAXD || nmat < 1) return (int)cudaErrorInvalidValue;
-  gmm_inverse_kernel<<<nmat, THREADS, inverse_smem(d),
-                       (cudaStream_t)stream>>>(L, inv, d);
+                                double* work, void* stream) {
+  if (d < 1 || nmat < 1 || (d > MAXD && work == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (d > MAXD)
+    gmm_inverse_global_kernel<<<nmat, THREADS, 0, (cudaStream_t)stream>>>(
+        L, inv, d, work);
+  else
+    gmm_inverse_kernel<<<nmat, THREADS, inverse_smem(d),
+                         (cudaStream_t)stream>>>(L, inv, d);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,8 @@
 // so the grid is (slots / 64) x (pool splits), sized to the CTAs that fit
 // on the card at once (by the kernel's occupancy: 2-3 an SM); dphi is
 // merged once per CTA and dneg once per chunk, by 16-byte f32 atomics.
+// Past MAX_DIM the f32 pass works in column slabs
+// (negative_f32_slab_kernel; see the note at SLAB); the bf16 one refuses.
 //
 //   * f32 (negative_f32_kernel: K1, K2, K5, K6, K7): every product and sum
 //     in f32 on the SIMT units (FFMA; its checks allow no TF32).  Each of
@@ -102,7 +104,9 @@ constexpr int NBLK = GROUP / BLK;
 constexpr int THREADS = 256;   // 8 warps
 constexpr int NWARPS = THREADS / 32;
 constexpr int KMAX = 8;        // d <= 32 * KMAX for per-lane accumulators
-constexpr int MAX_DIM = 192;   // shared-memory bound of the kernels below
+constexpr int MAX_DIM = 192;   // the widest d whose rows the passes stage
+                               // whole; past it the f32 passes work in
+                               // column slabs and the bf16 ones refuse
 
 // PDL's two sides (the note above): wait until the kernels this one depends
 // on have completed and their writes are visible; let the next kernel in
@@ -221,10 +225,12 @@ static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 // row(i) (a T pointer, or nullptr for a row of zeros; vector loads when
 // d % 4 == 0), all loads in flight together; store_batch hands them to
 // store(i, c, v) (elements c..c+3 of row i).
+// `vec` says the rows allow 16-byte loads (d % 4 == 0 where the row pointers
+// are whole rows; a column slab's pointers need the table's d % 4 == 0).
 template <int NT, int U, typename T, typename Row>
 static __device__ __forceinline__ void load_batch(float4 (&v)[U], int b,
                                                   int nrows, int d, int dp,
-                                                  Row row) {
+                                                  Row row, bool vec) {
   const int n4 = dp / 4;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -232,7 +238,7 @@ static __device__ __forceinline__ void load_batch(float4 (&v)[U], int b,
     v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     const T* p = idx < nrows * n4 ? row(i) : nullptr;
     if (p == nullptr || c >= d) continue;
-    if (d % 4 == 0) {
+    if (vec) {
       v[u] = load4(p + c);
     } else {
       v[u].x = to_f32(p[c]);
@@ -241,6 +247,13 @@ static __device__ __forceinline__ void load_batch(float4 (&v)[U], int b,
       if (c + 3 < d) v[u].w = to_f32(p[c + 3]);
     }
   }
+}
+
+template <int NT, int U, typename T, typename Row>
+static __device__ __forceinline__ void load_batch(float4 (&v)[U], int b,
+                                                  int nrows, int d, int dp,
+                                                  Row row) {
+  load_batch<NT, U, T>(v, b, nrows, d, dp, row, d % 4 == 0);
 }
 
 template <int NT, int U, typename Store>
@@ -258,12 +271,19 @@ static __device__ __forceinline__ void store_batch(const float4 (&v)[U], int b,
 // All nrows rows, U pieces in flight per thread at a time.
 template <int NT, int U, typename T, typename Row, typename Store>
 static __device__ __forceinline__ void stage_rows(int nrows, int d, int dp,
-                                                  Row row, Store store) {
+                                                  Row row, Store store,
+                                                  bool vec) {
   for (int b = threadIdx.x; b < nrows * (dp / 4); b += NT * U) {
     float4 v[U];
-    load_batch<NT, U, T>(v, b, nrows, d, dp, row);
+    load_batch<NT, U, T>(v, b, nrows, d, dp, row, vec);
     store_batch<NT, U>(v, b, nrows, dp, store);
   }
+}
+
+template <int NT, int U, typename T, typename Row, typename Store>
+static __device__ __forceinline__ void stage_rows(int nrows, int d, int dp,
+                                                  Row row, Store store) {
+  stage_rows<NT, U, T>(nrows, d, dp, row, store, d % 4 == 0);
 }
 
 // y += g * x, element by element.
@@ -277,8 +297,8 @@ static __device__ __forceinline__ void fma4(float g, float4 x, float4& y) {
 // row[c..c+3] = v, or its elements below d (c < d, a multiple of 4): one
 // 16-byte store when d % 4 == 0.
 static __device__ __forceinline__ void store4(float* row, int d, int c,
-                                              float4 v) {
-  if (d % 4 == 0) {
+                                              float4 v, bool vec) {
+  if (vec) {
     *reinterpret_cast<float4*>(row + c) = v;
     return;
   }
@@ -288,11 +308,16 @@ static __device__ __forceinline__ void store4(float* row, int d, int c,
   if (c + 3 < d) row[c + 3] = v.w;
 }
 
+static __device__ __forceinline__ void store4(float* row, int d, int c,
+                                              float4 v) {
+  store4(row, d, c, v, d % 4 == 0);
+}
+
 // row[c..c+3] += v atomically, as store4 writes: one 16-byte atomic when
 // d % 4 == 0.
 static __device__ __forceinline__ void atomic_add4(float* row, int d, int c,
-                                                   float4 v) {
-  if (d % 4 == 0) {
+                                                   float4 v, bool vec) {
+  if (vec) {
     atomicAdd(reinterpret_cast<float4*>(row + c), v);
     return;
   }
@@ -300,6 +325,34 @@ static __device__ __forceinline__ void atomic_add4(float* row, int d, int c,
   if (c + 1 < d) atomicAdd(row + c + 1, v.y);
   if (c + 2 < d) atomicAdd(row + c + 2, v.z);
   if (c + 3 < d) atomicAdd(row + c + 3, v.w);
+}
+
+static __device__ __forceinline__ void atomic_add4(float* row, int d, int c,
+                                                   float4 v) {
+  atomic_add4(row, d, c, v, d % 4 == 0);
+}
+
+// Column slabs.  The f32 passes of K1, K5 and K2 past MAX_DIM (their
+// whole rows would not fit in shared memory) stage their rows SLAB columns
+// at a time: a row pointer then points at the slab's first column, d is
+// the slab's width w (the last slab may be narrower), and 16-byte accesses
+// need the table's d % 4 == 0 (`vec`), not w's.  Each pass sweeps the
+// slabs twice: once to sum every dot product's slab parts (sweep A), then,
+// with the coefficients made from the sums, once more to form each slab's
+// part of the updates (sweep B), re-reading the rows from L2.
+constexpr int SLAB = 128;
+// a staged slab row's floats: 16-byte aligned, rows 4 banks apart
+constexpr int SLAB_STRIDE = SLAB + 4;
+
+// (s0, w, wp) of slab number k: its first column, width, width to a float4.
+struct Slab {
+  int s0, w, wp;
+  __device__ Slab(int k, int d)
+      : s0(k * SLAB), w(min(SLAB, d - k * SLAB)), wp((w + 3) & ~3) {}
+};
+
+static __host__ __device__ inline int n_slabs(int d) {
+  return (d + SLAB - 1) / SLAB;
 }
 
 // cneg[k] = table[pool[k]] (widened to f32); dneg[k] = 0.
@@ -628,6 +681,260 @@ static inline int negf_cluster(int ny) {
   return ny >= NEGF_CMAX ? NEGF_CMAX : ny >= 4 ? 4 : ny >= 2 ? 2 : 1;
 }
 
+// ------------------------------------------ f32 pass in column slabs
+
+// The slab form of the f32 pass (d > MAX_DIM): a CTA walks at most
+// NEGS_PMAX pool chunks, since it keeps every chunk's g in shared memory
+// between its two sweeps; the sizing raises the pool splits to that.
+constexpr int NEGS_PMAX = 4;
+
+static inline size_t negative_slab_smem_bytes() {
+  return sizeof(float) * ((size_t)(NEG_MS + NEG_KC) * SLAB_STRIDE +
+                          NEGS_PMAX * NEG_KC * NEGF_GT + NEG_MS);
+}
+
+// What negative_f32_kernel computes, for any d, with the rows staged one
+// column slab at a time (SLAB columns; see the note at SLAB).  A CTA takes
+// the 64-slot tile blockIdx.x and its m <= NEGS_PMAX pool chunks
+// blockIdx.y, blockIdx.y + ny, ...:
+//   sweep A, for each slab: the tile's rows staged, then each chunk's rows
+//     staged in turn, and each chunk's [64 x 32] score tile takes the
+//     slab's part, held in registers (thread t's 4 x 4 scores are
+//     negative_f32_kernel's);
+//   g and the loss from the whole scores, kept by pool row in shared
+//     memory, one [32][64 + 4] tile a chunk;
+//   sweep B, for each slab: the tile's rows and each chunk's re-staged;
+//     the slab's columns of dphi accumulate over the chunks in registers,
+//     and of each chunk's dneg are added atomically, once per chunk; then
+//     the cluster merges the slab's dphi partials as negative_f32_kernel
+//     merges its (f64 sums in rank order, one add a slot and column).
+// Thread tiles: dphi of slots 8 rg + r (r < 8) and dneg of pool rows 4 rg
+// + r (r < 4) at the slab's columns 4 cg + 64 p (p < 2), as NP = 2.  grid
+// (slots / 64, ny), block NEG_THREADS, clusters of C along y.  A tile
+// whose slots all have nt = 0 returns at once.  PDL as negative_f32_kernel.
+static __global__ void __launch_bounds__(NEG_THREADS, 2)
+negative_f32_slab_kernel(const float* __restrict__ table,
+                         const int* __restrict__ ids,
+                         const float* __restrict__ nt,
+                         const float* __restrict__ cneg, int d, int KP,
+                         int ny, float negw, float* __restrict__ dphi,
+                         float* __restrict__ dneg,
+                         double* __restrict__ stats) {
+  extern __shared__ float4 negs_smem[];
+  constexpr int sa = SLAB_STRIDE;
+  float* ph = reinterpret_cast<float*>(negs_smem);  // [MS][sa]: a slab
+  float* cn = ph + NEG_MS * sa;                     // [KC][sa]: a slab
+  float* gt = cn + NEG_KC * sa;      // [PMAX][KC][GT]: g by pool row
+  float* nts = gt + NEGS_PMAX * NEG_KC * NEGF_GT;  // [MS]
+  __shared__ int rows[NEG_MS];
+  const int base = blockIdx.x * NEG_MS, t = threadIdx.x;
+  const int nch = (KP + NEG_KC - 1) / NEG_KC;
+  const int py = blockIdx.y;  // this CTA's pool split: chunks py, py + ny..
+  const int m = py < nch ? (nch - 1 - py) / ny + 1 : 0;
+  const bool vec = d % 4 == 0;
+  if (t < NEG_MS) rows[t] = ids[base + t];
+  pdl_wait();
+  pdl_trigger();
+  float own = 0.0f;
+  if (t < NEG_MS) {
+    own = nt[base + t];
+    nts[t] = own;
+  }
+  if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
+  auto stage_ph = [&](const Slab& sl) {
+    stage_rows<NEG_THREADS, 8, float>(
+        NEG_MS, sl.w, sl.wp,
+        [&](int i) { return table + (size_t)rows[i] * d + sl.s0; },
+        [&](int i, int c, float4 v) {
+          *reinterpret_cast<float4*>(ph + i * sa + c) = v;
+        },
+        vec);
+  };
+  auto stage_cn = [&](int ch, const Slab& sl) {
+    stage_rows<NEG_THREADS, 4, float>(
+        NEG_KC, sl.w, sl.wp,
+        [&](int j) {
+          const int k = ch * NEG_KC + j;
+          return k < KP ? cneg + (size_t)k * d + sl.s0 : nullptr;
+        },
+        [&](int j, int c, float4 v) {
+          *reinterpret_cast<float4*>(cn + j * sa + c) = v;
+        },
+        vec);
+  };
+  const int sr = t >> 3, sc = t & 7, rg = t >> 4, cg = t & 15;
+  const int ns = n_slabs(d);
+
+  // sweep A: scores of slots 4 sr + r against pool rows sc + 8 c of each
+  // chunk, summed over the slabs
+  float s[NEGS_PMAX][4][4];
+#pragma unroll
+  for (int k = 0; k < NEGS_PMAX; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[k][r][c] = 0.0f;
+  for (int n = 0; n < ns; ++n) {
+    const Slab sl(n, d);
+    __syncthreads();  // the last slab's reads of ph
+    stage_ph(sl);
+#pragma unroll
+    for (int k = 0; k < NEGS_PMAX; ++k) {
+      if (k >= m) break;
+      __syncthreads();  // ph staged; the last chunk's reads of cn
+      stage_cn(py + k * ny, sl);
+      __syncthreads();
+#pragma unroll 2
+      for (int kk = 0; kk < sl.wp; kk += 4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          a[r] = *reinterpret_cast<const float4*>(ph + (4 * sr + r) * sa + kk);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          b[c] = *reinterpret_cast<const float4*>(cn + (sc + 8 * c) * sa + kk);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[k][r][c] = fmaf(a[r].x, b[c].x, s[k][r][c]);
+            s[k][r][c] = fmaf(a[r].y, b[c].y, s[k][r][c]);
+            s[k][r][c] = fmaf(a[r].z, b[c].z, s[k][r][c]);
+            s[k][r][c] = fmaf(a[r].w, b[c].w, s[k][r][c]);
+          }
+      }
+    }
+  }
+  // g = sigmoid(s) * w and the loss -w * log(sigmoid(-s)), by pool row
+  float loss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NEGS_PMAX; ++k) {
+    if (k >= m) break;
+    const int j0 = (py + k * ny) * NEG_KC;
+    float* g = gt + k * NEG_KC * NEGF_GT;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float w = negw * nts[4 * sr + r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float x = s[k][r][c];
+        const float wj = j0 + sc + 8 * c < KP ? w : 0.0f;
+        const float ex = expf(-fabsf(x));
+        s[k][r][c] = (x >= 0.0f ? 1.0f : ex) / (1.0f + ex) * wj;
+        loss -= wj * (fminf(-x, 0.0f) - log1pf(ex));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(g + (sc + 8 * c) * NEGF_GT + 4 * sr) =
+          make_float4(s[k][0][c], s[k][1][c], s[k][2][c], s[k][3][c]);
+  }
+
+  // sweep B: each slab's columns of dphi and dneg
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int C = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  for (int n = 0; n < ns; ++n) {
+    const Slab sl(n, d);
+    __syncthreads();  // g written; the last slab's merge read ph
+    stage_ph(sl);
+    float4 acc[8][2];  // dphi of slots 8 rg + r
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) acc[r][p] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < m; ++k) {
+      const int j0 = (py + k * ny) * NEG_KC;
+      const float* g = gt + k * NEG_KC * NEGF_GT;
+      __syncthreads();  // ph staged; the last chunk's reads of cn
+      stage_cn(py + k * ny, sl);
+      __syncthreads();
+      // dphi[8 rg + r, cols] += G[8 rg + r, chunk] . C[chunk, cols]
+#pragma unroll 4
+      for (int j = 0; j < NEG_KC; ++j) {
+        const float4 g0 =
+            *reinterpret_cast<const float4*>(g + j * NEGF_GT + 8 * rg);
+        const float4 g1 =
+            *reinterpret_cast<const float4*>(g + j * NEGF_GT + 8 * rg + 4);
+        const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int c = 4 * cg + 64 * p;
+          if (c >= sl.wp) break;
+          const float4 cv = *reinterpret_cast<const float4*>(cn + j * sa + c);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) fma4(gv[r], cv, acc[r][p]);
+        }
+      }
+      // dneg[j0 + 4 rg + r, cols] += G^T[., tile] . Phi[tile, cols]
+      float4 qv[4][2];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) qv[r][p] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int i = 0; i < NEG_MS; ++i) {
+        float gv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) gv[r] = g[(4 * rg + r) * NEGF_GT + i];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int c = 4 * cg + 64 * p;
+          if (c >= sl.wp) break;
+          const float4 pv = *reinterpret_cast<const float4*>(ph + i * sa + c);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) fma4(gv[r], pv, qv[r][p]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = j0 + 4 * rg + r;
+        if (j >= KP) continue;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int c = 4 * cg + 64 * p;
+          if (c < sl.wp)
+            atomic_add4(dneg + (size_t)j * d + sl.s0, sl.w, c, qv[r][p], vec);
+        }
+      }
+    }
+    // the cluster's partials of the slab's dphi, summed on chip
+    __syncthreads();  // the reads of ph
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int c = 4 * cg + 64 * p;
+        if (c < sl.wp)
+          *reinterpret_cast<float4*>(ph + (8 * rg + r) * sa + c) = acc[r][p];
+      }
+    cluster.sync();
+    const int rows_q = NEG_MS / C, n4 = sl.wp / 4;
+    for (int idx = t; idx < rows_q * n4; idx += NEG_THREADS) {
+      const int i = q * rows_q + idx / n4, c = 4 * (idx % n4);
+      if (nts[i] == 0.0f) continue;  // no pairs: exactly zero update
+      float4 v[NEGF_CMAX];
+#pragma unroll
+      for (int k = 0; k < NEGF_CMAX; ++k)
+        if (k < C)
+          v[k] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(ph, k) + i * sa + c);
+      double x = 0.0, y = 0.0, z = 0.0, w = 0.0;
+#pragma unroll
+      for (int k = 0; k < NEGF_CMAX; ++k)
+        if (k < C) {
+          x += v[k].x;
+          y += v[k].y;
+          z += v[k].z;
+          w += v[k].w;
+        }
+      atomic_add4(dphi + (size_t)(base + i) * d + sl.s0, sl.w, c,
+                  make_float4((float)x, (float)y, (float)z, (float)w), vec);
+    }
+    cluster.sync();  // no CTA restages ph while another reads its partial
+  }
+  block_add<NEG_THREADS>(loss, &stats[0]);
+}
+
 // ------------------------------------------- bf16 pass on the tensor cores
 
 // d padded to the mma depth; each staged matrix's row stride is its width
@@ -946,6 +1253,14 @@ struct NegSetup {
   int cluster = 1;  // CTAs along y that merge dphi on chip (f32)
 };
 
+// Internal linkage for the pass structs (here and in star_pos.cuh): the
+// kernels are `static`, so each translation unit has its own copy, and the
+// struct's members must launch and set up the copy of their own unit.  With
+// external linkage the library's link keeps one definition of each member,
+// so an init() from one unit could raise the shared-memory cap of its copy
+// while an inlined launch() starts another unit's (cudaErrorInvalidValue).
+namespace {
+
 // The negative pass of one instance: init() (checks the shapes, sets the
 // kernel's shared memory, sizes the grid), then launch() once per group or
 // tile of `nslots` slots.
@@ -955,8 +1270,20 @@ struct NegativePass : NegSetup {
                 "bf16 tables take the bf16 pass");
 
   cudaError_t init(int d, int KP, int nslots) {
-    if (d < 1 || d > MAX_DIM || KP < 1 || nslots % NEG_MS)
+    if (d < 1 || (BF16 && d > MAX_DIM) || KP < 1 || nslots % NEG_MS)
       return cudaErrorInvalidValue;
+    if constexpr (!BF16) {
+      if (d > MAX_DIM) {  // column slabs, at most NEGS_PMAX chunks a CTA
+        smem = negative_slab_smem_bytes();
+        const cudaError_t e =
+            size(negative_f32_slab_kernel, smem, KP, nslots);
+        const int nch = (KP + NEG_KC - 1) / NEG_KC;
+        const int need = (nch + NEGS_PMAX - 1) / NEGS_PMAX;
+        if (ny < need) ny = (need + cluster - 1) / cluster * cluster;
+        grid.y = ny;
+        return e;
+      }
+    }
     smem = BF16 ? negative_bf16_smem_bytes(d) : negative_f32_smem_bytes(d);
     // the cap is the template's largest d (128 or MAX_DIM), so plans of
     // other widths on one instance never lower it below what they launch
@@ -1039,6 +1366,10 @@ struct NegativePass : NegSetup {
                  : launch_kernel(negative_bf16_kernel<24, T>, grid, b, smem,
                                  stream, pdl, 0, table, ids, nt, cneg, d, KP,
                                  ny, negw, dphi, dneg, stats);
+    else if (d > MAX_DIM)
+      return launch_kernel(negative_f32_slab_kernel, grid, b, smem, stream,
+                           pdl, cluster, table, ids, nt, cneg, d, KP, ny,
+                           negw, dphi, dneg, stats);
     else
       return d <= 128
                  ? launch_kernel(negative_f32_kernel<2>, grid, b, smem, stream,
@@ -1049,6 +1380,8 @@ struct NegativePass : NegSetup {
                                  negw, dphi, dneg, stats);
   }
 };
+
+}  // namespace
 
 }  // namespace come
 

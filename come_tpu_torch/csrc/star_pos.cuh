@@ -46,6 +46,95 @@ static inline size_t star_pos_smem_bytes(int d) {
   return sizeof(float) * (size_t)BLK * star_stride(d);
 }
 
+// A 128-slot row of the layout as the star passes read it: each slot's
+// meta and table row, the start (hub) of its segment (-1 at pads), and the
+// segments' first and last slots as bit masks.
+struct StarRow {
+  int ms[BLK], ids[BLK], hub[BLK];
+  unsigned first[BLK / 32], last[BLK / 32];
+};
+
+// Reads the row at `base` of the stream into `r` and finds its segments
+// and hubs (before the PDL wait: these are step inputs).  All STAR_THREADS
+// threads call.
+static __device__ __forceinline__ void read_row(StarRow& r,
+                                                const int* __restrict__ slots,
+                                                const int* __restrict__ meta,
+                                                int base) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int m = meta[base + t];
+  r.ms[t] = m;
+  r.ids[t] = slots[base + t];
+  __syncthreads();
+  const bool real = m >= 0;
+  const unsigned fb = __ballot_sync(
+      0xffffffffu, real && (t == 0 || (r.ms[t - 1] >> 1) != (m >> 1)));
+  const unsigned lb = __ballot_sync(
+      0xffffffffu, real && (t == BLK - 1 || (r.ms[t + 1] >> 1) != (m >> 1)));
+  if (lane == 0) {
+    r.first[warp] = fb;
+    r.last[warp] = lb;
+  }
+  __syncthreads();
+  // the start (hub) of t's segment: the last first slot at or before t
+  int h = -1;
+  for (int w = warp; w >= 0 && real; --w) {
+    const unsigned bits =
+        w == warp ? r.first[w] & ((2u << lane) - 1u) : r.first[w];
+    if (bits) {
+      h = 32 * w + 31 - __clz(bits);
+      break;
+    }
+  }
+  r.hub[t] = h;
+}
+
+// The segments whose hub lies in the strip at s0 span [lo, hi): the
+// strip's first hub to the end of its last segment.  False when no hub
+// lies in the strip (uniform over the CTA).
+static __device__ __forceinline__ bool owned_range(const StarRow& r, int s0,
+                                                   int& lo, int& hi) {
+  const unsigned own =
+      (r.first[s0 >> 5] >> (s0 & 31)) & ((1u << STAR_STRIP) - 1u);
+  if (!own) return false;
+  const int top = s0 + 31 - __clz(own);
+  lo = s0 + __ffs(own) - 1;
+  hi = BLK;
+  for (int w = top >> 5; w < BLK / 32; ++w) {
+    const unsigned bits =
+        w == top >> 5 ? r.last[w] & (~0u << (top & 31)) : r.last[w];
+    if (bits) {
+      hi = 32 * w + __ffs(bits);
+      break;
+    }
+  }
+  return true;
+}
+
+// n of the owned slots [lo, hi) (1 for a leaf, the leaf count for a hub)
+// into nt, then the trigger, and the loss and pair count added to stats.
+// All STAR_THREADS threads call.
+static __device__ __forceinline__ void finish_star(const StarRow& r,
+                                                   int base, int lo, int hi,
+                                                   float loss, float* nt,
+                                                   double* stats) {
+  float pairs = 0.0f;
+  for (int i = threadIdx.x; i < hi - lo; i += STAR_THREADS) {
+    const int u = lo + i;
+    if (r.ms[u] < 0) continue;
+    float n = 1.0f;
+    if (r.hub[u] == u) {
+      n = 0.0f;
+      for (int v = u + 1; v < hi && r.hub[v] == u; ++v) n += 1.0f;
+    }
+    nt[base + u] = n;
+    pairs += n;
+  }
+  pdl_trigger();
+  block_add<STAR_THREADS>(loss, &stats[0]);
+  block_add<STAR_THREADS>(pairs, &stats[1]);
+}
+
 // Positive pairs of the segments whose hub lies in strip blockIdx.x of row
 // blockIdx.y (slots base + t of emb[slots[base + t]], meta meta[base + t]).
 // grid (STAR_NSTRIP, rows), block STAR_THREADS.  Writes (overwrites) dphi
@@ -64,37 +153,16 @@ star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
                 float* __restrict__ nt, double* __restrict__ stats) {
   extern __shared__ float4 star_smem[];
   float* phi = reinterpret_cast<float*>(star_smem);  // [BLK][ds]: slot lo + r
-  __shared__ int ms[BLK], ids[BLK], hub[BLK];  // meta, row, segment start
-  __shared__ float gl[BLK];                    // g2 of the leaf at lo + r
-  __shared__ unsigned first[BLK / 32], last[BLK / 32];  // segment bounds
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  __shared__ StarRow row;
+  __shared__ float gl[BLK];  // g2 of the leaf at lo + r
+  const int* ms = row.ms;
+  const int* ids = row.ids;
+  const int* hub = row.hub;
+  const int t = threadIdx.x;
   const int base = blockIdx.y * BLK, s0 = blockIdx.x * STAR_STRIP;
   const int ds = star_stride(d), dp = ds - 4, n4 = dp / 4;
 
-  const int m = meta[base + t];
-  ms[t] = m;
-  ids[t] = slots[base + t];
-  __syncthreads();
-  const bool real = m >= 0;
-  const unsigned fb = __ballot_sync(
-      0xffffffffu, real && (t == 0 || (ms[t - 1] >> 1) != (m >> 1)));
-  const unsigned lb = __ballot_sync(
-      0xffffffffu, real && (t == BLK - 1 || (ms[t + 1] >> 1) != (m >> 1)));
-  if (lane == 0) {
-    first[warp] = fb;
-    last[warp] = lb;
-  }
-  __syncthreads();
-  // the start (hub) of t's segment: the last first slot at or before t
-  int h = -1;
-  for (int w = warp; w >= 0 && real; --w) {
-    const unsigned bits = w == warp ? first[w] & ((2u << lane) - 1u) : first[w];
-    if (bits) {
-      h = 32 * w + 31 - __clz(bits);
-      break;
-    }
-  }
-  hub[t] = h;
+  read_row(row, slots, meta, base);
   pdl_wait();
 
   // the strip's pads: zeros
@@ -106,20 +174,8 @@ star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
     if (dphin) store4(dphin + (size_t)(base + a) * d, d, 4 * (idx % n4), zero);
   }
   if (t < STAR_STRIP && ms[s0 + t] < 0) nt[base + s0 + t] = 0.0f;
-  const unsigned own =
-      (first[s0 >> 5] >> (s0 & 31)) & ((1u << STAR_STRIP) - 1u);
-  if (!own) return;  // no hub in the strip (uniform over the CTA)
-  // the owned segments span [lo, hi): the strip's first hub to the end of
-  // its last segment
-  const int lo = s0 + __ffs(own) - 1, top = s0 + 31 - __clz(own);
-  int hi = BLK;
-  for (int w = top >> 5; w < BLK / 32; ++w) {
-    const unsigned bits = w == top >> 5 ? last[w] & (~0u << (top & 31)) : last[w];
-    if (bits) {
-      hi = 32 * w + __ffs(bits);
-      break;
-    }
-  }
+  int lo, hi;
+  if (!owned_range(row, s0, lo, hi)) return;  // no hub in the strip
   const int nr = hi - lo;
   stage_rows<STAR_THREADS, 8, float>(
       nr, d, dp, [&](int i) { return emb + (size_t)ids[lo + i] * d; },
@@ -176,34 +232,153 @@ star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
     store4(dphi + (size_t)(base + u) * d, d, c, acc);
     if (dphin) store4(dphin + (size_t)(base + u) * d, d, c, zero);
   }
-  // n: 1 for a leaf, the leaf count for a hub
-  float pairs = 0.0f;
+  finish_star(row, base, lo, hi, loss, nt, stats);
+}
+
+static inline size_t star_pos_slab_smem_bytes() {
+  return sizeof(float) * ((size_t)BLK * SLAB_STRIDE + BLK);
+}
+
+// star_pos_kernel's f32 pass (K2) for any d, its rows staged one column
+// slab at a time (sgns_common.cuh: SLAB): the segments, hubs, pads and
+// owned range are found as there; sweep A stages each slab of the owned
+// rows and adds every (hub, leaf) pair's slab part of its score to sc[r]
+// (the same 8 lanes own a leaf in every slab); g2 and the loss follow from
+// the sums; sweep B re-stages each slab and writes its columns of every
+// owned slot's dphi (and zeroed dphin).  Shared memory: 128 rows of SLAB
+// columns, 68 KB.  Grid, outputs and PDL as star_pos_kernel.
+static __global__ void __launch_bounds__(STAR_THREADS)
+star_pos_slab_kernel(const float* __restrict__ emb,
+                     const int* __restrict__ slots,
+                     const int* __restrict__ meta, int d,
+                     float* __restrict__ dphi, float* __restrict__ dphin,
+                     float* __restrict__ nt, double* __restrict__ stats) {
+  extern __shared__ float4 star_smem[];
+  constexpr int ds = SLAB_STRIDE;
+  float* phi = reinterpret_cast<float*>(star_smem);  // [BLK][ds]: a slab
+  float* sc = phi + BLK * ds;                        // [BLK] leaf scores
+  __shared__ StarRow row;
+  __shared__ float gl[BLK];  // g2 of the leaf at lo + r
+  const int* ms = row.ms;
+  const int* ids = row.ids;
+  const int* hub = row.hub;
+  const int t = threadIdx.x;
+  const int base = blockIdx.y * BLK, s0 = blockIdx.x * STAR_STRIP;
+  const bool vec = d % 4 == 0;
+
+  read_row(row, slots, meta, base);
+  pdl_wait();
+
+  // the strip's pads: zeros
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int idx = t; idx < STAR_STRIP * d; idx += STAR_THREADS) {
+    const int a = s0 + idx / d;
+    if (ms[a] >= 0) continue;
+    const size_t o = (size_t)(base + a) * d + idx % d;
+    dphi[o] = 0.0f;
+    if (dphin) dphin[o] = 0.0f;
+  }
+  if (t < STAR_STRIP && ms[s0 + t] < 0) nt[base + s0 + t] = 0.0f;
+  int lo, hi;
+  if (!owned_range(row, s0, lo, hi)) return;  // no hub in the strip
+  const int nr = hi - lo, lane8 = t & 7, ns = n_slabs(d);
+  auto stage = [&](const Slab& sl) {
+    stage_rows<STAR_THREADS, 8, float>(
+        nr, sl.w, sl.wp,
+        [&](int i) { return emb + (size_t)ids[lo + i] * d + sl.s0; },
+        [&](int i, int c, float4 v) {
+          *reinterpret_cast<float4*>(phi + i * ds + c) = v;
+        },
+        vec);
+  };
+
+  // sweep A: each (hub, leaf) pair's score, summed over the slabs
+  for (int n = 0; n < ns; ++n) {
+    const Slab sl(n, d);
+    __syncthreads();  // the last slab's reads
+    stage(sl);
+    __syncthreads();
+    for (int r0 = 0; r0 < nr; r0 += STAR_THREADS / 8) {
+      const int r = r0 + (t >> 3), u = lo + r;
+      const bool leaf = r < nr && ms[u] >= 0 && hub[u] != u;
+      float v = 0.0f;
+      if (leaf) {
+        const float4* a = reinterpret_cast<const float4*>(phi + r * ds);
+        const float4* b =
+            reinterpret_cast<const float4*>(phi + (hub[u] - lo) * ds);
+        for (int q = lane8; q < sl.wp / 4; q += 8) {
+          const float4 x = a[q], y = b[q];
+          v = fmaf(x.x, y.x, v);
+          v = fmaf(x.y, y.y, v);
+          v = fmaf(x.z, y.z, v);
+          v = fmaf(x.w, y.w, v);
+        }
+      }
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      if (leaf && lane8 == 0) sc[r] = n ? sc[r] + v : v;
+    }
+  }
+  __syncthreads();  // every leaf's sum
+  // g2 = 2 g and twice the loss, from the sums
+  float loss = 0.0f;
   for (int r = t; r < nr; r += STAR_THREADS) {
     const int u = lo + r;
-    if (ms[u] < 0) continue;
-    float n = 1.0f;
-    if (hub[u] == u) {
-      n = 0.0f;
-      for (int v = u + 1; v < hi && hub[v] == u; ++v) n += 1.0f;
-    }
-    nt[base + u] = n;
-    pairs += n;
+    if (ms[u] < 0 || hub[u] == u) continue;
+    gl[r] = 2.0f * (sigmoid_f(sc[r]) - 1.0f);
+    loss -= 2.0f * log_sigmoid_f(sc[r]);
   }
-  pdl_trigger();
-  block_add<STAR_THREADS>(loss, &stats[0]);
-  block_add<STAR_THREADS>(pairs, &stats[1]);
+
+  // sweep B: dphi of each owned slot, one slab at a time
+  for (int n = 0; n < ns; ++n) {
+    const Slab sl(n, d);
+    __syncthreads();  // gl written; the last slab's reads
+    stage(sl);
+    __syncthreads();
+    const int n4 = sl.wp / 4;
+    for (int idx = t; idx < nr * n4; idx += STAR_THREADS) {
+      const int r = idx / n4, c = 4 * (idx - r * n4), u = lo + r;
+      if (ms[u] < 0) continue;  // a pad: written above
+      float4 acc = zero;
+      if (hub[u] != u) {
+        fma4(gl[r],
+             *reinterpret_cast<const float4*>(phi + (hub[u] - lo) * ds + c),
+             acc);
+      } else {
+        for (int v = u + 1; v < hi && hub[v] == u; ++v)
+          fma4(gl[v - lo],
+               *reinterpret_cast<const float4*>(phi + (v - lo) * ds + c), acc);
+      }
+      const size_t o = (size_t)(base + u) * d + sl.s0;
+      store4(dphi + o, sl.w, c, acc, vec);
+      if (dphin) store4(dphin + o, sl.w, c, zero, vec);
+    }
+  }
+  finish_star(row, base, lo, hi, loss, nt, stats);
 }
 
 // The star pass of one instance: init() (checks d, sets the kernel's
 // shared-memory cap to what MAX_DIM needs, so a plan of another width never
-// lowers it), then launch() once per group of 8 rows.
+// lowers it; past MAX_DIM, f32 only, the slab kernel's), then launch() once
+// per group of 8 rows.
+namespace {  // internal linkage (sgns_common.cuh: NegativePass)
+
 template <bool BF16>
 struct StarPosPass {
   size_t smem = 0;
 
+  static size_t smem_bytes(int d) {
+    return d > MAX_DIM ? star_pos_slab_smem_bytes() : star_pos_smem_bytes(d);
+  }
+
   cudaError_t init(int d) {
-    if (d < 1 || d > MAX_DIM) return cudaErrorInvalidValue;
-    smem = star_pos_smem_bytes(d);
+    if (d < 1 || (BF16 && d > MAX_DIM)) return cudaErrorInvalidValue;
+    smem = smem_bytes(d);
+    if (d > MAX_DIM)
+      return cudaFuncSetAttribute(star_pos_slab_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
     return cudaFuncSetAttribute(star_pos_kernel<BF16>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)star_pos_smem_bytes(MAX_DIM));
@@ -215,10 +390,16 @@ struct StarPosPass {
                      int d, float* dphi, float* dphin, float* nt,
                      double* stats, cudaStream_t stream,
                      bool pdl = false) const {
+    if (!BF16 && d > MAX_DIM)
+      return launch_kernel(star_pos_slab_kernel, dim3(STAR_NSTRIP, NBLK),
+                           dim3(STAR_THREADS), smem, stream, pdl, 0, emb,
+                           slots, meta, d, dphi, dphin, nt, stats);
     return launch_kernel(star_pos_kernel<BF16>, dim3(STAR_NSTRIP, NBLK),
                          dim3(STAR_THREADS), smem, stream, pdl, 0, emb, slots,
                          meta, d, dphi, dphin, nt, stats);
   }
 };
+
+}  // namespace
 
 }  // namespace come

@@ -14,7 +14,10 @@
 
 #include "step_graph.cuh"
 
-using namespace come;
+// No `using namespace come`: the header's unnamed namespace inside `come`
+// (sgns_common.cuh) and this file's unnamed namespace would then make
+// nvcc's generated kernel stubs ambiguous.
+using come::StepGraph;
 
 #if CUDART_VERSION >= 12040
 #define COME_WHILE 1

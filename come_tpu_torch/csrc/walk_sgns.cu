@@ -60,6 +60,9 @@
 // whose window reaches its slots instead of exchanging them, and writes its
 // slots' dphi and dctx itself, without atomics.  The staged range never
 // passes the walk (at most 128 rows: 217 KB at d 192), so no window is cut.
+// Past d 192 the f32 modes (K1, K5) stage the same rows one column slab of
+// 128 at a time (walk_pos_slab_kernel, and the negative pass's slab form;
+// sgns_common.cuh: SLAB); the bf16 modes and K4 stop at 192.
 // The negative pass runs on the tensor cores in the bf16 modes
 // (sgns_common.cuh).  Groups keep their order with stream-ordered launches;
 // the host makes one call per macro step and the loop over groups runs
@@ -95,6 +98,80 @@ static inline size_t walk_pos_smem_bytes(int d, int L, int W) {
          sizeof(int) * (2 * R + 2 * STRIP * R);
 }
 
+// The band passes' common steps (walk_pos_kernel, walk_pos_slab_kernel).
+
+// A strip past L: exact zeros for its slots' dphi, dctx, dphin and nt,
+// written after the wait.
+static __device__ __forceinline__ void zero_strip(int base, int t0, int d,
+                                                  float* dphi, float* dctx,
+                                                  float* dphin, float* nt) {
+  pdl_wait();
+  for (int idx = threadIdx.x; idx < STRIP * d; idx += THREADS) {
+    const size_t o = (size_t)(base + t0) * d + idx;
+    dphi[o] = 0.0f;
+    dctx[o] = 0.0f;
+    dphin[o] = 0.0f;
+  }
+  if (threadIdx.x < STRIP) nt[base + t0 + threadIdx.x] = 0.0f;
+  pdl_trigger();
+}
+
+// The pairs a strip of centres [t0, t1) scores among its R staged rows
+// from lo, as r_t << 16 | r_u into plist: (centre in the strip, any staged
+// u), then (staged centre outside the strip, u in the strip), each with u
+// in t's window wr[r_t] (PAIRED: u = t ^ 1); a warp appends its pairs with
+// one shared atomic to *npairs (0 before the call).  All threads call.
+template <bool PAIRED>
+static __device__ __forceinline__ void list_pairs(int t0, int t1, int lo,
+                                                  int R, const int* wr,
+                                                  int* plist, int* npairs) {
+  const int lane = threadIdx.x & 31, no = t1 - t0;
+  for (int c0 = 0; c0 < 2 * no * R; c0 += THREADS) {
+    const int c = c0 + threadIdx.x;
+    int rt = 0, ru = 0;
+    bool ok = false;
+    if (c < no * R) {
+      rt = t0 - lo + c / R;
+      ru = c % R;
+      ok = true;
+    } else if (c < 2 * no * R) {
+      rt = (c - no * R) / no;
+      ru = t0 - lo + (c - no * R) % no;
+      ok = lo + rt < t0 || lo + rt >= t1;  // own centres are counted above
+    }
+    const int t = lo + rt, u = lo + ru;
+    ok = ok && (PAIRED ? u == (t ^ 1) : (u != t && abs(u - t) <= wr[rt]));
+    const unsigned m = __ballot_sync(0xffffffffu, ok);
+    int at = 0;
+    if (lane == 0 && m) at = atomicAdd(npairs, __popc(m));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (ok) plist[at + __popc(m & ((1u << lane) - 1))] = rt << 16 | ru;
+  }
+}
+
+// n_t of the strip's centres (the contexts in t's window inside the walk;
+// PAIRED: its partner) into nt, then the trigger, and the strip's loss and
+// pair count added to stats.  All threads call.
+template <bool PAIRED>
+static __device__ __forceinline__ void finish_strip(int base, int t0, int t1,
+                                                    int lo, int L,
+                                                    const int* wr, float loss,
+                                                    float* nt,
+                                                    double* stats) {
+  float pairs = 0.0f;
+  if (threadIdx.x < STRIP) {
+    const int t = t0 + threadIdx.x;
+    if (t < t1) {
+      const int w = wr[t - lo];
+      pairs = PAIRED ? 1.0f : (float)(min(L - 1, t + w) - max(0, t - w));
+    }
+    nt[base + t] = pairs;
+  }
+  pdl_trigger();
+  block_add(loss, &stats[0]);
+  block_add(pairs, &stats[1]);
+}
+
 // Positive band of one strip of STRIP centres [t0, t0 + STRIP) of one walk.
 // grid (NSTRIP, walks), block THREADS.  Writes (overwrites) dphi, dctx and
 // nt for the strip's slots (strips past L write zeros), zeroes their rows of
@@ -126,18 +203,10 @@ walk_pos_kernel(const T* __restrict__ emb_in,
   constexpr bool RND = BF16 && !PAIRED;
   const int t0 = blockIdx.x * STRIP, base = blockIdx.y * BLK;
   if (t0 >= L) {  // padding slots: exact zeros, no pairs
-    pdl_wait();
-    for (int idx = threadIdx.x; idx < STRIP * d; idx += THREADS) {
-      const size_t o = (size_t)(base + t0) * d + idx;
-      dphi[o] = 0.0f;
-      dctx[o] = 0.0f;
-      dphin[o] = 0.0f;
-    }
-    if (threadIdx.x < STRIP) nt[base + t0 + threadIdx.x] = 0.0f;
-    pdl_trigger();
+    zero_strip(base, t0, d, dphi, dctx, dphin, nt);
     return;
   }
-  const int t1 = min(t0 + STRIP, L), no = t1 - t0;  // the strip's centres
+  const int t1 = min(t0 + STRIP, L);  // the strip's centres: [t0, t1)
   const int lo = max(0, t0 - W), hi = min(L, t1 + W), R = hi - lo;
   const int RM = walk_pos_rows(L, W), ds = walk_pos_stride(d), dp = ds - 4;
   extern __shared__ float4 pos_smem[];
@@ -173,31 +242,7 @@ walk_pos_kernel(const T* __restrict__ emb_in,
                         mxu<RND>(v.w));
       });
 
-  // the pairs: (centre in the strip, any staged u), then (staged centre
-  // outside the strip, u in the strip); a warp appends its pairs with one
-  // shared atomic
-  const int lane = threadIdx.x & 31;
-  for (int c0 = 0; c0 < 2 * no * R; c0 += THREADS) {
-    const int c = c0 + threadIdx.x;
-    int rt = 0, ru = 0;
-    bool ok = false;
-    if (c < no * R) {
-      rt = t0 - lo + c / R;
-      ru = c % R;
-      ok = true;
-    } else if (c < 2 * no * R) {
-      rt = (c - no * R) / no;
-      ru = t0 - lo + (c - no * R) % no;
-      ok = lo + rt < t0 || lo + rt >= t1;  // own centres are counted above
-    }
-    const int t = lo + rt, u = lo + ru;
-    ok = ok && (PAIRED ? u == (t ^ 1) : (u != t && abs(u - t) <= wr[rt]));
-    const unsigned m = __ballot_sync(0xffffffffu, ok);
-    int at = 0;
-    if (lane == 0 && m) at = atomicAdd(&npairs, __popc(m));
-    at = __shfl_sync(0xffffffffu, at, 0);
-    if (ok) plist[at + __popc(m & ((1u << lane) - 1))] = rt << 16 | ru;
-  }
+  list_pairs<PAIRED>(t0, t1, lo, R, wr, plist, &npairs);
   __syncthreads();
 
   const int np = npairs, lane8 = threadIdx.x & 7;
@@ -250,19 +295,151 @@ walk_pos_kernel(const T* __restrict__ emb_in,
     store4(dphin + (size_t)(base + t) * d, d, c,
            make_float4(0.0f, 0.0f, 0.0f, 0.0f));
   }
-  // n_t: the contexts in t's window inside the walk (PAIRED: its partner)
-  float pairs = 0.0f;
-  if (threadIdx.x < STRIP) {
-    const int t = t0 + threadIdx.x;
-    if (t < t1) {
-      const int w = wr[t - lo];
-      pairs = PAIRED ? 1.0f : (float)(min(L - 1, t + w) - max(0, t - w));
-    }
-    nt[base + t] = pairs;
+  finish_strip<PAIRED>(base, t0, t1, lo, L, wr, loss, nt, stats);
+}
+
+static inline size_t walk_pos_slab_smem_bytes(int L, int W) {
+  const size_t R = walk_pos_rows(L, W);
+  return sizeof(float) * (2 * R * SLAB_STRIDE + 2 * STRIP * R +
+                          2 * STRIP * R) +
+         sizeof(int) * (2 * R + 2 * STRIP * R);
+}
+
+// walk_pos_kernel's f32 pass (K1, K5) for any d, its rows staged one column
+// slab at a time (sgns_common.cuh: SLAB).  The pairs are listed as there;
+// sweep A stages each slab of the strip's rows and adds every pair's slab
+// part of its score to sc (the same 8 lanes own a pair in every slab, so
+// no two threads write one sum); g and the loss follow from the sums; sweep
+// B re-stages each slab and writes its columns of the strip's dphi, dctx
+// and zeroed dphin.  Shared memory holds 2 R rows of SLAB columns (at most
+// 128 rows: 135 KB for a whole walk, 30 KB at W 10), so a window is never
+// cut.  Grid, outputs and PDL as walk_pos_kernel.
+template <bool PAIRED>
+static __global__ void __launch_bounds__(THREADS)
+walk_pos_slab_kernel(const float* __restrict__ emb_in,
+                     const float* __restrict__ emb_out,
+                     const int* __restrict__ walks,
+                     const int* __restrict__ wrow, int d, int L, int W,
+                     float* __restrict__ dphi, float* __restrict__ dctx,
+                     float* __restrict__ dphin, float* __restrict__ nt,
+                     double* __restrict__ stats) {
+  const int t0 = blockIdx.x * STRIP, base = blockIdx.y * BLK;
+  if (t0 >= L) {  // padding slots: exact zeros, no pairs
+    zero_strip(base, t0, d, dphi, dctx, dphin, nt);
+    return;
   }
-  pdl_trigger();
-  block_add(loss, &stats[0]);
-  block_add(pairs, &stats[1]);
+  const int t1 = min(t0 + STRIP, L);  // the strip's centres: [t0, t1)
+  const int lo = max(0, t0 - W), hi = min(L, t1 + W), R = hi - lo;
+  const int RM = walk_pos_rows(L, W);
+  constexpr int ds = SLAB_STRIDE;
+  const bool vec = d % 4 == 0;
+  extern __shared__ float4 pos_smem[];
+  float* phi = reinterpret_cast<float*>(pos_smem);  // [RM][ds]: a slab
+  float* ctx = phi + RM * ds;                       // [RM][ds]
+  float* ga = ctx + RM * ds;        // [STRIP][RM]: g[t0 + a, lo + r]
+  float* gb = ga + STRIP * RM;      // [RM][STRIP]: g[lo + r, t0 + a]
+  float* sc = gb + RM * STRIP;      // [2 * STRIP * RM] each pair's score
+  int* wr = reinterpret_cast<int*>(sc + 2 * STRIP * RM);  // [RM] draws
+  int* rows = wr + RM;              // [RM] table rows
+  int* plist = rows + RM;           // [2 * STRIP * RM] pairs r_t << 16 | r_u
+  __shared__ int npairs;
+
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    rows[r] = walks[base + lo + r];
+    wr[r] = PAIRED ? 1 : min(wrow[base + lo + r], W);
+  }
+  for (int idx = threadIdx.x; idx < 2 * STRIP * RM; idx += THREADS)
+    ga[idx] = 0.0f;  // ga and gb
+  if (threadIdx.x == 0) npairs = 0;
+  __syncthreads();
+  pdl_wait();
+
+  list_pairs<PAIRED>(t0, t1, lo, R, wr, plist, &npairs);
+  __syncthreads();
+  const int np = npairs, lane8 = threadIdx.x & 7, ns = n_slabs(d);
+  auto stage = [&](const Slab& sl) {
+    // rows 0..R-1 of emb_in into phi, then the same rows of emb_out into
+    // ctx, columns s0 .. s0 + w - 1
+    stage_rows<THREADS, 8, float>(
+        2 * R, sl.w, sl.wp,
+        [&](int i) {
+          return (i < R ? emb_in + (size_t)rows[i] * d
+                        : emb_out + (size_t)rows[i - R] * d) + sl.s0;
+        },
+        [&](int i, int c, float4 v) {
+          *reinterpret_cast<float4*>(phi + (i < R ? i : RM + i - R) * ds + c) =
+              v;
+        },
+        vec);
+  };
+
+  // sweep A: each pair's score, summed over the slabs (8 lanes a pair)
+  for (int n = 0; n < ns; ++n) {
+    const Slab sl(n, d);
+    __syncthreads();  // the last slab's reads
+    stage(sl);
+    __syncthreads();
+    for (int p0 = 0; p0 < np; p0 += THREADS / 8) {
+      const int p = p0 + (threadIdx.x >> 3);
+      const int pr = p < np ? plist[p] : 0;
+      const int rt = pr >> 16, ru = pr & 0xffff;
+      const float4* a = reinterpret_cast<const float4*>(phi + rt * ds);
+      const float4* b = reinterpret_cast<const float4*>(ctx + ru * ds);
+      float v = 0.0f;
+      for (int q = lane8; q < sl.wp / 4; q += 8) {
+        const float4 x = a[q], y = b[q];
+        v = fmaf(x.x, y.x, v);
+        v = fmaf(x.y, y.y, v);
+        v = fmaf(x.z, y.z, v);
+        v = fmaf(x.w, y.w, v);
+      }
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      if (p < np && lane8 == 0) sc[p] = n ? sc[p] + v : v;
+    }
+  }
+  __syncthreads();  // every pair's sum
+  // g and the loss from the sums
+  float loss = 0.0f;
+  for (int p = threadIdx.x; p < np; p += THREADS) {
+    const int pr = plist[p], rt = pr >> 16, ru = pr & 0xffff;
+    const float x = sc[p], g = sigmoid_f(x) - 1.0f;
+    const int t = lo + rt, u = lo + ru;
+    if (t >= t0 && t < t1) {
+      ga[(t - t0) * RM + ru] = g;
+      loss -= log_sigmoid_f(x);
+    }
+    if (u >= t0 && u < t1) gb[rt * STRIP + (u - t0)] = g;
+  }
+
+  // sweep B: dphi[t] = sum_u g[t, u] ctx[u], dctx[u] = sum_t g[t, u]
+  // phi[t] over the band, one slab at a time, 4 elements a thread
+  for (int n = 0; n < ns; ++n) {
+    const Slab sl(n, d);
+    __syncthreads();  // g written; the last slab's reads
+    stage(sl);
+    __syncthreads();
+    const int n4 = sl.wp / 4;
+    for (int idx = threadIdx.x; idx < STRIP * n4; idx += THREADS) {
+      const int a = idx / n4, c = 4 * (idx - a * n4), t = t0 + a;
+      float4 gp = make_float4(0.0f, 0.0f, 0.0f, 0.0f), gc = gp;
+      if (t < t1) {
+        const int r1 = min(hi, t + W + 1) - lo;
+        for (int r = max(lo, t - W) - lo; r < r1; ++r) {
+          fma4(ga[a * RM + r],
+               *reinterpret_cast<const float4*>(ctx + r * ds + c), gp);
+          fma4(gb[r * STRIP + a],
+               *reinterpret_cast<const float4*>(phi + r * ds + c), gc);
+        }
+      }
+      const size_t o = (size_t)(base + t) * d + sl.s0;
+      store4(dphi + o, sl.w, c, gp, vec);
+      store4(dctx + o, sl.w, c, gc, vec);
+      store4(dphin + o, sl.w, c, make_float4(0.0f, 0.0f, 0.0f, 0.0f), vec);
+    }
+  }
+  finish_strip<PAIRED>(base, t0, t1, lo, L, wr, loss, nt, stats);
 }
 
 // emb_in[v] -= lr*(dphi[t] + dphin[t]), emb_out[v] -= lr*dctx[t] for the
@@ -455,7 +632,9 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
   T* emb_in = static_cast<T*>(s.emb_in);
   T* emb_out = static_cast<T*>(s.emb_out);
   const int d = s.d, L = s.L, W = s.W, KP = s.KP, R = s.R;
-  const size_t pos_smem = walk_pos_smem_bytes(d, L, W);
+  const bool slab = d > MAX_DIM;  // f32 only (walk_step)
+  const size_t pos_smem =
+      slab ? walk_pos_slab_smem_bytes(L, W) : walk_pos_smem_bytes(d, L, W);
   NegativePass<BF16, T> neg;
   static_cast<NegSetup&>(neg) = ns;
   float* dphin = s.dphi + (size_t)GROUP * d;  // the negative pass's part
@@ -469,11 +648,22 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
       if (e != cudaSuccess) return (int)e;
       pdl = true;
     }
-    e = launch_kernel(walk_pos_kernel<BF16, PAIRED, T>, dim3(NSTRIP, NBLK),
-                      dim3(THREADS), pos_smem, stream, pdl, 0, emb_in,
-                      emb_out, wg,
-                      PAIRED ? nullptr : s.wrow + (size_t)g * GROUP, d, L, W,
-                      s.dphi, s.dctx, dphin, s.nt, s.stats);
+    const int* wr = PAIRED ? nullptr : s.wrow + (size_t)g * GROUP;
+    if constexpr (!BF16 && !TB16)
+      e = slab ? launch_kernel(walk_pos_slab_kernel<PAIRED>,
+                               dim3(NSTRIP, NBLK), dim3(THREADS), pos_smem,
+                               stream, pdl, 0, (const float*)emb_in,
+                               (const float*)emb_out, wg, wr, d, L, W, s.dphi,
+                               s.dctx, dphin, s.nt, s.stats)
+               : launch_kernel(walk_pos_kernel<BF16, PAIRED, T>,
+                               dim3(NSTRIP, NBLK), dim3(THREADS), pos_smem,
+                               stream, pdl, 0, emb_in, emb_out, wg, wr, d, L,
+                               W, s.dphi, s.dctx, dphin, s.nt, s.stats);
+    else
+      e = launch_kernel(walk_pos_kernel<BF16, PAIRED, T>, dim3(NSTRIP, NBLK),
+                        dim3(THREADS), pos_smem, stream, pdl, 0, emb_in,
+                        emb_out, wg, wr, d, L, W, s.dphi, s.dctx, dphin, s.nt,
+                        s.stats);
     if (e != cudaSuccess) return (int)e;
     pdl = true;
     e = neg.launch(emb_in, wg, s.nt, s.cneg, d, KP, s.negw, dphin, s.dneg,
@@ -514,16 +704,24 @@ template <bool BF16, bool PAIRED, typename T, bool SR>
 static int walk_step(StepGraph* p, int instantiate, int mode,
                      const WalkStep& s, cudaStream_t stream) {
   constexpr bool TB16 = !std::is_same<T, float>::value;
-  if (p == nullptr || s.d > MAX_DIM || s.G < 1 || s.L < 1 || s.L > BLK ||
-      s.W < 1 || s.R < 1 || (PAIRED && (s.W != 1 || s.L % 2)) ||
-      (TB16 && s.d % 2))
+  // past MAX_DIM only the f32 modes with walks given (K1, K5): the slab pass
+  const bool wide_ok = !BF16 && !TB16 && s.starts == nullptr;
+  if (p == nullptr || s.d < 1 || (s.d > MAX_DIM && !wide_ok) || s.G < 1 ||
+      s.L < 1 || s.L > BLK || s.W < 1 || s.R < 1 ||
+      (PAIRED && (s.W != 1 || s.L % 2)) || (TB16 && s.d % 2))
     return (int)cudaErrorInvalidValue;
   if (p->mode < 0) {
-    // the cap is what the largest strip needs (d MAX_DIM, a whole walk)
+    // the cap is what the largest strip needs (d MAX_DIM, or a slab, and
+    // a whole walk)
     cudaError_t e = cudaFuncSetAttribute(
         walk_pos_kernel<BF16, PAIRED, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)walk_pos_smem_bytes(MAX_DIM, BLK, BLK));
+    if constexpr (!BF16 && !TB16)
+      if (e == cudaSuccess && s.d > MAX_DIM)
+        e = cudaFuncSetAttribute(walk_pos_slab_kernel<PAIRED>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)walk_pos_slab_smem_bytes(BLK, BLK));
     if (e != cudaSuccess) return (int)e;
     NegativePass<BF16, T> neg;
     e = neg.init(s.d, s.KP, GROUP);

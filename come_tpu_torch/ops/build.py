@@ -68,8 +68,8 @@ SIGNATURES = {
     "come_while_graph_launch": [_P, _P],
     "come_while_graph_free": [_P],
     "come_gmm_factor_setup": [],
-    "come_gmm_factor": [_P, _P, _F, _P, _P, _I, _I, _P],
-    "come_gmm_inverse": [_P, _P, _I, _I, _P],
+    "come_gmm_factor": [_P, _P, _F, _P, _P, _I, _I, _P, _P],
+    "come_gmm_inverse": [_P, _P, _I, _I, _P, _P],
 }
 RESTYPES = {"come_cuda_error_name": ctypes.c_char_p,
             "come_step_graph_new": ctypes.c_void_p,

@@ -14,7 +14,10 @@ nothing back, so a captured EM iteration can hold it.
 
 CPU tensors take the plain versions (``torch.linalg.cholesky_ex``,
 ``torch.cholesky_inverse``); CUDA tensors launch the kernels or raise.
-``d`` above 128 raises: there is no fallback.  Each wrapper counts the
+Up to ``SHARED_D`` = 128 a CTA holds its matrix in shared memory; past it
+the matrix lives in an f64 scratch in device memory (``nmat`` [dp, dp],
+dp = d rounded up to 16) that the wrapper allocates, and only each panel's
+inverted diagonal block is in shared memory.  Each wrapper counts the
 kernels it launches in ``launches``; a call made while its stream is being
 captured into a graph launches nothing: it adds one to ``captured``
 instead, and the graph's plan adds the factor launches of the runs the
@@ -27,7 +30,7 @@ import torch
 
 from come_tpu_torch.ops import build
 
-MAX_D = 128
+SHARED_D = 128  # the widest d whose matrix a CTA holds in shared memory
 _READY: set = set()  # devices whose shared-memory caps are raised
 
 
@@ -61,11 +64,22 @@ def _check(x: torch.Tensor, name: str) -> None:
     if x.dtype != torch.float32 or x.dim() < 2 or x.shape[-1] != x.shape[-2]:
         raise ValueError(f"{name} must be f32 [..., d, d], got {x.dtype} "
                          f"{tuple(x.shape)}")
-    if x.shape[-1] > MAX_D:
-        raise ValueError(f"{name}: d = {x.shape[-1]} is past the kernel's "
-                         f"{MAX_D}")
     if x.device.type != "cuda":
         raise ValueError(f"no gmm_factor kernel for device {x.device}")
+
+
+def _work(x: torch.Tensor, nmat: int, d: int):
+    """The kernels' f64 scratch past SHARED_D (None up to it): nmat
+    matrices of d rounded up to 16.  Allocated on the current stream, so a
+    captured call takes it from the graph's pool."""
+    if d <= SHARED_D:
+        return None
+    dp = -(-d // 16) * 16
+    return torch.empty(nmat * dp * dp, dtype=torch.float64, device=x.device)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def gmm_factor(cov: torch.Tensor, nk: torch.Tensor, reg_covar: float):
@@ -88,9 +102,10 @@ def gmm_factor(cov: torch.Tensor, nk: torch.Tensor, reg_covar: float):
     nmat = cov.numel() // (d * d)
     L = torch.empty_like(cov)
     info = torch.empty(cov.shape[:-2], dtype=torch.int32, device=cov.device)
+    work = _work(cov, nmat, d)
     code = lib.come_gmm_factor(
         cov.data_ptr(), nk.data_ptr(), float(reg_covar), L.data_ptr(),
-        info.data_ptr(), nmat, d,
+        info.data_ptr(), nmat, d, _ptr(work),
         torch.cuda.current_stream(cov.device).cuda_stream)
     build.check(code, "come_gmm_factor")
     if capturing:
@@ -111,8 +126,10 @@ def gmm_inverse(chol: torch.Tensor) -> torch.Tensor:
     chol = chol.contiguous()
     d = chol.shape[-1]
     inv = torch.empty_like(chol)
+    nmat = chol.numel() // (d * d)
+    work = _work(chol, nmat, d)
     code = lib.come_gmm_inverse(
-        chol.data_ptr(), inv.data_ptr(), chol.numel() // (d * d), d,
+        chol.data_ptr(), inv.data_ptr(), nmat, d, _ptr(work),
         torch.cuda.current_stream(chol.device).cuda_stream)
     build.check(code, "come_gmm_inverse")
     if capturing:

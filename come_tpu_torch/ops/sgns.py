@@ -137,7 +137,8 @@ def _launch(fn, tables, centers, contexts, pool, mask, lr, negw, TP):
     tile loop, whose first kernel packs this call's pairs and pool into the
     plan's buffers, and replay it (counted on ``fn``).  Returns (loss,
     n_pairs)."""
-    check_cuda_inputs(tables[0], tables[-1], centers, contexts, pool, mask)
+    check_cuda_inputs(tables[0], tables[-1], centers, contexts, pool, mask,
+                      kernel="K7" if len(tables) == 1 else "K6")
     if TP < 1:
         raise ValueError(f"tile_pairs {TP} < 1")
     P = centers.shape[0]

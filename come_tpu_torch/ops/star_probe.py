@@ -102,7 +102,7 @@ def star_probe_step(emb, slots, meta, pools, lr, negw, *,
         )
     if emb.device.type != "cuda":
         raise ValueError(f"no star probe kernel for device {emb.device}")
-    check_cuda_inputs(emb, emb, slots, meta, pools)
+    check_cuda_inputs(emb, emb, slots, meta, pools, kernel="P3")
     if slots.shape != meta.shape:
         raise ValueError(f"slots {tuple(slots.shape)} and meta "
                          f"{tuple(meta.shape)} differ")

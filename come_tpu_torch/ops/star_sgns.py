@@ -143,7 +143,8 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
         )
     if emb.device.type != "cuda":
         raise ValueError(f"no star_sgns kernel for device {emb.device}")
-    check_cuda_inputs(emb, emb, slots, meta, pools)
+    check_cuda_inputs(emb, emb, slots, meta, pools,
+                      kernel="K2b" if mxu_bf16 else "K2")
     slots, meta, G = _pad_stream(slots, meta)
     R = int(pool_refresh)
     pools = expand_pools(pools, G, R)

@@ -250,10 +250,21 @@ def _tables_bf16(emb_in, emb_out, paired: bool) -> bool:
     return bf16
 
 
-def check_cuda_inputs(*tensors, table_dtypes=(torch.float32,)):
+# The widest d whose rows the kernels stage whole.  Past it the f32 passes
+# of K1, K5 and K2 stage column slabs (csrc/sgns_common.cuh: SLAB) and take
+# any d; the bf16 modes (K1b, K3, K4, K2b, P3) and K6/K7 stop here.
+MAX_DIM = 192
+WIDE_KERNELS = ("K1", "K5", "K2")
+WIDE_ROW = "ROADMAP.md Queue 1 item 3b"
+
+
+def check_cuda_inputs(*tensors, kernel: str,
+                      table_dtypes=(torch.float32,)):
     """Raise unless every tensor shares one device, the first two (the
-    tables) are contiguous and of one of ``table_dtypes``, and d fits the
-    kernels (<= 192; even for bf16 tables, whose writes go by pairs)."""
+    tables) are contiguous and of one of ``table_dtypes``, and d fits
+    ``kernel`` (its name: "K1", "K5", "K2" take any d >= 1, every other
+    mode d <= MAX_DIM; bf16 tables need an even d, their writes go by
+    pairs)."""
     dev = tensors[0].device
     for t in tensors:
         if t is not None and t.device != dev:
@@ -262,8 +273,13 @@ def check_cuda_inputs(*tensors, table_dtypes=(torch.float32,)):
         if t.dtype not in table_dtypes or not t.is_contiguous():
             raise ValueError(f"tables must be contiguous {table_dtypes}")
     d = tensors[0].shape[1]
-    if d > 192:
-        raise ValueError(f"dim {d} > 192 exceeds the kernels' shared memory")
+    if d < 1:
+        raise ValueError(f"dim {d} < 1")
+    if d > MAX_DIM and kernel not in WIDE_KERNELS:
+        raise ValueError(
+            f"{kernel} at dim {d}: past {MAX_DIM} the card runs only the "
+            f"f32 modes {', '.join(WIDE_KERNELS)}; {kernel} there is "
+            f"{WIDE_ROW}")
     if tensors[0].dtype == torch.bfloat16 and d % 2:
         raise ValueError("bf16 tables need an even dim")
 
@@ -334,6 +350,16 @@ def _table_modes(emb_in, emb_out, paired, sr_seed):
 _BOTH = (torch.float32, torch.bfloat16)
 
 
+def _walk_kernel(mxu_bf16: bool, paired: bool, tables_bf16) -> str:
+    """The name of a walk step's mode: K3, K5 (paired, f32 products), K1b
+    (bf16 products, paired or not) or K1."""
+    if tables_bf16:
+        return "K3"
+    if mxu_bf16:
+        return "K1b"
+    return "K5" if paired else "K1"
+
+
 def _count_walk_launch(mxu_bf16: bool, paired: bool, tables_bf16) -> None:
     if tables_bf16:
         walk_sgns_step.launches_bf16_tables += 1
@@ -386,8 +412,9 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
         )
     if emb_in.device.type != "cuda":
         raise ValueError(f"no walk_sgns kernel for device {emb_in.device}")
-    check_cuda_inputs(emb_in, emb_out, walks, wrow, pools, table_dtypes=_BOTH)
     tables_bf16, sr, seed = _table_modes(emb_in, emb_out, paired, sr_seed)
+    check_cuda_inputs(emb_in, emb_out, walks, wrow, pools, table_dtypes=_BOTH,
+                      kernel=_walk_kernel(mxu_bf16, paired, tables_bf16))
     B, L = walks.shape
     slots = pad_walks(walks)
     G = slots.shape[0] // NWL
@@ -511,7 +538,7 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
     if emb_in.device.type != "cuda":
         raise ValueError(f"no walk_sgns kernel for device {emb_in.device}")
     check_cuda_inputs(emb_in, emb_out, starts, bits, indptr, indices, wrow,
-                      pools, table_dtypes=_BOTH)
+                      pools, table_dtypes=_BOTH, kernel="K4")
     tables_bf16, sr, seed = _table_modes(emb_in, emb_out, False, sr_seed)
     L = int(walk_length)
     if not 1 <= L <= LP:

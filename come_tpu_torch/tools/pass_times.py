@@ -1,7 +1,7 @@
 """Per-pass device time of the SGNS kernels' steps on one card.
 
     python come_tpu_torch/tools/pass_times.py [--root DIR] [--label NAME]
-        [--steps K1 K2 ...] [--trace] [--run N]
+        [--steps K1 K2 ...] [--trace] [--run N] [--dim D]
 
 At ``chip_smoke.py``'s shapes, on the BlogCatalog stand-in (d 128, KP 512,
 lr 0.025, negw 5 / KP, tables and draws from seed 0), it times the steps
@@ -18,7 +18,9 @@ that carry the f32 negative pass and the star pass:
   * K3   one O1 step on bf16 tables at the synthetic-10m shapes (V 500000,
          1024 walks of 80 drawn uniformly over V, KP 2048, 128 groups, SR).
 
-Each step runs on tables it updates in place.  For each it prints one JSON
+``--dim`` makes the tables that wide (karate's stay 16); past 192 only K1,
+K2 and K5 run, through their column-slab passes.  Each step runs on tables
+it updates in place.  For each it prints one JSON
 line: the card's name and power limit, the step's CUDA-event ms (median of
 5 after one warm-up, each from an idle card), its ms per step over
 ``--run`` steps in a row (``chained_ms``; 10 by default) and, for a step
@@ -64,10 +66,12 @@ import time
 from pathlib import Path
 
 # each group loop by pass: (name, substring of its CUDA kernel's name)
-WALK_PASSES = (("band", "walk_pos_kernel"), ("negative", "negative_"),
+# kernel names by pass (a substring; past d 192 the band, star and f32
+# negative passes are the *_slab_kernel forms)
+WALK_PASSES = (("band", "walk_pos_"), ("negative", "negative_"),
                ("scatter", "walk_scatter"), ("stage", "stage_pool"),
                ("pool apply", "apply_pool"))
-STAR_PASSES = (("star", "star_pos_kernel"), ("negative", "negative_"),
+STAR_PASSES = (("star", "star_pos_"), ("negative", "negative_"),
                ("scatter", "star_scatter"), ("stage", "stage_pool"),
                ("pool apply", "apply_pool"))
 FUSED_PASSES = (("positive", "fused_pos_kernel"), ("negative", "negative_"),
@@ -364,10 +368,11 @@ def enqueue_ms(fn, n: int = 10) -> float:
     return t * 1e3 / n
 
 
-def steps(dev):
+def steps(dev, d: int = 128):
     """(name, step(), groups or tiles, passes, sub, KP) at chip_smoke.py's
-    shapes; each step updates its own tables in place.  ``sub(g)`` is the
-    step cut to its first g groups (K1 and K2; None for the others)."""
+    shapes, the tables d wide (karate's K6/K7 keep 16); each step updates
+    its own tables in place.  ``sub(g)`` is the step cut to its first g
+    groups (K1 and K2; None for the others)."""
     import numpy as np
     import torch
 
@@ -389,7 +394,7 @@ def steps(dev):
     )
 
     ds = get_dataset("blogcatalog")
-    V, d, B, L, W, KP = ds.graph.num_nodes, 128, 256, 80, 10, 512
+    V, B, L, W, KP = ds.graph.num_nodes, 256, 80, 10, 512
     lr, negw = 0.025, 5.0 / KP
     gen = torch.Generator(device=dev).manual_seed(0)
     emb_in = torch.randn((V, d), generator=gen, device=dev) * 0.1
@@ -512,6 +517,9 @@ def main(argv=None) -> int:
                    help="add the timeline's gaps and the host's enqueue time")
     p.add_argument("--run", type=int, default=10,
                    help="steps in a row for chained_ms (default 10)")
+    p.add_argument("--dim", type=int, default=128,
+                   help="the tables' width (default 128; past 192 only K1, "
+                        "K2 and K5 run)")
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -527,7 +535,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     build.library()
-    todo = [s for s in steps(dev) if args.steps is None or s[0] in args.steps]
+    todo = [s for s in steps(dev, args.dim)
+            if args.steps is None or s[0] in args.steps]
     # every step's times first: once a profiler session has run, the host's
     # CUDA calls are slower, which shows in a step whose host work outlasts
     # its device work
@@ -539,7 +548,7 @@ def main(argv=None) -> int:
         if args.trace:
             h = t["host"] = host_times(step)
             h["enqueue_ms"] = enqueue_ms(step, n=args.run)
-            h["alloc_us"] = alloc_us(dev, KP, 128)
+            h["alloc_us"] = alloc_us(dev, KP, args.dim)
             if sub is not None:
                 h["c_entry_fit"] = c_entry_fit(
                     sub, [g for g in (1, 2, 4, 8, 16, 32, 64) if g <= groups])
@@ -549,7 +558,7 @@ def main(argv=None) -> int:
         line = {
             "card": card, "label": args.label,
             "package": str(Path(come_tpu_torch.__file__).parent),
-            "step": name, "groups": groups, "ms": t["ms"],
+            "step": name, "dim": args.dim, "groups": groups, "ms": t["ms"],
             "run": args.run, "chained_ms": t["chained_ms"],
             "replay_ms": t["replay_ms"], "us_per_group": split,
             "device_us_per_group": total / groups,

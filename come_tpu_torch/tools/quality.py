@@ -1,11 +1,12 @@
 """Full-depth quality runs on one card: NMI and seconds per outer iteration.
 
     python -m come_tpu_torch.tools.quality [--runs blogcatalog bench-gen
-        synthetic-10m micro] [--seed 0] [--root DIR]
+        synthetic-10m micro] [--seed 0] [--dim D] [--root DIR]
 
 Trains each named configuration at its preset's full schedule (pretrain 2
 + outer 5) through ``ComETrainer`` on the card and prints one JSON line per
-run: the card's name and power limit, the kernels that launched (by mode),
+run: the card's name and power limit, the width, the kernels that launched
+(by mode; G1's factor and inverse too),
 seconds per outer iteration (GMM + O1 + O2 + O3, each timed between device
 synchronises by the trainer), O1 and O2 epoch ms and pairs per second, NMI
 after every outer iteration, the wall seconds of the whole run (graph and
@@ -19,7 +20,9 @@ trainer set-up excluded) and the peak of ``torch.cuda.max_memory_allocated()``.
   * ``micro``: the blogcatalog preset on the micro-batched tier
     (``--down-sample 1e-3 --o2-mode xla``: K6 for O1, K7 for O2).
 
-``--root`` trains with the ``come_tpu_torch`` package of another
+``--dim`` trains every run at that width instead of the preset's (past 192
+K1, K5 and K2 run their column-slab passes, past 128 G1 its device-memory
+kernels).  ``--root`` trains with the ``come_tpu_torch`` package of another
 checkout (run the file by its path, not with ``-m``), so two trees compare
 on one card in one call.  Needs a CUDA card.
 """
@@ -57,6 +60,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--runs", nargs="+", default=list(RUNS), choices=RUNS)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dim", type=int, default=None,
+                   help="the embedding width (default: the preset's)")
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                    help="the checkout whose come_tpu_torch to train with")
     args = p.parse_args(argv)
@@ -66,6 +71,7 @@ def main(argv=None) -> int:
 
     import come_tpu_torch
     from come_tpu_torch.graphs import get_dataset
+    from come_tpu_torch.ops.gmm_factor import gmm_factor, gmm_inverse
     from come_tpu_torch.tools.eval_sweep import card_name, launch_counts
     from come_tpu_torch.trainer import ComETrainer
 
@@ -76,22 +82,27 @@ def main(argv=None) -> int:
         ds = get_dataset("synthetic-10m" if name == "synthetic-10m"
                          else "blogcatalog")
         cfg = _config(name, ds, args.seed)
+        if args.dim is not None:
+            cfg = cfg.replace(dim=args.dim)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         trainer = ComETrainer(ds.graph, cfg, dev)
         before = launch_counts()
+        g1 = gmm_factor.launches, gmm_inverse.launches
         t0 = time.perf_counter()
         hist = trainer.train(ds.single_labels)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         launched = {k: v - before[k] for k, v in launch_counts().items()
                     if v != before[k]}
+        launched["gmm_factor"] = gmm_factor.launches - g1[0]
+        launched["gmm_inverse"] = gmm_inverse.launches - g1[1]
         s_iter = [sum(r[f"{k}_ms"] for k in ("gmm", "o1", "o2", "o3")) / 1e3
                   for r in hist]
         rec = hist[-1]
         print(json.dumps({
             "card": card, "package": str(Path(come_tpu_torch.__file__).parent),
-            "run": name, "pretrain": cfg.pretrain_epochs,
+            "run": name, "dim": cfg.dim, "pretrain": cfg.pretrain_epochs,
             "outer": cfg.outer_iters, "walks_per_node": cfg.walks_per_node,
             "launches": launched, "s_per_iter": s_iter,
             "o1_ms": [r["o1_ms"] for r in hist],

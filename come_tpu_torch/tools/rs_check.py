@@ -25,6 +25,9 @@ kernels' launch counters set to 0 just before and read just after, then:
   the updates are held to the f32 check, ``|upd - plain upd| <= 1e-6 +
   1e-4 |plain upd|`` (``tools/hot_row.py``'s rule, the plain step in
   float64, where it fails), loss within rtol 1e-4, pair counts exact;
+  then both steps again, the same rows and draws, on shards 256 wide
+  (``WIDE_D``) drawn from the rank's seed, where the kernels take their
+  column-slab passes;
 * with ``--synthetic``, one more K1 step at the synthetic-10m shapes (V
   500 000 row-sharded over M, 1024 walks of 80 split over the workers,
   W 10, KP 2048, uniform ids): U compact rows per worker, held the same
@@ -51,6 +54,8 @@ from come_tpu_torch.ops import launch_plan
 from come_tpu_torch.tools.dp_check import SEED, f32_ratio, param_hash
 
 SYNTH = dict(V=500000, B=1024, KP=2048)
+# the width of the held steps past MAX_DIM (ops/walk_sgns.py)
+WIDE_D = 256
 
 
 def _events_ms(fn, reps: int = 3) -> float:
@@ -153,8 +158,8 @@ def held_steps(t) -> dict:
     walks = t._model_slice(walks[None])[0]
     wrow = torch.randint(1, cfg.window + 1, (G * NWL,), generator=mine,
                          device=dev, dtype=torch.int32)
-    pools = sample_alias(t.accept, t.alias, mine, (n_pools, KP))
-    out["K1"] = held_step(t, (p.node_emb, p.ctx_emb), walks, wrow, pools,
+    pools1 = sample_alias(t.accept, t.alias, mine, (n_pools, KP))
+    out["K1"] = held_step(t, (p.node_emb, p.ctx_emb), walks, wrow, pools1,
                           t.lr(), t.negw, cfg.window, False, "row-sharded K1")
     # K5: the data row's packed edge rows, this worker's slice
     B_r, _ = t.o2_paired_plan()
@@ -168,6 +173,17 @@ def held_steps(t) -> dict:
     out["K5"] = held_step(t, (p.node_emb,), rows, None, pools,
                           t.lr() * cfg.alpha, t.negw, 1, True,
                           "row-sharded K5")
+    # both steps again on shards WIDE_D wide drawn from this rank's seed:
+    # past MAX_DIM the kernels stage the compact rows in column slabs
+    wide = torch.Generator(device=dev).manual_seed(SEED + 4000 + rank)
+    shards = [torch.randn((p.node_emb.shape[0], WIDE_D), generator=wide,
+                          device=dev) * 0.1 for _ in range(2)]
+    out[f"K1_d{WIDE_D}"] = held_step(
+        t, shards, walks, wrow, pools1, t.lr(), t.negw, cfg.window, False,
+        f"row-sharded K1 d {WIDE_D}")
+    out[f"K5_d{WIDE_D}"] = held_step(
+        t, shards[:1], rows, None, pools, t.lr() * cfg.alpha, t.negw, 1,
+        True, f"row-sharded K5 d {WIDE_D}")
     return out
 
 

@@ -42,7 +42,17 @@ widths whose panels of 16 are whole or ragged (``chip_smoke.G1_WIDTHS``, on
 middle or last column of a panel, or in a ragged last one, must get
 ``cholesky_ex``'s info flag; the EM replayed as a graph
 must give the eager EM's bits and iterations, and the EM with G1 the
-torch.linalg EM's log-likelihood within 1e-4 relative.
+torch.linalg EM's log-likelihood within 1e-4 relative.  Past d = 128 G1
+holds its matrices in device memory, and past 192 K1, K5 and K2 stage their
+rows in column slabs: their steps at ``chip_smoke.WIDE_WIDTHS`` (W 10 and a
+whole-walk window), and at 193 and 256 on the main path's blogcatalog
+shapes (``chip_smoke.blog_wide_checks``), take the f32 check
+(``chip_smoke.step_check``), every
+walk and star mode enqueued back to back (``chip_smoke.graph_stress``, at
+d 128, and K1, K5 and K2 at d 256 too) its mode's check step by step, the
+bf16 modes and K6/K7 past 192 must raise before any launch (a trainer whose
+tiers take them, at its construction), and a trainer at dim 256 must run
+through K1, K2 and G1.
 """
 
 import numpy as np
@@ -78,9 +88,13 @@ from come_tpu_torch.tools.probe_star import VARIANTS as PROBE_VARIANTS
 from come_tpu_torch.trainer import ComETrainer
 
 from chip_smoke import (
+    B2B_MODES,
+    B2B_WIDE,
     FUSED_EDGES,
     G1_WIDTHS,
     STAR_EDGES,
+    WIDE_CASES,
+    WIDE_WIDTHS,
     em_graph_check,
     em_linalg_check,
     fused_steps,
@@ -89,7 +103,13 @@ from chip_smoke import (
     g1_moments,
     g1_pivot_batch,
     graph_steps,
+    SEED,
+    blog_wide_checks,
+    graph_stress,
+    slab_modes,
     star_edge_layout,
+    step_check,
+    wide_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -155,7 +175,8 @@ def test_walk_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
 # negative pass's 64-slot x 32-row tiles: the whole walk in the band (W >=
 # L - 1), one slot per walk, an odd L with W wider than a strip, d at its
 # bound 192 and at 2, walks that repeat one row heavily, ragged and large
-# pools (KP 100 and 2048, R 3).
+# pools (KP 100 and 2048, R 3); the last four again at 256 and 300, where
+# the f32 passes stage column slabs (f32 only: chip_smoke.slab_modes).
 EDGE_SHAPES = [  # V, d, B, L, W, KP, R, hot
     (3000, 128, 16, 128, 127, 64, 1, False),
     (500, 64, 16, 1, 3, 16, 1, False),
@@ -164,6 +185,10 @@ EDGE_SHAPES = [  # V, d, B, L, W, KP, R, hot
     (2000, 2, 16, 20, 3, 64, 1, False),
     (2000, 128, 16, 80, 10, 512, 1, True),
     (20000, 128, 24, 80, 10, 2048, 3, False),
+    (500, 256, 16, 1, 3, 16, 1, False),
+    (2000, 300, 24, 37, 13, 100, 3, False),
+    (2000, 300, 16, 80, 10, 512, 1, True),
+    (20000, 256, 24, 80, 10, 2048, 3, False),
 ]
 
 
@@ -191,7 +216,8 @@ def _edge_inputs(dev, V, d, B, L, W, KP, R, hot, seed):
 # 0.9887 at V 2000 with d 192, and 0.5231 (loss 1.2e-3 apart) with the hot
 # row, so the hot row is held in f32 and bf16 products only.
 EDGE_CASES = [(*shape, mode) for shape in EDGE_SHAPES
-              for mode in ("f32", "bf16", "bf16_tables")
+              for mode in slab_modes(shape[1], ("f32", "bf16",
+                                                "bf16_tables"))
               if not (shape[-1] and mode == "bf16_tables")]
 
 
@@ -918,9 +944,15 @@ def test_g1_flags_a_non_positive_pivot(dev):
     _, info = gmm_factor(cov, nk, 1e-5)
     _, ref = gmm_factor_reference(cov, nk, 1e-5)
     assert info.tolist() == ref.tolist() == [[0, 0, 6, 0]]
-    with pytest.raises(ValueError):
-        gmm_factor(torch.zeros((1, 129, 129), device=dev),
+    with pytest.raises(ValueError):  # not square
+        gmm_factor(torch.zeros((1, 129, 128), device=dev),
                    torch.ones((1,), device=dev), 1e-5)
+    # past 128 the kernel keeps its matrices in device memory: reg I
+    # factors to sqrt(reg) I
+    L, info = gmm_factor(torch.zeros((1, 129, 129), device=dev),
+                         torch.ones((1,), device=dev), 1e-4)
+    assert info.tolist() == [0]
+    torch.testing.assert_close(L, 1e-2 * torch.eye(129, device=dev)[None])
 
 
 @pytest.mark.parametrize("N,d,K,n_init,tol", [(600, 16, 4, 2, 1e-3),
@@ -937,3 +969,145 @@ def test_graph_em_equals_eager_em(dev, N, d, K, n_init, tol):
     resp0 = torch.stack([_kmeans_init(X, K, hg) for _ in range(n_init)])
     em_graph_check(X, resp0, 1e-5, 25, tol)
     em_linalg_check(X, resp0, 1e-5, 25, tol)
+
+
+# ------------------------------------------------ widths past 128 and 192
+
+
+@pytest.mark.parametrize("d", WIDE_WIDTHS)
+@pytest.mark.parametrize("mode,whole", WIDE_CASES)
+def test_wide_steps_match_plain(dev, mode, whole, d):
+    """K1 (W 10 and a whole-walk window), K5 and K2 at widths past 128:
+    past 192 their f32 passes stage column slabs of 128, ragged at 193 and
+    300 (``chip_smoke.step_check``, the f32 check)."""
+    step_check(mode, f"{mode} d {d}" + (" whole walk" if whole else ""),
+               *wide_inputs(mode, dev, d, 3 * d + 2 * whole, whole),
+               timed=False)
+
+
+@pytest.mark.parametrize("d", [193, 256])
+def test_wide_steps_at_the_main_paths_shapes_match_plain(dev, d):
+    """K1 (W 10 and the whole walk, W 79), K2 and K5 at d past 192 on the
+    blogcatalog shapes the CLI's steps take (256 walks of 80 in 32 groups,
+    512 star rows in 64 groups, 512 edge rows in 64 groups, KP 512): phase
+    4k's checks (``chip_smoke.blog_wide_checks``)."""
+    ds = get_dataset("blogcatalog")
+    V, L, KP = ds.graph.num_nodes, 80, 512
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    walks = torch.randint(0, V, (256, L), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def draws(W, n):
+        return torch.randint(1, W + 1, (n * NWL,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def pools(n):
+        return torch.randint(0, V, (n, KP), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    u, v = ds.graph.edges_undirected()
+    slots, meta = build_star_layout(u, v, V)
+    sl, mt = (torch.as_tensor(a.reshape(-1, 128)[:512], device=dev)
+              .reshape(-1) for a in (slots, meta))
+    rows = torch.stack([torch.as_tensor(u[:512 * 64]),
+                        torch.as_tensor(v[:512 * 64])], 1).reshape(512, 128)
+    res = blog_wide_checks(dev, {
+        "K1": ("K1", (walks, draws(10, 32), pools(32)),
+               dict(window=10, pool_refresh=1)),
+        "K1 whole walk": ("K1", (walks, draws(L - 1, 32), pools(32)),
+                          dict(window=L - 1, pool_refresh=1)),
+        "K2": ("K2", (sl, mt, pools(64)), dict(pool_refresh=1)),
+        "K5": ("K5", (rows.to(dev), None, pools(64)),
+               dict(window=1, pool_refresh=1, paired=True)),
+    }, V, d)
+    assert all(r["pairs"] > 0 for r in res.values())
+
+
+def test_trainer_refuses_a_capped_tier_past_192_at_construction(dev):
+    """A configuration whose tiers launch a kernel that stops at 192 (K6
+    with down_sample, K7 with o2_mode xla, K1b with bf16 products) raises a
+    ValueError naming the ROADMAP row when the trainer is made on the card
+    at dim 256; the same configurations at 192 construct."""
+    from come_tpu_torch.ops.walk_sgns import WIDE_ROW
+
+    g, _ = sbm_graph(2000, 8, p_in=0.1, p_out=0.002, seed=0, avg_degree=20)
+    base = PRESETS["blogcatalog"].replace(num_communities=8)
+    for fields in ({"down_sample": 1e-3}, {"o2_mode": "xla"},
+                   {"walk_kernel_bf16": True}):
+        with pytest.raises(ValueError, match=WIDE_ROW):
+            ComETrainer(g, base.replace(dim=256, **fields), dev)
+        ComETrainer(g, base.replace(dim=192, **fields), dev)
+
+
+@pytest.mark.parametrize("mode,d", [(m, 128) for m in B2B_MODES]
+                         + [(m, 256) for m in B2B_WIDE])
+def test_graph_steps_back_to_back_follow_every_step(dev, mode, d):
+    """Eight steps of each walk and star mode enqueued back to back through
+    one plan, inputs new at every step (``chip_smoke.graph_stress``): each
+    equals its plain version from the tables the step before it left, under
+    its mode's check."""
+    from come_tpu_torch.ops import launch_plan
+
+    launch_plan.reset_counts()
+    errs = graph_stress(mode, dev, d)
+    entry = {"K2": "star_sgns", "K2b": "star_sgns",
+             "K4": "walk_sgns_gen"}.get(mode, "walk_sgns")
+    c = launch_plan.graph_counts()[entry]
+    assert len(errs) == 8
+    assert (c["replays"], c["instantiations"], c["shapes"]) == (8, 1, 1)
+
+
+def test_narrow_modes_raise_past_192_before_any_launch(dev):
+    """The bf16 modes and K6/K7 keep the 192 cap: past it each raises a
+    ValueError naming the ROADMAP row, and nothing launches."""
+    from come_tpu_torch.ops.walk_sgns import WIDE_ROW
+
+    V, d, KP = 300, 256, 16
+    g = torch.Generator(device=dev).manual_seed(5)
+    tabs = [torch.randn((V, d), generator=g, device=dev) for _ in range(2)]
+    walks = torch.randint(0, V, (8, 20), generator=g, device=dev)
+    wrow = torch.ones(NWL, dtype=torch.int32, device=dev)
+    pools = torch.randint(0, V, (1, KP), generator=g, device=dev)
+    before = (walk_sgns_step.launches_bf16, star_sgns_step.launches_bf16,
+              walk_sgns_step.launches_bf16_tables, fused_sgns_step.launches,
+              fused_sgns_step_tied.launches)
+    calls = [
+        lambda: walk_sgns_step(*tabs, walks, wrow, pools, 0.1, 0.1, window=3,
+                               mxu_bf16=True),
+        lambda: walk_sgns_step(*[t.bfloat16() for t in tabs], walks, wrow,
+                               pools, 0.1, 0.1, window=3),
+        lambda: star_sgns_step(tabs[0], walks.reshape(-1), torch.zeros(
+            160, dtype=torch.int32, device=dev), pools, 0.1, 0.1,
+            mxu_bf16=True),
+        lambda: fused_sgns_step(*tabs, walks[0], walks[1], pools[0],
+                                torch.ones(20, device=dev), 0.1, 0.1),
+        lambda: fused_sgns_step_tied(tabs[0], walks[0], walks[1], pools[0],
+                                     torch.ones(20, device=dev), 0.1, 0.1),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match=WIDE_ROW):
+            call()
+    assert (walk_sgns_step.launches_bf16, star_sgns_step.launches_bf16,
+            walk_sgns_step.launches_bf16_tables, fused_sgns_step.launches,
+            fused_sgns_step_tied.launches) == before
+
+
+def test_trainer_at_dim_256_runs_through_k1_k2_and_g1(dev):
+    from come_tpu_torch.ops.gmm_factor import gmm_factor
+
+    g, labels = sbm_graph(2000, 8, p_in=0.1, p_out=0.002, seed=0,
+                          avg_degree=20)
+    cfg = PRESETS["blogcatalog"].replace(
+        num_communities=8, dim=256, walks_per_node=4, pretrain_epochs=1,
+        outer_iters=1,
+    )
+    t = ComETrainer(g, cfg, dev)
+    w0, s0 = walk_sgns_step.launches, star_sgns_step.launches
+    f0 = gmm_factor.launches
+    hist = t.train(labels)
+    assert walk_sgns_step.launches > w0 and star_sgns_step.launches > s0
+    assert gmm_factor.launches > f0
+    assert t.embeddings().shape == (2000, 256)
+    assert all(np.isfinite(r["o1_loss"]) and np.isfinite(r["o2_loss"])
+               for r in hist)
+    assert hist[-1]["nmi"] > 0.8

@@ -40,11 +40,22 @@ SMALL = dict(num_communities=4, dim=128, walk_length=20, window=3,
 
 
 def test_chain_matches_jax():
+    _chain_matches_jax(128)
+
+
+def test_chain_matches_jax_at_dim_256():
+    """The chain at a width whose card path runs K1 and K2 in column slabs
+    and G1 with its matrices in device memory."""
+    _chain_matches_jax(256)
+
+
+def _chain_matches_jax(dim):
     V, K = 256, 4
     g, labels = sbm_graph(V, K, p_in=0.1, p_out=0.005, seed=0, avg_degree=10)
     jg, _ = j_sbm(V, K, p_in=0.1, p_out=0.005, seed=0, avg_degree=10)
-    cfg = PRESETS["blogcatalog"].replace(**SMALL)
-    jcfg = JPRESETS["blogcatalog"].replace(**SMALL)
+    small = dict(SMALL, dim=dim)
+    cfg = PRESETS["blogcatalog"].replace(**small)
+    jcfg = JPRESETS["blogcatalog"].replace(**small)
     t = ComETrainer(g, cfg, "cpu")
     jt = JTrainer(jg, jcfg)
     assert t.total_words == jt.total_words
