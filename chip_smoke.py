@@ -22,11 +22,15 @@ non-zero and prints no result line):
  4k. wide 256 — phases 3, 4 and 4d's K1, K2 and K5 steps (the main
                path's shapes at --dim 256: 256 walks in 32 groups, 65536
                star slots in 64 groups, 512 edge rows in 64 groups, KP 512)
-               on tables 256 wide (past 192 the f32 passes stage column
-               slabs of 128), and K1 with the whole walk in its window (W
-               79), each against its plain version under the f32 check,
-               with ms from an idle card, ms a step in a run of 10, the
-               plain version's ms and the bound (step_check)
+               on tables 256 wide (past 192 every pass stages column slabs
+               of 128), and K1 with the whole walk in its window (W 79);
+               after phase 4e its K1b and K4 (bf16) bench steps (256
+               groups, R 8) and its K2b step (344 groups, R 8); after phase
+               4f K3 at its synthetic-10m step shape (128 groups, KP 2048,
+               SR); after phase 7 K6 and K7 at phases 6 and 7's pairs (32
+               tiles): each against its plain version under its mode's
+               check, with ms from an idle card, ms a step in a run of 10,
+               the plain version's ms and the bound (step_check)
  4e. bench shapes — K1b, K4 (bf16) and K2b at the shapes phases 12-13 give
                them: one 2048-walk O1 step (256 groups, R 8, unigram pools
                [32, 512]) and the one star O2 step of batch_edges 524288
@@ -35,20 +39,23 @@ non-zero and prints no result line):
                (W >= L - 1, L = 1, odd L with W past a strip, d 192 and 2,
                a heavily repeated row, KP 100 and 2048 with R 3; L = 1,
                odd L, the repeated row and KP 2048 again at d 256 and 300,
-               the slab passes), in f32, bf16 products and on bf16 tables
-               (f32 only past 192), each under its mode's check
+               the slab passes), in f32, bf16 products and on bf16 tables,
+               each under its mode's check
  4i. star/f32 edges — the star kernel against its plain version, in f32 and
                bf16, at STAR_EDGES (a hub of degree 300 split at fan-out 32,
                a single fat hub filling a row, segments dropped to pads
                mid-row, d 192 and 2, KP 100 with R 3, a ragged last group;
                the hubs, pads, ragged group and KP 2048 with R 3 again at
-               d 256 and 300 in f32, the slab passes),
+               d 256 and 300, the slab passes),
                and K6 and K7 at FUSED_EDGES (KP 100 and 2048, d 192 and 2,
-               tiles of 64 and 777 pairs, each with one all-masked tile)
+               tiles of 64 and 777 pairs, KP 2048 at d 300 and tiles of 64
+               at d 520, each with one all-masked tile)
  4j. wide    — K1 (W 10 and a whole-walk window W 127), K5 and K2 on V
                2000 at the ragged and odd widths of WIDE_WIDTHS (129, 193,
-               300, 512; at 256 the whole-walk window only), each under the
-               f32 check, and timed as in 4k but for the whole walk
+               300, 512; at 256 the whole-walk window only), and K1b, K3
+               (SR, V 20000), K4 in bf16 and in f32, K2b, K6 and K7 at 193
+               (K3 194), 256, 300 and 512 (wide_inputs), each under its
+               mode's check, and timed as in 4k but for the whole walk
   4f. K3     — the walk kernel on bf16 tables at the large-V path's shapes
                (synthetic-10m: V 500000, d 128, 1024 walks of 80, W 10, KP
                2048, R 1, 128 groups), with stochastic rounding and in
@@ -82,6 +89,17 @@ non-zero and prints no result line):
                after: finite losses and embeddings [V, 256], every edge
                trained twice in O2 (K2), NMI >= 0.8; prints G1's launches
                and the peak device memory
+ 5c. tiers 256 — the trainer at --dim 256 through every tier besides
+               5b's, each at the cut and floor of its d-128 phase, its
+               tiers named by ComETrainer.tier_kernels and its counters
+               reset just before and read just after: the bench
+               configuration with the walker (K1b, K2b) and with in-kernel
+               walks (K4, K2b; phases 12-13's), the micro-batched path
+               (--down-sample 1e-3 --o2-mode xla: K6, K7; phase 10's),
+               karate with shared negatives (K6, K7 at V 34; phase 9's)
+               and the blogcatalog preset on bf16 O1 tables (K3, K2;
+               trainer/come.py's 48 MiB line set to 0, pretrain 1 + outer
+               1, NMI >= 0.8); each launches its kernels and no other
   6. K6      — one BlogCatalog-width O1 micro-step (32768 window pairs of
                256 real walks, down_sample 1e-3 masks, KP 512, 32 tiles)
                through the fused SGNS kernel and its plain version; first
@@ -90,9 +108,11 @@ non-zero and prints no result line):
                every step, the second tile all masked, the tables moved
                once), each held against its plain version, with one
                instantiation and five updates, and 40 micro-steps at that
-               shape and 40 at karate's (fused_stress: new pairs, mask and
-               pool each call) enqueued back to back with no host wait,
-               each held against its plain version; then, on tables it updates
+               shape, 40 at karate's and 40 at that shape with tables 256
+               wide (fused_stress: new pairs, mask and pool each call)
+               enqueued back to back with no host wait, each held against
+               its plain version (each run's worst step printed with the
+               |upd| where it fell); then, on tables it updates
                in place, ms from an idle card and ms a step in a run of 6,
                the host's ms to enqueue a step in a run of 6, the device µs
                a tile of each pass (positive, negative, scatter; stage and
@@ -147,8 +167,10 @@ After phase 14:
                BlogCatalog layout, µs per group by variant and unroll
                beside K2b's, the full variant held against K2b's plain
                version under the bf16 check and every variant against its
-               plain version) and P4 (tools/probe_star_floor.py: the seven
-               per-group floors, each value exactly its plain version's)
+               plain version; then again with the table 256 wide, its MATH
+               section through K2b's slab passes) and P4
+               (tools/probe_star_floor.py: the seven per-group floors, each
+               value exactly its plain version's)
  15b. graph  — the macro step as one replayed graph: six consecutive K1, K3
                and K2 steps through one plan each (graph_steps: lr, the SR
                seed, walks or star rows, window draws and pools new at
@@ -166,8 +188,8 @@ After phase 14:
                G launches recorded as one graph and replayed, beside the
                stream launches (tools/probe_star_floor.py::graph_floor);
                and eight steps of every walk and star mode (B2B_MODES: K1,
-               K1b, K2, K2b, K3, K4 with its walk generation, K5) at d 128,
-               and of K1, K5 and K2 at d 256, enqueued back to back through
+               K1b, K2, K2b, K3, K4 with its walk generation, K5) at d 128
+               and again at d 256, enqueued back to back through
                one plan with no host wait, inputs new at every step, each
                held against its plain version from the tables the step
                before it left, under its mode's check (graph_stress)
@@ -287,7 +309,7 @@ After phase 19:
                (one instantiation); the EM with G1 against the EM with
                torch.linalg's factor and inverse: log-likelihood within
                1e-4 relative, NMI of the two partitions >= 0.99.
-Phases 5, 5b, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
+Phases 5, 5b, 5c, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
 every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode; every phase that fits a GMM on the card must launch G1's two
 kernels (gmm_factor, gmm_inverse), the probes and parity neither (inside
@@ -298,9 +320,10 @@ kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
 bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
 is a probe and on no path; G1's ms, plain_ms and library_ms the device
 time per call of phase 21, the others one call from an idle card; the
-entries ending "_d256" the kernels at dim 256: launches from phase 5b,
-errors and times from phase 4k (ms in place, from an idle card) and
-phase 21), each
+entries ending "_d256" the kernels at dim 256: launches from phases 5b
+and 5c (P3's from its d-256 run in phase 15), errors and times from phase
+4k (ms in place, from an idle card; P3's from phase 15) and phase 21),
+each
 with its bound: the larger of the bytes
 it must move (each touched row and each input read once, each output
 written once) over 3.35 TB/s and the operations its inputs need over 67
@@ -381,9 +404,8 @@ KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 # (W >= L - 1), one slot per walk, an odd L with W wider than a strip, d at
 # its bound 192 and at 2, walks that repeat one row heavily, ragged and
 # large pools (KP 100 and 2048, R 3); the last four again past MAX_DIM
-# (192), where the f32 passes stage column slabs (slab_modes: the bf16
-# modes stop at 192), at 256 and at 300 (a ragged slab of 44).  On bf16
-# tables V is at least 20000:
+# (192), where every pass stages column slabs, at 256 and at 300 (a ragged
+# slab of 44).  On bf16 tables V is at least 20000:
 # K3's check holds steps whose walks repeat few rows, since its CAS loops
 # write a row's repeats within a group in any order (ops/tolerance.py); its
 # float64 emulation of that order fails the check with the hot row (0.52 of
@@ -409,8 +431,8 @@ EDGE_SHAPES = [
 
 # Phase 4i's star layouts (V, d, E, KP, R, layout): see star_edge_layout;
 # d at its bound 192 and at 2, a ragged and a small pool (KP 100, R 3);
-# past MAX_DIM (column slabs, f32 only) the hub, the fat hub, pads mid-row,
-# a ragged last group and KP 2048 with R 3.
+# past MAX_DIM (column slabs) the hub, the fat hub, pads mid-row, a ragged
+# last group and KP 2048 with R 3.
 STAR_EDGES = [
     (3000, 128, 20000, 512, 1, "hub"),
     (400, 128, 150, 64, 1, "fat"),
@@ -427,19 +449,19 @@ STAR_EDGES = [
 ]
 
 
-def slab_modes(d, modes):
-    """``modes`` of a phase 4h/4i shape at width d: past MAX_DIM only
-    "f32" (the bf16 modes raise there)."""
-    from come_tpu_torch.ops.walk_sgns import MAX_DIM
 
-    return tuple(m for m in modes if d <= MAX_DIM or m == "f32")
 # Phase 4i's K6/K7 shapes (V, d, P, TP, KP): pools of 100 and 2048 rows, d
-# 192 and 2, tiles of 64 and 777 pairs; the second tile is all masked.
+# 192 and 2, tiles of 64 and 777 pairs; past MAX_DIM (the slab negative
+# pass) KP 2048 at 300 (a ragged slab, 16 pool splits) and tiles of 64 at
+# 520 (past 256 the positive pass loops over a lane's columns); the second
+# tile is all masked.
 FUSED_EDGES = [
     (2000, 128, 3000, 64, 100),
     (2000, 128, 3000, 777, 2048),
     (2000, 192, 3000, 777, 512),
     (2000, 2, 3000, 64, 100),
+    (2000, 300, 3000, 777, 2048),
+    (2000, 520, 3000, 64, 100),
 ]
 
 
@@ -545,17 +567,22 @@ def pairs_bound(c, x, m, pool, d, tied):
 
 def compare(name, init, kern, plain):
     """Max abs / rel errors of the kernel's table updates (tables after the
-    step minus ``init``) against the plain version's; raises past the
-    stated tolerance.  A plain step in float64 (``acc``) is compared in
-    float64."""
+    step minus ``init``) against the plain version's, the loss's relative
+    error, the plain update's |upd| where the abs error is largest and the
+    largest |upd|; raises past the stated tolerance.  A plain step in
+    float64 (``acc``) is compared in float64."""
     *k_tabs, k_loss, k_pairs = kern
     *p_tabs, p_loss, p_pairs = plain
-    max_abs = max_rel = 0.0
+    max_abs = max_rel = upd_at = max_upd = 0.0
     for t0, a, b in zip(init, k_tabs, p_tabs):
         t0, a = t0.to(b.dtype), a.to(b.dtype)
         du = b - t0
         err = ((a - t0) - du).abs()
-        max_abs = max(max_abs, float(err.max()))
+        worst = int(err.argmax())
+        if float(err.reshape(-1)[worst]) >= max_abs:
+            max_abs = float(err.reshape(-1)[worst])
+            upd_at = float(du.reshape(-1)[worst].abs())
+        max_upd = max(max_upd, float(du.abs().max()))
         max_rel = max(max_rel, float((err / du.abs().clamp_min(1e-30)).max()))
         bad = int((err > ATOL + RTOL * du.abs()).sum())
         if bad:
@@ -568,7 +595,7 @@ def compare(name, init, kern, plain):
             f"{float(k_pairs)} vs {float(p_pairs)}")
     if not all(torch.isfinite(t).all() for t in k_tabs):
         raise AssertionError(f"{name}: non-finite table")
-    return max_abs, max_rel, loss_rel
+    return max_abs, max_rel, loss_rel, upd_at, max_upd
 
 
 def compare_bf16(name, init, kern, plain, f32):
@@ -762,8 +789,9 @@ def fused_stress(tied: bool, dev, V: int, d: int, P: int, TP: int, KP: int,
     packed id or pool row of the call before would update other rows.  The
     tables after each step are snapshot on the card; the plain versions
     then run from each snapshot, and each step is held against its own
-    under the f32 check.  Returns each step's (max_abs, max_rel); raises
-    at the first step past the check."""
+    under the f32 check.  Returns each step's (max_abs, max_rel, the plain
+    update's |upd| where the abs error is largest, the step's largest
+    |upd|); raises at the first step past the check."""
     from come_tpu_torch.ops.sgns import (
         fused_sgns_step,
         fused_sgns_step_reference,
@@ -793,9 +821,20 @@ def fused_stress(tied: bool, dev, V: int, d: int, P: int, TP: int, KP: int,
     for step, args in enumerate(calls):
         plain = plain_fn(*[t.clone() for t in states[step]], *args,
                          tile_pairs=TP)
-        errs.append(compare(f"{name} {step}", states[step],
-                            (*states[step + 1], *results[step]), plain)[:2])
+        e = compare(f"{name} {step}", states[step],
+                    (*states[step + 1], *results[step]), plain)
+        errs.append((e[0], e[1], e[3], e[4]))
     return errs
+
+
+def stress_worst(errs) -> str:
+    """fused_stress's worst step: its index, max_abs and the |upd| where
+    it fell, beside the step's and the run's largest |upd|."""
+    i = max(range(len(errs)), key=lambda k: errs[k][0])
+    e = errs[i]
+    return (f"worst step {i}: max_abs {e[0]:.3e} at |upd| {e[2]:.3e} (the "
+            f"step's largest |upd| {e[3]:.3e}, the run's "
+            f"{max(x[3] for x in errs):.3e})")
 
 
 def fused_counts(where: str, entry: str) -> str:
@@ -867,8 +906,7 @@ def graph_phase(dev, smi: str) -> dict:
         if (c["recordings"], c["replays"], c["shapes"]) != (6, 6, 1):
             raise AssertionError(f"graph {mode}: counters {c}")
         seq[mode] = (errs, graph_line(f"graph {mode}", counts))
-    # every walk and star mode enqueued back to back, and the modes that
-    # run past MAX_DIM at d 256 too
+    # every walk and star mode enqueued back to back, at d 128 and 256
     stress = {(m, 128): graph_stress(m, dev) for m in B2B_MODES}
     stress.update({(m, 256): graph_stress(m, dev, 256) for m in B2B_WIDE})
     steps = {}
@@ -917,9 +955,9 @@ def graph_phase(dev, smi: str) -> dict:
 
 
 # Phase 15b's back-to-back runs (graph_stress): every walk and star mode at
-# d 128, and the modes that run past MAX_DIM (192) also at d 256.
+# d 128 and again at d 256, past MAX_DIM (192), through the slab passes.
 B2B_MODES = ("K1", "K1b", "K2", "K2b", "K3", "K4", "K5")
-B2B_WIDE = ("K1", "K5", "K2")
+B2B_WIDE = B2B_MODES
 
 
 def _b2b_inputs(mode, dev, g, step, V, W, KP, R, B, csr):
@@ -1088,14 +1126,22 @@ def stress_text(runs: dict) -> str:
     return "; ".join(out)
 
 
-# Phase 4j's widths past 128 (phase 4k holds K1, K5 and K2 at 256 at
-# phases 3, 4 and 4d's shapes): past MAX_DIM (192) the f32 passes of K1, K5
-# and K2 stage column slabs of 128 (csrc/sgns_common.cuh: SLAB), so 193
-# leaves a ragged slab of 65, 300 one of 44 and 512 four whole ones; 129
-# runs the whole-row passes at a ragged width.  The whole-walk window also
-# runs at 256.
+# Phase 4j's widths past 128 (phase 4k holds the main path's steps at 256
+# at their own shapes): past MAX_DIM (192) every pass stages column slabs of
+# 128 (csrc/sgns_common.cuh: SLAB), so 193 leaves a ragged slab of 65 (194,
+# K3's even width: 66), 300 one of 44 and 512 four whole ones; 129 runs the
+# whole-row passes at a ragged width.  K1 (W 10 and a whole-walk window),
+# K5 and K2 run at every width of WIDE_WIDTHS (the whole walk alone at 256),
+# the other modes at WIDE_MODE_WIDTHS.
 WIDE_WIDTHS = (129, 193, 256, 300, 512)
 WIDE_CASES = (("K1", False), ("K1", True), ("K5", False), ("K2", False))
+WIDE_MODES = ("K1b", "K3", "K4", "K4 f32", "K2b", "K6", "K7")
+WIDE_MODE_WIDTHS = (193, 256, 300, 512)
+
+
+def mode_width(mode, d):
+    """d, or the even width above it for K3's bf16 tables."""
+    return d + d % 2 if mode == "K3" else d
 
 
 def edge_rows(g, V, n, dev):
@@ -1107,62 +1153,145 @@ def edge_rows(g, V, n, dev):
     return torch.stack([u, v], 1).reshape(n, 128).to(torch.int32)
 
 
-def wide_inputs(mode, dev, d, seed, whole=False):
-    """(tables, inputs, kwargs) of one step at width d on V 2000, KP 512,
-    drawn from ``seed``: K1 over 64 walks of 80 at W 10 (8 groups), or with
-    ``whole`` 16 walks of 128 with the whole walk in the window (W 127); K5
-    over 16 edge rows (2 groups, R 2); K2 over the star layout of 12000
-    random edges."""
-    V, KP = 2000, 512
+def wide_inputs(mode, dev, d, seed, whole=False, csr=None):
+    """(tables, inputs, kwargs) of one step of ``mode`` at width d, drawn
+    from ``seed``, pools of 512 rows: K1 over 64 walks of 80 on V 2000 at
+    W 10 (8 groups), or with ``whole`` 16 walks of 128 with the whole walk
+    in the window (W 127); K1b, K4 and "K4 f32" over 64 walks of 80 on the
+    blogcatalog graph ``csr`` (K4 generates them from starts and 32-bit
+    draws), as graph_stress draws them: on random walks of V 2000 their
+    f32 step lies too near the bf16 one for the bf16 check; K3 over 64
+    walks of 80 drawn uniformly over V 20000 (rows that repeat rarely, as
+    its check needs) on bf16 tables, with stochastic rounding; K5 over 16
+    edge rows (2 groups, R 2); K2 and K2b over the star layout of 12000
+    random edges on V 2000; K6 and K7 3000 pairs on V 2000 in tiles of 777
+    (the second tile all masked)."""
+    V = 20000 if mode == "K3" else 2000
+    if mode in ("K1b", "K4", "K4 f32"):
+        V = int(csr.indptr.numel()) - 1
     g = torch.Generator(device=dev).manual_seed(seed)
     tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
-            for _ in range(1 if mode == "K2" else 2)]
+            for _ in range(1 if mode in ("K2", "K2b", "K7") else 2)]
+    if mode == "K3":
+        tabs = [t.to(torch.bfloat16) for t in tabs]
+    KP = 512
 
     def ids(*shape):
         return torch.randint(0, V, shape, generator=g, device=dev,
                              dtype=torch.int32)
 
-    if mode == "K2":
+    if mode in ("K2", "K2b"):
         slots, meta = star_edge_layout(V, 12000, "random", seed)
         sl, mt = (torch.as_tensor(a, device=dev) for a in (slots, meta))
         return tabs, (sl, mt, ids(-(-sl.numel() // 1024), KP)), dict(
-            pool_refresh=1)
+            pool_refresh=1, mxu_bf16=mode == "K2b")
     if mode == "K5":
         return tabs, (edge_rows(g, V, 16, dev), None, ids(1, KP)), dict(
             window=1, pool_refresh=2, paired=True)
+    if mode in ("K6", "K7"):
+        P, TP = 3000, 777
+        m = (torch.rand(P, generator=g, device=dev) < 0.6).float()
+        m[TP:2 * TP] = 0.0
+        return tabs, (ids(P), ids(P), ids(KP), m), dict(tile_pairs=TP)
     B, L, W = (16, 128, 127) if whole else (64, 80, 10)
     wrow = torch.randint(1, W + 1, (B // 8 * 1024,), generator=g, device=dev,
                          dtype=torch.int32)
-    return tabs, (ids(B, L), wrow, ids(B // 8, KP)), dict(window=W,
-                                                          pool_refresh=1)
+    kw = dict(window=W, pool_refresh=1)
+    if mode in ("K4", "K4 f32"):
+        bits = torch.randint(-2**31, 2**31, (B // 8 * 1024,), generator=g,
+                             device=dev, dtype=torch.int32)
+        return tabs, (ids(B), bits, csr.indptr, csr.indices, wrow,
+                      ids(B // 8, KP)), dict(kw, walk_length=L,
+                                             mxu_bf16=mode == "K4")
+    if mode == "K1b":
+        from come_tpu_torch.sampling import random_walks
+
+        walks = random_walks(csr, ids(B), L, g)
+        return tabs, (walks, wrow, ids(B // 8, KP)), dict(kw, mxu_bf16=True)
+    if mode == "K3":
+        kw["sr_seed"] = seed
+    return tabs, (ids(B, L), wrow, ids(B // 8, KP)), kw
 
 
-def step_check(mode, name, tabs, x, kw, timed=True) -> dict:
-    """One K1, K5 or K2 step on tables ``tabs`` and inputs ``x`` (walks,
-    edge rows or star slots; window draws or meta; pools) through the
-    kernel and its plain version from the same tables, under the f32
-    check; with ``timed`` also ms from an idle card, ms a step in a run of
-    10 and the plain version's ms (each on tables it updates in place) and
-    the step's bound.  Returns the numbers."""
+def _mode_fns(mode):
+    """(kernel, plain version) of a step_check mode."""
+    from come_tpu_torch.ops.sgns import (
+        fused_sgns_step,
+        fused_sgns_step_reference,
+        fused_sgns_step_tied,
+        fused_sgns_step_tied_reference,
+    )
     from come_tpu_torch.ops.star_sgns import (
         star_sgns_step,
         star_sgns_step_reference,
     )
     from come_tpu_torch.ops.walk_sgns import (
+        walk_sgns_gen_step,
+        walk_sgns_gen_step_reference,
         walk_sgns_step,
         walk_sgns_step_reference,
     )
+
+    if mode in ("K2", "K2b"):
+        return star_sgns_step, star_sgns_step_reference
+    if mode in ("K4", "K4 f32"):
+        return walk_sgns_gen_step, walk_sgns_gen_step_reference
+    if mode == "K6":
+        return fused_sgns_step, fused_sgns_step_reference
+    if mode == "K7":
+        return fused_sgns_step_tied, fused_sgns_step_tied_reference
+    return walk_sgns_step, walk_sgns_step_reference
+
+
+def step_check(mode, name, tabs, x, kw, timed=True) -> dict:
+    """One step of ``mode`` (K1, K1b, K3, K4 with bf16 products, "K4 f32",
+    K5, K2, K2b, K6, K7) on tables ``tabs`` and inputs ``x`` (as the
+    wrapper takes them after the tables: walks, edge rows, star slots, K4's
+    starts and draws or K6/K7's pairs, ...; the pools last, K6/K7's pool
+    third) through the kernel and its plain version from the same tables,
+    under its mode's check: the f32 check, the bf16 check (K1b, K2b, K4:
+    the plain f32 step at least 5x farther) or K3's (ops/tolerance.py), K4's
+    walks bit for bit; with ``timed`` also ms from an idle card, ms a step
+    in a run of 10 and the plain version's ms (each on tables it updates in
+    place) and the step's bound.  Returns the numbers: "err" is the check's
+    tuple, its first element the max abs update error."""
+    from come_tpu_torch.ops.tolerance import check_k3
     from come_tpu_torch.sampling.stars import PAD_META
     from come_tpu_torch.tools.pass_times import chained_ms, cuda_ms
 
-    kern_fn, plain_fn = ((star_sgns_step, star_sgns_step_reference)
-                         if mode == "K2" else
-                         (walk_sgns_step, walk_sgns_step_reference))
-    lr, negw = 0.025, 5.0 / x[2].shape[-1]
+    kern_fn, plain_fn = _mode_fns(mode)
+    fused, gen = mode in ("K6", "K7"), mode in ("K4", "K4 f32")
+    bf16 = mode in ("K1b", "K2b", "K4")
+    KP = x[2].numel() if fused else x[-1].shape[-1]
+    lr, negw = 0.025, 5.0 / KP
+    if gen:
+        kw = dict(kw, return_walks=True)
     kern = kern_fn(*[t.clone() for t in tabs], *x, lr, negw, **kw)
     plain = plain_fn(*[t.clone() for t in tabs], *x, lr, negw, **kw)
     torch.cuda.synchronize()
-    out = {"err": compare(name, tabs, kern, plain), "pairs": float(kern[-1])}
+    walks = x[0]
+    if gen:
+        *kern, walks = kern
+        *plain, pw = plain
+        if not torch.equal(walks, pw):
+            raise AssertionError(f"{name}: generated walks differ")
+    if mode == "K3":
+        if float(kern[3]) != float(plain[3]) or abs(
+                float(kern[2]) - float(plain[2])) > 1e-4 * abs(float(plain[2])):
+            raise AssertionError(f"{name}: loss {float(kern[2])} vs "
+                                 f"{float(plain[2])}, pairs {float(kern[3])} "
+                                 f"vs {float(plain[3])}")
+        f32kw = {k: v for k, v in kw.items() if k != "sr_seed"}
+        f32 = plain_fn(*[t.float() for t in tabs], *x, lr, negw,
+                       mxu_bf16=True, **f32kw)
+        err = check_k3(name, tabs, kern[:2], plain[:2], f32[:2])
+    elif bf16:
+        f32 = plain_fn(*[t.clone() for t in tabs], *x, lr, negw,
+                       **dict(kw, mxu_bf16=False))
+        err = compare_bf16(name, tabs, kern, plain, f32[:len(tabs)])
+    else:
+        err = compare(name, tabs, kern, plain)
+    out = {"err": err, "pairs": float(kern[-1])}
     del kern, plain
     if timed:
         d = tabs[0].shape[1]
@@ -1174,9 +1303,20 @@ def step_check(mode, name, tabs, x, kw, timed=True) -> dict:
         out["ms"], out["run_ms"] = cuda_ms(step), chained_ms(step)
         out["plain_ms"] = cuda_ms(lambda: plain_fn(*pwork, *x, lr, negw,
                                                    **kw))
-        out["bound"] = (star_bound(x[0], x[1], x[2], out["pairs"], d, False,
-                                   PAD_META) if mode == "K2" else
-                        walk_bound(x[0], x[2], out["pairs"], d, 4, False))
+        if mode in ("K2", "K2b"):
+            out["bound"] = star_bound(x[0], x[1], x[2], out["pairs"], d, bf16,
+                                      PAD_META)
+        elif fused:
+            out["bound"] = pairs_bound(x[0], x[1], x[3], x[2], d,
+                                       mode == "K7")
+        elif gen:  # K4 also reads starts, and per hop two offsets and one
+            B, L = walks.shape  # neighbour
+            out["bound"] = walk_bound(walks, x[-1], out["pairs"], d, 4, bf16,
+                                      4.0 * B + 12.0 * B * (L - 1))
+        else:
+            out["bound"] = walk_bound(walks, x[2], out["pairs"], d,
+                                      2 if mode == "K3" else 4,
+                                      bf16 or mode == "K3")
     return out
 
 
@@ -1188,9 +1328,23 @@ def step_times(res: dict) -> str:
         f"{r['bound'][1]}" for k, r in res.items() if "ms" in r)
 
 
+def err_text(mode, err) -> str:
+    """A step_check error tuple as its mode's check reads it."""
+    if mode == "K3":
+        return (f"max_abs {err[0]:.3e} rel_l2 {err[1]:.3e} identical "
+                f"{err[3]:.5f}")
+    if mode in ("K1b", "K2b", "K4"):
+        return (f"max_abs {err[0]:.3e} rel_l2 {err[1]:.3e} f32-vs-bf16 "
+                f"distance {err[2]:.3e}")
+    return f"max_abs {err[0]:.3e} max_rel {err[1]:.3e}"
+
+
 def wide_phase(smi: str, dev) -> dict:
     """Phase 4j (module docstring); raises if a step fails its check.
     Returns the checks by (mode, whole, d)."""
+    from come_tpu_torch.graphs import get_dataset
+
+    csr = get_dataset("blogcatalog").graph.to_device(dev)
     res = {}
     for d in WIDE_WIDTHS:
         for mode, whole in WIDE_CASES:
@@ -1201,15 +1355,22 @@ def wide_phase(smi: str, dev) -> dict:
                 mode, name, *wide_inputs(mode, dev, d, 3 * d + 2 * whole
                                          + (mode == "K5"), whole),
                 timed=not whole)
+    for d in WIDE_MODE_WIDTHS:
+        for mode in WIDE_MODES:
+            dm = mode_width(mode, d)
+            res[(mode, False, dm)] = step_check(
+                mode, f"{mode} d {dm}", *wide_inputs(
+                    mode, dev, dm, 3 * dm + len(mode), csr=csr))
     worst = "; ".join(
-        f"{m}{' whole walk' if w else ''} max_abs "
-        f"{max(r['err'][0] for k, r in res.items() if k[:2] == (m, w)):.3e}"
-        f" max_rel "
-        f"{max(r['err'][1] for k, r in res.items() if k[:2] == (m, w)):.3e}"
-        for m, w in WIDE_CASES)
+        f"{m}{' whole walk' if w else ''} worst "
+        + err_text(m, max((r["err"] for k, r in res.items() if k[:2] == (m, w)),
+                          key=lambda e: e[0]))
+        for m, w in WIDE_CASES + tuple((m, False) for m in WIDE_MODES))
     phase("wide", f"K1 (W 10 and a whole-walk window), K5 and K2 on V 2000 "
-                  f"at d in {list(WIDE_WIDTHS)} (256: the whole walk only) "
-                  f"vs plain (tol {ATOL} + {RTOL}*|plain update|): {worst} | "
+                  f"at d in {list(WIDE_WIDTHS)} (256: the whole walk only), "
+                  f"{', '.join(WIDE_MODES)} at d in {list(WIDE_MODE_WIDTHS)} "
+                  f"(K3 at the even width) vs plain under each mode's check "
+                  f"(f32: tol {ATOL} + {RTOL}*|plain update|): {worst} | "
                   + step_times({f"{m} d {d}": r for (m, w, d), r in
                                 res.items()}) + f" | {smi}")
     return res
@@ -1217,17 +1378,26 @@ def wide_phase(smi: str, dev) -> dict:
 
 def blog_wide_checks(dev, steps: dict, V: int, d: int = 256) -> dict:
     """Phase 4k: each step of ``steps`` ({label: (mode, inputs, kwargs)},
-    phases 3, 4 and 4d's inputs) on [V, d] tables drawn from SEED, through
-    step_check (the f32 check, times and bound).  Returns the checks by
-    label."""
+    the main path's inputs) on [V, d] tables drawn from SEED (bf16 for
+    K3), through step_check (its mode's check, times and bound).  Returns
+    the checks by label."""
     g = torch.Generator(device=dev).manual_seed(SEED + d)
     res = {}
     for label, (mode, x, kw) in steps.items():
         tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
-                for _ in range(1 if mode == "K2" else 2)]
+                for _ in range(1 if mode in ("K2", "K2b", "K7") else 2)]
+        if mode == "K3":
+            tabs = [t.to(torch.bfloat16) for t in tabs]
         res[label] = step_check(mode, f"{label} d {d}", tabs, x, kw)
         del tabs
     return res
+
+
+def wide_text(res: dict) -> str:
+    """Phase 4k's line: each check's error and pairs, then the times."""
+    return ("; ".join(f"{k} {err_text(k.split()[0], r['err'])} pairs "
+                      f"{r['pairs']:.0f}" for k, r in res.items())
+            + " | " + step_times(res))
 
 
 def _torchrun(tag, n, module, args, timeout):
@@ -2138,11 +2308,8 @@ def main() -> int:
     phase("wide 256", f"phases 3, 4 and 4d's steps at d 256 (V {V}, K1 "
                       f"{B} walks and {G} groups, K2 {sl.numel()} slots, K5 "
                       f"{rows.shape[0]} rows) vs plain (tol {ATOL} + "
-                      f"{RTOL}*|plain update|): " + "; ".join(
-                          f"{k} max_abs {r['err'][0]:.3e} max_rel "
-                          f"{r['err'][1]:.3e} pairs {r['pairs']:.0f}"
-                          for k, r in blog256.items())
-                      + " | " + step_times(blog256) + f" | {smi}")
+                      f"{RTOL}*|plain update|): " + wide_text(blog256)
+                      + f" | {smi}")
     torch.cuda.empty_cache()
 
     # 4e. K1b, K4 (bf16) and K2b at the shapes the bench path (phases 12
@@ -2241,6 +2408,26 @@ def main() -> int:
     del emb_in, emb_out, kern, plain, f32
     torch.cuda.empty_cache()
 
+    # 4k (bench). K1b, K4 and K2b at d 256 on the bench path's inputs of
+    # phase 4e, each under its mode's check
+    blog256.update(blog_wide_checks(dev, {
+        "K1b bench": ("K1b", (walks_b, wrow_b, pools_b),
+                      dict(window=W, pool_refresh=RB, mxu_bf16=True)),
+        "K4 bench": ("K4", (starts_b, bits_b, csr.indptr, csr.indices,
+                            wrow_b, pools_b),
+                     dict(walk_length=L, window=W, pool_refresh=RB,
+                          mxu_bf16=True)),
+        "K2b bench": ("K2b", (sl_b, mt_b, pools2_b),
+                      dict(pool_refresh=RB, mxu_bf16=True)),
+    }, V))
+    phase("wide 256 bench", f"phase 4e's steps at d 256 (K1b and K4 {BB} "
+                            f"walks, {GB} groups, R {RB}; K2b {G2B} groups, "
+                            f"R {RB}) vs plain under the bf16 check: "
+                            + wide_text({k: blog256[k] for k in (
+                                "K1b bench", "K4 bench", "K2b bench")})
+                            + f" | {smi}")
+    torch.cuda.empty_cache()
+
     # 4h. the walk kernel at the shapes that stress its band strips (8
     # centres) and its bf16 negative tiles (64 slots x 32 pool rows), in
     # f32, in bf16 products and on bf16 tables (K3, SR), each held to its
@@ -2249,7 +2436,7 @@ def main() -> int:
 
     edge_lines = []
     for (Ve, de, Be, Le, We, KPe, Re, hot) in EDGE_SHAPES:
-        for mode in slab_modes(de, ("f32", "bf16", "bf16_tables")):
+        for mode in ("f32", "bf16", "bf16_tables"):
             if hot and mode == "bf16_tables":
                 continue  # outside K3's check (EDGE_SHAPES' note)
             Vm = max(Ve, 20000) if mode == "bf16_tables" else Ve
@@ -2331,12 +2518,11 @@ def main() -> int:
         plain = star_edge(star_sgns_step_reference, False)
         err = compare(name, (init,), star_edge(star_sgns_step, False), plain)
         text = f"f32 {err[0]:.3g}"
-        if slab_modes(de, ("bf16",)):
-            err_b = compare_bf16(name + " bf16", (init,),
-                                 star_edge(star_sgns_step, True),
-                                 star_edge(star_sgns_step_reference, True),
-                                 plain[:1])
-            text += f", bf16 {err_b[1]:.3g}"
+        err_b = compare_bf16(name + " bf16", (init,),
+                             star_edge(star_sgns_step, True),
+                             star_edge(star_sgns_step_reference, True),
+                             plain[:1])
+        text += f", bf16 {err_b[1]:.3g}"
         edge_lines.append(f"{layout} d{de} KP{KPe} R{Re} G{Ge} pairs "
                           f"{float(plain[2]):.0f}: {text}")
     for (Ve, de, Pe, TPe, KPe) in FUSED_EDGES:
@@ -2469,6 +2655,16 @@ def main() -> int:
         del init32, f32_10
         torch.cuda.empty_cache()
 
+        # 4k (K3). K3 at d 256 on this step's inputs (synthetic-10m's step
+        # shape, SR), under K3's check
+        k3_256 = blog_wide_checks(dev, {"K3": (
+            "K3", (walks10, wrow10, pools10),
+            dict(window=W, pool_refresh=R, sr_seed=12345))}, V)
+        phase("wide 256 K3", f"phase 4f's step at d 256 (V {V}, {G} groups, "
+                             f"KP {KP}, SR) vs plain under K3's check: "
+                             + wide_text(k3_256) + f" | {smi}")
+        torch.cuda.empty_cache()
+
         # 4g. P1: gather and scatter-add of N rows of a [500000, 128] table
         reset_counts()
         p1 = {}
@@ -2553,7 +2749,7 @@ def main() -> int:
 
         return dict(k3_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
                     k3_bound=k3_bound, p1=p1, p1_launches=p1_launches,
-                    retries=retries)
+                    retries=retries, k3_256=k3_256["K3"])
 
     lv = large_v_kernels()
     torch.cuda.empty_cache()
@@ -2650,6 +2846,141 @@ def main() -> int:
     wide_launches = wide_runs["main 256"]["launches"]
     paired256_launches = wide_runs["paired 256"]["launches"]
 
+    # the tiers' kernel names (ComETrainer.tier_kernels) by launch counter
+    counter = {"K1": "walk_sgns", "K1b": "walk_sgns_bf16",
+               "K3": "walk_sgns_bf16_tables", "K4": "walk_sgns_gen_bf16",
+               "K5": "walk_sgns_paired", "K2": "star_sgns",
+               "K2b": "star_sgns_bf16", "K6": "fused_sgns",
+               "K7": "fused_sgns_tied"}
+
+    def tier_check(where, trainer, named):
+        """The counters of the kernels the trainer's tiers name, which must
+        be ``named``."""
+        if trainer.tier_kernels() != named:
+            raise AssertionError(f"{where}: tiers {trainer.tier_kernels()}, "
+                                 f"expected {named}")
+        return tuple(counter[k] for k in named)
+
+    def bench_run(where, walk_gen, named, dim=128):
+        """The reference bench's kernel configuration (bench.py:174-216)
+        through ComETrainer at ``dim``: its tiers name ``named`` and
+        launch those kernels and no other, NMI >= NMI_FLOOR."""
+        cfg = get_config("blogcatalog").replace(
+            num_communities=ds.num_communities, walk_kernel_bf16=True,
+            walk_pool_refresh=8, batch_walks=2048, batch_edges=524288,
+            walk_gen=walk_gen, pretrain_epochs=1, outer_iters=1, seed=SEED,
+            dim=dim,
+        )
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = ComETrainer(ds.graph, cfg, dev)
+        ran = tier_check(where, trainer, named)
+        hist = trainer.train(ds.single_labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        check_launches(where, launched, ran,
+                       tuple(k for k in kernels if k not in ran))
+        check_run(where, hist, NMI_FLOOR)
+        rec = hist[-1]
+        phase(where, f"blogcatalog + bf16, R 8, batch_walks 2048, "
+                     f"batch_edges 524288, walk_gen {walk_gen}, dim {dim}, "
+                     f"pretrain 1 + outer 1 in {wall:.1f} s: gmm "
+                     f"{rec['gmm_ms']:.1f} ms, "
+                     f"o1 {rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms, o3 "
+                     f"{rec['o3_ms']:.1f} ms | o1_pairs {rec['o1_pairs']:.0f} "
+                     f"o2_pairs {rec['o2_pairs']:.0f} | NMI "
+                     f"{rec['nmi']:.4f} | launches {launched}")
+        return launched
+
+    # 5c. the trainer at dim 256 through every other tier: past 192 each
+    # of their kernels runs its column-slab passes (bench_run and phases
+    # 9, 10 and 14's configurations at the same cuts and floors; K3 on the
+    # blogcatalog preset with the 48 MiB line at 0, as
+    # tests/test_torch_wide.py's TIERS test sets it)
+    from come_tpu_torch.trainer import come as trainer_come
+
+    tiers256 = {
+        "bench 256": bench_run("bench 256", "scan", ("K1b", "K2b"), 256),
+        "bench gen 256": bench_run("bench gen 256", "kernel", ("K4", "K2b"),
+                                   256),
+    }
+    # the micro-batched path through the CLI (phase 10's cut and checks)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, hist = run(build_argparser().parse_args([
+        "--dataset", "blogcatalog", "--device", "cuda", "--down-sample",
+        "1e-3", "--o2-mode", "xla", "--pretrain-epochs", "0",
+        "--outer-iters", "1", "--walks-per-node", "2", "--seed", str(SEED),
+        "--dim", "256",
+    ]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = tiers256["micro 256"] = counts()
+    ran = tier_check("micro 256", trainer, ("K6", "K7"))
+    check_launches("micro 256", got, ran,
+                   tuple(k for k in kernels if k not in ran))
+    check_run("micro 256", hist, 0.0)
+    rec = hist[-1]
+    emb = trainer.embeddings()
+    if emb.shape != (ds.graph.num_nodes, 256) or not np.isfinite(emb).all():
+        raise AssertionError("micro 256: embeddings not finite [V, 256]")
+    B5, S5 = trainer.o2_arc_plan()
+    if rec["o2_pairs"] != S5 * B5:
+        raise AssertionError(f"micro 256: o2_pairs {rec['o2_pairs']} != "
+                             f"S*B = {S5}*{B5}")
+    phase("micro 256", f"blogcatalog --dim 256 --down-sample 1e-3 --o2-mode "
+                       f"xla, walks per node 2, outer 1 in {wall:.1f} s: o1 "
+                       f"{rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms | "
+                       f"NMI {rec['nmi']:.4f} | launches {got}")
+    del trainer
+    # karate with shared negatives (phase 9's configuration and floor)
+    karate = get_dataset("karate")
+    cfg = get_config("karate").replace(
+        negative_mode="shared", shared_negatives=32, pallas_tile_pairs=64,
+        outer_iters=1, pretrain_epochs=2, walks_per_node=4, seed=SEED,
+        dim=256,
+    )
+    reset_counts()
+    trainer = ComETrainer(karate.graph, cfg, dev)
+    ran = tier_check("shared 256", trainer, ("K6", "K7"))
+    hist = trainer.train(karate.labels)
+    torch.cuda.synchronize()
+    got = tiers256["shared 256"] = counts()
+    check_launches("shared 256", got, ran,
+                   tuple(k for k in kernels if k not in ran))
+    check_run("shared 256", hist, KARATE_SHARED_NMI_FLOOR)
+    phase("shared 256", f"karate shared negatives at dim 256: NMI "
+                        f"{hist[-1]['nmi']:.4f} | launches {got}")
+    del trainer
+    # K3: the blogcatalog preset on bf16 O1 tables (the 48 MiB line at 0),
+    # pretrain 1 + outer 1 as phase 5
+    line = trainer_come.WALK_F32_TABLE_BYTES
+    trainer_come.WALK_F32_TABLE_BYTES = 0
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = ComETrainer(ds.graph, get_config("blogcatalog").replace(
+            num_communities=ds.num_communities, dim=256, pretrain_epochs=1,
+            outer_iters=1, seed=SEED), dev)
+        ran = tier_check("K3 256", trainer, ("K3", "K2"))
+        hist = trainer.train(ds.single_labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_come.WALK_F32_TABLE_BYTES = line
+    got = tiers256["K3 256"] = counts()
+    check_launches("K3 256", got, ran,
+                   tuple(k for k in kernels if k not in ran))
+    check_run("K3 256", hist, NMI_FLOOR)
+    rec = hist[-1]
+    phase("K3 256", f"blogcatalog --dim 256 on bf16 O1 tables, pretrain 1 + "
+                    f"outer 1 in {wall:.1f} s: o1 {rec['o1_ms']:.1f} ms, o2 "
+                    f"{rec['o2_ms']:.1f} ms | NMI {rec['nmi']:.4f} | "
+                    f"launches {got} | {smi}")
+    del trainer
+    torch.cuda.empty_cache()
+
     # 6. K6 at the BlogCatalog width: the first micro-step of one macro step
     V, d, TP = ds.graph.num_nodes, 128, 1024
     keep = torch.as_tensor(subsample_keep_probs(ds.graph.degrees, 1e-3),
@@ -2670,9 +3001,13 @@ def main() -> int:
     launch_plan.reset_counts()
     seq6 = fused_steps(False, dev, V, d, 32768, TP, KP)
     seq6_line = fused_counts("K6 plan", "fused_sgns")
-    # 40 micro-steps enqueued back to back, at this shape and karate's
-    seq6 += fused_stress(False, dev, V, d, 32768, TP, KP)
-    seq6 += fused_stress(False, dev, 34, 16, 128, 64, 32)
+    # 40 micro-steps enqueued back to back, at this shape, karate's and
+    # this shape at d 256 (the slab negative pass)
+    stress6 = {"this shape": fused_stress(False, dev, V, d, 32768, TP, KP),
+               "karate's": fused_stress(False, dev, 34, 16, 128, 64, 32),
+               "d 256": fused_stress(False, dev, V, 256, 32768, TP, KP)}
+    for errs in stress6.values():
+        seq6 += errs
     kern6 = k6(fused_sgns_step)
     plain6 = k6(fused_sgns_step_reference)
     torch.cuda.synchronize()
@@ -2689,9 +3024,12 @@ def main() -> int:
                 f"{k6_err[1]:.3e} loss_rel {k6_err[2]:.3e} pairs "
                 f"{float(kern6[3]):.0f}; 6 steps through one plan (new lr, "
                 f"pairs, pool; tables moved once; tile 2 all masked) and "
-                f"2 x 40 enqueued back to back (this shape, karate's) worst "
+                f"3 x 40 enqueued back to back (this shape, karate's, this "
+                f"shape at d 256) worst "
                 f"max_abs {max(e[0] for e in seq6):.3e} max_rel "
-                f"{max(e[1] for e in seq6):.3e} ({seq6_line}) | "
+                f"{max(e[1] for e in seq6):.3e} ({seq6_line}); back to back "
+                + "; ".join(f"{k} {stress_worst(v)}"
+                            for k, v in stress6.items()) + " | "
                 f"{fused_text(k6_t)}, plain {k6_plain_ms:.3f} ms (tol "
                 f"{ATOL} + {RTOL}*|plain update|)")
 
@@ -2708,8 +3046,11 @@ def main() -> int:
     launch_plan.reset_counts()
     seq7 = fused_steps(True, dev, V, d, 32768, TP, KP)
     seq7_line = fused_counts("K7 plan", "fused_sgns_tied")
-    seq7 += fused_stress(True, dev, V, d, 32768, TP, KP)
-    seq7 += fused_stress(True, dev, 34, 16, 128, 64, 32)
+    stress7 = {"this shape": fused_stress(True, dev, V, d, 32768, TP, KP),
+               "karate's": fused_stress(True, dev, 34, 16, 128, 64, 32),
+               "d 256": fused_stress(True, dev, V, 256, 32768, TP, KP)}
+    for errs in stress7.values():
+        seq7 += errs
     kern7 = k7(fused_sgns_step_tied)
     plain7 = k7(fused_sgns_step_tied_reference)
     torch.cuda.synchronize()
@@ -2725,13 +3066,29 @@ def main() -> int:
     phase("K7", f"fused_sgns_tied V={V} d={d} P={arcs.numel()} TP={TP} "
                 f"KP={KP} (32 tiles): max_abs {k7_err[0]:.3e} max_rel "
                 f"{k7_err[1]:.3e} loss_rel {k7_err[2]:.3e} pairs "
-                f"{float(kern7[2]):.0f}; 6 steps through one plan and 2 x "
+                f"{float(kern7[2]):.0f}; 6 steps through one plan and 3 x "
                 f"40 back to back worst max_abs {max(e[0] for e in seq7):.3e} max_rel "
-                f"{max(e[1] for e in seq7):.3e} ({seq7_line}) | "
+                f"{max(e[1] for e in seq7):.3e} ({seq7_line}); back to back "
+                + "; ".join(f"{k} {stress_worst(v)}"
+                            for k, v in stress7.items()) + " | "
                 f"{fused_text(k7_t)}, plain {k7_plain_ms:.3f} ms (tol "
                 f"{ATOL} + {RTOL}*|plain update|)")
     del work, work7
     del emb_in, emb_out, kern6, plain6, kern7, plain7
+    torch.cuda.empty_cache()
+
+    # 4k (micro). K6 and K7 at d 256 on phases 6 and 7's pairs (32 tiles;
+    # the slab negative pass)
+    blog256.update(blog_wide_checks(dev, {
+        "K6": ("K6", (c, x, pool, m), dict(tile_pairs=TP)),
+        "K7": ("K7", (c7, x7, pool, ones), dict(tile_pairs=TP)),
+    }, V))
+    phase("wide 256 micro", f"phases 6 and 7's steps at d 256 ({c.numel()} "
+                            f"and {c7.numel()} pairs in tiles of {TP}, KP "
+                            f"{KP}) vs plain (tol {ATOL} + {RTOL}*|plain "
+                            f"update|): " + wide_text(
+                                {k: blog256[k] for k in ("K6", "K7")})
+                            + f" | {smi}")
     torch.cuda.empty_cache()
 
     # 8. karate, the CLI's default preset: per-pair negatives, no kernel
@@ -3035,36 +3392,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 12-13. the reference bench's kernel configuration through
-    # ComETrainer, with the walker and with walk_gen="kernel"
-    def bench_run(where, walk_gen, ran):
-        cfg = get_config("blogcatalog").replace(
-            num_communities=ds.num_communities, walk_kernel_bf16=True,
-            walk_pool_refresh=8, batch_walks=2048, batch_edges=524288,
-            walk_gen=walk_gen, pretrain_epochs=1, outer_iters=1, seed=SEED,
-        )
-        reset_counts()
-        t0 = time.perf_counter()
-        hist = ComETrainer(ds.graph, cfg, dev).train(ds.single_labels)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = counts()
-        check_launches(where, launched, ran,
-                       tuple(k for k in kernels if k not in ran))
-        check_run(where, hist, NMI_FLOOR)
-        rec = hist[-1]
-        phase(where, f"blogcatalog + bf16, R 8, batch_walks 2048, "
-                     f"batch_edges 524288, walk_gen {walk_gen}, pretrain 1 + "
-                     f"outer 1 in {wall:.1f} s: gmm {rec['gmm_ms']:.1f} ms, "
-                     f"o1 {rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms, o3 "
-                     f"{rec['o3_ms']:.1f} ms | o1_pairs {rec['o1_pairs']:.0f} "
-                     f"o2_pairs {rec['o2_pairs']:.0f} | NMI "
-                     f"{rec['nmi']:.4f} | launches {launched}")
-        return launched
-
-    bench_launches = bench_run("bench", "scan",
-                               ("walk_sgns_bf16", "star_sgns_bf16"))
-    gen_launches = bench_run("bench gen", "kernel",
-                             ("walk_sgns_gen_bf16", "star_sgns_bf16"))
+    # ComETrainer, with the walker and with walk_gen="kernel" (bench_run:
+    # phase 5c)
+    bench_launches = bench_run("bench", "scan", ("K1b", "K2b"))
+    gen_launches = bench_run("bench gen", "kernel", ("K4", "K2b"))
 
     # 14. the large-V path through the CLI: synthetic-10m at full width,
     # walks per node 5, pretrain 1, outer 1 (see the module docstring)
@@ -3159,6 +3490,24 @@ def main() -> int:
                         f"{k} {v[0]:.2f}" for k, v in p4["variants"].items())
           + f" | launches {probe_launches}")
 
+    # 15 (256). P3 with the table 256 wide: its MATH section runs K2b's
+    # column-slab passes
+    reset_counts()
+    p3w = probe_star.run(dev, log=lambda m: phase("P3 256", m), d=256)
+    p3w_launches = counts()
+    check_launches("P3 256", p3w_launches, ("star_probe",),
+                   tuple(k for k in kernels
+                         if k not in ("star_probe", "star_sgns_bf16")),
+                   gmm=False)
+    s3, m3, sneg3 = p3w.pop("inputs")
+    p3w_bound = star_bound(s3, m3, sneg3, p3w["pairs"], 256, True, PAD_META)
+    phase("probes 256", f"P3 at d 256: full {p3w['ms']:.3f} ms a step "
+                        f"({p3w['rows']['full']:.2f} us/group; K2b "
+                        f"{p3w['k2b_us']:.2f}), max_abs "
+                        f"{p3w['max_abs_err']:.3e} vs K2b's plain version, "
+                        f"bound {p3w_bound[0]:.4f} ms | launches "
+                        f"{p3w_launches['star_probe']} | {smi}")
+
     # 15b. the macro step as one replayed graph
     graph_phase(dev, smi)
 
@@ -3231,6 +3580,10 @@ def main() -> int:
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
+
+    def wide_entry(name, src, replaces, launches, r):
+        return entry(name, src, replaces, launches, r["err"][0], r["ms"],
+                     r["plain_ms"], r["bound"])
 
     p1, p1_launches = lv["p1"], lv["p1_launches"]
     pg = p1[(2, 262144)]  # the path's bf16 rows, one macro step's worth
@@ -3319,6 +3672,33 @@ def main() -> int:
               wide_launches["gmm_inverse"], g1["inverse_err_256"],
               g1["inverse_ms_256"], g1["inverse_plain_ms_256"],
               g1["inverse_bound_256"], g1["inverse_lib_ms_256"]),
+        # the other modes at dim 256, their passes in column slabs:
+        # launches from phase 5c (P3's from its d-256 run in phase 15),
+        # the rest from phase 4k (P3's from phase 15)
+        wide_entry("walk_sgns_bf16_d256", "walk_sgns.cu",
+                   "come_tpu/ops/pallas_walk_sgns.py:129",
+                   tiers256["bench 256"]["walk_sgns_bf16"],
+                   blog256["K1b bench"]),
+        wide_entry("walk_sgns_gen_bf16_d256", "walk_sgns.cu",
+                   "come_tpu/ops/pallas_walk_sgns.py:695",
+                   tiers256["bench gen 256"]["walk_sgns_gen_bf16"],
+                   blog256["K4 bench"]),
+        wide_entry("walk_sgns_bf16_tables_d256", "walk_sgns.cu",
+                   "come_tpu/ops/pallas_walk_sgns.py:377",
+                   tiers256["K3 256"]["walk_sgns_bf16_tables"], lv["k3_256"]),
+        wide_entry("star_sgns_bf16_d256", "star_sgns.cu",
+                   "come_tpu/ops/pallas_star_sgns.py:78",
+                   tiers256["bench 256"]["star_sgns_bf16"],
+                   blog256["K2b bench"]),
+        wide_entry("fused_sgns_d256", "sgns_fused.cu",
+                   "come_tpu/ops/pallas_sgns.py:100",
+                   tiers256["micro 256"]["fused_sgns"], blog256["K6"]),
+        wide_entry("fused_sgns_tied_d256", "sgns_fused.cu",
+                   "come_tpu/ops/pallas_sgns.py:185",
+                   tiers256["micro 256"]["fused_sgns_tied"], blog256["K7"]),
+        entry("star_probe_d256", "star_probe.cu", "scripts/probe_star.py:33",
+              p3w_launches["star_probe"], p3w["max_abs_err"], p3w["ms"],
+              p3w["plain_ms"], p3w_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

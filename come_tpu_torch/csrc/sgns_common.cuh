@@ -23,8 +23,8 @@
 // so the grid is (slots / 64) x (pool splits), sized to the CTAs that fit
 // on the card at once (by the kernel's occupancy: 2-3 an SM); dphi is
 // merged once per CTA and dneg once per chunk, by 16-byte f32 atomics.
-// Past MAX_DIM the f32 pass works in column slabs
-// (negative_f32_slab_kernel; see the note at SLAB); the bf16 one refuses.
+// Past MAX_DIM both work in column slabs (negative_f32_slab_kernel,
+// negative_bf16_slab_kernel; see the note at SLAB).
 //
 //   * f32 (negative_f32_kernel: K1, K2, K5, K6, K7): every product and sum
 //     in f32 on the SIMT units (FFMA; its checks allow no TF32).  Each of
@@ -105,8 +105,7 @@ constexpr int THREADS = 256;   // 8 warps
 constexpr int NWARPS = THREADS / 32;
 constexpr int KMAX = 8;        // d <= 32 * KMAX for per-lane accumulators
 constexpr int MAX_DIM = 192;   // the widest d whose rows the passes stage
-                               // whole; past it the f32 passes work in
-                               // column slabs and the bf16 ones refuse
+                               // whole; past it they work in column slabs
 
 // PDL's two sides (the note above): wait until the kernels this one depends
 // on have completed and their writes are visible; let the next kernel in
@@ -332,8 +331,9 @@ static __device__ __forceinline__ void atomic_add4(float* row, int d, int c,
   atomic_add4(row, d, c, v, d % 4 == 0);
 }
 
-// Column slabs.  The f32 passes of K1, K5 and K2 past MAX_DIM (their
-// whole rows would not fit in shared memory) stage their rows SLAB columns
+// Column slabs.  Past MAX_DIM the band, star and negative passes, f32 and
+// bf16 (their whole rows would not fit in shared memory, nor a warp's dphi
+// in registers), stage their rows SLAB columns
 // at a time: a row pointer then points at the slab's first column, d is
 // the slab's width w (the last slab may be narrower), and 16-byte accesses
 // need the table's d % 4 == 0 (`vec`), not w's.  Each pass sweeps the
@@ -1009,28 +1009,48 @@ static __device__ __forceinline__ void frag_b(unsigned b[2],
 // (col = the tile's first column + 2 * (lane & 3)); ok_r and ok_r8 say
 // whether each row is written, columns >= d are not.  With d % 4 == 0 two
 // neighbouring lanes pool their fragments into one 16-byte atomic each.
-static __device__ __forceinline__ void red_tile(float* out, int d, int r,
-                                                bool ok_r, bool ok_r8,
-                                                int col, const float c[4]) {
+// The general form: rows ld apart, columns >= w not written, 16-byte
+// atomics when `vec` (ld % 4 == 0 and w % 4 == 0; a column slab's out
+// points at its first column, w is its width).
+static __device__ __forceinline__ void red_tile(float* out, int ld, int w,
+                                                bool vec, int r, bool ok_r,
+                                                bool ok_r8, int col,
+                                                const float c[4]) {
   const float x0 = __shfl_xor_sync(0xffffffffu, c[0], 1);
   const float x1 = __shfl_xor_sync(0xffffffffu, c[1], 1);
   const float x2 = __shfl_xor_sync(0xffffffffu, c[2], 1);
   const float x3 = __shfl_xor_sync(0xffffffffu, c[3], 1);
-  if (d % 4 == 0) {
+  if (vec) {
     const bool odd = threadIdx.x & 1;
     const int row = odd ? r + 8 : r, c0 = odd ? col - 2 : col;
-    if ((odd ? ok_r8 : ok_r) && c0 < d)
-      atomicAdd(reinterpret_cast<float4*>(out + (size_t)row * d + c0),
+    if ((odd ? ok_r8 : ok_r) && c0 < w)
+      atomicAdd(reinterpret_cast<float4*>(out + (size_t)row * ld + c0),
                 odd ? make_float4(x2, x3, c[2], c[3])
                     : make_float4(c[0], c[1], x0, x1));
     return;
   }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    if (col + e >= d) continue;
-    if (ok_r) atomicAdd(out + (size_t)r * d + col + e, c[e]);
-    if (ok_r8) atomicAdd(out + (size_t)(r + 8) * d + col + e, c[2 + e]);
+    if (col + e >= w) continue;
+    if (ok_r) atomicAdd(out + (size_t)r * ld + col + e, c[e]);
+    if (ok_r8) atomicAdd(out + (size_t)(r + 8) * ld + col + e, c[2 + e]);
   }
+}
+
+static __device__ __forceinline__ void red_tile(float* out, int d, int r,
+                                                bool ok_r, bool ok_r8,
+                                                int col, const float c[4]) {
+  red_tile(out, d, d, d % 4 == 0, r, ok_r, ok_r8, col, c);
+}
+
+// m[0..3] = v rounded to bf16 (nearest even): one 8-byte store.
+static __device__ __forceinline__ void put_bf16(__nv_bfloat16* m, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(m) = u;
 }
 
 // bf16 negative pass of one 64-slot tile against the pool chunks
@@ -1070,15 +1090,6 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
       return k < KP ? cneg + (size_t)k * d : nullptr;
     };
   };
-  // a row's 4 elements rounded to bf16, one 8-byte store
-  auto put = [](__nv_bfloat16* m, float4 v) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 u;
-    u.x = *reinterpret_cast<const unsigned*>(&lo);
-    u.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(m) = u;
-  };
   constexpr int CU = NTILE / 2;  // a chunk's pieces per thread
   if (threadIdx.x < NEG_MS) rows[threadIdx.x] = ids[base + threadIdx.x];
   pdl_wait();
@@ -1090,7 +1101,7 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
   __syncthreads();
   stage_rows<NEG_THREADS, 8, T>(
       NEG_MS, d, dp, [&](int i) { return table + (size_t)rows[i] * d; },
-      [&](int i, int c, float4 v) { put(ph + i * sa + c, v); });
+      [&](int i, int c, float4 v) { put_bf16(ph + i * sa + c, v); });
 
   float acc[NTILE][4];  // dphi of the warp's 16 rows
 #pragma unroll
@@ -1104,7 +1115,7 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
     __syncthreads();  // the staging above, or the last chunk's reads
     store_batch<NEG_THREADS, CU>(
         next, threadIdx.x, NEG_KC, dp,
-        [&](int j, int c, float4 v) { put(cn + j * sa + c, v); });
+        [&](int j, int c, float4 v) { put_bf16(cn + j * sa + c, v); });
     if (ch + ny < nch)
       load_batch<NEG_THREADS, CU, float>(next, threadIdx.x, NEG_KC, d, dp,
                                          pool_row(ch + ny));
@@ -1202,6 +1213,232 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
   block_add<NEG_THREADS>(loss, &stats[0]);
 }
 
+// ------------------------------------------ bf16 pass in column slabs
+
+// Staged bf16 slab rows: SLAB + 8 elements apart (an odd multiple of 16
+// bytes, as neg_dp's strides), g by slot NEG_KC + 8 apart.
+constexpr int NEGB_SA = SLAB + 8;
+constexpr int NEGB_SK = NEG_KC + 8;
+
+static inline size_t negative_bf16_slab_smem_bytes() {
+  return 2 * ((size_t)(NEG_MS + NEG_KC) * NEGB_SA +
+              NEGS_PMAX * NEG_MS * NEGB_SK) +
+         sizeof(float) * NEG_MS;
+}
+
+// What negative_bf16_kernel computes, for any d, with the rows staged one
+// column slab at a time (SLAB columns; see the note at SLAB), in the
+// structure of negative_f32_slab_kernel.  A CTA takes the 64-slot tile
+// blockIdx.x and its m <= NEGS_PMAX pool chunks blockIdx.y, blockIdx.y +
+// ny, ...:
+//   sweep A, for each slab: the tile's rows staged as bf16, then each
+//     chunk's in turn, and each chunk's score fragments take the slab's
+//     part by mma.m16n8k16 into f32 accumulators held across the slabs
+//     (warp w: slots 16w.., 4 x 4 floats a chunk), so no partial score is
+//     rounded: the sum is the one f32 sum the TPU's bf16-operand product
+//     forms, its slab parts added in column order as the whole-row loop
+//     adds its k-steps;
+//   g and the loss from the whole scores, g rounded to bf16 as the TPU
+//     rounds gneg and kept by slot in shared memory, one [64][32 + 8]
+//     tile a chunk;
+//   sweep B, for each slab: the tile's rows and each chunk's re-staged;
+//     the slab's columns of the warp's dphi accumulate over the chunks in
+//     registers in negative_bf16_kernel's NTILE 16 form (SLAB = 128
+//     columns) and are added once, after the last chunk; each chunk's dneg
+//     of the slab is added atomically, once per chunk.
+// Only the slabs are staged, so shared memory is 47 KB at every d.  (Whole
+// bf16 rows would fit well past 192, 72 KB for 96 rows at d 384, but not
+// at any d, and dphi would still need slabs: its registers are the limit.)
+// A ragged last slab is zero-padded to the mma depth (16) in shared memory.
+// grid (slots / 64, ny), block NEG_THREADS.  A tile whose slots all have
+// nt = 0 returns at once.  PDL as negative_bf16_kernel: it triggers once
+// the last slab's dphi is added.
+template <typename T>
+static __global__ void __launch_bounds__(NEG_THREADS, 3)
+negative_bf16_slab_kernel(const T* __restrict__ table,
+                          const int* __restrict__ ids,
+                          const float* __restrict__ nt,
+                          const float* __restrict__ cneg, int d, int KP,
+                          int ny, float negw, float* __restrict__ dphi,
+                          float* __restrict__ dneg,
+                          double* __restrict__ stats) {
+  extern __shared__ float4 negb_smem[];
+  constexpr int sa = NEGB_SA, sk = NEGB_SK;
+  __nv_bfloat16* ph = reinterpret_cast<__nv_bfloat16*>(negb_smem);  // [MS][sa]
+  __nv_bfloat16* cn = ph + NEG_MS * sa;                              // [KC][sa]
+  __nv_bfloat16* gs = cn + NEG_KC * sa;  // [PMAX][MS][sk]: g by slot
+  float* nts = reinterpret_cast<float*>(gs + NEGS_PMAX * NEG_MS * sk);
+  __shared__ int rows[NEG_MS];
+  const int base = blockIdx.x * NEG_MS, t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int fr = lane >> 2, fc = 2 * (lane & 3);  // fragment row, column
+  const int nch = (KP + NEG_KC - 1) / NEG_KC;
+  const int py = blockIdx.y;  // this CTA's pool split: chunks py, py + ny..
+  const int m = py < nch ? (nch - 1 - py) / ny + 1 : 0;
+  const bool vec = d % 4 == 0;
+  if (t < NEG_MS) rows[t] = ids[base + t];
+  pdl_wait();
+  float own = 0.0f;
+  if (t < NEG_MS) {
+    // through L2 (ld.global.cg): nt is the pass just before's output, and a
+    // load through a const __restrict__ pointer is an invariant load, which
+    // the compiler may move above pdl_wait()'s memory clobber (on the card
+    // this kernel then read the last step's nt)
+    own = __ldcg(nt + base + t);
+    nts[t] = own;
+  }
+  if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
+  // a slab's columns, zero-padded to the mma depth
+  auto depth = [](const Slab& sl) { return (sl.w + 15) & ~15; };
+  auto stage_ph = [&](const Slab& sl) {
+    stage_rows<NEG_THREADS, 8, T>(
+        NEG_MS, sl.w, depth(sl),
+        [&](int i) { return table + (size_t)rows[i] * d + sl.s0; },
+        [&](int i, int c, float4 v) { put_bf16(ph + i * sa + c, v); }, vec);
+  };
+  auto stage_cn = [&](int ch, const Slab& sl) {
+    stage_rows<NEG_THREADS, 4, float>(
+        NEG_KC, sl.w, depth(sl),
+        [&](int j) {
+          const int k = ch * NEG_KC + j;
+          return k < KP ? cneg + (size_t)k * d + sl.s0 : nullptr;
+        },
+        [&](int j, int c, float4 v) { put_bf16(cn + j * sa + c, v); }, vec);
+  };
+  const int ns = n_slabs(d), r0 = 16 * warp;
+
+  // sweep A: scores of the warp's 16 slots against each chunk's 32 rows,
+  // summed over the slabs
+  float s[NEGS_PMAX][NEG_KC / 8][4];
+#pragma unroll
+  for (int k = 0; k < NEGS_PMAX; ++k)
+#pragma unroll
+    for (int n = 0; n < NEG_KC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[k][n][e] = 0.0f;
+  for (int n = 0; n < ns; ++n) {
+    const Slab sl(n, d);
+    const int dk = depth(sl);
+    __syncthreads();  // the last slab's reads of ph
+    stage_ph(sl);
+#pragma unroll
+    for (int k = 0; k < NEGS_PMAX; ++k) {
+      if (k >= m) break;
+      __syncthreads();  // ph staged; the last chunk's reads of cn
+      stage_cn(py + k * ny, sl);
+      __syncthreads();
+#pragma unroll
+      for (int k0 = 0; k0 < SLAB; k0 += 16) {
+        if (k0 >= dk) break;
+        unsigned a[4];
+        frag_a<false>(a, ph, sa, r0, k0);
+#pragma unroll
+        for (int c = 0; c < NEG_KC / 8; ++c) {
+          unsigned b[2];
+          frag_b<false>(b, cn, sa, 8 * c, k0);
+          mma_bf16(s[k][c], a, b);
+        }
+      }
+    }
+  }
+  // g = sigmoid(s) * w and the loss -w * log(sigmoid(-s)), by slot
+  float loss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NEGS_PMAX; ++k) {
+    if (k >= m) break;
+    const int j0 = (py + k * ny) * NEG_KC;
+    __nv_bfloat16* g = gs + k * NEG_MS * sk;
+#pragma unroll
+    for (int c = 0; c < NEG_KC / 8; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // fragment rows fr and fr + 8
+        const int i = r0 + fr + 8 * h, j = 8 * c + fc;
+        const float w = negw * nts[i];
+        float gv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[k][c][2 * h + e];
+          const float wj = j0 + j + e < KP ? w : 0.0f;
+          const float ex = expf(-fabsf(x));
+          gv[e] = (x >= 0.0f ? 1.0f : ex) / (1.0f + ex) * wj;
+          loss -= wj * (fminf(-x, 0.0f) - log1pf(ex));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(g + i * sk + j) =
+            __floats2bfloat162_rn(gv[0], gv[1]);
+      }
+  }
+
+  // sweep B: each slab's columns of dphi and dneg
+  const int ir = r0 + fr;
+  const bool ok = nts[ir] != 0.0f, ok8 = nts[ir + 8] != 0.0f;
+  const int mr = 16 * (warp & 1);  // dneg: the chunk rows of this warp
+  for (int n = 0; n < ns; ++n) {
+    const Slab sl(n, d);
+    const int ntiles = depth(sl) / 8, half = ntiles / 2;
+    const int n0 = (warp >> 1) * half;  // dneg: this warp's column tiles
+    __syncthreads();  // g written; the last slab's reads of ph
+    stage_ph(sl);
+    float acc[SLAB / 8][4];  // the slab's dphi of the warp's 16 rows
+#pragma unroll
+    for (int c = 0; c < SLAB / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+    for (int k = 0; k < m; ++k) {
+      const int j0 = (py + k * ny) * NEG_KC;
+      const __nv_bfloat16* g = gs + k * NEG_MS * sk;
+      __syncthreads();  // ph staged; the last chunk's reads of cn
+      stage_cn(py + k * ny, sl);
+      __syncthreads();
+      // dphi[r0.., slab] += G[r0.., chunk] . C[chunk, slab]
+#pragma unroll
+      for (int k0 = 0; k0 < NEG_KC; k0 += 16) {
+        unsigned a[4];
+        frag_a<false>(a, g, sk, r0, k0);
+#pragma unroll
+        for (int c = 0; c < SLAB / 8; ++c) {
+          if (c >= ntiles) break;
+          unsigned b[2];
+          frag_b<true>(b, cn, sa, 8 * c, k0);
+          mma_bf16(acc[c], a, b);
+        }
+      }
+      // dneg[chunk rows mr.., this warp's slab columns] += G^T . Phi
+      float q[SLAB / 16][4];
+#pragma unroll
+      for (int c = 0; c < SLAB / 16; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) q[c][e] = 0.0f;
+#pragma unroll
+      for (int k0 = 0; k0 < NEG_MS; k0 += 16) {
+        unsigned a[4];
+        frag_a<true>(a, g, sk, mr, k0);
+#pragma unroll
+        for (int c = 0; c < SLAB / 16; ++c) {
+          if (c >= half) break;
+          unsigned b[2];
+          frag_b<true>(b, ph, sa, 8 * (n0 + c), k0);
+          mma_bf16(q[c], a, b);
+        }
+      }
+      const int jr = j0 + mr + fr;
+#pragma unroll
+      for (int c = 0; c < SLAB / 16; ++c) {
+        if (c >= half) break;
+        red_tile(dneg + (size_t)j0 * d + sl.s0, d, sl.w, vec, mr + fr,
+                 jr < KP, jr + 8 < KP, 8 * (n0 + c) + fc, q[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < SLAB / 8; ++c) {
+      if (c >= ntiles) break;
+      red_tile(dphi + (size_t)base * d + sl.s0, d, sl.w, vec, ir, ok, ok8,
+               8 * c + fc, acc[c]);
+    }
+  }
+  pdl_trigger();
+  block_add<NEG_THREADS>(loss, &stats[0]);
+}
+
 // PDL edges need CUDA 12.3 or later where the step is recorded as a graph;
 // below it the loops launch without the attribute (come_pdl_enabled()).
 #if CUDART_VERSION >= 12030
@@ -1270,19 +1507,23 @@ struct NegativePass : NegSetup {
                 "bf16 tables take the bf16 pass");
 
   cudaError_t init(int d, int KP, int nslots) {
-    if (d < 1 || (BF16 && d > MAX_DIM) || KP < 1 || nslots % NEG_MS)
-      return cudaErrorInvalidValue;
-    if constexpr (!BF16) {
-      if (d > MAX_DIM) {  // column slabs, at most NEGS_PMAX chunks a CTA
+    if (d < 1 || KP < 1 || nslots % NEG_MS) return cudaErrorInvalidValue;
+    if (d > MAX_DIM) {  // column slabs, at most NEGS_PMAX chunks a CTA
+      // the slab kernels' shared memory is the same at every d, so the cap
+      // a plan of one width sets serves every other
+      cudaError_t e;
+      if constexpr (BF16) {
+        smem = negative_bf16_slab_smem_bytes();
+        e = size(negative_bf16_slab_kernel<T>, smem, KP, nslots);
+      } else {
         smem = negative_slab_smem_bytes();
-        const cudaError_t e =
-            size(negative_f32_slab_kernel, smem, KP, nslots);
-        const int nch = (KP + NEG_KC - 1) / NEG_KC;
-        const int need = (nch + NEGS_PMAX - 1) / NEGS_PMAX;
-        if (ny < need) ny = (need + cluster - 1) / cluster * cluster;
-        grid.y = ny;
-        return e;
+        e = size(negative_f32_slab_kernel, smem, KP, nslots);
       }
+      const int nch = (KP + NEG_KC - 1) / NEG_KC;
+      const int need = (nch + NEGS_PMAX - 1) / NEGS_PMAX;
+      if (ny < need) ny = (need + cluster - 1) / cluster * cluster;
+      grid.y = ny;
+      return e;
     }
     smem = BF16 ? negative_bf16_smem_bytes(d) : negative_f32_smem_bytes(d);
     // the cap is the template's largest d (128 or MAX_DIM), so plans of
@@ -1359,7 +1600,11 @@ struct NegativePass : NegSetup {
                      bool pdl = false) const {
     const dim3 b(NEG_THREADS);
     if constexpr (BF16)
-      return d <= 128
+      return d > MAX_DIM
+                 ? launch_kernel(negative_bf16_slab_kernel<T>, grid, b, smem,
+                                 stream, pdl, 0, table, ids, nt, cneg, d, KP,
+                                 ny, negw, dphi, dneg, stats)
+             : d <= 128
                  ? launch_kernel(negative_bf16_kernel<16, T>, grid, b, smem,
                                  stream, pdl, 0, table, ids, nt, cneg, d, KP,
                                  ny, negw, dphi, dneg, stats)

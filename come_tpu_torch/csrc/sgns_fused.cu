@@ -44,7 +44,11 @@
 //     its PDL wait, while the negative pass runs, and waits only to exit:
 //     a tile's critical path is its negative pass and its scatter;
 //   * the positive pass is one warp per pair with lanes across d, the
-//     scatter one warp per pair with 16-byte loads and atomics.
+//     scatter one warp per pair with 16-byte loads and atomics;
+//   * any d: past 192 the negative pass takes its column-slab form
+//     (sgns_common.cuh: SLAB; the plan's sizing keeps at most NEGS_PMAX
+//     pool chunks a CTA), and past 256 the positive pass loops over a
+//     lane's columns instead of holding them in registers.
 // The table pointers are not __restrict__: K7 passes one table as both.
 
 #include "sgns_common.cuh"
@@ -107,6 +111,8 @@ static __global__ void fused_stage_kernel(
 // Positive term of one tile, one warp per pair i < TP (grid ceil(TP / 8),
 // block THREADS): dphi[i] = g cpos, dcpos[i] = g phi for the valid pairs
 // (nt[i] != 0), and the positive loss and the pair count added to stats.
+// Each lane keeps its columns lane + 32 q of both rows in registers up to
+// d = 32 * KMAX (256), and loops over them past it.
 // PDL: it runs after the tile's negative pass, and all its work comes
 // before its wait: what it reads (ids, nt, the table rows the last scatter
 // wrote, read through L2) no kernel still running writes, and what it
@@ -124,7 +130,26 @@ fused_pos_kernel(const float* emb_in, const float* emb_out,
   const int i = blockIdx.x * NWARPS + (threadIdx.x >> 5);
   const bool valid = i < TP && nt[i] != 0.0f;  // warp-uniform
   float loss = 0.0f, pairs = 0.0f;
-  if (valid) {
+  if (valid && d > 32 * KMAX) {
+    // a lane's share of the rows would not fit its registers: the dot
+    // product first (each lane's terms in the order of the form below),
+    // then the rows re-read from L2 for the two updates
+    const float* pr = emb_in + (size_t)c[i] * d;
+    const float* cr = emb_out + (size_t)x[i] * d;
+    float p = 0.0f;
+    for (int k = lane; k < d; k += 32)
+      p = fmaf(__ldcg(pr + k), __ldcg(cr + k), p);
+    const float s = warp_sum(p);
+    const float g = sigmoid_f(s) - 1.0f;
+    if (lane == 0) {
+      loss = -log_sigmoid_f(s);
+      pairs = 1.0f;
+    }
+    for (int k = lane; k < d; k += 32) {
+      dphi[(size_t)i * d + k] = g * __ldcg(cr + k);
+      dcpos[(size_t)i * d + k] = g * __ldcg(pr + k);
+    }
+  } else if (valid) {
     const float* pr = emb_in + (size_t)c[i] * d;
     const float* cr = emb_out + (size_t)x[i] * d;
     float ph[KMAX], cp[KMAX], p = 0.0f;
@@ -284,7 +309,7 @@ static int fused_step(StepGraph* p, int instantiate, float* emb_in,
                       float* cneg, float* dneg, float* dphi, float* dcpos,
                       int d, int n_tiles, int TP, int KP, float lr,
                       float negw, cudaStream_t stream) {
-  if (p == nullptr || d > MAX_DIM || d < 1 || n_tiles < 0 || TP < 1 ||
+  if (p == nullptr || d < 1 || n_tiles < 0 || TP < 1 ||
       KP < 1 || in.P < 0 || in.P > (long long)n_tiles * TP ||
       in.P <= (long long)(n_tiles - 1) * TP)
     return (int)cudaErrorInvalidValue;

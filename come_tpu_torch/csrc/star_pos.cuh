@@ -239,7 +239,9 @@ static inline size_t star_pos_slab_smem_bytes() {
   return sizeof(float) * ((size_t)BLK * SLAB_STRIDE + BLK);
 }
 
-// star_pos_kernel's f32 pass (K2) for any d, its rows staged one column
+// star_pos_kernel for any d (K2, and K2b with BF16: the staged slab rows
+// and g2 rounded as there, each score the f32 sum of the rounded products,
+// its slabs' parts added in column order), its rows staged one column
 // slab at a time (sgns_common.cuh: SLAB): the segments, hubs, pads and
 // owned range are found as there; sweep A stages each slab of the owned
 // rows and adds every (hub, leaf) pair's slab part of its score to sc[r]
@@ -247,6 +249,7 @@ static inline size_t star_pos_slab_smem_bytes() {
 // the sums; sweep B re-stages each slab and writes its columns of every
 // owned slot's dphi (and zeroed dphin).  Shared memory: 128 rows of SLAB
 // columns, 68 KB.  Grid, outputs and PDL as star_pos_kernel.
+template <bool BF16>
 static __global__ void __launch_bounds__(STAR_THREADS)
 star_pos_slab_kernel(const float* __restrict__ emb,
                      const int* __restrict__ slots,
@@ -287,7 +290,9 @@ star_pos_slab_kernel(const float* __restrict__ emb,
         nr, sl.w, sl.wp,
         [&](int i) { return emb + (size_t)ids[lo + i] * d + sl.s0; },
         [&](int i, int c, float4 v) {
-          *reinterpret_cast<float4*>(phi + i * ds + c) = v;
+          *reinterpret_cast<float4*>(phi + i * ds + c) =
+              make_float4(mxu<BF16>(v.x), mxu<BF16>(v.y), mxu<BF16>(v.z),
+                          mxu<BF16>(v.w));
         },
         vec);
   };
@@ -326,7 +331,7 @@ star_pos_slab_kernel(const float* __restrict__ emb,
   for (int r = t; r < nr; r += STAR_THREADS) {
     const int u = lo + r;
     if (ms[u] < 0 || hub[u] == u) continue;
-    gl[r] = 2.0f * (sigmoid_f(sc[r]) - 1.0f);
+    gl[r] = 2.0f * mxu<BF16>(sigmoid_f(sc[r]) - 1.0f);
     loss -= 2.0f * log_sigmoid_f(sc[r]);
   }
 
@@ -360,8 +365,8 @@ star_pos_slab_kernel(const float* __restrict__ emb,
 
 // The star pass of one instance: init() (checks d, sets the kernel's
 // shared-memory cap to what MAX_DIM needs, so a plan of another width never
-// lowers it; past MAX_DIM, f32 only, the slab kernel's), then launch() once
-// per group of 8 rows.
+// lowers it; past MAX_DIM the slab kernel's, the same at every d), then
+// launch() once per group of 8 rows.
 namespace {  // internal linkage (sgns_common.cuh: NegativePass)
 
 template <bool BF16>
@@ -373,10 +378,10 @@ struct StarPosPass {
   }
 
   cudaError_t init(int d) {
-    if (d < 1 || (BF16 && d > MAX_DIM)) return cudaErrorInvalidValue;
+    if (d < 1) return cudaErrorInvalidValue;
     smem = smem_bytes(d);
     if (d > MAX_DIM)
-      return cudaFuncSetAttribute(star_pos_slab_kernel,
+      return cudaFuncSetAttribute(star_pos_slab_kernel<BF16>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem);
     return cudaFuncSetAttribute(star_pos_kernel<BF16>,
@@ -390,8 +395,8 @@ struct StarPosPass {
                      int d, float* dphi, float* dphin, float* nt,
                      double* stats, cudaStream_t stream,
                      bool pdl = false) const {
-    if (!BF16 && d > MAX_DIM)
-      return launch_kernel(star_pos_slab_kernel, dim3(STAR_NSTRIP, NBLK),
+    if (d > MAX_DIM)
+      return launch_kernel(star_pos_slab_kernel<BF16>, dim3(STAR_NSTRIP, NBLK),
                            dim3(STAR_THREADS), smem, stream, pdl, 0, emb,
                            slots, meta, d, dphi, dphin, nt, stats);
     return launch_kernel(star_pos_kernel<BF16>, dim3(STAR_NSTRIP, NBLK),

@@ -23,7 +23,11 @@
 // training steps; they exist to locate the cost.
 //
 // What bounds it: as K2b (the negative pass is compute, the gather and
-// scatter are row traffic); the probe only separates the sections.
+// scatter are row traffic); the probe only separates the sections.  Any d
+// that is a multiple of 4: past 192 MATH runs K2b's slab passes; the
+// gather and scatter stage `unroll` rows of d floats a CTA in shared
+// memory (probe_rows.cuh), so unroll * d * 4 bytes must fit in a block's
+// 227 KB (every unroll up to d 452, unroll 32 up to d 1816).
 
 #include "probe_rows.cuh"
 #include "sgns_common.cuh"
@@ -40,7 +44,7 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
                              float* dneg, float* dphi, float* nt, int d,
                              int G, int KP, int R, int sections, float lr,
                              float negw, cudaStream_t stream) {
-  if (d > MAX_DIM || d % 4 || R < 1) return (int)cudaErrorInvalidValue;
+  if (d % 4 || R < 1) return (int)cudaErrorInvalidValue;
   StarPosPass<BF16> pos;
   cudaError_t e = pos.init(d);
   if (e != cudaSuccess) return (int)e;

@@ -27,9 +27,8 @@
 // block.  The negative pass is the walk kernel's (sgns_common.cuh: FFMA
 // for K2, the tensor cores for K2b).  K2b's star pass rounds the staged
 // rows and each pair's g as they are made, a few conversions per element.
-// Past d 192 K2 stages its rows one column slab of 128 at a time
-// (star_pos_slab_kernel and the negative pass's slab form); K2b stops at
-// 192.
+// Past d 192 K2 and K2b stage their rows one column slab of 128 at a
+// time (star_pos_slab_kernel and the negative passes' slab forms).
 // The group loop is recorded as one CUDA graph that the card replays
 // (step_graph.cuh), each kernel after the first under programmatic
 // dependent launch (sgns_common.cuh).
@@ -109,7 +108,7 @@ static int star_step(StepGraph* p, int instantiate, float* emb,
                      double* stats, float* cneg, float* dneg, float* dphi,
                      float* nt, int d, int G, int KP, int R, float lr,
                      float negw, cudaStream_t stream) {
-  if (p == nullptr || d < 1 || (BF16 && d > MAX_DIM) || G < 1 || R < 1)
+  if (p == nullptr || d < 1 || G < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
   if (p->mode < 0) {
     StarPosPass<BF16> pos;

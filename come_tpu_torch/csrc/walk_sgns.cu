@@ -60,9 +60,9 @@
 // whose window reaches its slots instead of exchanging them, and writes its
 // slots' dphi and dctx itself, without atomics.  The staged range never
 // passes the walk (at most 128 rows: 217 KB at d 192), so no window is cut.
-// Past d 192 the f32 modes (K1, K5) stage the same rows one column slab of
-// 128 at a time (walk_pos_slab_kernel, and the negative pass's slab form;
-// sgns_common.cuh: SLAB); the bf16 modes and K4 stop at 192.
+// Past d 192 every mode stages the same rows one column slab of 128 at a
+// time (walk_pos_slab_kernel, and the negative passes' slab forms;
+// sgns_common.cuh: SLAB).
 // The negative pass runs on the tensor cores in the bf16 modes
 // (sgns_common.cuh).  Groups keep their order with stream-ordered launches;
 // the host makes one call per macro step and the loop over groups runs
@@ -305,7 +305,7 @@ static inline size_t walk_pos_slab_smem_bytes(int L, int W) {
          sizeof(int) * (2 * R + 2 * STRIP * R);
 }
 
-// walk_pos_kernel's f32 pass (K1, K5) for any d, its rows staged one column
+// walk_pos_kernel for any d, in every mode, its rows staged one column
 // slab at a time (sgns_common.cuh: SLAB).  The pairs are listed as there;
 // sweep A stages each slab of the strip's rows and adds every pair's slab
 // part of its score to sc (the same 8 lanes own a pair in every slab, so
@@ -313,16 +313,21 @@ static inline size_t walk_pos_slab_smem_bytes(int L, int W) {
 // B re-stages each slab and writes its columns of the strip's dphi, dctx
 // and zeroed dphin.  Shared memory holds 2 R rows of SLAB columns (at most
 // 128 rows: 135 KB for a whole walk, 30 KB at W 10), so a window is never
-// cut.  Grid, outputs and PDL as walk_pos_kernel.
-template <bool PAIRED>
+// cut.  BF16 rounds the staged slab rows and each g as walk_pos_kernel
+// does (not with PAIRED); the scores are the f32 sums of the rounded
+// products, the slabs' parts added in column order; T is the tables'
+// element type (bf16 rows widened exactly by to_f32).  Grid, outputs and
+// PDL as walk_pos_kernel.
+template <bool BF16, bool PAIRED, typename T>
 static __global__ void __launch_bounds__(THREADS)
-walk_pos_slab_kernel(const float* __restrict__ emb_in,
-                     const float* __restrict__ emb_out,
+walk_pos_slab_kernel(const T* __restrict__ emb_in,
+                     const T* __restrict__ emb_out,
                      const int* __restrict__ walks,
                      const int* __restrict__ wrow, int d, int L, int W,
                      float* __restrict__ dphi, float* __restrict__ dctx,
                      float* __restrict__ dphin, float* __restrict__ nt,
                      double* __restrict__ stats) {
+  constexpr bool RND = BF16 && !PAIRED;
   const int t0 = blockIdx.x * STRIP, base = blockIdx.y * BLK;
   if (t0 >= L) {  // padding slots: exact zeros, no pairs
     zero_strip(base, t0, d, dphi, dctx, dphin, nt);
@@ -360,7 +365,7 @@ walk_pos_slab_kernel(const float* __restrict__ emb_in,
   auto stage = [&](const Slab& sl) {
     // rows 0..R-1 of emb_in into phi, then the same rows of emb_out into
     // ctx, columns s0 .. s0 + w - 1
-    stage_rows<THREADS, 8, float>(
+    stage_rows<THREADS, 8, T>(
         2 * R, sl.w, sl.wp,
         [&](int i) {
           return (i < R ? emb_in + (size_t)rows[i] * d
@@ -368,7 +373,8 @@ walk_pos_slab_kernel(const float* __restrict__ emb_in,
         },
         [&](int i, int c, float4 v) {
           *reinterpret_cast<float4*>(phi + (i < R ? i : RM + i - R) * ds + c) =
-              v;
+              make_float4(mxu<RND>(v.x), mxu<RND>(v.y), mxu<RND>(v.z),
+                          mxu<RND>(v.w));
         },
         vec);
   };
@@ -404,7 +410,7 @@ walk_pos_slab_kernel(const float* __restrict__ emb_in,
   float loss = 0.0f;
   for (int p = threadIdx.x; p < np; p += THREADS) {
     const int pr = plist[p], rt = pr >> 16, ru = pr & 0xffff;
-    const float x = sc[p], g = sigmoid_f(x) - 1.0f;
+    const float x = sc[p], g = mxu<RND>(sigmoid_f(x) - 1.0f);
     const int t = lo + rt, u = lo + ru;
     if (t >= t0 && t < t1) {
       ga[(t - t0) * RM + ru] = g;
@@ -632,7 +638,7 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
   T* emb_in = static_cast<T*>(s.emb_in);
   T* emb_out = static_cast<T*>(s.emb_out);
   const int d = s.d, L = s.L, W = s.W, KP = s.KP, R = s.R;
-  const bool slab = d > MAX_DIM;  // f32 only (walk_step)
+  const bool slab = d > MAX_DIM;
   const size_t pos_smem =
       slab ? walk_pos_slab_smem_bytes(L, W) : walk_pos_smem_bytes(d, L, W);
   NegativePass<BF16, T> neg;
@@ -649,21 +655,11 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
       pdl = true;
     }
     const int* wr = PAIRED ? nullptr : s.wrow + (size_t)g * GROUP;
-    if constexpr (!BF16 && !TB16)
-      e = slab ? launch_kernel(walk_pos_slab_kernel<PAIRED>,
-                               dim3(NSTRIP, NBLK), dim3(THREADS), pos_smem,
-                               stream, pdl, 0, (const float*)emb_in,
-                               (const float*)emb_out, wg, wr, d, L, W, s.dphi,
-                               s.dctx, dphin, s.nt, s.stats)
-               : launch_kernel(walk_pos_kernel<BF16, PAIRED, T>,
-                               dim3(NSTRIP, NBLK), dim3(THREADS), pos_smem,
-                               stream, pdl, 0, emb_in, emb_out, wg, wr, d, L,
-                               W, s.dphi, s.dctx, dphin, s.nt, s.stats);
-    else
-      e = launch_kernel(walk_pos_kernel<BF16, PAIRED, T>, dim3(NSTRIP, NBLK),
-                        dim3(THREADS), pos_smem, stream, pdl, 0, emb_in,
-                        emb_out, wg, wr, d, L, W, s.dphi, s.dctx, dphin, s.nt,
-                        s.stats);
+    e = launch_kernel(slab ? walk_pos_slab_kernel<BF16, PAIRED, T>
+                           : walk_pos_kernel<BF16, PAIRED, T>,
+                      dim3(NSTRIP, NBLK), dim3(THREADS), pos_smem, stream,
+                      pdl, 0, (const T*)emb_in, (const T*)emb_out, wg, wr, d,
+                      L, W, s.dphi, s.dctx, dphin, s.nt, s.stats);
     if (e != cudaSuccess) return (int)e;
     pdl = true;
     e = neg.launch(emb_in, wg, s.nt, s.cneg, d, KP, s.negw, dphin, s.dneg,
@@ -704,24 +700,21 @@ template <bool BF16, bool PAIRED, typename T, bool SR>
 static int walk_step(StepGraph* p, int instantiate, int mode,
                      const WalkStep& s, cudaStream_t stream) {
   constexpr bool TB16 = !std::is_same<T, float>::value;
-  // past MAX_DIM only the f32 modes with walks given (K1, K5): the slab pass
-  const bool wide_ok = !BF16 && !TB16 && s.starts == nullptr;
-  if (p == nullptr || s.d < 1 || (s.d > MAX_DIM && !wide_ok) || s.G < 1 ||
+  if (p == nullptr || s.d < 1 || s.G < 1 ||
       s.L < 1 || s.L > BLK || s.W < 1 || s.R < 1 ||
       (PAIRED && (s.W != 1 || s.L % 2)) || (TB16 && s.d % 2))
     return (int)cudaErrorInvalidValue;
   if (p->mode < 0) {
-    // the cap is what the largest strip needs (d MAX_DIM, or a slab, and
-    // a whole walk)
+    // the caps are what the largest strip needs (d MAX_DIM, or a slab, and
+    // a whole walk), so a plan of another width never lowers them
     cudaError_t e = cudaFuncSetAttribute(
         walk_pos_kernel<BF16, PAIRED, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)walk_pos_smem_bytes(MAX_DIM, BLK, BLK));
-    if constexpr (!BF16 && !TB16)
-      if (e == cudaSuccess && s.d > MAX_DIM)
-        e = cudaFuncSetAttribute(walk_pos_slab_kernel<PAIRED>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)walk_pos_slab_smem_bytes(BLK, BLK));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(walk_pos_slab_kernel<BF16, PAIRED, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)walk_pos_slab_smem_bytes(BLK, BLK));
     if (e != cudaSuccess) return (int)e;
     NegativePass<BF16, T> neg;
     e = neg.init(s.d, s.KP, GROUP);

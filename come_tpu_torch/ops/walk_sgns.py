@@ -250,38 +250,27 @@ def _tables_bf16(emb_in, emb_out, paired: bool) -> bool:
     return bf16
 
 
-# The widest d whose rows the kernels stage whole.  Past it the f32 passes
-# of K1, K5 and K2 stage column slabs (csrc/sgns_common.cuh: SLAB) and take
-# any d; the bf16 modes (K1b, K3, K4, K2b, P3) and K6/K7 stop here.
-MAX_DIM = 192
-WIDE_KERNELS = ("K1", "K5", "K2")
-WIDE_ROW = "ROADMAP.md Queue 1 item 3b"
-
-
 def check_cuda_inputs(*tensors, kernel: str,
                       table_dtypes=(torch.float32,)):
     """Raise unless every tensor shares one device, the first two (the
-    tables) are contiguous and of one of ``table_dtypes``, and d fits
-    ``kernel`` (its name: "K1", "K5", "K2" take any d >= 1, every other
-    mode d <= MAX_DIM; bf16 tables need an even d, their writes go by
-    pairs)."""
+    tables) are contiguous and of one of ``table_dtypes``, and d >= 1 (even
+    for bf16 tables, whose writes go by pairs).  ``kernel`` names the
+    caller's mode (K1, K1b, K3, K4, K5, K2, K2b, P3, K6, K7) in the
+    message.  Every mode takes any d: past ``csrc/sgns_common.cuh``'s
+    MAX_DIM (192) the kernels stage column slabs."""
     dev = tensors[0].device
     for t in tensors:
         if t is not None and t.device != dev:
-            raise ValueError(f"tensors on {t.device} and {dev}")
+            raise ValueError(f"{kernel}: tensors on {t.device} and {dev}")
     for t in tensors[:2]:
         if t.dtype not in table_dtypes or not t.is_contiguous():
-            raise ValueError(f"tables must be contiguous {table_dtypes}")
+            raise ValueError(f"{kernel}: tables must be contiguous "
+                             f"{table_dtypes}")
     d = tensors[0].shape[1]
     if d < 1:
-        raise ValueError(f"dim {d} < 1")
-    if d > MAX_DIM and kernel not in WIDE_KERNELS:
-        raise ValueError(
-            f"{kernel} at dim {d}: past {MAX_DIM} the card runs only the "
-            f"f32 modes {', '.join(WIDE_KERNELS)}; {kernel} there is "
-            f"{WIDE_ROW}")
+        raise ValueError(f"{kernel}: dim {d} < 1")
     if tensors[0].dtype == torch.bfloat16 and d % 2:
-        raise ValueError("bf16 tables need an even dim")
+        raise ValueError(f"{kernel}: bf16 tables need an even dim")
 
 
 _RETRIES: dict[torch.device, torch.Tensor] = {}

@@ -196,8 +196,6 @@ class ShardedComETrainer(ComETrainer):
             self.o2_paired = (
                 a2a and shared and config.o2_mode in ("auto", "paired")
                 and _in_envelope(NWL, graph.num_nodes, self.mesh_workers))
-        self._tiers_set = True
-        self._refuse_capped_width()
 
     def tier_kernels(self) -> tuple[str | None, str | None]:
         """As the one-device trainer's; at model > 1 the micro-batched
@@ -206,11 +204,6 @@ class ShardedComETrainer(ComETrainer):
         if self.M > 1:
             ks = tuple(None if k in ("K6", "K7") else k for k in ks)
         return ks
-
-    def _refuse_capped_width(self) -> None:
-        # the base class's call comes before the mesh sets its tiers
-        if getattr(self, "_tiers_set", False):
-            super()._refuse_capped_width()
 
     # ---------------------------------------------------------------- setup
 

@@ -8,6 +8,8 @@ lr 0.025, negw 5 / KP, tables and draws from seed 0), it times the steps
 that carry the f32 negative pass and the star pass:
 
   * K1   one O1 macro step of 256 walks of 80 (W 10, 32 groups, R 1);
+  * K1b bench  the bench path's O1 step in bf16 (2048 walks, 256 groups,
+         R 8, alias pools);
   * K2   one star O2 step of 512 random layout rows (64 groups, R 1);
   * K2b  the bench path's star step in bf16 (the whole layout, R 8);
   * K5   one paired O2 step of 512 rows of 64 edges (64 groups);
@@ -18,9 +20,9 @@ that carry the f32 negative pass and the star pass:
   * K3   one O1 step on bf16 tables at the synthetic-10m shapes (V 500000,
          1024 walks of 80 drawn uniformly over V, KP 2048, 128 groups, SR).
 
-``--dim`` makes the tables that wide (karate's stay 16); past 192 only K1,
-K2 and K5 run, through their column-slab passes.  Each step runs on tables
-it updates in place.  For each it prints one JSON
+``--dim`` makes the tables that wide (karate's stay 16); past 192 every
+step runs through its column-slab passes.  Each step runs on tables it
+updates in place.  For each it prints one JSON
 line: the card's name and power limit, the step's CUDA-event ms (median of
 5 after one warm-up, each from an idle card), its ms per step over
 ``--run`` steps in a row (``chained_ms``; 10 by default) and, for a step
@@ -66,7 +68,7 @@ import time
 from pathlib import Path
 
 # each group loop by pass: (name, substring of its CUDA kernel's name)
-# kernel names by pass (a substring; past d 192 the band, star and f32
+# kernel names by pass (a substring; past d 192 the band, star and
 # negative passes are the *_slab_kernel forms)
 WALK_PASSES = (("band", "walk_pos_"), ("negative", "negative_"),
                ("scatter", "walk_scatter"), ("stage", "stage_pool"),
@@ -414,6 +416,23 @@ def steps(dev, d: int = 128):
 
     out = [("K1", k1_sub(G), G, WALK_PASSES, k1_sub, KP)]
 
+    # the bench path's O1 step: 2048 walks, alias pools, R 8, bf16 (drawn
+    # from a generator of its own, so the other steps' inputs stay as
+    # they were)
+    accept, alias = (torch.as_tensor(a, device=dev) for a in
+                     build_alias_table(unigram_weights(ds.graph.degrees)))
+    BB, RB = 2048, 8
+    GB = BB // 8
+    gb = torch.Generator(device=dev).manual_seed(1)
+    walks_b = random_walks(csr, torch.randint(0, V, (BB,), generator=gb,
+                                              device=dev), L, gb)
+    wrow_b = torch.randint(1, W + 1, (GB * 1024,), generator=gb, device=dev,
+                           dtype=torch.int32)
+    pools_1b = sample_alias(accept, alias, gb, (-(-GB // RB), KP))
+    out.append(("K1b bench", lambda: walk_sgns_step(
+        emb_in, emb_out, walks_b, wrow_b, pools_1b, lr, negw, window=W,
+        pool_refresh=RB, mxu_bf16=True), GB, WALK_PASSES, None, KP))
+
     u, v = ds.graph.edges_undirected()
     slots, meta = build_star_layout(u, v, V)
     lay_s, lay_m = slots.reshape(-1, 128), meta.reshape(-1, 128)
@@ -431,7 +450,7 @@ def steps(dev, d: int = 128):
 
     # the bench path's star step: the whole layout in ceil(NR / 8) * 8
     # rows, alias pools, R 8, bf16
-    NR, RB = lay_s.shape[0], 8
+    NR = lay_s.shape[0]
     rps = -(-NR // 8) * 8
     rperm = np.random.default_rng(0).permutation(NR)
     sl_b = torch.as_tensor(np.pad(lay_s[rperm], ((0, rps - NR), (0, 0))),
@@ -440,8 +459,6 @@ def steps(dev, d: int = 128):
                                   constant_values=PAD_META),
                            device=dev).reshape(-1)
     G2B = rps * 128 // 1024
-    accept, alias = (torch.as_tensor(a, device=dev) for a in
-                     build_alias_table(unigram_weights(ds.graph.degrees)))
     pools_b = sample_alias(accept, alias, gen, (-(-G2B // RB), KP))
     out.append(("K2b bench", lambda: star_sgns_step(
         emb_in, sl_b, mt_b, pools_b, lr, negw, pool_refresh=RB,
@@ -518,8 +535,7 @@ def main(argv=None) -> int:
     p.add_argument("--run", type=int, default=10,
                    help="steps in a row for chained_ms (default 10)")
     p.add_argument("--dim", type=int, default=128,
-                   help="the tables' width (default 128; past 192 only K1, "
-                        "K2 and K5 run)")
+                   help="the tables' width (default 128)")
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch

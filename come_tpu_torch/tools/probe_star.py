@@ -1,6 +1,6 @@
 """P3 on the card: what each section of the star kernel's group costs.
 
-    python -m come_tpu_torch.tools.probe_star
+    python -m come_tpu_torch.tools.probe_star [--dim D]
 
 The counterpart of ``scripts/probe_star.py:234-281``.  On the BlogCatalog
 stand-in's star layout (``sampling.stars.build_star_layout``), cut to whole
@@ -10,7 +10,9 @@ groups of 1024 slots, with a table and one pool drawn from
 one section off at a time, with single sections, with none, and with 8, 16,
 64 and 128 rows in flight per warp in the gather and scatter, and prints µs
 per group for each: CUDA events, after one warm-up, the median of 3 samples
-of 4 chained steps.  Beside them it prints K2b's own µs per group
+of 4 chained steps.  ``--dim`` (``run(d=...)``) makes the table that wide
+(a multiple of 4; past 192 the probe's MATH section runs K2b's column-slab
+passes).  Beside them it prints K2b's own µs per group
 (``ops/star_sgns.py`` with ``mxu_bf16``) at the same inputs, and the device
 time per group of each kernel of the full variant under ``torch.profiler``.
 
@@ -62,9 +64,9 @@ def chained_us(step, groups: int, samples: int = 3, chain: int = 4) -> float:
     return statistics.median(times)
 
 
-def inputs(device):
+def inputs(device, d: int = D):
     """(emb0, slots, meta, sneg, G) on ``device``: probe_star.py:238-248
-    on the port's dataset and layout."""
+    on the port's dataset and layout, the table d wide."""
     from come_tpu_torch.graphs import get_dataset
     from come_tpu_torch.ops.star_sgns import NWL
     from come_tpu_torch.sampling.stars import build_star_layout
@@ -75,7 +77,7 @@ def inputs(device):
     slots, meta = build_star_layout(u, v, V)
     T = slots.shape[0] // NWL * NWL
     rng = np.random.default_rng(0)
-    emb0 = rng.normal(size=(V, D)).astype(np.float32) * 0.1
+    emb0 = rng.normal(size=(V, d)).astype(np.float32) * 0.1
     sneg = rng.integers(0, V, KP).astype(np.int32)
     dev = torch.device(device)
     return (torch.as_tensor(emb0, device=dev),
@@ -118,10 +120,11 @@ def check_step(name, init, kern, plain, f32=None):
     return max_abs
 
 
-def run(device="cuda", log=print) -> dict:
-    """Check and time every variant on ``device`` (a CUDA card); returns
-    the readings (µs per group by variant and unroll, K2b's, the profile,
-    the full variant's error, ms per step and the plain version's)."""
+def run(device="cuda", log=print, d: int = D) -> dict:
+    """Check and time every variant on ``device`` (a CUDA card) with the
+    table d wide; returns the readings (µs per group by variant and
+    unroll, K2b's, the profile, the full variant's error, ms per step and
+    the plain version's)."""
     from come_tpu_torch.ops.star_probe import (
         star_probe_step,
         star_probe_step_reference,
@@ -134,7 +137,7 @@ def run(device="cuda", log=print) -> dict:
     dev = torch.device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"probe_star times a CUDA card, not {dev}")
-    emb0, slots, meta, sneg, G = inputs(dev)
+    emb0, slots, meta, sneg, G = inputs(dev, d)
     negw = 5.0 / KP
     args = (slots, meta, sneg, LR, negw)
 
@@ -167,7 +170,7 @@ def run(device="cuda", log=print) -> dict:
     plain_ms /= 1e3
     profile = kernel_profile(lambda: probe(star_probe_step, emb0.clone()), G)
 
-    log(f"P3 groups={G} slots={G * 1024} V={emb0.shape[0]} d={D} KP={KP} "
+    log(f"P3 groups={G} slots={G * 1024} V={emb0.shape[0]} d={d} KP={KP} "
         f"R={R} (us/group, median of 3 samples of 4 chained steps)")
     for label, us in rows:
         log(f"{label:20s} {us:9.2f}")
@@ -209,7 +212,12 @@ def kernel_profile(step, groups: int) -> dict:
 
 
 def main(argv=None) -> int:
-    run()
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dim", type=int, default=D,
+                   help=f"the table's width (default {D})")
+    run(d=p.parse_args(argv).dim)
     return 0
 
 

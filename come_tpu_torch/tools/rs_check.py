@@ -54,7 +54,7 @@ from come_tpu_torch.ops import launch_plan
 from come_tpu_torch.tools.dp_check import SEED, f32_ratio, param_hash
 
 SYNTH = dict(V=500000, B=1024, KP=2048)
-# the width of the held steps past MAX_DIM (ops/walk_sgns.py)
+# the width of the held steps past MAX_DIM (csrc/sgns_common.cuh)
 WIDE_D = 256
 
 

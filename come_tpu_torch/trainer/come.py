@@ -74,11 +74,8 @@ from come_tpu_torch.native import HostWalkFeeder
 from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
 from come_tpu_torch.ops.star_sgns import star_sgns_step
 from come_tpu_torch.ops.walk_sgns import (
-    MAX_DIM,
     NW,
     NWL,
-    WIDE_KERNELS,
-    WIDE_ROW,
     walk_sgns_gen_step,
     walk_sgns_step,
 )
@@ -139,14 +136,6 @@ def o1_on_walk_kernel(num_nodes: int, cfg: ComEConfig,
         and _in_envelope(NW * cfg.walk_length * (cfg.window + 1) / 2,
                          num_nodes, workers)
     )
-
-
-def capped_kernels(kernels, dim: int) -> list[str]:
-    """The names in ``kernels`` (``ComETrainer.tier_kernels``) that the
-    card runs only up to ``MAX_DIM``, when ``dim`` is past it."""
-    if dim <= MAX_DIM:
-        return []
-    return [k for k in kernels if k is not None and k not in WIDE_KERNELS]
 
 
 # f32 walk tables past this many bytes go bf16 (the JAX package's VMEM tier)
@@ -282,7 +271,6 @@ class ComETrainer:
             and config.o2_mode in ("auto", "paired")
             and _in_envelope(NWL, V, wk)
         )
-        self._refuse_capped_width()
 
     def tier_kernels(self) -> tuple[str | None, str | None]:
         """The kernels of the O1 and O2 tiers on the card, by their names
@@ -306,18 +294,6 @@ class ComETrainer:
         else:
             o2 = "K7" if micro else None
         return o1, o2
-
-    def _refuse_capped_width(self) -> None:
-        """Raise a ValueError before any step when, on the card, a tier's
-        kernel stops short of ``dim`` (it would raise at its first launch,
-        after the epochs before it)."""
-        capped = capped_kernels(self.tier_kernels(), self.cfg.dim)
-        if self.device.type == "cuda" and capped:
-            raise ValueError(
-                f"dim {self.cfg.dim}: this configuration's tiers launch "
-                f"{', '.join(capped)}, which stop at {MAX_DIM} on the card "
-                f"(past it the card runs {', '.join(WIDE_KERNELS)}); "
-                f"{WIDE_ROW} ports them")
 
     def _word_budget(self) -> float:
         """Total center-word count for the global linear LR decay."""

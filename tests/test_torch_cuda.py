@@ -43,16 +43,18 @@ middle or last column of a panel, or in a ragged last one, must get
 ``cholesky_ex``'s info flag; the EM replayed as a graph
 must give the eager EM's bits and iterations, and the EM with G1 the
 torch.linalg EM's log-likelihood within 1e-4 relative.  Past d = 128 G1
-holds its matrices in device memory, and past 192 K1, K5 and K2 stage their
-rows in column slabs: their steps at ``chip_smoke.WIDE_WIDTHS`` (W 10 and a
-whole-walk window), and at 193 and 256 on the main path's blogcatalog
-shapes (``chip_smoke.blog_wide_checks``), take the f32 check
-(``chip_smoke.step_check``), every
-walk and star mode enqueued back to back (``chip_smoke.graph_stress``, at
-d 128, and K1, K5 and K2 at d 256 too) its mode's check step by step, the
-bf16 modes and K6/K7 past 192 must raise before any launch (a trainer whose
-tiers take them, at its construction), and a trainer at dim 256 must run
-through K1, K2 and G1.
+holds its matrices in device memory, and past 192 every walk, star and
+negative pass stages its rows in column slabs: K1, K5 and K2 at
+``chip_smoke.WIDE_WIDTHS`` (W 10 and a whole-walk window), and at 193 and
+256 on the main path's blogcatalog shapes (``chip_smoke.blog_wide_checks``),
+K1b, K3, K4 (bf16 and f32), K2b, K6 and K7 at
+``chip_smoke.WIDE_MODE_WIDTHS``, each under its mode's check
+(``chip_smoke.step_check``), every walk and star mode enqueued back to
+back (``chip_smoke.graph_stress``, at d 128 and 256) its mode's check step
+by step, forty K6/K7 micro-steps back to back at d 256, and a trainer at
+dim 256 must run through K1, K2 and G1, and through each other tier
+(bf16 products, in-kernel walks, bf16 tables, the micro-batched tier)
+launching its kernels.
 """
 
 import numpy as np
@@ -94,6 +96,8 @@ from chip_smoke import (
     G1_WIDTHS,
     STAR_EDGES,
     WIDE_CASES,
+    WIDE_MODE_WIDTHS,
+    WIDE_MODES,
     WIDE_WIDTHS,
     em_graph_check,
     em_linalg_check,
@@ -106,7 +110,7 @@ from chip_smoke import (
     SEED,
     blog_wide_checks,
     graph_stress,
-    slab_modes,
+    mode_width,
     star_edge_layout,
     step_check,
     wide_inputs,
@@ -176,7 +180,7 @@ def test_walk_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
 # L - 1), one slot per walk, an odd L with W wider than a strip, d at its
 # bound 192 and at 2, walks that repeat one row heavily, ragged and large
 # pools (KP 100 and 2048, R 3); the last four again at 256 and 300, where
-# the f32 passes stage column slabs (f32 only: chip_smoke.slab_modes).
+# every pass stages column slabs.
 EDGE_SHAPES = [  # V, d, B, L, W, KP, R, hot
     (3000, 128, 16, 128, 127, 64, 1, False),
     (500, 64, 16, 1, 3, 16, 1, False),
@@ -216,8 +220,7 @@ def _edge_inputs(dev, V, d, B, L, W, KP, R, hot, seed):
 # 0.9887 at V 2000 with d 192, and 0.5231 (loss 1.2e-3 apart) with the hot
 # row, so the hot row is held in f32 and bf16 products only.
 EDGE_CASES = [(*shape, mode) for shape in EDGE_SHAPES
-              for mode in slab_modes(shape[1], ("f32", "bf16",
-                                                "bf16_tables"))
+              for mode in ("f32", "bf16", "bf16_tables")
               if not (shape[-1] and mode == "bf16_tables")]
 
 
@@ -985,6 +988,20 @@ def test_wide_steps_match_plain(dev, mode, whole, d):
                timed=False)
 
 
+@pytest.mark.parametrize("d", WIDE_MODE_WIDTHS)
+@pytest.mark.parametrize("mode", WIDE_MODES)
+def test_wide_modes_match_plain(dev, mode, d):
+    """K1b, K3 (SR), K4 (bf16 products and f32), K2b, K6 and K7 past 192,
+    where their passes stage column slabs of 128 (ragged at 193/194 and
+    300), each under its mode's check (``chip_smoke.step_check``); K4's
+    walks bit for bit."""
+    d = mode_width(mode, d)
+    csr = get_dataset("blogcatalog").graph.to_device(dev)
+    step_check(mode, f"{mode} d {d}",
+               *wide_inputs(mode, dev, d, 3 * d + len(mode), csr=csr),
+               timed=False)
+
+
 @pytest.mark.parametrize("d", [193, 256])
 def test_wide_steps_at_the_main_paths_shapes_match_plain(dev, d):
     """K1 (W 10 and the whole walk, W 79), K2 and K5 at d past 192 on the
@@ -1023,20 +1040,47 @@ def test_wide_steps_at_the_main_paths_shapes_match_plain(dev, d):
     assert all(r["pairs"] > 0 for r in res.values())
 
 
-def test_trainer_refuses_a_capped_tier_past_192_at_construction(dev):
-    """A configuration whose tiers launch a kernel that stops at 192 (K6
-    with down_sample, K7 with o2_mode xla, K1b with bf16 products) raises a
-    ValueError naming the ROADMAP row when the trainer is made on the card
-    at dim 256; the same configurations at 192 construct."""
-    from come_tpu_torch.ops.walk_sgns import WIDE_ROW
+# (config fields, the tiers' kernels by tier_kernels, their launch counters)
+TIERS_256 = [
+    ({"walk_kernel_bf16": True}, ("K1b", "K2b"),
+     ((walk_sgns_step, "launches_bf16"), (star_sgns_step, "launches_bf16"))),
+    ({"walk_kernel_bf16": True, "walk_gen": "kernel"}, ("K4", "K2b"),
+     ((walk_sgns_gen_step, "launches_bf16"),
+      (star_sgns_step, "launches_bf16"))),
+    ({"bf16_tables": True}, ("K3", "K2"),
+     ((walk_sgns_step, "launches_bf16_tables"), (star_sgns_step, "launches"))),
+    ({"down_sample": 1e-3, "o2_mode": "xla"}, ("K6", "K7"),
+     ((fused_sgns_step, "launches"), (fused_sgns_step_tied, "launches"))),
+]
 
-    g, _ = sbm_graph(2000, 8, p_in=0.1, p_out=0.002, seed=0, avg_degree=20)
-    base = PRESETS["blogcatalog"].replace(num_communities=8)
-    for fields in ({"down_sample": 1e-3}, {"o2_mode": "xla"},
-                   {"walk_kernel_bf16": True}):
-        with pytest.raises(ValueError, match=WIDE_ROW):
-            ComETrainer(g, base.replace(dim=256, **fields), dev)
-        ComETrainer(g, base.replace(dim=192, **fields), dev)
+
+@pytest.mark.parametrize("fields,named,counters", TIERS_256)
+def test_trainer_at_dim_256_runs_every_tier(dev, fields, named, counters,
+                                            monkeypatch):
+    """Each tier whose kernel stopped at 192 before its slab passes (bf16
+    products, in-kernel walks, bf16 tables with the 48 MiB line at 0, the
+    micro-batched tier) trains at dim 256 on the card through its
+    kernels: finite losses and embeddings [V, 256], every named kernel
+    launched."""
+    from come_tpu_torch.trainer import come
+
+    fields = dict(fields)
+    if fields.pop("bf16_tables", False):  # any f32 table passes the line
+        monkeypatch.setattr(come, "WALK_F32_TABLE_BYTES", 0)
+    g, labels = sbm_graph(2000, 8, p_in=0.1, p_out=0.002, seed=0,
+                          avg_degree=20)
+    cfg = PRESETS["blogcatalog"].replace(
+        num_communities=8, dim=256, walks_per_node=4, pretrain_epochs=1,
+        outer_iters=1, **fields)
+    t = ComETrainer(g, cfg, dev)
+    assert t.tier_kernels() == named
+    before = [getattr(fn, attr) for fn, attr in counters]
+    hist = t.train(labels)
+    assert all(getattr(fn, attr) > b
+               for (fn, attr), b in zip(counters, before))
+    assert all(np.isfinite(hist[-1][k]) for k in ("o1_loss", "o2_loss"))
+    emb = t.embeddings()
+    assert emb.shape == (2000, 256) and np.isfinite(emb).all()
 
 
 @pytest.mark.parametrize("mode,d", [(m, 128) for m in B2B_MODES]
@@ -1057,39 +1101,13 @@ def test_graph_steps_back_to_back_follow_every_step(dev, mode, d):
     assert (c["replays"], c["instantiations"], c["shapes"]) == (8, 1, 1)
 
 
-def test_narrow_modes_raise_past_192_before_any_launch(dev):
-    """The bf16 modes and K6/K7 keep the 192 cap: past it each raises a
-    ValueError naming the ROADMAP row, and nothing launches."""
-    from come_tpu_torch.ops.walk_sgns import WIDE_ROW
-
-    V, d, KP = 300, 256, 16
-    g = torch.Generator(device=dev).manual_seed(5)
-    tabs = [torch.randn((V, d), generator=g, device=dev) for _ in range(2)]
-    walks = torch.randint(0, V, (8, 20), generator=g, device=dev)
-    wrow = torch.ones(NWL, dtype=torch.int32, device=dev)
-    pools = torch.randint(0, V, (1, KP), generator=g, device=dev)
-    before = (walk_sgns_step.launches_bf16, star_sgns_step.launches_bf16,
-              walk_sgns_step.launches_bf16_tables, fused_sgns_step.launches,
-              fused_sgns_step_tied.launches)
-    calls = [
-        lambda: walk_sgns_step(*tabs, walks, wrow, pools, 0.1, 0.1, window=3,
-                               mxu_bf16=True),
-        lambda: walk_sgns_step(*[t.bfloat16() for t in tabs], walks, wrow,
-                               pools, 0.1, 0.1, window=3),
-        lambda: star_sgns_step(tabs[0], walks.reshape(-1), torch.zeros(
-            160, dtype=torch.int32, device=dev), pools, 0.1, 0.1,
-            mxu_bf16=True),
-        lambda: fused_sgns_step(*tabs, walks[0], walks[1], pools[0],
-                                torch.ones(20, device=dev), 0.1, 0.1),
-        lambda: fused_sgns_step_tied(tabs[0], walks[0], walks[1], pools[0],
-                                     torch.ones(20, device=dev), 0.1, 0.1),
-    ]
-    for call in calls:
-        with pytest.raises(ValueError, match=WIDE_ROW):
-            call()
-    assert (walk_sgns_step.launches_bf16, star_sgns_step.launches_bf16,
-            walk_sgns_step.launches_bf16_tables, fused_sgns_step.launches,
-            fused_sgns_step_tied.launches) == before
+@pytest.mark.parametrize("tied", [False, True])
+def test_fused_plan_steps_back_to_back_at_dim_256(dev, tied):
+    """Forty K6 (K7) micro-steps at phase 6's shape with tables 256 wide
+    (the slab negative pass), enqueued back to back through one plan
+    (``chip_smoke.fused_stress``), each under the f32 check."""
+    errs = fused_stress(tied, dev, 10312, 256, 32768, 1024, 512)
+    assert len(errs) == 40
 
 
 def test_trainer_at_dim_256_runs_through_k1_k2_and_g1(dev):

@@ -66,7 +66,7 @@ def _pairs(rng, V, P, masked=0.1):
 # ------------------------------------------------------------- K6 / K7 plain
 
 @pytest.mark.parametrize("tied", [False, True])
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [16, 128, 256, 300])
 @pytest.mark.parametrize("P,TP", [(300, 128), (256, 128), (64, 64)])
 def test_fused_plain_matches_pallas_kernel(P, TP, d, tied):
     rng = np.random.default_rng(P + TP + d)
