@@ -78,10 +78,10 @@ non-zero and prints no result line):
                come_tpu_torch/tools/pass_times.py)
   5. main    — come_tpu_torch.main on --dataset blogcatalog (pretrain 1,
                outer 1) on cuda, with the kernels' launch counters reset
-               just before and read just after; the walk and star kernels'
-               graph counters too (ops/launch_plan.py: every macro step is
-               one recorded graph replayed, at most one instantiation per
-               shape: instantiations <= the shapes that stepped)
+               just before and read just after; the launch plans' graph
+               counters too (ops/launch_plan.py: every plan, fresh at the
+               phase's start, records once and then only replays:
+               recordings = instantiations = plans used, no update)
  5b. main 256, paired 256 — the same CLI at --dim 256 (K1 and K2 with
                their f32 passes in column slabs, G1 with its matrices in
                device memory), then with --o2-mode paired (K1 and K5),
@@ -106,13 +106,19 @@ non-zero and prints no result line):
                six micro-steps at that shape through one fresh launch plan
                (fused_steps: lr, the pairs, the mask and the pool new at
                every step, the second tile all masked, the tables moved
-               once), each held against its plain version, with one
-               instantiation and five updates, and 40 micro-steps at that
+               once), each held against its plain version, with two
+               recordings (the instantiation, and one update when the
+               tables moved) for six replays, and 40 micro-steps at that
                shape, 40 at karate's and 40 at that shape with tables 256
                wide (fused_stress: new pairs, mask and pool each call)
                enqueued back to back with no host wait, each held against
                its plain version (each run's worst step printed with the
-               |upd| where it fell); then, on tables it updates
+               |upd| where it fell); a macro batch of 40 micro-steps as one
+               scan (fused_scan_check: one WHILE-graph launch, the port of
+               the JAX trainer's lax.scan) at the same three shapes, its
+               final tables and summed (loss, n_pairs) against the loop of
+               plain micro-steps under the same check; then, on tables it
+               updates
                in place, ms from an idle card and ms a step in a run of 6,
                the host's ms to enqueue a step in a run of 6, the device µs
                a tile of each pass (positive, negative, scatter; stage and
@@ -126,9 +132,9 @@ non-zero and prints no result line):
  10. micro   — the micro-batched main path through the CLI: blogcatalog
                with --down-sample 1e-3 --o2-mode xla (walks per node 2,
                pretrain 0, outer 1): O1 through K6, O2 per arc through K7
-               (phases 9 and 10 print the graph counters: every micro-step
-               recorded and replayed, instantiations <= the shapes that
-               stepped)
+               (phases 9 and 10 print the path: on one device every macro
+               batch is one scan, and no K6/K7 micro-step is launched
+               alone; and the graph counters: one recording a plan)
  11. paired  — the CLI on --dataset blogcatalog --o2-mode paired (pretrain
                1, outer 1): O1 through K1, O2 through K5, no K2
  11b. host   — ComETrainer on the blogcatalog preset with corpus="host"
@@ -149,7 +155,8 @@ non-zero and prints no result line):
  12. bench   — ComETrainer with the reference bench's kernel configuration
                (bench.py:174-191: walk_kernel_bf16, walk_pool_refresh 8,
                batch_walks 2048, batch_edges 524288; pretrain 1, outer 1)
-               and the walker: K1b and K2b, nothing else
+               and the walker: K1b and K2b, nothing else (12, 13 and 5c's
+               bench runs print the graph counters: one recording a plan)
  13. bench gen — the same with walk_gen "kernel" (bench.py:207-216): K4 in
                its bf16 mode and K2b, nothing else
  14. large-v — the CLI on --dataset synthetic-10m at full width, depth cut
@@ -176,8 +183,9 @@ After phase 14:
                seed, walks or star rows, window draws and pools new at
                every step, the tables moved to new addresses at every other
                step), each held against its plain version from the same
-               tables under its mode's check, with at most one
-               instantiation and every step recorded and replayed; prints
+               tables under its mode's check, with one instantiation and
+               a recording again (an update) only where the tables moved;
+               prints
                the graph counters of each kernel, the K1, K2 and K3 steps
                of tools/pass_times.py (ms from an idle card, ms a step over
                10 in a row, the kernels' device time over the ms, the share
@@ -192,7 +200,8 @@ After phase 14:
                and again at d 256, enqueued back to back through
                one plan with no host wait, inputs new at every step, each
                held against its plain version from the tables the step
-               before it left, under its mode's check (graph_stress)
+               before it left, under its mode's check, each mode's fresh
+               plan recorded once (graph_stress)
  16. parity  — the parity CLI (evaluation/parity.py) on karate, 3
                iterations, on cuda: K1, K5, K2 and K7 rows against the
                numpy oracle; it must return 0
@@ -827,6 +836,68 @@ def fused_stress(tied: bool, dev, V: int, d: int, P: int, TP: int, KP: int,
     return errs
 
 
+def fused_scan_check(tied: bool, dev, V: int, d: int, mb: int, TP: int,
+                     KP: int, n: int = 40) -> tuple:
+    """One macro batch of ``n`` K6 (K7 if ``tied``) micro-steps of mb pairs
+    in tiles of TP as one scan (``fused_sgns_scan``: one WHILE-graph
+    launch, the port of the JAX trainer's ``lax.scan``), the pairs, the
+    mask (every fifth micro-step's first tile all masked) and the pools new
+    at every micro-step, against the loop of plain micro-steps from the same
+    tables: the final tables under the f32 check and the summed (loss,
+    n_pairs).  Raises unless the batch was one replay of the scan plan and
+    ``n`` micro-steps on the wrapper's launch count.  Returns compare()'s
+    (max_abs, max_rel, loss_rel, |upd| at the worst, largest |upd|)."""
+    from come_tpu_torch.ops import launch_plan
+    from come_tpu_torch.ops.sgns import (
+        fused_sgns_scan,
+        fused_sgns_scan_tied,
+        fused_sgns_step,
+        fused_sgns_step_reference,
+        fused_sgns_step_tied,
+        fused_sgns_step_tied_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(V + mb + TP + 2)
+    tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+            for _ in range(1 if tied else 2)]
+    c, x = (torch.randint(0, V, (n, mb), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(2))
+    pools = torch.randint(0, V, (n, KP), generator=g, device=dev,
+                          dtype=torch.int32)
+    m = (torch.rand((n, mb), generator=g, device=dev) < 0.6).float()
+    m[::5, :TP] = 0.0
+    lr, negw = 0.025, 5.0 / KP
+    scan, step, plain_fn, entry = (
+        (fused_sgns_scan_tied, fused_sgns_step_tied,
+         fused_sgns_step_tied_reference, "fused_scan_tied") if tied else
+        (fused_sgns_scan, fused_sgns_step, fused_sgns_step_reference,
+         "fused_scan"))
+    before = [t.clone() for t in tabs]
+    replays, launches = launch_plan.graph_counts()[entry]["replays"], \
+        step.launches
+    *_, loss, pairs = scan(*tabs, c, x, pools, m, lr, negw, tile_pairs=TP)
+    torch.cuda.synchronize()
+    name = f"{'K7' if tied else 'K6'} scan of {n} (V {V}, d {d}, mb {mb})"
+    if (launch_plan.graph_counts()[entry]["replays"] != replays + 1
+            or step.launches != launches + n):
+        raise AssertionError(f"{name}: not one launch of {n} micro-steps")
+    work = [t.clone() for t in before]
+    p_loss = p_pairs = 0.0
+    for i in range(n):
+        *_, lo, pa = plain_fn(*work, c[i], x[i], pools[i], m[i], lr, negw,
+                              tile_pairs=TP)
+        p_loss += float(lo)
+        p_pairs += float(pa)
+    return compare(name, before, (*tabs, loss, pairs),
+                   (*work, torch.tensor(p_loss), torch.tensor(p_pairs)))
+
+
+def scan_text(runs: dict) -> str:
+    return "; ".join(f"{k} max_abs {e[0]:.3e} at |upd| {e[3]:.3e} (largest "
+                     f"|upd| {e[4]:.3e}), loss_rel {e[2]:.3e}"
+                     for k, e in runs.items())
+
+
 def stress_worst(errs) -> str:
     """fused_stress's worst step: its index, max_abs and the |upd| where
     it fell, beside the step's and the run's largest |upd|."""
@@ -839,13 +910,13 @@ def stress_worst(errs) -> str:
 
 def fused_counts(where: str, entry: str) -> str:
     """The graph counters of :func:`fused_steps`' six steps on a fresh plan,
-    checked: six recorded and replayed, one instantiation, five updates,
-    one shape."""
+    checked: six replays of one plan, recorded twice: its instantiation and
+    one update, when the tables moved."""
     from come_tpu_torch.ops import launch_plan
 
     c = launch_plan.graph_counts()[entry]
     if (c["recordings"], c["replays"], c["instantiations"], c["updates"],
-            c["shapes"]) != (6, 6, 1, 5, 1):
+            c["shapes"]) != (2, 6, 1, 1, 1):
         raise AssertionError(f"{where}: graph counters {c}")
     return graph_line(where, {entry: c})
 
@@ -877,33 +948,51 @@ def fused_text(t: dict) -> str:
             f"({t['kernels'][0]} kernels a step)")
 
 
-def graph_line(where: str, counts: dict) -> str:
-    """The walk and star kernels' graph counters (ops/launch_plan.py) of a
-    run, checked: every step recorded and replayed, and at most one
-    instantiation per shape (plan) that stepped."""
+def graph_line(where: str, counts: dict, once: bool = False) -> str:
+    """The launch plans' graph counters (ops/launch_plan.py) of a run,
+    checked: every recording instantiated or updated an instance, and at
+    most one instantiation per plan (shape) that stepped; with ``once`` (a
+    single-device run), every plan recorded once: recordings =
+    instantiations = plans used, no update.  K6/K7's scans ("fused_scan")
+    are one replay a macro batch."""
     from come_tpu_torch.ops import launch_plan
 
-    launch_plan.check_counts(where, counts)
+    launch_plan.check_counts(where, counts, once)
     return "; ".join(
-        f"{e} {c['replays']} replays, {c['instantiations']} instantiations "
-        f"over {c['shapes']} shapes, {c['updates']} updates"
+        f"{e} {c['recordings']} recordings, {c['instantiations']} "
+        f"instantiations, {c['updates']} updates, {c['replays']} replays "
+        f"over {c['shapes']} plans"
         for e, c in counts.items() if c["replays"]) or "no graph"
+
+
+def micro_path(counts: dict) -> str:
+    """Which path a run's K6/K7 micro-steps took: one scan (a WHILE-graph
+    launch) a macro batch, or a launch a micro-step."""
+    scans = sum(counts[e]["replays"] for e in ("fused_scan",
+                                                 "fused_scan_tied"))
+    steps = sum(counts[e]["replays"] for e in ("fused_sgns",
+                                                 "fused_sgns_tied"))
+    return (f"path: {scans} scans (one WHILE-graph launch a macro batch), "
+            f"{steps} single micro-step launches")
 
 
 def graph_phase(dev, smi: str) -> dict:
     """Phase 15b (module docstring); raises if a step or a check fails.
     Returns what the PERF tables read."""
-    from come_tpu_torch.ops import launch_plan
+    from come_tpu_torch.ops import build, launch_plan
     from come_tpu_torch.tools import pass_times, probe_star_floor
 
     seq = {}
     for mode in ("K1", "K3", "K2"):
+        launch_plan.release_plans(build.library())
         launch_plan.reset_counts()
         errs = graph_steps(mode, dev)
         counts = launch_plan.graph_counts()
         entry = "star_sgns" if mode == "K2" else "walk_sgns"
         c = counts[entry]
-        if (c["recordings"], c["replays"], c["shapes"]) != (6, 6, 1):
+        # the tables move before every other step: each move records again
+        if (c["recordings"], c["replays"], c["instantiations"],
+                c["updates"], c["shapes"]) != (4, 6, 1, 3, 1):
             raise AssertionError(f"graph {mode}: counters {c}")
         seq[mode] = (errs, graph_line(f"graph {mode}", counts))
     # every walk and star mode enqueued back to back, at d 128 and 256
@@ -1065,12 +1154,24 @@ def graph_stress(mode: str, dev, d: int = 128, n: int = 8) -> list:
         "K2b": (star_sgns_step, star_sgns_step_reference),
         "K4": (walk_sgns_gen_step, walk_sgns_gen_step_reference),
     }.get(mode, (walk_sgns_step, walk_sgns_step_reference))
+    from come_tpu_torch.ops import build, launch_plan
+
+    entry = {"K2": "star_sgns", "K2b": "star_sgns",
+             "K4": "walk_sgns_gen"}.get(mode, "walk_sgns")
+    launch_plan.release_plans(build.library(), entry)
+    c0 = launch_plan.graph_counts()[entry]
     torch.cuda.synchronize()  # every input on the card before the first step
     states, results = [[t.clone() for t in tabs]], []
     for step, x in enumerate(inputs):
         results.append(run(kern_fn, tabs, x, step))
         states.append([t.clone() for t in tabs])
     torch.cuda.synchronize()
+    c1 = launch_plan.graph_counts()[entry]
+    # one fresh plan, recorded once (its tables stay put), replayed n times
+    if tuple(c1[k] - c0[k] for k in ("replays", "recordings",
+                                     "instantiations")) != (n, 1, 1):
+        raise AssertionError(f"back-to-back {mode} d {d}: graph counters "
+                             f"{c0} -> {c1}")
     errs = []
     for step, x in enumerate(inputs):
         name = f"back-to-back {mode} d {d} step {step}"
@@ -2088,6 +2189,9 @@ def main() -> int:
     def reset_counts():
         for fn, attr in kernels.values():
             setattr(fn, attr, 0)
+        # a phase's plans start fresh, so a single-device phase reads one
+        # recording a plan: recordings = instantiations = plans used
+        launch_plan.release_plans(build.library())
         launch_plan.reset_counts()
 
     def counts():
@@ -2776,7 +2880,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
-    main_graphs = graph_line("main path", launch_plan.graph_counts())
+    main_graphs = graph_line("main path", launch_plan.graph_counts(), True)
     rec = hist[-1]
     check_launches("main path", launches, ("walk_sgns", "star_sgns"),
                    ("fused_sgns", "fused_sgns_tied", "walk_sgns_bf16",
@@ -2879,6 +2983,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = counts()
+        graphs = graph_line(where, launch_plan.graph_counts(), True)
         check_launches(where, launched, ran,
                        tuple(k for k in kernels if k not in ran))
         check_run(where, hist, NMI_FLOOR)
@@ -2890,7 +2995,8 @@ def main() -> int:
                      f"o1 {rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms, o3 "
                      f"{rec['o3_ms']:.1f} ms | o1_pairs {rec['o1_pairs']:.0f} "
                      f"o2_pairs {rec['o2_pairs']:.0f} | NMI "
-                     f"{rec['nmi']:.4f} | launches {launched}")
+                     f"{rec['nmi']:.4f} | launches {launched} | graphs: "
+                     f"{graphs}")
         return launched
 
     # 5c. the trainer at dim 256 through every other tier: past 192 each
@@ -2929,10 +3035,13 @@ def main() -> int:
     if rec["o2_pairs"] != S5 * B5:
         raise AssertionError(f"micro 256: o2_pairs {rec['o2_pairs']} != "
                              f"S*B = {S5}*{B5}")
+    counts5c = launch_plan.graph_counts()
+    graphs5c = graph_line("micro 256", counts5c, True)
     phase("micro 256", f"blogcatalog --dim 256 --down-sample 1e-3 --o2-mode "
                        f"xla, walks per node 2, outer 1 in {wall:.1f} s: o1 "
                        f"{rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms | "
-                       f"NMI {rec['nmi']:.4f} | launches {got}")
+                       f"NMI {rec['nmi']:.4f} | launches {got} | "
+                       f"{micro_path(counts5c)} | graphs: {graphs5c}")
     del trainer
     # karate with shared negatives (phase 9's configuration and floor)
     karate = get_dataset("karate")
@@ -2950,8 +3059,11 @@ def main() -> int:
     check_launches("shared 256", got, ran,
                    tuple(k for k in kernels if k not in ran))
     check_run("shared 256", hist, KARATE_SHARED_NMI_FLOOR)
+    counts5c = launch_plan.graph_counts()
+    graphs5c = graph_line("shared 256", counts5c, True)
     phase("shared 256", f"karate shared negatives at dim 256: NMI "
-                        f"{hist[-1]['nmi']:.4f} | launches {got}")
+                        f"{hist[-1]['nmi']:.4f} | launches {got} | "
+                        f"{micro_path(counts5c)} | graphs: {graphs5c}")
     del trainer
     # K3: the blogcatalog preset on bf16 O1 tables (the 48 MiB line at 0),
     # pretrain 1 + outer 1 as phase 5
@@ -3008,6 +3120,10 @@ def main() -> int:
                "d 256": fused_stress(False, dev, V, 256, 32768, TP, KP)}
     for errs in stress6.values():
         seq6 += errs
+    # a macro batch of 40 micro-steps as one scan, at the same shapes
+    scan6 = {"this shape": fused_scan_check(False, dev, V, d, 32768, TP, KP),
+             "karate's": fused_scan_check(False, dev, 34, 16, 128, 64, 32),
+             "d 256": fused_scan_check(False, dev, V, 256, 32768, TP, KP)}
     kern6 = k6(fused_sgns_step)
     plain6 = k6(fused_sgns_step_reference)
     torch.cuda.synchronize()
@@ -3029,7 +3145,9 @@ def main() -> int:
                 f"max_abs {max(e[0] for e in seq6):.3e} max_rel "
                 f"{max(e[1] for e in seq6):.3e} ({seq6_line}); back to back "
                 + "; ".join(f"{k} {stress_worst(v)}"
-                            for k, v in stress6.items()) + " | "
+                            for k, v in stress6.items()) + " | one scan of "
+                f"40 micro-steps (one launch) against the plain loop, final "
+                f"tables: {scan_text(scan6)} | "
                 f"{fused_text(k6_t)}, plain {k6_plain_ms:.3f} ms (tol "
                 f"{ATOL} + {RTOL}*|plain update|)")
 
@@ -3051,6 +3169,9 @@ def main() -> int:
                "d 256": fused_stress(True, dev, V, 256, 32768, TP, KP)}
     for errs in stress7.values():
         seq7 += errs
+    scan7 = {"this shape": fused_scan_check(True, dev, V, d, 32768, TP, KP),
+             "karate's": fused_scan_check(True, dev, 34, 16, 128, 64, 32),
+             "d 256": fused_scan_check(True, dev, V, 256, 32768, TP, KP)}
     kern7 = k7(fused_sgns_step_tied)
     plain7 = k7(fused_sgns_step_tied_reference)
     torch.cuda.synchronize()
@@ -3070,7 +3191,9 @@ def main() -> int:
                 f"40 back to back worst max_abs {max(e[0] for e in seq7):.3e} max_rel "
                 f"{max(e[1] for e in seq7):.3e} ({seq7_line}); back to back "
                 + "; ".join(f"{k} {stress_worst(v)}"
-                            for k, v in stress7.items()) + " | "
+                            for k, v in stress7.items()) + " | one scan of "
+                f"40 micro-steps (one launch) against the plain loop, final "
+                f"tables: {scan_text(scan7)} | "
                 f"{fused_text(k7_t)}, plain {k7_plain_ms:.3f} ms (tol "
                 f"{ATOL} + {RTOL}*|plain update|)")
     del work, work7
@@ -3118,9 +3241,15 @@ def main() -> int:
                    ("fused_sgns", "fused_sgns_tied"),
                    tuple(k for k in kernels if not k.startswith("fused")))
     check_run("karate shared", hist, KARATE_SHARED_NMI_FLOOR)
-    graphs9 = graph_line("karate shared", launch_plan.graph_counts())
+    counts9 = launch_plan.graph_counts()
+    graphs9 = graph_line("karate shared", counts9, True)
+    if not counts9["fused_scan"]["replays"] or counts9["fused_sgns"][
+            "replays"]:
+        raise AssertionError(f"karate shared: K6 ran outside its scans "
+                             f"({micro_path(counts9)})")
     phase("shared", f"karate shared negatives: NMI {hist[-1]['nmi']:.4f} | "
-                    f"launches {launches9} | graphs: {graphs9}")
+                    f"launches {launches9} | {micro_path(counts9)} | "
+                    f"graphs: {graphs9}")
 
     # 10. the micro-batched main path through the CLI
     reset_counts()
@@ -3133,8 +3262,12 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     micro_launches = counts()
-    micro_graphs = graph_line("micro-batched path",
-                              launch_plan.graph_counts())
+    counts10 = launch_plan.graph_counts()
+    micro_graphs = graph_line("micro-batched path", counts10, True)
+    if not counts10["fused_scan"]["replays"] or counts10["fused_sgns"][
+            "replays"]:
+        raise AssertionError(f"micro-batched path: K6 ran outside its scans "
+                             f"({micro_path(counts10)})")
     check_launches("micro-batched path", micro_launches,
                    ("fused_sgns", "fused_sgns_tied"),
                    tuple(k for k in kernels if not k.startswith("fused")))
@@ -3155,7 +3288,7 @@ def main() -> int:
                    f"o1_pairs {rec['o1_pairs']:.0f} o2_pairs "
                    f"{rec['o2_pairs']:.0f} (S={S}, B={B}) | NMI "
                    f"{rec['nmi']:.4f} | launches {micro_launches} | "
-                   f"graphs: {micro_graphs}")
+                   f"{micro_path(counts10)} | graphs: {micro_graphs}")
     del trainer
     torch.cuda.empty_cache()
 

@@ -173,10 +173,13 @@ extern "C" int come_floor_probe_record(void* graph, int variant,
     const cudaError_t e = come::rows_allow_smem<32>(d);
     if (e != cudaSuccess) return (int)e;
   }
-  return come::replay_step(p, p->exec == nullptr, (cudaStream_t)stream_ptr,
-                           [&](cudaStream_t cap) {
-                             return floor_run(variant, slots, pool, scal, meta,
-                                              emb, table, phi, stats, sinks, G,
-                                              V, d, cap, false);
-                           });
+  const int rc = come::record_step(
+      p, p->exec == nullptr ? come::RECORD_INSTANTIATE : come::RECORD_UPDATE,
+      [&](cudaStream_t cap) {
+        return floor_run(variant, slots, pool, scal, meta, emb, table, phi,
+                         stats, sinks, G, V, d, cap, false);
+      },
+      false);
+  if (rc != 0) return rc;
+  return (int)cudaGraphLaunch(p->exec, (cudaStream_t)stream_ptr);
 }

@@ -59,34 +59,46 @@
 // (pallas_walk_sgns.py:76-88), or truncated without them.
 //
 // Programmatic dependent launch (PDL).  The group loops (walk_sgns.cu,
-// star_sgns.cu) and K6/K7's tile loop (sgns_fused.cu) record a step as one
-// CUDA graph (step_graph.cuh) and launch every kernel after the first with
-// launch_kernel(pdl = true): the card may then start a kernel while the one
-// before it runs.  A kernel's pdl_wait() returns once the kernel just
-// before it has completed and its writes are visible; the kernel after it
-// launches once each of its CTAs has called pdl_trigger() or exited.  Every
-// kernel a loop launches keeps one rule: each CTA calls pdl_wait() on every
-// path before it exits, and triggers only after its wait has returned.
-// Since no CTA can trigger (or exit) before its wait returns, a kernel
-// starts only once every kernel two or more places before it has
-// completed, and its wait returns only once the one just before it has.
-// So what a kernel does before its wait may touch only what the kernel just
-// before it neither writes nor reads (atomic adds to stats excepted: they
-// commute), and a trigger makes no write visible: only the wait does.  In
-// the walk and star loops that is inputs no kernel of the step writes
-// (walks, window draws, pools, star slots and meta, parameters; K4's
-// generated walks are written by the step's first kernel, complete before
-// the third starts), read into registers and shared memory.  In K6/K7's
-// loop, where a tile runs negative -> positive -> scatter, the positive
-// pass does all its work there (sgns_fused.cu); the negative passes read
-// their slot ids before the wait, and K6/K7's first kernel packs those ids,
-// so the negative pass after it launches without the attribute.  The f32
-// negative pass triggers right after its wait, so K6/K7's positive pass
-// runs beside it; the bf16 pass triggers once its dphi is merged, and the
-// other kernels once their last write is issued.  Each kernel's note says
-// where its wait stands.  A kernel launched without the attribute (tile
-// 0's negative pass in K6/K7, P3's stream launches) starts once the kernel
-// before it has completed, and its pdl_wait() returns at once.
+// star_sgns.cu) and K6/K7's tile loop (sgns_fused.cu) record a step once as
+// a CUDA graph (step_graph.cuh) and launch every kernel after the first
+// one or two with launch_kernel(pdl = true): the card may then start a
+// kernel while the one before it runs.  A kernel's pdl_wait() returns once
+// the kernel just before it has completed and its writes are visible; the
+// kernel after it launches once each of its CTAs has called pdl_trigger()
+// or exited.  Every kernel a loop launches keeps one rule: each CTA calls
+// pdl_wait() on every path before it exits, and triggers only after its
+// wait has returned.  Since no CTA can trigger (or exit) before its wait
+// returns, a kernel starts only once every kernel two or more places
+// before it has completed, and its wait returns only once the one just
+// before it has.  So what a kernel does before its wait may touch only
+// what the kernel just before it neither writes nor reads (atomic adds to
+// stats excepted: they commute), and a trigger makes no write visible:
+// only the wait does.  In the walk and star loops that is what the step's
+// head kernel copied from the call (walks, window draws, pools, star slots
+// and meta), complete before the third kernel starts, and K4's generated
+// walks, written by the second kernel and complete before the fourth
+// starts; so the kernel just after the head (and K4's walk generation)
+// launches without the attribute.  In K6/K7's loop, where a tile runs
+// negative -> positive -> scatter, the positive pass does all its work
+// there (sgns_fused.cu); the negative passes read their slot ids before
+// the wait, and K6/K7's first kernel packs those ids, so the negative pass
+// after it launches without the attribute.  Every read of such a buffer,
+// before the wait or after it, and of anything else an earlier kernel of
+// the step writes (the tables, nt, dphi, dphin, dneg, cneg, dctx, dcpos,
+// stats, the argument block), goes through step_ld (below): no kernel that
+// waits takes a const __restrict__ pointer, whose loads the compiler may
+// make invariant and move above the wait.  lr, the SR seed and K6/K7's
+// result pointer come from the plan's argument block, which the head
+// kernel writes: the kernels two or more places after it read lr and the
+// seed before their wait; K6/K7's apply kernel, which may follow the
+// stage kernel directly, reads lr and the result pointer after it.
+// The f32 negative pass triggers right after its wait, so K6/K7's positive
+// pass runs beside it; the bf16 pass triggers once its dphi is merged, and
+// the other kernels once their last write is issued.  Each kernel's note
+// says where its wait stands.  A kernel launched without the attribute
+// (the head, the kernel after it, tile 0's negative pass in K6/K7, P3's
+// stream launches) starts once the kernel before it has completed, and its
+// pdl_wait() returns at once.
 
 #pragma once
 
@@ -121,6 +133,47 @@ static __device__ __forceinline__ void pdl_trigger() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 #endif
 }
+
+// step_ld: every read, in a kernel that runs under PDL, of a buffer that
+// an earlier kernel of the step writes (the tables, nt, dphi, dphin, dneg,
+// cneg, dctx, dcpos, stats, K4's generated walks, the plan's staged inputs
+// and argument block).  An ordinary
+// load through a pointer that is not const __restrict__: such a load is
+// never invariant, so the compiler keeps it after pdl_wait()'s memory
+// clobber, and the wait makes the kernel before's writes visible to it.  A
+// load through a const __restrict__ pointer may be compiled as an invariant
+// (non-coherent) load, which the compiler is free to move above the wait;
+// no kernel that calls pdl_wait() takes one (tests/test_torch_pdl_loads.py
+// holds both over csrc/).  An L2-only form (ld.global.cg as volatile asm)
+// measured 4.3 µs slower a K3 group in the bf16 negative pass, whose CTAs
+// share the pool chunks through L1 (PERF.md §6).
+template <typename T>
+static __device__ __forceinline__ T step_ld(const T* p) {
+  return *p;
+}
+
+// A recorded step's argument block (ops/launch_plan.py: a plan's `args`,
+// 128 bytes of device memory): what a call changes besides its input
+// arrays.  The step's head kernel, the one graph node whose parameters a
+// call sets (step_graph.cuh), writes lr, seed and out from its parameters;
+// every later kernel reads them after its wait, through step_ld.  K6/K7's
+// scan (sgns_fused.cu) also keeps here the macro batch's inputs, its
+// micro-step count, the running micro-step and the summed (loss, pairs).
+struct StepArgs {
+  float lr;
+  unsigned seed;  // K3's stochastic-rounding seed
+  int it;         // the scan: the micro-step running
+  int n_micro;    // the scan: micro-steps in the macro batch
+  float* out;     // K6/K7: the call's (loss, pairs) as f32
+  const void* c;  // the scan: the macro batch's pairs, mask and pools
+  const void* x;
+  const float* m;
+  const void* pools;
+  int P, ids_wide, pool_wide;  // the scan: pairs a micro-step, id widths
+  bool go;                     // the scan: come_while_flag's flag (true)
+  double total[2];  // K6/K7: (loss, pairs) summed over the call's steps
+};
+static_assert(sizeof(StepArgs) <= 128, "a plan's argument block");
 
 static __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -206,12 +259,13 @@ static __device__ void block_add(float v, double* dst) {
 }
 
 // Elements c..c+3 of a row widened to f32: one 16-byte load of f32, one
-// 8-byte load of bf16 (c and the row's start a multiple of 4 elements).
+// 8-byte load of bf16 (c and the row's start a multiple of 4 elements),
+// through step_ld: every row the passes load is one the step writes.
 static __device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+  return step_ld(reinterpret_cast<const float4*>(p));
 }
 static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const uint2 u = step_ld(reinterpret_cast<const uint2*>(p));
   return make_float4(__uint_as_float(u.x << 16),
                      __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16),
@@ -240,10 +294,10 @@ static __device__ __forceinline__ void load_batch(float4 (&v)[U], int b,
     if (vec) {
       v[u] = load4(p + c);
     } else {
-      v[u].x = to_f32(p[c]);
-      if (c + 1 < d) v[u].y = to_f32(p[c + 1]);
-      if (c + 2 < d) v[u].z = to_f32(p[c + 2]);
-      if (c + 3 < d) v[u].w = to_f32(p[c + 3]);
+      v[u].x = to_f32(step_ld(p + c));
+      if (c + 1 < d) v[u].y = to_f32(step_ld(p + c + 1));
+      if (c + 2 < d) v[u].z = to_f32(step_ld(p + c + 2));
+      if (c + 3 < d) v[u].w = to_f32(step_ld(p + c + 3));
     }
   }
 }
@@ -356,35 +410,36 @@ static __host__ __device__ inline int n_slabs(int d) {
 }
 
 // cneg[k] = table[pool[k]] (widened to f32); dneg[k] = 0.
-// grid KP, block 128.  PDL: the pool id is read before the wait; the table
+// grid KP, block 128.  PDL: the pool id (the call's, staged by the head
+// kernel, two or more kernels before) is read before the wait; the table
 // row (the last scatter's) and cneg/dneg (the last block's passes) after.
 template <typename T>
-static __global__ void stage_pool_kernel(const T* __restrict__ table,
-                                         const int* __restrict__ pool,
+static __global__ void stage_pool_kernel(const T* table, const int* pool,
                                          float* __restrict__ cneg,
                                          float* __restrict__ dneg, int d) {
   const int k = blockIdx.x;
-  const size_t src = (size_t)pool[k] * d, dst = (size_t)k * d;
+  const size_t src = (size_t)step_ld(pool + k) * d, dst = (size_t)k * d;
   pdl_wait();
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    cneg[dst + j] = to_f32(table[src + j]);
+    cneg[dst + j] = to_f32(step_ld(table + src + j));
     dneg[dst + j] = 0.0f;
   }
   pdl_trigger();
 }
 
-// table[pool[k]] -= lr * dneg[k], atomic: a pool may repeat a row.
-// grid KP, block 128.  PDL: the pool id before the wait; dneg (the negative
-// pass's) and the table row (the scatter's) after.
-static __global__ void apply_pool_kernel(float* __restrict__ table,
-                                         const int* __restrict__ pool,
-                                         const float* __restrict__ dneg,
-                                         int d, float lr) {
+// table[pool[k]] -= lr * dneg[k], atomic: a pool may repeat a row; lr from
+// the argument block `args` (null: `lr`).  grid KP, block 128.  PDL: the
+// pool id and lr (the head's) before the wait; dneg (the negative pass's)
+// and the table row (the scatter's) after.
+static __global__ void apply_pool_kernel(float* table, const int* pool,
+                                         const float* dneg, int d,
+                                         const StepArgs* args, float lr) {
   const int k = blockIdx.x;
-  const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
+  const size_t dst = (size_t)step_ld(pool + k) * d, src = (size_t)k * d;
+  const float r = args != nullptr ? step_ld(&args->lr) : lr;  // P3: none
   pdl_wait();
   for (int j = threadIdx.x; j < d; j += blockDim.x)
-    atomicAdd(&table[dst + j], -lr * dneg[src + j]);
+    atomicAdd(&table[dst + j], -r * step_ld(dneg + src + j));
   pdl_trigger();
 }
 
@@ -394,17 +449,18 @@ static __global__ void apply_pool_kernel(float* __restrict__ table,
 // of sr_bits(sr_key(seed, g), (GROUP + k) * d + j): the pool has its own
 // counter range past the group's 1024 slots (the TPU reads its 1024-row
 // draw buffer at row k, pallas_walk_sgns.py:418 against :603, past its end
-// for KP > 1024).  Adds the CAS retries to *retries.  grid KP, block 64.
-// PDL: as apply_pool_kernel.
+// for KP > 1024).  lr and seed from the argument block.  Adds the CAS
+// retries to *retries.  grid KP, block 64.  PDL: as apply_pool_kernel.
 template <bool SR>
-static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* __restrict__ table,
-                                              const int* __restrict__ pool,
-                                              const float* __restrict__ dneg,
-                                              int d, float lr, unsigned seed,
-                                              int g, double* retries) {
+static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* table,
+                                              const int* pool,
+                                              const float* dneg, int d,
+                                              const StepArgs* args, int g,
+                                              double* retries) {
   const int k = blockIdx.x;
-  const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
-  const unsigned key = SR ? sr_key(seed, (unsigned)g) : 0u;
+  const size_t dst = (size_t)step_ld(pool + k) * d, src = (size_t)k * d;
+  const float lr = step_ld(&args->lr);
+  const unsigned key = SR ? sr_key(step_ld(&args->seed), (unsigned)g) : 0u;
   pdl_wait();
   unsigned n = 0;
   for (int j = 2 * threadIdx.x; j < d; j += 2 * blockDim.x) {
@@ -414,8 +470,9 @@ static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* __restrict__ table,
       r0 = mix32(c ^ key) & 0xffffu;
       r1 = mix32((c + 1) ^ key) & 0xffffu;
     }
-    n += rmw_bf16_pair(table + dst + j, __fmul_rn(dneg[src + j], -lr),
-                       __fmul_rn(dneg[src + j + 1], -lr), r0, r1);
+    n += rmw_bf16_pair(table + dst + j,
+                       __fmul_rn(step_ld(dneg + src + j), -lr),
+                       __fmul_rn(step_ld(dneg + src + j + 1), -lr), r0, r1);
   }
   pdl_trigger();
   if (n) atomicAdd(retries, (double)n);
@@ -482,9 +539,9 @@ static inline size_t negative_f32_smem_bytes(int d) {
 // after its wait.
 template <int NP>
 static __global__ void __launch_bounds__(NEG_THREADS, NP == 2 ? 3 : 2)
-negative_f32_kernel(const float* __restrict__ table,
-                    const int* __restrict__ ids, const float* __restrict__ nt,
-                    const float* __restrict__ cneg, int d, int KP, int ny,
+negative_f32_kernel(const float* table,
+                    const int* ids, const float* nt,
+                    const float* cneg, int d, int KP, int ny,
                     float negw, float* __restrict__ dphi,
                     float* __restrict__ dneg, double* __restrict__ stats) {
   extern __shared__ float4 negf_smem[];
@@ -504,7 +561,7 @@ negative_f32_kernel(const float* __restrict__ table,
     };
   };
   constexpr int CU = 4 * NP;  // a chunk's float4 pieces per thread
-  if (t < NEG_MS) rows[t] = ids[base + t];
+  if (t < NEG_MS) rows[t] = step_ld(ids + base + t);
   pdl_wait();
   pdl_trigger();
   float4 next[CU];
@@ -512,7 +569,7 @@ negative_f32_kernel(const float* __restrict__ table,
                                      pool_row(blockIdx.y));
   float own = 0.0f;
   if (t < NEG_MS) {
-    own = nt[base + t];
+    own = step_ld(nt + base + t);
     nts[t] = own;
   }
   if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
@@ -713,10 +770,10 @@ static inline size_t negative_slab_smem_bytes() {
 // (slots / 64, ny), block NEG_THREADS, clusters of C along y.  A tile
 // whose slots all have nt = 0 returns at once.  PDL as negative_f32_kernel.
 static __global__ void __launch_bounds__(NEG_THREADS, 2)
-negative_f32_slab_kernel(const float* __restrict__ table,
-                         const int* __restrict__ ids,
-                         const float* __restrict__ nt,
-                         const float* __restrict__ cneg, int d, int KP,
+negative_f32_slab_kernel(const float* table,
+                         const int* ids,
+                         const float* nt,
+                         const float* cneg, int d, int KP,
                          int ny, float negw, float* __restrict__ dphi,
                          float* __restrict__ dneg,
                          double* __restrict__ stats) {
@@ -732,12 +789,12 @@ negative_f32_slab_kernel(const float* __restrict__ table,
   const int py = blockIdx.y;  // this CTA's pool split: chunks py, py + ny..
   const int m = py < nch ? (nch - 1 - py) / ny + 1 : 0;
   const bool vec = d % 4 == 0;
-  if (t < NEG_MS) rows[t] = ids[base + t];
+  if (t < NEG_MS) rows[t] = step_ld(ids + base + t);
   pdl_wait();
   pdl_trigger();
   float own = 0.0f;
   if (t < NEG_MS) {
-    own = nt[base + t];
+    own = step_ld(nt + base + t);
     nts[t] = own;
   }
   if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
@@ -1067,9 +1124,9 @@ static __device__ __forceinline__ void put_bf16(__nv_bfloat16* m, float4 v) {
 // triggers once dphi is merged.
 template <int NTILE, typename T>
 static __global__ void __launch_bounds__(NEG_THREADS, NTILE == 16 ? 3 : 2)
-negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
-                     const float* __restrict__ nt,
-                     const float* __restrict__ cneg, int d, int KP, int ny,
+negative_bf16_kernel(const T* table, const int* ids,
+                     const float* nt,
+                     const float* cneg, int d, int KP, int ny,
                      float negw, float* __restrict__ dphi,
                      float* __restrict__ dneg, double* __restrict__ stats) {
   extern __shared__ float4 neg_smem[];
@@ -1091,13 +1148,13 @@ negative_bf16_kernel(const T* __restrict__ table, const int* __restrict__ ids,
     };
   };
   constexpr int CU = NTILE / 2;  // a chunk's pieces per thread
-  if (threadIdx.x < NEG_MS) rows[threadIdx.x] = ids[base + threadIdx.x];
+  if (threadIdx.x < NEG_MS) rows[threadIdx.x] = step_ld(ids + base + threadIdx.x);
   pdl_wait();
   float4 next[CU];
   load_batch<NEG_THREADS, CU, float>(next, threadIdx.x, NEG_KC, d, dp,
                                      pool_row(blockIdx.y));
 
-  if (threadIdx.x < NEG_MS) nts[threadIdx.x] = nt[base + threadIdx.x];
+  if (threadIdx.x < NEG_MS) nts[threadIdx.x] = step_ld(nt + base + threadIdx.x);
   __syncthreads();
   stage_rows<NEG_THREADS, 8, T>(
       NEG_MS, d, dp, [&](int i) { return table + (size_t)rows[i] * d; },
@@ -1255,10 +1312,10 @@ static inline size_t negative_bf16_slab_smem_bytes() {
 // the last slab's dphi is added.
 template <typename T>
 static __global__ void __launch_bounds__(NEG_THREADS, 3)
-negative_bf16_slab_kernel(const T* __restrict__ table,
-                          const int* __restrict__ ids,
-                          const float* __restrict__ nt,
-                          const float* __restrict__ cneg, int d, int KP,
+negative_bf16_slab_kernel(const T* table,
+                          const int* ids,
+                          const float* nt,
+                          const float* cneg, int d, int KP,
                           int ny, float negw, float* __restrict__ dphi,
                           float* __restrict__ dneg,
                           double* __restrict__ stats) {
@@ -1276,15 +1333,11 @@ negative_bf16_slab_kernel(const T* __restrict__ table,
   const int py = blockIdx.y;  // this CTA's pool split: chunks py, py + ny..
   const int m = py < nch ? (nch - 1 - py) / ny + 1 : 0;
   const bool vec = d % 4 == 0;
-  if (t < NEG_MS) rows[t] = ids[base + t];
+  if (t < NEG_MS) rows[t] = step_ld(ids + base + t);
   pdl_wait();
   float own = 0.0f;
   if (t < NEG_MS) {
-    // through L2 (ld.global.cg): nt is the pass just before's output, and a
-    // load through a const __restrict__ pointer is an invariant load, which
-    // the compiler may move above pdl_wait()'s memory clobber (on the card
-    // this kernel then read the last step's nt)
-    own = __ldcg(nt + base + t);
+    own = step_ld(nt + base + t);  // the pass just before's output
     nts[t] = own;
   }
   if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores

@@ -26,12 +26,18 @@
 // product per pair and the gathers and the scatter are row traffic
 // (4 x d x 4 bytes per pair).  The design:
 //   * a micro-step is one unit the card replays, as the TPU runs it as one
-//     pallas_call with a grid over the tiles: the C entry records the tile
-//     loop as a CUDA graph on the plan's private stream and replays it on
-//     the caller's (step_graph.cuh), every kernel after tile 0's negative
-//     pass under programmatic dependent launch (PDL, sgns_common.cuh: that
-//     pass reads its slot ids before its wait, and the first kernel packs
-//     them);
+//     pallas_call with a grid over the tiles: the plan records the tile
+//     loop once as a CUDA graph on its private stream, and a call sets the
+//     head (stage) kernel's parameters and replays it on the caller's
+//     stream (step_graph.cuh), every kernel after tile 0's negative pass
+//     under programmatic dependent launch (PDL, sgns_common.cuh: that pass
+//     reads its slot ids before its wait, and the first kernel packs them);
+//   * a macro batch of micro-steps is one launch, the port of the JAX
+//     trainer's lax.scan over them (come_tpu/trainer/come.py:350): a WHILE
+//     graph (step_graph.cu) whose body is one micro-step recorded once,
+//     its stage kernel reading micro-step `it`'s pairs and pool from the
+//     argument block and its apply kernel adding the step's (loss, pairs)
+//     to the block's total and advancing `it`;
 //   * the plan (ops/sgns.py, ops/launch_plan.py) owns every buffer the loop
 //     reads besides the tables: the packed ids, the per-tile masks nt
 //     (written once a call, rows TP.. of each tile's last 128-row chunk 0),
@@ -63,6 +69,36 @@ static __device__ __forceinline__ int id_at(const void* p, bool wide,
               : static_cast<const int*>(p)[i];
 }
 
+// What a call changes: the stage kernel's per-call parameters (set on the
+// recorded graph's head node at every call, step_graph.cuh).  P pairs (c,
+// x int32, or int64 when ids_wide; m f32), the pool (int32, or int64 when
+// pool_wide), lr and where the step's (loss, pairs) go.
+struct FusedIn {
+  const void* c;
+  const void* x;
+  const float* m;
+  const void* pool;
+  int P, ids_wide, pool_wide;
+  float lr;
+  float* out;
+};
+
+// The plan's buffers and shape (ops/launch_plan.py::FusedPlan); `scan`: the
+// stage kernel takes micro-step args->it of the macro batch in the
+// argument block instead of its FusedIn.
+struct FusedBufs {
+  const float* table;  // emb_out: the pool's rows
+  int* ids;
+  float* nt;
+  int* pool;
+  float* cneg;
+  float* dneg;
+  float* dphin;
+  double* stats;
+  StepArgs* args;
+  int d, KP, n_tiles, TP, scan;
+};
+
 // The step's first kernel (launched without PDL), in three block ranges:
 //   * k < KP: pool[k] = the caller's pool id k, cneg[k] = emb_out[pool[k]],
 //     dneg[k] = 0 (the pool staged once);
@@ -72,40 +108,82 @@ static __device__ __forceinline__ int id_at(const void* p, bool wide,
 //     [3, n_tiles * TP + 128] i32 (centres, contexts, mask != 0; zero past
 //     P) and nt [n_tiles, TPr] f32 (pair j of tile t at t * TPr + j; rows
 //     TP.. stay 0, and so do the 128 extra ids).
+// Block 0 zeroes stats and (not in a scan) writes lr and out into the
+// argument block and zeroes its total.  In a scan the inputs are micro-step
+// it's: c, x, m + it * P, pools + it * KP.
 // grid KP + TPr / 8 + ceil(n_tiles * TP / 128), block 128.
-static __global__ void fused_stage_kernel(
-    const float* table, const void* __restrict__ pool_in, bool pool_wide,
-    const void* __restrict__ c_in, const void* __restrict__ x_in,
-    bool ids_wide, const float* __restrict__ m_in, int P,
-    int* __restrict__ ids, float* __restrict__ nt, int* __restrict__ pool,
-    float* __restrict__ cneg, float* __restrict__ dneg,
-    float* __restrict__ dphin, int d, int KP, int n_tiles, int TP) {
+static __global__ void fused_stage_kernel(FusedIn in, FusedBufs b) {
+  const int d = b.d, KP = b.KP, TP = b.TP;
   const int TPr = (TP + BLK - 1) / BLK * BLK;
   const int k = blockIdx.x, zb = KP + TPr / 8;
+  if (b.scan) {
+    const StepArgs* a = b.args;
+    const size_t it = (size_t)step_ld(&a->it);
+    in.P = step_ld(&a->P);
+    in.ids_wide = step_ld(&a->ids_wide);
+    in.pool_wide = step_ld(&a->pool_wide);
+    const size_t e = in.ids_wide ? 8 : 4, off = it * (size_t)in.P;
+    in.c = static_cast<const char*>(step_ld(&a->c)) + off * e;
+    in.x = static_cast<const char*>(step_ld(&a->x)) + off * e;
+    in.m = step_ld(&a->m) + off;
+    in.pool = static_cast<const char*>(step_ld(&a->pools)) +
+              it * KP * (in.pool_wide ? 8 : 4);
+  } else if (k == 0 && threadIdx.x == 0) {
+    b.args->lr = in.lr;
+    b.args->out = in.out;
+    b.args->total[0] = 0.0;
+    b.args->total[1] = 0.0;
+  }
+  if (k == 0 && threadIdx.x == 0) {
+    b.stats[0] = 0.0;
+    b.stats[1] = 0.0;
+  }
   if (k < KP) {
-    const int v = id_at(pool_in, pool_wide, k);
-    if (threadIdx.x == 0) pool[k] = v;
+    const int v = id_at(in.pool, in.pool_wide, k);
+    if (threadIdx.x == 0) b.pool[k] = v;
     const size_t src = (size_t)v * d, dst = (size_t)k * d;
     for (int j = threadIdx.x; j < d; j += blockDim.x) {
-      cneg[dst + j] = table[src + j];
-      dneg[dst + j] = 0.0f;
+      b.cneg[dst + j] = step_ld(b.table + src + j);
+      b.dneg[dst + j] = 0.0f;
     }
   } else if (k < zb) {
-    float* rows = dphin + (size_t)(k - KP) * 8 * d;
+    float* rows = b.dphin + (size_t)(k - KP) * 8 * d;
     for (int j = threadIdx.x; j < 8 * d; j += blockDim.x) rows[j] = 0.0f;
   } else {
-    const size_t n = (size_t)n_tiles * TP, row = n + BLK;
+    const size_t n = (size_t)b.n_tiles * TP, row = n + BLK;
     const size_t j = (size_t)(k - zb) * blockDim.x + threadIdx.x;
     if (j < n) {
-      const bool in = j < (size_t)P;
-      const bool valid = in && m_in[j] != 0.0f;
-      ids[j] = in ? id_at(c_in, ids_wide, j) : 0;
-      ids[row + j] = in ? id_at(x_in, ids_wide, j) : 0;
-      ids[2 * row + j] = valid;
-      nt[(j / TP) * TPr + j % TP] = valid ? 1.0f : 0.0f;
+      const bool inb = j < (size_t)in.P;
+      const bool valid = inb && in.m[j] != 0.0f;
+      b.ids[j] = inb ? id_at(in.c, in.ids_wide, j) : 0;
+      b.ids[row + j] = inb ? id_at(in.x, in.ids_wide, j) : 0;
+      b.ids[2 * row + j] = valid;
+      b.nt[(j / TP) * TPr + j % TP] = valid ? 1.0f : 0.0f;
     }
   }
   pdl_trigger();
+}
+
+// The scan's entry, launched on the caller's stream just before its WHILE
+// graph (one thread): the macro batch's inputs, micro-step count and lr,
+// and where its (loss, pairs) go, into the argument block; it = 0, the
+// total zeroed.
+static __global__ void fused_scan_entry_kernel(StepArgs* a, FusedIn in,
+                                               int n_micro) {
+  a->lr = in.lr;
+  a->out = in.out;
+  a->c = in.c;
+  a->x = in.x;
+  a->m = in.m;
+  a->pools = in.pool;
+  a->P = in.P;
+  a->ids_wide = in.ids_wide;
+  a->pool_wide = in.pool_wide;
+  a->n_micro = n_micro;
+  a->it = 0;
+  a->go = true;
+  a->total[0] = 0.0;
+  a->total[1] = 0.0;
 }
 
 // Positive term of one tile, one warp per pair i < TP (grid ceil(TP / 8),
@@ -115,30 +193,29 @@ static __global__ void fused_stage_kernel(
 // d = 32 * KMAX (256), and loops over them past it.
 // PDL: it runs after the tile's negative pass, and all its work comes
 // before its wait: what it reads (ids, nt, the table rows the last scatter
-// wrote, read through L2) no kernel still running writes, and what it
+// wrote, all through step_ld) no kernel still running writes, and what it
 // writes (dphi, dcpos, stats by atomics) the running negative pass does not
 // touch, the scatter that read them last being complete (sgns_common.cuh's
 // note).  It waits only to exit, so the scatter after it starts once the
 // negative pass is complete.
 static __global__ void __launch_bounds__(THREADS)
-fused_pos_kernel(const float* emb_in, const float* emb_out,
-                 const int* __restrict__ c, const int* __restrict__ x,
-                 const float* __restrict__ nt, int d, int TP,
+fused_pos_kernel(const float* emb_in, const float* emb_out, const int* c,
+                 const int* x, const float* nt, int d, int TP,
                  float* __restrict__ dphi, float* __restrict__ dcpos,
                  double* __restrict__ stats) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * NWARPS + (threadIdx.x >> 5);
-  const bool valid = i < TP && nt[i] != 0.0f;  // warp-uniform
+  const bool valid = i < TP && step_ld(nt + i) != 0.0f;  // warp-uniform
   float loss = 0.0f, pairs = 0.0f;
   if (valid && d > 32 * KMAX) {
     // a lane's share of the rows would not fit its registers: the dot
     // product first (each lane's terms in the order of the form below),
-    // then the rows re-read from L2 for the two updates
-    const float* pr = emb_in + (size_t)c[i] * d;
-    const float* cr = emb_out + (size_t)x[i] * d;
+    // then the rows re-read for the two updates
+    const float* pr = emb_in + (size_t)step_ld(c + i) * d;
+    const float* cr = emb_out + (size_t)step_ld(x + i) * d;
     float p = 0.0f;
     for (int k = lane; k < d; k += 32)
-      p = fmaf(__ldcg(pr + k), __ldcg(cr + k), p);
+      p = fmaf(step_ld(pr + k), step_ld(cr + k), p);
     const float s = warp_sum(p);
     const float g = sigmoid_f(s) - 1.0f;
     if (lane == 0) {
@@ -146,20 +223,20 @@ fused_pos_kernel(const float* emb_in, const float* emb_out,
       pairs = 1.0f;
     }
     for (int k = lane; k < d; k += 32) {
-      dphi[(size_t)i * d + k] = g * __ldcg(cr + k);
-      dcpos[(size_t)i * d + k] = g * __ldcg(pr + k);
+      dphi[(size_t)i * d + k] = g * step_ld(cr + k);
+      dcpos[(size_t)i * d + k] = g * step_ld(pr + k);
     }
   } else if (valid) {
-    const float* pr = emb_in + (size_t)c[i] * d;
-    const float* cr = emb_out + (size_t)x[i] * d;
+    const float* pr = emb_in + (size_t)step_ld(c + i) * d;
+    const float* cr = emb_out + (size_t)step_ld(x + i) * d;
     float ph[KMAX], cp[KMAX], p = 0.0f;
 #pragma unroll
     for (int q = 0; q < KMAX; ++q) {
       const int k = lane + 32 * q;
       ph[q] = cp[q] = 0.0f;
       if (k < d) {
-        ph[q] = __ldcg(pr + k);
-        cp[q] = __ldcg(cr + k);
+        ph[q] = step_ld(pr + k);
+        cp[q] = step_ld(cr + k);
         p = fmaf(ph[q], cp[q], p);
       }
     }
@@ -187,24 +264,23 @@ fused_pos_kernel(const float* emb_in, const float* emb_out,
 // the tile's valid pairs (the positive and the negative part of dphi add
 // once here, as the plain version adds them), then dphin[i] = 0 for the
 // next tile's negative pass.  One warp per pair, grid ceil(TP / 8), block
-// THREADS.  PDL: ids and nt before the wait; dphi, dphin, dcpos and the
-// tables after.
+// THREADS.  PDL: ids, nt and lr (the stage kernel's, complete) before the
+// wait; dphi, dphin, dcpos and the tables after.
 static __global__ void __launch_bounds__(THREADS)
-fused_scatter_kernel(float* emb_in, float* emb_out, const int* __restrict__ c,
-                     const int* __restrict__ x,
-                     const float* __restrict__ dphi,
-                     float* __restrict__ dphin,
-                     const float* __restrict__ dcpos,
-                     const float* __restrict__ nt, int d, int TP, float lr) {
+fused_scatter_kernel(float* emb_in, float* emb_out, const int* c,
+                     const int* x, const float* dphi, float* dphin,
+                     const float* dcpos, const float* nt, int d, int TP,
+                     const StepArgs* args) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * NWARPS + (threadIdx.x >> 5);
-  const bool valid = i < TP && nt[i] != 0.0f;
+  const bool valid = i < TP && step_ld(nt + i) != 0.0f;
   size_t ci = 0, xi = 0;
   if (valid) {
-    ci = (size_t)c[i] * d;
-    xi = (size_t)x[i] * d;
+    ci = (size_t)step_ld(c + i) * d;
+    xi = (size_t)step_ld(x + i) * d;
   }
   const size_t src = (size_t)i * d;
+  const float lr = step_ld(&args->lr);
   pdl_wait();
   if (valid) {
     if (d % 4 == 0) {
@@ -221,8 +297,9 @@ fused_scatter_kernel(float* emb_in, float* emb_out, const int* __restrict__ c,
       }
     } else {
       for (int k = lane; k < d; k += 32) {
-        atomicAdd(&emb_in[ci + k], -lr * (dphi[src + k] + dphin[src + k]));
-        atomicAdd(&emb_out[xi + k], -lr * dcpos[src + k]);
+        atomicAdd(&emb_in[ci + k],
+                  -lr * (step_ld(dphi + src + k) + step_ld(dphin + src + k)));
+        atomicAdd(&emb_out[xi + k], -lr * step_ld(dcpos + src + k));
         dphin[src + k] = 0.0f;
       }
     }
@@ -231,110 +308,161 @@ fused_scatter_kernel(float* emb_in, float* emb_out, const int* __restrict__ c,
 }
 
 // The step's last kernel: table[pool[k]] -= lr * dneg[k] (atomic: a pool
-// may repeat a row), and block 0 writes the step's (loss, pairs) as f32 to
-// out.  grid KP, block 128.  PDL: everything after the wait (with no tile
-// the stage kernel that writes pool is the one just before it).
-static __global__ void fused_apply_kernel(float* table,
-                                          const int* __restrict__ pool,
-                                          const float* __restrict__ dneg,
-                                          const double* __restrict__ stats,
-                                          float* __restrict__ out, int d,
-                                          float lr) {
+// may repeat a row), and block 0 adds the step's (loss, pairs) to the
+// argument block's total, writes the total as f32 to its `out` and
+// advances `it` (the scan's micro-step).  grid KP, block 128.  PDL:
+// everything after the wait (with no tile the stage kernel that writes
+// pool is the one just before it).
+static __global__ void fused_apply_kernel(float* table, const int* pool,
+                                          const float* dneg,
+                                          const double* stats,
+                                          StepArgs* args, int d) {
   const int k = blockIdx.x;
   pdl_wait();
-  const size_t dst = (size_t)pool[k] * d, src = (size_t)k * d;
+  const float lr = step_ld(&args->lr);
+  const size_t dst = (size_t)step_ld(pool + k) * d, src = (size_t)k * d;
   for (int j = threadIdx.x; j < d; j += blockDim.x)
-    atomicAdd(&table[dst + j], -lr * dneg[src + j]);
-  if (k == 0 && threadIdx.x < 2) out[threadIdx.x] = (float)stats[threadIdx.x];
+    atomicAdd(&table[dst + j], -lr * step_ld(dneg + src + j));
+  if (k == 0 && threadIdx.x == 0) {
+    const double loss = step_ld(&args->total[0]) + step_ld(stats);
+    const double pairs = step_ld(&args->total[1]) + step_ld(stats + 1);
+    args->total[0] = loss;
+    args->total[1] = pairs;
+    float* out = step_ld(&args->out);
+    out[0] = (float)loss;
+    out[1] = (float)pairs;
+    args->it = step_ld(&args->it) + 1;
+  }
 }
 
-// The caller's inputs of one micro-step: P pairs (c, x int32, or int64
-// when ids_wide; m f32) and the pool (int32, or int64 when pool_wide).
-struct FusedInputs {
-  const void* c;
-  const void* x;
-  const float* m;
-  const void* pool;
-  int P, ids_wide, pool_wide;
-};
-
 // The tile loop of one micro-step, launched on `stream` (the recording
-// stream).  ids, nt and pool are the plan's buffers (fused_stage_kernel).
+// stream): the stage kernel with `in` (the call's, or with b.scan
+// micro-step it's), then each tile's passes, then the apply kernel.
 static int fused_tiles(const NegSetup& ns, float* emb_in, float* emb_out,
-                       const FusedInputs& in, int* ids, float* nt, int* pool,
-                       double* stats, float* out, float* cneg, float* dneg,
-                       float* dphi, float* dcpos, int d, int n_tiles, int TP,
-                       int KP, float lr, float negw, cudaStream_t stream) {
+                       const FusedIn& in, const FusedBufs& b, float* dphi,
+                       float* dcpos, float negw, cudaStream_t stream) {
+  const int d = b.d, TP = b.TP, KP = b.KP;
   const int TPr = (TP + BLK - 1) / BLK * BLK;
   NegativePass<false, float> neg;
   static_cast<NegSetup&>(neg) = ns;
-  float* dphin = dphi + (size_t)TPr * d;  // the negative pass's part
-  const size_t n = (size_t)n_tiles * TP, row = n + BLK;
-  const int *c = ids, *x = ids + row;
+  const size_t n = (size_t)b.n_tiles * TP, row = n + BLK;
+  const int *c = b.ids, *x = b.ids + row;
   const dim3 pairs((TP + NWARPS - 1) / NWARPS);
   cudaError_t e = launch_kernel(
       fused_stage_kernel, dim3(KP + TPr / 8 + (unsigned)((n + 127) / 128)),
-      dim3(128), 0, stream, false, 0, (const float*)emb_out, in.pool,
-      (bool)in.pool_wide, in.c, in.x, (bool)in.ids_wide, in.m, in.P, ids, nt,
-      pool, cneg, dneg, dphin, d, KP, n_tiles, TP);
+      dim3(128), 0, stream, false, 0, in, b);
   if (e != cudaSuccess) return (int)e;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = 0; t < b.n_tiles; ++t) {
     const int *ct = c + (size_t)t * TP, *xt = x + (size_t)t * TP;
-    const float* ntt = nt + (size_t)t * TPr;
+    const float* ntt = b.nt + (size_t)t * TPr;
     // tile 0's negative pass reads its slot ids, which the stage kernel
     // just before it writes, before its wait: it launches without PDL
-    e = neg.launch(emb_in, ct, ntt, cneg, d, KP, negw, dphin, dneg, stats,
-                   stream, t > 0);
+    e = neg.launch(emb_in, ct, ntt, b.cneg, d, KP, negw, b.dphin, b.dneg,
+                   b.stats, stream, t > 0);
     if (e != cudaSuccess) return (int)e;
     e = launch_kernel(fused_pos_kernel, pairs, dim3(THREADS), 0, stream, true,
                       0, (const float*)emb_in, (const float*)emb_out, ct, xt,
-                      ntt, d, TP, dphi, dcpos, stats);
+                      ntt, d, TP, dphi, dcpos, b.stats);
     if (e != cudaSuccess) return (int)e;
     e = launch_kernel(fused_scatter_kernel, pairs, dim3(THREADS), 0, stream,
                       true, 0, emb_in, emb_out, ct, xt, (const float*)dphi,
-                      dphin, (const float*)dcpos, ntt, d, TP, lr);
+                      b.dphin, (const float*)dcpos, ntt, d, TP,
+                      (const StepArgs*)b.args);
     if (e != cudaSuccess) return (int)e;
   }
   e = launch_kernel(fused_apply_kernel, dim3(KP), dim3(128), 0, stream, true,
-                    0, emb_out, (const int*)pool, (const float*)dneg,
-                    (const double*)stats, out, d, lr);
+                    0, emb_out, (const int*)b.pool, (const float*)b.dneg,
+                    (const double*)b.stats, b.args, d);
   return (int)e;
 }
 
-// One micro-step: checks the shapes, sizes the negative pass at the plan's
-// first step, then records the step and replays it (step_graph.cuh).
-static int fused_step(StepGraph* p, int instantiate, float* emb_in,
-                      float* emb_out, const FusedInputs& in, int* ids,
-                      float* nt, int* pool, double* stats, float* out,
-                      float* cneg, float* dneg, float* dphi, float* dcpos,
-                      int d, int n_tiles, int TP, int KP, float lr,
-                      float negw, cudaStream_t stream) {
-  if (p == nullptr || d < 1 || n_tiles < 0 || TP < 1 ||
-      KP < 1 || in.P < 0 || in.P > (long long)n_tiles * TP ||
-      in.P <= (long long)(n_tiles - 1) * TP)
+// Checks a plan's shape and sizes its negative pass at its first use.
+static int fused_setup(StepGraph* p, const FusedBufs& b) {
+  if (p == nullptr || b.d < 1 || b.n_tiles < 0 || b.TP < 1 || b.KP < 1)
     return (int)cudaErrorInvalidValue;
   if (p->mode < 0) {
     NegativePass<false, float> neg;
-    const cudaError_t e = neg.init(d, KP, (TP + BLK - 1) / BLK * BLK);
+    const cudaError_t e = neg.init(b.d, b.KP, (b.TP + BLK - 1) / BLK * BLK);
     if (e != cudaSuccess) return (int)e;
     p->neg = neg;
-    p->mode = 0;
+    p->mode = b.scan;
+  } else if (p->mode != b.scan) {
+    return (int)cudaErrorInvalidValue;  // a slot serves one kind of plan
   }
-  return replay_step(p, instantiate, stream, [&](cudaStream_t cap) {
-    return fused_tiles(p->neg, emb_in, emb_out, in, ids, nt, pool, stats,
-                       out, cneg, dneg, dphi, dcpos, d, n_tiles, TP, KP, lr,
-                       negw, cap);
-  });
+  return 0;
+}
+
+static bool fused_pairs_fit(int P, const FusedBufs& b) {
+  return P >= 0 && P <= (long long)b.n_tiles * b.TP &&
+         P > (long long)(b.n_tiles - 1) * b.TP;
+}
+
+// One micro-step: checks the shapes, sizes the negative pass at the plan's
+// first step, records the step if `how` asks (step_graph.cuh), then replays
+// it with this call's stage parameters.
+static int fused_step(StepGraph* p, int how, float* emb_in, float* emb_out,
+                      const FusedIn& in, const FusedBufs& b, float* dphi,
+                      float* dcpos, float negw, cudaStream_t stream) {
+  if (!fused_pairs_fit(in.P, b) || b.scan) return (int)cudaErrorInvalidValue;
+  const int rc = fused_setup(p, b);
+  if (rc != 0) return rc;
+  return run_step(
+      p, how, stream,
+      [&](cudaStream_t cap) {
+        return fused_tiles(p->neg, emb_in, emb_out, in, b, dphi, dcpos, negw,
+                           cap);
+      },
+      fused_stage_kernel, in, b);
+}
+
+// A scan plan's WHILE graph (step_graph.cu): the entry sets the condition
+// (it = 0 < n_micro); the body is one micro-step with b.scan set, then
+// come_while_flag on (args->go, args->it, args->n_micro).  Both are
+// recorded on the slot's private stream and built into `loop`.
+static int fused_scan_record(StepGraph* p, void* loop,
+                             unsigned long long handle, float* emb_in,
+                             float* emb_out, const FusedBufs& b, float* dphi,
+                             float* dcpos, float negw) {
+  if (!b.scan || loop == nullptr) return (int)cudaErrorInvalidValue;
+  int rc = fused_setup(p, b);
+  if (rc != 0) return rc;
+  StepArgs* a = b.args;
+  auto flag = [&](cudaStream_t s) {
+    return come_while_flag(&a->go, 1, &a->it, &a->n_micro, handle, s);
+  };
+  cudaGraph_t graphs[2] = {nullptr, nullptr};
+  for (int k = 0; k < 2 && rc == 0; ++k) {
+    cudaError_t e =
+        cudaStreamBeginCapture(p->cap, cudaStreamCaptureModeThreadLocal);
+    if (e != cudaSuccess) {
+      rc = (int)e;
+      break;
+    }
+    if (k == 1) {
+      const FusedIn none{};
+      rc = fused_tiles(p->neg, emb_in, emb_out, none, b, dphi, dcpos, negw,
+                       p->cap);
+    }
+    if (rc == 0) rc = flag(p->cap);
+    e = cudaStreamEndCapture(p->cap, &graphs[k]);
+    if (rc == 0 && e != cudaSuccess) rc = (int)e;
+  }
+  if (rc == 0) rc = come_while_graph_build(loop, graphs[0], graphs[1]);
+  for (cudaGraph_t g : graphs)
+    if (g != nullptr) cudaGraphDestroy(g);
+  return rc;
 }
 
 }  // namespace come
 
 using namespace come;
 
-// K6: one O1 micro-step of P pairs in n_tiles tiles of TP, recorded into
-// the plan's graph slot `graph` (come_step_graph_new) and replayed on
-// `stream`: instantiate != 0 at the plan's first step, 0 at every later
-// one.  All buffers are device pointers:
+// K6: one O1 micro-step of P pairs in n_tiles tiles of TP, through the
+// plan's graph slot `graph` (come_step_graph_new): `record` 1 records the
+// step and instantiates the slot's graph (the plan's first call), 2
+// records it and updates the instance (a table moved), 0 replays it; every
+// call sets the stage kernel's parameters (the pairs, the pool, lr, out)
+// and launches the instance on `stream`.  All buffers are device pointers:
 //   emb_in, emb_out  [V, d] f32 (updated in place)
 //   c, x       [P] the call's pair ends, int32 or (ids_wide) int64
 //   m          [P] f32 mask (valid = m != 0);  pool_in [KP] int32 or
@@ -343,39 +471,88 @@ using namespace come;
 //              ceil(TP / 128) * 128; rows TP.. and the extra 128 ids 0),
 //              pool [KP] i32: the plan's buffers, which the step's first
 //              kernel fills from the call's
-//   stats      [2] f64, accumulates (loss, pairs), zeroed by the caller
-//   out        [2] f32, the step's (loss, pairs)
+//   stats      [2] f64 scratch: the step's (loss, pairs)
+//   out        [2] f32, the call's (loss, pairs)
 //   cneg, dneg [KP, d] f32 scratch
 //   dphi       [2, TPr, d] f32 scratch: the positive part of each pair's
 //              centre update, then the negative pass's
 //   dcpos      [TPr, d] f32 scratch
+//   args       the plan's argument block (sgns_common.cuh: StepArgs)
 // P must lie in ((n_tiles - 1) * TP, n_tiles * TP] (or be 0 with n_tiles
-// 0).  A plan serves one (d, TP, KP, n_tiles).  Returns 0 or the first CUDA
-// error code.  Enqueues only: it does not synchronise and allocates no
-// device memory.
+// 0).  A plan serves one (d, TP, KP, n_tiles); its recording holds the
+// tables' addresses and negw.  Returns 0 or the first CUDA error code.
+// Enqueues only: it does not synchronise and allocates no device memory.
 extern "C" int come_fused_sgns_step(
-    void* graph, int instantiate, float* emb_in, float* emb_out,
-    const void* c, const void* x, const float* m, const void* pool_in, int P,
-    int ids_wide, int pool_wide, int* ids, float* nt, int* pool,
-    double* stats, float* out, float* cneg, float* dneg, float* dphi,
-    float* dcpos, int d, int n_tiles, int TP, int KP, float lr, float negw,
-    void* stream_ptr) {
-  const FusedInputs in{c, x, m, pool_in, P, ids_wide, pool_wide};
-  return fused_step(static_cast<StepGraph*>(graph), instantiate, emb_in,
-                    emb_out, in, ids, nt, pool, stats, out, cneg, dneg, dphi,
-                    dcpos, d, n_tiles, TP, KP, lr, negw,
-                    (cudaStream_t)stream_ptr);
+    void* graph, int record, float* emb_in, float* emb_out, const void* c,
+    const void* x, const float* m, const void* pool_in, int P, int ids_wide,
+    int pool_wide, int* ids, float* nt, int* pool, double* stats, float* out,
+    float* cneg, float* dneg, float* dphi, float* dcpos, void* args, int d,
+    int n_tiles, int TP, int KP, float lr, float negw, void* stream_ptr) {
+  const FusedIn in{c, x, m, pool_in, P, ids_wide, pool_wide, lr, out};
+  const int TPr = (TP + BLK - 1) / BLK * BLK;
+  const FusedBufs b{emb_out, ids, nt, pool, cneg, dneg,
+                    dphi + (size_t)TPr * d, stats, static_cast<StepArgs*>(args),
+                    d, KP, n_tiles, TP, 0};
+  return fused_step(static_cast<StepGraph*>(graph), record, emb_in, emb_out,
+                    in, b, dphi, dcpos, negw, (cudaStream_t)stream_ptr);
 }
 
 // K7: K6 on one tied table emb [V, d] (both pair ends and the pool).
 extern "C" int come_fused_sgns_step_tied(
-    void* graph, int instantiate, float* emb, const void* c, const void* x,
+    void* graph, int record, float* emb, const void* c, const void* x,
     const float* m, const void* pool_in, int P, int ids_wide, int pool_wide,
     int* ids, float* nt, int* pool, double* stats, float* out, float* cneg,
-    float* dneg, float* dphi, float* dcpos, int d, int n_tiles, int TP,
-    int KP, float lr, float negw, void* stream_ptr) {
-  const FusedInputs in{c, x, m, pool_in, P, ids_wide, pool_wide};
-  return fused_step(static_cast<StepGraph*>(graph), instantiate, emb, emb,
-                    in, ids, nt, pool, stats, out, cneg, dneg, dphi, dcpos,
-                    d, n_tiles, TP, KP, lr, negw, (cudaStream_t)stream_ptr);
+    float* dneg, float* dphi, float* dcpos, void* args, int d, int n_tiles,
+    int TP, int KP, float lr, float negw, void* stream_ptr) {
+  return come_fused_sgns_step(graph, record, emb, emb, c, x, m, pool_in, P,
+                              ids_wide, pool_wide, ids, nt, pool, stats, out,
+                              cneg, dneg, dphi, dcpos, args, d, n_tiles, TP,
+                              KP, lr, negw, stream_ptr);
+}
+
+// Records a K6 (tied 0) or K7 (tied 1) scan plan into the WHILE graph
+// `loop` (come_while_graph_new, its condition `handle`): one micro-step of
+// P pairs (P fixed by the launches) in n_tiles tiles of TP as the body,
+// run while args->it < args->n_micro.  `graph` is the plan's slot (its
+// recording stream and the negative pass's sizing).  Buffers as
+// come_fused_sgns_step (emb_out is emb when tied).  Returns 0 or the
+// first CUDA error code (cudaErrorNotSupported below CUDA 12.4).
+extern "C" int come_fused_scan_record(
+    void* graph, void* loop, unsigned long long handle, float* emb_in,
+    float* emb_out, int* ids, float* nt, int* pool, double* stats,
+    float* cneg, float* dneg, float* dphi, float* dcpos, void* args, int d,
+    int n_tiles, int TP, int KP, float negw) {
+  const int TPr = (TP + BLK - 1) / BLK * BLK;
+  const FusedBufs b{emb_out, ids, nt, pool, cneg, dneg,
+                    dphi + (size_t)TPr * d, stats, static_cast<StepArgs*>(args),
+                    d, KP, n_tiles, TP, 1};
+  return fused_scan_record(static_cast<StepGraph*>(graph), loop, handle,
+                           emb_in, emb_out, b, dphi, dcpos, negw);
+}
+
+// Runs a macro batch through a recorded scan plan on `stream`: the entry
+// kernel puts the batch into the plan's argument block `args` (n_micro
+// micro-steps of P pairs: c, x [n_micro * P] int32 or (ids_wide) int64, m
+// [n_micro * P] f32, pools [n_micro, KP] int32 or (pool_wide) int64; lr;
+// out [2] f32, the summed (loss, pairs)), then the WHILE graph `loop` runs
+// every micro-step.  P must fit the plan's tiles as in come_fused_sgns_step.
+// Returns 0 or the first CUDA error code.  Enqueues only.
+extern "C" int come_fused_scan_launch(void* loop, void* args, const void* c,
+                                      const void* x, const float* m,
+                                      const void* pools, int P, int n_micro,
+                                      int ids_wide, int pool_wide, int n_tiles,
+                                      int TP, float lr, float* out,
+                                      void* stream_ptr) {
+  FusedBufs b{};
+  b.n_tiles = n_tiles;
+  b.TP = TP;
+  if (loop == nullptr || n_micro < 1 || !fused_pairs_fit(P, b))
+    return (int)cudaErrorInvalidValue;
+  const FusedIn in{c, x, m, pools, P, ids_wide, pool_wide, lr, out};
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  fused_scan_entry_kernel<<<1, 1, 0, stream>>>(static_cast<StepArgs*>(args),
+                                               in, n_micro);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return come_while_graph_launch(loop, stream_ptr);
 }

@@ -58,13 +58,12 @@ struct StarRow {
 // and hubs (before the PDL wait: these are step inputs).  All STAR_THREADS
 // threads call.
 static __device__ __forceinline__ void read_row(StarRow& r,
-                                                const int* __restrict__ slots,
-                                                const int* __restrict__ meta,
-                                                int base) {
+                                                const int* slots,
+                                                const int* meta, int base) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int m = meta[base + t];
+  const int m = step_ld(meta + base + t);
   r.ms[t] = m;
-  r.ids[t] = slots[base + t];
+  r.ids[t] = step_ld(slots + base + t);
   __syncthreads();
   const bool real = m >= 0;
   const unsigned fb = __ballot_sync(
@@ -147,8 +146,7 @@ static __device__ __forceinline__ void finish_star(const StarRow& r,
 // the table (the last scatter's) and every write after it.
 template <bool BF16>
 static __global__ void __launch_bounds__(STAR_THREADS)
-star_pos_kernel(const float* __restrict__ emb, const int* __restrict__ slots,
-                const int* __restrict__ meta, int d,
+star_pos_kernel(const float* emb, const int* slots, const int* meta, int d,
                 float* __restrict__ dphi, float* __restrict__ dphin,
                 float* __restrict__ nt, double* __restrict__ stats) {
   extern __shared__ float4 star_smem[];
@@ -251,9 +249,8 @@ static inline size_t star_pos_slab_smem_bytes() {
 // columns, 68 KB.  Grid, outputs and PDL as star_pos_kernel.
 template <bool BF16>
 static __global__ void __launch_bounds__(STAR_THREADS)
-star_pos_slab_kernel(const float* __restrict__ emb,
-                     const int* __restrict__ slots,
-                     const int* __restrict__ meta, int d,
+star_pos_slab_kernel(const float* emb, const int* slots, const int* meta,
+                     int d,
                      float* __restrict__ dphi, float* __restrict__ dphin,
                      float* __restrict__ nt, double* __restrict__ stats) {
   extern __shared__ float4 star_smem[];

@@ -80,7 +80,8 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
       if (e != cudaSuccess) return (int)e;
     }
     if (pool_on && (g % R == R - 1 || g == G - 1)) {
-      apply_pool_kernel<<<KP, 128, 0, stream>>>(emb, pool, dneg, d, lr);
+      apply_pool_kernel<<<KP, 128, 0, stream>>>(emb, pool, dneg, d, nullptr,
+                                                  lr);
       COME_CHECK_LAUNCH();
     }
   }

@@ -29,9 +29,10 @@
 // rows and each pair's g as they are made, a few conversions per element.
 // Past d 192 K2 and K2b stage their rows one column slab of 128 at a
 // time (star_pos_slab_kernel and the negative passes' slab forms).
-// The group loop is recorded as one CUDA graph that the card replays
-// (step_graph.cuh), each kernel after the first under programmatic
-// dependent launch (sgns_common.cuh).
+// The group loop is recorded once as a CUDA graph that the card replays
+// (step_graph.cuh), behind a head kernel that copies the call's slots,
+// meta and pools into the plan's buffers, each kernel after the first two
+// under programmatic dependent launch (sgns_common.cuh).
 
 #include "sgns_common.cuh"
 #include "star_pos.cuh"
@@ -42,31 +43,33 @@ namespace come {
 // emb[slots[t]] -= lr * (dphi[t] + dphin[t]) for slots with pairs (the
 // others carry exactly zero updates): the positive and the negative part
 // add once here, as the plain version adds them.  grid GROUP, block 128.
-// PDL (sgns_common.cuh): it waits first, since whether the slot has pairs
-// (nt) is the star pass's; dphi, dphin and the table after.
-static __global__ void star_scatter_kernel(float* __restrict__ emb,
-                                           const int* __restrict__ slots,
-                                           const float* __restrict__ dphi,
-                                           const float* __restrict__ dphin,
-                                           const float* __restrict__ nt, int d,
-                                           float lr) {
+// PDL (sgns_common.cuh): lr (the head's) before the wait; then whether
+// the slot has pairs (nt, the star pass's), dphi, dphin and the table.
+static __global__ void star_scatter_kernel(float* emb, const int* slots,
+                                           const float* dphi,
+                                           const float* dphin,
+                                           const float* nt, int d,
+                                           const StepArgs* args) {
   const int t = blockIdx.x;
+  const float lr = step_ld(&args->lr);
   pdl_wait();
-  if (nt[t] == 0.0f) return;
-  const size_t dst = (size_t)slots[t] * d, src = (size_t)t * d;
+  if (step_ld(nt + t) == 0.0f) return;
+  const size_t dst = (size_t)step_ld(slots + t) * d, src = (size_t)t * d;
   for (int k = threadIdx.x; k < d; k += blockDim.x)
-    atomicAdd(&emb[dst + k], -lr * (dphi[src + k] + dphin[src + k]));
+    atomicAdd(&emb[dst + k],
+              -lr * (step_ld(dphi + src + k) + step_ld(dphin + src + k)));
   pdl_trigger();
 }
 
 // The group loop of one step, launched on `stream` (the recording stream),
-// every kernel after the first under PDL.
+// after the head kernel: slots, meta and pools are the plan's copies.
+// Every kernel after the first under PDL.
 template <bool BF16>
 static int star_groups(const NegSetup& ns, float* emb, const int* slots,
                        const int* meta, const int* pools, double* stats,
-                       float* cneg, float* dneg, float* dphi, float* nt, int d,
-                       int G, int KP, int R, float lr, float negw,
-                       cudaStream_t stream) {
+                       float* cneg, float* dneg, float* dphi, float* nt,
+                       const StepArgs* args, int d, int G, int KP, int R,
+                       float negw, cudaStream_t stream) {
   StarPosPass<BF16> pos;
   pos.smem = StarPosPass<BF16>::smem_bytes(d);
   NegativePass<BF16, float> neg;
@@ -88,11 +91,11 @@ static int star_groups(const NegSetup& ns, float* emb, const int* slots,
                    true);
     if (e != cudaSuccess) return (int)e;
     e = launch_kernel(star_scatter_kernel, dim3(GROUP), dim3(128), 0, stream,
-                      true, 0, emb, sg, dphi, dphin, nt, d, lr);
+                      true, 0, emb, sg, dphi, dphin, nt, d, args);
     if (e != cudaSuccess) return (int)e;
     if (g % R == R - 1 || g == G - 1) {
       e = launch_kernel(apply_pool_kernel, dim3(KP), dim3(128), 0, stream,
-                        true, 0, emb, pool, dneg, d, lr);
+                        true, 0, emb, pool, dneg, d, args, 0.0f);
       if (e != cudaSuccess) return (int)e;
     }
   }
@@ -101,13 +104,13 @@ static int star_groups(const NegSetup& ns, float* emb, const int* slots,
 
 // One step in one mode: checks the shapes, sets the kernels up at the
 // plan's first step (the star pass's shared-memory cap, the negative pass's
-// sizing), then records the step and replays it (step_graph.cuh).
+// sizing), records the step if `how` asks (the head kernel, then the group
+// loop; step_graph.cuh) and replays it with this call's head parameters.
 template <bool BF16>
-static int star_step(StepGraph* p, int instantiate, float* emb,
-                     const int* slots, const int* meta, const int* pools,
-                     double* stats, float* cneg, float* dneg, float* dphi,
-                     float* nt, int d, int G, int KP, int R, float lr,
-                     float negw, cudaStream_t stream) {
+static int star_step(StepGraph* p, int how, float* emb, const HeadIn& hin,
+                     const HeadBufs& hb, double* stats, float* cneg,
+                     float* dneg, float* dphi, float* nt, int d, int G,
+                     int KP, int R, float negw, cudaStream_t stream) {
   if (p == nullptr || d < 1 || G < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
   if (p->mode < 0) {
@@ -122,43 +125,58 @@ static int star_step(StepGraph* p, int instantiate, float* emb,
   } else if (p->mode != (int)BF16) {
     return (int)cudaErrorInvalidValue;  // a plan serves one mode
   }
-  return replay_step(p, instantiate, stream, [&](cudaStream_t cap) {
-    return star_groups<BF16>(p->neg, emb, slots, meta, pools, stats, cneg,
-                             dneg, dphi, nt, d, G, KP, R, lr, negw, cap);
-  });
+  return run_step(
+      p, how, stream,
+      [&](cudaStream_t cap) -> int {
+        const cudaError_t e = launch_head(hin, hb, cap);
+        if (e != cudaSuccess) return (int)e;
+        return star_groups<BF16>(p->neg, emb, hb.dst[0], hb.dst[1],
+                                 hb.dst[2], stats, cneg, dneg, dphi, nt,
+                                 hb.args, d, G, KP, R, negw, cap);
+      },
+      step_head_kernel, hin, hb);
 }
 
 }  // namespace come
 
 using namespace come;
 
-// One O2 macro step over G groups, recorded into the plan's graph slot
-// `graph` (come_step_graph_new) and replayed on `stream`: instantiate != 0
-// at the plan's first step, 0 at every later one.  All buffers are device
-// pointers:
+// One O2 macro step over G groups through the plan's graph slot `graph`
+// (come_step_graph_new): `record` 1 records the step and instantiates the
+// slot's graph (the plan's first step), 2 records it and updates the
+// instance (the table moved), 0 replays it; every call sets the head
+// kernel's parameters (the call's slots, meta and pools, lr) and launches
+// the instance on `stream`.  All buffers are device pointers:
 //   emb          [V, d] f32 (updated in place)
 //   slots, meta  [G * 1024] i32 (meta -2 at pads)
 //   pools        [ceil(G / R), KP] i32
-//   stats        [2] f64, accumulates (loss, pairs)
+//   stats        [2] f64 scratch: the step's (loss, pairs)
 //   cneg, dneg   [KP, d] f32 scratch;  nt [1024] f32 scratch
 //   dphi         [2, 1024, d] f32 scratch: the star pass's part of each
 //                slot's update, then the negative pass's
+//   slots_buf, meta_buf, pools_buf: the plan's copies of slots, meta and
+//                pools, which the loop reads
+//   args         the plan's argument block (sgns_common.cuh: StepArgs)
 // bf16 != 0 selects K2b's rounding; a plan serves one mode and one
-// (d, KP).  Returns 0 or the first CUDA error code.  Enqueues only: it does
-// not synchronise and allocates no device memory.
-extern "C" int come_star_sgns_step(void* graph, int instantiate, float* emb,
+// (d, G, KP, R); its recording holds the table's address and negw.  Returns
+// 0 or the first CUDA error code.  Enqueues only: it does not synchronise
+// and allocates no device memory.
+extern "C" int come_star_sgns_step(void* graph, int record, float* emb,
                                    const int* slots, const int* meta,
                                    const int* pools, double* stats,
                                    float* cneg, float* dneg, float* dphi,
-                                   float* nt, int d, int G, int KP, int R,
-                                   int bf16, float lr, float negw,
-                                   void* stream_ptr) {
+                                   float* nt, int* slots_buf, int* meta_buf,
+                                   int* pools_buf, void* args, int d, int G,
+                                   int KP, int R, int bf16, float lr,
+                                   float negw, void* stream_ptr) {
   StepGraph* p = static_cast<StepGraph*>(graph);
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  return bf16 ? star_step<true>(p, instantiate, emb, slots, meta, pools,
-                                stats, cneg, dneg, dphi, nt, d, G, KP, R, lr,
-                                negw, stream)
-              : star_step<false>(p, instantiate, emb, slots, meta, pools,
-                                 stats, cneg, dneg, dphi, nt, d, G, KP, R, lr,
-                                 negw, stream);
+  const int n = G * GROUP, np = (G + R - 1) / R * KP;
+  const HeadIn hin{{slots, meta, pools, nullptr}, lr, 0u};
+  const HeadBufs hb{{slots_buf, meta_buf, pools_buf, nullptr},
+                    {n, n, np, 0}, static_cast<StepArgs*>(args), stats};
+  return bf16 ? star_step<true>(p, record, emb, hin, hb, stats, cneg, dneg,
+                                dphi, nt, d, G, KP, R, negw, stream)
+              : star_step<false>(p, record, emb, hin, hb, stats, cneg, dneg,
+                                 dphi, nt, d, G, KP, R, negw, stream);
 }

@@ -140,12 +140,16 @@ extern "C" void* come_step_graph_new() {
   return p;
 }
 
-// Frees a slot's instance and stream.  Returns 0 or the first CUDA error.
+// Frees a slot's instance, its recording and its stream.  Returns 0 or the first CUDA error.
 extern "C" int come_step_graph_free(void* slot) {
   StepGraph* p = static_cast<StepGraph*>(slot);
   if (p == nullptr) return 0;
   cudaError_t e = cudaSuccess;
   if (p->exec != nullptr) e = cudaGraphExecDestroy(p->exec);
+  if (p->graph != nullptr) {
+    const cudaError_t e1 = cudaGraphDestroy(p->graph);
+    if (e == cudaSuccess) e = e1;
+  }
   const cudaError_t e2 = cudaStreamDestroy(p->cap);
   delete p;
   return (int)(e != cudaSuccess ? e : e2);

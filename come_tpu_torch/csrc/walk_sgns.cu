@@ -66,8 +66,10 @@
 // The negative pass runs on the tensor cores in the bf16 modes
 // (sgns_common.cuh).  Groups keep their order with stream-ordered launches;
 // the host makes one call per macro step and the loop over groups runs
-// here, recorded as one CUDA graph that the card replays (step_graph.cuh),
-// each kernel after the first under programmatic dependent launch.  The
+// here, recorded once as a CUDA graph that the card replays
+// (step_graph.cuh), behind a head kernel that copies the call's walks,
+// window draws and pools (K4: starts and draws) into the plan's buffers,
+// each kernel after the first two under programmatic dependent launch.  The
 // walks do not depend on the tables, so one launch generates every group's
 // walks (one thread per walk) before the group loop, which is what the
 // TPU's per-group generation computes.
@@ -194,9 +196,8 @@ static __device__ __forceinline__ void finish_strip(int base, int t0, int t1,
 // after.  A strip of padding slots waits before its zeros.
 template <bool BF16, bool PAIRED, typename T>
 static __global__ void __launch_bounds__(THREADS)
-walk_pos_kernel(const T* __restrict__ emb_in,
-                const T* __restrict__ emb_out,
-                const int* __restrict__ walks, const int* __restrict__ wrow,
+walk_pos_kernel(const T* emb_in, const T* emb_out, const int* walks,
+                const int* wrow,
                 int d, int L, int W, float* __restrict__ dphi,
                 float* __restrict__ dctx, float* __restrict__ dphin,
                 float* __restrict__ nt, double* __restrict__ stats) {
@@ -220,8 +221,8 @@ walk_pos_kernel(const T* __restrict__ emb_in,
   __shared__ int npairs;
 
   for (int r = threadIdx.x; r < R; r += THREADS) {
-    rows[r] = walks[base + lo + r];
-    wr[r] = PAIRED ? 1 : min(wrow[base + lo + r], W);
+    rows[r] = step_ld(walks + base + lo + r);
+    wr[r] = PAIRED ? 1 : min(step_ld(wrow + base + lo + r), W);
   }
   for (int idx = threadIdx.x; idx < 2 * STRIP * RM; idx += THREADS)
     ga[idx] = 0.0f;  // ga and gb
@@ -320,10 +321,8 @@ static inline size_t walk_pos_slab_smem_bytes(int L, int W) {
 // PDL as walk_pos_kernel.
 template <bool BF16, bool PAIRED, typename T>
 static __global__ void __launch_bounds__(THREADS)
-walk_pos_slab_kernel(const T* __restrict__ emb_in,
-                     const T* __restrict__ emb_out,
-                     const int* __restrict__ walks,
-                     const int* __restrict__ wrow, int d, int L, int W,
+walk_pos_slab_kernel(const T* emb_in, const T* emb_out, const int* walks,
+                     const int* wrow, int d, int L, int W,
                      float* __restrict__ dphi, float* __restrict__ dctx,
                      float* __restrict__ dphin, float* __restrict__ nt,
                      double* __restrict__ stats) {
@@ -350,8 +349,8 @@ walk_pos_slab_kernel(const T* __restrict__ emb_in,
   __shared__ int npairs;
 
   for (int r = threadIdx.x; r < R; r += THREADS) {
-    rows[r] = walks[base + lo + r];
-    wr[r] = PAIRED ? 1 : min(wrow[base + lo + r], W);
+    rows[r] = step_ld(walks + base + lo + r);
+    wr[r] = PAIRED ? 1 : min(step_ld(wrow + base + lo + r), W);
   }
   for (int idx = threadIdx.x; idx < 2 * STRIP * RM; idx += THREADS)
     ga[idx] = 0.0f;  // ga and gb
@@ -458,15 +457,14 @@ walk_pos_slab_kernel(const T* __restrict__ emb_in,
 // Per-term f32 atomics would round each add at the running sum's magnitude,
 // in an order that varies from run to run.  Blocks of later slots of a row
 // return.  grid GROUP, block SCATTER_THREADS.  PDL: which slots hold the
-// row is found from the walks before the wait; dphi, dphin, dctx (this
-// group's passes) and the tables after it, and every early return waits.
+// row is found from the walks, and lr read, before the wait; dphi, dphin,
+// dctx (this group's passes) and the tables after it, and every early
+// return waits.
 constexpr int SCATTER_THREADS = 128;
 static __global__ void __launch_bounds__(SCATTER_THREADS)
-walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
-                    const int* __restrict__ walks,
-                    const float* __restrict__ dphi,
-                    const float* __restrict__ dphin,
-                    const float* __restrict__ dctx, int d, int L, float lr) {
+walk_scatter_kernel(float* emb_in, float* emb_out, const int* walks,
+                    const float* dphi, const float* dphin, const float* dctx,
+                    int d, int L, const StepArgs* args) {
   constexpr int NWORD = GROUP / 32;
   __shared__ unsigned same[NWORD];  // bit s: slot s is real and holds v
   __shared__ int first[NWORD];      // slots of the row in words before w
@@ -476,10 +474,10 @@ walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
     pdl_wait();
     return;
   }
-  const int v = walks[t];
+  const int v = step_ld(walks + t);
   bool earlier = false;
   for (int s = threadIdx.x; s < GROUP; s += SCATTER_THREADS) {
-    const bool m = s % BLK < L && walks[s] == v;
+    const bool m = s % BLK < L && step_ld(walks + s) == v;
     const unsigned b = __ballot_sync(0xffffffffu, m);
     if (lane == 0) same[s / 32] = b;
     earlier |= m && s < t;
@@ -507,17 +505,19 @@ walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
   __syncthreads();
   const int n = first[NWORD - 1] + __popc(same[NWORD - 1]);
   const size_t dst = (size_t)v * d;
+  const float lr = step_ld(&args->lr);  // the head's: complete
   pdl_wait();
   for (int k = threadIdx.x; k < d; k += SCATTER_THREADS) {
     double a = 0.0, c = 0.0;
 #pragma unroll 8
     for (int i = 0; i < n; ++i) {
       const size_t src = (size_t)slots[i] * d + k;
-      a += (double)__fmul_rn(__fadd_rn(dphi[src], dphin[src]), -lr);
-      c += (double)__fmul_rn(dctx[src], -lr);
+      a += (double)__fmul_rn(
+          __fadd_rn(step_ld(dphi + src), step_ld(dphin + src)), -lr);
+      c += (double)__fmul_rn(step_ld(dctx + src), -lr);
     }
-    emb_in[dst + k] = (float)((double)emb_in[dst + k] + a);
-    emb_out[dst + k] = (float)((double)emb_out[dst + k] + c);
+    emb_in[dst + k] = (float)((double)step_ld(emb_in + dst + k) + a);
+    emb_out[dst + k] = (float)((double)step_ld(emb_out + dst + k) + c);
   }
   pdl_trigger();
 }
@@ -529,22 +529,22 @@ walk_scatter_kernel(float* __restrict__ emb_in, float* __restrict__ emb_out,
 // dphi * (-lr) at :365).  SR draws 32 bits per (t, k) from
 // sr_bits(sr_key(seed, g), t*d + k): the low 16 round the node write, the
 // high 16 the ctx write (:377-394).  Adds the CAS retries to *retries.
-// grid GROUP, block 64.  PDL: the slot's row and key before the wait; dphi,
-// dphin, dctx and the tables after, and a padding slot waits to return.
+// grid GROUP, block 64.  PDL: the slot's row, lr and key before the wait;
+// dphi, dphin, dctx and the tables after, and a padding slot waits to
+// return.
 template <bool SR>
 static __global__ void walk_scatter_bf16_kernel(
-    __nv_bfloat16* __restrict__ emb_in, __nv_bfloat16* __restrict__ emb_out,
-    const int* __restrict__ walks, const float* __restrict__ dphi,
-    const float* __restrict__ dphin, const float* __restrict__ dctx, int d,
-    int L, float lr, unsigned seed,
-    int g, double* retries) {
+    __nv_bfloat16* emb_in, __nv_bfloat16* emb_out, const int* walks,
+    const float* dphi, const float* dphin, const float* dctx, int d, int L,
+    const StepArgs* args, int g, double* retries) {
   const int t = blockIdx.x;
   if (t % BLK >= L) {
     pdl_wait();
     return;
   }
-  const size_t dst = (size_t)walks[t] * d, src = (size_t)t * d;
-  const unsigned key = SR ? sr_key(seed, (unsigned)g) : 0u;
+  const size_t dst = (size_t)step_ld(walks + t) * d, src = (size_t)t * d;
+  const float lr = step_ld(&args->lr);
+  const unsigned key = SR ? sr_key(step_ld(&args->seed), (unsigned)g) : 0u;
   pdl_wait();
   unsigned n = 0;
   for (int k = 2 * threadIdx.x; k < d; k += 2 * blockDim.x) {
@@ -554,14 +554,16 @@ static __global__ void walk_scatter_bf16_kernel(
       b0 = mix32(c ^ key);
       b1 = mix32((c + 1) ^ key);
     }
-    n += rmw_bf16_pair(emb_in + dst + k,
-                       __fmul_rn(__fadd_rn(dphi[src + k], dphin[src + k]), -lr),
-                       __fmul_rn(__fadd_rn(dphi[src + k + 1], dphin[src + k + 1]),
-                                 -lr),
-                       b0 & 0xffffu,
-                       b1 & 0xffffu);
-    n += rmw_bf16_pair(emb_out + dst + k, __fmul_rn(dctx[src + k], -lr),
-                       __fmul_rn(dctx[src + k + 1], -lr), b0 >> 16, b1 >> 16);
+    const float u0 = __fadd_rn(step_ld(dphi + src + k),
+                               step_ld(dphin + src + k));
+    const float u1 = __fadd_rn(step_ld(dphi + src + k + 1),
+                               step_ld(dphin + src + k + 1));
+    n += rmw_bf16_pair(emb_in + dst + k, __fmul_rn(u0, -lr),
+                       __fmul_rn(u1, -lr), b0 & 0xffffu, b1 & 0xffffu);
+    n += rmw_bf16_pair(emb_out + dst + k,
+                       __fmul_rn(step_ld(dctx + src + k), -lr),
+                       __fmul_rn(step_ld(dctx + src + k + 1), -lr), b0 >> 16,
+                       b1 >> 16);
   }
   pdl_trigger();
   if (n) atomicAdd(retries, (double)n);
@@ -573,8 +575,9 @@ static __global__ void walk_scatter_bf16_kernel(
 //   indices[indptr[v] + min(int(u * float(deg)), max(deg - 1, 0))],
 //   u = float((b >> 8) & 0xFFFFFF) * 2^-24   (both products in f32),
 // and a node of degree 0 stays where it is.  Slots at positions >= L are 0.
-// grid ceil(nwalks / 128), block 128.  The step's first kernel: launched
-// without PDL, so it needs no wait.
+// grid ceil(nwalks / 128), block 128.  The kernel after the step's head
+// (which stages starts and bits), launched without PDL, so it needs no
+// wait.
 static __global__ void walk_gen_kernel(const int* __restrict__ starts,
                                        const unsigned* __restrict__ bits,
                                        const int* __restrict__ indptr,
@@ -602,8 +605,10 @@ static __global__ void walk_gen_kernel(const int* __restrict__ starts,
 }
 
 // The arguments of one walk-kernel macro step (the C entries' buffers,
-// below).  starts, bits, indptr and indices are set for K4 only: the step
-// then generates its walks into `walks` first.
+// below), as the group loop reads them: walks, wrow and pools (and K4's
+// starts and bits) are the plan's buffers, which the step's head kernel
+// fills from the call's.  starts, bits, indptr and indices are set for K4
+// only: the step then generates its walks into `walks` first.
 struct WalkStep {
   void* emb_in;
   void* emb_out;
@@ -617,9 +622,9 @@ struct WalkStep {
   float* dphi;
   float* dctx;
   float* nt;
+  StepArgs* args;
   int d, G, L, W, KP, R;
-  float lr, negw;
-  unsigned seed;
+  float negw;
   const int* starts;
   const unsigned* bits;
   const int* indptr;
@@ -630,7 +635,7 @@ struct WalkStep {
 // T = float: K1/K1b/K5 (atomic f32 scatter); T = __nv_bfloat16: K3
 // (rounded RMW scatter, SR with a per-step seed; `retries` collects its CAS
 // retries).  `pdl` says whether the first launch may start under PDL (a
-// kernel precedes it in the step); every later one does.
+// kernel besides the head precedes it in the step); every later one does.
 template <bool BF16, bool PAIRED, typename T, bool SR>
 static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
                        cudaStream_t stream) {
@@ -644,6 +649,7 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
   NegativePass<BF16, T> neg;
   static_cast<NegSetup&>(neg) = ns;
   float* dphin = s.dphi + (size_t)GROUP * d;  // the negative pass's part
+  const StepArgs* args = s.args;
   cudaError_t e;
   for (int g = 0; g < s.G; ++g) {
     const int* pool = s.pools + (size_t)(g / R) * KP;
@@ -669,22 +675,22 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
     if constexpr (TB16) {
       e = launch_kernel(walk_scatter_bf16_kernel<SR>, dim3(GROUP), dim3(64),
                         0, stream, true, 0, emb_in, emb_out, wg, s.dphi,
-                        dphin, s.dctx, d, L, s.lr, s.seed, g, s.retries);
+                        dphin, s.dctx, d, L, args, g, s.retries);
       if (e != cudaSuccess) return (int)e;
       if (end) {
         e = launch_kernel(apply_pool_bf16_kernel<SR>, dim3(KP), dim3(64), 0,
-                          stream, true, 0, emb_out, pool, s.dneg, d, s.lr,
-                          s.seed, g, s.retries);
+                          stream, true, 0, emb_out, pool, s.dneg, d, args, g,
+                          s.retries);
         if (e != cudaSuccess) return (int)e;
       }
     } else {
       e = launch_kernel(walk_scatter_kernel, dim3(GROUP),
                         dim3(SCATTER_THREADS), 0, stream, true, 0, emb_in,
-                        emb_out, wg, s.dphi, dphin, s.dctx, d, L, s.lr);
+                        emb_out, wg, s.dphi, dphin, s.dctx, d, L, args);
       if (e != cudaSuccess) return (int)e;
       if (end) {
         e = launch_kernel(apply_pool_kernel, dim3(KP), dim3(128), 0, stream,
-                          true, 0, emb_out, pool, s.dneg, d, s.lr);
+                          true, 0, emb_out, pool, s.dneg, d, args, 0.0f);
         if (e != cudaSuccess) return (int)e;
       }
     }
@@ -694,11 +700,13 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
 
 // One step in one mode: checks the shapes, sets the kernels up at the
 // plan's first step (the band pass's shared-memory cap, the negative
-// pass's sizing), then records the step (K4's walk generation first) and
-// replays it (step_graph.cuh).
+// pass's sizing), records the step if `how` asks (the head kernel, K4's
+// walk generation, then the group loop; step_graph.cuh) and replays it
+// with this call's head parameters `hin`.
 template <bool BF16, bool PAIRED, typename T, bool SR>
-static int walk_step(StepGraph* p, int instantiate, int mode,
-                     const WalkStep& s, cudaStream_t stream) {
+static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
+                     const HeadIn& hin, const HeadBufs& hb,
+                     cudaStream_t stream) {
   constexpr bool TB16 = !std::is_same<T, float>::value;
   if (p == nullptr || s.d < 1 || s.G < 1 ||
       s.L < 1 || s.L > BLK || s.W < 1 || s.R < 1 ||
@@ -724,32 +732,38 @@ static int walk_step(StepGraph* p, int instantiate, int mode,
   } else if (p->mode != mode) {
     return (int)cudaErrorInvalidValue;  // a plan serves one mode
   }
-  return replay_step(p, instantiate, stream, [&](cudaStream_t cap) -> int {
-    bool lead = false;
-    if (s.starts != nullptr) {  // K4
-      const int nwalks = s.G * NBLK;
-      const cudaError_t e = launch_kernel(
-          walk_gen_kernel, dim3((nwalks + 127) / 128), dim3(128), 0, cap,
-          false, 0, s.starts, s.bits, s.indptr, s.indices, nwalks, s.L,
-          const_cast<int*>(s.walks));
-      if (e != cudaSuccess) return (int)e;
-      lead = true;
-    }
-    return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, lead, cap);
-  });
+  return run_step(
+      p, how, stream,
+      [&](cudaStream_t cap) -> int {
+        cudaError_t e = launch_head(hin, hb, cap);
+        if (e != cudaSuccess) return (int)e;
+        bool lead = false;
+        if (s.starts != nullptr) {  // K4, on the staged starts and draws
+          const int nwalks = s.G * NBLK;
+          e = launch_kernel(walk_gen_kernel, dim3((nwalks + 127) / 128),
+                            dim3(128), 0, cap, false, 0, s.starts, s.bits,
+                            s.indptr, s.indices, nwalks, s.L,
+                            const_cast<int*>(s.walks));
+          if (e != cudaSuccess) return (int)e;
+          lead = true;
+        }
+        return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, lead, cap);
+      },
+      step_head_kernel, hin, hb);
 }
 
 // Dispatch on the runtime modes: tables_bf16 (K3, with sr) excludes
 // paired and implies K1b's rounding.  The mode number, which a plan keeps,
 // is bf16 | paired << 1 | tables_bf16 << 2 | sr << 3 | K4 << 4.
-static int walk_step_mode(void* graph, int instantiate, int bf16, int paired,
+static int walk_step_mode(void* graph, int how, int bf16, int paired,
                           int tables_bf16, int sr, const WalkStep& s,
+                          const HeadIn& hin, const HeadBufs& hb,
                           cudaStream_t stream) {
   StepGraph* p = static_cast<StepGraph*>(graph);
   const int mode = (bf16 != 0) | (paired != 0) << 1 | (tables_bf16 != 0) << 2 |
                    (sr != 0) << 3 | (s.starts != nullptr) << 4;
 #define COME_WALK_STEP(B, P, T, S) \
-  walk_step<B, P, T, S>(p, instantiate, mode, s, stream)
+  walk_step<B, P, T, S>(p, how, mode, s, hin, hb, stream)
   if (tables_bf16) {
     if (paired) return (int)cudaErrorInvalidValue;
     return sr ? COME_WALK_STEP(true, false, __nv_bfloat16, true)
@@ -767,67 +781,79 @@ static int walk_step_mode(void* graph, int instantiate, int bf16, int paired,
 
 using namespace come;
 
-// One walk-kernel macro step over G groups, recorded into the plan's graph
-// slot `graph` (come_step_graph_new) and replayed on `stream`:
-// instantiate != 0 at the plan's first step, 0 at every later one (the
-// step's recording then updates the instance).  All buffers are device
-// pointers:
+// One walk-kernel macro step over G groups through the plan's graph slot
+// `graph` (come_step_graph_new): `record` 1 records the step and
+// instantiates the slot's graph (the plan's first step), 2 records it and
+// updates the instance (a table moved), 0 replays it; every call sets the
+// head kernel's parameters (the call's walks, window draws and pools, lr,
+// the SR seed) and launches the instance on `stream`.  All buffers are
+// device pointers:
 //   emb_in, emb_out [V, d] f32, or bf16 with tables_bf16 (updated in place)
 //   walks           [G * 1024] i32 (walk j of group g at g*1024 + j*128)
 //   wrow            [G * 1024] i32 window draws (not read when paired)
 //   pools           [ceil(G / R), KP] i32
-//   stats           [2] f64, accumulates (loss, pairs)
+//   stats           [2] f64 scratch: the step's (loss, pairs)
 //   retries         [1] f64, accumulates K3's CAS retries (not read by K1,
 //                   K1b, K5)
 //   cneg, dneg      [KP, d] f32 scratch
 //   dphi            [2, 1024, d] f32 scratch: the positive pass's part of
 //                   each slot's update, then the negative pass's
 //   dctx            [1024, d] f32 scratch;  nt [1024] f32 scratch
+//   walks_buf, wrow_buf, pools_buf: the plan's copies of walks, wrow
+//                   (unused when paired) and pools, which the loop reads
+//   args            the plan's argument block (sgns_common.cuh: StepArgs)
 // bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even),
 // tables_bf16 != 0 K3 (d even; stochastic rounding from sr_seed when
-// sr != 0, else truncation).  A plan serves one mode and one (d, KP).
-// Returns 0 or the first CUDA error code.  Enqueues only: it does not
-// synchronise and allocates no device memory.
-extern "C" int come_walk_sgns_step(void* graph, int instantiate,
-                                   void* emb_in, void* emb_out,
-                                   const int* walks, const int* wrow,
-                                   const int* pools, double* stats,
-                                   double* retries, float* cneg, float* dneg,
-                                   float* dphi, float* dctx, float* nt, int d,
-                                   int G, int L, int W, int KP, int R,
-                                   int bf16, int paired, int tables_bf16,
-                                   int sr, unsigned sr_seed, float lr,
-                                   float negw, void* stream_ptr) {
-  const WalkStep s{emb_in, emb_out, walks,   wrow, pools, stats, retries,
-                   cneg,   dneg,    dphi,    dctx, nt,    d,     G,
-                   L,      W,       KP,      R,    lr,    negw,  sr_seed,
-                   nullptr, nullptr, nullptr, nullptr};
-  return walk_step_mode(graph, instantiate, bf16, paired, tables_bf16, sr, s,
-                        (cudaStream_t)stream_ptr);
+// sr != 0, else truncation).  A plan serves one mode and one (d, G, L, W,
+// KP, R); its recording holds the tables' addresses and negw.  Returns 0
+// or the first CUDA error code.  Enqueues only: it does not synchronise and
+// allocates no device memory.
+extern "C" int come_walk_sgns_step(
+    void* graph, int record, void* emb_in, void* emb_out, const int* walks,
+    const int* wrow, const int* pools, double* stats, double* retries,
+    float* cneg, float* dneg, float* dphi, float* dctx, float* nt,
+    int* walks_buf, int* wrow_buf, int* pools_buf, void* args, int d, int G,
+    int L, int W, int KP, int R, int bf16, int paired, int tables_bf16,
+    int sr, unsigned sr_seed, float lr, float negw, void* stream_ptr) {
+  StepArgs* a = static_cast<StepArgs*>(args);
+  const WalkStep s{emb_in, emb_out, walks_buf, wrow_buf, pools_buf, stats,
+                   retries, cneg, dneg, dphi, dctx, nt, a, d, G, L, W, KP, R,
+                   negw, nullptr, nullptr, nullptr, nullptr};
+  const int slots = G * GROUP, np = (G + R - 1) / R * KP;
+  const HeadIn hin{{walks, paired ? nullptr : wrow, pools, nullptr}, lr,
+                   sr_seed};
+  const HeadBufs hb{{walks_buf, wrow_buf, pools_buf, nullptr},
+                    {slots, paired ? 0 : slots, np, 0}, a, stats};
+  return walk_step_mode(graph, record, bf16, paired, tables_bf16, sr, s, hin,
+                        hb, (cudaStream_t)stream_ptr);
 }
 
-// K4: generate the walks of G groups into `slots` [G * 1024] i32 from
-// starts [G * 8] i32, bits [G * 1024] u32 and the CSR (indptr [V + 1],
-// indices [E] i32), then run the group loop on them (bf16, tables_bf16,
-// sr as above), as one recorded step.  Other arguments as
-// come_walk_sgns_step.
-extern "C" int come_walk_sgns_gen_step(void* graph, int instantiate,
-                                       void* emb_in, void* emb_out,
-                                       const int* starts, const unsigned* bits,
-                                       const int* indptr, const int* indices,
-                                       int* slots, const int* wrow,
-                                       const int* pools, double* stats,
-                                       double* retries, float* cneg,
-                                       float* dneg, float* dphi, float* dctx,
-                                       float* nt, int d, int G, int L, int W,
-                                       int KP, int R, int bf16,
-                                       int tables_bf16, int sr,
-                                       unsigned sr_seed, float lr, float negw,
-                                       void* stream_ptr) {
-  const WalkStep s{emb_in, emb_out, slots,  wrow,   pools, stats, retries,
-                   cneg,   dneg,    dphi,   dctx,   nt,    d,     G,
-                   L,      W,       KP,     R,      lr,    negw,  sr_seed,
-                   starts, bits,    indptr, indices};
-  return walk_step_mode(graph, instantiate, bf16, 0, tables_bf16, sr, s,
+// K4: generate the walks of G groups into `slots` [G * 1024] i32 (the
+// plan's) from starts [G * 8] i32, bits [G * 1024] u32 and the CSR (indptr
+// [V + 1], indices [E] i32), then run the group loop on them (bf16,
+// tables_bf16, sr as above), as one recorded step.  starts_buf, bits_buf,
+// wrow_buf and pools_buf are the plan's copies of the call's starts, bits,
+// wrow and pools.  Other arguments as come_walk_sgns_step; the recording
+// also holds the CSR's addresses.
+extern "C" int come_walk_sgns_gen_step(
+    void* graph, int record, void* emb_in, void* emb_out, const int* starts,
+    const unsigned* bits, const int* indptr, const int* indices, int* slots,
+    const int* wrow, const int* pools, double* stats, double* retries,
+    float* cneg, float* dneg, float* dphi, float* dctx, float* nt,
+    int* starts_buf, unsigned* bits_buf, int* wrow_buf, int* pools_buf,
+    void* args, int d, int G, int L, int W, int KP, int R, int bf16,
+    int tables_bf16, int sr, unsigned sr_seed, float lr, float negw,
+    void* stream_ptr) {
+  StepArgs* a = static_cast<StepArgs*>(args);
+  const WalkStep s{emb_in, emb_out, slots, wrow_buf, pools_buf, stats,
+                   retries, cneg, dneg, dphi, dctx, nt, a, d, G, L, W, KP, R,
+                   negw, starts_buf, bits_buf, indptr, indices};
+  const int n = G * GROUP, np = (G + R - 1) / R * KP;
+  const HeadIn hin{{starts, reinterpret_cast<const int*>(bits), wrow, pools},
+                   lr, sr_seed};
+  const HeadBufs hb{{starts_buf, reinterpret_cast<int*>(bits_buf), wrow_buf,
+                     pools_buf},
+                    {G * NBLK, n, n, np}, a, stats};
+  return walk_step_mode(graph, record, bf16, 0, tables_bf16, sr, s, hin, hb,
                         (cudaStream_t)stream_ptr);
 }

@@ -40,20 +40,23 @@ _F = ctypes.c_float
 # c_float.  Each returns an int (0 or a CUDA error code) unless RESTYPES
 # says otherwise.
 SIGNATURES = {
-    "come_walk_sgns_step": [_P, _I] + [_P] * 12 + [_I] * 10
+    "come_walk_sgns_step": [_P, _I] + [_P] * 16 + [_I] * 10
     + [_U, _F, _F, _P],
-    "come_walk_sgns_gen_step": [_P, _I] + [_P] * 16 + [_I] * 9
+    "come_walk_sgns_gen_step": [_P, _I] + [_P] * 21 + [_I] * 9
     + [_U, _F, _F, _P],
-    "come_star_sgns_step": [_P, _I] + [_P] * 9 + [_I] * 5 + [_F, _F, _P],
+    "come_star_sgns_step": [_P, _I] + [_P] * 13 + [_I] * 5 + [_F, _F, _P],
     "come_step_graph_new": [],
     "come_step_graph_free": [_P],
     "come_step_graph_launch": [_P, _P],
     "come_pdl_enabled": [],
     "come_cudart_version": [],
-    "come_fused_sgns_step": [_P, _I] + [_P] * 6 + [_I] * 3 + [_P] * 9
+    "come_fused_sgns_step": [_P, _I] + [_P] * 6 + [_I] * 3 + [_P] * 10
     + [_I] * 4 + [_F, _F, _P],
-    "come_fused_sgns_step_tied": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P] * 9
+    "come_fused_sgns_step_tied": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P] * 10
     + [_I] * 4 + [_F, _F, _P],
+    "come_fused_scan_record": [_P, _P, ctypes.c_ulonglong] + [_P] * 11
+    + [_I] * 4 + [_F],
+    "come_fused_scan_launch": [_P] * 6 + [_I] * 6 + [_F, _P, _P],
     "come_row_gather": [_P] * 4 + [_I] * 3 + [_P],
     "come_row_scatter_add": [_P] * 3 + [_I] * 3 + [_P],
     "come_smem_probe": [_P, _P, _I, _P],

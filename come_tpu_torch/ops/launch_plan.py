@@ -1,44 +1,57 @@
-"""Launch plans: one macro step of the walk or the star kernel, or one
-micro-step of K6/K7, as one unit that the card replays.
+"""Launch plans: one macro step of the walk or the star kernel, one
+micro-step of K6/K7, or a macro batch of K6/K7 micro-steps, as one unit
+that the card replays.
 
 The TPU runs a macro step as one ``pallas_call`` with a grid over the groups
 (``come_tpu/ops/pallas_walk_sgns.py:564``, ``pallas_star_sgns.py:282``) and
-a micro-step as one with a grid over the tiles (``pallas_sgns.py:347``).
-Here the C entries (``csrc/walk_sgns.cu``, ``csrc/star_sgns.cu``,
-``csrc/sgns_fused.cu``) record a step's group or tile loop as a CUDA graph
-and replay it on the caller's stream
-(``csrc/step_graph.cuh``).  A plan is what the host keeps between steps for
-one (entry, device, stream, mode, shape):
+a micro-step as one with a grid over the tiles (``pallas_sgns.py:347``);
+compiled once, never traced again.  Here the C entries
+(``csrc/walk_sgns.cu``, ``csrc/star_sgns.cu``, ``csrc/sgns_fused.cu``)
+record a step's group or tile loop once as a CUDA graph and replay it on
+the caller's stream (``csrc/step_graph.cuh``).  A plan is what the host
+keeps between steps for one (entry, device, stream, mode, shape):
 
   * the graph slot: a private recording stream and the one instance every
-    step of the plan replays.  The plan's first step instantiates it
-    (:meth:`LaunchPlan.begin` returns 1); every later step records its own
-    loop, with its own ``lr``, seed and addresses, and applies it to the
-    instance with ``cudaGraphExecUpdate`` (``begin`` returns 0).  So the
-    addresses, ``lr`` and seeds are not in the key: the row-sharded path,
-    whose compact tables move every step, keeps one instance per shape;
-  * the step's scratch (the result ``stats``, ``cneg``, ``dneg``, ``dphi``,
-    ``dctx``, ``nt`` and K4's generated walks), allocated once.  ``begin``
-    zeroes ``stats``; :meth:`LaunchPlan.result` returns a copy, so a step's
-    (loss, n_pairs) never alias the buffer the next step zeroes.  A plan's
-    steps run in the order of its stream, which is in the key, so one
-    step's scratch is never written while an earlier step reads it;
+    step of the plan replays.  The graph's head kernel is its only node
+    whose parameters a call sets: it copies the call's input arrays into
+    the plan's buffers (K6/K7's packs them) and writes ``lr``, the SR seed
+    and K6/K7's result pointer into the plan's argument block ``args``,
+    which the later kernels read.  :meth:`LaunchPlan.begin` says whether a
+    call records: the plan's first call records and instantiates
+    (``RECORD_INSTANTIATE``); a call whose tables (or ``negw``, or K4's
+    graph) lie elsewhere than the recording's records again and updates
+    the instance (``RECORD_UPDATE``: K3's working tables each epoch, the
+    row-sharded path's compact tables each step); every other call only
+    replays (``RECORD_NONE``).  So ``lr``, seeds and the inputs' addresses
+    are not in the key, and neither are the tables';
+  * the staged inputs (``inputs``: the walks, window draws, pools, star
+    slots and meta, K4's starts and draws), the step's scratch (the result
+    ``stats``, ``cneg``, ``dneg``, ``dphi``, ``dctx``, ``nt`` and K4's
+    generated walks) and ``args``, allocated once.  The head kernel zeroes
+    ``stats`` (:meth:`LaunchPlan.begin` does on CPU plans, its plain
+    version); :meth:`LaunchPlan.result` returns a copy, so a step's (loss,
+    n_pairs) never alias the buffer the next step zeroes.  A plan's steps
+    run in the order of its stream, which is in the key, so one step's
+    buffers are never written while an earlier step reads them;
   * the kernels' setup (shared-memory caps, the negative pass's grid),
     which the C entry does at the plan's first step.
 
 K6/K7's :class:`FusedPlan` also owns the packed pairs, the tiles' masks
 and the pool, which the step's first kernel fills from the call's inputs,
-so a call allocates no scratch and runs no op on the host but its
-recording.
+so a call allocates nothing but its 2-float result and runs no op on the
+host.  A :class:`ScanPlan` runs a macro batch of K6/K7 micro-steps as one
+launch, the port of the JAX trainer's ``lax.scan`` over them
+(``come_tpu/trainer/come.py:350``): a WHILE graph whose body is one
+micro-step (``csrc/sgns_fused.cu``).
 
 Each wrapper counts, beside its ``launches``, the steps it recorded
 (``recordings``), the instances it made (``instantiations``) and updated
 (``updates``) and the graphs it launched (``replays``), as plain integers;
 :func:`used_plans` gives how many plans (shapes) stepped since
-:func:`reset_used`, so a run can show at most one instantiation per shape.
-CPU tensors never reach a plan (the wrappers run their plain versions), but
-a plan on the CPU holds CPU scratch and no graph slot, which is how the
-tests exercise this logic.
+:func:`reset_used`.  On one device every plan records once: recordings =
+instantiations = plans used, no update.  CPU tensors never reach a plan
+(the wrappers run their plain versions), but a plan on the CPU holds CPU
+buffers and no graph slot, which is how the tests exercise this logic.
 
 A :class:`GraphPlan` is the same cache's other kind of plan: a loop of torch
 ops on the device (the GMM's EM, ``losses/gmm.py``), the counterpart of
@@ -55,6 +68,10 @@ import torch
 
 NWL = 1024  # slots per group
 BLK = 128  # rows per CTA of the negative pass
+ARGS_BYTES = 128  # a plan's argument block (csrc/sgns_common.cuh: StepArgs)
+
+# what a call asks of a plan's recording (csrc/step_graph.cuh)
+RECORD_NONE, RECORD_INSTANTIATE, RECORD_UPDATE = 0, 1, 2
 
 _PLANS: dict[tuple, "LaunchPlan"] = {}
 _USED: set[tuple] = set()
@@ -64,10 +81,13 @@ _STREAMS: dict = {}
 
 
 class LaunchPlan:
-    """One (entry, device, stream, mode, shape)'s graph slot and scratch."""
+    """One (entry, device, stream, mode, shape)'s graph slot, staged inputs,
+    argument block and scratch.  ``inputs``: the int32 elements of each
+    input array the head kernel stages, by name."""
 
     def __init__(self, key: tuple, device, KP: int, d: int, *,
-                 ctx: bool = True, walk_slots: int = 0, rows: int = NWL):
+                 ctx: bool = True, walk_slots: int = 0, rows: int = NWL,
+                 inputs: dict | None = None):
         f32 = torch.float32
         dev = torch.device(device)
         self.key = key
@@ -83,7 +103,13 @@ class LaunchPlan:
         self.nt = torch.empty((rows,), dtype=f32, device=dev)
         self.walks = (torch.empty((walk_slots,), dtype=torch.int32,
                                   device=dev) if walk_slots else None)
+        self.inputs = {k: torch.empty((n,), dtype=torch.int32, device=dev)
+                       for k, n in (inputs or {}).items()}
+        self.args = torch.zeros(ARGS_BYTES // 8, dtype=torch.int64,
+                                device=dev)
         self.slot = None  # the C graph slot, made at the first CUDA step
+        self.recorded = None  # what the instance's recording holds
+        self.pending = None  # what the step begun would record
         self.recordings = self.instantiations = self.updates = 0
         self.replays = 0
 
@@ -98,22 +124,34 @@ class LaunchPlan:
             self.slot = slot
         return self.slot
 
-    def begin(self) -> int:
-        """Prepare one step: zero ``stats``; return 1 if the step must
-        instantiate the plan's graph (its first step), else 0 (update)."""
-        self.stats.zero_()
+    def begin(self, recorded: tuple = ()) -> int:
+        """Prepare one step whose recording would hold ``recorded`` (the
+        tables' addresses, ``negw``, K4's graph): return
+        ``RECORD_INSTANTIATE`` at the plan's first step,
+        ``RECORD_UPDATE`` when ``recorded`` differs from the instance's,
+        else ``RECORD_NONE`` (replay only).  A CPU plan zeroes ``stats``
+        here, as the head kernel does on the card."""
+        if self.device.type != "cuda":
+            self.stats.zero_()
         _USED.add(self.key)
-        return 0 if self.instantiations else 1
+        self.pending = recorded
+        if not self.instantiations:
+            return RECORD_INSTANTIATE
+        return RECORD_UPDATE if recorded != self.recorded else RECORD_NONE
 
-    def done(self, instantiate: int, fn) -> None:
-        """Count one recorded and replayed step on the plan and on the
-        wrapper ``fn``."""
+    def done(self, how: int, fn) -> None:
+        """Count one replayed step, and its recording if it made one (the
+        instance now holds what :meth:`begin` was given), on the plan and on
+        the wrapper ``fn``."""
+        if how != RECORD_NONE:
+            self.recorded = self.pending
         for c in (self, fn):
-            c.recordings += 1
             c.replays += 1
-            if instantiate:
+            if how != RECORD_NONE:
+                c.recordings += 1
+            if how == RECORD_INSTANTIATE:
                 c.instantiations += 1
-            else:
+            elif how == RECORD_UPDATE:
                 c.updates += 1
 
     def scratch(self) -> tuple:
@@ -123,6 +161,10 @@ class LaunchPlan:
                 self.dneg.data_ptr(), self.dphi.data_ptr(),
                 None if self.dctx is None else self.dctx.data_ptr(),
                 self.nt.data_ptr())
+
+    def staged(self, *names: str) -> tuple:
+        """Device pointers of the staged inputs ``names``."""
+        return tuple(self.inputs[n].data_ptr() for n in names)
 
     def result(self):
         """(loss, n_pairs) of the last step as 0-dim float32 tensors of
@@ -147,7 +189,9 @@ class FusedPlan(LaunchPlan):
 
     The step writes its (loss, n_pairs) into ``out``, a 2-float tensor of
     the call's own that :meth:`begin` makes (the one allocation of a call:
-    the result the caller keeps), so :meth:`result` converts nothing."""
+    the result the caller keeps; the stage kernel takes its address, so the
+    recording does not), so :meth:`result` converts nothing and the next
+    call never overwrites it."""
 
     def __init__(self, key: tuple, device, KP: int, d: int, TP: int,
                  n_tiles: int):
@@ -176,13 +220,36 @@ class FusedPlan(LaunchPlan):
         self.nt[:, :TP].copy_(ids[2, :n * TP].view(n, TP))
         self.pool.copy_(pool)
 
-    def begin(self) -> int:
+    def begin(self, recorded: tuple = ()) -> int:
         self.out = torch.empty(2, dtype=torch.float32, device=self.device)
-        return super().begin()
+        return super().begin(recorded)
 
     def result(self):
         """(loss, n_pairs) of the last step: views of its own ``out``."""
         return self.out[0], self.out[1]
+
+
+class ScanPlan(FusedPlan):
+    """A macro batch of K6/K7 micro-steps as one launch (``ops/sgns.py::
+    fused_sgns_scan``): the :class:`FusedPlan` of one micro-step, whose
+    recording is the body of a WHILE graph (``loop``, built by
+    ``come_fused_scan_record``; ``csrc/step_graph.cu``) that runs it while
+    the argument block's ``it`` < its micro-step count.  The count, the
+    batch's addresses and ``lr`` go into the block with every launch, so one
+    graph serves every macro batch of one (tied, d, TP, KP, n_tiles).  A
+    table that moves builds the WHILE graph anew (counted as an update).
+    ``out`` holds the batch's summed (loss, n_pairs)."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.loop = None  # the C WHILE graph
+
+    def release_loop(self, lib) -> None:
+        if self.loop is not None:
+            code, self.loop = lib.come_while_graph_free(self.loop), None
+            if code:
+                raise RuntimeError(f"come_while_graph_free: CUDA error "
+                                   f"{code}")
 
 
 class GraphPlan:
@@ -313,21 +380,23 @@ def graph_plan_for(entry: str, device, stream: int, mode: tuple,
 
 
 def plan_for(entry: str, device, stream: int, mode: tuple, shape: tuple, *,
-             KP: int, d: int, ctx: bool = True,
-             walk_slots: int = 0) -> LaunchPlan:
+             KP: int, d: int, ctx: bool = True, walk_slots: int = 0,
+             inputs: dict | None = None) -> LaunchPlan:
     """The plan of ``plan_key(...)``, made at its first use."""
     return _plan(plan_key(entry, device, stream, mode, shape),
                  lambda k: LaunchPlan(k, device, KP, d, ctx=ctx,
-                                      walk_slots=walk_slots))
+                                      walk_slots=walk_slots, inputs=inputs))
 
 
 def fused_plan_for(entry: str, device, stream: int, tied: int, d: int,
                    TP: int, KP: int, n_tiles: int) -> FusedPlan:
-    """K6/K7's :class:`FusedPlan`, keyed on (entry, device, stream, tied, d,
-    TP, KP, n_tiles), made at its first use."""
+    """K6/K7's :class:`FusedPlan` (a :class:`ScanPlan` for the entries
+    "fused_scan" and "fused_scan_tied"), keyed on (entry, device, stream,
+    tied, d, TP, KP, n_tiles), made at its first use."""
+    kind = ScanPlan if entry.startswith("fused_scan") else FusedPlan
     return _plan(plan_key(entry, device, stream, (tied,), (d, TP, KP,
                                                           n_tiles)),
-                 lambda k: FusedPlan(k, device, KP, d, TP, n_tiles))
+                 lambda k: kind(k, device, KP, d, TP, n_tiles))
 
 
 def plans(entry: str | None = None) -> list:
@@ -355,7 +424,10 @@ def release_plans(lib=None, entry: str | None = None) -> None:
         _USED.discard(k)
         if isinstance(p, GraphPlan):
             p.release(lib)
-        elif p.slot is not None:
+            continue
+        if isinstance(p, ScanPlan):
+            p.release_loop(lib)
+        if p.slot is not None:
             code, p.slot = lib.come_step_graph_free(p.slot), None
             if code:
                 raise RuntimeError(f"come_step_graph_free: CUDA error {code}")
@@ -366,13 +438,20 @@ COUNTERS = ("recordings", "instantiations", "updates", "replays")
 
 def wrappers() -> dict:
     """The wrappers whose steps run through plans, by entry."""
-    from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
+    from come_tpu_torch.ops.sgns import (
+        fused_sgns_scan,
+        fused_sgns_scan_tied,
+        fused_sgns_step,
+        fused_sgns_step_tied,
+    )
     from come_tpu_torch.ops.star_sgns import star_sgns_step
     from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
 
     return {"walk_sgns": walk_sgns_step, "walk_sgns_gen": walk_sgns_gen_step,
             "star_sgns": star_sgns_step, "fused_sgns": fused_sgns_step,
-            "fused_sgns_tied": fused_sgns_step_tied}
+            "fused_sgns_tied": fused_sgns_step_tied,
+            "fused_scan": fused_sgns_scan,
+            "fused_scan_tied": fused_sgns_scan_tied}
 
 
 def reset_counts() -> None:
@@ -390,15 +469,22 @@ def graph_counts() -> dict:
                 "shapes": used_plans(e)} for e, fn in wrappers().items()}
 
 
-def check_counts(where: str, counts: dict) -> None:
+def check_counts(where: str, counts: dict, once: bool = False) -> None:
     """Raise unless, for each entry of ``counts`` (:func:`graph_counts`),
-    every step was recorded once and replayed once, as an instantiation or
-    an update, and no shape instantiated more than once."""
+    every recording instantiated or updated an instance, every step was
+    replayed, and no shape instantiated more than once; with ``once`` (one
+    device, tables that stay put), unless every plan that stepped recorded
+    exactly once: recordings = instantiations = plans, no update."""
     for e, c in counts.items():
-        if not (c["recordings"] == c["replays"]
-                == c["instantiations"] + c["updates"]):
+        if not (c["recordings"] == c["instantiations"] + c["updates"]
+                and c["replays"] >= c["recordings"]):
             raise AssertionError(f"{where}: {e}'s graph counters {c}")
         if c["instantiations"] > c["shapes"]:
             raise AssertionError(f"{where}: {e} instantiated "
                                  f"{c['instantiations']} times for "
                                  f"{c['shapes']} shapes")
+        if once and c["replays"] and not (
+                c["recordings"] == c["instantiations"] == c["shapes"]
+                and c["updates"] == 0):
+            raise AssertionError(f"{where}: {e} recorded more than once a "
+                                 f"plan: {c}")

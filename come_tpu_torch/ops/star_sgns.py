@@ -7,9 +7,10 @@ operands rounded to bf16, f32 sums).  The slot stream comes from
 ``sampling.stars.build_star_layout``; groups of 1024 slots (eight 128-slot
 rows) run in order, and one shared negative pool serves each block of R
 groups.  The table is updated IN PLACE and returned.  On the card a macro
-step is one unit the card replays: the C entry records the group loop as a
-CUDA graph and updates the instance that the step's launch plan keeps
-(``ops/launch_plan.py``).
+step is one unit the card replays: the step's launch plan
+(``ops/launch_plan.py``) records the group loop once as a CUDA graph, and a
+call sets its head kernel's parameters (the call's slots, meta, pools and
+lr) and replays it.
 """
 
 from __future__ import annotations
@@ -100,20 +101,25 @@ def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
 def star_plan(device, stream: int, bf16: int, d: int, G: int, KP: int,
               R: int) -> launch_plan.LaunchPlan:
     """The launch plan of a star step, keyed on the mode (bf16) and the
-    shape (d, G, KP, R)."""
-    return launch_plan.plan_for("star_sgns", device, stream, (bf16,),
-                                (d, G, KP, R), KP=KP, d=d, ctx=False)
+    shape (d, G, KP, R); its staged inputs: the slots, meta and pools."""
+    return launch_plan.plan_for(
+        "star_sgns", device, stream, (bf16,), (d, G, KP, R), KP=KP, d=d,
+        ctx=False, inputs={"slots": G * NWL, "meta": G * NWL,
+                           "pools": -(-G // R) * KP})
 
 
-def star_entry_args(plan, inst: int, emb, slots, meta, pools, d: int, G: int,
+def star_entry_args(plan, how: int, emb, slots, meta, pools, d: int, G: int,
                     KP: int, R: int, bf16: int, lr: float, negw: float,
                     stream: int) -> tuple:
     """The arguments of ``come_star_sgns_step`` for one step: the plan's
-    graph slot and scratch, and this step's own tensors and ``lr``."""
+    graph slot, scratch, staged inputs and argument block, and this step's
+    own tensors and ``lr``; ``how`` is :meth:`LaunchPlan.begin`'s."""
     st, cneg, dneg, dphi, _, nt = plan.scratch()
-    return (plan.slot, inst, emb.data_ptr(), slots.data_ptr(),
-            meta.data_ptr(), pools.data_ptr(), st, cneg, dneg, dphi, nt, d,
-            G, KP, R, bf16, float(lr), float(negw), stream)
+    return ((plan.slot, how, emb.data_ptr(), slots.data_ptr(),
+             meta.data_ptr(), pools.data_ptr(), st, cneg, dneg, dphi, nt)
+            + plan.staged("slots", "meta", "pools")
+            + (plan.args.data_ptr(), d, G, KP, R, bf16, float(lr),
+               float(negw), stream))
 
 
 def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
@@ -154,16 +160,16 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
     plan = star_plan(emb.device, stream, int(mxu_bf16), d, G, KP, R)
     lib = build.library()
     plan.graph_slot(lib)
-    inst = plan.begin()
+    how = plan.begin((emb.data_ptr(), float(negw)))
     code = lib.come_star_sgns_step(*star_entry_args(
-        plan, inst, emb, slots, meta, pools, d, G, KP, R, int(mxu_bf16), lr,
+        plan, how, emb, slots, meta, pools, d, G, KP, R, int(mxu_bf16), lr,
         negw, stream))
     if mxu_bf16:
         star_sgns_step.launches_bf16 += 1
     else:
         star_sgns_step.launches += 1
     build.check(code, "come_star_sgns_step")
-    plan.done(inst, star_sgns_step)
+    plan.done(how, star_sgns_step)
     return (emb,) + plan.result()
 
 

@@ -26,10 +26,11 @@ Differences from the JAX functions, all deliberate:
   * bf16 tables stay plain [V, d] bf16 (no u32 row-pair packing);
   * the tables are updated IN PLACE (no second [V, d] copy per step) and
     returned;
-  * on the card a macro step is one unit the card replays: the C entry
-    records the group loop as a CUDA graph and updates the instance that
-    the step's launch plan keeps (``ops/launch_plan.py``), where the TPU
-    runs one ``pallas_call`` with a grid over the groups.
+  * on the card a macro step is one unit the card replays, where the TPU
+    runs one ``pallas_call`` with a grid over the groups: the step's
+    launch plan (``ops/launch_plan.py``) records the group loop once as a
+    CUDA graph, and a call sets its head kernel's parameters (the call's
+    walks, window draws, pools, lr and SR seed) and replays it.
 """
 
 from __future__ import annotations
@@ -292,13 +293,21 @@ def walk_plan(entry: str, device, stream: int, mode: tuple, d: int, G: int,
     """The launch plan of a walk-kernel step: ``entry`` "walk_sgns" (mode
     (bf16, paired, tables_bf16, sr)) or "walk_sgns_gen" (mode (bf16,
     tables_bf16, sr); the plan also holds the generated walks), keyed on
-    the shape (d, G, L, W, KP, R)."""
+    the shape (d, G, L, W, KP, R).  Its staged inputs: the walks (K4: the
+    starts and the 32-bit draws), the window draws (not paired) and the
+    pools."""
+    gen = entry == "walk_sgns_gen"
+    inputs = {"starts": G * NW, "bits": G * NWL} if gen else \
+        {"walks": G * NWL}
+    if gen or not mode[1]:
+        inputs["wrow"] = G * NWL
+    inputs["pools"] = -(-G // R) * KP
     return launch_plan.plan_for(
         entry, device, stream, mode, (d, G, L, W, KP, R), KP=KP, d=d,
-        walk_slots=G * NWL if entry == "walk_sgns_gen" else 0)
+        walk_slots=G * NWL if gen else 0, inputs=inputs)
 
 
-def walk_entry_args(plan, inst: int, emb_in, emb_out, slots, wrow, pools,
+def walk_entry_args(plan, how: int, emb_in, emb_out, slots, wrow, pools,
                     retries, d: int, G: int, L: int, W: int, KP: int, R: int,
                     bf16: int, paired: int, tables_bf16: int, sr: int,
                     seed: int, lr: float, negw: float, stream: int,
@@ -306,17 +315,22 @@ def walk_entry_args(plan, inst: int, emb_in, emb_out, slots, wrow, pools,
     """The arguments of ``come_walk_sgns_step`` (``gen`` None) or
     ``come_walk_sgns_gen_step`` (``gen`` = (starts, bits, indptr,
     indices); the walks go to ``plan.walks``) for one step: the plan's
-    graph slot and scratch, and this step's own tensors, ``lr`` and seed.
+    graph slot, scratch, staged inputs and argument block, and this step's
+    own tensors, ``lr`` and seed; ``how`` is :meth:`LaunchPlan.begin`'s.
     """
     st, cneg, dneg, dphi, dctx, nt = plan.scratch()
-    head = (plan.slot, inst, emb_in.data_ptr(), emb_out.data_ptr())
+    head = (plan.slot, how, emb_in.data_ptr(), emb_out.data_ptr())
     if gen is not None:
         head += tuple(t.data_ptr() for t in gen) + (plan.walks.data_ptr(),)
     else:
         head += (slots.data_ptr(),)
+    wbuf = plan.inputs.get("wrow")
     head += (None if wrow is None else wrow.data_ptr(), pools.data_ptr(), st,
-             retries.data_ptr(), cneg, dneg, dphi, dctx, nt, d, G, L, W, KP,
-             R, bf16)
+             retries.data_ptr(), cneg, dneg, dphi, dctx, nt)
+    head += plan.staged("starts", "bits") if gen is not None else \
+        plan.staged("walks")
+    head += (None if wbuf is None else wbuf.data_ptr(),) + \
+        plan.staged("pools") + (plan.args.data_ptr(), d, G, L, W, KP, R, bf16)
     if gen is None:
         head += (paired,)
     return head + (tables_bf16, sr, seed, float(lr), float(negw), stream)
@@ -419,14 +433,14 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
                      (bf16, int(paired), tables_bf16, sr), d, G, L, W, KP, R)
     lib = build.library()
     plan.graph_slot(lib)
-    inst = plan.begin()
+    how = plan.begin((emb_in.data_ptr(), emb_out.data_ptr(), float(negw)))
     code = lib.come_walk_sgns_step(*walk_entry_args(
-        plan, inst, emb_in, emb_out, slots, wrow, pools,
+        plan, how, emb_in, emb_out, slots, wrow, pools,
         cas_retries(emb_in.device), d, G, L, W, KP, R, bf16, int(paired),
         tables_bf16, sr, seed, lr, negw, stream))
     _count_walk_launch(mxu_bf16, paired, tables_bf16)
     build.check(code, "come_walk_sgns_step")
-    plan.done(inst, walk_sgns_step)
+    plan.done(how, walk_sgns_step)
     return (emb_in, emb_out) + plan.result()
 
 
@@ -553,9 +567,10 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
                      (bf16, tables_bf16, sr), d, G, L, W, KP, R)
     lib = build.library()
     plan.graph_slot(lib)
-    inst = plan.begin()
+    how = plan.begin((emb_in.data_ptr(), emb_out.data_ptr(), float(negw),
+                      indptr.data_ptr(), indices.data_ptr()))
     code = lib.come_walk_sgns_gen_step(*walk_entry_args(
-        plan, inst, emb_in, emb_out, None, wrow, pools,
+        plan, how, emb_in, emb_out, None, wrow, pools,
         cas_retries(emb_in.device), d, G, L, W, KP, R, bf16, 0, tables_bf16,
         sr, seed, lr, negw, stream, gen=(starts, bits, indptr, indices)))
     if tables_bf16:
@@ -565,7 +580,7 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
     else:
         walk_sgns_gen_step.launches += 1
     build.check(code, "come_walk_sgns_gen_step")
-    plan.done(inst, walk_sgns_gen_step)
+    plan.done(how, walk_sgns_gen_step)
     out = (emb_in, emb_out) + plan.result()
     if return_walks:
         out = out + (plan.walks.view(G * NW, LP)[:, :L].clone(),)

@@ -18,7 +18,12 @@ that carry the f32 negative pass and the star pass:
   * K6 karate, K7 karate  the same at karate's shared-negative shapes
          (``chip_smoke.py`` phase 9: d 16, 128 pairs in tiles of 64, KP 32);
   * K3   one O1 step on bf16 tables at the synthetic-10m shapes (V 500000,
-         1024 walks of 80 drawn uniformly over V, KP 2048, 128 groups, SR).
+         1024 walks of 80 drawn uniformly over V, KP 2048, 128 groups, SR);
+  * K6 scan, K6 karate scan  a macro batch of 8 K6 micro-steps at K6's
+         and at karate's shapes as one scan (``fused_sgns_scan``: one
+         launch of a WHILE graph); their lines add ``per_micro_ms``: ms a
+         micro-step of the scan from an idle card and in a run, and of the
+         same micro-steps called one by one in a run (``loop``).
 
 ``--dim`` makes the tables that wide (karate's stay 16); past 192 every
 step runs through its column-slab passes.  Each step runs on tables it
@@ -27,7 +32,9 @@ line: the card's name and power limit, the step's CUDA-event ms (median of
 5 after one warm-up, each from an idle card), its ms per step over
 ``--run`` steps in a row (``chained_ms``; 10 by default) and, for a step
 that runs through a launch plan, per launch of ``--run`` launches of the
-graph its last call recorded (``replay_ms``: no host work), all taken
+graph its last call recorded (``replay_ms``: no host work; and
+``run_minus_replay_ms``, ``idle_minus_replay_ms``: what a step in a run
+and one from an idle card cost beyond it), all taken
 before the first profiled run, the device µs
 per group (per tile for K6/K7) of each pass of its loop and of all its
 kernels (``torch.profiler``), and the busy share (all kernels' device time
@@ -335,7 +342,8 @@ def replay_ms(fn, n: int = 10) -> float | None:
     fn()
     ran = [p for p in launch_plan.plans()
            if getattr(p, "slot", None) and p.replays != before.get(id(p))]
-    if len(ran) != 1:
+    # a scan's WHILE graph needs its entry kernel before every launch
+    if len(ran) != 1 or isinstance(ran[0], launch_plan.ScanPlan):
         return None
     lib, slot = build.library(), ran[0].slot
     stream = torch.cuda.current_stream().cuda_stream
@@ -370,6 +378,23 @@ def enqueue_ms(fn, n: int = 10) -> float:
     return t * 1e3 / n
 
 
+SCAN_MICRO = 8  # micro-steps in the scan steps' macro batch
+
+
+def _scan_step(scan, step, tables, c, x, pools, m, lr, negw, TP):
+    """A macro batch as one scan call, with ``.loop``: the same micro-steps
+    as one ``step`` call each, and ``.micro``: their number."""
+    def run():
+        scan(*tables, c, x, pools, m, lr, negw, tile_pairs=TP)
+
+    def loop():
+        for i in range(c.shape[0]):
+            step(*tables, c[i], x[i], pools[i], m[i], lr, negw, tile_pairs=TP)
+
+    run.loop, run.micro = loop, c.shape[0]
+    return run
+
+
 def steps(dev, d: int = 128):
     """(name, step(), groups or tiles, passes, sub, KP) at chip_smoke.py's
     shapes, the tables d wide (karate's K6/K7 keep 16); each step updates
@@ -379,7 +404,11 @@ def steps(dev, d: int = 128):
     import torch
 
     from come_tpu_torch.graphs import get_dataset
-    from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
+    from come_tpu_torch.ops.sgns import (
+        fused_sgns_scan,
+        fused_sgns_step,
+        fused_sgns_step_tied,
+    )
     from come_tpu_torch.ops.star_sgns import star_sgns_step
     from come_tpu_torch.ops.walk_sgns import walk_sgns_step
     from come_tpu_torch.sampling import (
@@ -506,6 +535,24 @@ def steps(dev, d: int = 128):
         tk[0], ck, xk, pk, mk, lr, 5.0 / KPk, tile_pairs=TPk), 2,
         FUSED_PASSES, None, KPk))
 
+    # a macro batch of SCAN_MICRO K6 micro-steps as one scan (one launch of
+    # its WHILE graph), at K6's and at karate's shapes; the step's `loop`
+    # runs the same micro-steps one call each
+    n = SCAN_MICRO
+    cs, xs, ms_ = (a.reshape(-1)[:n * 32768].reshape(n, 32768) for a in
+                   skipgram_pairs(walks.repeat(2, 1), W, gen, keep))
+    pools_s = sample_alias(accept, alias, gen, (n, KP))
+    scan = _scan_step(fused_sgns_scan, fused_sgns_step, (emb_in, emb_out),
+                      cs, xs, pools_s, ms_, lr, negw, 1024)
+    out.append(("K6 scan", scan, n * 32, FUSED_PASSES, None, KP))
+    cks, xks = (torch.randint(0, Vk, (n, Pk), generator=gen, device=dev)
+                for _ in range(2))
+    mks = (torch.rand((n, Pk), generator=gen, device=dev) < 0.8).float()
+    pks = torch.randint(0, Vk, (n, KPk), generator=gen, device=dev)
+    scan_k = _scan_step(fused_sgns_scan, fused_sgns_step, tuple(tk), cks, xks,
+                        pks, mks, lr, 5.0 / KPk, TPk)
+    out.append(("K6 karate scan", scan_k, n * 2, FUSED_PASSES, None, KPk))
+
     # K3 at the synthetic-10m shapes on bf16 tables; its walks are drawn
     # uniformly over V (a step's cost needs the shapes, not the graph)
     V3, B3, KP3 = 500_000, 1024, 2048
@@ -561,6 +608,12 @@ def main(argv=None) -> int:
         t = pre[name] = {"ms": cuda_ms(step),
                          "chained_ms": chained_ms(step, n=args.run),
                          "replay_ms": replay_ms(step, n=args.run)}
+        if hasattr(step, "loop"):  # a scan: per micro-step, scan and loop
+            k = step.micro
+            t["per_micro_ms"] = {
+                "scan_from_idle": t["ms"] / k,
+                "scan": t["chained_ms"] / k,
+                "loop": chained_ms(step.loop, n=max(1, args.run // k)) / k}
         if args.trace:
             h = t["host"] = host_times(step)
             h["enqueue_ms"] = enqueue_ms(step, n=args.run)
@@ -576,7 +629,14 @@ def main(argv=None) -> int:
             "package": str(Path(come_tpu_torch.__file__).parent),
             "step": name, "dim": args.dim, "groups": groups, "ms": t["ms"],
             "run": args.run, "chained_ms": t["chained_ms"],
-            "replay_ms": t["replay_ms"], "us_per_group": split,
+            "replay_ms": t["replay_ms"],
+            # row 1b's reading: what a step in a run and one from an idle
+            # card cost beyond the replay of its recording
+            "run_minus_replay_ms": (None if t["replay_ms"] is None else
+                                    t["chained_ms"] - t["replay_ms"]),
+            "idle_minus_replay_ms": (None if t["replay_ms"] is None else
+                                     t["ms"] - t["replay_ms"]),
+            "per_micro_ms": t.get("per_micro_ms"), "us_per_group": split,
             "device_us_per_group": total / groups,
             "busy": total / (t["ms"] * 1e3),
         }

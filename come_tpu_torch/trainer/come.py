@@ -71,7 +71,12 @@ from come_tpu_torch.losses.gmm import release_plans as gmm_release_plans
 from come_tpu_torch.losses.sgns import sgns_sgd_step
 from come_tpu_torch.models.state import init_params
 from come_tpu_torch.native import HostWalkFeeder
-from come_tpu_torch.ops.sgns import fused_sgns_step, fused_sgns_step_tied
+from come_tpu_torch.ops.sgns import (
+    fused_sgns_scan,
+    fused_sgns_scan_tied,
+    fused_sgns_step,
+    fused_sgns_step_tied,
+)
 from come_tpu_torch.ops.star_sgns import star_sgns_step
 from come_tpu_torch.ops.walk_sgns import (
     NW,
@@ -235,6 +240,7 @@ class ComETrainer:
         self._host_feeder: HostWalkFeeder | None = None
         self._o1_epochs_done = 0
         self._o1_work: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._o1_bufs: tuple[torch.Tensor, torch.Tensor] | None = None
         self._star_rows: tuple[torch.Tensor, torch.Tensor] | None = None
         self._und_edges: tuple[torch.Tensor, torch.Tensor] | None = None
         self.last_o1_pairs = 0.0
@@ -320,6 +326,12 @@ class ComETrainer:
         device; the data-parallel trainer sums every rank's update here."""
         yield
 
+    def _scans(self) -> bool:
+        """Whether a shared-negative macro batch runs as one scan: when
+        :meth:`_update` is this class's no-op (the data-parallel trainer
+        sums every rank's update after each micro-step, so it loops)."""
+        return type(self)._update is ComETrainer._update
+
     def _shuffle(self, n: int) -> torch.Tensor:
         """A permutation of ``n`` on the device (star rows, arcs, edges)."""
         return torch.randperm(n, generator=self.gen, device=self.device)
@@ -353,7 +365,9 @@ class ComETrainer:
         (``trainer/come.py:528-536``, gen mode ``:413-419``), and copied
         back into the f32 params on exit (``:638-642``, ``:448-452``).
         GMM, O2 and O3 read only the f32 params.  Re-entrant: a step inside
-        an epoch uses the epoch's copies."""
+        an epoch uses the epoch's copies.  The copies go into two bf16
+        buffers kept across epochs, so the walk kernel's launch plan,
+        whose recording holds the tables' addresses, records once."""
         p = self.params
         if self._o1_work is not None:
             yield self._o1_work
@@ -361,8 +375,12 @@ class ComETrainer:
         if self.o1_table_dtype != torch.bfloat16:
             yield p.node_emb, p.ctx_emb
             return
-        self._o1_work = (p.node_emb.to(torch.bfloat16),
-                         p.ctx_emb.to(torch.bfloat16))
+        if self._o1_bufs is None:
+            self._o1_bufs = tuple(torch.empty_like(t, dtype=torch.bfloat16)
+                                  for t in (p.node_emb, p.ctx_emb))
+        self._o1_work = self._o1_bufs
+        for b, t in zip(self._o1_work, (p.node_emb, p.ctx_emb)):
+            b.copy_(t)  # round to nearest even, as .to(torch.bfloat16)
         try:
             yield self._o1_work
         finally:
@@ -427,7 +445,12 @@ class ComETrainer:
 
         ``c``, ``x``, ``m`` are any shape of P pairs; ``pools`` int
         [n_micro, KP] replaces the pool draws.  The tables are updated in
-        place.  Returns (loss, n_pairs) as device tensors."""
+        place.  With shared negatives and no update rule around each
+        micro-step (:meth:`_scans`) the macro batch is one call of
+        ``fused_sgns_scan`` (one WHILE-graph launch on the card, the JAX
+        trainer's ``lax.scan`` at ``:350``); else a loop of micro-steps,
+        each inside :meth:`_update`.  Returns (loss, n_pairs) as device
+        tensors."""
         cfg = self.cfg
         P = c.numel()
         c, x, m = c.reshape(P), x.reshape(P), m.reshape(P)
@@ -455,6 +478,17 @@ class ComETrainer:
         if not shared:
             negs = F.pad(negs, (0, 0, 0, pad))
         tables = (emb_in,) if tie_tables else (emb_in, emb_out)
+        if shared and self._scans():
+            # the whole batch as one launch: the JAX trainer's lax.scan
+            c2, x2, m2 = (t.reshape(n_micro, mb) for t in (c, x, m))
+            kw = dict(tile_pairs=cfg.pallas_tile_pairs)
+            if tie_tables:
+                _, loss, npairs = fused_sgns_scan_tied(
+                    emb_in, c2, x2, pools, m2, lr, self.negw, **kw)
+            else:
+                _, _, loss, npairs = fused_sgns_scan(
+                    emb_in, emb_out, c2, x2, pools, m2, lr, self.negw, **kw)
+            return loss, npairs
         for i in range(n_micro):
             s = slice(i * mb, (i + 1) * mb)
             with self._update(*tables):

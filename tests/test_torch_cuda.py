@@ -101,6 +101,7 @@ from chip_smoke import (
     WIDE_WIDTHS,
     em_graph_check,
     em_linalg_check,
+    fused_scan_check,
     fused_steps,
     fused_stress,
     g1_check,
@@ -357,6 +358,9 @@ def test_karate_shared_runs_through_k6_k7(dev):
              fused_sgns_step.launches, fused_sgns_step_tied.launches)
     assert after[:2] == counts[:2]
     assert after[2] > counts[2] and after[3] > counts[3]
+    # one device: every macro batch one scan
+    from come_tpu_torch.ops.sgns import fused_sgns_scan
+    assert fused_sgns_scan.replays > 0
     assert np.isfinite(hist[-1]["o1_loss"]) and np.isfinite(hist[-1]["o2_loss"])
     assert hist[-1]["nmi"] > 0.3
 
@@ -731,17 +735,20 @@ def test_graph_steps_follow_every_step(dev, mode):
     the tables moved to new addresses at every other step
     (``chip_smoke.graph_steps``, which holds each step against its plain
     version from the same tables under its mode's check): every step
-    recorded and replayed, one plan, at most one instantiation."""
-    from come_tpu_torch.ops import launch_plan
+    replayed through one plan, recorded again only when the tables moved:
+    one instantiation and three updates."""
+    from come_tpu_torch.ops import build, launch_plan
 
+    entry = "star_sgns" if mode == "K2" else "walk_sgns"
+    launch_plan.release_plans(build.library(), entry)
     launch_plan.reset_counts()
     errs = graph_steps(mode, dev)
     counts = launch_plan.graph_counts()
     launch_plan.check_counts(f"graph {mode}", counts)
-    c = counts["star_sgns" if mode == "K2" else "walk_sgns"]
+    c = counts[entry]
     assert len(errs) == 6
-    assert (c["recordings"], c["replays"], c["shapes"]) == (6, 6, 1)
-    assert c["instantiations"] <= 1
+    assert (c["recordings"], c["replays"], c["instantiations"],
+            c["updates"], c["shapes"]) == (4, 6, 1, 3, 1)
 
 
 @pytest.mark.parametrize("tied", [False, True])
@@ -749,8 +756,8 @@ def test_fused_plan_steps_follow_every_step(dev, tied):
     """Six K6 (K7) micro-steps through one fresh plan, with lr, the pairs,
     the mask and the pool new at every step, the tables moved once and a
     tile all masked in each (``chip_smoke.fused_steps``, which holds each
-    step against its plain version under phase 6's check): one plan, one
-    instantiation, five updates."""
+    step against its plain version under phase 6's check): one plan,
+    recorded twice: its instantiation and one update (the tables moved)."""
     from come_tpu_torch.ops import build, launch_plan
 
     entry = "fused_sgns_tied" if tied else "fused_sgns"
@@ -760,7 +767,7 @@ def test_fused_plan_steps_follow_every_step(dev, tied):
     c = launch_plan.graph_counts()[entry]
     assert len(errs) == 6
     assert (c["recordings"], c["replays"], c["instantiations"], c["updates"],
-            c["shapes"]) == (6, 6, 1, 5, 1)
+            c["shapes"]) == (2, 6, 1, 1, 1)
 
 
 @pytest.mark.parametrize("tied", [False, True])
@@ -782,7 +789,32 @@ def test_fused_plan_steps_back_to_back_follow_every_step(dev, tied, V, d, P,
     errs = fused_stress(tied, dev, V, d, P, TP, KP)
     c = launch_plan.graph_counts()[entry]
     assert len(errs) == 40
-    assert (c["replays"], c["instantiations"], c["shapes"]) == (40, 1, 1)
+    assert (c["replays"], c["recordings"], c["instantiations"],
+            c["shapes"]) == (40, 1, 1, 1)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("V,d,mb,TP,KP", [
+    (2000, 128, 3000, 777, 512), (34, 16, 128, 64, 32),
+    (2000, 256, 4096, 1024, 512),
+])
+def test_fused_scan_matches_the_plain_loop(dev, tied, V, d, mb, TP, KP):
+    """A macro batch of forty K6 (K7) micro-steps as one scan (one launch
+    of a WHILE graph whose body is one recorded micro-step), pairs, mask
+    and pool new at every micro-step (``chip_smoke.fused_scan_check``):
+    the final tables under phase 6's check and the summed (loss, n_pairs)
+    against the loop of plain micro-steps; two scans through one plan, the
+    second recorded again only if its tables lie elsewhere."""
+    from come_tpu_torch.ops import build, launch_plan
+
+    entry = "fused_scan_tied" if tied else "fused_scan"
+    launch_plan.release_plans(build.library(), entry)
+    launch_plan.reset_counts()
+    fused_scan_check(tied, dev, V, d, mb, TP, KP)
+    fused_scan_check(tied, dev, V, d, mb, TP, KP, n=7)
+    c = launch_plan.graph_counts()[entry]
+    assert (c["replays"], c["instantiations"], c["shapes"]) == (2, 1, 1)
+    assert c["recordings"] == 1 + c["updates"] <= 2
 
 
 @pytest.mark.parametrize("tied,P,TP,wide", [

@@ -74,17 +74,19 @@ def test_fused_plan_key_holds_tied_d_tp_kp_and_tiles(field, other):
 @pytest.mark.parametrize("tied", [0, 1])
 def test_one_fused_plan_serves_calls_with_new_pools_lr_and_tables(tied):
     """Three calls on tables at other addresses, with other pairs, pools
-    and lr: one plan, its buffers and scratch in every call's arguments,
-    each call's own tables, pairs, pool, ``lr`` and result beside them; the
-    first call instantiates, the others update."""
+    and lr: one plan, its buffers, scratch and argument block in every
+    call's arguments, each call's own tables, pairs, pool, ``lr`` and
+    result beside them; the first call instantiates, the others (whose
+    tables moved) update."""
     counts = _Counts()
     args, plans, outs = [], [], []
     for step, lr in enumerate([0.025, 0.0125, 0.04]):
         tabs = [torch.randn(40, 8) for _ in range(1 if tied else 2)]
         c, x, m, pool = _pairs(step, 250 - 20 * step, int64=step == 1)
         plan = fused_plan("cpu", 0, tied, 8, 100, 16, 3)
-        inst = plan.begin()
-        assert inst == (1 if step == 0 else 0)
+        inst = plan.begin(sgns._recorded(tabs, 0.3))
+        assert inst == (launch_plan.RECORD_INSTANTIATE if step == 0 else
+                        launch_plan.RECORD_UPDATE)
         a = fused_entry_args(plan, inst, tabs, c, x, m, pool, lr, 0.3, 123)
         plan.done(inst, counts)
         n = len(tabs)
@@ -97,12 +99,13 @@ def test_one_fused_plan_serves_calls_with_new_pools_lr_and_tables(tied):
         plans.append(plan)
         outs.append(plan.out.data_ptr())
     assert plans[0] is plans[1] is plans[2]
-    # ids, nt, pool, stats, cneg, dneg, dphi, dcpos and the shape: the same
-    # buffers; out is each call's own
+    # ids, nt, pool, stats, cneg, dneg, dphi, dcpos, args and the shape: the
+    # same buffers; out is each call's own
     for a in args[1:]:
         assert a[:4] == args[0][:4] and a[5:] == args[0][5:]
     assert args[0][:3] == (plan.ids.data_ptr(), plan.nt.data_ptr(),
                            plan.pool.data_ptr())
+    assert args[0][9] == plan.args.data_ptr()
     assert args[0][-4:] == (8, 3, 100, 16)  # d, n_tiles, TP, KP
     assert len(set(outs)) == 3
     assert (counts.recordings, counts.instantiations, counts.updates,
@@ -126,7 +129,7 @@ def test_fused_scratch_is_allocated_once_and_stats_zeroed_each_call():
         plan.stats.fill_(3.5)
         c, x, m, pool = _pairs(step, 300 - 40 * step)
         plan.pack(c, x, m, pool)
-        plan.begin()
+        plan.begin()  # on the CPU, the stage kernel's zeroing
         assert torch.equal(plan.stats, torch.zeros(2, dtype=torch.float64))
         plan.out.copy_(torch.tensor([4.0 + step, 2.0]))
         results.append(plan.result())

@@ -87,8 +87,9 @@ def test_one_plan_serves_steps_with_new_addresses_lr_and_seed():
         ei, eo, slots, wrow, pools = _walk_inputs(step)
         plan = walk_plan("walk_sgns", "cpu", 0, (1, 0, 1, 1), 8, 2, 12, 3,
                          16, 1)
-        inst = plan.begin()
-        assert inst == (1 if step == 0 else 0)
+        inst = plan.begin((ei.data_ptr(), eo.data_ptr(), 0.3))
+        assert inst == (launch_plan.RECORD_INSTANTIATE if step == 0 else
+                        launch_plan.RECORD_UPDATE)
         retries = torch.zeros(1, dtype=torch.float64)
         a = walk_entry_args(plan, inst, ei, eo, slots, wrow, pools, retries,
                             8, 2, 12, 3, 16, 1, 1, 0, 1, 1, seed, lr, 0.3,
@@ -101,9 +102,12 @@ def test_one_plan_serves_steps_with_new_addresses_lr_and_seed():
         plans.append(plan)
     assert plans[0] is plans[1]
     assert args[0][2] != args[1][2] and args[0][-3] != args[1][-3]
-    # stats, retries, cneg, dneg, dphi, dctx, nt: the same scratch (retries
-    # is each call's own tensor here)
-    assert args[0][7] == args[1][7] and args[0][9:14] == args[1][9:14]
+    # stats, retries, cneg, dneg, dphi, dctx, nt, the staged walks, draws
+    # and pools and the argument block: the plan's (retries is each call's
+    # own tensor here)
+    assert args[0][7] == args[1][7] and args[0][9:18] == args[1][9:18]
+    assert args[0][14:18] == plan.staged("walks", "wrow", "pools") + (
+        plan.args.data_ptr(),)
     assert (counts.recordings, counts.instantiations, counts.updates,
             counts.replays) == (2, 1, 1, 2)
     assert (plans[0].instantiations, plans[0].updates) == (1, 1)
@@ -117,8 +121,10 @@ def test_scratch_is_reused_and_zeroed_and_results_own_their_storage():
     assert plan.cneg.shape == plan.dneg.shape == (16, 8)
     assert plan.dphi.shape == (2, NWL, 8) and plan.nt.shape == (NWL,)
     ptrs = plan.scratch()
+    assert {k: v.numel() for k, v in plan.inputs.items()} == {
+        "slots": 3 * NWL, "meta": 3 * NWL, "pools": 3 * 16}
     plan.stats.fill_(3.5)
-    plan.begin()
+    plan.begin()  # a CPU plan zeroes stats, as the head kernel does
     assert torch.equal(plan.stats, torch.zeros(2, dtype=torch.float64))
     plan.stats.copy_(torch.tensor([4.0, 2.0], dtype=torch.float64))
     loss, pairs = plan.result()
@@ -131,8 +137,7 @@ def test_scratch_is_reused_and_zeroed_and_results_own_their_storage():
 @pytest.mark.parametrize("entry", ["walk_sgns", "walk_sgns_gen", "star_sgns"])
 def test_entry_arguments_follow_the_c_signatures(entry):
     """Each step's argument tuple has one value per declared C argument,
-    the plan's graph slot and the instantiate flag first, the stream
-    last."""
+    the plan's graph slot and the record flag first, the stream last."""
     ei, eo, slots, wrow, pools = _walk_inputs(0)
     retries = torch.zeros(1, dtype=torch.float64)
     if entry == "star_sgns":
@@ -152,8 +157,57 @@ def test_entry_arguments_follow_the_c_signatures(entry):
         if gen is not None:  # K4's walks go to the plan's buffer
             assert a[8] == plan.walks.data_ptr()
             assert plan.walks.numel() == 2 * NWL
+            assert a[18:23] == plan.staged("starts", "bits", "wrow",
+                                           "pools") + (plan.args.data_ptr(),)
+            assert plan.inputs["starts"].numel() == 2 * 8
     assert len(a) == len(build.SIGNATURES[name])
     assert a[0] is None and a[1] == 1 and a[-1] == 99
+
+
+@pytest.mark.parametrize("entry", ["walk_sgns", "walk_sgns_gen", "star_sgns",
+                                   "fused_sgns", "fused_scan"])
+def test_a_plan_records_once_and_again_only_when_a_table_moves(entry):
+    """Five calls with new inputs, lr and seed on tables that stay put:
+    one recording (the instantiation) and five replays; then a call on a
+    moved table records again, counted as an update, and the calls after it
+    only replay.  Each call's result stays its own after the next call."""
+    if entry == "star_sgns":
+        plan = star_plan("cpu", 0, 0, 8, 2, 16, 1)
+    elif entry.startswith("fused"):
+        plan = launch_plan.fused_plan_for(entry, "cpu", 0, 0, 8, 100, 16, 3)
+    else:
+        mode = (0, 0, 0, 0) if entry == "walk_sgns" else (0, 0, 0)
+        plan = walk_plan(entry, "cpu", 0, mode, 8, 2, 12, 3, 16, 1)
+    counts = _Counts()
+    tabs = [torch.zeros(50, 8), torch.zeros(50, 8)]
+    hows, results = [], []
+    for step in range(8):
+        if step == 5:
+            tabs[1] = tabs[1].clone()  # the context table moves
+        how = plan.begin(tuple(t.data_ptr() for t in tabs) + (0.3,))
+        plan.done(how, counts)
+        hows.append(how)
+        if entry.startswith("fused"):
+            plan.out.copy_(torch.tensor([float(step), 1.0]))
+        else:
+            plan.stats.copy_(torch.tensor([float(step), 1.0],
+                                          dtype=torch.float64))
+        results.append(plan.result())
+    R = launch_plan
+    assert hows == [R.RECORD_INSTANTIATE] + [R.RECORD_NONE] * 4 + [
+        R.RECORD_UPDATE] + [R.RECORD_NONE] * 2
+    assert (counts.recordings, counts.instantiations, counts.updates,
+            counts.replays) == (2, 1, 1, 8)
+    assert [float(loss) for loss, _ in results] == list(range(8))
+    # the first five calls alone: what a single-device phase holds
+    one = {"recordings": 1, "instantiations": 1, "updates": 0, "replays": 5,
+           "shapes": 1}
+    launch_plan.check_counts(entry, {entry: one}, once=True)
+    with pytest.raises(AssertionError):
+        launch_plan.check_counts(entry, {entry: dict(
+            one, recordings=2, updates=1, replays=8)}, once=True)
+    launch_plan.check_counts(entry, {entry: dict(
+        one, recordings=2, updates=1, replays=8)})
 
 
 def test_used_plans_count_shapes_since_reset():

@@ -48,6 +48,7 @@ from come_tpu_torch.sampling.windows import (
     subsample_keep_probs,
 )
 from come_tpu_torch.trainer import ComETrainer
+from come_tpu_torch.trainer import come as come_mod
 
 torch.set_num_threads(2)
 
@@ -284,12 +285,20 @@ def test_edgelist_and_mat_loaders_identical(tmp_path):
     ("shared", False, 0.0), ("shared", True, 0.0), ("per_pair", False, 0.0),
     ("per_pair", True, 0.0), ("shared", False, 0.6), ("per_pair", False, 0.6),
 ])
-def test_microbatched_matches_jax_trainer(mode, tied, budget):
+def test_microbatched_matches_jax_trainer(mode, tied, budget, monkeypatch):
     """One macro batch of 300 pairs in micro-steps of 128 (the last one
     padded): K6/K7 with TP=64 and the pools JAX draws from
     ``split(key, n_micro)``, or the per-pair step with the same negatives.
     ``budget`` > 0 first compacts valid pairs to the front and keeps that
-    fraction of the batch (``trainer/come.py:287-296``)."""
+    fraction of the batch (``trainer/come.py:287-296``).  With shared
+    negatives the single-device trainer runs the batch as one scan
+    (``fused_sgns_scan``, the port of the JAX trainer's ``lax.scan``); the
+    per-pair step loops."""
+    scans = []
+    for name in ("fused_sgns_scan", "fused_sgns_scan_tied"):
+        fn = getattr(come_mod, name)
+        monkeypatch.setattr(come_mod, name, lambda *a, _fn=fn, _n=name, **k:
+                            scans.append(_n) or _fn(*a, **k))
     g = get_dataset("karate").graph
     over = dict(negative_mode=mode, shared_negatives=16, pallas="always",
                 pallas_tile_pairs=64, batch_pairs=128, compact_budget=budget)
@@ -330,6 +339,52 @@ def test_microbatched_matches_jax_trainer(mode, tied, budget):
                                atol=1e-5)
     np.testing.assert_allclose(tce.numpy(), np.asarray(jce), rtol=1e-4,
                                atol=1e-5)
+    assert scans == ([] if mode == "per_pair" else
+                     ["fused_sgns_scan_tied" if tied else "fused_sgns_scan"])
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("P,mb", [(90, 128), (200, 128), (830, 128)])
+def test_scan_is_the_micro_step_loop_bit_for_bit(P, mb, tied):
+    """``_sgns_microbatched`` through the scan (n_micro 1, 2 and 7, the last
+    batch ragged: padded with masked pairs) against the loop of plain K6/K7
+    micro-steps it replaces, each summing (loss, n_pairs) in order: the
+    tables, the loss and the pair count bit for bit."""
+    g = get_dataset("karate").graph
+    cfg = get_config("karate").replace(
+        negative_mode="shared", shared_negatives=16, pallas_tile_pairs=64,
+        batch_pairs=mb)
+    t = ComETrainer(g, cfg, "cpu")
+    rng = np.random.default_rng(P)
+    V, d = g.num_nodes, 16
+    mb = min(mb, P)  # the trainer's micro-batch
+    n_micro = -(-P // mb)
+    ne = torch.tensor((rng.normal(size=(V, d)) * 0.3).astype(np.float32))
+    ce = ne if tied else torch.tensor(
+        (rng.normal(size=(V, d)) * 0.3).astype(np.float32))
+    c, x, m = (torch.tensor(a) for a in _pairs(rng, V, P, masked=0.3))
+    pools = torch.tensor(rng.integers(0, V, (n_micro, 16)))
+    want = [t.clone() for t in ((ne,) if tied else (ne, ce))]
+    pad = n_micro * mb - P
+    cp, xp, mp = (torch.nn.functional.pad(a, (0, pad)) for a in (c, x, m))
+    tot_loss, tot_pairs = torch.zeros(()), torch.zeros(())
+    for i in range(n_micro):
+        s = slice(i * mb, (i + 1) * mb)
+        if tied:
+            _, loss, n = fused_sgns_step_tied(want[0], cp[s], xp[s], pools[i],
+                                              mp[s], 0.03, t.negw,
+                                              tile_pairs=64)
+        else:
+            *_, loss, n = fused_sgns_step(*want, cp[s], xp[s], pools[i],
+                                          mp[s], 0.03, t.negw, tile_pairs=64)
+        tot_loss += loss
+        tot_pairs += n
+    loss, n = t._sgns_microbatched(ne, ce, c, x, None, m, 0.03,
+                                   tie_tables=tied, pools=pools)
+    assert torch.equal(loss, tot_loss) and torch.equal(n, tot_pairs)
+    assert float(n) == float(m.sum())
+    for a, b in zip((ne,) if tied else (ne, ce), want):
+        assert torch.equal(a, b)
 
 
 def test_o2_arc_epoch_wraps_the_tail_batch():

@@ -197,7 +197,8 @@ def test_outside_slice_raises(override):
 
 
 _STEPS = ("walk_sgns_step", "walk_sgns_gen_step", "star_sgns_step",
-          "fused_sgns_step", "fused_sgns_step_tied", "sgns_sgd_step")
+          "fused_sgns_step", "fused_sgns_step_tied", "fused_sgns_scan",
+          "fused_sgns_scan_tied", "sgns_sgd_step")
 
 
 def _step_name(name, kw):
@@ -210,28 +211,28 @@ def _step_name(name, kw):
     ("sbm256", {}, "walk_sgns_step", "star_sgns_step"),
     ("sbm256", dict(negative_mode="per_pair"), "sgns_sgd_step",
      "sgns_sgd_step"),
-    ("sbm256", dict(down_sample=1e-3), "fused_sgns_step", "star_sgns_step"),
-    ("sbm256", dict(walk_length=160), "fused_sgns_step", "star_sgns_step"),
-    ("sbm256", dict(o2_mode="xla"), "walk_sgns_step", "fused_sgns_step_tied"),
-    ("sbm60", dict(walk_length=80, window=10), "fused_sgns_step",
-     "fused_sgns_step_tied"),
+    ("sbm256", dict(down_sample=1e-3), "fused_sgns_scan", "star_sgns_step"),
+    ("sbm256", dict(walk_length=160), "fused_sgns_scan", "star_sgns_step"),
+    ("sbm256", dict(o2_mode="xla"), "walk_sgns_step", "fused_sgns_scan_tied"),
+    ("sbm60", dict(walk_length=80, window=10), "fused_sgns_scan",
+     "fused_sgns_scan_tied"),
     ("sbm60", dict(walk_length=80, window=10, o2_mode="star"),
-     "fused_sgns_step", "fused_sgns_step_tied"),
-    ("karate", dict(negative_mode="shared"), "fused_sgns_step",
-     "fused_sgns_step_tied"),
+     "fused_sgns_scan", "fused_sgns_scan_tied"),
+    ("karate", dict(negative_mode="shared"), "fused_sgns_scan",
+     "fused_sgns_scan_tied"),
     ("karate", dict(negative_mode="per_pair"), "sgns_sgd_step",
      "sgns_sgd_step"),
     ("sbm256", dict(o2_mode="paired"), "walk_sgns_step",
      "walk_sgns_step+paired"),
     ("sbm60", dict(o2_mode="paired", walk_length=80, window=10),
-     "fused_sgns_step", "fused_sgns_step_tied"),
+     "fused_sgns_scan", "fused_sgns_scan_tied"),
     ("sbm256", dict(walk_gen="kernel"), "walk_sgns_gen_step",
      "star_sgns_step"),
     ("sbm256", dict(walk_gen="kernel", restart_prob=0.1), "walk_sgns_step",
      "star_sgns_step"),
     ("sbm256", dict(walk_gen="kernel", walk_regen_epochs=0),
      "walk_sgns_step", "star_sgns_step"),
-    ("sbm256", dict(walk_gen="kernel", down_sample=1e-3), "fused_sgns_step",
+    ("sbm256", dict(walk_gen="kernel", down_sample=1e-3), "fused_sgns_scan",
      "star_sgns_step"),
     ("sbm256", dict(walk_kernel_bf16=True), "walk_sgns_step+bf16",
      "star_sgns_step+bf16"),
@@ -239,7 +240,7 @@ def _step_name(name, kw):
                     o2_mode="paired"), "walk_sgns_gen_step+bf16",
      "walk_sgns_step+paired+bf16"),
     ("sbm256", dict(walk_kernel_bf16=True, o2_mode="xla"),
-     "walk_sgns_step+bf16", "fused_sgns_step_tied"),
+     "walk_sgns_step+bf16", "fused_sgns_scan_tied"),
 ])
 def test_dispatch_follows_the_jax_trainer(monkeypatch, graph, override, o1,
                                           o2):
@@ -248,7 +249,9 @@ def test_dispatch_follows_the_jax_trainer(monkeypatch, graph, override, o1,
     ``:380-394``, ``:696-711``, ``:841-881``, ``:1090-1144``): the walk
     kernel K1 (K1b with bf16, K4 for in-kernel walks) or the micro-batched
     tier (K6, or the per-pair step), the star kernel K2 (K2b), the paired
-    walk kernel K5, or per arc (K7, or the tied per-pair step)."""
+    walk kernel K5, or per arc (K7, or the tied per-pair step).  On one
+    device a macro batch of K6 (K7) micro-steps is one scan
+    (``fused_sgns_scan``, ``_tied``: the JAX trainer's ``lax.scan``)."""
     import come_tpu_torch.trainer.come as tc
     from come_tpu_torch.graphs import get_dataset
 
