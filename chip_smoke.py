@@ -52,10 +52,16 @@ non-zero and prints no result line):
                at d 520, each with one all-masked tile)
  4j. wide    — K1 (W 10 and a whole-walk window W 127), K5 and K2 on V
                2000 at the ragged and odd widths of WIDE_WIDTHS (129, 193,
-               300, 512; at 256 the whole-walk window only), and K1b, K3
-               (SR, V 20000), K4 in bf16 and in f32, K2b, K6 and K7 at 193
-               (K3 194), 256, 300 and 512 (wide_inputs), each under its
-               mode's check, and timed as in 4k but for the whole walk
+               257, 300, 512; at 256 the whole-walk window only), and K1b,
+               K3 (SR, V 20000), K4 in bf16 and in f32, K2b, K6 and K7 at
+               193 (K3 194), 256, 257 (K3 258), 300 and 512 (wide_inputs;
+               256 and 257 the negative passes' widest whole width and
+               narrowest slabs), each under its mode's check, and timed as
+               in 4k but for the whole walk and 257
+ 4l. passes 256 — the device µs a group by pass of tools/pass_times.py's
+               K1, K1b bench, K2b bench, K6 (a tile) and K3 steps at d 256,
+               beside the negative pass as three PyTorch products (the
+               yardstick library3_ms)
   4f. K3     — the walk kernel on bf16 tables at the large-V path's shapes
                (synthetic-10m: V 500000, d 128, 1024 walks of 80, W 10, KP
                2048, R 1, 128 groups), with stochastic rounding and in
@@ -414,7 +420,9 @@ KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 # its bound 192 and at 2, walks that repeat one row heavily, ragged and
 # large pools (KP 100 and 2048, R 3); the last four again past MAX_DIM
 # (192), where every pass stages column slabs, at 256 and at 300 (a ragged
-# slab of 44).  On bf16 tables V is at least 20000:
+# slab of 44), and beside the negative passes' route edge (256) at even
+# widths that take their 4-byte copies: 254 (held whole; KP 100, R 3) and
+# 258 (in slabs; the hot row, KP 2048 with R 3).  On bf16 tables V is at least 20000:
 # K3's check holds steps whose walks repeat few rows, since its CAS loops
 # write a row's repeats within a group in any order (ops/tolerance.py); its
 # float64 emulation of that order fails the check with the hot row (0.52 of
@@ -436,12 +444,16 @@ EDGE_SHAPES = [
     (2000, 300, 24, 37, 13, 100, 3, False),
     (2000, 300, 16, 80, 10, 512, 1, True),
     (20000, 256, 24, 80, 10, 2048, 3, False),
+    (2000, 254, 24, 37, 13, 100, 3, False),
+    (2000, 258, 16, 80, 10, 512, 1, True),
+    (20000, 258, 24, 80, 10, 2048, 3, False),
 ]
 
 # Phase 4i's star layouts (V, d, E, KP, R, layout): see star_edge_layout;
 # d at its bound 192 and at 2, a ragged and a small pool (KP 100, R 3);
 # past MAX_DIM (column slabs) the hub, the fat hub, pads mid-row, a ragged
-# last group and KP 2048 with R 3.
+# last group and KP 2048 with R 3; at the negative passes' route edges
+# pads mid-row (slots with nt = 0) at 257 and KP 100 with R 3 at 255.
 STAR_EDGES = [
     (3000, 128, 20000, 512, 1, "hub"),
     (400, 128, 150, 64, 1, "fat"),
@@ -455,15 +467,18 @@ STAR_EDGES = [
     (3000, 300, 20000, 512, 1, "pads"),
     (2000, 300, 9000, 512, 2, "ragged"),
     (2000, 256, 12000, 2048, 3, "random"),
+    (3000, 257, 20000, 512, 1, "pads"),
+    (2000, 255, 12000, 100, 3, "random"),
 ]
 
 
 
 # Phase 4i's K6/K7 shapes (V, d, P, TP, KP): pools of 100 and 2048 rows, d
-# 192 and 2, tiles of 64 and 777 pairs; past MAX_DIM (the slab negative
+# 192 and 2, tiles of 64 and 777 pairs; past MAX_DIM (the wide negative
 # pass) KP 2048 at 300 (a ragged slab, 16 pool splits) and tiles of 64 at
-# 520 (past 256 the positive pass loops over a lane's columns); the second
-# tile is all masked.
+# 520 (past 256 the positive pass loops over a lane's columns), and at the
+# negative pass's route edges tiles of 64 with KP 100 at 255 and KP 2048 at
+# 257; the second tile is all masked.
 FUSED_EDGES = [
     (2000, 128, 3000, 64, 100),
     (2000, 128, 3000, 777, 2048),
@@ -471,6 +486,8 @@ FUSED_EDGES = [
     (2000, 2, 3000, 64, 100),
     (2000, 300, 3000, 777, 2048),
     (2000, 520, 3000, 64, 100),
+    (2000, 255, 3000, 64, 100),
+    (2000, 257, 3000, 777, 2048),
 ]
 
 
@@ -1228,16 +1245,23 @@ def stress_text(runs: dict) -> str:
 
 
 # Phase 4j's widths past 128 (phase 4k holds the main path's steps at 256
-# at their own shapes): past MAX_DIM (192) every pass stages column slabs of
-# 128 (csrc/sgns_common.cuh: SLAB), so 193 leaves a ragged slab of 65 (194,
-# K3's even width: 66), 300 one of 44 and 512 four whole ones; 129 runs the
-# whole-row passes at a ragged width.  K1 (W 10 and a whole-walk window),
-# K5 and K2 run at every width of WIDE_WIDTHS (the whole walk alone at 256),
-# the other modes at WIDE_MODE_WIDTHS.
-WIDE_WIDTHS = (129, 193, 256, 300, 512)
+# at their own shapes): past MAX_DIM (192) the band and star passes stage
+# column slabs of 128 (csrc/sgns_common.cuh: SLAB), so 193 leaves a ragged
+# slab of 65 (194, K3's even width: 66), 300 one of 44 and 512 four whole
+# ones; the negative passes hold rows whole up to NEG_WHOLE (256) and take
+# slabs of 256 past it, so 256 is their widest whole width, 257 (K3: 258)
+# the narrowest in slabs and 300 a ragged last slab; 129 runs the whole-row
+# passes at a ragged width.  K1 (W 10 and a whole-walk window), K5 and K2
+# run at every width of WIDE_WIDTHS (the whole walk alone at 256), the
+# other modes at WIDE_MODE_WIDTHS.
+WIDE_WIDTHS = (129, 193, 256, 257, 300, 512)
 WIDE_CASES = (("K1", False), ("K1", True), ("K5", False), ("K2", False))
 WIDE_MODES = ("K1b", "K3", "K4", "K4 f32", "K2b", "K6", "K7")
-WIDE_MODE_WIDTHS = (193, 256, 300, 512)
+WIDE_MODE_WIDTHS = (193, 256, 257, 300, 512)
+ROUTE_EDGE = (257,)  # checked, not timed: 256 and 300 time both routes
+# Phase 4l's steps (tools/pass_times.py) whose passes it times at d 256:
+# the f32 negative pass in K1 and K6, the bf16 one in K1b, K2b and K3
+PASS_STEPS_256 = ("K1", "K1b bench", "K2b bench", "K6", "K3")
 
 
 def mode_width(mode, d):
@@ -1455,13 +1479,14 @@ def wide_phase(smi: str, dev) -> dict:
             res[(mode, whole, d)] = step_check(
                 mode, name, *wide_inputs(mode, dev, d, 3 * d + 2 * whole
                                          + (mode == "K5"), whole),
-                timed=not whole)
+                timed=not whole and d not in ROUTE_EDGE)
     for d in WIDE_MODE_WIDTHS:
         for mode in WIDE_MODES:
             dm = mode_width(mode, d)
             res[(mode, False, dm)] = step_check(
                 mode, f"{mode} d {dm}", *wide_inputs(
-                    mode, dev, dm, 3 * dm + len(mode), csr=csr))
+                    mode, dev, dm, 3 * dm + len(mode), csr=csr),
+                timed=d not in ROUTE_EDGE)
     worst = "; ".join(
         f"{m}{' whole walk' if w else ''} worst "
         + err_text(m, max((r["err"] for k, r in res.items() if k[:2] == (m, w)),
@@ -1474,6 +1499,30 @@ def wide_phase(smi: str, dev) -> dict:
                   f"(f32: tol {ATOL} + {RTOL}*|plain update|): {worst} | "
                   + step_times({f"{m} d {d}": r for (m, w, d), r in
                                 res.items()}) + f" | {smi}")
+    return res
+
+
+def passes_phase(smi: str, dev, d: int = 256) -> dict:
+    """Phase 4l: the device µs a group (a tile for K6) of each pass of
+    tools/pass_times.py's PASS_STEPS_256 at width d, beside one group's
+    negative pass as three PyTorch products (``library3_ms``, a yardstick
+    the port never calls).  Returns {step: (split, library3 ms)}."""
+    from come_tpu_torch.tools import pass_times as pt
+
+    res = {}
+    for name, step, groups, passes, _, KP in pt.steps(dev, d):
+        if name not in PASS_STEPS_256:
+            continue
+        split, _ = pt.pass_split(step, groups, passes)
+        res[name] = (split, pt.library3_ms(dev, pt.pass_slots(name), KP, d,
+                                           name in pt.BF16_PASS))
+    torch.cuda.empty_cache()
+    phase("passes 256", f"device us a group (K6: a tile) by pass at d {d} "
+                        "(tools/pass_times.py), and the negative pass as "
+                        "three PyTorch products: " + "; ".join(
+                            f"{k}: {pt.split_text(v[0])}; three calls "
+                            f"{v[1] * 1e3:.2f}" for k, v in res.items())
+          + f" | {smi}")
     return res
 
 
@@ -2653,10 +2702,13 @@ def main() -> int:
                             + "; ".join(edge_lines))
     torch.cuda.empty_cache()
 
-    # 4j. K1, K5 and K2 past 128: past 192 their f32 passes stage column
-    # slabs
+    # 4j. every mode past 128: past 192 its band or star pass stages column
+    # slabs and its negative pass is the wide kernel
     wide_phase(smi, dev)
     torch.cuda.empty_cache()
+
+    # 4l. the passes' device µs at d 256
+    passes_phase(smi, dev)
 
     def large_v_kernels():
         """Phases 4f-4g in their own scope (the BlogCatalog phases' names
@@ -3114,7 +3166,7 @@ def main() -> int:
     seq6 = fused_steps(False, dev, V, d, 32768, TP, KP)
     seq6_line = fused_counts("K6 plan", "fused_sgns")
     # 40 micro-steps enqueued back to back, at this shape, karate's and
-    # this shape at d 256 (the slab negative pass)
+    # this shape at d 256 (the wide negative pass)
     stress6 = {"this shape": fused_stress(False, dev, V, d, 32768, TP, KP),
                "karate's": fused_stress(False, dev, 34, 16, 128, 64, 32),
                "d 256": fused_stress(False, dev, V, 256, 32768, TP, KP)}
@@ -3201,7 +3253,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4k (micro). K6 and K7 at d 256 on phases 6 and 7's pairs (32 tiles;
-    # the slab negative pass)
+    # the wide negative pass)
     blog256.update(blog_wide_checks(dev, {
         "K6": ("K6", (c, x, pool, m), dict(tile_pairs=TP)),
         "K7": ("K7", (c7, x7, pool, ones), dict(tile_pairs=TP)),

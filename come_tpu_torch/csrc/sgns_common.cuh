@@ -23,8 +23,12 @@
 // so the grid is (slots / 64) x (pool splits), sized to the CTAs that fit
 // on the card at once (by the kernel's occupancy: 2-3 an SM); dphi is
 // merged once per CTA and dneg once per chunk, by 16-byte f32 atomics.
-// Past MAX_DIM both work in column slabs (negative_f32_slab_kernel,
-// negative_bf16_slab_kernel; see the note at SLAB).
+// Past MAX_DIM both run wide kernels (negative_f32_wide_kernel,
+// negative_bf16_wide_kernel; see the note at NEG_WHOLE): the tile's rows
+// held in shared memory for the whole pass, the pool chunks streamed
+// through a ring filled by asynchronous copies, one sweep up to NEG_WHOLE
+// (256) columns, column slabs of NEG_WHOLE in two sweeps past it, and the
+// bf16 products on wgmma.
 //
 //   * f32 (negative_f32_kernel: K1, K2, K5, K6, K7): every product and sum
 //     in f32 on the SIMT units (FFMA; its checks allow no TF32).  Each of
@@ -385,15 +389,17 @@ static __device__ __forceinline__ void atomic_add4(float* row, int d, int c,
   atomic_add4(row, d, c, v, d % 4 == 0);
 }
 
-// Column slabs.  Past MAX_DIM the band, star and negative passes, f32 and
-// bf16 (their whole rows would not fit in shared memory, nor a warp's dphi
-// in registers), stage their rows SLAB columns
-// at a time: a row pointer then points at the slab's first column, d is
-// the slab's width w (the last slab may be narrower), and 16-byte accesses
-// need the table's d % 4 == 0 (`vec`), not w's.  Each pass sweeps the
-// slabs twice: once to sum every dot product's slab parts (sweep A), then,
-// with the coefficients made from the sums, once more to form each slab's
-// part of the updates (sweep B), re-reading the rows from L2.
+// Column slabs.  Past MAX_DIM the band and star passes, f32 and bf16
+// (their whole rows would not fit in shared memory, nor a warp's dphi in
+// registers), stage their rows SLAB columns at a time: a row pointer then
+// points at the slab's first column, d is the slab's width w (the last slab
+// may be narrower), and 16-byte accesses need the table's d % 4 == 0
+// (`vec`), not w's.  Each pass sweeps the slabs twice: once to sum every
+// dot product's slab parts (sweep A), then, with the coefficients made
+// from the sums, once more to form each slab's part of the updates (sweep
+// B), re-reading the rows from L2.  The negative passes hold rows whole up
+// to NEG_WHOLE (256) columns in one sweep, and take slabs of NEG_WHOLE
+// past it (the note at NEG_WHOLE).
 constexpr int SLAB = 128;
 // a staged slab row's floats: 16-byte aligned, rows 4 banks apart
 constexpr int SLAB_STRIDE = SLAB + 4;
@@ -738,260 +744,6 @@ static inline int negf_cluster(int ny) {
   return ny >= NEGF_CMAX ? NEGF_CMAX : ny >= 4 ? 4 : ny >= 2 ? 2 : 1;
 }
 
-// ------------------------------------------ f32 pass in column slabs
-
-// The slab form of the f32 pass (d > MAX_DIM): a CTA walks at most
-// NEGS_PMAX pool chunks, since it keeps every chunk's g in shared memory
-// between its two sweeps; the sizing raises the pool splits to that.
-constexpr int NEGS_PMAX = 4;
-
-static inline size_t negative_slab_smem_bytes() {
-  return sizeof(float) * ((size_t)(NEG_MS + NEG_KC) * SLAB_STRIDE +
-                          NEGS_PMAX * NEG_KC * NEGF_GT + NEG_MS);
-}
-
-// What negative_f32_kernel computes, for any d, with the rows staged one
-// column slab at a time (SLAB columns; see the note at SLAB).  A CTA takes
-// the 64-slot tile blockIdx.x and its m <= NEGS_PMAX pool chunks
-// blockIdx.y, blockIdx.y + ny, ...:
-//   sweep A, for each slab: the tile's rows staged, then each chunk's rows
-//     staged in turn, and each chunk's [64 x 32] score tile takes the
-//     slab's part, held in registers (thread t's 4 x 4 scores are
-//     negative_f32_kernel's);
-//   g and the loss from the whole scores, kept by pool row in shared
-//     memory, one [32][64 + 4] tile a chunk;
-//   sweep B, for each slab: the tile's rows and each chunk's re-staged;
-//     the slab's columns of dphi accumulate over the chunks in registers,
-//     and of each chunk's dneg are added atomically, once per chunk; then
-//     the cluster merges the slab's dphi partials as negative_f32_kernel
-//     merges its (f64 sums in rank order, one add a slot and column).
-// Thread tiles: dphi of slots 8 rg + r (r < 8) and dneg of pool rows 4 rg
-// + r (r < 4) at the slab's columns 4 cg + 64 p (p < 2), as NP = 2.  grid
-// (slots / 64, ny), block NEG_THREADS, clusters of C along y.  A tile
-// whose slots all have nt = 0 returns at once.  PDL as negative_f32_kernel.
-static __global__ void __launch_bounds__(NEG_THREADS, 2)
-negative_f32_slab_kernel(const float* table,
-                         const int* ids,
-                         const float* nt,
-                         const float* cneg, int d, int KP,
-                         int ny, float negw, float* __restrict__ dphi,
-                         float* __restrict__ dneg,
-                         double* __restrict__ stats) {
-  extern __shared__ float4 negs_smem[];
-  constexpr int sa = SLAB_STRIDE;
-  float* ph = reinterpret_cast<float*>(negs_smem);  // [MS][sa]: a slab
-  float* cn = ph + NEG_MS * sa;                     // [KC][sa]: a slab
-  float* gt = cn + NEG_KC * sa;      // [PMAX][KC][GT]: g by pool row
-  float* nts = gt + NEGS_PMAX * NEG_KC * NEGF_GT;  // [MS]
-  __shared__ int rows[NEG_MS];
-  const int base = blockIdx.x * NEG_MS, t = threadIdx.x;
-  const int nch = (KP + NEG_KC - 1) / NEG_KC;
-  const int py = blockIdx.y;  // this CTA's pool split: chunks py, py + ny..
-  const int m = py < nch ? (nch - 1 - py) / ny + 1 : 0;
-  const bool vec = d % 4 == 0;
-  if (t < NEG_MS) rows[t] = step_ld(ids + base + t);
-  pdl_wait();
-  pdl_trigger();
-  float own = 0.0f;
-  if (t < NEG_MS) {
-    own = step_ld(nt + base + t);
-    nts[t] = own;
-  }
-  if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
-  auto stage_ph = [&](const Slab& sl) {
-    stage_rows<NEG_THREADS, 8, float>(
-        NEG_MS, sl.w, sl.wp,
-        [&](int i) { return table + (size_t)rows[i] * d + sl.s0; },
-        [&](int i, int c, float4 v) {
-          *reinterpret_cast<float4*>(ph + i * sa + c) = v;
-        },
-        vec);
-  };
-  auto stage_cn = [&](int ch, const Slab& sl) {
-    stage_rows<NEG_THREADS, 4, float>(
-        NEG_KC, sl.w, sl.wp,
-        [&](int j) {
-          const int k = ch * NEG_KC + j;
-          return k < KP ? cneg + (size_t)k * d + sl.s0 : nullptr;
-        },
-        [&](int j, int c, float4 v) {
-          *reinterpret_cast<float4*>(cn + j * sa + c) = v;
-        },
-        vec);
-  };
-  const int sr = t >> 3, sc = t & 7, rg = t >> 4, cg = t & 15;
-  const int ns = n_slabs(d);
-
-  // sweep A: scores of slots 4 sr + r against pool rows sc + 8 c of each
-  // chunk, summed over the slabs
-  float s[NEGS_PMAX][4][4];
-#pragma unroll
-  for (int k = 0; k < NEGS_PMAX; ++k)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[k][r][c] = 0.0f;
-  for (int n = 0; n < ns; ++n) {
-    const Slab sl(n, d);
-    __syncthreads();  // the last slab's reads of ph
-    stage_ph(sl);
-#pragma unroll
-    for (int k = 0; k < NEGS_PMAX; ++k) {
-      if (k >= m) break;
-      __syncthreads();  // ph staged; the last chunk's reads of cn
-      stage_cn(py + k * ny, sl);
-      __syncthreads();
-#pragma unroll 2
-      for (int kk = 0; kk < sl.wp; kk += 4) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          a[r] = *reinterpret_cast<const float4*>(ph + (4 * sr + r) * sa + kk);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          b[c] = *reinterpret_cast<const float4*>(cn + (sc + 8 * c) * sa + kk);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            s[k][r][c] = fmaf(a[r].x, b[c].x, s[k][r][c]);
-            s[k][r][c] = fmaf(a[r].y, b[c].y, s[k][r][c]);
-            s[k][r][c] = fmaf(a[r].z, b[c].z, s[k][r][c]);
-            s[k][r][c] = fmaf(a[r].w, b[c].w, s[k][r][c]);
-          }
-      }
-    }
-  }
-  // g = sigmoid(s) * w and the loss -w * log(sigmoid(-s)), by pool row
-  float loss = 0.0f;
-#pragma unroll
-  for (int k = 0; k < NEGS_PMAX; ++k) {
-    if (k >= m) break;
-    const int j0 = (py + k * ny) * NEG_KC;
-    float* g = gt + k * NEG_KC * NEGF_GT;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float w = negw * nts[4 * sr + r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float x = s[k][r][c];
-        const float wj = j0 + sc + 8 * c < KP ? w : 0.0f;
-        const float ex = expf(-fabsf(x));
-        s[k][r][c] = (x >= 0.0f ? 1.0f : ex) / (1.0f + ex) * wj;
-        loss -= wj * (fminf(-x, 0.0f) - log1pf(ex));
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(g + (sc + 8 * c) * NEGF_GT + 4 * sr) =
-          make_float4(s[k][0][c], s[k][1][c], s[k][2][c], s[k][3][c]);
-  }
-
-  // sweep B: each slab's columns of dphi and dneg
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int C = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
-  for (int n = 0; n < ns; ++n) {
-    const Slab sl(n, d);
-    __syncthreads();  // g written; the last slab's merge read ph
-    stage_ph(sl);
-    float4 acc[8][2];  // dphi of slots 8 rg + r
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int p = 0; p < 2; ++p) acc[r][p] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < m; ++k) {
-      const int j0 = (py + k * ny) * NEG_KC;
-      const float* g = gt + k * NEG_KC * NEGF_GT;
-      __syncthreads();  // ph staged; the last chunk's reads of cn
-      stage_cn(py + k * ny, sl);
-      __syncthreads();
-      // dphi[8 rg + r, cols] += G[8 rg + r, chunk] . C[chunk, cols]
-#pragma unroll 4
-      for (int j = 0; j < NEG_KC; ++j) {
-        const float4 g0 =
-            *reinterpret_cast<const float4*>(g + j * NEGF_GT + 8 * rg);
-        const float4 g1 =
-            *reinterpret_cast<const float4*>(g + j * NEGF_GT + 8 * rg + 4);
-        const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int c = 4 * cg + 64 * p;
-          if (c >= sl.wp) break;
-          const float4 cv = *reinterpret_cast<const float4*>(cn + j * sa + c);
-#pragma unroll
-          for (int r = 0; r < 8; ++r) fma4(gv[r], cv, acc[r][p]);
-        }
-      }
-      // dneg[j0 + 4 rg + r, cols] += G^T[., tile] . Phi[tile, cols]
-      float4 qv[4][2];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int p = 0; p < 2; ++p) qv[r][p] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-      for (int i = 0; i < NEG_MS; ++i) {
-        float gv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) gv[r] = g[(4 * rg + r) * NEGF_GT + i];
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int c = 4 * cg + 64 * p;
-          if (c >= sl.wp) break;
-          const float4 pv = *reinterpret_cast<const float4*>(ph + i * sa + c);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) fma4(gv[r], pv, qv[r][p]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = j0 + 4 * rg + r;
-        if (j >= KP) continue;
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int c = 4 * cg + 64 * p;
-          if (c < sl.wp)
-            atomic_add4(dneg + (size_t)j * d + sl.s0, sl.w, c, qv[r][p], vec);
-        }
-      }
-    }
-    // the cluster's partials of the slab's dphi, summed on chip
-    __syncthreads();  // the reads of ph
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int c = 4 * cg + 64 * p;
-        if (c < sl.wp)
-          *reinterpret_cast<float4*>(ph + (8 * rg + r) * sa + c) = acc[r][p];
-      }
-    cluster.sync();
-    const int rows_q = NEG_MS / C, n4 = sl.wp / 4;
-    for (int idx = t; idx < rows_q * n4; idx += NEG_THREADS) {
-      const int i = q * rows_q + idx / n4, c = 4 * (idx % n4);
-      if (nts[i] == 0.0f) continue;  // no pairs: exactly zero update
-      float4 v[NEGF_CMAX];
-#pragma unroll
-      for (int k = 0; k < NEGF_CMAX; ++k)
-        if (k < C)
-          v[k] = *reinterpret_cast<const float4*>(
-              cluster.map_shared_rank(ph, k) + i * sa + c);
-      double x = 0.0, y = 0.0, z = 0.0, w = 0.0;
-#pragma unroll
-      for (int k = 0; k < NEGF_CMAX; ++k)
-        if (k < C) {
-          x += v[k].x;
-          y += v[k].y;
-          z += v[k].z;
-          w += v[k].w;
-        }
-      atomic_add4(dphi + (size_t)(base + i) * d + sl.s0, sl.w, c,
-                  make_float4((float)x, (float)y, (float)z, (float)w), vec);
-    }
-    cluster.sync();  // no CTA restages ph while another reads its partial
-  }
-  block_add<NEG_THREADS>(loss, &stats[0]);
-}
-
 // ------------------------------------------- bf16 pass on the tensor cores
 
 // d padded to the mma depth; each staged matrix's row stride is its width
@@ -1270,69 +1022,688 @@ negative_bf16_kernel(const T* table, const int* ids,
   block_add<NEG_THREADS>(loss, &stats[0]);
 }
 
-// ------------------------------------------ bf16 pass in column slabs
+// ------------------------------------------- the passes past MAX_DIM
 
-// Staged bf16 slab rows: SLAB + 8 elements apart (an odd multiple of 16
-// bytes, as neg_dp's strides), g by slot NEG_KC + 8 apart.
-constexpr int NEGB_SA = SLAB + 8;
-constexpr int NEGB_SK = NEG_KC + 8;
+// Past MAX_DIM both negative passes run their wide kernels
+// (negative_f32_wide_kernel, negative_bf16_wide_kernel<T>): 256 threads, one
+// CTA an SM.  Each CTA holds its 64-slot tile's rows in shared memory for
+// the whole pass and streams its pool chunks through a ring of two stages,
+// filled by asynchronous copies while the chunk before is computed (chunk
+// k + 1 in flight during chunk k), each stage on an mbarrier.  The f32 pass
+// copies f32 rows: one cp.async.bulk a row where d % 4 == 0 (every row then
+// starts 16-byte aligned), 4-byte cp.async otherwise.  The bf16 pass copies
+// a pool staged once per R-block as bf16 in wgmma's layout
+// (stage_pool_bf16_kernel): one bulk copy a chunk and slab.  Up to NEG_WHOLE columns a chunk is
+// resident at full width, so its scores, g, dphi and dneg are formed from
+// one copy of it in one sweep, dphi stays in registers across the CTA's
+// chunks and is merged once a pass, and a CTA may walk any number of chunks
+// (occupancy alone sets the pool splits).  Past NEG_WHOLE the rows are taken
+// in column slabs of NEG_WHOLE through the same ring in two sweeps: sweep A
+// sums each chunk's scores over the slabs (at most NEG_PMAX chunks a CTA,
+// whose scores stay in registers and whose g stays in shared memory), sweep
+// B forms each slab's dphi and dneg.  NEG_WHOLE is what dphi's registers
+// hold (64 a thread: 64 slots x 256 columns over 256 threads) and what the
+// f32 pass's shared memory holds (152 KB: 64 + 2 x 32 rows of 260 floats).
+// Every copy of a buffer the step writes (the tables, cneg) is issued after
+// pdl_wait().
+constexpr int NEG_WHOLE = 256;     // the widest d held whole
+constexpr int NEG_PMAX = 8;        // chunks a CTA walks past NEG_WHOLE
+constexpr int WIDE_THREADS = 256;  // 8 warps; the bf16 kernel's 2 warpgroups
 
-static inline size_t negative_bf16_slab_smem_bytes() {
-  return 2 * ((size_t)(NEG_MS + NEG_KC) * NEGB_SA +
-              NEGS_PMAX * NEG_MS * NEGB_SK) +
-         sizeof(float) * NEG_MS;
+// (s0, w, wp) of wide slab k: its first column, width, width to a float4.
+struct WideSlab {
+  int s0, w, wp;
+  __device__ WideSlab(int k, int d)
+      : s0(k * NEG_WHOLE), w(min(NEG_WHOLE, d - k * NEG_WHOLE)),
+        wp((w + 3) & ~3) {}
+};
+
+static __host__ __device__ inline int n_wide_slabs(int d) {
+  return (d + NEG_WHOLE - 1) / NEG_WHOLE;
 }
 
-// What negative_bf16_kernel computes, for any d, with the rows staged one
-// column slab at a time (SLAB columns; see the note at SLAB), in the
-// structure of negative_f32_slab_kernel.  A CTA takes the 64-slot tile
-// blockIdx.x and its m <= NEGS_PMAX pool chunks blockIdx.y, blockIdx.y +
-// ny, ...:
-//   sweep A, for each slab: the tile's rows staged as bf16, then each
-//     chunk's in turn, and each chunk's score fragments take the slab's
-//     part by mma.m16n8k16 into f32 accumulators held across the slabs
-//     (warp w: slots 16w.., 4 x 4 floats a chunk), so no partial score is
-//     rounded: the sum is the one f32 sum the TPU's bf16-operand product
-//     forms, its slab parts added in column order as the whole-row loop
-//     adds its k-steps;
-//   g and the loss from the whole scores, g rounded to bf16 as the TPU
-//     rounds gneg and kept by slot in shared memory, one [64][32 + 8]
-//     tile a chunk;
-//   sweep B, for each slab: the tile's rows and each chunk's re-staged;
-//     the slab's columns of the warp's dphi accumulate over the chunks in
-//     registers in negative_bf16_kernel's NTILE 16 form (SLAB = 128
-//     columns) and are added once, after the last chunk; each chunk's dneg
-//     of the slab is added atomically, once per chunk.
-// Only the slabs are staged, so shared memory is 47 KB at every d.  (Whole
-// bf16 rows would fit well past 192, 72 KB for 96 rows at d 384, but not
-// at any d, and dphi would still need slabs: its registers are the limit.)
-// A ragged last slab is zero-padded to the mma depth (16) in shared memory.
-// grid (slots / 64, ny), block NEG_THREADS.  A tile whose slots all have
-// nt = 0 returns at once.  PDL as negative_bf16_kernel: it triggers once
-// the last slab's dphi is added.
-template <typename T>
-static __global__ void __launch_bounds__(NEG_THREADS, 3)
-negative_bf16_slab_kernel(const T* table,
-                          const int* ids,
-                          const float* nt,
-                          const float* cneg, int d, int KP,
-                          int ny, float negw, float* __restrict__ dphi,
-                          float* __restrict__ dneg,
-                          double* __restrict__ stats) {
-  extern __shared__ float4 negb_smem[];
-  constexpr int sa = NEGB_SA, sk = NEGB_SK;
-  __nv_bfloat16* ph = reinterpret_cast<__nv_bfloat16*>(negb_smem);  // [MS][sa]
-  __nv_bfloat16* cn = ph + NEG_MS * sa;                              // [KC][sa]
-  __nv_bfloat16* gs = cn + NEG_KC * sa;  // [PMAX][MS][sk]: g by slot
-  float* nts = reinterpret_cast<float*>(gs + NEGS_PMAX * NEG_MS * sk);
+// mbarriers, and copies from global to shared memory that complete on one.
+static __device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                                 unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Thread 0's arrival that also expects `bytes` of bulk copies this phase.
+static __device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+static __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                                 unsigned parity) {
+  unsigned ok = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!ok);
+}
+
+// `bytes` (a multiple of 16; both ends 16-byte aligned) onto `bar`.
+static __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                                 unsigned bytes,
+                                                 unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+static __device__ __forceinline__ void async_copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+static __device__ __forceinline__ void async_copy16(void* dst,
+                                                  const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// This thread's arrival on `bar`, now.
+static __device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Waits until this thread's cp.async so far have landed.
+static __device__ __forceinline__ void async_copies_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// This thread's arrival on `bar` once its cp.async so far have landed (the
+// barrier counts it: init with the block's thread count).
+static __device__ __forceinline__ void cp_async_arrive(
+    unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Orders this thread's generic writes to shared memory before the async
+// proxy's later accesses (bulk copies, wgmma operand reads).
+static __device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Rows i < n of w elements (f32, or bf16 with w even), src(i) -> dst + i *
+// ld, completing on `bar`: with `vec` (every row's bytes a multiple of 16,
+// 16-byte aligned) one bulk copy a row, issued by lanes 0-3 of every warp
+// (a bulk copy holds its issuing warp ≈ 70 cycles on the H100, so warp 0
+// alone would take ≈ 2.2 k cycles a chunk; thread 0 expects the bytes; init
+// `bar` with 1), else 4-byte cp.async from every thread and each thread's
+// arrival (init `bar` with WIDE_THREADS).  Every thread calls it.
+template <typename E, typename Src>
+static __device__ __forceinline__ void copy_rows(E* dst, int ld, int n, int w,
+                                                 Src src,
+                                                 unsigned long long* bar,
+                                                 bool vec) {
+  const int bytes = w * (int)sizeof(E);
+  if (vec) {
+    const int lane = threadIdx.x & 31, id = (threadIdx.x >> 5) * 4 + lane;
+    if (threadIdx.x == 0) mbar_expect(bar, (unsigned)(n * bytes));
+    if (lane < 4)
+      for (int i = id; i < n; i += 32)
+        bulk_copy(dst + i * ld, src(i), (unsigned)bytes, bar);
+    return;
+  }
+  for (int e = threadIdx.x; e < n * (bytes / 4); e += WIDE_THREADS) {
+    const int i = e / (bytes / 4), b = 4 * (e - i * (bytes / 4));
+    async_copy4(reinterpret_cast<char*>(dst + i * ld) + b,
+                reinterpret_cast<const char*>(src(i)) + b);
+  }
+  cp_async_arrive(bar);
+}
+
+// ------------------------------------------ f32 wide pass (SIMT FFMA)
+
+constexpr int NEGW_SA = NEG_WHOLE + 4;  // staged row stride (floats)
+constexpr int NEGW_GS = NEG_KC + 4;     // g by slot:     [MS][KC + 4]
+constexpr int NEGW_GT = NEG_MS + 4;     // g by pool row: [KC][MS + 4]
+
+// Shared memory of the f32 wide pass at width d: tile, ring, g by slot, g
+// by pool row (NEG_PMAX chunks' past NEG_WHOLE), nt, 3 mbarriers.
+static inline size_t negative_f32_wide_smem_bytes(int d) {
+  const size_t gt = n_wide_slabs(d) > 1 ? NEG_PMAX : 1;
+  return sizeof(float) * ((size_t)(NEG_MS + 2 * NEG_KC) * NEGW_SA +
+                          NEG_MS * NEGW_GS + gt * NEG_KC * NEGW_GT + NEG_MS) +
+         3 * sizeof(unsigned long long);
+}
+
+// What negative_f32_kernel computes, for any d > MAX_DIM, in FFMA (its
+// checks allow no TF32).  grid (slots / 64, ny), block WIDE_THREADS,
+// clusters of C along y; CTA (x, y) takes tile x and pool chunks y, y + ny,
+// ....  Shared memory (152 KB at d <= NEG_WHOLE, 213 KB past it): the
+// tile's rows [64][NEG_WHOLE + 4], the ring [2][32][NEG_WHOLE + 4], g by
+// slot and by pool row.  A chunk: the scores (thread t: slots 2 (t / 8) + r,
+// pool rows t % 8 + 8 c, r < 2, c < 4; float4 reads, a quarter-warp's 8 pool
+// rows 4 banks apart), g and the loss from one exp, then dphi (thread t:
+// slots 16 (t / 64) + r, r < 16, at columns 4 (t % 64): 64 registers over
+// the CTA's chunks) and dneg (pool rows 8 (t / 64) + r, r < 8, the same
+// columns; one 16-byte atomic a row), each from float4 reads of 32 lanes'
+// neighbouring columns and broadcast reads of g.  The ring's next fill is
+// issued as soon as a chunk's reads of its stage are done.  The cluster's
+// dphi partials are summed on chip once a pass (once a slab past
+// NEG_WHOLE) as negative_f32_kernel sums them.  Rows past KP and columns
+// past d are never copied: the ring starts zeroed, a stale row's g is 0,
+// and the tile's pad columns are zeroed after each fill.  A tile whose
+// slots all have nt = 0 returns at once.  PDL as negative_f32_kernel: the
+// ids before the wait, every copy and read of nt after it, the trigger
+// right after it.
+static __global__ void __launch_bounds__(WIDE_THREADS, 1)
+negative_f32_wide_kernel(const float* table, const int* ids, const float* nt,
+                         const float* cneg, int d, int KP, int ny,
+                         float negw, float* __restrict__ dphi,
+                         float* __restrict__ dneg,
+                         double* __restrict__ stats) {
+  extern __shared__ float4 negw_smem[];
+  constexpr int sa = NEGW_SA;
+  const int ns = n_wide_slabs(d);
+  float* ph = reinterpret_cast<float*>(negw_smem);  // [MS][sa]
+  float* ring = ph + NEG_MS * sa;                   // [2][KC][sa]
+  float* gs = ring + 2 * NEG_KC * sa;               // [MS][GS]
+  float* gt = gs + NEG_MS * NEGW_GS;                // [1 or PMAX][KC][GT]
+  float* nts = gt + (ns > 1 ? NEG_PMAX : 1) * NEG_KC * NEGW_GT;  // [MS]
+  unsigned long long* bar =  // the tile's, the ring stages'
+      reinterpret_cast<unsigned long long*>(nts + NEG_MS);
   __shared__ int rows[NEG_MS];
   const int base = blockIdx.x * NEG_MS, t = threadIdx.x;
-  const int warp = t >> 5, lane = t & 31;
-  const int fr = lane >> 2, fc = 2 * (lane & 3);  // fragment row, column
-  const int nch = (KP + NEG_KC - 1) / NEG_KC;
-  const int py = blockIdx.y;  // this CTA's pool split: chunks py, py + ny..
-  const int m = py < nch ? (nch - 1 - py) / ny + 1 : 0;
+  const int nch = (KP + NEG_KC - 1) / NEG_KC, py = blockIdx.y;
+  const int m = py < nch ? (nch - 1 - py) / ny + 1 : 0;  // chunks py + k ny
+  auto first_row = [&](int k) { return (py + k * ny) * NEG_KC; };  // chunk k's
   const bool vec = d % 4 == 0;
+  if (t < NEG_MS) rows[t] = step_ld(ids + base + t);
+  pdl_wait();
+  pdl_trigger();
+  float own = 0.0f;
+  if (t < NEG_MS) {
+    own = step_ld(nt + base + t);
+    nts[t] = own;
+  }
+  if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
+  if (t == 0)
+    for (int b = 0; b < 3; ++b) mbar_init(&bar[b], vec ? 1 : WIDE_THREADS);
+  for (int i = t; i < (NEG_MS + 2 * NEG_KC) * sa / 4; i += WIDE_THREADS)
+    reinterpret_cast<float4*>(ph)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  fence_async_smem();
+  __syncthreads();
+
+  auto load_tile = [&](int s) {
+    const WideSlab sl(s, d);
+    copy_rows(ph, sa, NEG_MS, sl.w,
+              [&](int i) { return table + (size_t)rows[i] * d + sl.s0; },
+              &bar[0], vec);
+  };
+  // the ring's fills in order: (sweep, slab, chunk), sweep A past NEG_WHOLE
+  const int F = (ns > 1 ? 2 : 1) * ns * m;
+  auto fill = [&](int f) {
+    const WideSlab sl((f / m) % ns, d);
+    const int j0 = first_row(f % m);
+    copy_rows(ring + (f & 1) * NEG_KC * sa, sa, min(NEG_KC, KP - j0), sl.w,
+              [&](int j) { return cneg + (size_t)(j0 + j) * d + sl.s0; },
+              &bar[1 + (f & 1)], vec);
+  };
+  load_tile(0);
+  if (F > 0) fill(0);
+  if (F > 1) fill(1);
+  int f = 0, u = 0;  // fills and tile loads consumed
+  // waits for the tile's slab s, zeroes its pad columns
+  auto tile_ready = [&](const WideSlab& sl) {
+    mbar_wait(&bar[0], u++ & 1);
+    for (int e = t; e < NEG_MS * (sl.wp - sl.w); e += WIDE_THREADS)
+      ph[(e / (sl.wp - sl.w)) * sa + sl.w + e % (sl.wp - sl.w)] = 0.0f;
+    __syncthreads();
+  };
+  // the stage of fill f, once landed
+  auto stage = [&](int f) {
+    mbar_wait(&bar[1 + (f & 1)], (f >> 1) & 1);
+    return ring + (f & 1) * NEG_KC * sa;
+  };
+  // a chunk's stage read by every thread: refill it
+  auto done = [&](int f) {
+    __syncthreads();
+    if (f + 2 < F) fill(f + 2);
+  };
+
+  const int sr = t >> 3, sc = t & 7, q = t >> 6, cl = 4 * (t & 63);
+  // scores of slots 2 sr + r against pool rows sc + 8 c over columns < wp
+  auto scores = [&](float (&sv)[2][4], const float* cn, int wp) {
+#pragma unroll 4
+    for (int k = 0; k < wp; k += 4) {
+      float4 a[2], b[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        a[r] = *reinterpret_cast<const float4*>(ph + (2 * sr + r) * sa + k);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        b[c] = *reinterpret_cast<const float4*>(cn + (sc + 8 * c) * sa + k);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sv[r][c] = fmaf(a[r].x, b[c].x, sv[r][c]);
+          sv[r][c] = fmaf(a[r].y, b[c].y, sv[r][c]);
+          sv[r][c] = fmaf(a[r].z, b[c].z, sv[r][c]);
+          sv[r][c] = fmaf(a[r].w, b[c].w, sv[r][c]);
+        }
+    }
+  };
+  // g = sigmoid(s) * w and the loss -w * log(sigmoid(-s)) from one exp, of
+  // chunk k: by pool row into g (a [KC][GT] tile), and by slot into gsl
+  // (a [MS][GS] tile) unless it is null
+  float loss = 0.0f;
+  auto put_g = [&](const float (&sv)[2][4], float* g, float* gsl, int k) {
+    const int j0 = first_row(k);
+    float v[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float w = negw * nts[2 * sr + r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {  // no branch: the chains overlap
+        const float x = sv[r][c];
+        const float wj = j0 + sc + 8 * c < KP ? w : 0.0f;
+        const float ex = expf(-fabsf(x));
+        v[r][c] = (x >= 0.0f ? 1.0f : ex) / (1.0f + ex) * wj;
+        loss -= wj * (fminf(-x, 0.0f) - log1pf(ex));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      *reinterpret_cast<float2*>(g + (sc + 8 * c) * NEGW_GT + 2 * sr) =
+          make_float2(v[0][c], v[1][c]);
+      if (gsl != nullptr) {
+        gsl[(2 * sr) * NEGW_GS + sc + 8 * c] = v[0][c];
+        gsl[(2 * sr + 1) * NEGW_GS + sc + 8 * c] = v[1][c];
+      }
+    }
+  };
+
+  // sweep A (past NEG_WHOLE): each chunk's scores summed over the slabs
+  float s[NEG_PMAX][2][4];
+#pragma unroll
+  for (int k = 0; k < NEG_PMAX; ++k)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[k][r][c] = 0.0f;
+  if (ns > 1) {
+    for (int n = 0; n < ns; ++n) {
+      const WideSlab sl(n, d);
+      if (n > 0) {
+        __syncthreads();  // the last slab's reads of ph
+        load_tile(n);
+      }
+      tile_ready(sl);
+#pragma unroll
+      for (int k = 0; k < NEG_PMAX; ++k) {
+        if (k >= m) break;
+        scores(s[k], stage(f), sl.wp);
+        done(f++);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NEG_PMAX; ++k) {
+      if (k >= m) break;
+      put_g(s[k], gt + k * NEG_KC * NEGW_GT, nullptr, k);
+    }
+  }
+
+  // sweep B (the only one up to NEG_WHOLE): each slab's dphi and dneg
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int C = (int)cluster.num_blocks(), qr = (int)cluster.block_rank();
+  for (int n = 0; n < ns; ++n) {
+    const WideSlab sl(n, d);
+    if (ns > 1) {
+      __syncthreads();  // g written; the last slab's merge read ph
+      load_tile(n);
+    }
+    tile_ready(sl);
+    float4 acc[16];  // dphi of slots 16 q + r at columns cl
+#pragma unroll
+    for (int r = 0; r < 16; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < m; ++k) {
+      const int j0 = first_row(k);
+      const float* cn = stage(f);
+      const float* g = gt + (ns > 1 ? k : 0) * NEG_KC * NEGW_GT;
+      if (ns == 1) {  // the chunk's scores and g, by pool row and by slot
+        float sk[2][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sk[r][c] = 0.0f;
+        scores(sk, cn, sl.wp);
+        put_g(sk, gt, gs, k);
+      } else {  // chunk k's g (sweep A's) by slot
+        for (int e = t; e < NEG_MS * NEG_KC; e += WIDE_THREADS) {
+          const int j = e / NEG_MS, i = e % NEG_MS;
+          gs[i * NEGW_GS + j] = g[j * NEGW_GT + i];
+        }
+      }
+      __syncthreads();
+      if (cl < sl.wp) {
+        // dphi[16 q + r, cl..] += G[16 q + r, chunk] . C[chunk, cl..]
+#pragma unroll 2
+        for (int j = 0; j < NEG_KC; ++j) {
+          const float4* gr =
+              reinterpret_cast<const float4*>(g + j * NEGW_GT + 16 * q);
+          const float4 g0 = gr[0], g1 = gr[1], g2 = gr[2], g3 = gr[3];
+          const float gv[16] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y,
+                                g1.z, g1.w, g2.x, g2.y, g2.z, g2.w,
+                                g3.x, g3.y, g3.z, g3.w};
+          const float4 cv = *reinterpret_cast<const float4*>(cn + j * sa + cl);
+#pragma unroll
+          for (int r = 0; r < 16; ++r) fma4(gv[r], cv, acc[r]);
+        }
+        // dneg[j0 + 8 q + r, cl..] += G^T[., tile] . Phi[tile, cl..]
+        float4 qv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) qv[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+        for (int i = 0; i < NEG_MS; ++i) {
+          const float4* gr =
+              reinterpret_cast<const float4*>(gs + i * NEGW_GS + 8 * q);
+          const float4 g0 = gr[0], g1 = gr[1];
+          const float gv[8] = {g0.x, g0.y, g0.z, g0.w,
+                               g1.x, g1.y, g1.z, g1.w};
+          const float4 pv = *reinterpret_cast<const float4*>(ph + i * sa + cl);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) fma4(gv[r], pv, qv[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int j = j0 + 8 * q + r;
+          if (j < KP)
+            atomic_add4(dneg + (size_t)j * d + sl.s0, sl.w, cl, qv[r], vec);
+        }
+      }
+      done(f++);
+    }
+    // the cluster's partials of the slab's dphi, summed on chip
+    if (cl < sl.wp)
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        *reinterpret_cast<float4*>(ph + (16 * q + r) * sa + cl) = acc[r];
+    cluster.sync();
+    const int rows_q = NEG_MS / C, n4 = sl.wp / 4;
+    for (int idx = t; idx < rows_q * n4; idx += WIDE_THREADS) {
+      const int i = qr * rows_q + idx / n4, c = 4 * (idx % n4);
+      if (nts[i] == 0.0f) continue;  // no pairs: exactly zero update
+      float4 v[NEGF_CMAX];  // every rank's partial in flight at once
+#pragma unroll
+      for (int k = 0; k < NEGF_CMAX; ++k)
+        if (k < C)
+          v[k] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(ph, k) + i * sa + c);
+      double x = 0.0, y = 0.0, z = 0.0, w = 0.0;
+#pragma unroll
+      for (int k = 0; k < NEGF_CMAX; ++k)
+        if (k < C) {
+          x += v[k].x;
+          y += v[k].y;
+          z += v[k].z;
+          w += v[k].w;
+        }
+      atomic_add4(dphi + (size_t)(base + i) * d + sl.s0, sl.w, c,
+                  make_float4((float)x, (float)y, (float)z, (float)w), vec);
+    }
+    cluster.sync();  // no CTA reloads ph while another reads its partial
+  }
+  block_add<WIDE_THREADS>(loss, &stats[0]);
+}
+
+// ------------------------------------------ bf16 wide pass (wgmma)
+
+// A bf16 matrix of R rows (R % 8 == 0) in wgmma's core-matrix layout
+// without swizzle: 8 x 8 blocks of 128 contiguous bytes (8 rows of 16
+// bytes), the blocks of a column band of 8 one after another down the
+// rows, the bands one after another.  Element (r, c) of it:
+static __host__ __device__ __forceinline__ int core_off(int R, int r, int c) {
+  return ((c >> 3) * (R >> 3) + (r >> 3)) * 64 + (r & 7) * 8 + (c & 7);
+}
+
+// A shared-memory matrix descriptor of wgmma, no swizzle: start address,
+// `lbo` the bytes between core matrices along the depth (K), `sbo` along
+// the rows or columns (M or N).  A core-matrix layout of R rows read K-major
+// (rows are M or N, columns the depth) has lbo = 16 R and sbo = 128; read
+// MN-major (rows the depth, columns N: a B of 16-bit type), lbo = 128 and
+// sbo = 16 R.
+static __device__ __forceinline__ unsigned long long wg_desc(const void* p,
+                                                             unsigned lbo,
+                                                             unsigned sbo) {
+  return (unsigned long long)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((unsigned long long)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((unsigned long long)((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+static __device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+static __device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+static __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Pins accumulator registers across the asynchronous wgmma (the compiler
+// must not move their reads and writes past the fence or the wait).
+template <int N>
+static __device__ __forceinline__ void wg_pin(float (&c)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(c[i])::"memory");
+}
+
+#define COME_WG_C4(i) "+f"(c[i]), "+f"(c[i + 1]), "+f"(c[i + 2]), "+f"(c[i + 3])
+#define COME_WG_C16(i) \
+  COME_WG_C4(i), COME_WG_C4(i + 4), COME_WG_C4(i + 8), COME_WG_C4(i + 12)
+
+// c (m64n16, f32) += A . B, both K-major bf16 (warpgroup-wide, async).
+static __device__ __forceinline__ void wgmma_n16(float (&c)[8],
+                                                 unsigned long long da,
+                                                 unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : COME_WG_C4(0), COME_WG_C4(4)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// c (m64n128, f32) += A . B, A K-major, B MN-major (transposed).
+static __device__ __forceinline__ void wgmma_n128t(float (&c)[64],
+                                                   unsigned long long da,
+                                                   unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : COME_WG_C16(0), COME_WG_C16(16), COME_WG_C16(32), COME_WG_C16(48)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef COME_WG_C16
+#undef COME_WG_C4
+
+// The A fragment (rows m0.., depth k0..) of M^T and the B fragment (depth
+// k0.., columns n0..) of M, for an R-row core-layout matrix M whose rows are
+// the depth (mma.sync m16n8k16; ldmatrix .trans, as frag_a<true> and
+// frag_b<true> read a row-major matrix).
+static __device__ __forceinline__ void frag_a_core_t(unsigned a[4],
+                                                     const __nv_bfloat16* m,
+                                                     int R, int m0, int k0) {
+  const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* p =
+      m + core_off(R, k0 + 8 * (q >> 1) + r, m0 + 8 * (q & 1));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p)));
+}
+
+static __device__ __forceinline__ void frag_b_core_t(unsigned b[2],
+                                                     const __nv_bfloat16* m,
+                                                     int R, int n0, int k0) {
+  const int lane = threadIdx.x & 15, q = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* p = m + core_off(R, k0 + 8 * q + r, n0);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(smem_addr(p)));
+}
+
+constexpr int NEGB_SF = NEG_WHOLE + 8;  // tile staging row stride (elements)
+
+// The tile's staged rows (f32 or bf16, stride NEGB_SF elements) into core
+// layout (NEG_MS rows, NEG_WHOLE wide), rounded to nearest even (bf16 rows
+// as they are): elements of columns >= w are written as zeros.  A thread's
+// 4 elements are half a core row; 16 lanes write one 128-byte core matrix,
+// the lanes reading a staged row each lie 4 or 8 banks from the next.
+template <typename T>
+static __device__ __forceinline__ void to_core(__nv_bfloat16* dst,
+                                               const T* src, int w) {
+  constexpr int RB = NEG_MS / 8;  // row blocks
+  for (int e = threadIdx.x; e < NEG_MS * NEG_WHOLE / 4; e += WIDE_THREADS) {
+    const int h = e & 1, r8 = (e >> 1) & 7, cm = e >> 4;
+    const int i = cm % RB * 8 + r8, c = cm / RB * 8 + 4 * h;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < w) {
+      v = load4(src + i * NEGB_SF + c);
+      if (c + 1 >= w) v.y = 0.0f;
+      if (c + 2 >= w) v.z = 0.0f;
+      if (c + 3 >= w) v.w = 0.0f;
+    }
+    put_bf16(dst + cm * 64 + r8 * 8 + 4 * h, v);
+  }
+}
+
+// The width of a pool row as the bf16 wide pass reads it: whole slabs.
+static __host__ __device__ inline int wide_row(int d) {
+  return n_wide_slabs(d) * NEG_WHOLE;
+}
+
+// The pool of a bf16 pass past MAX_DIM, staged once per R-block in cneg's
+// memory as the pass's ring stages hold it: row k = table[pool[k]] rounded
+// to bf16 (nearest even; bf16 tables as they are), zeros past d; each whole
+// chunk of NEG_KC rows as one block a slab of NEG_KC x NEG_WHOLE in core
+// layout, the blocks one after another, and the rows of a last, partial
+// chunk after them, wide_row(d) elements each.  KP x wide_row(d) bf16 in
+// all: at most the f32 rows' KP x d x 4 bytes for d > MAX_DIM, so it fits
+// in cneg.  dneg[k] = 0.  A CTA of the pass then takes a whole chunk's
+// slab by one bulk copy, already rounded and in place.  grid KP, block 128.
+// PDL as stage_pool_kernel.
+template <typename T>
+static __global__ void stage_pool_bf16_kernel(const T* table, const int* pool,
+                                              __nv_bfloat16* __restrict__ cnegb,
+                                              float* __restrict__ dneg,
+                                              int d, int KP) {
+  const int k = blockIdx.x, ns = n_wide_slabs(d), wd = ns * NEG_WHOLE;
+  const int whole = KP / NEG_KC * NEG_KC;  // rows in whole chunks
+  const size_t src = (size_t)step_ld(pool + k) * d;
+  pdl_wait();
+  for (int c = threadIdx.x; c < wd; c += blockDim.x) {
+    const float x = c < d ? to_f32(step_ld(table + src + c)) : 0.0f;
+    const size_t at =
+        k < whole ? ((size_t)(k / NEG_KC) * ns + c / NEG_WHOLE) * NEG_KC *
+                            NEG_WHOLE +
+                        core_off(NEG_KC, k % NEG_KC, c % NEG_WHOLE)
+                  : (size_t)k * wd + c;
+    cnegb[at] = __float2bfloat16_rn(x);
+    if (c < d) dneg[(size_t)k * d + c] = 0.0f;
+  }
+  pdl_trigger();
+}
+
+// Shared memory of the bf16 wide pass: the tile's slab, a 2-stage ring of
+// chunks and g (NEG_PMAX chunks' past NEG_WHOLE) in core layout, the
+// tile's staged rows (T), nt, 3 mbarriers.
+template <typename T>
+static inline size_t negative_bf16_wide_smem_bytes(int d) {
+  const size_t g = n_wide_slabs(d) > 1 ? NEG_PMAX : 1;
+  return 2 * ((size_t)(NEG_MS + 2 * NEG_KC) * NEG_WHOLE +
+              g * NEG_MS * NEG_KC) +
+         sizeof(T) * NEG_MS * NEGB_SF + sizeof(float) * NEG_MS +
+         3 * sizeof(unsigned long long);
+}
+
+// What negative_bf16_kernel computes, for any d > MAX_DIM: product operands
+// in bf16 (phi, cneg and g rounded to nearest even, as the TPU rounds phi_m,
+// cneg_m and gneg_m), every sum in f32.  grid (slots / 64, ny), block
+// WIDE_THREADS (two warpgroups); CTA (x, y) takes tile x and pool chunks y,
+// y + ny, ....  The tile's rows are held in core layout: bulk copies of
+// the table's rows (f32, or bf16 for K3) into a staging, rounded from it;
+// past NEG_WHOLE the next slab's rows arrive while the current one is
+// read.  The pool is staged as bf16
+// once per R-block, a whole chunk's slab as one block in core layout
+// (stage_pool_bf16_kernel), so a chunk lands in its ring stage by one bulk
+// copy onto the stage's mbarrier (the last, partial chunk by 16-byte
+// cp.async): no rounding a CTA, half the bytes of f32 rows.  Measured on
+// the H100 (PERF.md §6): a bulk copy holds its issuing warp ≈ 70
+// cycles, 16-byte cp.async of a chunk from every thread ≈ 1.2 k cycles, its
+// rounding from an f32 staging ≈ 1.5 k.  A chunk on the tensor cores: the scores S = Phi . C^T by 16
+// wgmma m64n16k16 in one group (warpgroup h: pool rows 16 h.., both
+// operands K-major), g and the loss from S in f32 (g rounded to bf16 into
+// shared memory), dphi += G . C by wgmma m64n128k16 (warpgroup h: columns
+// 128 h.., A = G K-major, B = the chunk read MN-major; 64 accumulators a
+// thread over the CTA's chunks, added once a pass), while dneg = G^T . Phi
+// runs on mma.sync m16n8k16 (warp w: pool rows 16 (w & 1).., columns
+// 64 (w >> 1)..; ldmatrix .trans from the core layouts), whose M of 16 fits
+// the 32-row chunk: wgmma's M is 64.  No divergent code runs while a wgmma
+// is in flight: the compiler would fence and serialize every wgmma.  Past
+// NEG_WHOLE, sweep A's scores of up to NEG_PMAX chunks stay in registers
+// across the slabs, their g in shared memory.  A tile whose slots all have
+// nt = 0 returns at once.  PDL as negative_bf16_kernel: ids before the
+// wait, every copy and read of nt after it, the trigger once dphi is added.
+template <typename T>
+static __global__ void __launch_bounds__(WIDE_THREADS, 1)
+negative_bf16_wide_kernel(const T* table, const int* ids, const float* nt,
+                          const float* cneg, int d, int KP, int ny,
+                          float negw, float* __restrict__ dphi,
+                          float* __restrict__ dneg,
+                          double* __restrict__ stats) {
+  extern __shared__ float4 negbw_smem[];
+  const int ns = n_wide_slabs(d), wd = wide_row(d);
+  const __nv_bfloat16* pool_b = reinterpret_cast<const __nv_bfloat16*>(cneg);
+  __nv_bfloat16* ph = reinterpret_cast<__nv_bfloat16*>(negbw_smem);
+  __nv_bfloat16* ring = ph + NEG_MS * NEG_WHOLE;  // [2][KC rows] core
+  __nv_bfloat16* gb = ring + 2 * NEG_KC * NEG_WHOLE;  // [1 or PMAX][MS rows]
+  T* pt = reinterpret_cast<T*>(  // [MS][SF]: the tile's staged rows
+      gb + (ns > 1 ? NEG_PMAX : 1) * NEG_MS * NEG_KC);
+  float* nts = reinterpret_cast<float*>(pt + NEG_MS * NEGB_SF);  // [MS]
+  unsigned long long* bar =  // the tile's, the ring stages'
+      reinterpret_cast<unsigned long long*>(nts + NEG_MS);
+  __shared__ int rows[NEG_MS];
+  const int base = blockIdx.x * NEG_MS, t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31, wg = t >> 7, w4 = warp & 3;
+  const int fr = lane >> 2, fc = 2 * (lane & 3);  // fragment row, column
+  const int nch = (KP + NEG_KC - 1) / NEG_KC, py = blockIdx.y;
+  const int m = py < nch ? (nch - 1 - py) / ny + 1 : 0;  // chunks py + k ny
+  auto first_row = [&](int k) { return (py + k * ny) * NEG_KC; };  // chunk k's
+  const bool vec = d % 4 == 0;  // dphi's and dneg's 16-byte atomics
+  const bool vt = d * sizeof(T) % 16 == 0;  // the tile's bulk copies
   if (t < NEG_MS) rows[t] = step_ld(ids + base + t);
   pdl_wait();
   float own = 0.0f;
@@ -1341,155 +1712,207 @@ negative_bf16_slab_kernel(const T* table,
     nts[t] = own;
   }
   if (!__syncthreads_or(own != 0.0f)) return;  // no slot of the tile scores
-  // a slab's columns, zero-padded to the mma depth
-  auto depth = [](const Slab& sl) { return (sl.w + 15) & ~15; };
-  auto stage_ph = [&](const Slab& sl) {
-    stage_rows<NEG_THREADS, 8, T>(
-        NEG_MS, sl.w, depth(sl),
-        [&](int i) { return table + (size_t)rows[i] * d + sl.s0; },
-        [&](int i, int c, float4 v) { put_bf16(ph + i * sa + c, v); }, vec);
-  };
-  auto stage_cn = [&](int ch, const Slab& sl) {
-    stage_rows<NEG_THREADS, 4, float>(
-        NEG_KC, sl.w, depth(sl),
-        [&](int j) {
-          const int k = ch * NEG_KC + j;
-          return k < KP ? cneg + (size_t)k * d + sl.s0 : nullptr;
-        },
-        [&](int j, int c, float4 v) { put_bf16(cn + j * sa + c, v); }, vec);
-  };
-  const int ns = n_slabs(d), r0 = 16 * warp;
-
-  // sweep A: scores of the warp's 16 slots against each chunk's 32 rows,
-  // summed over the slabs
-  float s[NEGS_PMAX][NEG_KC / 8][4];
-#pragma unroll
-  for (int k = 0; k < NEGS_PMAX; ++k)
-#pragma unroll
-    for (int n = 0; n < NEG_KC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[k][n][e] = 0.0f;
-  for (int n = 0; n < ns; ++n) {
-    const Slab sl(n, d);
-    const int dk = depth(sl);
-    __syncthreads();  // the last slab's reads of ph
-    stage_ph(sl);
-#pragma unroll
-    for (int k = 0; k < NEGS_PMAX; ++k) {
-      if (k >= m) break;
-      __syncthreads();  // ph staged; the last chunk's reads of cn
-      stage_cn(py + k * ny, sl);
-      __syncthreads();
-#pragma unroll
-      for (int k0 = 0; k0 < SLAB; k0 += 16) {
-        if (k0 >= dk) break;
-        unsigned a[4];
-        frag_a<false>(a, ph, sa, r0, k0);
-#pragma unroll
-        for (int c = 0; c < NEG_KC / 8; ++c) {
-          unsigned b[2];
-          frag_b<false>(b, cn, sa, 8 * c, k0);
-          mma_bf16(s[k][c], a, b);
-        }
-      }
-    }
+  if (t == 0) {
+    mbar_init(&bar[0], vt ? 1 : WIDE_THREADS);
+    mbar_init(&bar[1], 1);
+    mbar_init(&bar[2], 1);
   }
-  // g = sigmoid(s) * w and the loss -w * log(sigmoid(-s)), by slot
+  fence_async_smem();
+  __syncthreads();
+
+  // the tile's loads in order: its slabs, twice past NEG_WHOLE (sweeps A, B)
+  const int U = ns > 1 ? 2 * ns : 1;
+  auto load_tile = [&](int u) {  // into the staging, as T
+    const WideSlab sl(u % ns, d);
+    copy_rows(pt, NEGB_SF, NEG_MS, sl.w,
+              [&](int i) { return table + (size_t)rows[i] * d + sl.s0; },
+              &bar[0], vt);
+  };
+  // the ring's fills in order: (sweep, slab, chunk), sweep A past NEG_WHOLE
+  const int F = (ns > 1 ? 2 : 1) * ns * m;
+  auto fill = [&](int f) {
+    const int s = (f / m) % ns, j0 = first_row(f % m);
+    const int n = min(NEG_KC, KP - j0);
+    __nv_bfloat16* st = ring + (f & 1) * NEG_KC * NEG_WHOLE;
+    constexpr unsigned bytes = 2 * NEG_KC * NEG_WHOLE;
+    if (n == NEG_KC) {  // a whole chunk: its slab's block, one bulk copy
+      if (t == 0) {
+        mbar_expect(&bar[1 + (f & 1)], bytes);
+        bulk_copy(st, pool_b + ((size_t)(j0 / NEG_KC) * ns + s) * (bytes / 2),
+                  bytes, &bar[1 + (f & 1)]);
+      }
+      return;
+    }
+    // the last, partial chunk: 16-byte pieces into place, zeros past KP
+    for (int e = t; e < NEG_KC * NEG_WHOLE / 8; e += WIDE_THREADS) {
+      const int j = e / (NEG_WHOLE / 8), c = 8 * (e % (NEG_WHOLE / 8));
+      if (j < n)
+        async_copy16(st + core_off(NEG_KC, j, c),
+                     pool_b + (size_t)(j0 + j) * wd + s * NEG_WHOLE + c);
+      else
+        *reinterpret_cast<float4*>(st + core_off(NEG_KC, j, c)) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    async_copies_wait();
+    __syncthreads();
+    if (t == 0) mbar_arrive(&bar[1 + (f & 1)]);
+  };
+  load_tile(0);
+  if (F > 0) fill(0);
+  if (F > 1) fill(1);
+  int f = 0, u = 0;  // fills and tile loads consumed
+  // load u of the tile, once landed, into ph; the next load issued into the
+  // staging, free again
+  auto tile_ready = [&](const WideSlab& sl) {
+    mbar_wait(&bar[0], u & 1);
+    to_core(ph, pt, sl.w);
+    fence_async_smem();
+    __syncthreads();
+    if (++u < U) load_tile(u);
+  };
+  // fill f's stage, once landed (its rows past KP zeroed by every thread)
+  const __nv_bfloat16* cb = ring;
+  auto chunk_ready = [&](int f) {
+    mbar_wait(&bar[1 + (f & 1)], (f >> 1) & 1);
+    fence_async_smem();
+    __syncthreads();
+    cb = ring + (f & 1) * NEG_KC * NEG_WHOLE;
+  };
+  // every read of fill f's stage done: refill it
+  auto chunk_done = [&](int f) {
+    __syncthreads();
+    if (f + 2 < F) fill(f + 2);
+  };
+  // S[:, 16 wg..] += Phi . C^T over NEG_WHOLE columns (the chunk's past
+  // the slab's width are zeros); a fixed count of wgmma with nothing
+  // between them, which the compiler keeps in flight together
+  auto scores = [&](float (&sv)[8]) {
+    wg_pin(sv);
+    wg_fence();
+#pragma unroll
+    for (int k0 = 0; k0 < NEG_WHOLE; k0 += 16)
+      wgmma_n16(sv, wg_desc(ph + core_off(NEG_MS, 0, k0), 16 * NEG_MS, 128),
+                wg_desc(cb + core_off(NEG_KC, 16 * wg, k0), 16 * NEG_KC, 128));
+    wg_commit();
+    wg_wait();
+    wg_pin(sv);
+  };
+  // g = sigmoid(s) * w (rounded to bf16 into g) and the loss, of chunk k
   float loss = 0.0f;
+  auto put_g = [&](const float (&sv)[8], __nv_bfloat16* g, int k) {
+    const int j0 = first_row(k);
 #pragma unroll
-  for (int k = 0; k < NEGS_PMAX; ++k) {
-    if (k >= m) break;
-    const int j0 = (py + k * ny) * NEG_KC;
-    __nv_bfloat16* g = gs + k * NEG_MS * sk;
-#pragma unroll
-    for (int c = 0; c < NEG_KC / 8; ++c)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // fragment rows fr and fr + 8
-        const int i = r0 + fr + 8 * h, j = 8 * c + fc;
+        const int i = 16 * w4 + fr + 8 * h, j = 16 * wg + 8 * n + fc;
         const float w = negw * nts[i];
         float gv[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float x = s[k][c][2 * h + e];
+        for (int e = 0; e < 2; ++e) {  // no branch: the chains overlap
+          const float x = sv[4 * n + 2 * h + e];
           const float wj = j0 + j + e < KP ? w : 0.0f;
           const float ex = expf(-fabsf(x));
           gv[e] = (x >= 0.0f ? 1.0f : ex) / (1.0f + ex) * wj;
           loss -= wj * (fminf(-x, 0.0f) - log1pf(ex));
         }
-        *reinterpret_cast<__nv_bfloat162*>(g + i * sk + j) =
+        *reinterpret_cast<__nv_bfloat162*>(g + core_off(NEG_MS, i, j)) =
             __floats2bfloat162_rn(gv[0], gv[1]);
       }
+  };
+
+  // sweep A (past NEG_WHOLE): each chunk's scores summed over the slabs
+  float s[NEG_PMAX][8];
+#pragma unroll
+  for (int k = 0; k < NEG_PMAX; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[k][e] = 0.0f;
+  if (ns > 1) {
+    for (int n = 0; n < ns; ++n) {
+      const WideSlab sl(n, d);
+      tile_ready(sl);
+#pragma unroll
+      for (int k = 0; k < NEG_PMAX; ++k) {
+        if (k >= m) break;
+        chunk_ready(f);
+        scores(s[k]);
+        chunk_done(f++);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NEG_PMAX; ++k) {
+      if (k >= m) break;
+      put_g(s[k], gb + k * NEG_MS * NEG_KC, k);
+    }
+    fence_async_smem();
   }
 
-  // sweep B: each slab's columns of dphi and dneg
-  const int ir = r0 + fr;
+  // sweep B (the only one up to NEG_WHOLE): each slab's dphi and dneg
+  const int ir = 16 * w4 + fr;
   const bool ok = nts[ir] != 0.0f, ok8 = nts[ir + 8] != 0.0f;
-  const int mr = 16 * (warp & 1);  // dneg: the chunk rows of this warp
+  const int mr = 16 * (warp & 1), n0 = 64 * (warp >> 1);  // dneg's part
   for (int n = 0; n < ns; ++n) {
-    const Slab sl(n, d);
-    const int ntiles = depth(sl) / 8, half = ntiles / 2;
-    const int n0 = (warp >> 1) * half;  // dneg: this warp's column tiles
-    __syncthreads();  // g written; the last slab's reads of ph
-    stage_ph(sl);
-    float acc[SLAB / 8][4];  // the slab's dphi of the warp's 16 rows
+    const WideSlab sl(n, d);
+    tile_ready(sl);  // after the last slab's reads of ph (its last sync)
+    float acc[64];  // dphi of rows 16 w4 + fr (+8), columns 128 wg + 8 c + fc
 #pragma unroll
-    for (int c = 0; c < SLAB / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
     for (int k = 0; k < m; ++k) {
-      const int j0 = (py + k * ny) * NEG_KC;
-      const __nv_bfloat16* g = gs + k * NEG_MS * sk;
-      __syncthreads();  // ph staged; the last chunk's reads of cn
-      stage_cn(py + k * ny, sl);
-      __syncthreads();
-      // dphi[r0.., slab] += G[r0.., chunk] . C[chunk, slab]
+      const int j0 = first_row(k);
+      __nv_bfloat16* g = gb + (ns > 1 ? k : 0) * NEG_MS * NEG_KC;
+      chunk_ready(f);
+      if (ns == 1) {  // the chunk's scores and g
+        float sk[8];
 #pragma unroll
-      for (int k0 = 0; k0 < NEG_KC; k0 += 16) {
-        unsigned a[4];
-        frag_a<false>(a, g, sk, r0, k0);
-#pragma unroll
-        for (int c = 0; c < SLAB / 8; ++c) {
-          if (c >= ntiles) break;
-          unsigned b[2];
-          frag_b<true>(b, cn, sa, 8 * c, k0);
-          mma_bf16(acc[c], a, b);
-        }
+        for (int e = 0; e < 8; ++e) sk[e] = 0.0f;
+        scores(sk);
+        put_g(sk, g, k);
+        fence_async_smem();
+        __syncthreads();  // g complete
       }
-      // dneg[chunk rows mr.., this warp's slab columns] += G^T . Phi
-      float q[SLAB / 16][4];
+      // dphi[:, 128 wg..] += G . C[:, 128 wg..], on the tensor cores
+      wg_pin(acc);
+      wg_fence();
 #pragma unroll
-      for (int c = 0; c < SLAB / 16; ++c)
+      for (int k0 = 0; k0 < NEG_KC; k0 += 16)
+        wgmma_n128t(acc,
+                    wg_desc(g + core_off(NEG_MS, 0, k0), 16 * NEG_MS, 128),
+                    wg_desc(cb + core_off(NEG_KC, k0, 128 * wg), 128,
+                            16 * NEG_KC));
+      wg_commit();
+      // dneg[j0 + mr.., n0..] += G^T . Phi meanwhile, on mma.sync
+      float qd[8][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) q[c][e] = 0.0f;
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qd[c][e] = 0.0f;
 #pragma unroll
       for (int k0 = 0; k0 < NEG_MS; k0 += 16) {
         unsigned a[4];
-        frag_a<true>(a, g, sk, mr, k0);
+        frag_a_core_t(a, g, NEG_MS, mr, k0);
 #pragma unroll
-        for (int c = 0; c < SLAB / 16; ++c) {
-          if (c >= half) break;
+        for (int c = 0; c < 8; ++c) {
           unsigned b[2];
-          frag_b<true>(b, ph, sa, 8 * (n0 + c), k0);
-          mma_bf16(q[c], a, b);
+          frag_b_core_t(b, ph, NEG_MS, n0 + 8 * c, k0);
+          mma_bf16(qd[c], a, b);
         }
       }
+      wg_wait();  // before the atomics' divergent code: the compiler
+      wg_pin(acc);  // would otherwise serialize every wgmma
       const int jr = j0 + mr + fr;
 #pragma unroll
-      for (int c = 0; c < SLAB / 16; ++c) {
-        if (c >= half) break;
+      for (int c = 0; c < 8; ++c)
         red_tile(dneg + (size_t)j0 * d + sl.s0, d, sl.w, vec, mr + fr,
-                 jr < KP, jr + 8 < KP, 8 * (n0 + c) + fc, q[c]);
-      }
+                 jr < KP, jr + 8 < KP, n0 + 8 * c + fc, qd[c]);
+      chunk_done(f++);  // and every read of g
     }
 #pragma unroll
-    for (int c = 0; c < SLAB / 8; ++c) {
-      if (c >= ntiles) break;
+    for (int c = 0; c < 16; ++c)
       red_tile(dphi + (size_t)base * d + sl.s0, d, sl.w, vec, ir, ok, ok8,
-               8 * c + fc, acc[c]);
-    }
+               128 * wg + 8 * c + fc, acc + 4 * c);
   }
   pdl_trigger();
-  block_add<NEG_THREADS>(loss, &stats[0]);
+  block_add<WIDE_THREADS>(loss, &stats[0]);
 }
 
 // PDL edges need CUDA 12.3 or later where the step is recorded as a graph;
@@ -1533,14 +1956,15 @@ static cudaError_t launch_kernel(void (*kernel)(P...), dim3 grid, dim3 block,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// What sizing a negative pass finds: its grid, shared memory and pool
-// splits, and (f32) its cluster size.  A recorded step keeps one
+// What sizing a negative pass finds: its grid, block, shared memory and
+// pool splits, and (f32) its cluster size.  A recorded step keeps one
 // (step_graph.cuh), so the sizing runs once per plan, not per step.
 struct NegSetup {
   dim3 grid;
   size_t smem = 0;
   int ny = 1;
   int cluster = 1;  // CTAs along y that merge dphi on chip (f32)
+  int threads = NEG_THREADS;  // WIDE_THREADS past MAX_DIM
 };
 
 // Internal linkage for the pass structs (here and in star_pos.cuh): the
@@ -1561,21 +1985,26 @@ struct NegativePass : NegSetup {
 
   cudaError_t init(int d, int KP, int nslots) {
     if (d < 1 || KP < 1 || nslots % NEG_MS) return cudaErrorInvalidValue;
-    if (d > MAX_DIM) {  // column slabs, at most NEGS_PMAX chunks a CTA
-      // the slab kernels' shared memory is the same at every d, so the cap
-      // a plan of one width sets serves every other
+    if (d > MAX_DIM) {  // the wide kernels
+      threads = WIDE_THREADS;
+      // the cap is the kernel's largest shared memory (past NEG_WHOLE), so
+      // a plan of one width never lowers it below what another launches
       cudaError_t e;
       if constexpr (BF16) {
-        smem = negative_bf16_slab_smem_bytes();
-        e = size(negative_bf16_slab_kernel<T>, smem, KP, nslots);
+        smem = negative_bf16_wide_smem_bytes<T>(d);
+        e = size(negative_bf16_wide_kernel<T>,
+                 negative_bf16_wide_smem_bytes<T>(NEG_WHOLE + 1), KP, nslots);
       } else {
-        smem = negative_slab_smem_bytes();
-        e = size(negative_f32_slab_kernel, smem, KP, nslots);
+        smem = negative_f32_wide_smem_bytes(d);
+        e = size(negative_f32_wide_kernel,
+                 negative_f32_wide_smem_bytes(NEG_WHOLE + 1), KP, nslots);
       }
-      const int nch = (KP + NEG_KC - 1) / NEG_KC;
-      const int need = (nch + NEGS_PMAX - 1) / NEGS_PMAX;
-      if (ny < need) ny = (need + cluster - 1) / cluster * cluster;
-      grid.y = ny;
+      if (n_wide_slabs(d) > 1) {  // at most NEG_PMAX chunks a CTA
+        const int nch = (KP + NEG_KC - 1) / NEG_KC;
+        const int need = (nch + NEG_PMAX - 1) / NEG_PMAX;
+        if (ny < need) ny = (need + cluster - 1) / cluster * cluster;
+        grid.y = ny;
+      }
       return e;
     }
     smem = BF16 ? negative_bf16_smem_bytes(d) : negative_f32_smem_bytes(d);
@@ -1606,11 +2035,12 @@ struct NegativePass : NegSetup {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        NEG_THREADS, smem);
+                                                        threads, smem);
     if (e != cudaSuccess) return e;
     const int tiles = nslots / NEG_MS, nch = (KP + NEG_KC - 1) / NEG_KC;
     ny = neg_pool_splits(tiles, nch, (per_sm > 0 ? per_sm : 1) * sms);
     if constexpr (!BF16) {
+      if (threads == WIDE_THREADS) return wide_clusters(kernel, tiles);
       cluster = negf_cluster(ny);
       ny = (ny + cluster - 1) / cluster * cluster;
       int fit = 0;  // clusters of this size that fit on the card at once
@@ -1628,12 +2058,38 @@ struct NegativePass : NegSetup {
     return cudaSuccess;
   }
 
+  // The wide f32 pass's clusters (one CTA an SM): the largest of 8, 4, 2
+  // CTAs whose clusters all fit on the card at once (a cluster's CTAs share
+  // one GPC, whose SMs need not be a multiple of 8), else 1; ny rounded up
+  // to a multiple of it.
+  template <typename K>
+  cudaError_t wide_clusters(K kernel, int tiles) {
+    for (int c = NEGF_CMAX; c > 1; c /= 2) {
+      if (c > ny) continue;
+      const int y = (ny + c - 1) / c * c;
+      int fit = 0;
+      cluster = c;
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = config(dim3(1, c), 0, attr);
+      const cudaError_t e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+      if (e != cudaSuccess) return e;
+      if (tiles * (y / c) <= fit) {
+        ny = y;
+        grid = dim3(tiles, ny);
+        return cudaSuccess;
+      }
+    }
+    cluster = 1;
+    grid = dim3(tiles, ny);
+    return cudaSuccess;
+  }
+
   // The f32 pass's launch: `g` in clusters of `cluster` CTAs along y.
   cudaLaunchConfig_t config(dim3 g, cudaStream_t stream,
                             cudaLaunchAttribute& attr) const {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = g;
-    cfg.blockDim = dim3(NEG_THREADS);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     attr.id = cudaLaunchAttributeClusterDimension;
@@ -1645,16 +2101,31 @@ struct NegativePass : NegSetup {
     return cfg;
   }
 
+  // Stages the pool `pool` (KP rows of `table`) for the pass into cneg and
+  // zeroes dneg on `stream` (with PDL when `pdl`): f32 rows
+  // (stage_pool_kernel), or bf16 rows for the bf16 pass past MAX_DIM
+  // (stage_pool_bf16_kernel).  Returns the launch's error.
+  cudaError_t stage(const T* table, const int* pool, float* cneg, float* dneg,
+                    int d, int KP, cudaStream_t stream, bool pdl) const {
+    if (BF16 && d > MAX_DIM)
+      return launch_kernel(stage_pool_bf16_kernel<T>, dim3(KP), dim3(128), 0,
+                           stream, pdl, 0, table, pool,
+                           reinterpret_cast<__nv_bfloat16*>(cneg), dneg, d,
+                           KP);
+    return launch_kernel(stage_pool_kernel<T>, dim3(KP), dim3(128), 0, stream,
+                         pdl, 0, table, pool, cneg, dneg, d);
+  }
+
   // Launches the pass on `stream` (with PDL when `pdl`); returns the
   // launch's error.
   cudaError_t launch(const T* table, const int* ids, const float* nt,
                      const float* cneg, int d, int KP, float negw, float* dphi,
                      float* dneg, double* stats, cudaStream_t stream,
                      bool pdl = false) const {
-    const dim3 b(NEG_THREADS);
+    const dim3 b(threads);
     if constexpr (BF16)
       return d > MAX_DIM
-                 ? launch_kernel(negative_bf16_slab_kernel<T>, grid, b, smem,
+                 ? launch_kernel(negative_bf16_wide_kernel<T>, grid, b, smem,
                                  stream, pdl, 0, table, ids, nt, cneg, d, KP,
                                  ny, negw, dphi, dneg, stats)
              : d <= 128
@@ -1665,7 +2136,7 @@ struct NegativePass : NegSetup {
                                  stream, pdl, 0, table, ids, nt, cneg, d, KP,
                                  ny, negw, dphi, dneg, stats);
     else if (d > MAX_DIM)
-      return launch_kernel(negative_f32_slab_kernel, grid, b, smem, stream,
+      return launch_kernel(negative_f32_wide_kernel, grid, b, smem, stream,
                            pdl, cluster, table, ids, nt, cneg, d, KP, ny,
                            negw, dphi, dneg, stats);
     else

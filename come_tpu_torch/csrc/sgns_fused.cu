@@ -51,10 +51,9 @@
 //     a tile's critical path is its negative pass and its scatter;
 //   * the positive pass is one warp per pair with lanes across d, the
 //     scatter one warp per pair with 16-byte loads and atomics;
-//   * any d: past 192 the negative pass takes its column-slab form
-//     (sgns_common.cuh: SLAB; the plan's sizing keeps at most NEGS_PMAX
-//     pool chunks a CTA), and past 256 the positive pass loops over a
-//     lane's columns instead of holding them in registers.
+//   * any d: past 192 the negative pass is its wide kernel (sgns_common.cuh:
+//     NEG_WHOLE), and past 256 the positive pass loops over a lane's
+//     columns instead of holding them in registers.
 // The table pointers are not __restrict__: K7 passes one table as both.
 
 #include "sgns_common.cuh"

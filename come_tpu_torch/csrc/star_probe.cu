@@ -58,8 +58,8 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* sg = slots + (size_t)g * GROUP;
     if (pool_on && g % R == 0) {
-      stage_pool_kernel<<<KP, 128, 0, stream>>>(emb, pool, cneg, dneg, d);
-      COME_CHECK_LAUNCH();
+      e = neg.stage(emb, pool, cneg, dneg, d, KP, stream, false);
+      if (e != cudaSuccess) return (int)e;
     }
     if (sections & GATHER) {
       e = launch_rows<U>(false, emb, sg, phi, GROUP, d, 0.0f, stream);

@@ -27,8 +27,9 @@
 // block.  The negative pass is the walk kernel's (sgns_common.cuh: FFMA
 // for K2, the tensor cores for K2b).  K2b's star pass rounds the staged
 // rows and each pair's g as they are made, a few conversions per element.
-// Past d 192 K2 and K2b stage their rows one column slab of 128 at a
-// time (star_pos_slab_kernel and the negative passes' slab forms).
+// Past d 192 K2 and K2b stage their star rows one column slab of 128 at a
+// time (star_pos_slab_kernel), and the negative pass is its wide kernel
+// (sgns_common.cuh: NEG_WHOLE).
 // The group loop is recorded once as a CUDA graph that the card replays
 // (step_graph.cuh), behind a head kernel that copies the call's slots,
 // meta and pools into the plan's buffers, each kernel after the first two
@@ -80,8 +81,7 @@ static int star_groups(const NegSetup& ns, float* emb, const int* slots,
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* sg = slots + (size_t)g * GROUP;
     if (g % R == 0) {
-      e = launch_kernel(stage_pool_kernel<float>, dim3(KP), dim3(128), 0,
-                        stream, g > 0, 0, emb, pool, cneg, dneg, d);
+      e = neg.stage(emb, pool, cneg, dneg, d, KP, stream, g > 0);
       if (e != cudaSuccess) return (int)e;
     }
     e = pos.launch(emb, sg, meta + (size_t)g * GROUP, d, dphi, dphin, nt,

@@ -60,9 +60,9 @@
 // whose window reaches its slots instead of exchanging them, and writes its
 // slots' dphi and dctx itself, without atomics.  The staged range never
 // passes the walk (at most 128 rows: 217 KB at d 192), so no window is cut.
-// Past d 192 every mode stages the same rows one column slab of 128 at a
-// time (walk_pos_slab_kernel, and the negative passes' slab forms;
-// sgns_common.cuh: SLAB).
+// Past d 192 every mode's band pass stages the same rows one column slab
+// of 128 at a time (walk_pos_slab_kernel; sgns_common.cuh: SLAB), and the
+// negative pass is its wide kernel (sgns_common.cuh: NEG_WHOLE).
 // The negative pass runs on the tensor cores in the bf16 modes
 // (sgns_common.cuh).  Groups keep their order with stream-ordered launches;
 // the host makes one call per macro step and the loop over groups runs
@@ -655,8 +655,7 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
     const int* pool = s.pools + (size_t)(g / R) * KP;
     const int* wg = s.walks + (size_t)g * GROUP;
     if (g % R == 0) {
-      e = launch_kernel(stage_pool_kernel<T>, dim3(KP), dim3(128), 0, stream,
-                        pdl, 0, emb_out, pool, s.cneg, s.dneg, d);
+      e = neg.stage(emb_out, pool, s.cneg, s.dneg, d, KP, stream, pdl);
       if (e != cudaSuccess) return (int)e;
       pdl = true;
     }

@@ -26,7 +26,8 @@ that carry the f32 negative pass and the star pass:
          same micro-steps called one by one in a run (``loop``).
 
 ``--dim`` makes the tables that wide (karate's stay 16); past 192 every
-step runs through its column-slab passes.  Each step runs on tables it
+step runs through its column-slab band or star pass and the wide negative
+pass (``csrc/sgns_common.cuh``: NEG_WHOLE).  Each step runs on tables it
 updates in place.  For each it prints one JSON
 line: the card's name and power limit, the step's CUDA-event ms (median of
 5 after one warm-up, each from an idle card), its ms per step over
@@ -56,6 +57,12 @@ time includes the time it waits for its predecessor, so its pass µs
 overlap and the kernels' sum may pass the step's time: the covered share
 is then the busy share to read.
 
+Each line also has ``library3_ms``: one group's (tile's) negative pass as
+three PyTorch products at its shapes (:func:`library3_ms`: scores, the
+sigmoid, dphi and dneg; f32 with TF32 off, or bf16 operands with f32
+output where the step's pass takes bf16 products), a yardstick the port
+never calls.
+
 ``--root`` times the ``come_tpu_torch`` package of another checkout, with
 kernels built from that checkout's ``csrc/``, so two trees compare on one
 card in one call (run the file by its path, not with ``-m``).  Needs a CUDA
@@ -75,8 +82,8 @@ import time
 from pathlib import Path
 
 # each group loop by pass: (name, substring of its CUDA kernel's name)
-# kernel names by pass (a substring; past d 192 the band, star and
-# negative passes are the *_slab_kernel forms)
+# kernel names by pass (a substring; past d 192 the band and star passes
+# are the *_slab_kernel forms, the negative passes the *_wide_kernel ones)
 WALK_PASSES = (("band", "walk_pos_"), ("negative", "negative_"),
                ("scatter", "walk_scatter"), ("stage", "stage_pool"),
                ("pool apply", "apply_pool"))
@@ -380,6 +387,48 @@ def enqueue_ms(fn, n: int = 10) -> float:
 
 SCAN_MICRO = 8  # micro-steps in the scan steps' macro batch
 
+# the steps whose negative pass takes bf16 products, and the slots of a
+# group or tile of each step's pass (the karate steps' tiles are 64 pairs)
+BF16_PASS = ("K1b bench", "K2b bench", "K3")
+
+
+def pass_slots(name: str) -> int:
+    return 64 if "karate" in name else 1024
+
+
+def library3_ms(dev, slots: int, KP: int, d: int, bf16: bool,
+                n: int = 10) -> float:
+    """Device ms (:func:`device_us`: the calls' kernels, not the host's
+    launches between them) of one group's negative pass as three PyTorch
+    matrix products on ``[slots, d]`` rows against a ``[KP, d]`` pool: S =
+    Phi C^T, G = sigmoid(S), dphi = G C and dneg = G^T Phi (f32 with TF32
+    off; with ``bf16`` the operands bf16 and every product's output f32),
+    over ``n`` calls.  A yardstick: the port never calls it."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    phi = torch.randn((slots, d), generator=g, device=dev) * 0.1
+    c = torch.randn((KP, d), generator=g, device=dev) * 0.1
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if bf16:
+            pb, cb = phi.bfloat16(), c.bfloat16()
+
+            def run():
+                s = torch.mm(pb, cb.t(), out_dtype=torch.float32)
+                gb = torch.sigmoid(s).bfloat16()
+                torch.mm(gb, cb, out_dtype=torch.float32)
+                torch.mm(gb.t(), pb, out_dtype=torch.float32)
+        else:
+            def run():
+                gs = torch.sigmoid(phi @ c.t())
+                gs @ c
+                gs.t() @ phi
+        return device_us(lambda i: run(), list(range(n))) / 1e3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
 
 def _scan_step(scan, step, tables, c, x, pools, m, lr, negw, TP):
     """A macro batch as one scan call, with ``.loop``: the same micro-steps
@@ -637,6 +686,9 @@ def main(argv=None) -> int:
             "idle_minus_replay_ms": (None if t["replay_ms"] is None else
                                      t["ms"] - t["replay_ms"]),
             "per_micro_ms": t.get("per_micro_ms"), "us_per_group": split,
+            "library3_ms": library3_ms(dev, pass_slots(name), KP, args.dim
+                                       if "karate" not in name else 16,
+                                       name in BF16_PASS),
             "device_us_per_group": total / groups,
             "busy": total / (t["ms"] * 1e3),
         }

@@ -21,8 +21,8 @@ trainer set-up excluded) and the peak of ``torch.cuda.max_memory_allocated()``.
     (``--down-sample 1e-3 --o2-mode xla``: K6 for O1, K7 for O2).
 
 ``--dim`` trains every run at that width instead of the preset's (past 192
-K1, K5 and K2 run their column-slab passes, past 128 G1 its device-memory
-kernels).  ``--root`` trains with the ``come_tpu_torch`` package of another
+K1, K5 and K2 run their column-slab band and star passes and the wide
+negative pass, past 128 G1 its device-memory kernels).  ``--root`` trains with the ``come_tpu_torch`` package of another
 checkout (run the file by its path, not with ``-m``), so two trees compare
 on one card in one call.  Needs a CUDA card.
 """

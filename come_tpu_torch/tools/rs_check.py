@@ -27,7 +27,7 @@ kernels' launch counters set to 0 just before and read just after, then:
   float64, where it fails), loss within rtol 1e-4, pair counts exact;
   then both steps again, the same rows and draws, on shards 256 wide
   (``WIDE_D``) drawn from the rank's seed, where the kernels take their
-  column-slab passes;
+  column-slab and wide passes;
 * with ``--synthetic``, one more K1 step at the synthetic-10m shapes (V
   500 000 row-sharded over M, 1024 walks of 80 split over the workers,
   W 10, KP 2048, uniform ids): U compact rows per worker, held the same

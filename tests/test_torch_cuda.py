@@ -43,8 +43,10 @@ middle or last column of a panel, or in a ragged last one, must get
 ``cholesky_ex``'s info flag; the EM replayed as a graph
 must give the eager EM's bits and iterations, and the EM with G1 the
 torch.linalg EM's log-likelihood within 1e-4 relative.  Past d = 128 G1
-holds its matrices in device memory, and past 192 every walk, star and
-negative pass stages its rows in column slabs: K1, K5 and K2 at
+holds its matrices in device memory, and past 192 every walk and star
+pass stages its rows in column slabs and the negative passes run their
+wide kernels (whole to 256, slabs of 256 past it; every mode also at 255
+and 1024): K1, K5 and K2 at
 ``chip_smoke.WIDE_WIDTHS`` (W 10 and a whole-walk window), and at 193 and
 256 on the main path's blogcatalog shapes (``chip_smoke.blog_wide_checks``),
 K1b, K3, K4 (bf16 and f32), K2b, K6 and K7 at
@@ -181,7 +183,8 @@ def test_walk_kernel_matches_plain(dev, V, d, B, L, W, KP, R):
 # L - 1), one slot per walk, an odd L with W wider than a strip, d at its
 # bound 192 and at 2, walks that repeat one row heavily, ragged and large
 # pools (KP 100 and 2048, R 3); the last four again at 256 and 300, where
-# every pass stages column slabs.
+# every pass stages column slabs, and three at 254 and 258, beside the
+# negative passes' route edge (256), where their copies are 4 bytes.
 EDGE_SHAPES = [  # V, d, B, L, W, KP, R, hot
     (3000, 128, 16, 128, 127, 64, 1, False),
     (500, 64, 16, 1, 3, 16, 1, False),
@@ -194,6 +197,9 @@ EDGE_SHAPES = [  # V, d, B, L, W, KP, R, hot
     (2000, 300, 24, 37, 13, 100, 3, False),
     (2000, 300, 16, 80, 10, 512, 1, True),
     (20000, 256, 24, 80, 10, 2048, 3, False),
+    (2000, 254, 24, 37, 13, 100, 3, False),
+    (2000, 258, 16, 80, 10, 512, 1, True),
+    (20000, 258, 24, 80, 10, 2048, 3, False),
 ]
 
 
@@ -1013,8 +1019,10 @@ def test_graph_em_equals_eager_em(dev, N, d, K, n_init, tol):
 @pytest.mark.parametrize("mode,whole", WIDE_CASES)
 def test_wide_steps_match_plain(dev, mode, whole, d):
     """K1 (W 10 and a whole-walk window), K5 and K2 at widths past 128:
-    past 192 their f32 passes stage column slabs of 128, ragged at 193 and
-    300 (``chip_smoke.step_check``, the f32 check)."""
+    past 192 their band and star passes stage column slabs of 128, ragged
+    at 193 and 300, and their negative pass is the wide kernel, whole up to
+    256 and in slabs of 256 from 257 (``chip_smoke.step_check``, the f32
+    check)."""
     step_check(mode, f"{mode} d {d}" + (" whole walk" if whole else ""),
                *wide_inputs(mode, dev, d, 3 * d + 2 * whole, whole),
                timed=False)
@@ -1024,13 +1032,30 @@ def test_wide_steps_match_plain(dev, mode, whole, d):
 @pytest.mark.parametrize("mode", WIDE_MODES)
 def test_wide_modes_match_plain(dev, mode, d):
     """K1b, K3 (SR), K4 (bf16 products and f32), K2b, K6 and K7 past 192,
-    where their passes stage column slabs of 128 (ragged at 193/194 and
-    300), each under its mode's check (``chip_smoke.step_check``); K4's
-    walks bit for bit."""
+    where their band and star passes stage column slabs of 128 (ragged at
+    193/194 and 300) and their negative passes are the wide kernels (whole
+    to 256, slabs of 256 from 257/258), each under its mode's check
+    (``chip_smoke.step_check``); K4's walks bit for bit."""
     d = mode_width(mode, d)
     csr = get_dataset("blogcatalog").graph.to_device(dev)
     step_check(mode, f"{mode} d {d}",
                *wide_inputs(mode, dev, d, 3 * d + len(mode), csr=csr),
+               timed=False)
+
+
+@pytest.mark.parametrize("d", [255, 1024])
+@pytest.mark.parametrize("mode", [m for m, whole in WIDE_CASES if not whole]
+                         + list(WIDE_MODES))
+def test_wide_negative_passes_at_their_edges_match_plain(dev, mode, d):
+    """Every mode at the widths where the negative passes' wide kernels
+    change route, beside WIDE_WIDTHS' 256 and 257: 255 (held whole, a
+    ragged width that takes 4-byte copies) and 1024 (four slabs of 256, in
+    two sweeps), each under its mode's check (``chip_smoke.step_check``;
+    K3 at the even width)."""
+    d = mode_width(mode, d)
+    csr = get_dataset("blogcatalog").graph.to_device(dev)
+    step_check(mode, f"{mode} d {d}",
+               *wide_inputs(mode, dev, d, 5 * d + len(mode), csr=csr),
                timed=False)
 
 

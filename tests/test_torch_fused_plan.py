@@ -97,7 +97,7 @@ def test_one_fused_plan_serves_calls_with_new_pools_lr_and_tables(tied):
         assert a[-3:] == (lr, 0.3, 123)
         args.append(a[9 + n:-3])
         plans.append(plan)
-        outs.append(plan.out.data_ptr())
+        outs.append(plan.out)  # kept alive: a freed out's address recurs
     assert plans[0] is plans[1] is plans[2]
     # ids, nt, pool, stats, cneg, dneg, dphi, dcpos, args and the shape: the
     # same buffers; out is each call's own
@@ -107,7 +107,7 @@ def test_one_fused_plan_serves_calls_with_new_pools_lr_and_tables(tied):
                            plan.pool.data_ptr())
     assert args[0][9] == plan.args.data_ptr()
     assert args[0][-4:] == (8, 3, 100, 16)  # d, n_tiles, TP, KP
-    assert len(set(outs)) == 3
+    assert len({o.data_ptr() for o in outs}) == 3
     assert (counts.recordings, counts.instantiations, counts.updates,
             counts.replays) == (3, 1, 2, 3)
     assert (plans[0].instantiations, plans[0].updates) == (1, 2)

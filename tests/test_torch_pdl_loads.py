@@ -10,8 +10,11 @@ kernel could read the last step's ``nt`` or table row.  The rule
 (``csrc/sgns_common.cuh``'s note): no kernel that calls ``pdl_wait()``
 takes a ``const ... __restrict__`` pointer, and it reads its const pointers
 only through ``step_ld`` (ordinary loads, which the compiler keeps after
-the wait) or through the row helpers, which use it.  The CPU cannot compile
-CUDA, so this holds the source; the card holds the results
+the wait) or through the row helpers, which use it.  An asynchronous copy
+(``cp.async``, ``cp.async.bulk``, a TMA copy) reads global memory on its
+own, so the same rule holds for it: a kernel that calls ``pdl_wait()``
+issues no copy of a step-written buffer before the wait.  The CPU cannot
+compile CUDA, so this holds the source; the card holds the results
 (``chip_smoke.py``'s back-to-back phases).
 """
 
@@ -86,10 +89,11 @@ def pdl_kernels():
 def test_the_check_finds_the_pdl_kernels():
     names = {k.split(":")[1] for k, _, _ in pdl_kernels()}
     # every pass of every loop (the step's head kernels do not wait)
-    for want in ("negative_f32_kernel", "negative_f32_slab_kernel",
-                 "negative_bf16_kernel", "negative_bf16_slab_kernel",
+    for want in ("negative_f32_kernel", "negative_f32_wide_kernel",
+                 "negative_bf16_kernel", "negative_bf16_wide_kernel",
                  "apply_pool_kernel", "apply_pool_bf16_kernel",
-                 "stage_pool_kernel", "walk_pos_kernel",
+                 "stage_pool_kernel", "stage_pool_bf16_kernel",
+                 "walk_pos_kernel",
                  "walk_pos_slab_kernel", "walk_scatter_kernel",
                  "walk_scatter_bf16_kernel", "star_scatter_kernel",
                  "star_pos_kernel", "star_pos_slab_kernel",
@@ -135,3 +139,129 @@ def test_the_row_helpers_load_through_step_ld():
     for path in SOURCES:
         assert not re.search(r"__ldg\(|ld\.global\.nc", path.read_text()), \
             path.name
+
+
+def _functions(src: str):
+    """(name, body) of every function defined in ``src`` (comments
+    stripped)."""
+    out = []
+    for m in re.finditer(r"\b(\w+)\s*\(", src):
+        p = m.end() - 1
+        try:
+            q = _balanced(src, p, "(", ")")
+        except AssertionError:
+            continue
+        rest = src[q:q + 200]
+        b = re.match(r"\s*(?:const\s*)?\{", rest)
+        if b and m.group(1) not in ("if", "for", "while", "switch",
+                                    "return", "sizeof"):
+            start = q + b.end() - 1
+            out.append((m.group(1), src[start:_balanced(src, start, "{",
+                                                         "}")]))
+    return out
+
+
+def copy_issuers(sources) -> set:
+    """The functions of ``sources`` that issue an asynchronous copy from
+    global memory: those whose body holds a ``cp.async`` (any form, bulk
+    and TMA's ``cp.async.bulk.tensor`` too), and, to a fixed point, those
+    that call one."""
+    funcs = [f for s in sources for f in _functions(_strip_comments(s))]
+    found = {n for n, body in funcs if "cp.async" in body}
+    while True:
+        more = {n for n, body in funcs if n not in found and any(
+            re.search(rf"\b{c}\s*[<(]", body) for c in found)}
+        if not more:
+            return found
+        found |= more
+
+
+def copies_before_wait(body: str, issuers) -> list:
+    """The asynchronous copies a kernel body issues before its first
+    ``pdl_wait()`` whose arguments name a step-written buffer: each as the
+    call's text.  Inline ``cp.async`` asm counts as a call too."""
+    wait = body.find("pdl_wait()")
+    head = body if wait < 0 else body[:wait]
+    out = []
+    for m in re.finditer(r"\b(asm)\b(?:\s+volatile)?\s*\(|"
+                         r"\b(\w+)\s*(?:<[^<>;]*>)?\s*\(", head):
+        if m.group(1) is None and m.group(2) not in issuers:
+            continue
+        q = _balanced(head + ")" * 64, m.end() - 1, "(", ")")
+        call = head[m.start():q]
+        if m.group(1) and "cp.async" not in call:
+            continue
+        if any(re.search(rf"\b{n}\b", call) for n in STEP_WRITTEN):
+            out.append(call)
+    return out
+
+
+def test_the_copy_check_finds_the_asynchronous_copies():
+    issuers = copy_issuers(p.read_text() for p in SOURCES)
+    # the wide negative passes' copies: bulk and cp.async, and the row
+    # helper that issues either
+    for want in ("bulk_copy", "async_copy4", "async_copy16", "copy_rows"):
+        assert want in issuers, want
+    bodies = {k.split(":")[1]: body for k, _, body in pdl_kernels()}
+    for name in ("negative_f32_wide_kernel", "negative_bf16_wide_kernel"):
+        body = bodies[name]
+        assert any(re.search(rf"\b{c}\s*[<(]", body) for c in issuers), name
+        # ... all of them after the wait
+        wait = body.index("pdl_wait()")
+        assert all(body.find(f"{c}(") < 0 or body.find(f"{c}(") > wait
+                   for c in issuers), name
+
+
+@pytest.mark.parametrize("where,params,body", pdl_kernels(),
+                         ids=[k for k, _, _ in pdl_kernels()])
+def test_pdl_kernels_copy_step_buffers_only_after_the_wait(where, params,
+                                                           body):
+    issuers = copy_issuers(p.read_text() for p in SOURCES)
+    bad = copies_before_wait(body, issuers)
+    assert not bad, f"{where}: copies before pdl_wait(): {bad}"
+
+
+FAKE = """
+static __device__ void copy_row(float* dst, const float* src, int n,
+                                unsigned long long* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+               "complete_tx::bytes [%0], [%1], %2, [%3];"
+               :: "r"(0), "l"(src), "r"(n), "r"(0));
+}
+static __global__ void early_kernel(const float* cneg, const int* ids,
+                                    float* out) {
+  __shared__ float buf[256];
+  __shared__ unsigned long long bar;
+  const int r = step_ld(ids + blockIdx.x);
+  copy_row(buf, cneg + (size_t)r * 256, 1024, &bar);
+  pdl_wait();
+  out[threadIdx.x] = buf[threadIdx.x];
+}
+static __global__ void inline_kernel(const float* table, float* out) {
+  __shared__ float buf[4];
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(0), "l"(table + blockIdx.x));
+  pdl_wait();
+  out[0] = buf[0];
+}
+static __global__ void late_kernel(const float* cneg, const int* ids,
+                                   float* out) {
+  __shared__ float buf[256];
+  __shared__ unsigned long long bar;
+  const int r = step_ld(ids + blockIdx.x);
+  pdl_wait();
+  copy_row(buf, cneg + (size_t)r * 256, 1024, &bar);
+  out[threadIdx.x] = buf[threadIdx.x];
+}
+"""
+
+
+def test_the_copy_check_catches_a_copy_issued_before_the_wait():
+    issuers = copy_issuers([FAKE])
+    assert "copy_row" in issuers
+    found = {name: copies_before_wait(body, issuers)
+             for name, _, body in kernels(FAKE)}
+    assert len(found["early_kernel"]) == 1
+    assert "cneg" in found["early_kernel"][0]
+    assert len(found["inline_kernel"]) == 1  # the inline asm's copy
+    assert found["late_kernel"] == []

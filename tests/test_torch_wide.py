@@ -8,10 +8,13 @@ through its tiers' kernels, take a width.
 The JAX package trains any ``dim`` (its walk kernel never checks d,
 ``come_tpu/ops/pallas_walk_sgns.py:490-533``; its micro-batched and star
 kernels take d from the table's shape; its GMM factors with XLA's
-Cholesky).  On the card, past 192 every walk, star and negative pass stages
-its rows in column slabs of 128 (``csrc/sgns_common.cuh``: SLAB), K6/K7's
-positive pass loops over a lane's columns past 256 and G1 holds its
-matrices in device memory past 128; ``chip_smoke.py`` (phases 4j, 4k, 5c,
+Cholesky).  On the card, past 192 every walk and star pass stages its rows
+in column slabs of 128 (``csrc/sgns_common.cuh``: SLAB), the negative
+passes hold rows whole up to 256 and take slabs of 256 past it
+(``NEG_WHOLE``; ``WIDE`` holds both edges, 256 and 257, and 257 and 300
+take the passes' ragged and 16-byte routes), K6/K7's positive pass loops
+over a lane's columns past 256 and G1 holds its matrices in device memory
+past 128; ``chip_smoke.py`` (phases 4j, 4k, 5c,
 15, 15b and 21) and ``tests/test_torch_cuda.py`` hold those kernels
 against the plain versions tested here.  No mode raises on width; bf16
 tables keep their even-width rule (``ops/walk_sgns.py::
@@ -50,7 +53,7 @@ from come_tpu_torch.sampling.stars import PAD_META, build_star_layout
 torch.set_num_threads(2)
 
 RTOL, ATOL = 1e-3, 3e-5
-WIDE = (256, 300)
+WIDE = (256, 257, 300)
 
 
 def _t(a):
