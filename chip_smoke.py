@@ -22,8 +22,9 @@ non-zero and prints no result line):
  4k. wide 256 — phases 3, 4 and 4d's K1, K2 and K5 steps (the main
                path's shapes at --dim 256: 256 walks in 32 groups, 65536
                star slots in 64 groups, 512 edge rows in 64 groups, KP 512)
-               on tables 256 wide (past 192 every pass stages column slabs
-               of 128), and K1 with the whole walk in its window (W 79);
+               on tables 256 wide (past 192 the band and star passes hold
+               whole rows where they fit), and K1 with the whole walk in
+               its window (W 79);
                after phase 4e its K1b and K4 (bf16) bench steps (256
                groups, R 8) and its K2b step (344 groups, R 8); after phase
                4f K3 at its synthetic-10m step shape (128 groups, KP 2048,
@@ -39,14 +40,14 @@ non-zero and prints no result line):
                (W >= L - 1, L = 1, odd L with W past a strip, d 192 and 2,
                a heavily repeated row, KP 100 and 2048 with R 3; L = 1,
                odd L, the repeated row and KP 2048 again at d 256 and 300,
-               the slab passes), in f32, bf16 products and on bf16 tables,
+               the wide passes), in f32, bf16 products and on bf16 tables,
                each under its mode's check
  4i. star/f32 edges — the star kernel against its plain version, in f32 and
                bf16, at STAR_EDGES (a hub of degree 300 split at fan-out 32,
                a single fat hub filling a row, segments dropped to pads
                mid-row, d 192 and 2, KP 100 with R 3, a ragged last group;
                the hubs, pads, ragged group and KP 2048 with R 3 again at
-               d 256 and 300, the slab passes),
+               d 256 and 300, and the fat hub at 256, the wide passes),
                and K6 and K7 at FUSED_EDGES (KP 100 and 2048, d 192 and 2,
                tiles of 64 and 777 pairs, KP 2048 at d 300 and tiles of 64
                at d 520, each with one all-masked tile)
@@ -57,7 +58,18 @@ non-zero and prints no result line):
                193 (K3 194), 256, 257 (K3 258), 300 and 512 (wide_inputs;
                256 and 257 the negative passes' widest whole width and
                narrowest slabs), each under its mode's check, and timed as
-               in 4k but for the whole walk and 257
+               in 4k but for the whole walk and 257; then K1 at d 256 on
+               walks of 128 at the band pass's route boundary: the last W
+               whose f32 rows fit (whole), the next (slab) and the whole
+               walk W 127 (slab); and the bf16 rows in column slabs
+               (BF16_SLAB: K1b, K4 and K3 with the whole walk of 128 at d
+               512 and 514, K2b at 884).  Here and in 4k, 5b, 5c, 15 (P3
+               at 256) and 15b every walk and star step must take the band
+               or star route (rows up to d 192, whole rows, column slabs)
+               that the phase names, or else the one the kernel library's
+               rule gives (come_walk_pos_route, come_star_pos_route), as
+               the wrappers' routes counters read it from what each step's
+               recording launched; the lines print the routes
  4l. passes 256 — the device µs a group by pass of tools/pass_times.py's
                K1, K1b bench, K2b bench, K6 (a tile) and K3 steps at d 256,
                beside the negative pass as three PyTorch products (the
@@ -89,8 +101,8 @@ non-zero and prints no result line):
                phase's start, records once and then only replays:
                recordings = instantiations = plans used, no update)
  5b. main 256, paired 256 — the same CLI at --dim 256 (K1 and K2 with
-               their f32 passes in column slabs, G1 with its matrices in
-               device memory), then with --o2-mode paired (K1 and K5),
+               their wide passes, G1 with its matrices in device memory),
+               then with --o2-mode paired (K1 and K5),
                each with its counters reset just before and read just
                after: finite losses and embeddings [V, 256], every edge
                trained twice in O2 (K2), NMI >= 0.8; prints G1's launches
@@ -181,7 +193,7 @@ After phase 14:
                beside K2b's, the full variant held against K2b's plain
                version under the bf16 check and every variant against its
                plain version; then again with the table 256 wide, its MATH
-               section through K2b's slab passes) and P4
+               section through K2b's wide passes) and P4
                (tools/probe_star_floor.py: the seven per-group floors, each
                value exactly its plain version's)
  15b. graph  — the macro step as one replayed graph: six consecutive K1, K3
@@ -207,7 +219,7 @@ After phase 14:
                one plan with no host wait, inputs new at every step, each
                held against its plain version from the tables the step
                before it left, under its mode's check, each mode's fresh
-               plan recorded once (graph_stress)
+               plan recorded once, every step on its route (graph_stress)
  16. parity  — the parity CLI (evaluation/parity.py) on karate, 3
                iterations, on cuda: K1, K5, K2 and K7 rows against the
                numpy oracle; it must return 0
@@ -266,7 +278,7 @@ After phase 17:
                the kernel on the compact tables, its plain version on
                clones of the same compact rows) under the f32 check below,
                tools/hot_row.py's float64 rule where it fails, and both
-               again on rows 256 wide (the slab passes); (a) also one
+               again on rows 256 wide (the wide passes); (a) also one
                K1 step at the synthetic-10m shapes (V 500000 over M 2, 1024
                walks, KP 2048: 172032 compact rows a worker) with its
                compact-table and exchange bytes.  The line gives per step
@@ -419,9 +431,10 @@ KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 # (W >= L - 1), one slot per walk, an odd L with W wider than a strip, d at
 # its bound 192 and at 2, walks that repeat one row heavily, ragged and
 # large pools (KP 100 and 2048, R 3); the last four again past MAX_DIM
-# (192), where every pass stages column slabs, at 256 and at 300 (a ragged
-# slab of 44), and beside the negative passes' route edge (256) at even
-# widths that take their 4-byte copies: 254 (held whole; KP 100, R 3) and
+# (192), where the band pass holds whole rows (a ragged 16-byte piece at
+# 300) and the negative pass slabs past 256, at 256 and at 300, and
+# beside the negative passes' route edge (256) at even widths that take
+# their 4-byte copies: 254 (held whole; KP 100, R 3) and
 # 258 (in slabs; the hot row, KP 2048 with R 3).  On bf16 tables V is at least 20000:
 # K3's check holds steps whose walks repeat few rows, since its CAS loops
 # write a row's repeats within a group in any order (ops/tolerance.py); its
@@ -451,9 +464,10 @@ EDGE_SHAPES = [
 
 # Phase 4i's star layouts (V, d, E, KP, R, layout): see star_edge_layout;
 # d at its bound 192 and at 2, a ragged and a small pool (KP 100, R 3);
-# past MAX_DIM (column slabs) the hub, the fat hub, pads mid-row, a ragged
-# last group and KP 2048 with R 3; at the negative passes' route edges
-# pads mid-row (slots with nt = 0) at 257 and KP 100 with R 3 at 255.
+# past MAX_DIM (the wide star pass) the hub, the fat hub (at 300 and at
+# 256: strip 0 owns a whole row, the pass's widest CTA), pads mid-row, a
+# ragged last group and KP 2048 with R 3; at the negative passes' route
+# edges pads mid-row (slots with nt = 0) at 257 and KP 100 with R 3 at 255.
 STAR_EDGES = [
     (3000, 128, 20000, 512, 1, "hub"),
     (400, 128, 150, 64, 1, "fat"),
@@ -464,6 +478,7 @@ STAR_EDGES = [
     (2000, 128, 9000, 512, 2, "ragged"),
     (3000, 256, 20000, 512, 1, "hub"),
     (400, 300, 150, 64, 1, "fat"),
+    (400, 256, 150, 64, 1, "fat"),
     (3000, 300, 20000, 512, 1, "pads"),
     (2000, 300, 9000, 512, 2, "ragged"),
     (2000, 256, 12000, 2048, 3, "random"),
@@ -1061,7 +1076,7 @@ def graph_phase(dev, smi: str) -> dict:
 
 
 # Phase 15b's back-to-back runs (graph_stress): every walk and star mode at
-# d 128 and again at d 256, past MAX_DIM (192), through the slab passes.
+# d 128 and again at d 256, past MAX_DIM (192), through the wide passes.
 B2B_MODES = ("K1", "K1b", "K2", "K2b", "K3", "K4", "K5")
 B2B_WIDE = B2B_MODES
 
@@ -1111,9 +1126,11 @@ def graph_stress(mode: str, dev, d: int = 128, n: int = 8) -> list:
     rows.  The tables after each step are snapshot on the card; the plain
     versions then run from each snapshot, and each step is held against
     its own under its mode's check (f32, bf16 or K3's; K4's walks bit for
-    bit).  Returns each step's (max_abs, f32 relative error, bf16 relative
-    L2 error or K3 identical share, bf16 f32-vs-bf16 distance; nan where
-    the mode has none); raises at the first step past its check."""
+    bit); every step must take the band or star route that
+    :func:`expected_route` names.  Returns each step's (max_abs, f32
+    relative error, bf16 relative L2 error or K3 identical share, bf16
+    f32-vs-bf16 distance; nan where the mode has none; the route); raises
+    at the first step past its check."""
     from come_tpu_torch.graphs import get_dataset, sbm_graph
     from come_tpu_torch.ops.star_sgns import (
         star_sgns_step,
@@ -1172,6 +1189,7 @@ def graph_stress(mode: str, dev, d: int = 128, n: int = 8) -> list:
         "K4": (walk_sgns_gen_step, walk_sgns_gen_step_reference),
     }.get(mode, (walk_sgns_step, walk_sgns_step_reference))
     from come_tpu_torch.ops import build, launch_plan
+    from come_tpu_torch.tools.pass_times import routes_since
 
     entry = {"K2": "star_sgns", "K2b": "star_sgns",
              "K4": "walk_sgns_gen"}.get(mode, "walk_sgns")
@@ -1179,10 +1197,17 @@ def graph_stress(mode: str, dev, d: int = 128, n: int = 8) -> list:
     c0 = launch_plan.graph_counts()[entry]
     torch.cuda.synchronize()  # every input on the card before the first step
     states, results = [[t.clone() for t in tabs]], []
+    before = routes_since()
     for step, x in enumerate(inputs):
         results.append(run(kern_fn, tabs, x, step))
         states.append([t.clone() for t in tabs])
     torch.cuda.synchronize()
+    routes = routes_since(before)
+    want = expected_route(mode, d, dict(window=1 if mode == "K5" else W,
+                                        paired=mode == "K5"), L)
+    if routes != [want] * n:
+        raise AssertionError(f"back-to-back {mode} d {d}: routes {routes}, "
+                             f"expected {want}")
     c1 = launch_plan.graph_counts()[entry]
     # one fresh plan, recorded once (its tables stay put), replayed n times
     if tuple(c1[k] - c0[k] for k in ("replays", "recordings",
@@ -1213,17 +1238,17 @@ def graph_stress(mode: str, dev, d: int = 128, n: int = 8) -> list:
                                      f"{float(plain[2])}, pairs "
                                      f"{float(kern[3])} vs {float(plain[3])}")
             err = check_k3(name, before, kern[:2], plain[:2], f32[:2])
-            errs.append((err[0], float("nan"), err[3], float("nan")))
+            errs.append((err[0], float("nan"), err[3], float("nan"), want))
         elif bf16:
             f32 = run(plain_fn, [t.clone() for t in before], x, step,
                       mxu=False)
             if mode == "K4":
                 f32 = f32[:-1]
             err = compare_bf16(name, before, kern, plain, f32[:-2])
-            errs.append((err[0], float("nan"), err[1], err[2]))
+            errs.append((err[0], float("nan"), err[1], err[2], want))
         else:
             err = compare(name, before, kern, plain)
-            errs.append((err[0], err[1], float("nan"), float("nan")))
+            errs.append((err[0], err[1], float("nan"), float("nan"), want))
     return errs
 
 
@@ -1239,17 +1264,19 @@ def stress_text(runs: dict) -> str:
                     f"distance >= {min(e[3] for e in errs):.3e}")
         else:
             tail = f"max_rel {max(e[1] for e in errs):.3e}"
-        out.append(f"{mode} d {d}: {len(errs)} steps, max_abs {worst:.3e}, "
-                   f"{tail}")
+        out.append(f"{mode} d {d}: {len(errs)} steps, {errs[0][4]} route, "
+                   f"max_abs {worst:.3e}, {tail}")
     return "; ".join(out)
 
 
 # Phase 4j's widths past 128 (phase 4k holds the main path's steps at 256
-# at their own shapes): past MAX_DIM (192) the band and star passes stage
-# column slabs of 128 (csrc/sgns_common.cuh: SLAB), so 193 leaves a ragged
-# slab of 65 (194, K3's even width: 66), 300 one of 44 and 512 four whole
-# ones; the negative passes hold rows whole up to NEG_WHOLE (256) and take
-# slabs of 256 past it, so 256 is their widest whole width, 257 (K3: 258)
+# at their own shapes): past MAX_DIM (192) the band and star passes hold
+# whole rows where they fit (at W 10 every mode to 512 but K2 past d 440)
+# and stage column slabs of 128 (csrc/sgns_common.cuh: SLAB) where they do
+# not (the whole walk W 127 in f32 at 256 and past), so 193 leaves a
+# ragged 16-byte piece or slab, 300 a ragged last slab of 44 and 512 four
+# whole ones; the negative passes hold rows whole up to NEG_WHOLE (256)
+# and take slabs of 256 past it, so 256 is their widest whole width, 257 (K3: 258)
 # the narrowest in slabs and 300 a ragged last slab; 129 runs the whole-row
 # passes at a ragged width.  K1 (W 10 and a whole-walk window), K5 and K2
 # run at every width of WIDE_WIDTHS (the whole walk alone at 256), the
@@ -1259,6 +1286,11 @@ WIDE_CASES = (("K1", False), ("K1", True), ("K5", False), ("K2", False))
 WIDE_MODES = ("K1b", "K3", "K4", "K4 f32", "K2b", "K6", "K7")
 WIDE_MODE_WIDTHS = (193, 256, 257, 300, 512)
 ROUTE_EDGE = (257,)  # checked, not timed: 256 and 300 time both routes
+# The bf16 rows past what a CTA holds whole, which take column slabs
+# (walk_pos_slab_kernel<true, ...>, star_pos_slab_kernel<true>): the band
+# with the whole walk of 128 in the window at d 512 (K3: 514; bf16 rows fit
+# whole there up to W 47), the star pass past d 880; (mode, d).
+BF16_SLAB = (("K1b", 512), ("K4", 512), ("K3", 514), ("K2b", 884))
 # Phase 4l's steps (tools/pass_times.py) whose passes it times at d 256:
 # the f32 negative pass in K1 and K6, the bf16 one in K1b, K2b and K3
 PASS_STEPS_256 = ("K1", "K1b bench", "K2b bench", "K6", "K3")
@@ -1278,19 +1310,21 @@ def edge_rows(g, V, n, dev):
     return torch.stack([u, v], 1).reshape(n, 128).to(torch.int32)
 
 
-def wide_inputs(mode, dev, d, seed, whole=False, csr=None):
+def wide_inputs(mode, dev, d, seed, whole=False, csr=None, window=None):
     """(tables, inputs, kwargs) of one step of ``mode`` at width d, drawn
     from ``seed``, pools of 512 rows: K1 over 64 walks of 80 on V 2000 at
     W 10 (8 groups), or with ``whole`` 16 walks of 128 with the whole walk
-    in the window (W 127); K1b, K4 and "K4 f32" over 64 walks of 80 on the
-    blogcatalog graph ``csr`` (K4 generates them from starts and 32-bit
-    draws), as graph_stress draws them: on random walks of V 2000 their
-    f32 step lies too near the bf16 one for the bf16 check; K3 over 64
-    walks of 80 drawn uniformly over V 20000 (rows that repeat rarely, as
-    its check needs) on bf16 tables, with stochastic rounding; K5 over 16
+    in the window (W 127); K1b, K4 and "K4 f32" over 64 walks of 80 (with
+    ``whole`` 64 of 128) on the blogcatalog graph ``csr`` (K4 generates
+    them from starts and 32-bit draws), as graph_stress draws them: on
+    random walks of V 2000 their f32 step lies too near the bf16 one for
+    the bf16 check; K3 over 64 walks of 80 drawn uniformly over V 20000
+    (rows that repeat rarely, as its check needs) on bf16 tables, with
+    stochastic rounding; K5 over 16
     edge rows (2 groups, R 2); K2 and K2b over the star layout of 12000
     random edges on V 2000; K6 and K7 3000 pairs on V 2000 in tiles of 777
-    (the second tile all masked)."""
+    (the second tile all masked).  ``window`` sets W of ``whole``'s walks
+    of 128 (the band pass's route boundary)."""
     V = 20000 if mode == "K3" else 2000
     if mode in ("K1b", "K4", "K4 f32"):
         V = int(csr.indptr.numel()) - 1
@@ -1318,7 +1352,9 @@ def wide_inputs(mode, dev, d, seed, whole=False, csr=None):
         m = (torch.rand(P, generator=g, device=dev) < 0.6).float()
         m[TP:2 * TP] = 0.0
         return tabs, (ids(P), ids(P), ids(KP), m), dict(tile_pairs=TP)
-    B, L, W = (16, 128, 127) if whole else (64, 80, 10)
+    B, L, W = (16, 128, window or 127) if whole else (64, 80, 10)
+    if whole and mode in ("K1b", "K4", "K4 f32"):
+        B = 64
     wrow = torch.randint(1, W + 1, (B // 8 * 1024,), generator=g, device=dev,
                          dtype=torch.int32)
     kw = dict(window=W, pool_refresh=1)
@@ -1368,7 +1404,44 @@ def _mode_fns(mode):
     return walk_sgns_step, walk_sgns_step_reference
 
 
-def step_check(mode, name, tabs, x, kw, timed=True) -> dict:
+def expected_route(mode, d, kw, L=None) -> str | None:
+    """The band or star route a step of ``mode`` at width d with the
+    wrapper's keywords ``kw`` takes by the kernel library's rule
+    (``come_walk_pos_route``, ``come_star_pos_route``: rows up to d 192,
+    whole rows where they fit, column slabs past); None for K6 and K7,
+    which have neither pass.  L is the walk length (the walks' width, or
+    K4's walk_length)."""
+    from come_tpu_torch.ops import build
+    from come_tpu_torch.ops.walk_sgns import POS_ROUTES
+
+    if mode in ("K6", "K7"):
+        return None
+    lib = build.library()
+    if mode in ("K2", "K2b"):
+        return POS_ROUTES[lib.come_star_pos_route(d, int(mode == "K2b"))]
+    paired = kw.get("paired", False)
+    return POS_ROUTES[lib.come_walk_pos_route(
+        d, kw.get("walk_length", L), 1 if paired else kw["window"],
+        int(mode in ("K1b", "K4")), int(paired), int(mode == "K3"))]
+
+
+def path_routes(where: str, want: str | None = None) -> dict:
+    """The walk and star steps since the wrappers' ``routes`` counters
+    were last reset, by band or star route (over every mode); raises if a
+    step took another route than ``want``."""
+    from come_tpu_torch.ops.walk_sgns import new_routes
+    from come_tpu_torch.tools.pass_times import routes_since
+
+    tot = new_routes()
+    for r in routes_since([new_routes()] * 3):
+        tot[r] += 1
+    if want is not None and any(n for r, n in tot.items() if r != want):
+        raise AssertionError(f"{where}: steps by route {tot}, expected "
+                             f"every one {want}")
+    return tot
+
+
+def step_check(mode, name, tabs, x, kw, timed=True, route=None) -> dict:
     """One step of ``mode`` (K1, K1b, K3, K4 with bf16 products, "K4 f32",
     K5, K2, K2b, K6, K7) on tables ``tabs`` and inputs ``x`` (as the
     wrapper takes them after the tables: walks, edge rows, star slots, K4's
@@ -1376,13 +1449,19 @@ def step_check(mode, name, tabs, x, kw, timed=True) -> dict:
     third) through the kernel and its plain version from the same tables,
     under its mode's check: the f32 check, the bf16 check (K1b, K2b, K4:
     the plain f32 step at least 5x farther) or K3's (ops/tolerance.py), K4's
-    walks bit for bit; with ``timed`` also ms from an idle card, ms a step
-    in a run of 10 and the plain version's ms (each on tables it updates in
-    place) and the step's bound.  Returns the numbers: "err" is the check's
-    tuple, its first element the max abs update error."""
+    walks bit for bit; the band or star route the kernel's step took must
+    be ``route`` (default :func:`expected_route`'s); with ``timed`` also ms
+    from an idle card, ms a step in a run of 10 and the plain version's ms
+    (each on tables it updates in place) and the step's bound.  Returns the
+    numbers: "err" is the check's tuple, its first element the max abs
+    update error; "route" the route taken."""
     from come_tpu_torch.ops.tolerance import check_k3
     from come_tpu_torch.sampling.stars import PAD_META
-    from come_tpu_torch.tools.pass_times import chained_ms, cuda_ms
+    from come_tpu_torch.tools.pass_times import (
+        chained_ms,
+        cuda_ms,
+        routes_since,
+    )
 
     kern_fn, plain_fn = _mode_fns(mode)
     fused, gen = mode in ("K6", "K7"), mode in ("K4", "K4 f32")
@@ -1391,7 +1470,16 @@ def step_check(mode, name, tabs, x, kw, timed=True) -> dict:
     lr, negw = 0.025, 5.0 / KP
     if gen:
         kw = dict(kw, return_walks=True)
+    if route is None:
+        route = expected_route(mode, tabs[0].shape[1], kw,
+                               None if fused or gen else x[0].shape[-1])
+    before = routes_since()
     kern = kern_fn(*[t.clone() for t in tabs], *x, lr, negw, **kw)
+    took = routes_since(before)
+    took = took[0] if len(took) == 1 else None
+    if took != route:
+        raise AssertionError(f"{name}: took the {took} route, expected "
+                             f"{route}")
     plain = plain_fn(*[t.clone() for t in tabs], *x, lr, negw, **kw)
     torch.cuda.synchronize()
     walks = x[0]
@@ -1416,7 +1504,7 @@ def step_check(mode, name, tabs, x, kw, timed=True) -> dict:
         err = compare_bf16(name, tabs, kern, plain, f32[:len(tabs)])
     else:
         err = compare(name, tabs, kern, plain)
-    out = {"err": err, "pairs": float(kern[-1])}
+    out = {"err": err, "pairs": float(kern[-1]), "route": took}
     del kern, plain
     if timed:
         d = tabs[0].shape[1]
@@ -1464,6 +1552,16 @@ def err_text(mode, err) -> str:
     return f"max_abs {err[0]:.3e} max_rel {err[1]:.3e}"
 
 
+def bf16_slab_check(mode, d, dev, csr) -> dict:
+    """One BF16_SLAB step (the band's with the whole walk of 128 in the
+    window, K2b's on wide_inputs' star layout) through step_check, which
+    fails it unless it took the slab route."""
+    walk = mode != "K2b"
+    return step_check(mode, f"{mode} d {d}" + (" whole walk" if walk else ""),
+                      *wide_inputs(mode, dev, d, 5 * d + len(mode), whole=walk,
+                                   csr=csr), timed=False, route="slab")
+
+
 def wide_phase(smi: str, dev) -> dict:
     """Phase 4j (module docstring); raises if a step fails its check.
     Returns the checks by (mode, whole, d)."""
@@ -1487,6 +1585,24 @@ def wide_phase(smi: str, dev) -> dict:
                 mode, f"{mode} d {dm}", *wide_inputs(
                     mode, dev, dm, 3 * dm + len(mode), csr=csr),
                 timed=d not in ROUTE_EDGE)
+    # the band pass's route boundary at d 256 on walks of 128: the last W
+    # whose f32 rows fit in shared memory holds them whole, the next takes
+    # column slabs, and so does the whole walk (W 127)
+    fit = route_boundary(256)
+    edge = {}
+    for W, route in ((fit, "whole"), (fit + 1, "slab"), (127, "slab")):
+        edge[f"K1 d 256 W {W}"] = step_check(
+            "K1", f"K1 d 256 W {W} of 128", *wide_inputs(
+                "K1", dev, 256, 7 * W, whole=True, window=W),
+            timed=False, route=route)
+    slab = {f"{m} d {d}": bf16_slab_check(m, d, dev, csr)
+            for m, d in BF16_SLAB}
+    routes = {}
+    for (m, w, d), r in res.items():
+        routes.setdefault(r["route"], []).append(
+            f"{m}{' whole walk' if w else ''} d {d}")
+    for k, r in {**edge, **slab}.items():
+        routes.setdefault(r["route"], []).append(k)
     worst = "; ".join(
         f"{m}{' whole walk' if w else ''} worst "
         + err_text(m, max((r["err"] for k, r in res.items() if k[:2] == (m, w)),
@@ -1497,9 +1613,32 @@ def wide_phase(smi: str, dev) -> dict:
                   f"{', '.join(WIDE_MODES)} at d in {list(WIDE_MODE_WIDTHS)} "
                   f"(K3 at the even width) vs plain under each mode's check "
                   f"(f32: tol {ATOL} + {RTOL}*|plain update|): {worst} | "
-                  + step_times({f"{m} d {d}": r for (m, w, d), r in
-                                res.items()}) + f" | {smi}")
+                  f"route boundary at d 256, walks of 128 (K1, f32): "
+                  + "; ".join(f"{k} {err_text('K1', r['err'])} {r['route']}"
+                              for k, r in edge.items())
+                  + " | bf16 rows in slabs (the band with the whole walk of "
+                  "128): " + "; ".join(
+                      f"{k} {err_text(k.split()[0], r['err'])} {r['route']}"
+                      for k, r in slab.items())
+                  + " | routes: " + "; ".join(
+                      f"{k}: {', '.join(v)}" for k, v in routes.items())
+                  + " | " + step_times({f"{m} d {d}": r for (m, w, d), r in
+                                        res.items()}) + f" | {smi}")
     return res
+
+
+def route_boundary(d: int, L: int = 128) -> int:
+    """The largest window W whose f32 band rows fit whole at width d on
+    walks of L, by the kernel library's rule (come_walk_pos_route); W + 1
+    takes slabs."""
+    from come_tpu_torch.ops import build
+
+    lib = build.library()
+    fits = [W for W in range(1, L)
+            if lib.come_walk_pos_route(d, L, W, 0, 0, 0) == 1]
+    if not fits or fits[-1] == L - 1:
+        raise AssertionError(f"no route boundary at d {d}, L {L}: {fits}")
+    return fits[-1]
 
 
 def passes_phase(smi: str, dev, d: int = 256) -> dict:
@@ -1544,9 +1683,11 @@ def blog_wide_checks(dev, steps: dict, V: int, d: int = 256) -> dict:
 
 
 def wide_text(res: dict) -> str:
-    """Phase 4k's line: each check's error and pairs, then the times."""
+    """Phase 4k's line: each check's error, pairs and band or star route,
+    then the times."""
     return ("; ".join(f"{k} {err_text(k.split()[0], r['err'])} pairs "
-                      f"{r['pairs']:.0f}" for k, r in res.items())
+                      f"{r['pairs']:.0f} route {r['route']}"
+                      for k, r in res.items())
             + " | " + step_times(res))
 
 
@@ -1714,7 +1855,7 @@ def rs_phase(main_o1_ms: float) -> None:
                 f"{h[0]['K5']['U']} (<= 1); kernel {h[0]['K1']['ms']:.3f} "
                 f"ms / plain {h[0]['K1']['plain_ms']:.3f} (K1), "
                 f"{h[0]['K5']['ms']:.3f} / {h[0]['K5']['plain_ms']:.3f} (K5)"
-                f"; at d 256 on the same rows (slab passes): K1 f32 ratio "
+                f"; at d 256 on the same rows (wide passes): K1 f32 ratio "
                 f"{max(x['K1_d256']['f32_ratio'] for x in h):.3f}, K5 "
                 f"{max(x['K5_d256']['f32_ratio'] for x in h):.3f}, kernel "
                 f"{h[0]['K1_d256']['ms']:.3f} ms / plain "
@@ -2183,6 +2324,7 @@ def main() -> int:
         NW,
         NWL,
         cas_retries,
+        new_routes,
         walk_sgns_gen_step,
         walk_sgns_gen_step_reference,
         walk_sgns_step,
@@ -2238,6 +2380,9 @@ def main() -> int:
     def reset_counts():
         for fn, attr in kernels.values():
             setattr(fn, attr, 0)
+        for fn in (walk_sgns_step, walk_sgns_gen_step, star_sgns_step,
+                   star_probe_step):
+            fn.routes = new_routes()  # steps by band or star route
         # a phase's plans start fresh, so a single-device phase reads one
         # recording a plan: recordings = instantiations = plans used
         launch_plan.release_plans(build.library())
@@ -2702,8 +2847,8 @@ def main() -> int:
                             + "; ".join(edge_lines))
     torch.cuda.empty_cache()
 
-    # 4j. every mode past 128: past 192 its band or star pass stages column
-    # slabs and its negative pass is the wide kernel
+    # 4j. every mode past 128: past 192 its band or star pass holds whole
+    # rows or stages column slabs, and its negative pass is the wide kernel
     wide_phase(smi, dev)
     torch.cuda.empty_cache()
 
@@ -2960,7 +3105,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5b. the main path at dim 256, through the CLI: K1 and K2 with their
-    # f32 passes in column slabs, G1 with its matrices in device memory;
+    # f32 wide passes, G1 with its matrices in device memory;
     # then the paired CLI at dim 256 (K1 and K5)
     wide_runs = {}
     for tag, extra, ran in (
@@ -2989,13 +3134,15 @@ def main() -> int:
         if not extra and rec["o2_pairs"] != 2 * ds.graph.num_edges:
             raise AssertionError(f"{tag}: O2 did not train every edge twice")
         wide_runs[tag] = dict(launches=got, emb=emb)
+        routes = path_routes(tag, "whole")
         phase(tag, f"blogcatalog --dim 256{''.join(' ' + e for e in extra)},"
                    f" pretrain 1 + outer 1 in {wall:.1f} s: gmm {rec['gmm_ms']:.1f} ms, o1 "
                    f"{rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms, o3 "
                    f"{rec['o3_ms']:.1f} ms | NMI {rec['nmi']:.4f} | G1 "
                    f"launches: factor {got['gmm_factor']}, inverse "
                    f"{got['gmm_inverse']} | peak device memory {peak:.2f} GiB"
-                   f" | launches {got} | {smi}")
+                   f" | launches {got} | steps by band/star route {routes} "
+                   f"| {smi}")
         del trainer
         torch.cuda.empty_cache()
     main256_emb = torch.as_tensor(wide_runs["main 256"]["emb"], device=dev)
@@ -3039,6 +3186,7 @@ def main() -> int:
         check_launches(where, launched, ran,
                        tuple(k for k in kernels if k not in ran))
         check_run(where, hist, NMI_FLOOR)
+        routes = path_routes(where, "rows" if dim <= 192 else "whole")
         rec = hist[-1]
         phase(where, f"blogcatalog + bf16, R 8, batch_walks 2048, "
                      f"batch_edges 524288, walk_gen {walk_gen}, dim {dim}, "
@@ -3047,12 +3195,12 @@ def main() -> int:
                      f"o1 {rec['o1_ms']:.1f} ms, o2 {rec['o2_ms']:.1f} ms, o3 "
                      f"{rec['o3_ms']:.1f} ms | o1_pairs {rec['o1_pairs']:.0f} "
                      f"o2_pairs {rec['o2_pairs']:.0f} | NMI "
-                     f"{rec['nmi']:.4f} | launches {launched} | graphs: "
-                     f"{graphs}")
+                     f"{rec['nmi']:.4f} | launches {launched} | steps by "
+                     f"band/star route {routes} | graphs: {graphs}")
         return launched
 
     # 5c. the trainer at dim 256 through every other tier: past 192 each
-    # of their kernels runs its column-slab passes (bench_run and phases
+    # of their kernels runs its wide passes (bench_run and phases
     # 9, 10 and 14's configurations at the same cuts and floors; K3 on the
     # blogcatalog preset with the 48 MiB line at 0, as
     # tests/test_torch_wide.py's TIERS test sets it)
@@ -3137,11 +3285,13 @@ def main() -> int:
     check_launches("K3 256", got, ran,
                    tuple(k for k in kernels if k not in ran))
     check_run("K3 256", hist, NMI_FLOOR)
+    routes = path_routes("K3 256", "whole")
     rec = hist[-1]
     phase("K3 256", f"blogcatalog --dim 256 on bf16 O1 tables, pretrain 1 + "
                     f"outer 1 in {wall:.1f} s: o1 {rec['o1_ms']:.1f} ms, o2 "
                     f"{rec['o2_ms']:.1f} ms | NMI {rec['nmi']:.4f} | "
-                    f"launches {got} | {smi}")
+                    f"launches {got} | steps by band/star route {routes} | "
+                    f"{smi}")
     del trainer
     torch.cuda.empty_cache()
 
@@ -3676,7 +3826,7 @@ def main() -> int:
           + f" | launches {probe_launches}")
 
     # 15 (256). P3 with the table 256 wide: its MATH section runs K2b's
-    # column-slab passes
+    # wide star pass (whole bf16 rows) and the wide negative pass
     reset_counts()
     p3w = probe_star.run(dev, log=lambda m: phase("P3 256", m), d=256)
     p3w_launches = counts()
@@ -3686,11 +3836,20 @@ def main() -> int:
                    gmm=False)
     s3, m3, sneg3 = p3w.pop("inputs")
     p3w_bound = star_bound(s3, m3, sneg3, p3w["pairs"], 256, True, PAD_META)
+    # the star pass its MATH section launched (star_pos.cuh's
+    # StarPosPass<true>), as the wrapper counted it
+    p3w_routes = dict(star_probe_step.routes)
+    if not p3w_routes["whole"] or sum(p3w_routes.values()) != \
+            p3w_routes["whole"]:
+        raise AssertionError(f"P3 256: star pass steps by route "
+                             f"{p3w_routes}, expected every one whole")
+    p3w_route = f"whole ({p3w_routes['whole']} steps)"
     phase("probes 256", f"P3 at d 256: full {p3w['ms']:.3f} ms a step "
                         f"({p3w['rows']['full']:.2f} us/group; K2b "
                         f"{p3w['k2b_us']:.2f}), max_abs "
                         f"{p3w['max_abs_err']:.3e} vs K2b's plain version, "
-                        f"bound {p3w_bound[0]:.4f} ms | launches "
+                        f"bound {p3w_bound[0]:.4f} ms, star pass route "
+                        f"{p3w_route} | launches "
                         f"{p3w_launches['star_probe']} | {smi}")
 
     # 15b. the macro step as one replayed graph
@@ -3833,7 +3992,7 @@ def main() -> int:
               launches["gmm_inverse"], g1["inverse_err"], g1["inverse_ms"],
               g1["inverse_plain_ms"], g1["inverse_bound"],
               g1["inverse_lib_ms"]),
-        # dim 256: the f32 passes in column slabs, G1's matrices in device
+        # dim 256: the f32 wide passes, G1's matrices in device
         # memory; launches from phase 5b, the rest from phases 4k and 21
         entry("walk_sgns_d256", "walk_sgns.cu",
               "come_tpu/ops/pallas_walk_sgns.py:91",
@@ -3857,7 +4016,7 @@ def main() -> int:
               wide_launches["gmm_inverse"], g1["inverse_err_256"],
               g1["inverse_ms_256"], g1["inverse_plain_ms_256"],
               g1["inverse_bound_256"], g1["inverse_lib_ms_256"]),
-        # the other modes at dim 256, their passes in column slabs:
+        # the other modes at dim 256, through their wide passes:
         # launches from phase 5c (P3's from its d-256 run in phase 15),
         # the rest from phase 4k (P3's from phase 15)
         wide_entry("walk_sgns_bf16_d256", "walk_sgns.cu",

@@ -120,8 +120,8 @@ constexpr int NBLK = GROUP / BLK;
 constexpr int THREADS = 256;   // 8 warps
 constexpr int NWARPS = THREADS / 32;
 constexpr int KMAX = 8;        // d <= 32 * KMAX for per-lane accumulators
-constexpr int MAX_DIM = 192;   // the widest d whose rows the passes stage
-                               // whole; past it they work in column slabs
+constexpr int MAX_DIM = 192;   // the widest d of the passes' row-staging
+                               // kernels; past it the wide or slab forms
 
 // PDL's two sides (the note above): wait until the kernels this one depends
 // on have completed and their writes are visible; let the next kernel in
@@ -389,9 +389,30 @@ static __device__ __forceinline__ void atomic_add4(float* row, int d, int c,
   atomic_add4(row, d, c, v, d % 4 == 0);
 }
 
-// Column slabs.  Past MAX_DIM the band and star passes, f32 and bf16
-// (their whole rows would not fit in shared memory, nor a warp's dphi in
-// registers), stage their rows SLAB columns at a time: a row pointer then
+// Past MAX_DIM the band and star passes hold their whole rows in shared
+// memory for the pass where they fit in POS_WIDE_SMEM (walk_pos_wide_kernel,
+// star_pos_wide_kernel: one sweep, rows by asynchronous copies; bf16 rows
+// where the pass rounds them), and take column slabs where they do not.
+// The route of a pass is one of:
+enum PosRoute {
+  POS_ROWS = 0,   // d <= MAX_DIM: walk_pos_kernel, star_pos_kernel
+  POS_WHOLE = 1,  // whole rows past MAX_DIM: the *_wide_kernel forms
+  POS_SLAB = 2,   // column slabs: the *_slab_kernel forms
+};
+// the most dynamic shared memory a band or star CTA takes: the H100's
+// 227 KB opt-in a block, less 3 KB for the kernels' static shared memory
+// (the star passes' StarRow and g2, 2.1 KB)
+constexpr size_t POS_WIDE_SMEM = 232448 - 3072;
+
+// A row the wide band and star passes hold: bf16 where the pass rounds
+// its rows, else f32; d elements to a 16-byte piece, and 16 bytes more.
+static __host__ __device__ inline int pos_wide_stride(int d, bool bf16) {
+  return bf16 ? ((d + 7) & ~7) + 8 : ((d + 3) & ~3) + 4;
+}
+
+// Column slabs.  Past MAX_DIM the band and star passes, f32 and bf16,
+// whose whole rows would not fit in POS_WIDE_SMEM, stage their rows SLAB
+// columns at a time: a row pointer then
 // points at the slab's first column, d is the slab's width w (the last slab
 // may be narrower), and 16-byte accesses need the table's d % 4 == 0
 // (`vec`), not w's.  Each pass sweeps the slabs twice: once to sum every
@@ -1154,8 +1175,8 @@ static __device__ __forceinline__ void fence_async_smem() {
 // (a bulk copy holds its issuing warp ≈ 70 cycles on the H100, so warp 0
 // alone would take ≈ 2.2 k cycles a chunk; thread 0 expects the bytes; init
 // `bar` with 1), else 4-byte cp.async from every thread and each thread's
-// arrival (init `bar` with WIDE_THREADS).  Every thread calls it.
-template <typename E, typename Src>
+// arrival (init `bar` with NT).  All NT threads of the block call it.
+template <int NT = WIDE_THREADS, typename E, typename Src>
 static __device__ __forceinline__ void copy_rows(E* dst, int ld, int n, int w,
                                                  Src src,
                                                  unsigned long long* bar,
@@ -1165,16 +1186,34 @@ static __device__ __forceinline__ void copy_rows(E* dst, int ld, int n, int w,
     const int lane = threadIdx.x & 31, id = (threadIdx.x >> 5) * 4 + lane;
     if (threadIdx.x == 0) mbar_expect(bar, (unsigned)(n * bytes));
     if (lane < 4)
-      for (int i = id; i < n; i += 32)
+      for (int i = id; i < n; i += NT / 8)
         bulk_copy(dst + i * ld, src(i), (unsigned)bytes, bar);
     return;
   }
-  for (int e = threadIdx.x; e < n * (bytes / 4); e += WIDE_THREADS) {
+  for (int e = threadIdx.x; e < n * (bytes / 4); e += NT) {
     const int i = e / (bytes / 4), b = 4 * (e - i * (bytes / 4));
     async_copy4(reinterpret_cast<char*>(dst + i * ld) + b,
                 reinterpret_cast<const char*>(src(i)) + b);
   }
   cp_async_arrive(bar);
+}
+
+// The elements of a 16-byte piece of a row held in shared memory (4 f32,
+// or 8 bf16 widened exactly to f32), in order.
+template <typename E>
+static __device__ __forceinline__ void unpack16(const E* p,
+                                                float (&v)[16 / sizeof(E)]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (sizeof(E) == 4) {
+      v[k] = __uint_as_float(w[k]);
+    } else {
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
 }
 
 // ------------------------------------------ f32 wide pass (SIMT FFMA)

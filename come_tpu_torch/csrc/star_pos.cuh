@@ -14,6 +14,10 @@
 // So the pairs the TPU's dense mask keeps (same segment, exactly one hub:
 // pallas_star_sgns.py:144-146) are (hub, leaf) for each leaf, once each.
 //
+// Past MAX_DIM the same split holds the owned rows whole where a row's
+// 128 rows fit (star_pos_wide_kernel, f32 to d 440, bf16 to d 880) and
+// stages them in column slabs past that (star_pos_slab_kernel).
+//
 // Work split: the 128 slots of a row are cut into strips of STAR_STRIP
 // slots, one CTA each (STAR_NSTRIP x 8 = 128 CTAs a group).  A CTA owns the
 // segments whose hub lies in its strip.  It stages their rows, the strip's
@@ -237,10 +241,158 @@ static inline size_t star_pos_slab_smem_bytes() {
   return sizeof(float) * ((size_t)BLK * SLAB_STRIDE + BLK);
 }
 
-// star_pos_kernel for any d (K2, and K2b with BF16: the staged slab rows
-// and g2 rounded as there, each score the f32 sum of the rounded products,
-// its slabs' parts added in column order), its rows staged one column
-// slab at a time (sgns_common.cuh: SLAB): the segments, hubs, pads and
+// Sized for the widest owned range, a whole row (a fat hub at a strip's
+// last slot owns the rest of the row).
+static inline size_t star_pos_wide_smem_bytes(int d, bool bf16) {
+  return 16 + (size_t)(bf16 ? 2 : 4) * BLK * pos_wide_stride(d, bf16);
+}
+
+// Which star pass a step of width d takes (sgns_common.cuh: PosRoute).
+static inline int star_pos_route(int d, bool bf16) {
+  if (d <= MAX_DIM) return POS_ROWS;
+  return star_pos_wide_smem_bytes(d, bf16) <= POS_WIDE_SMEM ? POS_WHOLE
+                                                            : POS_SLAB;
+}
+
+// star_pos_kernel past MAX_DIM with the owned rows held whole for the pass
+// (where a whole row's 128 rows fit POS_WIDE_SMEM: f32 up to d 440, 133 KB
+// at d 256; bf16 up to d 880, 68 KB at 256): one sweep, which scores each
+// (hub, leaf) pair once, forms g2 and the loss at once, then writes every
+// owned slot's dphi (and zeroed dphin).  K2b holds its rows as bf16 (each
+// element rounded to nearest even as mxu<BF16> rounds it), loaded and
+// rounded by stage_rows (8 loads in flight a thread); K2's f32 rows arrive
+// by one cp.async.bulk a row onto an mbarrier (4-byte cp.async where d % 4
+// != 0), issued right after the wait, while the strip's pads are written.
+// The segments, hubs and owned range are found before the wait.  Scoring:
+// 8 lanes a pair, a lane's 16-byte pieces in column order; the updates: a
+// thread owns one 16-byte piece of one slot's dphi (4 or 8 columns).  Grid,
+// outputs and PDL as star_pos_kernel.
+template <bool BF16>
+static __global__ void __launch_bounds__(STAR_THREADS)
+star_pos_wide_kernel(const float* emb, const int* slots, const int* meta,
+                     int d, float* __restrict__ dphi,
+                     float* __restrict__ dphin, float* __restrict__ nt,
+                     double* __restrict__ stats) {
+  using E = std::conditional_t<BF16, __nv_bfloat16, float>;
+  constexpr int V = 16 / sizeof(E);  // elements of a 16-byte piece
+  extern __shared__ float4 star_smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(star_smem);
+  E* phi = reinterpret_cast<E*>(star_smem + 1);  // [BLK][S]: slot lo + r
+  __shared__ StarRow row;
+  __shared__ float gl[BLK];  // g2 of the leaf at lo + r
+  const int* ms = row.ms;
+  const int* ids = row.ids;
+  const int* hub = row.hub;
+  const int t = threadIdx.x;
+  const int base = blockIdx.y * BLK, s0 = blockIdx.x * STAR_STRIP;
+  const int S = pos_wide_stride(d, BF16);
+  const int dp = (d + V - 1) / V * V, nq = dp / V;  // pieces a row
+  const bool vec = d % 4 == 0;
+
+  read_row(row, slots, meta, base);
+  int lo = 0, hi = 0;
+  const bool own = owned_range(row, s0, lo, hi);
+  const int nr = hi - lo;
+  if (!BF16 && own) {  // the columns past d of every held row: zeros
+    for (int idx = t; idx < nr * (dp - d); idx += STAR_THREADS)
+      phi[idx / (dp - d) * S + d + idx % (dp - d)] = E(0.0f);
+    if (t == 0) mbar_init(bar, vec ? 1 : STAR_THREADS);
+    fence_async_smem();
+  }
+  __syncthreads();
+  pdl_wait();
+  auto src = [&](int i) { return emb + (size_t)ids[lo + i] * d; };
+  if (!BF16 && own) copy_rows<STAR_THREADS>(phi, S, nr, d, src, bar, vec);
+
+  // the strip's pads: zeros
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int n4 = (d + 3) / 4;
+  for (int idx = t; idx < STAR_STRIP * n4; idx += STAR_THREADS) {
+    const int a = s0 + idx / n4;
+    if (ms[a] >= 0) continue;
+    store4(dphi + (size_t)(base + a) * d, d, 4 * (idx % n4), zero, vec);
+    if (dphin)
+      store4(dphin + (size_t)(base + a) * d, d, 4 * (idx % n4), zero, vec);
+  }
+  if (t < STAR_STRIP && ms[s0 + t] < 0) nt[base + s0 + t] = 0.0f;
+  if (!own) return;  // no hub in the strip
+  if constexpr (BF16) {
+    stage_rows<STAR_THREADS, 8, float>(
+        nr, d, dp, src, [&](int i, int c, float4 v) {
+          put_bf16(phi + i * S + c, v);
+        });
+  } else {
+    mbar_wait(bar, 0);
+  }
+  __syncthreads();
+
+  // each (hub, leaf) pair once, 8 lanes a pair: g2 = 2 g (source and
+  // context side: g[a, b] = g[b, a]) and twice its loss
+  const int lane8 = t & 7;
+  float loss = 0.0f;
+  for (int r0 = 0; r0 < nr; r0 += STAR_THREADS / 8) {
+    const int r = r0 + (t >> 3), u = lo + r;
+    const bool leaf = r < nr && ms[u] >= 0 && hub[u] != u;
+    float s = 0.0f;
+    if (leaf) {
+      const E* a = phi + r * S;
+      const E* b = phi + (hub[u] - lo) * S;
+      for (int q = lane8; q < nq; q += 8) {
+        float x[V], y[V];
+        unpack16(a + V * q, x);
+        unpack16(b + V * q, y);
+#pragma unroll
+        for (int k = 0; k < V; ++k) s = fmaf(x[k], y[k], s);
+      }
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (leaf && lane8 == 0) {
+      gl[r] = 2.0f * mxu<BF16>(sigmoid_f(s) - 1.0f);
+      loss -= 2.0f * log_sigmoid_f(s);
+    }
+  }
+  __syncthreads();
+
+  // dphi of each owned slot, one 16-byte piece of held row a thread: a
+  // leaf's g2 phi_hub, a hub's sum over its leaves in slot order
+  for (int idx = t; idx < nr * nq; idx += STAR_THREADS) {
+    const int r = idx / nq, c = V * (idx - r * nq), u = lo + r;
+    if (ms[u] < 0) continue;  // a pad: its strip writes it
+    float acc[V], v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.0f;
+    if (hub[u] != u) {
+      unpack16(phi + (hub[u] - lo) * S + c, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] = fmaf(gl[r], v[k], acc[k]);
+    } else {
+      for (int w = u + 1; w < hi && hub[w] == u; ++w) {
+        unpack16(phi + (w - lo) * S + c, v);
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = fmaf(gl[w - lo], v[k], acc[k]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < V / 4; ++h) {
+      if (c + 4 * h >= d) break;
+      store4(dphi + (size_t)(base + u) * d, d, c + 4 * h,
+             make_float4(acc[4 * h], acc[4 * h + 1], acc[4 * h + 2],
+                         acc[4 * h + 3]),
+             vec);
+      if (dphin)
+        store4(dphin + (size_t)(base + u) * d, d, c + 4 * h, zero, vec);
+    }
+  }
+  finish_star(row, base, lo, hi, loss, nt, stats);
+}
+
+// The route past MAX_DIM where a row's whole rows do not fit
+// (star_pos_route): star_pos_kernel for any d (K2, and K2b with BF16: the
+// staged slab rows and g2 rounded as there, each score the f32 sum of the
+// rounded products, its slabs' parts added in column order), its rows
+// staged one column slab at a time (sgns_common.cuh: SLAB): the segments, hubs, pads and
 // owned range are found as there; sweep A stages each slab of the owned
 // rows and adds every (hub, leaf) pair's slab part of its score to sc[r]
 // (the same 8 lanes own a leaf in every slab); g2 and the loss follow from
@@ -360,24 +512,33 @@ star_pos_slab_kernel(const float* emb, const int* slots, const int* meta,
   finish_star(row, base, lo, hi, loss, nt, stats);
 }
 
-// The star pass of one instance: init() (checks d, sets the kernel's
-// shared-memory cap to what MAX_DIM needs, so a plan of another width never
-// lowers it; past MAX_DIM the slab kernel's, the same at every d), then
-// launch() once per group of 8 rows.
+// The star pass of one instance: init() (checks d, sets the route's
+// kernel's shared-memory cap to what its widest plan needs: MAX_DIM's,
+// POS_WIDE_SMEM or a slab's, so a plan of another width never lowers it),
+// then launch() once per group of 8 rows.
 namespace {  // internal linkage (sgns_common.cuh: NegativePass)
 
 template <bool BF16>
 struct StarPosPass {
   size_t smem = 0;
+  int launched = -1;  // the route of the kernel launch() last launched
 
   static size_t smem_bytes(int d) {
-    return d > MAX_DIM ? star_pos_slab_smem_bytes() : star_pos_smem_bytes(d);
+    const int route = star_pos_route(d, BF16);
+    return route == POS_ROWS    ? star_pos_smem_bytes(d)
+           : route == POS_WHOLE ? star_pos_wide_smem_bytes(d, BF16)
+                                : star_pos_slab_smem_bytes();
   }
 
   cudaError_t init(int d) {
     if (d < 1) return cudaErrorInvalidValue;
     smem = smem_bytes(d);
-    if (d > MAX_DIM)
+    const int route = star_pos_route(d, BF16);
+    if (route == POS_WHOLE)
+      return cudaFuncSetAttribute(star_pos_wide_kernel<BF16>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)POS_WIDE_SMEM);
+    if (route == POS_SLAB)
       return cudaFuncSetAttribute(star_pos_slab_kernel<BF16>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem);
@@ -386,19 +547,20 @@ struct StarPosPass {
                                 (int)star_pos_smem_bytes(MAX_DIM));
   }
 
-  // Launches the pass on `stream` (with PDL when `pdl`); returns the
-  // launch's error.
+  // Launches the pass on `stream` (with PDL when `pdl`) and notes its
+  // route in `launched`; returns the launch's error.
   cudaError_t launch(const float* emb, const int* slots, const int* meta,
                      int d, float* dphi, float* dphin, float* nt,
-                     double* stats, cudaStream_t stream,
-                     bool pdl = false) const {
-    if (d > MAX_DIM)
-      return launch_kernel(star_pos_slab_kernel<BF16>, dim3(STAR_NSTRIP, NBLK),
-                           dim3(STAR_THREADS), smem, stream, pdl, 0, emb,
-                           slots, meta, d, dphi, dphin, nt, stats);
-    return launch_kernel(star_pos_kernel<BF16>, dim3(STAR_NSTRIP, NBLK),
-                         dim3(STAR_THREADS), smem, stream, pdl, 0, emb, slots,
-                         meta, d, dphi, dphin, nt, stats);
+                     double* stats, cudaStream_t stream, bool pdl = false) {
+    const int route = star_pos_route(d, BF16);
+    auto* kernel = route == POS_ROWS    ? star_pos_kernel<BF16>
+                   : route == POS_WHOLE ? star_pos_wide_kernel<BF16>
+                                        : star_pos_slab_kernel<BF16>;
+    const cudaError_t e = launch_kernel(
+        kernel, dim3(STAR_NSTRIP, NBLK), dim3(STAR_THREADS), smem, stream,
+        pdl, 0, emb, slots, meta, d, dphi, dphin, nt, stats);
+    if (e == cudaSuccess) launched = route;
+    return e;
   }
 };
 

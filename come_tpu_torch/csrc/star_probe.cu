@@ -24,7 +24,7 @@
 //
 // What bounds it: as K2b (the negative pass is compute, the gather and
 // scatter are row traffic); the probe only separates the sections.  Any d
-// that is a multiple of 4: past 192 MATH runs K2b's slab passes; the
+// that is a multiple of 4: past 192 MATH runs K2b's wide passes; the
 // gather and scatter stage `unroll` rows of d floats a CTA in shared
 // memory (probe_rows.cuh), so unroll * d * 4 bytes must fit in a block's
 // 227 KB (every unroll up to d 452, unroll 32 up to d 1816).
@@ -43,7 +43,7 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
                              double* stats, float* phi, float* cneg,
                              float* dneg, float* dphi, float* nt, int d,
                              int G, int KP, int R, int sections, float lr,
-                             float negw, cudaStream_t stream) {
+                             float negw, int* route, cudaStream_t stream) {
   if (d % 4 || R < 1) return (int)cudaErrorInvalidValue;
   StarPosPass<BF16> pos;
   cudaError_t e = pos.init(d);
@@ -69,6 +69,7 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
       pos.launch(phi, iota, meta + (size_t)g * GROUP, d, dphi, nullptr, nt,
                  stats, stream);
       COME_CHECK_LAUNCH();
+      *route = pos.launched;
       if (sections & NEG) {
         neg.launch(phi, iota, nt, cneg, d, KP, negw, dphi, dneg, stats,
                    stream);
@@ -94,11 +95,12 @@ static int star_probe_unroll(int unroll, float* emb, const int* slots,
                              const int* iota, double* stats, float* phi,
                              float* cneg, float* dneg, float* dphi, float* nt,
                              int d, int G, int KP, int R, int sections,
-                             float lr, float negw, cudaStream_t stream) {
+                             float lr, float negw, int* route,
+                             cudaStream_t stream) {
   // (the parentheses keep the template's comma inside one macro argument)
   COME_ROWS_DISPATCH(unroll, return (star_probe_groups<BF16, U>(
       emb, slots, meta, pools, iota, stats, phi, cneg, dneg, dphi, nt, d, G,
-      KP, R, sections, lr, negw, stream)));
+      KP, R, sections, lr, negw, route, stream)));
   return 0;
 }
 
@@ -116,6 +118,8 @@ using namespace come;
 //                zeroed by the caller
 // bf16 != 0 rounds as K2b; sections is a mask of Section; unroll is the
 // rows in flight per warp of the gather and scatter (8, 16, 32, 64, 128).
+// `route` (a host int) receives the route of the star pass MATH launched
+// (sgns_common.cuh: PosRoute), and is left as it is without MATH.
 // Returns 0 or the first CUDA error code.  Launches on `stream`, does not
 // synchronise and allocates nothing.
 extern "C" int come_star_probe_step(float* emb, const int* slots,
@@ -125,13 +129,14 @@ extern "C" int come_star_probe_step(float* emb, const int* slots,
                                     float* dphi, float* nt, int d, int G,
                                     int KP, int R, int bf16, int sections,
                                     int unroll, float lr, float negw,
-                                    void* stream_ptr) {
+                                    int* route, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   return bf16 ? star_probe_unroll<true>(unroll, emb, slots, meta, pools, iota,
                                         stats, phi, cneg, dneg, dphi, nt, d,
-                                        G, KP, R, sections, lr, negw, stream)
+                                        G, KP, R, sections, lr, negw, route,
+                                        stream)
               : star_probe_unroll<false>(unroll, emb, slots, meta, pools,
                                          iota, stats, phi, cneg, dneg, dphi,
                                          nt, d, G, KP, R, sections, lr, negw,
-                                         stream);
+                                         route, stream);
 }

@@ -27,8 +27,10 @@
 // block.  The negative pass is the walk kernel's (sgns_common.cuh: FFMA
 // for K2, the tensor cores for K2b).  K2b's star pass rounds the staged
 // rows and each pair's g as they are made, a few conversions per element.
-// Past d 192 K2 and K2b stage their star rows one column slab of 128 at a
-// time (star_pos_slab_kernel), and the negative pass is its wide kernel
+// Past d 192 K2 and K2b hold their owned star rows whole where a row's 128
+// rows fit (star_pos_wide_kernel: K2 to d 440, K2b to 880), else stage
+// them one column slab of 128 at a time (star_pos_slab_kernel); the
+// negative pass is its wide kernel
 // (sgns_common.cuh: NEG_WHOLE).
 // The group loop is recorded once as a CUDA graph that the card replays
 // (step_graph.cuh), behind a head kernel that copies the call's slots,
@@ -64,13 +66,14 @@ static __global__ void star_scatter_kernel(float* emb, const int* slots,
 
 // The group loop of one step, launched on `stream` (the recording stream),
 // after the head kernel: slots, meta and pools are the plan's copies.
-// Every kernel after the first under PDL.
+// Every kernel after the first under PDL.  `launched` receives the route
+// of the star pass it launched (PosRoute).
 template <bool BF16>
 static int star_groups(const NegSetup& ns, float* emb, const int* slots,
                        const int* meta, const int* pools, double* stats,
                        float* cneg, float* dneg, float* dphi, float* nt,
                        const StepArgs* args, int d, int G, int KP, int R,
-                       float negw, cudaStream_t stream) {
+                       float negw, int* launched, cudaStream_t stream) {
   StarPosPass<BF16> pos;
   pos.smem = StarPosPass<BF16>::smem_bytes(d);
   NegativePass<BF16, float> neg;
@@ -87,6 +90,7 @@ static int star_groups(const NegSetup& ns, float* emb, const int* slots,
     e = pos.launch(emb, sg, meta + (size_t)g * GROUP, d, dphi, dphin, nt,
                    stats, stream, true);
     if (e != cudaSuccess) return (int)e;
+    *launched = pos.launched;
     e = neg.launch(emb, sg, nt, cneg, d, KP, negw, dphin, dneg, stats, stream,
                    true);
     if (e != cudaSuccess) return (int)e;
@@ -132,7 +136,8 @@ static int star_step(StepGraph* p, int how, float* emb, const HeadIn& hin,
         if (e != cudaSuccess) return (int)e;
         return star_groups<BF16>(p->neg, emb, hb.dst[0], hb.dst[1],
                                  hb.dst[2], stats, cneg, dneg, dphi, nt,
-                                 hb.args, d, G, KP, R, negw, cap);
+                                 hb.args, d, G, KP, R, negw, &p->route,
+                                 cap);
       },
       step_head_kernel, hin, hb);
 }
@@ -179,4 +184,11 @@ extern "C" int come_star_sgns_step(void* graph, int record, float* emb,
                                 dphi, nt, d, G, KP, R, negw, stream)
               : star_step<false>(p, record, emb, hin, hb, stats, cneg, dneg,
                                  dphi, nt, d, G, KP, R, negw, stream);
+}
+
+// The star pass a star step of width d takes (sgns_common.cuh: PosRoute):
+// 0 d <= 192 (star_pos_kernel), 1 whole rows (star_pos_wide_kernel), 2
+// column slabs (star_pos_slab_kernel); bf16 != 0 for K2b (and P3).
+extern "C" int come_star_pos_route(int d, int bf16) {
+  return star_pos_route(d, bf16 != 0);
 }

@@ -155,6 +155,13 @@ extern "C" int come_step_graph_free(void* slot) {
   return (int)(e != cudaSuccess ? e : e2);
 }
 
+// The band or star pass (sgns_common.cuh: PosRoute) that a walk or star
+// step's recording in this slot launched; -1 before a recording.
+extern "C" int come_step_graph_route(void* slot) {
+  const StepGraph* p = static_cast<const StepGraph*>(slot);
+  return p == nullptr ? -1 : p->route;
+}
+
 // Launches a slot's instance once more on `stream` (the floor probe's
 // replays).  Returns 0 or the CUDA error.
 extern "C" int come_step_graph_launch(void* slot, void* stream) {

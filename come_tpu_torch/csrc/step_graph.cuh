@@ -46,6 +46,7 @@ struct StepGraph {
   cudaKernelNodeParams head_params = {};  // the head's function and shape
   int mode = -1;                   // the C entry's mode, fixed at setup
   NegSetup neg;                    // the negative pass's sizing, found at setup
+  int route = -1;  // the band or star pass the recording launched (PosRoute)
 };
 
 // What a call asks of a plan's recording (ops/launch_plan.py:

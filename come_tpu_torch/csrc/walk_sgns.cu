@@ -60,8 +60,11 @@
 // whose window reaches its slots instead of exchanging them, and writes its
 // slots' dphi and dctx itself, without atomics.  The staged range never
 // passes the walk (at most 128 rows: 217 KB at d 192), so no window is cut.
-// Past d 192 every mode's band pass stages the same rows one column slab
-// of 128 at a time (walk_pos_slab_kernel; sgns_common.cuh: SLAB), and the
+// Past d 192 the band pass holds the strip's whole rows for the pass where
+// they fit (walk_pos_wide_kernel: one sweep, rows by asynchronous copies,
+// bf16 rows in the rounding modes; W 10 at d 256 and any bf16 strip there),
+// and stages them one column slab of 128 at a time where they do not
+// (walk_pos_slab_kernel; sgns_common.cuh: SLAB, POS_WIDE_SMEM); the
 // negative pass is its wide kernel (sgns_common.cuh: NEG_WHOLE).
 // The negative pass runs on the tensor cores in the bf16 modes
 // (sgns_common.cuh).  Groups keep their order with stream-ordered launches;
@@ -100,7 +103,8 @@ static inline size_t walk_pos_smem_bytes(int d, int L, int W) {
          sizeof(int) * (2 * R + 2 * STRIP * R);
 }
 
-// The band passes' common steps (walk_pos_kernel, walk_pos_slab_kernel).
+// The band passes' common steps (walk_pos_kernel, walk_pos_wide_kernel,
+// walk_pos_slab_kernel).
 
 // A strip past L: exact zeros for its slots' dphi, dctx, dphin and nt,
 // written after the wait.
@@ -307,7 +311,8 @@ static inline size_t walk_pos_slab_smem_bytes(int L, int W) {
 }
 
 // walk_pos_kernel for any d, in every mode, its rows staged one column
-// slab at a time (sgns_common.cuh: SLAB).  The pairs are listed as there;
+// slab at a time (sgns_common.cuh: SLAB): the route past MAX_DIM where the
+// strip's whole rows do not fit (walk_pos_route).  The pairs are listed as there;
 // sweep A stages each slab of the strip's rows and adds every pair's slab
 // part of its score to sc (the same 8 lanes own a pair in every slab, so
 // no two threads write one sum); g and the loss follow from the sums; sweep
@@ -442,6 +447,212 @@ walk_pos_slab_kernel(const T* emb_in, const T* emb_out, const int* walks,
       store4(dphi + o, sl.w, c, gp, vec);
       store4(dctx + o, sl.w, c, gc, vec);
       store4(dphin + o, sl.w, c, make_float4(0.0f, 0.0f, 0.0f, 0.0f), vec);
+    }
+  }
+  finish_strip<PAIRED>(base, t0, t1, lo, L, wr, loss, nt, stats);
+}
+
+static inline size_t walk_pos_wide_smem_bytes(int d, int L, int W,
+                                              bool bf16) {
+  const size_t R = walk_pos_rows(L, W);
+  return 16 + (bf16 ? 2 : 4) * 2 * R * pos_wide_stride(d, bf16) +
+         sizeof(float) * 2 * STRIP * R +
+         sizeof(int) * (2 * R + 2 * STRIP * R);
+}
+
+// Which band pass a step of width d, walk length L and window W takes
+// (sgns_common.cuh: PosRoute); `bf16` says the band rounds its rows (BF16
+// without PAIRED, which bf16 tables imply).
+static inline int walk_pos_route(int d, int L, int W, bool bf16) {
+  if (d <= MAX_DIM) return POS_ROWS;
+  return walk_pos_wide_smem_bytes(d, L, W, bf16) <= POS_WIDE_SMEM ? POS_WHOLE
+                                                                   : POS_SLAB;
+}
+
+// walk_pos_kernel past MAX_DIM with the strip's 2 R rows held whole for the
+// pass (where walk_pos_wide_smem_bytes fits POS_WIDE_SMEM: R <= 103 rows in
+// f32 at d 256, so W <= 47, any R in bf16 there; 62 KB at W 10 in f32, 33
+// KB in bf16):
+// one sweep, which scores every pair once from the held rows, forms g and
+// the loss at once, then writes the strip's dphi, dctx and zeroed dphin.
+// The rows are bf16 where the band rounds them (BF16 without PAIRED: each
+// element rounded to nearest even as mxu<RND> rounds it; K3's bf16 rows as
+// they are), else f32 (K1, K5 with either product mode), so a 16-byte
+// shared-memory read carries 8 elements in the bf16 modes.  Where the rows
+// are the table's own (f32 rows of an f32 table, K3's bf16 rows) they
+// arrive by one cp.async.bulk a row and table onto an mbarrier (4-byte
+// cp.async where a row's bytes are not a multiple of 16), issued right
+// after the wait; K1b's and K4's f32 rows are loaded and rounded by
+// stage_rows (16 loads in flight a thread).  The walk rows, window draws
+// and the pair list are made before the wait (they read only the step's
+// staged walks and draws).  Scoring: 8 lanes a pair, a lane's 16-byte
+// pieces in column order, two pairs at a time; the updates: a thread owns
+// one 16-byte piece (4 or 8 columns) of the dphi and dctx of two slots (f32
+// rows) or one (bf16).  The scores are f32 sums of
+// the (rounded) products, as walk_pos_kernel's.  Grid, outputs and PDL as
+// walk_pos_kernel.
+template <bool BF16, bool PAIRED, typename T>
+static __global__ void __launch_bounds__(THREADS)
+walk_pos_wide_kernel(const T* emb_in, const T* emb_out, const int* walks,
+                     const int* wrow, int d, int L, int W,
+                     float* __restrict__ dphi, float* __restrict__ dctx,
+                     float* __restrict__ dphin, float* __restrict__ nt,
+                     double* __restrict__ stats) {
+  constexpr bool RND = BF16 && !PAIRED;
+  using E = std::conditional_t<RND, __nv_bfloat16, float>;
+  constexpr int V = 16 / sizeof(E);  // elements of a 16-byte piece
+  // the rows arrive as they are in the table (else: loaded and rounded)
+  constexpr bool DIRECT = std::is_same<E, T>::value;
+  const int t0 = blockIdx.x * STRIP, base = blockIdx.y * BLK;
+  if (t0 >= L) {  // padding slots: exact zeros, no pairs
+    zero_strip(base, t0, d, dphi, dctx, dphin, nt);
+    return;
+  }
+  const int t1 = min(t0 + STRIP, L);  // the strip's centres: [t0, t1)
+  const int lo = max(0, t0 - W), hi = min(L, t1 + W), R = hi - lo;
+  const int RM = walk_pos_rows(L, W), S = pos_wide_stride(d, RND);
+  const int dp = (d + V - 1) / V * V, nq = dp / V;  // pieces a row
+  const bool vec = d * sizeof(T) % 16 == 0;  // one bulk copy a row
+  extern __shared__ float4 wide_smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(wide_smem);
+  E* phi = reinterpret_cast<E*>(wide_smem + 1);  // [R][S]: row lo + r
+  E* ctx = phi + R * S;                          // [R][S]
+  float* ga = reinterpret_cast<float*>(phi + 2 * RM * S);  // [STRIP][RM]
+  float* gb = ga + STRIP * RM;      // [RM][STRIP]: g[lo + r, t0 + a]
+  int* wr = reinterpret_cast<int*>(gb + RM * STRIP);  // [RM] window draws
+  int* rows = wr + RM;              // [RM] table rows
+  int* plist = rows + RM;           // [2 * STRIP * RM] pairs r_t << 16 | r_u
+  __shared__ int npairs;
+
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    rows[r] = step_ld(walks + base + lo + r);
+    wr[r] = PAIRED ? 1 : min(step_ld(wrow + base + lo + r), W);
+  }
+  for (int idx = threadIdx.x; idx < 2 * STRIP * RM; idx += THREADS)
+    ga[idx] = 0.0f;  // ga and gb
+  if (DIRECT) {  // the columns past d of every held row: zeros
+    for (int idx = threadIdx.x; idx < 2 * R * (dp - d); idx += THREADS)
+      phi[idx / (dp - d) * S + d + idx % (dp - d)] = E(0.0f);
+  }
+  if (threadIdx.x == 0) {
+    npairs = 0;
+    if (DIRECT) mbar_init(bar, vec ? 1 : THREADS);
+  }
+  fence_async_smem();
+  __syncthreads();
+  list_pairs<PAIRED>(t0, t1, lo, R, wr, plist, &npairs);
+  pdl_wait();
+  auto row = [&](int i) {  // held row i's source: emb_in's, then emb_out's
+    return i < R ? emb_in + (size_t)rows[i] * d
+                 : emb_out + (size_t)rows[i - R] * d;
+  };
+  if constexpr (DIRECT) {
+    copy_rows<THREADS>(phi, S, 2 * R, d, row, bar, vec);
+    mbar_wait(bar, 0);
+  } else {  // K1b, K4: f32 rows rounded to bf16 as they land
+    stage_rows<THREADS, 16, T>(
+        2 * R, d, dp, row,
+        [&](int i, int c, float4 v) { put_bf16(phi + i * S + c, v); });
+  }
+  __syncthreads();
+
+  // two pairs a group of 8 lanes at a time (p and p + THREADS / 8), each
+  // summed as walk_pos_kernel sums it: two independent chains a lane
+  const int np = npairs, lane8 = threadIdx.x & 7;
+  float loss = 0.0f;
+  auto put_g = [&](int p, float s) {  // g and the loss of pair p, score s
+    const int pr = plist[p], rt = pr >> 16, ru = pr & 0xffff;
+    const float g = mxu<RND>(sigmoid_f(s) - 1.0f);
+    const int t = lo + rt, u = lo + ru;
+    if (t >= t0 && t < t1) {
+      ga[(t - t0) * RM + ru] = g;
+      loss -= log_sigmoid_f(s);
+    }
+    if (u >= t0 && u < t1) gb[rt * STRIP + (u - t0)] = g;
+  };
+  for (int p0 = 0; p0 < np; p0 += THREADS / 4) {
+    const int p = p0 + (threadIdx.x >> 3), p2 = p + THREADS / 8;
+    const int pr = p < np ? plist[p] : 0, pr2 = p2 < np ? plist[p2] : 0;
+    const E* a = phi + (pr >> 16) * S;
+    const E* b = ctx + (pr & 0xffff) * S;
+    const E* a2 = phi + (pr2 >> 16) * S;
+    const E* b2 = ctx + (pr2 & 0xffff) * S;
+    float s = 0.0f, s2 = 0.0f;
+    for (int q = lane8; q < nq; q += 8) {
+      float x[V], y[V], x2[V], y2[V];
+      unpack16(a + V * q, x);
+      unpack16(b + V * q, y);
+      unpack16(a2 + V * q, x2);
+      unpack16(b2 + V * q, y2);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        s = fmaf(x[k], y[k], s);
+        s2 = fmaf(x2[k], y2[k], s2);
+      }
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if (lane8 == 0) {
+      if (p < np) put_g(p, s);
+      if (p2 < np) put_g(p2, s2);
+    }
+  }
+  __syncthreads();
+
+  // dphi[t] = sum_u g[t, u] ctx[u], dctx[u] = sum_t g[t, u] phi[t] over
+  // the band: a thread owns one 16-byte piece of held row for NC adjacent
+  // centres (NC 2 for f32 rows, 1 for bf16), reading each row of their
+  // windows' union once; g is zero outside a centre's window, so each sum
+  // adds its window's terms in row order, as walk_pos_kernel's
+  constexpr int NC = V == 4 ? 2 : 1, NA = STRIP / NC;
+  const bool vs = d % 4 == 0;
+  for (int idx = threadIdx.x; idx < NA * nq; idx += THREADS) {
+    const int a0 = idx / nq, c = V * (idx - a0 * nq);
+    float gp[NC][V], gc[NC][V];
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int k = 0; k < V; ++k) gp[j][k] = gc[j][k] = 0.0f;
+    // the rows of the NC centres' windows (centres past t1 have none)
+    const int tl = t0 + NC * a0, th = min(tl + NC - 1, t1 - 1);
+    const int r0 = max(lo, tl - W) - lo, r1 = min(hi, th + W + 1) - lo;
+#pragma unroll 2
+    for (int r = tl < t1 ? r0 : r1; r < r1; ++r) {
+      float cv[V], pv[V];
+      unpack16(ctx + r * S + c, cv);
+      unpack16(phi + r * S + c, pv);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int a = NC * a0 + j;
+        const float x = ga[a * RM + r], y = gb[r * STRIP + a];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          gp[j][k] = fmaf(x, cv[k], gp[j][k]);
+          gc[j][k] = fmaf(y, pv[k], gc[j][k]);
+        }
+      }
+    }
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const size_t o = (size_t)(base + t0 + NC * a0 + j) * d;
+#pragma unroll
+      for (int h = 0; h < V / 4; ++h) {
+        if (c + 4 * h >= d) break;
+        const int ch = c + 4 * h;
+        store4(dphi + o, d, ch,
+               make_float4(gp[j][4 * h], gp[j][4 * h + 1], gp[j][4 * h + 2],
+                           gp[j][4 * h + 3]),
+               vs);
+        store4(dctx + o, d, ch,
+               make_float4(gc[j][4 * h], gc[j][4 * h + 1], gc[j][4 * h + 2],
+                           gc[j][4 * h + 3]),
+               vs);
+        store4(dphin + o, d, ch, zero, vs);
+      }
     }
   }
   finish_strip<PAIRED>(base, t0, t1, lo, L, wr, loss, nt, stats);
@@ -636,16 +847,24 @@ struct WalkStep {
 // (rounded RMW scatter, SR with a per-step seed; `retries` collects its CAS
 // retries).  `pdl` says whether the first launch may start under PDL (a
 // kernel besides the head precedes it in the step); every later one does.
+// `launched` receives the route of the band pass it launched (PosRoute).
 template <bool BF16, bool PAIRED, typename T, bool SR>
 static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
-                       cudaStream_t stream) {
+                       int* launched, cudaStream_t stream) {
   constexpr bool TB16 = !std::is_same<T, float>::value;
   T* emb_in = static_cast<T*>(s.emb_in);
   T* emb_out = static_cast<T*>(s.emb_out);
   const int d = s.d, L = s.L, W = s.W, KP = s.KP, R = s.R;
-  const bool slab = d > MAX_DIM;
-  const size_t pos_smem =
-      slab ? walk_pos_slab_smem_bytes(L, W) : walk_pos_smem_bytes(d, L, W);
+  constexpr bool RND = BF16 && !PAIRED;  // the band rounds its rows
+  const int route = walk_pos_route(d, L, W, RND);
+  const size_t pos_smem = route == POS_ROWS ? walk_pos_smem_bytes(d, L, W)
+                          : route == POS_WHOLE
+                              ? walk_pos_wide_smem_bytes(d, L, W, RND)
+                              : walk_pos_slab_smem_bytes(L, W);
+  auto* pos_kernel = route == POS_ROWS ? walk_pos_kernel<BF16, PAIRED, T>
+                     : route == POS_WHOLE
+                         ? walk_pos_wide_kernel<BF16, PAIRED, T>
+                         : walk_pos_slab_kernel<BF16, PAIRED, T>;
   NegativePass<BF16, T> neg;
   static_cast<NegSetup&>(neg) = ns;
   float* dphin = s.dphi + (size_t)GROUP * d;  // the negative pass's part
@@ -660,12 +879,12 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
       pdl = true;
     }
     const int* wr = PAIRED ? nullptr : s.wrow + (size_t)g * GROUP;
-    e = launch_kernel(slab ? walk_pos_slab_kernel<BF16, PAIRED, T>
-                           : walk_pos_kernel<BF16, PAIRED, T>,
-                      dim3(NSTRIP, NBLK), dim3(THREADS), pos_smem, stream,
+    e = launch_kernel(pos_kernel, dim3(NSTRIP, NBLK), dim3(THREADS),
+                      pos_smem, stream,
                       pdl, 0, (const T*)emb_in, (const T*)emb_out, wg, wr, d,
                       L, W, s.dphi, s.dctx, dphin, s.nt, s.stats);
     if (e != cudaSuccess) return (int)e;
+    *launched = route;
     pdl = true;
     e = neg.launch(emb_in, wg, s.nt, s.cneg, d, KP, s.negw, dphin, s.dneg,
                    s.stats, stream, true);
@@ -713,7 +932,8 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
     return (int)cudaErrorInvalidValue;
   if (p->mode < 0) {
     // the caps are what the largest strip needs (d MAX_DIM, or a slab, and
-    // a whole walk), so a plan of another width never lowers them
+    // a whole walk; the wide kernel's route limit), so a plan of another
+    // width never lowers them
     cudaError_t e = cudaFuncSetAttribute(
         walk_pos_kernel<BF16, PAIRED, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -722,6 +942,10 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
       e = cudaFuncSetAttribute(walk_pos_slab_kernel<BF16, PAIRED, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)walk_pos_slab_smem_bytes(BLK, BLK));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(walk_pos_wide_kernel<BF16, PAIRED, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)POS_WIDE_SMEM);
     if (e != cudaSuccess) return (int)e;
     NegativePass<BF16, T> neg;
     e = neg.init(s.d, s.KP, GROUP);
@@ -746,7 +970,8 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
           if (e != cudaSuccess) return (int)e;
           lead = true;
         }
-        return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, lead, cap);
+        return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, lead, &p->route,
+                                                cap);
       },
       step_head_kernel, hin, hb);
 }
@@ -855,4 +1080,13 @@ extern "C" int come_walk_sgns_gen_step(
                     {G * NBLK, n, n, np}, a, stats};
   return walk_step_mode(graph, record, bf16, 0, tables_bf16, sr, s, hin, hb,
                         (cudaStream_t)stream_ptr);
+}
+
+// The band pass a walk step of these arguments takes (come_walk_sgns_step's
+// d, L, W and modes; sgns_common.cuh: PosRoute): 0 d <= 192
+// (walk_pos_kernel), 1 whole rows (walk_pos_wide_kernel), 2 column slabs
+// (walk_pos_slab_kernel).  The group loop routes by the same rule.
+extern "C" int come_walk_pos_route(int d, int L, int W, int bf16, int paired,
+                                   int tables_bf16) {
+  return walk_pos_route(d, L, W, (bf16 != 0 || tables_bf16 != 0) && !paired);
 }

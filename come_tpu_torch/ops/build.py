@@ -45,6 +45,9 @@ SIGNATURES = {
     "come_walk_sgns_gen_step": [_P, _I] + [_P] * 21 + [_I] * 9
     + [_U, _F, _F, _P],
     "come_star_sgns_step": [_P, _I] + [_P] * 13 + [_I] * 5 + [_F, _F, _P],
+    "come_walk_pos_route": [_I] * 6,
+    "come_star_pos_route": [_I] * 2,
+    "come_step_graph_route": [_P],
     "come_step_graph_new": [],
     "come_step_graph_free": [_P],
     "come_step_graph_launch": [_P, _P],
@@ -62,7 +65,8 @@ SIGNATURES = {
     "come_smem_probe": [_P, _P, _I, _P],
     "come_smem_optin": [],
     "come_cuda_error_name": [_I],
-    "come_star_probe_step": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    "come_star_probe_step": [_P] * 11 + [_I] * 7
+    + [_F, _F, ctypes.POINTER(ctypes.c_int), _P],
     "come_floor_probe": [_I] + [_P] * 9 + [_I] * 3 + [_P],
     "come_floor_probe_record": [_P, _I] + [_P] * 9 + [_I] * 3 + [_P],
     "come_while_graph_new": [ctypes.POINTER(ctypes.c_ulonglong)],

@@ -108,6 +108,7 @@ class LaunchPlan:
         self.args = torch.zeros(ARGS_BYTES // 8, dtype=torch.int64,
                                 device=dev)
         self.slot = None  # the C graph slot, made at the first CUDA step
+        self.route = None  # the band or star route its recording launched
         self.recorded = None  # what the instance's recording holds
         self.pending = None  # what the step begun would record
         self.recordings = self.instantiations = self.updates = 0

@@ -27,11 +27,19 @@ is updated IN PLACE and returned.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from come_tpu_torch.ops import build
 from come_tpu_torch.ops.star_sgns import NWL, _pad_stream, star_group_grads
-from come_tpu_torch.ops.walk_sgns import check_cuda_inputs, expand_pools, mxu
+from come_tpu_torch.ops.walk_sgns import (
+    POS_ROUTES,
+    check_cuda_inputs,
+    expand_pools,
+    mxu,
+    new_routes,
+)
 
 SECTIONS = ("gather", "math", "neg", "scatter", "pool")
 UNROLLS = (8, 16, 32, 64, 128)
@@ -90,8 +98,9 @@ def star_probe_step(emb, slots, meta, pools, lr, negw, *,
 
     Returns (emb, loss, n_pairs); loss and n_pairs are 0-dim float32
     tensors on the table's device.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (counted in ``star_probe_step.launches``) or
-    raise.
+    tensors launch the kernel (counted in ``star_probe_step.launches``;
+    with ``math``, by the route of the star pass it launched in ``.routes``)
+    or raise.
     """
     flags = dict(gather=gather, math=math, neg=neg, scatter=scatter,
                  pool=pool)
@@ -124,17 +133,21 @@ def star_probe_step(emb, slots, meta, pools, lr, negw, *,
     dneg = torch.zeros((KP, d), dtype=f32, device=dev)
     iota = torch.arange(NWL, dtype=torch.int32, device=dev)
     sections = sum(1 << i for i, s in enumerate(SECTIONS) if flags[s])
+    route = ctypes.c_int(-1)
     code = build.library().come_star_probe_step(
         emb.data_ptr(), slots.data_ptr(), meta.data_ptr(), pools.data_ptr(),
         iota.data_ptr(), stats.data_ptr(), phi.data_ptr(), cneg.data_ptr(),
         dneg.data_ptr(), dphi.data_ptr(), nt.data_ptr(), d, G, KP, R,
         int(mxu_bf16), sections, int(unroll), float(lr), float(negw),
-        torch.cuda.current_stream(dev).cuda_stream,
+        ctypes.byref(route), torch.cuda.current_stream(dev).cuda_stream,
     )
     star_probe_step.launches += 1
     build.check(code, "come_star_probe_step")
+    if route.value >= 0:  # MATH ran its star pass
+        star_probe_step.routes[POS_ROUTES[route.value]] += 1
     st = stats.to(f32)
     return emb, st[0], st[1]
 
 
 star_probe_step.launches = 0
+star_probe_step.routes = new_routes()  # MATH's star pass by route

@@ -19,7 +19,13 @@ import torch
 import torch.nn.functional as F
 
 from come_tpu_torch.ops import build, launch_plan
-from come_tpu_torch.ops.walk_sgns import check_cuda_inputs, expand_pools, mxu
+from come_tpu_torch.ops.walk_sgns import (
+    check_cuda_inputs,
+    count_route,
+    expand_pools,
+    mxu,
+    new_routes,
+)
 from come_tpu_torch.sampling.stars import PAD_META
 
 BLK = 128  # slots per star row: pairs never cross a row
@@ -140,7 +146,8 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
     replayed graph (``ops/launch_plan.py``; counted in
     ``star_sgns_step.launches``, K2, or ``.launches_bf16``, K2b, and the
     graph's events in ``.recordings``, ``.instantiations``, ``.updates`` and
-    ``.replays``) or raise.
+    ``.replays``; steps by the star pass's route in ``.routes``,
+    ``ops/walk_sgns.py``'s POS_ROUTES) or raise.
     """
     if emb.device.type == "cpu":
         return star_sgns_step_reference(
@@ -169,12 +176,14 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
     else:
         star_sgns_step.launches += 1
     build.check(code, "come_star_sgns_step")
+    count_route(plan, how, star_sgns_step, lib)
     plan.done(how, star_sgns_step)
     return (emb,) + plan.result()
 
 
 star_sgns_step.launches = 0
 star_sgns_step.launches_bf16 = 0
+star_sgns_step.routes = new_routes()
 star_sgns_step.recordings = 0
 star_sgns_step.instantiations = 0
 star_sgns_step.updates = 0

@@ -44,6 +44,30 @@ LP = 128  # slots per walk (walks are padded to this many positions)
 NW = 8  # walks per group
 NWL = LP * NW  # slots per group
 
+# The band and star passes' routes on the card (csrc/sgns_common.cuh:
+# PosRoute, decided in C by whether a CTA's rows fit in shared memory):
+# "rows" up to d 192, "whole" (the *_wide_kernel forms, whole rows held in
+# shared memory) past it where the rows fit, "slab" (column slabs) where
+# they do not.
+POS_ROUTES = ("rows", "whole", "slab")
+
+
+def new_routes() -> dict:
+    """A wrapper's count of steps by band or star route."""
+    return dict.fromkeys(POS_ROUTES, 0)
+
+
+def count_route(plan, how: int, fn, lib) -> None:
+    """Count one step of ``fn`` by the route of the band or star pass that
+    its plan's recording launched (``come_step_graph_route``, read when
+    the step records; a replay runs what was recorded)."""
+    if how != launch_plan.RECORD_NONE or plan.route is None:
+        r = lib.come_step_graph_route(plan.slot)
+        if not 0 <= r < len(POS_ROUTES):
+            raise RuntimeError(f"come_step_graph_route: no route ({r})")
+        plan.route = POS_ROUTES[r]
+    fn.routes[plan.route] += 1
+
 
 def pad_walks(walks: torch.Tensor) -> torch.Tensor:
     """[B, L] walks -> int32 [G*1024] slots: B wraps up to a multiple of 8
@@ -258,7 +282,8 @@ def check_cuda_inputs(*tensors, kernel: str,
     for bf16 tables, whose writes go by pairs).  ``kernel`` names the
     caller's mode (K1, K1b, K3, K4, K5, K2, K2b, P3, K6, K7) in the
     message.  Every mode takes any d: past ``csrc/sgns_common.cuh``'s
-    MAX_DIM (192) the kernels stage column slabs."""
+    MAX_DIM (192) the kernels hold whole rows where they fit and stage
+    column slabs where they do not."""
     dev = tensors[0].device
     for t in tensors:
         if t is not None and t.device != dev:
@@ -403,7 +428,8 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
     ``walk_sgns_step.launches`` (K1), ``.launches_bf16`` (K1b),
     ``.launches_paired`` (K5) and ``.launches_bf16_tables`` (K3); the
     graph's events over all modes in ``.recordings``, ``.instantiations``,
-    ``.updates`` and ``.replays``.
+    ``.updates`` and ``.replays``; steps by the band pass's route over all
+    modes in ``.routes`` ({"rows", "whole", "slab"}: :data:`POS_ROUTES`).
     """
     if paired and walks.shape[1] % 2:
         raise ValueError("paired mode needs an even number of slots per row")
@@ -440,6 +466,7 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
         tables_bf16, sr, seed, lr, negw, stream))
     _count_walk_launch(mxu_bf16, paired, tables_bf16)
     build.check(code, "come_walk_sgns_step")
+    count_route(plan, how, walk_sgns_step, lib)
     plan.done(how, walk_sgns_step)
     return (emb_in, emb_out) + plan.result()
 
@@ -448,6 +475,7 @@ walk_sgns_step.launches = 0
 walk_sgns_step.launches_bf16 = 0
 walk_sgns_step.launches_paired = 0
 walk_sgns_step.launches_bf16_tables = 0
+walk_sgns_step.routes = new_routes()
 # the graph's events, over every mode (ops/launch_plan.py)
 walk_sgns_step.recordings = 0
 walk_sgns_step.instantiations = 0
@@ -529,7 +557,7 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
     with f32 products), ``.launches_bf16`` (K4 with K1b's bf16 products)
     and ``.launches_bf16_tables`` (K4 over K3's bf16 tables); the graph's
     events in ``.recordings``, ``.instantiations``, ``.updates`` and
-    ``.replays``.
+    ``.replays``; steps by the band pass's route in ``.routes``.
     """
     if emb_in.device.type == "cpu":
         return walk_sgns_gen_step_reference(
@@ -580,6 +608,7 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
     else:
         walk_sgns_gen_step.launches += 1
     build.check(code, "come_walk_sgns_gen_step")
+    count_route(plan, how, walk_sgns_gen_step, lib)
     plan.done(how, walk_sgns_gen_step)
     out = (emb_in, emb_out) + plan.result()
     if return_walks:
@@ -590,6 +619,7 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
 walk_sgns_gen_step.launches = 0
 walk_sgns_gen_step.launches_bf16 = 0
 walk_sgns_gen_step.launches_bf16_tables = 0
+walk_sgns_gen_step.routes = new_routes()
 walk_sgns_gen_step.recordings = 0
 walk_sgns_gen_step.instantiations = 0
 walk_sgns_gen_step.updates = 0

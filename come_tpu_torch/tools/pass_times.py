@@ -26,8 +26,12 @@ that carry the f32 negative pass and the star pass:
          same micro-steps called one by one in a run (``loop``).
 
 ``--dim`` makes the tables that wide (karate's stay 16); past 192 every
-step runs through its column-slab band or star pass and the wide negative
-pass (``csrc/sgns_common.cuh``: NEG_WHOLE).  Each step runs on tables it
+step runs through its wide band or star pass (whole rows held in shared
+memory where they fit, else column slabs: the line's ``route``) and the
+wide negative pass (``csrc/sgns_common.cuh``: NEG_WHOLE).  The K1, K1b
+bench, K2, K2b bench and K3 lines add ``bound_us_per_group``: each pass's
+least µs a group, by bytes or operations, from the step's own inputs
+(:func:`pass_bounds`).  Each step runs on tables it
 updates in place.  For each it prints one JSON
 line: the card's name and power limit, the step's CUDA-event ms (median of
 5 after one warm-up, each from an idle card), its ms per step over
@@ -45,7 +49,8 @@ over the CUDA-event time).
 the device's timeline (:func:`timeline`): the gaps between consecutive
 kernels of a step (median and spread, by which pass follows which; a
 negative gap is an overlap, as programmatic dependent launch allows), the
-share of the step's span that some kernel covers, and the host's enqueue
+share of the step's span that some kernel covers, the µs a group each
+pass adds to the span (``critical_us_per_group``), and the host's enqueue
 time per step, measured for every step before the first profiled run
 (:func:`host_times`: the whole wrapper call, the C entry's share of it,
 the allocation of six scratch buffers, as a wrapper that made its scratch
@@ -83,7 +88,8 @@ from pathlib import Path
 
 # each group loop by pass: (name, substring of its CUDA kernel's name)
 # kernel names by pass (a substring; past d 192 the band and star passes
-# are the *_slab_kernel forms, the negative passes the *_wide_kernel ones)
+# are the *_wide_kernel or *_slab_kernel forms, the negative passes the
+# *_wide_kernel ones)
 WALK_PASSES = (("band", "walk_pos_"), ("negative", "negative_"),
                ("scatter", "walk_scatter"), ("stage", "stage_pool"),
                ("pool apply", "apply_pool"))
@@ -138,6 +144,79 @@ def pass_split(fn, groups: int, passes=WALK_PASSES):
     return {name: t / groups for (name, _), t in zip(passes, us)}, total
 
 
+HBM_BPS = 3.35e12  # the H100 SXM's memory rate, bytes a second
+PEAK_FLOPS = {False: 67e12, True: 989e12}  # f32, bf16 products
+
+
+def pass_bounds(ids, pools, R: int, d: int, es: int, bf16: bool,
+                n_pairs: float, walk: bool) -> dict:
+    """The least device µs a group of each pass of a walk or star step
+    could take: the larger of its bytes (each input read once, each output
+    written once) over HBM_BPS and its operations over PEAK_FLOPS (f32, or
+    bf16 where the step's products are bf16), from this step's inputs:
+    ``ids`` [G, 1024] the groups' table rows by slot (-1 at a walk's
+    padding positions and at star pads), ``pools`` [blocks, KP], R groups a
+    pool, tables of d elements of ``es`` bytes (two for a walk step, one
+    for a star step), ``n_pairs`` the step's positive pairs.  Returns
+    {pass: (µs, "bytes" or "operations")} under WALK_PASSES' or
+    STAR_PASSES' names."""
+    import torch
+
+    G, KP = ids.shape[0], pools.shape[1]
+    real = ids >= 0
+    n_real = float(real.sum())
+    uniq = float(sum(torch.unique(ids[g][real[g]]).numel() for g in range(G)))
+    upool = float(sum(torch.unique(p).numel() for p in pools))
+    nb = pools.shape[0]
+    tabs = 2 if walk else 1
+    # the staged pool as the negative pass reads it: f32 rows, or past 192
+    # in the bf16 modes bf16 rows of whole slabs of 256 (NEG_WHOLE)
+    pool_b = KP * (-(-d // 256) * 256 * 2 if bf16 and d > 192 else d * 4)
+    rows = uniq * d * es
+    out = {}
+    # band (walk: walks and window draws in; dphi, dctx, dphin and nt out)
+    # or star (slots and meta in; dphi, dphin and nt out); each pair a
+    # score and two updates of d multiply-adds
+    out["band" if walk else "star"] = (
+        tabs * rows + G * 1024 * 8 + G * 1024 * (d * 4 * (3 if walk else 2)
+                                                + 4),
+        6.0 * d * n_pairs if walk else 3.0 * d * n_pairs)
+    # the slots' rows, the pool a group, ids and nt in; dphin and dneg out;
+    # three products of the real slots against the pool
+    out["negative"] = (rows + G * (pool_b + 1024 * 8)
+                       + G * (1024 + KP) * d * 4,
+                       6.0 * n_real * KP * d)
+    # the real slots' updates and the rows in; the rows out
+    out["scatter"] = (n_real * d * 4 * (3 if walk else 2) + G * 1024 * 4
+                      + 2 * tabs * rows, 0.0)
+    out["stage"] = (upool * d * es + nb * KP * 4 + nb * (pool_b + KP * d * 4),
+                    0.0)
+    out["pool apply"] = (nb * KP * (d * 4 + 4) + 2 * upool * d * es, 0.0)
+    res = {}
+    for k, (nbytes, flops) in out.items():
+        tb, to = nbytes / G / HBM_BPS, flops / G / PEAK_FLOPS[bf16]
+        res[k] = (max(tb, to) * 1e6, "bytes" if tb >= to else "operations")
+    return res
+
+
+def routes_since(before=None):
+    """Without ``before``, a snapshot of the walk and star wrappers'
+    ``routes`` counters (steps by band or star route, ``ops/walk_sgns.py``:
+    POS_ROUTES), or None for a tree whose wrappers count none; with one,
+    the route each walk or star step took since it, one entry a step."""
+    from come_tpu_torch.ops.star_sgns import star_sgns_step
+    from come_tpu_torch.ops.walk_sgns import walk_sgns_gen_step, walk_sgns_step
+
+    fns = (walk_sgns_step, walk_sgns_gen_step, star_sgns_step)
+    if not all(hasattr(f, "routes") for f in fns):
+        return None
+    now = [dict(f.routes) for f in fns]
+    if before is None:
+        return now
+    return [r for a, b in zip(now, before) for r, n in a.items()
+            for _ in range(n - b[r])]
+
+
 def split_text(split: dict) -> str:
     return ", ".join(f"{k} {v:.2f}" for k, v in split.items())
 
@@ -180,8 +259,11 @@ def timeline(fn, passes, n_steps: int = 2) -> dict:
     between steps).  Returns the gaps between consecutive kernels of a
     step in µs (start of the next minus end of the previous: negative
     where they overlap), over all pairs and by "previous>next" pass, the
-    steps' spans (first start to last end, µs) and the share of each span
-    that some kernel covers."""
+    steps' spans (first start to last end, µs), the share of each span
+    that some kernel covers, and ``critical_us``: by pass, the µs a step's
+    kernels of that pass add to its span (a kernel's end past the latest
+    end before it), which sum to the span: under PDL a pass's device time
+    also holds its wait for the kernel before it, this does not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,12 +298,19 @@ def timeline(fn, passes, n_steps: int = 2) -> dict:
             cur.append(k)
     if cur:
         runs.append(cur)
-    gaps, by_pair, spans, covered = [], {}, [], []
+    gaps, by_pair, spans, covered, crit = [], {}, [], [], {}
     for run in runs:
         for a, b in zip(run, run[1:]):
             g = b[0] - a[1]
             gaps.append(g)
             by_pair.setdefault(f"{a[2]}>{b[2]}", []).append(g)
+        # what each pass adds to the step's span: its end past the latest
+        # end before it (a kernel that waits under PDL adds only the time
+        # it runs after its predecessor has ended)
+        end = run[0][0]
+        for s, e, p in run:
+            crit[p] = crit.get(p, 0.0) + max(0.0, e - max(s, end)) / len(runs)
+            end = max(end, e)
         span = max(k[1] for k in run) - run[0][0]
         union, end = 0.0, run[0][0]
         for s, e, _ in run:
@@ -231,6 +320,7 @@ def timeline(fn, passes, n_steps: int = 2) -> dict:
         spans.append(span)
         covered.append(union / span if span > 0 else 1.0)
     return {"kernels_per_step": [len(r) for r in runs],
+            "critical_us": crit,
             "gap_us": _spread(gaps) if gaps else None,
             "gap_us_by_pair": {k: _spread(v) for k, v in sorted(by_pair.items())},
             "span_us": spans, "covered": covered}
@@ -492,7 +582,18 @@ def steps(dev, d: int = 128):
                                       wrow[:g * 1024], pools[:g], lr, negw,
                                       window=W, pool_refresh=1)
 
-    out = [("K1", k1_sub(G), G, WALK_PASSES, k1_sub, KP)]
+    def walk_ids(w):  # [G, 1024] rows by slot, -1 past the walk length
+        ids = torch.full((w.shape[0], 128), -1, dtype=torch.int64,
+                         device=dev)
+        ids[:, :w.shape[1]] = w
+        return ids.reshape(-1, 1024)
+
+    def star_ids(sl_, mt_):
+        return torch.where(mt_ >= 0, sl_.long(), -1).reshape(-1, 1024)
+
+    k1 = k1_sub(G)
+    k1.bounds = (walk_ids(walks), pools, 1, 4, False, True)
+    out = [("K1", k1, G, WALK_PASSES, k1_sub, KP)]
 
     # the bench path's O1 step: 2048 walks, alias pools, R 8, bf16 (drawn
     # from a generator of its own, so the other steps' inputs stay as
@@ -507,9 +608,11 @@ def steps(dev, d: int = 128):
     wrow_b = torch.randint(1, W + 1, (GB * 1024,), generator=gb, device=dev,
                            dtype=torch.int32)
     pools_1b = sample_alias(accept, alias, gb, (-(-GB // RB), KP))
-    out.append(("K1b bench", lambda: walk_sgns_step(
+    k1b = lambda: walk_sgns_step(  # noqa: E731
         emb_in, emb_out, walks_b, wrow_b, pools_1b, lr, negw, window=W,
-        pool_refresh=RB, mxu_bf16=True), GB, WALK_PASSES, None, KP))
+        pool_refresh=RB, mxu_bf16=True)
+    k1b.bounds = (walk_ids(walks_b), pools_1b, RB, 4, True, True)
+    out.append(("K1b bench", k1b, GB, WALK_PASSES, None, KP))
 
     u, v = ds.graph.edges_undirected()
     slots, meta = build_star_layout(u, v, V)
@@ -524,7 +627,9 @@ def steps(dev, d: int = 128):
         return lambda: star_sgns_step(emb_in, sl[:g * 1024], mt[:g * 1024],
                                       pools2[:g], lr, negw, pool_refresh=1)
 
-    out.append(("K2", k2_sub(G2), G2, STAR_PASSES, k2_sub, KP))
+    k2 = k2_sub(G2)
+    k2.bounds = (star_ids(sl, mt), pools2, 1, 4, False, False)
+    out.append(("K2", k2, G2, STAR_PASSES, k2_sub, KP))
 
     # the bench path's star step: the whole layout in ceil(NR / 8) * 8
     # rows, alias pools, R 8, bf16
@@ -538,9 +643,11 @@ def steps(dev, d: int = 128):
                            device=dev).reshape(-1)
     G2B = rps * 128 // 1024
     pools_b = sample_alias(accept, alias, gen, (-(-G2B // RB), KP))
-    out.append(("K2b bench", lambda: star_sgns_step(
+    k2b = lambda: star_sgns_step(  # noqa: E731
         emb_in, sl_b, mt_b, pools_b, lr, negw, pool_refresh=RB,
-        mxu_bf16=True), G2B, STAR_PASSES, None, KP))
+        mxu_bf16=True)
+    k2b.bounds = (star_ids(sl_b, mt_b), pools_b, RB, 4, True, False)
+    out.append(("K2b bench", k2b, G2B, STAR_PASSES, None, KP))
 
     eperm = torch.as_tensor(np.random.default_rng(0).permutation(
         u.shape[0])[:512 * 64], device=dev)
@@ -613,9 +720,11 @@ def steps(dev, d: int = 128):
                           dtype=torch.int32)
     pools3 = torch.randint(0, V3, (G3, KP3), generator=gen, device=dev,
                            dtype=torch.int32)
-    out.append(("K3", lambda: walk_sgns_step(
+    k3 = lambda: walk_sgns_step(  # noqa: E731
         *tabs3, walks3, wrow3, pools3, lr, 5.0 / KP3, window=W,
-        pool_refresh=1, sr_seed=7), G3, WALK_PASSES, None, KP3))
+        pool_refresh=1, sr_seed=7)
+    k3.bounds = (walk_ids(walks3), pools3, 1, 2, True, True)
+    out.append(("K3", k3, G3, WALK_PASSES, None, KP3))
     return out
 
 
@@ -672,7 +781,18 @@ def main(argv=None) -> int:
                     sub, [g for g in (1, 2, 4, 8, 16, 32, 64) if g <= groups])
     for name, step, groups, passes, sub, KP in todo:
         t = pre[name]
-        split, total = pass_split(step, groups, passes)
+        # the route and the pairs are read from pass_split's own calls, so
+        # a tree whose wrappers count no routes runs the same sequence
+        before, out = routes_since(), []
+        split, total = pass_split(lambda: out.append(step()), groups, passes)
+        taken = None if before is None else set(routes_since(before))
+        route = taken.pop() if taken and len(taken) == 1 else None
+        bounds = None
+        if hasattr(step, "bounds"):  # from this step's inputs and pairs
+            ids, pools, R, es, bf16, walk = step.bounds
+            bounds = pass_bounds(ids, pools, R, args.dim, es, bf16,
+                                 float(out[-1][-1]), walk)
+        del out
         line = {
             "card": card, "label": args.label,
             "package": str(Path(come_tpu_torch.__file__).parent),
@@ -686,6 +806,9 @@ def main(argv=None) -> int:
             "idle_minus_replay_ms": (None if t["replay_ms"] is None else
                                      t["ms"] - t["replay_ms"]),
             "per_micro_ms": t.get("per_micro_ms"), "us_per_group": split,
+            # the band or star pass's route, and each pass's least µs a
+            # group with what bounds it (pass_bounds)
+            "route": route, "bound_us_per_group": bounds,
             "library3_ms": library3_ms(dev, pass_slots(name), KP, args.dim
                                        if "karate" not in name else 16,
                                        name in BF16_PASS),
@@ -694,6 +817,9 @@ def main(argv=None) -> int:
         }
         if args.trace:
             line["timeline"] = timeline(step, passes)
+            line["critical_us_per_group"] = {
+                p: v / groups for p, v in
+                line["timeline"]["critical_us"].items()}
             line["host"] = t["host"]
         print(json.dumps(line), flush=True)
     return 0

@@ -174,7 +174,8 @@ def held_steps(t) -> dict:
                           t.lr() * cfg.alpha, t.negw, 1, True,
                           "row-sharded K5")
     # both steps again on shards WIDE_D wide drawn from this rank's seed:
-    # past MAX_DIM the kernels stage the compact rows in column slabs
+    # past MAX_DIM the band pass holds the compact rows whole where they
+    # fit and stages column slabs where they do not
     wide = torch.Generator(device=dev).manual_seed(SEED + 4000 + rank)
     shards = [torch.randn((p.node_emb.shape[0], WIDE_D), generator=wide,
                           device=dev) * 0.1 for _ in range(2)]

@@ -94,6 +94,7 @@ from come_tpu_torch.trainer import ComETrainer
 from chip_smoke import (
     B2B_MODES,
     B2B_WIDE,
+    BF16_SLAB,
     FUSED_EDGES,
     G1_WIDTHS,
     STAR_EDGES,
@@ -111,9 +112,11 @@ from chip_smoke import (
     g1_pivot_batch,
     graph_steps,
     SEED,
+    bf16_slab_check,
     blog_wide_checks,
     graph_stress,
     mode_width,
+    route_boundary,
     star_edge_layout,
     step_check,
     wide_inputs,
@@ -1095,6 +1098,80 @@ def test_wide_steps_at_the_main_paths_shapes_match_plain(dev, d):
                dict(window=1, pool_refresh=1, paired=True)),
     }, V, d)
     assert all(r["pairs"] > 0 for r in res.values())
+
+
+def _boundary_window(which):
+    fit = route_boundary(256)
+    return {"fit": fit, "next": fit + 1, "whole walk": 127}[which]
+
+
+@pytest.mark.parametrize("which,route", [("fit", "whole"), ("next", "slab"),
+                                         ("whole walk", "slab")])
+def test_band_route_boundary_at_256_matches_plain(dev, which, route):
+    """K1 at d 256 on walks of 128: the last window whose f32 rows fit in
+    shared memory holds them whole (walk_pos_wide_kernel), the next window
+    and the whole walk (W 127) take column slabs (walk_pos_slab_kernel);
+    each step must take that route and match its plain version under the
+    f32 check (``chip_smoke.step_check``)."""
+    W = _boundary_window(which)
+    r = step_check("K1", f"K1 d 256 W {W} of 128", *wide_inputs(
+        "K1", dev, 256, 7 * W, whole=True, window=W), timed=False,
+                   route=route)
+    assert r["route"] == route
+
+
+@pytest.mark.parametrize("mode", ["K1b", "K3"])
+def test_bf16_band_holds_the_whole_walk_at_256_and_258(dev, mode):
+    """The bf16 modes' rows (half the bytes) fit whole with the whole walk
+    of 128 in the window: K1b at d 256, K3 at 258 (rows of 516 bytes, which
+    take 4-byte copies), each under its mode's check."""
+    d = 258 if mode == "K3" else 256
+    csr = get_dataset("blogcatalog").graph.to_device(dev)
+    tabs, x, kw = wide_inputs("K3" if mode == "K3" else "K1", dev, d, 11 * d,
+                              whole=True, csr=csr)
+    if mode == "K1b":  # random walks of the blogcatalog graph, as K1b's
+        from come_tpu_torch.sampling import random_walks
+
+        g = torch.Generator(device=dev).manual_seed(d)
+        V = int(csr.indptr.numel()) - 1
+        tabs = [torch.randn((V, d), generator=g, device=dev) * 0.1
+                for _ in range(2)]
+        walks = random_walks(csr, torch.randint(0, V, (64,), generator=g,
+                                                device=dev), 128, g)
+        wrow = torch.randint(1, 128, (8 * 1024,), generator=g, device=dev,
+                             dtype=torch.int32)
+        x = (walks, wrow, torch.randint(0, V, (8, 512), generator=g,
+                                        device=dev, dtype=torch.int32))
+        kw = dict(kw, mxu_bf16=True)
+    assert step_check(mode, f"{mode} d {d} whole walk", tabs, x, kw,
+                      timed=False, route="whole")["pairs"] > 0
+
+
+@pytest.mark.parametrize("mode,d", BF16_SLAB)
+def test_bf16_rows_in_column_slabs_match_plain(dev, mode, d):
+    """The bf16 rows that do not fit whole (K1b, K4 and K3 with the whole
+    walk of 128 at d 512 and 514, K2b at 884) take the slab kernels
+    (walk_pos_slab_kernel<true, ...>, star_pos_slab_kernel<true>), each
+    under its mode's check (``chip_smoke.bf16_slab_check``)."""
+    csr = get_dataset("blogcatalog").graph.to_device(dev)
+    assert bf16_slab_check(mode, d, dev, csr)["route"] == "slab"
+
+
+@pytest.mark.parametrize("d", [256, 300])
+@pytest.mark.parametrize("mode", ["K2", "K2b"])
+def test_star_owned_range_of_a_whole_row_matches_plain(dev, mode, d):
+    """K2 and K2b past 192 on a fat hub whose segment fills a row (strip 0
+    owns all 128 rows, the star pass's widest CTA): the wide star pass,
+    under each mode's check."""
+    slots, meta = star_edge_layout(400, 150, "fat", d)
+    g = torch.Generator(device=dev).manual_seed(d)
+    tab = torch.randn((400, d), generator=g, device=dev) * 0.1
+    sl, mt = (torch.as_tensor(a, device=dev) for a in (slots, meta))
+    pools = torch.randint(0, 400, (-(-sl.numel() // 1024), 64), generator=g,
+                          device=dev, dtype=torch.int32)
+    step_check(mode, f"{mode} d {d} fat hub", [tab], (sl, mt, pools),
+               dict(pool_refresh=1, mxu_bf16=mode == "K2b"), timed=False,
+               route="whole")
 
 
 # (config fields, the tiers' kernels by tier_kernels, their launch counters)

@@ -93,10 +93,11 @@ def test_the_check_finds_the_pdl_kernels():
                  "negative_bf16_kernel", "negative_bf16_wide_kernel",
                  "apply_pool_kernel", "apply_pool_bf16_kernel",
                  "stage_pool_kernel", "stage_pool_bf16_kernel",
-                 "walk_pos_kernel",
+                 "walk_pos_kernel", "walk_pos_wide_kernel",
                  "walk_pos_slab_kernel", "walk_scatter_kernel",
                  "walk_scatter_bf16_kernel", "star_scatter_kernel",
-                 "star_pos_kernel", "star_pos_slab_kernel",
+                 "star_pos_kernel", "star_pos_wide_kernel",
+                 "star_pos_slab_kernel",
                  "fused_pos_kernel", "fused_scatter_kernel",
                  "fused_apply_kernel"):
         assert want in names, want
@@ -198,18 +199,20 @@ def copies_before_wait(body: str, issuers) -> list:
 
 def test_the_copy_check_finds_the_asynchronous_copies():
     issuers = copy_issuers(p.read_text() for p in SOURCES)
-    # the wide negative passes' copies: bulk and cp.async, and the row
-    # helper that issues either
+    # the wide passes' copies: bulk and cp.async, and the row helper that
+    # issues either
     for want in ("bulk_copy", "async_copy4", "async_copy16", "copy_rows"):
         assert want in issuers, want
     bodies = {k.split(":")[1]: body for k, _, body in pdl_kernels()}
-    for name in ("negative_f32_wide_kernel", "negative_bf16_wide_kernel"):
+    for name in ("negative_f32_wide_kernel", "negative_bf16_wide_kernel",
+                 "walk_pos_wide_kernel", "star_pos_wide_kernel"):
         body = bodies[name]
         assert any(re.search(rf"\b{c}\s*[<(]", body) for c in issuers), name
-        # ... all of them after the wait
+        # ... all of them after the wait (a call is the issuer's whole
+        # name: mbar_init( is not a call of an issuer named init)
         wait = body.index("pdl_wait()")
-        assert all(body.find(f"{c}(") < 0 or body.find(f"{c}(") > wait
-                   for c in issuers), name
+        assert not any(re.search(rf"\b{c}\s*[<(]", body[:wait])
+                       for c in issuers), name
 
 
 @pytest.mark.parametrize("where,params,body", pdl_kernels(),
