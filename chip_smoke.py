@@ -81,6 +81,20 @@ non-zero and prints no result line):
                K3 and K1 (f32 tables, same inputs) timed, and the device
                busy share of one K3 step (its kernels' device time over its
                CUDA-event time)
+ 4m. pool passes — the pool stage (stage_pool_kernel<float> at K1's shape,
+               KP 512 d 128; <bf16> at K3's, KP 2048 d 128; ragged 130 and
+               f32 256), K3's pool chains (pool_chains_kernel: a K3 step's
+               128 pools of 2048, and one of 100) and K3's pool write
+               (apply_pool_bf16_kernel, KP 2048 at d 128, 256 and 130, SR
+               and truncation), each alone through
+               its C entry (ops/pool_pass.py) on a unigram pool over
+               synthetic-10m and on a hub-heavy one (16 rows drawn 2048
+               times: chains of about 128), held bit for bit against its
+               plain version (ops/walk_sgns.py: pool_stage_reference,
+               pool_apply_bf16_reference; ops/pool_pass.py:
+               pool_chains_reference); each case prints its device µs a
+               call beside its bound, the plain version's and one PyTorch
+               call's (index_select, a stable sort, index_add_)
  4g. P1      — the row-gather floor probe: gather and scatter-add of N =
                2048 and 262144 rows of a [500000, 128] f32 and bf16 table,
                beside index_select / index_add_
@@ -183,7 +197,9 @@ non-zero and prints no result line):
                HBM3 at 700 W both with bf16 and f32 tables: the communities
                emerge between 4 and 6 walk passes per node): O1 through
                K3, O2 through K2, nothing
-               else; prints the peak device memory and K3's CAS retries
+               else; prints the peak device memory, K3's CAS retries (the
+               slot scatter's alone: the pool write takes none) and the O1
+               epoch beside the full-depth reading in PERF.md section 5
 After phase 14:
  15. probes  — P2 (tools/probe_smem.py: the shared-memory capacity search,
                which must stop at cudaDevAttrMaxSharedMemoryPerBlockOptin
@@ -250,7 +266,8 @@ After phase 17:
                phase 5's, the all-reduce ms and bytes per step, the world
                size and the backend, the warm distributed and one-device
                GMM fits, and in (a) four O1 epochs each of the one-device
-               and the dp trainer in turns on one table.
+               and the dp trainer in turns on one table.  (a) and (b) run
+               again at --dim 256 (every held step at that width).
  19. rs      — the row-sharded path (model axis > 1: parallel/exchange.py,
                parallel/walk_exchange.py): each run launches
                come_tpu_torch.tools.rs_check on D x M ranks through python
@@ -284,7 +301,8 @@ After phase 17:
                compact-table and exchange bytes.  The line gives per step
                the all-to-all bytes and ms and the all-reduce bytes and
                ms, the O1 epoch beside phase 5's, the served fractions, the
-               NMI and the transport.
+               NMI and the transport.  (a), without its synthetic-10m step,
+               and (b) run again at --dim 256, at 5 walks a node.
 After phase 19:
  20. eval    — the quality sweep (come_tpu_torch/tools/eval_sweep.py):
                run_one for karate and heavy-tail-dcsbm at their full presets
@@ -336,6 +354,11 @@ After phase 19:
                (one instantiation); the EM with G1 against the EM with
                torch.linalg's factor and inverse: log-likelihood within
                1e-4 relative, NMI of the two partitions >= 0.99.
+The pool passes inside the walk and star steps count on
+ops/walk_sgns.py's POOL_LAUNCHES (the step wrappers add, at every
+replay, the launches that the C group loop counted as it recorded the
+step: come_step_graph_pool): phase 5 must launch the f32 stage, phase 14
+K3's stage and pool write, 5c's K3 run the pool write.
 Phases 5, 5b, 5c, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
 every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode; every phase that fits a GMM on the card must launch G1's two
@@ -344,7 +367,10 @@ the EM's WHILE graph a launch is counted by its plan: the factor calls
 its body recorded, times the iterations the device ran).  Every
 phase line ends with its seconds.  Then a JSON line of the
 kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
-bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; P1's from its own phase, as it
+bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; the pool stage's
+from phase 5 (f32) and 14 (bf16) and the pool write's from 14 (d 256:
+5c), the chains' from 14, their errors and times from phase 4m (device
+time a call); P1's from its own phase, as it
 is a probe and on no path; G1's ms, plain_ms and library_ms the device
 time per call of phase 21, the others one call from an idle card; the
 entries ending "_d256" the kernels at dim 256: launches from phases 5b
@@ -504,6 +530,178 @@ FUSED_EDGES = [
     (2000, 255, 3000, 64, 100),
     (2000, 257, 3000, 777, 2048),
 ]
+
+
+# Phase 4m's cases (pool_phase): the pool stage at K1's shape (f32, KP 512,
+# d 128), K3's (bf16, KP 2048, d 128) and ragged widths (130: one element a
+# piece; f32 at 256: two pieces a lane), and K3's pool write at d 128 and
+# 256 and a ragged 130 (a bf16 pair a piece), with SR and in truncation
+# mode; each on a unigram pool over synthetic-10m and on a hub-heavy one
+# (POOL_HUBS rows drawn KP times: chains of about KP / 16).
+POOL_STAGES = ((torch.float32, 512, 128), (torch.bfloat16, 2048, 128),
+               (torch.float32, 512, 130), (torch.bfloat16, 2048, 130),
+               (torch.float32, 512, 256))
+POOL_APPLIES = ((2048, 128), (2048, 256), (2048, 130))
+# (pools, KP) of the chains: a K3 step's, and one small pool
+POOL_CHAINS = ((128, 2048), (1, 100))
+POOL_SEEDS = (12345, None)  # SR, truncation
+POOL_KINDS = ("unigram", "hub")
+POOL_HUBS = 16
+
+
+def pool_draws(kind, KP, V, alias, gen, dev):
+    """An int32 [KP] pool over V rows: unigram draws from the alias tables
+    ``alias`` (accept, alias), or "hub": POOL_HUBS distinct rows drawn KP
+    times."""
+    from come_tpu_torch.sampling import sample_alias
+
+    if kind == "hub":
+        rows = torch.randperm(V, generator=gen, device=dev)[:POOL_HUBS]
+        pick = torch.randint(0, POOL_HUBS, (KP,), generator=gen, device=dev)
+        return rows[pick].to(torch.int32)
+    return sample_alias(*alias, gen, (KP,))
+
+
+def pool_check(dev, which, dtype, KP, d, pool, V, gen, sr_seed=None,
+               timed=True) -> dict:
+    """The pool stage ("stage", a [V, d] table of ``dtype``), K3's pool
+    chains ("chains": ``pool`` [n, KP], d unused) or K3's pool write
+    ("apply", bf16, lr 0.025, dneg ~ N(0, 1), block end group 5, SR from
+    ``sr_seed`` or truncation) on ``pool`` through its C entry
+    (ops/pool_pass.py) against its plain version on the same inputs, bit
+    for bit: raises unless every output element is identical.  Returns
+    the longest chain (a row's draws), the distinct rows and, when
+    ``timed``, the kernel's device µs a call (tools/g1_times.py's
+    device_ms: 50 calls back to back behind a sleep that outlasts their
+    enqueue, between CUDA events; the write on chains made once), the
+    plain version's (CUDA events) and one PyTorch call's on the same
+    inputs, timed as the kernel (the stage: index_select of the pool rows,
+    with the cast to f32 for bf16 tables; the chains: a stable sort of
+    each pool; the write: index_add_ of dneg * -lr rounded to bf16), and
+    the bound: each input read once (the ids, the distinct rows, dneg),
+    each output written once."""
+    from come_tpu_torch.ops.pool_pass import (
+        pool_apply_bf16,
+        pool_chains,
+        pool_chains_reference,
+        pool_stage,
+    )
+    from come_tpu_torch.ops.walk_sgns import (
+        pool_apply_bf16_reference,
+        pool_sr_bits,
+        pool_stage_reference,
+    )
+    from come_tpu_torch.tools.g1_times import Sleeper, device_ms
+    from come_tpu_torch.tools.pass_times import cuda_ms
+
+    table = (torch.randn((V, d), generator=gen, device=dev) * 0.1).to(dtype) \
+        if which != "chains" else None
+    p64 = pool.long()
+    uniq, reps = torch.unique(p64, return_counts=True)
+    if which == "chains":
+        kern = pool_chains(pool)
+        plain = pool_chains_reference(pool)
+        views = list(zip(kern, plain))
+        run = lambda i: pool_chains(pool)  # noqa: E731
+        plain_run = lambda: pool_chains_reference(pool)  # noqa: E731
+        lib = lambda i: torch.sort(p64, dim=1, stable=True)  # noqa: E731
+        nbytes = 4 * pool.numel() + 12 * pool.numel()
+        reps = torch.stack([torch.unique(q, return_counts=True)[1].max()
+                            for q in p64])
+    elif which == "stage":
+        es = table.element_size()
+        kern = pool_stage(table, pool)
+        plain = pool_stage_reference(table, p64)
+        views = [(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(kern, plain)]
+        run = lambda i: pool_stage(table, pool)  # noqa: E731
+        plain_run = lambda: pool_stage_reference(table, p64)  # noqa: E731
+        lib = (lambda i: table.index_select(0, p64).float()) \
+            if dtype == torch.bfloat16 else \
+            (lambda i: table.index_select(0, p64))
+        nbytes = KP * 4 + uniq.numel() * d * es + 2 * KP * d * 4
+    else:
+        lr, g = 0.025, 5
+        dneg = torch.randn((KP, d), generator=gen, device=dev)
+        rnd = pool_sr_bits(sr_seed, g, KP, d, dev)
+        kern = pool_apply_bf16(table.clone(), pool, dneg, lr, group=g,
+                               sr_seed=sr_seed)
+        plain = pool_apply_bf16_reference(table.clone(), p64, dneg, lr, rnd)
+        views = [(kern.view(torch.int16), plain.view(torch.int16))]
+        chains = pool_chains(pool)
+        run = lambda i: pool_apply_bf16(  # noqa: E731
+            table, pool, dneg, lr, group=g, sr_seed=sr_seed, chains=chains)
+        tab_p = table.clone()
+        plain_run = lambda: pool_apply_bf16_reference(  # noqa: E731
+            tab_p, p64, dneg, lr, rnd)
+        upd = (dneg * -lr).to(torch.bfloat16)
+        lib = lambda i: table.index_add_(0, p64, upd)  # noqa: E731
+        nbytes = KP * 4 + KP * d * 4 + 2 * uniq.numel() * d * 2
+    torch.cuda.synchronize()
+    same = [float((a == b).float().mean()) for a, b in views]
+    name = (f"pool chains {pool.shape[0]} x KP {KP}" if which == "chains"
+            else f"pool {which} {str(dtype)[6:]} KP {KP} d {d}"
+            + ("" if which == "stage" else
+               f" {'SR' if sr_seed is not None else 'truncation'}"))
+    if min(same) != 1.0:
+        raise AssertionError(f"{name}: {min(same):.6f} of the elements "
+                             f"equal the plain version's")
+    out = dict(name=name, identical=min(same), err=0.0,
+               chain=int(reps.max()), rows=int(uniq.numel()))
+    if timed:
+        sleep = Sleeper()
+        out["us"] = device_ms(lambda: run(0), sleep)["ms"] * 1e3
+        out["plain_us"] = cuda_ms(plain_run) * 1e3
+        out["lib_us"] = device_ms(lambda: lib(0), sleep)["ms"] * 1e3
+        out["bound"] = bound(0.0, float(nbytes), False)
+    return out
+
+
+def pool_text(r: dict) -> str:
+    """A phase 4m case: kernel µs beside its bound, plain, library."""
+    head = (f"{r['name']} ({r['rows']} rows, chains to {r['chain']}): bit "
+            f"for bit")
+    if "us" not in r:
+        return head
+    return (head + f", {r['us']:.2f} us (bound {r['bound'][0] * 1e3:.2f} us "
+            f"by {r['bound'][1]}; plain {r['plain_us']:.1f} us, library "
+            f"{r['lib_us']:.2f} us)")
+
+
+def pool_phase(dev, smi, V, alias, gen) -> dict:
+    """Phase 4m: every POOL_STAGES, POOL_CHAINS and POOL_APPLIES case (the
+    write with each of POOL_SEEDS) on each of POOL_KINDS' pools over V rows
+    (alias: synthetic-10m's unigram tables), through pool_check, timed on
+    the unigram pools (the main path's kind).  Prints one line a pool kind;
+    returns the cases by (which, dtype, KP, d or the chains' pools, seed,
+    kind)."""
+    res = {}
+    for kind in POOL_KINDS:
+        lines, timed = [], kind == "unigram"
+        for dtype, KP, d in POOL_STAGES:
+            pool = pool_draws(kind, KP, V, alias, gen, dev)
+            r = res[("stage", dtype, KP, d, None, kind)] = pool_check(
+                dev, "stage", dtype, KP, d, pool, V, gen, timed=timed)
+            lines.append(pool_text(r))
+        for n, KP in POOL_CHAINS:
+            pools = torch.stack([pool_draws(kind, KP, V, alias, gen, dev)
+                                 for _ in range(n)])
+            r = res[("chains", None, KP, n, None, kind)] = pool_check(
+                dev, "chains", None, KP, 0, pools, V, gen, timed=timed)
+            lines.append(pool_text(r))
+        for KP, d in POOL_APPLIES:
+            pool = pool_draws(kind, KP, V, alias, gen, dev)
+            for seed in POOL_SEEDS:
+                r = res[("apply", torch.bfloat16, KP, d, seed, kind)] = \
+                    pool_check(dev, "apply", torch.bfloat16, KP, d, pool, V,
+                               gen, seed, timed=timed)
+                lines.append(pool_text(r))
+        torch.cuda.empty_cache()
+        phase("pool passes", f"{kind} pools over V {V}, each kernel against "
+                             f"its plain version bit for bit"
+                             + (", device us a call" if timed else "")
+                             + ": " + "; ".join(lines) + f" | {smi}")
+    return res
 
 
 def star_edge_layout(V, E, layout, seed, max_fanout=32):
@@ -1723,15 +1921,17 @@ def _torchrun(tag, n, module, args, timeout):
 
 def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
     """Phase 18 (module docstring): runs (a), (b) and, on two or more
-    cards, (c) of tools/dp_check.py; raises if a rank fails or a check
-    does not hold."""
-    runs = [("a", 1, "nccl", None), ("b", 2, "gloo", "cuda:0")]
-    if torch.cuda.device_count() >= 2:
+    cards at d 128, (c) of tools/dp_check.py with the tables d wide
+    (``main_o1_ms``: the one-card O1 epoch at d, phase 5 or 5b); raises if
+    a rank fails or a check does not hold."""
+    w = "" if d == 128 else f" {d}"
+    runs = [("a" + w, 1, "nccl", None), ("b" + w, 2, "gloo", "cuda:0")]
+    if torch.cuda.device_count() >= 2 and d == 128:
         runs.append(("c", 2, "nccl", None))
     allowed = {"walk_sgns", "star_sgns"}
     for tag, n, backend, device in runs:
-        args = ["--backend", backend] + (["--device", device] if device
-                                         else [])
+        args = ["--backend", backend, "--dim", str(d)] + (
+            ["--device", device] if device else [])
         ranks = _torchrun(f"dp run ({tag})", n,
                           "come_tpu_torch.tools.dp_check", args, 600)
         for r in ranks:
@@ -1759,7 +1959,7 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
                 f"{max(x['K5']['f32_ratio'] for x in h):.3f} (<= 1); K3 "
                 f"identical {min(x['K3']['identical'] for x in h):.5f}, "
                 f"rel_l2 {max(x['K3']['rel_l2'] for x in h):.3e}, its "
-                f"snapshot and reduction of the two 500000 x 128 tables "
+                f"snapshot and reduction of the two 500000 x {d} tables "
                 f"{h[0]['K3']['rule_ms']:.3f} ms (rank 0)")
         if any("f64_ratio" in x["K1"] for x in h):
             held += " (K1 by the float64 rule)"
@@ -1775,8 +1975,8 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
         phase(f"dp {tag}", (
             f"world {n} {backend} on {sorted({r['device'] for r in ranks})}: "
             f"NMI {min(r['nmi'] for r in ranks):.4f} | o1 epoch in the run "
-            f"{max(r['o1_ms'] for r in ranks):.1f} ms (phase 5, one card "
-            f"without dp: {main_o1_ms:.1f} ms), extra epoch "
+            f"{max(r['o1_ms'] for r in ranks):.1f} ms (one card without "
+            f"dp at d {d}: {main_o1_ms:.1f} ms), extra epoch "
             f"{max(r['epoch_ms'] for r in ranks):.1f} ms, all-reduce "
             f"{r0['allreduce_ms'] / steps:.4f} ms per step (CUDA events, "
             f"rank 0, {steps} steps) and {r0['allreduce_bytes'] / steps:.0f}"
@@ -1790,20 +1990,29 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
             f"rank 0: {graph_line('dp', r0['graphs'])}" + held + note))
 
 
-def rs_phase(main_o1_ms: float) -> None:
+def rs_phase(main_o1_ms: float, d: int = 128) -> None:
     """Phase 19 (module docstring): runs (a), (b) and, on two or four
-    cards, (c) of tools/rs_check.py; raises if a rank fails or a check
-    does not hold."""
-    runs = [("a", (1, 2), "gloo", "cuda:0", ["--synthetic"]),
-            ("b", (2, 2), "gloo", "cuda:0", [])]
+    cards at d 128, (c) of tools/rs_check.py with the tables d wide
+    (``main_o1_ms``: the one-card O1 epoch at d; past d 128 at 5 walks a
+    node, and the synthetic-10m step of (a) at d 128 only); raises if a
+    rank fails or a check does not hold."""
+    w = "" if d == 128 else f" {d}"
+    # past d 128 the rows that gloo stages through the host double, and
+    # three O1 epochs of them took most of the script's time: 5 walks a
+    # node there (half the preset's), and no synthetic-10m step
+    cut = [] if d == 128 else ["--walks-per-node", "5"]
+    runs = [("a" + w, (1, 2), "gloo", "cuda:0",
+             ["--synthetic"] if d == 128 else cut),
+            ("b" + w, (2, 2), "gloo", "cuda:0", cut)]
     cards = torch.cuda.device_count()
     for mesh in ((1, 2), (2, 2)):
-        if cards >= mesh[0] * mesh[1]:
+        if cards >= mesh[0] * mesh[1] and d == 128:
             runs.append((f"c {mesh}", mesh, "nccl", None, []))
     allowed = {"walk_sgns", "walk_sgns_paired"}
     for tag, (D, M), backend, device, extra in runs:
         t0 = time.perf_counter()
-        args = ["--mesh", f"{D},{M}", "--backend", backend] + extra
+        args = ["--mesh", f"{D},{M}", "--backend", backend, "--dim",
+                str(d)] + extra
         if device:
             args += ["--device", device]
         ranks = _torchrun(f"rs run ({tag})", D * M,
@@ -1885,8 +2094,8 @@ def rs_phase(main_o1_ms: float) -> None:
             f"{min(r['nmi'] for r in ranks):.4f}, served o1 "
             f"{min(r['o1_served'] for r in ranks):.4f} o2 "
             f"{min(r['o2_served'] for r in ranks):.4f} | o1 epoch in the "
-            f"run {max(r['o1_ms'] for r in ranks):.1f} ms (phase 5, one "
-            f"card: {main_o1_ms:.1f} ms), o2 "
+            f"run {max(r['o1_ms'] for r in ranks):.1f} ms (one card at d "
+            f"{d}: {main_o1_ms:.1f} ms), o2 "
             f"{max(r['o2_ms'] for r in ranks):.1f} ms, gmm "
             f"{r0['gmm_ms']:.1f} ms | rank 0, extra epochs: "
             f"{per_step('o1')}; {per_step('o2')} | model shards "
@@ -2323,6 +2532,7 @@ def main() -> int:
     from come_tpu_torch.ops.walk_sgns import (
         NW,
         NWL,
+        POOL_LAUNCHES,
         cas_retries,
         new_routes,
         walk_sgns_gen_step,
@@ -2380,6 +2590,8 @@ def main() -> int:
     def reset_counts():
         for fn, attr in kernels.values():
             setattr(fn, attr, 0)
+        for k in POOL_LAUNCHES:  # the pool passes inside the walk and
+            POOL_LAUNCHES[k] = 0  # star steps (ops/walk_sgns.py)
         for fn in (walk_sgns_step, walk_sgns_gen_step, star_sgns_step,
                    star_probe_step):
             fn.routes = new_routes()  # steps by band or star route
@@ -2389,8 +2601,8 @@ def main() -> int:
         launch_plan.reset_counts()
 
     def counts():
-        return {name: getattr(fn, attr)
-                for name, (fn, attr) in kernels.items()}
+        return {**{name: getattr(fn, attr)
+                   for name, (fn, attr) in kernels.items()}, **POOL_LAUNCHES}
 
     def check_launches(where, launched, ran, idle, gmm=True):
         # G1's two kernels launch in every GMM fit on the card: a phase
@@ -2956,6 +3168,10 @@ def main() -> int:
         del init32, f32_10
         torch.cuda.empty_cache()
 
+        # 4m. the pool stage and K3's pool write alone, at K1's and K3's
+        # shapes, on unigram pools over synthetic-10m and hub-heavy pools
+        pools4m = pool_phase(dev, smi, V, (acc10, ali10), gen)
+
         # 4k (K3). K3 at d 256 on this step's inputs (synthetic-10m's step
         # shape, SR), under K3's check
         k3_256 = blog_wide_checks(dev, {"K3": (
@@ -3050,7 +3266,7 @@ def main() -> int:
 
         return dict(k3_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
                     k3_bound=k3_bound, p1=p1, p1_launches=p1_launches,
-                    retries=retries, k3_256=k3_256["K3"])
+                    retries=retries, k3_256=k3_256["K3"], pools=pools4m)
 
     lv = large_v_kernels()
     torch.cuda.empty_cache()
@@ -3093,6 +3309,8 @@ def main() -> int:
         raise AssertionError("main path: O2 did not train every edge twice")
     if rec["nmi"] < NMI_FLOOR:
         raise AssertionError(f"main path: NMI {rec['nmi']:.4f} < {NMI_FLOOR}")
+    if launches["stage_pool"] == 0:
+        raise AssertionError("main path launched no pool stage")
     main_o1_ms = rec["o1_ms"]
     main_emb = torch.as_tensor(emb, device=dev)  # phase 21's table
     phase("main", f"blogcatalog pretrain 1 + outer 1 in {wall:.1f} s: "
@@ -3133,7 +3351,7 @@ def main() -> int:
             raise AssertionError(f"{tag}: embeddings not finite [V, 256]")
         if not extra and rec["o2_pairs"] != 2 * ds.graph.num_edges:
             raise AssertionError(f"{tag}: O2 did not train every edge twice")
-        wide_runs[tag] = dict(launches=got, emb=emb)
+        wide_runs[tag] = dict(launches=got, emb=emb, o1_ms=rec["o1_ms"])
         routes = path_routes(tag, "whole")
         phase(tag, f"blogcatalog --dim 256{''.join(' ' + e for e in extra)},"
                    f" pretrain 1 + outer 1 in {wall:.1f} s: gmm {rec['gmm_ms']:.1f} ms, o1 "
@@ -3282,6 +3500,8 @@ def main() -> int:
     finally:
         trainer_come.WALK_F32_TABLE_BYTES = line
     got = tiers256["K3 256"] = counts()
+    if got["apply_pool_bf16"] == 0:
+        raise AssertionError("K3 256 launched no pool write")
     check_launches("K3 256", got, ran,
                    tuple(k for k in kernels if k not in ran))
     check_run("K3 256", hist, NMI_FLOOR)
@@ -3768,6 +3988,10 @@ def main() -> int:
             f"large-v path: {large_launches['walk_sgns_bf16_tables']} K3 "
             f"launches for {epochs} epochs of {S10} steps, o1_pairs "
             f"{rec['o1_pairs']} outside (0, {most}]")
+    for k in ("stage_pool_bf16_tables", "apply_pool_bf16", "pool_chains",
+              "stage_pool"):
+        if large_launches[k] == 0:
+            raise AssertionError(f"large-v path launched no {k} kernel")
     if trainer.params.node_emb.dtype != torch.float32:
         raise AssertionError("large-v path: params not f32 after O1")
     emb = trainer.embeddings()
@@ -3783,8 +4007,11 @@ def main() -> int:
                      f"({rec['o1_pairs'] / rec['o1_ms'] / 1e3:.2f} M/s) "
                      f"o2_pairs {rec['o2_pairs']:.0f} | NMI {rec['nmi']:.4f} "
                      f"| peak device memory {peak_gb:.2f} GiB | K3 CAS "
-                     f"retries {float(retries):.0f} | launches "
-                     f"{large_launches}")
+                     f"retries {float(retries):.0f} (the slot scatter's "
+                     f"alone: the pool write takes none) | o1 epoch "
+                     f"{rec['o1_ms'] / 1e3:.2f} s at walks per node "
+                     f"5 (PERF.md section 5 reads 30.5-33 s at full depth)"
+                     f" | launches {large_launches}")
     del trainer
     torch.cuda.empty_cache()
 
@@ -3906,9 +4133,11 @@ def main() -> int:
 
     # 18. the data-parallel path: torchrun runs of tools/dp_check.py
     dp_phase(main_o1_ms, V=ds.graph.num_nodes, d=128)
+    dp_phase(wide_runs["main 256"]["o1_ms"], V=ds.graph.num_nodes, d=256)
 
     # 19. the row-sharded path: torchrun runs of tools/rs_check.py
     rs_phase(main_o1_ms)
+    rs_phase(wide_runs["main 256"]["o1_ms"], d=256)
 
     # 20. the quality sweep's rows and t-SNE
     eval_phase(smi, reset_counts, counts, check_launches, tuple(kernels))
@@ -3929,6 +4158,13 @@ def main() -> int:
         return entry(name, src, replaces, launches, r["err"][0], r["ms"],
                      r["plain_ms"], r["bound"])
 
+    def pool_entry(name, replaces, n, key):
+        r = lv["pools"][key]
+        return entry(name, "sgns_common.cuh", replaces, n, r["err"],
+                     r["us"] / 1e3, r["plain_us"] / 1e3, r["bound"],
+                     r["lib_us"] / 1e3)
+
+    bf = torch.bfloat16
     p1, p1_launches = lv["p1"], lv["p1_launches"]
     pg = p1[(2, 262144)]  # the path's bf16 rows, one macro step's worth
     print(json.dumps({"kernels": [
@@ -3966,6 +4202,28 @@ def main() -> int:
               "come_tpu/ops/pallas_walk_sgns.py:377",
               large_launches["walk_sgns_bf16_tables"], lv["k3_err"][0],
               lv["k3_ms"], lv["k3_plain_ms"], lv["k3_bound"]),
+        # the pool passes (phase 4m, unigram pools over synthetic-10m);
+        # launches from the main path's steps: K1's stage from phase 5,
+        # K3's stage and pool write from phase 14, the write at d 256 from
+        # phase 5c
+        pool_entry("pool_stage", "come_tpu/ops/pallas_walk_sgns.py:216",
+                   launches["stage_pool"],
+                   ("stage", torch.float32, 512, 128, None, "unigram")),
+        pool_entry("pool_stage_bf16_tables",
+                   "come_tpu/ops/pallas_walk_sgns.py:216",
+                   large_launches["stage_pool_bf16_tables"],
+                   ("stage", bf, 2048, 128, None, "unigram")),
+        pool_entry("pool_chains", "come_tpu/ops/pallas_walk_sgns.py:405",
+                   large_launches["pool_chains"],
+                   ("chains", None, 2048, 128, None, "unigram")),
+        pool_entry("pool_apply_bf16_tables",
+                   "come_tpu/ops/pallas_walk_sgns.py:405",
+                   large_launches["apply_pool_bf16"],
+                   ("apply", bf, 2048, 128, 12345, "unigram")),
+        pool_entry("pool_apply_bf16_tables_d256",
+                   "come_tpu/ops/pallas_walk_sgns.py:405",
+                   tiers256["K3 256"]["apply_pool_bf16"],
+                   ("apply", bf, 2048, 256, 12345, "unigram")),
         entry("row_gather_probe", "row_probe.cu", "scripts/probe_dma.py:47",
               p1_launches["row_gather_probe"], pg["cs_err"], pg["g_ms"],
               pg["g_plain"], pg["g_bound"], pg["g_lib"]),

@@ -58,9 +58,12 @@
 //
 // K3 (bf16 tables) reads rows through to_f32 (the stage kernel and the bf16
 // negative kernel are templated on the table's element type) and writes
-// them with rmw_bf16_pair: one read-modify-write per slot and element pair,
-// each half rounded by its own 16 random bits as the TPU's _pack_row does
-// (pallas_walk_sgns.py:76-88), or truncated without them.
+// its slots' rows with rmw_bf16_pair: one read-modify-write per slot and
+// element pair, each half rounded by its own 16 random bits as the TPU's
+// _pack_row does (pallas_walk_sgns.py:76-88), or truncated without them.
+// Its pool write rounds the same way but takes no CAS: one owner a row
+// applies the row's draws in draw order (apply_pool_bf16_kernel, on the
+// chains pool_chains_kernel sorts once a step).
 //
 // Programmatic dependent launch (PDL).  The group loops (walk_sgns.cu,
 // star_sgns.cu) and K6/K7's tile loop (sgns_fused.cu) record a step once as
@@ -436,22 +439,98 @@ static __host__ __device__ inline int n_slabs(int d) {
   return (d + SLAB - 1) / SLAB;
 }
 
-// cneg[k] = table[pool[k]] (widened to f32); dneg[k] = 0.
-// grid KP, block 128.  PDL: the pool id (the call's, staged by the head
-// kernel, two or more kernels before) is read before the wait; the table
-// row (the last scatter's) and cneg/dneg (the last block's passes) after.
-template <typename T>
-static __global__ void stage_pool_kernel(const T* table, const int* pool,
-                                         float* __restrict__ cneg,
-                                         float* __restrict__ dneg, int d) {
-  const int k = blockIdx.x;
-  const size_t src = (size_t)step_ld(pool + k) * d, dst = (size_t)k * d;
-  pdl_wait();
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    cneg[dst + j] = to_f32(step_ld(table + src + j));
-    dneg[dst + j] = 0.0f;
+// The pool stage (pallas_walk_sgns.py:216 _stage_pool, inside the walk
+// kernel, and the star kernel's): cneg[k] = table[pool[k]] widened to f32
+// and dneg[k] = 0 for the KP rows of an R-block's pool.  It moves KP rows
+// in and 2 KP f32 rows out (K3: 0.5 MiB in, 2 MiB out at KP 2048, d 128;
+// 0.78 us at 3.35 TB/s), so what bounds it on the card is the latency of
+// its loads and of the launch under PDL, not their bytes.  A team of `ts`
+// lanes (16 for rows of at most 16 pieces: a bf16 row of 128, two rows a
+// warp; else a warp) takes one row, so the grid is KP rows' teams
+// (stage_setup; 256 CTAs at K3's KP 2048, fewer than fit on the card at
+// once): its row's id is read before the wait, and a lane moves 16-byte
+// pieces (4 f32 or 8 bf16 elements; one element where the row is not a
+// whole number of pieces), STAGE_U pieces' loads in flight before any of
+// their stores, so every row of a launch is in flight at once.  (Staging
+// a CTA's ids in shared memory first, one coalesced load and a barrier,
+// read 0.4 µs slower a group: PERF.md §6.)  It writes exactly what the
+// one-CTA-a-row kernel it replaced wrote.  block STAGE_THREADS.  PDL: the
+// pool ids (the call's, staged by the head kernel, two or more kernels
+// before) before the wait; the table rows (the last scatter's or pool
+// write's) and cneg/dneg (the last block's passes) after.
+constexpr int STAGE_THREADS = 128;
+constexpr int STAGE_U = 4;  // pieces of a row a lane loads before it stores
+
+// Elements of a pool row piece: 16 bytes of T where the row is a whole
+// number of them, else one element.
+template <typename T, bool VEC>
+__host__ __device__ constexpr int piece_elems() {
+  return VEC ? 16 / (int)sizeof(T) : 1;
+}
+
+// One pool row's pieces p = tl, tl + ts, ... (E elements each) from `row`
+// into cneg[k] and zeros into dneg[k], STAGE_U loads of a lane in flight
+// before their stores.
+template <typename T, bool VEC>
+static __device__ __forceinline__ void stage_pool_row(const T* row,
+                                                      float* cneg, float* dneg,
+                                                      int k, int d, int ts,
+                                                      int tl) {
+  constexpr int E = piece_elems<T, VEC>();
+  using Raw = typename std::conditional<VEC, uint4, T>::type;
+  const int np = (d + E - 1) / E;
+  for (int q0 = tl; q0 < np; q0 += ts * STAGE_U) {
+    Raw v[STAGE_U];
+#pragma unroll
+    for (int u = 0; u < STAGE_U; ++u) {
+      const int p = q0 + ts * u;
+      if (p < np) v[u] = step_ld(reinterpret_cast<const Raw*>(row) + p);
+    }
+#pragma unroll
+    for (int u = 0; u < STAGE_U; ++u) {
+      const int p = q0 + ts * u;
+      if (p >= np) continue;
+      const size_t at = (size_t)k * d + p * E;
+      if constexpr (!VEC) {
+        cneg[at] = to_f32(v[u]);
+        dneg[at] = 0.0f;
+      } else if constexpr (E == 4) {  // f32
+        *reinterpret_cast<uint4*>(cneg + at) = v[u];
+        *reinterpret_cast<float4*>(dneg + at) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {  // bf16: 8 elements, widened exactly
+        const uint4 w = v[u];
+        *reinterpret_cast<float4*>(cneg + at) = make_float4(
+            __uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+            __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+        *reinterpret_cast<float4*>(cneg + at + 4) = make_float4(
+            __uint_as_float(w.z << 16), __uint_as_float(w.z & 0xffff0000u),
+            __uint_as_float(w.w << 16), __uint_as_float(w.w & 0xffff0000u));
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dneg + at) = z;
+        *reinterpret_cast<float4*>(dneg + at + 4) = z;
+      }
+    }
   }
+}
+
+template <typename T, bool VEC>
+static __global__ void __launch_bounds__(STAGE_THREADS)
+stage_pool_kernel(const T* table, const int* pool, float* __restrict__ cneg,
+                  float* __restrict__ dneg, int d, int KP, int ts) {
+  const int k = blockIdx.x * (STAGE_THREADS / ts) + threadIdx.x / ts;
+  const int id = k < KP ? step_ld(pool + k) : 0;
+  pdl_wait();
+  if (k < KP)
+    stage_pool_row<T, VEC>(table + (size_t)id * d, cneg, dneg, k, d, ts,
+                           threadIdx.x % ts);
   pdl_trigger();
+}
+
+// The lanes a pool row's team takes: 16 for rows of at most 16 pieces of
+// `e` elements, else a warp.
+static inline int pool_team(int d, int e) {
+  return (d + e - 1) / e <= 16 ? 16 : 32;
 }
 
 // table[pool[k]] -= lr * dneg[k], atomic: a pool may repeat a row; lr from
@@ -470,39 +549,225 @@ static __global__ void apply_pool_kernel(float* table, const int* pool,
   pdl_trigger();
 }
 
-// K3's pool write at a block end: table[pool[k]] += -lr * dneg[k] as one
-// rounded RMW per element pair (rmw_bf16_pair), pool rows in any order
-// (a row drawn twice is rounded once per draw).  SR takes the low 16 bits
-// of sr_bits(sr_key(seed, g), (GROUP + k) * d + j): the pool has its own
-// counter range past the group's 1024 slots (the TPU reads its 1024-row
-// draw buffer at row k, pallas_walk_sgns.py:418 against :603, past its end
-// for KP > 1024).  lr and seed from the argument block.  Adds the CAS
-// retries to *retries.  grid KP, block 64.  PDL: as apply_pool_kernel.
-template <bool SR>
-static __global__ void apply_pool_bf16_kernel(__nv_bfloat16* table,
-                                              const int* pool,
-                                              const float* dneg, int d,
-                                              const StepArgs* args, int g,
-                                              double* retries) {
-  const int k = blockIdx.x;
-  const size_t dst = (size_t)step_ld(pool + k) * d, src = (size_t)k * d;
-  const float lr = step_ld(&args->lr);
-  const unsigned key = SR ? sr_key(step_ld(&args->seed), (unsigned)g) : 0u;
-  pdl_wait();
-  unsigned n = 0;
-  for (int j = 2 * threadIdx.x; j < d; j += 2 * blockDim.x) {
-    unsigned r0 = 0, r1 = 0;
-    if (SR) {
-      const unsigned c = (unsigned)((GROUP + k) * d + j);
-      r0 = mix32(c ^ key) & 0xffffu;
-      r1 = mix32((c + 1) ^ key) & 0xffffu;
-    }
-    n += rmw_bf16_pair(table + dst + j,
-                       __fmul_rn(step_ld(dneg + src + j), -lr),
-                       __fmul_rn(step_ld(dneg + src + j + 1), -lr), r0, r1);
-  }
+// K3's pool write in draw order.  A pool may draw a row more than once
+// (unigram^0.75 pools over a power-law graph draw hubs repeatedly), and
+// the TPU's fori_loop over k (pallas_walk_sgns.py:405 _apply_pool) and the
+// plain version (ops/walk_sgns.py::rmw_rows) apply a row's draws in
+// increasing k, each rounded.  So each distinct row gets one owner, its
+// first draw, which applies the row's draws in order; the owners need each
+// row's draws sorted by k.  pool_chains_kernel finds them once a step for
+// every block's pool (the pools are the call's, staged by the head kernel):
+// one CTA a pool sorts (id, k) in shared memory (a bitonic network over
+// pool_chain_slots(KP) 64-bit keys, so a row's draws stand together in
+// increasing k) and writes, for the pool, order[i] = the k at sorted place
+// i and info[k] = (i, n): k's place and, for a row's first draw, its n
+// draws (0 for the others).  It runs right after the head kernel (K4: its
+// walk generation), launched without PDL, and lets the stage after it
+// start at once: the stage's wait holds its work until this completes.
+// K3's pool writes read info and order before their wait: written two or
+// more kernels before, they are complete.  At KP 2048 a CTA sorts 2048
+// keys in 66 passes; the 128 pools of a synthetic-10m step sort side by
+// side, once a step of 128 groups.  grid: the step's pools, block
+// CHAIN_THREADS, dynamic shared memory pool_chain_smem(KP); refused past
+// POOL_CHAIN_MAX.
+constexpr int CHAIN_THREADS = 1024;
+constexpr int POOL_CHAIN_MAX = 16384;  // the largest KP (keys in 128 KiB)
+
+static __host__ __device__ inline int pool_chain_slots(int KP) {
+  int n = 2;
+  while (n < KP) n <<= 1;
+  return n;
+}
+
+static inline size_t pool_chain_smem(int KP) {
+  return sizeof(unsigned long long) * (size_t)pool_chain_slots(KP);
+}
+
+static __global__ void __launch_bounds__(CHAIN_THREADS)
+pool_chains_kernel(const int* pools, int KP, int* info, int* order) {
+  pdl_wait();  // launched without PDL: returns at once
   pdl_trigger();
-  if (n) atomicAdd(retries, (double)n);
+  extern __shared__ unsigned long long chain_keys[];
+  const int n2 = pool_chain_slots(KP), t0 = threadIdx.x;
+  const int* pool = pools + (size_t)blockIdx.x * KP;
+  for (int i = t0; i < n2; i += CHAIN_THREADS)
+    chain_keys[i] = i < KP ? (unsigned long long)(unsigned)step_ld(pool + i)
+                                     << 32 |
+                                 (unsigned)i
+                           : ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      for (int t = t0; t < n2 / 2; t += CHAIN_THREADS) {
+        const int i = 2 * t - (t & (stride - 1)), j = i + stride;
+        const unsigned long long x = chain_keys[i], y = chain_keys[j];
+        if ((x > y) == ((i & size) == 0)) {
+          chain_keys[i] = y;
+          chain_keys[j] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  int* inf = info + (size_t)blockIdx.x * KP * 2;
+  int* ord = order + (size_t)blockIdx.x * KP;
+  for (int i = t0; i < KP; i += CHAIN_THREADS) {
+    const unsigned long long key = chain_keys[i];
+    const unsigned id = (unsigned)(key >> 32);
+    const int k = (int)(key & 0xffffffffu);
+    ord[i] = k;
+    int n = 0;
+    if (i == 0 || (unsigned)(chain_keys[i - 1] >> 32) != id)
+      for (n = 1; i + n < KP && (unsigned)(chain_keys[i + n] >> 32) == id;)
+        ++n;
+    inf[2 * k] = i;
+    inf[2 * k + 1] = n;
+  }
+}
+
+// K3's pool write at a block end (pallas_walk_sgns.py:405 _apply_pool on
+// bf16 tables): table[pool[k]] = round(f32(row) + __fmul_rn(dneg[k], -lr))
+// for k in draw order, each element rounded by the low 16 bits of
+// sr_bits(sr_key(seed, g), (GROUP + k) * d + j) (SR; truncation without):
+// the pool has its own counter range past the group's 1024 slots (the TPU
+// reads its 1024-row draw buffer at row k, pallas_walk_sgns.py:418
+// against :603, past its end for KP > 1024).  Bit for bit what rmw_rows
+// writes.  Each row's owner (pool_chains_kernel's info) is a team of `ts`
+// lanes (16 up to 16 pieces, a bf16 row of 128; else a warp): it loads the
+// row once, applies its draws in order (order[i], ..., order[i + n - 1])
+// with the row in registers and stores it once, with plain stores and no
+// atomics.  Before its wait a team reads its draw's (i, n) and the first
+// APPLY_U draws' places; after it, the row and those draws' dneg pieces,
+// all in flight together (dneg is the negative pass's, two kernels before,
+// but it shares the row's latency).  A team takes one pool draw k, so the
+// grid is KP draws' teams (apply_setup).  Pieces are 16 bytes of the row (8
+// elements) where d % 8 == 0, else a bf16 pair (E = 2; d is even for bf16
+// tables).  It is bound by latency, not bytes: it moves the distinct rows
+// in and out and KP dneg rows in (K3: 0.63 us at d 128).  block
+// APPLY_THREADS.  lr and seed from the argument block `args`,
+// or, without one (the C entry that runs the kernel alone), from `lr_in`
+// and `seed_in`.
+constexpr int APPLY_THREADS = 256;
+constexpr int APPLY_U = 4;  // draws whose dneg pieces a lane loads at once
+
+// A piece of E bf16 elements (a 16-byte word when E is 8, a pair when 2)
+// widened exactly to f32, and packed back from f32 values that are bf16.
+static __device__ __forceinline__ void widen2(unsigned w, float* x) {
+  x[0] = __uint_as_float(w << 16);
+  x[1] = __uint_as_float(w & 0xffff0000u);
+}
+static __device__ __forceinline__ unsigned pack2(const float* x) {
+  return (__float_as_uint(x[0]) >> 16) |
+         (__float_as_uint(x[1]) & 0xffff0000u);
+}
+
+// The dneg pieces (elements j..j+E-1) of draws cs[0..APPLY_U) (-1: none),
+// all loads in flight together.
+template <int E>
+static __device__ __forceinline__ void load_draws(const float* dneg, int d,
+                                                  int j,
+                                                  const int (&cs)[APPLY_U],
+                                                  float (&u)[APPLY_U][E]) {
+#pragma unroll
+  for (int i = 0; i < APPLY_U; ++i) {
+    if (cs[i] < 0) continue;
+    const float* src = dneg + (size_t)cs[i] * d + j;
+    if constexpr (E == 8) {
+      const float4 lo = step_ld(reinterpret_cast<const float4*>(src));
+      const float4 hi = step_ld(reinterpret_cast<const float4*>(src + 4));
+      u[i][0] = lo.x, u[i][1] = lo.y, u[i][2] = lo.z, u[i][3] = lo.w;
+      u[i][4] = hi.x, u[i][5] = hi.y, u[i][6] = hi.z, u[i][7] = hi.w;
+    } else {
+      const float2 a = step_ld(reinterpret_cast<const float2*>(src));
+      u[i][0] = a.x, u[i][1] = a.y;
+    }
+  }
+}
+
+// x (elements j..j+E-1 of the row, f32 values of bf16) through the draws
+// cs[i] in order: x = round(x + f32(u[i] * -lr)), by the low 16 bits of
+// sr_bits(key, (GROUP + cs[i]) * d + j + e) (SR) or truncated.
+template <bool SR, int E>
+static __device__ __forceinline__ void apply_draws(
+    float (&x)[E], const int (&cs)[APPLY_U], const float (&u)[APPLY_U][E],
+    int d, int j, float lr, unsigned key) {
+#pragma unroll
+  for (int i = 0; i < APPLY_U; ++i) {
+    if (cs[i] < 0) break;
+    const unsigned at = (unsigned)((GROUP + cs[i]) * d + j);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float s = __fadd_rn(x[e], __fmul_rn(u[i][e], -lr));
+      const unsigned r = SR ? mix32((at + e) ^ key) & 0xffffu : 0u;
+      x[e] = __uint_as_float(((__float_as_uint(s) + r) >> 16) << 16);
+    }
+  }
+}
+
+// One owner's row: its pieces p = tl, tl + ts, ... of E elements, each
+// taken through the row's n draws ch[0..n) in order; `first` holds
+// ch[0..APPLY_U) (-1 past n), read before the wait.
+template <bool SR, int E>
+static __device__ __forceinline__ void apply_row(
+    __nv_bfloat16* row, const float* dneg, const int* ch, int n,
+    const int (&first)[APPLY_U], int d, int ts, int tl, float lr,
+    unsigned key) {
+  for (int p = tl; p * E < d; p += ts) {
+    const int j = p * E;
+    float u[APPLY_U][E];
+    load_draws<E>(dneg, d, j, first, u);
+    float x[E];
+    if constexpr (E == 8) {
+      const uint4 w = step_ld(reinterpret_cast<const uint4*>(row + j));
+      widen2(w.x, x), widen2(w.y, x + 2), widen2(w.z, x + 4);
+      widen2(w.w, x + 6);
+    } else {
+      widen2(step_ld(reinterpret_cast<const unsigned*>(row + j)), x);
+    }
+    apply_draws<SR, E>(x, first, u, d, j, lr, key);
+    for (int i0 = APPLY_U; i0 < n; i0 += APPLY_U) {
+      int cs[APPLY_U];
+#pragma unroll
+      for (int i = 0; i < APPLY_U; ++i)
+        cs[i] = i0 + i < n ? step_ld(ch + i0 + i) : -1;
+      load_draws<E>(dneg, d, j, cs, u);
+      apply_draws<SR, E>(x, cs, u, d, j, lr, key);
+    }
+    if constexpr (E == 8)
+      *reinterpret_cast<uint4*>(row + j) =
+          make_uint4(pack2(x), pack2(x + 2), pack2(x + 4), pack2(x + 6));
+    else
+      *reinterpret_cast<unsigned*>(row + j) = pack2(x);
+  }
+}
+
+template <bool SR, int E>
+static __global__ void __launch_bounds__(APPLY_THREADS)
+apply_pool_bf16_kernel(__nv_bfloat16* table, const int* pool,
+                       const float* dneg, const int* info, const int* order,
+                       int d, int KP, int ts, const StepArgs* args,
+                       float lr_in, unsigned seed_in, int g) {
+  const float lr = args != nullptr ? step_ld(&args->lr) : lr_in;
+  const unsigned key =
+      SR ? sr_key(args != nullptr ? step_ld(&args->seed) : seed_in,
+                  (unsigned)g)
+         : 0u;
+  const int k = blockIdx.x * (APPLY_THREADS / ts) + threadIdx.x / ts;
+  // k's place and draws (pool_chains_kernel's, complete) and its row
+  int2 in = make_int2(0, 0);
+  int id = 0, first[APPLY_U];
+  if (k < KP) {
+    in = step_ld(reinterpret_cast<const int2*>(info) + k);
+    id = step_ld(pool + k);
+  }
+#pragma unroll
+  for (int i = 0; i < APPLY_U; ++i)
+    first[i] = i == 0 ? k : i < in.y ? step_ld(order + in.x + i) : -1;
+  pdl_wait();
+  if (in.y > 0)  // else an earlier draw of the row owns it (or k >= KP)
+    apply_row<SR, E>(table + (size_t)id * d, dneg, order + in.x, in.y, first,
+                     d, ts, threadIdx.x % ts, lr, key);
+  pdl_trigger();
 }
 
 // ------------------------------------------------ the negative pass's tiles
@@ -2004,7 +2269,115 @@ struct NegSetup {
   int ny = 1;
   int cluster = 1;  // CTAs along y that merge dphi on chip (f32)
   int threads = NEG_THREADS;  // WIDE_THREADS past MAX_DIM
+  // the pool stage's grid and team width (stage_setup), and K3's pool
+  // write's (apply_setup): one team a pool row
+  int stage_grid = 1, stage_ts = 32;
+  int apply_grid = 1, apply_ts = 32;
 };
+
+// The pool passes a step's recording launched, by kernel
+// (step_graph.cuh: StepGraph::pool): stage_pool_kernel on f32 and on bf16
+// tables, K3's pool_chains_kernel and apply_pool_bf16_kernel.
+enum PoolPass {
+  PASS_STAGE_POOL = 0,
+  PASS_STAGE_POOL_BF16_TABLES = 1,
+  PASS_POOL_CHAINS = 2,
+  PASS_APPLY_POOL_BF16 = 3,
+  POOL_PASSES = 4
+};
+
+// stage_pool_kernel<T, VEC>, the instance a row of d elements takes.
+template <typename T>
+static inline auto stage_instance(int d) {
+  return d % piece_elems<T, true>() == 0 ? stage_pool_kernel<T, true>
+                                         : stage_pool_kernel<T, false>;
+}
+
+// Sizes the pool stage of KP rows of d elements: one team a row.
+template <typename T>
+static void stage_setup(NegSetup& s, int d, int KP) {
+  const int e = d % piece_elems<T, true>() == 0 ? piece_elems<T, true>() : 1;
+  s.stage_ts = pool_team(d, e);
+  const int teams = STAGE_THREADS / s.stage_ts;
+  s.stage_grid = (KP + teams - 1) / teams;
+}
+
+// stage_pool_kernel's launch on `stream` (with PDL when `pdl`), as
+// stage_setup sized it.
+template <typename T>
+static cudaError_t launch_stage(const NegSetup& s, const T* table,
+                                const int* pool, float* cneg, float* dneg,
+                                int d, int KP, cudaStream_t stream, bool pdl) {
+  return launch_kernel(stage_instance<T>(d), dim3(s.stage_grid),
+                       dim3(STAGE_THREADS), 0, stream, pdl, 0, table, pool,
+                       cneg, dneg, d, KP, s.stage_ts);
+}
+
+// apply_pool_bf16_kernel<SR, E>, the instance a row of d elements takes.
+template <bool SR>
+static inline auto apply_instance(int d) {
+  return d % 8 == 0 ? apply_pool_bf16_kernel<SR, 8>
+                    : apply_pool_bf16_kernel<SR, 2>;
+}
+
+// pool_chains_kernel's shared-memory cap (the largest pool's), for pools of
+// KP ids: KP past POOL_CHAIN_MAX is refused.
+static cudaError_t chains_setup(int KP) {
+  if (KP < 1 || KP > POOL_CHAIN_MAX) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(pool_chains_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)pool_chain_smem(POOL_CHAIN_MAX));
+}
+
+// Sizes K3's pool write of KP rows of d elements (d even), one team a pool
+// draw, and its pools' chains (pool_chains_kernel's shared-memory cap).
+// KP past POOL_CHAIN_MAX is refused.
+static cudaError_t apply_setup(NegSetup& s, int d, int KP) {
+  if (d < 2 || d % 2) return cudaErrorInvalidValue;
+  const cudaError_t err = chains_setup(KP);
+  if (err != cudaSuccess) return err;
+  s.apply_ts = pool_team(d, d % 8 == 0 ? 8 : 2);
+  const int per = APPLY_THREADS / s.apply_ts;
+  s.apply_grid = (KP + per - 1) / per;
+  return cudaSuccess;
+}
+
+// pool_chains_kernel's launch on `stream`, without PDL: the chains of
+// n_pools pools of KP ids into `chains` (info [n_pools][KP][2], then order
+// [n_pools][KP]: pool_chain_info, pool_chain_order).
+static cudaError_t launch_chains(const int* pools, int n_pools, int KP,
+                                 int* chains, cudaStream_t stream) {
+  return launch_kernel(pool_chains_kernel, dim3(n_pools),
+                       dim3(CHAIN_THREADS), pool_chain_smem(KP), stream,
+                       false, 0, pools, KP, chains,
+                       chains + (size_t)2 * n_pools * KP);
+}
+
+// Where pool b's info and order lie in a `chains` buffer of n_pools pools.
+static inline const int* pool_chain_info(const int* chains, int b, int KP) {
+  return chains + (size_t)2 * b * KP;
+}
+static inline const int* pool_chain_order(const int* chains, int b,
+                                          int n_pools, int KP) {
+  return chains + (size_t)2 * n_pools * KP + (size_t)b * KP;
+}
+
+// apply_pool_bf16_kernel's launch on `stream` (with PDL when `pdl`) for
+// pool b of the n_pools in `chains`, as apply_setup sized it; lr and the SR
+// seed from `args`, or `lr`, `seed` where it is null.
+template <bool SR>
+static cudaError_t launch_apply_bf16(const NegSetup& s, __nv_bfloat16* table,
+                                     const int* pool, const float* dneg,
+                                     const int* chains, int b, int n_pools,
+                                     int d, int KP, const StepArgs* args,
+                                     float lr, unsigned seed, int g,
+                                     cudaStream_t stream, bool pdl) {
+  return launch_kernel(apply_instance<SR>(d), dim3(s.apply_grid),
+                       dim3(APPLY_THREADS), 0, stream, pdl, 0, table, pool,
+                       dneg, pool_chain_info(chains, b, KP),
+                       pool_chain_order(chains, b, n_pools, KP), d, KP,
+                       s.apply_ts, args, lr, seed, g);
+}
 
 // Internal linkage for the pass structs (here and in star_pos.cuh): the
 // kernels are `static`, so each translation unit has its own copy, and the
@@ -2024,6 +2397,7 @@ struct NegativePass : NegSetup {
 
   cudaError_t init(int d, int KP, int nslots) {
     if (d < 1 || KP < 1 || nslots % NEG_MS) return cudaErrorInvalidValue;
+    if (!BF16 || d <= MAX_DIM) stage_setup<T>(*this, d, KP);  // (stage())
     if (d > MAX_DIM) {  // the wide kernels
       threads = WIDE_THREADS;
       // the cap is the kernel's largest shared memory (past NEG_WHOLE), so
@@ -2143,16 +2517,23 @@ struct NegativePass : NegSetup {
   // Stages the pool `pool` (KP rows of `table`) for the pass into cneg and
   // zeroes dneg on `stream` (with PDL when `pdl`): f32 rows
   // (stage_pool_kernel), or bf16 rows for the bf16 pass past MAX_DIM
-  // (stage_pool_bf16_kernel).  Returns the launch's error.
+  // (stage_pool_bf16_kernel).  A launch of stage_pool_kernel adds one to
+  // launched[PASS_STAGE_POOL or PASS_STAGE_POOL_BF16_TABLES] (null: not
+  // counted).  Returns the launch's error.
   cudaError_t stage(const T* table, const int* pool, float* cneg, float* dneg,
-                    int d, int KP, cudaStream_t stream, bool pdl) const {
+                    int d, int KP, cudaStream_t stream, bool pdl,
+                    int* launched) const {
     if (BF16 && d > MAX_DIM)
       return launch_kernel(stage_pool_bf16_kernel<T>, dim3(KP), dim3(128), 0,
                            stream, pdl, 0, table, pool,
                            reinterpret_cast<__nv_bfloat16*>(cneg), dneg, d,
                            KP);
-    return launch_kernel(stage_pool_kernel<T>, dim3(KP), dim3(128), 0, stream,
-                         pdl, 0, table, pool, cneg, dneg, d);
+    const cudaError_t e =
+        launch_stage(*this, table, pool, cneg, dneg, d, KP, stream, pdl);
+    if (e == cudaSuccess && launched != nullptr)
+      ++launched[std::is_same<T, float>::value ? PASS_STAGE_POOL
+                                               : PASS_STAGE_POOL_BF16_TABLES];
+    return e;
   }
 
   // Launches the pass on `stream` (with PDL when `pdl`); returns the

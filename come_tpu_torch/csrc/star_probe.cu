@@ -58,7 +58,7 @@ static int star_probe_groups(float* emb, const int* slots, const int* meta,
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* sg = slots + (size_t)g * GROUP;
     if (pool_on && g % R == 0) {
-      e = neg.stage(emb, pool, cneg, dneg, d, KP, stream, false);
+      e = neg.stage(emb, pool, cneg, dneg, d, KP, stream, false, nullptr);
       if (e != cudaSuccess) return (int)e;
     }
     if (sections & GATHER) {

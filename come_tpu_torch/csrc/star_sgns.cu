@@ -67,13 +67,15 @@ static __global__ void star_scatter_kernel(float* emb, const int* slots,
 // The group loop of one step, launched on `stream` (the recording stream),
 // after the head kernel: slots, meta and pools are the plan's copies.
 // Every kernel after the first under PDL.  `launched` receives the route
-// of the star pass it launched (PosRoute).
+// of the star pass it launched (PosRoute), and `pool_launched` counts the
+// pool passes it launched (PoolPass).
 template <bool BF16>
 static int star_groups(const NegSetup& ns, float* emb, const int* slots,
                        const int* meta, const int* pools, double* stats,
                        float* cneg, float* dneg, float* dphi, float* nt,
                        const StepArgs* args, int d, int G, int KP, int R,
-                       float negw, int* launched, cudaStream_t stream) {
+                       float negw, int* launched, int* pool_launched,
+                       cudaStream_t stream) {
   StarPosPass<BF16> pos;
   pos.smem = StarPosPass<BF16>::smem_bytes(d);
   NegativePass<BF16, float> neg;
@@ -84,7 +86,8 @@ static int star_groups(const NegSetup& ns, float* emb, const int* slots,
     const int* pool = pools + (size_t)(g / R) * KP;
     const int* sg = slots + (size_t)g * GROUP;
     if (g % R == 0) {
-      e = neg.stage(emb, pool, cneg, dneg, d, KP, stream, g > 0);
+      e = neg.stage(emb, pool, cneg, dneg, d, KP, stream, g > 0,
+                    pool_launched);
       if (e != cudaSuccess) return (int)e;
     }
     e = pos.launch(emb, sg, meta + (size_t)g * GROUP, d, dphi, dphin, nt,
@@ -137,7 +140,7 @@ static int star_step(StepGraph* p, int how, float* emb, const HeadIn& hin,
         return star_groups<BF16>(p->neg, emb, hb.dst[0], hb.dst[1],
                                  hb.dst[2], stats, cneg, dneg, dphi, nt,
                                  hb.args, d, G, KP, R, negw, &p->route,
-                                 cap);
+                                 p->pool, cap);
       },
       step_head_kernel, hin, hb);
 }

@@ -162,6 +162,15 @@ extern "C" int come_step_graph_route(void* slot) {
   return p == nullptr ? -1 : p->route;
 }
 
+// The launches of pool pass `pass` (sgns_common.cuh: PoolPass) that a walk
+// or star step's recording in this slot made; -1 for no slot or pass.
+extern "C" int come_step_graph_pool(void* slot, int pass) {
+  const StepGraph* p = static_cast<const StepGraph*>(slot);
+  return p == nullptr || pass < 0 || pass >= come::POOL_PASSES
+             ? -1
+             : p->pool[pass];
+}
+
 // Launches a slot's instance once more on `stream` (the floor probe's
 // replays).  Returns 0 or the CUDA error.
 extern "C" int come_step_graph_launch(void* slot, void* stream) {

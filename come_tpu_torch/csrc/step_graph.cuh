@@ -47,6 +47,7 @@ struct StepGraph {
   int mode = -1;                   // the C entry's mode, fixed at setup
   NegSetup neg;                    // the negative pass's sizing, found at setup
   int route = -1;  // the band or star pass the recording launched (PosRoute)
+  int pool[POOL_PASSES] = {};  // the pool passes it launched, by PoolPass
 };
 
 // What a call asks of a plan's recording (ops/launch_plan.py:
@@ -69,6 +70,7 @@ static int record_step(StepGraph* p, int how, Record record,
   cudaError_t e =
       cudaStreamBeginCapture(p->cap, cudaStreamCaptureModeThreadLocal);
   if (e != cudaSuccess) return (int)e;
+  for (int& n : p->pool) n = 0;  // the group loop counts this recording's
   const int rc = record(p->cap);
   cudaGraph_t g = nullptr;
   e = cudaStreamEndCapture(p->cap, &g);  // whatever record returned

@@ -834,6 +834,7 @@ struct WalkStep {
   float* dctx;
   float* nt;
   StepArgs* args;
+  int* chains;  // K3: the pools' chains (sgns_common.cuh: pool_chains_kernel)
   int d, G, L, W, KP, R;
   float negw;
   const int* starts;
@@ -845,12 +846,15 @@ struct WalkStep {
 // The group loop of one step, launched on `stream` (the recording stream).
 // T = float: K1/K1b/K5 (atomic f32 scatter); T = __nv_bfloat16: K3
 // (rounded RMW scatter, SR with a per-step seed; `retries` collects its CAS
-// retries).  `pdl` says whether the first launch may start under PDL (a
-// kernel besides the head precedes it in the step); every later one does.
-// `launched` receives the route of the band pass it launched (PosRoute).
+// retries; the pool write by owned rows in draw order, no CAS).  `pdl`
+// says whether the first launch may start under PDL (a kernel besides the
+// head precedes it in the step); every later one does.  `launched`
+// receives the route of the band pass it launched (PosRoute), and
+// `pool_launched` counts the pool passes it launched (PoolPass).
 template <bool BF16, bool PAIRED, typename T, bool SR>
 static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
-                       int* launched, cudaStream_t stream) {
+                       int* launched, int* pool_launched,
+                       cudaStream_t stream) {
   constexpr bool TB16 = !std::is_same<T, float>::value;
   T* emb_in = static_cast<T*>(s.emb_in);
   T* emb_out = static_cast<T*>(s.emb_out);
@@ -874,7 +878,8 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
     const int* pool = s.pools + (size_t)(g / R) * KP;
     const int* wg = s.walks + (size_t)g * GROUP;
     if (g % R == 0) {
-      e = neg.stage(emb_out, pool, s.cneg, s.dneg, d, KP, stream, pdl);
+      e = neg.stage(emb_out, pool, s.cneg, s.dneg, d, KP, stream, pdl,
+                    pool_launched);
       if (e != cudaSuccess) return (int)e;
       pdl = true;
     }
@@ -896,10 +901,11 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
                         dphin, s.dctx, d, L, args, g, s.retries);
       if (e != cudaSuccess) return (int)e;
       if (end) {
-        e = launch_kernel(apply_pool_bf16_kernel<SR>, dim3(KP), dim3(64), 0,
-                          stream, true, 0, emb_out, pool, s.dneg, d, args, g,
-                          s.retries);
+        e = launch_apply_bf16<SR>(neg, emb_out, pool, s.dneg, s.chains,
+                                  g / R, (s.G + R - 1) / R, d, KP, args, 0.0f,
+                                  0u, g, stream, true);
         if (e != cudaSuccess) return (int)e;
+        ++pool_launched[PASS_APPLY_POOL_BF16];
       }
     } else {
       e = launch_kernel(walk_scatter_kernel, dim3(GROUP),
@@ -928,7 +934,8 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
   constexpr bool TB16 = !std::is_same<T, float>::value;
   if (p == nullptr || s.d < 1 || s.G < 1 ||
       s.L < 1 || s.L > BLK || s.W < 1 || s.R < 1 ||
-      (PAIRED && (s.W != 1 || s.L % 2)) || (TB16 && s.d % 2))
+      (PAIRED && (s.W != 1 || s.L % 2)) ||
+      (TB16 && (s.d % 2 || s.chains == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (p->mode < 0) {
     // the caps are what the largest strip needs (d MAX_DIM, or a slab, and
@@ -949,6 +956,7 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
     if (e != cudaSuccess) return (int)e;
     NegativePass<BF16, T> neg;
     e = neg.init(s.d, s.KP, GROUP);
+    if (e == cudaSuccess && TB16) e = apply_setup(neg, s.d, s.KP);
     if (e != cudaSuccess) return (int)e;
     p->neg = neg;
     p->mode = mode;
@@ -970,8 +978,15 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
           if (e != cudaSuccess) return (int)e;
           lead = true;
         }
+        if (TB16) {  // K3: every block's pool sorted into its chains
+          e = launch_chains(s.pools, (s.G + s.R - 1) / s.R, s.KP, s.chains,
+                            cap);
+          if (e != cudaSuccess) return (int)e;
+          ++p->pool[PASS_POOL_CHAINS];
+          lead = true;
+        }
         return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, lead, &p->route,
-                                                cap);
+                                                p->pool, cap);
       },
       step_head_kernel, hin, hb);
 }
@@ -1017,8 +1032,9 @@ using namespace come;
 //   wrow            [G * 1024] i32 window draws (not read when paired)
 //   pools           [ceil(G / R), KP] i32
 //   stats           [2] f64 scratch: the step's (loss, pairs)
-//   retries         [1] f64, accumulates K3's CAS retries (not read by K1,
-//                   K1b, K5)
+//   retries         [1] f64, accumulates the CAS retries of K3's slot
+//                   scatter (not read by K1, K1b, K5; K3's pool write takes
+//                   none)
 //   cneg, dneg      [KP, d] f32 scratch
 //   dphi            [2, 1024, d] f32 scratch: the positive pass's part of
 //                   each slot's update, then the negative pass's
@@ -1026,6 +1042,8 @@ using namespace come;
 //   walks_buf, wrow_buf, pools_buf: the plan's copies of walks, wrow
 //                   (unused when paired) and pools, which the loop reads
 //   args            the plan's argument block (sgns_common.cuh: StepArgs)
+//   chains          K3 (else unused): [3 * ceil(G / R) * KP] i32 scratch, the
+//                   pools' chains (sgns_common.cuh: pool_chains_kernel)
 // bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even),
 // tables_bf16 != 0 K3 (d even; stochastic rounding from sr_seed when
 // sr != 0, else truncation).  A plan serves one mode and one (d, G, L, W,
@@ -1036,13 +1054,14 @@ extern "C" int come_walk_sgns_step(
     void* graph, int record, void* emb_in, void* emb_out, const int* walks,
     const int* wrow, const int* pools, double* stats, double* retries,
     float* cneg, float* dneg, float* dphi, float* dctx, float* nt,
-    int* walks_buf, int* wrow_buf, int* pools_buf, void* args, int d, int G,
-    int L, int W, int KP, int R, int bf16, int paired, int tables_bf16,
-    int sr, unsigned sr_seed, float lr, float negw, void* stream_ptr) {
+    int* walks_buf, int* wrow_buf, int* pools_buf, void* args, int* chains,
+    int d, int G, int L, int W, int KP, int R, int bf16, int paired,
+    int tables_bf16, int sr, unsigned sr_seed, float lr, float negw,
+    void* stream_ptr) {
   StepArgs* a = static_cast<StepArgs*>(args);
   const WalkStep s{emb_in, emb_out, walks_buf, wrow_buf, pools_buf, stats,
-                   retries, cneg, dneg, dphi, dctx, nt, a, d, G, L, W, KP, R,
-                   negw, nullptr, nullptr, nullptr, nullptr};
+                   retries, cneg, dneg, dphi, dctx, nt, a, chains, d, G, L,
+                   W, KP, R, negw, nullptr, nullptr, nullptr, nullptr};
   const int slots = G * GROUP, np = (G + R - 1) / R * KP;
   const HeadIn hin{{walks, paired ? nullptr : wrow, pools, nullptr}, lr,
                    sr_seed};
@@ -1065,13 +1084,13 @@ extern "C" int come_walk_sgns_gen_step(
     const int* wrow, const int* pools, double* stats, double* retries,
     float* cneg, float* dneg, float* dphi, float* dctx, float* nt,
     int* starts_buf, unsigned* bits_buf, int* wrow_buf, int* pools_buf,
-    void* args, int d, int G, int L, int W, int KP, int R, int bf16,
-    int tables_bf16, int sr, unsigned sr_seed, float lr, float negw,
-    void* stream_ptr) {
+    void* args, int* chains, int d, int G, int L, int W, int KP, int R,
+    int bf16, int tables_bf16, int sr, unsigned sr_seed, float lr,
+    float negw, void* stream_ptr) {
   StepArgs* a = static_cast<StepArgs*>(args);
   const WalkStep s{emb_in, emb_out, slots, wrow_buf, pools_buf, stats,
-                   retries, cneg, dneg, dphi, dctx, nt, a, d, G, L, W, KP, R,
-                   negw, starts_buf, bits_buf, indptr, indices};
+                   retries, cneg, dneg, dphi, dctx, nt, a, chains, d, G, L,
+                   W, KP, R, negw, starts_buf, bits_buf, indptr, indices};
   const int n = G * GROUP, np = (G + R - 1) / R * KP;
   const HeadIn hin{{starts, reinterpret_cast<const int*>(bits), wrow, pools},
                    lr, sr_seed};

@@ -35,19 +35,20 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 # C signatures (csrc/walk_sgns.cu, star_sgns.cu, step_graph.cu,
 # sgns_fused.cu, row_probe.cu, smem_probe.cu, star_probe.cu,
-# floor_probe.cu, gmm_factor.cu): every pointer
+# floor_probe.cu, gmm_factor.cu, pool_pass.cu): every pointer
 # and the stream as c_void_p, ints as c_int, seeds as c_uint32, scalars as
 # c_float.  Each returns an int (0 or a CUDA error code) unless RESTYPES
 # says otherwise.
 SIGNATURES = {
-    "come_walk_sgns_step": [_P, _I] + [_P] * 16 + [_I] * 10
+    "come_walk_sgns_step": [_P, _I] + [_P] * 17 + [_I] * 10
     + [_U, _F, _F, _P],
-    "come_walk_sgns_gen_step": [_P, _I] + [_P] * 21 + [_I] * 9
+    "come_walk_sgns_gen_step": [_P, _I] + [_P] * 22 + [_I] * 9
     + [_U, _F, _F, _P],
     "come_star_sgns_step": [_P, _I] + [_P] * 13 + [_I] * 5 + [_F, _F, _P],
     "come_walk_pos_route": [_I] * 6,
     "come_star_pos_route": [_I] * 2,
     "come_step_graph_route": [_P],
+    "come_step_graph_pool": [_P, _I],
     "come_step_graph_new": [],
     "come_step_graph_free": [_P],
     "come_step_graph_launch": [_P, _P],
@@ -77,6 +78,9 @@ SIGNATURES = {
     "come_gmm_factor_setup": [],
     "come_gmm_factor": [_P, _P, _F, _P, _P, _I, _I, _P, _P],
     "come_gmm_inverse": [_P, _P, _I, _I, _P, _P],
+    "come_pool_stage": [_P] * 4 + [_I] * 3 + [_P],
+    "come_pool_apply_bf16": [_P] * 4 + [_I] * 3 + [_F, _I, _U, _P],
+    "come_pool_chains": [_P, _I, _I, _P, _P],
 }
 RESTYPES = {"come_cuda_error_name": ctypes.c_char_p,
             "come_step_graph_new": ctypes.c_void_p,

@@ -26,8 +26,8 @@ keeps between steps for one (entry, device, stream, mode, shape):
     are not in the key, and neither are the tables';
   * the staged inputs (``inputs``: the walks, window draws, pools, star
     slots and meta, K4's starts and draws), the step's scratch (the result
-    ``stats``, ``cneg``, ``dneg``, ``dphi``, ``dctx``, ``nt`` and K4's
-    generated walks) and ``args``, allocated once.  The head kernel zeroes
+    ``stats``, ``cneg``, ``dneg``, ``dphi``, ``dctx``, ``nt``, K4's
+    generated walks and K3's pool chains) and ``args``, allocated once.  The head kernel zeroes
     ``stats`` (:meth:`LaunchPlan.begin` does on CPU plans, its plain
     version); :meth:`LaunchPlan.result` returns a copy, so a step's (loss,
     n_pairs) never alias the buffer the next step zeroes.  A plan's steps
@@ -87,7 +87,7 @@ class LaunchPlan:
 
     def __init__(self, key: tuple, device, KP: int, d: int, *,
                  ctx: bool = True, walk_slots: int = 0, rows: int = NWL,
-                 inputs: dict | None = None):
+                 inputs: dict | None = None, chains: int = 0):
         f32 = torch.float32
         dev = torch.device(device)
         self.key = key
@@ -105,10 +105,14 @@ class LaunchPlan:
                                   device=dev) if walk_slots else None)
         self.inputs = {k: torch.empty((n,), dtype=torch.int32, device=dev)
                        for k, n in (inputs or {}).items()}
+        # K3: its pools' chains, as pool_chains_kernel writes them
+        self.chains = (torch.empty((chains,), dtype=torch.int32, device=dev)
+                       if chains else None)
         self.args = torch.zeros(ARGS_BYTES // 8, dtype=torch.int64,
                                 device=dev)
         self.slot = None  # the C graph slot, made at the first CUDA step
         self.route = None  # the band or star route its recording launched
+        self.pool = None  # the pool passes it launched (walk_sgns.POOL_PASSES)
         self.recorded = None  # what the instance's recording holds
         self.pending = None  # what the step begun would record
         self.recordings = self.instantiations = self.updates = 0
@@ -382,11 +386,12 @@ def graph_plan_for(entry: str, device, stream: int, mode: tuple,
 
 def plan_for(entry: str, device, stream: int, mode: tuple, shape: tuple, *,
              KP: int, d: int, ctx: bool = True, walk_slots: int = 0,
-             inputs: dict | None = None) -> LaunchPlan:
+             inputs: dict | None = None, chains: int = 0) -> LaunchPlan:
     """The plan of ``plan_key(...)``, made at its first use."""
     return _plan(plan_key(entry, device, stream, mode, shape),
                  lambda k: LaunchPlan(k, device, KP, d, ctx=ctx,
-                                      walk_slots=walk_slots, inputs=inputs))
+                                      walk_slots=walk_slots, inputs=inputs,
+                                      chains=chains))
 
 
 def fused_plan_for(entry: str, device, stream: int, tied: int, d: int,

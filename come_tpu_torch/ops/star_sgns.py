@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from come_tpu_torch.ops import build, launch_plan
 from come_tpu_torch.ops.walk_sgns import (
     check_cuda_inputs,
+    count_pool_passes,
     count_route,
     expand_pools,
     mxu,
@@ -177,6 +178,7 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
         star_sgns_step.launches += 1
     build.check(code, "come_star_sgns_step")
     count_route(plan, how, star_sgns_step, lib)
+    count_pool_passes(plan, how, lib)
     plan.done(how, star_sgns_step)
     return (emb,) + plan.result()
 

@@ -176,6 +176,62 @@ def rmw_rows(table, ids, upd, rnd):
                                  None if rnd is None else rnd[sel])
 
 
+def pool_stage_reference(table, pool, acc: torch.dtype = torch.float32):
+    """Plain version of the pool stage (``csrc/sgns_common.cuh``:
+    ``stage_pool_kernel``; the TPU's ``_stage_pool``,
+    ``pallas_walk_sgns.py:216``): (cneg, dneg) = (``table[pool]`` widened
+    to ``acc``, zeros of its shape)."""
+    cneg = table[pool].to(acc)
+    return cneg, torch.zeros_like(cneg)
+
+
+def pool_sr_bits(sr_seed: int | None, group: int, KP: int, d: int,
+                 device) -> torch.Tensor | None:
+    """The rounding bits of the pool write of a block whose last group is
+    ``group``: row k's element j takes the low 16 bits of
+    ``sr_bits(sr_key(sr_seed, group), (1024 + k) * d + j)``, int64 [KP, d];
+    None (truncation) without a seed."""
+    if sr_seed is None:
+        return None
+    counter = torch.arange(NWL * d, (NWL + KP) * d, device=device).view(KP, d)
+    return sr_bits(sr_key(sr_seed, group), counter) & 0xFFFF
+
+
+def pool_apply_bf16_reference(table, pool, dneg, lr, rnd):
+    """Plain version of K3's pool write (``apply_pool_bf16_kernel``; the
+    TPU's ``_apply_pool`` on bf16 tables, ``pallas_walk_sgns.py:405``):
+    ``table[pool[k]] = round(f32(table[pool[k]]) + f32(dneg[k] * -lr),
+    rnd[k])`` for k in draw order (:func:`rmw_rows`), ``rnd`` from
+    :func:`pool_sr_bits` or None.  Returns ``table``, updated in place."""
+    rmw_rows(table, pool, (dneg * (-lr)).float(), rnd)
+    return table
+
+
+# The pool passes inside the walk and star steps' recorded group loops, in
+# the order of csrc/sgns_common.cuh's PoolPass: stage_pool_kernel on f32 and
+# on bf16 tables, K3's pool_chains_kernel (which sorts a step's pools into
+# the chains its pool write follows) and K3's apply_pool_bf16_kernel.
+POOL_PASSES = ("stage_pool", "stage_pool_bf16_tables", "pool_chains",
+               "apply_pool_bf16")
+# Their launches in the steps the wrappers launched.  Reset by assigning
+# zeros.
+POOL_LAUNCHES = dict.fromkeys(POOL_PASSES, 0)
+
+
+def count_pool_passes(plan, how: int, lib) -> None:
+    """Add one step's pool passes to :data:`POOL_LAUNCHES`: those its
+    plan's recording launched (``come_step_graph_pool``, which the C group
+    loop counts as it launches them; read when the step records, since a
+    replay runs what was recorded)."""
+    if how != launch_plan.RECORD_NONE or plan.pool is None:
+        plan.pool = tuple(lib.come_step_graph_pool(plan.slot, i)
+                          for i in range(len(POOL_PASSES)))
+        if min(plan.pool) < 0:
+            raise RuntimeError(f"come_step_graph_pool: no counts {plan.pool}")
+    for name, n in zip(POOL_PASSES, plan.pool):
+        POOL_LAUNCHES[name] += n
+
+
 def walk_sgns_step_reference(emb_in, emb_out, walks, wrow, pools, lr, negw,
                              *, window: int, pool_refresh: int = 1,
                              mxu_bf16: bool = False, paired: bool = False,
@@ -214,13 +270,13 @@ def walk_sgns_step_reference(emb_in, emb_out, walks, wrow, pools, lr, negw,
     npairs = torch.zeros((), dtype=acc, device=dev)
     d = emb_in.shape[1]
     real = (torch.arange(NWL, device=dev) % LP) < L
-    # SR counters: slot t's element k is t*d + k, pool row k slot NWL + k
-    counter = torch.arange((NWL + pools.shape[1]) * d, device=dev).view(-1, d)
+    # SR counters: slot t's element k is t*d + k (the pool's: pool_sr_bits)
+    counter = torch.arange(NWL * d, device=dev).view(NWL, d)
     for g in range(G):
         if g % R == 0:
             pool = pools[g // R]
-            cneg = mxu(emb_out[pool].to(acc), mxu_bf16)
-            dneg = torch.zeros_like(cneg)
+            cneg, dneg = pool_stage_reference(emb_out, pool, acc)
+            cneg = mxu(cneg, mxu_bf16)
         ids = slots[g * NWL:(g + 1) * NWL]
         phi = emb_in[ids].to(acc).view(NW, LP, d)
         ctx = mxu(emb_out[ids].to(acc).view(NW, LP, d), rnd)
@@ -249,17 +305,17 @@ def walk_sgns_step_reference(emb_in, emb_out, walks, wrow, pools, lr, negw,
             continue
         # K3: one rounded RMW per real slot (padded slots carry exact
         # zeros, which round to the row itself), then the pool's
-        lo = hi = pbits = None
+        lo = hi = None
         if sr_seed is not None:
-            key = sr_key(sr_seed, g)
-            bits = sr_bits(key, counter[:NWL][real])
+            bits = sr_bits(sr_key(sr_seed, g), counter[real])
             lo, hi = bits & 0xFFFF, bits >> 16
-            pbits = sr_bits(key, counter[NWL:]) & 0xFFFF
         dphi, dctx = dphi.reshape(NWL, d)[real], dctx.reshape(NWL, d)[real]
         rmw_rows(emb_in, ids[real], (dphi * (-lr)).float(), lo)
         rmw_rows(emb_out, ids[real], (dctx * (-lr)).float(), hi)
         if end:
-            rmw_rows(emb_out, pool, (dneg * (-lr)).float(), pbits)
+            pool_apply_bf16_reference(
+                emb_out, pool, dneg, lr,
+                pool_sr_bits(sr_seed, g, pool.numel(), d, dev))
     return emb_in, emb_out, loss, npairs
 
 
@@ -320,16 +376,19 @@ def walk_plan(entry: str, device, stream: int, mode: tuple, d: int, G: int,
     tables_bf16, sr); the plan also holds the generated walks), keyed on
     the shape (d, G, L, W, KP, R).  Its staged inputs: the walks (K4: the
     starts and the 32-bit draws), the window draws (not paired) and the
-    pools."""
+    pools; with bf16 tables (K3) also the pools' chains (3 int32 a pool
+    draw: ``csrc/sgns_common.cuh``'s pool_chains_kernel)."""
     gen = entry == "walk_sgns_gen"
     inputs = {"starts": G * NW, "bits": G * NWL} if gen else \
         {"walks": G * NWL}
     if gen or not mode[1]:
         inputs["wrow"] = G * NWL
     inputs["pools"] = -(-G // R) * KP
+    tables_bf16 = mode[1] if gen else mode[2]
     return launch_plan.plan_for(
         entry, device, stream, mode, (d, G, L, W, KP, R), KP=KP, d=d,
-        walk_slots=G * NWL if gen else 0, inputs=inputs)
+        walk_slots=G * NWL if gen else 0, inputs=inputs,
+        chains=3 * inputs["pools"] if tables_bf16 else 0)
 
 
 def walk_entry_args(plan, how: int, emb_in, emb_out, slots, wrow, pools,
@@ -354,8 +413,10 @@ def walk_entry_args(plan, how: int, emb_in, emb_out, slots, wrow, pools,
              retries.data_ptr(), cneg, dneg, dphi, dctx, nt)
     head += plan.staged("starts", "bits") if gen is not None else \
         plan.staged("walks")
+    chains = None if plan.chains is None else plan.chains.data_ptr()
     head += (None if wbuf is None else wbuf.data_ptr(),) + \
-        plan.staged("pools") + (plan.args.data_ptr(), d, G, L, W, KP, R, bf16)
+        plan.staged("pools") + (plan.args.data_ptr(), chains, d, G, L, W, KP,
+                                R, bf16)
     if gen is None:
         head += (paired,)
     return head + (tables_bf16, sr, seed, float(lr), float(negw), stream)
@@ -467,6 +528,7 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
     _count_walk_launch(mxu_bf16, paired, tables_bf16)
     build.check(code, "come_walk_sgns_step")
     count_route(plan, how, walk_sgns_step, lib)
+    count_pool_passes(plan, how, lib)
     plan.done(how, walk_sgns_step)
     return (emb_in, emb_out) + plan.result()
 
@@ -609,6 +671,7 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
         walk_sgns_gen_step.launches += 1
     build.check(code, "come_walk_sgns_gen_step")
     count_route(plan, how, walk_sgns_gen_step, lib)
+    count_pool_passes(plan, how, lib)
     plan.done(how, walk_sgns_gen_step)
     out = (emb_in, emb_out) + plan.result()
     if return_walks:

@@ -2,11 +2,12 @@
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         -m come_tpu_torch.tools.dp_check [--backend nccl|gloo] \\
-        [--device cuda:0] [--out DIR]
+        [--device cuda:0] [--dim D] [--out DIR]
 
 Each rank trains the blogcatalog preset through the CLI's entry
-(``main.run`` with ``--mesh N,1``, pretrain 1 + outer 1), with the kernels'
-launch counters set to 0 just before and read just after, then:
+(``main.run`` with ``--mesh N,1``, pretrain 1 + outer 1, ``--dim D``: 128
+by default; every held step below takes the tables' width), with the
+kernels' launch counters set to 0 just before and read just after, then:
 
 * times one more O1 epoch, with CUDA events around every all-reduce
   (``parallel/collectives.py``'s meter): the epoch's ms, the all-reduce
@@ -20,7 +21,7 @@ launch counters set to 0 just before and read just after, then:
 * holds one data-parallel step of K1 (256 walks of 80 at
   BlogCatalog shapes, W 10, KP 512), K2 (512 star-layout rows), K5 (512
   rows of 64 edges) through the trainer's step methods, and one of K3 (bf16
-  tables at the synthetic-10m shapes: V 500000, d 128, 1024 walks of 80,
+  tables at the synthetic-10m shapes: V 500000, d D, 1024 walks of 80,
   W 10, KP 2048, SR) through ``collectives.reduce_deltas_``, each rank on
   its own inputs (seeded by rank), each held against ``before + sum_r
   (plain_r(before) - before)``, which every rank computes for all ranks.
@@ -311,6 +312,8 @@ def main(argv=None) -> int:
     p.add_argument("--backend", choices=["nccl", "gloo"])
     p.add_argument("--device", default="cuda",
                    help="this rank's device (default cuda:LOCAL_RANK)")
+    p.add_argument("--dim", type=int, default=128,
+                   help="the tables' width (default 128)")
     p.add_argument("--out", help="write rank<r>.json here")
     args = p.parse_args(argv)
 
@@ -322,7 +325,7 @@ def main(argv=None) -> int:
     world = int(os.environ.get("WORLD_SIZE", "1"))
     cli = ["--dataset", "blogcatalog", "--mesh", f"{world},1",
            "--pretrain-epochs", "1", "--outer-iters", "1", "--seed",
-           str(SEED), "--device", args.device]
+           str(SEED), "--device", args.device, "--dim", str(args.dim)]
     if args.backend:
         cli += ["--backend", args.backend]
     for fn, attr in COUNTERS.values():

@@ -62,6 +62,10 @@ time includes the time it waits for its predecessor, so its pass µs
 overlap and the kernels' sum may pass the step's time: the covered share
 is then the busy share to read.
 
+The same lines add ``library_us_per_group``: the stage, the pool apply and
+the scatter each as one PyTorch call at the step's shapes
+(:func:`library_us`: index_select, index_add_), µs a group.
+
 Each line also has ``library3_ms``: one group's (tile's) negative pass as
 three PyTorch products at its shapes (:func:`library3_ms`: scores, the
 sigmoid, dphi and dneg; f32 with TF32 off, or bf16 operands with f32
@@ -520,6 +524,51 @@ def library3_ms(dev, slots: int, KP: int, d: int, bf16: bool,
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def library_us(dev, d: int, ids, pools, R: int, es: int, walk: bool,
+               n: int = 10) -> dict:
+    """Device µs a group (:func:`device_us`: the calls' kernels) of one
+    PyTorch call that does each of three passes' work at a step's shapes
+    (``ids``, ``pools``, R, es and walk as :func:`pass_bounds` takes them;
+    a [V, d] table of es-byte elements, V past the largest id): "stage"
+    index_select of a pool's rows, with the cast to f32 where the table is
+    bf16 (the stage's output), once a block; "pool apply" index_add_ of a
+    pool's [KP, d] update into the table, once a block; "scatter"
+    index_add_ of a group's real slots' [n, d] updates, once for each table
+    the pass writes (two for a walk step).  Each over ``n`` calls; with
+    "calls", the calls by name.  A yardstick: the port never calls them."""
+    import torch
+
+    dtype = torch.bfloat16 if es == 2 else torch.float32
+    V = int(max(int(ids.max()), int(pools.max()))) + 1
+    g = torch.Generator(device=dev).manual_seed(0)
+    tab = (torch.randn((V, d), generator=g, device=dev) * 0.1).to(dtype)
+    G, KP, blocks = ids.shape[0], pools.shape[1], pools.shape[0]
+    pool = pools[0].long()
+    slots = ids[0][ids[0] >= 0].long()
+    upd_p = torch.randn((KP, d), generator=g, device=dev).to(dtype) * 1e-3
+    upd_s = torch.randn((slots.numel(), d), generator=g, device=dev).to(
+        dtype) * 1e-3
+    cast = dtype == torch.bfloat16
+
+    def stage():
+        rows = tab.index_select(0, pool)
+        return rows.float() if cast else rows
+
+    tabs = 2 if walk else 1
+    us = {
+        "stage": device_us(lambda i: stage(), list(range(n))) * blocks / G,
+        "pool apply": device_us(lambda i: tab.index_add_(0, pool, upd_p),
+                                list(range(n))) * blocks / G,
+        "scatter": device_us(lambda i: tab.index_add_(0, slots, upd_s),
+                             list(range(n))) * tabs,
+    }
+    us["calls"] = {
+        "stage": "index_select" + (" + .float()" if cast else ""),
+        "pool apply": "index_add_",
+        "scatter": f"index_add_ x {tabs}"}
+    return us
+
+
 def _scan_step(scan, step, tables, c, x, pools, m, lr, negw, TP):
     """A macro batch as one scan call, with ``.loop``: the same micro-steps
     as one ``step`` call each, and ``.micro``: their number."""
@@ -785,13 +834,19 @@ def main(argv=None) -> int:
         # a tree whose wrappers count no routes runs the same sequence
         before, out = routes_since(), []
         split, total = pass_split(lambda: out.append(step()), groups, passes)
+        # K3's pools sorted into chains once a step, before its groups
+        # (csrc/sgns_common.cuh: pool_chains_kernel; none in other steps
+        # or trees)
+        chains_us = device_us(lambda i: step(), [0, 1], "pool_chains",
+                              required=False) if name == "K3" else None
         taken = None if before is None else set(routes_since(before))
         route = taken.pop() if taken and len(taken) == 1 else None
-        bounds = None
+        bounds = lib_us = None
         if hasattr(step, "bounds"):  # from this step's inputs and pairs
             ids, pools, R, es, bf16, walk = step.bounds
             bounds = pass_bounds(ids, pools, R, args.dim, es, bf16,
                                  float(out[-1][-1]), walk)
+            lib_us = library_us(dev, args.dim, ids, pools, R, es, walk)
         del out
         line = {
             "card": card, "label": args.label,
@@ -809,6 +864,10 @@ def main(argv=None) -> int:
             # the band or star pass's route, and each pass's least µs a
             # group with what bounds it (pass_bounds)
             "route": route, "bound_us_per_group": bounds,
+            # one PyTorch call a pass for the stage, pool apply and
+            # scatter (library_us)
+            "library_us_per_group": lib_us,
+            "pool_chains_us_per_step": chains_us,
             "library3_ms": library3_ms(dev, pass_slots(name), KP, args.dim
                                        if "karate" not in name else 16,
                                        name in BF16_PASS),

@@ -2,10 +2,11 @@
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         -m come_tpu_torch.tools.rs_check --mesh D,M [--backend nccl|gloo] \\
-        [--device cuda:0] [--synthetic] [--walks-per-node W] [--out DIR]
+        [--device cuda:0] [--synthetic] [--walks-per-node W] [--dim D] \\
+        [--out DIR]
 
-Each rank trains the blogcatalog preset at full width (V 10312, d 128, L
-80, W 10, KP 512, R 1, 256-walk steps) through the CLI's entry
+Each rank trains the blogcatalog preset at full width (V 10312, d 128 or
+``--dim``, L 80, W 10, KP 512, R 1, 256-walk steps) through the CLI's entry
 (``main.run`` with ``--mesh D,M``, pretrain 1 + outer 1), with the
 kernels' launch counters set to 0 just before and read just after, then:
 
@@ -241,6 +242,9 @@ def main(argv=None) -> int:
     p.add_argument("--walks-per-node", type=int)
     p.add_argument("--synthetic", action="store_true",
                    help="also hold a K1 step at the synthetic-10m shapes")
+    p.add_argument("--dim", type=int, default=128,
+                   help="the tables' width (default 128; the held steps "
+                   "also run at WIDE_D)")
     p.add_argument("--out", help="write rank<r>.json here")
     args = p.parse_args(argv)
 
@@ -252,7 +256,7 @@ def main(argv=None) -> int:
     world = int(os.environ.get("WORLD_SIZE", "1"))
     cli = ["--dataset", args.dataset, "--mesh", args.mesh,
            "--pretrain-epochs", "1", "--outer-iters", "1", "--seed",
-           str(SEED), "--device", args.device]
+           str(SEED), "--device", args.device, "--dim", str(args.dim)]
     if args.backend:
         cli += ["--backend", args.backend]
     if args.walks_per_node:

@@ -24,7 +24,9 @@ the bf16 check's error rules against their plain versions (the table bit
 for bit where the plain step leaves it alone), and with every section on
 the full bf16 check against K2b and the f32 tolerance against K2; P4's
 values and P2's sum must equal their plain versions exactly, and the
-parity harness must pass on the card.  Six consecutive K1, K3 and K2
+parity harness must pass on the card; the pool stage and K3's pool write
+alone (``chip_smoke.pool_check``, phase 4m's cases on a unigram and a
+hub-heavy pool) their plain versions bit for bit.  Six consecutive K1, K3 and K2
 steps through one launch plan's graph each (``chip_smoke.graph_steps``)
 must each pass their mode's check, with at most one instantiation; six K6
 and six K7 micro-steps through one plan (``chip_smoke.fused_steps``) the
@@ -80,6 +82,7 @@ from come_tpu_torch.ops.row_probe import (
 )
 from come_tpu_torch.ops.tolerance import check_bf16, check_k3
 from come_tpu_torch.ops.walk_sgns import (
+    POOL_LAUNCHES,
     NWL,
     cas_retries,
     walk_sgns_gen_step,
@@ -97,6 +100,11 @@ from chip_smoke import (
     BF16_SLAB,
     FUSED_EDGES,
     G1_WIDTHS,
+    POOL_APPLIES,
+    POOL_CHAINS,
+    POOL_KINDS,
+    POOL_SEEDS,
+    POOL_STAGES,
     STAR_EDGES,
     WIDE_CASES,
     WIDE_MODE_WIDTHS,
@@ -116,6 +124,8 @@ from chip_smoke import (
     blog_wide_checks,
     graph_stress,
     mode_width,
+    pool_check,
+    pool_draws,
     route_boundary,
     star_edge_layout,
     step_check,
@@ -1263,3 +1273,99 @@ def test_trainer_at_dim_256_runs_through_k1_k2_and_g1(dev):
     assert all(np.isfinite(r["o1_loss"]) and np.isfinite(r["o2_loss"])
                for r in hist)
     assert hist[-1]["nmi"] > 0.8
+
+
+def _pool(dev, kind, KP, seed):
+    """Phase 4m's pools, the unigram ones over blogcatalog's degrees (V
+    10312; the phase draws them over synthetic-10m's)."""
+    from come_tpu_torch.sampling import build_alias_table, unigram_weights
+
+    g = get_dataset("blogcatalog").graph
+    alias = tuple(torch.as_tensor(a, device=dev) for a in
+                  build_alias_table(unigram_weights(g.degrees)))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return pool_draws(kind, KP, g.num_nodes, alias, gen, dev), \
+        g.num_nodes, gen
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("dtype,KP,d", POOL_STAGES)
+def test_pool_stage_equals_its_plain_version_bit_for_bit(dev, kind, dtype,
+                                                        KP, d):
+    pool, V, gen = _pool(dev, kind, KP, d)
+    r = pool_check(dev, "stage", dtype, KP, d, pool, V, gen, timed=False)
+    assert r["identical"] == 1.0
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("sr_seed", POOL_SEEDS)
+@pytest.mark.parametrize("KP,d", POOL_APPLIES)
+def test_pool_write_equals_rmw_rows_bit_for_bit(dev, kind, sr_seed, KP, d):
+    pool, V, gen = _pool(dev, kind, KP, d + 1)
+    r = pool_check(dev, "apply", torch.bfloat16, KP, d, pool, V, gen,
+                   sr_seed, timed=False)
+    assert r["identical"] == 1.0
+    if kind == "hub":
+        assert r["chain"] >= 64 and r["rows"] <= 16
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("n,KP", POOL_CHAINS)
+def test_pool_chains_equal_their_plain_version(dev, kind, n, KP):
+    pool, V, gen = _pool(dev, kind, KP, n)
+    pools = torch.stack([pool] + [_pool(dev, kind, KP, n + i)[0]
+                                  for i in range(1, n)])
+    r = pool_check(dev, "chains", None, KP, 0, pools, V, gen, timed=False)
+    assert r["identical"] == 1.0
+
+
+# The pool passes a step launches, counted by the C group loop as it records
+# the step (ops/walk_sgns.py::count_pool_passes): each R-block of R 2 groups
+# (B 24 walks: 3 groups, 2 blocks) has a stage ("stage": f32 rows, or bf16
+# ones past d 192 in the bf16 passes, which stage_pool_kernel does not
+# launch) and, for K3, a pool write; K3 also sorts its pools once a step.
+@pytest.mark.parametrize("mode,d,passes", [
+    ("f32", 128, ("stage_pool",)),
+    ("f32", 256, ("stage_pool",)),
+    ("bf16", 128, ("stage_pool",)),
+    ("bf16", 256, ()),
+    ("bf16_tables", 128, ("stage_pool_bf16_tables", "pool_chains",
+                          "apply_pool_bf16")),
+    ("bf16_tables", 256, ("pool_chains", "apply_pool_bf16")),
+    ("star", 128, ("stage_pool",)),
+    ("star_bf16", 256, ()),
+])
+def test_steps_count_the_pool_passes_their_graph_launches(dev, mode, d,
+                                                          passes):
+    V, KP, R = 20000, 512, 2
+    emb_in, emb_out, walks, wrow, pools = _edge_inputs(
+        dev, V, d, 24, 40, 5, KP, R, False, d)
+    pool = pools[0]  # one pool serves every block
+    G = 3
+    if mode.startswith("star"):
+        slots, meta = (torch.as_tensor(a, device=dev) for a in
+                       star_edge_layout(V, 6000, "random", V))
+        G = -(-slots.shape[0] // NWL)
+
+        def step():
+            star_sgns_step(emb_in, slots, meta, pool, 0.01, 5.0 / KP,
+                           pool_refresh=R, mxu_bf16=mode == "star_bf16")
+    else:
+        if mode == "bf16_tables":
+            emb_in, emb_out = emb_in.bfloat16(), emb_out.bfloat16()
+
+        def step():
+            walk_sgns_step(emb_in, emb_out, walks, wrow, pool, 0.01,
+                           5.0 / KP, window=5, pool_refresh=R,
+                           mxu_bf16=mode == "bf16",
+                           sr_seed=7 if mode == "bf16_tables" else None)
+    blocks = -(-G // R)
+    want = {k: (1 if k == "pool_chains" else blocks) if k in passes else 0
+            for k in POOL_LAUNCHES}
+    for k in POOL_LAUNCHES:
+        POOL_LAUNCHES[k] = 0
+    for _ in range(3):  # a recording (or a replay of an earlier one), then
+        step()  # replays
+    torch.cuda.synchronize()
+    assert POOL_LAUNCHES == {k: 3 * n for k, n in want.items()}
+    assert blocks >= 2

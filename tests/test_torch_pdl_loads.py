@@ -31,7 +31,7 @@ SOURCES = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 STEP_WRITTEN = {
     "table", "emb", "emb_in", "emb_out", "ids", "c", "x", "nt", "dphi",
     "dphin", "dneg", "cneg", "dctx", "dcpos", "stats", "pool", "pools",
-    "walks", "wrow", "slots", "meta", "args",
+    "walks", "wrow", "slots", "meta", "args", "info", "order",
 }
 
 
@@ -93,6 +93,7 @@ def test_the_check_finds_the_pdl_kernels():
                  "negative_bf16_kernel", "negative_bf16_wide_kernel",
                  "apply_pool_kernel", "apply_pool_bf16_kernel",
                  "stage_pool_kernel", "stage_pool_bf16_kernel",
+                 "pool_chains_kernel",
                  "walk_pos_kernel", "walk_pos_wide_kernel",
                  "walk_pos_slab_kernel", "walk_scatter_kernel",
                  "walk_scatter_bf16_kernel", "star_scatter_kernel",
