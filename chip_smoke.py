@@ -83,18 +83,29 @@ non-zero and prints no result line):
                CUDA-event time)
  4m. pool passes — the pool stage (stage_pool_kernel<float> at K1's shape,
                KP 512 d 128; <bf16> at K3's, KP 2048 d 128; ragged 130 and
-               f32 256), K3's pool chains (pool_chains_kernel: a K3 step's
-               128 pools of 2048, and one of 100) and K3's pool write
+               f32 256), the bf16 passes' stage past d 192
+               (stage_pool_bf16_kernel: WIDE_STAGES, d 256 and 264, f32
+               and bf16 tables, KP 512, 2048 and 2000, f32 at 300), K3's
+               pool chains (pool_chains_kernel: a K3 step's 128 pools of
+               2048, and one of 100), K3's pool write
                (apply_pool_bf16_kernel, KP 2048 at d 128, 256 and 130, SR
-               and truncation), each alone through
-               its C entry (ops/pool_pass.py) on a unigram pool over
-               synthetic-10m and on a hub-heavy one (16 rows drawn 2048
-               times: chains of about 128), held bit for bit against its
-               plain version (ops/walk_sgns.py: pool_stage_reference,
-               pool_apply_bf16_reference; ops/pool_pass.py:
-               pool_chains_reference); each case prints its device µs a
+               and truncation), K3's slot chains (slot_chains_kernel:
+               phase 4f's 128 groups) and K3's slot scatter
+               (walk_scatter_bf16_kernel: one group at d 128, 256 and 130,
+               SR and truncation, run twice), each alone through its C
+               entry (ops/pool_pass.py, ops/scatter_pass.py) on a unigram
+               pool over synthetic-10m and phase 4f's walks, and on a
+               hub-heavy pool (16 rows drawn 2048 times: chains of about
+               128) and hub-heavy groups (16 rows fill each: chains of
+               about 40), held bit for bit against its plain version
+               (ops/walk_sgns.py: pool_stage_reference,
+               pool_apply_bf16_reference, walk_scatter_bf16_reference;
+               ops/pool_pass.py: pool_chains_reference,
+               pool_stage_wide_bf16_reference; ops/scatter_pass.py:
+               slot_chains_reference); each case prints its device µs a
                call beside its bound, the plain version's and one PyTorch
-               call's (index_select, a stable sort, index_add_)
+               call's (index_select with the cast to the stage's dtype, a
+               stable sort, index_add_)
  4g. P1      — the row-gather floor probe: gather and scatter-add of N =
                2048 and 262144 rows of a [500000, 128] f32 and bf16 table,
                beside index_select / index_add_
@@ -197,9 +208,8 @@ non-zero and prints no result line):
                HBM3 at 700 W both with bf16 and f32 tables: the communities
                emerge between 4 and 6 walk passes per node): O1 through
                K3, O2 through K2, nothing
-               else; prints the peak device memory, K3's CAS retries (the
-               slot scatter's alone: the pool write takes none) and the O1
-               epoch beside the full-depth reading in PERF.md section 5
+               else; prints the peak device memory and the O1 epoch beside
+               the full-depth reading in PERF.md section 5
 After phase 14:
  15. probes  — P2 (tools/probe_smem.py: the shared-memory capacity search,
                which must stop at cudaDevAttrMaxSharedMemoryPerBlockOptin
@@ -267,13 +277,15 @@ After phase 17:
                size and the backend, the warm distributed and one-device
                GMM fits, and in (a) four O1 epochs each of the one-device
                and the dp trainer in turns on one table.  (a) and (b) run
-               again at --dim 256 (every held step at that width).
+               again at --dim 256 (every held step at that width), at
+               WALKS_CUT (4) walks a node, a depth cut.
  19. rs      — the row-sharded path (model axis > 1: parallel/exchange.py,
                parallel/walk_exchange.py): each run launches
                come_tpu_torch.tools.rs_check on D x M ranks through python
                -m torch.distributed.run (--standalone), and every rank
                trains the blogcatalog preset at full width through --mesh
-               D,M (pretrain 1 + outer 1) with its launch counters reset
+               D,M (pretrain 1 + outer 1; (a) and (b) at WALKS_CUT (4)
+               walks a node, a depth cut) with its launch counters reset
                just before and read just after, then times one more O1 and
                O2 epoch with CUDA events around each all-to-all and
                all-reduce.  Runs: (a) gloo, world 2, mesh (1, 2) and (b)
@@ -302,7 +314,7 @@ After phase 17:
                the all-to-all bytes and ms and the all-reduce bytes and
                ms, the O1 epoch beside phase 5's, the served fractions, the
                NMI and the transport.  (a), without its synthetic-10m step,
-               and (b) run again at --dim 256, at 5 walks a node.
+               and (b) run again at --dim 256.
 After phase 19:
  20. eval    — the quality sweep (come_tpu_torch/tools/eval_sweep.py):
                run_one for karate and heavy-tail-dcsbm at their full presets
@@ -358,7 +370,9 @@ The pool passes inside the walk and star steps count on
 ops/walk_sgns.py's POOL_LAUNCHES (the step wrappers add, at every
 replay, the launches that the C group loop counted as it recorded the
 step: come_step_graph_pool): phase 5 must launch the f32 stage, phase 14
-K3's stage and pool write, 5c's K3 run the pool write.
+K3's stage, pool write, pool chains, slot chains and slot scatter, 5c's
+K3 run its pool write, slot chains, slot scatter and the bf16 stage past
+d 192, 5c's bench runs that stage (and 12-13's at d 128 none of it).
 Phases 5, 5b, 5c, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
 every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode; every phase that fits a GMM on the card must launch G1's two
@@ -369,8 +383,9 @@ phase line ends with its seconds.  Then a JSON line of the
 kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
 bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; the pool stage's
 from phase 5 (f32) and 14 (bf16) and the pool write's from 14 (d 256:
-5c), the chains' from 14, their errors and times from phase 4m (device
-time a call); P1's from its own phase, as it
+5c), the chains' from 14, K3's slot chains' and slot scatter's from 14
+(the scatter at d 256: 5c), the bf16 stage past d 192's from 5c, their
+errors and times from phase 4m (device time a call); P1's from its own phase, as it
 is a probe and on no path; G1's ms, plain_ms and library_ms the device
 time per call of phase 21, the others one call from an idle card; the
 entries ending "_d256" the kernels at dim 256: launches from phases 5b
@@ -451,6 +466,11 @@ TEXT_SLACK = 1e-12
 # karate floors of the JAX package's tests (tests/test_trainer_e2e.py:37,
 # tests/test_pallas_trainer.py:27)
 KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
+# walks a node of phase 19's runs and phase 18's past d 128 (the preset's
+# 10): a depth cut that keeps the script in its time, checks unchanged (at
+# 4 their NMI read 0.85-0.97 on an H100 80GB HBM3 at 700 W; at 3 a run
+# read 0.78, under the floor)
+WALKS_CUT = 4
 
 
 # Phase 4h's shapes (V, d, B, L, W, KP, R, hot): the whole walk in the band
@@ -462,10 +482,11 @@ KARATE_NMI_FLOOR, KARATE_SHARED_NMI_FLOOR = 0.5, 0.3
 # beside the negative passes' route edge (256) at even widths that take
 # their 4-byte copies: 254 (held whole; KP 100, R 3) and
 # 258 (in slabs; the hot row, KP 2048 with R 3).  On bf16 tables V is at least 20000:
-# K3's check holds steps whose walks repeat few rows, since its CAS loops
-# write a row's repeats within a group in any order (ops/tolerance.py); its
-# float64 emulation of that order fails the check with the hot row (0.52 of
-# touched elements identical), so that shape runs in f32 and bf16 only.
+# K3's check was set on steps whose walks repeat few rows (ops/tolerance.py),
+# and the hot row's shape, which the emulation of K3's former any-order
+# writes failed (0.52 of touched elements identical), runs in f32 and bf16
+# only; K3's slot writes now take a row's repeats in slot order, held bit
+# for bit on hub-heavy groups in phase 4m.
 # In f32 the hot row's step is held against the plain version run in
 # float64 (acc): the plain f32 step's own rounding there reaches 0.91 of
 # the f32 bound (worst of 5 runs on an H100), so two f32 steps that round
@@ -547,6 +568,20 @@ POOL_CHAINS = ((128, 2048), (1, 100))
 POOL_SEEDS = (12345, None)  # SR, truncation
 POOL_KINDS = ("unigram", "hub")
 POOL_HUBS = 16
+# Phase 4m's K3 slot cases and the wide bf16 stage (pool_phase): K3's slot
+# scatter at d 128, 256 and a ragged 130 (a bf16 pair a piece), with each
+# of POOL_SEEDS, on one group of phase 4f's synthetic-10m walks (L 80; the
+# "unigram" line) and on a hub-heavy group (every slot one of POOL_HUBS
+# rows: chains of about 40; the "hub" line); the slot chains of phase 4f's
+# step (128 groups) and of hub-heavy groups; the bf16 passes' stage past d
+# 192 at d 256 and 264 (two slabs) on f32 tables at KP 512 (K1b's and
+# K2b's bench steps) and bf16 ones at 2048 (K3's), at a KP that is not a
+# whole number of NEG_KC chunks (2000) and at a ragged f32 width (300: one
+# element at a time).
+SCATTER_WIDTHS = (128, 256, 130)
+WIDE_STAGES = ((torch.float32, 512, 256), (torch.bfloat16, 2048, 256),
+               (torch.float32, 512, 264), (torch.bfloat16, 2048, 264),
+               (torch.bfloat16, 2000, 256), (torch.float32, 100, 300))
 
 
 def pool_draws(kind, KP, V, alias, gen, dev):
@@ -562,37 +597,60 @@ def pool_draws(kind, KP, V, alias, gen, dev):
     return sample_alias(*alias, gen, (KP,))
 
 
+def _held(name, views, run, plain_run, lib, nbytes, chain, rows, timed):
+    """One phase 4m case: raises unless every element of each (kernel,
+    plain) pair in ``views`` is identical; returns the longest chain, the
+    distinct rows and, when ``timed``, the kernel's device µs a call
+    (tools/g1_times.py's device_ms: 50 calls back to back behind a sleep
+    that outlasts their enqueue, between CUDA events), the plain version's
+    (CUDA events), one PyTorch call's (``lib``, timed as the kernel) and
+    the bound of ``nbytes``."""
+    from come_tpu_torch.tools.g1_times import Sleeper, device_ms
+    from come_tpu_torch.tools.pass_times import cuda_ms
+
+    torch.cuda.synchronize()
+    same = [float((a == b).float().mean()) for a, b in views]
+    if min(same) != 1.0:
+        raise AssertionError(f"{name}: {min(same):.6f} of the elements "
+                             f"equal the plain version's")
+    out = dict(name=name, identical=min(same), err=0.0, chain=int(chain),
+               rows=int(rows))
+    if timed:
+        sleep = Sleeper()
+        out["us"] = device_ms(lambda: run(0), sleep)["ms"] * 1e3
+        out["plain_us"] = cuda_ms(plain_run) * 1e3
+        out["lib_us"] = device_ms(lambda: lib(0), sleep)["ms"] * 1e3
+        out["bound"] = bound(0.0, float(nbytes), False)
+    return out
+
+
 def pool_check(dev, which, dtype, KP, d, pool, V, gen, sr_seed=None,
                timed=True) -> dict:
-    """The pool stage ("stage", a [V, d] table of ``dtype``), K3's pool
-    chains ("chains": ``pool`` [n, KP], d unused) or K3's pool write
-    ("apply", bf16, lr 0.025, dneg ~ N(0, 1), block end group 5, SR from
-    ``sr_seed`` or truncation) on ``pool`` through its C entry
-    (ops/pool_pass.py) against its plain version on the same inputs, bit
-    for bit: raises unless every output element is identical.  Returns
-    the longest chain (a row's draws), the distinct rows and, when
-    ``timed``, the kernel's device µs a call (tools/g1_times.py's
-    device_ms: 50 calls back to back behind a sleep that outlasts their
-    enqueue, between CUDA events; the write on chains made once), the
-    plain version's (CUDA events) and one PyTorch call's on the same
-    inputs, timed as the kernel (the stage: index_select of the pool rows,
-    with the cast to f32 for bf16 tables; the chains: a stable sort of
-    each pool; the write: index_add_ of dneg * -lr rounded to bf16), and
-    the bound: each input read once (the ids, the distinct rows, dneg),
-    each output written once."""
+    """The pool stage ("stage", a [V, d] table of ``dtype``), the bf16
+    passes' stage past d 192 ("wide", the same table), K3's pool chains
+    ("chains": ``pool`` [n, KP], d unused) or K3's pool write ("apply",
+    bf16, lr 0.025, dneg ~ N(0, 1), block end group 5, SR from ``sr_seed``
+    or truncation) on ``pool`` through its C entry (ops/pool_pass.py)
+    against its plain version on the same inputs, bit for bit (_held).
+    The PyTorch call beside it: the stage, index_select of the pool rows,
+    cast to the dtype the stage writes (f32, or bf16 for "wide"); the
+    chains, a stable sort of each pool; the write, index_add_ of dneg * -lr
+    rounded to bf16.  The bound: each input read once (the ids, the
+    distinct rows, dneg), each output written once."""
     from come_tpu_torch.ops.pool_pass import (
         pool_apply_bf16,
         pool_chains,
         pool_chains_reference,
         pool_stage,
+        pool_stage_wide_bf16,
+        pool_stage_wide_bf16_reference,
+        wide_row,
     )
     from come_tpu_torch.ops.walk_sgns import (
         pool_apply_bf16_reference,
         pool_sr_bits,
         pool_stage_reference,
     )
-    from come_tpu_torch.tools.g1_times import Sleeper, device_ms
-    from come_tpu_torch.tools.pass_times import cuda_ms
 
     table = (torch.randn((V, d), generator=gen, device=dev) * 0.1).to(dtype) \
         if which != "chains" else None
@@ -608,18 +666,23 @@ def pool_check(dev, which, dtype, KP, d, pool, V, gen, sr_seed=None,
         nbytes = 4 * pool.numel() + 12 * pool.numel()
         reps = torch.stack([torch.unique(q, return_counts=True)[1].max()
                             for q in p64])
-    elif which == "stage":
+    elif which in ("stage", "wide"):
         es = table.element_size()
-        kern = pool_stage(table, pool)
-        plain = pool_stage_reference(table, p64)
-        views = [(a.view(torch.int32), b.view(torch.int32))
-                 for a, b in zip(kern, plain)]
-        run = lambda i: pool_stage(table, pool)  # noqa: E731
-        plain_run = lambda: pool_stage_reference(table, p64)  # noqa: E731
-        lib = (lambda i: table.index_select(0, p64).float()) \
-            if dtype == torch.bfloat16 else \
-            (lambda i: table.index_select(0, p64))
-        nbytes = KP * 4 + uniq.numel() * d * es + 2 * KP * d * 4
+        fn, ref = (pool_stage, pool_stage_reference) if which == "stage" \
+            else (pool_stage_wide_bf16, pool_stage_wide_bf16_reference)
+        kern = fn(table, pool)
+        plain = ref(table, p64)
+        views = [(a.view(torch.int16 if a.dtype == torch.bfloat16 else
+                         torch.int32),
+                  b.view(torch.int16 if b.dtype == torch.bfloat16 else
+                         torch.int32)) for a, b in zip(kern, plain)]
+        run = lambda i: fn(table, pool)  # noqa: E731
+        plain_run = lambda: ref(table, p64)  # noqa: E731
+        cast = torch.float32 if which == "stage" else torch.bfloat16
+        lib = (lambda i: table.index_select(0, p64)) if dtype == cast else \
+            (lambda i: table.index_select(0, p64).to(cast))
+        out_b = KP * d * 4 if which == "stage" else KP * wide_row(d) * 2
+        nbytes = KP * 4 + uniq.numel() * d * es + out_b + KP * d * 4
     else:
         lr, g = 0.025, 5
         dneg = torch.randn((KP, d), generator=gen, device=dev)
@@ -637,24 +700,90 @@ def pool_check(dev, which, dtype, KP, d, pool, V, gen, sr_seed=None,
         upd = (dneg * -lr).to(torch.bfloat16)
         lib = lambda i: table.index_add_(0, p64, upd)  # noqa: E731
         nbytes = KP * 4 + KP * d * 4 + 2 * uniq.numel() * d * 2
-    torch.cuda.synchronize()
-    same = [float((a == b).float().mean()) for a, b in views]
     name = (f"pool chains {pool.shape[0]} x KP {KP}" if which == "chains"
             else f"pool {which} {str(dtype)[6:]} KP {KP} d {d}"
-            + ("" if which == "stage" else
+            + ("" if which in ("stage", "wide") else
                f" {'SR' if sr_seed is not None else 'truncation'}"))
-    if min(same) != 1.0:
-        raise AssertionError(f"{name}: {min(same):.6f} of the elements "
-                             f"equal the plain version's")
-    out = dict(name=name, identical=min(same), err=0.0,
-               chain=int(reps.max()), rows=int(uniq.numel()))
-    if timed:
-        sleep = Sleeper()
-        out["us"] = device_ms(lambda: run(0), sleep)["ms"] * 1e3
-        out["plain_us"] = cuda_ms(plain_run) * 1e3
-        out["lib_us"] = device_ms(lambda: lib(0), sleep)["ms"] * 1e3
-        out["bound"] = bound(0.0, float(nbytes), False)
-    return out
+    return _held(name, views, run, plain_run, lib, nbytes, reps.max(),
+                 uniq.numel(), timed)
+
+
+def slot_check(dev, which, d, slots, L, V, gen, sr_seed=None,
+               timed=True) -> dict:
+    """K3's slot chains ("chains": ``slots`` int32 [G * 1024], d unused) or
+    K3's slot scatter of one group ("scatter": ``slots`` [1024], bf16
+    [V, d] tables, dphi, dphin, dctx ~ N(0, 1), lr 0.025, group 5, SR from
+    ``sr_seed`` or truncation; the kernel run twice on fresh copies, which
+    must give the same bits) through its C entry (ops/scatter_pass.py)
+    against its plain version on the same inputs, bit for bit (_held).  The
+    PyTorch call beside it: the chains, a stable sort of each group's
+    slots (padding last); the scatter, index_add_ of the real slots'
+    updates rounded to bf16 into each table.  The bound: each input read
+    once (the slots, the chains, the real slots' updates, the distinct
+    rows), each output written once."""
+    from come_tpu_torch.ops.scatter_pass import (
+        slot_chains,
+        slot_chains_reference,
+        walk_scatter_bf16,
+    )
+    from come_tpu_torch.ops.walk_sgns import (
+        LP,
+        NWL,
+        walk_scatter_bf16_reference,
+    )
+
+    real = (torch.arange(slots.numel(), device=dev) % LP) < L
+    ids = slots.long()[real]
+    uniq, reps = torch.unique(ids, return_counts=True)
+    if which == "chains":
+        G = slots.numel() // NWL
+        kern = slot_chains(slots, L)
+        plain = slot_chains_reference(slots, L)
+        views = list(zip(kern, plain))
+        run = lambda i: slot_chains(slots, L)  # noqa: E731
+        plain_run = lambda: slot_chains_reference(slots, L)  # noqa: E731
+        keys = torch.where(real, slots.long(), 1 << 40).view(G, NWL)
+        lib = lambda i: torch.sort(keys, dim=1, stable=True)  # noqa: E731
+        nbytes = 4 * slots.numel() + 12 * slots.numel()
+        reps = torch.stack([torch.unique(q[q < (1 << 40)],
+                                         return_counts=True)[1].max()
+                            for q in keys])
+        name = f"slot chains {G} groups L {L}"
+    else:
+        lr, g = 0.025, 5
+        tabs = [(torch.randn((V, d), generator=gen, device=dev) * 0.1).to(
+            torch.bfloat16) for _ in range(2)]
+        dphi, dphin, dctx = (torch.randn((NWL, d), generator=gen, device=dev)
+                             for _ in range(3))
+        args = (slots, dphi, dphin, dctx, lr)
+        kw = dict(L=L, group=g, sr_seed=sr_seed)
+        kern = walk_scatter_bf16(*[t.clone() for t in tabs], *args, **kw)
+        again = walk_scatter_bf16(*[t.clone() for t in tabs], *args, **kw)
+        plain = walk_scatter_bf16_reference(
+            *[t.clone() for t in tabs], slots, dphi, dctx, lr, L, g, sr_seed,
+            dphin=dphin)
+        views = [(a.view(torch.int16), b.view(torch.int16))
+                 for a, b in zip(kern + kern, plain + again)]
+        chains = slot_chains(slots, L)
+        run = lambda i: walk_scatter_bf16(  # noqa: E731
+            *tabs, *args, chains=chains, **kw)
+        tab_p = [t.clone() for t in tabs]
+        plain_run = lambda: walk_scatter_bf16_reference(  # noqa: E731
+            *tab_p, slots, dphi, dctx, lr, L, g, sr_seed, dphin=dphin)
+        ups = [((dphi + dphin)[real] * -lr).to(torch.bfloat16),
+               (dctx[real] * -lr).to(torch.bfloat16)]
+
+        def lib(i):
+            for t, u in zip(tabs, ups):
+                t.index_add_(0, ids, u)
+
+        n = int(real.sum())
+        nbytes = NWL * 4 + 12 * n + 3 * n * d * 4 + 2 * 2 * uniq.numel() * \
+            d * 2
+        name = (f"slot scatter bf16 L {L} d {d} "
+                f"{'SR' if sr_seed is not None else 'truncation'}")
+    return _held(name, views, run, plain_run, lib, nbytes, reps.max(),
+                 uniq.numel(), timed)
 
 
 def pool_text(r: dict) -> str:
@@ -668,21 +797,40 @@ def pool_text(r: dict) -> str:
             f"{r['lib_us']:.2f} us)")
 
 
-def pool_phase(dev, smi, V, alias, gen) -> dict:
-    """Phase 4m: every POOL_STAGES, POOL_CHAINS and POOL_APPLIES case (the
-    write with each of POOL_SEEDS) on each of POOL_KINDS' pools over V rows
-    (alias: synthetic-10m's unigram tables), through pool_check, timed on
-    the unigram pools (the main path's kind).  Prints one line a pool kind;
-    returns the cases by (which, dtype, KP, d or the chains' pools, seed,
-    kind)."""
+def hub_slots(G, V, gen, dev):
+    """G hub-heavy groups of slots (int32 [G * 1024]): every slot one of
+    POOL_HUBS rows."""
+    from come_tpu_torch.ops.walk_sgns import NWL
+
+    rows = torch.randperm(V, generator=gen, device=dev)[:POOL_HUBS]
+    pick = torch.randint(0, POOL_HUBS, (G * NWL,), generator=gen, device=dev)
+    return rows[pick].to(torch.int32)
+
+
+def pool_phase(dev, smi, V, alias, gen, slots, L) -> dict:
+    """Phase 4m: every POOL_STAGES, WIDE_STAGES, POOL_CHAINS and
+    POOL_APPLIES case (the write with each of POOL_SEEDS) on each of
+    POOL_KINDS' pools over V rows (alias: synthetic-10m's unigram tables),
+    through pool_check, and K3's slot chains and slot scatter (each of
+    SCATTER_WIDTHS and POOL_SEEDS) through slot_check: on ``slots`` (phase
+    4f's step, int32 [G * 1024], walks of L; the scatter on its first
+    group) with the unigram pools, on hub-heavy groups (hub_slots) with
+    the hub pools; timed on the unigram pools and the real walks (the main
+    path's kinds), the slot passes on the hub-heavy groups too.  Prints
+    one line a kind; returns the cases by (which,
+    dtype, KP or L, d or the chains' pools or groups, seed, kind)."""
+    from come_tpu_torch.ops.walk_sgns import NWL
+
     res = {}
+    G = slots.numel() // NWL
     for kind in POOL_KINDS:
         lines, timed = [], kind == "unigram"
-        for dtype, KP, d in POOL_STAGES:
-            pool = pool_draws(kind, KP, V, alias, gen, dev)
-            r = res[("stage", dtype, KP, d, None, kind)] = pool_check(
-                dev, "stage", dtype, KP, d, pool, V, gen, timed=timed)
-            lines.append(pool_text(r))
+        for which, cases in (("stage", POOL_STAGES), ("wide", WIDE_STAGES)):
+            for dtype, KP, d in cases:
+                pool = pool_draws(kind, KP, V, alias, gen, dev)
+                r = res[(which, dtype, KP, d, None, kind)] = pool_check(
+                    dev, which, dtype, KP, d, pool, V, gen, timed=timed)
+                lines.append(pool_text(r))
         for n, KP in POOL_CHAINS:
             pools = torch.stack([pool_draws(kind, KP, V, alias, gen, dev)
                                  for _ in range(n)])
@@ -696,10 +844,24 @@ def pool_phase(dev, smi, V, alias, gen) -> dict:
                     pool_check(dev, "apply", torch.bfloat16, KP, d, pool, V,
                                gen, seed, timed=timed)
                 lines.append(pool_text(r))
+        # the slot passes are timed on the hub-heavy groups too: a hub's
+        # long chain is the scatter's worst case
+        sl = slots if kind == "unigram" else hub_slots(G, V, gen, dev)
+        r = res[("slot chains", None, L, G, None, kind)] = slot_check(
+            dev, "chains", 0, sl, L, V, gen)
+        lines.append(pool_text(r))
+        for d in SCATTER_WIDTHS:
+            for seed in POOL_SEEDS:
+                r = res[("scatter", torch.bfloat16, L, d, seed, kind)] = \
+                    slot_check(dev, "scatter", d, sl[:NWL], L, V, gen, seed)
+                lines.append(pool_text(r))
         torch.cuda.empty_cache()
-        phase("pool passes", f"{kind} pools over V {V}, each kernel against "
-                             f"its plain version bit for bit"
-                             + (", device us a call" if timed else "")
+        phase("pool passes", f"{kind} pools over V {V}"
+                             + (", phase 4f's walks" if timed else
+                                ", hub-heavy groups")
+                             + ", each kernel against its plain version bit "
+                             "for bit, device us a call"
+                             + ("" if timed else " (the slot passes)")
                              + ": " + "; ".join(lines) + f" | {smi}")
     return res
 
@@ -1928,9 +2090,13 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
     runs = [("a" + w, 1, "nccl", None), ("b" + w, 2, "gloo", "cuda:0")]
     if torch.cuda.device_count() >= 2 and d == 128:
         runs.append(("c", 2, "nccl", None))
+    # past d 128 at WALKS_CUT walks a node: the depth cut that keeps the
+    # script in its time (the gloo run's O1 epochs took most of its 85 s at
+    # the preset's 10)
+    cut = [] if d == 128 else ["--walks-per-node", str(WALKS_CUT)]
     allowed = {"walk_sgns", "star_sgns"}
     for tag, n, backend, device in runs:
-        args = ["--backend", backend, "--dim", str(d)] + (
+        args = ["--backend", backend, "--dim", str(d)] + cut + (
             ["--device", device] if device else [])
         ranks = _torchrun(f"dp run ({tag})", n,
                           "come_tpu_torch.tools.dp_check", args, 600)
@@ -1975,8 +2141,9 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
         phase(f"dp {tag}", (
             f"world {n} {backend} on {sorted({r['device'] for r in ranks})}: "
             f"NMI {min(r['nmi'] for r in ranks):.4f} | o1 epoch in the run "
-            f"{max(r['o1_ms'] for r in ranks):.1f} ms (one card without "
-            f"dp at d {d}: {main_o1_ms:.1f} ms), extra epoch "
+            f"{max(r['o1_ms'] for r in ranks):.1f} ms at "
+            f"{WALKS_CUT if cut else 10} walks a node (one card without "
+            f"dp at d {d}, 10 walks: {main_o1_ms:.1f} ms), extra epoch "
             f"{max(r['epoch_ms'] for r in ranks):.1f} ms, all-reduce "
             f"{r0['allreduce_ms'] / steps:.4f} ms per step (CUDA events, "
             f"rank 0, {steps} steps) and {r0['allreduce_bytes'] / steps:.0f}"
@@ -1993,16 +2160,17 @@ def dp_phase(main_o1_ms: float, V: int, d: int) -> None:
 def rs_phase(main_o1_ms: float, d: int = 128) -> None:
     """Phase 19 (module docstring): runs (a), (b) and, on two or four
     cards at d 128, (c) of tools/rs_check.py with the tables d wide
-    (``main_o1_ms``: the one-card O1 epoch at d; past d 128 at 5 walks a
-    node, and the synthetic-10m step of (a) at d 128 only); raises if a
-    rank fails or a check does not hold."""
+    (``main_o1_ms``: the one-card O1 epoch at d; (a) and (b) at WALKS_CUT
+    walks a node, and the synthetic-10m step of (a) at d 128 only); raises
+    if a rank fails or a check does not hold."""
     w = "" if d == 128 else f" {d}"
-    # past d 128 the rows that gloo stages through the host double, and
-    # three O1 epochs of them took most of the script's time: 5 walks a
-    # node there (half the preset's), and no synthetic-10m step
-    cut = [] if d == 128 else ["--walks-per-node", "5"]
+    # three O1 epochs over gloo-host took most of the script's time: at
+    # WALKS_CUT walks a node (the preset's 10) a run reads 61-104 s (113-122
+    # s at 10, and at d 256 119 s with 5), and past d 128, where the
+    # staged rows double, no synthetic-10m step
+    cut = ["--walks-per-node", str(WALKS_CUT)]
     runs = [("a" + w, (1, 2), "gloo", "cuda:0",
-             ["--synthetic"] if d == 128 else cut),
+             cut + (["--synthetic"] if d == 128 else [])),
             ("b" + w, (2, 2), "gloo", "cuda:0", cut)]
     cards = torch.cuda.device_count()
     for mesh in ((1, 2), (2, 2)):
@@ -2094,8 +2262,9 @@ def rs_phase(main_o1_ms: float, d: int = 128) -> None:
             f"{min(r['nmi'] for r in ranks):.4f}, served o1 "
             f"{min(r['o1_served'] for r in ranks):.4f} o2 "
             f"{min(r['o2_served'] for r in ranks):.4f} | o1 epoch in the "
-            f"run {max(r['o1_ms'] for r in ranks):.1f} ms (one card at d "
-            f"{d}: {main_o1_ms:.1f} ms), o2 "
+            f"run {max(r['o1_ms'] for r in ranks):.1f} ms at "
+            f"{WALKS_CUT if '--walks-per-node' in extra else 10} walks a "
+            f"node (one card at d {d}, 10 walks: {main_o1_ms:.1f} ms), o2 "
             f"{max(r['o2_ms'] for r in ranks):.1f} ms, gmm "
             f"{r0['gmm_ms']:.1f} ms | rank 0, extra epochs: "
             f"{per_step('o1')}; {per_step('o2')} | model shards "
@@ -2533,8 +2702,8 @@ def main() -> int:
         NW,
         NWL,
         POOL_LAUNCHES,
-        cas_retries,
         new_routes,
+        pad_walks,
         walk_sgns_gen_step,
         walk_sgns_gen_step_reference,
         walk_sgns_step,
@@ -3116,25 +3285,22 @@ def main() -> int:
         f32_10 = k3(walk_sgns_step_reference, [t.float() for t in init],
                     mxu_bf16=True)
         k3_lines = []
-        retries = cas_retries(dev)
         for entry, fn, plain_fn, step_fn in (
                 ("step", walk_sgns_step, walk_sgns_step_reference, k3),
                 ("gen", walk_sgns_gen_step, walk_sgns_gen_step_reference, k3_gen)):
             for mode, seed in (("SR", 12345), ("truncation", None)):
-                retries.zero_()
                 kern = step_fn(fn, init, sr_seed=seed)
                 plain = step_fn(plain_fn, init, sr_seed=seed)
                 torch.cuda.synchronize()
                 err = k3_check(f"K3 {entry} {mode}", kern, plain, f32_10)
                 if entry == "step" and mode == "SR":
-                    k3_err, k3_retries = err, float(retries)
+                    k3_err = err
                     k3_bound = walk_bound(walks10, pools10, float(kern[3]), d, 2,
                                           True)
                 k3_lines.append(
                     f"{entry} {mode}: identical {err[3]:.5f} rel_l2 {err[1]:.3e} "
                     f"(bound {K3_L2}) f32-table distance {err[2]:.3e} "
-                    f"({err[2] / max(err[1], 1e-30):.1f}x) max_abs {err[0]:.3e} "
-                    f"CAS retries {float(retries):.0f}")
+                    f"({err[2] / max(err[1], 1e-30):.1f}x) max_abs {err[0]:.3e}")
                 del kern, plain
         k3_ms = cuda_ms(lambda: k3(walk_sgns_step, init, sr_seed=7))
         k3_plain_ms = cuda_ms(lambda: k3(walk_sgns_step_reference, init,
@@ -3168,9 +3334,12 @@ def main() -> int:
         del init32, f32_10
         torch.cuda.empty_cache()
 
-        # 4m. the pool stage and K3's pool write alone, at K1's and K3's
-        # shapes, on unigram pools over synthetic-10m and hub-heavy pools
-        pools4m = pool_phase(dev, smi, V, (acc10, ali10), gen)
+        # 4m. the pool stages, K3's pool write and K3's slot passes alone,
+        # at K1's, K3's and the bench's shapes, on unigram pools over
+        # synthetic-10m and this step's walks, and on hub-heavy pools and
+        # groups
+        pools4m = pool_phase(dev, smi, V, (acc10, ali10), gen,
+                             pad_walks(walks10), L)
 
         # 4k (K3). K3 at d 256 on this step's inputs (synthetic-10m's step
         # shape, SR), under K3's check
@@ -3266,7 +3435,7 @@ def main() -> int:
 
         return dict(k3_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
                     k3_bound=k3_bound, p1=p1, p1_launches=p1_launches,
-                    retries=retries, k3_256=k3_256["K3"], pools=pools4m)
+                    k3_256=k3_256["K3"], pools=pools4m)
 
     lv = large_v_kernels()
     torch.cuda.empty_cache()
@@ -3403,6 +3572,10 @@ def main() -> int:
         graphs = graph_line(where, launch_plan.graph_counts(), True)
         check_launches(where, launched, ran,
                        tuple(k for k in kernels if k not in ran))
+        # past d 192 the bf16 passes stage their pools as bf16 rows
+        if (launched["stage_pool_bf16"] == 0) == (dim > 192):
+            raise AssertionError(f"{where}: {launched['stage_pool_bf16']} "
+                                 f"bf16 stages at dim {dim}")
         check_run(where, hist, NMI_FLOOR)
         routes = path_routes(where, "rows" if dim <= 192 else "whole")
         rec = hist[-1]
@@ -3500,8 +3673,10 @@ def main() -> int:
     finally:
         trainer_come.WALK_F32_TABLE_BYTES = line
     got = tiers256["K3 256"] = counts()
-    if got["apply_pool_bf16"] == 0:
-        raise AssertionError("K3 256 launched no pool write")
+    for k in ("apply_pool_bf16", "stage_pool_bf16", "slot_chains",
+              "walk_scatter_bf16"):
+        if got[k] == 0:
+            raise AssertionError(f"K3 256 launched no {k} kernel")
     check_launches("K3 256", got, ran,
                    tuple(k for k in kernels if k not in ran))
     check_run("K3 256", hist, NMI_FLOOR)
@@ -3955,7 +4130,6 @@ def main() -> int:
     # 14. the large-V path through the CLI: synthetic-10m at full width,
     # walks per node 5, pretrain 1, outer 1 (see the module docstring)
     reset_counts()
-    retries = lv["retries"].zero_()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     trainer, hist = run(build_argparser().parse_args([
@@ -3989,7 +4163,7 @@ def main() -> int:
             f"launches for {epochs} epochs of {S10} steps, o1_pairs "
             f"{rec['o1_pairs']} outside (0, {most}]")
     for k in ("stage_pool_bf16_tables", "apply_pool_bf16", "pool_chains",
-              "stage_pool"):
+              "stage_pool", "slot_chains", "walk_scatter_bf16"):
         if large_launches[k] == 0:
             raise AssertionError(f"large-v path launched no {k} kernel")
     if trainer.params.node_emb.dtype != torch.float32:
@@ -4006,9 +4180,7 @@ def main() -> int:
                      f"{rec['o3_ms']:.1f} ms | o1_pairs {rec['o1_pairs']:.0f} "
                      f"({rec['o1_pairs'] / rec['o1_ms'] / 1e3:.2f} M/s) "
                      f"o2_pairs {rec['o2_pairs']:.0f} | NMI {rec['nmi']:.4f} "
-                     f"| peak device memory {peak_gb:.2f} GiB | K3 CAS "
-                     f"retries {float(retries):.0f} (the slot scatter's "
-                     f"alone: the pool write takes none) | o1 epoch "
+                     f"| peak device memory {peak_gb:.2f} GiB | o1 epoch "
                      f"{rec['o1_ms'] / 1e3:.2f} s at walks per node "
                      f"5 (PERF.md section 5 reads 30.5-33 s at full depth)"
                      f" | launches {large_launches}")
@@ -4158,9 +4330,9 @@ def main() -> int:
         return entry(name, src, replaces, launches, r["err"][0], r["ms"],
                      r["plain_ms"], r["bound"])
 
-    def pool_entry(name, replaces, n, key):
+    def pool_entry(name, replaces, n, key, src="sgns_common.cuh"):
         r = lv["pools"][key]
-        return entry(name, "sgns_common.cuh", replaces, n, r["err"],
+        return entry(name, src, replaces, n, r["err"],
                      r["us"] / 1e3, r["plain_us"] / 1e3, r["bound"],
                      r["lib_us"] / 1e3)
 
@@ -4224,6 +4396,31 @@ def main() -> int:
                    "come_tpu/ops/pallas_walk_sgns.py:405",
                    tiers256["K3 256"]["apply_pool_bf16"],
                    ("apply", bf, 2048, 256, 12345, "unigram")),
+        # K3's slot passes (phase 4m, phase 4f's walks): launches from phase
+        # 14, the scatter at d 256 from phase 5c; the bf16 passes' stage
+        # past d 192 (phase 4m, unigram pools): launches from phase 5c (K3
+        # on bf16 tables; K1b and K2b on f32 tables in its bench run)
+        pool_entry("slot_chains", "come_tpu/ops/pallas_walk_sgns.py:369",
+                   large_launches["slot_chains"],
+                   ("slot chains", None, 80, 128, None, "unigram"),
+                   "walk_sgns.cu"),
+        pool_entry("walk_scatter_bf16", "come_tpu/ops/pallas_walk_sgns.py:377",
+                   large_launches["walk_scatter_bf16"],
+                   ("scatter", bf, 80, 128, 12345, "unigram"),
+                   "walk_sgns.cu"),
+        pool_entry("walk_scatter_bf16_d256",
+                   "come_tpu/ops/pallas_walk_sgns.py:377",
+                   tiers256["K3 256"]["walk_scatter_bf16"],
+                   ("scatter", bf, 80, 256, 12345, "unigram"),
+                   "walk_sgns.cu"),
+        pool_entry("pool_stage_bf16_d256",
+                   "come_tpu/ops/pallas_walk_sgns.py:216",
+                   tiers256["K3 256"]["stage_pool_bf16"],
+                   ("wide", bf, 2048, 256, None, "unigram")),
+        pool_entry("pool_stage_bf16_f32_tables_d256",
+                   "come_tpu/ops/pallas_walk_sgns.py:216",
+                   tiers256["bench 256"]["stage_pool_bf16"],
+                   ("wide", torch.float32, 512, 256, None, "unigram")),
         entry("row_gather_probe", "row_probe.cu", "scripts/probe_dma.py:47",
               p1_launches["row_gather_probe"], pg["cs_err"], pg["g_ms"],
               pg["g_plain"], pg["g_bound"], pg["g_lib"]),

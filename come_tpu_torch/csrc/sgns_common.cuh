@@ -58,12 +58,14 @@
 //
 // K3 (bf16 tables) reads rows through to_f32 (the stage kernel and the bf16
 // negative kernel are templated on the table's element type) and writes
-// its slots' rows with rmw_bf16_pair: one read-modify-write per slot and
-// element pair, each half rounded by its own 16 random bits as the TPU's
-// _pack_row does (pallas_walk_sgns.py:76-88), or truncated without them.
-// Its pool write rounds the same way but takes no CAS: one owner a row
-// applies the row's draws in draw order (apply_pool_bf16_kernel, on the
-// chains pool_chains_kernel sorts once a step).
+// its slots' rows one rounded read-modify-write per slot, each element
+// rounded by its own 16 random bits as the TPU's _pack_row does
+// (pallas_walk_sgns.py:76-88), or truncated without them.  Neither write
+// takes an atomic: one owner a row applies the row's slots in slot order
+// (walk_scatter_bf16_kernel, walk_sgns.cu, on the chains slot_chains_kernel
+// sorts once a step) and its pool draws in draw order
+// (apply_pool_bf16_kernel, on the chains pool_chains_kernel sorts once a
+// step), as the TPU's slot and pool loops do.
 //
 // Programmatic dependent launch (PDL).  The group loops (walk_sgns.cu,
 // star_sgns.cu) and K6/K7's tile loop (sgns_fused.cu) record a step once as
@@ -77,10 +79,10 @@
 // wait has returned.  Since no CTA can trigger (or exit) before its wait
 // returns, a kernel starts only once every kernel two or more places
 // before it has completed, and its wait returns only once the one just
-// before it has.  So what a kernel does before its wait may touch only
-// what the kernel just before it neither writes nor reads (atomic adds to
-// stats excepted: they commute), and a trigger makes no write visible:
-// only the wait does.  In the walk and star loops that is what the step's
+// before it has.  So what a kernel does before its wait may read only what
+// the kernel just before it does not write, and write only what that
+// kernel neither writes nor reads (atomic adds to stats excepted: they
+// commute), and a trigger makes no write visible: only the wait does.  In the walk and star loops that is what the step's
 // head kernel copied from the call (walks, window draws, pools, star slots
 // and meta), complete before the third kernel starts, and K4's generated
 // walks, written by the second kernel and complete before the fourth
@@ -100,8 +102,9 @@
 // seed before their wait; K6/K7's apply kernel, which may follow the
 // stage kernel directly, reads lr and the result pointer after it.
 // The f32 negative pass triggers right after its wait, so K6/K7's positive
-// pass runs beside it; the bf16 pass triggers once its dphi is merged, and
-// the other kernels once their last write is issued.  Each kernel's note
+// pass runs beside it; the bf16 pass triggers once its dphi is merged, the
+// bf16 stage past MAX_DIM not at all (stage_pool_bf16_kernel), and the
+// other kernels once their last write is issued.  Each kernel's note
 // says where its wait stands.  A kernel launched without the attribute
 // (the head, the kernel after it, tile 0's negative pass in K6/K7, P3's
 // stream launches) starts once the kernel before it has completed, and its
@@ -217,30 +220,6 @@ static __device__ __forceinline__ unsigned mix32(unsigned x) {
 // (ops/walk_sgns.py::sr_key); sr_bits(key, counter) = mix32(counter ^ key).
 static __device__ __forceinline__ unsigned sr_key(unsigned seed, unsigned g) {
   return mix32(seed ^ mix32(g));
-}
-
-// p[0] += u0, p[1] += u1 on a bf16 pair (4-byte aligned) as one atomic
-// read-modify-write: each half is widened exactly to f32, the update added
-// in f32 (__fadd_rn: no contraction with the caller's product), and the
-// sum written back as (bits + r) >> 16 with r < 2^16 (stochastic rounding;
-// r = 0 truncates).  Returns the number of CAS retries (other threads
-// writing the same pair in between).
-static __device__ __forceinline__ unsigned rmw_bf16_pair(__nv_bfloat16* p,
-                                                         float u0, float u1,
-                                                         unsigned r0,
-                                                         unsigned r1) {
-  unsigned* a = reinterpret_cast<unsigned*>(p);
-  unsigned old = *reinterpret_cast<volatile unsigned*>(a), retries = 0;
-  while (true) {
-    const float lo = __uint_as_float(old << 16);
-    const float hi = __uint_as_float(old & 0xffff0000u);
-    const unsigned nlo = (__float_as_uint(__fadd_rn(lo, u0)) + r0) >> 16;
-    const unsigned nhi = (__float_as_uint(__fadd_rn(hi, u1)) + r1) >> 16;
-    const unsigned prev = atomicCAS(a, old, nlo | (nhi << 16));
-    if (prev == old) return retries;
-    old = prev;
-    ++retries;
-  }
 }
 
 // log(sigmoid(x)) without overflow: min(x, 0) - log1p(exp(-|x|))
@@ -1910,35 +1889,113 @@ static __host__ __device__ inline int wide_row(int d) {
 }
 
 // The pool of a bf16 pass past MAX_DIM, staged once per R-block in cneg's
-// memory as the pass's ring stages hold it: row k = table[pool[k]] rounded
-// to bf16 (nearest even; bf16 tables as they are), zeros past d; each whole
-// chunk of NEG_KC rows as one block a slab of NEG_KC x NEG_WHOLE in core
-// layout, the blocks one after another, and the rows of a last, partial
-// chunk after them, wide_row(d) elements each.  KP x wide_row(d) bf16 in
-// all: at most the f32 rows' KP x d x 4 bytes for d > MAX_DIM, so it fits
-// in cneg.  dneg[k] = 0.  A CTA of the pass then takes a whole chunk's
-// slab by one bulk copy, already rounded and in place.  grid KP, block 128.
-// PDL as stage_pool_kernel.
-template <typename T>
-static __global__ void stage_pool_bf16_kernel(const T* table, const int* pool,
-                                              __nv_bfloat16* __restrict__ cnegb,
-                                              float* __restrict__ dneg,
-                                              int d, int KP) {
-  const int k = blockIdx.x, ns = n_wide_slabs(d), wd = ns * NEG_WHOLE;
-  const int whole = KP / NEG_KC * NEG_KC;  // rows in whole chunks
-  const size_t src = (size_t)step_ld(pool + k) * d;
-  pdl_wait();
-  for (int c = threadIdx.x; c < wd; c += blockDim.x) {
-    const float x = c < d ? to_f32(step_ld(table + src + c)) : 0.0f;
-    const size_t at =
-        k < whole ? ((size_t)(k / NEG_KC) * ns + c / NEG_WHOLE) * NEG_KC *
-                            NEG_WHOLE +
-                        core_off(NEG_KC, k % NEG_KC, c % NEG_WHOLE)
-                  : (size_t)k * wd + c;
-    cnegb[at] = __float2bfloat16_rn(x);
-    if (c < d) dneg[(size_t)k * d + c] = 0.0f;
+// memory as the pass's ring stages hold it (the TPU's _stage_pool,
+// pallas_walk_sgns.py:216, with mxu_bf16 rounding cneg_m): row k =
+// table[pool[k]] rounded to bf16 (nearest even; bf16 tables as they are),
+// zeros past d; each whole chunk of NEG_KC rows as one block a slab of
+// NEG_KC x NEG_WHOLE in core layout, the blocks one after another, and the
+// rows of a last, partial chunk after them, wide_row(d) elements each.  KP x
+// wide_row(d) bf16 in all: at most the f32 rows' KP x d x 4 bytes for d >
+// MAX_DIM, so it fits in cneg.  dneg[k] = 0.  A CTA of the pass then takes
+// a whole chunk's slab by one bulk copy, already rounded and in place.
+// Like stage_pool_kernel it is bound by the latency of its loads and of the
+// launch under PDL, not by its bytes (K3 at d 256: 1 MiB in, 1 MiB of bf16
+// rows and 2 MiB of dneg out, 1.25 us at 3.35 TB/s).  So a warp takes one
+// row (the grid is KP rows' warps, stage_wide_setup): its id is read before
+// the wait, and a lane moves 8-column pieces, every load of a piece (one 16
+// bytes of a bf16 row, two of an f32 one; one element at a time where the
+// row is not a whole number of them, VEC false) issued before any store.  In
+// core layout the 8 columns of a piece are 16 contiguous bytes (core_off),
+// so each piece goes out as one 16-byte store, and dneg's zeros as float4
+// where d % 4 == 0.  It writes exactly what the one-CTA-a-row kernel it
+// replaced wrote.  block STAGE_THREADS.  PDL: the pool ids before the wait
+// and the rows after it, as stage_pool_kernel; it does not trigger, so the
+// band or star pass after it launches as its CTAs exit.  (With a trigger
+// after its stores, K3's wide band pass at d 256, launched while the
+// stage's 512 CTAs still held the SMs, took 15.9-16.8 µs a group instead
+// of 8.3-8.9: PERF.md §6.)
+constexpr int WIDE_STAGE_U = 4;  // pieces of a row a lane loads at once
+
+// Elements c..c+7 of a row widened to f32, zeros past d.
+template <typename T, bool VEC>
+static __device__ __forceinline__ void load_piece8(const T* row, int c, int d,
+                                                   float (&x)[8]) {
+  if constexpr (VEC && std::is_same<T, __nv_bfloat16>::value) {  // d % 8 == 0
+    if (c >= d) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = 0.0f;
+      return;
+    }
+    const uint4 w = step_ld(reinterpret_cast<const uint4*>(row + c));
+    x[0] = __uint_as_float(w.x << 16), x[1] = __uint_as_float(w.x & 0xffff0000u);
+    x[2] = __uint_as_float(w.y << 16), x[3] = __uint_as_float(w.y & 0xffff0000u);
+    x[4] = __uint_as_float(w.z << 16), x[5] = __uint_as_float(w.z & 0xffff0000u);
+    x[6] = __uint_as_float(w.w << 16), x[7] = __uint_as_float(w.w & 0xffff0000u);
+  } else if constexpr (VEC) {  // f32, d % 4 == 0
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c + 4 * h < d) v = load4(row + c + 4 * h);
+      x[4 * h] = v.x, x[4 * h + 1] = v.y, x[4 * h + 2] = v.z;
+      x[4 * h + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      x[e] = c + e < d ? to_f32(step_ld(row + c + e)) : 0.0f;
   }
-  pdl_trigger();
+}
+
+static __device__ __forceinline__ unsigned bf16_pair_rn(float a, float b) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+         (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16;
+}
+
+template <typename T, bool VEC>
+static __global__ void __launch_bounds__(STAGE_THREADS)
+stage_pool_bf16_kernel(const T* table, const int* pool,
+                       __nv_bfloat16* __restrict__ cnegb,
+                       float* __restrict__ dneg, int d, int KP) {
+  const int k = blockIdx.x * (STAGE_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int id = k < KP ? step_ld(pool + k) : 0;
+  pdl_wait();
+  if (k < KP) {
+    const int ns = n_wide_slabs(d), wd = ns * NEG_WHOLE, np = wd / 8;
+    const int whole = KP / NEG_KC * NEG_KC;  // rows in whole chunks
+    const T* row = table + (size_t)id * d;
+    for (int q0 = lane; q0 < np; q0 += 32 * WIDE_STAGE_U) {
+      float x[WIDE_STAGE_U][8];
+#pragma unroll
+      for (int u = 0; u < WIDE_STAGE_U; ++u) {
+        const int p = q0 + 32 * u;
+        if (p < np) load_piece8<T, VEC>(row, 8 * p, d, x[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < WIDE_STAGE_U; ++u) {
+        const int p = q0 + 32 * u, c = 8 * p;
+        if (p >= np) continue;
+        const size_t at =
+            k < whole ? ((size_t)(k / NEG_KC) * ns + c / NEG_WHOLE) * NEG_KC *
+                                NEG_WHOLE +
+                            core_off(NEG_KC, k % NEG_KC, c % NEG_WHOLE)
+                      : (size_t)k * wd + c;
+        *reinterpret_cast<uint4*>(cnegb + at) = make_uint4(
+            bf16_pair_rn(x[u][0], x[u][1]), bf16_pair_rn(x[u][2], x[u][3]),
+            bf16_pair_rn(x[u][4], x[u][5]), bf16_pair_rn(x[u][6], x[u][7]));
+        if (c >= d) continue;
+        float* z = dneg + (size_t)k * d + c;
+        if (d % 4 == 0) {
+          const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(z) = z4;
+          if (c + 4 < d) *reinterpret_cast<float4*>(z + 4) = z4;
+        } else {
+          for (int e = 0; e < 8 && c + e < d; ++e) z[e] = 0.0f;
+        }
+      }
+    }
+  }
+  // no trigger: the band pass after it launches as its CTAs exit
 }
 
 // Shared memory of the bf16 wide pass: the tile's slab, a 2-stage ring of
@@ -2277,13 +2334,19 @@ struct NegSetup {
 
 // The pool passes a step's recording launched, by kernel
 // (step_graph.cuh: StepGraph::pool): stage_pool_kernel on f32 and on bf16
-// tables, K3's pool_chains_kernel and apply_pool_bf16_kernel.
+// tables, K3's pool_chains_kernel and apply_pool_bf16_kernel, the bf16
+// passes' stage past MAX_DIM (stage_pool_bf16_kernel), and K3's slot
+// passes: its slots' chains (slot_chains_kernel, once a step) and its slot
+// scatter (walk_scatter_bf16_kernel, once a group; walk_sgns.cu).
 enum PoolPass {
   PASS_STAGE_POOL = 0,
   PASS_STAGE_POOL_BF16_TABLES = 1,
   PASS_POOL_CHAINS = 2,
   PASS_APPLY_POOL_BF16 = 3,
-  POOL_PASSES = 4
+  PASS_STAGE_POOL_BF16 = 4,
+  PASS_SLOT_CHAINS = 5,
+  PASS_WALK_SCATTER_BF16 = 6,
+  POOL_PASSES = 7
 };
 
 // stage_pool_kernel<T, VEC>, the instance a row of d elements takes.
@@ -2300,6 +2363,34 @@ static void stage_setup(NegSetup& s, int d, int KP) {
   s.stage_ts = pool_team(d, e);
   const int teams = STAGE_THREADS / s.stage_ts;
   s.stage_grid = (KP + teams - 1) / teams;
+}
+
+// stage_pool_bf16_kernel<T, VEC>, the instance a row of d elements takes:
+// 16-byte loads where the row is a whole number of them.
+template <typename T>
+static inline auto wide_stage_instance(int d) {
+  return d % piece_elems<T, true>() == 0 ? stage_pool_bf16_kernel<T, true>
+                                         : stage_pool_bf16_kernel<T, false>;
+}
+
+// Sizes the bf16 stage past MAX_DIM of KP rows: a warp a row.
+static void stage_wide_setup(NegSetup& s, int KP) {
+  s.stage_ts = 32;
+  const int teams = STAGE_THREADS / s.stage_ts;
+  s.stage_grid = (KP + teams - 1) / teams;
+}
+
+// stage_pool_bf16_kernel's launch on `stream` (with PDL when `pdl`), as
+// stage_wide_setup sized it: the pool's rows as bf16 core-layout blocks in
+// cnegb.
+template <typename T>
+static cudaError_t launch_stage_wide(const NegSetup& s, const T* table,
+                                     const int* pool, __nv_bfloat16* cnegb,
+                                     float* dneg, int d, int KP,
+                                     cudaStream_t stream, bool pdl) {
+  return launch_kernel(wide_stage_instance<T>(d), dim3(s.stage_grid),
+                       dim3(STAGE_THREADS), 0, stream, pdl, 0, table, pool,
+                       cnegb, dneg, d, KP);
 }
 
 // stage_pool_kernel's launch on `stream` (with PDL when `pdl`), as
@@ -2397,7 +2488,10 @@ struct NegativePass : NegSetup {
 
   cudaError_t init(int d, int KP, int nslots) {
     if (d < 1 || KP < 1 || nslots % NEG_MS) return cudaErrorInvalidValue;
-    if (!BF16 || d <= MAX_DIM) stage_setup<T>(*this, d, KP);  // (stage())
+    if (!BF16 || d <= MAX_DIM)  // (stage())
+      stage_setup<T>(*this, d, KP);
+    else
+      stage_wide_setup(*this, KP);
     if (d > MAX_DIM) {  // the wide kernels
       threads = WIDE_THREADS;
       // the cap is the kernel's largest shared memory (past NEG_WHOLE), so
@@ -2517,22 +2611,24 @@ struct NegativePass : NegSetup {
   // Stages the pool `pool` (KP rows of `table`) for the pass into cneg and
   // zeroes dneg on `stream` (with PDL when `pdl`): f32 rows
   // (stage_pool_kernel), or bf16 rows for the bf16 pass past MAX_DIM
-  // (stage_pool_bf16_kernel).  A launch of stage_pool_kernel adds one to
-  // launched[PASS_STAGE_POOL or PASS_STAGE_POOL_BF16_TABLES] (null: not
-  // counted).  Returns the launch's error.
+  // (stage_pool_bf16_kernel).  A launch adds one to
+  // launched[PASS_STAGE_POOL, PASS_STAGE_POOL_BF16_TABLES or
+  // PASS_STAGE_POOL_BF16] (null: not counted).  Returns the launch's error.
   cudaError_t stage(const T* table, const int* pool, float* cneg, float* dneg,
                     int d, int KP, cudaStream_t stream, bool pdl,
                     int* launched) const {
-    if (BF16 && d > MAX_DIM)
-      return launch_kernel(stage_pool_bf16_kernel<T>, dim3(KP), dim3(128), 0,
-                           stream, pdl, 0, table, pool,
-                           reinterpret_cast<__nv_bfloat16*>(cneg), dneg, d,
-                           KP);
+    const bool wide = BF16 && d > MAX_DIM;
     const cudaError_t e =
-        launch_stage(*this, table, pool, cneg, dneg, d, KP, stream, pdl);
+        wide ? launch_stage_wide(*this, table, pool,
+                                 reinterpret_cast<__nv_bfloat16*>(cneg), dneg,
+                                 d, KP, stream, pdl)
+             : launch_stage(*this, table, pool, cneg, dneg, d, KP, stream,
+                            pdl);
     if (e == cudaSuccess && launched != nullptr)
-      ++launched[std::is_same<T, float>::value ? PASS_STAGE_POOL
-                                               : PASS_STAGE_POOL_BF16_TABLES];
+      ++launched[wide ? PASS_STAGE_POOL_BF16
+                 : std::is_same<T, float>::value
+                     ? PASS_STAGE_POOL
+                     : PASS_STAGE_POOL_BF16_TABLES];
     return e;
   }
 

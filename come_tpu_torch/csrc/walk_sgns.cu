@@ -23,11 +23,13 @@
 //          high 16 for the ctx table (SR), or r = 0 (truncation, the TPU's
 //          interpret path).  The pool's write at the block end is rounded
 //          the same way.  Duplicate rows in a group take one rounded RMW
-//          per occurrence, as the TPU's sequential slot loop does, here by
-//          a 32-bit atomicCAS per bf16 pair in any order.  The draws are a
-//          counter hash (sgns_common.cuh: mix32), not the TPU's PRNG, so
-//          the plain version rounds alike.  The TPU's u32 row-pair packing
-//          exists only for VMEM indexing and is not ported.
+//          per occurrence in slot order, as the TPU's sequential slot loop
+//          does: one owner a row applies them (walk_scatter_bf16_kernel, on
+//          the chains slot_chains_kernel sorts once a step), no atomics.
+//          The draws are a counter hash (sgns_common.cuh: mix32), not the
+//          TPU's PRNG, so the plain version rounds alike.  The TPU's u32
+//          row-pair packing exists only for VMEM indexing and is not
+//          ported.
 // Semantics are the TPU kernel's, group by group in order: for each group
 // of 8 walks (1024 slots, walk j at slots j*128 .. j*128+L-1) the rows are
 // read from the tables as the previous group left them, and
@@ -733,51 +735,331 @@ walk_scatter_kernel(float* emb_in, float* emb_out, const int* walks,
   pdl_trigger();
 }
 
-// K3's slot writes: for each real slot t of group g (position < L), one
-// rounded RMW of emb_in[v] by -lr*(dphi[t] + dphin[t]) and of emb_out[v] by
-// -lr*dctx[t]
-// per element pair (rmw_bf16_pair; the products by __fmul_rn, as the TPU's
-// dphi * (-lr) at :365).  SR draws 32 bits per (t, k) from
-// sr_bits(sr_key(seed, g), t*d + k): the low 16 round the node write, the
-// high 16 the ctx write (:377-394).  Adds the CAS retries to *retries.
-// grid GROUP, block 64.  PDL: the slot's row, lr and key before the wait;
-// dphi, dphin, dctx and the tables after, and a padding slot waits to
-// return.
-template <bool SR>
-static __global__ void walk_scatter_bf16_kernel(
-    __nv_bfloat16* emb_in, __nv_bfloat16* emb_out, const int* walks,
-    const float* dphi, const float* dphin, const float* dctx, int d, int L,
-    const StepArgs* args, int g, double* retries) {
-  const int t = blockIdx.x;
-  if (t % BLK >= L) {
-    pdl_wait();
-    return;
-  }
-  const size_t dst = (size_t)step_ld(walks + t) * d, src = (size_t)t * d;
-  const float lr = step_ld(&args->lr);
-  const unsigned key = SR ? sr_key(step_ld(&args->seed), (unsigned)g) : 0u;
-  pdl_wait();
-  unsigned n = 0;
-  for (int k = 2 * threadIdx.x; k < d; k += 2 * blockDim.x) {
-    unsigned b0 = 0, b1 = 0;
-    if (SR) {
-      const unsigned c = (unsigned)(t * d + k);
-      b0 = mix32(c ^ key);
-      b1 = mix32((c + 1) ^ key);
+// K3's slot chains, once a step.  K3's slot writes apply a row's slots in
+// slot order (below), so each row of a group needs its slots sorted.  A
+// group's walks do not depend on the tables, so the chains of every group
+// of a step are known at its head: one CTA a group sorts its real slots
+// (position < L) by (id, t) in shared memory (a bitonic network over
+// GROUP 64-bit keys; padding slots sort last) and writes order[i] = the
+// slot at sorted place i (-1 past the group's NBLK * L real slots) and
+// info[t] = (i, n): t's place and, at a row's first slot, its n slots (0
+// at the others and at padding slots).  A row's count comes from a binary
+// search for the end of its run, so a hub that fills the group costs no
+// serial scan.  It is the plain version's sort (ops/scatter_pass.py::
+// slot_chains_reference).  It runs right after pool_chains_kernel (K3's
+// step) under PDL and does all its work before its wait: it reads the
+// walks (the head's or K4's generation, two or more kernels before it:
+// complete) and writes its chains, which no kernel before it in the step
+// touches, so its sort runs beside the pools' sort.  It waits only to
+// exit.  ~1024 keys a group in 55 passes; the 128 groups of a
+// synthetic-10m step sort side by side.  grid: the step's groups, block
+// SLOT_CHAIN_THREADS.
+constexpr int SLOT_CHAIN_THREADS = GROUP / 2;  // one compare a thread
+
+static __global__ void __launch_bounds__(SLOT_CHAIN_THREADS)
+slot_chains_kernel(const int* walks, int L, int* info, int* order) {
+  __shared__ unsigned long long keys[GROUP];
+  const int t0 = threadIdx.x, n = NBLK * L;
+  const int* wg = walks + (size_t)blockIdx.x * GROUP;
+  for (int s = t0; s < GROUP; s += SLOT_CHAIN_THREADS)
+    keys[s] = s % BLK < L
+                  ? (unsigned long long)(unsigned)step_ld(wg + s) << 32 |
+                        (unsigned)s
+                  : ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= GROUP; size <<= 1) {
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      const int i = 2 * t0 - (t0 & (stride - 1)), j = i + stride;
+      const unsigned long long x = keys[i], y = keys[j];
+      if ((x > y) == ((i & size) == 0)) {
+        keys[i] = y;
+        keys[j] = x;
+      }
+      __syncthreads();
     }
-    const float u0 = __fadd_rn(step_ld(dphi + src + k),
-                               step_ld(dphin + src + k));
-    const float u1 = __fadd_rn(step_ld(dphi + src + k + 1),
-                               step_ld(dphin + src + k + 1));
-    n += rmw_bf16_pair(emb_in + dst + k, __fmul_rn(u0, -lr),
-                       __fmul_rn(u1, -lr), b0 & 0xffffu, b1 & 0xffffu);
-    n += rmw_bf16_pair(emb_out + dst + k,
-                       __fmul_rn(step_ld(dctx + src + k), -lr),
-                       __fmul_rn(step_ld(dctx + src + k + 1), -lr), b0 >> 16,
-                       b1 >> 16);
   }
+  int* inf = info + (size_t)blockIdx.x * GROUP * 2;
+  int* ord = order + (size_t)blockIdx.x * GROUP;
+  for (int i = t0; i < GROUP; i += SLOT_CHAIN_THREADS) {
+    if (i >= n) {
+      ord[i] = -1;
+      const int s = i - n;  // the padding slots, one each
+      const int t = s / (BLK - L) * BLK + L + s % (BLK - L);
+      inf[2 * t] = 0;
+      inf[2 * t + 1] = 0;
+      continue;
+    }
+    const unsigned id = (unsigned)(keys[i] >> 32);
+    const int t = (int)(keys[i] & 0xffffffffu);
+    ord[i] = t;
+    int cnt = 0;
+    if (i == 0 || (unsigned)(keys[i - 1] >> 32) != id) {
+      int lo = i + 1, hi = n;  // the first place past the row's run
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if ((unsigned)(keys[mid] >> 32) == id)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      cnt = lo - i;
+    }
+    inf[2 * t] = i;
+    inf[2 * t + 1] = cnt;
+  }
+  pdl_wait();
   pdl_trigger();
-  if (n) atomicAdd(retries, (double)n);
+}
+
+// K3's slot writes (pallas_walk_sgns.py:369-400, the slot fori_loop of
+// _walk_kernel on bf16 tables, :377): for each real slot t of group g
+// (position < L), in slot order, emb_in[v] = round(f32(emb_in[v]) +
+// __fmul_rn(__fadd_rn(dphi[t], dphin[t]), -lr)) and emb_out[v] =
+// round(f32(emb_out[v]) + __fmul_rn(dctx[t], -lr)), v = walks[t], each
+// element rounded by sr_bits(sr_key(seed, g), t*d + k): its low 16 bits for
+// the node row, its high 16 for the ctx row (SR), or truncated.  Bit for bit
+// what the plain version (ops/walk_sgns.py::walk_scatter_bf16_reference,
+// rmw_rows in slot order) writes from the same dphi, dphin and dctx.  A
+// walk revisits nodes and hubs fill many slots, so a group may write a row
+// many times; each distinct row gets one owner, the team of its first slot
+// (slot_chains_kernel's info), which loads both rows once, applies the
+// row's slots in order (order[i], ..., order[i + n - 1]) with the rows in
+// registers and stores each once, with plain stores and no atomics.  A
+// team is 16 lanes for a bf16 row of at most 16 pieces (d 128), else a
+// warp; a piece is 16 bytes of the row (8 elements) where d % 8 == 0, else
+// a bf16 pair (E = 2; d is even for bf16 tables).  The grid is the group's
+// NBLK * L real slots' teams (padding slots get none); a team that does
+// not own its row waits and exits.  Before its wait a team reads its
+// slot's (place, count), row and first two batches of chained slots, lr
+// and the seed (the chains, walks and argument block are two or more
+// kernels before it: complete); after it, the rows and the slots' dphi,
+// dphin and dctx pieces, a batch of slots' loads in flight at once
+// (scatter_u) and the next batch's issued before this one's roundings, so
+// a hub's long chain keeps its loads ahead of its dependent roundings.
+// (Loading the rows before the wait, which the PDL rule allows since the
+// negative pass just before only reads them, measured the same: they are
+// in L2 after the band and negative passes read them; PERF.md §6.)  It
+// is bound by latency, not bytes: it reads the real slots' three f32
+// update rows and moves the distinct rows of two tables in and out (K3
+// at d 128: 0.49 us at 3.35 TB/s).  block SCATTER_BF16_THREADS.  lr and
+// the seed from the argument block `args`, or, without one (the C entry
+// that runs the kernel alone), from `lr_in` and `seed_in`.
+constexpr int SCATTER_BF16_THREADS = 128;
+
+// Slots whose pieces a lane loads at once: a batch; two batches are in
+// flight (the next batch's loads go out before this one's roundings).
+template <int E>
+__host__ __device__ constexpr int scatter_u() {
+  return E == 8 ? 2 : 4;
+}
+
+// A batch's loads: elements j..j+E-1 of dphi, dphin and dctx (a, b, c) of
+// slots cs[0..U) (-1: none), all in flight together.
+template <int E, int U = scatter_u<E>()>
+struct SlotBatch {
+  int cs[U];
+  float a[U][E], b[U][E], c[U][E];
+
+  __device__ __forceinline__ void load(const float* dphi, const float* dphin,
+                                       const float* dctx, int d, int j) {
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if (cs[i] < 0) continue;
+      const size_t o = (size_t)cs[i] * d + j;
+      if constexpr (E == 8) {
+#pragma unroll
+        for (int h = 0; h < 8; h += 4) {
+          const float4 x =
+              step_ld(reinterpret_cast<const float4*>(dphi + o + h));
+          const float4 y =
+              step_ld(reinterpret_cast<const float4*>(dphin + o + h));
+          const float4 z =
+              step_ld(reinterpret_cast<const float4*>(dctx + o + h));
+          a[i][h] = x.x, a[i][h + 1] = x.y, a[i][h + 2] = x.z;
+          a[i][h + 3] = x.w;
+          b[i][h] = y.x, b[i][h + 1] = y.y, b[i][h + 2] = y.z;
+          b[i][h + 3] = y.w;
+          c[i][h] = z.x, c[i][h + 1] = z.y, c[i][h + 2] = z.z;
+          c[i][h + 3] = z.w;
+        }
+      } else {
+        const float2 x = step_ld(reinterpret_cast<const float2*>(dphi + o));
+        const float2 y = step_ld(reinterpret_cast<const float2*>(dphin + o));
+        const float2 z = step_ld(reinterpret_cast<const float2*>(dctx + o));
+        a[i][0] = x.x, a[i][1] = x.y;
+        b[i][0] = y.x, b[i][1] = y.y;
+        c[i][0] = z.x, c[i][1] = z.y;
+      }
+    }
+  }
+
+  // x (node row) and y (ctx row), elements j..j+E-1 as f32 values of bf16,
+  // through the batch's slots in order: x = round(x + (a + b) * -lr), y =
+  // round(y + c * -lr), each element rounded by the low (x) and high (y) 16
+  // bits of sr_bits(key, cs[i] * d + j + e) (SR) or truncated.
+  template <bool SR>
+  __device__ __forceinline__ void apply(float (&x)[E], float (&y)[E], int d,
+                                        int j, float lr,
+                                        unsigned key) const {
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if (cs[i] < 0) break;
+      const unsigned at = (unsigned)(cs[i] * d + j);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const unsigned r = SR ? mix32((at + e) ^ key) : 0u;
+        const float sx =
+            __fadd_rn(x[e], __fmul_rn(__fadd_rn(a[i][e], b[i][e]), -lr));
+        const float sy = __fadd_rn(y[e], __fmul_rn(c[i][e], -lr));
+        x[e] = __uint_as_float(((__float_as_uint(sx) + (r & 0xffffu)) >> 16)
+                               << 16);
+        y[e] = __uint_as_float(((__float_as_uint(sy) + (r >> 16)) >> 16)
+                               << 16);
+      }
+    }
+  }
+};
+
+// A row pair's piece of E bf16 elements at j, widened exactly, and back.
+template <int E>
+static __device__ __forceinline__ void load_row_piece(const __nv_bfloat16* row,
+                                                      int j, float (&x)[E]) {
+  if constexpr (E == 8) {
+    const uint4 w = step_ld(reinterpret_cast<const uint4*>(row + j));
+    widen2(w.x, x), widen2(w.y, x + 2), widen2(w.z, x + 4);
+    widen2(w.w, x + 6);
+  } else {
+    widen2(step_ld(reinterpret_cast<const unsigned*>(row + j)), x);
+  }
+}
+
+template <int E>
+static __device__ __forceinline__ void store_row_piece(__nv_bfloat16* row,
+                                                       int j,
+                                                       const float (&x)[E]) {
+  if constexpr (E == 8)
+    *reinterpret_cast<uint4*>(row + j) =
+        make_uint4(pack2(x), pack2(x + 2), pack2(x + 4), pack2(x + 6));
+  else
+    *reinterpret_cast<unsigned*>(row + j) = pack2(x);
+}
+
+// One owner's rows: its pieces p = tl, tl + ts, ... of E elements, each
+// taken through the row's n slots ch[0..n) in order; `first` holds
+// ch[0..2U) (-1 past n), read before the wait.  Each batch of U slots is
+// applied once the next batch's loads and the slot numbers of the one
+// after it are in flight.
+template <bool SR, int E, int U = scatter_u<E>()>
+static __device__ __forceinline__ void scatter_rows(
+    __nv_bfloat16* row_in, __nv_bfloat16* row_out, const float* dphi,
+    const float* dphin, const float* dctx, const int* ch, int n,
+    const int (&first)[2 * U], int d, int ts, int tl, float lr,
+    unsigned key) {
+  for (int p = tl; p * E < d; p += ts) {
+    const int j = p * E;
+    SlotBatch<E> cur, next;
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+      cur.cs[i] = first[i], next.cs[i] = first[U + i];
+    cur.load(dphi, dphin, dctx, d, j);
+    float x[E], y[E];
+    load_row_piece<E>(row_in, j, x);
+    load_row_piece<E>(row_out, j, y);
+    for (int i0 = 0; i0 < n; i0 += U) {
+      if (next.cs[0] >= 0) next.load(dphi, dphin, dctx, d, j);
+      int after[U];
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int k = i0 + 2 * U + i;
+        after[i] = k < n ? step_ld(ch + k) : -1;
+      }
+      cur.template apply<SR>(x, y, d, j, lr, key);
+      cur = next;
+#pragma unroll
+      for (int i = 0; i < U; ++i) next.cs[i] = after[i];
+    }
+    store_row_piece<E>(row_in, j, x);
+    store_row_piece<E>(row_out, j, y);
+  }
+}
+
+template <bool SR, int E>
+static __global__ void __launch_bounds__(SCATTER_BF16_THREADS)
+walk_scatter_bf16_kernel(__nv_bfloat16* emb_in, __nv_bfloat16* emb_out,
+                         const int* walks, const float* dphi,
+                         const float* dphin, const float* dctx,
+                         const int* info, const int* order, int d, int L,
+                         int ts, const StepArgs* args, float lr_in,
+                         unsigned seed_in, int g) {
+  constexpr int U = scatter_u<E>();
+  const float lr = args != nullptr ? step_ld(&args->lr) : lr_in;
+  const unsigned key =
+      SR ? sr_key(args != nullptr ? step_ld(&args->seed) : seed_in,
+                  (unsigned)g)
+         : 0u;
+  // the team's real slot, its place and count, its row and first slots
+  const int i = blockIdx.x * (SCATTER_BF16_THREADS / ts) + threadIdx.x / ts;
+  int t = -1, v = 0, first[2 * U];
+  int2 in = make_int2(0, 0);
+  if (i < NBLK * L) {
+    t = i / L * BLK + i % L;
+    in = step_ld(reinterpret_cast<const int2*>(info) + t);
+    if (in.y > 0) v = step_ld(walks + t);
+  }
+#pragma unroll
+  for (int u = 0; u < 2 * U; ++u)
+    first[u] = u == 0 ? t : u < in.y ? step_ld(order + in.x + u) : -1;
+  pdl_wait();
+  if (in.y > 0)  // else an earlier slot of the row owns it (or no slot)
+    scatter_rows<SR, E>(emb_in + (size_t)v * d, emb_out + (size_t)v * d,
+                        dphi, dphin, dctx, order + in.x, in.y, first, d, ts,
+                        threadIdx.x % ts, lr, key);
+  pdl_trigger();
+}
+
+// The team width of K3's slot scatter for rows of d elements (d even).
+static inline int scatter_team(int d) {
+  return pool_team(d, d % 8 == 0 ? 8 : 2);
+}
+
+// walk_scatter_bf16_kernel's launch for group g on `stream` (with PDL when
+// `pdl`): its chains `info`, `order` (slot_chains_kernel's of the group),
+// lr and the SR seed from `args`, or `lr`, `seed` where it is null.
+template <bool SR>
+static cudaError_t launch_scatter_bf16(__nv_bfloat16* emb_in,
+                                       __nv_bfloat16* emb_out,
+                                       const int* walks, const float* dphi,
+                                       const float* dphin, const float* dctx,
+                                       const int* info, const int* order,
+                                       int d, int L, const StepArgs* args,
+                                       float lr, unsigned seed, int g,
+                                       cudaStream_t stream, bool pdl) {
+  const int ts = scatter_team(d), per = SCATTER_BF16_THREADS / ts;
+  const int grid = (NBLK * L + per - 1) / per;
+  auto* kernel = d % 8 == 0 ? walk_scatter_bf16_kernel<SR, 8>
+                            : walk_scatter_bf16_kernel<SR, 2>;
+  return launch_kernel(kernel, dim3(grid), dim3(SCATTER_BF16_THREADS), 0,
+                       stream, pdl, 0, emb_in, emb_out, walks, dphi, dphin,
+                       dctx, info, order, d, L, ts, args, lr, seed, g);
+}
+
+// slot_chains_kernel's launch on `stream` (with PDL when `pdl`): the chains
+// of G groups of walks into `sc` (slot_info, slot_order).
+static cudaError_t launch_slot_chains(const int* walks, int G, int L,
+                                      int* sc, cudaStream_t stream,
+                                      bool pdl) {
+  return launch_kernel(slot_chains_kernel, dim3(G), dim3(SLOT_CHAIN_THREADS),
+                       0, stream, pdl, 0, walks, L, sc,
+                       sc + (size_t)2 * G * GROUP);
+}
+
+// Where group g's info [GROUP][2] and order [GROUP] lie in slot chains `sc`
+// of G groups (after the pools' chains in a K3 plan's `chains`).
+static inline const int* slot_info(const int* sc, int g) {
+  return sc + (size_t)2 * g * GROUP;
+}
+static inline const int* slot_order(const int* sc, int g, int G) {
+  return sc + (size_t)2 * G * GROUP + (size_t)g * GROUP;
 }
 
 // Walk generation (TPU GEN_WALKS, pallas_walk_sgns.py:182-201).  One thread
@@ -827,14 +1109,15 @@ struct WalkStep {
   const int* wrow;
   const int* pools;
   double* stats;
-  double* retries;
   float* cneg;
   float* dneg;
   float* dphi;
   float* dctx;
   float* nt;
   StepArgs* args;
-  int* chains;  // K3: the pools' chains (sgns_common.cuh: pool_chains_kernel)
+  // K3: the pools' chains (sgns_common.cuh: pool_chains_kernel), then the
+  // groups' slot chains (slot_chains_kernel)
+  int* chains;
   int d, G, L, W, KP, R;
   float negw;
   const int* starts;
@@ -845,12 +1128,13 @@ struct WalkStep {
 
 // The group loop of one step, launched on `stream` (the recording stream).
 // T = float: K1/K1b/K5 (atomic f32 scatter); T = __nv_bfloat16: K3
-// (rounded RMW scatter, SR with a per-step seed; `retries` collects its CAS
-// retries; the pool write by owned rows in draw order, no CAS).  `pdl`
+// (rounded RMW scatter by owned rows in slot order, SR with a per-step
+// seed; the pool write by owned rows in draw order; no atomics).  `pdl`
 // says whether the first launch may start under PDL (a kernel besides the
 // head precedes it in the step); every later one does.  `launched`
 // receives the route of the band pass it launched (PosRoute), and
-// `pool_launched` counts the pool passes it launched (PoolPass).
+// `pool_launched` counts the pool passes and K3's slot scatter it launched
+// (PoolPass).
 template <bool BF16, bool PAIRED, typename T, bool SR>
 static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
                        int* launched, int* pool_launched,
@@ -896,10 +1180,12 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
     if (e != cudaSuccess) return (int)e;
     const bool end = g % R == R - 1 || g == s.G - 1;
     if constexpr (TB16) {
-      e = launch_kernel(walk_scatter_bf16_kernel<SR>, dim3(GROUP), dim3(64),
-                        0, stream, true, 0, emb_in, emb_out, wg, s.dphi,
-                        dphin, s.dctx, d, L, args, g, s.retries);
+      const int* sc = s.chains + (size_t)3 * ((s.G + R - 1) / R) * KP;
+      e = launch_scatter_bf16<SR>(emb_in, emb_out, wg, s.dphi, dphin, s.dctx,
+                                  slot_info(sc, g), slot_order(sc, g, s.G), d,
+                                  L, args, 0.0f, 0u, g, stream, true);
       if (e != cudaSuccess) return (int)e;
+      ++pool_launched[PASS_WALK_SCATTER_BF16];
       if (end) {
         e = launch_apply_bf16<SR>(neg, emb_out, pool, s.dneg, s.chains,
                                   g / R, (s.G + R - 1) / R, d, KP, args, 0.0f,
@@ -978,11 +1264,17 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
           if (e != cudaSuccess) return (int)e;
           lead = true;
         }
-        if (TB16) {  // K3: every block's pool sorted into its chains
-          e = launch_chains(s.pools, (s.G + s.R - 1) / s.R, s.KP, s.chains,
-                            cap);
+        if (TB16) {  // K3: every block's pool and every group's real
+          // slots sorted into their chains
+          const int n_pools = (s.G + s.R - 1) / s.R;
+          e = launch_chains(s.pools, n_pools, s.KP, s.chains, cap);
           if (e != cudaSuccess) return (int)e;
           ++p->pool[PASS_POOL_CHAINS];
+          e = launch_slot_chains(s.walks, s.G, s.L,
+                                 s.chains + (size_t)3 * n_pools * s.KP, cap,
+                                 true);
+          if (e != cudaSuccess) return (int)e;
+          ++p->pool[PASS_SLOT_CHAINS];
           lead = true;
         }
         return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, lead, &p->route,
@@ -1032,9 +1324,6 @@ using namespace come;
 //   wrow            [G * 1024] i32 window draws (not read when paired)
 //   pools           [ceil(G / R), KP] i32
 //   stats           [2] f64 scratch: the step's (loss, pairs)
-//   retries         [1] f64, accumulates the CAS retries of K3's slot
-//                   scatter (not read by K1, K1b, K5; K3's pool write takes
-//                   none)
 //   cneg, dneg      [KP, d] f32 scratch
 //   dphi            [2, 1024, d] f32 scratch: the positive pass's part of
 //                   each slot's update, then the negative pass's
@@ -1042,8 +1331,10 @@ using namespace come;
 //   walks_buf, wrow_buf, pools_buf: the plan's copies of walks, wrow
 //                   (unused when paired) and pools, which the loop reads
 //   args            the plan's argument block (sgns_common.cuh: StepArgs)
-//   chains          K3 (else unused): [3 * ceil(G / R) * KP] i32 scratch, the
-//                   pools' chains (sgns_common.cuh: pool_chains_kernel)
+//   chains          K3 (else unused): [3 * ceil(G / R) * KP + 3 * G * 1024]
+//                   i32 scratch, the pools' chains (sgns_common.cuh:
+//                   pool_chains_kernel), then the groups' slot chains
+//                   (slot_chains_kernel)
 // bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even),
 // tables_bf16 != 0 K3 (d even; stochastic rounding from sr_seed when
 // sr != 0, else truncation).  A plan serves one mode and one (d, G, L, W,
@@ -1052,16 +1343,16 @@ using namespace come;
 // allocates no device memory.
 extern "C" int come_walk_sgns_step(
     void* graph, int record, void* emb_in, void* emb_out, const int* walks,
-    const int* wrow, const int* pools, double* stats, double* retries,
-    float* cneg, float* dneg, float* dphi, float* dctx, float* nt,
-    int* walks_buf, int* wrow_buf, int* pools_buf, void* args, int* chains,
+    const int* wrow, const int* pools, double* stats, float* cneg,
+    float* dneg, float* dphi, float* dctx, float* nt, int* walks_buf,
+    int* wrow_buf, int* pools_buf, void* args, int* chains,
     int d, int G, int L, int W, int KP, int R, int bf16, int paired,
     int tables_bf16, int sr, unsigned sr_seed, float lr, float negw,
     void* stream_ptr) {
   StepArgs* a = static_cast<StepArgs*>(args);
   const WalkStep s{emb_in, emb_out, walks_buf, wrow_buf, pools_buf, stats,
-                   retries, cneg, dneg, dphi, dctx, nt, a, chains, d, G, L,
-                   W, KP, R, negw, nullptr, nullptr, nullptr, nullptr};
+                   cneg, dneg, dphi, dctx, nt, a, chains, d, G, L, W, KP, R,
+                   negw, nullptr, nullptr, nullptr, nullptr};
   const int slots = G * GROUP, np = (G + R - 1) / R * KP;
   const HeadIn hin{{walks, paired ? nullptr : wrow, pools, nullptr}, lr,
                    sr_seed};
@@ -1081,16 +1372,16 @@ extern "C" int come_walk_sgns_step(
 extern "C" int come_walk_sgns_gen_step(
     void* graph, int record, void* emb_in, void* emb_out, const int* starts,
     const unsigned* bits, const int* indptr, const int* indices, int* slots,
-    const int* wrow, const int* pools, double* stats, double* retries,
-    float* cneg, float* dneg, float* dphi, float* dctx, float* nt,
-    int* starts_buf, unsigned* bits_buf, int* wrow_buf, int* pools_buf,
-    void* args, int* chains, int d, int G, int L, int W, int KP, int R,
+    const int* wrow, const int* pools, double* stats, float* cneg,
+    float* dneg, float* dphi, float* dctx, float* nt, int* starts_buf,
+    unsigned* bits_buf, int* wrow_buf, int* pools_buf, void* args,
+    int* chains, int d, int G, int L, int W, int KP, int R,
     int bf16, int tables_bf16, int sr, unsigned sr_seed, float lr,
     float negw, void* stream_ptr) {
   StepArgs* a = static_cast<StepArgs*>(args);
   const WalkStep s{emb_in, emb_out, slots, wrow_buf, pools_buf, stats,
-                   retries, cneg, dneg, dphi, dctx, nt, a, chains, d, G, L,
-                   W, KP, R, negw, starts_buf, bits_buf, indptr, indices};
+                   cneg, dneg, dphi, dctx, nt, a, chains, d, G, L, W, KP, R,
+                   negw, starts_buf, bits_buf, indptr, indices};
   const int n = G * GROUP, np = (G + R - 1) / R * KP;
   const HeadIn hin{{starts, reinterpret_cast<const int*>(bits), wrow, pools},
                    lr, sr_seed};
@@ -1108,4 +1399,51 @@ extern "C" int come_walk_sgns_gen_step(
 extern "C" int come_walk_pos_route(int d, int L, int W, int bf16, int paired,
                                    int tables_bf16) {
   return walk_pos_route(d, L, W, (bf16 != 0 || tables_bf16 != 0) && !paired);
+}
+
+// K3's slot chains and slot scatter alone, on given buffers: the C entries
+// that hold each against its plain version (ops/scatter_pass.py) and time
+// it, outside the step loop that launches them.  Both launch on the
+// caller's stream without PDL, do not synchronise and allocate nothing.
+
+// The slot chains of G groups of walks (walks [G * 1024] i32, walk j of
+// group g at g*1024 + j*128, L real positions a walk) into chains
+// [3 * G * 1024] i32: info [G][1024][2] (t's sorted place, and its row's
+// slots at its first slot, else 0; padding slots (0, 0)), then order
+// [G][1024] (the slot at each sorted place, -1 past the real slots).
+// Returns 0 or the CUDA error code.
+extern "C" int come_slot_chains(const int* walks, int G, int L, int* chains,
+                                void* stream_ptr) {
+  if (G < 1 || L < 1 || L > BLK) return (int)cudaErrorInvalidValue;
+  return (int)launch_slot_chains(walks, G, L, chains,
+                                 (cudaStream_t)stream_ptr, false);
+}
+
+// K3's slot writes of group g alone: emb_in, emb_out [V, d] bf16 (d even,
+// updated in place), walks [1024] i32 (the group's slots), dphi, dphin,
+// dctx [1024, d] f32, chains the group's (come_slot_chains of these walks,
+// G 1): for each real slot t in slot order, emb_in[v] = round(f32(row) +
+// (dphi[t] + dphin[t]) * -lr) and emb_out[v] = round(f32(row) + dctx[t] *
+// -lr), by stochastic rounding from `seed` (sr != 0) or truncation.
+// Returns 0 or the CUDA error code.
+extern "C" int come_walk_scatter_bf16(void* emb_in, void* emb_out,
+                                      const int* walks, const float* dphi,
+                                      const float* dphin, const float* dctx,
+                                      const int* chains, int d, int L, int g,
+                                      float lr, int sr, unsigned seed,
+                                      void* stream_ptr) {
+  if (d < 2 || d % 2 || L < 1 || L > BLK) return (int)cudaErrorInvalidValue;
+  auto* ei = static_cast<__nv_bfloat16*>(emb_in);
+  auto* eo = static_cast<__nv_bfloat16*>(emb_out);
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int* info = slot_info(chains, 0);
+  const int* order = slot_order(chains, 0, 1);
+  return (int)(sr ? launch_scatter_bf16<true>(ei, eo, walks, dphi, dphin,
+                                               dctx, info, order, d, L,
+                                               nullptr, lr, seed, g, stream,
+                                               false)
+                  : launch_scatter_bf16<false>(ei, eo, walks, dphi, dphin,
+                                                dctx, info, order, d, L,
+                                                nullptr, lr, 0u, g, stream,
+                                                false));
 }

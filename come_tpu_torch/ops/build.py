@@ -40,9 +40,9 @@ _F = ctypes.c_float
 # c_float.  Each returns an int (0 or a CUDA error code) unless RESTYPES
 # says otherwise.
 SIGNATURES = {
-    "come_walk_sgns_step": [_P, _I] + [_P] * 17 + [_I] * 10
+    "come_walk_sgns_step": [_P, _I] + [_P] * 16 + [_I] * 10
     + [_U, _F, _F, _P],
-    "come_walk_sgns_gen_step": [_P, _I] + [_P] * 22 + [_I] * 9
+    "come_walk_sgns_gen_step": [_P, _I] + [_P] * 21 + [_I] * 9
     + [_U, _F, _F, _P],
     "come_star_sgns_step": [_P, _I] + [_P] * 13 + [_I] * 5 + [_F, _F, _P],
     "come_walk_pos_route": [_I] * 6,
@@ -81,6 +81,9 @@ SIGNATURES = {
     "come_pool_stage": [_P] * 4 + [_I] * 3 + [_P],
     "come_pool_apply_bf16": [_P] * 4 + [_I] * 3 + [_F, _I, _U, _P],
     "come_pool_chains": [_P, _I, _I, _P, _P],
+    "come_pool_stage_wide_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    "come_slot_chains": [_P, _I, _I, _P, _P],
+    "come_walk_scatter_bf16": [_P] * 7 + [_I] * 3 + [_F, _I, _U, _P],
 }
 RESTYPES = {"come_cuda_error_name": ctypes.c_char_p,
             "come_step_graph_new": ctypes.c_void_p,

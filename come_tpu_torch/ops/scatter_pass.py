@@ -1,0 +1,149 @@
+"""K3's slot chains and K3's slot scatter alone: the CUDA kernels, their
+plain versions and the wrappers that pick between them by device.
+
+Port of the slot loop of ``come_tpu/ops/pallas_walk_sgns.py``'s walk kernel
+on bf16 tables (``:369-400``, the ``TABLES_BF16`` branch at ``:377``): each
+real slot's row written back in slot order, each element rounded by
+``_pack_row``.  On the card the scatter is a pass of K3's recorded group
+loop (``csrc/walk_sgns.cu``: ``walk_scatter_bf16_kernel``, one owner a
+distinct row of the group, its slots in slot order, no atomics), and once a
+K3 step ``slot_chains_kernel`` sorts every group's real slots into the
+chains the scatter follows; here each runs alone on given buffers (C
+entries in ``csrc/walk_sgns.cu``), so a check can hold it against its plain
+version bit for bit and time it.  The scatter's plain version is
+``ops/walk_sgns.py``'s :func:`walk_scatter_bf16_reference`, which
+``walk_sgns_step_reference`` calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from come_tpu_torch.ops import build
+from come_tpu_torch.ops.walk_sgns import (
+    LP,
+    M32,
+    NWL,
+    walk_scatter_bf16_reference,
+)
+
+
+def _real(L: int, device) -> torch.Tensor:
+    """The group's real slots (position < L of each walk), in slot order."""
+    return torch.nonzero(torch.arange(NWL, device=device) % LP < L)[:, 0]
+
+
+def slot_chains_reference(slots: torch.Tensor, L: int):
+    """Plain version of :func:`slot_chains`."""
+    ids = slots.long().reshape(-1, NWL)
+    G = ids.shape[0]
+    real = _real(L, ids.device)
+    n = real.numel()
+    info = torch.zeros((G, NWL, 2), dtype=torch.int64, device=ids.device)
+    order = torch.full((G, NWL), -1, dtype=torch.int64, device=ids.device)
+    place = torch.arange(n, device=ids.device)
+    for g in range(G):
+        og = real[torch.sort(ids[g][real], stable=True).indices]
+        order[g, :n] = og
+        info[g, og, 0] = place
+        _, counts = torch.unique_consecutive(ids[g][og], return_counts=True)
+        heads = torch.cumsum(counts, 0) - counts
+        info[g, og[heads], 1] = counts
+    return info.to(torch.int32), order.to(torch.int32)
+
+
+def slot_chains(slots: torch.Tensor, L: int):
+    """Each group's real slots sorted into its rows' chains, as K3's slot
+    scatter reads them: (info int32 [G, 1024, 2], order int32 [G, 1024])
+    for ``slots`` int [G * 1024] (walk j of group g at g*1024 + j*128, L
+    real positions a walk): order[g] the group's real slots (position < L)
+    in the order of a stable sort of their ids (a row's slots together, in
+    slot order), -1 past its 8 * L real slots; info[g, t] = (t's place in
+    order[g], the row's slots at its first slot and 0 at the others);
+    (0, 0) at padding slots.
+
+    CPU tensors run the plain version; CUDA tensors launch
+    ``slot_chains_kernel`` (one CTA a group) or raise (counted in
+    ``slot_chains.launches``)."""
+    slots = slots.reshape(-1)
+    if slots.numel() % NWL or not 1 <= L <= LP:
+        raise ValueError(f"slot_chains: {slots.numel()} slots are not whole "
+                         f"groups of {NWL}, or L {L} outside 1..{LP}")
+    if slots.device.type == "cpu":
+        return slot_chains_reference(slots, L)
+    if slots.device.type != "cuda":
+        raise ValueError(f"no slot chains kernel for device {slots.device}")
+    G = slots.numel() // NWL
+    slots = slots.to(torch.int32).contiguous()
+    chains = torch.empty((3 * G * NWL,), dtype=torch.int32,
+                         device=slots.device)
+    code = build.library().come_slot_chains(
+        slots.data_ptr(), G, L, chains.data_ptr(),
+        torch.cuda.current_stream(slots.device).cuda_stream)
+    slot_chains.launches += 1
+    build.check(code, "come_slot_chains")
+    return (chains[:2 * G * NWL].view(G, NWL, 2),
+            chains[2 * G * NWL:].view(G, NWL))
+
+
+slot_chains.launches = 0
+
+
+def walk_scatter_bf16(emb_in: torch.Tensor, emb_out: torch.Tensor,
+                      slots: torch.Tensor, dphi: torch.Tensor,
+                      dphin: torch.Tensor, dctx: torch.Tensor, lr: float, *,
+                      L: int, group: int, sr_seed: int | None = None,
+                      chains: tuple | None = None):
+    """K3's slot writes of group ``group``, in place on ``emb_in`` and
+    ``emb_out`` [V, d] bf16 (d even): for each real slot t (position < L)
+    of ``slots`` int [1024] in slot order, ``emb_in[v] = round(f32(row) +
+    f32((dphi[t] + dphin[t]) * -lr))`` and ``emb_out[v] = round(f32(row) +
+    f32(dctx[t] * -lr))``, v = slots[t], from ``dphi``, ``dphin`` (the
+    negative pass's part) and ``dctx`` f32 [1024, d]; rounded stochastically
+    with ``sr_seed`` (:func:`walk_sgns.sr_bits`: low 16 bits for the node
+    row, high 16 for the ctx row) or truncated without.  Returns (emb_in,
+    emb_out).
+
+    CPU tensors run the plain version; CUDA tensors launch
+    ``walk_scatter_bf16_kernel`` on the group's chains (``chains``, as
+    :func:`slot_chains` gives them for ``slots``, or made here by it) or
+    raise (counted in ``walk_scatter_bf16.launches``)."""
+    d = emb_in.shape[1]
+    for t in (emb_in, emb_out):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or \
+                t.shape[1] != d or d % 2:
+            raise ValueError("walk_scatter_bf16: tables must be contiguous "
+                             "bf16 [V, d] with an even d")
+    for t in (dphi, dphin, dctx):
+        if t.shape != (NWL, d) or t.dtype != torch.float32 or \
+                t.device != emb_in.device:
+            raise ValueError(f"walk_scatter_bf16: updates must be f32 "
+                             f"[{NWL}, {d}] on {emb_in.device}")
+    if slots.numel() != NWL or not 1 <= L <= LP:
+        raise ValueError(f"walk_scatter_bf16: one group's {NWL} slots, "
+                         f"L in 1..{LP}")
+    if emb_in.device.type == "cpu":
+        return walk_scatter_bf16_reference(emb_in, emb_out, slots, dphi,
+                                           dctx, lr, L, group, sr_seed,
+                                           dphin=dphin)
+    if emb_in.device.type != "cuda":
+        raise ValueError(f"no slot scatter kernel for device {emb_in.device}")
+    info, order = slot_chains(slots, L) if chains is None else chains
+    if info.shape != (1, NWL, 2) or order.data_ptr() != \
+            info.data_ptr() + 8 * NWL:
+        raise ValueError("walk_scatter_bf16: chains must be slot_chains' of "
+                         "these slots")
+    slots = slots.to(torch.int32).contiguous()
+    sr = sr_seed is not None
+    code = build.library().come_walk_scatter_bf16(
+        emb_in.data_ptr(), emb_out.data_ptr(), slots.data_ptr(),
+        dphi.contiguous().data_ptr(), dphin.contiguous().data_ptr(),
+        dctx.contiguous().data_ptr(), info.data_ptr(), d, int(L),
+        int(group), float(lr), int(sr), (int(sr_seed) & M32) if sr else 0,
+        torch.cuda.current_stream(emb_in.device).cuda_stream)
+    walk_scatter_bf16.launches += 1
+    build.check(code, "come_walk_scatter_bf16")
+    return emb_in, emb_out
+
+
+walk_scatter_bf16.launches = 0

@@ -36,22 +36,21 @@ update itself.  :func:`check_k3` holds the kernel's step to:
 
   * at least ``K3_IDENTICAL`` = 99% of the elements of touched rows
     bit-identical (a wrong rounding rule flips about half of them);
-  * relative L2 error of the updates <= ``K3_L2`` = 5e-3, set from
-    :func:`emulate_k3`, which emulates both ways the kernel departs from
-    the plain version: another order of the f32 sums, and another order of
-    a row's repeated writes within a group (the CAS loops take them as
-    they come; the plain version, as the TPU, in slot order).  At
-    chip_smoke's K3 shapes (128 groups on the synthetic-10m graph, where
-    2.6% of a group's slots repeat a row of their walk) it read, over
-    seeds 0-2, 2.40-2.52e-3 with stochastic rounding and 1.87-1.99e-3
-    truncating, with 0.99923-0.99940 of touched elements bit-identical;
-    at the card tests' shapes (V 20000 and 50000) up to 3.05e-3.  Without
-    the write order (float64 sums alone) it read 2.5-2.9e-4: the order of
-    repeated writes sets the bound;
+  * relative L2 error of the updates <= ``K3_L2`` = 5e-3.  It was set
+    from an emulation of two departures, another order of the f32 sums
+    and another order of a row's repeated writes within a group (2.40-2.52e-3
+    at chip_smoke's K3 shapes, 3.05e-3 at the card tests' V 20000 and
+    50000).  The kernel now writes a group's rows in slot order, as the
+    plain version and the TPU do, so :func:`emulate_k3` emulates only the
+    sums: float64 against the plain version's f32.  At chip_smoke's K3
+    shapes (128 groups on the synthetic-10m graph, where 2.6% of a group's
+    slots repeat a row of their walk) it reads, over seeds 0-2,
+    2.12-2.31e-4 with stochastic rounding and 2.23-2.74e-4 truncating, with
+    0.99998 of touched elements bit-identical;
   * the f32-table step on the same inputs (K1b, whose writes are not
     rounded) at least ``BF16_APART`` = 5x farther from the plain K3 step
-    (the emulation: 8.25-8.30e-2 with SR, 1.395e-1 truncating, 33-74x the
-    error and 16x the bound).
+    (the emulation: 8.25-8.30e-2 with SR, 1.395e-1 truncating, 357-626x
+    the error and 16x the bound).
 
 Run ``python -m come_tpu_torch.ops.tolerance`` for the emulation's readings.
 """
@@ -161,13 +160,13 @@ def emulate_k3(seed: int, sr: bool = True, groups: int = 128, L: int = 80,
                d: int = 128, graph=None):
     """What the kernel may differ by in one K3 step at chip_smoke's K3
     shapes: walks of L on the synthetic-10m graph from uniform starts,
-    unigram pools, made from ``seed``.  The plain step (f32 sums, each
-    group's writes in slot order) against an emulated kernel step: float64
-    sums and each group's writes in a random order (the kernel's CAS loops
-    apply a row's repeats within a group in any order), with the same
-    rounding bits.  Returns the :func:`check_k3` readings of the emulated
-    step: (identical share, relative L2 error, f32-table (K1b) distance).
-    ``graph`` replaces the synthetic-10m graph."""
+    unigram pools, made from ``seed``.  The plain step (f32 sums) against an
+    emulated kernel step: float64 sums, the one way the kernel still departs
+    from the plain version (both write each group's rows in slot order and
+    each pool's in draw order, with the same rounding bits).  Returns the
+    :func:`check_k3` readings of the emulated step: (identical share,
+    relative L2 error, f32-table (K1b) distance).  ``graph`` replaces the
+    synthetic-10m graph."""
     from come_tpu_torch.graphs import get_dataset
     from come_tpu_torch.ops import walk_sgns as ws
     from come_tpu_torch.sampling import (
@@ -197,17 +196,7 @@ def emulate_k3(seed: int, sr: bool = True, groups: int = 128, L: int = 80,
             *tables, walks, wrow, pools, lr, 5.0 / KP, **{**kw, **extra})[:2]
 
     plain = step([t.clone() for t in init])
-    in_order = ws.rmw_rows
-
-    def any_order(table, ids, upd, rnd):
-        p = torch.randperm(ids.numel(), generator=g)
-        in_order(table, ids[p], upd[p], None if rnd is None else rnd[p])
-
-    ws.rmw_rows = any_order
-    try:
-        kern = step([t.clone() for t in init], acc=torch.float64)
-    finally:
-        ws.rmw_rows = in_order
+    kern = step([t.clone() for t in init], acc=torch.float64)
     k1b = step([t.float() for t in init], mxu_bf16=True)
     same, l2, _ = k3_update_errors(init, kern, plain)
     _, dist, _ = k3_update_errors(init, k1b, plain)

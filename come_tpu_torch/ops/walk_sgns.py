@@ -197,6 +197,36 @@ def pool_sr_bits(sr_seed: int | None, group: int, KP: int, d: int,
     return sr_bits(sr_key(sr_seed, group), counter) & 0xFFFF
 
 
+def walk_scatter_bf16_reference(emb_in, emb_out, ids, dphi, dctx, lr, L,
+                                group, sr_seed=None, dphin=None):
+    """Plain version of K3's slot writes for one group (``csrc/walk_sgns.cu``:
+    ``walk_scatter_bf16_kernel``; the TPU's slot ``fori_loop`` on bf16
+    tables, ``pallas_walk_sgns.py:369-400``): for each real slot t (position
+    < L) in slot order, ``emb_in[ids[t]] = round(f32(row) + f32(dphi[t] *
+    -lr))`` and ``emb_out[ids[t]] = round(f32(row) + f32(dctx[t] * -lr))``
+    (:func:`rmw_rows`), rounded by the low and the high 16 bits of
+    ``sr_bits(sr_key(sr_seed, group), t * d + k)`` or truncated
+    (``sr_seed`` None).  ``ids`` int [1024] the group's slot rows, ``dphi``
+    and ``dctx`` [1024, d] (or [8, 128, d]) in the step's arithmetic dtype;
+    ``dphin`` (the kernel's separate negative part) is added to ``dphi``
+    first where given.  Returns (emb_in, emb_out), updated in place."""
+    d = emb_in.shape[1]
+    dev = emb_in.device
+    real = (torch.arange(NWL, device=dev) % LP) < L
+    if dphin is not None:
+        dphi = dphi + dphin
+    lo = hi = None
+    if sr_seed is not None:
+        counter = torch.arange(NWL * d, device=dev).view(NWL, d)[real]
+        bits = sr_bits(sr_key(sr_seed, group), counter)
+        lo, hi = bits & 0xFFFF, bits >> 16
+    ids = ids.long()[real]
+    dphi, dctx = dphi.reshape(NWL, d)[real], dctx.reshape(NWL, d)[real]
+    rmw_rows(emb_in, ids, (dphi * (-lr)).float(), lo)
+    rmw_rows(emb_out, ids, (dctx * (-lr)).float(), hi)
+    return emb_in, emb_out
+
+
 def pool_apply_bf16_reference(table, pool, dneg, lr, rnd):
     """Plain version of K3's pool write (``apply_pool_bf16_kernel``; the
     TPU's ``_apply_pool`` on bf16 tables, ``pallas_walk_sgns.py:405``):
@@ -210,9 +240,14 @@ def pool_apply_bf16_reference(table, pool, dneg, lr, rnd):
 # The pool passes inside the walk and star steps' recorded group loops, in
 # the order of csrc/sgns_common.cuh's PoolPass: stage_pool_kernel on f32 and
 # on bf16 tables, K3's pool_chains_kernel (which sorts a step's pools into
-# the chains its pool write follows) and K3's apply_pool_bf16_kernel.
+# the chains its pool write follows), K3's apply_pool_bf16_kernel, the bf16
+# passes' stage past d 192 (stage_pool_bf16_kernel: bf16 rows in the wide
+# negative pass's core layout), and K3's slot passes: slot_chains_kernel
+# (once a step: each group's slots sorted into the chains its slot scatter
+# follows) and walk_scatter_bf16_kernel (once a group).
 POOL_PASSES = ("stage_pool", "stage_pool_bf16_tables", "pool_chains",
-               "apply_pool_bf16")
+               "apply_pool_bf16", "stage_pool_bf16", "slot_chains",
+               "walk_scatter_bf16")
 # Their launches in the steps the wrappers launched.  Reset by assigning
 # zeros.
 POOL_LAUNCHES = dict.fromkeys(POOL_PASSES, 0)
@@ -269,9 +304,6 @@ def walk_sgns_step_reference(emb_in, emb_out, walks, wrow, pools, lr, negw,
     loss = torch.zeros((), dtype=acc, device=dev)
     npairs = torch.zeros((), dtype=acc, device=dev)
     d = emb_in.shape[1]
-    real = (torch.arange(NWL, device=dev) % LP) < L
-    # SR counters: slot t's element k is t*d + k (the pool's: pool_sr_bits)
-    counter = torch.arange(NWL * d, device=dev).view(NWL, d)
     for g in range(G):
         if g % R == 0:
             pool = pools[g // R]
@@ -303,15 +335,10 @@ def walk_sgns_step_reference(emb_in, emb_out, walks, wrow, pools, lr, negw,
             if end:
                 emb_out.index_add_(0, pool, dneg, alpha=-lr)
             continue
-        # K3: one rounded RMW per real slot (padded slots carry exact
-        # zeros, which round to the row itself), then the pool's
-        lo = hi = None
-        if sr_seed is not None:
-            bits = sr_bits(sr_key(sr_seed, g), counter[real])
-            lo, hi = bits & 0xFFFF, bits >> 16
-        dphi, dctx = dphi.reshape(NWL, d)[real], dctx.reshape(NWL, d)[real]
-        rmw_rows(emb_in, ids[real], (dphi * (-lr)).float(), lo)
-        rmw_rows(emb_out, ids[real], (dctx * (-lr)).float(), hi)
+        # K3: one rounded RMW per real slot in slot order (padded slots
+        # carry exact zeros, which round to the row itself), then the pool's
+        walk_scatter_bf16_reference(emb_in, emb_out, ids, dphi, dctx, lr, L,
+                                    g, sr_seed)
         if end:
             pool_apply_bf16_reference(
                 emb_out, pool, dneg, lr,
@@ -355,20 +382,6 @@ def check_cuda_inputs(*tensors, kernel: str,
         raise ValueError(f"{kernel}: bf16 tables need an even dim")
 
 
-_RETRIES: dict[torch.device, torch.Tensor] = {}
-
-
-def cas_retries(device) -> torch.Tensor:
-    """K3's running count of compare-and-swap retries on ``device``: a
-    float64 [1] device tensor that every K3 launch adds to (a retry is
-    another thread writing the same bf16 pair between a read and its
-    write).  Zero it with ``.zero_()``."""
-    dev = torch.device(device)
-    if dev not in _RETRIES:
-        _RETRIES[dev] = torch.zeros(1, dtype=torch.float64, device=dev)
-    return _RETRIES[dev]
-
-
 def walk_plan(entry: str, device, stream: int, mode: tuple, d: int, G: int,
               L: int, W: int, KP: int, R: int) -> launch_plan.LaunchPlan:
     """The launch plan of a walk-kernel step: ``entry`` "walk_sgns" (mode
@@ -377,7 +390,9 @@ def walk_plan(entry: str, device, stream: int, mode: tuple, d: int, G: int,
     the shape (d, G, L, W, KP, R).  Its staged inputs: the walks (K4: the
     starts and the 32-bit draws), the window draws (not paired) and the
     pools; with bf16 tables (K3) also the pools' chains (3 int32 a pool
-    draw: ``csrc/sgns_common.cuh``'s pool_chains_kernel)."""
+    draw: ``csrc/sgns_common.cuh``'s pool_chains_kernel) and after them the
+    groups' slot chains (3 int32 a slot: ``csrc/walk_sgns.cu``'s
+    slot_chains_kernel)."""
     gen = entry == "walk_sgns_gen"
     inputs = {"starts": G * NW, "bits": G * NWL} if gen else \
         {"walks": G * NWL}
@@ -388,11 +403,11 @@ def walk_plan(entry: str, device, stream: int, mode: tuple, d: int, G: int,
     return launch_plan.plan_for(
         entry, device, stream, mode, (d, G, L, W, KP, R), KP=KP, d=d,
         walk_slots=G * NWL if gen else 0, inputs=inputs,
-        chains=3 * inputs["pools"] if tables_bf16 else 0)
+        chains=3 * (inputs["pools"] + G * NWL) if tables_bf16 else 0)
 
 
 def walk_entry_args(plan, how: int, emb_in, emb_out, slots, wrow, pools,
-                    retries, d: int, G: int, L: int, W: int, KP: int, R: int,
+                    d: int, G: int, L: int, W: int, KP: int, R: int,
                     bf16: int, paired: int, tables_bf16: int, sr: int,
                     seed: int, lr: float, negw: float, stream: int,
                     gen: tuple | None = None) -> tuple:
@@ -410,7 +425,7 @@ def walk_entry_args(plan, how: int, emb_in, emb_out, slots, wrow, pools,
         head += (slots.data_ptr(),)
     wbuf = plan.inputs.get("wrow")
     head += (None if wrow is None else wrow.data_ptr(), pools.data_ptr(), st,
-             retries.data_ptr(), cneg, dneg, dphi, dctx, nt)
+             cneg, dneg, dphi, dctx, nt)
     head += plan.staged("starts", "bits") if gen is not None else \
         plan.staged("walks")
     chains = None if plan.chains is None else plan.chains.data_ptr()
@@ -522,9 +537,8 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
     plan.graph_slot(lib)
     how = plan.begin((emb_in.data_ptr(), emb_out.data_ptr(), float(negw)))
     code = lib.come_walk_sgns_step(*walk_entry_args(
-        plan, how, emb_in, emb_out, slots, wrow, pools,
-        cas_retries(emb_in.device), d, G, L, W, KP, R, bf16, int(paired),
-        tables_bf16, sr, seed, lr, negw, stream))
+        plan, how, emb_in, emb_out, slots, wrow, pools, d, G, L, W, KP, R,
+        bf16, int(paired), tables_bf16, sr, seed, lr, negw, stream))
     _count_walk_launch(mxu_bf16, paired, tables_bf16)
     build.check(code, "come_walk_sgns_step")
     count_route(plan, how, walk_sgns_step, lib)
@@ -660,9 +674,9 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
     how = plan.begin((emb_in.data_ptr(), emb_out.data_ptr(), float(negw),
                       indptr.data_ptr(), indices.data_ptr()))
     code = lib.come_walk_sgns_gen_step(*walk_entry_args(
-        plan, how, emb_in, emb_out, None, wrow, pools,
-        cas_retries(emb_in.device), d, G, L, W, KP, R, bf16, 0, tables_bf16,
-        sr, seed, lr, negw, stream, gen=(starts, bits, indptr, indices)))
+        plan, how, emb_in, emb_out, None, wrow, pools, d, G, L, W, KP, R,
+        bf16, 0, tables_bf16, sr, seed, lr, negw, stream,
+        gen=(starts, bits, indptr, indices)))
     if tables_bf16:
         walk_sgns_gen_step.launches_bf16_tables += 1
     elif mxu_bf16:

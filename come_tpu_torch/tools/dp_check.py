@@ -2,11 +2,12 @@
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         -m come_tpu_torch.tools.dp_check [--backend nccl|gloo] \\
-        [--device cuda:0] [--dim D] [--out DIR]
+        [--device cuda:0] [--dim D] [--walks-per-node W] [--out DIR]
 
 Each rank trains the blogcatalog preset through the CLI's entry
 (``main.run`` with ``--mesh N,1``, pretrain 1 + outer 1, ``--dim D``: 128
-by default; every held step below takes the tables' width), with the
+by default; every held step below takes the tables' width; ``--walks-per-node
+W`` cuts the preset's walks a node), with the
 kernels' launch counters set to 0 just before and read just after, then:
 
 * times one more O1 epoch, with CUDA events around every all-reduce
@@ -314,6 +315,8 @@ def main(argv=None) -> int:
                    help="this rank's device (default cuda:LOCAL_RANK)")
     p.add_argument("--dim", type=int, default=128,
                    help="the tables' width (default 128)")
+    p.add_argument("--walks-per-node", type=int,
+                   help="walks a node (default: the preset's)")
     p.add_argument("--out", help="write rank<r>.json here")
     args = p.parse_args(argv)
 
@@ -328,6 +331,8 @@ def main(argv=None) -> int:
            str(SEED), "--device", args.device, "--dim", str(args.dim)]
     if args.backend:
         cli += ["--backend", args.backend]
+    if args.walks_per_node:
+        cli += ["--walks-per-node", str(args.walks_per_node)]
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     launch_plan.reset_counts()

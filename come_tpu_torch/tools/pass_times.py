@@ -29,7 +29,7 @@ that carry the f32 negative pass and the star pass:
 step runs through its wide band or star pass (whole rows held in shared
 memory where they fit, else column slabs: the line's ``route``) and the
 wide negative pass (``csrc/sgns_common.cuh``: NEG_WHOLE).  The K1, K1b
-bench, K2, K2b bench and K3 lines add ``bound_us_per_group``: each pass's
+bench, K2, K2b bench, K5 and K3 lines add ``bound_us_per_group``: each pass's
 least µs a group, by bytes or operations, from the step's own inputs
 (:func:`pass_bounds`).  Each step runs on tables it
 updates in place.  For each it prints one JSON
@@ -64,7 +64,10 @@ is then the busy share to read.
 
 The same lines add ``library_us_per_group``: the stage, the pool apply and
 the scatter each as one PyTorch call at the step's shapes
-(:func:`library_us`: index_select, index_add_), µs a group.
+(:func:`library_us`: index_select into the dtype the stage writes,
+index_add_; the calls' names under "calls"), µs a group.  The K3 line
+adds ``pool_chains_us_per_step`` and ``slot_chains_us_per_step``: the
+device µs a step of its pools' and its groups' slots' sorts.
 
 Each line also has ``library3_ms``: one group's (tile's) negative pass as
 three PyTorch products at its shapes (:func:`library3_ms`: scores, the
@@ -525,13 +528,14 @@ def library3_ms(dev, slots: int, KP: int, d: int, bf16: bool,
 
 
 def library_us(dev, d: int, ids, pools, R: int, es: int, walk: bool,
-               n: int = 10) -> dict:
+               wide_bf16: bool = False, n: int = 10) -> dict:
     """Device µs a group (:func:`device_us`: the calls' kernels) of one
     PyTorch call that does each of three passes' work at a step's shapes
     (``ids``, ``pools``, R, es and walk as :func:`pass_bounds` takes them;
     a [V, d] table of es-byte elements, V past the largest id): "stage"
-    index_select of a pool's rows, with the cast to f32 where the table is
-    bf16 (the stage's output), once a block; "pool apply" index_add_ of a
+    index_select of a pool's rows, cast to the dtype the stage writes
+    where the table's differs (f32 rows, or bf16 rows with ``wide_bf16``:
+    the bf16 passes' stage past d 192), once a block; "pool apply" index_add_ of a
     pool's [KP, d] update into the table, once a block; "scatter"
     index_add_ of a group's real slots' [n, d] updates, once for each table
     the pass writes (two for a walk step).  Each over ``n`` calls; with
@@ -548,11 +552,12 @@ def library_us(dev, d: int, ids, pools, R: int, es: int, walk: bool,
     upd_p = torch.randn((KP, d), generator=g, device=dev).to(dtype) * 1e-3
     upd_s = torch.randn((slots.numel(), d), generator=g, device=dev).to(
         dtype) * 1e-3
-    cast = dtype == torch.bfloat16
+    out = torch.bfloat16 if wide_bf16 else torch.float32
+    cast = dtype != out
 
     def stage():
         rows = tab.index_select(0, pool)
-        return rows.float() if cast else rows
+        return rows.to(out) if cast else rows
 
     tabs = 2 if walk else 1
     us = {
@@ -563,7 +568,8 @@ def library_us(dev, d: int, ids, pools, R: int, es: int, walk: bool,
                              list(range(n))) * tabs,
     }
     us["calls"] = {
-        "stage": "index_select" + (" + .float()" if cast else ""),
+        "stage": "index_select" + (f" + .to({str(out)[6:]})" if cast
+                                   else ""),
         "pool apply": "index_add_",
         "scatter": f"index_add_ x {tabs}"}
     return us
@@ -704,9 +710,11 @@ def steps(dev, d: int = 128):
     rows = torch.stack([uu, vv], 1).reshape(512, 128)
     pools5 = torch.randint(0, V, (64, KP), generator=gen, device=dev,
                            dtype=torch.int32)
-    out.append(("K5", lambda: walk_sgns_step(
+    k5 = lambda: walk_sgns_step(  # noqa: E731
         emb_in, emb_out, rows, None, pools5, lr, negw, window=1,
-        pool_refresh=1, paired=True), 64, WALK_PASSES, None, KP))
+        pool_refresh=1, paired=True)
+    k5.bounds = (walk_ids(rows), pools5, 1, 4, False, True)
+    out.append(("K5", k5, 64, WALK_PASSES, None, KP))
 
     keep = torch.as_tensor(subsample_keep_probs(ds.graph.degrees, 1e-3),
                            device=dev)
@@ -839,6 +847,9 @@ def main(argv=None) -> int:
         # or trees)
         chains_us = device_us(lambda i: step(), [0, 1], "pool_chains",
                               required=False) if name == "K3" else None
+        # and its groups' slots, beside it (slot_chains_kernel)
+        slots_us = device_us(lambda i: step(), [0, 1], "slot_chains",
+                             required=False) if name == "K3" else None
         taken = None if before is None else set(routes_since(before))
         route = taken.pop() if taken and len(taken) == 1 else None
         bounds = lib_us = None
@@ -846,7 +857,8 @@ def main(argv=None) -> int:
             ids, pools, R, es, bf16, walk = step.bounds
             bounds = pass_bounds(ids, pools, R, args.dim, es, bf16,
                                  float(out[-1][-1]), walk)
-            lib_us = library_us(dev, args.dim, ids, pools, R, es, walk)
+            lib_us = library_us(dev, args.dim, ids, pools, R, es, walk,
+                                bf16 and args.dim > 192)
         del out
         line = {
             "card": card, "label": args.label,
@@ -868,6 +880,7 @@ def main(argv=None) -> int:
             # scatter (library_us)
             "library_us_per_group": lib_us,
             "pool_chains_us_per_step": chains_us,
+            "slot_chains_us_per_step": slots_us,
             "library3_ms": library3_ms(dev, pass_slots(name), KP, args.dim
                                        if "karate" not in name else 16,
                                        name in BF16_PASS),

@@ -24,9 +24,11 @@ the bf16 check's error rules against their plain versions (the table bit
 for bit where the plain step leaves it alone), and with every section on
 the full bf16 check against K2b and the f32 tolerance against K2; P4's
 values and P2's sum must equal their plain versions exactly, and the
-parity harness must pass on the card; the pool stage and K3's pool write
-alone (``chip_smoke.pool_check``, phase 4m's cases on a unigram and a
-hub-heavy pool) their plain versions bit for bit.  Six consecutive K1, K3 and K2
+parity harness must pass on the card; the pool stage, the bf16 stage past d
+192 and K3's pool write alone (``chip_smoke.pool_check``, phase 4m's cases
+on a unigram and a hub-heavy pool), K3's slot chains and slot scatter
+alone (``chip_smoke.slot_check``, on random walks and hub-heavy groups; the
+scatter run twice) their plain versions bit for bit.  Six consecutive K1, K3 and K2
 steps through one launch plan's graph each (``chip_smoke.graph_steps``)
 must each pass their mode's check, with at most one instantiation; six K6
 and six K7 micro-steps through one plan (``chip_smoke.fused_steps``) the
@@ -84,7 +86,7 @@ from come_tpu_torch.ops.tolerance import check_bf16, check_k3
 from come_tpu_torch.ops.walk_sgns import (
     POOL_LAUNCHES,
     NWL,
-    cas_retries,
+    pad_walks,
     walk_sgns_gen_step,
     walk_sgns_gen_step_reference,
     walk_sgns_step,
@@ -105,10 +107,12 @@ from chip_smoke import (
     POOL_KINDS,
     POOL_SEEDS,
     POOL_STAGES,
+    SCATTER_WIDTHS,
     STAR_EDGES,
     WIDE_CASES,
     WIDE_MODE_WIDTHS,
     WIDE_MODES,
+    WIDE_STAGES,
     WIDE_WIDTHS,
     em_graph_check,
     em_linalg_check,
@@ -123,10 +127,12 @@ from chip_smoke import (
     bf16_slab_check,
     blog_wide_checks,
     graph_stress,
+    hub_slots,
     mode_width,
     pool_check,
     pool_draws,
     route_boundary,
+    slot_check,
     star_edge_layout,
     step_check,
     wide_inputs,
@@ -232,13 +238,14 @@ def _edge_inputs(dev, V, d, B, L, W, KP, R, hot, seed):
     return emb_in, emb_out, walks, wrow, pools
 
 
-# K3 takes the edge shapes on V >= 20000 rows: its check holds a step whose
-# walks repeat few rows (ops/tolerance.py: its CAS loops write a row's
-# repeats within a group in any order, the plain version in slot order).
-# Its float64 emulation of that order already fails the check where rows
-# repeat often: 0.9567 of touched elements identical at V 3000 with W 127,
-# 0.9887 at V 2000 with d 192, and 0.5231 (loss 1.2e-3 apart) with the hot
-# row, so the hot row is held in f32 and bf16 products only.
+# K3 takes the edge shapes on V >= 20000 rows, where its check was set
+# (ops/tolerance.py): K3's former CAS loops wrote a row's repeats within a
+# group in any order, and the float64 emulation of that order failed the
+# check where rows repeat often (0.9567 of touched elements identical at V
+# 3000 with W 127, 0.9887 at V 2000 with d 192, 0.5231 with the hot row),
+# so the hot row is held in f32 and bf16 products only.  K3's slot scatter
+# now writes a row's repeats in slot order, as the plain version does (held
+# bit for bit on hub-heavy groups by the slot-scatter tests below).
 EDGE_CASES = [(*shape, mode) for shape in EDGE_SHAPES
               for mode in ("f32", "bf16", "bf16_tables")
               if not (shape[-1] and mode == "bf16_tables")]
@@ -629,7 +636,6 @@ def test_k3_kernel_matches_plain(dev, V, d, B, L, W, KP, R, sr_seed, gen):
     kern_fn = walk_sgns_gen_step if gen else walk_sgns_step
     plain_fn = walk_sgns_gen_step_reference if gen else walk_sgns_step_reference
     before = kern_fn.launches_bf16_tables
-    retries = cas_retries(dev).zero_()
     kern = run(kern_fn, init, sr_seed=sr_seed)
     plain = run(plain_fn, init, sr_seed=sr_seed)
     f32 = run(plain_fn, [t.float() for t in init], mxu_bf16=True)
@@ -639,7 +645,6 @@ def test_k3_kernel_matches_plain(dev, V, d, B, L, W, KP, R, sr_seed, gen):
     assert abs(float(kern[2]) - float(plain[2])) <= 1e-4 * abs(float(plain[2]))
     check_k3("K3", init, kern[:2], plain[:2], f32[:2])
     assert kern_fn.launches_bf16_tables == before + 1
-    assert float(retries) >= 0.0
 
 
 def test_k3_kernel_without_updates_leaves_tables(dev):
@@ -1310,6 +1315,53 @@ def test_pool_write_equals_rmw_rows_bit_for_bit(dev, kind, sr_seed, KP, d):
 
 
 @pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("dtype,KP,d", WIDE_STAGES)
+def test_wide_bf16_stage_equals_its_plain_version_bit_for_bit(dev, kind,
+                                                              dtype, KP, d):
+    pool, V, gen = _pool(dev, kind, KP, d + 2)
+    r = pool_check(dev, "wide", dtype, KP, d, pool, V, gen, timed=False)
+    assert r["identical"] == 1.0
+
+
+def _slots(dev, kind, seed, G=4, L=80):
+    """Phase 4m's slots at blogcatalog's size: G groups of random walks of
+    L (a walk revisits nodes), or hub-heavy groups."""
+    from come_tpu_torch.sampling import random_walks
+
+    g = get_dataset("blogcatalog").graph
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "hub":
+        return hub_slots(G, g.num_nodes, gen, dev), g.num_nodes, gen
+    csr = g.to_device(dev)
+    walks = random_walks(csr, torch.randint(0, g.num_nodes, (8 * G,),
+                                            generator=gen, device=dev), L, gen)
+    return pad_walks(walks), g.num_nodes, gen
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("L", [80, 1, 128, 37])
+def test_slot_chains_equal_their_plain_version(dev, kind, L):
+    slots, V, gen = _slots(dev, kind, L, L=L)
+    r = slot_check(dev, "chains", 0, slots, L, V, gen, timed=False)
+    assert r["identical"] == 1.0
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("sr_seed", POOL_SEEDS)
+@pytest.mark.parametrize("d", SCATTER_WIDTHS)
+def test_slot_scatter_twice_equals_its_plain_version_bit_for_bit(dev, kind,
+                                                                 sr_seed, d):
+    # slot_check runs the kernel twice, on fresh copies of the tables, and
+    # holds both runs and the plain version to the same bits
+    slots, V, gen = _slots(dev, kind, d, G=1)
+    r = slot_check(dev, "scatter", d, slots, 80, V, gen, sr_seed,
+                   timed=False)
+    assert r["identical"] == 1.0
+    if kind == "hub":
+        assert r["chain"] >= 20 and r["rows"] <= 16
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
 @pytest.mark.parametrize("n,KP", POOL_CHAINS)
 def test_pool_chains_equal_their_plain_version(dev, kind, n, KP):
     pool, V, gen = _pool(dev, kind, KP, n)
@@ -1321,19 +1373,23 @@ def test_pool_chains_equal_their_plain_version(dev, kind, n, KP):
 
 # The pool passes a step launches, counted by the C group loop as it records
 # the step (ops/walk_sgns.py::count_pool_passes): each R-block of R 2 groups
-# (B 24 walks: 3 groups, 2 blocks) has a stage ("stage": f32 rows, or bf16
-# ones past d 192 in the bf16 passes, which stage_pool_kernel does not
-# launch) and, for K3, a pool write; K3 also sorts its pools once a step.
+# (B 24 walks: 3 groups, 2 blocks) has a stage ("stage_pool": f32 rows, or
+# "stage_pool_bf16": bf16 ones past d 192 in the bf16 passes) and, for K3,
+# a pool write; K3 also sorts its pools and its groups' slots once a step
+# and runs its slot scatter once a group.
 @pytest.mark.parametrize("mode,d,passes", [
     ("f32", 128, ("stage_pool",)),
     ("f32", 256, ("stage_pool",)),
     ("bf16", 128, ("stage_pool",)),
-    ("bf16", 256, ()),
+    ("bf16", 256, ("stage_pool_bf16",)),
     ("bf16_tables", 128, ("stage_pool_bf16_tables", "pool_chains",
-                          "apply_pool_bf16")),
-    ("bf16_tables", 256, ("pool_chains", "apply_pool_bf16")),
+                          "apply_pool_bf16", "slot_chains",
+                          "walk_scatter_bf16")),
+    ("bf16_tables", 256, ("stage_pool_bf16", "pool_chains",
+                          "apply_pool_bf16", "slot_chains",
+                          "walk_scatter_bf16")),
     ("star", 128, ("stage_pool",)),
-    ("star_bf16", 256, ()),
+    ("star_bf16", 256, ("stage_pool_bf16",)),
 ])
 def test_steps_count_the_pool_passes_their_graph_launches(dev, mode, d,
                                                           passes):
@@ -1360,7 +1416,8 @@ def test_steps_count_the_pool_passes_their_graph_launches(dev, mode, d,
                            mxu_bf16=mode == "bf16",
                            sr_seed=7 if mode == "bf16_tables" else None)
     blocks = -(-G // R)
-    want = {k: (1 if k == "pool_chains" else blocks) if k in passes else 0
+    per_step = {"pool_chains": 1, "slot_chains": 1, "walk_scatter_bf16": G}
+    want = {k: per_step.get(k, blocks) if k in passes else 0
             for k in POOL_LAUNCHES}
     for k in POOL_LAUNCHES:
         POOL_LAUNCHES[k] = 0

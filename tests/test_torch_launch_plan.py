@@ -90,10 +90,8 @@ def test_one_plan_serves_steps_with_new_addresses_lr_and_seed():
         inst = plan.begin((ei.data_ptr(), eo.data_ptr(), 0.3))
         assert inst == (launch_plan.RECORD_INSTANTIATE if step == 0 else
                         launch_plan.RECORD_UPDATE)
-        retries = torch.zeros(1, dtype=torch.float64)
-        a = walk_entry_args(plan, inst, ei, eo, slots, wrow, pools, retries,
-                            8, 2, 12, 3, 16, 1, 1, 0, 1, 1, seed, lr, 0.3,
-                            123)
+        a = walk_entry_args(plan, inst, ei, eo, slots, wrow, pools, 8, 2, 12,
+                            3, 16, 1, 1, 0, 1, 1, seed, lr, 0.3, 123)
         plan.done(inst, counts)
         assert a[2:7] == (ei.data_ptr(), eo.data_ptr(), slots.data_ptr(),
                           wrow.data_ptr(), pools.data_ptr())
@@ -102,12 +100,14 @@ def test_one_plan_serves_steps_with_new_addresses_lr_and_seed():
         plans.append(plan)
     assert plans[0] is plans[1]
     assert args[0][2] != args[1][2] and args[0][-3] != args[1][-3]
-    # stats, retries, cneg, dneg, dphi, dctx, nt, the staged walks, draws
-    # and pools and the argument block: the plan's (retries is each call's
-    # own tensor here)
-    assert args[0][7] == args[1][7] and args[0][9:18] == args[1][9:18]
-    assert args[0][14:18] == plan.staged("walks", "wrow", "pools") + (
-        plan.args.data_ptr(),)
+    # stats, cneg, dneg, dphi, dctx, nt, the staged walks, draws and pools,
+    # the argument block and the chains (K3: the pools' and the slots'):
+    # the plan's
+    assert args[0][7:18] == args[1][7:18]
+    assert args[0][13:18] == plan.staged("walks", "wrow", "pools") + (
+        plan.args.data_ptr(), plan.chains.data_ptr())
+    # the chains: 3 int32 a pool draw (2 pools of 16), then 3 a slot
+    assert plan.chains.numel() == 3 * (2 * 16 + 2 * NWL)
     assert (counts.recordings, counts.instantiations, counts.updates,
             counts.replays) == (2, 1, 1, 2)
     assert (plans[0].instantiations, plans[0].updates) == (1, 1)
@@ -139,7 +139,6 @@ def test_entry_arguments_follow_the_c_signatures(entry):
     """Each step's argument tuple has one value per declared C argument,
     the plan's graph slot and the record flag first, the stream last."""
     ei, eo, slots, wrow, pools = _walk_inputs(0)
-    retries = torch.zeros(1, dtype=torch.float64)
     if entry == "star_sgns":
         plan = star_plan("cpu", 0, 1, 8, 2, 16, 1)
         a = star_entry_args(plan, 1, ei, slots, wrow, pools, 8, 2, 16, 1, 1,
@@ -150,14 +149,13 @@ def test_entry_arguments_follow_the_c_signatures(entry):
         plan = walk_plan(entry, "cpu", 0, mode, 8, 2, 12, 3, 16, 1)
         gen = (slots, wrow, slots, slots) if entry == "walk_sgns_gen" \
             else None
-        a = walk_entry_args(plan, 1, ei, eo, slots, wrow, pools, retries, 8,
-                            2, 12, 3, 16, 1, 0, 0, 0, 0, 0, 0.05, 0.3, 99,
-                            gen=gen)
+        a = walk_entry_args(plan, 1, ei, eo, slots, wrow, pools, 8, 2, 12, 3,
+                            16, 1, 0, 0, 0, 0, 0, 0.05, 0.3, 99, gen=gen)
         name = "come_" + entry + "_step"
         if gen is not None:  # K4's walks go to the plan's buffer
             assert a[8] == plan.walks.data_ptr()
             assert plan.walks.numel() == 2 * NWL
-            assert a[18:23] == plan.staged("starts", "bits", "wrow",
+            assert a[17:22] == plan.staged("starts", "bits", "wrow",
                                            "pools") + (plan.args.data_ptr(),)
             assert plan.inputs["starts"].numel() == 2 * 8
     assert len(a) == len(build.SIGNATURES[name])

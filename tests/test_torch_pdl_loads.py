@@ -93,7 +93,7 @@ def test_the_check_finds_the_pdl_kernels():
                  "negative_bf16_kernel", "negative_bf16_wide_kernel",
                  "apply_pool_kernel", "apply_pool_bf16_kernel",
                  "stage_pool_kernel", "stage_pool_bf16_kernel",
-                 "pool_chains_kernel",
+                 "pool_chains_kernel", "slot_chains_kernel",
                  "walk_pos_kernel", "walk_pos_wide_kernel",
                  "walk_pos_slab_kernel", "walk_scatter_kernel",
                  "walk_scatter_bf16_kernel", "star_scatter_kernel",

@@ -26,9 +26,15 @@ from come_tpu.ops.pallas_walk_sgns import fused_walk_sgns_step
 from come_tpu_torch.ops import build, launch_plan
 from come_tpu_torch.ops import walk_sgns as ws
 from come_tpu_torch.ops.pool_pass import (
+    NEG_KC,
+    NEG_WHOLE,
+    core_off,
     pool_apply_bf16,
     pool_chains,
     pool_stage,
+    pool_stage_wide_bf16,
+    pool_stage_wide_bf16_reference,
+    wide_row,
 )
 from come_tpu_torch.ops.walk_sgns import (
     NWL,
@@ -208,6 +214,83 @@ def test_k3_step_on_a_hub_heavy_pool_matches_pallas_interpret(d):
     assert (_bits16(to) != _bits16(eo)).any()
 
 
+# ------------------------------------ the bf16 stage past d 192 (wide)
+
+
+def unpack_wide_bf16(cnegb, KP: int, d: int) -> torch.Tensor:
+    """The rows [KP, wide_row(d)] bf16 of a stage in the wide pass's
+    layout, element by element through core_off: whole chunks of NEG_KC
+    rows as blocks by chunk and slab, a last partial chunk's rows plain."""
+    wd = wide_row(d)
+    k = torch.arange(KP)[:, None]
+    c = torch.arange(wd)[None, :]
+    whole = KP // NEG_KC * NEG_KC
+    blk = ((k // NEG_KC) * (wd // NEG_WHOLE) + c // NEG_WHOLE) * \
+        (NEG_KC * NEG_WHOLE) + core_off(NEG_KC, k % NEG_KC, c % NEG_WHOLE)
+    return cnegb[torch.where(k < whole, blk, k * wd + c)]
+
+
+def test_core_off_places_each_element_once_with_8_columns_together():
+    """core_off over a block of R rows and NEG_WHOLE columns is a bijection
+    onto [0, R * NEG_WHOLE), 8 consecutive columns from a multiple of 8 lie
+    in 8 consecutive elements (one 16-byte piece), and 8 consecutive rows
+    of such a piece one 128-byte core matrix."""
+    R = NEG_KC
+    r = torch.arange(R)[:, None]
+    c = torch.arange(NEG_WHOLE)[None, :]
+    off = core_off(R, r, c)
+    assert sorted(off.reshape(-1).tolist()) == list(range(R * NEG_WHOLE))
+    pieces = off.view(R, NEG_WHOLE // 8, 8)
+    assert torch.equal(pieces - pieces[..., :1],
+                       torch.arange(8).expand(R, NEG_WHOLE // 8, 8))
+    piece = off[:, ::8]
+    assert (piece % 8 == 0).all()
+    assert torch.equal(piece.view(R // 8, 8, -1)[:, 1:] -
+                       piece.view(R // 8, 8, -1)[:, :-1],
+                       torch.full((R // 8, 7, NEG_WHOLE // 8), 8))
+    assert core_off(R, 9, 17) == ((2 * 4 + 1) * 64 + 1 * 8 + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KP,d", [(96, 256), (64, 264), (100, 256),
+                                  (37, 300), (5, 193), (32, 512)])
+def test_the_wide_stage_unpacks_to_the_pool_rows_rounded_to_bf16(dtype, KP,
+                                                                  d):
+    """pool_stage_wide_bf16's plain version: unpacking its buffer through
+    core_off gives table[pool] rounded to bf16 (nearest even), zeros past
+    d, at widths of one and two slabs, with and without a partial last
+    chunk; dneg is zeros [KP, d]."""
+    rng = np.random.default_rng(KP + d)
+    table = torch.tensor(rng.normal(size=(120, d)).astype(np.float32)
+                         ).to(dtype)
+    pool = torch.tensor(_pool("hub", rng, 120, KP))
+    cnegb, dneg = pool_stage_wide_bf16(table, pool)
+    assert cnegb.dtype == torch.bfloat16
+    assert cnegb.shape == (KP * wide_row(d),)
+    rows = unpack_wide_bf16(cnegb, KP, d)
+    want = torch.zeros((KP, wide_row(d)), dtype=torch.bfloat16)
+    want[:, :d] = table[pool.long()].to(torch.bfloat16)
+    assert torch.equal(rows.view(torch.int16), want.view(torch.int16))
+    assert dneg.dtype == torch.float32 and dneg.shape == (KP, d)
+    assert not dneg.any()
+    # a whole chunk's first slab is one block of NEG_KC x NEG_WHOLE
+    if KP >= NEG_KC:
+        blk = cnegb[:NEG_KC * NEG_WHOLE]
+        assert torch.equal(blk[core_off(NEG_KC, 3, 17)].view(torch.int16),
+                           want[3, 17].view(torch.int16))
+
+
+def test_the_wide_stage_rounds_f32_rows_to_nearest_even():
+    """An f32 row halfway between two bf16 values stages as the even one,
+    as __float2bfloat16_rn rounds it."""
+    table = torch.zeros((2, 256))
+    table[0, 0] = 1.0 + 2.0 ** -8  # halfway: rounds down to even 1.0
+    table[0, 1] = 1.0 + 3 * 2.0 ** -8  # halfway: rounds up to 1 + 2^-6
+    cnegb, _ = pool_stage_wide_bf16_reference(table, torch.tensor([0, 1]))
+    rows = unpack_wide_bf16(cnegb, 2, 256).float()
+    assert float(rows[0, 0]) == 1.0 and float(rows[0, 1]) == 1.0 + 2.0 ** -6
+
+
 # ----------------------------------------------- the pool write's chains
 
 
@@ -312,15 +395,18 @@ def test_steps_count_the_pool_passes_their_recording_launched():
     adds the recorded counts again at each replay."""
     for k in POOL_LAUNCHES:
         POOL_LAUNCHES[k] = 0
-    plan, lib = _Plan(), _Lib((0, 3, 1, 3))
+    plan, lib = _Plan(), _Lib((0, 3, 1, 3, 0, 1, 5))
     count_pool_passes(plan, launch_plan.RECORD_INSTANTIATE, lib)
     count_pool_passes(plan, launch_plan.RECORD_NONE, lib)
     assert lib.reads == len(POOL_PASSES)  # a replay reads nothing
     assert POOL_LAUNCHES == {"stage_pool": 0, "stage_pool_bf16_tables": 6,
-                             "pool_chains": 2, "apply_pool_bf16": 6}
-    lib.pool = (2, 0, 0, 0)  # a new recording (a table moved)
+                             "pool_chains": 2, "apply_pool_bf16": 6,
+                             "stage_pool_bf16": 0, "slot_chains": 2,
+                             "walk_scatter_bf16": 10}
+    lib.pool = (2, 0, 0, 0, 3, 0, 0)  # a new recording (a table moved)
     count_pool_passes(plan, launch_plan.RECORD_UPDATE, lib)
     assert POOL_LAUNCHES["stage_pool"] == 2
+    assert POOL_LAUNCHES["stage_pool_bf16"] == 3
     plan.slot = "gone"
     with pytest.raises(RuntimeError):
         count_pool_passes(plan, launch_plan.RECORD_UPDATE, lib)
@@ -343,6 +429,11 @@ def test_the_pool_passes_are_named_in_the_c_order():
     ("come_pool_stage", "pool_pass.cu"),
     ("come_pool_apply_bf16", "pool_pass.cu"),
     ("come_pool_chains", "pool_pass.cu"),
+    ("come_pool_stage_wide_bf16", "pool_pass.cu"),
+    ("come_slot_chains", "walk_sgns.cu"),
+    ("come_walk_scatter_bf16", "walk_sgns.cu"),
+    ("come_walk_sgns_step", "walk_sgns.cu"),
+    ("come_walk_sgns_gen_step", "walk_sgns.cu"),
     ("come_step_graph_pool", "step_graph.cu"),
 ])
 def test_the_c_entries_take_the_signatures_build_declares(name, source):
