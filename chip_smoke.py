@@ -97,7 +97,16 @@ non-zero and prints no result line):
                pool over synthetic-10m and phase 4f's walks, and on a
                hub-heavy pool (16 rows drawn 2048 times: chains of about
                128) and hub-heavy groups (16 rows fill each: chains of
-               about 40), held bit for bit against its plain version
+               about 40); and the f32 slot writes (F32_KINDS:
+               walk_scatter_kernel alone and block_end_scatter_kernel with
+               the block's pool write folded in, at d 128, 256 and 300, on
+               phase 4f's first group with a unigram pool of 512, on a
+               hub-heavy group whose pool of 2048 draws its hubs, and on
+               phase 4h's hot row with a pool of 100 that draws it; each
+               run twice and held against the plain version on a CPU
+               copy; the fold chains, fold_chains_kernel, of each case's
+               group and pool), each held bit for bit against its plain
+               version
                (ops/walk_sgns.py: pool_stage_reference,
                pool_apply_bf16_reference, walk_scatter_bf16_reference;
                ops/pool_pass.py: pool_chains_reference,
@@ -113,7 +122,9 @@ non-zero and prints no result line):
                microseconds per group of each pass of the walk group loop,
                by torch.profiler: band (walk_pos_kernel), negative
                (negative_f32_kernel or negative_bf16_kernel), scatter, stage
-               (pool staging) and pool apply, and the K1 and K3 lines the
+               (pool staging), pool apply (K3's), the f32 block-end
+               scatter (its pool write folded in) and the once-a-step
+               chains, and the K1 and K3 lines the
                device busy share of one step; the K2 and K2b bench lines
                those of the star group loop, star (star_pos_kernel) in the
                band's place, and the K6 and K7 lines those of a tile:
@@ -369,10 +380,15 @@ After phase 19:
 The pool passes inside the walk and star steps count on
 ops/walk_sgns.py's POOL_LAUNCHES (the step wrappers add, at every
 replay, the launches that the C group loop counted as it recorded the
-step: come_step_graph_pool): phase 5 must launch the f32 stage, phase 14
-K3's stage, pool write, pool chains, slot chains and slot scatter, 5c's
-K3 run its pool write, slot chains, slot scatter and the bf16 stage past
-d 192, 5c's bench runs that stage (and 12-13's at d 128 none of it).
+step: come_step_graph_pool; each step wrapper also keeps its own in
+.pools): phase 5 must launch the f32 stage, and its walk steps the pool,
+slot and fold chains and block_end_scatter_kernel and no apply_pool_kernel
+(the star steps' pool write), as must 5b's; the bench runs of 12-13 and
+5c the chains, walk_scatter_kernel and block_end_scatter_kernel (R 8),
+and none of them apply_pool_kernel from a walk step; phase 14 K3's stage,
+pool write, pool chains, slot chains and slot scatter, 5c's K3 run its
+pool write, slot chains, slot scatter and the bf16 stage past d 192, 5c's
+bench runs that stage (and 12-13's at d 128 none of it).
 Phases 5, 5b, 5c, 8-14 (11b and 11c too), 15-17, 20 and every rank of 18 and 19 each reset
 every launch counter just before they run and read them just after; each wrapper counts only its own launches, by
 mode; every phase that fits a GMM on the card must launch G1's two
@@ -384,7 +400,9 @@ kernels (K1's launches from phases 5 and 11b; the bf16 modes with their
 bench-shape checks and their launches in phases 12-13; K3's launches from phase 14; the pool stage's
 from phase 5 (f32) and 14 (bf16) and the pool write's from 14 (d 256:
 5c), the chains' from 14, K3's slot chains' and slot scatter's from 14
-(the scatter at d 256: 5c), the bf16 stage past d 192's from 5c, their
+(the scatter at d 256: 5c), the bf16 stage past d 192's from 5c, the f32
+block-end scatter's from 5 (d 256: 5b) and the f32 scatter's from 12 (d
+256: 5c), their
 errors and times from phase 4m (device time a call); P1's from its own phase, as it
 is a probe and on no path; G1's ms, plain_ms and library_ms the device
 time per call of phase 21, the others one call from an idle card; the
@@ -582,6 +600,19 @@ SCATTER_WIDTHS = (128, 256, 130)
 WIDE_STAGES = ((torch.float32, 512, 256), (torch.bfloat16, 2048, 256),
                (torch.float32, 512, 264), (torch.bfloat16, 2048, 264),
                (torch.bfloat16, 2000, 256), (torch.float32, 100, 300))
+
+
+# Phase 4m's f32 slot cases (f32_phase): the f32 scatter alone and the
+# block end's with its pool write folded in, at d 128, 256 and 300 (a
+# float4 a lane, two, and 75 over a warp), on one group of phase 4f's
+# walks with a unigram pool of K1's KP 512 ("unigram"), on a hub-heavy
+# group whose pool of 2048 draws its hubs and a few other rows over and
+# over ("hub": rows in both the slots and the pool; chains of about 40
+# slots and 100 draws), and on phase 4h's hot row (every other slot row
+# 7, V 2000) with a ragged pool of 100 that draws row 7 and nine others
+# ("hot").
+F32_SCATTER_WIDTHS = (128, 256, 300)
+F32_KINDS = (("unigram", 512), ("hub", 2048), ("hot", 100))
 
 
 def pool_draws(kind, KP, V, alias, gen, dev):
@@ -786,6 +817,122 @@ def slot_check(dev, which, d, slots, L, V, gen, sr_seed=None,
                  uniq.numel(), timed)
 
 
+def f32_scatter_check(dev, d, slots, L, V, gen, pool=None,
+                      timed=True) -> dict:
+    """The f32 slot writes of one group (walk_scatter_kernel; with ``pool``
+    int32 [KP], the block end's with the pool write folded in,
+    block_end_scatter_kernel) through their C entry (ops/scatter_pass.py)
+    on ``slots`` int32 [1024], f32 [V, d] tables, dphi, dphin, dctx (and
+    dneg) ~ N(0, 1), lr 0.025; run twice on fresh copies of the tables,
+    and both runs held bit for bit against the plain version run on a CPU
+    copy of the same inputs (_held).  The PyTorch calls beside it:
+    index_add_ of the real slots' updates into each table, and of the
+    pool's into the ctx table.  The bound: each input read once (the
+    slots, the chains, the real slots' updates, dneg, the pool's ids and
+    the fold chains, the distinct rows), each output written once."""
+    from come_tpu_torch.ops.pool_pass import pool_chains
+    from come_tpu_torch.ops.scatter_pass import (
+        fold_chains,
+        slot_chains,
+        walk_scatter_f32,
+    )
+    from come_tpu_torch.ops.walk_sgns import (
+        LP,
+        NWL,
+        walk_scatter_f32_reference,
+    )
+
+    lr = 0.025
+    real = (torch.arange(NWL, device=dev) % LP) < L
+    ids = slots.long()[real]
+    tabs = [torch.randn((V, d), generator=gen, device=dev) * 0.1
+            for _ in range(2)]
+    dphi, dphin, dctx = (torch.randn((NWL, d), generator=gen, device=dev)
+                         for _ in range(3))
+    KP = 0 if pool is None else pool.numel()
+    dneg = None if pool is None else torch.randn((KP, d), generator=gen,
+                                                 device=dev)
+    kw = dict(L=L, pool=pool, dneg=dneg)
+    args = (slots, dphi, dphin, dctx, lr)
+    kern = walk_scatter_f32(*[t.clone() for t in tabs], *args, **kw)
+    again = walk_scatter_f32(*[t.clone() for t in tabs], *args, **kw)
+    cpu = [x.cpu() if x is not None else None
+           for x in (*tabs, slots, dphi, dphin, dctx, pool, dneg)]
+    plain = walk_scatter_f32_reference(
+        cpu[0], cpu[1], cpu[2], cpu[3], cpu[5], lr, L, dphin=cpu[4],
+        pool=cpu[6], dneg=cpu[7])
+    views = [(a.cpu().view(torch.int32), b.view(torch.int32))
+             for a, b in zip(kern + again, plain + plain)]
+    chains = slot_chains(slots, L)
+    pch = None if pool is None else pool_chains(pool)
+    fold = None if pool is None else fold_chains(
+        slots, L, pool, chains=chains, pool_chains_of=pch)
+    run = lambda i: walk_scatter_f32(  # noqa: E731
+        *tabs, *args, chains=chains, pool_chains_of=pch, fold=fold, **kw)
+    tab_p = [t.clone() for t in tabs]
+    plain_run = lambda: walk_scatter_f32_reference(  # noqa: E731
+        *tab_p, slots, dphi, dctx, lr, L, dphin=dphin, pool=pool, dneg=dneg)
+    ups = [(dphi + dphin)[real] * -lr, dctx[real] * -lr]
+    p64 = None if pool is None else pool.long()
+    up_p = None if pool is None else dneg * -lr
+
+    def lib(i):
+        for t, u in zip(tabs, ups):
+            t.index_add_(0, ids, u)
+        if pool is not None:
+            tabs[1].index_add_(0, p64, up_p)
+
+    n = int(real.sum())
+    uniq, reps = torch.unique(ids, return_counts=True)
+    rows_out = uniq if pool is None else torch.unique(torch.cat([ids, p64]))
+    nbytes = NWL * 4 + 12 * n + 3 * n * d * 4 + 2 * uniq.numel() * d * 4 + \
+        2 * rows_out.numel() * d * 4
+    if pool is not None:  # the pool's ids, chains and dneg, the fold chains
+        nbytes += 4 * KP + 12 * KP + KP * d * 4 + 4 * (NWL + KP)
+        reps = reps.max() + torch.unique(p64, return_counts=True)[1].max()
+    both = 0 if pool is None else int(torch.isin(uniq, p64).sum())
+    name = (f"f32 {'block-end scatter KP ' + str(KP) if KP else 'scatter'} "
+            f"L {L} d {d}" + (f" ({both} rows in both)" if KP else ""))
+    return _held(name, views, run, plain_run, lib, nbytes, reps.max(),
+                 rows_out.numel(), timed)
+
+
+def fold_check(dev, slots, L, pool, timed=True) -> dict:
+    """The fold chains of one group that ends a block (fold_chains_kernel,
+    through its C entry: ops/scatter_pass.py) on ``slots`` int32 [1024]
+    and ``pool`` int32 [KP], held bit for bit against the plain version on
+    a CPU copy (_held).  The PyTorch calls beside it: a sort of the pool,
+    searchsorted of the slots in it and isin of the pool in the slots.  The
+    bound: the slots, their chains, the pool and its chains read once, the
+    two outputs written once."""
+    from come_tpu_torch.ops.pool_pass import pool_chains
+    from come_tpu_torch.ops.scatter_pass import (
+        fold_chains,
+        fold_chains_reference,
+        slot_chains,
+    )
+
+    KP = pool.numel()
+    chains, pch = slot_chains(slots, L), pool_chains(pool)
+    kern = fold_chains(slots, L, pool, chains=chains, pool_chains_of=pch)
+    plain = fold_chains_reference(slots.cpu(), L, pool.cpu())
+    views = [(a.cpu(), b) for a, b in zip(kern, plain)]
+    run = lambda i: fold_chains(  # noqa: E731
+        slots, L, pool, chains=chains, pool_chains_of=pch)
+    plain_run = lambda: fold_chains_reference(slots, L, pool)  # noqa: E731
+    s64, p64 = slots.long(), pool.long()
+
+    def lib(i):
+        ids = torch.sort(p64).values
+        return torch.searchsorted(ids, s64), torch.isin(p64, s64)
+
+    nbytes = 4 * (4 * slots.numel() + 4 * KP) + 4 * (slots.numel() + KP)
+    name = f"fold chains L {L} KP {KP}"
+    both = pool.long()[kern[1].bool()]  # the draws of rows in both
+    return _held(name, views, run, plain_run, lib, nbytes, both.numel(),
+                 torch.unique(both).numel(), timed)
+
+
 def pool_text(r: dict) -> str:
     """A phase 4m case: kernel µs beside its bound, plain, library."""
     head = (f"{r['name']} ({r['rows']} rows, chains to {r['chain']}): bit "
@@ -863,6 +1010,50 @@ def pool_phase(dev, smi, V, alias, gen, slots, L) -> dict:
                              "for bit, device us a call"
                              + ("" if timed else " (the slot passes)")
                              + ": " + "; ".join(lines) + f" | {smi}")
+    return res
+
+
+def f32_phase(dev, smi, V, alias, gen, slots, L) -> dict:
+    """Phase 4m's f32 slot writes: every F32_KINDS case at each of
+    F32_SCATTER_WIDTHS, the scatter alone and with the block end's pool,
+    through f32_scatter_check (timed); ``slots`` phase 4f's walks over V
+    rows (the first group), ``alias`` synthetic-10m's unigram tables.
+    Prints one line; returns the cases by (kind, d, KP or 0)."""
+    from come_tpu_torch.ops.walk_sgns import NW, NWL, pad_walks
+
+    res, lines = {}, []
+    for kind, KP in F32_KINDS:
+        if kind == "unigram":
+            Vk, sl = V, slots[:NWL]
+            pool = pool_draws("unigram", KP, V, alias, gen, dev)
+        elif kind == "hub":
+            Vk, sl = V, hub_slots(1, V, gen, dev)
+            rows = torch.cat([torch.unique(sl), torch.randint(
+                0, V, (4,), generator=gen, device=dev)])
+        else:  # phase 4h's hot row
+            Vk = 2000
+            w = torch.randint(0, Vk, (NW, L), generator=gen, device=dev,
+                              dtype=torch.int32)
+            w[:, ::2] = 7
+            sl = pad_walks(w)
+            rows = torch.cat([torch.tensor([7], device=dev), torch.randint(
+                0, Vk, (9,), generator=gen, device=dev)])
+        if kind != "unigram":
+            pool = rows[torch.randint(0, rows.numel(), (KP,), generator=gen,
+                                      device=dev)].to(torch.int32)
+        r = res[(kind, "fold", KP)] = fold_check(dev, sl, L, pool)
+        lines.append(f"{kind}: " + pool_text(r))
+        for d in F32_SCATTER_WIDTHS:
+            for p in (None, pool):
+                r = res[(kind, d, 0 if p is None else KP)] = \
+                    f32_scatter_check(dev, d, sl, L, Vk, gen, p)
+                lines.append(f"{kind}: " + pool_text(r))
+        torch.cuda.empty_cache()
+    phase("f32 slot writes", "walk_scatter_kernel alone and "
+                             "block_end_scatter_kernel (its pool write "
+                             "folded in), twice each against the plain "
+                             "version on a CPU copy, bit for bit, device "
+                             "us a call: " + "; ".join(lines) + f" | {smi}")
     return res
 
 
@@ -2702,6 +2893,7 @@ def main() -> int:
         NW,
         NWL,
         POOL_LAUNCHES,
+        new_pools,
         new_routes,
         pad_walks,
         walk_sgns_gen_step,
@@ -2764,6 +2956,8 @@ def main() -> int:
         for fn in (walk_sgns_step, walk_sgns_gen_step, star_sgns_step,
                    star_probe_step):
             fn.routes = new_routes()  # steps by band or star route
+        for fn in (walk_sgns_step, walk_sgns_gen_step, star_sgns_step):
+            fn.pools = new_pools()  # the pool passes by step wrapper
         # a phase's plans start fresh, so a single-device phase reads one
         # recording a plan: recordings = instantiations = plans used
         launch_plan.release_plans(build.library())
@@ -2772,6 +2966,26 @@ def main() -> int:
     def counts():
         return {**{name: getattr(fn, attr)
                    for name, (fn, attr) in kernels.items()}, **POOL_LAUNCHES}
+
+    def check_walk_pools(where, launched, every_group_ends=False):
+        """The f32 walk steps' slot and pool writes in a run: its walk
+        steps sorted their chains and wrote through block_end_scatter_kernel
+        (and, where a block holds more than one group, walk_scatter_kernel),
+        and none launched apply_pool_kernel, the star steps' pool write."""
+        walk = {k: walk_sgns_step.pools[k] + walk_sgns_gen_step.pools[k]
+                for k in walk_sgns_step.pools}
+        if walk["apply_pool"]:
+            raise AssertionError(f"{where}: the walk steps launched "
+                                 f"apply_pool_kernel {walk['apply_pool']} "
+                                 f"times")
+        need = ("pool_chains", "slot_chains", "fold_chains",
+                "block_end_scatter") + (
+            () if every_group_ends else ("walk_scatter",))
+        for k in need:
+            if walk[k] == 0 or launched[k] < walk[k]:
+                raise AssertionError(f"{where}: the walk steps launched no "
+                                     f"{k} ({walk})")
+        return walk
 
     def check_launches(where, launched, ran, idle, gmm=True):
         # G1's two kernels launch in every GMM fit on the card: a phase
@@ -3340,6 +3554,8 @@ def main() -> int:
         # groups
         pools4m = pool_phase(dev, smi, V, (acc10, ali10), gen,
                              pad_walks(walks10), L)
+        f32_4m = f32_phase(dev, smi, V, (acc10, ali10), gen,
+                           pad_walks(walks10), L)
 
         # 4k (K3). K3 at d 256 on this step's inputs (synthetic-10m's step
         # shape, SR), under K3's check
@@ -3435,7 +3651,7 @@ def main() -> int:
 
         return dict(k3_err=k3_err, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
                     k3_bound=k3_bound, p1=p1, p1_launches=p1_launches,
-                    k3_256=k3_256["K3"], pools=pools4m)
+                    k3_256=k3_256["K3"], pools=pools4m, f32=f32_4m)
 
     lv = large_v_kernels()
     torch.cuda.empty_cache()
@@ -3480,6 +3696,10 @@ def main() -> int:
         raise AssertionError(f"main path: NMI {rec['nmi']:.4f} < {NMI_FLOOR}")
     if launches["stage_pool"] == 0:
         raise AssertionError("main path launched no pool stage")
+    # R 1: every group ends its block, so every f32 scatter holds its pool
+    main_walk_pools = check_walk_pools("main path", launches, True)
+    if star_sgns_step.pools["apply_pool"] == 0:
+        raise AssertionError("main path: the star steps wrote no pool")
     main_o1_ms = rec["o1_ms"]
     main_emb = torch.as_tensor(emb, device=dev)  # phase 21's table
     phase("main", f"blogcatalog pretrain 1 + outer 1 in {wall:.1f} s: "
@@ -3487,7 +3707,8 @@ def main() -> int:
                   f"o2 {rec['o2_ms']:.1f} ms, o3 {rec['o3_ms']:.1f} ms | "
                   f"o1_pairs {rec['o1_pairs']:.0f} o2_pairs "
                   f"{rec['o2_pairs']:.0f} | NMI {rec['nmi']:.4f} | "
-                  f"launches {launches} | graphs: {main_graphs}")
+                  f"launches {launches} | the walk steps' pool passes "
+                  f"{main_walk_pools} | graphs: {main_graphs}")
     del trainer
     torch.cuda.empty_cache()
 
@@ -3512,6 +3733,7 @@ def main() -> int:
         got = counts()
         check_launches(tag, got, ran,
                        tuple(k for k in kernels if k not in ran))
+        check_walk_pools(tag, got, True)
         check_run(tag, hist, NMI_FLOOR)
         rec = hist[-1]
         emb = trainer.embeddings()
@@ -3572,6 +3794,7 @@ def main() -> int:
         graphs = graph_line(where, launch_plan.graph_counts(), True)
         check_launches(where, launched, ran,
                        tuple(k for k in kernels if k not in ran))
+        check_walk_pools(where, launched)  # R 8: 7 groups in 8 end no block
         # past d 192 the bf16 passes stage their pools as bf16 rows
         if (launched["stage_pool_bf16"] == 0) == (dim > 192):
             raise AssertionError(f"{where}: {launched['stage_pool_bf16']} "
@@ -4330,8 +4553,9 @@ def main() -> int:
         return entry(name, src, replaces, launches, r["err"][0], r["ms"],
                      r["plain_ms"], r["bound"])
 
-    def pool_entry(name, replaces, n, key, src="sgns_common.cuh"):
-        r = lv["pools"][key]
+    def pool_entry(name, replaces, n, key, src="sgns_common.cuh",
+                   cases="pools"):
+        r = lv[cases][key]
         return entry(name, src, replaces, n, r["err"],
                      r["us"] / 1e3, r["plain_us"] / 1e3, r["bound"],
                      r["lib_us"] / 1e3)
@@ -4413,6 +4637,28 @@ def main() -> int:
                    tiers256["K3 256"]["walk_scatter_bf16"],
                    ("scatter", bf, 80, 256, 12345, "unigram"),
                    "walk_sgns.cu"),
+        # the f32 slot writes (phase 4m, phase 4f's walks, K1's unigram
+        # pool of 512): the block-end scatter's launches from phase 5 (R 1:
+        # every group), the scatter's from the bench run (R 8), at d 256
+        # from phase 5b and the bench run at 256
+        pool_entry("walk_scatter", "come_tpu/ops/pallas_walk_sgns.py:395",
+                   bench_launches["walk_scatter"], ("unigram", 128, 0),
+                   "walk_sgns.cu", "f32"),
+        pool_entry("block_end_scatter",
+                   "come_tpu/ops/pallas_walk_sgns.py:405",
+                   launches["block_end_scatter"], ("unigram", 128, 512),
+                   "walk_sgns.cu", "f32"),
+        pool_entry("fold_chains", "come_tpu/ops/pallas_walk_sgns.py:405",
+                   launches["fold_chains"], ("unigram", "fold", 512),
+                   "walk_sgns.cu", "f32"),
+        pool_entry("walk_scatter_d256",
+                   "come_tpu/ops/pallas_walk_sgns.py:395",
+                   tiers256["bench 256"]["walk_scatter"], ("unigram", 256, 0),
+                   "walk_sgns.cu", "f32"),
+        pool_entry("block_end_scatter_d256",
+                   "come_tpu/ops/pallas_walk_sgns.py:405",
+                   wide_launches["block_end_scatter"], ("unigram", 256, 512),
+                   "walk_sgns.cu", "f32"),
         pool_entry("pool_stage_bf16_d256",
                    "come_tpu/ops/pallas_walk_sgns.py:216",
                    tiers256["K3 256"]["stage_pool_bf16"],

@@ -515,7 +515,9 @@ static inline int pool_team(int d, int e) {
 // table[pool[k]] -= lr * dneg[k], atomic: a pool may repeat a row; lr from
 // the argument block `args` (null: `lr`).  grid KP, block 128.  PDL: the
 // pool id and lr (the head's) before the wait; dneg (the negative pass's)
-// and the table row (the scatter's) after.
+// and the table row (the scatter's) after.  The star steps' and P3's pool
+// write; the walk steps write their pools in their block-end scatter
+// (walk_sgns.cu: block_end_scatter_kernel), K3 in apply_pool_bf16_kernel.
 static __global__ void apply_pool_kernel(float* table, const int* pool,
                                          const float* dneg, int d,
                                          const StepArgs* args, float lr) {
@@ -2334,10 +2336,16 @@ struct NegSetup {
 
 // The pool passes a step's recording launched, by kernel
 // (step_graph.cuh: StepGraph::pool): stage_pool_kernel on f32 and on bf16
-// tables, K3's pool_chains_kernel and apply_pool_bf16_kernel, the bf16
-// passes' stage past MAX_DIM (stage_pool_bf16_kernel), and K3's slot
-// passes: its slots' chains (slot_chains_kernel, once a step) and its slot
-// scatter (walk_scatter_bf16_kernel, once a group; walk_sgns.cu).
+// tables, the walk steps' pool_chains_kernel (once a step), K3's
+// apply_pool_bf16_kernel, the bf16 passes' stage past MAX_DIM
+// (stage_pool_bf16_kernel), and the walk steps' slot passes: the slots'
+// chains (slot_chains_kernel, once a step), K3's slot scatter
+// (walk_scatter_bf16_kernel, once a group) and the f32 one
+// (walk_scatter_kernel, or block_end_scatter_kernel at an R-block end,
+// which also writes the pool; walk_sgns.cu), then the star steps' f32 pool
+// write (apply_pool_kernel) and the f32 walk steps' fold chains
+// (fold_chains_kernel, once a step: which rows a block's last group writes
+// through both its slots and its pool).
 enum PoolPass {
   PASS_STAGE_POOL = 0,
   PASS_STAGE_POOL_BF16_TABLES = 1,
@@ -2346,7 +2354,11 @@ enum PoolPass {
   PASS_STAGE_POOL_BF16 = 4,
   PASS_SLOT_CHAINS = 5,
   PASS_WALK_SCATTER_BF16 = 6,
-  POOL_PASSES = 7
+  PASS_WALK_SCATTER = 7,
+  PASS_BLOCK_END_SCATTER = 8,
+  PASS_APPLY_POOL = 9,
+  PASS_FOLD_CHAINS = 10,
+  POOL_PASSES = 11
 };
 
 // stage_pool_kernel<T, VEC>, the instance a row of d elements takes.

@@ -104,6 +104,7 @@ static int star_groups(const NegSetup& ns, float* emb, const int* slots,
       e = launch_kernel(apply_pool_kernel, dim3(KP), dim3(128), 0, stream,
                         true, 0, emb, pool, dneg, d, args, 0.0f);
       if (e != cudaSuccess) return (int)e;
+      ++pool_launched[PASS_APPLY_POOL];
     }
   }
   return 0;

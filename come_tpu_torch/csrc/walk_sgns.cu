@@ -40,10 +40,12 @@
 //   * every slot scores the staged pool with weight negw * n_t
 //     (sgns_common.cuh: NegativePass);
 //   * each slot adds -lr*dphi to node_emb[v] and -lr*dctx to ctx_emb[v];
-//     a row's slots are summed in f64 and added once (walk_scatter_kernel),
-//     which rounds no worse than the TPU's sequential read-modify-writes;
-//   * at an R-block end the pool gradient is applied (atomic: pools are
-//     drawn with replacement).
+//     one owner a row sums the row's slots in f64 in slot order and adds
+//     the sum once (walk_scatter_kernel), which rounds no worse than the
+//     TPU's sequential read-modify-writes;
+//   * at an R-block end the pool gradient is applied, a row's draws in
+//     draw order by one owner, in the block end's scatter launch
+//     (block_end_scatter_kernel; K3: apply_pool_bf16_kernel).
 // The window draws come in as `wrow` (the TPU drew them in-kernel), so the
 // kernel, its plain PyTorch version and the numpy oracle see the same ones.
 //
@@ -660,83 +662,9 @@ walk_pos_wide_kernel(const T* emb_in, const T* emb_out, const int* walks,
   finish_strip<PAIRED>(base, t0, t1, lo, L, wr, loss, nt, stats);
 }
 
-// emb_in[v] -= lr*(dphi[t] + dphin[t]), emb_out[v] -= lr*dctx[t] for the
-// group's real slots (position < L; padded positions carry exactly zero
-// updates).  The positive and the negative part add once here, as the plain
-// version adds them.  Each term is the f32 product the plain version's
-// index_add_ forms; the terms of one row (a walk may repeat a node, and a
-// hub fills many slots) are summed in f64, in slot order, by the block of
-// the row's first slot, which adds the sum to the row with one rounding.
-// Per-term f32 atomics would round each add at the running sum's magnitude,
-// in an order that varies from run to run.  Blocks of later slots of a row
-// return.  grid GROUP, block SCATTER_THREADS.  PDL: which slots hold the
-// row is found from the walks, and lr read, before the wait; dphi, dphin,
-// dctx (this group's passes) and the tables after it, and every early
-// return waits.
-constexpr int SCATTER_THREADS = 128;
-static __global__ void __launch_bounds__(SCATTER_THREADS)
-walk_scatter_kernel(float* emb_in, float* emb_out, const int* walks,
-                    const float* dphi, const float* dphin, const float* dctx,
-                    int d, int L, const StepArgs* args) {
-  constexpr int NWORD = GROUP / 32;
-  __shared__ unsigned same[NWORD];  // bit s: slot s is real and holds v
-  __shared__ int first[NWORD];      // slots of the row in words before w
-  __shared__ int slots[GROUP];      // the row's slots, in order
-  const int t = blockIdx.x, lane = threadIdx.x & 31;
-  if (t % BLK >= L) {
-    pdl_wait();
-    return;
-  }
-  const int v = step_ld(walks + t);
-  bool earlier = false;
-  for (int s = threadIdx.x; s < GROUP; s += SCATTER_THREADS) {
-    const bool m = s % BLK < L && step_ld(walks + s) == v;
-    const unsigned b = __ballot_sync(0xffffffffu, m);
-    if (lane == 0) same[s / 32] = b;
-    earlier |= m && s < t;
-  }
-  if (__syncthreads_or(earlier)) {  // not the row's first slot
-    pdl_wait();
-    return;
-  }
-  if (threadIdx.x < 32) {  // exclusive prefix of the words' counts
-    const int c = __popc(same[lane]);
-    int x = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    first[lane] = x - c;
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < GROUP; s += SCATTER_THREADS) {
-    const unsigned b = same[s / 32];
-    if (b >> lane & 1u)
-      slots[first[s / 32] + __popc(b & ((1u << lane) - 1u))] = s;
-  }
-  __syncthreads();
-  const int n = first[NWORD - 1] + __popc(same[NWORD - 1]);
-  const size_t dst = (size_t)v * d;
-  const float lr = step_ld(&args->lr);  // the head's: complete
-  pdl_wait();
-  for (int k = threadIdx.x; k < d; k += SCATTER_THREADS) {
-    double a = 0.0, c = 0.0;
-#pragma unroll 8
-    for (int i = 0; i < n; ++i) {
-      const size_t src = (size_t)slots[i] * d + k;
-      a += (double)__fmul_rn(
-          __fadd_rn(step_ld(dphi + src), step_ld(dphin + src)), -lr);
-      c += (double)__fmul_rn(step_ld(dctx + src), -lr);
-    }
-    emb_in[dst + k] = (float)((double)step_ld(emb_in + dst + k) + a);
-    emb_out[dst + k] = (float)((double)step_ld(emb_out + dst + k) + c);
-  }
-  pdl_trigger();
-}
-
-// K3's slot chains, once a step.  K3's slot writes apply a row's slots in
-// slot order (below), so each row of a group needs its slots sorted.  A
+// The slot chains, once a step.  The slot writes (K3's and the f32 ones)
+// apply a row's slots in slot order (below), so each row of a group needs
+// its slots sorted.  A
 // group's walks do not depend on the tables, so the chains of every group
 // of a step are known at its head: one CTA a group sorts its real slots
 // (position < L) by (id, t) in shared memory (a bitonic network over
@@ -746,8 +674,8 @@ walk_scatter_kernel(float* emb_in, float* emb_out, const int* walks,
 // at the others and at padding slots).  A row's count comes from a binary
 // search for the end of its run, so a hub that fills the group costs no
 // serial scan.  It is the plain version's sort (ops/scatter_pass.py::
-// slot_chains_reference).  It runs right after pool_chains_kernel (K3's
-// step) under PDL and does all its work before its wait: it reads the
+// slot_chains_reference).  It runs right after pool_chains_kernel under
+// PDL and does all its work before its wait: it reads the
 // walks (the head's or K4's generation, two or more kernels before it:
 // complete) and writes its chains, which no kernel before it in the step
 // touches, so its sort runs beside the pools' sort.  It waits only to
@@ -1062,6 +990,412 @@ static inline const int* slot_order(const int* sc, int g, int G) {
   return sc + (size_t)2 * G * GROUP + (size_t)g * GROUP;
 }
 
+// ------------------------------------------- the f32 slot and pool writes
+//
+// K1, K1b, K4 and K5's slot writes (pallas_walk_sgns.py:369-400, the slot
+// fori_loop of _walk_kernel, f32 at :395-397: emb_in[v] += dphi[t],
+// emb_out[v] += dctx[t] for each real slot t, v = walks[t]; K5 writes
+// dctx[t] at walks[t], where the band pass stores a pair's ctx gradient at
+// the partner's slot, :374-375) and, at an R-block end, the pool write
+// (:405-425 _apply_pool: emb_out[pool[k]] -= lr * dneg[k] for k in order).
+// A walk revisits nodes and hubs fill many slots, and a pool draws a row
+// many times, so each distinct row of the group gets one owner, a team of
+// a warp:
+//   * the team of the row's first real slot (slot_chains_kernel's info)
+//     sums the row's terms __fmul_rn(__fadd_rn(dphi[t], dphin[t]), -lr)
+//     and __fmul_rn(dctx[t], -lr) in f64, in slot order (order[i], ...,
+//     order[i + n - 1]), and adds each sum to its row with one rounding:
+//     per-term f32 adds would round each at the running sum's magnitude,
+//     which on a hub's row is far larger (chip_smoke.py's hot row);
+//   * at a block end (block_end_scatter_kernel) the same launch has a team
+//     for each pool draw k besides, and the pool's rows are written too:
+//     each row's draws in draw order, y = __fadd_rn(y, __fmul_rn(dneg[k],
+//     -lr)), as the TPU's loop and the plain version's index_add_ apply
+//     them.  A row that is also among the group's real slots belongs to
+//     its slot owner, which applies its slots' sum first, then its draws;
+//     a row drawn only by the pool belongs to the team of its first draw
+//     (pool_chains_kernel's info).  Which is which, fold_chains_kernel
+//     finds once a step for every block (a lookup of each chain in the
+//     other's), so each team reads it with one load.
+// An owner loads its rows once, holds them in registers while it applies
+// its terms, and stores each once, with plain stores and no atomics, so a
+// row's bits do not depend on the order in which the card runs the teams:
+// the plain version (ops/walk_sgns.py::walk_scatter_f32_reference) writes
+// the same bits from the same dphi, dphin, dctx and dneg.  A team takes a
+// row in float4 pieces where d % 4 == 0 (E 4: one piece a lane up to d
+// 128, a warp striding wider rows), else one element a lane (E 1).  The
+// grid is the group's NBLK * L real slots' teams, then (block end) KP
+// draws' teams; padding slots get none.  Before its wait a team reads its
+// slot's or draw's place and count, its row, the first batches of its
+// chain and its fold chains (the chains, walks and pools are two or more
+// kernels before it: complete) and lr; after it, its rows and the
+// dphi, dphin, dctx and dneg pieces, a batch of SCATTER_F32_U slots' loads
+// in flight at once and the next batch's issued before this one's sums, so
+// a hub's long chain keeps its loads ahead of its dependent adds.  It is
+// bound by latency, not bytes: it reads the real slots' three f32 update
+// rows (KP dneg rows at a block end) and moves the distinct rows of two
+// tables in and out (K1 at d 128: 0.67 us a group at 3.35 TB/s).  lr from
+// the argument block `args`, or, without one (the C entry that runs a
+// kernel alone), from `lr_in`.
+constexpr int SCATTER_F32_THREADS = 128;  // four teams of a warp
+// Slots a batch: 2 (112-134 registers a thread at E 4) read 0.7-1.4 us
+// less a block end of K1, K1b and K5 than 4 (188-206), whose CTAs fit
+// fewer beside the pass before them; 1 no better (PERF.md §6).
+constexpr int SCATTER_F32_U = 2;
+
+// Elements j..j+E-1 of an f32 row, and back (E 4: one 16-byte access).
+template <int E>
+static __device__ __forceinline__ void load_f32(const float* p,
+                                                float (&x)[E]) {
+  if constexpr (E == 4) {
+    const float4 v = step_ld(reinterpret_cast<const float4*>(p));
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+    x[0] = step_ld(p);
+  }
+}
+
+template <int E>
+static __device__ __forceinline__ void store_f32(float* p,
+                                                 const float (&x)[E]) {
+  if constexpr (E == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    p[0] = x[0];
+}
+
+// A batch's loads: elements j..j+E-1 of dphi, dphin and dctx (a, b, c) of
+// slots cs[0..U) (-1: none), all in flight together.
+template <int E, int U = SCATTER_F32_U>
+struct F32Batch {
+  int cs[U];
+  float a[U][E], b[U][E], c[U][E];
+
+  __device__ __forceinline__ void load(const float* dphi, const float* dphin,
+                                       const float* dctx, int d, int j) {
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if (cs[i] < 0) continue;
+      const size_t o = (size_t)cs[i] * d + j;
+      load_f32<E>(dphi + o, a[i]);
+      load_f32<E>(dphin + o, b[i]);
+      load_f32<E>(dctx + o, c[i]);
+    }
+  }
+
+  // The batch's terms added, in slot order, to the f64 sums x (node row)
+  // and y (ctx row).
+  __device__ __forceinline__ void add(double (&x)[E], double (&y)[E],
+                                      float lr) const {
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if (cs[i] < 0) break;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        x[e] += (double)__fmul_rn(__fadd_rn(a[i][e], b[i][e]), -lr);
+        y[e] += (double)__fmul_rn(c[i][e], -lr);
+      }
+    }
+  }
+};
+
+// The first place p of the n ascending ids (shared memory) that holds v,
+// or -1.
+static __device__ __forceinline__ int find_id(const int* ids, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ids[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo < n && ids[lo] == v ? lo : -1;
+}
+
+// The fold chains, once a step: which rows of a block's pool the block's
+// last group also writes through its real slots.  One CTA a block b (its
+// last group g = min(b R + R - 1, G - 1)) stages the pool's ids in chain
+// order (pool[porder[j]], ascending) and the group's real slots' ids in
+// chain order (walks[order[i]], ascending) in shared memory and writes
+// fold_slot[g][t] = the place in the pool's chain of the first draw of
+// real slot t's row, or -1 where the pool does not draw it (-1 at padding
+// slots), and fold_draw[b][k] = 1 where draw k's row is among the group's
+// real slots, else 0.  So block_end_scatter_kernel's teams look their
+// ownership up instead of searching the other chain before their wait,
+// which the negative pass before them leaves on the critical path (its
+// CTAs fill the card).  It is the plain version's lookup
+// (ops/scatter_pass.py::fold_chains_reference).  PDL: launched right after
+// slot_chains_kernel; the pools and their chains (two or more kernels
+// before it: complete) before its wait, the slot chains after it.  grid:
+// the step's blocks, block FOLD_THREADS, dynamic shared memory
+// fold_chain_smem(KP).
+constexpr int FOLD_THREADS = 512;
+
+static inline size_t fold_chain_smem(int KP) {
+  return sizeof(int) * (size_t)(KP + GROUP);
+}
+
+static __global__ void __launch_bounds__(FOLD_THREADS)
+fold_chains_kernel(const int* walks, const int* order, const int* pools,
+                   const int* porder, int L, int KP, int G, int R,
+                   int* fold_slot, int* fold_draw) {
+  extern __shared__ int fold_ids[];
+  int* pids = fold_ids;       // [KP] the pool's ids in chain order
+  int* sids = fold_ids + KP;  // [NBLK * L] the real slots' ids likewise
+  const int b = blockIdx.x, g = min(b * R + R - 1, G - 1), n = NBLK * L;
+  const int* pool = pools + (size_t)b * KP;
+  const int* po = porder + (size_t)b * KP;
+  const int* ord = order + (size_t)g * GROUP;
+  const int* wg = walks + (size_t)g * GROUP;
+  for (int j = threadIdx.x; j < KP; j += FOLD_THREADS)
+    pids[j] = step_ld(pool + step_ld(po + j));
+  pdl_wait();
+  for (int i = threadIdx.x; i < n; i += FOLD_THREADS)
+    sids[i] = step_ld(wg + step_ld(ord + i));
+  __syncthreads();
+  int* fs = fold_slot + (size_t)g * GROUP;
+  for (int i = threadIdx.x; i < n; i += FOLD_THREADS)
+    fs[step_ld(ord + i)] = find_id(pids, KP, sids[i]);
+  for (int t = threadIdx.x; t < GROUP; t += FOLD_THREADS)
+    if (t % BLK >= L) fs[t] = -1;
+  int* fd = fold_draw + (size_t)b * KP;
+  for (int j = threadIdx.x; j < KP; j += FOLD_THREADS)
+    fd[step_ld(po + j)] = find_id(sids, n, pids[j]) >= 0;
+  pdl_trigger();
+}
+
+// fold_chains_kernel's launch on `stream` (with PDL when `pdl`): the fold
+// chains of the blocks of a step of G groups, R a block, into `fold`
+// (fold_slot [G][GROUP], then fold_draw [ceil(G / R)][KP]), from its walks,
+// its pools [ceil(G / R)][KP], their chains `pc` and the slot chains `sc`.
+static cudaError_t launch_fold_chains(const int* walks, const int* sc,
+                                      const int* pools, const int* pc, int G,
+                                      int L, int KP, int R, int* fold,
+                                      cudaStream_t stream, bool pdl) {
+  const int n_pools = (G + R - 1) / R;
+  return launch_kernel(fold_chains_kernel, dim3(n_pools), dim3(FOLD_THREADS),
+                       fold_chain_smem(KP), stream, pdl, 0, walks,
+                       slot_order(sc, 0, G), pools,
+                       pool_chain_order(pc, 0, n_pools, KP), L, KP, G, R,
+                       fold, fold + (size_t)G * GROUP);
+}
+
+// pool_chains_kernel's and fold_chains_kernel's shared-memory caps, for
+// pools of KP ids (KP past POOL_CHAIN_MAX is refused).
+static cudaError_t fold_setup(int KP) {
+  const cudaError_t e = chains_setup(KP);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fold_chains_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)fold_chain_smem(POOL_CHAIN_MAX));
+}
+
+// What a team owns, found before its wait: the row v, its n slots
+// (chain ch, the first 2 U of them in `first`) and its pn pool draws
+// (chain pch, the first APPLY_U in `pfirst`); n and pn 0 where it owns
+// nothing.
+template <int U = SCATTER_F32_U>
+struct F32Owner {
+  int v = 0, n = 0, pn = 0;
+  const int* ch = nullptr;
+  const int* pch = nullptr;
+  int first[2 * U];
+  int pfirst[APPLY_U];
+};
+
+// Team i's ownership in group `walks`' scatter (slot chains info, order of
+// L real positions a walk); with FOLD, the pool `pool` of KP draws too (its
+// chains pinfo, porder, and the group's fold chains fold_slot, fold_draw):
+// teams past the real slots' take the draws.
+template <bool FOLD, int U = SCATTER_F32_U>
+static __device__ __forceinline__ F32Owner<U> f32_owner(
+    int i, const int* walks, const int* info, const int* order, int L,
+    const int* pool, const int* pinfo, const int* porder, int KP,
+    const int* fold_slot, const int* fold_draw) {
+  F32Owner<U> o;
+  const int n_real = NBLK * L;
+  if (i < n_real) {
+    const int t = i / L * BLK + i % L;
+    const int2 in = step_ld(reinterpret_cast<const int2*>(info) + t);
+    if (in.y > 0) {  // else an earlier slot of the row owns it
+      o.v = step_ld(walks + t), o.n = in.y, o.ch = order + in.x;
+#pragma unroll
+      for (int u = 0; u < 2 * U; ++u)
+        o.first[u] = u == 0 ? t : u < in.y ? step_ld(order + in.x + u) : -1;
+      const int at = FOLD ? step_ld(fold_slot + t) : -1;
+      if (at >= 0) {  // the pool draws the row: its draws too
+        const int k0 = step_ld(porder + at);
+        o.pn = step_ld(reinterpret_cast<const int2*>(pinfo) + k0).y;
+        o.pch = porder + at;
+      }
+    }
+  } else if (FOLD && i < n_real + KP) {
+    const int k = i - n_real;
+    const int2 in = step_ld(reinterpret_cast<const int2*>(pinfo) + k);
+    // else an earlier draw of the row owns it, or its slot owner does
+    if (in.y > 0 && !step_ld(fold_draw + k))
+      o.v = step_ld(pool + k), o.pn = in.y, o.pch = porder + in.x;
+  }
+#pragma unroll
+  for (int u = 0; u < APPLY_U; ++u)
+    o.pfirst[u] = u < o.pn ? step_ld(o.pch + u) : -1;
+  return o;
+}
+
+// An owner's rows, after the wait: its pieces p = lane, lane + 32, ... of
+// E elements; the node and ctx rows through its slots (each batch of U
+// slots added once the next batch's loads and the slot numbers of the one
+// after it are in flight), then the ctx row through its draws in order.
+template <int E, int U = SCATTER_F32_U>
+static __device__ __forceinline__ void f32_write(
+    const F32Owner<U>& o, float* emb_in, float* emb_out, const float* dphi,
+    const float* dphin, const float* dctx, const float* dneg, int d,
+    float lr) {
+  float* row_in = emb_in + (size_t)o.v * d;
+  float* row_out = emb_out + (size_t)o.v * d;
+  for (int p = threadIdx.x & 31; p * E < d; p += 32) {
+    const int j = p * E;
+    float y[E];
+    load_f32<E>(row_out + j, y);
+    if (o.n > 0) {
+      F32Batch<E> cur, next;
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        cur.cs[i] = o.first[i], next.cs[i] = o.first[U + i];
+      cur.load(dphi, dphin, dctx, d, j);
+      float x[E];
+      load_f32<E>(row_in + j, x);
+      double sx[E], sy[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) sx[e] = sy[e] = 0.0;
+      for (int i0 = 0; i0 < o.n; i0 += U) {
+        if (next.cs[0] >= 0) next.load(dphi, dphin, dctx, d, j);
+        int after[U];
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+          const int k = i0 + 2 * U + i;
+          after[i] = k < o.n ? step_ld(o.ch + k) : -1;
+        }
+        cur.add(sx, sy, lr);
+        cur = next;
+#pragma unroll
+        for (int i = 0; i < U; ++i) next.cs[i] = after[i];
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        x[e] = (float)((double)x[e] + sx[e]);
+        y[e] = (float)((double)y[e] + sy[e]);
+      }
+      store_f32<E>(row_in + j, x);
+    }
+    // the pool's draws of the row in draw order, APPLY_U loads in flight
+    int cs[APPLY_U];
+#pragma unroll
+    for (int i = 0; i < APPLY_U; ++i) cs[i] = o.pfirst[i];
+    for (int i0 = 0; i0 < o.pn; i0 += APPLY_U) {
+      if (i0 > 0) {
+#pragma unroll
+        for (int i = 0; i < APPLY_U; ++i)
+          cs[i] = i0 + i < o.pn ? step_ld(o.pch + i0 + i) : -1;
+      }
+      float u[APPLY_U][E];
+#pragma unroll
+      for (int i = 0; i < APPLY_U; ++i)
+        if (cs[i] >= 0) load_f32<E>(dneg + (size_t)cs[i] * d + j, u[i]);
+#pragma unroll
+      for (int i = 0; i < APPLY_U; ++i) {
+        if (cs[i] < 0) break;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          y[e] = __fadd_rn(y[e], __fmul_rn(u[i][e], -lr));
+      }
+    }
+    store_f32<E>(row_out + j, y);
+  }
+}
+
+// The f32 slot writes of a group that ends no R-block.  grid: the group's
+// NBLK * L real slots' teams (launch_scatter_f32), block
+// SCATTER_F32_THREADS.
+template <int E>
+static __global__ void __launch_bounds__(SCATTER_F32_THREADS)
+walk_scatter_kernel(float* emb_in, float* emb_out, const int* walks,
+                    const float* dphi, const float* dphin, const float* dctx,
+                    const int* info, const int* order, int d, int L,
+                    const StepArgs* args, float lr_in) {
+  const float lr = args != nullptr ? step_ld(&args->lr) : lr_in;
+  const int i = blockIdx.x * (SCATTER_F32_THREADS / 32) + threadIdx.x / 32;
+  const F32Owner<> o = f32_owner<false>(i, walks, info, order, L, nullptr,
+                                        nullptr, nullptr, 0, nullptr,
+                                        nullptr);
+  pdl_wait();
+  if (o.n > 0)
+    f32_write<E>(o, emb_in, emb_out, dphi, dphin, dctx, nullptr, d, lr);
+  pdl_trigger();
+}
+
+// The f32 slot writes of the group that ends an R-block, with the block's
+// pool write folded in: the real slots' teams, then one team a draw of the
+// pool `pool` (KP draws, chains pinfo, porder; the group's fold chains
+// fold_slot, fold_draw), so the pool write takes no launch of its own.
+// grid: NBLK * L + KP teams, block SCATTER_F32_THREADS.
+template <int E>
+static __global__ void __launch_bounds__(SCATTER_F32_THREADS)
+block_end_scatter_kernel(float* emb_in, float* emb_out, const int* walks,
+                         const float* dphi, const float* dphin,
+                         const float* dctx, const int* info, const int* order,
+                         const int* pool, const float* dneg,
+                         const int* pinfo, const int* porder,
+                         const int* fold_slot, const int* fold_draw, int KP,
+                         int d, int L, const StepArgs* args, float lr_in) {
+  const float lr = args != nullptr ? step_ld(&args->lr) : lr_in;
+  const int i = blockIdx.x * (SCATTER_F32_THREADS / 32) + threadIdx.x / 32;
+  const F32Owner<> o = f32_owner<true>(i, walks, info, order, L, pool,
+                                       pinfo, porder, KP, fold_slot,
+                                       fold_draw);
+  pdl_wait();
+  if (o.n > 0 || o.pn > 0)
+    f32_write<E>(o, emb_in, emb_out, dphi, dphin, dctx, dneg, d, lr);
+  pdl_trigger();
+}
+
+// The f32 slot writes of group `walks` on `stream` (with PDL when `pdl`):
+// walk_scatter_kernel, or with a pool (`pool` not null: the group ends an
+// R-block) block_end_scatter_kernel with the pool's dneg and chains
+// (pinfo, porder) and the group's fold chains (fold_slot, fold_draw).  Its
+// chains `info`, `order` (slot_chains_kernel's of the group); lr from
+// `args`, or `lr` where it is null.  `launched` (may be null) counts the
+// launch under PASS_WALK_SCATTER or PASS_BLOCK_END_SCATTER.
+static cudaError_t launch_scatter_f32(
+    float* emb_in, float* emb_out, const int* walks, const float* dphi,
+    const float* dphin, const float* dctx, const int* info, const int* order,
+    const int* pool, const float* dneg, const int* pinfo, const int* porder,
+    const int* fold_slot, const int* fold_draw, int KP, int d, int L,
+    const StepArgs* args, float lr, cudaStream_t stream, bool pdl,
+    int* launched) {
+  constexpr int per = SCATTER_F32_THREADS / 32;
+  const bool vec = d % 4 == 0;
+  cudaError_t e;
+  if (pool == nullptr) {
+    e = launch_kernel(vec ? walk_scatter_kernel<4> : walk_scatter_kernel<1>,
+                      dim3((NBLK * L + per - 1) / per),
+                      dim3(SCATTER_F32_THREADS), 0, stream, pdl, 0, emb_in,
+                      emb_out, walks, dphi, dphin, dctx, info, order, d, L,
+                      args, lr);
+  } else {
+    e = launch_kernel(
+        vec ? block_end_scatter_kernel<4> : block_end_scatter_kernel<1>,
+        dim3((NBLK * L + KP + per - 1) / per), dim3(SCATTER_F32_THREADS), 0,
+        stream, pdl, 0, emb_in, emb_out, walks, dphi, dphin, dctx, info,
+        order, pool, dneg, pinfo, porder, fold_slot, fold_draw, KP, d, L,
+        args, lr);
+  }
+  if (e == cudaSuccess && launched != nullptr)
+    ++launched[pool == nullptr ? PASS_WALK_SCATTER : PASS_BLOCK_END_SCATTER];
+  return e;
+}
+
 // Walk generation (TPU GEN_WALKS, pallas_walk_sgns.py:182-201).  One thread
 // per walk w of nwalks: slot w*128 holds starts[w]; hop t (1 <= t < L)
 // reads b = bits[w*128 + t] as 32 bits and moves from v to
@@ -1126,17 +1460,16 @@ struct WalkStep {
   const int* indices;
 };
 
-// The group loop of one step, launched on `stream` (the recording stream).
-// T = float: K1/K1b/K5 (atomic f32 scatter); T = __nv_bfloat16: K3
-// (rounded RMW scatter by owned rows in slot order, SR with a per-step
-// seed; the pool write by owned rows in draw order; no atomics).  `pdl`
-// says whether the first launch may start under PDL (a kernel besides the
-// head precedes it in the step); every later one does.  `launched`
-// receives the route of the band pass it launched (PosRoute), and
-// `pool_launched` counts the pool passes and K3's slot scatter it launched
-// (PoolPass).
+// The group loop of one step, launched on `stream` (the recording stream)
+// after the step's chains, every kernel under PDL.  T = float: K1, K1b, K4
+// and K5 (the f32 slot writes by owned rows, the pool write folded into
+// the block end's scatter); T = __nv_bfloat16: K3 (rounded RMW scatter by
+// owned rows in slot order, SR with a per-step seed; the pool write by
+// owned rows in draw order); no atomics in either.  `launched` receives
+// the route of the band pass it launched (PosRoute), and `pool_launched`
+// counts the pool passes and the slot scatters it launched (PoolPass).
 template <bool BF16, bool PAIRED, typename T, bool SR>
-static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
+static int walk_groups(const NegSetup& ns, const WalkStep& s,
                        int* launched, int* pool_launched,
                        cudaStream_t stream) {
   constexpr bool TB16 = !std::is_same<T, float>::value;
@@ -1162,25 +1495,24 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
     const int* pool = s.pools + (size_t)(g / R) * KP;
     const int* wg = s.walks + (size_t)g * GROUP;
     if (g % R == 0) {
-      e = neg.stage(emb_out, pool, s.cneg, s.dneg, d, KP, stream, pdl,
+      e = neg.stage(emb_out, pool, s.cneg, s.dneg, d, KP, stream, true,
                     pool_launched);
       if (e != cudaSuccess) return (int)e;
-      pdl = true;
     }
     const int* wr = PAIRED ? nullptr : s.wrow + (size_t)g * GROUP;
     e = launch_kernel(pos_kernel, dim3(NSTRIP, NBLK), dim3(THREADS),
-                      pos_smem, stream,
-                      pdl, 0, (const T*)emb_in, (const T*)emb_out, wg, wr, d,
-                      L, W, s.dphi, s.dctx, dphin, s.nt, s.stats);
+                      pos_smem, stream, true, 0, (const T*)emb_in,
+                      (const T*)emb_out, wg, wr, d, L, W, s.dphi, s.dctx,
+                      dphin, s.nt, s.stats);
     if (e != cudaSuccess) return (int)e;
     *launched = route;
-    pdl = true;
     e = neg.launch(emb_in, wg, s.nt, s.cneg, d, KP, s.negw, dphin, s.dneg,
                    s.stats, stream, true);
     if (e != cudaSuccess) return (int)e;
     const bool end = g % R == R - 1 || g == s.G - 1;
+    const int n_pools = (s.G + R - 1) / R;
+    const int* sc = s.chains + (size_t)3 * n_pools * KP;  // slot chains
     if constexpr (TB16) {
-      const int* sc = s.chains + (size_t)3 * ((s.G + R - 1) / R) * KP;
       e = launch_scatter_bf16<SR>(emb_in, emb_out, wg, s.dphi, dphin, s.dctx,
                                   slot_info(sc, g), slot_order(sc, g, s.G), d,
                                   L, args, 0.0f, 0u, g, stream, true);
@@ -1188,21 +1520,22 @@ static int walk_groups(const NegSetup& ns, const WalkStep& s, bool pdl,
       ++pool_launched[PASS_WALK_SCATTER_BF16];
       if (end) {
         e = launch_apply_bf16<SR>(neg, emb_out, pool, s.dneg, s.chains,
-                                  g / R, (s.G + R - 1) / R, d, KP, args, 0.0f,
-                                  0u, g, stream, true);
+                                  g / R, n_pools, d, KP, args, 0.0f, 0u, g,
+                                  stream, true);
         if (e != cudaSuccess) return (int)e;
         ++pool_launched[PASS_APPLY_POOL_BF16];
       }
-    } else {
-      e = launch_kernel(walk_scatter_kernel, dim3(GROUP),
-                        dim3(SCATTER_THREADS), 0, stream, true, 0, emb_in,
-                        emb_out, wg, s.dphi, dphin, s.dctx, d, L, args);
+    } else {  // the block end's pool write folded into its scatter
+      const int* fold = sc + (size_t)3 * s.G * GROUP;  // the fold chains
+      e = launch_scatter_f32(
+          emb_in, emb_out, wg, s.dphi, dphin, s.dctx, slot_info(sc, g),
+          slot_order(sc, g, s.G), end ? pool : nullptr, s.dneg,
+          pool_chain_info(s.chains, g / R, KP),
+          pool_chain_order(s.chains, g / R, n_pools, KP),
+          fold + (size_t)g * GROUP,
+          fold + (size_t)s.G * GROUP + (size_t)(g / R) * KP, KP, d, L, args,
+          0.0f, stream, true, pool_launched);
       if (e != cudaSuccess) return (int)e;
-      if (end) {
-        e = launch_kernel(apply_pool_kernel, dim3(KP), dim3(128), 0, stream,
-                          true, 0, emb_out, pool, s.dneg, d, args, 0.0f);
-        if (e != cudaSuccess) return (int)e;
-      }
     }
   }
   return 0;
@@ -1220,8 +1553,8 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
   constexpr bool TB16 = !std::is_same<T, float>::value;
   if (p == nullptr || s.d < 1 || s.G < 1 ||
       s.L < 1 || s.L > BLK || s.W < 1 || s.R < 1 ||
-      (PAIRED && (s.W != 1 || s.L % 2)) ||
-      (TB16 && (s.d % 2 || s.chains == nullptr)))
+      (PAIRED && (s.W != 1 || s.L % 2)) || s.chains == nullptr ||
+      (TB16 && s.d % 2))
     return (int)cudaErrorInvalidValue;
   if (p->mode < 0) {
     // the caps are what the largest strip needs (d MAX_DIM, or a slab, and
@@ -1242,7 +1575,8 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
     if (e != cudaSuccess) return (int)e;
     NegativePass<BF16, T> neg;
     e = neg.init(s.d, s.KP, GROUP);
-    if (e == cudaSuccess && TB16) e = apply_setup(neg, s.d, s.KP);
+    if (e == cudaSuccess)
+      e = TB16 ? apply_setup(neg, s.d, s.KP) : fold_setup(s.KP);
     if (e != cudaSuccess) return (int)e;
     p->neg = neg;
     p->mode = mode;
@@ -1254,7 +1588,6 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
       [&](cudaStream_t cap) -> int {
         cudaError_t e = launch_head(hin, hb, cap);
         if (e != cudaSuccess) return (int)e;
-        bool lead = false;
         if (s.starts != nullptr) {  // K4, on the staged starts and draws
           const int nwalks = s.G * NBLK;
           e = launch_kernel(walk_gen_kernel, dim3((nwalks + 127) / 128),
@@ -1262,22 +1595,27 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
                             s.indptr, s.indices, nwalks, s.L,
                             const_cast<int*>(s.walks));
           if (e != cudaSuccess) return (int)e;
-          lead = true;
         }
-        if (TB16) {  // K3: every block's pool and every group's real
-          // slots sorted into their chains
-          const int n_pools = (s.G + s.R - 1) / s.R;
-          e = launch_chains(s.pools, n_pools, s.KP, s.chains, cap);
+        // every block's pool and every group's real slots sorted into
+        // their chains, which the slot and pool writes follow
+        const int n_pools = (s.G + s.R - 1) / s.R;
+        e = launch_chains(s.pools, n_pools, s.KP, s.chains, cap);
+        if (e != cudaSuccess) return (int)e;
+        ++p->pool[PASS_POOL_CHAINS];
+        e = launch_slot_chains(s.walks, s.G, s.L,
+                               s.chains + (size_t)3 * n_pools * s.KP, cap,
+                               true);
+        if (e != cudaSuccess) return (int)e;
+        ++p->pool[PASS_SLOT_CHAINS];
+        if (!TB16) {  // the f32 block ends' fold chains
+          int* sc = s.chains + (size_t)3 * n_pools * s.KP;
+          e = launch_fold_chains(s.walks, sc, s.pools, s.chains, s.G, s.L,
+                                 s.KP, s.R, sc + (size_t)3 * s.G * GROUP,
+                                 cap, true);
           if (e != cudaSuccess) return (int)e;
-          ++p->pool[PASS_POOL_CHAINS];
-          e = launch_slot_chains(s.walks, s.G, s.L,
-                                 s.chains + (size_t)3 * n_pools * s.KP, cap,
-                                 true);
-          if (e != cudaSuccess) return (int)e;
-          ++p->pool[PASS_SLOT_CHAINS];
-          lead = true;
+          ++p->pool[PASS_FOLD_CHAINS];
         }
-        return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, lead, &p->route,
+        return walk_groups<BF16, PAIRED, T, SR>(p->neg, s, &p->route,
                                                 p->pool, cap);
       },
       step_head_kernel, hin, hb);
@@ -1331,10 +1669,11 @@ using namespace come;
 //   walks_buf, wrow_buf, pools_buf: the plan's copies of walks, wrow
 //                   (unused when paired) and pools, which the loop reads
 //   args            the plan's argument block (sgns_common.cuh: StepArgs)
-//   chains          K3 (else unused): [3 * ceil(G / R) * KP + 3 * G * 1024]
-//                   i32 scratch, the pools' chains (sgns_common.cuh:
-//                   pool_chains_kernel), then the groups' slot chains
-//                   (slot_chains_kernel)
+//   chains          [4 * ceil(G / R) * KP + 4 * G * 1024] i32 scratch, the
+//                   pools' chains (sgns_common.cuh: pool_chains_kernel),
+//                   the groups' slot chains (slot_chains_kernel), then the
+//                   f32 block ends' fold chains (fold_chains_kernel: 1024
+//                   a group, then KP a pool; unused with bf16 tables)
 // bf16 != 0 selects K1b's rounding, paired != 0 K5 (W must be 1, L even),
 // tables_bf16 != 0 K3 (d even; stochastic rounding from sr_seed when
 // sr != 0, else truncation).  A plan serves one mode and one (d, G, L, W,
@@ -1446,4 +1785,57 @@ extern "C" int come_walk_scatter_bf16(void* emb_in, void* emb_out,
                                                 dctx, info, order, d, L,
                                                 nullptr, lr, 0u, g, stream,
                                                 false));
+}
+
+// The fold chains of one group that ends a block alone: walks [1024] i32
+// (the group's slots, L real positions a walk), chains the group's
+// (come_slot_chains of these walks, G 1), pool [KP] i32 and pool_chains
+// the pool's (come_pool_chains of it, n_pools 1), into fold [1024 + KP] i32:
+// fold_slot [1024] (the place in the pool's chain of the first draw of
+// real slot t's row, -1 where the pool does not draw it and at padding
+// slots), then fold_draw [KP] (1 where draw k's row is a real slot's, else
+// 0).  Launches on the caller's stream without PDL, does not synchronise
+// and allocates nothing.  Returns 0 or the CUDA error code.
+extern "C" int come_fold_chains(const int* walks, const int* chains,
+                                const int* pool, const int* pool_chains,
+                                int L, int KP, int* fold, void* stream_ptr) {
+  if (L < 1 || L > BLK) return (int)cudaErrorInvalidValue;
+  cudaError_t e = fold_setup(KP);
+  if (e == cudaSuccess)
+    e = launch_fold_chains(walks, chains, pool, pool_chains, 1, L, KP, 1,
+                           fold, (cudaStream_t)stream_ptr, false);
+  return (int)e;
+}
+
+// The f32 slot writes of one group alone (walk_scatter_kernel), or with
+// `pool` not null those of a group that ends an R-block with the block's
+// pool write folded in (block_end_scatter_kernel): emb_in, emb_out [V, d]
+// f32 (updated in place), walks [1024] i32 (the group's slots), dphi,
+// dphin, dctx [1024, d] f32, chains the group's (come_slot_chains of these
+// walks, G 1); pool [KP] i32, dneg [KP, d] f32, pool_chains the pool's
+// (come_pool_chains of it, n_pools 1) and fold the group's fold chains
+// (come_fold_chains).  For each distinct row of the real slots, emb_in[v]
+// += f64 sum in slot order of f32((dphi[t] + dphin[t]) * -lr), emb_out[v]
+// += that of f32(dctx[t] * -lr), each rounded once; then emb_out[pool[k]]
+// += f32(dneg[k] * -lr) for k in order, each rounded.  Launches on the
+// caller's stream without PDL, does not synchronise and allocates nothing.
+// Returns 0 or the CUDA error code.
+extern "C" int come_walk_scatter_f32(float* emb_in, float* emb_out,
+                                     const int* walks, const float* dphi,
+                                     const float* dphin, const float* dctx,
+                                     const int* chains, const int* pool,
+                                     const float* dneg,
+                                     const int* pool_chains, const int* fold,
+                                     int d, int L, int KP, float lr,
+                                     void* stream_ptr) {
+  const bool end = pool != nullptr;
+  if (d < 1 || L < 1 || L > BLK || (end && KP < 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_scatter_f32(
+      emb_in, emb_out, walks, dphi, dphin, dctx, slot_info(chains, 0),
+      slot_order(chains, 0, 1), pool, dneg,
+      end ? pool_chain_info(pool_chains, 0, KP) : nullptr,
+      end ? pool_chain_order(pool_chains, 0, 1, KP) : nullptr,
+      fold, end ? fold + GROUP : nullptr, KP, d, L, nullptr, lr,
+      (cudaStream_t)stream_ptr, false, nullptr);
 }

@@ -84,6 +84,8 @@ SIGNATURES = {
     "come_pool_stage_wide_bf16": [_P] * 4 + [_I] * 3 + [_P],
     "come_slot_chains": [_P, _I, _I, _P, _P],
     "come_walk_scatter_bf16": [_P] * 7 + [_I] * 3 + [_F, _I, _U, _P],
+    "come_walk_scatter_f32": [_P] * 11 + [_I] * 3 + [_F, _P],
+    "come_fold_chains": [_P] * 4 + [_I] * 2 + [_P] * 2,
 }
 RESTYPES = {"come_cuda_error_name": ctypes.c_char_p,
             "come_step_graph_new": ctypes.c_void_p,

@@ -27,7 +27,8 @@ keeps between steps for one (entry, device, stream, mode, shape):
   * the staged inputs (``inputs``: the walks, window draws, pools, star
     slots and meta, K4's starts and draws), the step's scratch (the result
     ``stats``, ``cneg``, ``dneg``, ``dphi``, ``dctx``, ``nt``, K4's
-    generated walks and K3's pool chains) and ``args``, allocated once.  The head kernel zeroes
+    generated walks and a walk step's pool and slot chains) and ``args``,
+    allocated once.  The head kernel zeroes
     ``stats`` (:meth:`LaunchPlan.begin` does on CPU plans, its plain
     version); :meth:`LaunchPlan.result` returns a copy, so a step's (loss,
     n_pairs) never alias the buffer the next step zeroes.  A plan's steps
@@ -105,7 +106,8 @@ class LaunchPlan:
                                   device=dev) if walk_slots else None)
         self.inputs = {k: torch.empty((n,), dtype=torch.int32, device=dev)
                        for k, n in (inputs or {}).items()}
-        # K3: its pools' chains, as pool_chains_kernel writes them
+        # a walk step's chains: its pools', as pool_chains_kernel writes
+        # them, then its groups' slots', as slot_chains_kernel does
         self.chains = (torch.empty((chains,), dtype=torch.int32, device=dev)
                        if chains else None)
         self.args = torch.zeros(ARGS_BYTES // 8, dtype=torch.int64,

@@ -1,18 +1,23 @@
-"""K3's slot chains and K3's slot scatter alone: the CUDA kernels, their
+"""The slot chains and the slot scatters alone: the CUDA kernels, their
 plain versions and the wrappers that pick between them by device.
 
 Port of the slot loop of ``come_tpu/ops/pallas_walk_sgns.py``'s walk kernel
-on bf16 tables (``:369-400``, the ``TABLES_BF16`` branch at ``:377``): each
-real slot's row written back in slot order, each element rounded by
-``_pack_row``.  On the card the scatter is a pass of K3's recorded group
-loop (``csrc/walk_sgns.cu``: ``walk_scatter_bf16_kernel``, one owner a
-distinct row of the group, its slots in slot order, no atomics), and once a
-K3 step ``slot_chains_kernel`` sorts every group's real slots into the
-chains the scatter follows; here each runs alone on given buffers (C
-entries in ``csrc/walk_sgns.cu``), so a check can hold it against its plain
-version bit for bit and time it.  The scatter's plain version is
-``ops/walk_sgns.py``'s :func:`walk_scatter_bf16_reference`, which
-``walk_sgns_step_reference`` calls.
+(``:369-400``): each real slot's update written to its row, on bf16 tables
+(the ``TABLES_BF16`` branch at ``:377``) in slot order with each element
+rounded by ``_pack_row``, on f32 tables (``:395-397``) added; and, at an
+R-block end on f32 tables, ``_apply_pool`` (``:405``), which the f32
+scatter takes in the same launch.  On the card each scatter is a pass of
+the walk steps' recorded group loop (``csrc/walk_sgns.cu``: K3's
+``walk_scatter_bf16_kernel``, the f32 ``walk_scatter_kernel`` and
+``block_end_scatter_kernel``, each one owner a distinct row of the group,
+its slots in slot order, no atomics), and once a step
+``slot_chains_kernel`` sorts every group's real slots into the chains the
+scatters follow (``pool_chains_kernel`` the pools'); here each runs alone
+on given buffers (C entries in ``csrc/walk_sgns.cu``), so a check can hold
+it against its plain version bit for bit and time it.  The scatters' plain
+versions are ``ops/walk_sgns.py``'s :func:`walk_scatter_bf16_reference`,
+which ``walk_sgns_step_reference`` calls, and
+:func:`walk_scatter_f32_reference`.
 """
 
 from __future__ import annotations
@@ -20,11 +25,13 @@ from __future__ import annotations
 import torch
 
 from come_tpu_torch.ops import build
+from come_tpu_torch.ops.pool_pass import pool_chains
 from come_tpu_torch.ops.walk_sgns import (
     LP,
     M32,
     NWL,
     walk_scatter_bf16_reference,
+    walk_scatter_f32_reference,
 )
 
 
@@ -53,8 +60,8 @@ def slot_chains_reference(slots: torch.Tensor, L: int):
 
 
 def slot_chains(slots: torch.Tensor, L: int):
-    """Each group's real slots sorted into its rows' chains, as K3's slot
-    scatter reads them: (info int32 [G, 1024, 2], order int32 [G, 1024])
+    """Each group's real slots sorted into its rows' chains, as the slot
+    scatters read them: (info int32 [G, 1024, 2], order int32 [G, 1024])
     for ``slots`` int [G * 1024] (walk j of group g at g*1024 + j*128, L
     real positions a walk): order[g] the group's real slots (position < L)
     in the order of a stable sort of their ids (a row's slots together, in
@@ -147,3 +154,152 @@ def walk_scatter_bf16(emb_in: torch.Tensor, emb_out: torch.Tensor,
 
 
 walk_scatter_bf16.launches = 0
+
+
+def fold_chains_reference(slots: torch.Tensor, L: int, pool: torch.Tensor):
+    """Plain version of :func:`fold_chains`."""
+    slots = slots.long().reshape(-1)
+    dev = slots.device
+    real = (torch.arange(NWL, device=dev) % LP) < L
+    ids = torch.sort(pool.long()).values
+    at = torch.searchsorted(ids, slots).clamp_max(ids.numel() - 1)
+    fold_slot = torch.where(real & (ids[at] == slots), at, -1)
+    fold_draw = torch.isin(pool.long(), slots[real])
+    return fold_slot.to(torch.int32), fold_draw.to(torch.int32)
+
+
+def fold_chains(slots: torch.Tensor, L: int, pool: torch.Tensor, *,
+                chains: tuple | None = None,
+                pool_chains_of: tuple | None = None):
+    """Which rows a group that ends an R-block writes through both its
+    slots and its block's pool, as its f32 scatter (block_end_scatter_kernel)
+    reads them: (fold_slot int32 [1024], fold_draw int32 [KP]) for the
+    group's ``slots`` int [1024] (L real positions a walk) and ``pool`` int
+    [KP]: fold_slot[t] = the place in the pool's chain (a stable sort of
+    its ids) of the first draw of real slot t's row, -1 where the pool
+    does not draw it and at padding slots; fold_draw[k] = 1 where draw k's
+    row is among the real slots' rows, else 0.
+
+    CPU tensors run the plain version; CUDA tensors launch
+    ``fold_chains_kernel`` on the group's chains (``chains``, as
+    :func:`slot_chains` gives them, and ``pool_chains_of``, as
+    ``ops/pool_pass.py``'s ``pool_chains`` gives them; made here where not
+    given) or raise (counted in ``fold_chains.launches``)."""
+    if slots.numel() != NWL or not 1 <= L <= LP or pool.dim() != 1:
+        raise ValueError(f"fold_chains: one group's {NWL} slots, L in "
+                         f"1..{LP}, a pool [KP]")
+    if slots.device.type == "cpu":
+        return fold_chains_reference(slots, L, pool)
+    if slots.device.type != "cuda":
+        raise ValueError(f"no fold chains kernel for device {slots.device}")
+    KP = pool.numel()
+    slots = slots.to(torch.int32).contiguous()
+    pool = pool.to(torch.int32).contiguous()
+    info, _ = slot_chains(slots, L) if chains is None else chains
+    pinfo, _ = pool_chains(pool) if pool_chains_of is None else \
+        pool_chains_of
+    fold = torch.empty((NWL + KP,), dtype=torch.int32, device=slots.device)
+    code = build.library().come_fold_chains(
+        slots.data_ptr(), info.data_ptr(), pool.data_ptr(), pinfo.data_ptr(),
+        int(L), KP, fold.data_ptr(),
+        torch.cuda.current_stream(slots.device).cuda_stream)
+    fold_chains.launches += 1
+    build.check(code, "come_fold_chains")
+    return fold[:NWL], fold[NWL:]
+
+
+fold_chains.launches = 0
+
+
+def walk_scatter_f32(emb_in: torch.Tensor, emb_out: torch.Tensor,
+                     slots: torch.Tensor, dphi: torch.Tensor,
+                     dphin: torch.Tensor, dctx: torch.Tensor, lr: float, *,
+                     L: int, pool: torch.Tensor | None = None,
+                     dneg: torch.Tensor | None = None,
+                     chains: tuple | None = None,
+                     pool_chains_of: tuple | None = None,
+                     fold: tuple | None = None):
+    """The f32 slot writes of one group, in place on ``emb_in`` and
+    ``emb_out`` [V, d] f32: for each distinct row v of the real slots t
+    (position < L) of ``slots`` int [1024], the terms ``(dphi[t] +
+    dphin[t]) * -lr`` and ``dctx[t] * -lr`` (f32 products) summed in
+    float64 in slot order and added to ``emb_in[v]`` and ``emb_out[v]``
+    with one rounding each, from ``dphi``, ``dphin`` (the negative pass's
+    part) and ``dctx`` f32 [1024, d]; with ``pool`` int [KP] (a group that
+    ends an R-block) then ``emb_out[pool[k]] += dneg[k] * -lr`` for k in
+    draw order, from ``dneg`` f32 [KP, d].  Returns (emb_in, emb_out).
+
+    CPU tensors run the plain version (:func:`walk_scatter_f32_reference`);
+    CUDA tensors launch ``walk_scatter_kernel``, or with a pool
+    ``block_end_scatter_kernel``, on the group's chains (``chains``, as
+    :func:`slot_chains` gives them for ``slots``, ``pool_chains_of``, as
+    ``ops/pool_pass.py``'s ``pool_chains`` gives them for ``pool``, and
+    ``fold``, as :func:`fold_chains` gives them; made here where not given)
+    or raise (counted in ``walk_scatter_f32.launches`` and
+    ``.launches_block_end``)."""
+    d = emb_in.shape[1]
+    for t in (emb_in, emb_out):
+        if t.dtype != torch.float32 or not t.is_contiguous() or \
+                t.dim() != 2 or t.shape[1] != d:
+            raise ValueError("walk_scatter_f32: tables must be contiguous "
+                             "f32 [V, d]")
+    for t in (dphi, dphin, dctx):
+        if t.shape != (NWL, d) or t.dtype != torch.float32 or \
+                t.device != emb_in.device:
+            raise ValueError(f"walk_scatter_f32: updates must be f32 "
+                             f"[{NWL}, {d}] on {emb_in.device}")
+    if slots.numel() != NWL or not 1 <= L <= LP:
+        raise ValueError(f"walk_scatter_f32: one group's {NWL} slots, "
+                         f"L in 1..{LP}")
+    if pool is not None and (
+            pool.dim() != 1 or dneg is None or
+            dneg.shape != (pool.numel(), d) or dneg.dtype != torch.float32
+            or pool.device != emb_in.device or dneg.device != emb_in.device):
+        raise ValueError(f"walk_scatter_f32: a pool [KP] takes dneg f32 "
+                         f"[KP, {d}] on {emb_in.device}")
+    if emb_in.device.type == "cpu":
+        return walk_scatter_f32_reference(emb_in, emb_out, slots, dphi, dctx,
+                                          lr, L, dphin=dphin, pool=pool,
+                                          dneg=dneg)
+    if emb_in.device.type != "cuda":
+        raise ValueError(f"no slot scatter kernel for device {emb_in.device}")
+    info, order = slot_chains(slots, L) if chains is None else chains
+    if info.shape != (1, NWL, 2) or order.data_ptr() != \
+            info.data_ptr() + 8 * NWL:
+        raise ValueError("walk_scatter_f32: chains must be slot_chains' of "
+                         "these slots")
+    slots = slots.to(torch.int32).contiguous()
+    KP, pool_p, dneg_p, pch_p, fold_p = 0, None, None, None, None
+    if pool is not None:
+        KP = pool.numel()
+        pool = pool.to(torch.int32).contiguous()
+        pch = pool_chains(pool) if pool_chains_of is None else pool_chains_of
+        if pch[0].shape != (1, KP, 2) or pch[1].data_ptr() != \
+                pch[0].data_ptr() + 8 * KP:
+            raise ValueError("walk_scatter_f32: pool chains must be "
+                             "pool_chains' of this pool")
+        fold = fold_chains(slots, L, pool, chains=(info, order),
+                           pool_chains_of=pch) if fold is None else fold
+        if fold[0].numel() != NWL or fold[1].data_ptr() != \
+                fold[0].data_ptr() + 4 * NWL:
+            raise ValueError("walk_scatter_f32: fold chains must be "
+                             "fold_chains' of these slots and pool")
+        dneg = dneg.contiguous()
+        pool_p, dneg_p, pch_p, fold_p = pool.data_ptr(), dneg.data_ptr(), \
+            pch[0].data_ptr(), fold[0].data_ptr()
+    code = build.library().come_walk_scatter_f32(
+        emb_in.data_ptr(), emb_out.data_ptr(), slots.data_ptr(),
+        dphi.contiguous().data_ptr(), dphin.contiguous().data_ptr(),
+        dctx.contiguous().data_ptr(), info.data_ptr(), pool_p, dneg_p, pch_p,
+        fold_p, d, int(L), KP, float(lr),
+        torch.cuda.current_stream(emb_in.device).cuda_stream)
+    if pool is None:
+        walk_scatter_f32.launches += 1
+    else:
+        walk_scatter_f32.launches_block_end += 1
+    build.check(code, "come_walk_scatter_f32")
+    return emb_in, emb_out
+
+
+walk_scatter_f32.launches = 0
+walk_scatter_f32.launches_block_end = 0

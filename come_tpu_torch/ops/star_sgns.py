@@ -25,6 +25,7 @@ from come_tpu_torch.ops.walk_sgns import (
     count_route,
     expand_pools,
     mxu,
+    new_pools,
     new_routes,
 )
 from come_tpu_torch.sampling.stars import PAD_META
@@ -148,7 +149,8 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
     ``star_sgns_step.launches``, K2, or ``.launches_bf16``, K2b, and the
     graph's events in ``.recordings``, ``.instantiations``, ``.updates`` and
     ``.replays``; steps by the star pass's route in ``.routes``,
-    ``ops/walk_sgns.py``'s POS_ROUTES) or raise.
+    ``ops/walk_sgns.py``'s POS_ROUTES; the pool passes its steps launched
+    in ``.pools``, by POOL_PASSES) or raise.
     """
     if emb.device.type == "cpu":
         return star_sgns_step_reference(
@@ -178,7 +180,7 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
         star_sgns_step.launches += 1
     build.check(code, "come_star_sgns_step")
     count_route(plan, how, star_sgns_step, lib)
-    count_pool_passes(plan, how, lib)
+    count_pool_passes(plan, how, lib, star_sgns_step)
     plan.done(how, star_sgns_step)
     return (emb,) + plan.result()
 
@@ -186,6 +188,7 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
 star_sgns_step.launches = 0
 star_sgns_step.launches_bf16 = 0
 star_sgns_step.routes = new_routes()
+star_sgns_step.pools = new_pools()
 star_sgns_step.recordings = 0
 star_sgns_step.instantiations = 0
 star_sgns_step.updates = 0

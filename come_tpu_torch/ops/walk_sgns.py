@@ -227,6 +227,50 @@ def walk_scatter_bf16_reference(emb_in, emb_out, ids, dphi, dctx, lr, L,
     return emb_in, emb_out
 
 
+def walk_scatter_f32_reference(emb_in, emb_out, ids, dphi, dctx, lr, L,
+                               dphin=None, pool=None, dneg=None):
+    """Plain version of the f32 slot writes of one group
+    (``csrc/walk_sgns.cu``: ``walk_scatter_kernel``; the TPU's slot
+    ``fori_loop``, ``pallas_walk_sgns.py:369-400``, f32 at ``:395-397``)
+    and, with ``pool``, of a block end's, whose pool write is folded in
+    (``block_end_scatter_kernel``; the TPU's ``_apply_pool``, ``:405``).
+    For each distinct row v of the real slots t (position < L), the terms
+    ``dphi[t] * -lr`` and ``dctx[t] * -lr`` (each product rounded in the
+    tables' dtype) are summed in float64 in slot order and each sum is
+    added to ``emb_in[v]`` and ``emb_out[v]`` with one rounding; then
+    ``emb_out[pool[k]] += dneg[k] * -lr`` for k in draw order, product and
+    add each rounded.  ``ids`` int [1024] the group's slot rows, ``dphi``,
+    ``dctx`` [1024, d] (or [8, 128, d]); ``dphin`` (the kernel's separate
+    negative part) is added to ``dphi`` first where given; ``pool`` int
+    [KP] and ``dneg`` [KP, d].  Returns (emb_in, emb_out), updated in
+    place."""
+    d = emb_in.shape[1]
+    dev = emb_in.device
+    real = (torch.arange(NWL, device=dev) % LP) < L
+    if dphin is not None:
+        dphi = dphi + dphin
+    rows, at = torch.unique(ids.long()[real], return_inverse=True)
+    for table, upd in ((emb_in, dphi), (emb_out, dctx)):
+        terms = (upd.reshape(NWL, d)[real] * (-lr)).double()
+        # index_add_ adds in index order on the CPU (each row's terms in
+        # slot order); a CUDA one's float64 atomics may take another order,
+        # which moves the rounded f32 row only at a float64 tie
+        sums = torch.zeros((rows.numel(), d), dtype=torch.float64,
+                           device=dev).index_add_(0, at, terms)
+        table[rows] = (table[rows].double() + sums).to(table.dtype)
+    if pool is not None:
+        # rounds by occurrence rank: each round adds to distinct rows, so a
+        # row's draws apply in draw order on any device (a CUDA index_add_
+        # adds a repeated row's terms in the order its atomics land)
+        pool = pool.long()
+        upd = (dneg * (-lr)).to(emb_out.dtype)
+        rank = occurrence_rank(pool)
+        for r in range(int(rank.max()) + 1):
+            sel = rank == r
+            emb_out.index_add_(0, pool[sel], upd[sel])
+    return emb_in, emb_out
+
+
 def pool_apply_bf16_reference(table, pool, dneg, lr, rnd):
     """Plain version of K3's pool write (``apply_pool_bf16_kernel``; the
     TPU's ``_apply_pool`` on bf16 tables, ``pallas_walk_sgns.py:405``):
@@ -239,25 +283,38 @@ def pool_apply_bf16_reference(table, pool, dneg, lr, rnd):
 
 # The pool passes inside the walk and star steps' recorded group loops, in
 # the order of csrc/sgns_common.cuh's PoolPass: stage_pool_kernel on f32 and
-# on bf16 tables, K3's pool_chains_kernel (which sorts a step's pools into
-# the chains its pool write follows), K3's apply_pool_bf16_kernel, the bf16
-# passes' stage past d 192 (stage_pool_bf16_kernel: bf16 rows in the wide
-# negative pass's core layout), and K3's slot passes: slot_chains_kernel
-# (once a step: each group's slots sorted into the chains its slot scatter
-# follows) and walk_scatter_bf16_kernel (once a group).
+# on bf16 tables, the walk steps' pool_chains_kernel (once a step: the
+# pools sorted into the chains their pool writes follow), K3's
+# apply_pool_bf16_kernel, the bf16 passes' stage past d 192
+# (stage_pool_bf16_kernel: bf16 rows in the wide negative pass's core
+# layout), the walk steps' slot passes: slot_chains_kernel (once a step:
+# each group's slots sorted into the chains its slot scatter follows), K3's
+# walk_scatter_bf16_kernel and the f32 walk_scatter_kernel (once a group
+# that ends no R-block) or block_end_scatter_kernel (once a block: the
+# last group's scatter with the block's pool write folded in), the star
+# steps' f32 pool write apply_pool_kernel, and the f32 walk steps'
+# fold_chains_kernel (once a step: which rows each block's last group
+# writes through both its slots and its pool).
 POOL_PASSES = ("stage_pool", "stage_pool_bf16_tables", "pool_chains",
                "apply_pool_bf16", "stage_pool_bf16", "slot_chains",
-               "walk_scatter_bf16")
+               "walk_scatter_bf16", "walk_scatter", "block_end_scatter",
+               "apply_pool", "fold_chains")
 # Their launches in the steps the wrappers launched.  Reset by assigning
 # zeros.
 POOL_LAUNCHES = dict.fromkeys(POOL_PASSES, 0)
 
 
-def count_pool_passes(plan, how: int, lib) -> None:
-    """Add one step's pool passes to :data:`POOL_LAUNCHES`: those its
-    plan's recording launched (``come_step_graph_pool``, which the C group
-    loop counts as it launches them; read when the step records, since a
-    replay runs what was recorded)."""
+def new_pools() -> dict:
+    """A step wrapper's count of the pool passes its steps launched."""
+    return dict.fromkeys(POOL_PASSES, 0)
+
+
+def count_pool_passes(plan, how: int, lib, fn=None) -> None:
+    """Add one step's pool passes to :data:`POOL_LAUNCHES`, and to the
+    step wrapper ``fn``'s own ``pools`` where given: those its plan's
+    recording launched (``come_step_graph_pool``, which the C group loop
+    counts as it launches them; read when the step records, since a replay
+    runs what was recorded)."""
     if how != launch_plan.RECORD_NONE or plan.pool is None:
         plan.pool = tuple(lib.come_step_graph_pool(plan.slot, i)
                           for i in range(len(POOL_PASSES)))
@@ -265,6 +322,8 @@ def count_pool_passes(plan, how: int, lib) -> None:
             raise RuntimeError(f"come_step_graph_pool: no counts {plan.pool}")
     for name, n in zip(POOL_PASSES, plan.pool):
         POOL_LAUNCHES[name] += n
+        if fn is not None:
+            fn.pools[name] += n
 
 
 def walk_sgns_step_reference(emb_in, emb_out, walks, wrow, pools, lr, negw,
@@ -330,6 +389,10 @@ def walk_sgns_step_reference(emb_in, emb_out, walks, wrow, pools, lr, negw,
         dneg = dneg + torch.einsum("bsk,bsd->kd", gneg, phi_m)
         end = g % R == R - 1 or g == G - 1
         if not tables_bf16:
+            # f32 adds in index order (the CPU's), the form chip_smoke.py's
+            # bf16 checks were set against: the float64 sums of
+            # walk_scatter_f32_reference here put the bench step's check at
+            # d 256 past its bound in a share of runs (PERF.md §6)
             emb_in.index_add_(0, ids, dphi.reshape(NWL, d), alpha=-lr)
             emb_out.index_add_(0, ids, dctx.reshape(NWL, d), alpha=-lr)
             if end:
@@ -389,21 +452,22 @@ def walk_plan(entry: str, device, stream: int, mode: tuple, d: int, G: int,
     tables_bf16, sr); the plan also holds the generated walks), keyed on
     the shape (d, G, L, W, KP, R).  Its staged inputs: the walks (K4: the
     starts and the 32-bit draws), the window draws (not paired) and the
-    pools; with bf16 tables (K3) also the pools' chains (3 int32 a pool
-    draw: ``csrc/sgns_common.cuh``'s pool_chains_kernel) and after them the
-    groups' slot chains (3 int32 a slot: ``csrc/walk_sgns.cu``'s
-    slot_chains_kernel)."""
+    pools; its chains: the pools' (3 int32 a pool draw:
+    ``csrc/sgns_common.cuh``'s pool_chains_kernel), after them the groups'
+    slots' (3 int32 a slot: ``csrc/walk_sgns.cu``'s slot_chains_kernel),
+    which every mode's slot and pool writes follow, and the f32 block
+    ends' fold chains (1 int32 a slot, then 1 a pool draw:
+    fold_chains_kernel; K3 leaves them unused)."""
     gen = entry == "walk_sgns_gen"
     inputs = {"starts": G * NW, "bits": G * NWL} if gen else \
         {"walks": G * NWL}
     if gen or not mode[1]:
         inputs["wrow"] = G * NWL
     inputs["pools"] = -(-G // R) * KP
-    tables_bf16 = mode[1] if gen else mode[2]
     return launch_plan.plan_for(
         entry, device, stream, mode, (d, G, L, W, KP, R), KP=KP, d=d,
         walk_slots=G * NWL if gen else 0, inputs=inputs,
-        chains=3 * (inputs["pools"] + G * NWL) if tables_bf16 else 0)
+        chains=4 * (inputs["pools"] + G * NWL))
 
 
 def walk_entry_args(plan, how: int, emb_in, emb_out, slots, wrow, pools,
@@ -505,7 +569,9 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
     ``.launches_paired`` (K5) and ``.launches_bf16_tables`` (K3); the
     graph's events over all modes in ``.recordings``, ``.instantiations``,
     ``.updates`` and ``.replays``; steps by the band pass's route over all
-    modes in ``.routes`` ({"rows", "whole", "slab"}: :data:`POS_ROUTES`).
+    modes in ``.routes`` ({"rows", "whole", "slab"}: :data:`POS_ROUTES`);
+    the pool passes its steps launched in ``.pools`` (by
+    :data:`POOL_PASSES`).
     """
     if paired and walks.shape[1] % 2:
         raise ValueError("paired mode needs an even number of slots per row")
@@ -542,7 +608,7 @@ def walk_sgns_step(emb_in, emb_out, walks, wrow, pools, lr, negw, *,
     _count_walk_launch(mxu_bf16, paired, tables_bf16)
     build.check(code, "come_walk_sgns_step")
     count_route(plan, how, walk_sgns_step, lib)
-    count_pool_passes(plan, how, lib)
+    count_pool_passes(plan, how, lib, walk_sgns_step)
     plan.done(how, walk_sgns_step)
     return (emb_in, emb_out) + plan.result()
 
@@ -552,6 +618,7 @@ walk_sgns_step.launches_bf16 = 0
 walk_sgns_step.launches_paired = 0
 walk_sgns_step.launches_bf16_tables = 0
 walk_sgns_step.routes = new_routes()
+walk_sgns_step.pools = new_pools()
 # the graph's events, over every mode (ops/launch_plan.py)
 walk_sgns_step.recordings = 0
 walk_sgns_step.instantiations = 0
@@ -633,7 +700,8 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
     with f32 products), ``.launches_bf16`` (K4 with K1b's bf16 products)
     and ``.launches_bf16_tables`` (K4 over K3's bf16 tables); the graph's
     events in ``.recordings``, ``.instantiations``, ``.updates`` and
-    ``.replays``; steps by the band pass's route in ``.routes``.
+    ``.replays``; steps by the band pass's route in ``.routes``; the pool
+    passes in ``.pools``.
     """
     if emb_in.device.type == "cpu":
         return walk_sgns_gen_step_reference(
@@ -685,7 +753,7 @@ def walk_sgns_gen_step(emb_in, emb_out, starts, bits, indptr, indices, wrow,
         walk_sgns_gen_step.launches += 1
     build.check(code, "come_walk_sgns_gen_step")
     count_route(plan, how, walk_sgns_gen_step, lib)
-    count_pool_passes(plan, how, lib)
+    count_pool_passes(plan, how, lib, walk_sgns_gen_step)
     plan.done(how, walk_sgns_gen_step)
     out = (emb_in, emb_out) + plan.result()
     if return_walks:
@@ -697,6 +765,7 @@ walk_sgns_gen_step.launches = 0
 walk_sgns_gen_step.launches_bf16 = 0
 walk_sgns_gen_step.launches_bf16_tables = 0
 walk_sgns_gen_step.routes = new_routes()
+walk_sgns_gen_step.pools = new_pools()
 walk_sgns_gen_step.recordings = 0
 walk_sgns_gen_step.instantiations = 0
 walk_sgns_gen_step.updates = 0

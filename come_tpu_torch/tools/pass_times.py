@@ -10,6 +10,8 @@ that carry the f32 negative pass and the star pass:
   * K1   one O1 macro step of 256 walks of 80 (W 10, 32 groups, R 1);
   * K1b bench  the bench path's O1 step in bf16 (2048 walks, 256 groups,
          R 8, alias pools);
+  * K4 bench  the same with its walks generated on the card (K4), its
+         walk generation timed and bounded as a pass of its own ("gen");
   * K2   one star O2 step of 512 random layout rows (64 groups, R 1);
   * K2b  the bench path's star step in bf16 (the whole layout, R 8);
   * K5   one paired O2 step of 512 rows of 64 edges (64 groups);
@@ -29,9 +31,13 @@ that carry the f32 negative pass and the star pass:
 step runs through its wide band or star pass (whole rows held in shared
 memory where they fit, else column slabs: the line's ``route``) and the
 wide negative pass (``csrc/sgns_common.cuh``: NEG_WHOLE).  The K1, K1b
-bench, K2, K2b bench, K5 and K3 lines add ``bound_us_per_group``: each pass's
-least µs a group, by bytes or operations, from the step's own inputs
-(:func:`pass_bounds`).  Each step runs on tables it
+bench, K4 bench, K2, K2b bench, K5 and K3 lines add
+``bound_us_per_group``: each pass's least µs a group, by bytes or
+operations, from the step's own inputs (:func:`pass_bounds`).  A walk
+step on f32 tables writes a block's pool in the scatter of its last group
+("block-end scatter"; the other groups' "scatter", and no "pool apply"):
+its line adds ``scatter_us_per_launch``, each of the two a launch.  Each
+step runs on tables it
 updates in place.  For each it prints one JSON
 line: the card's name and power limit, the step's CUDA-event ms (median of
 5 after one warm-up, each from an idle card), its ms per step over
@@ -65,9 +71,10 @@ is then the busy share to read.
 The same lines add ``library_us_per_group``: the stage, the pool apply and
 the scatter each as one PyTorch call at the step's shapes
 (:func:`library_us`: index_select into the dtype the stage writes,
-index_add_; the calls' names under "calls"), µs a group.  The K3 line
-adds ``pool_chains_us_per_step`` and ``slot_chains_us_per_step``: the
-device µs a step of its pools' and its groups' slots' sorts.
+index_add_; the calls' names under "calls"), µs a group.  The walk steps'
+lines add ``pool_chains_us_per_step`` and ``slot_chains_us_per_step``:
+the device µs a step of its pools' and its groups' slots' sorts (also a
+pass, "chains", µs a group).
 
 Each line also has ``library3_ms``: one group's (tile's) negative pass as
 three PyTorch products at its shapes (:func:`library3_ms`: scores, the
@@ -99,7 +106,11 @@ from pathlib import Path
 # *_wide_kernel ones)
 WALK_PASSES = (("band", "walk_pos_"), ("negative", "negative_"),
                ("scatter", "walk_scatter"), ("stage", "stage_pool"),
-               ("pool apply", "apply_pool"))
+               ("pool apply", "apply_pool"),
+               ("block-end scatter", "block_end_scatter"),
+               ("chains", "_chains_kernel"))
+# K4's step: the walk passes and its walk generation, once a step
+WALK_GEN_PASSES = WALK_PASSES + (("gen", "walk_gen"),)
 STAR_PASSES = (("star", "star_pos_"), ("negative", "negative_"),
                ("scatter", "star_scatter"), ("stage", "stage_pool"),
                ("pool apply", "apply_pool"))
@@ -108,13 +119,15 @@ FUSED_PASSES = (("positive", "fused_pos_kernel"), ("negative", "negative_"),
                 ("pool apply", "apply_"))
 
 
-def device_us(fn, ids, kernel=None, required=True):
+def device_us(fn, ids, kernel=None, required=True, some=False):
     """Device microseconds per call of ``fn(i)`` over ``ids``, summed over
     the CUDA kernels whose name holds ``kernel`` (every kernel with None;
     torch.profiler): at small sizes a call's host overhead outlasts its
     kernel, and CUDA events then time the host.  A tuple of names gives a
     tuple of sums from the one profiled run.  A kernel that no session
-    records raises, or reads None where ``required`` is False."""
+    records raises, or reads None where ``required`` is False; with
+    ``some`` a session that records any of the names is read at once (the
+    names a step does not launch read None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -133,10 +146,10 @@ def device_us(fn, ids, kernel=None, required=True):
         events = prof.key_averages()
         sums = [sum(e.device_time_total for e in events
                     if k is None or k in e.key) / len(ids) for k in names]
-        if min(sums) > 0:
-            return tuple(sums) if isinstance(kernel, tuple) else sums[0]
+        if min(sums) > 0 or (some and max(sums) > 0):
+            break
     missing = [k or "CUDA" for k, t in zip(names, sums) if t <= 0]
-    if required:
+    if required and missing:
         raise AssertionError(f"the profiler saw no {missing} kernel")
     sums = [t if t > 0 else None for t in sums]
     return tuple(sums) if isinstance(kernel, tuple) else sums[0]
@@ -144,11 +157,18 @@ def device_us(fn, ids, kernel=None, required=True):
 
 def pass_split(fn, groups: int, passes=WALK_PASSES):
     """Device microseconds per group of each of ``passes`` over two calls
-    of ``fn`` (a step of ``groups`` groups or tiles), as a dict, and the
-    device microseconds per call of every kernel it runs."""
+    of ``fn`` (a step of ``groups`` groups or tiles), as a dict (None for a
+    pass the step does not launch: the f32 walk steps' pool apply, which
+    their block-end scatter holds; K1's scatter, whose every group ends a
+    block), and the device microseconds per call of every kernel it
+    runs."""
     *us, total = device_us(lambda i: fn(), [0, 1],
-                           tuple(k for _, k in passes) + (None,))
-    return {name: t / groups for (name, _), t in zip(passes, us)}, total
+                           tuple(k for _, k in passes) + (None,),
+                           required=False, some=True)
+    if total is None:
+        raise AssertionError("the profiler saw no kernel of the step")
+    return {name: None if t is None else t / groups
+            for (name, _), t in zip(passes, us)}, total
 
 
 HBM_BPS = 3.35e12  # the H100 SXM's memory rate, bytes a second
@@ -156,7 +176,7 @@ PEAK_FLOPS = {False: 67e12, True: 989e12}  # f32, bf16 products
 
 
 def pass_bounds(ids, pools, R: int, d: int, es: int, bf16: bool,
-                n_pairs: float, walk: bool) -> dict:
+                n_pairs: float, walk: bool, gen: tuple | None = None) -> dict:
     """The least device µs a group of each pass of a walk or star step
     could take: the larger of its bytes (each input read once, each output
     written once) over HBM_BPS and its operations over PEAK_FLOPS (f32, or
@@ -164,18 +184,25 @@ def pass_bounds(ids, pools, R: int, d: int, es: int, bf16: bool,
     ``ids`` [G, 1024] the groups' table rows by slot (-1 at a walk's
     padding positions and at star pads), ``pools`` [blocks, KP], R groups a
     pool, tables of d elements of ``es`` bytes (two for a walk step, one
-    for a star step), ``n_pairs`` the step's positive pairs.  Returns
-    {pass: (µs, "bytes" or "operations")} under WALK_PASSES' or
+    for a star step), ``n_pairs`` the step's positive pairs, ``gen`` (K4)
+    the generated walks' (number, length) and the CSR's bytes.  On f32
+    walk tables (es 4) the pool write is the block end's scatter's
+    ("block-end scatter": its group's slot writes, and the pool's draws,
+    its ids and its rows), and "scatter" the other groups'; every walk
+    step sorts its pools and slots once ("chains").  Returns {pass: (µs,
+    "bytes" or "operations")} under WALK_PASSES', WALK_GEN_PASSES' or
     STAR_PASSES' names."""
     import torch
 
     G, KP = ids.shape[0], pools.shape[1]
     real = ids >= 0
     n_real = float(real.sum())
-    uniq = float(sum(torch.unique(ids[g][real[g]]).numel() for g in range(G)))
+    slot_rows = [torch.unique(ids[g][real[g]]) for g in range(G)]
+    uniq = float(sum(r.numel() for r in slot_rows))
     upool = float(sum(torch.unique(p).numel() for p in pools))
     nb = pools.shape[0]
     tabs = 2 if walk else 1
+    fold = walk and es == 4
     # the staged pool as the negative pass reads it: f32 rows, or past 192
     # in the bf16 modes bf16 rows of whole slabs of 256 (NEG_WHOLE)
     pool_b = KP * (-(-d // 256) * 256 * 2 if bf16 and d > 192 else d * 4)
@@ -193,14 +220,43 @@ def pass_bounds(ids, pools, R: int, d: int, es: int, bf16: bool,
     out["negative"] = (rows + G * (pool_b + 1024 * 8)
                        + G * (1024 + KP) * d * 4,
                        6.0 * n_real * KP * d)
-    # the real slots' updates and the rows in; the rows out
-    out["scatter"] = (n_real * d * 4 * (3 if walk else 2) + G * 1024 * 4
-                      + 2 * tabs * rows, 0.0)
     out["stage"] = (upool * d * es + nb * KP * 4 + nb * (pool_b + KP * d * 4),
                     0.0)
-    out["pool apply"] = (nb * KP * (d * 4 + 4) + 2 * upool * d * es, 0.0)
+
+    def scatter(g, pool=None):
+        """Group g's slot writes: the real slots' updates, ids and chains
+        in, the rows in and out (with a pool: its ids, chains and dneg in,
+        and the ctx table's rows those of the slots or the pool)."""
+        n = float(real[g].sum())
+        b = n * d * 4 * (3 if walk else 2) + 1024 * 4 + 2 * slot_rows[
+            g].numel() * d * es * (1 if pool is not None else tabs)
+        if walk and fold:
+            b += 12 * n  # its place in the chains
+        if pool is not None:
+            both = torch.unique(torch.cat([slot_rows[g], pool.long()]))
+            b += 2 * both.numel() * d * es + KP * (d * 4 + 4 + 12)
+        return b
+
+    if fold:
+        ends = [g for g in range(G) if g % R == R - 1 or g == G - 1]
+        out["scatter"] = (sum(scatter(g) for g in range(G)
+                              if g not in ends), 0.0)
+        out["block-end scatter"] = (sum(scatter(g, pools[g // R])
+                                        for g in ends), 0.0)
+    else:
+        out["scatter"] = (sum(scatter(g) for g in range(G)), 0.0)
+        out["pool apply"] = (nb * KP * (d * 4 + 4) + 2 * upool * d * es,
+                             0.0)
+    if walk:  # the pools and the slots in, their chains (3 int32 each) out
+        out["chains"] = (nb * KP * 16 + G * 1024 * 16, 0.0)
+    if gen is not None:  # K4: starts, draws and the CSR in, the walks out
+        n_walks, L, csr_bytes = gen
+        out["gen"] = (n_walks * 4 + G * 1024 * 8 + min(
+            csr_bytes, n_walks * (L - 1) * 12), 0.0)
     res = {}
     for k, (nbytes, flops) in out.items():
+        if nbytes == 0:
+            continue
         tb, to = nbytes / G / HBM_BPS, flops / G / PEAK_FLOPS[bf16]
         res[k] = (max(tb, to) * 1e6, "bytes" if tb >= to else "operations")
     return res
@@ -225,7 +281,8 @@ def routes_since(before=None):
 
 
 def split_text(split: dict) -> str:
-    return ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+    return ", ".join(f"{k} {v:.2f}" for k, v in split.items()
+                     if v is not None)
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -486,7 +543,7 @@ SCAN_MICRO = 8  # micro-steps in the scan steps' macro batch
 
 # the steps whose negative pass takes bf16 products, and the slots of a
 # group or tile of each step's pass (the karate steps' tiles are 64 pairs)
-BF16_PASS = ("K1b bench", "K2b bench", "K3")
+BF16_PASS = ("K1b bench", "K4 bench", "K2b bench", "K3")
 
 
 def pass_slots(name: str) -> int:
@@ -538,8 +595,11 @@ def library_us(dev, d: int, ids, pools, R: int, es: int, walk: bool,
     the bf16 passes' stage past d 192), once a block; "pool apply" index_add_ of a
     pool's [KP, d] update into the table, once a block; "scatter"
     index_add_ of a group's real slots' [n, d] updates, once for each table
-    the pass writes (two for a walk step).  Each over ``n`` calls; with
-    "calls", the calls by name.  A yardstick: the port never calls them."""
+    the pass writes (two for a walk step); on f32 walk tables, whose block
+    ends write the pool in their scatter, "scatter" the groups that end no
+    block and "block-end scatter" the others, with the pool's index_add_.
+    Each over ``n`` calls; with "calls", the calls by name.  A yardstick:
+    the port never calls them."""
     import torch
 
     dtype = torch.bfloat16 if es == 2 else torch.float32
@@ -560,18 +620,24 @@ def library_us(dev, d: int, ids, pools, R: int, es: int, walk: bool,
         return rows.to(out) if cast else rows
 
     tabs = 2 if walk else 1
-    us = {
-        "stage": device_us(lambda i: stage(), list(range(n))) * blocks / G,
-        "pool apply": device_us(lambda i: tab.index_add_(0, pool, upd_p),
-                                list(range(n))) * blocks / G,
-        "scatter": device_us(lambda i: tab.index_add_(0, slots, upd_s),
-                             list(range(n))) * tabs,
-    }
-    us["calls"] = {
-        "stage": "index_select" + (f" + .to({str(out)[6:]})" if cast
-                                   else ""),
-        "pool apply": "index_add_",
-        "scatter": f"index_add_ x {tabs}"}
+    apply = device_us(lambda i: tab.index_add_(0, pool, upd_p),
+                      list(range(n)))
+    scatter = device_us(lambda i: tab.index_add_(0, slots, upd_s),
+                        list(range(n))) * tabs
+    us = {"stage": device_us(lambda i: stage(), list(range(n))) * blocks / G}
+    calls = {"stage": "index_select" + (f" + .to({str(out)[6:]})" if cast
+                                        else "")}
+    if walk and es == 4:  # the f32 walk steps' pool write: the block end's
+        us["scatter"] = scatter * (G - blocks) / G
+        us["block-end scatter"] = (scatter + apply) * blocks / G
+        calls["scatter"] = f"index_add_ x {tabs}"
+        calls["block-end scatter"] = f"index_add_ x {tabs + 1}"
+    else:
+        us["pool apply"] = apply * blocks / G
+        us["scatter"] = scatter
+        calls["pool apply"] = "index_add_"
+        calls["scatter"] = f"index_add_ x {tabs}"
+    us["calls"] = calls
     return us
 
 
@@ -604,7 +670,11 @@ def steps(dev, d: int = 128):
         fused_sgns_step_tied,
     )
     from come_tpu_torch.ops.star_sgns import star_sgns_step
-    from come_tpu_torch.ops.walk_sgns import walk_sgns_step
+    from come_tpu_torch.ops.walk_sgns import (
+        walk_sgns_gen_step,
+        walk_sgns_step,
+        walks_from_bits,
+    )
     from come_tpu_torch.sampling import (
         build_alias_table,
         build_star_layout,
@@ -668,6 +738,23 @@ def steps(dev, d: int = 128):
         pool_refresh=RB, mxu_bf16=True)
     k1b.bounds = (walk_ids(walks_b), pools_1b, RB, 4, True, True)
     out.append(("K1b bench", k1b, GB, WALK_PASSES, None, KP))
+
+    # the bench path's O1 step with its walks generated on the card (K4):
+    # K1b bench's shapes, window draws and pools, the starts and 32-bit
+    # draws from a generator of their own; its walk generation is a pass
+    # of its own ("gen")
+    gk = torch.Generator(device=dev).manual_seed(2)
+    starts_k = torch.randint(0, V, (BB,), generator=gk, device=dev)
+    bits_k = torch.randint(-2 ** 31, 2 ** 31, (GB * 1024,), generator=gk,
+                           device=dev, dtype=torch.int32)
+    k4 = lambda: walk_sgns_gen_step(  # noqa: E731
+        emb_in, emb_out, starts_k, bits_k, csr.indptr, csr.indices, wrow_b,
+        pools_1b, lr, negw, walk_length=L, window=W, pool_refresh=RB,
+        mxu_bf16=True)
+    walks_k = walks_from_bits(starts_k, bits_k, csr.indptr, csr.indices, L)
+    k4.bounds = (walk_ids(walks_k), pools_1b, RB, 4, True, True)
+    k4.gen = (BB, L, 4 * (csr.indptr.numel() + csr.indices.numel()))
+    out.append(("K4 bench", k4, GB, WALK_GEN_PASSES, None, KP))
 
     u, v = ds.graph.edges_undirected()
     slots, meta = build_star_layout(u, v, V)
@@ -842,23 +929,33 @@ def main(argv=None) -> int:
         # a tree whose wrappers count no routes runs the same sequence
         before, out = routes_since(), []
         split, total = pass_split(lambda: out.append(step()), groups, passes)
-        # K3's pools sorted into chains once a step, before its groups
-        # (csrc/sgns_common.cuh: pool_chains_kernel; none in other steps
-        # or trees)
+        # a walk step's pools sorted into chains once a step, before its
+        # groups (csrc/sgns_common.cuh: pool_chains_kernel; in another
+        # tree K3's alone), and its groups' slots beside it
+        # (slot_chains_kernel)
+        walk = passes in (WALK_PASSES, WALK_GEN_PASSES)
         chains_us = device_us(lambda i: step(), [0, 1], "pool_chains",
-                              required=False) if name == "K3" else None
-        # and its groups' slots, beside it (slot_chains_kernel)
+                              required=False) if walk else None
         slots_us = device_us(lambda i: step(), [0, 1], "slot_chains",
-                             required=False) if name == "K3" else None
+                             required=False) if walk else None
         taken = None if before is None else set(routes_since(before))
         route = taken.pop() if taken and len(taken) == 1 else None
-        bounds = lib_us = None
+        bounds = lib_us = per_launch = None
         if hasattr(step, "bounds"):  # from this step's inputs and pairs
             ids, pools, R, es, bf16, walk = step.bounds
             bounds = pass_bounds(ids, pools, R, args.dim, es, bf16,
-                                 float(out[-1][-1]), walk)
+                                 float(out[-1][-1]), walk,
+                                 getattr(step, "gen", None))
             lib_us = library_us(dev, args.dim, ids, pools, R, es, walk,
                                 bf16 and args.dim > 192)
+            # the f32 slot writes a launch: the groups that end no block,
+            # and the block ends' (their pool write folded in)
+            nb = pools.shape[0]
+            per_launch = {
+                p: split[p] * groups / n for p, n in (
+                    ("scatter", groups - nb), ("block-end scatter", nb))
+                if split.get(p) is not None and n > 0} if walk and es == 4 \
+                else None
         del out
         line = {
             "card": card, "label": args.label,
@@ -879,6 +976,7 @@ def main(argv=None) -> int:
             # one PyTorch call a pass for the stage, pool apply and
             # scatter (library_us)
             "library_us_per_group": lib_us,
+            "scatter_us_per_launch": per_launch,
             "pool_chains_us_per_step": chains_us,
             "slot_chains_us_per_step": slots_us,
             "library3_ms": library3_ms(dev, pass_slots(name), KP, args.dim

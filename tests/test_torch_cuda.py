@@ -28,7 +28,13 @@ parity harness must pass on the card; the pool stage, the bf16 stage past d
 192 and K3's pool write alone (``chip_smoke.pool_check``, phase 4m's cases
 on a unigram and a hub-heavy pool), K3's slot chains and slot scatter
 alone (``chip_smoke.slot_check``, on random walks and hub-heavy groups; the
-scatter run twice) their plain versions bit for bit.  Six consecutive K1, K3 and K2
+scatter run twice), and the f32 slot writes alone, with and without the
+block end's pool (``chip_smoke.f32_scatter_check``, run twice, against the
+plain version on a CPU copy; its fold chains ``chip_smoke.fold_check``)
+their plain versions bit for bit; a step's
+pool passes are counted as its C loop launched them (every walk step's
+chains, the f32 block end's scatter in place of a pool write).  Six
+consecutive K1, K3 and K2
 steps through one launch plan's graph each (``chip_smoke.graph_steps``)
 must each pass their mode's check, with at most one instantiation; six K6
 and six K7 micro-steps through one plan (``chip_smoke.fused_steps``) the
@@ -100,6 +106,7 @@ from chip_smoke import (
     B2B_MODES,
     B2B_WIDE,
     BF16_SLAB,
+    F32_SCATTER_WIDTHS,
     FUSED_EDGES,
     G1_WIDTHS,
     POOL_APPLIES,
@@ -116,6 +123,8 @@ from chip_smoke import (
     WIDE_WIDTHS,
     em_graph_check,
     em_linalg_check,
+    f32_scatter_check,
+    fold_check,
     fused_scan_check,
     fused_steps,
     fused_stress,
@@ -1362,6 +1371,32 @@ def test_slot_scatter_twice_equals_its_plain_version_bit_for_bit(dev, kind,
 
 
 @pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("d", F32_SCATTER_WIDTHS)
+def test_f32_scatter_twice_equals_its_plain_version_bit_for_bit(dev, kind,
+                                                                fold, d):
+    # f32_scatter_check runs the kernel twice, on fresh copies of the
+    # tables, and holds both runs to the plain version's bits on a CPU
+    # copy; the block end's pool (KP 100) draws eight of the group's rows
+    # and eight others over and over
+    slots, V, gen = _slots(dev, kind, d + fold, G=1)
+    pool = None
+    if fold:
+        rows = torch.cat([torch.unique(slots[(torch.arange(
+            NWL, device=dev) % 128) < 80])[:8], torch.randint(
+                0, V, (8,), generator=gen, device=dev)])
+        pool = rows[torch.randint(0, 16, (100,), generator=gen,
+                                  device=dev)].to(torch.int32)
+    r = f32_scatter_check(dev, d, slots, 80, V, gen, pool, timed=False)
+    assert r["identical"] == 1.0
+    if kind == "hub":
+        assert r["chain"] >= 20
+    if fold:  # the fold chains the block end looks its owners up in
+        assert fold_check(dev, slots, 80, pool, timed=False)[
+            "identical"] == 1.0
+
+
+@pytest.mark.parametrize("kind", POOL_KINDS)
 @pytest.mark.parametrize("n,KP", POOL_CHAINS)
 def test_pool_chains_equal_their_plain_version(dev, kind, n, KP):
     pool, V, gen = _pool(dev, kind, KP, n)
@@ -1374,22 +1409,28 @@ def test_pool_chains_equal_their_plain_version(dev, kind, n, KP):
 # The pool passes a step launches, counted by the C group loop as it records
 # the step (ops/walk_sgns.py::count_pool_passes): each R-block of R 2 groups
 # (B 24 walks: 3 groups, 2 blocks) has a stage ("stage_pool": f32 rows, or
-# "stage_pool_bf16": bf16 ones past d 192 in the bf16 passes) and, for K3,
-# a pool write; K3 also sorts its pools and its groups' slots once a step
-# and runs its slot scatter once a group.
+# "stage_pool_bf16": bf16 ones past d 192 in the bf16 passes) and a pool
+# write: K3's own pass, the f32 walk steps' in the block end's scatter
+# ("block_end_scatter", the other groups' "walk_scatter"), the star
+# steps' apply_pool_kernel; every walk step also sorts its pools and its
+# groups' slots once a step, and K3 runs its slot scatter once a group.
+F32_WALK = ("stage_pool", "pool_chains", "slot_chains", "walk_scatter",
+            "block_end_scatter", "fold_chains")
+
+
 @pytest.mark.parametrize("mode,d,passes", [
-    ("f32", 128, ("stage_pool",)),
-    ("f32", 256, ("stage_pool",)),
-    ("bf16", 128, ("stage_pool",)),
-    ("bf16", 256, ("stage_pool_bf16",)),
+    ("f32", 128, F32_WALK),
+    ("f32", 256, F32_WALK),
+    ("bf16", 128, F32_WALK),
+    ("bf16", 256, ("stage_pool_bf16",) + F32_WALK[1:]),
     ("bf16_tables", 128, ("stage_pool_bf16_tables", "pool_chains",
                           "apply_pool_bf16", "slot_chains",
                           "walk_scatter_bf16")),
     ("bf16_tables", 256, ("stage_pool_bf16", "pool_chains",
                           "apply_pool_bf16", "slot_chains",
                           "walk_scatter_bf16")),
-    ("star", 128, ("stage_pool",)),
-    ("star_bf16", 256, ("stage_pool_bf16",)),
+    ("star", 128, ("stage_pool", "apply_pool")),
+    ("star_bf16", 256, ("stage_pool_bf16", "apply_pool")),
 ])
 def test_steps_count_the_pool_passes_their_graph_launches(dev, mode, d,
                                                           passes):
@@ -1416,7 +1457,8 @@ def test_steps_count_the_pool_passes_their_graph_launches(dev, mode, d,
                            mxu_bf16=mode == "bf16",
                            sr_seed=7 if mode == "bf16_tables" else None)
     blocks = -(-G // R)
-    per_step = {"pool_chains": 1, "slot_chains": 1, "walk_scatter_bf16": G}
+    per_step = {"pool_chains": 1, "slot_chains": 1, "walk_scatter_bf16": G,
+                "walk_scatter": G - -(-G // R), "fold_chains": 1}
     want = {k: per_step.get(k, blocks) if k in passes else 0
             for k in POOL_LAUNCHES}
     for k in POOL_LAUNCHES:

@@ -106,8 +106,9 @@ def test_one_plan_serves_steps_with_new_addresses_lr_and_seed():
     assert args[0][7:18] == args[1][7:18]
     assert args[0][13:18] == plan.staged("walks", "wrow", "pools") + (
         plan.args.data_ptr(), plan.chains.data_ptr())
-    # the chains: 3 int32 a pool draw (2 pools of 16), then 3 a slot
-    assert plan.chains.numel() == 3 * (2 * 16 + 2 * NWL)
+    # the chains: 3 int32 a pool draw (2 pools of 16), then 3 a slot, then
+    # the f32 block ends' fold chains, 1 a slot and 1 a pool draw
+    assert plan.chains.numel() == 4 * (2 * 16 + 2 * NWL)
     assert (counts.recordings, counts.instantiations, counts.updates,
             counts.replays) == (2, 1, 1, 2)
     assert (plans[0].instantiations, plans[0].updates) == (1, 1)

@@ -94,8 +94,10 @@ def test_the_check_finds_the_pdl_kernels():
                  "apply_pool_kernel", "apply_pool_bf16_kernel",
                  "stage_pool_kernel", "stage_pool_bf16_kernel",
                  "pool_chains_kernel", "slot_chains_kernel",
+                 "fold_chains_kernel",
                  "walk_pos_kernel", "walk_pos_wide_kernel",
                  "walk_pos_slab_kernel", "walk_scatter_kernel",
+                 "block_end_scatter_kernel",
                  "walk_scatter_bf16_kernel", "star_scatter_kernel",
                  "star_pos_kernel", "star_pos_wide_kernel",
                  "star_pos_slab_kernel",

@@ -42,6 +42,7 @@ from come_tpu_torch.ops.walk_sgns import (
     POOL_PASSES,
     count_pool_passes,
     mxu,
+    new_pools,
     pool_apply_bf16_reference,
     pool_sr_bits,
     pool_stage_reference,
@@ -395,21 +396,53 @@ def test_steps_count_the_pool_passes_their_recording_launched():
     adds the recorded counts again at each replay."""
     for k in POOL_LAUNCHES:
         POOL_LAUNCHES[k] = 0
-    plan, lib = _Plan(), _Lib((0, 3, 1, 3, 0, 1, 5))
+    plan, lib = _Plan(), _Lib((0, 3, 1, 3, 0, 1, 5, 4, 2, 1, 1))
     count_pool_passes(plan, launch_plan.RECORD_INSTANTIATE, lib)
     count_pool_passes(plan, launch_plan.RECORD_NONE, lib)
     assert lib.reads == len(POOL_PASSES)  # a replay reads nothing
     assert POOL_LAUNCHES == {"stage_pool": 0, "stage_pool_bf16_tables": 6,
                              "pool_chains": 2, "apply_pool_bf16": 6,
                              "stage_pool_bf16": 0, "slot_chains": 2,
-                             "walk_scatter_bf16": 10}
-    lib.pool = (2, 0, 0, 0, 3, 0, 0)  # a new recording (a table moved)
-    count_pool_passes(plan, launch_plan.RECORD_UPDATE, lib)
+                             "walk_scatter_bf16": 10, "walk_scatter": 8,
+                             "block_end_scatter": 4, "apply_pool": 2,
+                             "fold_chains": 2}
+    lib.pool = (2, 0, 0, 0, 3, 0, 0, 0, 0, 0, 0)  # a new recording (a
+    count_pool_passes(plan, launch_plan.RECORD_UPDATE, lib)  # table moved)
     assert POOL_LAUNCHES["stage_pool"] == 2
     assert POOL_LAUNCHES["stage_pool_bf16"] == 3
     plan.slot = "gone"
     with pytest.raises(RuntimeError):
         count_pool_passes(plan, launch_plan.RECORD_UPDATE, lib)
+    for k in POOL_LAUNCHES:
+        POOL_LAUNCHES[k] = 0
+
+
+def test_steps_count_their_own_pool_passes_beside_the_total():
+    """With a step wrapper, count_pool_passes also adds the step's passes
+    to that wrapper's ``pools``, so a run tells the walk steps' pool
+    writes from the star steps'."""
+    for k in POOL_LAUNCHES:
+        POOL_LAUNCHES[k] = 0
+
+    def walk():
+        pass
+
+    def star():
+        pass
+
+    walk.pools, star.pools = new_pools(), new_pools()
+    plan_w, plan_s = _Plan(), _Plan()
+    lib_w = _Lib((1, 0, 1, 0, 0, 1, 0, 3, 2, 0, 1))  # K1b: R 2, 5 groups
+    lib_s = _Lib((2, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0))  # K2: 2 blocks
+    for _ in range(2):
+        count_pool_passes(plan_w, launch_plan.RECORD_NONE, lib_w, walk)
+        count_pool_passes(plan_s, launch_plan.RECORD_NONE, lib_s, star)
+    count_pool_passes(plan_s, launch_plan.RECORD_NONE, lib_s)
+    assert walk.pools["block_end_scatter"] == 4
+    assert walk.pools["walk_scatter"] == 6 and walk.pools["apply_pool"] == 0
+    assert star.pools["apply_pool"] == 4 and star.pools["walk_scatter"] == 0
+    assert POOL_LAUNCHES["apply_pool"] == 6
+    assert POOL_LAUNCHES["stage_pool"] == 2 + 6
     for k in POOL_LAUNCHES:
         POOL_LAUNCHES[k] = 0
 
@@ -432,6 +465,8 @@ def test_the_pool_passes_are_named_in_the_c_order():
     ("come_pool_stage_wide_bf16", "pool_pass.cu"),
     ("come_slot_chains", "walk_sgns.cu"),
     ("come_walk_scatter_bf16", "walk_sgns.cu"),
+    ("come_walk_scatter_f32", "walk_sgns.cu"),
+    ("come_fold_chains", "walk_sgns.cu"),
     ("come_walk_sgns_step", "walk_sgns.cu"),
     ("come_walk_sgns_gen_step", "walk_sgns.cu"),
     ("come_step_graph_pool", "step_graph.cu"),

@@ -22,10 +22,14 @@ import torch
 
 from come_tpu.ops.pallas_walk_sgns import fused_walk_sgns_step
 from come_tpu_torch.ops import walk_sgns as ws
+from come_tpu_torch.ops.pool_pass import pool_chains_reference
 from come_tpu_torch.ops.scatter_pass import (
+    fold_chains,
+    fold_chains_reference,
     slot_chains,
     slot_chains_reference,
     walk_scatter_bf16,
+    walk_scatter_f32,
 )
 from come_tpu_torch.ops.walk_sgns import (
     LP,
@@ -35,6 +39,7 @@ from come_tpu_torch.ops.walk_sgns import (
     sr_bits,
     sr_key,
     walk_scatter_bf16_reference,
+    walk_scatter_f32_reference,
     walk_sgns_step,
 )
 
@@ -302,3 +307,255 @@ def test_the_wrappers_run_their_plain_versions_on_the_cpu():
         slot_chains(ids[:1000], L)
     with pytest.raises(ValueError):  # L past a walk's 128 positions
         slot_chains(ids, LP + 1)
+
+
+# ----------------------------- the f32 owner scatter and the folded pool write
+
+
+def _f32_loop(emb_in, emb_out, ids, dphi, dphin, dctx, lr, L, pool=None,
+              dneg=None):
+    """The f32 slot and pool writes element by element in numpy, in the
+    plain step's order: each row's terms f32((dphi + dphin) * -lr) and
+    f32(dctx * -lr) summed in float64 over its slots in slot order and
+    added once, then each pool draw in draw order, f32(row + f32(dneg *
+    -lr))."""
+    ei, eo = emb_in.numpy().copy(), emb_out.numpy().copy()
+    nlr = np.float32(-lr)
+    a = (dphi.numpy() + dphin.numpy()) * nlr
+    c = dctx.numpy() * nlr
+    sx, sy = {}, {}
+    for t in range(NWL):
+        if t % LP < L:
+            v = int(ids[t])
+            sx[v] = sx.get(v, 0.0) + a[t].astype(np.float64)
+            sy[v] = sy.get(v, 0.0) + c[t].astype(np.float64)
+    for v in sx:
+        ei[v] = (ei[v].astype(np.float64) + sx[v]).astype(np.float32)
+        eo[v] = (eo[v].astype(np.float64) + sy[v]).astype(np.float32)
+    if pool is not None:
+        u = dneg.numpy() * nlr
+        for k, v in enumerate(pool.tolist()):
+            eo[v] = eo[v] + u[k]
+    return ei, eo
+
+
+def _f32_pool(kind, rng, ids, V, KP, L):
+    """A pool of KP draws over V rows: uniform ("uniform"), or drawing the
+    group's real slots' rows and a few others over and over ("shared": a
+    row in both the slots and the pool, drawn many times)."""
+    if kind == "uniform":
+        return torch.tensor(rng.integers(0, V, KP), dtype=torch.int32)
+    real = ids[(torch.arange(NWL) % LP) < L].unique().numpy()
+    rows = np.r_[rng.choice(real, size=min(3, real.size), replace=False),
+                 rng.integers(0, V, 3)]
+    return torch.tensor(rows[rng.integers(0, rows.size, KP)],
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hub", "cycle"])
+@pytest.mark.parametrize("L", [80, 128, 37, 1])
+@pytest.mark.parametrize("pool", [None, "uniform", "shared"])
+def test_f32_scatter_reference_equals_a_slot_by_slot_loop(kind, L, pool):
+    """walk_scatter_f32_reference (and the wrapper on the CPU) writes the
+    bits of the plain step's order, element by element: one float64 sum a
+    row over its slots in slot order, then the block end's draws in draw
+    order (KP 100), on hub-heavy groups, ragged L and a pool that draws
+    the slots' rows many times."""
+    rng = np.random.default_rng(L + len(kind))
+    V, d, lr, KP = 300, 20, 0.05, 100
+    tabs = [torch.tensor(rng.normal(size=(V, d)).astype(np.float32) * .1)
+            for _ in range(2)]
+    ids = _group(kind, rng, V, L).to(torch.int32)
+    dphi, dphin, dctx = (torch.tensor(rng.normal(size=(NWL, d)).astype(
+        np.float32)) for _ in range(3))
+    p = None if pool is None else _f32_pool(pool, rng, ids, V, KP, L)
+    dneg = torch.tensor(rng.normal(size=(KP, d)).astype(np.float32))
+    want = _f32_loop(*tabs, ids, dphi, dphin, dctx, lr, L, p, dneg)
+    got = walk_scatter_f32_reference(*[t.clone() for t in tabs], ids, dphi,
+                                     dctx, lr, L, dphin=dphin, pool=p,
+                                     dneg=dneg)
+    wrapped = walk_scatter_f32(*[t.clone() for t in tabs], ids, dphi, dphin,
+                               dctx, lr, L=L, pool=p,
+                               dneg=None if p is None else dneg)
+    for a, b, w in zip(got, wrapped, want):
+        assert np.array_equal(a.numpy().view(np.int32), w.view(np.int32))
+        assert torch.equal(a, b)
+    moved = (got[1] != tabs[1]).any(1)
+    if pool == "shared":  # rows in both: their slots' sum, then their draws
+        both = set(ids[(torch.arange(NWL) % LP) < L].tolist()) & set(
+            p.tolist())
+        assert both and all(bool(moved[v]) for v in both)
+
+
+def test_f32_scatter_sums_a_row_once_and_draws_in_order():
+    """On a row that a hub's 800 slots and 100 draws write, the float64 sum
+    added once and the draws applied one by one in draw order land
+    elsewhere than f32 adds slot by slot (index_add_ in f32) or the draws
+    in another order: the write order shows."""
+    rng = np.random.default_rng(4)
+    V, d, L, lr, KP = 40, 16, 100, 0.5, 100
+    tabs = [torch.tensor(rng.normal(size=(V, d)).astype(np.float32))
+            for _ in range(2)]
+    ids = torch.full((NWL,), 7, dtype=torch.int32)
+    dphi, dphin, dctx = (torch.tensor(rng.normal(size=(NWL, d)).astype(
+        np.float32)) for _ in range(3))
+    pool = torch.full((KP,), 7, dtype=torch.int32)
+    dneg = torch.tensor(rng.normal(size=(KP, d)).astype(np.float32) * 1e3)
+    ei, eo = walk_scatter_f32_reference(
+        *[t.clone() for t in tabs], ids, dphi, dctx, lr, L, dphin=dphin,
+        pool=pool, dneg=dneg)
+    real = (torch.arange(NWL) % LP) < L
+    f32 = tabs[0].clone().index_add_(0, ids[real].long(),
+                                     ((dphi + dphin)[real] * -lr))
+    assert not torch.equal(ei[7], f32[7])
+    perm = torch.randperm(KP, generator=torch.Generator().manual_seed(0))
+    _, eo2 = walk_scatter_f32_reference(
+        *[t.clone() for t in tabs], ids, dphi, dctx, lr, L, dphin=dphin,
+        pool=pool[perm], dneg=dneg[perm])
+    assert not torch.equal(eo[7], eo2[7])
+    assert torch.equal(ei[:7], tabs[0][:7])  # no other row moved
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hub", "cycle"])
+@pytest.mark.parametrize("L", [80, 1, 128, 37])
+@pytest.mark.parametrize("KP", [100, 2048])
+def test_the_fold_chains_look_each_chain_up_in_the_other(kind, L, KP):
+    """fold_chains' plain version (and the wrapper on the CPU), entry by
+    entry: a real slot's place of its row's first draw in the pool's chain
+    (a stable sort of the pool), -1 where the pool does not draw it and at
+    padding slots; a draw's 1 where its row is a real slot's."""
+    rng = np.random.default_rng(L + KP + len(kind))
+    V = 500
+    ids = _group(kind, rng, V, L).to(torch.int32)
+    pool = _f32_pool("shared", rng, ids, V, KP, L)
+    fold_slot, fold_draw = fold_chains(ids, L, pool)
+    ref = fold_chains_reference(ids, L, pool)
+    assert torch.equal(fold_slot, ref[0]) and torch.equal(fold_draw, ref[1])
+    assert fold_slot.dtype == fold_draw.dtype == torch.int32
+    chain = sorted(range(KP), key=lambda k: (int(pool[k]), k))
+    rows = {int(ids[t]) for t in range(NWL) if t % LP < L}
+    for t in range(NWL):
+        v = int(ids[t])
+        first = next((i for i, k in enumerate(chain) if int(pool[k]) == v),
+                     -1)
+        assert int(fold_slot[t]) == (first if t % LP < L else -1)
+    assert fold_draw.tolist() == [int(int(v) in rows) for v in pool]
+    assert (fold_slot >= 0).any() and fold_draw.any()
+
+
+def _f32_owners(ids, L, pool):
+    """Each team's row in a block end's f32 scatter, as walk_sgns.cu's
+    f32_owner decides it on the chains: real slot team i owns its row where
+    it is the row's first slot, with the row's draws from its fold_slot
+    place where the pool draws it; pool team k where it is the row's first
+    draw and fold_draw[k] is 0.  Returns {row: [(team kind, slot or draw,
+    slots, draws)]}."""
+    info, order = slot_chains_reference(ids, L)
+    pinfo, porder = pool_chains_reference(pool)
+    fold_slot, fold_draw = fold_chains_reference(ids, L, pool)
+    info, order, pinfo, porder = (x[0].tolist() for x in
+                                  (info, order, pinfo, porder))
+    fold_slot, fold_draw = fold_slot.tolist(), fold_draw.tolist()
+    ids = ids.tolist()
+    n_real, KP = 8 * L, len(pool)
+    out = {}
+    for i in range(n_real + KP):
+        if i < n_real:
+            t = i // L * LP + i % L
+            place, n = info[t]
+            if n == 0:
+                continue
+            at = fold_slot[t]
+            pn = pinfo[porder[at]][1] if at >= 0 else 0
+            out.setdefault(ids[t], []).append(
+                ("slot", t, order[place:place + n],
+                 [porder[at + j] for j in range(pn)]))
+        else:
+            k = i - n_real
+            place, pn = pinfo[k]
+            if pn > 0 and not fold_draw[k]:
+                out.setdefault(int(pool[k]), []).append(
+                    ("pool", k, [], porder[place:place + pn]))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hub", "cycle"])
+@pytest.mark.parametrize("L", [80, 1, 128, 37])
+@pytest.mark.parametrize("KP", [100, 2048])
+def test_every_touched_row_has_one_owner_and_slots_outrank_draws(kind, L,
+                                                                 KP):
+    rng = np.random.default_rng(L + KP)
+    V = 500
+    ids = _group(kind, rng, V, L).to(torch.int32)
+    pool = _f32_pool("shared", rng, ids, V, KP, L) if kind != "uniform" \
+        else torch.tensor(rng.integers(0, V, KP), dtype=torch.int32)
+    owners = _f32_owners(ids, L, pool)
+    real = [t for t in range(NWL) if t % LP < L]
+    slot_rows = {int(ids[t]) for t in real}
+    assert set(owners) == slot_rows | set(pool.tolist())
+    for v, own in owners.items():
+        assert len(own) == 1, (v, own)
+        who, at, slots, draws = own[0]
+        assert who == ("slot" if v in slot_rows else "pool")
+        assert slots == [t for t in real if int(ids[t]) == v]
+        assert draws == [k for k in range(KP) if int(pool[k]) == v]
+        assert at == (slots or draws)[0]
+    if kind != "uniform":
+        assert any(o[0][2] and o[0][3] for o in owners.values())
+
+
+def _hub_walks(rng, V, B, L):
+    """[B, L] walks that four rows fill: every group repeats them."""
+    return _walks("hub", rng, V, B, L)
+
+
+@pytest.mark.parametrize("mode", ["K1", "K1b", "K5"])
+def test_f32_steps_with_hub_rows_in_slots_and_pools_match_pallas(mode):
+    """A whole K1, K1b and K5 step on walks (K5: edge rows) that four hub
+    rows fill, a ragged L, KP 100 with R 3 (a last block of one group) and
+    pools that draw the hubs over and over, against the Pallas kernel in
+    interpret mode: K1 and K5 at the kernel tests' f32 tolerance (rtol
+    1e-3, atol 3e-5, loss rtol 1e-4, exact pair counts), K1b under
+    ops/tolerance.py's bf16 check (its f32 step's updates must fail it)."""
+    from come_tpu_torch.ops.tolerance import check_bf16
+
+    rng = np.random.default_rng(len(mode))
+    V, d, KP, R, B = 70, 32, 100, 3, 32  # 4 groups, 2 blocks
+    paired = mode == "K5"
+    L, W = (40, 1) if paired else (37, 3)
+    ei, eo = ((rng.normal(size=(V, d)) * 0.1).astype(np.float32)
+              for _ in range(2))
+    walks = _hub_walks(rng, V, B, L)
+    if paired:  # edges between a hub and another row
+        walks[:, 1::2] = (walks[:, 0::2] + 1 + rng.integers(
+            0, V - 1, (B, L // 2))) % V
+    hubs = np.unique(walks)[:4] if paired else np.unique(walks)
+    pools = np.r_[hubs, rng.integers(0, V, 4)][
+        rng.integers(0, hubs.size + 4, (2, KP))].astype(np.int32)
+    lr, negw = 0.05, 5.0 / KP
+    bf16 = mode == "K1b"
+    ji, jo, jl, jn = fused_walk_sgns_step(
+        jnp.asarray(ei), jnp.asarray(eo), jnp.asarray(walks),
+        jnp.asarray(pools), lr, negw, seed=0, window=W, interpret=True,
+        reduced_window=False, pool_refresh=R, paired=paired, mxu_bf16=bf16)
+
+    def port(rnd):
+        return walk_sgns_step(
+            torch.tensor(ei), torch.tensor(eo), torch.tensor(walks),
+            None if paired else torch.full((4 * NWL,), W, dtype=torch.int32),
+            torch.tensor(pools), lr, negw, window=W, pool_refresh=R,
+            paired=paired, mxu_bf16=rnd)
+
+    ti, to, tl, tn = port(bf16)
+    assert float(tn) == float(jn)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
+    if bf16:
+        fi, fo, _, _ = port(False)
+        check_bf16("K1b", (ei, eo), (ti, to),
+                   (np.array(ji), np.array(jo)), (fi, fo))
+    else:
+        np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-3,
+                                   atol=3e-5)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-3,
+                                   atol=3e-5)
+    assert (to.numpy()[hubs] != eo[hubs]).all(1).any()
