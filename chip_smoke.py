@@ -105,8 +105,17 @@ non-zero and prints no result line):
                phase 4h's hot row with a pool of 100 that draws it; each
                run twice and held against the plain version on a CPU
                copy; the fold chains, fold_chains_kernel, of each case's
-               group and pool), each held bit for bit against its plain
-               version
+               group and pool); and the star writes ("star writes", run
+               after phase 4i: STAR_WRITE_KINDS, star_scatter_kernel alone
+               and star_block_end_scatter_kernel with its pool write, at d
+               128, 256 and 130, on phase 4's blogcatalog group with its
+               pool of 512 and on a split-hub layout with pools of 100 and
+               2048 that draw the hub over and over, each run twice
+               against the plain version on a CPU copy; the star chains
+               of each layout; the fold chains of phase 4's step at R 1
+               and of the hub layout's at R 3; the hub layout's K2 step at
+               R 3 under the f32 check), each held bit for bit against its
+               plain version
                (ops/walk_sgns.py: pool_stage_reference,
                pool_apply_bf16_reference, walk_scatter_bf16_reference;
                ops/pool_pass.py: pool_chains_reference,
@@ -385,7 +394,10 @@ step: come_step_graph_pool; each step wrapper also keeps its own in
 slot and fold chains and block_end_scatter_kernel and no apply_pool_kernel
 (the star steps' pool write), as must 5b's; the bench runs of 12-13 and
 5c the chains, walk_scatter_kernel and block_end_scatter_kernel (R 8),
-and none of them apply_pool_kernel from a walk step; phase 14 K3's stage,
+and none of them apply_pool_kernel from a walk step; every star step of
+phases 4, 4b, 4e, 4i, 5, 5b and 12-13 its pool, star and fold chains once a
+step, star_block_end_scatter_kernel once a block (at R 8 star_scatter_kernel
+for the other groups) and no apply_pool_kernel; phase 14 K3's stage,
 pool write, pool chains, slot chains and slot scatter, 5c's K3 run its
 pool write, slot chains, slot scatter and the bf16 stage past d 192, 5c's
 bench runs that stage (and 12-13's at d 128 none of it).
@@ -613,6 +625,24 @@ WIDE_STAGES = ((torch.float32, 512, 256), (torch.bfloat16, 2048, 256),
 # ("hot").
 F32_SCATTER_WIDTHS = (128, 256, 300)
 F32_KINDS = (("unigram", 512), ("hub", 2048), ("hot", 100))
+
+
+# Phase 4m's star cases (star_phase): the star chains over a whole layout,
+# the star scatter alone and the star block end with its pool write folded
+# in, at d 128, 256 and 130 (a float4 a lane, two, and one element a lane:
+# d not a multiple of 4), on the first group of phase 4's blogcatalog star
+# step with its uniform pool of K2's KP 512 ("blog"), and on the first
+# group of a "hub" layout (star_edge_layout: node 0 of degree 300 split
+# into segments over several rows of a group) with pools of KP 100 and
+# 2048 that draw the hub and a few of the group's rows over and over
+# ("hub"); the fold chains of the hub layout's step with those pools at R
+# 3 (a last block of fewer groups), and that whole step, K2 at R 3, against
+# its plain step under the f32 check where the plain step meets that check
+# against its float64 run, else against the float64 step within twice the
+# plain f32 steps' own distance from it (conditioned_compare).
+STAR_WRITE_WIDTHS = (128, 256, 130)
+STAR_WRITE_KINDS = (("blog", 512), ("hub", 100), ("hub", 2048))
+STAR_WRITE_R = 3
 
 
 def pool_draws(kind, KP, V, alias, gen, dev):
@@ -1057,6 +1087,248 @@ def f32_phase(dev, smi, V, alias, gen, slots, L) -> dict:
     return res
 
 
+def star_scatter_check(dev, d, slots, meta, V, gen, pool=None,
+                       timed=True) -> dict:
+    """The star slot writes of one group (star_scatter_kernel; with
+    ``pool`` int32 [KP], the block end's with the pool write folded in,
+    star_block_end_scatter_kernel) through their C entry
+    (ops/scatter_pass.py) on ``slots`` and ``meta`` int32 [1024], an f32
+    [V, d] table, dphi, dphin (and dneg) ~ N(0, 1), lr 0.025; run twice on
+    fresh copies of the table, and both runs held bit for bit against the
+    plain version run on a CPU copy of the same inputs (_held).  The
+    PyTorch calls beside it: index_add_ of the real slots' dphi and of
+    their dphin with alpha -lr (and of the pool's dneg: index_add_ x 3).
+    The bound: each input read once (the slots, the real slots' chains and
+    updates, dneg, the pool's ids and chains and the fold chains, the
+    distinct rows), each output written once."""
+    from come_tpu_torch.ops.pool_pass import pool_chains
+    from come_tpu_torch.ops.scatter_pass import (
+        star_chains,
+        star_fold_chains,
+        star_scatter,
+        star_scatter_reference,
+    )
+    from come_tpu_torch.ops.walk_sgns import NWL
+    from come_tpu_torch.sampling.stars import PAD_META
+
+    lr = 0.025
+    real = meta != PAD_META
+    ids = slots.long()[real]
+    emb = torch.randn((V, d), generator=gen, device=dev) * 0.1
+    dphi, dphin = (torch.randn((NWL, d), generator=gen, device=dev)
+                   for _ in range(2))
+    KP = 0 if pool is None else pool.numel()
+    dneg = None if pool is None else torch.randn((KP, d), generator=gen,
+                                                 device=dev)
+    kw = dict(pool=pool, dneg=dneg)
+    args = (slots, meta, dphi, dphin, lr)
+    kern = star_scatter(emb.clone(), *args, **kw)
+    again = star_scatter(emb.clone(), *args, **kw)
+    cpu = [x.cpu() if x is not None else None
+           for x in (emb, slots, meta, dphi, dphin, pool, dneg)]
+    plain = star_scatter_reference(*cpu[:5], lr, pool=cpu[5], dneg=cpu[6])
+    views = [(a.cpu().view(torch.int32), plain.view(torch.int32))
+             for a in (kern, again)]
+    chains = star_chains(slots, meta)
+    pch = None if pool is None else pool_chains(pool)
+    fold = None if pool is None else star_fold_chains(
+        slots, meta, pool, chains=chains, pool_chains_of=pch)
+    run = lambda i: star_scatter(  # noqa: E731
+        emb, *args, chains=chains, pool_chains_of=pch, fold=fold, **kw)
+    emb_p = emb.clone()
+    plain_run = lambda: star_scatter_reference(  # noqa: E731
+        emb_p, *args, pool=pool, dneg=dneg)
+    p64 = None if pool is None else pool.long()
+    dr, dnr = dphi[real], dphin[real]
+
+    def lib(i):
+        emb.index_add_(0, ids, dr, alpha=-lr)
+        emb.index_add_(0, ids, dnr, alpha=-lr)
+        if pool is not None:
+            emb.index_add_(0, p64, dneg, alpha=-lr)
+
+    n = int(real.sum())
+    uniq, reps = torch.unique(ids, return_counts=True)
+    rows = uniq if pool is None else torch.unique(torch.cat([ids, p64]))
+    nbytes = NWL * 4 + 12 * n + 2 * n * d * 4 + 2 * rows.numel() * d * 4
+    if pool is not None:  # the pool's ids, chains and dneg, the fold chains
+        nbytes += 4 * KP + 12 * KP + KP * d * 4 + 4 * (NWL + KP)
+        reps = reps.max() + torch.unique(p64, return_counts=True)[1].max()
+    both = 0 if pool is None else int(torch.isin(uniq, p64).sum())
+    name = (f"star {'block-end scatter KP ' + str(KP) if KP else 'scatter'} "
+            f"d {d}" + (f" ({both} rows in both)" if KP else ""))
+    return _held(name, views, run, plain_run, lib, nbytes, reps.max(),
+                 rows.numel(), timed)
+
+
+def star_chains_check(dev, slots, meta, timed=True) -> dict:
+    """The star chains of a whole layout (slot_chains_kernel on the meta,
+    through its C entry: ops/scatter_pass.py) on ``slots`` and ``meta``
+    int32 [G * 1024], held bit for bit against the plain version on a CPU
+    copy (_held).  The PyTorch call beside it: a stable sort of each
+    group's keys (pads last).  The bound: the slots and meta read once, the
+    chains (3 int32 a slot) written once."""
+    from come_tpu_torch.ops.scatter_pass import (
+        star_chains,
+        star_chains_reference,
+    )
+    from come_tpu_torch.ops.walk_sgns import NWL
+    from come_tpu_torch.sampling.stars import PAD_META
+
+    G = slots.numel() // NWL
+    kern = star_chains(slots, meta)
+    plain = star_chains_reference(slots.cpu(), meta.cpu())
+    views = [(a.cpu(), b) for a, b in zip(kern, plain)]
+    run = lambda i: star_chains(slots, meta)  # noqa: E731
+    plain_run = lambda: star_chains_reference(slots, meta)  # noqa: E731
+    keys = torch.where(meta != PAD_META, slots.long(), 1 << 40).view(G, NWL)
+    lib = lambda i: torch.sort(keys, dim=1, stable=True)  # noqa: E731
+    reps = max(int(torch.unique(q[q < (1 << 40)], return_counts=True)[1]
+                   .max()) for q in keys)
+    real = meta != PAD_META
+    rows = sum(int(torch.unique(slots[g * NWL:(g + 1) * NWL][
+        real[g * NWL:(g + 1) * NWL]]).numel()) for g in range(G))
+    return _held(f"star chains {G} groups", views, run, plain_run, lib,
+                 8 * slots.numel() + 12 * slots.numel(), reps, rows, timed)
+
+
+def star_fold_check(dev, slots, meta, pools, R, timed=True) -> dict:
+    """The fold chains of a star step's blocks (fold_chains_kernel on the
+    meta, through its C entry: ops/scatter_pass.py) on ``slots``, ``meta``
+    int32 [G * 1024] and ``pools`` int32 [ceil(G / R), KP], R groups a
+    block, held bit for bit against the plain version on a CPU copy
+    (_held).  The PyTorch calls beside it: a sort of each pool,
+    searchsorted of its block's last group's slots in it and isin of the
+    pool in them.  The bound: the slots, meta, their chains, the pools and
+    their chains read once, the two outputs written once."""
+    from come_tpu_torch.ops.pool_pass import pool_chains
+    from come_tpu_torch.ops.scatter_pass import (
+        star_chains,
+        star_fold_chains,
+        star_fold_chains_reference,
+    )
+    from come_tpu_torch.ops.walk_sgns import NWL
+
+    G = slots.numel() // NWL
+    nb, KP = pools.shape
+    chains, pch = star_chains(slots, meta), pool_chains(pools)
+    kern = star_fold_chains(slots, meta, pools, R=R, chains=chains,
+                            pool_chains_of=pch)
+    plain = star_fold_chains_reference(slots.cpu(), meta.cpu(), pools.cpu(),
+                                       R)
+    views = [(a.cpu(), b) for a, b in zip(kern, plain)]
+    run = lambda i: star_fold_chains(  # noqa: E731
+        slots, meta, pools, R=R, chains=chains, pool_chains_of=pch)
+    plain_run = lambda: star_fold_chains_reference(  # noqa: E731
+        slots, meta, pools, R)
+    ends = [min(b * R + R - 1, G - 1) for b in range(nb)]
+    s64 = slots.long().view(G, NWL)[ends]
+    p64 = pools.long()
+
+    def lib(i):
+        ids = torch.sort(p64, dim=1).values
+        return torch.searchsorted(ids, s64), torch.isin(p64, s64)
+
+    nbytes = 4 * (4 * slots.numel() + 4 * pools.numel()) + \
+        4 * (nb * NWL + pools.numel())
+    both = p64[kern[1].bool()]  # the draws of rows in both
+    return _held(f"star fold chains {G} groups R {R} KP {KP}", views, run,
+                 plain_run, lib, nbytes, both.numel(),
+                 torch.unique(both).numel(), timed)
+
+
+def star_hub_pool(KP, slots, meta, V, gen, dev):
+    """A pool of KP draws of node 0 (the hub layouts' hub), three of the
+    group's real rows and two others, over and over (int32 [KP])."""
+    from come_tpu_torch.sampling.stars import PAD_META
+
+    real = torch.unique(slots[meta != PAD_META])
+    pick = real[torch.randperm(real.numel(), generator=gen, device=dev)[:3]]
+    rows = torch.cat([torch.zeros(1, dtype=real.dtype, device=dev), pick,
+                      torch.randint(1, V, (2,), generator=gen, device=dev,
+                                    dtype=real.dtype)])
+    return rows[torch.randint(0, rows.numel(), (KP,), generator=gen,
+                              device=dev)].to(torch.int32)
+
+
+def star_phase(dev, smi, sl, mt, pools, V, gen) -> dict:
+    """Phase 4m's star writes: every STAR_WRITE_KINDS case at each of
+    STAR_WRITE_WIDTHS, the scatter alone and with the block end's pool,
+    through star_scatter_check (timed), the star chains of each layout
+    (star_chains_check) and the fold chains of each hub pool's step at
+    STAR_WRITE_R (star_fold_check); ``sl``, ``mt`` phase 4's blogcatalog
+    star step over V rows, ``pools`` its pools (the first, KP 512).  Then
+    the hub layout's K2 step at STAR_WRITE_R with each hub pool, held
+    against its plain step by conditioned_compare.  Prints one line; returns
+    the cases by (kind, d, KP or 0), (kind, "chains") and (kind, "fold",
+    KP): phase 4's step's fold chains at R 1, the hub layout's at
+    STAR_WRITE_R."""
+    from come_tpu_torch.ops.star_sgns import (
+        star_sgns_step,
+        star_sgns_step_reference,
+    )
+    from come_tpu_torch.ops.walk_sgns import NWL
+    from come_tpu_torch.sampling.stars import PAD_META
+
+    res, lines = {}, []
+    Vh = 3000
+    hs, hm = star_edge_layout(Vh, 20000, "hub", Vh + 24)
+    Gh = -(-hs.size // NWL)
+    hs = torch.as_tensor(np.pad(hs, (0, Gh * NWL - hs.size)), device=dev)
+    hm = torch.as_tensor(np.pad(hm, (0, Gh * NWL - hm.size),
+                                constant_values=PAD_META), device=dev)
+    for kind, KP in STAR_WRITE_KINDS:
+        if kind == "blog":
+            Vk, s, m, pool = V, sl, mt, pools[0]
+        else:
+            Vk, s, m = Vh, hs, hm
+            pool = star_hub_pool(KP, s[:NWL], m[:NWL], Vk, gen, dev)
+        if (kind, "chains") not in res:
+            r = res[(kind, "chains")] = star_chains_check(dev, s, m)
+            lines.append(f"{kind}: " + pool_text(r))
+        if kind == "hub":
+            nb = -(-Gh // STAR_WRITE_R)
+            hp = torch.stack([pool] + [star_hub_pool(
+                KP, s[:NWL], m[:NWL], Vk, gen, dev) for _ in range(nb - 1)])
+            r = res[(kind, "fold", KP)] = star_fold_check(
+                dev, s, m, hp, STAR_WRITE_R)
+        else:  # phase 4's step: a pool a group (R 1)
+            r = res[(kind, "fold", KP)] = star_fold_check(dev, s, m, pools, 1)
+        lines.append(f"{kind}: " + pool_text(r))
+        for d in STAR_WRITE_WIDTHS:
+            for p in (None, pool):
+                key = (kind, d, 0 if p is None else KP)
+                if key in res:  # the scatter alone: once a layout
+                    continue
+                r = res[key] = star_scatter_check(dev, d, s[:NWL], m[:NWL],
+                                                  Vk, gen, p)
+                lines.append(f"{kind}: " + pool_text(r))
+        if kind == "hub":  # the whole step at R 3 on these pools
+            ge = torch.Generator(device=dev).manual_seed(KP)
+            init = torch.randn((Vh, 128), generator=ge, device=dev) * 0.1
+
+            def step(fn, t=init, on=(hs, hm, hp)):
+                return fn(t.clone(), *on, 0.025, 5.0 / KP,
+                          pool_refresh=STAR_WRITE_R)
+
+            on_cpu = (hs.cpu(), hm.cpu(), hp.cpu())
+            text = conditioned_compare(
+                f"K2 hub R {STAR_WRITE_R} KP {KP}", init,
+                step(star_sgns_step), step(star_sgns_step_reference),
+                step(star_sgns_step_reference, init.cpu(), on_cpu),
+                step(star_sgns_step_reference, init.cpu().double(), on_cpu))
+            lines.append(f"K2 step on the hub layout, {Gh} groups, R "
+                         f"{STAR_WRITE_R}, KP {KP}: {text}")
+        torch.cuda.empty_cache()
+    phase("star writes", "star_scatter_kernel alone and "
+                         "star_block_end_scatter_kernel (its pool write "
+                         "folded in), twice each against the plain version "
+                         "on a CPU copy, bit for bit, the star chains and "
+                         "fold chains likewise, device us a call: "
+          + "; ".join(lines) + f" | {smi}")
+    return res
+
+
 def star_edge_layout(V, E, layout, seed, max_fanout=32):
     """(slots, meta) of a star layout on E random edges of V nodes, its
     segments split at ``max_fanout``: "random" as they come; "hub" with
@@ -1188,6 +1460,40 @@ def compare(name, init, kern, plain):
     if not all(torch.isfinite(t).all() for t in k_tabs):
         raise AssertionError(f"{name}: non-finite table")
     return max_abs, max_rel, loss_rel, upd_at, max_upd
+
+
+def conditioned_compare(name, init, kern, plain, plain_cpu, exact):
+    """A whole step's check on a layout where the order of the f32 adds can
+    carry into later groups' gradients (a row drawn hundreds of times a
+    pool): ``kern`` the kernel step, ``plain`` the plain step on the card
+    (index_add_, atomic order), ``plain_cpu`` the plain step on a CPU copy
+    (every add in slot and draw order) and ``exact`` the same in float64,
+    each (table, loss, pairs).  Where ``plain_cpu`` meets the f32 check
+    against ``exact`` (the layout is well conditioned for f32), compare()'s
+    f32 check of ``kern`` against ``plain``; otherwise the kernel's table
+    may lie no further from ``exact`` (max abs) than twice the farther of
+    the two plain f32 steps, with the same pairs and a finite loss.
+    Returns the line's text; raises past either bound."""
+    i64, x = init.cpu().double(), exact[0]
+    upd = (x - i64).abs()
+    dist = [float((t[0].cpu().double() - x).abs().max())
+            for t in (kern, plain, plain_cpu)]
+    well = bool(((plain_cpu[0].double() - x).abs()
+                 <= ATOL + RTOL * upd).all())
+    spread = (f"from the float64 step: kernel {dist[0]:.3e}, plain on the "
+              f"card {dist[1]:.3e}, plain on a CPU copy {dist[2]:.3e}")
+    if well:
+        return f"max_abs {compare(name, (init,), kern, plain)[0]:.3e}; " \
+            + spread
+    if dist[0] > 2 * max(dist[1], dist[2]) or float(kern[2]) != float(
+            exact[2]) or not torch.isfinite(kern[0]).all() or not bool(
+            torch.isfinite(kern[1])):
+        raise AssertionError(f"{name}: {spread} (bound: twice the farther "
+                             f"plain step), pairs {float(kern[2])} vs "
+                             f"{float(exact[2])}")
+    return (f"f32-conditioned: no (the plain step on a CPU copy is past the "
+            f"f32 check against float64); {spread}, within twice the "
+            f"farther plain step")
 
 
 def compare_bf16(name, init, kern, plain, f32):
@@ -2987,6 +3293,60 @@ def main() -> int:
                                      f"{k} ({walk})")
         return walk
 
+    def check_star_pools(where, launched, every_group_ends=False):
+        """The star steps' slot and pool writes in a run: each star step
+        sorted its pool, star and fold chains once and wrote through
+        star_block_end_scatter_kernel (and, where a block holds more than
+        one group, star_scatter_kernel; with R 1 never), and none
+        launched apply_pool_kernel."""
+        star = dict(star_sgns_step.pools)
+        steps = star_sgns_step.launches + star_sgns_step.launches_bf16
+        if star["apply_pool"]:
+            raise AssertionError(f"{where}: the star steps launched "
+                                 f"apply_pool_kernel {star['apply_pool']} "
+                                 f"times")
+        for k in ("pool_chains", "star_chains", "fold_chains"):
+            if star[k] != steps:
+                raise AssertionError(f"{where}: {steps} star steps launched "
+                                     f"{k} {star[k]} times ({star})")
+        need = ("star_block_end_scatter",) + (
+            () if every_group_ends else ("star_scatter",))
+        for k in need:
+            if star[k] == 0 or launched[k] < star[k]:
+                raise AssertionError(f"{where}: the star steps launched no "
+                                     f"{k} ({star})")
+        if every_group_ends and star["star_scatter"]:
+            raise AssertionError(f"{where}: R 1, yet the star steps "
+                                 f"launched star_scatter ({star})")
+        return star
+
+    def star_snap():
+        """The star steps' pool passes and steps so far (star_writes)."""
+        return (dict(star_sgns_step.pools),
+                star_sgns_step.launches + star_sgns_step.launches_bf16)
+
+    def star_writes(where, snap, G, R):
+        """What the star steps since ``snap`` (star_snap), each of G groups
+        with R a block, launched beside their star and negative passes:
+        exactly the chains once a step, the block-end scatter once a block
+        and the scatter once a group that ends none, and no
+        apply_pool_kernel nor a walk step's pass."""
+        before, steps0 = snap
+        now, steps1 = star_snap()
+        got = {k: now[k] - before[k] for k in now}
+        steps, blocks = steps1 - steps0, -(-G // R)
+        want = dict.fromkeys(got, 0)
+        want.update(pool_chains=steps, star_chains=steps, fold_chains=steps,
+                    star_block_end_scatter=steps * blocks,
+                    star_scatter=steps * (G - blocks))
+        for k in ("stage_pool", "stage_pool_bf16"):
+            want[k] = got[k]  # the stages: by width and mode
+        if got != want or steps == 0:
+            raise AssertionError(f"{where}: {steps} star steps of {G} "
+                                 f"groups, R {R}, launched {got}, expected "
+                                 f"{want}")
+        return f"{steps} star steps: chains, block ends {blocks} a step"
+
     def check_launches(where, launched, ran, idle, gmm=True):
         # G1's two kernels launch in every GMM fit on the card: a phase
         # that fits (gmm) must launch both, any other neither
@@ -3087,6 +3447,7 @@ def main() -> int:
     def k2(fn):
         return fn(emb_in.clone(), sl, mt, pools2, lr, negw, pool_refresh=1)
 
+    snap = star_snap()
     kern2 = k2(star_sgns_step)
     plain2 = k2(star_sgns_step_reference)
     torch.cuda.synchronize()
@@ -3094,26 +3455,30 @@ def main() -> int:
     k2_ms = cuda_ms(lambda: k2(star_sgns_step))
     k2_plain_ms = cuda_ms(lambda: k2(star_sgns_step_reference))
     k2_bound = star_bound(sl, mt, pools2, float(kern2[2]), d, False, PAD_META)
+    k2_split = split_text(pass_split(lambda: k2(star_sgns_step), G2,
+                                     STAR_PASSES)[0])
     phase("K2", f"star_sgns V={V} d={d} T={sl.shape[0]} KP={KP} R=1 "
                 f"G={G2}: max_abs {k2_err[0]:.3e} max_rel {k2_err[1]:.3e} "
                 f"loss_rel {k2_err[2]:.3e} pairs {float(kern2[2]):.0f} | "
                 f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
                 f"(tol {ATOL} + {RTOL}*|plain update|) | device us per "
-                f"group: " + split_text(pass_split(
-                    lambda: k2(star_sgns_step), G2, STAR_PASSES)[0]))
+                f"group: {k2_split} | "
+                + star_writes("K2", snap, G2, 1))
 
     # 4b. K2b: the same inputs in the bf16 mode
     def k2b(fn):
         return fn(emb_in.clone(), sl, mt, pools2, lr, negw, pool_refresh=1,
                   mxu_bf16=True)
 
+    snap = star_snap()
     kern2b = k2b(star_sgns_step)
     plain2b = k2b(star_sgns_step_reference)
     torch.cuda.synchronize()
     k2b_err = compare_bf16("K2b", (emb_in,), kern2b, plain2b, plain2[:1])
     phase("K2b", "star_sgns bf16, K2's inputs: " + bf16_line(
         k2b_err, cuda_ms(lambda: k2b(star_sgns_step)),
-        cuda_ms(lambda: k2b(star_sgns_step_reference))))
+        cuda_ms(lambda: k2b(star_sgns_step_reference)))
+        + " | " + star_writes("K2b", snap, G2, 1))
     del kern, plain, kern2, plain2, kern2b, plain2b
 
     # 4c. K4: a macro step of B walks generated in the kernel
@@ -3282,6 +3647,7 @@ def main() -> int:
         return fn(emb_in.clone(), sl_b, mt_b, pools2_b, lr, negw,
                   pool_refresh=RB, mxu_bf16=bf16)
 
+    snap = star_snap()
     kern, plain, f32 = (k2b_bench(star_sgns_step),
                         k2b_bench(star_sgns_step_reference),
                         k2b_bench(star_sgns_step_reference, False))
@@ -3297,7 +3663,8 @@ def main() -> int:
                        + " | device us per group: "
                        + split_text(pass_split(
                            lambda: k2b_bench(star_sgns_step), G2B,
-                           STAR_PASSES)[0]))
+                           STAR_PASSES)[0])
+                       + " | " + star_writes("K2b bench", snap, G2B, RB))
     del emb_in, emb_out, kern, plain, f32
     torch.cuda.empty_cache()
 
@@ -3408,6 +3775,7 @@ def main() -> int:
                       pool_refresh=Re, mxu_bf16=bf)
 
         name = f"star edge {layout} V={Ve} d={de} KP={KPe} R={Re} G={Ge}"
+        snap = star_snap()
         plain = star_edge(star_sgns_step_reference, False)
         err = compare(name, (init,), star_edge(star_sgns_step, False), plain)
         text = f"f32 {err[0]:.3g}"
@@ -3416,6 +3784,7 @@ def main() -> int:
                              star_edge(star_sgns_step_reference, True),
                              plain[:1])
         text += f", bf16 {err_b[1]:.3g}"
+        star_writes(name, snap, Ge, Re)
         edge_lines.append(f"{layout} d{de} KP{KPe} R{Re} G{Ge} pairs "
                           f"{float(plain[2]):.0f}: {text}")
     for (Ve, de, Pe, TPe, KPe) in FUSED_EDGES:
@@ -3439,8 +3808,16 @@ def main() -> int:
         edge_lines.append(f"K6/K7 d{de} TP{TPe} KP{KPe}: {err6[0]:.3g}, "
                           f"{err7[0]:.3g}")
     phase("star/f32 edges", "vs plain (f32 max_abs, bf16 rel_l2): "
-                            + "; ".join(edge_lines))
+                            + "; ".join(edge_lines) + " | every star step: "
+                            "its chains once, its block ends' scatter, no "
+                            "apply_pool_kernel")
     torch.cuda.empty_cache()
+
+    # 4m (star). the star writes alone: the star chains, the star scatter
+    # and the star block end with its pool write, bit for bit against their
+    # plain versions, on phase 4's blogcatalog group and a hub layout with
+    # pools that draw the hub over and over (and its K2 step at R 3)
+    star4m = star_phase(dev, smi, sl, mt, pools2, V, gen)
 
     # 4j. every mode past 128: past 192 its band or star pass holds whole
     # rows or stages column slabs, and its negative pass is the wide kernel
@@ -3654,6 +4031,7 @@ def main() -> int:
                     k3_256=k3_256["K3"], pools=pools4m, f32=f32_4m)
 
     lv = large_v_kernels()
+    lv["star"] = star4m  # phase 4m's star cases, read as its other cases
     torch.cuda.empty_cache()
 
     # 5. the main path, through the CLI's own entry
@@ -3698,8 +4076,7 @@ def main() -> int:
         raise AssertionError("main path launched no pool stage")
     # R 1: every group ends its block, so every f32 scatter holds its pool
     main_walk_pools = check_walk_pools("main path", launches, True)
-    if star_sgns_step.pools["apply_pool"] == 0:
-        raise AssertionError("main path: the star steps wrote no pool")
+    main_star_pools = check_star_pools("main path", launches, True)
     main_o1_ms = rec["o1_ms"]
     main_emb = torch.as_tensor(emb, device=dev)  # phase 21's table
     phase("main", f"blogcatalog pretrain 1 + outer 1 in {wall:.1f} s: "
@@ -3708,7 +4085,8 @@ def main() -> int:
                   f"o1_pairs {rec['o1_pairs']:.0f} o2_pairs "
                   f"{rec['o2_pairs']:.0f} | NMI {rec['nmi']:.4f} | "
                   f"launches {launches} | the walk steps' pool passes "
-                  f"{main_walk_pools} | graphs: {main_graphs}")
+                  f"{main_walk_pools}, the star steps' {main_star_pools} | "
+                  f"graphs: {main_graphs}")
     del trainer
     torch.cuda.empty_cache()
 
@@ -3734,6 +4112,8 @@ def main() -> int:
         check_launches(tag, got, ran,
                        tuple(k for k in kernels if k not in ran))
         check_walk_pools(tag, got, True)
+        if not extra:  # K2 at R 1: every group ends its block
+            check_star_pools(tag, got, True)
         check_run(tag, hist, NMI_FLOOR)
         rec = hist[-1]
         emb = trainer.embeddings()
@@ -3795,6 +4175,7 @@ def main() -> int:
         check_launches(where, launched, ran,
                        tuple(k for k in kernels if k not in ran))
         check_walk_pools(where, launched)  # R 8: 7 groups in 8 end no block
+        check_star_pools(where, launched)
         # past d 192 the bf16 passes stage their pools as bf16 rows
         if (launched["stage_pool_bf16"] == 0) == (dim > 192):
             raise AssertionError(f"{where}: {launched['stage_pool_bf16']} "
@@ -4659,6 +5040,30 @@ def main() -> int:
                    "come_tpu/ops/pallas_walk_sgns.py:405",
                    wide_launches["block_end_scatter"], ("unigram", 256, 512),
                    "walk_sgns.cu", "f32"),
+        # the star writes (phase 4m, phase 4's blogcatalog group and its
+        # pools of 512): the chains', fold chains' and block-end scatter's
+        # launches from phase 5 (R 1: every group), the scatter's from the
+        # bench run (R 8), at d 256 from phase 5b and the bench run at 256
+        pool_entry("star_chains", "come_tpu/ops/pallas_star_sgns.py:186",
+                   main_star_pools["star_chains"], ("blog", "chains"),
+                   "owned_writes.cuh", "star"),
+        pool_entry("star_fold_chains", "come_tpu/ops/pallas_star_sgns.py:197",
+                   main_star_pools["fold_chains"], ("blog", "fold", 512),
+                   "owned_writes.cuh", "star"),
+        pool_entry("star_scatter", "come_tpu/ops/pallas_star_sgns.py:186",
+                   bench_launches["star_scatter"], ("blog", 128, 0),
+                   "star_sgns.cu", "star"),
+        pool_entry("star_block_end_scatter",
+                   "come_tpu/ops/pallas_star_sgns.py:197",
+                   main_star_pools["star_block_end_scatter"],
+                   ("blog", 128, 512), "star_sgns.cu", "star"),
+        pool_entry("star_scatter_d256", "come_tpu/ops/pallas_star_sgns.py:186",
+                   tiers256["bench 256"]["star_scatter"], ("blog", 256, 0),
+                   "star_sgns.cu", "star"),
+        pool_entry("star_block_end_scatter_d256",
+                   "come_tpu/ops/pallas_star_sgns.py:197",
+                   wide_launches["star_block_end_scatter"],
+                   ("blog", 256, 512), "star_sgns.cu", "star"),
         pool_entry("pool_stage_bf16_d256",
                    "come_tpu/ops/pallas_walk_sgns.py:216",
                    tiers256["K3 256"]["stage_pool_bf16"],

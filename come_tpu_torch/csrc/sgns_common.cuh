@@ -515,9 +515,11 @@ static inline int pool_team(int d, int e) {
 // table[pool[k]] -= lr * dneg[k], atomic: a pool may repeat a row; lr from
 // the argument block `args` (null: `lr`).  grid KP, block 128.  PDL: the
 // pool id and lr (the head's) before the wait; dneg (the negative pass's)
-// and the table row (the scatter's) after.  The star steps' and P3's pool
-// write; the walk steps write their pools in their block-end scatter
-// (walk_sgns.cu: block_end_scatter_kernel), K3 in apply_pool_bf16_kernel.
+// and the table row (the scatter's) after.  P3's pool write (star_probe.cu:
+// its POOL section), its one caller: the f32 walk and star steps write
+// their pools in their block-end scatter (walk_sgns.cu:
+// block_end_scatter_kernel, star_sgns.cu: star_block_end_scatter_kernel),
+// K3 in apply_pool_bf16_kernel.
 static __global__ void apply_pool_kernel(float* table, const int* pool,
                                          const float* dneg, int d,
                                          const StepArgs* args, float lr) {
@@ -2336,16 +2338,21 @@ struct NegSetup {
 
 // The pool passes a step's recording launched, by kernel
 // (step_graph.cuh: StepGraph::pool): stage_pool_kernel on f32 and on bf16
-// tables, the walk steps' pool_chains_kernel (once a step), K3's
+// tables, every walk and star step's pool_chains_kernel (once a step), K3's
 // apply_pool_bf16_kernel, the bf16 passes' stage past MAX_DIM
 // (stage_pool_bf16_kernel), and the walk steps' slot passes: the slots'
 // chains (slot_chains_kernel, once a step), K3's slot scatter
 // (walk_scatter_bf16_kernel, once a group) and the f32 one
 // (walk_scatter_kernel, or block_end_scatter_kernel at an R-block end,
-// which also writes the pool; walk_sgns.cu), then the star steps' f32 pool
-// write (apply_pool_kernel) and the f32 walk steps' fold chains
-// (fold_chains_kernel, once a step: which rows a block's last group writes
-// through both its slots and its pool).
+// which also writes the pool; walk_sgns.cu), then apply_pool_kernel (no
+// step launches it any more: P3's POOL section does, outside a step; the
+// slot stays so a step's count can be read as 0), the f32 walk and star
+// steps' fold chains (fold_chains_kernel, once a step: which rows a
+// block's last group writes through both its slots and its pool), and the
+// star steps' slot passes (star_sgns.cu): their slots' chains
+// (slot_chains_kernel on the layout's meta, once a step) and their scatter
+// (star_scatter_kernel, or star_block_end_scatter_kernel at an R-block
+// end, which also writes the pool).
 enum PoolPass {
   PASS_STAGE_POOL = 0,
   PASS_STAGE_POOL_BF16_TABLES = 1,
@@ -2358,7 +2365,10 @@ enum PoolPass {
   PASS_BLOCK_END_SCATTER = 8,
   PASS_APPLY_POOL = 9,
   PASS_FOLD_CHAINS = 10,
-  POOL_PASSES = 11
+  PASS_STAR_CHAINS = 11,
+  PASS_STAR_SCATTER = 12,
+  PASS_STAR_BLOCK_END_SCATTER = 13,
+  POOL_PASSES = 14
 };
 
 // stage_pool_kernel<T, VEC>, the instance a row of d elements takes.

@@ -84,6 +84,7 @@
 #include <type_traits>
 
 #include "sgns_common.cuh"
+#include "owned_writes.cuh"
 #include "step_graph.cuh"
 
 namespace come {
@@ -662,83 +663,6 @@ walk_pos_wide_kernel(const T* emb_in, const T* emb_out, const int* walks,
   finish_strip<PAIRED>(base, t0, t1, lo, L, wr, loss, nt, stats);
 }
 
-// The slot chains, once a step.  The slot writes (K3's and the f32 ones)
-// apply a row's slots in slot order (below), so each row of a group needs
-// its slots sorted.  A
-// group's walks do not depend on the tables, so the chains of every group
-// of a step are known at its head: one CTA a group sorts its real slots
-// (position < L) by (id, t) in shared memory (a bitonic network over
-// GROUP 64-bit keys; padding slots sort last) and writes order[i] = the
-// slot at sorted place i (-1 past the group's NBLK * L real slots) and
-// info[t] = (i, n): t's place and, at a row's first slot, its n slots (0
-// at the others and at padding slots).  A row's count comes from a binary
-// search for the end of its run, so a hub that fills the group costs no
-// serial scan.  It is the plain version's sort (ops/scatter_pass.py::
-// slot_chains_reference).  It runs right after pool_chains_kernel under
-// PDL and does all its work before its wait: it reads the
-// walks (the head's or K4's generation, two or more kernels before it:
-// complete) and writes its chains, which no kernel before it in the step
-// touches, so its sort runs beside the pools' sort.  It waits only to
-// exit.  ~1024 keys a group in 55 passes; the 128 groups of a
-// synthetic-10m step sort side by side.  grid: the step's groups, block
-// SLOT_CHAIN_THREADS.
-constexpr int SLOT_CHAIN_THREADS = GROUP / 2;  // one compare a thread
-
-static __global__ void __launch_bounds__(SLOT_CHAIN_THREADS)
-slot_chains_kernel(const int* walks, int L, int* info, int* order) {
-  __shared__ unsigned long long keys[GROUP];
-  const int t0 = threadIdx.x, n = NBLK * L;
-  const int* wg = walks + (size_t)blockIdx.x * GROUP;
-  for (int s = t0; s < GROUP; s += SLOT_CHAIN_THREADS)
-    keys[s] = s % BLK < L
-                  ? (unsigned long long)(unsigned)step_ld(wg + s) << 32 |
-                        (unsigned)s
-                  : ~0ull;
-  __syncthreads();
-  for (int size = 2; size <= GROUP; size <<= 1) {
-    for (int stride = size / 2; stride > 0; stride >>= 1) {
-      const int i = 2 * t0 - (t0 & (stride - 1)), j = i + stride;
-      const unsigned long long x = keys[i], y = keys[j];
-      if ((x > y) == ((i & size) == 0)) {
-        keys[i] = y;
-        keys[j] = x;
-      }
-      __syncthreads();
-    }
-  }
-  int* inf = info + (size_t)blockIdx.x * GROUP * 2;
-  int* ord = order + (size_t)blockIdx.x * GROUP;
-  for (int i = t0; i < GROUP; i += SLOT_CHAIN_THREADS) {
-    if (i >= n) {
-      ord[i] = -1;
-      const int s = i - n;  // the padding slots, one each
-      const int t = s / (BLK - L) * BLK + L + s % (BLK - L);
-      inf[2 * t] = 0;
-      inf[2 * t + 1] = 0;
-      continue;
-    }
-    const unsigned id = (unsigned)(keys[i] >> 32);
-    const int t = (int)(keys[i] & 0xffffffffu);
-    ord[i] = t;
-    int cnt = 0;
-    if (i == 0 || (unsigned)(keys[i - 1] >> 32) != id) {
-      int lo = i + 1, hi = n;  // the first place past the row's run
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if ((unsigned)(keys[mid] >> 32) == id)
-          lo = mid + 1;
-        else
-          hi = mid;
-      }
-      cnt = lo - i;
-    }
-    inf[2 * t] = i;
-    inf[2 * t + 1] = cnt;
-  }
-  pdl_wait();
-  pdl_trigger();
-}
-
 // K3's slot writes (pallas_walk_sgns.py:369-400, the slot fori_loop of
 // _walk_kernel on bf16 tables, :377): for each real slot t of group g
 // (position < L), in slot order, emb_in[v] = round(f32(emb_in[v]) +
@@ -971,350 +895,10 @@ static cudaError_t launch_scatter_bf16(__nv_bfloat16* emb_in,
                        dctx, info, order, d, L, ts, args, lr, seed, g);
 }
 
-// slot_chains_kernel's launch on `stream` (with PDL when `pdl`): the chains
-// of G groups of walks into `sc` (slot_info, slot_order).
-static cudaError_t launch_slot_chains(const int* walks, int G, int L,
-                                      int* sc, cudaStream_t stream,
-                                      bool pdl) {
-  return launch_kernel(slot_chains_kernel, dim3(G), dim3(SLOT_CHAIN_THREADS),
-                       0, stream, pdl, 0, walks, L, sc,
-                       sc + (size_t)2 * G * GROUP);
-}
-
-// Where group g's info [GROUP][2] and order [GROUP] lie in slot chains `sc`
-// of G groups (after the pools' chains in a K3 plan's `chains`).
-static inline const int* slot_info(const int* sc, int g) {
-  return sc + (size_t)2 * g * GROUP;
-}
-static inline const int* slot_order(const int* sc, int g, int G) {
-  return sc + (size_t)2 * G * GROUP + (size_t)g * GROUP;
-}
-
-// ------------------------------------------- the f32 slot and pool writes
+// The f32 slot writes by owned rows (owned_writes.cuh: f32_owner,
+// f32_write, on the chains slot_chains_kernel and fold_chains_kernel sort
+// once a step).
 //
-// K1, K1b, K4 and K5's slot writes (pallas_walk_sgns.py:369-400, the slot
-// fori_loop of _walk_kernel, f32 at :395-397: emb_in[v] += dphi[t],
-// emb_out[v] += dctx[t] for each real slot t, v = walks[t]; K5 writes
-// dctx[t] at walks[t], where the band pass stores a pair's ctx gradient at
-// the partner's slot, :374-375) and, at an R-block end, the pool write
-// (:405-425 _apply_pool: emb_out[pool[k]] -= lr * dneg[k] for k in order).
-// A walk revisits nodes and hubs fill many slots, and a pool draws a row
-// many times, so each distinct row of the group gets one owner, a team of
-// a warp:
-//   * the team of the row's first real slot (slot_chains_kernel's info)
-//     sums the row's terms __fmul_rn(__fadd_rn(dphi[t], dphin[t]), -lr)
-//     and __fmul_rn(dctx[t], -lr) in f64, in slot order (order[i], ...,
-//     order[i + n - 1]), and adds each sum to its row with one rounding:
-//     per-term f32 adds would round each at the running sum's magnitude,
-//     which on a hub's row is far larger (chip_smoke.py's hot row);
-//   * at a block end (block_end_scatter_kernel) the same launch has a team
-//     for each pool draw k besides, and the pool's rows are written too:
-//     each row's draws in draw order, y = __fadd_rn(y, __fmul_rn(dneg[k],
-//     -lr)), as the TPU's loop and the plain version's index_add_ apply
-//     them.  A row that is also among the group's real slots belongs to
-//     its slot owner, which applies its slots' sum first, then its draws;
-//     a row drawn only by the pool belongs to the team of its first draw
-//     (pool_chains_kernel's info).  Which is which, fold_chains_kernel
-//     finds once a step for every block (a lookup of each chain in the
-//     other's), so each team reads it with one load.
-// An owner loads its rows once, holds them in registers while it applies
-// its terms, and stores each once, with plain stores and no atomics, so a
-// row's bits do not depend on the order in which the card runs the teams:
-// the plain version (ops/walk_sgns.py::walk_scatter_f32_reference) writes
-// the same bits from the same dphi, dphin, dctx and dneg.  A team takes a
-// row in float4 pieces where d % 4 == 0 (E 4: one piece a lane up to d
-// 128, a warp striding wider rows), else one element a lane (E 1).  The
-// grid is the group's NBLK * L real slots' teams, then (block end) KP
-// draws' teams; padding slots get none.  Before its wait a team reads its
-// slot's or draw's place and count, its row, the first batches of its
-// chain and its fold chains (the chains, walks and pools are two or more
-// kernels before it: complete) and lr; after it, its rows and the
-// dphi, dphin, dctx and dneg pieces, a batch of SCATTER_F32_U slots' loads
-// in flight at once and the next batch's issued before this one's sums, so
-// a hub's long chain keeps its loads ahead of its dependent adds.  It is
-// bound by latency, not bytes: it reads the real slots' three f32 update
-// rows (KP dneg rows at a block end) and moves the distinct rows of two
-// tables in and out (K1 at d 128: 0.67 us a group at 3.35 TB/s).  lr from
-// the argument block `args`, or, without one (the C entry that runs a
-// kernel alone), from `lr_in`.
-constexpr int SCATTER_F32_THREADS = 128;  // four teams of a warp
-// Slots a batch: 2 (112-134 registers a thread at E 4) read 0.7-1.4 us
-// less a block end of K1, K1b and K5 than 4 (188-206), whose CTAs fit
-// fewer beside the pass before them; 1 no better (PERF.md §6).
-constexpr int SCATTER_F32_U = 2;
-
-// Elements j..j+E-1 of an f32 row, and back (E 4: one 16-byte access).
-template <int E>
-static __device__ __forceinline__ void load_f32(const float* p,
-                                                float (&x)[E]) {
-  if constexpr (E == 4) {
-    const float4 v = step_ld(reinterpret_cast<const float4*>(p));
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  } else {
-    x[0] = step_ld(p);
-  }
-}
-
-template <int E>
-static __device__ __forceinline__ void store_f32(float* p,
-                                                 const float (&x)[E]) {
-  if constexpr (E == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  else
-    p[0] = x[0];
-}
-
-// A batch's loads: elements j..j+E-1 of dphi, dphin and dctx (a, b, c) of
-// slots cs[0..U) (-1: none), all in flight together.
-template <int E, int U = SCATTER_F32_U>
-struct F32Batch {
-  int cs[U];
-  float a[U][E], b[U][E], c[U][E];
-
-  __device__ __forceinline__ void load(const float* dphi, const float* dphin,
-                                       const float* dctx, int d, int j) {
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      if (cs[i] < 0) continue;
-      const size_t o = (size_t)cs[i] * d + j;
-      load_f32<E>(dphi + o, a[i]);
-      load_f32<E>(dphin + o, b[i]);
-      load_f32<E>(dctx + o, c[i]);
-    }
-  }
-
-  // The batch's terms added, in slot order, to the f64 sums x (node row)
-  // and y (ctx row).
-  __device__ __forceinline__ void add(double (&x)[E], double (&y)[E],
-                                      float lr) const {
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      if (cs[i] < 0) break;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        x[e] += (double)__fmul_rn(__fadd_rn(a[i][e], b[i][e]), -lr);
-        y[e] += (double)__fmul_rn(c[i][e], -lr);
-      }
-    }
-  }
-};
-
-// The first place p of the n ascending ids (shared memory) that holds v,
-// or -1.
-static __device__ __forceinline__ int find_id(const int* ids, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (ids[mid] < v)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo < n && ids[lo] == v ? lo : -1;
-}
-
-// The fold chains, once a step: which rows of a block's pool the block's
-// last group also writes through its real slots.  One CTA a block b (its
-// last group g = min(b R + R - 1, G - 1)) stages the pool's ids in chain
-// order (pool[porder[j]], ascending) and the group's real slots' ids in
-// chain order (walks[order[i]], ascending) in shared memory and writes
-// fold_slot[g][t] = the place in the pool's chain of the first draw of
-// real slot t's row, or -1 where the pool does not draw it (-1 at padding
-// slots), and fold_draw[b][k] = 1 where draw k's row is among the group's
-// real slots, else 0.  So block_end_scatter_kernel's teams look their
-// ownership up instead of searching the other chain before their wait,
-// which the negative pass before them leaves on the critical path (its
-// CTAs fill the card).  It is the plain version's lookup
-// (ops/scatter_pass.py::fold_chains_reference).  PDL: launched right after
-// slot_chains_kernel; the pools and their chains (two or more kernels
-// before it: complete) before its wait, the slot chains after it.  grid:
-// the step's blocks, block FOLD_THREADS, dynamic shared memory
-// fold_chain_smem(KP).
-constexpr int FOLD_THREADS = 512;
-
-static inline size_t fold_chain_smem(int KP) {
-  return sizeof(int) * (size_t)(KP + GROUP);
-}
-
-static __global__ void __launch_bounds__(FOLD_THREADS)
-fold_chains_kernel(const int* walks, const int* order, const int* pools,
-                   const int* porder, int L, int KP, int G, int R,
-                   int* fold_slot, int* fold_draw) {
-  extern __shared__ int fold_ids[];
-  int* pids = fold_ids;       // [KP] the pool's ids in chain order
-  int* sids = fold_ids + KP;  // [NBLK * L] the real slots' ids likewise
-  const int b = blockIdx.x, g = min(b * R + R - 1, G - 1), n = NBLK * L;
-  const int* pool = pools + (size_t)b * KP;
-  const int* po = porder + (size_t)b * KP;
-  const int* ord = order + (size_t)g * GROUP;
-  const int* wg = walks + (size_t)g * GROUP;
-  for (int j = threadIdx.x; j < KP; j += FOLD_THREADS)
-    pids[j] = step_ld(pool + step_ld(po + j));
-  pdl_wait();
-  for (int i = threadIdx.x; i < n; i += FOLD_THREADS)
-    sids[i] = step_ld(wg + step_ld(ord + i));
-  __syncthreads();
-  int* fs = fold_slot + (size_t)g * GROUP;
-  for (int i = threadIdx.x; i < n; i += FOLD_THREADS)
-    fs[step_ld(ord + i)] = find_id(pids, KP, sids[i]);
-  for (int t = threadIdx.x; t < GROUP; t += FOLD_THREADS)
-    if (t % BLK >= L) fs[t] = -1;
-  int* fd = fold_draw + (size_t)b * KP;
-  for (int j = threadIdx.x; j < KP; j += FOLD_THREADS)
-    fd[step_ld(po + j)] = find_id(sids, n, pids[j]) >= 0;
-  pdl_trigger();
-}
-
-// fold_chains_kernel's launch on `stream` (with PDL when `pdl`): the fold
-// chains of the blocks of a step of G groups, R a block, into `fold`
-// (fold_slot [G][GROUP], then fold_draw [ceil(G / R)][KP]), from its walks,
-// its pools [ceil(G / R)][KP], their chains `pc` and the slot chains `sc`.
-static cudaError_t launch_fold_chains(const int* walks, const int* sc,
-                                      const int* pools, const int* pc, int G,
-                                      int L, int KP, int R, int* fold,
-                                      cudaStream_t stream, bool pdl) {
-  const int n_pools = (G + R - 1) / R;
-  return launch_kernel(fold_chains_kernel, dim3(n_pools), dim3(FOLD_THREADS),
-                       fold_chain_smem(KP), stream, pdl, 0, walks,
-                       slot_order(sc, 0, G), pools,
-                       pool_chain_order(pc, 0, n_pools, KP), L, KP, G, R,
-                       fold, fold + (size_t)G * GROUP);
-}
-
-// pool_chains_kernel's and fold_chains_kernel's shared-memory caps, for
-// pools of KP ids (KP past POOL_CHAIN_MAX is refused).
-static cudaError_t fold_setup(int KP) {
-  const cudaError_t e = chains_setup(KP);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(fold_chains_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)fold_chain_smem(POOL_CHAIN_MAX));
-}
-
-// What a team owns, found before its wait: the row v, its n slots
-// (chain ch, the first 2 U of them in `first`) and its pn pool draws
-// (chain pch, the first APPLY_U in `pfirst`); n and pn 0 where it owns
-// nothing.
-template <int U = SCATTER_F32_U>
-struct F32Owner {
-  int v = 0, n = 0, pn = 0;
-  const int* ch = nullptr;
-  const int* pch = nullptr;
-  int first[2 * U];
-  int pfirst[APPLY_U];
-};
-
-// Team i's ownership in group `walks`' scatter (slot chains info, order of
-// L real positions a walk); with FOLD, the pool `pool` of KP draws too (its
-// chains pinfo, porder, and the group's fold chains fold_slot, fold_draw):
-// teams past the real slots' take the draws.
-template <bool FOLD, int U = SCATTER_F32_U>
-static __device__ __forceinline__ F32Owner<U> f32_owner(
-    int i, const int* walks, const int* info, const int* order, int L,
-    const int* pool, const int* pinfo, const int* porder, int KP,
-    const int* fold_slot, const int* fold_draw) {
-  F32Owner<U> o;
-  const int n_real = NBLK * L;
-  if (i < n_real) {
-    const int t = i / L * BLK + i % L;
-    const int2 in = step_ld(reinterpret_cast<const int2*>(info) + t);
-    if (in.y > 0) {  // else an earlier slot of the row owns it
-      o.v = step_ld(walks + t), o.n = in.y, o.ch = order + in.x;
-#pragma unroll
-      for (int u = 0; u < 2 * U; ++u)
-        o.first[u] = u == 0 ? t : u < in.y ? step_ld(order + in.x + u) : -1;
-      const int at = FOLD ? step_ld(fold_slot + t) : -1;
-      if (at >= 0) {  // the pool draws the row: its draws too
-        const int k0 = step_ld(porder + at);
-        o.pn = step_ld(reinterpret_cast<const int2*>(pinfo) + k0).y;
-        o.pch = porder + at;
-      }
-    }
-  } else if (FOLD && i < n_real + KP) {
-    const int k = i - n_real;
-    const int2 in = step_ld(reinterpret_cast<const int2*>(pinfo) + k);
-    // else an earlier draw of the row owns it, or its slot owner does
-    if (in.y > 0 && !step_ld(fold_draw + k))
-      o.v = step_ld(pool + k), o.pn = in.y, o.pch = porder + in.x;
-  }
-#pragma unroll
-  for (int u = 0; u < APPLY_U; ++u)
-    o.pfirst[u] = u < o.pn ? step_ld(o.pch + u) : -1;
-  return o;
-}
-
-// An owner's rows, after the wait: its pieces p = lane, lane + 32, ... of
-// E elements; the node and ctx rows through its slots (each batch of U
-// slots added once the next batch's loads and the slot numbers of the one
-// after it are in flight), then the ctx row through its draws in order.
-template <int E, int U = SCATTER_F32_U>
-static __device__ __forceinline__ void f32_write(
-    const F32Owner<U>& o, float* emb_in, float* emb_out, const float* dphi,
-    const float* dphin, const float* dctx, const float* dneg, int d,
-    float lr) {
-  float* row_in = emb_in + (size_t)o.v * d;
-  float* row_out = emb_out + (size_t)o.v * d;
-  for (int p = threadIdx.x & 31; p * E < d; p += 32) {
-    const int j = p * E;
-    float y[E];
-    load_f32<E>(row_out + j, y);
-    if (o.n > 0) {
-      F32Batch<E> cur, next;
-#pragma unroll
-      for (int i = 0; i < U; ++i)
-        cur.cs[i] = o.first[i], next.cs[i] = o.first[U + i];
-      cur.load(dphi, dphin, dctx, d, j);
-      float x[E];
-      load_f32<E>(row_in + j, x);
-      double sx[E], sy[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) sx[e] = sy[e] = 0.0;
-      for (int i0 = 0; i0 < o.n; i0 += U) {
-        if (next.cs[0] >= 0) next.load(dphi, dphin, dctx, d, j);
-        int after[U];
-#pragma unroll
-        for (int i = 0; i < U; ++i) {
-          const int k = i0 + 2 * U + i;
-          after[i] = k < o.n ? step_ld(o.ch + k) : -1;
-        }
-        cur.add(sx, sy, lr);
-        cur = next;
-#pragma unroll
-        for (int i = 0; i < U; ++i) next.cs[i] = after[i];
-      }
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        x[e] = (float)((double)x[e] + sx[e]);
-        y[e] = (float)((double)y[e] + sy[e]);
-      }
-      store_f32<E>(row_in + j, x);
-    }
-    // the pool's draws of the row in draw order, APPLY_U loads in flight
-    int cs[APPLY_U];
-#pragma unroll
-    for (int i = 0; i < APPLY_U; ++i) cs[i] = o.pfirst[i];
-    for (int i0 = 0; i0 < o.pn; i0 += APPLY_U) {
-      if (i0 > 0) {
-#pragma unroll
-        for (int i = 0; i < APPLY_U; ++i)
-          cs[i] = i0 + i < o.pn ? step_ld(o.pch + i0 + i) : -1;
-      }
-      float u[APPLY_U][E];
-#pragma unroll
-      for (int i = 0; i < APPLY_U; ++i)
-        if (cs[i] >= 0) load_f32<E>(dneg + (size_t)cs[i] * d + j, u[i]);
-#pragma unroll
-      for (int i = 0; i < APPLY_U; ++i) {
-        if (cs[i] < 0) break;
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          y[e] = __fadd_rn(y[e], __fmul_rn(u[i][e], -lr));
-      }
-    }
-    store_f32<E>(row_out + j, y);
-  }
-}
-
 // The f32 slot writes of a group that ends no R-block.  grid: the group's
 // NBLK * L real slots' teams (launch_scatter_f32), block
 // SCATTER_F32_THREADS.
@@ -1602,16 +1186,16 @@ static int walk_step(StepGraph* p, int how, int mode, const WalkStep& s,
         e = launch_chains(s.pools, n_pools, s.KP, s.chains, cap);
         if (e != cudaSuccess) return (int)e;
         ++p->pool[PASS_POOL_CHAINS];
-        e = launch_slot_chains(s.walks, s.G, s.L,
+        e = launch_slot_chains(s.walks, nullptr, s.G, s.L,
                                s.chains + (size_t)3 * n_pools * s.KP, cap,
                                true);
         if (e != cudaSuccess) return (int)e;
         ++p->pool[PASS_SLOT_CHAINS];
         if (!TB16) {  // the f32 block ends' fold chains
           int* sc = s.chains + (size_t)3 * n_pools * s.KP;
-          e = launch_fold_chains(s.walks, sc, s.pools, s.chains, s.G, s.L,
-                                 s.KP, s.R, sc + (size_t)3 * s.G * GROUP,
-                                 cap, true);
+          e = launch_fold_chains(s.walks, nullptr, sc, s.pools, s.chains,
+                                 s.G, s.L, s.KP, s.R,
+                                 sc + (size_t)3 * s.G * GROUP, cap, true);
           if (e != cudaSuccess) return (int)e;
           ++p->pool[PASS_FOLD_CHAINS];
         }
@@ -1754,7 +1338,7 @@ extern "C" int come_walk_pos_route(int d, int L, int W, int bf16, int paired,
 extern "C" int come_slot_chains(const int* walks, int G, int L, int* chains,
                                 void* stream_ptr) {
   if (G < 1 || L < 1 || L > BLK) return (int)cudaErrorInvalidValue;
-  return (int)launch_slot_chains(walks, G, L, chains,
+  return (int)launch_slot_chains(walks, nullptr, G, L, chains,
                                  (cudaStream_t)stream_ptr, false);
 }
 
@@ -1802,8 +1386,8 @@ extern "C" int come_fold_chains(const int* walks, const int* chains,
   if (L < 1 || L > BLK) return (int)cudaErrorInvalidValue;
   cudaError_t e = fold_setup(KP);
   if (e == cudaSuccess)
-    e = launch_fold_chains(walks, chains, pool, pool_chains, 1, L, KP, 1,
-                           fold, (cudaStream_t)stream_ptr, false);
+    e = launch_fold_chains(walks, nullptr, chains, pool, pool_chains, 1, L,
+                           KP, 1, fold, (cudaStream_t)stream_ptr, false);
   return (int)e;
 }
 

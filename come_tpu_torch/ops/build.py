@@ -44,7 +44,7 @@ SIGNATURES = {
     + [_U, _F, _F, _P],
     "come_walk_sgns_gen_step": [_P, _I] + [_P] * 21 + [_I] * 9
     + [_U, _F, _F, _P],
-    "come_star_sgns_step": [_P, _I] + [_P] * 13 + [_I] * 5 + [_F, _F, _P],
+    "come_star_sgns_step": [_P, _I] + [_P] * 14 + [_I] * 5 + [_F, _F, _P],
     "come_walk_pos_route": [_I] * 6,
     "come_star_pos_route": [_I] * 2,
     "come_step_graph_route": [_P],
@@ -86,6 +86,9 @@ SIGNATURES = {
     "come_walk_scatter_bf16": [_P] * 7 + [_I] * 3 + [_F, _I, _U, _P],
     "come_walk_scatter_f32": [_P] * 11 + [_I] * 3 + [_F, _P],
     "come_fold_chains": [_P] * 4 + [_I] * 2 + [_P] * 2,
+    "come_star_chains": [_P, _P, _I, _P, _P],
+    "come_star_fold_chains": [_P] * 5 + [_I] * 3 + [_P] * 2,
+    "come_star_scatter": [_P] * 9 + [_I] * 2 + [_F, _P],
 }
 RESTYPES = {"come_cuda_error_name": ctypes.c_char_p,
             "come_step_graph_new": ctypes.c_void_p,

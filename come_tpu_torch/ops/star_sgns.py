@@ -109,11 +109,19 @@ def star_sgns_step_reference(emb, slots, meta, pools, lr, negw, *,
 def star_plan(device, stream: int, bf16: int, d: int, G: int, KP: int,
               R: int) -> launch_plan.LaunchPlan:
     """The launch plan of a star step, keyed on the mode (bf16) and the
-    shape (d, G, KP, R); its staged inputs: the slots, meta and pools."""
+    shape (d, G, KP, R); its staged inputs: the slots, meta and pools; its
+    chains, as a walk step's: the pools' (3 int32 a pool draw:
+    ``csrc/sgns_common.cuh``'s pool_chains_kernel), the groups' real
+    slots' (3 int32 a slot: ``csrc/owned_writes.cuh``'s slot_chains_kernel
+    on the meta) and the block ends' fold chains (1 int32 a slot, then 1 a
+    pool draw: fold_chains_kernel), which its slot and pool writes
+    follow."""
+    pools = -(-G // R) * KP
     return launch_plan.plan_for(
         "star_sgns", device, stream, (bf16,), (d, G, KP, R), KP=KP, d=d,
         ctx=False, inputs={"slots": G * NWL, "meta": G * NWL,
-                           "pools": -(-G // R) * KP})
+                           "pools": pools},
+        chains=4 * (pools + G * NWL))
 
 
 def star_entry_args(plan, how: int, emb, slots, meta, pools, d: int, G: int,
@@ -126,8 +134,8 @@ def star_entry_args(plan, how: int, emb, slots, meta, pools, d: int, G: int,
     return ((plan.slot, how, emb.data_ptr(), slots.data_ptr(),
              meta.data_ptr(), pools.data_ptr(), st, cneg, dneg, dphi, nt)
             + plan.staged("slots", "meta", "pools")
-            + (plan.args.data_ptr(), d, G, KP, R, bf16, float(lr),
-               float(negw), stream))
+            + (plan.args.data_ptr(), plan.chains.data_ptr(), d, G, KP, R,
+               bf16, float(lr), float(negw), stream))
 
 
 def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
@@ -149,8 +157,10 @@ def star_sgns_step(emb, slots, meta, pools, lr, negw, *,
     ``star_sgns_step.launches``, K2, or ``.launches_bf16``, K2b, and the
     graph's events in ``.recordings``, ``.instantiations``, ``.updates`` and
     ``.replays``; steps by the star pass's route in ``.routes``,
-    ``ops/walk_sgns.py``'s POS_ROUTES; the pool passes its steps launched
-    in ``.pools``, by POOL_PASSES) or raise.
+    ``ops/walk_sgns.py``'s POS_ROUTES; the pool and slot passes its steps
+    launched in ``.pools``, by POOL_PASSES: once a step the pool, star and
+    fold chains, once a group the star scatter or, at an R-block end, the
+    star block-end scatter with the pool write in it) or raise.
     """
     if emb.device.type == "cpu":
         return star_sgns_step_reference(

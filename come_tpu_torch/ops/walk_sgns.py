@@ -176,6 +176,19 @@ def rmw_rows(table, ids, upd, rnd):
                                  None if rnd is None else rnd[sel])
 
 
+def rmw_rows_f32(table, ids, upd):
+    """``table[ids[i]] += upd[i]`` for i in order, each add rounded in the
+    table's dtype: rows that repeat are applied in rounds by occurrence
+    rank, each round adding to distinct rows, so a row's terms apply in
+    order on any device (a CUDA ``index_add_`` adds a repeated row's terms
+    in the order its atomics land)."""
+    rank = occurrence_rank(ids)
+    for r in range(int(rank.max()) + 1 if ids.numel() else 0):
+        sel = rank == r
+        rows = ids[sel]
+        table[rows] = table[rows] + upd[sel]
+
+
 def pool_stage_reference(table, pool, acc: torch.dtype = torch.float32):
     """Plain version of the pool stage (``csrc/sgns_common.cuh``:
     ``stage_pool_kernel``; the TPU's ``_stage_pool``,
@@ -258,16 +271,8 @@ def walk_scatter_f32_reference(emb_in, emb_out, ids, dphi, dctx, lr, L,
         sums = torch.zeros((rows.numel(), d), dtype=torch.float64,
                            device=dev).index_add_(0, at, terms)
         table[rows] = (table[rows].double() + sums).to(table.dtype)
-    if pool is not None:
-        # rounds by occurrence rank: each round adds to distinct rows, so a
-        # row's draws apply in draw order on any device (a CUDA index_add_
-        # adds a repeated row's terms in the order its atomics land)
-        pool = pool.long()
-        upd = (dneg * (-lr)).to(emb_out.dtype)
-        rank = occurrence_rank(pool)
-        for r in range(int(rank.max()) + 1):
-            sel = rank == r
-            emb_out.index_add_(0, pool[sel], upd[sel])
+    if pool is not None:  # a row's draws in draw order
+        rmw_rows_f32(emb_out, pool.long(), (dneg * (-lr)).to(emb_out.dtype))
     return emb_in, emb_out
 
 
@@ -283,22 +288,27 @@ def pool_apply_bf16_reference(table, pool, dneg, lr, rnd):
 
 # The pool passes inside the walk and star steps' recorded group loops, in
 # the order of csrc/sgns_common.cuh's PoolPass: stage_pool_kernel on f32 and
-# on bf16 tables, the walk steps' pool_chains_kernel (once a step: the
-# pools sorted into the chains their pool writes follow), K3's
+# on bf16 tables, every walk and star step's pool_chains_kernel (once a
+# step: the pools sorted into the chains their pool writes follow), K3's
 # apply_pool_bf16_kernel, the bf16 passes' stage past d 192
 # (stage_pool_bf16_kernel: bf16 rows in the wide negative pass's core
 # layout), the walk steps' slot passes: slot_chains_kernel (once a step:
 # each group's slots sorted into the chains its slot scatter follows), K3's
 # walk_scatter_bf16_kernel and the f32 walk_scatter_kernel (once a group
 # that ends no R-block) or block_end_scatter_kernel (once a block: the
-# last group's scatter with the block's pool write folded in), the star
-# steps' f32 pool write apply_pool_kernel, and the f32 walk steps'
-# fold_chains_kernel (once a step: which rows each block's last group
-# writes through both its slots and its pool).
+# last group's scatter with the block's pool write folded in), then
+# apply_pool_kernel (P3's pool write: no step launches it, so a step reads
+# 0 here), the f32 walk and star steps' fold_chains_kernel (once a step:
+# which rows each block's last group writes through both its slots and its
+# pool), and the star steps' slot passes: their slot chains (once a step,
+# slot_chains_kernel on the layout's meta), star_scatter_kernel (once a
+# group that ends no R-block) and star_block_end_scatter_kernel (once a
+# block, the pool write folded in).
 POOL_PASSES = ("stage_pool", "stage_pool_bf16_tables", "pool_chains",
                "apply_pool_bf16", "stage_pool_bf16", "slot_chains",
                "walk_scatter_bf16", "walk_scatter", "block_end_scatter",
-               "apply_pool", "fold_chains")
+               "apply_pool", "fold_chains", "star_chains", "star_scatter",
+               "star_block_end_scatter")
 # Their launches in the steps the wrappers launched.  Reset by assigning
 # zeros.
 POOL_LAUNCHES = dict.fromkeys(POOL_PASSES, 0)

@@ -34,9 +34,10 @@ wide negative pass (``csrc/sgns_common.cuh``: NEG_WHOLE).  The K1, K1b
 bench, K4 bench, K2, K2b bench, K5 and K3 lines add
 ``bound_us_per_group``: each pass's least µs a group, by bytes or
 operations, from the step's own inputs (:func:`pass_bounds`).  A walk
-step on f32 tables writes a block's pool in the scatter of its last group
-("block-end scatter"; the other groups' "scatter", and no "pool apply"):
-its line adds ``scatter_us_per_launch``, each of the two a launch.  Each
+step on f32 tables, and a star step, writes a block's pool in the scatter
+of its last group ("block-end scatter"; the other groups' "scatter", and
+no "pool apply"): its line adds ``scatter_us_per_launch``, each of the two
+a launch.  Each
 step runs on tables it
 updates in place.  For each it prints one JSON
 line: the card's name and power limit, the step's CUDA-event ms (median of
@@ -71,10 +72,11 @@ is then the busy share to read.
 The same lines add ``library_us_per_group``: the stage, the pool apply and
 the scatter each as one PyTorch call at the step's shapes
 (:func:`library_us`: index_select into the dtype the stage writes,
-index_add_; the calls' names under "calls"), µs a group.  The walk steps'
-lines add ``pool_chains_us_per_step`` and ``slot_chains_us_per_step``:
-the device µs a step of its pools' and its groups' slots' sorts (also a
-pass, "chains", µs a group).
+index_add_; the calls' names under "calls"), µs a group.  The walk and
+star steps' lines add ``pool_chains_us_per_step`` and
+``slot_chains_us_per_step``: the device µs a step of its pools' and its
+groups' slots' sorts (also in the pass "chains" with the fold chains, µs a
+group).
 
 Each line also has ``library3_ms``: one group's (tile's) negative pass as
 three PyTorch products at its shapes (:func:`library3_ms`: scores, the
@@ -111,9 +113,14 @@ WALK_PASSES = (("band", "walk_pos_"), ("negative", "negative_"),
                ("chains", "_chains_kernel"))
 # K4's step: the walk passes and its walk generation, once a step
 WALK_GEN_PASSES = WALK_PASSES + (("gen", "walk_gen"),)
+# the star steps write as the f32 walk steps do (the block end's pool write
+# in its scatter, the chains once a step); "pool apply" reads a tree whose
+# star steps still launch apply_pool_kernel
 STAR_PASSES = (("star", "star_pos_"), ("negative", "negative_"),
                ("scatter", "star_scatter"), ("stage", "stage_pool"),
-               ("pool apply", "apply_pool"))
+               ("pool apply", "apply_pool"),
+               ("block-end scatter", "star_block_end_scatter"),
+               ("chains", "_chains_kernel"))
 FUSED_PASSES = (("positive", "fused_pos_kernel"), ("negative", "negative_"),
                 ("scatter", "fused_scatter"), ("stage", "stage_"),
                 ("pool apply", "apply_"))
@@ -186,10 +193,12 @@ def pass_bounds(ids, pools, R: int, d: int, es: int, bf16: bool,
     pool, tables of d elements of ``es`` bytes (two for a walk step, one
     for a star step), ``n_pairs`` the step's positive pairs, ``gen`` (K4)
     the generated walks' (number, length) and the CSR's bytes.  On f32
-    walk tables (es 4) the pool write is the block end's scatter's
-    ("block-end scatter": its group's slot writes, and the pool's draws,
-    its ids and its rows), and "scatter" the other groups'; every walk
-    step sorts its pools and slots once ("chains").  Returns {pass: (µs,
+    tables (es 4: the f32 walk steps and the star steps) the pool write is
+    the block end's scatter's ("block-end scatter": its group's slot
+    writes, and the pool's draws, its ids and its rows), and "scatter" the
+    other groups'; every walk step and every star step on f32 tables sorts
+    its pools and slots once ("chains"; a star step reads its meta too).
+    Returns {pass: (µs,
     "bytes" or "operations")} under WALK_PASSES', WALK_GEN_PASSES' or
     STAR_PASSES' names."""
     import torch
@@ -202,7 +211,7 @@ def pass_bounds(ids, pools, R: int, d: int, es: int, bf16: bool,
     upool = float(sum(torch.unique(p).numel() for p in pools))
     nb = pools.shape[0]
     tabs = 2 if walk else 1
-    fold = walk and es == 4
+    fold = es == 4
     # the staged pool as the negative pass reads it: f32 rows, or past 192
     # in the bf16 modes bf16 rows of whole slabs of 256 (NEG_WHOLE)
     pool_b = KP * (-(-d // 256) * 256 * 2 if bf16 and d > 192 else d * 4)
@@ -228,13 +237,15 @@ def pass_bounds(ids, pools, R: int, d: int, es: int, bf16: bool,
         in, the rows in and out (with a pool: its ids, chains and dneg in,
         and the ctx table's rows those of the slots or the pool)."""
         n = float(real[g].sum())
-        b = n * d * 4 * (3 if walk else 2) + 1024 * 4 + 2 * slot_rows[
-            g].numel() * d * es * (1 if pool is not None else tabs)
-        if walk and fold:
+        b = n * d * 4 * (3 if walk else 2) + 1024 * 4
+        if fold:
             b += 12 * n  # its place in the chains
-        if pool is not None:
+        if pool is None:
+            b += 2 * slot_rows[g].numel() * d * es * tabs
+        else:  # a walk's node rows, and the rows of the slots or the pool
             both = torch.unique(torch.cat([slot_rows[g], pool.long()]))
-            b += 2 * both.numel() * d * es + KP * (d * 4 + 4 + 12)
+            b += (2 * slot_rows[g].numel() * d * es if walk else 0) + \
+                2 * both.numel() * d * es + KP * (d * 4 + 4 + 12)
         return b
 
     if fold:
@@ -247,8 +258,10 @@ def pass_bounds(ids, pools, R: int, d: int, es: int, bf16: bool,
         out["scatter"] = (sum(scatter(g) for g in range(G)), 0.0)
         out["pool apply"] = (nb * KP * (d * 4 + 4) + 2 * upool * d * es,
                              0.0)
-    if walk:  # the pools and the slots in, their chains (3 int32 each) out
-        out["chains"] = (nb * KP * 16 + G * 1024 * 16, 0.0)
+    if walk or fold:  # the pools and the slots (a star's meta too) in,
+        # their chains (3 int32 each) out
+        out["chains"] = (nb * KP * 16 + G * 1024 * (16 if walk else 20),
+                         0.0)
     if gen is not None:  # K4: starts, draws and the CSR in, the walks out
         n_walks, L, csr_bytes = gen
         out["gen"] = (n_walks * 4 + G * 1024 * 8 + min(
@@ -595,9 +608,10 @@ def library_us(dev, d: int, ids, pools, R: int, es: int, walk: bool,
     the bf16 passes' stage past d 192), once a block; "pool apply" index_add_ of a
     pool's [KP, d] update into the table, once a block; "scatter"
     index_add_ of a group's real slots' [n, d] updates, once for each table
-    the pass writes (two for a walk step); on f32 walk tables, whose block
-    ends write the pool in their scatter, "scatter" the groups that end no
-    block and "block-end scatter" the others, with the pool's index_add_.
+    the pass writes (two for a walk step); on f32 tables (the f32 walk
+    steps and the star steps), whose block ends write the pool in their
+    scatter, "scatter" the groups that end no block and "block-end scatter"
+    the others, with the pool's index_add_.
     Each over ``n`` calls; with "calls", the calls by name.  A yardstick:
     the port never calls them."""
     import torch
@@ -627,7 +641,7 @@ def library_us(dev, d: int, ids, pools, R: int, es: int, walk: bool,
     us = {"stage": device_us(lambda i: stage(), list(range(n))) * blocks / G}
     calls = {"stage": "index_select" + (f" + .to({str(out)[6:]})" if cast
                                         else "")}
-    if walk and es == 4:  # the f32 walk steps' pool write: the block end's
+    if es == 4:  # the f32 walk and star steps' pool write: the block end's
         us["scatter"] = scatter * (G - blocks) / G
         us["block-end scatter"] = (scatter + apply) * blocks / G
         calls["scatter"] = f"index_add_ x {tabs}"
@@ -933,11 +947,13 @@ def main(argv=None) -> int:
         # groups (csrc/sgns_common.cuh: pool_chains_kernel; in another
         # tree K3's alone), and its groups' slots beside it
         # (slot_chains_kernel)
-        walk = passes in (WALK_PASSES, WALK_GEN_PASSES)
+        # (a star step's: its pools' and its groups' real slots', since
+        # this tree's star steps sort them too)
+        chained = passes in (WALK_PASSES, WALK_GEN_PASSES, STAR_PASSES)
         chains_us = device_us(lambda i: step(), [0, 1], "pool_chains",
-                              required=False) if walk else None
+                              required=False) if chained else None
         slots_us = device_us(lambda i: step(), [0, 1], "slot_chains",
-                             required=False) if walk else None
+                             required=False) if chained else None
         taken = None if before is None else set(routes_since(before))
         route = taken.pop() if taken and len(taken) == 1 else None
         bounds = lib_us = per_launch = None
@@ -954,8 +970,7 @@ def main(argv=None) -> int:
             per_launch = {
                 p: split[p] * groups / n for p, n in (
                     ("scatter", groups - nb), ("block-end scatter", nb))
-                if split.get(p) is not None and n > 0} if walk and es == 4 \
-                else None
+                if split.get(p) is not None and n > 0} if es == 4 else None
         del out
         line = {
             "card": card, "label": args.label,

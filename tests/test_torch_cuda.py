@@ -30,10 +30,16 @@ on a unigram and a hub-heavy pool), K3's slot chains and slot scatter
 alone (``chip_smoke.slot_check``, on random walks and hub-heavy groups; the
 scatter run twice), and the f32 slot writes alone, with and without the
 block end's pool (``chip_smoke.f32_scatter_check``, run twice, against the
-plain version on a CPU copy; its fold chains ``chip_smoke.fold_check``)
+plain version on a CPU copy; its fold chains ``chip_smoke.fold_check``),
+and the star writes alone, with and without the block end's pool, the star
+chains and the fold chains of a star step at R 1 and 3
+(``chip_smoke.star_scatter_check``, ``star_chains_check``,
+``star_fold_check``, on a blogcatalog star group and a layout of split
+hubs with pools that draw the hub over and over)
 their plain versions bit for bit; a step's
-pool passes are counted as its C loop launched them (every walk step's
-chains, the f32 block end's scatter in place of a pool write).  Six
+pool passes are counted as its C loop launched them (every walk and star
+step's chains, the f32 and star block end's scatter in place of a pool
+write).  Six
 consecutive K1, K3 and K2
 steps through one launch plan's graph each (``chip_smoke.graph_steps``)
 must each pass their mode's check, with at most one instantiation; six K6
@@ -99,6 +105,7 @@ from come_tpu_torch.ops.walk_sgns import (
     walk_sgns_step_reference,
 )
 from come_tpu_torch.sampling import build_star_layout
+from come_tpu_torch.sampling.stars import PAD_META
 from come_tpu_torch.tools.probe_star import VARIANTS as PROBE_VARIANTS
 from come_tpu_torch.trainer import ComETrainer
 
@@ -108,6 +115,8 @@ from chip_smoke import (
     BF16_SLAB,
     F32_SCATTER_WIDTHS,
     FUSED_EDGES,
+    STAR_WRITE_KINDS,
+    STAR_WRITE_WIDTHS,
     G1_WIDTHS,
     POOL_APPLIES,
     POOL_CHAINS,
@@ -125,6 +134,10 @@ from chip_smoke import (
     em_linalg_check,
     f32_scatter_check,
     fold_check,
+    star_chains_check,
+    star_fold_check,
+    star_hub_pool,
+    star_scatter_check,
     fused_scan_check,
     fused_steps,
     fused_stress,
@@ -1406,16 +1419,88 @@ def test_pool_chains_equal_their_plain_version(dev, kind, n, KP):
     assert r["identical"] == 1.0
 
 
+def _star_layout(dev, kind, seed):
+    """Phase 4m's star layouts: a blogcatalog star step's first 64 rows of
+    128 in a seeded order ("blog", V 10312), or chip_smoke's hub layout
+    (node 0 of degree 300 split over several rows of a group, V 3000),
+    padded to whole groups; (slots, meta, V)."""
+    if kind == "blog":
+        g = get_dataset("blogcatalog").graph
+        u, v = g.edges_undirected()
+        slots, meta = build_star_layout(u, v, g.num_nodes)
+        rows = np.random.default_rng(seed).permutation(
+            slots.size // 128)[:64]
+        slots = slots.reshape(-1, 128)[rows].reshape(-1)
+        meta = meta.reshape(-1, 128)[rows].reshape(-1)
+        V = g.num_nodes
+    else:
+        V = 3000
+        slots, meta = star_edge_layout(V, 20000, "hub", V + seed)
+        G = -(-slots.size // NWL)
+        slots = np.pad(slots, (0, G * NWL - slots.size))
+        meta = np.pad(meta, (0, G * NWL - meta.size),
+                      constant_values=PAD_META)
+    return (torch.as_tensor(slots, device=dev),
+            torch.as_tensor(meta, device=dev), V)
+
+
+@pytest.mark.parametrize("kind", ["blog", "hub"])
+def test_star_chains_equal_their_plain_version(dev, kind):
+    slots, meta, _ = _star_layout(dev, kind, 1)
+    r = star_chains_check(dev, slots, meta, timed=False)
+    assert r["identical"] == 1.0
+    if kind == "hub":
+        assert r["chain"] >= 8
+
+
+@pytest.mark.parametrize("kind,KP", STAR_WRITE_KINDS)
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("d", STAR_WRITE_WIDTHS)
+def test_star_scatter_twice_equals_its_plain_version_bit_for_bit(dev, kind,
+                                                                 KP, fold, d):
+    # star_scatter_check runs the kernel twice, on fresh copies of the
+    # table, and holds both against the plain version on a CPU copy; the
+    # block end's pool (KP 512 uniform, or KP 100 and 2048 drawing the hub
+    # and the group's rows over and over)
+    slots, meta, V = _star_layout(dev, kind, KP)
+    gen = torch.Generator(device=dev).manual_seed(KP + d)
+    sl, mt = slots[:NWL], meta[:NWL]
+    pool = None
+    if fold:
+        pool = star_hub_pool(KP, sl, mt, V, gen, dev) if kind == "hub" \
+            else torch.randint(0, V, (KP,), generator=gen, device=dev,
+                               dtype=torch.int32)
+    r = star_scatter_check(dev, d, sl, mt, V, gen, pool, timed=False)
+    assert r["identical"] == 1.0
+
+
+@pytest.mark.parametrize("kind,KP", STAR_WRITE_KINDS)
+@pytest.mark.parametrize("R", [1, 3])
+def test_star_fold_chains_of_a_step_equal_their_plain_version(dev, kind, KP,
+                                                              R):
+    slots, meta, V = _star_layout(dev, kind, 2)
+    gen = torch.Generator(device=dev).manual_seed(KP + R)
+    G = slots.numel() // NWL
+    pools = torch.stack([star_hub_pool(KP, slots[:NWL], meta[:NWL], V, gen,
+                                       dev) for _ in range(-(-G // R))])
+    r = star_fold_check(dev, slots, meta, pools, R, timed=False)
+    assert r["identical"] == 1.0 and r["chain"] > 0
+
+
 # The pool passes a step launches, counted by the C group loop as it records
 # the step (ops/walk_sgns.py::count_pool_passes): each R-block of R 2 groups
 # (B 24 walks: 3 groups, 2 blocks) has a stage ("stage_pool": f32 rows, or
 # "stage_pool_bf16": bf16 ones past d 192 in the bf16 passes) and a pool
 # write: K3's own pass, the f32 walk steps' in the block end's scatter
 # ("block_end_scatter", the other groups' "walk_scatter"), the star
-# steps' apply_pool_kernel; every walk step also sorts its pools and its
-# groups' slots once a step, and K3 runs its slot scatter once a group.
+# steps' in theirs ("star_block_end_scatter", the other groups'
+# "star_scatter"; no apply_pool_kernel); every walk and star step also
+# sorts its pools and its groups' slots once a step (and, on f32 tables,
+# the fold chains), and K3 runs its slot scatter once a group.
 F32_WALK = ("stage_pool", "pool_chains", "slot_chains", "walk_scatter",
             "block_end_scatter", "fold_chains")
+STAR_WRITES = ("stage_pool", "pool_chains", "star_chains", "star_scatter",
+               "star_block_end_scatter", "fold_chains")
 
 
 @pytest.mark.parametrize("mode,d,passes", [
@@ -1429,8 +1514,8 @@ F32_WALK = ("stage_pool", "pool_chains", "slot_chains", "walk_scatter",
     ("bf16_tables", 256, ("stage_pool_bf16", "pool_chains",
                           "apply_pool_bf16", "slot_chains",
                           "walk_scatter_bf16")),
-    ("star", 128, ("stage_pool", "apply_pool")),
-    ("star_bf16", 256, ("stage_pool_bf16", "apply_pool")),
+    ("star", 128, STAR_WRITES),
+    ("star_bf16", 256, ("stage_pool_bf16",) + STAR_WRITES[1:]),
 ])
 def test_steps_count_the_pool_passes_their_graph_launches(dev, mode, d,
                                                           passes):
@@ -1458,7 +1543,8 @@ def test_steps_count_the_pool_passes_their_graph_launches(dev, mode, d,
                            sr_seed=7 if mode == "bf16_tables" else None)
     blocks = -(-G // R)
     per_step = {"pool_chains": 1, "slot_chains": 1, "walk_scatter_bf16": G,
-                "walk_scatter": G - -(-G // R), "fold_chains": 1}
+                "walk_scatter": G - -(-G // R), "fold_chains": 1,
+                "star_chains": 1, "star_scatter": G - -(-G // R)}
     want = {k: per_step.get(k, blocks) if k in passes else 0
             for k in POOL_LAUNCHES}
     for k in POOL_LAUNCHES:

@@ -99,6 +99,7 @@ def test_the_check_finds_the_pdl_kernels():
                  "walk_pos_slab_kernel", "walk_scatter_kernel",
                  "block_end_scatter_kernel",
                  "walk_scatter_bf16_kernel", "star_scatter_kernel",
+                 "star_block_end_scatter_kernel",
                  "star_pos_kernel", "star_pos_wide_kernel",
                  "star_pos_slab_kernel",
                  "fused_pos_kernel", "fused_scatter_kernel",

@@ -396,7 +396,7 @@ def test_steps_count_the_pool_passes_their_recording_launched():
     adds the recorded counts again at each replay."""
     for k in POOL_LAUNCHES:
         POOL_LAUNCHES[k] = 0
-    plan, lib = _Plan(), _Lib((0, 3, 1, 3, 0, 1, 5, 4, 2, 1, 1))
+    plan, lib = _Plan(), _Lib((0, 3, 1, 3, 0, 1, 5, 4, 2, 1, 1, 1, 3, 2))
     count_pool_passes(plan, launch_plan.RECORD_INSTANTIATE, lib)
     count_pool_passes(plan, launch_plan.RECORD_NONE, lib)
     assert lib.reads == len(POOL_PASSES)  # a replay reads nothing
@@ -405,9 +405,11 @@ def test_steps_count_the_pool_passes_their_recording_launched():
                              "stage_pool_bf16": 0, "slot_chains": 2,
                              "walk_scatter_bf16": 10, "walk_scatter": 8,
                              "block_end_scatter": 4, "apply_pool": 2,
-                             "fold_chains": 2}
-    lib.pool = (2, 0, 0, 0, 3, 0, 0, 0, 0, 0, 0)  # a new recording (a
-    count_pool_passes(plan, launch_plan.RECORD_UPDATE, lib)  # table moved)
+                             "fold_chains": 2, "star_chains": 2,
+                             "star_scatter": 6, "star_block_end_scatter": 4}
+    # a new recording (a table moved)
+    lib.pool = (2, 0, 0, 0, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    count_pool_passes(plan, launch_plan.RECORD_UPDATE, lib)
     assert POOL_LAUNCHES["stage_pool"] == 2
     assert POOL_LAUNCHES["stage_pool_bf16"] == 3
     plan.slot = "gone"
@@ -432,16 +434,21 @@ def test_steps_count_their_own_pool_passes_beside_the_total():
 
     walk.pools, star.pools = new_pools(), new_pools()
     plan_w, plan_s = _Plan(), _Plan()
-    lib_w = _Lib((1, 0, 1, 0, 0, 1, 0, 3, 2, 0, 1))  # K1b: R 2, 5 groups
-    lib_s = _Lib((2, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0))  # K2: 2 blocks
+    # K1b: R 2, 5 groups; K2: R 2, 3 groups (2 blocks)
+    lib_w = _Lib((1, 0, 1, 0, 0, 1, 0, 3, 2, 0, 1, 0, 0, 0))
+    lib_s = _Lib((2, 0, 1, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 2))
     for _ in range(2):
         count_pool_passes(plan_w, launch_plan.RECORD_NONE, lib_w, walk)
         count_pool_passes(plan_s, launch_plan.RECORD_NONE, lib_s, star)
     count_pool_passes(plan_s, launch_plan.RECORD_NONE, lib_s)
     assert walk.pools["block_end_scatter"] == 4
     assert walk.pools["walk_scatter"] == 6 and walk.pools["apply_pool"] == 0
-    assert star.pools["apply_pool"] == 4 and star.pools["walk_scatter"] == 0
-    assert POOL_LAUNCHES["apply_pool"] == 6
+    assert walk.pools["star_block_end_scatter"] == 0
+    assert star.pools["star_block_end_scatter"] == 4
+    assert star.pools["star_scatter"] == 2 and star.pools["star_chains"] == 2
+    assert star.pools["apply_pool"] == 0 and star.pools["walk_scatter"] == 0
+    assert POOL_LAUNCHES["star_block_end_scatter"] == 6
+    assert POOL_LAUNCHES["fold_chains"] == 2 + 3
     assert POOL_LAUNCHES["stage_pool"] == 2 + 6
     for k in POOL_LAUNCHES:
         POOL_LAUNCHES[k] = 0
@@ -467,6 +474,10 @@ def test_the_pool_passes_are_named_in_the_c_order():
     ("come_walk_scatter_bf16", "walk_sgns.cu"),
     ("come_walk_scatter_f32", "walk_sgns.cu"),
     ("come_fold_chains", "walk_sgns.cu"),
+    ("come_star_chains", "star_sgns.cu"),
+    ("come_star_fold_chains", "star_sgns.cu"),
+    ("come_star_scatter", "star_sgns.cu"),
+    ("come_star_sgns_step", "star_sgns.cu"),
     ("come_walk_sgns_step", "walk_sgns.cu"),
     ("come_walk_sgns_gen_step", "walk_sgns.cu"),
     ("come_step_graph_pool", "step_graph.cu"),
